@@ -1,0 +1,106 @@
+"""Build-on-demand of the package's CUDA sources and their ctypes binding.
+
+``csrc/*.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, at first use, under
+``build/heatflow_tpu_torch/`` beside the package; the file name carries a
+hash of the sources and flags, so an edited source rebuilds and an unchanged
+one loads the cached library. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "heatflow_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lib = None
+build_info: dict = {}
+
+
+def find_nvcc() -> str:
+    """nvcc from PyTorch's CUDA_HOME, else from PATH; raises if missing."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in CUDA_HOME and PATH): "
+                           "the CUDA kernels cannot be built")
+    return found
+
+
+def _sources() -> list[str]:
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libhf_cuda_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the sources if the hashed library is missing; returns its path
+    and records the compile time and the ptxas report in ``build_info``."""
+    so = library_path()
+    if os.path.exists(so):
+        build_info.update(path=so, seconds=0.0, cached=True)
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, so)
+    build_info.update(path=so, seconds=seconds, cached=False,
+                      ptxas=proc.stderr)
+    return so
+
+
+def _sig(fn, *argtypes):
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernels' library, with argtypes set:
+    every pointer and the stream as ``c_void_p``, every count as ``c_int``."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(build())
+    P, I = ctypes.c_void_p, ctypes.c_int
+    solve = [P, I, P, P, P, P, P, I, P, I, P, P, P, P, P, P, I, P, I, I, I,
+             I, P, P]
+    _sig(lib.hf_cg_nparts, I, I)
+    _sig(lib.hf_cg_state_bytes)
+    _sig(lib.hf_num_phases)
+    _sig(lib.hf_cg_tol_start, *solve)
+    _sig(lib.hf_cg_tol_iterate, *solve, I)
+    _sig(lib.hf_cg_tol_finish, P, P, P, I, P, P)
+    _sig(lib.hf_stencil_dot, P, I, P, P, P, P, I, I, P, P)
+    _sig(lib.hf_pcr_r, P, P, P, I, P, P, I, I, P, P)
+    _sig(lib.hf_pcr_z, P, P, P, I, P, P, I, I, P, P)
+    _lib = lib
+    return _lib

@@ -1,0 +1,444 @@
+"""Backward-Euler transient stepper: a Python loop of device steps.
+
+The reference's hot loop (run_no_diamond.py:529-589) does, per step: update
+the heating BC, re-assemble the RHS, a MUMPS back-substitution, a second
+solve for the r-weighted L2 gradient projection, then sampling of watcher
+points and radial bands. Here each step is:
+
+  * BC values: one interpolation of the heating curve and a precomputed
+    Gaussian profile; the Dirichlet lift A g is affine in the amplitude, so
+    A g0 and A g1 are applied once per run;
+  * RHS: one stencil application (M_op @ u_n);
+  * solve: PCG on the symmetrically Jacobi-scaled operator, eager
+    (``solver='xla'``) or through the CUDA kernel (``solver='vmem'``,
+    :func:`heatflow_tpu_torch.ops.cuda_cg.cg_tol`), optionally inside f64
+    residual refinement passes;
+  * gradient projection: stencil rhs (G_r @ u) and a mass-matrix PCG;
+  * watcher traces, band averages and axis profiles gathered on the device
+    and stacked at the end. The host reads nothing inside the step, except
+    the previous step's iteration count under ``precondition='adaptive'``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from heatflow_tpu_torch.ops.cg import pcg, refine_inner_scale
+from heatflow_tpu_torch.ops.stencil import apply_stencil, combine_operator
+from heatflow_tpu_torch.sim.problem import Problem2D
+
+
+@dataclass
+class TransientResult:
+    times: np.ndarray                 # (S,)
+    watcher: np.ndarray | None        # (S, W)
+    watcher_names: list[str]
+    band_rows: np.ndarray | None      # (S, n_bins) z-binned band-avg ∂T/∂r
+    band_centers: np.ndarray | None   # (n_bins,)
+    axis_rows: np.ndarray | None      # (S, Nz) raw ∂T/∂r at r=0 nodes
+    axis_z: np.ndarray | None         # (Nz,)
+    fields: np.ndarray | None         # (S, Nz, Nr) if recorded
+    final_u: np.ndarray               # (Nz, Nr)
+    cg_iters: np.ndarray              # (S,)
+    proj_iters: np.ndarray | None     # (S,)
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """numpy.interp on the device: linear between knots, clamped outside."""
+    i = torch.clamp(torch.searchsorted(xp, x.reshape(1), right=True)[0], 1,
+                    len(xp) - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = float(np.spacing(np.finfo(
+        np.float32 if xp.dtype == torch.float32 else np.float64).eps))
+    dx0 = torch.abs(dx) <= eps
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx),
+                                                     dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to heatflow_tpu_torch "
+                               f"yet (ROADMAP {item})")
+
+
+def make_step_fn(problem: Problem2D, **_kw):
+    """A single fixed-iteration step function (not ported yet)."""
+    raise _not_ported("make_step_fn", "P3")
+
+
+def _resolve_solver(solver: str, precondition: str, device: torch.device,
+                    dtype: torch.dtype) -> bool:
+    """True when the step solves go through ``cg_tol`` (the 'vmem' path)."""
+    if solver not in ("xla", "vmem", "auto"):
+        raise ValueError(f"unknown solver {solver!r}")
+    use_vmem = solver == "vmem" or (
+        solver == "auto" and device.type == "cuda"
+        and dtype == torch.float32)
+    if use_vmem and precondition == "zline":
+        # only the r-line (and ADI) forms have a PCR in the kernel
+        if solver == "vmem":
+            raise ValueError("precondition='zline' is not available in the "
+                             "cg_tol kernel; use solver='xla'")
+        use_vmem = False
+    if precondition == "adaptive" and not use_vmem:
+        raise ValueError("precondition='adaptive' (per-step rline/adi "
+                         "switch) requires the cg_tol solver path "
+                         "(solver='vmem', or 'auto' on a CUDA device in "
+                         "float32)")
+    return use_vmem
+
+
+class Simulator(nn.Module):
+    """``simulate(kappas, rho_cvs, fwhm, u0, t0, source) -> dict`` of
+    per-step traces; the buffers are the problem's device tensors."""
+
+    def __init__(self, problem: Problem2D, dev: dict[str, torch.Tensor], *,
+                 dtype: torch.dtype, cdt: torch.dtype, use_vmem: bool,
+                 opts: dict):
+        super().__init__()
+        for name, t in dev.items():
+            self.register_buffer(name, t, persistent=False)
+        self._names = tuple(dev)
+        self.problem = problem
+        self.dtype = dtype
+        self.cdt = cdt
+        self.use_vmem = use_vmem
+        self.opts = opts
+
+    @property
+    def dev(self) -> dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in self._names}
+
+    def forward(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
+                t0=0.0, source=None) -> dict[str, torch.Tensor]:
+        d = self.dev
+        cdt, device = self.cdt, d["free"].device
+        as_c = lambda v: torch.as_tensor(v, dtype=cdt, device=device)
+        kp = d["kappas"] if kappas is None else as_c(kappas)
+        rc = d["rho_cvs"] if rho_cvs is None else as_c(rho_cvs)
+        fw = as_c(self.problem.fwhm if fwhm is None else fwhm)
+        nz, nr = self.problem.mesh.shape
+        ic = as_c(self.problem.ic_temp)
+        u0 = torch.full((nz, nr), float(self.problem.ic_temp), dtype=cdt,
+                        device=device) if u0 is None else as_c(u0)
+        src = None if source is None else as_c(source)
+        with torch.no_grad():
+            return self._run(d, kp, rc, fw, ic, u0, as_c(t0), src)
+
+    def _run(self, d, kp, rc, fw, ic, u0, t0, source):
+        o = self.opts
+        dtype, cdt, use_vmem = self.dtype, self.cdt, self.use_vmem
+        precondition, f64_refine = o["precondition"], o["f64_refine"]
+        rtol, maxiter, rtol_wrt = o["rtol"], o["maxiter"], o["rtol_wrt"]
+        problem = self.problem
+        nz, nr = problem.mesh.shape
+        device = u0.device
+        num_steps = int(problem.num_steps)
+        dt = torch.tensor(problem.dt, dtype=cdt, device=device)
+        has_watch = "watch_flat" in d
+        has_radial = problem.radial is not None and o["record_gradient"]
+        n_bins = len(problem.radial.bin_counts) if has_radial else 0
+        one = lambda v: torch.ones_like(v)
+
+        K, M = d["K"], d["M"]
+        G_r, M_proj = d["G_r"], d["M_proj"]
+        free, dirich = d["free"], d["dirichlet"]
+        heat_t, heat_T = d["heat_t"], d["heat_T"]
+        amp_offset = heat_T[0] - ic   # ref run_no_diamond.py:299-301
+
+        # symmetrically scaled mass solve for the gradient projection
+        # (operator entries span ~15 decades; unit diagonal is f32-safe)
+        s_mp = torch.rsqrt(torch.where(M_proj[0] > 0, M_proj[0],
+                                       one(M_proj[0])))
+        apply_Mp_s = lambda y: s_mp * apply_stencil(M_proj, s_mp * y)
+
+        A, M_op = combine_operator(K, M, kp, rc, dt)
+        diag_a = A[0]
+        # symmetric Jacobi scaling (≡ Jacobi preconditioning in exact
+        # arithmetic, numerically far better at low precision)
+        s = torch.rsqrt(torch.where(diag_a > 0, diag_a, one(diag_a))) \
+            * free + dirich
+        apply_A_s = lambda y: s * apply_stencil(A, s * y)
+        sm_vmem = s * free if use_vmem else None
+
+        from heatflow_tpu_torch.ops.cuda_cg import cg_tol, pcr_pack
+        from heatflow_tpu_torch.ops.linesolve import (adi_preconditioner,
+                                                      line_preconditioner)
+
+        def line_pre(A_, s_, free_):
+            """(eager preconditioner, r-stack, z-stack) for the form."""
+            if use_vmem and precondition in ("rline", "adi", "adaptive"):
+                z_stack = (pcr_pack(A_, s_, free_, axis=-2)
+                           if precondition in ("adi", "adaptive") else None)
+                return None, pcr_pack(A_, s_, free_), z_stack
+            if precondition == "adi":
+                return adi_preconditioner(A_, s_, free_), None, None
+            if precondition in ("rline", "zline"):
+                axis = -1 if precondition == "rline" else -2
+                return line_preconditioner(A_, s_, free_, axis=axis), \
+                    None, None
+            return None, None, None
+
+        if not f64_refine:
+            pre, pcr_stack, pcr_z_stack = line_pre(A, s, free)
+
+        coeff = torch.tensor(-4.0 * math.log(2.0), dtype=cdt,
+                             device=device) / (fw * fw)
+        profile = torch.exp(coeff * d["r_sq"]) * d["heat_profile_base"]
+        # BC value g(t) = g0 + amp(t)·g1: (amp - ic) Gaussian + ic on the
+        # heating line, ic on fixed edges (ref run_no_diamond.py:303-309)
+        g0 = ic * (dirich - profile)
+        g1 = profile
+        Ag0 = apply_stencil(A, g0)
+        Ag1 = apply_stencil(A, g1)
+        # volumetric source: rhs += dt ∫ f φ r dx = dt (M_proj @ f)
+        b_src = 0.0 if source is None else dt * apply_stencil(M_proj, source)
+
+        if f64_refine:
+            # f32 casts of the scaled system for the inner correction
+            # solves; the f64 master operator computes only the residuals
+            A32, s32, free32 = A.to(dtype), s.to(dtype), free.to(dtype)
+            sm32 = (s * free).to(dtype)
+            apply_A32_s = lambda y: s32 * apply_stencil(A32, s32 * y)
+            pre32, pcr_stack32, pcr_z_stack32 = line_pre(A32, s32, free32)
+            s_mp32 = s_mp.to(dtype)
+            G_r32, M_proj32 = G_r.to(dtype), M_proj.to(dtype)
+            apply_Mp_s32 = lambda y: s_mp32 * apply_stencil(M_proj32,
+                                                            s_mp32 * y)
+
+        def solve_refined(b_lift, y0, use_adi):
+            """f64_refine passes of f64 residual / f32 correction on the
+            scaled system, each inner solve from a zero seed."""
+            bt = b_lift * free
+            # inner stop floor: a residual at f64 roundoff relative to the
+            # step's rhs has nothing left to correct
+            floor2 = 1e-30 * torch.sum(bt * bt)
+            y = y0
+            iters = torch.zeros((), dtype=torch.int32, device=device)
+            z32 = torch.zeros((nz, nr), dtype=dtype, device=device)
+            for _ in range(f64_refine):
+                r64 = bt - free * apply_A_s(y)
+                rn2 = torch.sum(r64 * r64)
+                rnorm, rtol_eff = refine_inner_scale(rn2, floor2, rtol,
+                                                     dtype)
+                r32 = (r64 / rnorm).to(dtype)
+                if use_vmem:
+                    dy, its = cg_tol(
+                        A32, sm32, r32, z32, rtol_eff, maxiter=maxiter,
+                        rtol_wrt="b", pcr=pcr_stack32,
+                        pcr_z=None if use_adi is False else pcr_z_stack32)
+                else:
+                    sol = pcg(apply_A32_s, r32, z32, precond=pre32,
+                              mask=free32, rtol=rtol_eff, maxiter=maxiter,
+                              rtol_wrt="b")
+                    dy, its = sol.x, sol.iters
+                y = y + dy.to(cdt) * rnorm
+                iters = iters + its
+            return y, iters
+
+        adaptive = precondition == "adaptive"
+        extrapolate = o["warm_start"] == "extrapolate"
+        # the first (cold) step is the deepest solve: start on the ADI form
+        it_prev = maxiter
+        ts = torch.arange(1, num_steps + 1, dtype=cdt, device=device) * dt \
+            + t0
+        u_prev = u_pp = u0
+        gr_prev = gr_pp = torch.zeros((nz, nr), dtype=dtype, device=device)
+        outs: dict[str, list] = {"cg_iters": []}
+        for n in range(num_steps):
+            use_adi = it_prev > o["adaptive_thresh"] if adaptive else None
+            amp = interp(ts[n], heat_t, heat_T) - amp_offset
+            g = g0 + amp * g1
+            b = apply_stencil(M_op, u_prev) + b_src
+            b_lift = (b - (Ag0 + amp * Ag1)) * s
+            u_seed = 2.0 * u_prev - u_pp if extrapolate else u_prev
+            y0 = (u_seed / torch.where(s > 0, s, one(s))) * free
+            if f64_refine:
+                x, iters = solve_refined(b_lift, y0, use_adi)
+            elif use_vmem:
+                x, iters = cg_tol(
+                    A, sm_vmem, b_lift * free, y0, rtol, maxiter=maxiter,
+                    rtol_wrt=rtol_wrt, pcr=pcr_stack,
+                    pcr_z=None if use_adi is False else pcr_z_stack)
+            else:
+                sol = pcg(apply_A_s, b_lift, y0, precond=pre, mask=free,
+                          rtol=rtol, maxiter=maxiter, rtol_wrt=rtol_wrt)
+                x, iters = sol.x, sol.iters
+            u = x * s * free + g
+            outs["cg_iters"].append(iters)
+            if has_watch:
+                outs.setdefault("watch", []).append(
+                    u.reshape(-1)[d["watch_flat"]])
+            if has_radial:
+                # the projection seed rides the same warm-start knob
+                gr_seed = 2.0 * gr_prev - gr_pp if extrapolate else gr_prev
+                if f64_refine:
+                    br = s_mp32 * apply_stencil(G_r32, u.to(dtype))
+                    gsol = pcg(apply_Mp_s32, br, gr_seed / s_mp32,
+                               rtol=o["proj_rtol"],
+                               maxiter=o["proj_maxiter"])
+                    gr = gsol.x * s_mp32
+                else:
+                    br = s_mp * apply_stencil(G_r, u)
+                    gsol = pcg(apply_Mp_s, br, gr_seed / s_mp,
+                               rtol=o["proj_rtol"],
+                               maxiter=o["proj_maxiter"])
+                    gr = gsol.x * s_mp
+                vals = gr.reshape(-1)[d["band_nodes"]]
+                sums = torch.zeros(n_bins, dtype=gr.dtype,
+                                   device=device).index_add_(
+                    0, d["band_bins"], vals)
+                outs.setdefault("band", []).append(sums / d["bin_counts"])
+                outs.setdefault("axis", []).append(gr[:, 0])
+                outs.setdefault("proj_iters", []).append(gsol.iters)
+            else:
+                gr = gr_prev
+            if o["record_fields"]:
+                outs.setdefault("field", []).append(u)
+            u_pp, u_prev = u_prev, u
+            gr_pp, gr_prev = gr_prev, gr
+            if adaptive:
+                it_prev = int(iters)   # the one host read of a step
+        ys = {k: torch.stack(v) for k, v in outs.items()}
+        ys["final_u"] = u_prev
+        ys["times"] = ts
+        return ys
+
+
+def make_simulate_fn(problem: Problem2D,
+                     *,
+                     dtype: torch.dtype = torch.float64,
+                     device="cpu",
+                     rtol: float = 1e-11,
+                     maxiter: int = 20000,
+                     fixed_iters: int | None = None,
+                     proj_rtol: float = 1e-11,
+                     proj_maxiter: int = 400,
+                     record_gradient: bool = True,
+                     record_fields: bool = False,
+                     precondition: str = "jacobi",
+                     rtol_wrt: str = "r0",
+                     solver: str = "xla",
+                     vmem_cheb_degree: int = 0,
+                     mgz_sweeps: int = 1,
+                     warm_start: str = "previous",
+                     mesh=None,
+                     f64_refine: int = 0,
+                     inner_seed: str = "zero",
+                     adaptive_thresh: int = 100) -> Simulator:
+    """Build ``simulate(kappas, rho_cvs, fwhm, u0, t0, source)`` for
+    ``problem`` on ``device``.
+
+    ``f64_refine``: mixed-precision iterative refinement (``dtype`` must be
+    float32). Each step's solve becomes N passes of: the residual against
+    the float64 operator, an f32 correction solve to ``rtol`` with the
+    configured engine, and the update accumulated in float64; the state is
+    carried in float64.
+
+    ``warm_start``: 'previous' seeds each step's CG with u_n, 'extrapolate'
+    with 2·u_n − u_{n−1}.
+
+    ``precondition='adaptive'`` (cg_tol path only): each step runs the r-line
+    form unless the previous step's iteration count exceeded
+    ``adaptive_thresh``, in which case it runs the ADI form; both PCR stacks
+    are packed once per run.
+
+    ``solver``: 'xla' is the eager torch PCG, 'vmem' the ``cg_tol`` kernel
+    path (its plain version for CPU tensors), 'auto' the kernel on a CUDA
+    device in float32 and eager otherwise.
+
+    Memoized per problem (``problem.extras``) keyed by every argument.
+    """
+    if precondition == "mg":
+        raise _not_ported("precondition='mg'", "P8")
+    if precondition == "mgz":
+        raise _not_ported("precondition='mgz'", "K5")
+    if fixed_iters is not None:
+        raise _not_ported("fixed_iters (pcg_fixed)", "P3")
+    if vmem_cheb_degree:
+        raise _not_ported("vmem_cheb_degree (the Chebyshev form of cg_tol)",
+                          "K1")
+    if mesh is not None:
+        raise _not_ported("z-sharding through mesh=", "P11")
+    if warm_start == "extrapolate2":
+        raise _not_ported("warm_start='extrapolate2'", "P3")
+    if inner_seed == "carry":
+        raise _not_ported("inner_seed='carry'", "P3")
+    if inner_seed != "zero":
+        raise ValueError(f"unknown inner_seed {inner_seed!r}")
+    if warm_start not in ("previous", "extrapolate"):
+        raise ValueError(f"unknown warm_start {warm_start!r}")
+    if precondition not in ("jacobi", "rline", "zline", "adi", "adaptive"):
+        raise ValueError(f"unknown precondition {precondition!r}")
+    if rtol_wrt not in ("r0", "b"):
+        raise ValueError(f"unknown rtol_wrt {rtol_wrt!r}")
+    device = torch.device(device)
+    if f64_refine:
+        if dtype != torch.float32:
+            raise ValueError("f64_refine is the mixed-precision mode: dtype "
+                             "must be float32")
+        # the refined inner solves stop wrt their own unit-norm rhs
+        rtol_wrt = "b"
+    use_vmem = _resolve_solver(solver, precondition, device, dtype)
+
+    opts = dict(rtol=rtol, maxiter=maxiter, proj_rtol=proj_rtol,
+                proj_maxiter=proj_maxiter, record_gradient=record_gradient,
+                record_fields=record_fields, precondition=precondition,
+                rtol_wrt=rtol_wrt, warm_start=warm_start,
+                f64_refine=int(f64_refine),
+                adaptive_thresh=adaptive_thresh)
+    cache_key = ("simulate_fn", str(dtype), str(device), use_vmem,
+                 tuple(sorted(opts.items())))
+    cache = problem.extras.setdefault("_fn_cache", {})
+    if cache_key in cache:
+        return cache[cache_key]
+    cdt = torch.float64 if f64_refine else dtype
+    fn = Simulator(problem, problem.device_arrays(cdt, device), dtype=dtype,
+                   cdt=cdt, use_vmem=use_vmem, opts=opts)
+    cache[cache_key] = fn
+    return fn
+
+
+def run_transient(problem: Problem2D, *, dtype: torch.dtype = torch.float64,
+                  device="cpu",
+                  rtol: float = 1e-11, maxiter: int = 20000,
+                  fixed_iters: int | None = None,
+                  record_gradient: bool = True,
+                  record_fields: bool = False,
+                  precondition: str = "jacobi", solver: str = "xla",
+                  warm_start: str = "previous", mesh=None, f64_refine: int = 0,
+                  inner_seed: str = "zero",
+                  kappas=None, rho_cvs=None, fwhm=None,
+                  u0=None, t0: float = 0.0, source=None) -> TransientResult:
+    """Build, run, and bring the results back to the host as numpy."""
+    fn = make_simulate_fn(
+        problem, dtype=dtype, device=device, rtol=rtol, maxiter=maxiter,
+        fixed_iters=fixed_iters, record_gradient=record_gradient,
+        record_fields=record_fields, precondition=precondition,
+        solver=solver, warm_start=warm_start, mesh=mesh,
+        f64_refine=f64_refine, inner_seed=inner_seed)
+    ys = {k: v.cpu().numpy() for k, v in
+          fn(kappas, rho_cvs, fwhm, u0, t0, source).items()}
+    rad = problem.radial if record_gradient else None
+    return TransientResult(
+        times=ys["times"],
+        watcher=ys.get("watch"),
+        watcher_names=list(problem.watcher_names),
+        band_rows=ys.get("band"),
+        band_centers=None if rad is None else rad.bin_centers,
+        axis_rows=ys.get("axis"),
+        axis_z=None if rad is None else rad.axis_z,
+        fields=ys.get("field"),
+        final_u=ys["final_u"],
+        cg_iters=ys["cg_iters"],
+        proj_iters=ys.get("proj_iters"),
+    )

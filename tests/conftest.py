@@ -16,3 +16,8 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where CUDA is absent")

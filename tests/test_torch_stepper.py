@@ -1,0 +1,257 @@
+"""The port's transient slice against the JAX package: the float64 default
+path (and the golden file), the float32 adaptive refinement recipe against
+the Pallas kernel in interpret mode, and the options the stepper rejects."""
+
+import os
+import unittest.mock as mock
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import heatflow_tpu as J
+import heatflow_tpu_torch as T
+from heatflow_tpu.geometry import coupler_watcher_points as j_watch
+from heatflow_tpu.ops import pallas_cg
+from heatflow_tpu.ops.stencil import assemble_stencils as j_assemble
+from heatflow_tpu.sim.bc import HeatingCurve as JHeating
+from heatflow_tpu.sim.problem import build_problem as j_build_problem
+from heatflow_tpu.sim.stepper import make_simulate_fn as j_make
+from heatflow_tpu.sim.stepper import run_transient as j_run
+from heatflow_tpu_torch.geometry import coupler_watcher_points as t_watch
+from heatflow_tpu_torch.ops import cuda_cg
+from heatflow_tpu_torch.sim.bc import HeatingCurve as THeating
+from heatflow_tpu_torch.sim.problem import build_problem as t_build_problem
+from heatflow_tpu_torch.sim.stepper import make_simulate_fn as t_make
+from heatflow_tpu_torch.sim.stepper import run_transient as t_run
+from tests.fixtures import synthetic_heating, tiny_no_diamond_cfg
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(ROOT, "tests", "golden", "tiny_no_diamond_f64.npz")
+FLAGSHIP = os.path.join(ROOT, "cfgs", "geballe_with_diamond.yaml")
+FLAGSHIP_CSV = os.path.join(ROOT, "experimental_data",
+                            "geballe_heat_data.csv")
+RECIPE = dict(record_gradient=False, rtol_wrt="r0", solver="vmem",
+              precondition="adaptive", warm_start="extrapolate",
+              f64_refine=1, maxiter=8000)
+
+
+def rel_l2(a, b):
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
+                 / np.linalg.norm(np.asarray(b)))
+
+
+def _tiny_pair():
+    """test_golden's tiny no-diamond problem, built by each package."""
+    cfg = tiny_no_diamond_cfg(coarse=2.0)
+    df = synthetic_heating()
+    t, temp = df["time"].to_numpy(), df["temp"].to_numpy()
+    dj, mj = J.build_layout(cfg)
+    pj = j_build_problem(J.build_structured_mesh(dj, mj),
+                         JHeating(time=t, temp=temp), cfg,
+                         watcher_points=j_watch(cfg))
+    dt_, mt = T.build_layout(cfg)
+    pt = t_build_problem(T.build_structured_mesh(dt_, mt),
+                         THeating(time=t, temp=temp), cfg,
+                         watcher_points=t_watch(cfg))
+    return pj, pt
+
+
+def _dac_pair(num_steps=12, size_scale=16.0):
+    """The 9-material flagship cut to 20 x 72 nodes and ``num_steps``
+    steps, with the flagship heating curve."""
+    cfg = T.load_config(FLAGSHIP)
+    cfg["timing"]["num_steps"] = num_steps
+    dj, mj = J.build_layout(cfg)
+    mesh_j = J.build_structured_mesh(dj, mj, size_scale=size_scale)
+    pj = j_build_problem(mesh_j, JHeating.from_csv(FLAGSHIP_CSV), cfg,
+                         watcher_points=j_watch(cfg),
+                         stencils=j_assemble(mesh_j, backend="numpy"))
+    dt_, mt = T.build_layout(cfg)
+    pt = t_build_problem(T.build_structured_mesh(dt_, mt,
+                                                 size_scale=size_scale),
+                         THeating.from_csv(FLAGSHIP_CSV), cfg,
+                         watcher_points=t_watch(cfg))
+    return pj, pt
+
+
+@pytest.fixture(scope="module")
+def tiny_runs():
+    pj, pt = _tiny_pair()
+    return j_run(pj, rtol=1e-13), t_run(pt, rtol=1e-13)
+
+
+def test_f64_default_path_matches_jax(tiny_runs):
+    rj, rt = tiny_runs
+    np.testing.assert_array_equal(rt.times, rj.times)
+    for name in ("watcher", "band_rows", "axis_rows", "final_u"):
+        assert rel_l2(getattr(rt, name), getattr(rj, name)) < 1e-8, name
+    np.testing.assert_array_equal(rt.cg_iters, rj.cg_iters)
+    assert rt.watcher_names == rj.watcher_names
+    np.testing.assert_array_equal(rt.band_centers, rj.band_centers)
+
+
+def test_f64_default_path_passes_golden(tiny_runs):
+    _, rt = tiny_runs
+    g = np.load(GOLDEN)
+    np.testing.assert_allclose(rt.times, g["times"], rtol=1e-14)
+    scale = np.abs(g["watcher"]).max()
+    assert np.abs(rt.watcher - g["watcher"]).max() / scale < 1e-9
+    np.testing.assert_allclose(rt.band_centers, g["band_centers"],
+                               rtol=1e-14)
+    np.testing.assert_allclose(rt.axis_z, g["axis_z"], rtol=1e-14)
+    assert np.abs(rt.band_rows - g["band"]).max() \
+        / np.abs(g["band"]).max() < 1e-6
+    assert np.abs(rt.axis_rows - g["axis"]).max() \
+        / np.abs(g["axis"]).max() < 1e-6
+
+
+@pytest.mark.parametrize("precondition", ["rline", "zline", "adi"])
+def test_f64_line_preconditioned_paths_match_jax(precondition):
+    pj, pt = _tiny_pair()
+    kw = dict(rtol=1e-12, precondition=precondition, record_gradient=True,
+              warm_start="extrapolate")
+    yj = j_make(pj, **kw)()
+    yt = t_make(pt, **kw)()
+    for name in ("watch", "band", "axis", "final_u"):
+        assert rel_l2(yt[name].numpy(), yj[name]) < 1e-8, name
+    np.testing.assert_array_equal(yt["cg_iters"].numpy(), yj["cg_iters"])
+
+
+def _interp_tol(*a, **kw):
+    kw["interpret"] = True
+    return _ORIG_TOL(*a, **kw)
+
+
+_ORIG_TOL = pallas_cg.cg_vmem_tol
+
+
+@pytest.fixture(scope="module")
+def dac_runs():
+    """The bench recipe on the small 9-material problem: JAX (Pallas in
+    interpret mode) and the port at two tolerances, plus the float64
+    reference traces."""
+    pj, pt = _dac_pair()
+    truth = np.asarray(j_make(pj, rtol=1e-11, record_gradient=False)()
+                       ["watch"])
+    out = {"truth": truth}
+    for rtol in (1e-6, 1e-4):
+        with mock.patch("heatflow_tpu.ops.pallas_cg.cg_vmem_tol",
+                        _interp_tol):
+            yj = j_make(pj, dtype=jnp.float32, rtol=rtol, **RECIPE)()
+        forms = []
+        orig_ref = cuda_cg.cg_tol_reference
+
+        def spy(*a, **kw):
+            forms.append("adi" if kw.get("pcr_z") is not None else "rline")
+            return orig_ref(*a, **kw)
+
+        with mock.patch.object(cuda_cg, "cg_tol_reference", spy):
+            yt = t_make(pt, dtype=torch.float32, rtol=rtol, **RECIPE)()
+        out[rtol] = (yj, yt, forms)
+    return out
+
+
+def test_recipe_tight_tolerance_matches_jax(dac_runs):
+    yj, yt, _ = dac_runs[1e-6]
+    ij, it = np.asarray(yj["cg_iters"]), yt["cg_iters"].numpy()
+    assert np.abs(it.astype(int) - ij.astype(int)).max() <= 2, (it, ij)
+    wj, wt = np.asarray(yj["watch"]), yt["watch"].numpy()
+    assert np.abs(wt - wj).max() <= 1e-5 * (wj.max() - wj.min())
+
+
+def test_recipe_bench_tolerance_accuracy(dac_runs):
+    yj, yt, _ = dac_runs[1e-4]
+    truth = dac_runs["truth"]
+    err_j = np.abs(np.asarray(yj["watch"]) - truth).max()
+    err_t = np.abs(yt["watch"].numpy() - truth).max()
+    assert np.isfinite(yt["watch"].numpy()).all()
+    assert err_t <= 1.5 * err_j + 0.1, (err_t, err_j)
+
+
+def test_recipe_switches_adi_then_rline(dac_runs):
+    """Step 1 (cold start) runs the ADI form; a shallow step runs r-line;
+    every deep step is followed by an ADI step."""
+    for rtol in (1e-6, 1e-4):
+        _, yt, forms = dac_runs[rtol]
+        iters = yt["cg_iters"].numpy()
+        assert len(forms) == len(iters)
+        assert forms[0] == "adi"
+        assert "rline" in forms[1:]
+        want = ["adi"] + ["adi" if i > 100 else "rline" for i in iters[:-1]]
+        assert forms == want
+
+
+def test_auto_resolves_to_eager_on_cpu():
+    _, pt = _tiny_pair()
+    fn = t_make(pt, dtype=torch.float32, solver="auto", rtol=1e-5,
+                record_gradient=False)
+    assert fn.use_vmem is False
+    with pytest.raises(ValueError, match="adaptive"):
+        t_make(pt, dtype=torch.float32, solver="auto",
+               precondition="adaptive")
+    with pytest.raises(ValueError, match="zline"):
+        t_make(pt, dtype=torch.float32, solver="vmem", precondition="zline")
+    with pytest.raises(ValueError, match="float32"):
+        t_make(pt, dtype=torch.float64, f64_refine=1)
+
+
+@pytest.mark.parametrize("kw", [
+    {"precondition": "mg"}, {"precondition": "mgz"}, {"fixed_iters": 10},
+    {"vmem_cheb_degree": 4}, {"mesh": object()},
+    {"warm_start": "extrapolate2"},
+    {"f64_refine": 1, "dtype": torch.float32, "inner_seed": "carry"}],
+    ids=["mg", "mgz", "fixed_iters", "cheb", "mesh", "extrapolate2",
+         "carry"])
+def test_unported_options_raise(kw):
+    _, pt = _tiny_pair()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_make(pt, **kw)
+
+
+@pytest.mark.parametrize("name", ["make_step_fn", "pcg_fixed", "pcg_solve"])
+def test_unported_functions_raise(name):
+    from heatflow_tpu_torch.ops import cg
+    from heatflow_tpu_torch.sim import stepper
+    fn = getattr(stepper if name == "make_step_fn" else cg, name)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fn(None)
+
+
+def test_simulate_module_fields_and_overrides():
+    """simulate() takes material, FWHM, initial-field and source overrides
+    like the JAX function, records fields, and is memoized per problem."""
+    pj, pt = _tiny_pair()
+    kw = dict(rtol=1e-12, record_gradient=False, record_fields=True)
+    fn = t_make(pt, **kw)
+    assert isinstance(fn, torch.nn.Module) and t_make(pt, **kw) is fn
+    assert fn.K.dtype == torch.float64
+    rng = np.random.default_rng(11)
+    kappas = pt.kappas * rng.uniform(0.8, 1.2, len(pt.kappas))
+    u0 = np.full(pt.mesh.shape, pt.ic_temp) + rng.uniform(0, 5,
+                                                          pt.mesh.shape)
+    source = rng.uniform(0, 1e12, pt.mesh.shape)
+    args = (kappas, pt.rho_cvs * 1.1, pt.fwhm * 0.9, u0, 1e-7, source)
+    yt = fn(*args)
+    yj = j_make(pj, **kw)(*args)
+    assert yt["field"].shape == (pt.num_steps,) + pt.mesh.shape
+    for name in ("watch", "field", "final_u", "times"):
+        assert rel_l2(yt[name].numpy(), yj[name]) < 1e-8, name
+
+
+@pytest.mark.cuda
+def test_recipe_on_cuda_launches_both_forms():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    _, pt = _dac_pair(num_steps=12)
+    fn = t_make(pt, dtype=torch.float32, device="cuda", rtol=1e-4,
+                **dict(RECIPE, solver="auto"))
+    assert fn.use_vmem
+    cuda_cg.reset_counters()
+    ys = fn()
+    assert torch.isfinite(ys["watch"]).all()
+    assert cuda_cg.cg_tol.launches_adi >= 1
+    assert cuda_cg.cg_tol.launches_rline >= 1
