@@ -19,7 +19,25 @@ Phases (each raises on failure; nothing is caught):
    adaptive r-line/ADI recipe with one float64 refinement pass) through
    ``make_simulate_fn``: one warm-up run, then one timed run with the
    launch counters reset just before it; check the traces against the
-   float64 truth in ``benchmarks/.flagship_truth_f64.npz``.
+   float64 truth in ``benchmarks/.flagship_truth_f64.npz``;
+5. at the sweep shape (``cfgs/geballe_no_diamond.yaml``, 243 x 1001
+   nodes), on the 10th step's system of 8 numpy-seeded lanes spanning
+   kappa in [1, 100] (one lane NaN, one at rtol 2), compare each of the
+   eight phase kernels of the batched solve (K2/K3) alone with its plain
+   version, then full solves in the identity and r-line forms and 120
+   fixed iterations (K3), timing kernel and plain version with CUDA
+   events;
+6. run the coefficient sweep (B = 1024, kappa = logspace(0, 2), the
+   config's FWHM, 40 steps chunked 20 + 20, float32, Jacobi, rtol 1e-4 wrt
+   ||b||) through ``run_sweep_time_chunked``: one warm-up run, one timed
+   run with the counters reset just before it; hold four lanes to the
+   same lanes run as a B = 4 sweep (bitwise), to the plain eager float32
+   sweep's iteration total, and to its traces within 2x its distance from
+   the plain float64 sweep of the same recipe, + 0.1 K;
+7. run the other sweep forms at B = 64: ``fixed_iters=120`` (K3) and
+   ``precondition='rline'`` through ``make_sweep_fn``, and an
+   'extrapolate' sweep at B = 8 chunked 20 + 20 against unchunked
+   (bitwise).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -36,15 +54,22 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "cfgs", "geballe_with_diamond.yaml")
+SWEEP_CFG = os.path.join(ROOT, "cfgs", "geballe_no_diamond.yaml")
 CSV = os.path.join(ROOT, "experimental_data", "geballe_heat_data.csv")
 TRUTH = os.path.join(ROOT, "benchmarks", ".flagship_truth_f64.npz")
 SOURCE = "heatflow_tpu_torch/csrc/cg_tol.cu"
 REPLACES = "heatflow_tpu/ops/pallas_cg.py:308"
+SWEEP_SOURCE = "heatflow_tpu_torch/csrc/sweep_cg.cu"
+K2_REPLACES = "heatflow_tpu/ops/pallas_cg.py:802"
+K3_REPLACES = "heatflow_tpu/ops/pallas_cg.py:729"
 RECIPE = dict(rtol=1e-4, maxiter=8000, record_gradient=False,
               record_fields=False, rtol_wrt="r0", solver="auto",
               precondition="adaptive", warm_start="extrapolate",
               f64_refine=1)
 TRACE_TOL_K = 1.0
+SWEEP_B = 1024
+SWEEP_RECIPE = dict(step_chunk=25, solver="vmem", rtol=1e-4,
+                    precondition="jacobi")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -74,14 +99,15 @@ def rel_max(a, b) -> float:
                  / b.double().abs().max())
 
 
-def build_flagship():
-    """The flagship problem through the port's entry points."""
+def build_flagship(path: str = CFG):
+    """The problem of a config (by default the flagship) through the port's
+    entry points, with the flagship heating curve."""
     from heatflow_tpu_torch import (build_layout, build_structured_mesh,
                                     load_config)
     from heatflow_tpu_torch.geometry import coupler_watcher_points
     from heatflow_tpu_torch.sim.bc import HeatingCurve
     from heatflow_tpu_torch.sim.problem import build_problem
-    cfg = load_config(CFG)
+    cfg = load_config(path)
     domain, mats = build_layout(cfg)
     mesh = build_structured_mesh(domain, mats)
     heating = HeatingCurve.from_csv(CSV)
@@ -274,11 +300,11 @@ def run_slice(problem, device, out: dict):
     return fn
 
 
-def profile_slice(fn, path: str, out: dict) -> None:
-    """One more run of the slice under torch.profiler: device time by
-    kernel, and the device's busy and idle share of the run (kernel
-    intervals merged, over the span from the first kernel's start to the
-    last one's end). Writes the kernel table to ``path``."""
+def profile_run(fn, path: str, out: dict, key: str = "profile") -> None:
+    """One more run of ``fn`` under torch.profiler: device time by kernel,
+    and the device's busy and idle share of the run (kernel intervals
+    merged, over the span from the first kernel's start to the last one's
+    end). Writes the kernel table to ``path``, the summary to out[key]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -320,9 +346,399 @@ def profile_slice(fn, path: str, out: dict) -> None:
           f"{sum(n for _, (_, n) in rows)} kernels; table in {path}")
     for name, (us, n) in rows[:8]:
         print(f"profile: {us / 1e3:8.3f} ms {n:6d} x  {name[:90]}")
-    out["profile"] = dict(wall_s=wall_s, device_span_ms=span / 1e3,
+    out[key] = dict(wall_s=wall_s, device_span_ms=span / 1e3,
                           device_busy_ms=busy / 1e3,
                           kernels={k: v for k, v in rows})
+
+
+def sweep_system(problem, ks, fs, device, step: int = 10):
+    """The batched system of the sweep's ``step``-th step (the heating
+    pulse rises from step ~8; the first steps' fields are ~uniform and their
+    systems nearly solved by the seed), exactly as the sweep builds it:
+    (A0, Kv, dks, sm, b, x0) in float32, read off the kernel wrapper's
+    arguments during a ``step``-step sweep, the kernel solving each step."""
+    import functools
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep
+    from heatflow_tpu_torch.sim.sweepkernel import make_sweep_fn
+    seen = {}
+    kernel = cuda_sweep.cg_batched_tol
+
+    @functools.wraps(kernel)     # with its own copy of the launch counters
+    def capture(*args, **kw):
+        seen["args"] = args[:6]
+        return kernel(*args, **kw)
+
+    fn = make_sweep_fn(problem, dtype=torch.float32, solver="vmem",
+                       rtol=1e-4, num_steps=step, device=device)
+    cuda_sweep.cg_batched_tol = capture
+    try:
+        fn(ks, fs)
+    finally:
+        cuda_sweep.cg_batched_tol = kernel
+    return seen["args"]
+
+
+def sweep_phase_cases(A0, Kv, dks, sm, b, x0, rng) -> dict:
+    """name -> (kernel wrapper, plain version, arguments, bound on the
+    relative error) for each phase kernel of K2/K3. Field phases run on the
+    given lanes with numpy-seeded fields; finalize, compact and finish on
+    per-lane states of 1024 lanes (finish: of the given lanes, one of them
+    with a NaN residual)."""
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+    B, nz, nr = b.shape
+    dev = b.device
+    free = (sm != 0).to(torch.float32)
+    field = lambda: (torch.tensor(rng.standard_normal((B, nz, nr)),
+                                  dtype=torch.float32, device=dev)
+                     * free).contiguous()
+    lane = lambda lo, hi, n=B: torch.tensor(rng.uniform(lo, hi, n),
+                                            dtype=torch.float64, device=dev)
+    x, r, p, Ap = field(), field(), field(), field()
+    nb = 1024
+    parts = torch.tensor(rng.uniform(0.5, 1.5, (4, nb, nz)),
+                         dtype=torch.float64, device=dev)
+    parts[1, 7] = float("nan")              # a lane with a NaN residual
+    rtol = torch.tensor(rng.uniform(1e-6, 1e-1, nb), dtype=torch.float32,
+                        device=dev)
+    rtol[5] = 2.0
+    state = cs.pack_state(nb, dev, rz=lane(0.5, 2.0, nb),
+                          rr=lane(0.5, 2.0, nb), stop2=lane(0.0, 2.0, nb),
+                          alpha=lane(0.1, 1.0, nb), beta=lane(0.1, 1.0, nb),
+                          k=torch.tensor(rng.integers(0, 50, nb)),
+                          done=torch.tensor(rng.random(nb) < 0.3))
+    rr_b = lane(0.5, 2.0)
+    rr_b[B // 2] = float("nan")
+    fin_state = cs.pack_state(B, dev, rr=rr_b,
+                              k=torch.tensor(rng.integers(0, 500, B)))
+    fin = lambda mode, rline: (
+        lambda st, pt: cs.finalize(st, pt, mode, rtol, rline=rline,
+                                   maxiter=40, rtol_wrt="b"),
+        lambda st, pt: cs.finalize_reference(st, pt, mode, rtol,
+                                             rline=rline, maxiter=40,
+                                             rtol_wrt="b"))
+    cases = {
+        "init": (cs.init, cs.init_reference, (A0, Kv, dks, sm, b, x0), 1e-5),
+        "stencil_dot": (cs.stencil_dot, cs.stencil_dot_reference,
+                        (A0, Kv, dks, sm, p), 1e-5),
+        "update": (cs.update, cs.update_reference, (x, r, p, Ap,
+                                                    lane(0.1, 1.0)), 1e-5),
+        "pcr_r": (cs.pcr_r, cs.pcr_r_reference, (A0, Kv, dks, sm, r), 1e-4),
+        "p_update": (cs.p_update, cs.p_update_reference,
+                     (p, r, lane(0.1, 1.0)), 1e-5),
+        "compact": (cs.compact, cs.compact_reference, (state,), 0.0),
+        "finish": (cs.finish, cs.finish_reference, (x, fin_state), 0.0)}
+    for mode, rline in (("init", True), ("alpha", False), ("beta", True)):
+        cases[f"finalize[{mode}]"] = (*fin(mode, rline), (state, parts),
+                                      1e-12)
+    return cases
+
+
+def compare_outputs(out_k, out_p) -> tuple[float, float]:
+    """(max |error|, max relative error) of a phase kernel's outputs against
+    its plain version's: fields and per-lane sums relative to their largest
+    magnitude, a per-lane state field by field; integers, the positions of
+    non-finite values and a lane list must agree exactly."""
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+    pairs = []
+    for a, b in zip(as_tuple(out_k), as_tuple(out_p), strict=True):
+        if b.dtype == torch.float64 and b.ndim == 2:      # a lane state
+            sa, sb = cs.unpack_state(a), cs.unpack_state(b)
+            pairs += [(sa[k], sb[k]) for k in sb]
+        else:
+            pairs.append((a, b))
+    err = rel = 0.0
+    for a, b in pairs:
+        require(a.shape == b.shape, ("shape", a.shape, b.shape))
+        if not b.dtype.is_floating_point:
+            require(torch.equal(a.cpu(), b.cpu()), "integers differ")
+            continue
+        fin = torch.isfinite(b)
+        require(torch.equal(torch.isfinite(a), fin), "non-finite positions")
+        if not bool(fin.any()):
+            continue
+        d = float((a.double() - b.double())[fin].abs().max())
+        scale = float(b.double()[fin].abs().max())
+        err = max(err, d)
+        rel = max(rel, d / scale if scale > 0 else (0.0 if d == 0 else 1.0))
+    return err, rel
+
+
+def sweep_kernel_checks(problem, device, out: dict) -> dict:
+    """Phase 5: the phase kernels of K2/K3 and their full solves against
+    their plain versions at the sweep shape."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+
+    rng = np.random.default_rng(5)
+    B, nan_lane, easy_lane = 8, 3, 5
+    ks = np.sort(10.0 ** rng.uniform(0.0, 2.0, B))
+    ks[0], ks[-1], ks[nan_lane] = 1.0, 100.0, np.nan
+    fs = problem.fwhm * rng.uniform(0.8, 1.2, B)
+    A0, Kv, dks, sm, b, x0 = sweep_system(problem, ks, fs, device)
+    nz, nr = b.shape[1:]
+    live = [i for i in range(B) if i != nan_lane]
+    sel = torch.tensor(live, device=device)
+    print(f"sweep grid {nz} x {nr}, {A0.shape[0]}-point stencils, the "
+          f"10th step's system; lanes "
+          f"kappa {np.round(ks, 3).tolist()}, lane {nan_lane} NaN, lane "
+          f"{easy_lane} at rtol 2")
+    rows = {}
+
+    # every phase kernel alone against its plain version, on the plain
+    # version's inputs: the system's finite lanes with random fields, and
+    # for the scalar phases random states at the main path's B = 1024
+    for name, (fn, ref, args, tol) in sweep_phase_cases(
+            A0, Kv, dks[sel].contiguous(), sm[sel].contiguous(),
+            b[sel].contiguous(), x0[sel].contiguous(), rng).items():
+        out_k, out_p = fn(*args), ref(*args)
+        err, rel = compare_outputs(out_k, out_p)
+        require(rel <= tol, (name, rel, tol))
+        r = rows[f"cg_batched_tol.{name}"] = dict(
+            name=f"cg_batched_tol.{name}", phase=name.split("[")[0],
+            max_abs_err=err, rel=rel, ms=cuda_ms(lambda: fn(*args), 20),
+            plain_ms=cuda_ms(lambda: ref(*args), 5))
+        print(f"sweep phase {name}: max|err| {err:.3e} (rel {rel:.3e}, "
+              f"bound {tol:.0e}), kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms")
+
+    norm = lambda v: float(torch.linalg.vector_norm(v.double()))
+    d64 = lambda *ts: tuple(t.double() for t in ts)
+
+    def hold(form, x_k, x_p, x64, it_k=None, it_p=None):
+        """Per finite lane: the kernel within 1e-4 rel-L2 of the plain
+        version, or within 2x the plain float32 version's own distance from
+        float64 where float32 cannot reach 1e-4; counts within
+        max(3, 5 %)."""
+        worst = dict(rel_l2=0.0, err_k=0.0, err_p=0.0, dit=0)
+        for i in live:
+            if it_k is not None and i == easy_lane:
+                continue
+            rel_l2 = norm(x_k[i] - x_p[i]) / norm(x_p[i])
+            err_k = norm(x_k[i] - x64[i]) / norm(x64[i])
+            err_p = norm(x_p[i] - x64[i]) / norm(x64[i])
+            require(rel_l2 <= max(1e-4, 2.0 * err_p), (form, i, rel_l2, err_p))
+            require(err_k <= max(1e-4, 1.5 * err_p), (form, i, err_k, err_p))
+            if it_k is not None:
+                ik, ip = int(it_k[i]), int(it_p[i])
+                require(abs(ik - ip) <= max(3, int(0.05 * ip)), (form, i, ik,
+                                                                 ip))
+                worst["dit"] = max(worst["dit"], abs(ik - ip))
+            for key, v in (("rel_l2", rel_l2), ("err_k", err_k),
+                           ("err_p", err_p)):
+                worst[key] = max(worst[key], v)
+        return worst
+
+    # full solves; rtol 1e-6 wrt ||b|| per lane, lane easy_lane at 2
+    rtol = torch.full((B,), 1e-6, dtype=torch.float32, device=device)
+    rtol[easy_lane] = 2.0
+    args = (A0, Kv, dks, sm, b, x0)
+    for form, rline in (("identity", False), ("rline", True)):
+        kw = dict(maxiter=20000, rtol_wrt="b", rline=rline)
+        x_k, it_k = cs.cg_batched_tol(*args, rtol, **kw)
+        x_p, it_p = cs.cg_batched_tol_reference(*args, rtol, **kw)
+        x64, _ = cs.cg_batched_tol_reference(*d64(*args, rtol), **kw)
+        require(bool(torch.isnan(x_k[nan_lane]).all())
+                and int(it_k[nan_lane]) == 0, (form, "NaN lane"))
+        require(int(it_k[easy_lane]) == 0
+                and torch.equal(x_k[easy_lane], x0[easy_lane]),
+                (form, "rtol-2 lane"))
+        sub = (A0, Kv) + tuple(t[sel].contiguous() for t in args[2:])
+        x_7, it_7 = cs.cg_batched_tol(*sub, rtol[sel].contiguous(), **kw)
+        require(torch.equal(x_7, x_k[sel]) and torch.equal(it_7, it_k[sel]),
+                (form, "lanes changed by the NaN lane"))
+        w = hold(form, x_k, x_p, x64, it_k, it_p)
+        ms = cuda_ms(lambda: cs.cg_batched_tol(*args, rtol, **kw), 2)
+        plain_ms = cuda_ms(lambda: cs.cg_batched_tol_reference(*args, rtol,
+                                                               **kw), 1)
+        its = [int(i) for i in it_k.tolist()]
+        print(f"sweep solve {form}: iters kernel {its} plain "
+              f"{[int(i) for i in it_p.tolist()]}; worst lane: kernel vs "
+              f"plain rel-L2 {w['rel_l2']:.3e}, vs float64 kernel "
+              f"{w['err_k']:.3e} plain {w['err_p']:.3e}; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms")
+        rows[f"cg_batched_tol[{form}]"] = dict(
+            iters=its, plain_iters=[int(i) for i in it_p.tolist()], **w,
+            max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
+            plain_ms=plain_ms)
+
+    # K3: 120 iterations, every lane
+    x_k = cs.cg_batched(*args, iters=120)
+    x_p = cs.cg_batched_reference(*args, iters=120)
+    x64 = cs.cg_batched_reference(*d64(*args), iters=120)
+    require(bool(torch.isnan(x_k[nan_lane]).all()), "K3 NaN lane")
+    w = hold("fixed", x_k, x_p, x64)
+    ms = cuda_ms(lambda: cs.cg_batched(*args, iters=120), 3)
+    plain_ms = cuda_ms(lambda: cs.cg_batched_reference(*args, iters=120), 1)
+    print(f"sweep fixed 120 iterations: worst lane kernel vs plain rel-L2 "
+          f"{w['rel_l2']:.3e}, vs float64 kernel {w['err_k']:.3e} plain "
+          f"{w['err_p']:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    rows["cg_batched[fixed]"] = dict(
+        **w, max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
+        plain_ms=plain_ms)
+    out["sweep_checks"] = rows
+    return rows
+
+
+def _sweep_counts():
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+    return dict(phases=cs.phase_launches(),
+                identity=cs.cg_batched_tol.launches_identity,
+                rline=cs.cg_batched_tol.launches_rline,
+                fixed=cs.cg_batched.launches)
+
+
+def run_sweep(problem, device, out: dict) -> dict:
+    """Phase 6: the B = 1024 coefficient sweep, and four of its lanes
+    against the same lanes at B = 4 and the plain eager sweeps."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep
+    from heatflow_tpu_torch.sim.sweepkernel import run_sweep_time_chunked
+
+    ks = np.logspace(0.0, 2.0, SWEEP_B)
+    fs = np.full(SWEEP_B, problem.fwhm)
+    kw = dict(SWEEP_RECIPE, dtype=torch.float32, device=device)
+    sweep = lambda **more: run_sweep_time_chunked(problem, ks, fs, **kw,
+                                                  **more)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sweep()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    cuda_sweep.reset_counters()
+    its = []
+    t0 = time.perf_counter()
+    tr = sweep(iters_out=its)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _sweep_counts()
+    iters = torch.stack(its).cpu().numpy()          # (steps, B)
+    finite = float(np.isfinite(tr).all(axis=(1, 2)).mean())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cps = SWEEP_B / run_s
+    lane_mean = iters.mean(axis=0)
+    print(f"sweep: B = {SWEEP_B}, {problem.num_steps} steps in {run_s:.4f} s "
+          f"= {cps:.4f} configs/s (warm-up run {warm_s:.2f} s); iterations a "
+          f"step: mean {iters.mean():.2f}, per-lane mean "
+          f"{lane_mean.min():.2f}..{lane_mean.max():.2f}, max "
+          f"{int(iters.max())}; finite lanes {finite}; peak device memory "
+          f"{peak_gb:.2f} GB")
+    print(f"sweep launches: {counts}")
+    require(tr.shape == (SWEEP_B, problem.num_steps, len(problem.watcher_names))
+            and finite == 1.0, ("sweep output", tr.shape, finite))
+    require(counts["identity"] > 0, counts)
+
+    # four lanes, held three ways. (1) Run again as a B = 4 sweep through
+    # the kernels: a lane's arithmetic depends neither on the batch nor on
+    # the lane list, so its traces and per-step counts equal those of the
+    # B = 1024 run bitwise. (2) Its iterations over the 40 steps within
+    # max(3, 2 %) of the plain eager float32 sweep's: per step they cannot
+    # be compared, since from the 20th step on a lane's counts alternate
+    # between ~20 and ~50 with the side of the stop its previous step
+    # landed on, and two correct roundings land on different sides. (3)
+    # Traces within 2x the plain float32 sweep's own distance from the
+    # plain float64 sweep of the same recipe (rtol 1e-4 wrt ||b||, Jacobi),
+    # + 0.1 K.
+    idx = [0, SWEEP_B // 3, 2 * SWEEP_B // 3, SWEEP_B - 1]
+    runs = {}
+    for name, extra in (("kernel, B = 4", {}),
+                        ("plain f32", dict(solver="xla")),
+                        ("plain f64", dict(solver="xla",
+                                           dtype=torch.float64))):
+        its4 = []
+        t0 = time.perf_counter()
+        tr4 = run_sweep_time_chunked(problem, ks[idx], fs[idx], iters_out=its4,
+                                     **dict(kw, **extra))
+        torch.cuda.synchronize()
+        runs[name] = (tr4, torch.stack(its4).cpu().numpy().astype(int))
+        print(f"{name} sweep, 4 lanes: {time.perf_counter() - t0:.2f} s")
+    tr4, it4 = runs["kernel, B = 4"]
+    require(np.array_equal(tr4, tr[idx]) and np.array_equal(it4, iters[:, idx]),
+            "the B = 4 sweep differs from its lanes in the B = 1024 sweep")
+    print("sweep: the four lanes run as a B = 4 sweep equal their B = 1024 "
+          "traces and per-step counts bitwise")
+    (p32, it32), (p64, it64) = runs["plain f32"], runs["plain f64"]
+    lanes, failed = [], []
+    for j, i in enumerate(idx):
+        d_k = float(np.abs(tr[i] - p32[j]).max())
+        d_p = float(np.abs(p32[j] - p64[j]).max())
+        d_t = float(np.abs(tr[i] - p64[j]).max())
+        n_k, n_p, n_64 = int(iters[:, i].sum()), int(it32[:, j].sum()), \
+            int(it64[:, j].sum())
+        step_diff = int(np.abs(iters[:, i] - it32[:, j]).max())
+        lanes.append(dict(kappa=float(ks[i]), kernel_vs_plain_K=d_k,
+                          plain_vs_f64_K=d_p, kernel_vs_f64_K=d_t,
+                          iters=n_k, plain_iters=n_p, f64_iters=n_64,
+                          max_step_iters_diff=step_diff))
+        print(f"sweep lane kappa {ks[i]:.4f}: kernel vs plain f32 {d_k:.4f} K "
+              f"(bound {2 * d_p + 0.1:.4f} K); vs plain f64 of the recipe: "
+              f"plain f32 {d_p:.4f} K, kernel {d_t:.4f} K; iterations in "
+              f"{problem.num_steps} steps kernel {n_k}, plain f32 {n_p}, "
+              f"plain f64 {n_64} (largest per-step difference {step_diff})")
+        if abs(n_k - n_p) > max(3, int(0.02 * n_p)):
+            failed.append(("sweep lane iterations", ks[i], n_k, n_p))
+        if d_k > 2.0 * d_p + 0.1:
+            failed.append(("sweep lane traces", ks[i], d_k, d_p))
+    require(not failed, failed)
+    out["sweep"] = dict(B=SWEEP_B, steps=problem.num_steps, run_s=run_s,
+                        warm_run_s=warm_s, configs_per_s=cps,
+                        iters_mean=float(iters.mean()),
+                        iters_max=int(iters.max()),
+                        lane_iters_mean=lane_mean.tolist(),
+                        finite_share=finite, peak_mem_gb=peak_gb,
+                        launches=counts, checked_lanes=lanes)
+    return counts, sweep
+
+
+def run_sweep_forms(problem, device, out: dict) -> list[dict]:
+    """Phase 7: K3 and K2's r-line form through the sweep entry points at
+    B = 64, and a chunked 'extrapolate' sweep against the unchunked one."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep
+    from heatflow_tpu_torch.sim.sweepkernel import (make_sweep_fn,
+                                                    run_sweep_time_chunked)
+    runs = []
+
+    def timed(name, call):
+        cuda_sweep.reset_counters()
+        t0 = time.perf_counter()
+        tr = call()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        tr = tr.cpu().numpy() if torch.is_tensor(tr) else tr
+        counts = _sweep_counts()
+        require(np.isfinite(tr).all(), (name, "non-finite traces"))
+        print(f"sweep form {name}: B = {tr.shape[0]}, {tr.shape[1]} steps in "
+              f"{run_s:.4f} s = {tr.shape[0] / run_s:.4f} configs/s; "
+              f"launches {counts}")
+        runs.append(dict(name=name, B=tr.shape[0], run_s=run_s,
+                         launches=counts))
+        return tr
+
+    ks = np.logspace(0.0, 2.0, 64)
+    fs = np.full(64, problem.fwhm)
+    f32 = dict(dtype=torch.float32, device=device, rtol=1e-4)
+    timed("fixed_iters=120", lambda: make_sweep_fn(
+        problem, solver="vmem", fixed_iters=120, **f32)(ks, fs))
+    timed("rline", lambda: make_sweep_fn(
+        problem, solver="vmem", precondition="rline", **f32)(ks, fs))
+    ks8, fs8 = np.logspace(0.0, 2.0, 8), np.full(8, problem.fwhm)
+    chunked = timed("extrapolate, chunked 20 + 20",
+                    lambda: run_sweep_time_chunked(
+                        problem, ks8, fs8, step_chunk=25, solver="vmem",
+                        warm_start="extrapolate", **f32))
+    whole = timed("extrapolate, unchunked", lambda: make_sweep_fn(
+        problem, solver="vmem", warm_start="extrapolate", **f32)(ks8, fs8))
+    require(np.array_equal(chunked, whole), "chunked != unchunked")
+    print("sweep extrapolate: chunked 20 + 20 equals unchunked bitwise")
+    out["sweep_forms"] = runs
+    return runs
 
 
 def main() -> None:
@@ -330,6 +746,8 @@ def main() -> None:
     ap.add_argument("--out", help="also write every measurement to this "
                                   "JSON file")
     ap.add_argument("--profile", help="profile one more run of the slice "
+                                      "(and one of the B = 1024 sweep, "
+                                      "table in FILE_sweep) "
                                       "and write its kernel table here")
     args = ap.parse_args()
 
@@ -370,7 +788,18 @@ def main() -> None:
     rows = phase_checks(problem, device, out)
     fn = run_slice(problem, device, out)
     if args.profile:
-        profile_slice(fn, args.profile, out)
+        profile_run(fn, args.profile, out)
+
+    t0 = time.perf_counter()
+    sweep_problem = build_flagship(SWEEP_CFG)
+    print(f"sweep setup (host): {time.perf_counter() - t0:.2f} s")
+    sweep_rows = sweep_kernel_checks(sweep_problem, device, out)
+    counts6, sweep = run_sweep(sweep_problem, device, out)
+    if args.profile:
+        base, ext = os.path.splitext(args.profile)
+        profile_run(sweep, f"{base}_sweep{ext}", out, "sweep_profile")
+    sweep_counts = [counts6] + [
+        r["launches"] for r in run_sweep_forms(sweep_problem, device, out)]
 
     counts = out["slice"]["phase_launches"]
     solves = out["slice"]["solves"]
@@ -385,6 +814,20 @@ def main() -> None:
                             launches=solves[form],
                             max_abs_err=sv["max_abs_err"], ms=sv["ms"],
                             plain_ms=sv["plain_ms"]))
+    # K2 and K3: launches summed over phases 6 and 7, each path's counts
+    # read just after it ran; a phase row counts its phase kernel, a solve
+    # row its form's solves
+    solve_key = {"cg_batched_tol[identity]": "identity",
+                 "cg_batched_tol[rline]": "rline",
+                 "cg_batched[fixed]": "fixed"}
+    for name, r in sweep_rows.items():
+        n = sum(c["phases"][r["phase"]] if "phase" in r
+                else c[solve_key[name]] for c in sweep_counts)
+        kernels.append(dict(
+            name=name, route="cuda", source=SWEEP_SOURCE,
+            replaces=K3_REPLACES if name == "cg_batched[fixed]"
+            else K2_REPLACES, launches=n, max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"]))
     require(all(k["launches"] > 0 for k in kernels), kernels)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,6 +1,7 @@
 """Build-on-demand of the package's CUDA sources and their ctypes binding.
 
-``csrc/*.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+``csrc/*.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, at first use, under
 ``build/heatflow_tpu_torch/`` beside the package; the file name carries a
 hash of the sources and flags, so an edited source rebuilds and an unchanged
@@ -21,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "heatflow_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lib = None
 build_info: dict = {}
@@ -64,17 +65,36 @@ def build() -> str:
         build_info.update(path=so, seconds=0.0, cached=True)
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = find_nvcc()
+    tag = f"{so}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    jobs = []
+    for i, src in enumerate(_sources()):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", f"{tag}.{i}.o", src]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE,
+                                           text=True)))
+    ptxas = []
+    failed = []
+    for cmd, proc in jobs:
+        _out, err = proc.communicate()
+        ptxas.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    objs = [cmd[cmd.index("-o") + 1] for cmd, _ in jobs]
+    link = [nvcc, "-shared", "-o", f"{tag}.tmp", *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, so)
-    build_info.update(path=so, seconds=seconds, cached=False,
-                      ptxas=proc.stderr)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(link)}\n{proc.stderr}")
+    os.replace(f"{tag}.tmp", so)
+    for obj in objs:
+        os.remove(obj)
+    build_info.update(path=so, seconds=time.perf_counter() - t0,
+                      cached=False, ptxas="".join(ptxas))
     return so
 
 
@@ -102,5 +122,24 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_stencil_dot, P, I, P, P, P, P, I, I, P, P)
     _sig(lib.hf_pcr_r, P, P, P, I, P, P, I, I, P, P)
     _sig(lib.hf_pcr_z, P, P, P, I, P, P, I, I, P, P)
+    # csrc/sweep_cg.cu
+    sweep = [P, P, I, P, P, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I, I,
+             I, I, I, P, P]
+    _sig(lib.hf_sweep_tiles, I, I)
+    _sig(lib.hf_sweep_nparts, I, I)
+    _sig(lib.hf_sweep_state_bytes)
+    _sig(lib.hf_sweep_num_phases)
+    _sig(lib.hf_sweep_start, *sweep)
+    _sig(lib.hf_sweep_iterate, *sweep, I, I)
+    _sig(lib.hf_sweep_compact, P, I, P, P, P, P)
+    _sig(lib.hf_sweep_finish, P, P, P, I, I, I, I, P, P)
+    _sig(lib.hf_sweep_init, P, P, I, P, P, P, P, P, P, P, P, P, I, I, I, I,
+         P, P)
+    _sig(lib.hf_sweep_stencil_dot, P, P, I, P, P, P, P, P, P, I, I, I, I, P,
+         P)
+    _sig(lib.hf_sweep_update, P, P, P, P, P, P, P, I, I, I, I, P, P)
+    _sig(lib.hf_sweep_pcr_r, P, P, P, P, P, P, P, P, I, I, I, I, P, P)
+    _sig(lib.hf_sweep_finalize, P, P, I, I, I, I, I, P, I, I, I, P, I, P, P)
+    _sig(lib.hf_sweep_p_update, P, P, P, P, I, I, I, I, P, P)
     _lib = lib
     return _lib

@@ -116,10 +116,44 @@ def pcg(apply_op: Callable[[torch.Tensor], torch.Tensor],
                     converged=_dot(r, r) <= stop2)
 
 
-def pcg_fixed(*_args, **_kw):
-    """Fixed-iteration PCG (not ported yet)."""
-    raise NotImplementedError("pcg_fixed is not ported to heatflow_tpu_torch "
-                              "yet (ROADMAP P3)")
+def pcg_fixed(apply_op: Callable[[torch.Tensor], torch.Tensor],
+              b: torch.Tensor,
+              x0: torch.Tensor,
+              *,
+              precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
+              mask: torch.Tensor | None = None,
+              iters: int = 50) -> CGResult:
+    """Fixed-iteration PCG: ``iters`` iterations on every lane, no stop test
+    and no freeze, with the guards of :func:`pcg` (pAp == 0 → 1,
+    rz == 0 → 1). ``iters`` in the result is that count, per lane."""
+    msk = (torch.ones((), dtype=b.dtype, device=b.device) if mask is None
+           else mask.to(b.dtype))
+    pre = precond if precond is not None else (lambda r: r)
+
+    bm = b * msk
+    r = (bm - apply_op(x0) * msk) * msk
+    z = pre(r) * msk
+    p = z
+    x = x0
+    rz = _dot(r, z)
+    for _ in range(iters):
+        Ap = apply_op(p) * msk
+        pAp = _dot(p, Ap)
+        alpha = rz / torch.where(pAp != 0, pAp, torch.ones_like(pAp))
+        x = x + _lane(alpha) * p
+        r = r - _lane(alpha) * Ap
+        z = pre(r) * msk
+        rz_new = _dot(r, z)
+        beta = rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))
+        p = z + _lane(beta) * p
+        rz = rz_new
+    rnorm = torch.sqrt(_dot(r, r))
+    return CGResult(x=x, iters=torch.full(rnorm.shape, iters,
+                                          dtype=torch.int32,
+                                          device=b.device),
+                    residual=rnorm,
+                    converged=torch.ones(rnorm.shape, dtype=torch.bool,
+                                         device=b.device))
 
 
 def pcg_solve(*_args, **_kw):

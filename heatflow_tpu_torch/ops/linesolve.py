@@ -31,17 +31,28 @@ def _dim(axis: int) -> int:
     return axis
 
 
-def line_couplings(A: torch.Tensor, sf: torch.Tensor, axis: int):
+def line_couplings(A: torch.Tensor, sf: torch.Tensor, axis: int, *,
+                   Kv: torch.Tensor | None = None,
+                   dk: torch.Tensor | None = None):
     """(l, u) couplings of the symmetrically scaled operator sf·A·sf along
     one grid axis, with boundary couplings zeroed.
 
     A: (..., 7|9, Nz, Nr) stencil (ops.stencil.OFFSETS order); sf: the
     scaling-with-free-mask vector s*free. axis=-1 is r (offsets 3/4),
     axis=-2 is z (offsets 1/2).
+
+    With ``Kv`` and per-lane ``dk`` (B,) the operator of lane b is
+    A + dk_b·Kv: only the two coupling planes are combined, per lane, so no
+    (B, 7, Nz, Nr) operator is ever formed; ``sf`` is then (B, Nz, Nr).
     """
     up_k, lo_k = (3, 4) if _dim(axis) == -1 else (1, 2)
-    u = sf * A[..., up_k, :, :] * shifted(sf, 1, axis)   # couples i -> i+1
-    l = sf * A[..., lo_k, :, :] * shifted(sf, -1, axis)  # couples i -> i-1
+    a_up, a_lo = A[..., up_k, :, :], A[..., lo_k, :, :]
+    if Kv is not None:
+        dkl = dk[..., None, None]
+        a_up = a_up + dkl * Kv[..., up_k, :, :]
+        a_lo = a_lo + dkl * Kv[..., lo_k, :, :]
+    u = sf * a_up * shifted(sf, 1, axis)   # couples i -> i+1
+    l = sf * a_lo * shifted(sf, -1, axis)  # couples i -> i-1
     return l, u
 
 
@@ -109,11 +120,13 @@ def pcr_apply_folded(levels2, g, d: torch.Tensor,
 
 
 def line_preconditioner(A: torch.Tensor, s: torch.Tensor, free: torch.Tensor,
-                        axis: int = -1):
+                        axis: int = -1, *, Kv: torch.Tensor | None = None,
+                        dk: torch.Tensor | None = None):
     """r-line (axis=-1) or z-line (axis=-2) block-Jacobi preconditioner for
     the scaled system (s·A·s) y = b: pre(r) = T⁻¹ r, T the line-tridiagonal
-    part of s·A·s. The factorization runs here, once."""
-    l, u = line_couplings(A, s * free, axis)
+    part of s·A·s. The factorization runs here, once. ``Kv``/``dk``: the
+    per-lane operators A + dk_b·Kv of a batch (see :func:`line_couplings`)."""
+    l, u = line_couplings(A, s * free, axis, Kv=Kv, dk=dk)
     levels2, g = pcr_fold(pcr_factor(l, u, axis=axis), axis=axis)
 
     def pre(r):
@@ -122,12 +135,14 @@ def line_preconditioner(A: torch.Tensor, s: torch.Tensor, free: torch.Tensor,
     return pre
 
 
-def adi_preconditioner(A: torch.Tensor, s: torch.Tensor, free: torch.Tensor):
+def adi_preconditioner(A: torch.Tensor, s: torch.Tensor, free: torch.Tensor,
+                       *, Kv: torch.Tensor | None = None,
+                       dk: torch.Tensor | None = None):
     """Split-additive composition of both line solves on the scaled system:
     pre(r) = R r + Z r − r (the subtracted identity removes the doubly
     counted unit diagonal)."""
-    R = line_preconditioner(A, s, free, axis=-1)
-    Z = line_preconditioner(A, s, free, axis=-2)
+    R = line_preconditioner(A, s, free, axis=-1, Kv=Kv, dk=dk)
+    Z = line_preconditioner(A, s, free, axis=-2, Kv=Kv, dk=dk)
 
     def pre(r):
         return R(r) + Z(r) - r * free

@@ -179,6 +179,18 @@ def apply_stencil(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def apply_combined(A0: torch.Tensor, Kv: torch.Tensor, dks: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """(A0 + dk_b·Kv) v_b for every lane b of v (B, Nz, Nr), dks (B,): the
+    operator combined plane by plane as it is applied, as the sweep kernels
+    combine it (never a (B, 7|9, Nz, Nr) operator)."""
+    dk = dks.reshape(-1, 1, 1)
+    out = (A0[0] + dk * Kv[0]) * v
+    for k, (di, dj) in enumerate(offsets_for(A0.shape[0])[1:], start=1):
+        out = out + (A0[k] + dk * Kv[k]) * _shifted2(v, di, dj)
+    return out
+
+
 def stencil_transpose_apply(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """A^T @ u for a stencil A."""
     offs = offsets_for(C.shape[-3])

@@ -1,6 +1,8 @@
 from heatflow_tpu_torch.sim.problem import Problem2D, build_problem
 from heatflow_tpu_torch.sim.stepper import (TransientResult, make_simulate_fn,
                                             run_transient)
+from heatflow_tpu_torch.sim.sweepkernel import (make_sweep_fn,
+                                                run_sweep_time_chunked)
 
 __all__ = [
     "Problem2D",
@@ -8,4 +10,6 @@ __all__ = [
     "TransientResult",
     "run_transient",
     "make_simulate_fn",
+    "make_sweep_fn",
+    "run_sweep_time_chunked",
 ]

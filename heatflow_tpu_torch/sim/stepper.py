@@ -49,20 +49,22 @@ class TransientResult:
 
 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
-    """numpy.interp on the device: linear between knots, clamped outside."""
-    i = torch.clamp(torch.searchsorted(xp, x.reshape(1), right=True)[0], 1,
-                    len(xp) - 1)
-    df = fp[i] - fp[i - 1]
+    """numpy.interp on the device: linear between knots, clamped outside.
+    ``x`` of any shape; ``fp`` (..., len(xp)) interpolates each of its rows,
+    giving (..., *x.shape)."""
+    i = torch.clamp(torch.searchsorted(xp, x.reshape(-1), right=True), 1,
+                    len(xp) - 1).reshape(x.shape)
+    df = fp[..., i] - fp[..., i - 1]
     dx = xp[i] - xp[i - 1]
     delta = x - xp[i - 1]
     eps = float(np.spacing(np.finfo(
         np.float32 if xp.dtype == torch.float32 else np.float64).eps))
     dx0 = torch.abs(dx) <= eps
-    f = torch.where(dx0, fp[i - 1],
-                    fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx),
-                                                     dx)) * df)
-    f = torch.where(x < xp[0], fp[0], f)
-    return torch.where(x > xp[-1], fp[-1], f)
+    step = delta / torch.where(dx0, torch.ones_like(dx), dx)
+    f = torch.where(dx0, fp[..., i - 1], fp[..., i - 1] + step * df)
+    ends = fp.shape[:-1] + (1,) * x.ndim
+    f = torch.where(x < xp[0], fp[..., 0].reshape(ends), f)
+    return torch.where(x > xp[-1], fp[..., -1].reshape(ends), f)
 
 
 def _not_ported(what: str, item: str):

@@ -1,0 +1,435 @@
+"""Batched coefficient sweeps: B transient runs of one problem at once.
+
+A sweep config differs from the base problem only in the sample
+conductivity κ and the laser FWHM (ref modify_config_for_parameters,
+parameter_sweep.py:238-266), so lane b's backward-Euler operator is
+
+    A_b = A_base + dt·Δκ_b·K_sample
+
+and the stencils are shared by the whole batch: per lane there are only the
+solution fields. The time loop runs every lane together, step by step, with
+one batched CG solve a step. Lanes whose parameters are not finite come out
+as NaN traces, without stopping or perturbing the others (ref :447-509's
+failure records).
+
+Two solvers: ``'vmem'`` runs each step's solve through the batched CUDA
+kernels of :mod:`heatflow_tpu_torch.ops.cuda_sweep` (their plain versions
+for CPU tensors), ``'xla'`` through the eager batched :func:`pcg` /
+:func:`pcg_fixed` with the per-lane freeze.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from heatflow_tpu_torch.ops.cg import (_lane, pcg, pcg_fixed,
+                                       refine_inner_scale)
+from heatflow_tpu_torch.ops.stencil import (apply_combined, apply_stencil,
+                                            combine_operator)
+from heatflow_tpu_torch.sim.problem import Problem2D
+from heatflow_tpu_torch.sim.stepper import interp
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to heatflow_tpu_torch "
+                               f"yet (ROADMAP {item})")
+
+
+def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
+                base_k, extrapolate, make_solve, iters_out=None):
+    """The batched backward-Euler loop shared by both solvers.
+
+    ``make_solve(dks, s, sm)`` is called once per scan and returns
+    ``solve(Bv, Y0) -> (X, iters)``, which solves the scaled system
+    sm·A_b·sm X = Bv of every lane from Y0. Returns (traces (B, S, W),
+    u_fin, u_penultimate); the last two re-enter the next time chunk, so a
+    chunked 'extrapolate' run is the unchunked trajectory. ``iters_out``, a
+    list, receives each step's (B,) iteration counts."""
+    device = ops["A0"].device
+    free, dirich = ops["free"], ops["dirich"]
+    A0, Kv = ops["A0"], ops["K_var"]
+    dks = (torch.as_tensor(ks, dtype=cdt, device=device) - base_k) * dt
+    diag = A0[0] + _lane(dks) * Kv[0]
+    s = torch.rsqrt(torch.where(diag > 0, diag, torch.ones_like(diag))) \
+        * free + dirich
+    del diag
+    sm = s * free
+    amp_offset = ops["heat_T"][0] - ic
+    fs = torch.as_tensor(fs, dtype=cdt, device=device)
+    coeff = torch.tensor(-4.0 * math.log(2.0), dtype=cdt,
+                         device=device) / (fs * fs)
+    g1 = torch.exp(_lane(coeff) * ops["r_sq"]) * ops["base"]
+    # the Dirichlet lift is affine in the interpolated amplitude,
+    # g(t) = g0 + amp(t)·g1, so A g is applied once per scan, not per step
+    g0 = ic * (dirich - g1)
+    Ag0 = apply_combined(A0, Kv, dks, g0)
+    Ag1 = apply_combined(A0, Kv, dks, g1)
+    solve = make_solve(dks, s, sm)
+
+    # times as (step0 + i)·dt in ONE rounding, so a chunked run's absolute
+    # times are bitwise those of the unchunked run
+    ts = (torch.arange(1, num_steps + 1, dtype=cdt, device=device)
+          + float(step0)) * dt
+    U = torch.as_tensor(u0, dtype=cdt, device=device)
+    U_pp = torch.as_tensor(u_pp, dtype=cdt, device=device)
+    B = U.shape[0]
+    watch = ops["watch"]
+    traces = []
+    for n in range(num_steps):
+        amp = interp(ts[n], ops["heat_t"], ops["heat_T"]) - amp_offset
+        Bv = apply_stencil(ops["M_op"], U)
+        Bv -= Ag0 + amp * Ag1          # in place: one plane fewer a step
+        Bv *= sm
+        seed = 2.0 * U - U_pp if extrapolate else U
+        Y0 = seed / s * free
+        X, iters = solve(Bv, Y0)
+        del Bv, Y0, seed
+        Un = X * sm
+        Un += g0 + amp * g1
+        traces.append(Un.reshape(B, -1)[:, watch])
+        if iters_out is not None:
+            iters_out.append(iters)
+        U_pp, U = U, Un
+    return torch.stack(traces, dim=1), U, U_pp
+
+
+def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
+                    num_steps, base_k, fixed_iters, rtol, maxiter,
+                    extrapolate, rline=False, adi=False, rtol_wrt="b",
+                    f64_refine=0, record=None, adaptive=False,
+                    iters_out=None):
+    """Whole-batch backward-Euler loop with the batched kernels
+    (:func:`cg_batched_tol`, or :func:`cg_batched` for ``fixed_iters``).
+    ``ops`` holds the stencils A0/K_var/M_op, the masks free/dirich, r_sq,
+    the heating line ``base``, the heating curve heat_t/heat_T and the flat
+    watcher ids ``watch``, all on one device. ``u_pp`` is the u_{n-1}
+    history entering the segment (u0 for a fresh start), ``step0`` the
+    integer step offset of the segment. Returns (traces (B, S, W), u_fin,
+    u_penultimate).
+
+    ``f64_refine=N``: ``ops`` hold float64 tensors; each step runs N passes
+    of float64 residual around a float32 batched correction solve from a
+    zero seed with a unit-norm right-hand side, the fields carried in
+    float64 (the per-lane guard ``refine_inner_scale`` stops a lane whose
+    residual is at float64 roundoff)."""
+    from heatflow_tpu_torch.ops.cuda_sweep import cg_batched, cg_batched_tol
+    if adi or adaptive:
+        raise _not_ported("the ADI and adaptive forms of the batched sweep "
+                          "kernel", "K2")
+    if record is not None:
+        raise _not_ported("recording sweeps (record=)", "P6")
+    cdt = torch.float64 if f64_refine else dtype
+    A0, Kv = ops["A0"], ops["K_var"]
+    c32 = lambda t: t.to(dtype).contiguous()
+
+    def make_solve(dks, s, sm):
+        if f64_refine:
+            # float32 casts of the scaled system for the correction solves;
+            # the float64 operator computes only the residuals
+            k32 = (c32(A0), c32(Kv), c32(dks), c32(sm))
+
+            def solve(Bv, Y0):
+                # a residual at f64 roundoff of the step's rhs has nothing
+                # left to correct: rtol_eff = 2 stops that lane at once
+                floor2 = 1e-30 * (Bv * Bv).sum(dim=(1, 2))
+                Y = Y0
+                Z0 = torch.zeros(Bv.shape, dtype=dtype, device=Bv.device)
+                for _ in range(f64_refine):
+                    R = Bv - sm * apply_combined(A0, Kv, dks, sm * Y)
+                    rnorm, rtol_eff = refine_inner_scale(
+                        (R * R).sum(dim=(1, 2)), floor2, rtol, dtype)
+                    dY, its = cg_batched_tol(
+                        *k32, c32(R / _lane(rnorm)), Z0, rtol_eff,
+                        maxiter=maxiter, rtol_wrt="b", rline=rline)
+                    Y = Y + dY.to(cdt) * _lane(rnorm)
+                return Y, its
+        elif fixed_iters is not None:
+            def solve(Bv, Y0):
+                X = cg_batched(A0, Kv, dks, sm, Bv, Y0, iters=fixed_iters)
+                return X, torch.full((X.shape[0],), fixed_iters,
+                                     dtype=torch.int32, device=X.device)
+        else:
+            def solve(Bv, Y0):
+                return cg_batched_tol(A0, Kv, dks, sm, Bv, Y0, rtol,
+                                      maxiter=maxiter, rtol_wrt=rtol_wrt,
+                                      rline=rline)
+        return solve
+
+    return _sweep_scan(ops, ks, fs, u0, u_pp, step0, cdt=cdt, ic=ic, dt=dt,
+                       num_steps=num_steps, base_k=base_k,
+                       extrapolate=extrapolate, make_solve=make_solve,
+                       iters_out=iters_out)
+
+
+def _xla_solver(ops, *, precondition, fixed_iters, rtol, maxiter, rtol_wrt):
+    """The eager batched solve: pcg (per-lane freeze) or pcg_fixed on
+    sm·A_b·sm, with a per-lane line preconditioner factored once per scan
+    from A0 + dk_b·Kv (two coupling planes combined per lane)."""
+    from heatflow_tpu_torch.ops.linesolve import (adi_preconditioner,
+                                                  line_preconditioner)
+    A0, Kv, free = ops["A0"], ops["K_var"], ops["free"]
+
+    def make_solve(dks, s, sm):
+        apply_op = lambda y: sm * apply_combined(A0, Kv, dks, sm * y)
+        pre = None
+        if precondition == "adi":
+            pre = adi_preconditioner(A0, s, free, Kv=Kv, dk=dks)
+        elif precondition in ("rline", "zline"):
+            pre = line_preconditioner(
+                A0, s, free, axis=-1 if precondition == "rline" else -2,
+                Kv=Kv, dk=dks)
+
+        def solve(Bv, Y0):
+            if fixed_iters is not None:
+                sol = pcg_fixed(apply_op, Bv, Y0, precond=pre, mask=free,
+                                iters=fixed_iters)
+            else:
+                sol = pcg(apply_op, Bv, Y0, precond=pre, mask=free,
+                          rtol=rtol, maxiter=maxiter, rtol_wrt=rtol_wrt)
+            return sol.x, sol.iters
+
+        return solve
+
+    return make_solve
+
+
+def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
+                  dtype: torch.dtype = torch.float32, rtol: float = 1e-6,
+                  maxiter: int = 4000, fixed_iters: int | None = None,
+                  precondition: str = "jacobi",
+                  num_steps: int | None = None, mesh=None,
+                  solver: str = "xla", warm_start: str = "previous",
+                  rtol_wrt: str = "b", f64_refine: int = 0, device="cpu"):
+    """Build ``simulate_batch(sample_k (B,), fwhm (B,)) -> traces (B, S, W)``
+    (a tensor on ``device``).
+
+    ``simulate_batch.segment(ks, fs, u0, step0, u_pp=None, iters_out=None)``
+    also returns the final and penultimate fields, for time-chunked runs
+    with exact warm-start history across chunks (set ``num_steps`` to the
+    chunk length); ``iters_out``, a list, receives each step's (B,) CG
+    iteration counts. ``simulate_batch.one_config(k, f)`` runs one config.
+
+    ``solver='vmem'``: the batched CUDA kernels (K2 tolerance form, K3 for
+    ``fixed_iters``), which the plain versions stand in for on CPU
+    tensors; ``precondition`` 'jacobi' (scaled identity) or 'rline'.
+    ``solver='xla'``: the eager batched PCG; 'jacobi', 'rline', 'zline' or
+    'adi'.
+
+    ``rtol_wrt``: 'b' stops each solve at ‖r‖ ≤ rtol·‖b‖, 'r0' at
+    rtol·‖r0‖. ``warm_start='extrapolate'`` seeds each step with
+    2·u_n − u_{n−1}. ``f64_refine=N`` (solver='vmem', float32): N float64
+    refinement passes around the float32 kernel solve, fields in float64.
+
+    Memoized on ``problem.extras`` keyed by every argument; mutating the
+    problem afterwards does not invalidate the cache.
+    """
+    if not isinstance(problem, Problem2D):
+        raise _not_ported("sweeps over unstructured problems", "P9")
+    if f64_refine:
+        rtol_wrt = "b"   # the refined inner solves stop wrt their own rhs
+    device = torch.device(device)
+    n_steps = int(problem.num_steps if num_steps is None else num_steps)
+    cache_key = ("sweep_fn", vary_material, str(dtype), rtol, maxiter,
+                 fixed_iters, precondition, n_steps, mesh, solver,
+                 warm_start, rtol_wrt, f64_refine, str(device))
+    cache = problem.extras.setdefault("_fn_cache", {})
+    if cache_key in cache:
+        return cache[cache_key]
+    if mesh is not None:
+        raise _not_ported("sharded sweeps (mesh=)", "P11")
+    if warm_start not in ("previous", "extrapolate"):
+        raise ValueError(f"unknown warm_start {warm_start!r} for sweep "
+                         "engines (use 'previous' or 'extrapolate')")
+    if precondition not in ("jacobi", "mg", "rline", "zline", "adi",
+                            "adaptive"):
+        raise ValueError(f"unknown precondition {precondition!r}")
+    if rtol_wrt not in ("r0", "b"):
+        raise ValueError(f"unknown rtol_wrt {rtol_wrt!r}")
+    if solver not in ("xla", "vmem"):
+        raise ValueError(f"unknown solver {solver!r}")
+    if precondition == "mg":
+        raise _not_ported("precondition='mg'", "P8")
+    if precondition == "adaptive" and solver != "vmem":
+        raise ValueError("precondition='adaptive' requires solver='vmem' "
+                         "for sweeps (the per-lane switch lives in the "
+                         "batched kernel)")
+    if f64_refine:
+        if dtype != torch.float32:
+            raise ValueError("f64_refine is the mixed-precision mode: "
+                             "dtype must be float32")
+        if solver != "vmem":
+            raise ValueError("f64_refine sweeps run through solver='vmem' "
+                             "(the batched correction kernel)")
+        if fixed_iters is not None:
+            raise ValueError("f64_refine composes with the tolerance-based "
+                             "solve (drop fixed_iters)")
+    if solver == "vmem":
+        if precondition in ("adi", "adaptive"):
+            raise _not_ported(f"precondition={precondition!r} in the batched "
+                              "sweep kernel", "K2")
+        if precondition == "zline":
+            raise ValueError("solver='vmem' supports precondition='jacobi' "
+                             "(scaled identity) or 'rline' (r-line PCR)")
+        if precondition == "rline" and fixed_iters is not None:
+            raise ValueError("rline-preconditioned vmem sweeps are "
+                             "tolerance-based (drop fixed_iters)")
+
+    wdt = torch.float64 if f64_refine else dtype
+    dev = problem.device_arrays(wdt, device)
+    if "watch_flat" not in dev:
+        raise ValueError("sweeps need watcher points on the problem")
+    nz, nr = problem.mesh.shape
+    dt = torch.tensor(problem.dt, dtype=wdt, device=device)
+    ic = torch.tensor(problem.ic_temp, dtype=wdt, device=device)
+    # stencil slots are ordered by tag, i.e. by material insertion order
+    m_idx = list(problem.mesh.material_tags).index(vary_material)
+    base_k = float(problem.kappas[m_idx])
+    A0, M_op = combine_operator(dev["K"], dev["M"], dev["kappas"],
+                                dev["rho_cvs"], dt)
+    ops = {"A0": A0.contiguous(), "M_op": M_op,
+           "K_var": dev["K"][m_idx].contiguous(),
+           "free": dev["free"], "dirich": dev["dirichlet"],
+           "base": dev["heat_profile_base"], "r_sq": dev["r_sq"],
+           "heat_t": dev["heat_t"], "heat_T": dev["heat_T"],
+           "watch": dev["watch_flat"]}
+    extrapolate = warm_start == "extrapolate"
+
+    def core(ks, fs, u0, u_pp, step0, iters_out=None):
+        kw = dict(ic=ic, dt=dt, num_steps=n_steps, base_k=base_k,
+                  extrapolate=extrapolate, iters_out=iters_out)
+        with torch.no_grad():
+            if solver == "vmem":
+                return vmem_sweep_scan(
+                    ops, ks, fs, u0, u_pp, step0, dtype=dtype,
+                    fixed_iters=fixed_iters, rtol=rtol, maxiter=maxiter,
+                    rline=precondition == "rline", rtol_wrt=rtol_wrt,
+                    f64_refine=f64_refine, **kw)
+            make_solve = _xla_solver(ops, precondition=precondition,
+                                     fixed_iters=fixed_iters, rtol=rtol,
+                                     maxiter=maxiter, rtol_wrt=rtol_wrt)
+            return _sweep_scan(ops, ks, fs, u0, u_pp, step0, cdt=wdt,
+                               make_solve=make_solve, **kw)
+
+    def simulate_batch(sample_k, fwhm):
+        B = len(np.atleast_1d(np.asarray(sample_k)))
+        u0 = torch.full((B, nz, nr), float(problem.ic_temp), dtype=wdt,
+                        device=device)
+        return core(sample_k, fwhm, u0, u0, 0)[0]
+
+    def segment(sample_k, fwhm, u0, step0, u_pp=None, iters_out=None):
+        """(traces (B, S, W), u_fin, u_penultimate) for one time chunk
+        starting after integer step offset ``step0`` (times are formed as
+        (step0+i)·dt, so chunked runs hit the unchunked times bitwise).
+        Pass the previous chunk's u_penultimate as ``u_pp`` so
+        warm_start='extrapolate' seeds the chunk's first step from real
+        history (omitted: seeds from u0, a fresh start)."""
+        u0 = torch.as_tensor(u0, dtype=wdt, device=device)
+        u_pp = u0 if u_pp is None else u_pp
+        return core(sample_k, fwhm, u0, u_pp, int(step0), iters_out)
+
+    simulate_batch.segment = segment
+    simulate_batch.one_config = \
+        lambda k, f: simulate_batch(np.array([k]), np.array([f]))[0]
+    simulate_batch.shape = (nz, nr)
+    simulate_batch.ic_temp = float(problem.ic_temp)
+    simulate_batch.dt = float(problem.dt)
+    simulate_batch.times = np.arange(1, n_steps + 1) * problem.dt
+    simulate_batch.device = device
+    cache[cache_key] = simulate_batch
+    return simulate_batch
+
+
+def balanced_chunk_len(total: int, step_chunk: int) -> int:
+    """Balance chunk lengths over ceil(total/step_chunk) chunks: a ragged
+    final chunk re-runs the full segment and discards the surplus steps.
+    Ceil-balancing (40 → 20+20) never exceeds step_chunk and cuts the
+    discarded surplus to < n_chunks steps in all."""
+    total = int(total)
+    n_chunks = max(1, -(-total // max(1, int(step_chunk))))
+    return min(-(-total // n_chunks), total)
+
+
+def run_sweep_time_chunked(problem: Problem2D, sample_k, fwhm, *,
+                           step_chunk: int = 10,
+                           dtype: torch.dtype = torch.float32,
+                           fixed_iters: int | None = None,
+                           rtol: float = 1e-5, maxiter: int = 4000,
+                           precondition: str = "jacobi",
+                           verbose: bool = False, mesh=None,
+                           solver: str = "xla",
+                           warm_start: str = "previous",
+                           rtol_wrt: str = "b", f64_refine: int = 0,
+                           device="cpu", iters_out=None) -> np.ndarray:
+    """The full transient of a (possibly very large) batch, integrated in
+    time chunks of at most ``step_chunk`` steps (ceil-balanced), the whole
+    batch resident on ``device``. Returns traces (B, num_steps, W) as numpy.
+
+    ``warm_start='extrapolate'`` is exact across chunk boundaries: each
+    chunk's penultimate field enters the next, so the chunked trajectory
+    equals the unchunked one bitwise. ``iters_out``, a list, receives each
+    step's (B,) CG iteration counts."""
+    if not isinstance(problem, Problem2D):
+        raise _not_ported("sweeps over unstructured problems", "P9")
+    total = int(problem.num_steps)
+    chunk_len = balanced_chunk_len(total, step_chunk)
+    fn = make_sweep_fn(problem, dtype=dtype, fixed_iters=fixed_iters,
+                       rtol=rtol, maxiter=maxiter, precondition=precondition,
+                       num_steps=chunk_len, mesh=mesh, solver=solver,
+                       warm_start=warm_start, rtol_wrt=rtol_wrt,
+                       f64_refine=f64_refine, device=device)
+    sample_k = np.asarray(sample_k)
+    fwhm = np.asarray(fwhm)
+    nz, nr = fn.shape
+    u = torch.full((len(sample_k), nz, nr), fn.ic_temp, dtype=dtype,
+                   device=fn.device)
+    u_pp = u
+    pieces = []
+    done = 0
+    while done < total:
+        n = min(chunk_len, total - done)
+        # a ragged final chunk runs the full-length segment and keeps its
+        # first n steps (past t_final the heating interpolation clamps)
+        its = []
+        tr, u, u_pp = fn.segment(sample_k, fwhm, u, done, u_pp,
+                                 iters_out=its)
+        pieces.append(tr[:, :n].cpu().numpy())
+        if iters_out is not None:
+            iters_out.extend(its[:n])
+        done += n
+        if verbose:
+            print(f"  time chunk done: {done}/{total} steps")
+    return np.concatenate(pieces, axis=1)
+
+
+def normalized_oside_residuals(times, traces, exp_time, exp_oside_normed,
+                               pside_col: int = 0, oside_col: int = 1):
+    """Per-experimental-point residuals of the reference's fit metric
+    (normalized o-side trace minus experiment, ref no_diamond.py:65-99):
+    traces (..., S, W) -> residuals (..., N_exp), as a tensor. A flat p-side
+    trace has no normalization scale and gives +inf residuals."""
+    traces = torch.as_tensor(traces)
+    as_t = lambda v: torch.as_tensor(np.asarray(v), dtype=traces.dtype,
+                                     device=traces.device)
+    pside = traces[..., pside_col]
+    oside = traces[..., oside_col]
+    span = pside.amax(dim=-1) - pside.amin(dim=-1)
+    degenerate = span <= 0
+    denom = torch.where(degenerate, torch.ones_like(span), span)
+    normed = (oside - oside[..., :1]) / denom[..., None]
+    sim_at_exp = interp(as_t(exp_time), as_t(times), normed)
+    res = sim_at_exp - as_t(exp_oside_normed)
+    return torch.where(degenerate[..., None],
+                       torch.full_like(res, float("inf")), res)
+
+
+def normalized_oside_rmse(times, traces, exp_time, exp_oside_normed,
+                          pside_col: int = 0, oside_col: int = 1):
+    """The reference's fit metric: normalized o-side RMSE against the
+    experimental trace (ref no_diamond.py:65-99, analysis_utils.py:66-93);
+    traces (..., S, W) -> (...)."""
+    err = normalized_oside_residuals(times, traces, exp_time,
+                                     exp_oside_normed, pside_col, oside_col)
+    return torch.sqrt(torch.mean(err * err, dim=-1))

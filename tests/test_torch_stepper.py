@@ -212,7 +212,7 @@ def test_unported_options_raise(kw):
         t_make(pt, **kw)
 
 
-@pytest.mark.parametrize("name", ["make_step_fn", "pcg_fixed", "pcg_solve"])
+@pytest.mark.parametrize("name", ["make_step_fn", "pcg_solve"])
 def test_unported_functions_raise(name):
     from heatflow_tpu_torch.ops import cg
     from heatflow_tpu_torch.sim import stepper
