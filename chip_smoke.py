@@ -37,7 +37,25 @@ Phases (each raises on failure; nothing is caught):
 7. run the other sweep forms at B = 64: ``fixed_iters=120`` (K3) and
    ``precondition='rline'`` through ``make_sweep_fn``, and an
    'extrapolate' sweep at B = 8 chunked 20 + 20 against unchunked
-   (bitwise).
+   (bitwise);
+8. at the sweep shape, on the 10th step's gradient-projection system of 8
+   lanes (b = s_mp·Gr·u of the step's fields, x0 the extrapolated seed; one
+   lane NaN, one at rtol 2), compare the Kv-free forms of ``init`` and
+   ``stencil_dot`` with their plain versions, then the full projection
+   solve (rtol 1e-11 wrt ||b||, at most 400 iterations): equal per-lane
+   counts, rel-L2 <= 1e-5; timing kernel and plain version with CUDA
+   events;
+9. run the gradient-recording sweep (``make_sweep_fn_recording``,
+   solver='vmem': float32, r-line, 'extrapolate', rtol 1e-5 wrt ||b||,
+   projection rtol 1e-11) at B = 8 to warm up, then B = 256 timed with the
+   counters reset just before it; hold four lanes to themselves run as a
+   B = 4 kernel sweep (bitwise, all three families), to the plain float32
+   recording's iteration totals, and to its distance from the plain
+   float64 recording;
+10. run the entry points: the sweep CLI with ``--record-gradient`` on its
+   default 5 x 5 x 3 grid (75 runs over 3 widths) and the 2D CLI on the
+   flagship config, its ``watcher_points.csv`` held bitwise to
+   ``run_transient`` run in-process with the options the driver resolved.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -70,6 +88,17 @@ TRACE_TOL_K = 1.0
 SWEEP_B = 1024
 SWEEP_RECIPE = dict(step_chunk=25, solver="vmem", rtol=1e-4,
                     precondition="jacobi")
+# the sweep driver's default float32 recording recipe
+REC_RECIPE = dict(solver="vmem", precondition="rline",
+                  warm_start="extrapolate", rtol=1e-5, proj_rtol=1e-11,
+                  proj_maxiter=400)
+REC_B = 256
+PROJ_REL_L2 = 1e-5        # Kv-free projection solve, kernel vs plain
+# phase 9: a family's margin over 2x the plain float32 recording's distance
+# from the plain float64 one, as a fraction of the f64 family's largest
+# value (watch: in K); the gradient families amplify float32 rounding ~1/h,
+# so their margins follow the ladder of tests/test_recording_precondition.py
+REC_MARGIN = dict(watch=0.1, band=1e-2, axis=5e-2)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -589,6 +618,7 @@ def _sweep_counts():
     return dict(phases=cs.phase_launches(),
                 identity=cs.cg_batched_tol.launches_identity,
                 rline=cs.cg_batched_tol.launches_rline,
+                no_kv=cs.cg_batched_tol.launches_no_kv,
                 fixed=cs.cg_batched.launches)
 
 
@@ -741,15 +771,340 @@ def run_sweep_forms(problem, device, out: dict) -> list[dict]:
     return runs
 
 
+def projection_system(problem, ks, fs, device, step: int = 10):
+    """The gradient-projection system of the recording sweep's ``step``-th
+    step, read off the Kv-free kernel call's arguments during a recording
+    run of the driver's recipe: (Mp, s_mp, b, x0) with b = s_mp·Gr·u of the
+    step's fields and x0 the extrapolated seed, float32."""
+    import functools
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep
+    from heatflow_tpu_torch.sim.sweepkernel import make_sweep_fn_recording
+    seen = {"n": 0}
+    kernel = cuda_sweep.cg_batched_tol
+
+    @functools.wraps(kernel)
+    def capture(*args, **kw):
+        if args[1] is None:
+            seen["n"] += 1
+            if seen["n"] == step:
+                seen["args"] = tuple(a.clone() for a in
+                                     (args[0], args[3], args[4], args[5]))
+        return kernel(*args, **kw)
+
+    fn = make_sweep_fn_recording(problem, dtype=torch.float32, device=device,
+                                 **REC_RECIPE)
+    cuda_sweep.cg_batched_tol = capture
+    try:
+        fn(ks, fs)
+    finally:
+        cuda_sweep.cg_batched_tol = kernel
+    return seen["args"]
+
+
+def projection_checks(problem, device, out: dict) -> dict:
+    """Phase 8: K2's Kv-free form (the mass projection) against its plain
+    version at the sweep shape."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+
+    rng = np.random.default_rng(8)
+    B, nan_lane, easy_lane = 8, 3, 5
+    ks = np.sort(10.0 ** rng.uniform(0.0, 2.0, B))
+    ks[0], ks[-1], ks[nan_lane] = 1.0, 100.0, np.nan
+    fs = problem.fwhm * rng.uniform(0.8, 1.2, B)
+    Mp, s_mp, b, x0 = projection_system(problem, ks, fs, device)
+    nz, nr = s_mp.shape
+    live = [i for i in range(B) if i != nan_lane]
+    sel = torch.tensor(live, device=device)
+    require(bool(torch.isnan(b[nan_lane]).any())
+            and bool(torch.isfinite(b[sel]).all()), "projection system")
+    print(f"projection grid {nz} x {nr}, {Mp.shape[0]}-point mass stencil, "
+          f"one shared s_mp plane; the 10th step's system of {B} lanes, "
+          f"lane {nan_lane} NaN, lane {easy_lane} at rtol 2")
+    rows = {}
+    bs, x0s = b[sel].contiguous(), x0[sel].contiguous()
+    p = (torch.tensor(rng.standard_normal((len(live), nz, nr)),
+                      dtype=torch.float32, device=device)).contiguous()
+    for name, fn, ref, args in (
+            ("init", cs.init, cs.init_reference,
+             (Mp, None, None, s_mp, bs, x0s)),
+            ("stencil_dot", cs.stencil_dot, cs.stencil_dot_reference,
+             (Mp, None, None, s_mp, p))):
+        err, rel = compare_outputs(fn(*args), ref(*args))
+        require(rel <= 1e-5, (name, "no_kv", rel))
+        r = rows[f"cg_batched_tol.{name}[no_kv]"] = dict(
+            name=f"cg_batched_tol.{name}[no_kv]", phase=f"{name}_no_kv",
+            max_abs_err=err, rel=rel, ms=cuda_ms(lambda: fn(*args), 20),
+            plain_ms=cuda_ms(lambda: ref(*args), 5))
+        print(f"projection phase {name}: max|err| {err:.3e} (rel {rel:.3e}, "
+              f"bound 1e-05), kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms")
+
+    norm = lambda v: float(torch.linalg.vector_norm(v.double()))
+    rtol = torch.full((B,), 1e-11, dtype=torch.float32, device=device)
+    rtol[easy_lane] = 2.0
+    args = (Mp, None, None, s_mp, b, x0, rtol)
+    kw = dict(maxiter=400, rtol_wrt="b")
+    x_k, it_k = cs.cg_batched_tol(*args, **kw)
+    x_p, it_p = cs.cg_batched_tol_reference(*args, **kw)
+    x64, it64 = cs.cg_batched_tol_reference(
+        Mp.double(), None, None, s_mp.double(), b.double(), x0.double(),
+        rtol.double(), **kw)
+    its_k, its_p = it_k.tolist(), it_p.tolist()
+    require(bool(torch.isnan(x_k[nan_lane]).all()) and its_k[nan_lane] == 0,
+            "projection NaN lane")
+    require(its_k[easy_lane] == 0 and torch.equal(x_k[easy_lane],
+                                                  x0[easy_lane]),
+            "projection rtol-2 lane")
+    require(its_k == its_p, ("projection counts", its_k, its_p))
+    worst = dict(rel_l2=0.0, err_k=0.0, err_p=0.0)
+    for i in live:
+        rel_l2 = norm(x_k[i] - x_p[i]) / norm(x_p[i])
+        require(rel_l2 <= PROJ_REL_L2, ("projection rel-L2", i, rel_l2))
+        for key, v in (("rel_l2", rel_l2),
+                       ("err_k", norm(x_k[i] - x64[i]) / norm(x64[i])),
+                       ("err_p", norm(x_p[i] - x64[i]) / norm(x64[i]))):
+            worst[key] = max(worst[key], v)
+    ms = cuda_ms(lambda: cs.cg_batched_tol(*args, **kw), 5)
+    plain_ms = cuda_ms(lambda: cs.cg_batched_tol_reference(*args, **kw), 2)
+    print(f"projection solve: iters kernel {its_k} plain {its_p} float64 "
+          f"{it64.tolist()}; worst lane: kernel vs plain rel-L2 "
+          f"{worst['rel_l2']:.3e} (bound {PROJ_REL_L2:.0e}), vs float64 "
+          f"kernel {worst['err_k']:.3e} plain {worst['err_p']:.3e}; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    rows["cg_batched_tol[no_kv]"] = dict(
+        iters=its_k, plain_iters=its_p, f64_iters=it64.tolist(), **worst,
+        max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
+        plain_ms=plain_ms)
+    out["projection_checks"] = rows
+    return rows
+
+
+def run_recording(problem, device, out: dict) -> dict:
+    """Phase 9: the B = 256 recording sweep, and four of its lanes against
+    themselves at B = 4 and the plain float32 / float64 recordings."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep
+    from heatflow_tpu_torch.sim.sweepkernel import make_sweep_fn_recording
+
+    fams = ("watch", "band", "axis")
+    make = lambda **kw: make_sweep_fn_recording(
+        problem, device=device, **{**REC_RECIPE, "dtype": torch.float32,
+                                   **kw})
+    fn = make()
+    ks = np.logspace(0.0, 2.0, REC_B)
+    fs = np.full(REC_B, problem.fwhm)
+    warm = np.linspace(0, REC_B - 1, 8).astype(int)
+    t0 = time.perf_counter()
+    fn(ks[warm], fs[warm])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    cuda_sweep.reset_counters()
+    its, pits = [], []
+    t0 = time.perf_counter()
+    ys = fn(ks, fs, iters_out=its, proj_iters_out=pits)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _sweep_counts()
+    ys = {k: ys[k].cpu().numpy() for k in fams}
+    its = torch.stack(its).cpu().numpy()          # (steps, B)
+    pits = torch.stack(pits).cpu().numpy()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = {k: float(np.isfinite(v).all(axis=(1, 2)).mean())
+              for k, v in ys.items()}
+    cps = REC_B / run_s
+    per_proj = (counts["phases"]["stencil_dot_no_kv"]
+                / max(1, counts["no_kv"]))
+    print(f"recording: B = {REC_B}, {problem.num_steps} steps in "
+          f"{run_s:.4f} s = {cps:.4f} configs/s (warm-up B = 8 run "
+          f"{warm_s:.2f} s); finite lanes {finite}; solve iterations a "
+          f"lane-step mean {its.mean():.2f} max {int(its.max())}; projection "
+          f"mean {pits.mean():.2f} max {int(pits.max())}; projection "
+          f"stencil launches a projection {per_proj:.2f}; peak device "
+          f"memory {peak_gb:.2f} GB")
+    print(f"recording launches: {counts}")
+    require(all(v == 1.0 for v in finite.values()), finite)
+    require(counts["rline"] > 0 and counts["no_kv"] > 0, counts)
+
+    # four lanes, held three ways (as in phase 6): (1) run as a B = 4
+    # kernel sweep they equal themselves bitwise in every family; (2) their
+    # solve and projection iterations over the 40 steps within max(3, 2 %)
+    # of the plain float32 recording's (solver='xla', on the card); (3)
+    # each family within 2x the plain float32 recording's distance from the
+    # plain float64 recording of the same recipe, + the family's margin
+    idx = [0, REC_B // 3, 2 * REC_B // 3, REC_B - 1]
+    runs = {}
+    for name, kw in (("kernel, B = 4", {}), ("plain f32", dict(solver="xla")),
+                     ("plain f64", dict(solver="xla", dtype=torch.float64))):
+        i4, p4 = [], []
+        t0 = time.perf_counter()
+        y4 = make(**kw)(ks[idx], fs[idx], iters_out=i4, proj_iters_out=p4)
+        torch.cuda.synchronize()
+        runs[name] = ({k: y4[k].cpu().numpy() for k in fams},
+                      torch.stack(i4).cpu().numpy().astype(int),
+                      torch.stack(p4).cpu().numpy().astype(int))
+        print(f"recording {name}, 4 lanes: {time.perf_counter() - t0:.2f} s")
+    y4, i4, p4 = runs["kernel, B = 4"]
+    same = {k: np.array_equal(y4[k], ys[k][idx]) for k in fams}
+    same.update(solve_iters=np.array_equal(i4, its[:, idx]),
+                proj_iters=np.array_equal(p4, pits[:, idx]))
+    require(all(same.values()),
+            ("the B = 4 recording differs from its lanes at B = 256", same))
+    print("recording: the four lanes run as a B = 4 sweep equal their "
+          "B = 256 watch, band and axis rows and counts bitwise")
+    (y32, i32, p32), (y64, _, _) = runs["plain f32"], runs["plain f64"]
+    lanes, failed = [], []
+    for j, i in enumerate(idx):
+        lane = dict(kappa=float(ks[i]))
+        for what, nk, n32 in (("solve", its[:, i].sum(), i32[:, j].sum()),
+                              ("projection", pits[:, i].sum(),
+                               p32[:, j].sum())):
+            lane[f"{what}_iters"], lane[f"plain_{what}_iters"] = \
+                int(nk), int(n32)
+            if abs(int(nk) - int(n32)) > max(3, int(0.02 * n32)):
+                failed.append((what, "iterations", ks[i], int(nk), int(n32)))
+        for k in fams:
+            scale = float(np.abs(y64[k][j]).max()) if k != "watch" else 1.0
+            d_k = float(np.abs(ys[k][i] - y32[k][j]).max())
+            d_p = float(np.abs(y32[k][j] - y64[k][j]).max())
+            d_t = float(np.abs(ys[k][i] - y64[k][j]).max())
+            bound = 2.0 * d_p + REC_MARGIN[k] * scale
+            lane[k] = dict(kernel_vs_plain=d_k, plain_vs_f64=d_p,
+                           kernel_vs_f64=d_t, bound=bound, scale=scale)
+            if d_k > bound:
+                failed.append((k, ks[i], d_k, bound))
+        lanes.append(lane)
+        print(f"recording lane kappa {ks[i]:.4f}: iterations in "
+              f"{problem.num_steps} steps solve {lane['solve_iters']} "
+              f"(plain f32 {lane['plain_solve_iters']}), projection "
+              f"{lane['projection_iters']} (plain f32 "
+              f"{lane['plain_projection_iters']}); "
+              + "; ".join(f"{k} kernel vs plain f32 "
+                          f"{lane[k]['kernel_vs_plain']:.4g} (bound "
+                          f"{lane[k]['bound']:.4g}), vs plain f64: plain "
+                          f"{lane[k]['plain_vs_f64']:.4g} kernel "
+                          f"{lane[k]['kernel_vs_f64']:.4g}" for k in fams))
+    require(not failed, failed)
+    out["recording"] = dict(
+        B=REC_B, steps=problem.num_steps, run_s=run_s, warm_run_s=warm_s,
+        configs_per_s=cps, finite_share=finite,
+        solve_iters_mean=float(its.mean()), solve_iters_max=int(its.max()),
+        proj_iters_mean=float(pits.mean()), proj_iters_max=int(pits.max()),
+        proj_stencil_launches_per_projection=per_proj, peak_mem_gb=peak_gb,
+        launches=counts, checked_lanes=lanes)
+    return counts, lambda: fn(ks, fs)
+
+
+def run_drivers(device, out: dict) -> dict:
+    """Phase 10: the sweep CLI (recording, default grid) and the 2D CLI on
+    the flagship config."""
+    import csv
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.config import load_config, save_config
+    from heatflow_tpu_torch.drivers import run2d, sweep
+    from heatflow_tpu_torch.io.csvio import (read_gradient_csv,
+                                             read_watcher_csv)
+    from heatflow_tpu_torch.ops import cuda_sweep
+    from heatflow_tpu_torch.sim.stepper import run_transient
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    cfgs = {}
+    for name, path in (("sweep", SWEEP_CFG), ("run2d", CFG)):
+        cfg = load_config(path)       # the heating file, from anywhere
+        cfg["heating"]["file"] = CSV
+        cfgs[name] = os.path.join(work, f"{name}.yaml")
+        save_config(cfg, cfgs[name])
+    sweep_out = os.path.join(work, "sweep_out")
+    cuda_sweep.reset_counters()
+    timings = {}
+    t0 = time.perf_counter()
+    sweep.main(["--config", cfgs["sweep"], "--output-dir", sweep_out,
+                "--mesh-folder", os.path.join(work, "sweep_meshes"),
+                "--record-gradient", "--device", str(device), "--verbose"],
+               timings=timings)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _sweep_counts()
+    with open(os.path.join(sweep_out, "successful_runs.csv")) as f:
+        ok_runs = list(csv.DictReader(f))
+    meta = json.load(open(os.path.join(sweep_out, "sweep_metadata.json")))
+    require(len(ok_runs) == 75 and not os.path.exists(
+        os.path.join(sweep_out, "failed_runs.csv")), ("sweep runs",
+                                                      len(ok_runs)))
+    for rec in ok_runs:
+        have = set(os.listdir(os.path.join(sweep_out, rec["run_name"])))
+        require({"watcher_points.csv", "radial_gradient.csv",
+                 "radial_gradient_raw.csv", "used_config.yaml"} <= have,
+                (rec["run_name"], have))
+    require(len(meta["solver_resolved"]) == 3
+            and set(meta["solver_resolved"].values()) == {"vmem"}
+            and meta["precondition"] == "rline", meta)
+    print(f"sweep CLI: 75 runs over 3 widths, wall {wall_s:.2f} s (mesh "
+          f"builds included), compute {timings['compute_s']:.2f} s, "
+          f"artifact writes {timings['write_s']:.2f} s of CPU (background "
+          f"thread), "
+          f"{75 / wall_s:.3f} configs/s of wall time, "
+          f"{75 / timings['compute_s']:.3f} of compute; solver_resolved "
+          f"{meta['solver_resolved']}; launches {counts}")
+
+    run_out = os.path.join(work, "run2d_out")
+    t0 = time.perf_counter()
+    run2d.main(["--config", cfgs["run2d"], "--mesh-folder",
+                os.path.join(work, "run2d_mesh"), "--rebuild-mesh",
+                "--output-folder", run_out, "--watcher-points", "auto",
+                "--device", str(device), "--suppress-print"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    cols = read_watcher_csv(os.path.join(run_out, "watcher_points.csv"))
+    names = list(cols)[1:]
+    got = np.column_stack(list(cols.values()))
+    # the options the driver resolves on a card: float32, 'extrapolate',
+    # rtol 1e-4 wrt r0, precondition 'adi', the kernel path
+    problem = build_flagship()
+    res = run_transient(problem, dtype=torch.float32, device=device,
+                        rtol=1e-4, maxiter=20000, record_gradient=True,
+                        record_fields=False, solver="auto",
+                        warm_start="extrapolate", precondition="adi")
+    require(names == list(problem.watcher_names)
+            and np.array_equal(got[:, 0].astype(np.float32),
+                               res.times.astype(np.float32))
+            and np.array_equal(got[:, 1:].astype(np.float32), res.watcher),
+            "run2d watcher_points.csv differs from run_transient")
+    for grad in ("radial_gradient.csv", "radial_gradient_raw.csv"):
+        vals = read_gradient_csv(os.path.join(run_out, grad))[2]
+        require(vals.size and np.isfinite(vals).all(), (grad, "finite"))
+    require(os.path.isfile(os.path.join(run_out, "checkpoint.npz")),
+            "run2d checkpoint")
+    truth = np.load(TRUTH)["watch"]
+    peak = np.abs(got[:, 1:] - truth).max(axis=0)
+    print(f"run2d CLI: {run_s:.2f} s (mesh build and .msh write included); "
+          f"watcher_points.csv equals run_transient bitwise; gradient CSVs "
+          f"finite; checkpoint written; peak |error| vs f64 truth: "
+          + ", ".join(f"{n} {e:.4f} K" for n, e in zip(names, peak)))
+    out["drivers"] = dict(sweep_cli_s=wall_s, sweep_launches=counts,
+                          **{f"sweep_{k}": v for k, v in timings.items()},
+                          run2d_cli_s=run_s,
+                          run2d_peak_err_K=dict(zip(names, peak.tolist())))
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this "
                                   "JSON file")
     ap.add_argument("--profile", help="profile one more run of the slice "
-                                      "(and one of the B = 1024 sweep, "
-                                      "table in FILE_sweep) "
-                                      "and write its kernel table here")
+                                      "(and one of the B = 1024 sweep and "
+                                      "of the B = 256 recording sweep, "
+                                      "tables in FILE_sweep and "
+                                      "FILE_recording) and write its kernel "
+                                      "table here")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -800,6 +1155,13 @@ def main() -> None:
         profile_run(sweep, f"{base}_sweep{ext}", out, "sweep_profile")
     sweep_counts = [counts6] + [
         r["launches"] for r in run_sweep_forms(sweep_problem, device, out)]
+    proj_rows = projection_checks(sweep_problem, device, out)
+    counts9, recording = run_recording(sweep_problem, device, out)
+    if args.profile:
+        base, ext = os.path.splitext(args.profile)
+        profile_run(recording, f"{base}_recording{ext}", out,
+                    "recording_profile")
+    rec_counts = [counts9, run_drivers(device, out)]
 
     counts = out["slice"]["phase_launches"]
     solves = out["slice"]["solves"]
@@ -814,21 +1176,25 @@ def main() -> None:
                             launches=solves[form],
                             max_abs_err=sv["max_abs_err"], ms=sv["ms"],
                             plain_ms=sv["plain_ms"]))
-    # K2 and K3: launches summed over phases 6 and 7, each path's counts
-    # read just after it ran; a phase row counts its phase kernel, a solve
-    # row its form's solves
+    # K2 and K3: launches summed over phases 6 and 7 (K2's Kv-free form:
+    # over phases 9 and 10), each path's counts read just after it ran; a
+    # phase row counts its phase kernel, a solve row its form's solves
     solve_key = {"cg_batched_tol[identity]": "identity",
                  "cg_batched_tol[rline]": "rline",
-                 "cg_batched[fixed]": "fixed"}
-    for name, r in sweep_rows.items():
+                 "cg_batched[fixed]": "fixed",
+                 "cg_batched_tol[no_kv]": "no_kv"}
+    for name, r in list(sweep_rows.items()) + list(proj_rows.items()):
+        runs = rec_counts if name.endswith("[no_kv]") else sweep_counts
         n = sum(c["phases"][r["phase"]] if "phase" in r
-                else c[solve_key[name]] for c in sweep_counts)
+                else c[solve_key[name]] for c in runs)
         kernels.append(dict(
             name=name, route="cuda", source=SWEEP_SOURCE,
             replaces=K3_REPLACES if name == "cg_batched[fixed]"
             else K2_REPLACES, launches=n, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"]))
     require(all(k["launches"] > 0 for k in kernels), kernels)
+    out["wall_s"] = time.perf_counter() - t_script
+    print(f"chip_smoke wall time: {out['wall_s']:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

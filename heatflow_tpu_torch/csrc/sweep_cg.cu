@@ -1,10 +1,13 @@
 // Batched CG for coefficient sweeps: B independent (Nz, Nr) problems in
 // float32, lane b solving sm_b * (A0 + dk_b Kv) * (sm_b * y) = b_b, with a
 // per-lane tolerance stop (identity or r-line PCR preconditioner) or a fixed
-// iteration count.
+// iteration count. In the Kv-free form (Kv = dks = null) every lane solves
+// with A0 alone, and the lanes may share one sm plane (stride 0): the
+// recording sweeps' per-step mass projection, sm_mp * Mp * (sm_mp * y) = b_b.
 //
 // Replaces: heatflow_tpu/ops/pallas_cg.py:_sweep_cg_tol_kernel (tolerance
-// mode, identity and r-line forms) and :_sweep_cg_kernel (fixed mode). The
+// mode, identity and r-line forms, has_kv=False) and :_sweep_cg_kernel
+// (fixed mode). The
 // TPU kernels run one config per grid step, each config's whole solve
 // resident in VMEM, one config after another.
 //
@@ -54,9 +57,10 @@ struct LaneState {
   int k, done;
 };
 
+// Launch-count slots; the Kv-free forms of init and stencil_dot count apart.
 enum Phase {
   kPhInit = 0, kPhStencilDot, kPhUpdate, kPhPcrR, kPhFinalize, kPhPUpdate,
-  kPhCompact, kPhFinish, kNumPhases
+  kPhCompact, kPhFinish, kPhInitNoKv, kPhStencilDotNoKv, kNumPhases
 };
 
 enum FinalizeMode { kFinInit = 0, kFinAlpha = 1, kFinBeta = 2 };
@@ -82,10 +86,22 @@ __device__ double block_sum(double v) {
   return total;
 }
 
+// Coefficient c of the lane's operator: A0 + dk Kv, or A0 alone when the
+// operator has no varying term (HAS_KV = false: the recording sweeps' mass
+// projection, whose Kv operand is absent).
+template <bool HAS_KV>
+__device__ __forceinline__ float coef(const float* __restrict__ A0,
+                                      const float* __restrict__ Kv, float dk,
+                                      size_t c) {
+  if constexpr (HAS_KV) return A0[c] + dk * Kv[c];
+  return A0[c];
+}
+
 // ((A0 + dk Kv) (sm . v))[i, j] for the 7-point (or 9-point) stencil,
 // neighbours outside the grid read as 0, in the offset order of
 // heatflow_tpu_torch/ops/stencil.py (OFFSETS, then OFFSETS9's two). sm and v
 // point at the lane's plane.
+template <bool HAS_KV>
 __device__ __forceinline__ float stencil_at(const float* __restrict__ A0,
                                             const float* __restrict__ Kv,
                                             int npts, float dk,
@@ -94,7 +110,7 @@ __device__ __forceinline__ float stencil_at(const float* __restrict__ A0,
                                             int i, int j, int nz, int nr) {
   const size_t n = (size_t)nz * nr;
   const size_t idx = (size_t)i * nr + j;
-  float out = (A0[idx] + dk * Kv[idx]) * (sm[idx] * v[idx]);
+  float out = coef<HAS_KV>(A0, Kv, dk, idx) * (sm[idx] * v[idx]);
   const int di[8] = {1, -1, 0, 0, 1, -1, 1, -1};
   const int dj[8] = {0, 0, 1, -1, 1, -1, -1, 1};
 #pragma unroll
@@ -104,19 +120,20 @@ __device__ __forceinline__ float stencil_at(const float* __restrict__ A0,
     if (ii >= 0 && ii < nz && jj >= 0 && jj < nr) {
       const size_t q = (size_t)ii * nr + jj;
       const size_t c = (size_t)(k + 1) * n + idx;
-      out += (A0[c] + dk * Kv[c]) * (sm[q] * v[q]);
+      out += coef<HAS_KV>(A0, Kv, dk, c) * (sm[q] * v[q]);
     }
   }
   return out;
 }
 
 struct Sweep {
-  const float *A0, *Kv, *dks, *sm, *b, *x0, *rtol;
+  const float *A0, *Kv, *dks, *sm, *b, *x0, *rtol;   // Kv, dks: null if Kv-free
   float *x, *r, *z, *p, *Ap;
   double* parts;
   LaneState* st;
   int* lanes;   // lanes[y] is the lane that grid row y works on
   int npts, nz, nr, B, maxiter, wrt_r0, rline, fixed, nparts;
+  size_t sm_stride;   // elements between two lanes' sm planes: n, or 0 (shared)
   long long* counts;
   cudaStream_t stream;
 
@@ -132,11 +149,13 @@ __device__ __forceinline__ size_t elem(int m) {
   return (size_t)blockIdx.x * kTile + (size_t)m * kThreads + threadIdx.x;
 }
 
-// x = x0, r = b - sm A_b (sm x0); partials of <r, r> and <b, b>.
+// x = x0, r = b - sm A_b (sm x0); partials of <r, r> and <b, b>. The lane's
+// sm plane starts sm_stride elements after the previous lane's.
+template <bool HAS_KV>
 __global__ void ks_init(const float* __restrict__ A0,
                         const float* __restrict__ Kv, int npts,
                         const float* __restrict__ dks,
-                        const float* __restrict__ sm,
+                        const float* __restrict__ sm, size_t sm_stride,
                         const float* __restrict__ b,
                         const float* __restrict__ x0, float* __restrict__ x,
                         float* __restrict__ r, double* part_rr,
@@ -145,16 +164,17 @@ __global__ void ks_init(const float* __restrict__ A0,
   const int lane = lanes[blockIdx.y];
   const size_t n = (size_t)nz * nr;
   const size_t off = (size_t)lane * n;
-  const float dk = dks[lane];
+  const float* sml = sm + (size_t)lane * sm_stride;
+  const float dk = HAS_KV ? dks[lane] : 0.0f;
   double rr = 0.0, bb = 0.0;
   for (int m = 0; m < kPerThread; ++m) {
     const size_t idx = elem(m);
     if (idx < n) {
       const int i = (int)(idx / nr), j = (int)(idx % nr);
       const float bv = b[off + idx];
-      const float rv = bv - sm[off + idx] * stencil_at(A0, Kv, npts, dk,
-                                                       sm + off, x0 + off, i,
-                                                       j, nz, nr);
+      const float rv = bv - sml[idx] * stencil_at<HAS_KV>(A0, Kv, npts, dk,
+                                                          sml, x0 + off, i, j,
+                                                          nz, nr);
       x[off + idx] = x0[off + idx];
       r[off + idx] = rv;
       rr += (double)(rv * rv);
@@ -170,10 +190,11 @@ __global__ void ks_init(const float* __restrict__ A0,
 }
 
 // Ap = sm A_b (sm p); partials of <p, Ap>.
+template <bool HAS_KV>
 __global__ void ks_stencil_dot(const float* __restrict__ A0,
                                const float* __restrict__ Kv, int npts,
                                const float* __restrict__ dks,
-                               const float* __restrict__ sm,
+                               const float* __restrict__ sm, size_t sm_stride,
                                const float* __restrict__ p,
                                float* __restrict__ Ap, double* part,
                                const LaneState* st,
@@ -183,14 +204,15 @@ __global__ void ks_stencil_dot(const float* __restrict__ A0,
   if (st != nullptr && st[lane].done) return;
   const size_t n = (size_t)nz * nr;
   const size_t off = (size_t)lane * n;
-  const float dk = dks[lane];
+  const float* sml = sm + (size_t)lane * sm_stride;
+  const float dk = HAS_KV ? dks[lane] : 0.0f;
   double acc = 0.0;
   for (int m = 0; m < kPerThread; ++m) {
     const size_t idx = elem(m);
     if (idx < n) {
       const int i = (int)(idx / nr), j = (int)(idx % nr);
-      const float v = sm[off + idx] * stencil_at(A0, Kv, npts, dk, sm + off,
-                                                 p + off, i, j, nz, nr);
+      const float v = sml[idx] * stencil_at<HAS_KV>(A0, Kv, npts, dk, sml,
+                                                    p + off, i, j, nz, nr);
       Ap[off + idx] = v;
       acc += (double)(p[off + idx] * v);
     }
@@ -236,7 +258,7 @@ __global__ void ks_update(float* __restrict__ x, float* __restrict__ r,
 __global__ void ks_pcr_r(const float* __restrict__ A0,
                          const float* __restrict__ Kv,
                          const float* __restrict__ dks,
-                         const float* __restrict__ sm,
+                         const float* __restrict__ sm, size_t sm_stride,
                          const float* __restrict__ r, float* __restrict__ z,
                          double* part_rz, const LaneState* st,
                          const int* __restrict__ lanes, int nz, int nr,
@@ -253,12 +275,16 @@ __global__ void ks_pcr_r(const float* __restrict__ A0,
   const size_t n = (size_t)nz * nr;
   const size_t row = (size_t)blockIdx.x * nr;
   const size_t off = (size_t)lane * n + row;
-  const float dk = dks[lane];
-  const float* smr = sm + off;
+  const float dk = Kv != nullptr ? dks[lane] : 0.0f;
+  const float* smr = sm + (size_t)lane * sm_stride + row;
   for (int j = threadIdx.x; j < nr; j += blockDim.x) {
     const float sj = smr[j];
-    const float c_up = A0[3 * n + row + j] + dk * Kv[3 * n + row + j];
-    const float c_lo = A0[4 * n + row + j] + dk * Kv[4 * n + row + j];
+    const float c_up = Kv != nullptr
+                           ? A0[3 * n + row + j] + dk * Kv[3 * n + row + j]
+                           : A0[3 * n + row + j];
+    const float c_lo = Kv != nullptr
+                           ? A0[4 * n + row + j] + dk * Kv[4 * n + row + j]
+                           : A0[4 * n + row + j];
     u0[j] = j + 1 < nr ? sj * c_up * smr[j + 1] : 0.0f;
     l0[j] = j >= 1 ? sj * c_lo * smr[j - 1] : 0.0f;
     d0[j] = r[off + j];
@@ -412,29 +438,48 @@ int tiles_of(int nz, int nr) {
 }
 
 // One launcher per phase kernel, shared by the solves and by the
-// single-phase entry points; each counts its launch.
+// single-phase entry points; each counts its launch. Kv == nullptr selects
+// the Kv-free form of the kernels that read the operator.
 cudaError_t launch_init(const float* A0, const float* Kv, int npts,
-                        const float* dks, const float* sm, const float* b,
-                        const float* x0, float* x, float* r, double* part_rr,
-                        double* part_bb, const int* lanes, int n_lanes,
-                        int nz, int nr, int nparts, long long* counts,
-                        cudaStream_t stream) {
-  ks_init<<<dim3(tiles_of(nz, nr), n_lanes), kThreads, 0, stream>>>(
-      A0, Kv, npts, dks, sm, b, x0, x, r, part_rr, part_bb, lanes, nz, nr,
-      nparts);
-  counts[kPhInit] += 1;
+                        const float* dks, const float* sm, size_t sm_stride,
+                        const float* b, const float* x0, float* x, float* r,
+                        double* part_rr, double* part_bb, const int* lanes,
+                        int n_lanes, int nz, int nr, int nparts,
+                        long long* counts, cudaStream_t stream) {
+  const dim3 grid(tiles_of(nz, nr), n_lanes);
+  if (Kv != nullptr) {
+    ks_init<true><<<grid, kThreads, 0, stream>>>(
+        A0, Kv, npts, dks, sm, sm_stride, b, x0, x, r, part_rr, part_bb,
+        lanes, nz, nr, nparts);
+    counts[kPhInit] += 1;
+  } else {
+    ks_init<false><<<grid, kThreads, 0, stream>>>(
+        A0, Kv, npts, dks, sm, sm_stride, b, x0, x, r, part_rr, part_bb,
+        lanes, nz, nr, nparts);
+    counts[kPhInitNoKv] += 1;
+  }
   return cudaGetLastError();
 }
 
 cudaError_t launch_stencil_dot(const float* A0, const float* Kv, int npts,
                                const float* dks, const float* sm,
-                               const float* p, float* Ap, double* part,
-                               const LaneState* st, const int* lanes,
-                               int n_lanes, int nz, int nr, int nparts,
-                               long long* counts, cudaStream_t stream) {
-  ks_stencil_dot<<<dim3(tiles_of(nz, nr), n_lanes), kThreads, 0, stream>>>(
-      A0, Kv, npts, dks, sm, p, Ap, part, st, lanes, nz, nr, nparts);
-  counts[kPhStencilDot] += 1;
+                               size_t sm_stride, const float* p, float* Ap,
+                               double* part, const LaneState* st,
+                               const int* lanes, int n_lanes, int nz, int nr,
+                               int nparts, long long* counts,
+                               cudaStream_t stream) {
+  const dim3 grid(tiles_of(nz, nr), n_lanes);
+  if (Kv != nullptr) {
+    ks_stencil_dot<true><<<grid, kThreads, 0, stream>>>(
+        A0, Kv, npts, dks, sm, sm_stride, p, Ap, part, st, lanes, nz, nr,
+        nparts);
+    counts[kPhStencilDot] += 1;
+  } else {
+    ks_stencil_dot<false><<<grid, kThreads, 0, stream>>>(
+        A0, Kv, npts, dks, sm, sm_stride, p, Ap, part, st, lanes, nz, nr,
+        nparts);
+    counts[kPhStencilDotNoKv] += 1;
+  }
   return cudaGetLastError();
 }
 
@@ -449,8 +494,8 @@ cudaError_t launch_update(float* x, float* r, const float* p, const float* Ap,
 }
 
 cudaError_t launch_pcr_r(const float* A0, const float* Kv, const float* dks,
-                         const float* sm, const float* r, float* z,
-                         double* part_rz, const LaneState* st,
+                         const float* sm, size_t sm_stride, const float* r,
+                         float* z, double* part_rz, const LaneState* st,
                          const int* lanes, int n_lanes, int nz, int nr,
                          int nparts, long long* counts, cudaStream_t stream) {
   const size_t smem = pcr_smem(nr);
@@ -461,7 +506,7 @@ cudaError_t launch_pcr_r(const float* A0, const float* Kv, const float* dks,
     if (e != cudaSuccess) return e;
   }
   ks_pcr_r<<<dim3(nz, n_lanes), kThreads, smem, stream>>>(
-      A0, Kv, dks, sm, r, z, part_rz, st, lanes, nz, nr, nparts);
+      A0, Kv, dks, sm, sm_stride, r, z, part_rz, st, lanes, nz, nr, nparts);
   counts[kPhPcrR] += 1;
   return cudaGetLastError();
 }
@@ -490,9 +535,9 @@ cudaError_t launch_p_update(float* p, const float* z, const LaneState* st,
 // z = M^-1 r with the <r, z> partials (r-line form); identity: z is r.
 cudaError_t precondition(const Sweep& s, int n_lanes) {
   if (!s.rline) return cudaSuccess;
-  return launch_pcr_r(s.A0, s.Kv, s.dks, s.sm, s.r, s.z, s.part(kPartRz),
-                      s.st, s.lanes, n_lanes, s.nz, s.nr, s.nparts, s.counts,
-                      s.stream);
+  return launch_pcr_r(s.A0, s.Kv, s.dks, s.sm, s.sm_stride, s.r, s.z,
+                      s.part(kPartRz), s.st, s.lanes, n_lanes, s.nz, s.nr,
+                      s.nparts, s.counts, s.stream);
 }
 
 cudaError_t finalize(const Sweep& s, int mode, int n_lanes) {
@@ -505,9 +550,10 @@ cudaError_t start(const Sweep& s) {
   cudaError_t e = cudaMemsetAsync(s.st, 0, (size_t)s.B * sizeof(LaneState),
                                   s.stream);
   if (e != cudaSuccess) return e;
-  if ((e = launch_init(s.A0, s.Kv, s.npts, s.dks, s.sm, s.b, s.x0, s.x, s.r,
-                       s.part(kPartRr), s.part(kPartBb), s.lanes, s.B, s.nz,
-                       s.nr, s.nparts, s.counts, s.stream)) != cudaSuccess)
+  if ((e = launch_init(s.A0, s.Kv, s.npts, s.dks, s.sm, s.sm_stride, s.b,
+                       s.x0, s.x, s.r, s.part(kPartRr), s.part(kPartBb),
+                       s.lanes, s.B, s.nz, s.nr, s.nparts, s.counts,
+                       s.stream)) != cudaSuccess)
     return e;
   if ((e = precondition(s, s.B)) != cudaSuccess) return e;
   if ((e = finalize(s, kFinInit, s.B)) != cudaSuccess) return e;
@@ -517,9 +563,10 @@ cudaError_t start(const Sweep& s) {
 
 cudaError_t iterate(const Sweep& s, int n_lanes) {
   cudaError_t e;
-  if ((e = launch_stencil_dot(s.A0, s.Kv, s.npts, s.dks, s.sm, s.p, s.Ap,
-                              s.part(kPartPap), s.st, s.lanes, n_lanes, s.nz,
-                              s.nr, s.nparts, s.counts, s.stream))
+  if ((e = launch_stencil_dot(s.A0, s.Kv, s.npts, s.dks, s.sm, s.sm_stride,
+                              s.p, s.Ap, s.part(kPartPap), s.st, s.lanes,
+                              n_lanes, s.nz, s.nr, s.nparts, s.counts,
+                              s.stream))
       != cudaSuccess)
     return e;
   if ((e = finalize(s, kFinAlpha, n_lanes)) != cudaSuccess) return e;
@@ -544,8 +591,9 @@ cudaError_t iterate(const Sweep& s, int n_lanes) {
 
 #define HF_SWEEP_ARGS                                                        \
   const float *A0, const float *Kv, int npts, const float *dks,              \
-      const float *sm, const float *b, const float *x0, const float *rtol,   \
-      float *x, float *r, float *z, float *p, float *Ap, double *parts,      \
+      const float *sm, int sm_lane, const float *b, const float *x0,        \
+      const float *rtol, float *x, float *r, float *z, float *p, float *Ap,  \
+      double *parts,                                                         \
       int nparts, void *state, int *lanes, int B, int nz, int nr,            \
       int maxiter, int wrt_r0, int rline, int fixed, long long *counts,      \
       void *stream
@@ -553,7 +601,8 @@ cudaError_t iterate(const Sweep& s, int n_lanes) {
 #define HF_SWEEP_INIT                                                        \
   Sweep s{A0, Kv, dks, sm, b, x0, rtol, x, r, z, p, Ap, parts,               \
           (LaneState *)state, lanes, npts, nz, nr, B, maxiter, wrt_r0,       \
-          rline, fixed, nparts, counts, (cudaStream_t)stream}
+          rline, fixed, nparts, sm_lane ? (size_t)nz * nr : 0, counts,       \
+          (cudaStream_t)stream}
 
 extern "C" {
 
@@ -607,29 +656,34 @@ int hf_sweep_finish(float *x, int *iters, void *state, int B, int nz, int nr,
 }
 
 // Single phases over the first n_lanes entries of `lanes`, for checking
-// each kernel against its plain version. `state` holds B LaneState records
+// each kernel against its plain version. sm_lane = 1: sm holds one plane a
+// lane; 0: one plane shared by every lane. Kv = dks = null: the Kv-free
+// form. `state` holds B LaneState records
 // (the scalars a phase reads: alpha for update, beta for p_update, and the
 // solve state for finalize); stencil_dot and pcr_r read none (every lane
 // runs). `part` is one partial-sum plane of B x nparts doubles, `parts`
 // four (pAp, rr, rz, bb).
 int hf_sweep_init(const float *A0, const float *Kv, int npts,
-                  const float *dks, const float *sm, const float *b,
-                  const float *x0, float *x, float *r, double *part_rr,
-                  double *part_bb, const int *lanes, int n_lanes, int nz,
-                  int nr, int nparts, long long *counts, void *stream) {
-  return (int)launch_init(A0, Kv, npts, dks, sm, b, x0, x, r, part_rr,
-                          part_bb, lanes, n_lanes, nz, nr, nparts, counts,
-                          (cudaStream_t)stream);
+                  const float *dks, const float *sm, int sm_lane,
+                  const float *b, const float *x0, float *x, float *r,
+                  double *part_rr, double *part_bb, const int *lanes,
+                  int n_lanes, int nz, int nr, int nparts, long long *counts,
+                  void *stream) {
+  return (int)launch_init(A0, Kv, npts, dks, sm,
+                          sm_lane ? (size_t)nz * nr : 0, b, x0, x, r,
+                          part_rr, part_bb, lanes, n_lanes, nz, nr, nparts,
+                          counts, (cudaStream_t)stream);
 }
 
 int hf_sweep_stencil_dot(const float *A0, const float *Kv, int npts,
-                         const float *dks, const float *sm, const float *p,
-                         float *Ap, double *part, const int *lanes,
-                         int n_lanes, int nz, int nr, int nparts,
-                         long long *counts, void *stream) {
-  return (int)launch_stencil_dot(A0, Kv, npts, dks, sm, p, Ap, part, nullptr,
-                                 lanes, n_lanes, nz, nr, nparts, counts,
-                                 (cudaStream_t)stream);
+                         const float *dks, const float *sm, int sm_lane,
+                         const float *p, float *Ap, double *part,
+                         const int *lanes, int n_lanes, int nz, int nr,
+                         int nparts, long long *counts, void *stream) {
+  return (int)launch_stencil_dot(A0, Kv, npts, dks, sm,
+                                 sm_lane ? (size_t)nz * nr : 0, p, Ap, part,
+                                 nullptr, lanes, n_lanes, nz, nr, nparts,
+                                 counts, (cudaStream_t)stream);
 }
 
 int hf_sweep_update(float *x, float *r, const float *p, const float *Ap,
@@ -642,12 +696,12 @@ int hf_sweep_update(float *x, float *r, const float *p, const float *Ap,
 }
 
 int hf_sweep_pcr_r(const float *A0, const float *Kv, const float *dks,
-                   const float *sm, const float *r, float *z, double *part,
-                   const int *lanes, int n_lanes, int nz, int nr, int nparts,
-                   long long *counts, void *stream) {
-  return (int)launch_pcr_r(A0, Kv, dks, sm, r, z, part, nullptr, lanes,
-                           n_lanes, nz, nr, nparts, counts,
-                           (cudaStream_t)stream);
+                   const float *sm, int sm_lane, const float *r, float *z,
+                   double *part, const int *lanes, int n_lanes, int nz,
+                   int nr, int nparts, long long *counts, void *stream) {
+  return (int)launch_pcr_r(A0, Kv, dks, sm, sm_lane ? (size_t)nz * nr : 0, r,
+                           z, part, nullptr, lanes, n_lanes, nz, nr, nparts,
+                           counts, (cudaStream_t)stream);
 }
 
 // mode 0: the first step's scalars; 1: alpha; 2: beta and the stop test.

@@ -135,3 +135,18 @@ def build_structured_mesh(domain_bounds, materials: list[MaterialSpec],
     return StructuredMesh(z=z, r=r, cell_tags=cell_tags,
                           material_tags=material_tags,
                           materials=list(materials))
+
+
+def mesh_from_meta(meta: dict, materials: list[MaterialSpec] | None = None
+                   ) -> StructuredMesh:
+    """Reconstruct a StructuredMesh saved by :meth:`StructuredMesh.to_meta`;
+    the cell tags are re-derived from ``materials``."""
+    z = np.asarray(meta["z"], dtype=np.float64)
+    r = np.asarray(meta["r"], dtype=np.float64)
+    mats = list(materials or [])
+    if not mats:
+        raise ValueError("mesh_from_meta requires the material list to "
+                         "re-derive cell tags")
+    return StructuredMesh(z=z, r=r, cell_tags=_assign_cell_tags(z, r, mats),
+                          material_tags=dict(meta["material_tags"]),
+                          materials=mats)

@@ -123,8 +123,8 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_pcr_r, P, P, P, I, P, P, I, I, P, P)
     _sig(lib.hf_pcr_z, P, P, P, I, P, P, I, I, P, P)
     # csrc/sweep_cg.cu
-    sweep = [P, P, I, P, P, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I, I,
-             I, I, I, P, P]
+    sweep = [P, P, I, P, P, I, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I,
+             I, I, I, I, P, P]
     _sig(lib.hf_sweep_tiles, I, I)
     _sig(lib.hf_sweep_nparts, I, I)
     _sig(lib.hf_sweep_state_bytes)
@@ -133,12 +133,12 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_sweep_iterate, *sweep, I, I)
     _sig(lib.hf_sweep_compact, P, I, P, P, P, P)
     _sig(lib.hf_sweep_finish, P, P, P, I, I, I, I, P, P)
-    _sig(lib.hf_sweep_init, P, P, I, P, P, P, P, P, P, P, P, P, I, I, I, I,
+    _sig(lib.hf_sweep_init, P, P, I, P, P, I, P, P, P, P, P, P, P, I, I, I,
+         I, P, P)
+    _sig(lib.hf_sweep_stencil_dot, P, P, I, P, P, I, P, P, P, P, I, I, I, I,
          P, P)
-    _sig(lib.hf_sweep_stencil_dot, P, P, I, P, P, P, P, P, P, I, I, I, I, P,
-         P)
     _sig(lib.hf_sweep_update, P, P, P, P, P, P, P, I, I, I, I, P, P)
-    _sig(lib.hf_sweep_pcr_r, P, P, P, P, P, P, P, P, I, I, I, I, P, P)
+    _sig(lib.hf_sweep_pcr_r, P, P, P, P, I, P, P, P, P, I, I, I, I, P, P)
     _sig(lib.hf_sweep_finalize, P, P, I, I, I, I, I, P, I, I, I, P, I, P, P)
     _sig(lib.hf_sweep_p_update, P, P, P, P, I, I, I, I, P, P)
     _lib = lib

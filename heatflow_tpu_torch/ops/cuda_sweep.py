@@ -4,13 +4,16 @@ and their plain PyTorch versions.
 Lane b of a batch solves sm_b·(A0 + dk_b·Kv)·sm_b y = b_b: A0 and Kv are
 (7|9, Nz, Nr) stencils shared by every lane, dks (B,) the per-lane
 coefficient shifts, sm = rsqrt(diag)·free per lane, and b, x0 vanish at
-constrained dofs. :func:`cg_batched_tol` runs each lane to its own
-tolerance (‖r‖ ≤ rtol_b·‖b_b‖, or ·‖r0_b‖), unpreconditioned or with the
-r-line PCR block-Jacobi solve; :func:`cg_batched` runs every lane a fixed
-number of iterations. A tensor on the CPU goes to the plain version; a CUDA
-tensor goes to the kernel, or the call raises. The kernels replace
-heatflow_tpu/ops/pallas_cg.py: _sweep_cg_tol_kernel (identity and r-line
-forms) and _sweep_cg_kernel.
+constrained dofs. With ``Kv=None`` (and ``dks=None``) every lane solves with
+A0 alone, and ``sm`` may be one (Nz, Nr) plane shared by the lanes: the
+recording sweeps' mass projection (the Kv-free form). :func:`cg_batched_tol`
+runs each lane to its own tolerance (‖r‖ ≤ rtol_b·‖b_b‖, or ·‖r0_b‖),
+unpreconditioned or with the r-line PCR block-Jacobi solve;
+:func:`cg_batched` runs every lane a fixed number of iterations. A tensor on
+the CPU goes to the plain version; a CUDA tensor goes to the kernel, or the
+call raises. The kernels replace heatflow_tpu/ops/pallas_cg.py:
+_sweep_cg_tol_kernel (identity, r-line and has_kv=False forms) and
+_sweep_cg_kernel.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ CHECK_EVERY = 8   # iterations enqueued between two host reads of the number
                   # depend on it
 
 PHASES = ("init", "stencil_dot", "update", "pcr_r", "finalize", "p_update",
-          "compact", "finish")
+          "compact", "finish", "init_no_kv", "stencil_dot_no_kv")
 # phase kernel launches, counted by the C host code where it launches them
 _phase_counts = np.zeros(len(PHASES), dtype=np.int64)
 _STATE_WORDS = 6   # float64 words of one lane's solve state
@@ -62,7 +65,8 @@ def phase_launches() -> dict[str, int]:
 
 def reset_counters() -> None:
     _phase_counts[:] = 0
-    for name in ("launches", "launches_identity", "launches_rline"):
+    for name in ("launches", "launches_identity", "launches_rline",
+                 "launches_no_kv"):
         setattr(cg_batched_tol, name, 0)
     cg_batched.launches = 0
 
@@ -270,20 +274,27 @@ def cg_batched_reference(A0, Kv, dks, sm, b, x0, *, iters: int = 100):
 # ----------------------------------------------------------------------
 
 def _check_batch(A0, Kv, dks, sm, fields):
-    """(B, nz, nr) after checking every operand of a batched call."""
-    if sm.ndim != 3:
-        raise ValueError(f"sm must be (B, Nz, Nr), got {tuple(sm.shape)}")
-    B, nz, nr = sm.shape
+    """(B, nz, nr) after checking every operand of a batched call: B lanes
+    of (Nz, Nr) fields; sm one plane a lane, or one (Nz, Nr) plane shared by
+    the lanes; Kv and dks both given, or both None."""
+    ref = sm if sm.ndim == 3 or not fields else next(iter(fields.values()))
+    if ref.ndim != 3:
+        raise ValueError(f"sm must be (B, Nz, Nr), or (Nz, Nr) with (B, Nz, "
+                         f"Nr) fields; got {tuple(sm.shape)}")
+    B, nz, nr = ref.shape
     if not 1 <= B <= _MAX_LANES:
         raise ValueError(f"batch of {B} lanes: the kernel takes 1.."
                          f"{_MAX_LANES}")
-    dev = sm.device
+    dev = ref.device
     if A0.ndim != 3 or A0.shape[0] not in (7, 9):
         raise ValueError(f"A0 must be (7|9, Nz, Nr), got {tuple(A0.shape)}")
     _require(A0, "A0", (A0.shape[0], nz, nr), dev)
-    _require(Kv, "Kv", (A0.shape[0], nz, nr), dev)
-    _require(dks, "dks", (B,), dev)
-    _require(sm, "sm", (B, nz, nr), dev)
+    if (Kv is None) != (dks is None):
+        raise ValueError("Kv and dks go together: give both or neither")
+    if Kv is not None:
+        _require(Kv, "Kv", (A0.shape[0], nz, nr), dev)
+        _require(dks, "dks", (B,), dev)
+    _require(sm, "sm", (B, nz, nr) if sm.ndim == 3 else (nz, nr), dev)
     for name, t in fields.items():
         _require(t, name, (B, nz, nr), dev)
     return B, nz, nr
@@ -313,7 +324,8 @@ class _Solve:
         self.stream = _stream()
         self._keep = (vecs, rtol_t)
         self.args = (_ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm),
-                     _ptr(b), _ptr(x0), _ptr(rtol_t), _ptr(self.x), _ptr(r),
+                     int(sm.ndim == 3), _ptr(b), _ptr(x0), _ptr(rtol_t),
+                     _ptr(self.x), _ptr(r),
                      _ptr(z), _ptr(p), _ptr(Ap), _ptr(self.parts), nparts,
                      _ptr(self.state), _ptr(self.lanes), B, nz, nr,
                      int(maxiter), int(wrt_r0), int(rline), int(fixed),
@@ -342,15 +354,17 @@ class _Solve:
                                         self.stream), "sweep finish")
 
 
-def cg_batched_tol(A0: torch.Tensor, Kv: torch.Tensor, dks: torch.Tensor,
-                   sm: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
-                   rtol, *, maxiter: int = 4000, rtol_wrt: str = "b",
+def cg_batched_tol(A0: torch.Tensor, Kv: torch.Tensor | None,
+                   dks: torch.Tensor | None, sm: torch.Tensor,
+                   b: torch.Tensor, x0: torch.Tensor, rtol, *,
+                   maxiter: int = 4000, rtol_wrt: str = "b",
                    rline: bool = False):
     """Solve every lane to its tolerance; returns (x (B, Nz, Nr), iters (B,)
     int32 on the inputs' device). ``rtol`` is a float or a (B,) tensor (the
     refinement's per-lane guard: a lane at rtol ≥ 1 stops at its first
-    check). CPU tensors take the plain version; CUDA float32 tensors the
-    kernel."""
+    check). ``Kv=None, dks=None``: the Kv-free form (A0 alone; ``sm`` may be
+    a shared (Nz, Nr) plane). CPU tensors take the plain version; CUDA
+    float32 tensors the kernel."""
     _check_rtol_wrt(rtol_wrt)
     if _on_cpu(A0, Kv, dks, sm, b, x0):
         return cg_batched_tol_reference(A0, Kv, dks, sm, b, x0, rtol,
@@ -362,7 +376,8 @@ def cg_batched_tol(A0: torch.Tensor, Kv: torch.Tensor, dks: torch.Tensor,
     solve = _Solve(lib, A0, Kv, dks, sm, b, x0, rtol_t, maxiter=maxiter,
                    wrt_r0=rtol_wrt == "r0", rline=rline, fixed=False)
     cg_batched_tol.launches += 1
-    form = "launches_rline" if rline else "launches_identity"
+    form = ("launches_no_kv" if Kv is None else
+            "launches_rline" if rline else "launches_identity")
     setattr(cg_batched_tol, form, getattr(cg_batched_tol, form) + 1)
     solve.start()
     n_lanes = solve.running()
@@ -379,6 +394,7 @@ def cg_batched_tol(A0: torch.Tensor, Kv: torch.Tensor, dks: torch.Tensor,
 cg_batched_tol.launches = 0
 cg_batched_tol.launches_identity = 0
 cg_batched_tol.launches_rline = 0
+cg_batched_tol.launches_no_kv = 0
 
 
 def cg_batched(A0: torch.Tensor, Kv: torch.Tensor, dks: torch.Tensor,
@@ -438,7 +454,8 @@ def _lane_sums(lib, part, nz, nr):
 
 def init(A0, Kv, dks, sm, b, x0):
     """The first-residual phase alone: (x, r, ⟨r, r⟩, ⟨b, b⟩ per lane) with
-    r = b − sm·A_b·(sm·x0); the dots are float64."""
+    r = b − sm·A_b·(sm·x0); the dots are float64. ``Kv=dks=None``: the
+    Kv-free form."""
     if _on_cpu(A0, Kv, dks, sm, b, x0):
         return init_reference(A0, Kv, dks, sm, b, x0)
     lib, B, nz, nr, nparts, lanes = _phase_setup({"b": b, "x0": x0}, A0, Kv,
@@ -446,8 +463,9 @@ def init(A0, Kv, dks, sm, b, x0):
     x, r = torch.empty_like(b), torch.empty_like(b)
     part = torch.empty((2, B, nparts), dtype=torch.float64, device=b.device)
     _check(lib.hf_sweep_init(
-        _ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm), _ptr(b),
-        _ptr(x0), _ptr(x), _ptr(r), _ptr(part[0]), _ptr(part[1]),
+        _ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm),
+        int(sm.ndim == 3), _ptr(b), _ptr(x0), _ptr(x), _ptr(r),
+        _ptr(part[0]), _ptr(part[1]),
         _ptr(lanes), B, nz, nr, nparts, _counts_ptr(), _stream()),
         "sweep init")
     rr, bb = _lane_sums(lib, part, nz, nr)
@@ -456,16 +474,17 @@ def init(A0, Kv, dks, sm, b, x0):
 
 def stencil_dot(A0, Kv, dks, sm, p):
     """The stencil-and-dot phase alone: (Ap, ⟨p, Ap⟩ per lane) with
-    Ap = sm·A_b·(sm·p); the dots are float64."""
+    Ap = sm·A_b·(sm·p); the dots are float64. ``Kv=dks=None``: the Kv-free
+    form."""
     if _on_cpu(A0, Kv, dks, sm, p):
         return stencil_dot_reference(A0, Kv, dks, sm, p)
     lib, B, nz, nr, nparts, lanes = _phase_setup({"p": p}, A0, Kv, dks, sm)
     Ap = torch.empty_like(p)
     part = torch.empty((B, nparts), dtype=torch.float64, device=p.device)
     _check(lib.hf_sweep_stencil_dot(
-        _ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm), _ptr(p),
-        _ptr(Ap), _ptr(part), _ptr(lanes), B, nz, nr, nparts, _counts_ptr(),
-        _stream()), "sweep stencil_dot")
+        _ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm),
+        int(sm.ndim == 3), _ptr(p), _ptr(Ap), _ptr(part), _ptr(lanes), B, nz,
+        nr, nparts, _counts_ptr(), _stream()), "sweep stencil_dot")
     return Ap, _lane_sums(lib, part, nz, nr)
 
 
@@ -495,7 +514,8 @@ def pcr_r(A0, Kv, dks, sm, r):
     z = torch.empty_like(r)
     part = torch.empty((B, nparts), dtype=torch.float64, device=r.device)
     _check(lib.hf_sweep_pcr_r(
-        _ptr(A0), _ptr(Kv), _ptr(dks), _ptr(sm), _ptr(r), _ptr(z),
+        _ptr(A0), _ptr(Kv), _ptr(dks), _ptr(sm), int(sm.ndim == 3), _ptr(r),
+        _ptr(z),
         _ptr(part), _ptr(lanes), B, nz, nr, nparts, _counts_ptr(),
         _stream()), "sweep pcr_r")
     return z, part[:, :nz].sum(dim=1)

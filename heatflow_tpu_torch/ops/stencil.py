@@ -179,11 +179,13 @@ def apply_stencil(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def apply_combined(A0: torch.Tensor, Kv: torch.Tensor, dks: torch.Tensor,
-                   v: torch.Tensor) -> torch.Tensor:
+def apply_combined(A0: torch.Tensor, Kv: torch.Tensor | None,
+                   dks: torch.Tensor | None, v: torch.Tensor) -> torch.Tensor:
     """(A0 + dk_b·Kv) v_b for every lane b of v (B, Nz, Nr), dks (B,): the
     operator combined plane by plane as it is applied, as the sweep kernels
-    combine it (never a (B, 7|9, Nz, Nr) operator)."""
+    combine it (never a (B, 7|9, Nz, Nr) operator). ``Kv=None``: A0 v_b."""
+    if Kv is None:
+        return apply_stencil(A0, v)
     dk = dks.reshape(-1, 1, 1)
     out = (A0[0] + dk * Kv[0]) * v
     for k, (di, dj) in enumerate(offsets_for(A0.shape[0])[1:], start=1):

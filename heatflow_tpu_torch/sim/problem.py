@@ -91,6 +91,9 @@ class Problem2D:
             out["band_bins"] = torch.as_tensor(
                 self.radial.band_bin_ids, dtype=torch.int64, device=device)
             out["bin_counts"] = f(self.radial.bin_counts)
+            slots, fill = band_slots(self.radial)
+            out["band_slots"] = torch.as_tensor(slots, device=device)
+            out["band_fill"] = torch.as_tensor(fill, device=device)
         return out
 
     def to_arrays(self) -> dict[str, np.ndarray]:
@@ -139,6 +142,40 @@ def problem_from_arrays(arrays: dict[str, np.ndarray], mesh: StructuredMesh,
         heat_mask=a["heat_mask"].astype(bool), r_sq=a["r_sq"],
         watcher_names=list(watcher_names), watcher_idx=a.get("watcher_idx"),
         radial=radial)
+
+
+def band_slots(radial: RadialSampling) -> tuple[np.ndarray, np.ndarray]:
+    """(slots (n_bins, P) int64, fill (n_bins, P) bool): each bin's band
+    nodes as flat node ids, padded to a power of two P (fill marks the real
+    entries), for :func:`band_average`."""
+    bins = np.asarray(radial.band_bin_ids)
+    n_bins = len(radial.bin_counts)
+    order = np.argsort(bins, kind="stable")
+    counts = np.bincount(bins, minlength=n_bins)
+    width = 1 << int(max(1, counts.max(initial=1)) - 1).bit_length()
+    pos = np.arange(len(bins)) - np.repeat(np.cumsum(counts) - counts,
+                                           counts)
+    slots = np.zeros((n_bins, width), dtype=np.int64)
+    fill = np.zeros((n_bins, width), dtype=bool)
+    slots[bins[order], pos] = np.asarray(radial.band_nodes)[order]
+    fill[bins[order], pos] = True
+    return slots, fill
+
+
+def band_average(flat: torch.Tensor, slots: torch.Tensor,
+                 fill: torch.Tensor, bin_counts: torch.Tensor
+                 ) -> torch.Tensor:
+    """The band-averaged rows (..., n_bins) of nodal values flat (..., N):
+    each bin's band nodes gathered into its padded slots and summed
+    pairwise in a fixed order, so a lane's rows depend neither on the batch
+    nor on the device's thread order (a CUDA ``index_add_`` adds in
+    arbitrary order)."""
+    v = torch.where(fill, flat[..., slots], torch.zeros((), dtype=flat.dtype,
+                                                        device=flat.device))
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0] / bin_counts
 
 
 def initial_condition(mesh: StructuredMesh, init) -> np.ndarray:
@@ -191,6 +228,29 @@ def _radial_sampling(mesh: StructuredMesh) -> RadialSampling:
     return RadialSampling(band_nodes=band_nodes, band_bin_ids=bin_ids,
                           bin_counts=counts, bin_centers=centers,
                           axis_z=z.copy())
+
+
+def radial_band_analysis(mesh: StructuredMesh, band_width: float = 0.1e-6
+                         ) -> dict:
+    """The reference's β-clustering diagnostic of the radial sampling band
+    (ref run_no_diamond.py:409-432): β = mean r of band nodes / band width.
+    β≈1 ⇒ nodes clustered at the outer edge; β≈0.5 ⇒ uniform."""
+    r = mesh.r
+    band_j = np.where((r > 0.0) & (r <= band_width))[0]
+    n_nodes = len(band_j) * len(mesh.z)
+    if len(band_j) == 0:
+        return {"n_band_nodes": 0, "band_width": band_width, "beta": np.nan,
+                "verdict": "no nodes in band"}
+    mean_r = float(r[band_j].mean())
+    beta = mean_r / band_width
+    if beta > 0.95:
+        verdict = "clustered near the outer edge (β ≈ 1)"
+    elif 0.45 < beta < 0.55:
+        verdict = "uniformly distributed (β ≈ 0.5)"
+    else:
+        verdict = "neither fully clustered nor uniform"
+    return {"n_band_nodes": n_nodes, "band_width": band_width,
+            "mean_r": mean_r, "beta": beta, "verdict": verdict}
 
 
 def build_problem(mesh: StructuredMesh,

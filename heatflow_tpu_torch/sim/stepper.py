@@ -30,7 +30,7 @@ from torch import nn
 
 from heatflow_tpu_torch.ops.cg import pcg, refine_inner_scale
 from heatflow_tpu_torch.ops.stencil import apply_stencil, combine_operator
-from heatflow_tpu_torch.sim.problem import Problem2D
+from heatflow_tpu_torch.sim.problem import Problem2D, band_average
 
 
 @dataclass
@@ -148,7 +148,6 @@ class Simulator(nn.Module):
         dt = torch.tensor(problem.dt, dtype=cdt, device=device)
         has_watch = "watch_flat" in d
         has_radial = problem.radial is not None and o["record_gradient"]
-        n_bins = len(problem.radial.bin_counts) if has_radial else 0
         one = lambda v: torch.ones_like(v)
 
         K, M = d["K"], d["M"]
@@ -295,11 +294,9 @@ class Simulator(nn.Module):
                                rtol=o["proj_rtol"],
                                maxiter=o["proj_maxiter"])
                     gr = gsol.x * s_mp
-                vals = gr.reshape(-1)[d["band_nodes"]]
-                sums = torch.zeros(n_bins, dtype=gr.dtype,
-                                   device=device).index_add_(
-                    0, d["band_bins"], vals)
-                outs.setdefault("band", []).append(sums / d["bin_counts"])
+                outs.setdefault("band", []).append(band_average(
+                    gr.reshape(-1), d["band_slots"], d["band_fill"],
+                    d["bin_counts"]))
                 outs.setdefault("axis", []).append(gr[:, 0])
                 outs.setdefault("proj_iters", []).append(gsol.iters)
             else:

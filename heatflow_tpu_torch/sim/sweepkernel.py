@@ -16,6 +16,11 @@ Two solvers: ``'vmem'`` runs each step's solve through the batched CUDA
 kernels of :mod:`heatflow_tpu_torch.ops.cuda_sweep` (their plain versions
 for CPU tensors), ``'xla'`` through the eager batched :func:`pcg` /
 :func:`pcg_fixed` with the per-lane freeze.
+
+Recording sweeps (:func:`make_sweep_fn_recording`) also write the radial
+gradient of every lane each step: the r-weighted mass projection, solved for
+all lanes through the Kv-free form of the same batched kernel (``'vmem'``),
+or the eager stepper run once per lane (``'xla'``).
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ from heatflow_tpu_torch.ops.cg import (_lane, pcg, pcg_fixed,
                                        refine_inner_scale)
 from heatflow_tpu_torch.ops.stencil import (apply_combined, apply_stencil,
                                             combine_operator)
-from heatflow_tpu_torch.sim.problem import Problem2D
-from heatflow_tpu_torch.sim.stepper import interp
+from heatflow_tpu_torch.sim.problem import Problem2D, band_average
+from heatflow_tpu_torch.sim.stepper import interp, make_simulate_fn
 
 
 def _not_ported(what: str, item: str):
@@ -39,7 +44,8 @@ def _not_ported(what: str, item: str):
 
 
 def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
-                base_k, extrapolate, make_solve, iters_out=None):
+                base_k, extrapolate, make_solve, iters_out=None,
+                project=None):
     """The batched backward-Euler loop shared by both solvers.
 
     ``make_solve(dks, s, sm)`` is called once per scan and returns
@@ -47,7 +53,8 @@ def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
     sm·A_b·sm X = Bv of every lane from Y0. Returns (traces (B, S, W),
     u_fin, u_penultimate); the last two re-enter the next time chunk, so a
     chunked 'extrapolate' run is the unchunked trajectory. ``iters_out``, a
-    list, receives each step's (B,) iteration counts."""
+    list, receives each step's (B,) iteration counts; ``project(U)``, when
+    given, is called with each step's new fields."""
     device = ops["A0"].device
     free, dirich = ops["free"], ops["dirich"]
     A0, Kv = ops["A0"], ops["K_var"]
@@ -92,6 +99,8 @@ def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
         traces.append(Un.reshape(B, -1)[:, watch])
         if iters_out is not None:
             iters_out.append(iters)
+        if project is not None:
+            project(Un)
         U_pp, U = U, Un
     return torch.stack(traces, dim=1), U, U_pp
 
@@ -99,8 +108,9 @@ def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
 def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
                     num_steps, base_k, fixed_iters, rtol, maxiter,
                     extrapolate, rline=False, adi=False, rtol_wrt="b",
-                    f64_refine=0, record=None, adaptive=False,
-                    iters_out=None):
+                    f64_refine=0, record=None, proj_rtol=1e-11,
+                    proj_maxiter=400, adaptive=False, iters_out=None,
+                    proj_iters_out=None):
     """Whole-batch backward-Euler loop with the batched kernels
     (:func:`cg_batched_tol`, or :func:`cg_batched` for ``fixed_iters``).
     ``ops`` holds the stencils A0/K_var/M_op, the masks free/dirich, r_sq,
@@ -114,13 +124,23 @@ def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
     of float64 residual around a float32 batched correction solve from a
     zero seed with a unit-norm right-hand side, the fields carried in
     float64 (the per-lane guard ``refine_inner_scale`` stops a lane whose
-    residual is at float64 roundoff)."""
+    residual is at float64 roundoff).
+
+    ``record``: a dict with the projection stencils ``Mp``/``Gr``, the
+    scaling plane ``s_mp``, the band's ``band_slots``/``band_fill``/
+    ``bin_counts`` (see :func:`band_average`) and the flat
+    ``axis_nodes``. Each step then also solves every
+    lane's r-weighted mass projection s_mp·Mp·s_mp y = s_mp·(Gr u) in
+    ``dtype``, through the Kv-free form of :func:`cg_batched_tol` (stop at
+    ``proj_rtol``·‖b‖, at most ``proj_maxiter`` iterations), seeded from
+    the previous step's gradient (or 2·GR − GR_prev under ``extrapolate``;
+    both start at 0), and the first return value is the dict {watch (B, S,
+    W), band (B, S, n_bins), axis (B, S, Nz)}. ``proj_iters_out``, a list,
+    receives each step's (B,) projection counts."""
     from heatflow_tpu_torch.ops.cuda_sweep import cg_batched, cg_batched_tol
     if adi or adaptive:
         raise _not_ported("the ADI and adaptive forms of the batched sweep "
                           "kernel", "K2")
-    if record is not None:
-        raise _not_ported("recording sweeps (record=)", "P6")
     cdt = torch.float64 if f64_refine else dtype
     A0, Kv = ops["A0"], ops["K_var"]
     c32 = lambda t: t.to(dtype).contiguous()
@@ -158,10 +178,42 @@ def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
                                       rline=rline)
         return solve
 
-    return _sweep_scan(ops, ks, fs, u0, u_pp, step0, cdt=cdt, ic=ic, dt=dt,
-                       num_steps=num_steps, base_k=base_k,
-                       extrapolate=extrapolate, make_solve=make_solve,
-                       iters_out=iters_out)
+    project, rows = None, {}
+    if record is not None:
+        # the projection runs in the kernel dtype, float32 under refine too
+        Mp = c32(record["Mp"])
+        Gr = record["Gr"].to(dtype)
+        s_mp = c32(record["s_mp"])
+        bin_counts = record["bin_counts"].to(dtype)
+        rows.update(band=[], axis=[], GR=None, GR_pp=None)
+
+        def project(U):
+            if rows["GR"] is None:
+                rows["GR"] = rows["GR_pp"] = torch.zeros(
+                    U.shape, dtype=dtype, device=U.device)
+            br = s_mp * apply_stencil(Gr, U.to(dtype))
+            seed = (2.0 * rows["GR"] - rows["GR_pp"] if extrapolate
+                    else rows["GR"])
+            Xp, its = cg_batched_tol(Mp, None, None, s_mp, br.contiguous(),
+                                     (seed / s_mp).contiguous(), proj_rtol,
+                                     maxiter=proj_maxiter, rtol_wrt="b")
+            gr = Xp * s_mp
+            flat = gr.reshape(gr.shape[0], -1)
+            rows["band"].append(band_average(flat, record["band_slots"],
+                                             record["band_fill"], bin_counts))
+            rows["axis"].append(flat[:, record["axis_nodes"]])
+            rows["GR_pp"], rows["GR"] = rows["GR"], gr
+            if proj_iters_out is not None:
+                proj_iters_out.append(its)
+
+    traces, u_fin, u_pen = _sweep_scan(
+        ops, ks, fs, u0, u_pp, step0, cdt=cdt, ic=ic, dt=dt,
+        num_steps=num_steps, base_k=base_k, extrapolate=extrapolate,
+        make_solve=make_solve, iters_out=iters_out, project=project)
+    if record is None:
+        return traces, u_fin, u_pen
+    return ({"watch": traces, "band": torch.stack(rows["band"], dim=1),
+             "axis": torch.stack(rows["axis"], dim=1)}, u_fin, u_pen)
 
 
 def _xla_solver(ops, *, precondition, fixed_iters, rtol, maxiter, rtol_wrt):
@@ -194,6 +246,29 @@ def _xla_solver(ops, *, precondition, fixed_iters, rtol, maxiter, rtol_wrt):
         return solve
 
     return make_solve
+
+
+def _sweep_ops(problem: Problem2D, vary_material: str, wdt, device):
+    """(ops, base_k, dt, ic, dev): the stencils, masks, heating and watcher
+    tensors a batched scan reads (see :func:`vmem_sweep_scan`), in ``wdt``
+    on ``device``, with the problem's device arrays."""
+    dev = problem.device_arrays(wdt, device)
+    if "watch_flat" not in dev:
+        raise ValueError("sweeps need watcher points on the problem")
+    dt = torch.tensor(problem.dt, dtype=wdt, device=device)
+    ic = torch.tensor(problem.ic_temp, dtype=wdt, device=device)
+    # stencil slots are ordered by tag, i.e. by material insertion order
+    m_idx = list(problem.mesh.material_tags).index(vary_material)
+    base_k = float(problem.kappas[m_idx])
+    A0, M_op = combine_operator(dev["K"], dev["M"], dev["kappas"],
+                                dev["rho_cvs"], dt)
+    ops = {"A0": A0.contiguous(), "M_op": M_op,
+           "K_var": dev["K"][m_idx].contiguous(),
+           "free": dev["free"], "dirich": dev["dirichlet"],
+           "base": dev["heat_profile_base"], "r_sq": dev["r_sq"],
+           "heat_t": dev["heat_t"], "heat_T": dev["heat_T"],
+           "watch": dev["watch_flat"]}
+    return ops, base_k, dt, ic, dev
 
 
 def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
@@ -278,23 +353,8 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                              "tolerance-based (drop fixed_iters)")
 
     wdt = torch.float64 if f64_refine else dtype
-    dev = problem.device_arrays(wdt, device)
-    if "watch_flat" not in dev:
-        raise ValueError("sweeps need watcher points on the problem")
+    ops, base_k, dt, ic, _ = _sweep_ops(problem, vary_material, wdt, device)
     nz, nr = problem.mesh.shape
-    dt = torch.tensor(problem.dt, dtype=wdt, device=device)
-    ic = torch.tensor(problem.ic_temp, dtype=wdt, device=device)
-    # stencil slots are ordered by tag, i.e. by material insertion order
-    m_idx = list(problem.mesh.material_tags).index(vary_material)
-    base_k = float(problem.kappas[m_idx])
-    A0, M_op = combine_operator(dev["K"], dev["M"], dev["kappas"],
-                                dev["rho_cvs"], dt)
-    ops = {"A0": A0.contiguous(), "M_op": M_op,
-           "K_var": dev["K"][m_idx].contiguous(),
-           "free": dev["free"], "dirich": dev["dirichlet"],
-           "base": dev["heat_profile_base"], "r_sq": dev["r_sq"],
-           "heat_t": dev["heat_t"], "heat_T": dev["heat_T"],
-           "watch": dev["watch_flat"]}
     extrapolate = warm_start == "extrapolate"
 
     def core(ks, fs, u0, u_pp, step0, iters_out=None):
@@ -337,6 +397,159 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
     simulate_batch.ic_temp = float(problem.ic_temp)
     simulate_batch.dt = float(problem.dt)
     simulate_batch.times = np.arange(1, n_steps + 1) * problem.dt
+    simulate_batch.device = device
+    cache[cache_key] = simulate_batch
+    return simulate_batch
+
+
+def _recording_vmem(problem: Problem2D, *, vary_material, dtype, rtol,
+                    maxiter, fixed_iters, warm_start, rtol_wrt, f64_refine,
+                    precondition, proj_rtol, proj_maxiter, device):
+    """Recording sweeps through the batched kernels: each step's solve and
+    its gradient projection run for every lane together
+    (:func:`vmem_sweep_scan` with ``record``)."""
+    if warm_start not in ("previous", "extrapolate"):
+        raise ValueError(f"unknown warm_start {warm_start!r} for sweep "
+                         "engines (use 'previous' or 'extrapolate')")
+    if f64_refine:
+        if dtype != torch.float32:
+            raise ValueError("f64_refine is the mixed-precision mode: "
+                             "dtype must be float32")
+        if fixed_iters is not None:
+            raise ValueError("f64_refine composes with the tolerance-based "
+                             "solve (drop fixed_iters)")
+    if precondition not in ("jacobi", "rline", "adi", "adaptive"):
+        raise ValueError("solver='vmem' supports precondition='jacobi', "
+                         "'rline', 'adi' or 'adaptive'")
+    if precondition in ("rline", "adi", "adaptive") \
+            and fixed_iters is not None:
+        raise ValueError(f"{precondition}-preconditioned vmem sweeps are "
+                         "tolerance-based (drop fixed_iters)")
+    if precondition in ("adi", "adaptive"):
+        raise _not_ported(f"precondition={precondition!r} in the batched "
+                          "sweep kernel", "K2")
+    nz, nr = problem.mesh.shape
+    wdt = torch.float64 if f64_refine else dtype
+    ops, base_k, dt, ic, dev = _sweep_ops(problem, vary_material, wdt,
+                                          device)
+    M_proj = dev["M_proj"]
+    s_mp = torch.rsqrt(torch.where(M_proj[0] > 0, M_proj[0],
+                                   torch.ones_like(M_proj[0])))
+    record = {"Mp": M_proj, "Gr": dev["G_r"], "s_mp": s_mp,
+              "band_slots": dev["band_slots"], "band_fill": dev["band_fill"],
+              "bin_counts": dev["bin_counts"],
+              # structured axis rows are lattice column r = 0
+              "axis_nodes": torch.arange(nz, device=device) * nr}
+
+    def simulate_batch(sample_k, fwhm, iters_out=None, proj_iters_out=None):
+        B = len(np.atleast_1d(np.asarray(sample_k)))
+        u0 = torch.full((B, nz, nr), float(problem.ic_temp), dtype=wdt,
+                        device=device)
+        with torch.no_grad():
+            ys = vmem_sweep_scan(
+                ops, sample_k, fwhm, u0, u0, 0, dtype=dtype, ic=ic, dt=dt,
+                num_steps=int(problem.num_steps), base_k=base_k,
+                fixed_iters=fixed_iters, rtol=rtol, maxiter=maxiter,
+                extrapolate=warm_start == "extrapolate",
+                rline=precondition == "rline", rtol_wrt=rtol_wrt,
+                f64_refine=f64_refine, record=record, proj_rtol=proj_rtol,
+                proj_maxiter=proj_maxiter, iters_out=iters_out,
+                proj_iters_out=proj_iters_out)[0]
+        ys["times"] = simulate_batch.times
+        return ys
+
+    return simulate_batch
+
+
+def _recording_xla(problem: Problem2D, *, vary_material, dtype, rtol,
+                   maxiter, fixed_iters, warm_start, rtol_wrt, f64_refine,
+                   precondition, proj_rtol, proj_maxiter, device):
+    """Recording sweeps through the eager stepper (``make_simulate_fn`` with
+    ``record_gradient=True``, ``solver='xla'``), run once per lane with the
+    lane's conductivities and FWHM."""
+    fn = make_simulate_fn(problem, dtype=dtype, device=device, rtol=rtol,
+                          maxiter=maxiter, fixed_iters=fixed_iters,
+                          record_gradient=True, warm_start=warm_start,
+                          rtol_wrt=rtol_wrt, f64_refine=f64_refine,
+                          precondition=precondition, proj_rtol=proj_rtol,
+                          proj_maxiter=proj_maxiter, solver="xla")
+    m_idx = list(problem.mesh.material_tags).index(vary_material)
+    base_kp = np.asarray(problem.kappas, float)
+
+    def simulate_batch(sample_k, fwhm, iters_out=None, proj_iters_out=None):
+        ks = np.atleast_1d(np.asarray(sample_k, float))
+        fs = np.atleast_1d(np.asarray(fwhm, float))
+        runs = []
+        for k, f in zip(ks, fs):
+            kp = base_kp.copy()
+            kp[m_idx] = k
+            runs.append(fn(kappas=kp, fwhm=f))
+        stack = lambda key, dim: torch.stack([r[key] for r in runs], dim=dim)
+        if iters_out is not None:
+            iters_out.extend(stack("cg_iters", 1))
+        if proj_iters_out is not None:
+            proj_iters_out.extend(stack("proj_iters", 1))
+        return {"watch": stack("watch", 0), "band": stack("band", 0),
+                "axis": stack("axis", 0), "times": simulate_batch.times}
+
+    return simulate_batch
+
+
+def make_sweep_fn_recording(problem: Problem2D, *,
+                            vary_material: str = "p_sample",
+                            dtype: torch.dtype = torch.float32,
+                            rtol: float = 1e-6, maxiter: int = 4000,
+                            fixed_iters: int | None = None,
+                            warm_start: str = "previous", mesh=None,
+                            rtol_wrt: str = "b", f64_refine: int = 0,
+                            solver: str = "xla",
+                            precondition: str = "jacobi",
+                            proj_rtol: float = 1e-11,
+                            proj_maxiter: int = 400, device="cpu"):
+    """Full-surface sweep: every lane also records the reference's radial
+    gradient rows each step (ref parameter_sweep.py:157-166 →
+    run_no_diamond.py:602-617), the per-step r-weighted projection of the
+    2D stepper. Returns ``simulate_batch(ks, fs, iters_out=None,
+    proj_iters_out=None)`` -> dict with ``watch`` (B, S, W), ``band`` (B, S,
+    n_bins), ``axis`` (B, S, Nz) tensors on ``device`` and the host
+    ``times``; ``iters_out`` / ``proj_iters_out``, lists, receive each
+    step's (B,) solve / projection iteration counts.
+
+    ``solver='vmem'``: solve and projection through the batched kernels
+    (their plain versions on the CPU); ``'jacobi'`` or ``'rline'``.
+    ``solver='xla'``: the eager stepper once per lane.
+
+    Memoized on ``problem.extras`` keyed by every argument.
+    """
+    if f64_refine:
+        rtol_wrt = "b"   # no effect on the refined inner solves
+    device = torch.device(device)
+    cache_key = ("sweep_fn_rec", vary_material, str(dtype), rtol, maxiter,
+                 fixed_iters, warm_start, mesh, rtol_wrt, f64_refine, solver,
+                 precondition, proj_rtol, proj_maxiter, str(device))
+    cache = problem.extras.setdefault("_fn_cache", {})
+    if cache_key in cache:
+        return cache[cache_key]
+    if not isinstance(problem, Problem2D):
+        raise _not_ported("recording sweeps over unstructured problems",
+                          "P9")
+    if problem.radial is None:
+        raise ValueError("gradient-recording sweeps need radial sampling "
+                         "on the problem")
+    if mesh is not None:
+        raise _not_ported("sharded sweeps (mesh=)", "P11")
+    if solver not in ("xla", "vmem"):
+        raise ValueError(f"unknown solver {solver!r}")
+    make = _recording_vmem if solver == "vmem" else _recording_xla
+    simulate_batch = make(
+        problem, vary_material=vary_material, dtype=dtype, rtol=rtol,
+        maxiter=maxiter, fixed_iters=fixed_iters, warm_start=warm_start,
+        rtol_wrt=rtol_wrt, f64_refine=f64_refine, precondition=precondition,
+        proj_rtol=proj_rtol, proj_maxiter=proj_maxiter, device=device)
+    simulate_batch.times = np.arange(1, problem.num_steps + 1) * problem.dt
+    simulate_batch.band_centers = problem.radial.bin_centers
+    simulate_batch.axis_z = problem.radial.axis_z
+    simulate_batch.watcher_names = list(problem.watcher_names)
     simulate_batch.device = device
     cache[cache_key] = simulate_batch
     return simulate_batch

@@ -1,0 +1,101 @@
+"""Small shared utilities: profiling, timing, batch padding and the
+drivers' per-regime preconditioner default."""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def profile_trace(outdir: str | None):
+    """Record a ``torch.profiler`` trace (CPU and, when a card is present,
+    CUDA activity) around the wrapped block and write it into ``outdir`` as
+    a Chrome trace (``trace.json``, viewable in Perfetto); no-op when
+    ``outdir`` is empty."""
+    if not outdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(outdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    path = os.path.join(outdir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"Profiler trace written to {path}")
+
+
+class StepTimer:
+    """Wall-clock section timer with the reference's summary format."""
+
+    def __init__(self):
+        self.t0 = time.time()
+        self.marks: dict[str, float] = {}
+
+    def mark(self, name: str):
+        self.marks[name] = time.time()
+
+    def summary(self, num_steps: int) -> str:
+        total = time.time() - self.t0
+        lines = ["--- Timing Summary ---", f"Total time: {total:.2f} s"]
+        prev = self.t0
+        for name, t in self.marks.items():
+            lines.append(f"{name}: {t - prev:.2f} s")
+            prev = t
+        if num_steps:
+            lines.append(f"Average time per step: {total / num_steps:.4f} s")
+        lines.append("----------------------")
+        return "\n".join(lines)
+
+
+def pad_to_multiple(arr, m: int):
+    """Pad a 1D batch array to a multiple of m by repeating its last element
+    (padded lanes recompute the last config and are sliced away by
+    callers)."""
+    arr = np.asarray(arr)
+    pad = (-len(arr)) % m
+    if pad:
+        arr = np.concatenate([arr, np.repeat(arr[-1:], pad)])
+    return arr
+
+
+def resolve_recording_precondition(record_gradient: bool,
+                                   dtype: torch.dtype, *,
+                                   unstructured_xla: bool = False,
+                                   fixed_iters=None,
+                                   batched: bool = False,
+                                   unstructured: bool = False,
+                                   f64_refine: int = 0,
+                                   vmem_single: bool = False,
+                                   rtol_wrt: str = "r0") -> str:
+    """The drivers' default CG preconditioner for a regime; the JAX
+    package's map (its ``utils.resolve_recording_precondition``):
+
+    - float64, a fixed iteration budget, or the unstructured eager path:
+      'jacobi';
+    - batched sweeps and overlay meshes: 'rline' when recording gradients,
+      'jacobi' otherwise;
+    - single float32 runs with ``f64_refine``: 'adaptive' when the stepper's
+      kernel path will run (``vmem_single``: the per-step r-line/ADI switch
+      lives in the ``cg_tol`` kernel path), 'rline' otherwise;
+    - single float32 runs stopping wrt ‖b‖: 'rline' when recording, else
+      'jacobi';
+    - single float32 runs stopping wrt ‖r0‖ (the 2D driver): 'adi'.
+    """
+    if not (dtype == torch.float32 and fixed_iters is None
+            and not unstructured_xla):
+        return "jacobi"
+    if batched or unstructured:
+        return "rline" if record_gradient else "jacobi"
+    if f64_refine:
+        return "adaptive" if vmem_single else "rline"
+    if rtol_wrt != "r0":
+        return "rline" if record_gradient else "jacobi"
+    return "adi"

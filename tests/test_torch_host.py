@@ -117,7 +117,7 @@ def test_yaml_subset_parser_matches_pyyaml(path):
 
 
 @pytest.mark.parametrize("text", [
-    "a: [1, 2]\n", "a:\n  - 1\n", "a: {b: 1}\n", "a: 'x'\n", "a: &x 1\n",
+    "a: [1, 2]\n", "a:\n- - 1\n", "a: {b: 1}\n", 'a: "x"\n', "a: &x 1\n",
     "a: 1\na: 2\n", "a:\n   b: 1\n  c: 2\n", "--- \na: 1\n", "a: 0x1f\n",
     "just text\n"])
 def test_yaml_subset_parser_rejects_the_rest(text):

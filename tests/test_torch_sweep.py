@@ -263,11 +263,12 @@ def test_unported_paths_raise(pair):
         tsw.run_sweep_time_chunked(object(), KS, FS)
     with pytest.raises(NotImplementedError, match="ROADMAP P9"):
         tsw.make_sweep_fn(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP P6"):
+    # recording sweeps are ported; the adaptive form of their kernel is not
+    with pytest.raises(NotImplementedError, match="ROADMAP K2"):
         tsw.vmem_sweep_scan({}, KS, FS, None, None, 0, dtype=torch.float32,
                             ic=None, dt=None, num_steps=1, base_k=1.0,
                             fixed_iters=None, rtol=1e-6, maxiter=10,
-                            extrapolate=False, record={})
+                            extrapolate=False, record={}, adaptive=True)
 
 
 @pytest.mark.parametrize("kw, match", [
