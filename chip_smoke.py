@@ -55,10 +55,34 @@ Phases (each raises on failure; nothing is caught):
 10. run the entry points: the sweep CLI with ``--record-gradient`` on its
    default 5 x 5 x 3 grid (75 runs over 3 widths) and the 2D CLI on the
    flagship config, its ``watcher_points.csv`` held bitwise to
-   ``run_transient`` run in-process with the options the driver resolved.
+   ``run_transient`` run in-process with the options the driver resolved;
+11. at the sweep shape, on the 10th step's system of 8 lanes (one NaN, one
+   at rtol 2), compare K2's z-line phase (``ks_pcr_z``) alone with its plain
+   version, then the ADI and adaptive solves (rtol 1e-6 wrt ||r0||):
+   per-lane counts within max(3, 2 %) of the plain float32 version's, the
+   NaN lane poisoned, and every adaptive lane bitwise the static ADI
+   (flag 1) or r-line (flag 0) solve's lane;
+12. run two B = 256 sweeps of ``geballe_no_diamond`` (40 steps, float32):
+   (a) 'adi', rtol 1e-5 wrt ||r0||, 'extrapolate'; (b) 'adaptive' with one
+   float64 refinement pass; configs/s, finite lanes, the share of flagged
+   lane-steps, four lanes again at B = 4 (bitwise);
+13. (a) the differentiable ``cg_vmem_solve`` on the flagship's first-step
+   system: value, backward (gradients to A, sm, b) and forward-mode
+   tangent against its plain version on the card; (b) ``one_config`` on the
+   fit config (``cfgs/geballe_no_diamond_read_flux.yaml``): the float32
+   kernel objective and its gradient in (log k, log fwhm) against the
+   plain float64 path; (c) the fit CLI at full width (the default coarse
+   8 x 6 grid, 3 starts, Gauss-Newton; 5 Adam steps), with K1's launches
+   per direction; (d) the same with ``--precondition adi`` and 2 Adam
+   steps, so that K2's ADI form runs the coarse batch.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel, each
+with its time, the plain version's, and its bound: the larger of the bytes
+it must move (each input read once, each output written once) at the
+card's memory rate and the float32 operations this run's data needs at its
+peak; no single PyTorch call computes a preconditioned CG solve or a PCR
+line solve, so ``library_ms`` is null. The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -99,6 +123,28 @@ PROJ_REL_L2 = 1e-5        # Kv-free projection solve, kernel vs plain
 # value (watch: in K); the gradient families amplify float32 rounding ~1/h,
 # so their margins follow the ladder of tests/test_recording_precondition.py
 REC_MARGIN = dict(watch=0.1, band=1e-2, axis=5e-2)
+FIT_CFG = os.path.join(ROOT, "cfgs", "geballe_no_diamond_read_flux.yaml")
+ADI_B = 256
+ADI_RECIPES = {
+    "adi": dict(precondition="adi", rtol=1e-5, rtol_wrt="r0",
+                warm_start="extrapolate"),
+    "adaptive": dict(precondition="adaptive", f64_refine=1, rtol=1e-5,
+                     warm_start="extrapolate")}
+# phase 13a: each output of the differentiable solve (x, the gradients to
+# A, sm and b, the tangent), kernel against plain float32, within this
+# rel-L2 or 2x the plain float32 version's own distance from float64
+VMEM_SOLVE_REL = 1e-3
+# phase 13b: the float32 kernel objective within this of the float64 one
+# (tests/test_fit.py:167), each gradient component within this relative
+# distance of the float64 one and of its sign: sound runs read 6.2e-4 and
+# 1.2e-3 in (log k, log fwhm) on an H100, an adjoint that drops a term of
+# ~10 % of the gradient reads ~1e-1
+FIT_RMSE_ABS = 1e-3
+FIT_GRAD_REL = 1e-2
+# the bound of a kernel: H100 SXM HBM3 rate and float32 peak outside the
+# tensor cores (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -115,6 +161,55 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for a function: the larger of its
+    bytes (each input read once, each output written once) at the memory
+    rate and its float32 operations at the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# float32 operations a grid point of a lane costs, counted for what each
+# function computes, not for the algorithm its kernel runs. A line
+# preconditioner solves a tridiagonal system along each line: 8 a point by
+# Thomas' algorithm (elimination 5, back substitution 3), with no log
+# factor, where the kernels' PCR spends 4 (stored stack) or 14 (factored on
+# the fly) a level. K2 first forms each line's couplings from A0 + dk Kv
+# and sm: 8 more.
+LINE_SOLVE_OPS = 8
+K2_COUPLING_OPS = 8
+
+
+def k1_iter_ops(rline: bool, zline: bool) -> int:
+    """One K1 iteration: stencil and <p, Ap> (17), update and <r, r> (6),
+    the r-line solve with its mask and <r, z> (+4), the z-line solve with
+    the ADI combine (+4), p update (2)."""
+    pre = LINE_SOLVE_OPS + 4 if rline else 0
+    pre += LINE_SOLVE_OPS + 4 if zline else 0
+    return 17 + 6 + pre + 2
+
+
+def k2_line_ops() -> int:
+    """One K2 line solve, a point: the couplings, the tridiagonal solve,
+    and its mask and scaling (3)."""
+    return K2_COUPLING_OPS + LINE_SOLVE_OPS + 3
+
+
+def k2_iter_ops(rline: bool = False, zline: bool = False,
+                kv: bool = True) -> int:
+    """One K2 iteration of a lane: the combined stencil and <p, Ap> (31; 17
+    without Kv), update and <r, r> (6), the line solves, p update (2)."""
+    pre = k2_line_ops() + 2 if rline else 0
+    pre += k2_line_ops() + 2 if zline else 0
+    return (31 if kv else 17) + 6 + pre + 2
 
 
 def require(ok: bool, what) -> None:
@@ -189,6 +284,7 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
     p = (torch.tensor(rng.standard_normal((nz, nr)), dtype=torch.float32,
                       device=device) * free32).contiguous()
     rows = []
+    n = nz * nr
 
     # stencil and <p, Ap>
     Ap_k, pap_k = cuda_cg.stencil_dot(A32, sm32, p)
@@ -198,6 +294,7 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
     dot_rel = abs(float(pap_k - pap_p)) / abs(float(pap_p))
     require(rel <= 1e-5 and dot_rel <= 1e-5, ("stencil_dot", rel, dot_rel))
     rows.append(dict(name="cg_tol.stencil_dot", phase="stencil_dot",
+                     **bound(nbytes(A32, sm32, p, p) + 8, 17 * n),
                      max_abs_err=err, rel=rel, dot_rel=dot_rel,
                      ms=cuda_ms(lambda: cuda_cg.stencil_dot(A32, sm32, p),
                                 50),
@@ -217,6 +314,8 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
         rows.append(dict(
             name=name, phase=phase, max_abs_err=err, rel=rel,
             dot_rel=dot_rel,
+            **bound(nbytes(sm32, p, pcr, zst, p) + 8,
+                    n * (LINE_SOLVE_OPS + 4) * (1 if zst is None else 2)),
             ms=cuda_ms(lambda: cuda_cg.precond(sm32, p, pcr, zst), 50),
             plain_ms=cuda_ms(
                 lambda: cuda_cg.precond_reference(sm32, p, pcr, zst), 20)))
@@ -268,7 +367,11 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
         plain_ms = cuda_ms(
             lambda: cuda_cg.cg_tol_reference(A32, sm32, b32, x0, rtol, **kw),
             1)
-        solves[form] = dict(iters=it_k, plain_iters=it_p, rel_l2=rel_l2,
+        solves[form] = dict(**bound(nbytes(A32, sm32, b32, x0, b32,
+                                           *stacks.values()),
+                                    it_k * n * k1_iter_ops(
+                                        bool(stacks), "pcr_z" in stacks)),
+                            iters=it_k, plain_iters=it_p, rel_l2=rel_l2,
                             err_vs_f64=err_k, plain_err_vs_f64=err_p,
                             true_res_over_ref=res / ref,
                             plain_true_res_over_ref=res_p / ref,
@@ -464,6 +567,45 @@ def sweep_phase_cases(A0, Kv, dks, sm, b, x0, rng) -> dict:
     return cases
 
 
+def k2_phase_bound(name: str, args, outs) -> dict:
+    """The bound of one K2 phase kernel on its arguments: the operands it
+    reads (the two coupling slots of A0 and Kv for a line solve) and the
+    outputs it writes, once each; its operations per grid point and lane,
+    or per partial sum / lane for the scalar phases."""
+    import torch
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    ins = [a for a in args if torch.is_tensor(a)]
+    base = name.split("[")[0]
+    if base in ("pcr_r", "pcr_z"):
+        slots = slice(3, 5) if base == "pcr_r" else slice(1, 3)
+        ins[0] = ins[0][slots]
+        if args[1] is not None:
+            ins[1] = ins[1][slots]
+    moved = nbytes(*ins, *outs)
+    if base in ("finalize", "compact"):
+        return bound(moved, ins[-1].numel() if base == "finalize" else
+                     ins[0].shape[0])
+    fields = next(t for t in reversed(ins) if t.dtype == torch.float32)
+    nz, nr = fields.shape[-2:]
+    kv = args[1] is not None if base in ("init", "stencil_dot") else True
+    per_point = {"init": 35 if kv else 21, "stencil_dot": 31 if kv else 17,
+                 "update": 6, "p_update": 2, "finish": 1,
+                 "pcr_r": k2_line_ops() + 2,
+                 "pcr_z": k2_line_ops() + 5}[base]
+    return bound(moved, per_point * fields.numel())
+
+
+def k2_solve_bound(A0, Kv, dks, sm, b, x0, its, ops_per_iter) -> dict:
+    """The bound of one K2 solve: operands and x once; ``its`` (B,) each
+    lane's iterations at ``ops_per_iter`` (a number, or (B,) per lane) per
+    grid point."""
+    import numpy as np
+    n = b.shape[-2] * b.shape[-1]
+    its = np.nan_to_num(np.asarray(its, float))
+    ops = float((its * np.asarray(ops_per_iter, float)).sum()) * n
+    return bound(nbytes(A0, Kv, dks, sm, b, x0, b), ops)
+
+
 def compare_outputs(out_k, out_p) -> tuple[float, float]:
     """(max |error|, max relative error) of a phase kernel's outputs against
     its plain version's: fields and per-lane sums relative to their largest
@@ -530,7 +672,8 @@ def sweep_kernel_checks(problem, device, out: dict) -> dict:
         r = rows[f"cg_batched_tol.{name}"] = dict(
             name=f"cg_batched_tol.{name}", phase=name.split("[")[0],
             max_abs_err=err, rel=rel, ms=cuda_ms(lambda: fn(*args), 20),
-            plain_ms=cuda_ms(lambda: ref(*args), 5))
+            plain_ms=cuda_ms(lambda: ref(*args), 5),
+            **k2_phase_bound(name, args, out_p))
         print(f"sweep phase {name}: max|err| {err:.3e} (rel {rel:.3e}, "
               f"bound {tol:.0e}), kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms")
@@ -593,7 +736,8 @@ def sweep_kernel_checks(problem, device, out: dict) -> dict:
         rows[f"cg_batched_tol[{form}]"] = dict(
             iters=its, plain_iters=[int(i) for i in it_p.tolist()], **w,
             max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
-            plain_ms=plain_ms)
+            plain_ms=plain_ms,
+            **k2_solve_bound(*args, its, k2_iter_ops(rline)))
 
     # K3: 120 iterations, every lane
     x_k = cs.cg_batched(*args, iters=120)
@@ -608,7 +752,8 @@ def sweep_kernel_checks(problem, device, out: dict) -> dict:
           f"{w['err_p']:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     rows["cg_batched[fixed]"] = dict(
         **w, max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
-        plain_ms=plain_ms)
+        plain_ms=plain_ms,
+        **k2_solve_bound(*args, [120] * B, k2_iter_ops()))
     out["sweep_checks"] = rows
     return rows
 
@@ -618,6 +763,8 @@ def _sweep_counts():
     return dict(phases=cs.phase_launches(),
                 identity=cs.cg_batched_tol.launches_identity,
                 rline=cs.cg_batched_tol.launches_rline,
+                adi=cs.cg_batched_tol.launches_adi,
+                adaptive=cs.cg_batched_tol.launches_adaptive,
                 no_kv=cs.cg_batched_tol.launches_no_kv,
                 fixed=cs.cg_batched.launches)
 
@@ -832,12 +979,14 @@ def projection_checks(problem, device, out: dict) -> dict:
              (Mp, None, None, s_mp, bs, x0s)),
             ("stencil_dot", cs.stencil_dot, cs.stencil_dot_reference,
              (Mp, None, None, s_mp, p))):
-        err, rel = compare_outputs(fn(*args), ref(*args))
+        out_p = ref(*args)
+        err, rel = compare_outputs(fn(*args), out_p)
         require(rel <= 1e-5, (name, "no_kv", rel))
         r = rows[f"cg_batched_tol.{name}[no_kv]"] = dict(
             name=f"cg_batched_tol.{name}[no_kv]", phase=f"{name}_no_kv",
             max_abs_err=err, rel=rel, ms=cuda_ms(lambda: fn(*args), 20),
-            plain_ms=cuda_ms(lambda: ref(*args), 5))
+            plain_ms=cuda_ms(lambda: ref(*args), 5),
+            **k2_phase_bound(name, args, out_p))
         print(f"projection phase {name}: max|err| {err:.3e} (rel {rel:.3e}, "
               f"bound 1e-05), kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms")
@@ -877,7 +1026,9 @@ def projection_checks(problem, device, out: dict) -> dict:
     rows["cg_batched_tol[no_kv]"] = dict(
         iters=its_k, plain_iters=its_p, f64_iters=it64.tolist(), **worst,
         max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
-        plain_ms=plain_ms)
+        plain_ms=plain_ms,
+        **k2_solve_bound(Mp, None, None, s_mp, b, x0, its_k,
+                         k2_iter_ops(kv=False)))
     out["projection_checks"] = rows
     return rows
 
@@ -1092,16 +1243,386 @@ def run_drivers(device, out: dict) -> dict:
                           run2d_peak_err_K=dict(zip(names, peak.tolist())))
     return counts
 
+def adi_checks(problem, device, out: dict) -> dict:
+    """Phase 11: K2's z-line phase and its ADI and adaptive solves against
+    their plain versions at the sweep shape, and the adaptive lanes against
+    the static solves' lanes (bitwise)."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+
+    rng = np.random.default_rng(11)
+    B, nan_lane, easy_lane = 8, 3, 5
+    ks = np.sort(10.0 ** rng.uniform(0.0, 2.0, B))
+    ks[0], ks[-1], ks[nan_lane] = 1.0, 100.0, np.nan
+    fs = problem.fwhm * rng.uniform(0.8, 1.2, B)
+    A0, Kv, dks, sm, b, x0 = sweep_system(problem, ks, fs, device)
+    nz, nr = b.shape[1:]
+    live = [i for i in range(B) if i != nan_lane]
+    sel = torch.tensor(live, device=device)
+    flags = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1], dtype=torch.int32,
+                         device=device)
+    print(f"ADI checks: sweep grid {nz} x {nr}, the 10th step's system; "
+          f"lanes kappa {np.round(ks, 3).tolist()}, lane {nan_lane} NaN, "
+          f"lane {easy_lane} at rtol 2, adaptive flags {flags.tolist()}")
+    rows = {}
+
+    # the z-line phase alone: r random on the finite lanes, R r from the
+    # r-line phase kernel, z = R r + Z r - r against the plain version
+    dk7, sm7 = dks[sel].contiguous(), sm[sel].contiguous()
+    r = (torch.tensor(rng.standard_normal((len(live), nz, nr)),
+                      dtype=torch.float32, device=device)
+         * (sm7 != 0)).contiguous()
+    z_r, _ = cs.pcr_r(A0, Kv, dk7, sm7, r)
+    args = (A0, Kv, dk7, sm7, r, z_r)
+    out_p = cs.pcr_z_reference(*args)
+    err, rel = compare_outputs(cs.pcr_z(*args), out_p)
+    require(rel <= 1e-4, ("pcr_z", rel))
+    row = rows["cg_batched_tol.pcr_z"] = dict(
+        name="cg_batched_tol.pcr_z", phase="pcr_z", max_abs_err=err, rel=rel,
+        ms=cuda_ms(lambda: cs.pcr_z(*args), 20),
+        plain_ms=cuda_ms(lambda: cs.pcr_z_reference(*args), 5),
+        **k2_phase_bound("pcr_z", args, out_p))
+    print(f"ADI phase pcr_z: max|err| {err:.3e} (rel {rel:.3e}, bound 1e-04), "
+          f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms")
+
+    norm = lambda v: float(torch.linalg.vector_norm(v.double()))
+    rtol = torch.full((B,), 1e-6, dtype=torch.float32, device=device)
+    rtol[easy_lane] = 2.0
+    kw = dict(maxiter=20000, rtol_wrt="r0")
+    args = (A0, Kv, dks, sm, b, x0)
+    d64 = tuple(t.double() for t in args)
+    got = {}
+    for form, fkw in (("adi", dict(adi=True)),
+                      ("adaptive", dict(adi_flags=flags))):
+        x_k, it_k = cs.cg_batched_tol(*args, rtol, **kw, **fkw)
+        x_p, it_p = cs.cg_batched_tol_reference(*args, rtol, **kw, **fkw)
+        x64, _ = cs.cg_batched_tol_reference(*d64, rtol.double(), **kw,
+                                             **fkw)
+        got[form] = (x_k, it_k)
+        require(bool(torch.isnan(x_k[nan_lane]).all())
+                and int(it_k[nan_lane]) == 0, (form, "NaN lane"))
+        require(int(it_k[easy_lane]) == 0
+                and torch.equal(x_k[easy_lane], x0[easy_lane]),
+                (form, "rtol-2 lane"))
+        worst = dict(rel_l2=0.0, err_k=0.0, err_p=0.0, dit=0)
+        for i in live:
+            if i == easy_lane:
+                continue
+            ik, ip = int(it_k[i]), int(it_p[i])
+            require(abs(ik - ip) <= max(3, int(0.02 * ip)), (form, i, ik, ip))
+            rel_l2 = norm(x_k[i] - x_p[i]) / norm(x_p[i])
+            err_k = norm(x_k[i] - x64[i]) / norm(x64[i])
+            err_p = norm(x_p[i] - x64[i]) / norm(x64[i])
+            require(rel_l2 <= max(1e-4, 2.0 * err_p), (form, i, rel_l2, err_p))
+            require(err_k <= max(1e-4, 1.5 * err_p), (form, i, err_k, err_p))
+            for key, v in (("rel_l2", rel_l2), ("err_k", err_k),
+                           ("err_p", err_p), ("dit", abs(ik - ip))):
+                worst[key] = max(worst[key], v)
+        ms = cuda_ms(lambda: cs.cg_batched_tol(*args, rtol, **kw, **fkw), 2)
+        plain_ms = cuda_ms(
+            lambda: cs.cg_batched_tol_reference(*args, rtol, **kw, **fkw), 1)
+        its = [int(i) for i in it_k.tolist()]
+        adi_ops, rline_ops = k2_iter_ops(True, True), k2_iter_ops(True)
+        per_lane = ([adi_ops] * B if form == "adi" else
+                    [adi_ops if f else rline_ops for f in flags.tolist()])
+        rows[f"cg_batched_tol[{form}]"] = dict(
+            iters=its, plain_iters=[int(i) for i in it_p.tolist()], **worst,
+            max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
+            plain_ms=plain_ms, **k2_solve_bound(*args, its, per_lane))
+        print(f"ADI solve {form}: iters kernel {its} plain "
+              f"{[int(i) for i in it_p.tolist()]}; worst lane: kernel vs "
+              f"plain rel-L2 {worst['rel_l2']:.3e}, vs float64 kernel "
+              f"{worst['err_k']:.3e} plain {worst['err_p']:.3e}; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+
+    # every adaptive lane is the static solve's lane of its flag, bitwise
+    x_r, it_r = cs.cg_batched_tol(*args, rtol, rline=True, **kw)
+    (x_a, it_a), (x_d, it_d) = got["adaptive"], got["adi"]
+    for i, f in enumerate(flags.tolist()):
+        x_s, it_s = (x_d, it_d) if f else (x_r, it_r)
+        same = (torch.equal(x_a[i], x_s[i]) if i != nan_lane else
+                bool(torch.isnan(x_a[i]).all() and torch.isnan(x_s[i]).all()))
+        require(same and int(it_a[i]) == int(it_s[i]),
+                ("adaptive lane differs from the static lane", i, f))
+    print("ADI: every adaptive lane equals the static ADI (flag 1) or "
+          "r-line (flag 0) solve's lane bitwise, iterates and counts")
+    out["adi_checks"] = rows
+    return rows
+
+
+def run_adi_sweeps(problem, device, out: dict):
+    """Phase 12: the B = 256 sweeps with K2's ADI and adaptive forms, and
+    four lanes of each against the same lanes at B = 4 (bitwise). Returns
+    each run's launch counts and a callable that runs the ADI sweep
+    again."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep
+    from heatflow_tpu_torch.sim.sweepkernel import run_sweep_time_chunked
+
+    ks = np.logspace(0.0, 2.0, ADI_B)
+    fs = np.full(ADI_B, problem.fwhm)
+    idx = [0, ADI_B // 3, 2 * ADI_B // 3, ADI_B - 1]
+    counts_all, runs = [], []
+    for name, recipe in ADI_RECIPES.items():
+        kw = dict(recipe, solver="vmem", dtype=torch.float32, device=device,
+                  step_chunk=problem.num_steps)
+        warm = np.linspace(0, ADI_B - 1, 8).astype(int)
+        run_sweep_time_chunked(problem, ks[warm], fs[warm], **kw)
+        torch.cuda.synchronize()
+        cuda_sweep.reset_counters()
+        its = []
+        t0 = time.perf_counter()
+        tr = run_sweep_time_chunked(problem, ks, fs, iters_out=its, **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _sweep_counts()
+        counts_all.append(counts)
+        iters = torch.stack(its).cpu().numpy()              # (steps, B)
+        finite = float(np.isfinite(tr).all(axis=(1, 2)).mean())
+        # the flags of step n are iters[n - 1] > 100; every lane at step 0
+        flagged = (float(np.concatenate([np.ones(ADI_B), (
+            iters[:-1] > 100).ravel()]).mean())
+            if name == "adaptive" else None)
+        its4 = []
+        tr4 = run_sweep_time_chunked(problem, ks[idx], fs[idx],
+                                     iters_out=its4, **kw)
+        it4 = torch.stack(its4).cpu().numpy()
+        bitwise = (np.array_equal(tr4, tr[idx])
+                   and np.array_equal(it4, iters[:, idx]))
+        cps = ADI_B / run_s
+        print(f"{name} sweep: B = {ADI_B}, {problem.num_steps} steps in "
+              f"{run_s:.4f} s = {cps:.4f} configs/s; iterations a lane-step "
+              f"mean {iters.mean():.2f} max {int(iters.max())}; finite lanes "
+              f"{finite}; flagged lane-steps {flagged}; B = 4 lanes bitwise "
+              f"{bitwise}; launches {counts}")
+        require(finite == 1.0, (name, "finite lanes", finite))
+        require(bitwise, (name, "the B = 4 sweep differs from its lanes"))
+        require(counts[name] > 0 and counts["phases"]["pcr_z"] > 0, counts)
+        runs.append(dict(name=name, recipe=recipe, B=ADI_B, run_s=run_s,
+                         configs_per_s=cps, finite_share=finite,
+                         flagged_share=flagged,
+                         iters_mean=float(iters.mean()),
+                         iters_max=int(iters.max()), launches=counts))
+    out["adi_sweeps"] = runs
+    kw = dict(ADI_RECIPES["adi"], solver="vmem", dtype=torch.float32,
+              device=device, step_chunk=problem.num_steps)
+    return counts_all, lambda: run_sweep_time_chunked(problem, ks, fs, **kw)
+
+
+def vmem_solve_checks(problem, device, out: dict) -> dict:
+    """Phase 13a: the differentiable cg_vmem_solve on the flagship's first
+    step system (r-line stack): value, backward and tangent, kernel against
+    the plain version on the card (float32, and float64 for the floor)."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg
+
+    A32, sm32, s32, free32, b32 = first_step_system(problem, device)
+    pcr = cuda_cg.pcr_pack(A32, s32, free32).contiguous()
+    nz, nr = b32.shape
+    rng = np.random.default_rng(13)
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    g = dev(rng.standard_normal((nz, nr))) * free32
+    tangents = (dev(rng.uniform(-1e-3, 1e-3, A32.shape)) * A32,
+                dev(rng.uniform(-1e-3, 1e-3, (nz, nr))) * sm32,
+                dev(rng.standard_normal((nz, nr))) * free32 * 1e-2)
+    x0 = torch.zeros_like(b32)
+    kw = dict(maxiter=20000, rtol_wrt="r0")
+    rtol = 1e-5
+    import functools
+    seen = []
+    kernel = cuda_cg.cg_tol
+
+    @functools.wraps(kernel)     # with its own copy of the launch counters
+    def counting(*args, **k):
+        x, it = kernel(*args, **k)
+        seen.append(int(it))
+        return x, it
+
+    def run(solve, dtype):
+        cast = lambda t: t.to(dtype)
+        A, sm, b = (cast(t).requires_grad_() for t in (A32, sm32, b32))
+        st = cast(pcr)
+        f = lambda A, sm, b: solve(A, sm, b, cast(x0), rtol, pcr=st, **kw)
+        x = f(A, sm, b)
+        grads = torch.autograd.grad(x, (A, sm, b), cast(g))
+        _, tx = torch.func.jvp(f, (cast(A32), cast(sm32), cast(b32)),
+                               tuple(cast(t) for t in tangents))
+        return (x.detach(), *grads, tx)
+
+    cuda_cg.reset_counters()
+    cuda_cg.cg_tol = counting
+    try:
+        got = run(cuda_cg.cg_vmem_solve, torch.float32)
+    finally:
+        cuda_cg.cg_tol = kernel
+    launches = dict(forward=cuda_cg.cg_vmem_solve.launches_forward,
+                    backward=cuda_cg.cg_vmem_solve.launches_backward,
+                    jvp=cuda_cg.cg_vmem_solve.launches_jvp)
+    # the forward pass, the backward pass, and the jvp's primal and tangent
+    require(launches == dict(forward=2, backward=1, jvp=1), launches)
+    iters = dict(forward=seen[0], backward=seen[1], jvp=seen[3])
+    plain = run(cuda_cg.cg_vmem_solve_reference, torch.float32)
+    f64 = run(cuda_cg.cg_vmem_solve_reference, torch.float64)
+    norm = lambda v: float(torch.linalg.vector_norm(v.double()))
+    names = ("x", "grad_A", "grad_sm", "grad_b", "tangent")
+    agree = {}
+    for name, k, p, d in zip(names, got, plain, f64):
+        rel, floor = norm(k - p) / norm(p), norm(p - d) / norm(d)
+        agree[name] = dict(rel_l2=rel, plain_vs_f64=floor,
+                           kernel_vs_f64=norm(k - d) / norm(d))
+        print(f"cg_vmem_solve {name}: kernel vs plain rel-L2 {rel:.3e} "
+              f"(bound {max(VMEM_SOLVE_REL, 2 * floor):.3e}); plain float32 "
+              f"vs float64 {floor:.3e}")
+        require(rel <= max(VMEM_SOLVE_REL, 2 * floor), (name, rel, floor))
+
+    A, sm, b = (t.clone().requires_grad_() for t in (A32, sm32, b32))
+    times = {}
+    for label, solve in (("ms", cuda_cg.cg_vmem_solve),
+                         ("plain_ms", cuda_cg.cg_vmem_solve_reference)):
+        f = lambda A, sm, b: solve(A, sm, b, x0, rtol, pcr=pcr, **kw)
+        x = f(A, sm, b)
+        times[("forward", label)] = cuda_ms(lambda: f(A, sm, b), 3)
+        times[("backward", label)] = cuda_ms(lambda: torch.autograd.grad(
+            x, (A, sm, b), g, retain_graph=True), 3)
+        times[("jvp", label)] = cuda_ms(lambda: torch.func.jvp(
+            f, (A32, sm32, b32), tangents), 3)
+    n = nz * nr
+    moved = nbytes(A32, sm32, b32, x0, pcr, b32)
+    rows = {}
+    for direction, k, p in (("forward", got[0], plain[0]),
+                            ("backward", got[3], plain[3]),
+                            ("jvp", got[4], plain[4])):
+        # the jvp call solves the primal and the tangent system
+        solves = iters[direction] + (iters["forward"] if direction == "jvp"
+                                     else 0)
+        rows[f"cg_vmem_solve.{direction}"] = dict(
+            iters=iters[direction], max_abs_err=float((k - p).abs().max()),
+            ms=times[(direction, "ms")],
+            plain_ms=times[(direction, "plain_ms")],
+            **bound(moved, solves * n * k1_iter_ops(True, False)))
+        print(f"cg_vmem_solve.{direction}: {iters[direction]} iterations; "
+              f"kernel {times[(direction, 'ms')]:.3f} ms, plain "
+              f"{times[(direction, 'plain_ms')]:.3f} ms")
+    out["vmem_solve_checks"] = dict(agree=agree, iters=iters, rows=rows)
+    return rows
+
+
+def fit_gradient_check(device, out: dict):
+    """Phase 13b: one_config on the fit config, float32 through the cg_tol
+    kernel against the plain float64 path (eager pcg_solve, r-line): the
+    objective within FIT_RMSE_ABS, its gradient in (log k, log fwhm) within
+    FIT_GRAD_REL and of the same sign. Returns a callable that evaluates
+    the float32 objective and its gradient again (one start's Adam step)."""
+    import math
+    import torch
+    from heatflow_tpu_torch.drivers.fit import experimental_objective
+
+    problem = build_flagship(FIT_CFG)
+    k0, f0 = 2.0 * float(problem.kappas[list(problem.mesh.material_tags)
+                                        .index("p_sample")]), problem.fwhm
+    res, objs = {}, {}
+    for name, kw in (("kernel f32", dict(dtype=torch.float32)),
+                     ("plain f64", dict(dtype=torch.float64, solver="xla",
+                                        precondition="rline"))):
+        obj = objs[name] = experimental_objective(problem, device=device,
+                                                  **kw)
+        p = torch.tensor([math.log(k0), math.log(f0)], dtype=kw["dtype"],
+                         device=device, requires_grad=True)
+        t0 = time.perf_counter()
+        v = obj(torch.exp(p[0]), torch.exp(p[1]))
+        v.backward()
+        torch.cuda.synchronize()
+        res[name] = (float(v.detach()), p.grad.double().cpu().numpy(),
+                     time.perf_counter() - t0, obj.solver, obj.precondition)
+        print(f"fit objective ({name}, {obj.solver}/{obj.precondition}): "
+              f"RMSE {res[name][0]:.6f}, gradient in (log k, log fwhm) "
+              f"{res[name][1].tolist()}, value and gradient in "
+              f"{res[name][2]:.2f} s")
+    (v32, g32, *_), (v64, g64, *_) = res["kernel f32"], res["plain f64"]
+    rel = abs(g32 - g64) / abs(g64)
+    print(f"fit objective: |dRMSE| {abs(v32 - v64):.3e} (bound "
+          f"{FIT_RMSE_ABS}); gradient rel. difference {rel.tolist()} (bound "
+          f"{FIT_GRAD_REL}, same sign)")
+    require(abs(v32 - v64) < FIT_RMSE_ABS, ("fit RMSE", v32, v64))
+    require((rel <= FIT_GRAD_REL).all() and (g32 * g64 > 0).all(),
+            ("fit gradient", g32.tolist(), g64.tolist()))
+    out["fit_gradient"] = {k: dict(rmse=v[0], grad=v[1].tolist(), s=v[2],
+                                   solver=v[3], precondition=v[4])
+                           for k, v in res.items()}
+
+    def step():
+        p = torch.tensor([math.log(k0), math.log(f0)], dtype=torch.float32,
+                         device=device, requires_grad=True)
+        objs["kernel f32"](torch.exp(p[0]), torch.exp(p[1])).backward()
+    return step
+
+
+def run_fit_cli(device, out: dict) -> list[dict]:
+    """Phases 13c and 13d: the fit CLI at full width (default coarse grid,
+    starts and Gauss-Newton), 5 Adam steps with the defaults and 2 with
+    --precondition adi; the launch counts of each run read just after it."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.config import load_config, save_config
+    from heatflow_tpu_torch.drivers import fit
+    from heatflow_tpu_torch.ops import cuda_cg, cuda_sweep
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    cfg = load_config(FIT_CFG)          # the heating file, from anywhere
+    cfg["heating"]["file"] = CSV
+    cfg_path = os.path.join(work, "fit.yaml")
+    save_config(cfg, cfg_path)
+    runs = []
+    for name, extra in (("default", ["--adam-steps", "5"]),
+                        ("adi", ["--precondition", "adi", "--adam-steps",
+                                 "2"])):
+        cuda_cg.reset_counters()
+        cuda_sweep.reset_counters()
+        t0 = time.perf_counter()
+        res = fit.main(["--config", cfg_path, "--mesh-folder",
+                        os.path.join(work, "fit_mesh"), "--rebuild-mesh",
+                        "--device", str(device), *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = dict(forward=cuda_cg.cg_vmem_solve.launches_forward,
+                  backward=cuda_cg.cg_vmem_solve.launches_backward,
+                  jvp=cuda_cg.cg_vmem_solve.launches_jvp,
+                  rline=cuda_cg.cg_tol.launches_rline,
+                  adi=cuda_cg.cg_tol.launches_adi)
+        k2 = _sweep_counts()
+        vals = [res.k, res.fwhm, res.rmse, res.k_stderr, res.fwhm_stderr,
+                res.corr]
+        print(f"fit CLI ({name}): wall {wall:.2f} s = coarse "
+              f"{res.timings['coarse_s']:.2f} s + Adam "
+              f"{res.timings['adam_s']:.2f} s + Gauss-Newton "
+              f"{res.timings['gauss_newton_s']:.2f} s + set-up; K1 launches "
+              f"{k1}; K2 launches {k2}")
+        require(np.isfinite(vals).all(), (name, "fit result", vals))
+        require(k1["forward"] > 0 and k1["backward"] > 0 and k1["jvp"] > 0,
+                (name, k1))
+        require(k2["adi" if name == "adi" else "rline"] > 0, (name, k2))
+        runs.append(dict(name=name, wall_s=wall, **res.timings, k=res.k,
+                         fwhm=res.fwhm, rmse=res.rmse, k_stderr=res.k_stderr,
+                         fwhm_stderr=res.fwhm_stderr, corr=res.corr,
+                         k1_launches=k1, k2_launches=k2))
+    out["fit_cli"] = runs
+    return runs
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this "
                                   "JSON file")
     ap.add_argument("--profile", help="profile one more run of the slice "
-                                      "(and one of the B = 1024 sweep and "
-                                      "of the B = 256 recording sweep, "
-                                      "tables in FILE_sweep and "
-                                      "FILE_recording) and write its kernel "
+                                      "(and one of the B = 1024 sweep, of "
+                                      "the B = 256 recording and ADI "
+                                      "sweeps, and of one fit objective "
+                                      "and gradient, tables in FILE_sweep, "
+                                      "FILE_recording, FILE_adi and "
+                                      "FILE_fit) and write its kernel "
                                       "table here")
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -1163,35 +1684,58 @@ def main() -> None:
                     "recording_profile")
     rec_counts = [counts9, run_drivers(device, out)]
 
+    adi_rows = adi_checks(sweep_problem, device, out)
+    adi_counts, adi_sweep = run_adi_sweeps(sweep_problem, device, out)
+    if args.profile:
+        base, ext = os.path.splitext(args.profile)
+        profile_run(adi_sweep, f"{base}_adi{ext}", out, "adi_profile")
+    vmem_rows = vmem_solve_checks(problem, device, out)
+    fit_step = fit_gradient_check(device, out)
+    if args.profile:
+        base, ext = os.path.splitext(args.profile)
+        profile_run(fit_step, f"{base}_fit{ext}", out, "fit_profile")
+    fit_runs = run_fit_cli(device, out)
+
     counts = out["slice"]["phase_launches"]
     solves = out["slice"]["solves"]
-    kernels = [dict(name=r["name"], route="cuda", source=SOURCE,
-                    replaces=REPLACES, launches=counts[r["phase"]],
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"]) for r in rows]
+    kernel = lambda name, source, replaces, launches, r: dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None)
+    kernels = [kernel(r["name"], SOURCE, REPLACES, counts[r["phase"]], r)
+               for r in rows]
     for form in ("rline", "adi"):
-        sv = out["solves"][form]
-        kernels.append(dict(name=f"cg_tol[{form}]", route="cuda",
-                            source=SOURCE, replaces=REPLACES,
-                            launches=solves[form],
-                            max_abs_err=sv["max_abs_err"], ms=sv["ms"],
-                            plain_ms=sv["plain_ms"]))
+        kernels.append(kernel(f"cg_tol[{form}]", SOURCE, REPLACES,
+                              solves[form], out["solves"][form]))
     # K2 and K3: launches summed over phases 6 and 7 (K2's Kv-free form:
-    # over phases 9 and 10), each path's counts read just after it ran; a
+    # over phases 9 and 10; its ADI and adaptive forms and z-line phase:
+    # over phases 12 and 13), each path's counts read just after it ran; a
     # phase row counts its phase kernel, a solve row its form's solves
     solve_key = {"cg_batched_tol[identity]": "identity",
                  "cg_batched_tol[rline]": "rline",
                  "cg_batched[fixed]": "fixed",
-                 "cg_batched_tol[no_kv]": "no_kv"}
-    for name, r in list(sweep_rows.items()) + list(proj_rows.items()):
-        runs = rec_counts if name.endswith("[no_kv]") else sweep_counts
+                 "cg_batched_tol[no_kv]": "no_kv",
+                 "cg_batched_tol[adi]": "adi",
+                 "cg_batched_tol[adaptive]": "adaptive"}
+    adi_runs = adi_counts + [f["k2_launches"] for f in fit_runs]
+    for name, r in (list(sweep_rows.items()) + list(proj_rows.items())
+                    + list(adi_rows.items())):
+        runs = (rec_counts if name.endswith("[no_kv]") else
+                adi_runs if name in adi_rows else sweep_counts)
         n = sum(c["phases"][r["phase"]] if "phase" in r
                 else c[solve_key[name]] for c in runs)
-        kernels.append(dict(
-            name=name, route="cuda", source=SWEEP_SOURCE,
-            replaces=K3_REPLACES if name == "cg_batched[fixed]"
-            else K2_REPLACES, launches=n, max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"]))
+        kernels.append(kernel(
+            name, SWEEP_SOURCE,
+            K3_REPLACES if name == "cg_batched[fixed]" else K2_REPLACES, n,
+            r))
+    # K1's differentiable wrapper: its launches per direction over the two
+    # fit CLI runs (phase 13c, d)
+    for name, r in vmem_rows.items():
+        direction = name.split(".")[1]
+        kernels.append(kernel(name, SOURCE, REPLACES,
+                              sum(f["k1_launches"][direction]
+                                  for f in fit_runs), r))
     require(all(k["launches"] > 0 for k in kernels), kernels)
     out["wall_s"] = time.perf_counter() - t_script
     print(f"chip_smoke wall time: {out['wall_s']:.1f} s")

@@ -4,10 +4,11 @@ Transient axisymmetric heat conduction in laser-heated diamond-anvil-cell
 (DAC) experiments: config → layout → structured mesh → per-material P1
 stencils → ``Problem2D`` → backward-Euler steps solved by preconditioned CG,
 eager PyTorch on any device, for one run (``sim.stepper``) or a batch of
-coefficient-sweep configs (``sim.sweepkernel``). On an NVIDIA H100 the solves
-go through hand-written CUDA kernels (``csrc/cg_tol.cu``,
-``csrc/sweep_cg.cu``, built with ``nvcc`` at first use). Importing the
-package loads no CUDA library and builds nothing.
+coefficient-sweep configs (``sim.sweepkernel``), with solves that are
+differentiable by implicit differentiation for the gradient-based fit
+(``drivers.fit``). On an NVIDIA H100 the solves go through hand-written CUDA
+kernels (``csrc/cg_tol.cu``, ``csrc/sweep_cg.cu``, built with ``nvcc`` at
+first use). Importing the package loads no CUDA library and builds nothing.
 """
 
 __version__ = "0.1.0"

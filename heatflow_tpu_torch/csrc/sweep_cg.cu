@@ -6,9 +6,9 @@
 // recording sweeps' per-step mass projection, sm_mp * Mp * (sm_mp * y) = b_b.
 //
 // Replaces: heatflow_tpu/ops/pallas_cg.py:_sweep_cg_tol_kernel (tolerance
-// mode, identity and r-line forms, has_kv=False) and :_sweep_cg_kernel
-// (fixed mode). The
-// TPU kernels run one config per grid step, each config's whole solve
+// mode: identity, r-line, has_kv=False, and the adi / adaptive branches,
+// whose z-line phase is ks_pcr_z below) and :_sweep_cg_kernel (fixed mode).
+// The TPU kernels run one config per grid step, each config's whole solve
 // resident in VMEM, one config after another.
 //
 // What bounds it on an H100: device memory. One lane's working set is ~10
@@ -37,7 +37,23 @@
 //    and runs the PCR levels on the couplings and the right-hand side
 //    together in shared memory (6 rows of Nr floats, 24 KB at Nr = 1001).
 //    A stored per-lane factor stack would be 21 planes a lane (21 GB at
-//    B = 1024) and 21 more planes of traffic an iteration.
+//    B = 1024) and 21 more planes of traffic an iteration;
+//  * the ADI form (z = R r + Z r - r) adds ks_pcr_z, which factors the
+//    z-lines the same way. Its floor is reading r and the R r plane and
+//    writing z: 3 planes a lane-iteration (2.9 MB at the sweep shape),
+//    plus the sm plane and the two z-coupling planes of A0 and Kv from L2.
+//    A z-line is a grid column, strided by Nr, so a block takes a tile of
+//    up to 32 adjacent columns of one lane: a warp reads 32 neighbours of
+//    one row (128 B), and the tile's six work arrays (d, l, u, double
+//    buffered) sit in shared memory (6 x Nz x 32 floats, 187 KB at
+//    Nz = 243). The adaptive form runs it for the lanes whose flag is set
+//    (a (B,) int32 array on the device); the other lanes' blocks return
+//    at once, and their z is the r-line solve R r.
+//  * <r, z> partials: the r-line phase writes one a grid row, the z phase
+//    one a column tile; the scalar phase reads n_rz = max(Nz, tiles) of
+//    them in every ADI or adaptive lane, each phase writing zeros over the
+//    slots it does not own, so a lane's sum is the same whichever form ran
+//    (adding 0.0 changes no sum) and does not depend on its neighbours.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,6 +65,7 @@ constexpr int kThreads = 256;                   // threads of every block
 constexpr int kPerThread = 4;                   // elements a thread, elementwise
 constexpr int kTile = kThreads * kPerThread;    // elements a block, elementwise
 constexpr int kCompactThreads = 1024;
+constexpr int kMaxSmem = 232448;                // a block's shared memory, H100
 
 // Per-lane solve state (mirrored by heatflow_tpu_torch/ops/cuda_sweep.py:
 // k is int32 word 10 and done int32 word 11 of each 48-byte record).
@@ -60,7 +77,8 @@ struct LaneState {
 // Launch-count slots; the Kv-free forms of init and stencil_dot count apart.
 enum Phase {
   kPhInit = 0, kPhStencilDot, kPhUpdate, kPhPcrR, kPhFinalize, kPhPUpdate,
-  kPhCompact, kPhFinish, kPhInitNoKv, kPhStencilDotNoKv, kNumPhases
+  kPhCompact, kPhFinish, kPhInitNoKv, kPhStencilDotNoKv, kPhPcrZ,
+  kNumPhases
 };
 
 enum FinalizeMode { kFinInit = 0, kFinAlpha = 1, kFinBeta = 2 };
@@ -126,6 +144,27 @@ __device__ __forceinline__ float stencil_at(const float* __restrict__ A0,
   return out;
 }
 
+// Columns of a ks_pcr_z tile: the widest power of two up to 32 whose six
+// work arrays of nz floats fit in a block's shared memory (0: none fits).
+int pcr_z_width(int nz) {
+  for (int tw = 32; tw >= 1; tw >>= 1)
+    if (6 * (size_t)nz * tw * sizeof(float) <= (size_t)kMaxSmem) return tw;
+  return 0;
+}
+
+int z_tiles_of(int nz, int nr) {
+  const int tw = pcr_z_width(nz);
+  return tw ? (nr + tw - 1) / tw : 0;
+}
+
+// <r, z> partials a lane's scalar phase reads: one a grid row (r-line),
+// max(rows, column tiles) in the ADI and adaptive forms, 0 when z is r.
+int n_rz_of(int nz, int nr, int rline, int adi) {
+  if (!rline) return 0;
+  const int zt = z_tiles_of(nz, nr);
+  return adi && zt > nz ? zt : nz;
+}
+
 struct Sweep {
   const float *A0, *Kv, *dks, *sm, *b, *x0, *rtol;   // Kv, dks: null if Kv-free
   float *x, *r, *z, *p, *Ap;
@@ -136,13 +175,15 @@ struct Sweep {
   size_t sm_stride;   // elements between two lanes' sm planes: n, or 0 (shared)
   long long* counts;
   cudaStream_t stream;
+  const int* flags;   // adaptive: per-lane ADI flags (B int32), else null
+  int adi;            // 0: no z phase; 1: every lane; 2: the flagged lanes
 
   size_t n() const { return (size_t)nz * nr; }
   int tiles() const { return (int)((n() + kTile - 1) / kTile); }
   double* part(int which) const {
     return parts + (size_t)which * B * nparts;
   }
-  int n_rz() const { return rline ? nz : 0; }
+  int n_rz() const { return n_rz_of(nz, nr, rline, adi); }
 };
 
 __device__ __forceinline__ size_t elem(int m) {
@@ -260,7 +301,7 @@ __global__ void ks_pcr_r(const float* __restrict__ A0,
                          const float* __restrict__ dks,
                          const float* __restrict__ sm, size_t sm_stride,
                          const float* __restrict__ r, float* __restrict__ z,
-                         double* part_rz, const LaneState* st,
+                         double* part_rz, int n_rz, const LaneState* st,
                          const int* __restrict__ lanes, int nz, int nr,
                          int nparts) {
   const int lane = lanes[blockIdx.y];
@@ -317,7 +358,112 @@ __global__ void ks_pcr_r(const float* __restrict__ A0,
     acc += (double)(r[off + j] * zv);
   }
   acc = block_sum(acc);
-  if (threadIdx.x == 0) part_rz[(size_t)lane * nparts + blockIdx.x] = acc;
+  if (threadIdx.x == 0) {
+    double* part = part_rz + (size_t)lane * nparts;
+    part[blockIdx.x] = acc;
+    for (int q = gridDim.x + blockIdx.x; q < n_rz; q += gridDim.x)
+      part[q] = 0.0;
+  }
+}
+
+// z-line PCR of the ADI form, z = R r + Z r - r, with the factorization
+// done on the fly; one block per (tile of tw adjacent columns, lane). On
+// entry z holds R r (ks_pcr_r). A thread takes column tx = threadIdx.x % tw
+// of the tile and the rows ty, ty + blockDim.x / tw, ...; the column's
+// couplings of the scaled operator,
+//   u[i] = sm[i] (A0 + dk Kv)[1][i] sm[i+1],  l[i] = sm[i] (A0 + dk Kv)[2][i] sm[i-1]
+// (zero past the column's ends; slots 1/2 are offsets (+1, 0) / (-1, 0)),
+// and d = r go to shared memory, element (i, tx) at i * tw + tx, and the
+// PCR levels run along i as in ks_pcr_r; then z = (R r + d - r) * free and
+// the tile's partial of <r, z>. With flags (the adaptive form) a lane whose
+// flag is 0 returns at once: its z stays R r.
+__global__ void ks_pcr_z(const float* __restrict__ A0,
+                         const float* __restrict__ Kv,
+                         const float* __restrict__ dks,
+                         const float* __restrict__ sm, size_t sm_stride,
+                         const float* __restrict__ r, float* __restrict__ z,
+                         double* part_rz, int n_rz, const LaneState* st,
+                         const int* __restrict__ flags,
+                         const int* __restrict__ lanes, int nz, int nr,
+                         int nparts, int tw) {
+  const int lane = lanes[blockIdx.y];
+  if (st != nullptr && st[lane].done) return;
+  if (flags != nullptr && flags[lane] == 0) return;
+  extern __shared__ float cols[];
+  const size_t m = (size_t)nz * tw;
+  float* d0 = cols;
+  float* d1 = cols + m;
+  float* l0 = cols + 2 * m;
+  float* l1 = cols + 3 * m;
+  float* u0 = cols + 4 * m;
+  float* u1 = cols + 5 * m;
+  const size_t n = (size_t)nz * nr;
+  const size_t off = (size_t)lane * n;
+  const float dk = Kv != nullptr ? dks[lane] : 0.0f;
+  const float* sml = sm + (size_t)lane * sm_stride;
+  const int tx = threadIdx.x % tw, ty = threadIdx.x / tw;
+  const int step = blockDim.x / tw;
+  const int j = blockIdx.x * tw + tx;
+  const bool col = j < nr;
+  for (int i = ty; i < nz; i += step) {
+    const int q = i * tw + tx;
+    if (col) {
+      const size_t idx = (size_t)i * nr + j;
+      const float si = sml[idx];
+      const float c_up = Kv != nullptr ? A0[n + idx] + dk * Kv[n + idx]
+                                       : A0[n + idx];
+      const float c_lo = Kv != nullptr
+                             ? A0[2 * n + idx] + dk * Kv[2 * n + idx]
+                             : A0[2 * n + idx];
+      u0[q] = i + 1 < nz ? si * c_up * sml[idx + nr] : 0.0f;
+      l0[q] = i >= 1 ? si * c_lo * sml[idx - nr] : 0.0f;
+      d0[q] = r[off + idx];
+    } else {
+      u0[q] = 0.0f;
+      l0[q] = 0.0f;
+      d0[q] = 0.0f;
+    }
+  }
+  __syncthreads();
+  for (int s = 1; s < nz; s <<= 1) {
+    const int ds = s * tw;
+    for (int i = ty; i < nz; i += step) {
+      const int q = i * tw + tx;
+      const bool lo_in = i - s >= 0, up_in = i + s < nz;
+      const float lj = l0[q], uj = u0[q];
+      const float u_m = lo_in ? u0[q - ds] : 0.0f;
+      const float l_p = up_in ? l0[q + ds] : 0.0f;
+      const float d_m = lo_in ? d0[q - ds] : 0.0f;
+      const float d_p = up_in ? d0[q + ds] : 0.0f;
+      const float inv_a = 1.0f / (1.0f - lj * u_m - uj * l_p);
+      d1[q] = (d0[q] - lj * d_m - uj * d_p) * inv_a;
+      l1[q] = -lj * (lo_in ? l0[q - ds] : 0.0f) * inv_a;
+      u1[q] = -uj * (up_in ? u0[q + ds] : 0.0f) * inv_a;
+    }
+    __syncthreads();
+    float* t;
+    t = d0; d0 = d1; d1 = t;
+    t = l0; l0 = l1; l1 = t;
+    t = u0; u0 = u1; u1 = t;
+  }
+  double acc = 0.0;
+  if (col) {
+    for (int i = ty; i < nz; i += step) {
+      const size_t idx = (size_t)i * nr + j;
+      const float fm = sml[idx] != 0.0f ? 1.0f : 0.0f;
+      const float rv = r[off + idx];
+      const float zv = (z[off + idx] + d0[i * tw + tx] - rv) * fm;
+      z[off + idx] = zv;
+      acc += (double)(rv * zv);
+    }
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) {
+    double* part = part_rz + (size_t)lane * nparts;
+    part[blockIdx.x] = acc;
+    for (int q = gridDim.x + blockIdx.x; q < n_rz; q += gridDim.x)
+      part[q] = 0.0;
+  }
 }
 
 // Reduce n partials in a fixed order (deterministic); valid in all threads.
@@ -495,9 +641,10 @@ cudaError_t launch_update(float* x, float* r, const float* p, const float* Ap,
 
 cudaError_t launch_pcr_r(const float* A0, const float* Kv, const float* dks,
                          const float* sm, size_t sm_stride, const float* r,
-                         float* z, double* part_rz, const LaneState* st,
-                         const int* lanes, int n_lanes, int nz, int nr,
-                         int nparts, long long* counts, cudaStream_t stream) {
+                         float* z, double* part_rz, int n_rz,
+                         const LaneState* st, const int* lanes, int n_lanes,
+                         int nz, int nr, int nparts, long long* counts,
+                         cudaStream_t stream) {
   const size_t smem = pcr_smem(nr);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -506,8 +653,31 @@ cudaError_t launch_pcr_r(const float* A0, const float* Kv, const float* dks,
     if (e != cudaSuccess) return e;
   }
   ks_pcr_r<<<dim3(nz, n_lanes), kThreads, smem, stream>>>(
-      A0, Kv, dks, sm, sm_stride, r, z, part_rz, st, lanes, nz, nr, nparts);
+      A0, Kv, dks, sm, sm_stride, r, z, part_rz, n_rz, st, lanes, nz, nr,
+      nparts);
   counts[kPhPcrR] += 1;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_pcr_z(const float* A0, const float* Kv, const float* dks,
+                         const float* sm, size_t sm_stride, const float* r,
+                         float* z, double* part_rz, int n_rz,
+                         const LaneState* st, const int* flags,
+                         const int* lanes, int n_lanes, int nz, int nr,
+                         int nparts, long long* counts, cudaStream_t stream) {
+  const int tw = pcr_z_width(nz);
+  if (tw == 0) return cudaErrorInvalidValue;
+  const size_t smem = 6 * (size_t)nz * tw * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        (const void*)ks_pcr_z, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  ks_pcr_z<<<dim3((nr + tw - 1) / tw, n_lanes), kThreads, smem, stream>>>(
+      A0, Kv, dks, sm, sm_stride, r, z, part_rz, n_rz, st, flags, lanes, nz,
+      nr, nparts, tw);
+  counts[kPhPcrZ] += 1;
   return cudaGetLastError();
 }
 
@@ -532,12 +702,20 @@ cudaError_t launch_p_update(float* p, const float* z, const LaneState* st,
   return cudaGetLastError();
 }
 
-// z = M^-1 r with the <r, z> partials (r-line form); identity: z is r.
+// z = M^-1 r with the <r, z> partials: the r-line solve, then in the ADI
+// and adaptive forms the z-line phase (every lane, or the flagged ones);
+// identity: z is r.
 cudaError_t precondition(const Sweep& s, int n_lanes) {
   if (!s.rline) return cudaSuccess;
-  return launch_pcr_r(s.A0, s.Kv, s.dks, s.sm, s.sm_stride, s.r, s.z,
-                      s.part(kPartRz), s.st, s.lanes, n_lanes, s.nz, s.nr,
-                      s.nparts, s.counts, s.stream);
+  cudaError_t e = launch_pcr_r(s.A0, s.Kv, s.dks, s.sm, s.sm_stride, s.r,
+                               s.z, s.part(kPartRz), s.n_rz(), s.st, s.lanes,
+                               n_lanes, s.nz, s.nr, s.nparts, s.counts,
+                               s.stream);
+  if (e != cudaSuccess || !s.adi) return e;
+  return launch_pcr_z(s.A0, s.Kv, s.dks, s.sm, s.sm_stride, s.r, s.z,
+                      s.part(kPartRz), s.n_rz(), s.st,
+                      s.adi == 2 ? s.flags : nullptr, s.lanes, n_lanes, s.nz,
+                      s.nr, s.nparts, s.counts, s.stream);
 }
 
 cudaError_t finalize(const Sweep& s, int mode, int n_lanes) {
@@ -595,24 +773,33 @@ cudaError_t iterate(const Sweep& s, int n_lanes) {
       const float *rtol, float *x, float *r, float *z, float *p, float *Ap,  \
       double *parts,                                                         \
       int nparts, void *state, int *lanes, int B, int nz, int nr,            \
-      int maxiter, int wrt_r0, int rline, int fixed, long long *counts,      \
-      void *stream
+      int maxiter, int wrt_r0, int rline, int fixed, int adi,                \
+      const int *flags, long long *counts, void *stream
 
 #define HF_SWEEP_INIT                                                        \
   Sweep s{A0, Kv, dks, sm, b, x0, rtol, x, r, z, p, Ap, parts,               \
           (LaneState *)state, lanes, npts, nz, nr, B, maxiter, wrt_r0,       \
           rline, fixed, nparts, sm_lane ? (size_t)nz * nr : 0, counts,       \
-          (cudaStream_t)stream}
+          (cudaStream_t)stream, flags, adi}
 
 extern "C" {
 
 // Partial sums a lane needs per kind: one per elementwise block, one per
-// grid row (r-line PCR).
+// grid row (r-line PCR), one per column tile (z-line PCR).
 int hf_sweep_tiles(int nz, int nr) { return tiles_of(nz, nr); }
 
+int hf_sweep_z_tiles(int nz, int nr) { return z_tiles_of(nz, nr); }
+
 int hf_sweep_nparts(int nz, int nr) {
-  const int tiles = hf_sweep_tiles(nz, nr);
-  return tiles > nz ? tiles : nz;
+  int n = hf_sweep_tiles(nz, nr);
+  if (nz > n) n = nz;
+  const int zt = z_tiles_of(nz, nr);
+  return zt > n ? zt : n;
+}
+
+// <r, z> partials the scalar phase reads in a solve (see n_rz_of).
+int hf_sweep_n_rz(int nz, int nr, int rline, int adi) {
+  return n_rz_of(nz, nr, rline, adi);
 }
 
 int hf_sweep_state_bytes() { return (int)sizeof(LaneState); }
@@ -700,8 +887,20 @@ int hf_sweep_pcr_r(const float *A0, const float *Kv, const float *dks,
                    double *part, const int *lanes, int n_lanes, int nz,
                    int nr, int nparts, long long *counts, void *stream) {
   return (int)launch_pcr_r(A0, Kv, dks, sm, sm_lane ? (size_t)nz * nr : 0, r,
-                           z, part, nullptr, lanes, n_lanes, nz, nr, nparts,
-                           counts, (cudaStream_t)stream);
+                           z, part, nz, nullptr, lanes, n_lanes, nz, nr,
+                           nparts, counts, (cudaStream_t)stream);
+}
+
+// The z-line phase alone: z holds R r on entry and z = R r + Z r - r on
+// exit; one <r, z> partial a column tile (hf_sweep_z_tiles of them).
+int hf_sweep_pcr_z(const float *A0, const float *Kv, const float *dks,
+                   const float *sm, int sm_lane, const float *r, float *z,
+                   double *part, const int *lanes, int n_lanes, int nz,
+                   int nr, int nparts, long long *counts, void *stream) {
+  return (int)launch_pcr_z(A0, Kv, dks, sm, sm_lane ? (size_t)nz * nr : 0, r,
+                           z, part, z_tiles_of(nz, nr), nullptr, nullptr,
+                           lanes, n_lanes, nz, nr, nparts, counts,
+                           (cudaStream_t)stream);
 }
 
 // mode 0: the first step's scalars; 1: alpha; 2: beta and the stop test.

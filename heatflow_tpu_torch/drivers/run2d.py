@@ -42,6 +42,7 @@ from heatflow_tpu_torch.mesh.structured import (build_structured_mesh,
 from heatflow_tpu_torch.sim.bc import HeatingCurve
 from heatflow_tpu_torch.sim.problem import build_problem
 from heatflow_tpu_torch.sim.stepper import _not_ported, run_transient
+from heatflow_tpu_torch.utils import resolve_device
 
 
 @contextlib.contextmanager
@@ -54,18 +55,6 @@ def suppress_output(enabled: bool):
             with contextlib.redirect_stdout(fnull), \
                  contextlib.redirect_stderr(fnull):
                 yield
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch device; a CUDA device must exist (there is no
-    quiet fall back to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           "available (pass --device cpu to run on the CPU)")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def default_dtype(device) -> torch.dtype:

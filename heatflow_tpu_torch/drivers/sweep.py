@@ -35,7 +35,7 @@ import torch
 
 from heatflow_tpu_torch.config import load_config, save_config, with_parameters
 from heatflow_tpu_torch.drivers.run2d import (_not_ported, _prepare_mesh,
-                                              default_dtype, resolve_device)
+                                              default_dtype)
 from heatflow_tpu_torch.geometry import coupler_watcher_points
 from heatflow_tpu_torch.io.csvio import (write_gradient_csv, write_rows,
                                          write_watcher_csv)
@@ -43,6 +43,7 @@ from heatflow_tpu_torch.sim.bc import HeatingCurve
 from heatflow_tpu_torch.sim.problem import build_problem
 from heatflow_tpu_torch.sim.sweepkernel import (make_sweep_fn,
                                                 make_sweep_fn_recording)
+from heatflow_tpu_torch.utils import resolve_device
 
 
 def create_parameter_grid(fwhm_range, k_range, width_range, num_points):
@@ -122,15 +123,16 @@ def _cached_group(cfg_w, mesh_folder):
 
 def _resolve_solver(solver, *, dtype, device, precondition, f64_refine,
                     record_gradient):
-    """'auto' → 'vmem' (the batched CUDA kernels) for float32 on a CUDA
-    device and for plain f64_refine sweeps (the only engine that refines
-    without recording), 'xla' (the eager batched PCG) otherwise."""
+    """'auto' → 'vmem' (the batched CUDA kernels: Jacobi, r-line, ADI and
+    adaptive) for float32 on a CUDA device and for plain f64_refine sweeps
+    (the only engine that refines without recording), 'xla' (the eager
+    batched PCG) otherwise, and for a preconditioner the kernels lack."""
     if solver != "auto":
         return solver
+    if precondition in ("mg", "zline"):
+        return "xla"
     if f64_refine and not record_gradient:
         return "vmem"
-    if precondition == "mg":
-        return "xla"
     return ("vmem" if device.type == "cuda" and dtype == torch.float32
             else "xla")
 
@@ -484,7 +486,8 @@ def main(argv=None, timings: dict | None = None):
                    choices=["jacobi", "rline", "adi", "mg"],
                    default=None,
                    help="CG preconditioner (default: rline for f32 "
-                        "--record-gradient sweeps, jacobi otherwise)")
+                        "--record-gradient sweeps, jacobi otherwise); "
+                        "'adi' runs the batched kernel's ADI form")
     p.add_argument("--f64-refine", type=int, default=0, metavar="N",
                    help="mixed-precision sweeps (f32): N passes of "
                         "f64-operator residual refinement per step")

@@ -124,9 +124,11 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_pcr_z, P, P, P, I, P, P, I, I, P, P)
     # csrc/sweep_cg.cu
     sweep = [P, P, I, P, P, I, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I,
-             I, I, I, I, P, P]
+             I, I, I, I, I, P, P, P]
     _sig(lib.hf_sweep_tiles, I, I)
+    _sig(lib.hf_sweep_z_tiles, I, I)
     _sig(lib.hf_sweep_nparts, I, I)
+    _sig(lib.hf_sweep_n_rz, I, I, I, I)
     _sig(lib.hf_sweep_state_bytes)
     _sig(lib.hf_sweep_num_phases)
     _sig(lib.hf_sweep_start, *sweep)
@@ -139,6 +141,7 @@ def load_library() -> ctypes.CDLL:
          P, P)
     _sig(lib.hf_sweep_update, P, P, P, P, P, P, P, I, I, I, I, P, P)
     _sig(lib.hf_sweep_pcr_r, P, P, P, P, I, P, P, P, P, I, I, I, I, P, P)
+    _sig(lib.hf_sweep_pcr_z, P, P, P, P, I, P, P, P, P, I, I, I, I, P, P)
     _sig(lib.hf_sweep_finalize, P, P, I, I, I, I, I, P, I, I, I, P, I, P, P)
     _sig(lib.hf_sweep_p_update, P, P, P, P, I, I, I, I, P, P)
     _lib = lib

@@ -9,6 +9,9 @@ keeps the restricted operator SPD.
 Fields are (..., Nz, Nr); every leading dimension is an independent lane
 with its own scalars, and a lane that has converged is frozen while the
 others iterate (f32 CG driven past convergence goes unstable).
+:func:`pcg_solve` (and, over the CUDA kernel, ``cuda_cg.cg_vmem_solve``)
+differentiates a solve implicitly: one more solve for a gradient or a
+tangent, instead of unrolling the iteration.
 """
 
 from __future__ import annotations
@@ -156,8 +159,110 @@ def pcg_fixed(apply_op: Callable[[torch.Tensor], torch.Tensor],
                                          device=b.device))
 
 
-def pcg_solve(*_args, **_kw):
-    """Differentiable PCG through implicit differentiation (not ported
-    yet)."""
-    raise NotImplementedError("pcg_solve is not ported to heatflow_tpu_torch "
-                              "yet (ROADMAP P7)")
+class _LinearSolve(torch.autograd.Function):
+    """One solve of a symmetric system: ``solve(rhs, direction, *operands)``.
+    The operator's tensors come in as ``operands``, so that inside the
+    Function they are plain tensors, their autograd and torch.func wrappers
+    taken off (a solve may hand their pointers to a kernel). Used for the
+    primal solve and for the adjoint and tangent solves of :class:`_Implicit`;
+    never differentiated itself. Under ``torch.func.vmap`` a batch of
+    right-hand sides is one call with the batch as leading lanes."""
+
+    @staticmethod
+    def forward(rhs, solve, direction, *operands):
+        return solve(rhs, direction, *operands)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def vmap(info, in_dims, rhs, solve, direction, *operands):
+        if any(d is not None for d in in_dims[3:]):
+            raise NotImplementedError("a batch of operators under vmap")
+        rhs = rhs.movedim(in_dims[0], 0) if in_dims[0] is not None else \
+            rhs.expand(info.batch_size, *rhs.shape)
+        return solve(rhs, direction, *operands), 0
+
+
+class _Implicit(torch.autograd.Function):
+    """The derivative of x = A⁻¹ b by the implicit-function theorem, A
+    symmetric. Its input is the residual r = b − A(θ)·x at the (detached)
+    solution, whose derivative is db − dA·x; its value is 0, so x + this
+    term is x exactly. Backward: λ = A⁻¹ g, one adjoint solve (autograd then
+    carries −⟨λ, dA·x⟩ to θ and λ to b through the eager operator apply).
+    Forward mode: A⁻¹ dr, one tangent solve."""
+
+    @staticmethod
+    def forward(r, solve, *operands):
+        return torch.zeros_like(r)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.solve = inputs[1]
+        ctx.n_operands = len(inputs) - 2
+        ctx.save_for_backward(*inputs[2:])
+        ctx.save_for_forward(*inputs[2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        lam = _LinearSolve.apply(g, ctx.solve, "backward", *ctx.saved_tensors)
+        return (lam, None) + (None,) * ctx.n_operands
+
+    @staticmethod
+    def jvp(ctx, dr, _solve, *_operands):
+        return _LinearSolve.apply(dr, ctx.solve, "jvp", *ctx.saved_tensors)
+
+    @staticmethod
+    def vmap(info, in_dims, r, solve, *operands):
+        return torch.zeros_like(r), in_dims[0]
+
+
+def implicit_solve(solve, b: torch.Tensor, residual,
+                   operands: tuple = ()) -> torch.Tensor:
+    """x = A⁻¹ b, differentiable: ``solve(rhs, direction, *operands)`` solves
+    the symmetric system for one right-hand side (with its seed rule) from
+    the detached ``operands`` alone, and ``residual(x)`` is b − A(θ)·x with
+    the live (differentiable) b and θ. The primal solve runs on the
+    detached b; gradients and tangents enter through the residual at that
+    solution."""
+    x = _LinearSolve.apply(b.detach(), solve, "forward", *operands)
+    return x + _Implicit.apply(residual(x), solve, *operands)
+
+
+def pcg_solve(apply_op: Callable[..., torch.Tensor], b: torch.Tensor,
+              x0: torch.Tensor, *, op_args: tuple = (),
+              precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
+              mask: torch.Tensor | None = None, rtol: float = 1e-10,
+              atol: float = 0.0, maxiter: int = 2000,
+              rtol_wrt: str = "b") -> torch.Tensor:
+    """Differentiable PCG solve by implicit differentiation: ``apply_op(v,
+    *op_args)`` is the (symmetric) operator, and gradients flow to ``b`` and
+    to the tensors of ``op_args`` (not to ``x0``, nor to ``precond``, which
+    only steer the solves). A backward pass costs one more :func:`pcg`
+    solve (the adjoint system), a forward-mode tangent one more (the
+    tangent system), instead of unrolling the iteration.
+
+    Constrained dofs carry zeros in ``b`` and ``x0``. Every solve is seeded
+    with c·x0, c = ⟨rhs, b⟩/⟨b, b⟩ per lane: exactly 1 for the primal solve
+    (rhs is b, so the seed is x0 bitwise), ≈0 for the derivative solves,
+    whose rhs is derivative-scale. Seeding those with the solution-scale x0
+    would waste iterations burning down a huge initial residual, and under
+    ``rtol_wrt='r0'`` it would set their stop target to rtol·‖A·x0‖, orders
+    of magnitude above the tangent rhs, stopping them at once with corrupt
+    gradients."""
+    msk = (torch.ones((), dtype=b.dtype, device=b.device) if mask is None
+           else mask.to(b.dtype))
+
+    def solve(rhs, _direction, b_d, x0_d, msk, *args):
+        bb = _dot(b_d, b_d)
+        c = _dot(rhs, b_d) / torch.where(bb > 0, bb, torch.ones_like(bb))
+        return pcg(lambda v: apply_op(v, *args) * msk, rhs, _lane(c) * x0_d,
+                   precond=precond, mask=msk, rtol=rtol, atol=atol,
+                   maxiter=maxiter, rtol_wrt=rtol_wrt).x
+
+    operands = (b.detach(), x0.detach(), msk) + tuple(a.detach()
+                                                       for a in op_args)
+    return implicit_solve(solve, b,
+                          lambda x: b - apply_op(x, *op_args) * msk,
+                          operands)

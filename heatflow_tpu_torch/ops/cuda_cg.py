@@ -19,6 +19,7 @@ import ctypes
 import numpy as np
 import torch
 
+from heatflow_tpu_torch.ops.cg import implicit_solve
 from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_factor,
                                               pcr_fold)
 from heatflow_tpu_torch.ops.stencil import apply_stencil, shifted
@@ -71,6 +72,8 @@ def reset_counters() -> None:
     for name in ("launches", "launches_identity", "launches_rline",
                  "launches_adi"):
         setattr(cg_tol, name, 0)
+    for name in ("launches_forward", "launches_backward", "launches_jvp"):
+        setattr(cg_vmem_solve, name, 0)
 
 
 def pcr_pack(A: torch.Tensor, s: torch.Tensor, free: torch.Tensor,
@@ -322,3 +325,59 @@ def precond(sm: torch.Tensor, r: torch.Tensor, pcr: torch.Tensor,
     _check(lib.hf_pcr_z(_ptr(r), _ptr(sm), _ptr(pcr_z), lz, _ptr(z),
                         _ptr(part), nz, nr, _counts_ptr(), stream), "pcr_z")
     return z, part[:(nr + 15) // 16].sum()
+
+
+def _implicit_cg(solver, A, sm, b, x0, rtol, maxiter, rtol_wrt, pcr, pcr_z,
+                 count: bool) -> torch.Tensor:
+    """The implicitly differentiated solve of sm·A·sm y = b, each solve by
+    ``solver`` (:func:`cg_tol` or its plain version)."""
+    def solve(rhs, direction, A, sm, b, x0, pcr, pcr_z):
+        if rhs.ndim == 3:     # a batch of right-hand sides (torch.func.vmap)
+            return torch.stack([solve(v, direction, A, sm, b, x0, pcr,
+                                      pcr_z) for v in rhs])
+        bb = torch.sum(b * b)
+        c = torch.sum(rhs * b) / torch.where(bb > 0, bb, torch.ones_like(bb))
+        x, _ = solver(A, sm, rhs.contiguous(), (c * x0).contiguous(), rtol,
+                      maxiter=maxiter, rtol_wrt=rtol_wrt, pcr=pcr,
+                      pcr_z=pcr_z)
+        if count:
+            name = f"launches_{direction}"
+            setattr(cg_vmem_solve, name, getattr(cg_vmem_solve, name) + 1)
+        return x
+
+    operands = tuple(None if t is None else t.detach()
+                     for t in (A, sm, b, x0, pcr, pcr_z))
+    return implicit_solve(solve, b,
+                          lambda x: b - sm * apply_stencil(A, sm * x),
+                          operands)
+
+
+def cg_vmem_solve(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
+                  x0: torch.Tensor, rtol, *, maxiter: int = 4000,
+                  rtol_wrt: str = "r0", pcr: torch.Tensor | None = None,
+                  pcr_z: torch.Tensor | None = None) -> torch.Tensor:
+    """Differentiable :func:`cg_tol`: solves sm·A·sm y = b by implicit
+    differentiation (replaces heatflow_tpu/ops/pallas_cg.py:cg_vmem_solve).
+    Gradients and tangents flow to ``A``, ``sm`` and ``b`` (not to ``x0``);
+    the ``pcr``/``pcr_z`` stacks only steer the solves and are detached.
+    The forward pass, each backward pass and each forward-mode tangent is
+    one ``cg_tol`` solve: the kernel on CUDA float32 tensors (counted in
+    ``cg_vmem_solve.launches_forward``, ``.launches_backward`` and
+    ``.launches_jvp``), the plain version on CPU tensors. Every solve is
+    seeded with c·x0, c = ⟨rhs, b⟩/⟨b, b⟩ (1 for the primal solve; see
+    :func:`heatflow_tpu_torch.ops.cg.pcg_solve`)."""
+    return _implicit_cg(cg_tol, A, sm, b, x0, rtol, maxiter, rtol_wrt, pcr,
+                        pcr_z, count=not _on_cpu(A, sm, b, x0, pcr, pcr_z))
+
+
+def cg_vmem_solve_reference(A, sm, b, x0, rtol, *, maxiter: int = 4000,
+                            rtol_wrt: str = "r0", pcr=None, pcr_z=None):
+    """Plain version of :func:`cg_vmem_solve`, on any device: the same
+    implicit differentiation with every solve by :func:`cg_tol_reference`."""
+    return _implicit_cg(cg_tol_reference, A, sm, b, x0, rtol, maxiter,
+                        rtol_wrt, pcr, pcr_z, count=False)
+
+
+cg_vmem_solve.launches_forward = 0
+cg_vmem_solve.launches_backward = 0
+cg_vmem_solve.launches_jvp = 0

@@ -8,12 +8,14 @@ constrained dofs. With ``Kv=None`` (and ``dks=None``) every lane solves with
 A0 alone, and ``sm`` may be one (Nz, Nr) plane shared by the lanes: the
 recording sweeps' mass projection (the Kv-free form). :func:`cg_batched_tol`
 runs each lane to its own tolerance (‖r‖ ≤ rtol_b·‖b_b‖, or ·‖r0_b‖),
-unpreconditioned or with the r-line PCR block-Jacobi solve;
+unpreconditioned, with the r-line PCR block-Jacobi solve R, with the
+split-additive ADI solve R r + Z r − r (R and the z-line solve Z), or
+adaptively: ADI in the lanes whose flag is set, r-line in the others;
 :func:`cg_batched` runs every lane a fixed number of iterations. A tensor on
 the CPU goes to the plain version; a CUDA tensor goes to the kernel, or the
 call raises. The kernels replace heatflow_tpu/ops/pallas_cg.py:
-_sweep_cg_tol_kernel (identity, r-line and has_kv=False forms) and
-_sweep_cg_kernel.
+_sweep_cg_tol_kernel (identity, r-line, ADI, adaptive and has_kv=False
+forms) and _sweep_cg_kernel.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ CHECK_EVERY = 8   # iterations enqueued between two host reads of the number
                   # depend on it
 
 PHASES = ("init", "stencil_dot", "update", "pcr_r", "finalize", "p_update",
-          "compact", "finish", "init_no_kv", "stencil_dot_no_kv")
+          "compact", "finish", "init_no_kv", "stencil_dot_no_kv", "pcr_z")
 # phase kernel launches, counted by the C host code where it launches them
 _phase_counts = np.zeros(len(PHASES), dtype=np.int64)
 _STATE_WORDS = 6   # float64 words of one lane's solve state
@@ -66,7 +68,7 @@ def phase_launches() -> dict[str, int]:
 def reset_counters() -> None:
     _phase_counts[:] = 0
     for name in ("launches", "launches_identity", "launches_rline",
-                 "launches_no_kv"):
+                 "launches_adi", "launches_adaptive", "launches_no_kv"):
         setattr(cg_batched_tol, name, 0)
     cg_batched.launches = 0
 
@@ -104,13 +106,35 @@ def unpack_state(st: torch.Tensor) -> dict:
 # Plain versions
 # ----------------------------------------------------------------------
 
-def rline_reference(A0, Kv, dks, sm):
-    """The r-line PCR block-Jacobi solve of every lane's scaled operator,
-    factored here (unfolded levels, as the kernel factors them)."""
-    l, u = line_couplings(A0, sm, -1, Kv=Kv, dk=dks)
-    levels = pcr_factor(l, u, axis=-1)
+def rline_reference(A0, Kv, dks, sm, axis: int = -1):
+    """The r-line (``axis=-1``) or z-line (``axis=-2``) PCR block-Jacobi
+    solve of every lane's scaled operator, factored here (unfolded levels,
+    as the kernels factor them), masked to the free dofs."""
+    l, u = line_couplings(A0, sm, axis, Kv=Kv, dk=dks)
+    levels = pcr_factor(l, u, axis=axis)
     free = (sm != 0).to(sm.dtype)
-    return lambda r: pcr_apply(levels, r, axis=-1) * free
+    return lambda r: pcr_apply(levels, r, axis=axis) * free
+
+
+def _preconditioner(A0, Kv, dks, sm, rline, adi, adi_flags):
+    """The plain preconditioner of a form: identity; the r-line solve R;
+    the split-additive ADI solve (R r + Z r − r)·free (Z the z-line solve,
+    the doubly counted identity taken off, in the kernels' order); or,
+    with ``adi_flags``, ADI in the flagged lanes and R in the others."""
+    if not (rline or adi or adi_flags is not None):
+        return lambda r: r
+    R = rline_reference(A0, Kv, dks, sm)
+    if rline:
+        return R
+    Z = rline_reference(A0, Kv, dks, sm, axis=-2)
+    free = (sm != 0).to(sm.dtype)
+    on = None if adi_flags is None else _lane(adi_flags != 0)
+
+    def pre(r):
+        zr = R(r)
+        z = (zr + Z(r) - r) * free
+        return z if on is None else torch.where(on, z, zr)
+    return pre
 
 
 def stencil_dot_reference(A0, Kv, dks, sm, p):
@@ -124,6 +148,14 @@ def pcr_r_reference(A0, Kv, dks, sm, r):
     """(z, ⟨r, z⟩ per lane) for the r-line preconditioner — the plain PCR
     phase."""
     z = rline_reference(A0, Kv, dks, sm)(r)
+    return z, _dot(r.double(), z.double())
+
+
+def pcr_z_reference(A0, Kv, dks, sm, r, z_r):
+    """(z = (R r + Z r − r)·free, ⟨r, z⟩ per lane) given the r-line solve
+    ``z_r`` = R r — the plain z-line phase of the ADI form."""
+    z = (z_r + rline_reference(A0, Kv, dks, sm, axis=-2)(r) - r) \
+        * (sm != 0).to(sm.dtype)
     return z, _dot(r.double(), z.double())
 
 
@@ -212,19 +244,33 @@ def _rtol_lanes(rtol, B: int, dtype, device) -> torch.Tensor:
     return t.expand(B)
 
 
+def _check_form(rline: bool, adi: bool, adi_flags) -> None:
+    if rline and adi:
+        raise ValueError("rline and adi are mutually exclusive (adi already "
+                         "contains the r-line solve)")
+    if adi_flags is not None and (rline or adi):
+        raise ValueError("adi_flags (the per-lane adaptive r-line/ADI "
+                         "switch) replaces the static rline/adi flags")
+
+
 def cg_batched_tol_reference(A0, Kv, dks, sm, b, x0, rtol, *,
                              maxiter: int = 4000, rtol_wrt: str = "b",
-                             rline: bool = False):
+                             rline: bool = False, adi: bool = False,
+                             adi_flags=None):
     """Plain PyTorch version of the tolerance kernel, in the inputs' dtype:
     the standard PCG recurrence of the TPU kernel per lane, with its guards
     (pAp == 0 → 1, rz == 0 → 1), its stop rule (while k < maxiter and
     rr > stop2, rr = ‖r‖² when preconditioned and ⟨r, z⟩ otherwise), a lane
     frozen once it stops, and x = NaN over a lane whose rr is not finite.
-    Returns (x, iters) with iters (B,) int32."""
+    ``adi`` preconditions every lane with the ADI solve, ``adi_flags`` (B,)
+    the flagged lanes (r-line in the others). Returns (x, iters) with iters
+    (B,) int32."""
     _check_rtol_wrt(rtol_wrt)
+    _check_form(rline, adi, adi_flags)
     B = b.shape[0]
     apply_op = lambda y: sm * apply_combined(A0, Kv, dks, sm * y)
-    precond = rline_reference(A0, Kv, dks, sm) if rline else (lambda r: r)
+    precond = _preconditioner(A0, Kv, dks, sm, rline, adi, adi_flags)
+    rline = rline or adi or adi_flags is not None     # preconditioned
     rt = _rtol_lanes(rtol, B, b.dtype, b.device)
 
     x = x0
@@ -304,7 +350,7 @@ class _Solve:
     """Device buffers and the C argument list of one batched solve."""
 
     def __init__(self, lib, A0, Kv, dks, sm, b, x0, rtol_t, *, maxiter,
-                 wrt_r0, rline, fixed):
+                 wrt_r0, rline, fixed, adi=0, flags=None):
         B, nz, nr = b.shape
         dev = b.device
         self.lib, self.B, self.nz, self.nr = lib, B, nz, nr
@@ -322,14 +368,14 @@ class _Solve:
         self.count = torch.empty((), dtype=torch.int32, device=dev)
         self.iters = torch.empty(B, dtype=torch.int32, device=dev)
         self.stream = _stream()
-        self._keep = (vecs, rtol_t)
+        self._keep = (vecs, rtol_t, flags)
         self.args = (_ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm),
                      int(sm.ndim == 3), _ptr(b), _ptr(x0), _ptr(rtol_t),
                      _ptr(self.x), _ptr(r),
                      _ptr(z), _ptr(p), _ptr(Ap), _ptr(self.parts), nparts,
                      _ptr(self.state), _ptr(self.lanes), B, nz, nr,
                      int(maxiter), int(wrt_r0), int(rline), int(fixed),
-                     _counts_ptr(), self.stream)
+                     int(adi), _ptr(flags), _counts_ptr(), self.stream)
 
     def start(self):
         _check(self.lib.hf_sweep_start(*self.args), "sweep start")
@@ -358,25 +404,39 @@ def cg_batched_tol(A0: torch.Tensor, Kv: torch.Tensor | None,
                    dks: torch.Tensor | None, sm: torch.Tensor,
                    b: torch.Tensor, x0: torch.Tensor, rtol, *,
                    maxiter: int = 4000, rtol_wrt: str = "b",
-                   rline: bool = False):
+                   rline: bool = False, adi: bool = False,
+                   adi_flags: torch.Tensor | None = None):
     """Solve every lane to its tolerance; returns (x (B, Nz, Nr), iters (B,)
     int32 on the inputs' device). ``rtol`` is a float or a (B,) tensor (the
     refinement's per-lane guard: a lane at rtol ≥ 1 stops at its first
     check). ``Kv=None, dks=None``: the Kv-free form (A0 alone; ``sm`` may be
-    a shared (Nz, Nr) plane). CPU tensors take the plain version; CUDA
-    float32 tensors the kernel."""
+    a shared (Nz, Nr) plane). ``rline``: the r-line solve; ``adi``: the ADI
+    solve; ``adi_flags`` (B,) int32, the adaptive form: ADI in the lanes
+    whose flag is nonzero, r-line in the others (read on the device). CPU
+    tensors take the plain version; CUDA float32 tensors the kernel."""
     _check_rtol_wrt(rtol_wrt)
-    if _on_cpu(A0, Kv, dks, sm, b, x0):
+    _check_form(rline, adi, adi_flags)
+    if _on_cpu(A0, Kv, dks, sm, b, x0, adi_flags):
         return cg_batched_tol_reference(A0, Kv, dks, sm, b, x0, rtol,
                                         maxiter=maxiter, rtol_wrt=rtol_wrt,
-                                        rline=rline)
+                                        rline=rline, adi=adi,
+                                        adi_flags=adi_flags)
     lib = _library()
     B, _, _ = _check_batch(A0, Kv, dks, sm, {"b": b, "x0": x0})
     rtol_t = _rtol_lanes(rtol, B, torch.float32, b.device).contiguous()
+    flags = None
+    if adi_flags is not None:
+        if (adi_flags.shape != (B,) or adi_flags.device != b.device):
+            raise ValueError(f"adi_flags must be ({B},) on {b.device}")
+        flags = adi_flags.to(torch.int32).contiguous()
     solve = _Solve(lib, A0, Kv, dks, sm, b, x0, rtol_t, maxiter=maxiter,
-                   wrt_r0=rtol_wrt == "r0", rline=rline, fixed=False)
+                   wrt_r0=rtol_wrt == "r0",
+                   rline=rline or adi or flags is not None, fixed=False,
+                   adi=2 if flags is not None else int(adi), flags=flags)
     cg_batched_tol.launches += 1
     form = ("launches_no_kv" if Kv is None else
+            "launches_adaptive" if flags is not None else
+            "launches_adi" if adi else
             "launches_rline" if rline else "launches_identity")
     setattr(cg_batched_tol, form, getattr(cg_batched_tol, form) + 1)
     solve.start()
@@ -394,6 +454,8 @@ def cg_batched_tol(A0: torch.Tensor, Kv: torch.Tensor | None,
 cg_batched_tol.launches = 0
 cg_batched_tol.launches_identity = 0
 cg_batched_tol.launches_rline = 0
+cg_batched_tol.launches_adi = 0
+cg_batched_tol.launches_adaptive = 0
 cg_batched_tol.launches_no_kv = 0
 
 
@@ -519,6 +581,23 @@ def pcr_r(A0, Kv, dks, sm, r):
         _ptr(part), _ptr(lanes), B, nz, nr, nparts, _counts_ptr(),
         _stream()), "sweep pcr_r")
     return z, part[:, :nz].sum(dim=1)
+
+
+def pcr_z(A0, Kv, dks, sm, r, z_r):
+    """The z-line phase of the ADI form alone: (z = (R r + Z r − r)·free,
+    ⟨r, z⟩ per lane) given the r-line solve ``z_r`` = R r; the dots are
+    float64; ``z_r`` is left as it is."""
+    if _on_cpu(A0, Kv, dks, sm, r, z_r):
+        return pcr_z_reference(A0, Kv, dks, sm, r, z_r)
+    lib, B, nz, nr, nparts, lanes = _phase_setup({"r": r, "z_r": z_r}, A0,
+                                                 Kv, dks, sm)
+    z = z_r.clone()
+    part = torch.empty((B, nparts), dtype=torch.float64, device=r.device)
+    _check(lib.hf_sweep_pcr_z(
+        _ptr(A0), _ptr(Kv), _ptr(dks), _ptr(sm), int(sm.ndim == 3), _ptr(r),
+        _ptr(z), _ptr(part), _ptr(lanes), B, nz, nr, nparts, _counts_ptr(),
+        _stream()), "sweep pcr_z")
+    return z, part[:, :lib.hf_sweep_z_tiles(nz, nr)].sum(dim=1)
 
 
 def finalize(state, parts, mode: str, rtol=0.0, *, rline: bool,

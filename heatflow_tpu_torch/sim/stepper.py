@@ -31,6 +31,7 @@ from torch import nn
 from heatflow_tpu_torch.ops.cg import pcg, refine_inner_scale
 from heatflow_tpu_torch.ops.stencil import apply_stencil, combine_operator
 from heatflow_tpu_torch.sim.problem import Problem2D, band_average
+from heatflow_tpu_torch.utils import resolve_device
 
 
 @dataclass
@@ -316,7 +317,7 @@ class Simulator(nn.Module):
 def make_simulate_fn(problem: Problem2D,
                      *,
                      dtype: torch.dtype = torch.float64,
-                     device="cpu",
+                     device="cuda",
                      rtol: float = 1e-11,
                      maxiter: int = 20000,
                      fixed_iters: int | None = None,
@@ -335,7 +336,8 @@ def make_simulate_fn(problem: Problem2D,
                      inner_seed: str = "zero",
                      adaptive_thresh: int = 100) -> Simulator:
     """Build ``simulate(kappas, rho_cvs, fwhm, u0, t0, source)`` for
-    ``problem`` on ``device``.
+    ``problem`` on ``device`` (the card unless the caller passes
+    ``device='cpu'``; a missing card raises).
 
     ``f64_refine``: mixed-precision iterative refinement (``dtype`` must be
     float32). Each step's solve becomes N passes of: the residual against
@@ -380,7 +382,7 @@ def make_simulate_fn(problem: Problem2D,
         raise ValueError(f"unknown precondition {precondition!r}")
     if rtol_wrt not in ("r0", "b"):
         raise ValueError(f"unknown rtol_wrt {rtol_wrt!r}")
-    device = torch.device(device)
+    device = resolve_device(device)
     if f64_refine:
         if dtype != torch.float32:
             raise ValueError("f64_refine is the mixed-precision mode: dtype "
@@ -408,7 +410,7 @@ def make_simulate_fn(problem: Problem2D,
 
 
 def run_transient(problem: Problem2D, *, dtype: torch.dtype = torch.float64,
-                  device="cpu",
+                  device="cuda",
                   rtol: float = 1e-11, maxiter: int = 20000,
                   fixed_iters: int | None = None,
                   record_gradient: bool = True,
@@ -418,7 +420,8 @@ def run_transient(problem: Problem2D, *, dtype: torch.dtype = torch.float64,
                   inner_seed: str = "zero",
                   kappas=None, rho_cvs=None, fwhm=None,
                   u0=None, t0: float = 0.0, source=None) -> TransientResult:
-    """Build, run, and bring the results back to the host as numpy."""
+    """Build, run, and bring the results back to the host as numpy; on the
+    card unless ``device='cpu'``."""
     fn = make_simulate_fn(
         problem, dtype=dtype, device=device, rtol=rtol, maxiter=maxiter,
         fixed_iters=fixed_iters, record_gradient=record_gradient,

@@ -15,7 +15,10 @@ failure records).
 Two solvers: ``'vmem'`` runs each step's solve through the batched CUDA
 kernels of :mod:`heatflow_tpu_torch.ops.cuda_sweep` (their plain versions
 for CPU tensors), ``'xla'`` through the eager batched :func:`pcg` /
-:func:`pcg_fixed` with the per-lane freeze.
+:func:`pcg_fixed` with the per-lane freeze. One config alone
+(``make_sweep_fn(...).one_config``) runs a differentiable solve a step, the
+gradient-based fit's engine: the ``cg_tol`` kernel through
+:func:`cg_vmem_solve` (``'vmem'``), or :func:`pcg_solve` (``'xla'``).
 
 Recording sweeps (:func:`make_sweep_fn_recording`) also write the radial
 gradient of every lane each step: the r-weighted mass projection, solved for
@@ -26,16 +29,18 @@ or the eager stepper run once per lane (``'xla'``).
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
-from heatflow_tpu_torch.ops.cg import (_lane, pcg, pcg_fixed,
+from heatflow_tpu_torch.ops.cg import (_lane, pcg, pcg_fixed, pcg_solve,
                                        refine_inner_scale)
 from heatflow_tpu_torch.ops.stencil import (apply_combined, apply_stencil,
                                             combine_operator)
 from heatflow_tpu_torch.sim.problem import Problem2D, band_average
 from heatflow_tpu_torch.sim.stepper import interp, make_simulate_fn
+from heatflow_tpu_torch.utils import resolve_device
 
 
 def _not_ported(what: str, item: str):
@@ -43,10 +48,24 @@ def _not_ported(what: str, item: str):
                                f"yet (ROADMAP {item})")
 
 
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last two dims of each lane, in a fixed pairwise order: a
+    lane's sum does not depend on the batch it runs in (a CUDA reduction's
+    order follows the tensor's shape)."""
+    v = x.reshape(*x.shape[:-2], -1)
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        head = v[..., :h] + v[..., h:2 * h]
+        v = torch.cat([head, v[..., 2 * h:]], dim=-1) if v.shape[-1] % 2 \
+            else head
+    return v[..., 0]
+
+
 def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
                 base_k, extrapolate, make_solve, iters_out=None,
-                project=None):
-    """The batched backward-Euler loop shared by both solvers.
+                project=None, inplace=True):
+    """The batched backward-Euler loop shared by both solvers and by the
+    differentiable one-config run.
 
     ``make_solve(dks, s, sm)`` is called once per scan and returns
     ``solve(Bv, Y0) -> (X, iters)``, which solves the scaled system
@@ -54,7 +73,10 @@ def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
     u_fin, u_penultimate); the last two re-enter the next time chunk, so a
     chunked 'extrapolate' run is the unchunked trajectory. ``iters_out``, a
     list, receives each step's (B,) iteration counts; ``project(U)``, when
-    given, is called with each step's new fields."""
+    given, is called with each step's new fields. ``inplace=False`` forms
+    the right-hand side and the new fields out of place, with the same
+    bits, for autograd and ``torch.func`` (a batch of tangents cannot be
+    written into a tensor that carries none)."""
     device = ops["A0"].device
     free, dirich = ops["free"], ops["dirich"]
     A0, Kv = ops["A0"], ops["K_var"]
@@ -88,14 +110,20 @@ def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
     for n in range(num_steps):
         amp = interp(ts[n], ops["heat_t"], ops["heat_T"]) - amp_offset
         Bv = apply_stencil(ops["M_op"], U)
-        Bv -= Ag0 + amp * Ag1          # in place: one plane fewer a step
-        Bv *= sm
+        if inplace:
+            Bv -= Ag0 + amp * Ag1      # in place: one plane fewer a step
+            Bv *= sm
+        else:
+            Bv = (Bv - (Ag0 + amp * Ag1)) * sm
         seed = 2.0 * U - U_pp if extrapolate else U
         Y0 = seed / s * free
         X, iters = solve(Bv, Y0)
         del Bv, Y0, seed
         Un = X * sm
-        Un += g0 + amp * g1
+        if inplace:
+            Un += g0 + amp * g1
+        else:
+            Un = Un + (g0 + amp * g1)
         traces.append(Un.reshape(B, -1)[:, watch])
         if iters_out is not None:
             iters_out.append(iters)
@@ -109,8 +137,8 @@ def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
                     num_steps, base_k, fixed_iters, rtol, maxiter,
                     extrapolate, rline=False, adi=False, rtol_wrt="b",
                     f64_refine=0, record=None, proj_rtol=1e-11,
-                    proj_maxiter=400, adaptive=False, iters_out=None,
-                    proj_iters_out=None):
+                    proj_maxiter=400, adaptive=False, adaptive_thresh=100,
+                    iters_out=None, proj_iters_out=None):
     """Whole-batch backward-Euler loop with the batched kernels
     (:func:`cg_batched_tol`, or :func:`cg_batched` for ``fixed_iters``).
     ``ops`` holds the stencils A0/K_var/M_op, the masks free/dirich, r_sq,
@@ -126,6 +154,14 @@ def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
     float64 (the per-lane guard ``refine_inner_scale`` stops a lane whose
     residual is at float64 roundoff).
 
+    ``rline``: the r-line preconditioner; ``adi``: the split-additive ADI
+    one (r-line and z-line). ``adaptive``: per lane and step, the ADI form
+    for a lane whose previous step took more than ``adaptive_thresh``
+    iterations (under ``f64_refine``, its last inner pass), the r-line form
+    otherwise; the flags are formed on the device from the previous counts,
+    with no host read, and every lane starts at ``maxiter`` (the first step
+    of a scan, so of every time chunk, runs ADI).
+
     ``record``: a dict with the projection stencils ``Mp``/``Gr``, the
     scaling plane ``s_mp``, the band's ``band_slots``/``band_fill``/
     ``bin_counts`` (see :func:`band_average`) and the flat
@@ -138,14 +174,34 @@ def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
     W), band (B, S, n_bins), axis (B, S, Nz)}. ``proj_iters_out``, a list,
     receives each step's (B,) projection counts."""
     from heatflow_tpu_torch.ops.cuda_sweep import cg_batched, cg_batched_tol
-    if adi or adaptive:
-        raise _not_ported("the ADI and adaptive forms of the batched sweep "
-                          "kernel", "K2")
+    if adaptive and (rline or adi):
+        raise ValueError("adaptive replaces the static rline/adi flags")
+    if adaptive and fixed_iters is not None:
+        raise ValueError("the adaptive switch is tolerance-based (iteration "
+                         "counts drive it); drop fixed_iters")
     cdt = torch.float64 if f64_refine else dtype
     A0, Kv = ops["A0"], ops["K_var"]
     c32 = lambda t: t.to(dtype).contiguous()
 
     def make_solve(dks, s, sm):
+        # adaptive: the previous step's per-lane counts, cold start maxiter
+        its_prev = torch.full(dks.shape, maxiter, dtype=torch.int32,
+                              device=dks.device)
+
+        def form():
+            if not adaptive:
+                return dict(rline=rline, adi=adi)
+            return dict(adi_flags=(its_prev > adaptive_thresh)
+                        .to(torch.int32))
+
+        def adapt(solve):
+            def run(Bv, Y0):
+                nonlocal its_prev
+                X, its = solve(Bv, Y0)
+                its_prev = its
+                return X, its
+            return run if adaptive else solve
+
         if f64_refine:
             # float32 casts of the scaled system for the correction solves;
             # the float64 operator computes only the residuals
@@ -153,17 +209,20 @@ def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
 
             def solve(Bv, Y0):
                 # a residual at f64 roundoff of the step's rhs has nothing
-                # left to correct: rtol_eff = 2 stops that lane at once
-                floor2 = 1e-30 * (Bv * Bv).sum(dim=(1, 2))
+                # left to correct: rtol_eff = 2 stops that lane at once.
+                # Per-lane sums in a fixed order: a lane's bits do not
+                # depend on the batch
+                floor2 = 1e-30 * lane_sum(Bv * Bv)
                 Y = Y0
                 Z0 = torch.zeros(Bv.shape, dtype=dtype, device=Bv.device)
+                kw = form()      # one switch a step, for every pass
                 for _ in range(f64_refine):
                     R = Bv - sm * apply_combined(A0, Kv, dks, sm * Y)
                     rnorm, rtol_eff = refine_inner_scale(
-                        (R * R).sum(dim=(1, 2)), floor2, rtol, dtype)
+                        lane_sum(R * R), floor2, rtol, dtype)
                     dY, its = cg_batched_tol(
                         *k32, c32(R / _lane(rnorm)), Z0, rtol_eff,
-                        maxiter=maxiter, rtol_wrt="b", rline=rline)
+                        maxiter=maxiter, rtol_wrt="b", **kw)
                     Y = Y + dY.to(cdt) * _lane(rnorm)
                 return Y, its
         elif fixed_iters is not None:
@@ -175,8 +234,8 @@ def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
             def solve(Bv, Y0):
                 return cg_batched_tol(A0, Kv, dks, sm, Bv, Y0, rtol,
                                       maxiter=maxiter, rtol_wrt=rtol_wrt,
-                                      rline=rline)
-        return solve
+                                      **form())
+        return adapt(solve)
 
     project, rows = None, {}
     if record is not None:
@@ -277,21 +336,29 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                   precondition: str = "jacobi",
                   num_steps: int | None = None, mesh=None,
                   solver: str = "xla", warm_start: str = "previous",
-                  rtol_wrt: str = "b", f64_refine: int = 0, device="cpu"):
+                  rtol_wrt: str = "b", f64_refine: int = 0, device="cuda"):
     """Build ``simulate_batch(sample_k (B,), fwhm (B,)) -> traces (B, S, W)``
-    (a tensor on ``device``).
+    (a tensor on ``device``: the card unless the caller passes
+    ``device='cpu'``; a missing card raises).
 
     ``simulate_batch.segment(ks, fs, u0, step0, u_pp=None, iters_out=None)``
     also returns the final and penultimate fields, for time-chunked runs
     with exact warm-start history across chunks (set ``num_steps`` to the
     chunk length); ``iters_out``, a list, receives each step's (B,) CG
-    iteration counts. ``simulate_batch.one_config(k, f)`` runs one config.
+    iteration counts. ``simulate_batch.one_config(k, f)`` runs one config
+    and is differentiable in ``k`` and ``f`` (reverse and forward mode):
+    each step is one implicitly differentiated solve, through the
+    ``cg_tol`` kernel (:func:`cg_vmem_solve`) with ``solver='vmem'`` (float32
+    on a card, any dtype on the CPU; 'rline' and 'adaptive' run the r-line
+    stack, 'adi' both stacks, packed per call), else through
+    :func:`pcg_solve`. The batch path runs without autograd.
 
     ``solver='vmem'``: the batched CUDA kernels (K2 tolerance form, K3 for
     ``fixed_iters``), which the plain versions stand in for on CPU
-    tensors; ``precondition`` 'jacobi' (scaled identity) or 'rline'.
-    ``solver='xla'``: the eager batched PCG; 'jacobi', 'rline', 'zline' or
-    'adi'.
+    tensors; ``precondition`` 'jacobi' (scaled identity), 'rline', 'adi'
+    (r-line + z-line) or 'adaptive' (the per-lane, per-step r-line/ADI
+    switch). ``solver='xla'``: the eager batched PCG; 'jacobi', 'rline',
+    'zline' or 'adi'.
 
     ``rtol_wrt``: 'b' stops each solve at ‖r‖ ≤ rtol·‖b‖, 'r0' at
     rtol·‖r0‖. ``warm_start='extrapolate'`` seeds each step with
@@ -305,7 +372,7 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         raise _not_ported("sweeps over unstructured problems", "P9")
     if f64_refine:
         rtol_wrt = "b"   # the refined inner solves stop wrt their own rhs
-    device = torch.device(device)
+    device = resolve_device(device)
     n_steps = int(problem.num_steps if num_steps is None else num_steps)
     cache_key = ("sweep_fn", vary_material, str(dtype), rtol, maxiter,
                  fixed_iters, precondition, n_steps, mesh, solver,
@@ -341,15 +408,26 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         if fixed_iters is not None:
             raise ValueError("f64_refine composes with the tolerance-based "
                              "solve (drop fixed_iters)")
+        if precondition == "adi":
+            # the refined inner solves stop wrt 'b', the loose regime where
+            # ADI's loosely stopped iterates carry ~20x the solution error of
+            # jacobi/rline at the same ||r|| (the JAX package's
+            # cg_vmem_batched_tol), and the last pass is never re-checked
+            warnings.warn(
+                "precondition='adi' with f64_refine: the last refinement "
+                "pass's adi correction error is unchecked (inner solves "
+                "stop wrt 'b', the regime where adi carries ~20x the "
+                "equal-rtol solution error); prefer precondition='rline' "
+                "for refined sweeps", stacklevel=2)
     if solver == "vmem":
-        if precondition in ("adi", "adaptive"):
-            raise _not_ported(f"precondition={precondition!r} in the batched "
-                              "sweep kernel", "K2")
         if precondition == "zline":
             raise ValueError("solver='vmem' supports precondition='jacobi' "
-                             "(scaled identity) or 'rline' (r-line PCR)")
-        if precondition == "rline" and fixed_iters is not None:
-            raise ValueError("rline-preconditioned vmem sweeps are "
+                             "(scaled identity), 'rline' (r-line PCR), 'adi' "
+                             "(r-line + z-line) or 'adaptive' (per-lane "
+                             "per-step rline/adi switch)")
+        if precondition in ("rline", "adi", "adaptive") \
+                and fixed_iters is not None:
+            raise ValueError(f"{precondition}-preconditioned vmem sweeps are "
                              "tolerance-based (drop fixed_iters)")
 
     wdt = torch.float64 if f64_refine else dtype
@@ -365,7 +443,9 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                 return vmem_sweep_scan(
                     ops, ks, fs, u0, u_pp, step0, dtype=dtype,
                     fixed_iters=fixed_iters, rtol=rtol, maxiter=maxiter,
-                    rline=precondition == "rline", rtol_wrt=rtol_wrt,
+                    rline=precondition == "rline",
+                    adi=precondition == "adi",
+                    adaptive=precondition == "adaptive", rtol_wrt=rtol_wrt,
                     f64_refine=f64_refine, **kw)
             make_solve = _xla_solver(ops, precondition=precondition,
                                      fixed_iters=fixed_iters, rtol=rtol,
@@ -390,9 +470,73 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         u_pp = u0 if u_pp is None else u_pp
         return core(sample_k, fwhm, u0, u_pp, int(step0), iters_out)
 
+    # one config rides the cg_tol kernel when the batch rides K2 (float32 on
+    # a card; the plain version on the CPU); f64_refine keeps its plain
+    # float64 solve, a fixed budget the pcg_fixed trajectory
+    vmem_one = (solver == "vmem" and fixed_iters is None and not f64_refine
+                and (device.type == "cpu" or dtype == torch.float32))
+
+    def one_config(sample_k, fwhm):
+        """Traces (S, W) of one config, differentiable in ``sample_k`` and
+        ``fwhm`` (0-d tensors that require grad or carry tangents): the
+        batch loop for one lane, out of place, with each step's solve
+        implicitly differentiated."""
+        from heatflow_tpu_torch.ops.cuda_cg import cg_vmem_solve, pcr_pack
+        from heatflow_tpu_torch.ops.linesolve import (adi_preconditioner,
+                                                      line_preconditioner)
+        A0, Kv, free = ops["A0"], ops["K_var"], ops["free"]
+
+        def make_solve(dks, s, sm):
+            # the preconditioner only steers the solve: never differentiated
+            s_d, dks_d = s.detach(), dks.detach()
+            if vmem_one:
+                A_full = A0 + dks[0] * Kv
+                stacks = {}
+                if precondition in ("rline", "adi", "adaptive"):
+                    # 'adaptive' has no per-step switch here (one solve a
+                    # call): it runs the static r-line stack
+                    stacks["pcr"] = pcr_pack(A_full.detach(), s_d[0], free)
+                if precondition == "adi":
+                    stacks["pcr_z"] = pcr_pack(A_full.detach(), s_d[0], free,
+                                               axis=-2)
+
+                def solve(Bv, Y0):
+                    return cg_vmem_solve(A_full, sm[0], Bv[0], Y0[0], rtol,
+                                         maxiter=maxiter, rtol_wrt=rtol_wrt,
+                                         **stacks)[None], None
+                return solve
+
+            pre = None
+            if precondition == "adi":
+                pre = adi_preconditioner(A0, s_d, free, Kv=Kv, dk=dks_d)
+            elif precondition in ("rline", "zline"):
+                pre = line_preconditioner(
+                    A0, s_d, free, axis=-1 if precondition == "rline" else -2,
+                    Kv=Kv, dk=dks_d)
+            op = lambda y, sm, dks: sm * apply_combined(A0, Kv, dks, sm * y)
+
+            def solve(Bv, Y0):
+                if fixed_iters is not None:
+                    return pcg_fixed(lambda y: op(y, sm, dks), Bv, Y0,
+                                     precond=pre, mask=free,
+                                     iters=fixed_iters).x, None
+                return pcg_solve(op, Bv, Y0, op_args=(sm, dks), precond=pre,
+                                 mask=free, rtol=rtol, maxiter=maxiter,
+                                 rtol_wrt=rtol_wrt), None
+            return solve
+
+        lane = lambda v: torch.as_tensor(v, dtype=wdt,
+                                         device=device).reshape(1)
+        u0 = torch.full((1, nz, nr), float(problem.ic_temp), dtype=wdt,
+                        device=device)
+        traces, _, _ = _sweep_scan(
+            ops, lane(sample_k), lane(fwhm), u0, u0, 0, cdt=wdt, ic=ic, dt=dt,
+            num_steps=n_steps, base_k=base_k, extrapolate=extrapolate,
+            make_solve=make_solve, inplace=False)
+        return traces[0]
+
     simulate_batch.segment = segment
-    simulate_batch.one_config = \
-        lambda k, f: simulate_batch(np.array([k]), np.array([f]))[0]
+    simulate_batch.one_config = one_config
     simulate_batch.shape = (nz, nr)
     simulate_batch.ic_temp = float(problem.ic_temp)
     simulate_batch.dt = float(problem.dt)
@@ -425,9 +569,6 @@ def _recording_vmem(problem: Problem2D, *, vary_material, dtype, rtol,
             and fixed_iters is not None:
         raise ValueError(f"{precondition}-preconditioned vmem sweeps are "
                          "tolerance-based (drop fixed_iters)")
-    if precondition in ("adi", "adaptive"):
-        raise _not_ported(f"precondition={precondition!r} in the batched "
-                          "sweep kernel", "K2")
     nz, nr = problem.mesh.shape
     wdt = torch.float64 if f64_refine else dtype
     ops, base_k, dt, ic, dev = _sweep_ops(problem, vary_material, wdt,
@@ -451,7 +592,8 @@ def _recording_vmem(problem: Problem2D, *, vary_material, dtype, rtol,
                 num_steps=int(problem.num_steps), base_k=base_k,
                 fixed_iters=fixed_iters, rtol=rtol, maxiter=maxiter,
                 extrapolate=warm_start == "extrapolate",
-                rline=precondition == "rline", rtol_wrt=rtol_wrt,
+                rline=precondition == "rline", adi=precondition == "adi",
+                adaptive=precondition == "adaptive", rtol_wrt=rtol_wrt,
                 f64_refine=f64_refine, record=record, proj_rtol=proj_rtol,
                 proj_maxiter=proj_maxiter, iters_out=iters_out,
                 proj_iters_out=proj_iters_out)[0]
@@ -505,25 +647,26 @@ def make_sweep_fn_recording(problem: Problem2D, *,
                             solver: str = "xla",
                             precondition: str = "jacobi",
                             proj_rtol: float = 1e-11,
-                            proj_maxiter: int = 400, device="cpu"):
+                            proj_maxiter: int = 400, device="cuda"):
     """Full-surface sweep: every lane also records the reference's radial
     gradient rows each step (ref parameter_sweep.py:157-166 →
     run_no_diamond.py:602-617), the per-step r-weighted projection of the
     2D stepper. Returns ``simulate_batch(ks, fs, iters_out=None,
     proj_iters_out=None)`` -> dict with ``watch`` (B, S, W), ``band`` (B, S,
-    n_bins), ``axis`` (B, S, Nz) tensors on ``device`` and the host
-    ``times``; ``iters_out`` / ``proj_iters_out``, lists, receive each
-    step's (B,) solve / projection iteration counts.
+    n_bins), ``axis`` (B, S, Nz) tensors on ``device`` (the card unless the
+    caller passes ``device='cpu'``) and the host ``times``; ``iters_out`` /
+    ``proj_iters_out``, lists, receive each step's (B,) solve / projection
+    iteration counts.
 
     ``solver='vmem'``: solve and projection through the batched kernels
-    (their plain versions on the CPU); ``'jacobi'`` or ``'rline'``.
-    ``solver='xla'``: the eager stepper once per lane.
+    (their plain versions on the CPU); ``'jacobi'``, ``'rline'``, ``'adi'``
+    or ``'adaptive'``. ``solver='xla'``: the eager stepper once per lane.
 
     Memoized on ``problem.extras`` keyed by every argument.
     """
     if f64_refine:
         rtol_wrt = "b"   # no effect on the refined inner solves
-    device = torch.device(device)
+    device = resolve_device(device)
     cache_key = ("sweep_fn_rec", vary_material, str(dtype), rtol, maxiter,
                  fixed_iters, warm_start, mesh, rtol_wrt, f64_refine, solver,
                  precondition, proj_rtol, proj_maxiter, str(device))
@@ -575,10 +718,11 @@ def run_sweep_time_chunked(problem: Problem2D, sample_k, fwhm, *,
                            solver: str = "xla",
                            warm_start: str = "previous",
                            rtol_wrt: str = "b", f64_refine: int = 0,
-                           device="cpu", iters_out=None) -> np.ndarray:
+                           device="cuda", iters_out=None) -> np.ndarray:
     """The full transient of a (possibly very large) batch, integrated in
     time chunks of at most ``step_chunk`` steps (ceil-balanced), the whole
-    batch resident on ``device``. Returns traces (B, num_steps, W) as numpy.
+    batch resident on ``device`` (the card unless the caller passes
+    ``device='cpu'``). Returns traces (B, num_steps, W) as numpy.
 
     ``warm_start='extrapolate'`` is exact across chunk boundaries: each
     chunk's penultimate field enters the next, so the chunked trajectory
@@ -624,7 +768,7 @@ def normalized_oside_residuals(times, traces, exp_time, exp_oside_normed,
     traces (..., S, W) -> residuals (..., N_exp), as a tensor. A flat p-side
     trace has no normalization scale and gives +inf residuals."""
     traces = torch.as_tensor(traces)
-    as_t = lambda v: torch.as_tensor(np.asarray(v), dtype=traces.dtype,
+    as_t = lambda v: torch.tensor(np.asarray(v), dtype=traces.dtype,
                                      device=traces.device)
     pside = traces[..., pside_col]
     oside = traces[..., oside_col]

@@ -1,5 +1,6 @@
-"""Small shared utilities: profiling, timing, batch padding and the
-drivers' per-regime preconditioner default."""
+"""Small shared utilities: the device an entry point runs on, profiling,
+timing, batch padding and the drivers' per-regime preconditioner
+default."""
 
 from __future__ import annotations
 
@@ -9,6 +10,20 @@ import time
 
 import numpy as np
 import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a torch device. The entry points run on the card unless
+    the caller asks for the CPU: a CUDA device must exist (there is no quiet
+    fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available (pass device='cpu', or --device cpu "
+                           "on a command line, to run on the CPU)")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
 
 
 @contextlib.contextmanager

@@ -316,3 +316,43 @@ def test_recording_sweep_on_cuda_launches_the_kernels(cfg, tmp_path):
     steps = cfg["timing"]["num_steps"]
     assert cuda_sweep.cg_batched_tol.launches_rline == steps
     assert cuda_sweep.cg_batched_tol.launches_no_kv == steps
+
+
+def test_sweep_solver_routes_by_preconditioner():
+    """'auto' sends float32 on a card to the batched kernels for every form
+    they have (ADI included) and a preconditioner they lack to the eager
+    path; the float64 CPU default stays eager."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    kw = dict(f64_refine=0, record_gradient=False)
+    route = lambda pre, dev=cuda, dt=torch.float32: tsweep._resolve_solver(
+        "auto", dtype=dt, device=dev, precondition=pre, **kw)
+    assert [route(p) for p in ("jacobi", "rline", "adi", "adaptive")] == \
+        ["vmem"] * 4
+    assert route("mg") == route("zline") == "xla"
+    assert route("adi", cpu, torch.float64) == "xla"
+    assert tsweep._resolve_solver("vmem", dtype=torch.float64, device=cpu,
+                                  precondition="adi", **kw) == "vmem"
+
+
+def test_sweep_with_adi_on_the_batched_kernel(cfg, tmp_path):
+    """``--precondition adi`` with the kernels' solver (their plain versions
+    on the CPU): every run succeeds, and its traces are those of the eager
+    ADI sweep within the float64 solve tolerance."""
+    w = float(cfg["mats"]["p_sample"]["z"])
+    runs = {}
+    for solver in ("vmem", "xla"):
+        out = tmp_path / solver
+        results, failed = tsweep.run_parameter_sweep(
+            cfg, str(out), (4e-6, 8e-6), (2.0, 6.0), (w, w), (1, 2, 1),
+            base_mesh_folder=str(tmp_path / "m"), solver=solver,
+            precondition="adi", rtol=1e-10, device="cpu")
+        assert len(results) == 2 and not failed
+        runs[solver] = {r["run_name"]: read_watcher_csv(
+            str(out / r["run_name"] / "watcher_points.csv")) for r in results}
+        meta = json.load(open(out / "sweep_metadata.json"))
+        assert meta["precondition"] == "adi"
+        assert set(meta["solver_resolved"].values()) == {solver}
+    for name, cols in runs["vmem"].items():
+        for key, v in cols.items():
+            want = runs["xla"][name][key]
+            assert np.abs(v - want).max() <= 1e-8 * np.abs(want).max()

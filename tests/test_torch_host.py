@@ -95,7 +95,7 @@ problem = build_problem(mesh, HeatingCurve.from_csv({FLAGSHIP_CSV!r}), cfg,
 ys = make_simulate_fn(problem, dtype=torch.float32, rtol=1e-4, maxiter=8000,
                       record_gradient=False, solver="vmem",
                       precondition="adaptive", warm_start="extrapolate",
-                      f64_refine=1)()
+                      f64_refine=1, device="cpu")()
 assert torch.isfinite(ys["watch"]).all()
 assert _build._lib is None
 bad = [m for m in sys.modules

@@ -118,7 +118,8 @@ def test_recording_matches_jax_f64(pair, solver, precondition, warm_start):
               warm_start=warm_start)
     want = jsw.make_sweep_fn_recording(pj, dtype=jnp.float64, **kw)(KS, FS)
     its, pits = [], []
-    got = tsw.make_sweep_fn_recording(pt, dtype=torch.float64, **kw)(
+    got = tsw.make_sweep_fn_recording(pt, dtype=torch.float64, **kw,
+                                      device="cpu")(
         KS, FS, iters_out=its, proj_iters_out=pits)
     assert all(got[k].dtype == torch.float64 for k in FAMS)
     assert got["band"].shape == (3, pt.num_steps, len(pt.radial.bin_counts))
@@ -140,7 +141,7 @@ def test_f64_refine_recording(pair):
     kw = dict(rtol=1e-6, maxiter=2000, f64_refine=2, solver="vmem",
               warm_start="extrapolate", precondition="rline")
     got = _families(tsw.make_sweep_fn_recording(pt, dtype=torch.float32,
-                                                **kw)(KS, FS))
+                                                **kw, device="cpu")(KS, FS))
     assert got["watch"].dtype == np.float64
     assert got["band"].dtype == np.float32    # the float32 projection
     want = _families(jsw.make_sweep_fn_recording(pj, dtype=jnp.float32,
@@ -148,7 +149,8 @@ def test_f64_refine_recording(pair):
     tol = dict(watch=1e-9, band=1e-4, axis=1e-3)
     _close(got, want, tol)
     truth = _families(tsw.make_sweep_fn_recording(
-        pt, dtype=torch.float64, rtol=1e-12, solver="vmem")(KS, FS))
+        pt, dtype=torch.float64, rtol=1e-12, solver="vmem",
+        device="cpu")(KS, FS))
     _close(got, truth, tol)
 
 
@@ -168,11 +170,11 @@ def test_f32_default_recipe_matches_jax(pair):
     kw = dict(rtol=1e-5, solver="vmem", precondition="rline",
               warm_start="extrapolate", proj_rtol=1e-11)
     got = _families(tsw.make_sweep_fn_recording(pt, dtype=torch.float32,
-                                                **kw)(KS, FS))
+                                                **kw, device="cpu")(KS, FS))
     want = _families(jsw.make_sweep_fn_recording(pj, dtype=jnp.float32,
                                                  **kw)(KS, FS))
     ref = _families(tsw.make_sweep_fn_recording(pt, dtype=torch.float64,
-                                                **kw)(KS, FS))
+                                                **kw, device="cpu")(KS, FS))
     ref_j = _families(jsw.make_sweep_fn_recording(pj, dtype=jnp.float64,
                                                   **kw)(KS, FS))
     _close(ref, ref_j, F64_TOL)
@@ -191,7 +193,7 @@ def test_f32_default_recipe_matches_jax(pair):
 def test_nan_lane_poisons_only_itself(pair, solver):
     _, pt = pair
     fn = tsw.make_sweep_fn_recording(pt, dtype=torch.float64, rtol=1e-8,
-                                     solver=solver)
+                                     solver=solver, device="cpu")
     ys = _families(fn(np.array([4.0, np.nan, 7.0]), np.full(3, 6e-6)))
     for k in FAMS:
         assert np.isnan(ys[k][1]).all(), k
@@ -203,25 +205,37 @@ def test_nan_lane_poisons_only_itself(pair, solver):
 
 def test_recording_memo_metadata_and_rejections(pair):
     _, pt = pair
-    fn = tsw.make_sweep_fn_recording(pt, dtype=torch.float64, rtol=1e-9)
+    fn = tsw.make_sweep_fn_recording(pt, dtype=torch.float64, rtol=1e-9,
+                                     device="cpu")
     assert tsw.make_sweep_fn_recording(pt, dtype=torch.float64,
-                                       rtol=1e-9) is fn
+                                       rtol=1e-9, device="cpu") is fn
     assert tsw.make_sweep_fn_recording(pt, dtype=torch.float64, rtol=1e-9,
-                                       solver="vmem") is not fn
+                                       solver="vmem", device="cpu") is not fn
     np.testing.assert_array_equal(fn.band_centers, pt.radial.bin_centers)
     np.testing.assert_array_equal(fn.axis_z, pt.radial.axis_z)
     assert fn.watcher_names == list(pt.watcher_names)
     for kw, err, match in (
-            (dict(solver="vmem", precondition="adaptive"),
-             NotImplementedError, "ROADMAP K2"),
-            (dict(solver="vmem", precondition="adi"), NotImplementedError,
-             "ROADMAP K2"),
             (dict(mesh=object()), NotImplementedError, "ROADMAP P11"),
             (dict(solver="vmem", precondition="rline", fixed_iters=5),
              ValueError, "tolerance-based"),
             (dict(solver="tpu"), ValueError, "solver")):
         with pytest.raises(err, match=match):
-            tsw.make_sweep_fn_recording(pt, **kw)
+            tsw.make_sweep_fn_recording(pt, **kw, device="cpu")
+
+
+@pytest.mark.parametrize("precondition", ["adi", "adaptive"])
+def test_recording_vmem_adi_forms_match_jax(pair, precondition):
+    """Recording sweeps with K2's ADI and adaptive forms (the plain versions
+    here, the Pallas kernel in interpret mode there): every family within
+    1e-9 of the JAX package's in float64."""
+    pj, pt = pair
+    kw = dict(rtol=1e-10, solver="vmem", precondition=precondition,
+              warm_start="extrapolate")
+    want = _families(jsw.make_sweep_fn_recording(pj, dtype=jnp.float64,
+                                                 **kw)(KS, FS))
+    got = _families(tsw.make_sweep_fn_recording(pt, dtype=torch.float64,
+                                                **kw, device="cpu")(KS, FS))
+    _close(got, want, 1e-9)
 
 
 def test_band_average_is_the_binned_mean(pair):

@@ -81,7 +81,7 @@ def _dac_pair(num_steps=12, size_scale=16.0):
 @pytest.fixture(scope="module")
 def tiny_runs():
     pj, pt = _tiny_pair()
-    return j_run(pj, rtol=1e-13), t_run(pt, rtol=1e-13)
+    return j_run(pj, rtol=1e-13), t_run(pt, rtol=1e-13, device="cpu")
 
 
 def test_f64_default_path_matches_jax(tiny_runs):
@@ -115,7 +115,7 @@ def test_f64_line_preconditioned_paths_match_jax(precondition):
     kw = dict(rtol=1e-12, precondition=precondition, record_gradient=True,
               warm_start="extrapolate")
     yj = j_make(pj, **kw)()
-    yt = t_make(pt, **kw)()
+    yt = t_make(pt, **kw, device="cpu")()
     for name in ("watch", "band", "axis", "final_u"):
         assert rel_l2(yt[name].numpy(), yj[name]) < 1e-8, name
     np.testing.assert_array_equal(yt["cg_iters"].numpy(), yj["cg_iters"])
@@ -150,7 +150,8 @@ def dac_runs():
             return orig_ref(*a, **kw)
 
         with mock.patch.object(cuda_cg, "cg_tol_reference", spy):
-            yt = t_make(pt, dtype=torch.float32, rtol=rtol, **RECIPE)()
+            yt = t_make(pt, dtype=torch.float32, rtol=rtol, **RECIPE,
+                        device="cpu")()
         out[rtol] = (yj, yt, forms)
     return out
 
@@ -188,15 +189,16 @@ def test_recipe_switches_adi_then_rline(dac_runs):
 def test_auto_resolves_to_eager_on_cpu():
     _, pt = _tiny_pair()
     fn = t_make(pt, dtype=torch.float32, solver="auto", rtol=1e-5,
-                record_gradient=False)
+                record_gradient=False, device="cpu")
     assert fn.use_vmem is False
     with pytest.raises(ValueError, match="adaptive"):
         t_make(pt, dtype=torch.float32, solver="auto",
-               precondition="adaptive")
+               precondition="adaptive", device="cpu")
     with pytest.raises(ValueError, match="zline"):
-        t_make(pt, dtype=torch.float32, solver="vmem", precondition="zline")
+        t_make(pt, dtype=torch.float32, solver="vmem", precondition="zline",
+               device="cpu")
     with pytest.raises(ValueError, match="float32"):
-        t_make(pt, dtype=torch.float64, f64_refine=1)
+        t_make(pt, dtype=torch.float64, f64_refine=1, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [
@@ -209,14 +211,14 @@ def test_auto_resolves_to_eager_on_cpu():
 def test_unported_options_raise(kw):
     _, pt = _tiny_pair()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_make(pt, **kw)
+        t_make(pt, **kw, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["make_step_fn", "pcg_solve"])
+@pytest.mark.parametrize("name", ["make_step_fn", "plot_temperature_curves"])
 def test_unported_functions_raise(name):
-    from heatflow_tpu_torch.ops import cg
+    from heatflow_tpu_torch.analysis import compare
     from heatflow_tpu_torch.sim import stepper
-    fn = getattr(stepper if name == "make_step_fn" else cg, name)
+    fn = getattr(stepper if name == "make_step_fn" else compare, name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fn(None)
 
@@ -226,8 +228,9 @@ def test_simulate_module_fields_and_overrides():
     like the JAX function, records fields, and is memoized per problem."""
     pj, pt = _tiny_pair()
     kw = dict(rtol=1e-12, record_gradient=False, record_fields=True)
-    fn = t_make(pt, **kw)
-    assert isinstance(fn, torch.nn.Module) and t_make(pt, **kw) is fn
+    fn = t_make(pt, **kw, device="cpu")
+    assert isinstance(fn, torch.nn.Module) and t_make(pt, **kw,
+                                                      device="cpu") is fn
     assert fn.K.dtype == torch.float64
     rng = np.random.default_rng(11)
     kappas = pt.kappas * rng.uniform(0.8, 1.2, len(pt.kappas))

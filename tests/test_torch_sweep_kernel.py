@@ -133,6 +133,55 @@ def test_tol_plain_matches_pallas_interpret(batch, rline, rtol_wrt):
     assert _rel(xt.numpy(), batch["x_true"]) <= 1e-8
 
 
+@pytest.mark.parametrize("rtol_wrt", ["r0", "b"])
+@pytest.mark.parametrize("form", ["adi", "adaptive"])
+def test_tol_adi_forms_match_pallas_interpret(batch, form, rtol_wrt):
+    """K2's ADI form (every lane) and adaptive form (lanes 0 and 2 ADI,
+    lane 1 r-line): the plain version against the Pallas kernel, per-lane
+    counts equal."""
+    t, j = _t(batch), _j(batch)
+    flags = np.array([1, 0, 1], dtype=np.int32)
+    kj = (dict(adi=True) if form == "adi" else
+          dict(adi_flags=jnp.asarray(flags)))
+    kt = (dict(adi=True) if form == "adi" else
+          dict(adi_flags=torch.tensor(flags)))
+    xj, ij = cg_vmem_batched_tol(*_args(j), 1e-11, maxiter=20000,
+                                 rtol_wrt=rtol_wrt, interpret=True,
+                                 merged=False, **kj)
+    xt, it = cuda_sweep.cg_batched_tol(*_args(t), 1e-11, maxiter=20000,
+                                       rtol_wrt=rtol_wrt, **kt)
+    assert it.tolist() == np.asarray(ij).tolist()
+    assert _rel(xt.numpy(), xj) <= X_TOL
+    assert _rel(xt.numpy(), batch["x_true"]) <= 1e-8
+
+
+def test_adaptive_lanes_equal_static_lanes_bitwise(batch):
+    """A flagged lane of the adaptive form is the ADI solve's lane bitwise,
+    an unflagged one the r-line solve's (iterates and counts)."""
+    t = _t(batch)
+    rtol = torch.tensor([1e-9, 1e-11, 1e-10])
+    kw = dict(maxiter=20000, rtol_wrt="r0")
+    x_a, i_a = cuda_sweep.cg_batched_tol(
+        *_args(t), rtol, adi_flags=torch.tensor([1, 0, 1], dtype=torch.int32),
+        **kw)
+    x_adi, i_adi = cuda_sweep.cg_batched_tol(*_args(t), rtol, adi=True, **kw)
+    x_r, i_r = cuda_sweep.cg_batched_tol(*_args(t), rtol, rline=True, **kw)
+    for lane, (x_s, i_s) in ((0, (x_adi, i_adi)), (1, (x_r, i_r)),
+                             (2, (x_adi, i_adi))):
+        assert torch.equal(x_a[lane], x_s[lane]), lane
+        assert int(i_a[lane]) == int(i_s[lane]), lane
+    assert i_adi.tolist() != i_r.tolist()
+
+
+def test_adi_form_checks(batch):
+    t = _t(batch)
+    with pytest.raises(ValueError, match="exclusive"):
+        cuda_sweep.cg_batched_tol(*_args(t), 1e-6, rline=True, adi=True)
+    with pytest.raises(ValueError, match="replaces"):
+        cuda_sweep.cg_batched_tol(*_args(t), 1e-6, adi=True,
+                                  adi_flags=torch.ones(3, dtype=torch.int32))
+
+
 @pytest.mark.parametrize("rline", [False, True], ids=["identity", "rline"])
 def test_tol_per_lane_rtol_and_nan_lane(batch, rline):
     """Lane 1 at rtol 2 stops at 0 iterations with x = x0; lane 2 has a NaN
@@ -208,6 +257,21 @@ def test_phase_references_match_the_eager_ops(batch):
     z, rz = cuda_sweep.pcr_r(t["A0"], t["Kv"], t["dks"], t["sm"], p)
     pre = tls.line_preconditioner(t["A0"], t["s"], t["free"], Kv=t["Kv"],
                                   dk=t["dks"])
+    assert _rel(z.numpy(), pre(p).numpy()) <= 1e-12
+    assert np.allclose(rz.numpy(), (p * z).sum(dim=(1, 2)).numpy(),
+                       rtol=1e-13)
+
+
+def test_pcr_z_reference_is_the_adi_composition(batch):
+    """The plain z-line phase, fed the r-line solve, gives the ADI
+    preconditioner R r + Z r − r of the folded line solves, per lane."""
+    t = _t(batch)
+    p = torch.tensor(np.random.default_rng(9).standard_normal(
+        batch["b"].shape)) * t["free"]
+    z_r, _ = cuda_sweep.pcr_r(t["A0"], t["Kv"], t["dks"], t["sm"], p)
+    z, rz = cuda_sweep.pcr_z(t["A0"], t["Kv"], t["dks"], t["sm"], p, z_r)
+    pre = tls.adi_preconditioner(t["A0"], t["s"], t["free"], Kv=t["Kv"],
+                                 dk=t["dks"])
     assert _rel(z.numpy(), pre(p).numpy()) <= 1e-12
     assert np.allclose(rz.numpy(), (p * z).sum(dim=(1, 2)).numpy(),
                        rtol=1e-13)
@@ -361,7 +425,8 @@ def test_counters_do_not_move_on_cpu(batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["identity", "rline", "fixed"])
+@pytest.mark.parametrize("form", ["identity", "rline", "fixed", "adi",
+                                  "adaptive"])
 def test_cuda_kernels_match_plain(batch, form):
     """The CUDA kernels in float32 against the plain versions on the card."""
     if not torch.cuda.is_available():
@@ -374,7 +439,11 @@ def test_cuda_kernels_match_plain(batch, form):
         xp = cuda_sweep.cg_batched_reference(*_args(g), iters=40)
         assert cuda_sweep.cg_batched.launches == 1
     else:
-        kw = dict(maxiter=5000, rline=form == "rline")
+        kw = {"identity": {}, "rline": dict(rline=True),
+              "adi": dict(adi=True),
+              "adaptive": dict(adi_flags=torch.tensor(
+                  [1, 0, 1], dtype=torch.int32, device="cuda"))}[form]
+        kw["maxiter"] = 5000
         xk, ik = cuda_sweep.cg_batched_tol(*_args(g), 1e-5, **kw)
         xp, ip = cuda_sweep.cg_batched_tol_reference(*_args(g), 1e-5, **kw)
         assert getattr(cuda_sweep.cg_batched_tol, f"launches_{form}") == 1
@@ -421,6 +490,10 @@ def test_cuda_phase_kernels_match_plain(batch):
             (cuda_sweep.compact, cuda_sweep.compact_reference, (state,)),
             (cuda_sweep.finish, cuda_sweep.finish_reference, (x, state))):
         agree(fn(*args), ref(*args), 1e-5)
+    z_r, _ = cuda_sweep.pcr_r(g["A0"], g["Kv"], g["dks"], g["sm"], r)
+    agree(cuda_sweep.pcr_z(g["A0"], g["Kv"], g["dks"], g["sm"], r, z_r),
+          cuda_sweep.pcr_z_reference(g["A0"], g["Kv"], g["dks"], g["sm"], r,
+                                     z_r), 1e-4)
     for mode in ("init", "alpha", "beta"):
         kw = dict(rline=True, maxiter=4)
         got = cuda_sweep.finalize(state, parts, mode, rtol, **kw)
@@ -429,3 +502,4 @@ def test_cuda_phase_kernels_match_plain(batch):
               tuple(cuda_sweep.unpack_state(want).values()), 1e-12)
     counts = cuda_sweep.phase_launches()
     assert counts["finalize"] == 3 and counts["update"] == 1
+    assert counts["pcr_z"] == 1
