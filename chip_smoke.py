@@ -62,7 +62,7 @@ Phases (each raises on failure; nothing is caught):
    per-lane counts within max(3, 2 %) of the plain float32 version's, the
    NaN lane poisoned, and every adaptive lane bitwise the static ADI
    (flag 1) or r-line (flag 0) solve's lane;
-12. run two B = 256 sweeps of ``geballe_no_diamond`` (40 steps, float32):
+12. run two B = 64 sweeps of ``geballe_no_diamond`` (40 steps, float32):
    (a) 'adi', rtol 1e-5 wrt ||r0||, 'extrapolate'; (b) 'adaptive' with one
    float64 refinement pass; configs/s, finite lanes, the share of flagged
    lane-steps, four lanes again at B = 4 (bitwise);
@@ -74,7 +74,41 @@ Phases (each raises on failure; nothing is caught):
    plain float64 path; (c) the fit CLI at full width (the default coarse
    8 x 6 grid, 3 starts, Gauss-Newton; 5 Adam steps), with K1's launches
    per direction; (d) the same with ``--precondition adi`` and 2 Adam
-   steps, so that K2's ADI form runs the coarse batch.
+   steps, so that K2's ADI form runs the coarse batch;
+14. the transient's other solver forms. At the flagship shape, on the first
+   step's system: each new phase kernel of ``cg_tol`` alone against its
+   plain version (the merged-dot pass, its scalars and its p/q update; the
+   Chebyshev polynomial in degrees 1, 3 and 4; the mgz cycle's row kernel,
+   residual, coarse residual, prolongation and the whole V-cycle with 1 and
+   2 coarse sweeps, held to the plain version's own distance from float64);
+   the V-cycle's symmetry; full solves in the Chebyshev (degree 3), merged
+   (identity, r-line, ADI, Chebyshev) and mgz (1 and 2 sweeps) forms
+   against their plain versions (counts, rel-L2, a NaN right-hand side
+   poisoned) and against the standard r-line solve. At the sweep shape, 8
+   lanes (one NaN, one at rtol 2): K2's merged phase kernels and its merged
+   solves (identity, r-line, ADI, adaptive) against their plain versions
+   and the standard solves, adaptive lanes bitwise the static merged lanes;
+15. this slice's path at full width: the flagship transient, 100 steps,
+   through ``make_simulate_fn`` with (a) ``precondition='mgz'``, one
+   float64 refinement pass, 'extrapolate', rtol 1e-4, for 1 and 2 coarse
+   sweeps; (b) ``vmem_cheb_degree=3`` in float32 at rtol 1e-5 wrt r0, with
+   the standard and the merged recurrence, beside the unrefined r-line run
+   whose distance from the truth is their yardstick; (c) the adaptive
+   recipe of phase 4 with ``MERGED_DEFAULT`` set to true around the run
+   (standard, merged, merged, standard; a merged step that runs to
+   ``maxiter`` is solved again by the standard kernel, the merged kernel
+   and the plain merged version); each with steps/s, iterations a step,
+   launches by form and the peak error against the float64 truth (<= 1.0 K
+   for the refined runs). Then K2 with the merged recurrence: an adaptive
+   refined sweep (B = 64) against the standard one and a recording sweep
+   (B = 8, the Kv-free projection) against a tighter recording. Then the 2D
+   CLI with ``--precondition mgz``, its ``watcher_points.csv`` bitwise
+   equal to ``run_transient`` in-process;
+16. ``precondition='mg'`` on the card through the eager path (flagship,
+   float32, 2 steps: an eager V-cycle of 7 levels takes ~12 s a step);
+   ``solve_steady`` on the flagship problem with the heating line held at
+   2000 K ('adi', float64) and its field as ``u0`` of a 10-step transient;
+   the steady CLI (float32) against that solve.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, the plain version's, and its bound: the larger of the bytes
@@ -124,7 +158,7 @@ PROJ_REL_L2 = 1e-5        # Kv-free projection solve, kernel vs plain
 # so their margins follow the ladder of tests/test_recording_precondition.py
 REC_MARGIN = dict(watch=0.1, band=1e-2, axis=5e-2)
 FIT_CFG = os.path.join(ROOT, "cfgs", "geballe_no_diamond_read_flux.yaml")
-ADI_B = 256
+ADI_B = 64
 ADI_RECIPES = {
     "adi": dict(precondition="adi", rtol=1e-5, rtol_wrt="r0",
                 warm_start="extrapolate"),
@@ -1612,6 +1646,760 @@ def run_fit_cli(device, out: dict) -> list[dict]:
     return runs
 
 
+def forms_checks(problem, device, out: dict) -> dict:
+    """Phase 14a: at the flagship shape, on the first step's system, each
+    new phase kernel of ``cg_tol`` alone and the full solves of the
+    Chebyshev, merged-dot and mgz forms against their plain versions and
+    against the standard r-line solve; the V-cycle's symmetry."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg
+    from heatflow_tpu_torch.ops.mgz import restrict
+    from heatflow_tpu_torch.sim.stepper import mgz_operands
+
+    A32, sm32, s32, free32, b32 = first_step_system(problem, device)
+    pcr = cuda_cg.pcr_pack(A32, s32, free32).contiguous()
+    pcr_z = cuda_cg.pcr_pack(A32, s32, free32, axis=-2).contiguous()
+    mgz = mgz_operands(problem, torch.float32, device)
+    nz, nr = b32.shape
+    n = nz * nr
+    rng = np.random.default_rng(14)
+    field = lambda: (torch.tensor(rng.standard_normal((nz, nr)),
+                                  dtype=torch.float32, device=device)
+                     * free32).contiguous()
+    u, r, p, q = field(), field(), field(), field()
+    norm = lambda v: float(torch.linalg.vector_norm(v.double()))
+    rows = {}
+
+    def distance(got, want):
+        err = rel = 0.0
+        for a, b_ in zip(got, want, strict=True):
+            if a is None and b_ is None:
+                continue
+            d = float((a.double() - b_.double()).abs().max())
+            scale = float(b_.double().abs().max())
+            err, rel = max(err, d), max(rel, d / scale)
+        return err, rel
+
+    def phase(name, kernel, plain, moved, ops, tol=1e-5, reps=50,
+              truth=None):
+        """Compare the tensors and sums a phase returns, then time it. With
+        ``truth`` (the plain version in float64) the bound is the larger of
+        ``tol`` and twice the plain float32 version's own distance from it:
+        a composition of passes amplifies float32 rounding by the
+        cancellation in its residuals, whatever the implementation."""
+        got, want = kernel(), plain()
+        err, rel = distance(got, want)
+        if truth is not None:
+            t64 = truth()
+            floor = distance(want, t64)[1]
+            rel64 = distance(got, t64)[1]
+            print(f"form phase {name}: vs float64 kernel {rel64:.3e}, plain "
+                  f"{floor:.3e}")
+            require(rel64 <= max(tol, 1.5 * floor), (name, rel64, floor))
+            tol = max(tol, 2.0 * floor)
+        require(rel <= tol, (name, rel))
+        # the phase kernel whose launches on the main path this row reads
+        # (a Chebyshev row its step kernel, a V-cycle row the prolongation:
+        # one launch a cycle)
+        base = name.split("[")[0]
+        counter = {"cheb": "cheb_init" if name == "cheb[1]" else "cheb_step",
+                   "mgz_vcycle": "prolong"}.get(base, base)
+        rows[f"cg_tol.{name}"] = dict(
+            name=f"cg_tol.{name}", phase=counter, max_abs_err=err, rel=rel,
+            ms=cuda_ms(kernel, reps), plain_ms=cuda_ms(plain, 10),
+            **bound(moved, ops))
+        row = rows[f"cg_tol.{name}"]
+        print(f"form phase {name}: max|err| {err:.3e} (rel {rel:.3e}, bound "
+              f"{tol:.0e}), kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms")
+
+    plane = b32.numel() * 4
+    phase("merged_w", lambda: cuda_cg.merged_w(A32, sm32, u, r),
+          lambda: cuda_cg.merged_w_reference(A32, sm32, u, r),
+          nbytes(A32, sm32, u, r, u) + 24, 21 * n)
+    phase("pq_update", lambda: cuda_cg.pq_update(p, q, u, r, 0.37),
+          lambda: cuda_cg.pq_update_reference(p, q, u, r, 0.37),
+          6 * plane, 4 * n)
+    phase("residual", lambda: (cuda_cg.mgz_residual(A32, sm32, r, u),),
+          lambda: (r - sm32 * cuda_cg.apply_stencil(A32, sm32 * u),),
+          nbytes(A32, sm32, r, u, u), 17 * n)
+    row_kw = dict(acc=p, sm=sm32, dot=r)
+    phase("pcr_row", lambda: cuda_cg.mgz_pcr_row(u, pcr, 0.8, **row_kw),
+          lambda: cuda_cg.mgz_pcr_row_reference(u, pcr, 0.8, **row_kw),
+          nbytes(u, pcr, p, sm32, r, u) + 8, (LINE_SOLVE_OPS + 5) * n,
+          tol=1e-4)
+    phase("pcr_row[restrict]",
+          lambda: cuda_cg.mgz_pcr_row(u, mgz["pcrc"], 0.8, aux=mgz["aux"]),
+          lambda: cuda_cg.mgz_pcr_row_reference(u, mgz["pcrc"], 0.8,
+                                                aux=mgz["aux"]),
+          nbytes(u, mgz["pcrc"], mgz["aux"], u, u),
+          (LINE_SOLVE_OPS + 8) * n, tol=1e-4)
+    rcs = restrict(mgz["aux"], u).contiguous()
+    phase("coarse_res",
+          lambda: (cuda_cg.mgz_coarse_res(mgz["Ac9"], rcs, r),),
+          lambda: (rcs - cuda_cg.coarse_apply(mgz["Ac9"], r),),
+          nbytes(mgz["Ac9"], rcs, r, r), 18 * n)
+    phase("prolong", lambda: (cuda_cg.mgz_prolong(mgz["aux"], p, r),),
+          lambda: (cuda_cg.prolong(mgz["aux"], p, r),),
+          nbytes(mgz["aux"], p, r, p), 9 * n)
+    for deg in (1, 3, 4):
+        phase(f"cheb[{deg}]",
+              lambda: cuda_cg.precond_apply(A32, sm32, r, cheb_degree=deg),
+              lambda: cuda_cg.precond_apply_reference(A32, sm32, r,
+                                                      cheb_degree=deg),
+              nbytes(A32, sm32, r, r) + 8, (1 + 21 * (deg - 1)) * n,
+              tol=1e-4)
+    for sw in (1, 2):
+        kw = dict(pcr=pcr, mgz=mgz, mgz_sweeps=sw)
+        phase(f"mgz_vcycle[{sw}]",
+              lambda: cuda_cg.precond_apply(A32, sm32, r, **kw),
+              lambda: cuda_cg.precond_apply_reference(A32, sm32, r, **kw),
+              nbytes(A32, sm32, r, pcr, mgz["pcrc"], mgz["aux"], r)
+              + (nbytes(mgz["Ac9"]) if sw > 1 else 0) + 8,
+              (2 * 17 + (2 + sw) * (LINE_SOLVE_OPS + 3) + 17
+               + (sw - 1) * 18) * n, tol=1e-4, reps=20,
+              truth=lambda: cuda_cg.precond_apply_reference(
+                  A32.double(), sm32.double(), r.double(), pcr=pcr.double(),
+                  mgz={k: v.double() for k, v in mgz.items()},
+                  mgz_sweeps=sw))
+
+    # the scalar phase of the merged recurrence, first and later calls
+    st0 = dict(rz=0.7, rr=1.3, stop2=1e-3, alpha=0.4, beta=0.1, k=3, done=0)
+    for first in (True, False):
+        kw = dict(first=first, preconditioned=True, rtol=1e-2, maxiter=9,
+                  rtol_wrt="b")
+        got = cuda_cg.finalize_merged(st0, 0.9, 1.1, 0.6, 2.0, **kw,
+                                      device=device)
+        want = cuda_cg.finalize_merged_reference(st0, 0.9, 1.1, 0.6, 2.0,
+                                                 **kw)
+        worst = 0.0
+        for key, v in want.items():
+            worst = max(worst, abs(got[key] - v))
+            require(abs(got[key] - v) <= 1e-12 * max(1.0, abs(v)),
+                    ("finalize_merged", first, key, got[key], v))
+        tag = "first" if first else "next"
+        rows[f"cg_tol.finalize_merged[{tag}]"] = dict(
+            name=f"cg_tol.finalize_merged[{tag}]", phase="finalize_merged",
+            max_abs_err=worst, rel=worst,
+            ms=cuda_ms(lambda: cuda_cg.finalize_merged(
+                st0, 0.9, 1.1, 0.6, 2.0, **kw, device=device), 20),
+            plain_ms=cuda_ms(lambda: cuda_cg.finalize_merged_reference(
+                st0, 0.9, 1.1, 0.6, 2.0, **kw), 20),
+            **bound(64 + 64 + 4 * 8, 12))
+    print("form phase finalize_merged: first and later calls equal the "
+          "plain scalars to 1e-12")
+
+    # the V-cycle is symmetric: <v, M^-1 u> = <u, M^-1 v> to float32 rounding
+    for sw in (1, 2):
+        kw = dict(pcr=pcr, mgz=mgz, mgz_sweeps=sw)
+        Mu, _ = cuda_cg.precond_apply(A32, sm32, u, **kw)
+        Mr, _ = cuda_cg.precond_apply(A32, sm32, r, **kw)
+        a = float((r.double() * Mu.double()).sum())
+        b_ = float((u.double() * Mr.double()).sum())
+        asym = abs(a - b_) / (norm(r) * norm(Mu))
+        print(f"mgz V-cycle symmetry ({sw} sweep(s)): <v, Mu> {a:.6e}, "
+              f"<u, Mv> {b_:.6e}, |difference| / (|v| |Mu|) {asym:.3e}")
+        require(asym <= 1e-5, ("V-cycle asymmetry", sw, asym))
+        rows[f"cg_tol.mgz_vcycle[{sw}]"]["asymmetry"] = asym
+
+    # full solves against the plain versions, the float64 solution and the
+    # standard r-line solve (the bounds of phase 3: a float32 solve of this
+    # system carries a rounding floor, measured on the plain version)
+    rtol = 1e-6
+    x0 = torch.zeros_like(b32)
+    f64 = lambda v: {k: t.double() for k, t in v.items()} \
+        if isinstance(v, dict) else (v.double() if torch.is_tensor(v) else v)
+    forms = {
+        "cheb3": dict(cheb_degree=3),
+        "merged_identity": dict(merged=True),
+        "merged_rline": dict(merged=True, pcr=pcr),
+        "merged_adi": dict(merged=True, pcr=pcr, pcr_z=pcr_z),
+        "merged_cheb3": dict(merged=True, cheb_degree=3),
+        "mgz1": dict(pcr=pcr, mgz=mgz, mgz_sweeps=1),
+        "mgz2": dict(pcr=pcr, mgz=mgz, mgz_sweeps=2)}
+    x_std, it_std = cuda_cg.cg_tol(A32, sm32, b32, x0, rtol, maxiter=20000,
+                                   rtol_wrt="b", pcr=pcr)
+    nan_b = b32.clone()
+    nan_b[nz // 2, nr // 2] = float("nan")
+    solves = {}
+    for form, fkw in forms.items():
+        kw = dict(maxiter=20000, rtol_wrt="b", **fkw)
+        x_k, it_k = cuda_cg.cg_tol(A32, sm32, b32, x0, rtol, **kw)
+        x_p, it_p = cuda_cg.cg_tol_reference(A32, sm32, b32, x0, rtol, **kw)
+        x64, _ = cuda_cg.cg_tol_reference(
+            A32.double(), sm32.double(), b32.double(), x0.double(), rtol,
+            maxiter=20000, rtol_wrt="b", **{k: f64(v) for k, v in fkw.items()})
+        it_k, it_p = int(it_k), int(it_p)
+        rel_l2 = norm(x_k - x_p) / norm(x_p)
+        err_k, err_p = norm(x_k - x64) / norm(x64), \
+            norm(x_p - x64) / norm(x64)
+        vs_std = norm(x_k - x_std) / norm(x_std)
+        x_n, it_n = cuda_cg.cg_tol(A32, sm32, nan_b, x0, rtol, **kw)
+        require(bool(torch.isnan(x_n).all()) and int(it_n) == 0,
+                (form, "NaN rhs not poisoned"))
+        print(f"solve {form}: iters kernel {it_k} plain {it_p} (standard "
+              f"r-line {int(it_std)}); kernel vs plain rel-L2 {rel_l2:.3e}; "
+              f"vs float64 kernel {err_k:.3e} plain {err_p:.3e}; vs the "
+              f"standard r-line solve {vs_std:.3e}")
+        # counts within 5 % of the plain version's; 10 % in the
+        # unpreconditioned merged form, ~4000 float32 iterations whose
+        # coupled alpha carries every earlier rounding forward
+        slack = 0.10 if form == "merged_identity" else 0.05
+        require(abs(it_k - it_p) <= max(3, int(slack * it_p)),
+                (form, it_k, it_p))
+        require(rel_l2 <= max(1e-4, 2.0 * err_p), (form, rel_l2, err_p))
+        require(err_k <= max(1e-4, 1.5 * err_p), (form, err_k, err_p))
+        require(vs_std <= max(1e-3, 4.0 * err_p), (form, vs_std, err_p))
+        if form.startswith("mgz"):
+            require(it_k < 0.5 * int(it_std), (form, it_k, int(it_std)))
+        ms = cuda_ms(lambda: cuda_cg.cg_tol(A32, sm32, b32, x0, rtol, **kw),
+                     3)
+        plain_ms = cuda_ms(
+            lambda: cuda_cg.cg_tol_reference(A32, sm32, b32, x0, rtol, **kw),
+            1)
+        stacks = [v for v in fkw.values() if torch.is_tensor(v)]
+        if "mgz" in fkw:
+            stacks += [mgz["pcrc"], mgz["aux"]] + (
+                [mgz["Ac9"]] if fkw["mgz_sweeps"] > 1 else [])
+        solves[form] = dict(
+            iters=it_k, plain_iters=it_p, rline_iters=int(it_std),
+            rel_l2=rel_l2, err_vs_f64=err_k, plain_err_vs_f64=err_p,
+            vs_standard_rline=vs_std,
+            max_abs_err=float((x_k - x_p).abs().max()), ms=ms,
+            plain_ms=plain_ms,
+            **bound(nbytes(A32, sm32, b32, x0, b32, *stacks),
+                    it_k * n * k1_form_ops(fkw)))
+        print(f"solve {form}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    out["form_phases"] = rows
+    out["form_solves"] = solves
+    return dict(phases=rows, solves=solves)
+
+
+def k1_form_ops(fkw: dict) -> int:
+    """Float32 operations a grid point of one iteration of a K1 form costs,
+    counted for what it computes: the preconditioner (a line solve 8 + 4,
+    a Chebyshev step 21, the V-cycle two residuals, 2 + sweeps line solves,
+    transfers and coarse applies), and the standard recurrence (17 + 6 + 2)
+    or the merged one (w with three sums 21, x and r 4, p and q 4)."""
+    pre = 0
+    if "mgz" in fkw:
+        sw = fkw.get("mgz_sweeps", 1)
+        pre = 2 * 17 + (2 + sw) * (LINE_SOLVE_OPS + 3) + 17 + (sw - 1) * 18
+    elif "pcr" in fkw:
+        pre = (LINE_SOLVE_OPS + 4) * (2 if "pcr_z" in fkw else 1)
+    elif fkw.get("cheb_degree"):
+        pre = 1 + 21 * (fkw["cheb_degree"] - 1)
+    return pre + (21 + 4 + 4 if fkw.get("merged") else 17 + 6 + 2)
+
+
+def merged_sweep_checks(problem, device, out: dict) -> dict:
+    """Phase 14b: at the sweep shape, on the 10th step's system of 8 lanes
+    (one NaN, one at rtol 2), K2's merged-dot phase kernels alone and its
+    merged solves (identity, r-line, ADI, adaptive) against their plain
+    versions and against the standard solves; the adaptive lanes against
+    the static merged lanes (bitwise)."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+
+    rng = np.random.default_rng(14)
+    B, nan_lane, easy_lane = 8, 3, 5
+    ks = np.sort(10.0 ** rng.uniform(0.0, 2.0, B))
+    ks[0], ks[-1], ks[nan_lane] = 1.0, 100.0, np.nan
+    fs = problem.fwhm * rng.uniform(0.8, 1.2, B)
+    A0, Kv, dks, sm, b, x0 = sweep_system(problem, ks, fs, device)
+    nz, nr = b.shape[1:]
+    live = [i for i in range(B) if i != nan_lane]
+    sel = torch.tensor(live, device=device)
+    flags = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1], dtype=torch.int32,
+                         device=device)
+    print(f"merged sweep checks: grid {nz} x {nr}, lanes kappa "
+          f"{np.round(ks, 3).tolist()}, lane {nan_lane} NaN, lane "
+          f"{easy_lane} at rtol 2, adaptive flags {flags.tolist()}")
+    rows = {}
+    dk7, sm7 = dks[sel].contiguous(), sm[sel].contiguous()
+    field = lambda: (torch.tensor(rng.standard_normal((len(live), nz, nr)),
+                                  dtype=torch.float32, device=device)
+                     * (sm7 != 0)).contiguous()
+    u, r, p, q = field(), field(), field(), field()
+    beta = torch.tensor(rng.uniform(0.1, 1.0, len(live)),
+                        dtype=torch.float64, device=device)
+    nb = 1024
+    parts = torch.tensor(rng.uniform(0.5, 1.5, (4, nb, nz)),
+                         dtype=torch.float64, device=device)
+    parts[1, 7] = float("nan")
+    rtol_s = torch.tensor(rng.uniform(1e-6, 1e-1, nb), dtype=torch.float32,
+                          device=device)
+    state = cs.pack_state(
+        nb, device, **{k: torch.tensor(rng.uniform(0.5, 2.0, nb),
+                                       dtype=torch.float64, device=device)
+                       for k in ("rz", "rr", "stop2", "alpha", "beta")},
+        k=torch.tensor(rng.integers(0, 50, nb)),
+        done=torch.tensor(rng.random(nb) < 0.3))
+    fin = lambda fn, first: (lambda: fn(state, parts, first, rtol_s,
+                                        preconditioned=True, maxiter=40,
+                                        rtol_wrt="b"))
+    n_pts = len(live) * nz * nr
+    cases = {
+        "merged_w": (lambda: cs.merged_w(A0, Kv, dk7, sm7, u, r),
+                     lambda: cs.merged_w_reference(A0, Kv, dk7, sm7, u, r),
+                     nbytes(A0, Kv, dk7, sm7, u, r, u), 35 * n_pts, 1e-5),
+        "merged_w[no_kv]": (
+            lambda: cs.merged_w(A0, None, None, sm7, u, r),
+            lambda: cs.merged_w_reference(A0, None, None, sm7, u, r),
+            nbytes(A0, sm7, u, r, u), 21 * n_pts, 1e-5),
+        "pq_update": (lambda: cs.pq_update(p, q, u, r, beta),
+                      lambda: cs.pq_update_reference(p, q, u, r, beta),
+                      nbytes(p, q, u, r, p, q), 4 * n_pts, 1e-5),
+        "finalize_merged[first]": (
+            fin(cs.finalize_merged, True),
+            fin(cs.finalize_merged_reference, True),
+            nbytes(state, parts, state), parts.numel(), 1e-12),
+        "finalize_merged[next]": (
+            fin(cs.finalize_merged, False),
+            fin(cs.finalize_merged_reference, False),
+            nbytes(state, parts, state), parts.numel(), 1e-12)}
+    for name, (kernel, plain, moved, ops, tol) in cases.items():
+        out_p = plain()
+        err, rel = compare_outputs(kernel(), out_p)
+        require(rel <= tol, (name, rel))
+        row = rows[f"cg_batched_tol.{name}"] = dict(
+            name=f"cg_batched_tol.{name}", phase=name.split("[")[0],
+            max_abs_err=err, rel=rel, ms=cuda_ms(kernel, 20),
+            plain_ms=cuda_ms(plain, 5), **bound(moved, ops))
+        print(f"merged sweep phase {name}: max|err| {err:.3e} (rel {rel:.3e}"
+              f", bound {tol:.0e}), kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms")
+
+    norm = lambda v: float(torch.linalg.vector_norm(v.double()))
+    rtol = torch.full((B,), 1e-6, dtype=torch.float32, device=device)
+    rtol[easy_lane] = 2.0
+    kw = dict(maxiter=20000, rtol_wrt="r0")
+    args = (A0, Kv, dks, sm, b, x0)
+    d64 = tuple(t.double() for t in args)
+    got = {}
+    for form, fkw in (("identity", {}), ("rline", dict(rline=True)),
+                      ("adi", dict(adi=True)),
+                      ("adaptive", dict(adi_flags=flags))):
+        x_k, it_k = cs.cg_batched_tol(*args, rtol, merged=True, **kw, **fkw)
+        x_p, it_p = cs.cg_batched_tol_reference(*args, rtol, merged=True,
+                                                **kw, **fkw)
+        x_s, it_s = cs.cg_batched_tol(*args, rtol, merged=False, **kw, **fkw)
+        x64, _ = cs.cg_batched_tol_reference(*d64, rtol.double(),
+                                             merged=True, **kw, **fkw)
+        got[form] = (x_k, it_k)
+        require(bool(torch.isnan(x_k[nan_lane]).all())
+                and int(it_k[nan_lane]) == 0, (form, "NaN lane"))
+        require(int(it_k[easy_lane]) == 0
+                and torch.equal(x_k[easy_lane], x0[easy_lane]),
+                (form, "rtol-2 lane"))
+        worst = dict(rel_l2=0.0, err_k=0.0, err_p=0.0, dit=0, vs_std=0.0)
+        for i in live:
+            if i == easy_lane:
+                continue
+            ik, ip = int(it_k[i]), int(it_p[i])
+            require(abs(ik - ip) <= max(3, int(0.05 * ip)), (form, i, ik, ip))
+            rel_l2 = norm(x_k[i] - x_p[i]) / norm(x_p[i])
+            err_k = norm(x_k[i] - x64[i]) / norm(x64[i])
+            err_p = norm(x_p[i] - x64[i]) / norm(x64[i])
+            vs_std = norm(x_k[i] - x_s[i]) / norm(x_s[i])
+            require(rel_l2 <= max(1e-4, 2.0 * err_p), (form, i, rel_l2, err_p))
+            require(err_k <= max(1e-4, 1.5 * err_p), (form, i, err_k, err_p))
+            require(vs_std <= max(1e-3, 4.0 * err_p), (form, i, vs_std))
+            for key, v in (("rel_l2", rel_l2), ("err_k", err_k),
+                           ("err_p", err_p), ("dit", abs(ik - ip)),
+                           ("vs_std", vs_std)):
+                worst[key] = max(worst[key], v)
+        ms = cuda_ms(lambda: cs.cg_batched_tol(*args, rtol, merged=True, **kw,
+                                               **fkw), 2)
+        plain_ms = cuda_ms(lambda: cs.cg_batched_tol_reference(
+            *args, rtol, merged=True, **kw, **fkw), 1)
+        its = [int(i) for i in it_k.tolist()]
+        pre = {"identity": 0, "rline": k2_line_ops() + 2,
+               "adi": 2 * (k2_line_ops() + 2)}
+        per_lane = ([pre[form] + 35 + 8] * B if form != "adaptive" else
+                    [pre["adi" if f else "rline"] + 35 + 8
+                     for f in flags.tolist()])
+        rows[f"cg_batched_tol[merged_{form}]"] = dict(
+            iters=its, plain_iters=[int(i) for i in it_p.tolist()],
+            standard_iters=[int(i) for i in it_s.tolist()], **worst,
+            max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
+            plain_ms=plain_ms, **k2_solve_bound(*args, its, per_lane))
+        print(f"merged sweep solve {form}: iters kernel {its} plain "
+              f"{[int(i) for i in it_p.tolist()]} standard "
+              f"{[int(i) for i in it_s.tolist()]}; worst lane: kernel vs "
+              f"plain rel-L2 {worst['rel_l2']:.3e}, vs the standard solve "
+              f"{worst['vs_std']:.3e}, vs float64 kernel "
+              f"{worst['err_k']:.3e} plain {worst['err_p']:.3e}; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    (x_a, it_a) = got["adaptive"]
+    for i, f in enumerate(flags.tolist()):
+        x_s, it_s = got["adi" if f else "rline"]
+        same = (torch.equal(x_a[i], x_s[i]) if i != nan_lane else
+                bool(torch.isnan(x_a[i]).all() and torch.isnan(x_s[i]).all()))
+        require(same and int(it_a[i]) == int(it_s[i]),
+                ("adaptive merged lane differs from the static lane", i, f))
+    print("merged sweep: every adaptive lane equals the static merged ADI "
+          "(flag 1) or r-line (flag 0) solve's lane bitwise")
+    out["merged_sweep_checks"] = rows
+    return rows
+
+
+def _timed_transient(problem, device, label: str, **kw):
+    """One warm-up run and one timed run of the flagship transient through
+    ``make_simulate_fn`` with the K1 counters set to 0 just before the timed
+    run: (ys, summary dict with steps/s, mean iterations, K1's launches by
+    form and by phase kernel, the peak trace error against the float64
+    truth)."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg
+    from heatflow_tpu_torch.sim.stepper import make_simulate_fn
+
+    fn = make_simulate_fn(problem, dtype=torch.float32, device=device, **kw)
+    fn()
+    torch.cuda.synchronize()
+    cuda_cg.reset_counters()
+    t0 = time.perf_counter()
+    ys = fn()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    forms = {name[len("launches_"):]: getattr(cuda_cg.cg_tol, name)
+             for name in cuda_cg._FORM_COUNTERS if name != "launches"}
+    phases = cuda_cg.phase_launches()
+    watch = ys["watch"].cpu().numpy()
+    iters = ys["cg_iters"].cpu().numpy()
+    require(np.isfinite(watch).all()
+            and np.isfinite(ys["final_u"].cpu().numpy()).all(),
+            (label, "non-finite traces"))
+    truth = np.load(TRUTH)["watch"]
+    require(watch.shape == truth.shape, (label, watch.shape, truth.shape))
+    peak = np.abs(watch - truth).max(axis=0)
+    names = list(problem.watcher_names)
+    res = dict(label=label, steps=problem.num_steps, run_s=run_s,
+               steps_per_s=problem.num_steps / run_s,
+               iters_mean=float(iters.mean()), iters_max=int(iters.max()),
+               iters_argmax=int(iters.argmax()), iters=iters.tolist(),
+               forms=forms, phase_launches=phases,
+               peak_err_K=dict(zip(names, peak.tolist())))
+    print(f"{label}: {problem.num_steps} steps in {run_s:.4f} s = "
+          f"{res['steps_per_s']:.2f} steps/s; cg_iters mean "
+          f"{res['iters_mean']:.2f} max {res['iters_max']} (step "
+          f"{res['iters_argmax'] + 1}); solves by form "
+          f"{ {k: v for k, v in forms.items() if v} }; peak |error| vs f64 "
+          f"truth [K]: " + ", ".join(f"{n} {e:.4f}"
+                                     for n, e in zip(names, peak)))
+    return ys, res
+
+
+def _merged_stall(problem, device, res: dict):
+    """Where a step of the merged adaptive run ran to ``maxiter``: that
+    step's system, read off ``cg_tol``'s arguments in one more run, solved
+    again by the standard kernel, the merged kernel and the plain merged
+    version (capped at 2000 iterations), to tell a fault of the kernel from
+    a property of the recurrence in float32. Returns the counts, or None
+    when no step stalled."""
+    import functools
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg
+    from heatflow_tpu_torch.sim.stepper import make_simulate_fn
+    if res["iters_max"] < RECIPE["maxiter"]:
+        return None
+    calls = []
+    kernel = cuda_cg.cg_tol
+
+    @functools.wraps(kernel)
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return kernel(*args, **kw)
+
+    cuda_cg.cg_tol, cuda_cg.MERGED_DEFAULT = capture, True
+    try:
+        make_simulate_fn(problem, dtype=torch.float32, device=device,
+                         **RECIPE)()
+    finally:
+        cuda_cg.cg_tol, cuda_cg.MERGED_DEFAULT = kernel, False
+    args, kw = calls[res["iters_argmax"]]
+    kw = dict(kw, maxiter=2000)
+    form = "adi" if kw.get("pcr_z") is not None else "rline"
+    it_std = int(kernel(*args, **kw, merged=False)[1])
+    it_mk = int(kernel(*args, **kw, merged=True)[1])
+    it_mp = int(cuda_cg.cg_tol_reference(*args, **kw, merged=True)[1])
+    print(f"merged-dot stall at step {res['iters_argmax'] + 1} ({form} "
+          f"form, its refinement system, capped at 2000 iterations): "
+          f"standard kernel {it_std}, merged kernel {it_mk}, merged plain "
+          f"version {it_mp} iterations")
+    return dict(step=res["iters_argmax"] + 1, form=form, standard=it_std,
+                merged_kernel=it_mk, merged_plain=it_mp)
+
+
+def run_forms_slice(problem, sweep_problem, device, out: dict) -> dict:
+    """Phase 15: the flagship transient (100 steps, full width) in the mgz,
+    Chebyshev and merged-dot forms; two small sweeps with the merged
+    recurrence switched on (K2); the 2D CLI with ``--precondition mgz``."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.config import load_config, save_config
+    from heatflow_tpu_torch.drivers import run2d
+    from heatflow_tpu_torch.io.csvio import read_watcher_csv
+    from heatflow_tpu_torch.ops import cuda_cg, cuda_sweep
+    from heatflow_tpu_torch.sim.stepper import run_transient
+    from heatflow_tpu_torch.sim.sweepkernel import (make_sweep_fn_recording,
+                                                    run_sweep_time_chunked)
+
+    base = dict(maxiter=8000, record_gradient=False, record_fields=False,
+                rtol_wrt="r0", solver="auto")
+    runs = []
+    # (a) mgz with one float64 refinement pass
+    for sw in (1, 2):
+        _, res = _timed_transient(
+            problem, device, f"mgz ({sw} coarse sweep(s)), f64_refine=1",
+            precondition="mgz", mgz_sweeps=sw, f64_refine=1,
+            warm_start="extrapolate", rtol=1e-4, **base)
+        require(res["forms"]["mgz"] == problem.num_steps, res["forms"])
+        require(max(res["peak_err_K"].values()) <= TRACE_TOL_K, res)
+        runs.append(res)
+    # (b) Chebyshev degree 3, plain float32, beside the unrefined r-line run
+    # of the same tolerance, whose distance from the truth is the yardstick
+    _, rl = _timed_transient(problem, device, "r-line, float32, rtol 1e-5",
+                             precondition="rline", rtol=1e-5,
+                             warm_start="extrapolate", **base)
+    _, ch = _timed_transient(problem, device,
+                             "Chebyshev degree 3, float32, rtol 1e-5",
+                             vmem_cheb_degree=3, rtol=1e-5,
+                             warm_start="extrapolate", **base)
+    require(ch["forms"]["cheb"] == problem.num_steps, ch["forms"])
+    floor = max(rl["peak_err_K"].values())
+    require(max(ch["peak_err_K"].values()) <= 2.0 * floor + 0.1,
+            ("Chebyshev trace error", ch["peak_err_K"], floor))
+    cuda_cg.MERGED_DEFAULT = True
+    try:
+        _, chm = _timed_transient(
+            problem, device, "Chebyshev degree 3, merged recurrence",
+            vmem_cheb_degree=3, rtol=1e-5, warm_start="extrapolate", **base)
+    finally:
+        cuda_cg.MERGED_DEFAULT = False
+    require(chm["forms"]["cheb"] == chm["forms"]["merged"]
+            == problem.num_steps, chm["forms"])
+    require(max(chm["peak_err_K"].values()) <= 2.0 * floor + 0.1,
+            ("merged Chebyshev trace error", chm["peak_err_K"], floor))
+    runs += [rl, ch, chm]
+    # (c) the adaptive recipe, standard and merged, in turns
+    pair = []
+    for merged in (False, True, True, False):
+        cuda_cg.MERGED_DEFAULT = merged
+        try:
+            _, res = _timed_transient(
+                problem, device,
+                f"adaptive recipe, {'merged' if merged else 'standard'} "
+                f"recurrence", **RECIPE)
+        finally:
+            cuda_cg.MERGED_DEFAULT = False
+        require(bool(res["forms"]["merged"]) == merged, res["forms"])
+        require(max(res["peak_err_K"].values()) <= TRACE_TOL_K, res)
+        pair.append(dict(res, merged=merged))
+    runs += pair
+    stall = _merged_stall(problem, device, pair[1])
+    best = lambda m: max(r["steps_per_s"] for r in pair if r["merged"] == m)
+    print(f"merged-dot on the adaptive recipe: best of two, standard "
+          f"{best(False):.2f} steps/s, merged {best(True):.2f} steps/s "
+          f"({100 * (best(True) / best(False) - 1):+.2f} %)")
+    # K1's launches on this slice's paths, summed over the runs above, and
+    # by the solve rows of phase 14
+    k1_forms = {k: sum(r["forms"][k] for r in runs) for k in runs[0]["forms"]}
+    merged_runs = [r for r in pair if r["merged"]]
+    k1_rows = {"cheb3": ch["forms"]["cheb"],
+               "merged_cheb3": chm["forms"]["merged"],
+               "merged_rline": sum(r["forms"]["rline"] for r in merged_runs),
+               "merged_adi": sum(r["forms"]["adi"] for r in merged_runs),
+               "mgz1": runs[0]["forms"]["mgz"],
+               "mgz2": runs[1]["forms"]["mgz"]}
+    k1_phases = {k: sum(r["phase_launches"][k] for r in runs)
+                 for k in runs[0]["phase_launches"]}
+
+    # K2 with the merged recurrence: an adaptive refined sweep (B = 64) and
+    # a recording sweep (B = 8: the Kv-free projection), each held to the
+    # standard recurrence's traces at the solves' tolerance
+    ks = np.logspace(0.0, 2.0, 64)
+    fs = np.full(64, sweep_problem.fwhm)
+    kw = dict(ADI_RECIPES["adaptive"], solver="vmem", dtype=torch.float32,
+              device=device, step_chunk=sweep_problem.num_steps)
+    tr_std = run_sweep_time_chunked(sweep_problem, ks, fs, **kw)
+    rec = make_sweep_fn_recording(sweep_problem, dtype=torch.float32,
+                                  device=device, **REC_RECIPE)
+    rec_std = rec(ks[::8], fs[::8])
+    # the recording recipe stops at 1e-5 ||b||, where a trace sits some
+    # tenths of a K to a few K from a tighter solve: that distance is the
+    # yardstick for the merged recurrence, which stops elsewhere
+    rec_tight = make_sweep_fn_recording(
+        sweep_problem, dtype=torch.float32, device=device,
+        **dict(REC_RECIPE, rtol=1e-7))(ks[::8], fs[::8])
+    torch.cuda.synchronize()
+    cuda_sweep.reset_counters()
+    cuda_cg.MERGED_DEFAULT = True
+    try:
+        t0 = time.perf_counter()
+        tr_m = run_sweep_time_chunked(sweep_problem, ks, fs, **kw)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        rec_m = rec(ks[::8], fs[::8])
+        torch.cuda.synchronize()
+    finally:
+        cuda_cg.MERGED_DEFAULT = False
+    k2 = _sweep_counts()
+    k2["merged"] = cuda_sweep.cg_batched_tol.launches_merged
+    d_sweep = float(np.abs(tr_m - tr_std).max())
+    d_rec = float((rec_m["watch"] - rec_tight["watch"]).abs().max())
+    d_rec_std = float((rec_std["watch"] - rec_tight["watch"]).abs().max())
+    print(f"merged K2: adaptive refined sweep B = 64 in {sweep_s:.2f} s = "
+          f"{64 / sweep_s:.3f} configs/s, max |trace difference| from the "
+          f"standard recurrence {d_sweep:.3e} K; recording B = 8: "
+          f"merged {d_rec:.3e} K, standard {d_rec_std:.3e} K from the same "
+          f"recording at rtol 1e-7; launches {k2}")
+    require(np.isfinite(tr_m).all() and d_sweep <= 0.05
+            and d_rec <= 2.0 * d_rec_std + 0.1,
+            ("merged sweep traces", d_sweep, d_rec, d_rec_std))
+    require(k2["merged"] > 0 and k2["phases"]["merged_w"] > 0
+            and k2["phases"]["merged_w_no_kv"] > 0, k2)
+
+    # the 2D CLI with --precondition mgz, against run_transient in-process
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    cfg = load_config(CFG)
+    cfg["heating"]["file"] = CSV
+    cfg_path = os.path.join(work, "run2d_mgz.yaml")
+    save_config(cfg, cfg_path)
+    run_out = os.path.join(work, "run2d_mgz_out")
+    t0 = time.perf_counter()
+    run2d.main(["--config", cfg_path, "--mesh-folder",
+                os.path.join(work, "run2d_mgz_mesh"), "--rebuild-mesh",
+                "--output-folder", run_out, "--watcher-points", "auto",
+                "--precondition", "mgz", "--device", str(device),
+                "--suppress-print"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cols = read_watcher_csv(os.path.join(run_out, "watcher_points.csv"))
+    got = np.column_stack(list(cols.values()))
+    res = run_transient(build_flagship(), dtype=torch.float32, device=device,
+                        rtol=1e-4, maxiter=20000, record_gradient=True,
+                        record_fields=False, solver="auto",
+                        warm_start="extrapolate", precondition="mgz")
+    require(np.array_equal(got[:, 1:].astype(np.float32), res.watcher),
+            "run2d --precondition mgz: watcher_points.csv differs from "
+            "run_transient")
+    print(f"run2d CLI --precondition mgz: {cli_s:.2f} s; watcher_points.csv "
+          f"equals run_transient bitwise; cg_iters mean "
+          f"{res.cg_iters.mean():.2f}")
+    out["forms_slice"] = dict(runs=runs, merged_stall=stall,
+                              k1_forms=k1_forms,
+                              k1_rows=k1_rows,
+                              k1_phases=k1_phases, k2_launches=k2,
+                              merged_sweep_s=sweep_s,
+                              merged_sweep_diff_K=d_sweep,
+                              merged_recording_diff_K=d_rec,
+                              standard_recording_diff_K=d_rec_std,
+                              run2d_mgz_cli_s=cli_s)
+    return dict(k1_rows=k1_rows, k1_phases=k1_phases, k2=k2)
+
+
+def run_mg_and_steady(problem, device, out: dict) -> None:
+    """Phase 16: ``precondition='mg'`` on the card through the eager path,
+    the steady solve and its field as the start of a transient, and the
+    steady CLI."""
+    import copy
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.config import load_config, save_config
+    from heatflow_tpu_torch.drivers import steady as steady_cli
+    from heatflow_tpu_torch.sim.steady import (solve_steady,
+                                               steady_heating_values)
+    from heatflow_tpu_torch.sim.stepper import make_simulate_fn
+
+    mg_steps = 2     # ~12 s a step on an H100: the eager V-cycle of 7 levels
+    short = copy.copy(problem)
+    short.num_steps = mg_steps
+    short.extras = {}
+    fn = make_simulate_fn(short, dtype=torch.float32, device=device,
+                          precondition="mg", rtol=1e-5, maxiter=2000,
+                          record_gradient=False, solver="auto",
+                          warm_start="extrapolate")
+    require(not fn.use_vmem, "'mg' must resolve 'auto' to the eager path")
+    t0 = time.perf_counter()
+    ys = fn()
+    torch.cuda.synchronize()
+    mg_s = time.perf_counter() - t0
+    iters = ys["cg_iters"].cpu().numpy()
+    watch = ys["watch"].cpu().numpy()
+    require(np.isfinite(watch).all() and int(iters.max()) < 2000,
+            ("mg traces", iters))
+    truth = np.load(TRUTH)["watch"][:mg_steps]
+    peak = np.abs(watch - truth).max(axis=0)
+    mg_levels = len(fn.mg)
+    print(f"precondition='mg' (eager, float32, {mg_levels} levels): "
+          f"{mg_steps} steps in {mg_s:.2f} s = {mg_steps / mg_s:.3f} "
+          f"steps/s; cg_iters mean "
+          f"{iters.mean():.2f} max {int(iters.max())}; peak |error| vs f64 "
+          f"truth over these steps [K]: {np.round(peak, 4).tolist()}")
+
+    amplitude = 2000.0      # the laser held at 2000 K on the heating line
+    g = steady_heating_values(problem, amplitude=amplitude)
+    t0 = time.perf_counter()
+    u, info = solve_steady(problem, g, device=device)
+    steady_s = time.perf_counter() - t0
+    require(info["converged"] and np.isfinite(u).all(), info)
+    dirich = problem.dirichlet_mask
+    require(np.array_equal(u[dirich], g[dirich]), "steady Dirichlet values")
+    require(u.min() >= g[dirich].min() - 1e-6
+            and u.max() <= g[dirich].max() + 1e-6,
+            ("steady maximum principle", u.min(), u.max()))
+    print(f"solve_steady (adi, float64, rtol 1e-11): {info['iters']} "
+          f"iterations, residual {info['residual']:.3e}, {steady_s:.2f} s; "
+          f"T in [{u.min():.2f}, {u.max():.2f}] K")
+    ten = copy.copy(problem)
+    ten.num_steps = 10
+    ten.extras = {}
+    fn = make_simulate_fn(ten, dtype=torch.float32, device=device, **RECIPE)
+    ys = fn(u0=u)
+    torch.cuda.synchronize()
+    w = ys["watch"].cpu().numpy()
+    require(np.isfinite(w).all(), "transient from the steady field")
+    print(f"transient from the steady field, 10 steps: watcher range "
+          f"[{w.min():.2f}, {w.max():.2f}] K, cg_iters mean "
+          f"{ys['cg_iters'].float().mean().item():.2f}")
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    cfg = load_config(CFG)
+    cfg["heating"]["file"] = CSV
+    cfg_path = os.path.join(work, "steady.yaml")
+    save_config(cfg, cfg_path)
+    steady_out = os.path.join(work, "steady_out")
+    t0 = time.perf_counter()
+    steady_cli.main(["--config", cfg_path, "--mesh-folder",
+                     os.path.join(work, "steady_mesh"), "--rebuild-mesh",
+                     "--output-folder", steady_out, "--amplitude",
+                     str(amplitude), "--no-xdmf", "--device", str(device)])
+    cli_s = time.perf_counter() - t0
+    field = np.load(os.path.join(steady_out, "steady_field.npy"))
+    require(field.shape == u.shape and np.isfinite(field).all()
+            and os.path.isfile(os.path.join(steady_out, "used_config.yaml")),
+            "steady CLI artifacts")
+    # the CLI runs float32 on a card, and a cold float32 solve of this
+    # operator stalls ~1e-2 of the solution's size from the float64 one
+    # (a constant 300 K field comes back within 3.8 K): held to 5 %
+    d = float(np.abs(field - u).max())
+    print(f"steady CLI (float32): {cli_s:.2f} s; steady_field.npy within "
+          f"{d:.3e} K of the float64 solve (T up to {u.max():.1f} K)")
+    require(d <= 0.05 * float(np.abs(u).max()), ("steady CLI field", d))
+    out["mg_steady"] = dict(mg_steps=mg_steps,
+                            mg_steps_per_s=mg_steps / mg_s,
+                            mg_iters_mean=float(iters.mean()),
+                            mg_levels=mg_levels,
+                            steady_iters=info["iters"],
+                            steady_residual=info["residual"],
+                            steady_s=steady_s, steady_cli_s=cli_s,
+                            steady_cli_diff_K=d)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this "
@@ -1696,6 +2484,11 @@ def main() -> None:
         profile_run(fit_step, f"{base}_fit{ext}", out, "fit_profile")
     fit_runs = run_fit_cli(device, out)
 
+    form_rows = forms_checks(problem, device, out)
+    merged_rows = merged_sweep_checks(sweep_problem, device, out)
+    form_counts = run_forms_slice(problem, sweep_problem, device, out)
+    run_mg_and_steady(problem, device, out)
+
     counts = out["slice"]["phase_launches"]
     solves = out["slice"]["solves"]
     kernel = lambda name, source, replaces, launches, r: dict(
@@ -1736,6 +2529,21 @@ def main() -> None:
         kernels.append(kernel(name, SOURCE, REPLACES,
                               sum(f["k1_launches"][direction]
                                   for f in fit_runs), r))
+    # this slice's forms: a phase row reads its phase kernel's launches over
+    # the runs of phase 15, a solve row its form's solves there
+    for r in form_rows["phases"].values():
+        kernels.append(kernel(r["name"], SOURCE, REPLACES,
+                              form_counts["k1_phases"][r["phase"]], r))
+    for form, n in form_counts["k1_rows"].items():
+        kernels.append(kernel(f"cg_tol[{form}]", SOURCE, REPLACES, n,
+                              form_rows["solves"][form]))
+    k2 = form_counts["k2"]
+    for name, r in merged_rows.items():
+        phase = ("merged_w_no_kv" if name.endswith("merged_w[no_kv]")
+                 else r.get("phase"))
+        kernels.append(kernel(name, SWEEP_SOURCE, K2_REPLACES,
+                              k2["phases"][phase] if phase else k2["merged"],
+                              r))
     require(all(k["launches"] > 0 for k in kernels), kernels)
     out["wall_s"] = time.perf_counter() - t_script
     print(f"chip_smoke wall time: {out['wall_s']:.1f} s")

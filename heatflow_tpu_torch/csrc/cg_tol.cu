@@ -3,7 +3,9 @@
 //
 // Replaces: heatflow_tpu/ops/pallas_cg.py:_cg_tol_kernel (the Pallas TPU
 // kernel that keeps the whole solve resident in VMEM), in its identity,
-// r-line PCR and split-additive ADI (r-line + z-line PCR) forms.
+// r-line PCR, split-additive ADI (r-line + z-line PCR), Chebyshev-polynomial
+// and z-semicoarsened two-level multigrid (mgz) forms, with the standard
+// recurrence or the Chronopoulos-Gear merged-dot recurrence.
 //
 // What bounds it on an H100: memory latency and launches, not arithmetic.
 // At the flagship shape (251 x 1107 = 277,857 nodes, one f32 plane is
@@ -28,6 +30,23 @@
 // only between blocks — no host round trip per iteration. Partial sums are
 // reduced in a fixed order in double, so a solve is deterministic.
 // Fusing phases, a CUDA graph or a persistent kernel are the next steps.
+//
+// The further forms reuse those phases. Chebyshev: each polynomial step is
+// one pass (k_cheb_step) that reads z's neighbours from one plane and writes
+// the new z into a second one, so no block reads a value another block is
+// rewriting; the step coefficients come from the device scalar lmax inside
+// the kernel, so no solve waits on a host read. mgz: one V(1,1) cycle is 7
+// launches (9 with two coarse sweeps): the damped r-line solve (k_pcr_row,
+// the row kernel with a scale, an optional plane to add to and an optional
+// restriction fused into its load), the fine residual (k_residual), the
+// restriction and coarse line solve in one pass, the embedded 9-point coarse
+// residual (k_coarse_res) between coarse sweeps, the prolongation
+// (k_prolong), the second residual and the post-smooth with the <r, z>
+// partials. Merged-dot: the vectors q = A p and w = A u are kept, gamma,
+// delta and <r, r> are taken in the one pass that forms w (k_merged_w), one
+// scalar kernel forms beta and the coupled alpha (k_finalize_merged), and
+// one pass updates p and q (k_pq_update): 4 launches an identity iteration
+// against 5, at one more plane of traffic.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,7 +67,9 @@ struct CGState {
 
 enum Phase {
   kPhInit = 0, kPhStencilDot, kPhUpdate, kPhPcrR, kPhPcrZ, kPhFinalize,
-  kPhPUpdate, kPhFinish, kNumPhases
+  kPhPUpdate, kPhFinish, kPhChebInit, kPhChebStep, kPhMergedW,
+  kPhFinalizeMerged, kPhPqUpdate, kPhResidual, kPhPcrRow, kPhCoarseRes,
+  kPhProlong, kNumPhases
 };
 
 enum FinalizeMode { kFinInit = 0, kFinAlpha = 1, kFinBeta = 2 };
@@ -264,6 +285,260 @@ __global__ void k_pcr_z(const float* __restrict__ r,
   if (tx == 0 && threadIdx.y == 0) part_rz[blockIdx.x] = acc;
 }
 
+// out = r - sm A (sm v): the fine residual of the mgz cycle.
+__global__ void k_residual(const float* __restrict__ A, int npts,
+                           const float* __restrict__ sm,
+                           const float* __restrict__ r,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, const CGState* st, int nz,
+                           int nr) {
+  if (st != nullptr && st->done) return;
+  const size_t n = (size_t)nz * nr;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int i = (int)(idx / nr), j = (int)(idx % nr);
+  out[idx] = r[idx] - sm[idx] * stencil_at(A, npts, sm, v, i, j, nz, nr);
+}
+
+// The Chebyshev polynomial's target interval [0.08, 1.05] lmax in the TPU
+// kernel's float32 arithmetic: theta, delta, and the coefficients of step
+// `step` (0-based) of d = c1 d + c2 res.
+struct ChebCoef { float theta, c1, c2; };
+
+__device__ __forceinline__ ChebCoef cheb_coef(float lmax, int step) {
+  const float lo = 0.08f * lmax, hi = 1.05f * lmax;
+  const float theta = 0.5f * (hi + lo), delta = 0.5f * (hi - lo);
+  const float sigma = theta / delta;
+  float rho = 1.0f / sigma, c1 = 0.0f, c2 = 0.0f;
+  for (int t = 0; t <= step; ++t) {
+    const float rho_new = 1.0f / (2.0f * sigma - rho);
+    c1 = rho_new * rho;
+    c2 = 2.0f * rho_new / delta;
+    rho = rho_new;
+  }
+  return {theta, c1, c2};
+}
+
+// d = r / theta, z = d; optionally the partials of <r, z>.
+__global__ void k_cheb_init(const float* __restrict__ r,
+                            const float* __restrict__ lmax,
+                            float* __restrict__ d, float* __restrict__ z,
+                            double* part_rz, int write_partial,
+                            const CGState* st, int n) {
+  if (st != nullptr && st->done) return;
+  const float theta = cheb_coef(lmax[0], -1).theta;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  double acc = 0.0;
+  if (idx < n) {
+    const float rv = r[idx];
+    const float dv = rv / theta;
+    d[idx] = dv;
+    z[idx] = dv;
+    acc = (double)(rv * dv);
+  }
+  if (write_partial) {
+    acc = block_sum(acc);
+    if (threadIdx.x == 0) part_rz[blockIdx.x] = acc;
+  }
+}
+
+// One polynomial step: res = r - sm A (sm z_in), d = c1 d + c2 res,
+// z_out = z_in + d. z_out is another plane than z_in: the stencil reads
+// z_in's neighbours while other blocks write z_out.
+__global__ void k_cheb_step(const float* __restrict__ A, int npts,
+                            const float* __restrict__ sm,
+                            const float* __restrict__ r,
+                            const float* __restrict__ z_in,
+                            float* __restrict__ d, float* __restrict__ z_out,
+                            const float* __restrict__ lmax, int step,
+                            double* part_rz, int write_partial,
+                            const CGState* st, int nz, int nr) {
+  if (st != nullptr && st->done) return;
+  const ChebCoef c = cheb_coef(lmax[0], step);
+  const size_t n = (size_t)nz * nr;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  double acc = 0.0;
+  if (idx < n) {
+    const int i = (int)(idx / nr), j = (int)(idx % nr);
+    const float rv = r[idx];
+    const float res = rv - sm[idx] * stencil_at(A, npts, sm, z_in, i, j, nz,
+                                                nr);
+    const float dv = c.c1 * d[idx] + c.c2 * res;
+    const float zv = z_in[idx] + dv;
+    d[idx] = dv;
+    z_out[idx] = zv;
+    acc = (double)(rv * zv);
+  }
+  if (write_partial) {
+    acc = block_sum(acc);
+    if (threadIdx.x == 0) part_rz[blockIdx.x] = acc;
+  }
+}
+
+// Merged-dot pass: w = sm A (sm u) with the partials of delta = <w, u>,
+// <r, r> and gamma = <r, u>, all on freshly produced data.
+__global__ void k_merged_w(const float* __restrict__ A, int npts,
+                           const float* __restrict__ sm,
+                           const float* __restrict__ u,
+                           const float* __restrict__ r, float* __restrict__ w,
+                           double* part_delta, double* part_rr,
+                           double* part_gamma, const CGState* st, int nz,
+                           int nr) {
+  if (st != nullptr && st->done) return;
+  const size_t n = (size_t)nz * nr;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  double dl = 0.0, rr = 0.0, ga = 0.0;
+  if (idx < n) {
+    const int i = (int)(idx / nr), j = (int)(idx % nr);
+    const float wv = sm[idx] * stencil_at(A, npts, sm, u, i, j, nz, nr);
+    const float uv = u[idx], rv = r[idx];
+    w[idx] = wv;
+    dl = (double)(wv * uv);
+    rr = (double)(rv * rv);
+    ga = (double)(rv * uv);
+  }
+  dl = block_sum(dl);
+  rr = block_sum(rr);
+  ga = block_sum(ga);
+  if (threadIdx.x == 0) {
+    part_delta[blockIdx.x] = dl;
+    part_rr[blockIdx.x] = rr;
+    part_gamma[blockIdx.x] = ga;
+  }
+}
+
+// p = u + beta p, q = w + beta q (p = u, q = w on the first call).
+__global__ void k_pq_update(float* __restrict__ p, float* __restrict__ q,
+                            const float* __restrict__ u,
+                            const float* __restrict__ w, const CGState* st,
+                            int first, int n) {
+  if (st->done && !first) return;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  if (first) {
+    p[idx] = u[idx];
+    q[idx] = w[idx];
+  } else {
+    const float beta = (float)st->beta;
+    p[idx] = u[idx] + beta * p[idx];
+    q[idx] = w[idx] + beta * q[idx];
+  }
+}
+
+// The row kernel of the mgz cycle, one block per z-row: the folded r-line
+// PCR levels of stack F on the row d, then
+//   out = (acc + scale * F[2L] d) * mask
+// with acc and mask optional (mask = (sm != 0)), and optionally the row's
+// partial of <dot, out>. The row d is src's row, or, with aux (the planes
+// sc, pm, pp, e_free), the scaled restriction of src onto the embedded
+// coarse rows,
+//   d = sc (e_free src[i] + (pp src)[i-1] + (pm src)[i+1])   (0 past the ends),
+// which is also written to store when that is given.
+__global__ void k_pcr_row(const float* __restrict__ src,
+                          const float* __restrict__ aux, float* store,
+                          const float* __restrict__ F, int levels, float scale,
+                          const float* acc_in, const float* __restrict__ sm,
+                          float* out, const float* __restrict__ dot,
+                          double* part, const CGState* st, int nz, int nr) {
+  if (st != nullptr && st->done) return;
+  extern __shared__ float line[];
+  float* d0 = line;
+  float* d1 = line + nr;
+  const size_t n = (size_t)nz * nr;
+  const int i = blockIdx.x;
+  const size_t row = (size_t)i * nr;
+  for (int j = threadIdx.x; j < nr; j += blockDim.x) {
+    float v;
+    if (aux != nullptr) {
+      const float* sc = aux;
+      const float* pm = aux + n;
+      const float* pp = aux + 2 * n;
+      const float* ef = aux + 3 * n;
+      float rc = ef[row + j] * src[row + j];
+      rc += i >= 1 ? pp[row - nr + j] * src[row - nr + j] : 0.0f;
+      rc += i + 1 < nz ? pm[row + nr + j] * src[row + nr + j] : 0.0f;
+      v = sc[row + j] * rc;
+      if (store != nullptr) store[row + j] = v;
+    } else {
+      v = src[row + j];
+    }
+    d0[j] = v;
+  }
+  __syncthreads();
+  int s = 1;
+  for (int k = 0; k < levels; ++k) {
+    const float* lo = F + (size_t)(2 * k) * n + row;
+    const float* up = F + (size_t)(2 * k + 1) * n + row;
+    for (int j = threadIdx.x; j < nr; j += blockDim.x) {
+      float v = d0[j];
+      if (j - s >= 0) v = v - lo[j] * d0[j - s];
+      if (j + s < nr) v = v - up[j] * d0[j + s];
+      d1[j] = v;
+    }
+    __syncthreads();
+    float* t = d0; d0 = d1; d1 = t;
+    s <<= 1;
+  }
+  const float* g = F + (size_t)(2 * levels) * n + row;
+  double a = 0.0;
+  for (int j = threadIdx.x; j < nr; j += blockDim.x) {
+    float v = scale * (g[j] * d0[j]);
+    if (acc_in != nullptr) v = acc_in[row + j] + v;
+    if (sm != nullptr) v = v * (sm[row + j] != 0.0f ? 1.0f : 0.0f);
+    out[row + j] = v;
+    if (dot != nullptr) a += (double)(dot[row + j] * v);
+  }
+  if (dot != nullptr) {
+    a = block_sum(a);
+    if (threadIdx.x == 0) part[blockIdx.x] = a;
+  }
+}
+
+// out = rcs - Ac9 y: the residual of the scaled embedded coarse operator,
+// a 9-point stencil whose z-offsets are +-2 fine rows (the plane order of
+// heatflow_tpu_torch/ops/mgz.py: MGZ_OFFSETS), zeros outside the grid.
+__global__ void k_coarse_res(const float* __restrict__ Ac9,
+                             const float* __restrict__ rcs,
+                             const float* __restrict__ y,
+                             float* __restrict__ out, const CGState* st,
+                             int nz, int nr) {
+  if (st != nullptr && st->done) return;
+  const size_t n = (size_t)nz * nr;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int i = (int)(idx / nr), j = (int)(idx % nr);
+  const int di[8] = {2, -2, 0, 0, 2, -2, 2, -2};
+  const int dj[8] = {0, 0, 1, -1, 1, -1, -1, 1};
+  float acc = Ac9[idx] * y[idx];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int ii = i + di[k], jj = j + dj[k];
+    if (ii >= 0 && ii < nz && jj >= 0 && jj < nr)
+      acc += Ac9[(size_t)(k + 1) * n + idx] * y[(size_t)ii * nr + jj];
+  }
+  out[idx] = rcs[idx] - acc;
+}
+
+// Prolongation of the coarse correction xc = sc y into x, in place:
+//   x += e_free xc[i] + pm xc[i-1] + pp xc[i+1]   (0 past the ends).
+__global__ void k_prolong(float* __restrict__ x, const float* __restrict__ y,
+                          const float* __restrict__ aux, const CGState* st,
+                          int nz, int nr) {
+  if (st != nullptr && st->done) return;
+  const size_t n = (size_t)nz * nr;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int i = (int)(idx / nr);
+  const float* sc = aux;
+  const float* pm = aux + n;
+  const float* pp = aux + 2 * n;
+  const float* ef = aux + 3 * n;
+  float v = x[idx] + ef[idx] * (sc[idx] * y[idx]);
+  v += pm[idx] * (i >= 1 ? sc[idx - nr] * y[idx - nr] : 0.0f);
+  v += pp[idx] * (i + 1 < nz ? sc[idx + nr] * y[idx + nr] : 0.0f);
+  x[idx] = v;
+}
+
 // Reduce n partials in a fixed order (deterministic); valid in all threads.
 __device__ double reduce_parts(const double* part, int n) {
   double s = 0.0;
@@ -311,6 +586,49 @@ __global__ void k_finalize(CGState* st, const double* part_pap,
   }
 }
 
+// The scalars of the merged-dot recurrence, in one block: gamma = <r, u>
+// (kept in st->rz), delta = <w, u>, rr = <r, r> when preconditioned and
+// gamma otherwise; first call: alpha = gamma / delta, the stop target and
+// the first stop test on <r0, r0>; later calls: beta = gamma' / gamma,
+// alpha' = gamma' / (delta - beta gamma' / alpha), each divisor 0 -> 1.
+__global__ void k_finalize_merged(CGState* st, const double* part_delta,
+                                  const double* part_rr,
+                                  const double* part_gamma,
+                                  const double* part_bb, int n_elem,
+                                  int preconditioned, int first,
+                                  const float* rtol, int maxiter,
+                                  int wrt_r0) {
+  if (!first && st->done) return;
+  const double delta = reduce_parts(part_delta, n_elem);
+  const double rr = reduce_parts(part_rr, n_elem);
+  const double gamma = reduce_parts(part_gamma, n_elem);
+  if (first) {
+    const double bb = reduce_parts(part_bb, n_elem);
+    if (threadIdx.x == 0) {
+      const double rt = (double)rtol[0];
+      st->rz = gamma;
+      st->rr = rr;
+      st->stop2 = rt * rt * (wrt_r0 ? rr : bb);
+      st->alpha = gamma / (delta != 0.0 ? delta : 1.0);
+      st->beta = 0.0;
+      st->k = 0;
+      st->done = !(0 < maxiter && st->rr > st->stop2);
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    const double beta = gamma / (st->rz != 0.0 ? st->rz : 1.0);
+    const double denom =
+        delta - beta * gamma / (st->alpha != 0.0 ? st->alpha : 1.0);
+    st->alpha = gamma / (denom != 0.0 ? denom : 1.0);
+    st->beta = beta;
+    st->rz = gamma;
+    st->rr = preconditioned ? rr : gamma;
+    st->k += 1;
+    st->done = !(st->k < maxiter && st->rr > st->stop2);
+  }
+}
+
 // p = z + beta p (p = z on the first call).
 __global__ void k_p_update(float* __restrict__ p, const float* __restrict__ z,
                            const CGState* st, int first, int n) {
@@ -336,11 +654,18 @@ __global__ void k_finish(float* __restrict__ x, int* iters,
 struct Solve {
   const float *A, *sm, *b, *x0, *rtol, *pcr, *pcrz;
   float *x, *r, *z, *p, *Ap;
-  double* parts;   // 4 x nparts: pAp, rr, rz, bb
+  double* parts;   // 4 x nparts: pAp (delta), rr, rz (gamma), bb
   CGState* st;
   int npts, lr, lz, nz, nr, maxiter, wrt_r0, nparts;
   long long* counts;
   cudaStream_t stream;
+  // the further forms (see hf_cg_extra_planes for the layout of `extra`)
+  const float* lmax;   // Chebyshev: device scalar, the bound on lambda_max
+  int cheb, merged;    // polynomial degree (0: none); merged-dot recurrence
+  const float *ac9, *pcrc, *aux;   // mgz operands (ac9 null: one sweep)
+  int lc, sweeps;
+  float omega, omega_c;
+  float* extra;
 
   int n() const { return nz * nr; }
   int elem_blocks() const { return (n() + kThreads - 1) / kThreads; }
@@ -348,7 +673,25 @@ struct Solve {
   double* part(int which) const { return parts + (size_t)which * nparts; }
   bool rline() const { return pcr != nullptr; }
   bool adi() const { return pcrz != nullptr; }
-  int n_rz() const { return adi() ? col_tiles() : rline() ? nz : 0; }
+  bool mgz() const { return pcrc != nullptr; }
+  bool preconditioned() const { return rline() || cheb > 0; }
+  int n_rz() const {
+    return mgz() ? nz : adi() ? col_tiles() : rline() ? nz
+           : cheb > 0 ? elem_blocks() : 0;
+  }
+  float* plane(int k) const { return extra + (size_t)k * n(); }
+  // planes of `extra`, in order: merged (q, w), Chebyshev (d, z2), mgz
+  // (r1, yc, rcs, res)
+  float* q() const { return plane(0); }
+  float* w() const { return plane(1); }
+  float* cheb_d() const { return plane(merged ? 2 : 0); }
+  float* cheb_z2() const { return plane(merged ? 3 : 1); }
+  float* mg(int k) const { return plane(k); }
+  // the plane that holds M^-1 r after precondition(): z, or the second
+  // Chebyshev plane after an odd number of polynomial steps
+  float* zout() const {
+    return cheb > 0 && ((cheb - 1) & 1) ? cheb_z2() : z;
+  }
 };
 
 size_t pcr_r_smem(int nr) { return 2 * (size_t)nr * sizeof(float); }
@@ -390,8 +733,110 @@ cudaError_t launch_pcr_z(const float* r, const float* sm, const float* F,
   return cudaGetLastError();
 }
 
-// z = M^-1 r for the solve's form, with the <r, z> partials.
+cudaError_t launch_pcr_row(const float* src, const float* aux, float* store,
+                           const float* F, int levels, float scale,
+                           const float* acc, const float* sm, float* out,
+                           const float* dot, double* part, const CGState* st,
+                           int nz, int nr, long long* counts,
+                           cudaStream_t stream) {
+  const size_t smem = pcr_r_smem(nr);
+  cudaError_t e = set_smem((const void*)k_pcr_row, smem);
+  if (e != cudaSuccess) return e;
+  k_pcr_row<<<nz, kThreads, smem, stream>>>(src, aux, store, F, levels, scale,
+                                            acc, sm, out, dot, part, st, nz,
+                                            nr);
+  counts[kPhPcrRow] += 1;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_residual(const float* A, int npts, const float* sm,
+                            const float* r, const float* v, float* out,
+                            const CGState* st, int nz, int nr,
+                            long long* counts, cudaStream_t stream) {
+  const int blocks = (nz * nr + kThreads - 1) / kThreads;
+  k_residual<<<blocks, kThreads, 0, stream>>>(A, npts, sm, r, v, out, st, nz,
+                                              nr);
+  counts[kPhResidual] += 1;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_coarse_res(const float* ac9, const float* rcs,
+                              const float* y, float* out, const CGState* st,
+                              int nz, int nr, long long* counts,
+                              cudaStream_t stream) {
+  const int blocks = (nz * nr + kThreads - 1) / kThreads;
+  k_coarse_res<<<blocks, kThreads, 0, stream>>>(ac9, rcs, y, out, st, nz, nr);
+  counts[kPhCoarseRes] += 1;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_prolong(float* x, const float* y, const float* aux,
+                           const CGState* st, int nz, int nr,
+                           long long* counts, cudaStream_t stream) {
+  const int blocks = (nz * nr + kThreads - 1) / kThreads;
+  k_prolong<<<blocks, kThreads, 0, stream>>>(x, y, aux, st, nz, nr);
+  counts[kPhProlong] += 1;
+  return cudaGetLastError();
+}
+
+// The mgz V(1,1) cycle: z = M^-1 r with the <r, z> partials (one a row).
+cudaError_t precondition_mgz(const Solve& s, const float* r, float* z,
+                             const CGState* st) {
+  float *r1 = s.mg(0), *yc = s.mg(1), *rcs = s.mg(2), *res = s.mg(3);
+  cudaError_t e;
+#define HF_TRY(call) if ((e = (call)) != cudaSuccess) return e
+  // pre-smooth from zero: one damped fine r-line solve
+  HF_TRY(launch_pcr_row(r, nullptr, nullptr, s.pcr, s.lr, s.omega, nullptr,
+                        nullptr, z, nullptr, nullptr, st, s.nz, s.nr,
+                        s.counts, s.stream));
+  HF_TRY(launch_residual(s.A, s.npts, s.sm, r, z, r1, st, s.nz, s.nr,
+                         s.counts, s.stream));
+  // restriction, scaling and the first coarse line solve, from zero
+  HF_TRY(launch_pcr_row(r1, s.aux, s.sweeps > 1 ? rcs : nullptr, s.pcrc, s.lc,
+                        s.omega_c, nullptr, nullptr, yc, nullptr, nullptr, st,
+                        s.nz, s.nr, s.counts, s.stream));
+  for (int k = 1; k < s.sweeps; ++k) {
+    HF_TRY(launch_coarse_res(s.ac9, rcs, yc, res, st, s.nz, s.nr, s.counts,
+                             s.stream));
+    HF_TRY(launch_pcr_row(res, nullptr, nullptr, s.pcrc, s.lc, s.omega_c, yc,
+                          nullptr, yc, nullptr, nullptr, st, s.nz, s.nr,
+                          s.counts, s.stream));
+  }
+  HF_TRY(launch_prolong(z, yc, s.aux, st, s.nz, s.nr, s.counts, s.stream));
+  HF_TRY(launch_residual(s.A, s.npts, s.sm, r, z, r1, st, s.nz, s.nr,
+                         s.counts, s.stream));
+  // post-smooth, the free mask and the <r, z> partials
+  return launch_pcr_row(r1, nullptr, nullptr, s.pcr, s.lr, s.omega, z, s.sm,
+                        z, r, s.part(2), st, s.nz, s.nr, s.counts, s.stream);
+#undef HF_TRY
+}
+
+// The Chebyshev polynomial: the result lands in s.zout().
+cudaError_t precondition_cheb(const Solve& s, const float* r,
+                              const CGState* st) {
+  float* d = s.cheb_d();
+  float* zin = s.z;
+  float* zalt = s.cheb_z2();
+  k_cheb_init<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
+      r, s.lmax, d, zin, s.part(2), s.cheb == 1, st, s.n());
+  s.counts[kPhChebInit] += 1;
+  cudaError_t e = cudaGetLastError();
+  for (int k = 0; k < s.cheb - 1 && e == cudaSuccess; ++k) {
+    k_cheb_step<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
+        s.A, s.npts, s.sm, r, zin, d, zalt, s.lmax, k, s.part(2),
+        k == s.cheb - 2, st, s.nz, s.nr);
+    s.counts[kPhChebStep] += 1;
+    e = cudaGetLastError();
+    float* t = zin; zin = zalt; zalt = t;
+  }
+  return e;
+}
+
+// M^-1 r for the solve's form, with the <r, z> partials; the result is in
+// s.zout() (r itself in the identity form, where z aliases r).
 cudaError_t precondition(const Solve& s) {
+  if (s.mgz()) return precondition_mgz(s, s.r, s.z, s.st);
+  if (s.cheb > 0) return precondition_cheb(s, s.r, s.st);
   if (!s.rline()) return cudaSuccess;   // identity: z aliases r
   cudaError_t e = launch_pcr_r(s.r, s.sm, s.pcr, s.lr, s.z, s.part(2),
                                s.adi() ? 0 : 1, s.st, s.nz, s.nr, s.counts,
@@ -410,9 +855,29 @@ cudaError_t finalize(const Solve& s, int mode) {
 }
 
 cudaError_t p_update(const Solve& s, int first) {
-  k_p_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(s.p, s.z, s.st,
+  k_p_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(s.p, s.zout(), s.st,
                                                          first, s.n());
   s.counts[kPhPUpdate] += 1;
+  return cudaGetLastError();
+}
+
+// The merged-dot tail of a step: w = A u with gamma, delta and <r, r>, the
+// scalars, then p and q.
+cudaError_t merged_tail(const Solve& s, int first) {
+  k_merged_w<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
+      s.A, s.npts, s.sm, s.zout(), s.r, s.w(), s.part(0), s.part(1),
+      s.part(2), s.st, s.nz, s.nr);
+  s.counts[kPhMergedW] += 1;
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  k_finalize_merged<<<1, kThreads, 0, s.stream>>>(
+      s.st, s.part(0), s.part(1), s.part(2), s.part(3), s.elem_blocks(),
+      s.preconditioned(), first, s.rtol, s.maxiter, s.wrt_r0);
+  s.counts[kPhFinalizeMerged] += 1;
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  k_pq_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
+      s.p, s.q(), s.zout(), s.w(), s.st, first, s.n());
+  s.counts[kPhPqUpdate] += 1;
   return cudaGetLastError();
 }
 
@@ -425,12 +890,22 @@ cudaError_t start(const Solve& s) {
   s.counts[kPhInit] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if ((e = precondition(s)) != cudaSuccess) return e;
+  if (s.merged) return merged_tail(s, 1);
   if ((e = finalize(s, kFinInit)) != cudaSuccess) return e;
   return p_update(s, 1);
 }
 
 cudaError_t iterate(const Solve& s) {
   cudaError_t e;
+  if (s.merged) {
+    // x += alpha p, r -= alpha q; u = M^-1 r; then the merged tail
+    k_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
+        s.x, s.r, s.p, s.q(), s.part(1), s.st, s.n());
+    s.counts[kPhUpdate] += 1;
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if ((e = precondition(s)) != cudaSuccess) return e;
+    return merged_tail(s, 0);
+  }
   k_stencil_dot<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
       s.A, s.npts, s.sm, s.p, s.Ap, s.part(0), s.st, s.nz, s.nr);
   s.counts[kPhStencilDot] += 1;
@@ -458,12 +933,16 @@ cudaError_t iterate(const Solve& s) {
       const float *x0, const float *rtol, const float *pcr, int lr,          \
       const float *pcrz, int lz, float *x, float *r, float *z, float *p,     \
       float *Ap, double *parts, int nparts, void *state, int nz, int nr,     \
-      int maxiter, int wrt_r0, long long *counts, void *stream
+      int maxiter, int wrt_r0, long long *counts, void *stream,              \
+      const float *lmax, int cheb, int merged, const float *ac9,             \
+      const float *pcrc, int lc, const float *aux, int sweeps, float omega,  \
+      float omega_c, float *extra
 
 #define HF_SOLVE_INIT                                                        \
   Solve s{A, sm, b, x0, rtol, pcr, pcrz, x, r, z, p, Ap, parts,              \
           (CGState *)state, npts, lr, lz, nz, nr, maxiter, wrt_r0, nparts,   \
-          counts, (cudaStream_t)stream}
+          counts, (cudaStream_t)stream, lmax, cheb, merged, ac9, pcrc, aux,  \
+          lc, sweeps, omega, omega_c, extra}
 
 extern "C" {
 
@@ -478,6 +957,12 @@ int hf_cg_nparts(int nz, int nr) {
 int hf_cg_state_bytes() { return (int)sizeof(CGState); }
 
 int hf_num_phases() { return kNumPhases; }
+
+// (Nz, Nr) planes of `extra` a form needs: q and w (merged), d and the
+// second z plane (Chebyshev), r1, yc, rcs and res (mgz).
+int hf_cg_extra_planes(int cheb, int merged, int mgz) {
+  return (merged ? 2 : 0) + (cheb > 0 ? 2 : 0) + (mgz ? 4 : 0);
+}
 
 // x = x0, initial residual, preconditioned residual, scalars, p = z.
 int hf_cg_tol_start(HF_SOLVE_ARGS) {
@@ -526,6 +1011,92 @@ int hf_pcr_z(const float *r, const float *sm, const float *F, int levels,
              void *stream) {
   return (int)launch_pcr_z(r, sm, F, levels, z, part, nullptr, nz, nr,
                            counts, (cudaStream_t)stream);
+}
+
+// z = M^-1 r of the Chebyshev (cheb > 0) or mgz (pcrc given) form alone,
+// with the <r, z> partials in parts plane 2; *which = 1 when the result is
+// in the second plane of `extra` and not in z (Chebyshev, even degree).
+int hf_precond_apply(const float *A, int npts, const float *sm,
+                     const float *r, const float *pcr, int lr, float *z,
+                     double *parts, int nparts, int nz, int nr,
+                     long long *counts, void *stream, const float *lmax,
+                     int cheb, const float *ac9, const float *pcrc, int lc,
+                     const float *aux, int sweeps, float omega, float omega_c,
+                     float *extra, int *which) {
+  Solve s{A, sm, nullptr, nullptr, nullptr, pcr, nullptr, nullptr,
+          const_cast<float *>(r), z, nullptr, nullptr, parts, nullptr, npts,
+          lr, 0, nz, nr, 0, 0, nparts, counts, (cudaStream_t)stream, lmax,
+          cheb, 0, ac9, pcrc, aux, lc, sweeps, omega, omega_c, extra};
+  *which = s.zout() != z;
+  return (int)precondition(s);
+}
+
+int hf_residual(const float *A, int npts, const float *sm, const float *r,
+                const float *v, float *out, int nz, int nr,
+                long long *counts, void *stream) {
+  return (int)launch_residual(A, npts, sm, r, v, out, nullptr, nz, nr, counts,
+                              (cudaStream_t)stream);
+}
+
+// The mgz row kernel alone (see k_pcr_row); aux, store, acc, sm and dot
+// may be null.
+int hf_pcr_row(const float *src, const float *aux, float *store,
+               const float *F, int levels, float scale, const float *acc,
+               const float *sm, float *out, const float *dot, double *part,
+               int nz, int nr, long long *counts, void *stream) {
+  return (int)launch_pcr_row(src, aux, store, F, levels, scale, acc, sm, out,
+                             dot, part, nullptr, nz, nr, counts,
+                             (cudaStream_t)stream);
+}
+
+int hf_coarse_res(const float *ac9, const float *rcs, const float *y,
+                  float *out, int nz, int nr, long long *counts,
+                  void *stream) {
+  return (int)launch_coarse_res(ac9, rcs, y, out, nullptr, nz, nr, counts,
+                                (cudaStream_t)stream);
+}
+
+int hf_prolong(float *x, const float *y, const float *aux, int nz, int nr,
+               long long *counts, void *stream) {
+  return (int)launch_prolong(x, y, aux, nullptr, nz, nr, counts,
+                             (cudaStream_t)stream);
+}
+
+// w = sm A (sm u) with the partials of delta, <r, r> and gamma in parts
+// planes 0, 1 and 2.
+int hf_merged_w(const float *A, int npts, const float *sm, const float *u,
+                const float *r, float *w, double *parts, int nparts, int nz,
+                int nr, long long *counts, void *stream) {
+  const int blocks = (nz * nr + kThreads - 1) / kThreads;
+  k_merged_w<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      A, npts, sm, u, r, w, parts, parts + nparts, parts + 2 * (size_t)nparts,
+      nullptr, nz, nr);
+  counts[kPhMergedW] += 1;
+  return (int)cudaGetLastError();
+}
+
+// The merged recurrence's scalar phase on a state record and 4 x nparts
+// partial sums (delta, rr, gamma, bb), n_elem of each.
+int hf_finalize_merged(void *state, const double *parts, int nparts,
+                       int n_elem, int preconditioned, int first,
+                       const float *rtol, int maxiter, int wrt_r0,
+                       long long *counts, void *stream) {
+  k_finalize_merged<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+      (CGState *)state, parts, parts + nparts, parts + 2 * (size_t)nparts,
+      parts + 3 * (size_t)nparts, n_elem, preconditioned, first, rtol,
+      maxiter, wrt_r0);
+  counts[kPhFinalizeMerged] += 1;
+  return (int)cudaGetLastError();
+}
+
+// p = u + beta p, q = w + beta q in place, beta from the state record.
+int hf_pq_update(float *p, float *q, const float *u, const float *w,
+                 const void *state, int n, long long *counts, void *stream) {
+  k_pq_update<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                (cudaStream_t)stream>>>(p, q, u, w, (const CGState *)state, 0,
+                                        n);
+  counts[kPhPqUpdate] += 1;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

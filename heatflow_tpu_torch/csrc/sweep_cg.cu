@@ -7,7 +7,8 @@
 //
 // Replaces: heatflow_tpu/ops/pallas_cg.py:_sweep_cg_tol_kernel (tolerance
 // mode: identity, r-line, has_kv=False, and the adi / adaptive branches,
-// whose z-line phase is ks_pcr_z below) and :_sweep_cg_kernel (fixed mode).
+// whose z-line phase is ks_pcr_z below, and the merged-dot recurrence of
+// each of them) and :_sweep_cg_kernel (fixed mode).
 // The TPU kernels run one config per grid step, each config's whole solve
 // resident in VMEM, one config after another.
 //
@@ -54,6 +55,14 @@
 //    them in every ADI or adaptive lane, each phase writing zeros over the
 //    slots it does not own, so a lane's sum is the same whichever form ran
 //    (adding 0.0 changes no sum) and does not depend on its neighbours.
+//  * the merged-dot (Chronopoulos-Gear) recurrence keeps q = A p and
+//    w = A u per lane (two more planes a lane), takes gamma = <r, u>,
+//    delta = <w, u> and <r, r> in the pass that forms w (ks_merged_w), and
+//    forms beta and the coupled alpha in one scalar kernel: 4 launches an
+//    identity iteration against 5. The done flags, the compaction and the
+//    adaptive flags work as in the standard form; gamma does not come from
+//    the preconditioner phases' partials, so an adaptive lane's sums are
+//    those of the static lane of its form.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,6 +87,7 @@ struct LaneState {
 enum Phase {
   kPhInit = 0, kPhStencilDot, kPhUpdate, kPhPcrR, kPhFinalize, kPhPUpdate,
   kPhCompact, kPhFinish, kPhInitNoKv, kPhStencilDotNoKv, kPhPcrZ,
+  kPhMergedW, kPhMergedWNoKv, kPhFinalizeMerged, kPhPqUpdate,
   kNumPhases
 };
 
@@ -177,6 +187,8 @@ struct Sweep {
   cudaStream_t stream;
   const int* flags;   // adaptive: per-lane ADI flags (B int32), else null
   int adi;            // 0: no z phase; 1: every lane; 2: the flagged lanes
+  int merged;         // the merged-dot recurrence
+  float *q, *w;       // its A p and A u planes (B, Nz, Nr), else null
 
   size_t n() const { return (size_t)nz * nr; }
   int tiles() const { return (int)((n() + kTile - 1) / kTile); }
@@ -537,6 +549,115 @@ __global__ void ks_p_update(float* __restrict__ p, const float* __restrict__ z,
   }
 }
 
+// Merged-dot pass: w = sm A_b (sm u) with the partials of delta = <w, u>
+// (the pAp plane), <r, r> and gamma = <r, u> (the rz plane).
+template <bool HAS_KV>
+__global__ void ks_merged_w(const float* __restrict__ A0,
+                            const float* __restrict__ Kv, int npts,
+                            const float* __restrict__ dks,
+                            const float* __restrict__ sm, size_t sm_stride,
+                            const float* __restrict__ u,
+                            const float* __restrict__ r,
+                            float* __restrict__ w, double* part_delta,
+                            double* part_rr, double* part_gamma,
+                            const LaneState* st,
+                            const int* __restrict__ lanes, int nz, int nr,
+                            int nparts) {
+  const int lane = lanes[blockIdx.y];
+  if (st != nullptr && st[lane].done) return;
+  const size_t n = (size_t)nz * nr;
+  const size_t off = (size_t)lane * n;
+  const float* sml = sm + (size_t)lane * sm_stride;
+  const float dk = HAS_KV ? dks[lane] : 0.0f;
+  double dl = 0.0, rr = 0.0, ga = 0.0;
+  for (int m = 0; m < kPerThread; ++m) {
+    const size_t idx = elem(m);
+    if (idx < n) {
+      const int i = (int)(idx / nr), j = (int)(idx % nr);
+      const float wv = sml[idx] * stencil_at<HAS_KV>(A0, Kv, npts, dk, sml,
+                                                     u + off, i, j, nz, nr);
+      const float uv = u[off + idx], rv = r[off + idx];
+      w[off + idx] = wv;
+      dl += (double)(wv * uv);
+      rr += (double)(rv * rv);
+      ga += (double)(rv * uv);
+    }
+  }
+  dl = block_sum(dl);
+  rr = block_sum(rr);
+  ga = block_sum(ga);
+  if (threadIdx.x == 0) {
+    const size_t slot = (size_t)lane * nparts + blockIdx.x;
+    part_delta[slot] = dl;
+    part_rr[slot] = rr;
+    part_gamma[slot] = ga;
+  }
+}
+
+// The merged recurrence's scalars of one lane a block: gamma = <r, u> (kept
+// in rz), delta = <w, u>, rr = <r, r> when preconditioned and gamma
+// otherwise. First call: alpha = gamma / delta, the stop target and the
+// first stop test on <r0, r0>; later: beta = gamma' / gamma,
+// alpha' = gamma' / (delta - beta gamma' / alpha), each divisor 0 -> 1.
+__global__ void ks_finalize_merged(LaneState* st, const double* parts, int B,
+                                   int nparts, int n_elem, int preconditioned,
+                                   int first, const float* __restrict__ rtol,
+                                   int maxiter, int wrt_r0,
+                                   const int* __restrict__ lanes) {
+  const int lane = lanes[blockIdx.x];
+  LaneState* s = st + lane;
+  if (!first && s->done) return;
+  const size_t plane = (size_t)B * nparts;
+  const double* base = parts + (size_t)lane * nparts;
+  const double delta = reduce_parts(base + kPartPap * plane, n_elem);
+  const double rr = reduce_parts(base + kPartRr * plane, n_elem);
+  const double gamma = reduce_parts(base + kPartRz * plane, n_elem);
+  if (first) {
+    const double bb = reduce_parts(base + kPartBb * plane, n_elem);
+    if (threadIdx.x == 0) {
+      const double rt = (double)rtol[lane];
+      s->rz = gamma;
+      s->rr = rr;
+      s->stop2 = rt * rt * (wrt_r0 ? rr : bb);
+      s->alpha = gamma / (delta != 0.0 ? delta : 1.0);
+      s->beta = 0.0;
+      s->k = 0;
+      s->done = !(0 < maxiter && s->rr > s->stop2);
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    const double beta = gamma / (s->rz != 0.0 ? s->rz : 1.0);
+    const double denom =
+        delta - beta * gamma / (s->alpha != 0.0 ? s->alpha : 1.0);
+    s->alpha = gamma / (denom != 0.0 ? denom : 1.0);
+    s->beta = beta;
+    s->rz = gamma;
+    s->rr = preconditioned ? rr : gamma;
+    s->k += 1;
+    s->done = !(s->k < maxiter && s->rr > s->stop2);
+  }
+}
+
+// p = u + beta p, q = w + beta q (p = u, q = w on the first call).
+__global__ void ks_pq_update(float* __restrict__ p, float* __restrict__ q,
+                             const float* __restrict__ u,
+                             const float* __restrict__ w, const LaneState* st,
+                             const int* __restrict__ lanes, int first,
+                             size_t n) {
+  const int lane = lanes[blockIdx.y];
+  if (st[lane].done && !first) return;
+  const float beta = (float)st[lane].beta;
+  const size_t off = (size_t)lane * n;
+  for (int m = 0; m < kPerThread; ++m) {
+    const size_t idx = elem(m);
+    if (idx < n) {
+      p[off + idx] = first ? u[off + idx] : u[off + idx] + beta * p[off + idx];
+      q[off + idx] = first ? w[off + idx] : w[off + idx] + beta * q[off + idx];
+    }
+  }
+}
+
 // The running lanes, in lane order, into lanes[0 .. count); one block.
 __global__ void ks_compact(const LaneState* st, int B, int* lanes,
                            int* count) {
@@ -702,6 +823,51 @@ cudaError_t launch_p_update(float* p, const float* z, const LaneState* st,
   return cudaGetLastError();
 }
 
+cudaError_t launch_merged_w(const float* A0, const float* Kv, int npts,
+                            const float* dks, const float* sm,
+                            size_t sm_stride, const float* u, const float* r,
+                            float* w, double* part_delta, double* part_rr,
+                            double* part_gamma, const LaneState* st,
+                            const int* lanes, int n_lanes, int nz, int nr,
+                            int nparts, long long* counts,
+                            cudaStream_t stream) {
+  const dim3 grid(tiles_of(nz, nr), n_lanes);
+  if (Kv != nullptr) {
+    ks_merged_w<true><<<grid, kThreads, 0, stream>>>(
+        A0, Kv, npts, dks, sm, sm_stride, u, r, w, part_delta, part_rr,
+        part_gamma, st, lanes, nz, nr, nparts);
+    counts[kPhMergedW] += 1;
+  } else {
+    ks_merged_w<false><<<grid, kThreads, 0, stream>>>(
+        A0, Kv, npts, dks, sm, sm_stride, u, r, w, part_delta, part_rr,
+        part_gamma, st, lanes, nz, nr, nparts);
+    counts[kPhMergedWNoKv] += 1;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_finalize_merged(LaneState* st, const double* parts, int B,
+                                   int nparts, int n_elem, int preconditioned,
+                                   int first, const float* rtol, int maxiter,
+                                   int wrt_r0, const int* lanes, int n_lanes,
+                                   long long* counts, cudaStream_t stream) {
+  ks_finalize_merged<<<n_lanes, kThreads, 0, stream>>>(
+      st, parts, B, nparts, n_elem, preconditioned, first, rtol, maxiter,
+      wrt_r0, lanes);
+  counts[kPhFinalizeMerged] += 1;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_pq_update(float* p, float* q, const float* u,
+                             const float* w, const LaneState* st,
+                             const int* lanes, int first, int n_lanes, int nz,
+                             int nr, long long* counts, cudaStream_t stream) {
+  ks_pq_update<<<dim3(tiles_of(nz, nr), n_lanes), kThreads, 0, stream>>>(
+      p, q, u, w, st, lanes, first, (size_t)nz * nr);
+  counts[kPhPqUpdate] += 1;
+  return cudaGetLastError();
+}
+
 // z = M^-1 r with the <r, z> partials: the r-line solve, then in the ADI
 // and adaptive forms the z-line phase (every lane, or the flagged ones);
 // identity: z is r.
@@ -724,6 +890,25 @@ cudaError_t finalize(const Sweep& s, int mode, int n_lanes) {
                          n_lanes, s.counts, s.stream);
 }
 
+// The merged-dot tail of a step: w = A u with gamma, delta and <r, r>, the
+// scalars, then p and q.
+cudaError_t merged_tail(const Sweep& s, int first, int n_lanes) {
+  cudaError_t e;
+  if ((e = launch_merged_w(s.A0, s.Kv, s.npts, s.dks, s.sm, s.sm_stride, s.z,
+                           s.r, s.w, s.part(kPartPap), s.part(kPartRr),
+                           s.part(kPartRz), s.st, s.lanes, n_lanes, s.nz,
+                           s.nr, s.nparts, s.counts, s.stream))
+      != cudaSuccess)
+    return e;
+  if ((e = launch_finalize_merged(s.st, s.parts, s.B, s.nparts, s.tiles(),
+                                  s.rline, first, s.rtol, s.maxiter, s.wrt_r0,
+                                  s.lanes, n_lanes, s.counts, s.stream))
+      != cudaSuccess)
+    return e;
+  return launch_pq_update(s.p, s.q, s.z, s.w, s.st, s.lanes, first, n_lanes,
+                          s.nz, s.nr, s.counts, s.stream);
+}
+
 cudaError_t start(const Sweep& s) {
   cudaError_t e = cudaMemsetAsync(s.st, 0, (size_t)s.B * sizeof(LaneState),
                                   s.stream);
@@ -734,6 +919,7 @@ cudaError_t start(const Sweep& s) {
                        s.stream)) != cudaSuccess)
     return e;
   if ((e = precondition(s, s.B)) != cudaSuccess) return e;
+  if (s.merged) return merged_tail(s, 1, s.B);
   if ((e = finalize(s, kFinInit, s.B)) != cudaSuccess) return e;
   return launch_p_update(s.p, s.z, s.st, s.lanes, 1, s.B, s.nz, s.nr,
                          s.counts, s.stream);
@@ -741,6 +927,15 @@ cudaError_t start(const Sweep& s) {
 
 cudaError_t iterate(const Sweep& s, int n_lanes) {
   cudaError_t e;
+  if (s.merged) {
+    // x += alpha p, r -= alpha q; u = M^-1 r; then the merged tail
+    if ((e = launch_update(s.x, s.r, s.p, s.q, s.part(kPartRr), s.st, s.lanes,
+                           n_lanes, s.nz, s.nr, s.nparts, s.counts, s.stream))
+        != cudaSuccess)
+      return e;
+    if ((e = precondition(s, n_lanes)) != cudaSuccess) return e;
+    return merged_tail(s, 0, n_lanes);
+  }
   if ((e = launch_stencil_dot(s.A0, s.Kv, s.npts, s.dks, s.sm, s.sm_stride,
                               s.p, s.Ap, s.part(kPartPap), s.st, s.lanes,
                               n_lanes, s.nz, s.nr, s.nparts, s.counts,
@@ -774,13 +969,14 @@ cudaError_t iterate(const Sweep& s, int n_lanes) {
       double *parts,                                                         \
       int nparts, void *state, int *lanes, int B, int nz, int nr,            \
       int maxiter, int wrt_r0, int rline, int fixed, int adi,                \
-      const int *flags, long long *counts, void *stream
+      const int *flags, long long *counts, void *stream, int merged,         \
+      float *q, float *w
 
 #define HF_SWEEP_INIT                                                        \
   Sweep s{A0, Kv, dks, sm, b, x0, rtol, x, r, z, p, Ap, parts,               \
           (LaneState *)state, lanes, npts, nz, nr, B, maxiter, wrt_r0,       \
           rline, fixed, nparts, sm_lane ? (size_t)nz * nr : 0, counts,       \
-          (cudaStream_t)stream, flags, adi}
+          (cudaStream_t)stream, flags, adi, merged, q, w}
 
 extern "C" {
 
@@ -919,6 +1115,42 @@ int hf_sweep_p_update(float *p, const float *z, const void *state,
                       int nr, long long *counts, void *stream) {
   return (int)launch_p_update(p, z, (const LaneState *)state, lanes, first,
                               n_lanes, nz, nr, counts, (cudaStream_t)stream);
+}
+
+// The merged-dot pass alone: w = sm A_b (sm u); `parts` is three planes of
+// B x nparts doubles (delta, <r, r>, gamma).
+int hf_sweep_merged_w(const float *A0, const float *Kv, int npts,
+                      const float *dks, const float *sm, int sm_lane,
+                      const float *u, const float *r, float *w, double *parts,
+                      const int *lanes, int n_lanes, int B, int nz, int nr,
+                      int nparts, long long *counts, void *stream) {
+  const size_t plane = (size_t)B * nparts;
+  return (int)launch_merged_w(A0, Kv, npts, dks, sm,
+                              sm_lane ? (size_t)nz * nr : 0, u, r, w, parts,
+                              parts + plane, parts + 2 * plane, nullptr,
+                              lanes, n_lanes, nz, nr, nparts, counts,
+                              (cudaStream_t)stream);
+}
+
+// The merged recurrence's scalar phase alone; `parts` four planes (delta,
+// rr, gamma, bb), n_elem partials of each a lane.
+int hf_sweep_finalize_merged(void *state, const double *parts, int B,
+                             int nparts, int n_elem, int preconditioned,
+                             int first, const float *rtol, int maxiter,
+                             int wrt_r0, const int *lanes, int n_lanes,
+                             long long *counts, void *stream) {
+  return (int)launch_finalize_merged((LaneState *)state, parts, B, nparts,
+                                     n_elem, preconditioned, first, rtol,
+                                     maxiter, wrt_r0, lanes, n_lanes, counts,
+                                     (cudaStream_t)stream);
+}
+
+// p = u + beta p, q = w + beta q in place, beta from each lane's state.
+int hf_sweep_pq_update(float *p, float *q, const float *u, const float *w,
+                       const void *state, const int *lanes, int n_lanes,
+                       int nz, int nr, long long *counts, void *stream) {
+  return (int)launch_pq_update(p, q, u, w, (const LaneState *)state, lanes, 0,
+                               n_lanes, nz, nr, counts, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -290,7 +290,8 @@ def main(argv=None) -> FitResult:
     p.add_argument("--precondition", default=None,
                    choices=["jacobi", "rline", "adi", "mg"],
                    help="CG preconditioner (default: rline on the kernels, "
-                        "jacobi on the eager path; 'mg' is not ported yet)")
+                        "jacobi on the eager path; 'mg', the multigrid "
+                        "V-cycle, runs on the eager path)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; fails when "
                         "there is no card; 'cpu' runs float64 and the plain "

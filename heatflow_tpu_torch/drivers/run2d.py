@@ -306,7 +306,9 @@ def main(argv=None):
                    help="CG preconditioner: 'rline' r-line block-"
                         "tridiagonal (PCR), 'adi' r-line + z-line, "
                         "'adaptive' the per-step rline/adi switch (kernel "
-                        "path). 'mg' and 'mgz' are not ported yet. Default: "
+                        "path), 'mg' the geometric multigrid V-cycle "
+                        "(eager path), 'mgz' the z-semicoarsened two-level "
+                        "V-cycle inside the kernel (kernel path). Default: "
                         "the per-regime choice (f32 'adi', refined "
                         "'adaptive' on the kernel path, f64 'jacobi')")
     p.add_argument("--f64-refine", type=int, default=0,

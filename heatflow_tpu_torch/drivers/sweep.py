@@ -487,7 +487,8 @@ def main(argv=None, timings: dict | None = None):
                    default=None,
                    help="CG preconditioner (default: rline for f32 "
                         "--record-gradient sweeps, jacobi otherwise); "
-                        "'adi' runs the batched kernel's ADI form")
+                        "'adi' runs the batched kernel's ADI form, 'mg' "
+                        "the multigrid V-cycle on the eager path")
     p.add_argument("--f64-refine", type=int, default=0, metavar="N",
                    help="mixed-precision sweeps (f32): N passes of "
                         "f64-operator residual refinement per step")

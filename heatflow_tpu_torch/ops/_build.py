@@ -105,14 +105,15 @@ def _sig(fn, *argtypes):
 
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' library, with argtypes set:
-    every pointer and the stream as ``c_void_p``, every count as ``c_int``."""
+    every pointer and the stream as ``c_void_p``, every count as ``c_int``,
+    the damping factors as ``c_float``."""
     global _lib
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(build())
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     solve = [P, I, P, P, P, P, P, I, P, I, P, P, P, P, P, P, I, P, I, I, I,
-             I, P, P]
+             I, P, P, P, I, I, P, P, I, P, I, F, F, P]
     _sig(lib.hf_cg_nparts, I, I)
     _sig(lib.hf_cg_state_bytes)
     _sig(lib.hf_num_phases)
@@ -122,9 +123,19 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_stencil_dot, P, I, P, P, P, P, I, I, P, P)
     _sig(lib.hf_pcr_r, P, P, P, I, P, P, I, I, P, P)
     _sig(lib.hf_pcr_z, P, P, P, I, P, P, I, I, P, P)
+    _sig(lib.hf_cg_extra_planes, I, I, I)
+    _sig(lib.hf_precond_apply, P, I, P, P, P, I, P, P, I, I, I, P, P, P, I, P,
+         P, I, P, I, F, F, P, P)
+    _sig(lib.hf_residual, P, I, P, P, P, P, I, I, P, P)
+    _sig(lib.hf_pcr_row, P, P, P, P, I, F, P, P, P, P, P, I, I, P, P)
+    _sig(lib.hf_coarse_res, P, P, P, P, I, I, P, P)
+    _sig(lib.hf_prolong, P, P, P, I, I, P, P)
+    _sig(lib.hf_merged_w, P, I, P, P, P, P, P, I, I, I, P, P)
+    _sig(lib.hf_finalize_merged, P, P, I, I, I, I, P, I, I, P, P)
+    _sig(lib.hf_pq_update, P, P, P, P, P, I, P, P)
     # csrc/sweep_cg.cu
     sweep = [P, P, I, P, P, I, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I,
-             I, I, I, I, I, P, P, P]
+             I, I, I, I, I, P, P, P, I, P, P]
     _sig(lib.hf_sweep_tiles, I, I)
     _sig(lib.hf_sweep_z_tiles, I, I)
     _sig(lib.hf_sweep_nparts, I, I)
@@ -144,5 +155,10 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_sweep_pcr_z, P, P, P, P, I, P, P, P, P, I, I, I, I, P, P)
     _sig(lib.hf_sweep_finalize, P, P, I, I, I, I, I, P, I, I, I, P, I, P, P)
     _sig(lib.hf_sweep_p_update, P, P, P, P, I, I, I, I, P, P)
+    _sig(lib.hf_sweep_merged_w, P, P, I, P, P, I, P, P, P, P, P, I, I, I, I,
+         I, P, P)
+    _sig(lib.hf_sweep_finalize_merged, P, P, I, I, I, I, I, P, I, I, P, I, P,
+         P)
+    _sig(lib.hf_sweep_pq_update, P, P, P, P, P, P, I, I, I, P, P)
     _lib = lib
     return _lib

@@ -55,6 +55,30 @@ def refine_inner_scale(rn2: torch.Tensor, floor2: torch.Tensor, rtol,
     return rnorm, rtol_eff
 
 
+def refine_inner_seed(seed: torch.Tensor, rtol_eff: torch.Tensor
+                      ) -> torch.Tensor:
+    """Zero a carried inner-CG seed on degenerate refinement passes.
+
+    The degenerate stop of :func:`refine_inner_scale` (``rtol_eff = 2``)
+    only fires when the inner solve STARTS at the rhs residual, that is from
+    a zero seed. A carried nonzero seed (``inner_seed='carry'``) puts ‖r0‖
+    far above the target, and the solve would grind the roundoff-scale rhs
+    to maxiter. ``rtol_eff`` is a scalar or one value per leading lane of
+    ``seed``."""
+    live = (rtol_eff < 1.0).to(seed.dtype)
+    return seed * live.reshape(live.shape + (1,) * (seed.ndim - live.ndim))
+
+
+def jacobi_preconditioner(diag: torch.Tensor, mask: torch.Tensor | None = None
+                          ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """M⁻¹ = 1/diag(A) on free dofs (the diagonal entries of constrained dofs
+    are irrelevant; zeros are guarded)."""
+    inv = 1.0 / torch.where(diag != 0, diag, torch.ones_like(diag))
+    if mask is not None:
+        inv = inv * mask
+    return lambda r: inv * r
+
+
 def pcg(apply_op: Callable[[torch.Tensor], torch.Tensor],
         b: torch.Tensor,
         x0: torch.Tensor,

@@ -3,8 +3,12 @@
 
 ``cg_tol`` solves sm·A·sm y = b, with b and x0 vanishing at constrained
 dofs and sm = rsqrt(diag(A))·free, preconditioned by nothing, by the r-line
-PCR block-Jacobi solve (``pcr``) or by the split-additive ADI solve
-R r + Z r − r (``pcr`` and ``pcr_z``), stopping on the true residual
+PCR block-Jacobi solve (``pcr``), by the split-additive ADI solve
+R r + Z r − r (``pcr`` and ``pcr_z``), by a fixed Chebyshev polynomial in
+the operator (``cheb_degree``) or by the z-semicoarsened two-level V-cycle
+over the r-line smoother (``mgz``, operands from ``ops/mgz.py``), with the
+standard recurrence or the Chronopoulos–Gear merged-dot one (``merged``),
+stopping on the true residual
 ‖r‖ ≤ rtol·‖r0‖ (``rtol_wrt='r0'``) or rtol·‖b‖ (``'b'``). A tensor on the
 CPU goes to :func:`cg_tol_reference`; a CUDA tensor goes to the kernel, or
 the call raises. The kernel replaces heatflow_tpu/ops/pallas_cg.py:
@@ -22,14 +26,21 @@ import torch
 from heatflow_tpu_torch.ops.cg import implicit_solve
 from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_factor,
                                               pcr_fold)
+from heatflow_tpu_torch.ops.mgz import coarse_apply, prolong, restrict
 from heatflow_tpu_torch.ops.stencil import apply_stencil, shifted
 
 CHECK_EVERY = 8   # CG iterations enqueued between two host reads of the
                   # device-side stop flag; the iterate and the count do not
                   # depend on it (every phase is a no-op once the flag is set)
 
+MERGED_DEFAULT = False   # the merged-dot recurrence when ``merged=None``;
+                         # read at call time, so a caller may set it around
+                         # a run to measure the other recurrence
+
 PHASES = ("init", "stencil_dot", "update", "pcr_r", "pcr_z", "finalize",
-          "p_update", "finish")
+          "p_update", "finish", "cheb_init", "cheb_step", "merged_w",
+          "finalize_merged", "pq_update", "residual", "pcr_row",
+          "coarse_res", "prolong")
 # phase kernel launches, counted by the C host code where it launches them
 _phase_counts = np.zeros(len(PHASES), dtype=np.int64)
 
@@ -67,10 +78,14 @@ def phase_launches() -> dict[str, int]:
     return {name: int(n) for name, n in zip(PHASES, _phase_counts)}
 
 
+_FORM_COUNTERS = ("launches", "launches_identity", "launches_rline",
+                  "launches_adi", "launches_cheb", "launches_merged",
+                  "launches_mgz")
+
+
 def reset_counters() -> None:
     _phase_counts[:] = 0
-    for name in ("launches", "launches_identity", "launches_rline",
-                 "launches_adi"):
+    for name in _FORM_COUNTERS:
         setattr(cg_tol, name, 0)
     for name in ("launches_forward", "launches_backward", "launches_jvp"):
         setattr(cg_vmem_solve, name, 0)
@@ -104,13 +119,70 @@ def pcr_stack_apply(stack: torch.Tensor, d: torch.Tensor,
     return stack[2 * levels] * d
 
 
-def _precond_reference(sm, pcr, pcr_z):
+def gershgorin_lmax(A, sm):
+    """The Gershgorin bound on λmax(sm·A·sm), max_i Σ_j |Â_ij| (sm ≥ 0, so
+    the absolute row sums are one |A| apply): a 0-d tensor, no host read."""
+    return torch.max(sm * apply_stencil(torch.abs(A), sm))
+
+
+def cheb_precond_reference(A, sm, degree: int, lmax=None):
+    """The degree-``degree`` Chebyshev polynomial preconditioner in sm·A·sm
+    with the eigenvalue target [0.08, 1.05]·λmax, in the inputs' dtype."""
+    lmax = gershgorin_lmax(A, sm) if lmax is None else lmax
+    lo, hi = 0.08 * lmax, 1.05 * lmax
+    theta, delta = 0.5 * (hi + lo), 0.5 * (hi - lo)
+    sigma = theta / delta
+
+    def pre(r):
+        rho = 1.0 / sigma
+        d = r / theta
+        z = d
+        for _ in range(degree - 1):
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            res = r - sm * apply_stencil(A, sm * z)
+            d = (rho_new * rho) * d + (2.0 * rho_new / delta) * res
+            z = z + d
+            rho = rho_new
+        return z
+    return pre
+
+
+def mgz_precond_reference(A, sm, pcr, mgz, sweeps: int = 1,
+                          omega: float = 0.8, omega_c: float = 0.8):
+    """The symmetric two-level V(1,1) cycle of the mgz form: damped r-line
+    pre-smooth from zero, fine residual, restriction onto the embedded even
+    rows, ``sweeps`` damped line-Jacobi sweeps on the scaled coarse operator
+    (the first from zero), prolongation, post-smooth, free mask."""
     free = (sm != 0).to(sm.dtype)
+    pcrc, aux = mgz["pcrc"], mgz["aux"]
+    apply_op = lambda y: sm * apply_stencil(A, sm * y)
+
+    def pre(r):
+        xv = omega * pcr_stack_apply(pcr, r)
+        rcs = restrict(aux, r - apply_op(xv))
+        yc = omega_c * pcr_stack_apply(pcrc, rcs)
+        for _ in range(sweeps - 1):
+            yc = yc + omega_c * pcr_stack_apply(
+                pcrc, rcs - coarse_apply(mgz["Ac9"], yc))
+        xv = prolong(aux, xv, yc)
+        xv = xv + omega * pcr_stack_apply(pcr, r - apply_op(xv))
+        return xv * free
+    return pre
+
+
+def _precond_reference(A, sm, pcr, pcr_z, cheb_degree=0, mgz=None,
+                       mgz_sweeps=1, mgz_omega=0.8, mgz_omega_c=0.8):
+    free = (sm != 0).to(sm.dtype)
+    if mgz is not None:
+        return mgz_precond_reference(A, sm, pcr, mgz, mgz_sweeps, mgz_omega,
+                                     mgz_omega_c)
     if pcr_z is not None:
         return lambda r: (pcr_stack_apply(pcr, r, -1)
                           + pcr_stack_apply(pcr_z, r, -2) - r) * free
     if pcr is not None:
         return lambda r: pcr_stack_apply(pcr, r, -1) * free
+    if cheb_degree > 0:
+        return cheb_precond_reference(A, sm, cheb_degree)
     return lambda r: r
 
 
@@ -123,49 +195,121 @@ def stencil_dot_reference(A, sm, p):
 def precond_reference(sm, r, pcr=None, pcr_z=None):
     """(z, ⟨r, z⟩) for the r-line (``pcr``) or ADI (``pcr`` + ``pcr_z``)
     preconditioner — the plain PCR phases."""
-    z = _precond_reference(sm, pcr, pcr_z)(r)
+    z = _precond_reference(None, sm, pcr, pcr_z)(r)
     return z, (r.double() * z.double()).sum()
 
 
+def precond_apply_reference(A, sm, r, *, pcr=None, cheb_degree: int = 0,
+                            mgz=None, mgz_sweeps: int = 1,
+                            mgz_omega: float = 0.8, mgz_omega_c: float = 0.8):
+    """(z, ⟨r, z⟩) for the Chebyshev or the mgz preconditioner — the plain
+    version of :func:`precond_apply`."""
+    z = _precond_reference(A, sm, pcr, None, cheb_degree, mgz, mgz_sweeps,
+                           mgz_omega, mgz_omega_c)(r)
+    return z, (r.double() * z.double()).sum()
+
+
+def merged_w_reference(A, sm, u, r):
+    """(w = sm·A·(sm·u), δ = ⟨w, u⟩, ⟨r, r⟩, γ = ⟨r, u⟩) — the plain
+    merged-dot pass; the sums are float64."""
+    w = sm * apply_stencil(A, sm * u)
+    d = lambda a, b: (a.double() * b.double()).sum()
+    return w, d(w, u), d(r, r), d(r, u)
+
+
+def _check_forms(pcr, pcr_z, cheb_degree, merged, mgz) -> None:
+    """The form checks of the TPU entry point."""
+    if pcr is not None and cheb_degree:
+        raise ValueError("pcr and cheb_degree are mutually exclusive")
+    if pcr_z is not None and pcr is None:
+        raise ValueError("pcr_z (ADI) requires the r-line pcr stack too")
+    if mgz is not None and pcr is None:
+        raise ValueError("mgz (z-semicoarsened MG) uses the r-line pcr "
+                         "stack as its smoother — pass pcr too")
+    if mgz is not None and (pcr_z is not None or merged):
+        raise ValueError("mgz is mutually exclusive with pcr_z/merged")
+
+
+def _merged_reference(apply_op, precond, r, x, stop2, rr0, maxiter,
+                      preconditioned):
+    """The Chronopoulos–Gear loop of the TPU kernel on the precomputed
+    first residual ``r``: (x, rr, k)."""
+    one = torch.ones((), dtype=r.dtype, device=r.device)
+    guard = lambda v: torch.where(v != 0, v, one)
+    u = precond(r)
+    w = apply_op(u)
+    gamma = torch.sum(r * u)
+    alpha = gamma / guard(torch.sum(w * u))
+    p, q = u, w
+    rr = rr0
+    k = 0
+    while k < maxiter and bool(rr > stop2):
+        x = x + alpha * p
+        r = r - alpha * q
+        u = precond(r)
+        w = apply_op(u)
+        gamma_new = torch.sum(r * u)
+        delta = torch.sum(w * u)
+        rr = torch.sum(r * r) if preconditioned else gamma_new
+        beta = gamma_new / guard(gamma)
+        denom = delta - beta * gamma_new / guard(alpha)
+        alpha = gamma_new / guard(denom)
+        p = u + beta * p
+        q = w + beta * q
+        gamma = gamma_new
+        k += 1
+    return x, rr, k
+
+
 def cg_tol_reference(A, sm, b, x0, rtol, *, maxiter: int = 4000,
-                     rtol_wrt: str = "r0", pcr=None, pcr_z=None):
+                     rtol_wrt: str = "r0", pcr=None, pcr_z=None,
+                     cheb_degree: int = 0, merged: bool | None = None,
+                     mgz=None, mgz_sweeps: int = 1, mgz_omega: float = 0.8,
+                     mgz_omega_c: float = 0.8):
     """Plain PyTorch version of the kernel, in the inputs' dtype: the
-    standard PCG recurrence of the TPU kernel, with its guards (pAp == 0 → 1,
+    standard PCG recurrence of the TPU kernel (or, with ``merged``, its
+    Chronopoulos–Gear recurrence), with its guards (pAp == 0 → 1,
     rz == 0 → 1), its stop rule (while k < maxiter and rr > stop2, rr = ‖r‖²
     when preconditioned and ⟨r, z⟩ otherwise) and x = NaN when rr is not
     finite. Returns (x, iters) with iters a 0-d int32 tensor."""
     _check_rtol_wrt(rtol_wrt)
-    if pcr_z is not None and pcr is None:
-        raise ValueError("pcr_z (ADI) requires the r-line pcr stack too")
+    if merged is None:
+        merged = MERGED_DEFAULT
+    _check_forms(pcr, pcr_z, cheb_degree, merged, mgz)
     dtype = b.dtype
     one = torch.ones((), dtype=dtype, device=b.device)
     apply_op = lambda y: sm * apply_stencil(A, sm * y)
-    precond = _precond_reference(sm, pcr, pcr_z)
-    preconditioned = pcr is not None
+    precond = _precond_reference(A, sm, pcr, pcr_z, cheb_degree, mgz,
+                                 mgz_sweeps, mgz_omega, mgz_omega_c)
+    preconditioned = pcr is not None or cheb_degree > 0
     rtol = torch.as_tensor(rtol, dtype=dtype, device=b.device)
 
     x = x0
     r = b - apply_op(x)
-    z = precond(r)
-    p = z
-    rz = torch.sum(r * z)
     rr = torch.sum(r * r)
     ref2 = rr if rtol_wrt == "r0" else torch.sum(b * b)
     stop2 = rtol * rtol * ref2
-    k = 0
-    while k < maxiter and bool(rr > stop2):
-        Ap = apply_op(p)
-        pAp = torch.sum(p * Ap)
-        alpha = rz / torch.where(pAp != 0, pAp, one)
-        x = x + alpha * p
-        r = r - alpha * Ap
+    if merged:
+        x, rr, k = _merged_reference(apply_op, precond, r, x, stop2, rr,
+                                     maxiter, preconditioned)
+    else:
         z = precond(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.where(rz != 0, rz, one)
-        p = z + beta * p
-        rz = rz_new
-        rr = torch.sum(r * r) if preconditioned else rz_new
-        k += 1
+        p = z
+        rz = torch.sum(r * z)
+        k = 0
+        while k < maxiter and bool(rr > stop2):
+            Ap = apply_op(p)
+            pAp = torch.sum(p * Ap)
+            alpha = rz / torch.where(pAp != 0, pAp, one)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = precond(r)
+            rz_new = torch.sum(r * z)
+            beta = rz_new / torch.where(rz != 0, rz, one)
+            p = z + beta * p
+            rz = rz_new
+            rr = torch.sum(r * r) if preconditioned else rz_new
+            k += 1
     x = torch.where(torch.isfinite(rr), x, torch.full_like(x, float("nan")))
     return x, torch.tensor(k, dtype=torch.int32, device=b.device)
 
@@ -217,20 +361,54 @@ def _check_operator(A, sm, device):
     return nz, nr
 
 
+def _mgz_operands(mgz, sweeps: int, nz: int, nr: int, device):
+    """(Ac9 or None, pcrc, aux, coarse levels) after checking the mgz
+    operand dict; one sweep needs no coarse operator."""
+    if sweeps < 1:
+        raise ValueError(f"mgz_sweeps must be >= 1, got {sweeps}")
+    pcrc, aux = mgz["pcrc"], mgz["aux"]
+    lc = _stack_levels(pcrc, "mgz['pcrc']", nz, nr, device)
+    _require(aux, "mgz['aux']", (4, nz, nr), device)
+    ac9 = None
+    if sweeps > 1:
+        ac9 = mgz["Ac9"]
+        _require(ac9, "mgz['Ac9']", (9, nz, nr), device)
+    return ac9, pcrc, aux, lc
+
+
+def _mgz_tensors(mgz):
+    return () if mgz is None else tuple(mgz[k] for k in ("Ac9", "pcrc", "aux")
+                                        if k in mgz)
+
+
 def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
            x0: torch.Tensor, rtol, *, maxiter: int = 4000,
            rtol_wrt: str = "r0", pcr: torch.Tensor | None = None,
-           pcr_z: torch.Tensor | None = None):
+           pcr_z: torch.Tensor | None = None, cheb_degree: int = 0,
+           merged: bool | None = None, mgz: dict | None = None,
+           mgz_sweeps: int = 1, mgz_omega: float = 0.8,
+           mgz_omega_c: float = 0.8):
     """Solve sm·A·sm y = b; returns (x, iters) with iters a 0-d int32
     tensor on the inputs' device. ``rtol`` is a float or a 0-d tensor (read
-    on the device, no host sync). CPU tensors take the plain version; CUDA
-    float32 tensors take the kernel."""
+    on the device, no host sync). ``cheb_degree > 0`` preconditions with the
+    Chebyshev polynomial (mutually exclusive with ``pcr``); ``mgz`` (the
+    dict of :func:`heatflow_tpu_torch.ops.mgz.mgz_pack` as tensors; needs
+    ``pcr``, excludes ``pcr_z`` and ``merged``) with the two-level V-cycle,
+    ``mgz_sweeps`` coarse sweeps; ``merged`` (default
+    :data:`MERGED_DEFAULT`, read at call time) selects the merged-dot
+    recurrence, tolerance-equal to the standard one. CPU tensors take the
+    plain version; CUDA float32 tensors take the kernel."""
     _check_rtol_wrt(rtol_wrt)
-    if pcr_z is not None and pcr is None:
-        raise ValueError("pcr_z (ADI) requires the r-line pcr stack too")
-    if _on_cpu(A, sm, b, x0, pcr, pcr_z):
+    if merged is None:
+        merged = MERGED_DEFAULT
+    cheb_degree = int(cheb_degree)
+    _check_forms(pcr, pcr_z, cheb_degree, merged, mgz)
+    if _on_cpu(A, sm, b, x0, pcr, pcr_z, *_mgz_tensors(mgz)):
         return cg_tol_reference(A, sm, b, x0, rtol, maxiter=maxiter,
-                                rtol_wrt=rtol_wrt, pcr=pcr, pcr_z=pcr_z)
+                                rtol_wrt=rtol_wrt, pcr=pcr, pcr_z=pcr_z,
+                                cheb_degree=cheb_degree, merged=merged,
+                                mgz=mgz, mgz_sweeps=mgz_sweeps,
+                                mgz_omega=mgz_omega, mgz_omega_c=mgz_omega_c)
     lib = _library()
     dev = b.device
     nz, nr = _check_operator(A, sm, dev)
@@ -238,6 +416,13 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
     _require(x0, "x0", (nz, nr), dev)
     lr = 0 if pcr is None else _stack_levels(pcr, "pcr", nz, nr, dev)
     lz = 0 if pcr_z is None else _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
+    ac9 = pcrc = aux = None
+    lc = 0
+    if mgz is not None:
+        ac9, pcrc, aux, lc = _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
+    lmax = None
+    if cheb_degree > 0:
+        lmax = gershgorin_lmax(A, sm).reshape(1).contiguous()
     rtol_t = torch.as_tensor(rtol, dtype=torch.float32, device=dev)
     if rtol_t.numel() != 1:
         raise ValueError("rtol must be a scalar")
@@ -246,8 +431,12 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
     x = torch.empty_like(b)
     vecs = torch.empty((4, nz, nr), dtype=torch.float32, device=dev)
     r, z, p, Ap = vecs.unbind(0)
-    if pcr is None:
+    if pcr is None and cheb_degree == 0:
         z = r                         # identity form: z aliases r
+    n_extra = lib.hf_cg_extra_planes(cheb_degree, int(merged),
+                                     int(mgz is not None))
+    extra = (torch.empty((n_extra, nz, nr), dtype=torch.float32, device=dev)
+             if n_extra else None)
     nparts = lib.hf_cg_nparts(nz, nr)
     parts = torch.empty((4, nparts), dtype=torch.float64, device=dev)
     state = torch.empty(8, dtype=torch.float64, device=dev)
@@ -256,12 +445,20 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
     args = (_ptr(A), A.shape[0], _ptr(sm), _ptr(b), _ptr(x0), _ptr(rtol_t),
             _ptr(pcr), lr, _ptr(pcr_z), lz, _ptr(x), _ptr(r), _ptr(z),
             _ptr(p), _ptr(Ap), _ptr(parts), nparts, _ptr(state), nz, nr,
-            int(maxiter), int(rtol_wrt == "r0"), _counts_ptr(), stream)
+            int(maxiter), int(rtol_wrt == "r0"), _counts_ptr(), stream,
+            _ptr(lmax), cheb_degree, int(merged), _ptr(ac9), _ptr(pcrc), lc,
+            _ptr(aux), int(mgz_sweeps), float(mgz_omega), float(mgz_omega_c),
+            _ptr(extra))
 
     cg_tol.launches += 1
-    form = ("launches_adi" if pcr_z is not None else
-            "launches_rline" if pcr is not None else "launches_identity")
-    setattr(cg_tol, form, getattr(cg_tol, form) + 1)
+    forms = ["launches_mgz" if mgz is not None else
+             "launches_adi" if pcr_z is not None else
+             "launches_rline" if pcr is not None else
+             "launches_cheb" if cheb_degree > 0 else "launches_identity"]
+    if merged:
+        forms.append("launches_merged")
+    for form in forms:
+        setattr(cg_tol, form, getattr(cg_tol, form) + 1)
     _check(lib.hf_cg_tol_start(*args), "cg_tol start")
     done = state.view(torch.int32)[11]
     launched = 0
@@ -276,10 +473,249 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
     return x, iters
 
 
-cg_tol.launches = 0
-cg_tol.launches_identity = 0
-cg_tol.launches_rline = 0
-cg_tol.launches_adi = 0
+for _name in _FORM_COUNTERS:
+    setattr(cg_tol, _name, 0)
+
+
+def precond_apply(A: torch.Tensor, sm: torch.Tensor, r: torch.Tensor, *,
+                  pcr: torch.Tensor | None = None, cheb_degree: int = 0,
+                  mgz: dict | None = None, mgz_sweeps: int = 1,
+                  mgz_omega: float = 0.8, mgz_omega_c: float = 0.8):
+    """The kernel's Chebyshev or mgz preconditioner alone: (z = M⁻¹r,
+    ⟨r, z⟩ float64) through the phase kernels the solve launches."""
+    if (cheb_degree > 0) == (mgz is not None):
+        raise ValueError("give cheb_degree or mgz (with pcr), not both")
+    _check_forms(pcr, None, cheb_degree, False, mgz)
+    if _on_cpu(A, sm, r, pcr, *_mgz_tensors(mgz)):
+        return precond_apply_reference(
+            A, sm, r, pcr=pcr, cheb_degree=cheb_degree, mgz=mgz,
+            mgz_sweeps=mgz_sweeps, mgz_omega=mgz_omega,
+            mgz_omega_c=mgz_omega_c)
+    lib = _library()
+    dev = r.device
+    nz, nr = _check_operator(A, sm, dev)
+    _require(r, "r", (nz, nr), dev)
+    lr = 0 if pcr is None else _stack_levels(pcr, "pcr", nz, nr, dev)
+    ac9 = pcrc = aux = lmax = None
+    lc = 0
+    if mgz is not None:
+        ac9, pcrc, aux, lc = _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
+    else:
+        lmax = gershgorin_lmax(A, sm).reshape(1).contiguous()
+    z = torch.empty_like(r)
+    extra = torch.empty((lib.hf_cg_extra_planes(cheb_degree, 0,
+                                                int(mgz is not None)), nz,
+                         nr), dtype=torch.float32, device=dev)
+    nparts = lib.hf_cg_nparts(nz, nr)
+    parts = torch.zeros((4, nparts), dtype=torch.float64, device=dev)
+    which = ctypes.c_int(0)
+    _check(lib.hf_precond_apply(
+        _ptr(A), A.shape[0], _ptr(sm), _ptr(r), _ptr(pcr), lr, _ptr(z),
+        _ptr(parts), nparts, nz, nr, _counts_ptr(), _stream(), _ptr(lmax),
+        int(cheb_degree), _ptr(ac9), _ptr(pcrc), lc, _ptr(aux),
+        int(mgz_sweeps), float(mgz_omega), float(mgz_omega_c), _ptr(extra),
+        ctypes.addressof(which)), "precond_apply")
+    n_rz = nz if mgz is not None else (nz * nr + 255) // 256
+    return (extra[1] if which.value else z), parts[2, :n_rz].sum()
+
+
+def merged_w(A: torch.Tensor, sm: torch.Tensor, u: torch.Tensor,
+             r: torch.Tensor):
+    """The merged-dot pass alone: (w = sm·A·(sm·u), δ = ⟨w, u⟩, ⟨r, r⟩,
+    γ = ⟨r, u⟩), the sums float64 0-d tensors."""
+    if _on_cpu(A, sm, u, r):
+        return merged_w_reference(A, sm, u, r)
+    lib = _library()
+    nz, nr = _check_operator(A, sm, u.device)
+    _require(u, "u", (nz, nr), u.device)
+    _require(r, "r", (nz, nr), u.device)
+    w = torch.empty_like(u)
+    nparts = lib.hf_cg_nparts(nz, nr)
+    parts = torch.empty((3, nparts), dtype=torch.float64, device=u.device)
+    _check(lib.hf_merged_w(_ptr(A), A.shape[0], _ptr(sm), _ptr(u), _ptr(r),
+                           _ptr(w), _ptr(parts), nparts, nz, nr,
+                           _counts_ptr(), _stream()), "merged_w")
+    delta, rr, gamma = parts[:, :(nz * nr + 255) // 256].sum(dim=1)
+    return w, delta, rr, gamma
+
+
+def _state(device, **fields) -> torch.Tensor:
+    """A solve-state record (8 float64 words: rz, rr, stop2, alpha, beta,
+    then the int32 count and done flag in words 10 and 11 of its int32
+    view); fields not given are 0."""
+    st = torch.zeros(8, dtype=torch.float64, device=device)
+    for i, name in enumerate(("rz", "rr", "stop2", "alpha", "beta")):
+        if name in fields:
+            st[i] = float(fields[name])
+    ints = st.view(torch.int32)
+    ints[10] = int(fields.get("k", 0))
+    ints[11] = int(fields.get("done", 0))
+    return st
+
+
+def pq_update_reference(p, q, u, w, beta):
+    """(u + β·p, w + β·q), β rounded to the fields' dtype."""
+    beta = torch.as_tensor(beta, dtype=torch.float64).to(p.dtype).to(p.device)
+    return u + beta * p, w + beta * q
+
+
+def pq_update(p, q, u, w, beta):
+    """The merged recurrence's direction phase alone: (u + β·p, w + β·q);
+    the inputs are left as they are."""
+    if _on_cpu(p, q, u, w):
+        return pq_update_reference(p, q, u, w, beta)
+    lib = _library()
+    for name, t in (("p", p), ("q", q), ("u", u), ("w", w)):
+        _require(t, name, tuple(p.shape), p.device)
+    p_n, q_n = p.clone(), q.clone()
+    st = _state(p.device, beta=beta)
+    _check(lib.hf_pq_update(_ptr(p_n), _ptr(q_n), _ptr(u), _ptr(w), _ptr(st),
+                            p.numel(), _counts_ptr(), _stream()),
+           "pq_update")
+    return p_n, q_n
+
+
+def finalize_merged_reference(state: dict, delta, rr, gamma, bb=0.0, *,
+                              first: bool, preconditioned: bool, rtol=0.0,
+                              maxiter: int = 4000, rtol_wrt: str = "r0"):
+    """The merged recurrence's scalar phase in Python floats on a state
+    dict (rz = γ, rr, stop2, alpha, beta, k, done); returns the new dict."""
+    g = lambda v: v if v != 0 else 1.0
+    delta, rr, gamma, bb = (float(v) for v in (delta, rr, gamma, bb))
+    st = dict(state)
+    if first:
+        rt = float(np.float32(rtol))
+        st.update(rz=gamma, rr=rr,
+                  stop2=rt * rt * (rr if rtol_wrt == "r0" else bb),
+                  alpha=gamma / g(delta), beta=0.0, k=0)
+    else:
+        if st.get("done"):
+            return st
+        beta = gamma / g(st["rz"])
+        denom = delta - beta * gamma / g(st["alpha"])
+        st.update(alpha=gamma / g(denom), beta=beta, rz=gamma,
+                  rr=rr if preconditioned else gamma, k=st["k"] + 1)
+    st["done"] = int(not (st["k"] < maxiter and st["rr"] > st["stop2"]))
+    return st
+
+
+def finalize_merged(state: dict, delta, rr, gamma, bb=0.0, *, first: bool,
+                    preconditioned: bool, rtol=0.0, maxiter: int = 4000,
+                    rtol_wrt: str = "r0", device="cuda"):
+    """The merged recurrence's scalar phase alone, through its kernel on
+    ``device`` (the plain version for ``device='cpu'``): the sums go in as
+    one-entry partial-sum planes."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return finalize_merged_reference(
+            state, delta, rr, gamma, bb, first=first,
+            preconditioned=preconditioned, rtol=rtol, maxiter=maxiter,
+            rtol_wrt=rtol_wrt)
+    lib = _library()
+    st = _state(device, **state)
+    parts = torch.tensor([[float(delta)], [float(rr)], [float(gamma)],
+                          [float(bb)]], dtype=torch.float64, device=device)
+    rtol_t = torch.tensor(float(rtol), dtype=torch.float32, device=device)
+    _check(lib.hf_finalize_merged(_ptr(st), _ptr(parts), 1, 1,
+                                  int(preconditioned), int(first),
+                                  _ptr(rtol_t), int(maxiter),
+                                  int(rtol_wrt == "r0"), _counts_ptr(),
+                                  _stream()), "finalize_merged")
+    host = st.cpu()
+    ints = host.view(torch.int32)
+    out = {name: float(host[i]) for i, name in
+           enumerate(("rz", "rr", "stop2", "alpha", "beta"))}
+    out.update(k=int(ints[10]), done=int(ints[11]))
+    return out
+
+
+def mgz_residual(A, sm, r, v):
+    """The mgz cycle's fine residual alone: r − sm·A·(sm·v)."""
+    if _on_cpu(A, sm, r, v):
+        return r - sm * apply_stencil(A, sm * v)
+    lib = _library()
+    nz, nr = _check_operator(A, sm, r.device)
+    _require(r, "r", (nz, nr), r.device)
+    _require(v, "v", (nz, nr), r.device)
+    out = torch.empty_like(r)
+    _check(lib.hf_residual(_ptr(A), A.shape[0], _ptr(sm), _ptr(r), _ptr(v),
+                           _ptr(out), nz, nr, _counts_ptr(), _stream()),
+           "residual")
+    return out
+
+
+def mgz_pcr_row_reference(src, F, scale, *, aux=None, acc=None, sm=None,
+                          dot=None):
+    """Plain version of :func:`mgz_pcr_row`."""
+    d = src if aux is None else restrict(aux, src)
+    out = scale * pcr_stack_apply(F, d)
+    if acc is not None:
+        out = acc + out
+    if sm is not None:
+        out = out * (sm != 0).to(out.dtype)
+    dsum = None if dot is None else (dot.double() * out.double()).sum()
+    return out, (None if aux is None else d), dsum
+
+
+def mgz_pcr_row(src, F, scale: float, *, aux=None, acc=None, sm=None,
+                dot=None):
+    """The mgz cycle's row kernel alone: out = (acc + scale·PCR_F(d))·free
+    with d = src, or the scaled restriction of src when ``aux`` is given;
+    ``acc``, ``sm`` (the mask) and ``dot`` are optional. Returns (out, d or
+    None, ⟨dot, out⟩ float64 or None)."""
+    if _on_cpu(src, F, aux, acc, sm, dot):
+        return mgz_pcr_row_reference(src, F, scale, aux=aux, acc=acc, sm=sm,
+                                     dot=dot)
+    lib = _library()
+    dev = src.device
+    nz, nr = src.shape
+    _require(src, "src", (nz, nr), dev)
+    levels = _stack_levels(F, "F", nz, nr, dev)
+    for name, t in (("acc", acc), ("sm", sm), ("dot", dot)):
+        if t is not None:
+            _require(t, name, (nz, nr), dev)
+    store = None
+    if aux is not None:
+        _require(aux, "aux", (4, nz, nr), dev)
+        store = torch.empty_like(src)
+    out = torch.empty_like(src)
+    part = torch.zeros(lib.hf_cg_nparts(nz, nr), dtype=torch.float64,
+                       device=dev)
+    _check(lib.hf_pcr_row(_ptr(src), _ptr(aux), _ptr(store), _ptr(F), levels,
+                          float(scale), _ptr(acc), _ptr(sm), _ptr(out),
+                          _ptr(dot), _ptr(part), nz, nr, _counts_ptr(),
+                          _stream()), "pcr_row")
+    return out, store, (None if dot is None else part[:nz].sum())
+
+
+def mgz_coarse_res(Ac9, rcs, y):
+    """The embedded coarse residual alone: rcs − Ac9·y."""
+    if _on_cpu(Ac9, rcs, y):
+        return rcs - coarse_apply(Ac9, y)
+    lib = _library()
+    nz, nr = rcs.shape
+    _require(Ac9, "Ac9", (9, nz, nr), rcs.device)
+    _require(rcs, "rcs", (nz, nr), rcs.device)
+    _require(y, "y", (nz, nr), rcs.device)
+    out = torch.empty_like(rcs)
+    _check(lib.hf_coarse_res(_ptr(Ac9), _ptr(rcs), _ptr(y), _ptr(out), nz, nr,
+                             _counts_ptr(), _stream()), "coarse_res")
+    return out
+
+
+def mgz_prolong(aux, x, yc):
+    """The prolongation alone: x + P(sc·yc); x is left as it is."""
+    if _on_cpu(aux, x, yc):
+        return prolong(aux, x, yc)
+    lib = _library()
+    nz, nr = x.shape
+    _require(aux, "aux", (4, nz, nr), x.device)
+    _require(x, "x", (nz, nr), x.device)
+    _require(yc, "yc", (nz, nr), x.device)
+    out = x.clone()
+    _check(lib.hf_prolong(_ptr(out), _ptr(yc), _ptr(aux), nz, nr,
+                          _counts_ptr(), _stream()), "prolong")
+    return out
 
 
 def stencil_dot(A: torch.Tensor, sm: torch.Tensor, p: torch.Tensor):

@@ -15,7 +15,8 @@ adaptively: ADI in the lanes whose flag is set, r-line in the others;
 the CPU goes to the plain version; a CUDA tensor goes to the kernel, or the
 call raises. The kernels replace heatflow_tpu/ops/pallas_cg.py:
 _sweep_cg_tol_kernel (identity, r-line, ADI, adaptive and has_kv=False
-forms) and _sweep_cg_kernel.
+forms, each with the standard or the merged-dot recurrence) and
+_sweep_cg_kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from heatflow_tpu_torch.ops.cg import _dot, _lane, pcg_fixed
+from heatflow_tpu_torch.ops import cuda_cg
 from heatflow_tpu_torch.ops.cuda_cg import (_check, _check_rtol_wrt,
                                             _on_cpu, _ptr, _require, _stream)
 from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_apply,
@@ -37,7 +39,8 @@ CHECK_EVERY = 8   # iterations enqueued between two host reads of the number
                   # depend on it
 
 PHASES = ("init", "stencil_dot", "update", "pcr_r", "finalize", "p_update",
-          "compact", "finish", "init_no_kv", "stencil_dot_no_kv", "pcr_z")
+          "compact", "finish", "init_no_kv", "stencil_dot_no_kv", "pcr_z",
+          "merged_w", "merged_w_no_kv", "finalize_merged", "pq_update")
 # phase kernel launches, counted by the C host code where it launches them
 _phase_counts = np.zeros(len(PHASES), dtype=np.int64)
 _STATE_WORDS = 6   # float64 words of one lane's solve state
@@ -68,7 +71,8 @@ def phase_launches() -> dict[str, int]:
 def reset_counters() -> None:
     _phase_counts[:] = 0
     for name in ("launches", "launches_identity", "launches_rline",
-                 "launches_adi", "launches_adaptive", "launches_no_kv"):
+                 "launches_adi", "launches_adaptive", "launches_no_kv",
+                 "launches_merged"):
         setattr(cg_batched_tol, name, 0)
     cg_batched.launches = 0
 
@@ -256,9 +260,10 @@ def _check_form(rline: bool, adi: bool, adi_flags) -> None:
 def cg_batched_tol_reference(A0, Kv, dks, sm, b, x0, rtol, *,
                              maxiter: int = 4000, rtol_wrt: str = "b",
                              rline: bool = False, adi: bool = False,
-                             adi_flags=None):
+                             adi_flags=None, merged: bool | None = None):
     """Plain PyTorch version of the tolerance kernel, in the inputs' dtype:
-    the standard PCG recurrence of the TPU kernel per lane, with its guards
+    the standard PCG recurrence of the TPU kernel per lane (with ``merged``
+    its Chronopoulos–Gear recurrence), with its guards
     (pAp == 0 → 1, rz == 0 → 1), its stop rule (while k < maxiter and
     rr > stop2, rr = ‖r‖² when preconditioned and ⟨r, z⟩ otherwise), a lane
     frozen once it stops, and x = NaN over a lane whose rr is not finite.
@@ -273,15 +278,20 @@ def cg_batched_tol_reference(A0, Kv, dks, sm, b, x0, rtol, *,
     rline = rline or adi or adi_flags is not None     # preconditioned
     rt = _rtol_lanes(rtol, B, b.dtype, b.device)
 
+    if merged is None:
+        merged = cuda_cg.MERGED_DEFAULT
     x = x0
     r = b - apply_op(x)
+    k = torch.zeros(B, dtype=torch.int32, device=b.device)
+    if merged:
+        return _merged_reference(apply_op, precond, b, x, r, rt, k, maxiter,
+                                 rtol_wrt, rline)
     z = precond(r)
     p = z
     rz = _dot(r, z)
     rr = _dot(r, r) if rline else rz
     ref2 = rr if rtol_wrt == "r0" else _dot(b, b)
     stop2 = rt * rt * ref2
-    k = torch.zeros(B, dtype=torch.int32, device=b.device)
     one = torch.ones_like(rz)
     while True:
         active = (k < maxiter) & (rr > stop2)
@@ -306,6 +316,91 @@ def cg_batched_tol_reference(A0, Kv, dks, sm, b, x0, rtol, *,
     x = torch.where(_lane(torch.isfinite(rr)), x,
                     torch.full_like(x, float("nan")))
     return x, k
+
+
+def _merged_reference(apply_op, precond, b, x, r, rt, k, maxiter, rtol_wrt,
+                      preconditioned):
+    """The Chronopoulos–Gear loop per lane on the first residual ``r``, a
+    lane frozen once it stops: (x, iters)."""
+    guard = lambda v: torch.where(v != 0, v, torch.ones_like(v))
+    rr = _dot(r, r)
+    stop2 = rt * rt * (rr if rtol_wrt == "r0" else _dot(b, b))
+    u = precond(r)
+    w = apply_op(u)
+    gamma = _dot(r, u)
+    alpha = gamma / guard(_dot(w, u))
+    p, q = u, w
+    while True:
+        active = (k < maxiter) & (rr > stop2)
+        if not bool(active.any()):
+            break
+        x_n = x + _lane(alpha) * p
+        r_n = r - _lane(alpha) * q
+        u = precond(r_n)
+        w = apply_op(u)
+        gamma_n = _dot(r_n, u)
+        delta = _dot(w, u)
+        rr_n = _dot(r_n, r_n) if preconditioned else gamma_n
+        beta = gamma_n / guard(gamma)
+        denom = delta - beta * gamma_n / guard(alpha)
+        alpha_n = gamma_n / guard(denom)
+        p_n = u + _lane(beta) * p
+        q_n = w + _lane(beta) * q
+        am = _lane(active)
+        x, r, p, q = (torch.where(am, x_n, x), torch.where(am, r_n, r),
+                      torch.where(am, p_n, p), torch.where(am, q_n, q))
+        alpha = torch.where(active, alpha_n, alpha)
+        gamma = torch.where(active, gamma_n, gamma)
+        rr = torch.where(active, rr_n, rr)
+        k = k + active.to(torch.int32)
+    x = torch.where(_lane(torch.isfinite(rr)), x,
+                    torch.full_like(x, float("nan")))
+    return x, k
+
+
+def merged_w_reference(A0, Kv, dks, sm, u, r):
+    """(w = sm·A_b·(sm·u), δ = ⟨w, u⟩, ⟨r, r⟩, γ = ⟨r, u⟩ per lane) — the
+    plain merged-dot pass; the sums are float64."""
+    w = sm * apply_combined(A0, Kv, dks, sm * u)
+    d = lambda a, c: _dot(a.double(), c.double())
+    return w, d(w, u), d(r, r), d(r, u)
+
+
+def pq_update_reference(p, q, u, w, beta):
+    """(u + β·p, w + β·q) per lane, β (B,) rounded to the fields' dtype."""
+    bl = _lane(beta.to(p.dtype))
+    return u + bl * p, w + bl * q
+
+
+def finalize_merged_reference(state, parts, first: bool, rtol=0.0, *,
+                              preconditioned: bool, maxiter: int,
+                              rtol_wrt: str = "b") -> torch.Tensor:
+    """The merged recurrence's scalar phase on a per-lane state (B, 6) and
+    partial sums parts (4, B, n) of δ, ⟨r, r⟩, γ, ⟨b, b⟩: the first call
+    sets α = γ/δ, stop² and the first stop test; later calls β = γ'/γ and
+    α' = γ'/(δ − βγ'/α), the count and the stop test, each divisor 0 → 1.
+    A lane already done is left as it is (except by the first call)."""
+    delta, rr, gamma, bb = parts.double().sum(dim=-1)
+    old = unpack_state(state)
+    guard = lambda v: torch.where(v != 0, v, torch.ones_like(v))
+    new = dict(old)
+    if first:
+        rt = _rtol_lanes(rtol, len(rr), torch.float32, rr.device).double()
+        new.update(rz=gamma, rr=rr,
+                   stop2=rt * rt * (rr if rtol_wrt == "r0" else bb),
+                   alpha=gamma / guard(delta), beta=torch.zeros_like(rr),
+                   k=torch.zeros_like(old["k"]))
+    else:
+        beta = gamma / guard(old["rz"])
+        denom = delta - beta * gamma / guard(old["alpha"])
+        new.update(alpha=gamma / guard(denom), beta=beta, rz=gamma,
+                   rr=rr if preconditioned else gamma, k=old["k"] + 1)
+    run = (new["k"] < maxiter) & (new["rr"] > new["stop2"])
+    new["done"] = (~run).to(torch.int32)
+    out = pack_state(len(rr), state.device, **new)
+    if not first:
+        out = torch.where((old["done"] != 0)[:, None], state, out)
+    return out
 
 
 def cg_batched_reference(A0, Kv, dks, sm, b, x0, *, iters: int = 100):
@@ -350,15 +445,17 @@ class _Solve:
     """Device buffers and the C argument list of one batched solve."""
 
     def __init__(self, lib, A0, Kv, dks, sm, b, x0, rtol_t, *, maxiter,
-                 wrt_r0, rline, fixed, adi=0, flags=None):
+                 wrt_r0, rline, fixed, adi=0, flags=None, merged=False):
         B, nz, nr = b.shape
         dev = b.device
         self.lib, self.B, self.nz, self.nr = lib, B, nz, nr
         self.x = torch.empty_like(b)
-        vecs = torch.empty((4 if rline else 3, B, nz, nr),
+        vecs = torch.empty((3 + int(rline) + int(merged), B, nz, nr),
                            dtype=torch.float32, device=dev)
         r, p, Ap = vecs[0], vecs[1], vecs[2]
         z = vecs[3] if rline else r       # identity form: z aliases r
+        # merged-dot: q = A p takes the Ap plane, w = A u one more
+        q, w = (Ap, vecs[-1]) if merged else (None, None)
         nparts = lib.hf_sweep_nparts(nz, nr)
         self.parts = torch.empty((4, B, nparts), dtype=torch.float64,
                                  device=dev)
@@ -375,7 +472,8 @@ class _Solve:
                      _ptr(z), _ptr(p), _ptr(Ap), _ptr(self.parts), nparts,
                      _ptr(self.state), _ptr(self.lanes), B, nz, nr,
                      int(maxiter), int(wrt_r0), int(rline), int(fixed),
-                     int(adi), _ptr(flags), _counts_ptr(), self.stream)
+                     int(adi), _ptr(flags), _counts_ptr(), self.stream,
+                     int(merged), _ptr(q), _ptr(w))
 
     def start(self):
         _check(self.lib.hf_sweep_start(*self.args), "sweep start")
@@ -405,22 +503,27 @@ def cg_batched_tol(A0: torch.Tensor, Kv: torch.Tensor | None,
                    b: torch.Tensor, x0: torch.Tensor, rtol, *,
                    maxiter: int = 4000, rtol_wrt: str = "b",
                    rline: bool = False, adi: bool = False,
-                   adi_flags: torch.Tensor | None = None):
+                   adi_flags: torch.Tensor | None = None,
+                   merged: bool | None = None):
     """Solve every lane to its tolerance; returns (x (B, Nz, Nr), iters (B,)
     int32 on the inputs' device). ``rtol`` is a float or a (B,) tensor (the
     refinement's per-lane guard: a lane at rtol ≥ 1 stops at its first
     check). ``Kv=None, dks=None``: the Kv-free form (A0 alone; ``sm`` may be
     a shared (Nz, Nr) plane). ``rline``: the r-line solve; ``adi``: the ADI
     solve; ``adi_flags`` (B,) int32, the adaptive form: ADI in the lanes
-    whose flag is nonzero, r-line in the others (read on the device). CPU
+    whose flag is nonzero, r-line in the others (read on the device).
+    ``merged`` (default ``cuda_cg.MERGED_DEFAULT``, read at call time): the
+    merged-dot recurrence, tolerance-equal to the standard one. CPU
     tensors take the plain version; CUDA float32 tensors the kernel."""
     _check_rtol_wrt(rtol_wrt)
     _check_form(rline, adi, adi_flags)
+    if merged is None:
+        merged = cuda_cg.MERGED_DEFAULT
     if _on_cpu(A0, Kv, dks, sm, b, x0, adi_flags):
         return cg_batched_tol_reference(A0, Kv, dks, sm, b, x0, rtol,
                                         maxiter=maxiter, rtol_wrt=rtol_wrt,
                                         rline=rline, adi=adi,
-                                        adi_flags=adi_flags)
+                                        adi_flags=adi_flags, merged=merged)
     lib = _library()
     B, _, _ = _check_batch(A0, Kv, dks, sm, {"b": b, "x0": x0})
     rtol_t = _rtol_lanes(rtol, B, torch.float32, b.device).contiguous()
@@ -432,8 +535,11 @@ def cg_batched_tol(A0: torch.Tensor, Kv: torch.Tensor | None,
     solve = _Solve(lib, A0, Kv, dks, sm, b, x0, rtol_t, maxiter=maxiter,
                    wrt_r0=rtol_wrt == "r0",
                    rline=rline or adi or flags is not None, fixed=False,
-                   adi=2 if flags is not None else int(adi), flags=flags)
+                   adi=2 if flags is not None else int(adi), flags=flags,
+                   merged=bool(merged))
     cg_batched_tol.launches += 1
+    if merged:
+        cg_batched_tol.launches_merged += 1
     form = ("launches_no_kv" if Kv is None else
             "launches_adaptive" if flags is not None else
             "launches_adi" if adi else
@@ -457,6 +563,7 @@ cg_batched_tol.launches_rline = 0
 cg_batched_tol.launches_adi = 0
 cg_batched_tol.launches_adaptive = 0
 cg_batched_tol.launches_no_kv = 0
+cg_batched_tol.launches_merged = 0
 
 
 def cg_batched(A0: torch.Tensor, Kv: torch.Tensor, dks: torch.Tensor,
@@ -643,6 +750,67 @@ def p_update(p, z, beta):
                                  _ptr(lanes), 0, B, nz, nr, _counts_ptr(),
                                  _stream()), "sweep p_update")
     return p_n
+
+
+def merged_w(A0, Kv, dks, sm, u, r):
+    """The merged-dot pass alone: (w = sm·A_b·(sm·u), δ = ⟨w, u⟩, ⟨r, r⟩,
+    γ = ⟨r, u⟩ per lane); the sums are float64."""
+    if _on_cpu(A0, Kv, dks, sm, u, r):
+        return merged_w_reference(A0, Kv, dks, sm, u, r)
+    lib, B, nz, nr, nparts, lanes = _phase_setup({"u": u, "r": r}, A0, Kv,
+                                                 dks, sm)
+    w = torch.empty_like(u)
+    parts = torch.empty((3, B, nparts), dtype=torch.float64, device=u.device)
+    _check(lib.hf_sweep_merged_w(
+        _ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm),
+        int(sm.ndim == 3), _ptr(u), _ptr(r), _ptr(w), _ptr(parts),
+        _ptr(lanes), B, B, nz, nr, nparts, _counts_ptr(), _stream()),
+        "sweep merged_w")
+    delta, rr, gamma = _lane_sums(lib, parts, nz, nr)
+    return w, delta, rr, gamma
+
+
+def pq_update(p, q, u, w, beta):
+    """The merged recurrence's direction phase alone: (u + β·p, w + β·q)
+    per lane for β (B,) float64; p and q are left as they are."""
+    if _on_cpu(p, q, u, w, beta):
+        return pq_update_reference(p, q, u, w, beta)
+    lib, B, nz, nr, _, lanes = _phase_setup({"p": p, "q": q, "u": u, "w": w})
+    p_n, q_n = p.clone(), q.clone()
+    state = pack_state(B, p.device, beta=beta)
+    _check(lib.hf_sweep_pq_update(_ptr(p_n), _ptr(q_n), _ptr(u), _ptr(w),
+                                  _ptr(state), _ptr(lanes), B, nz, nr,
+                                  _counts_ptr(), _stream()),
+           "sweep pq_update")
+    return p_n, q_n
+
+
+def finalize_merged(state, parts, first: bool, rtol=0.0, *,
+                    preconditioned: bool, maxiter: int,
+                    rtol_wrt: str = "b"):
+    """The merged recurrence's scalar phase alone (see
+    :func:`finalize_merged_reference`); returns the new state."""
+    _check_rtol_wrt(rtol_wrt)
+    if _on_cpu(state, parts):
+        return finalize_merged_reference(
+            state, parts, first, rtol, preconditioned=preconditioned,
+            maxiter=maxiter, rtol_wrt=rtol_wrt)
+    B = _check_state(state, state.device)
+    if (parts.ndim != 3 or parts.shape[:2] != (4, B)
+            or parts.dtype != torch.float64 or not parts.is_contiguous()
+            or parts.device != state.device):
+        raise ValueError("parts must be contiguous (4, B, n) float64 partial "
+                         "sums on the state's device")
+    lib = _library()
+    n = parts.shape[2]
+    out = state.clone()
+    rtol_t = _rtol_lanes(rtol, B, torch.float32, state.device).contiguous()
+    lanes = torch.arange(B, dtype=torch.int32, device=state.device)
+    _check(lib.hf_sweep_finalize_merged(
+        _ptr(out), _ptr(parts), B, n, n, int(preconditioned), int(first),
+        _ptr(rtol_t), int(maxiter), int(rtol_wrt == "r0"), _ptr(lanes), B,
+        _counts_ptr(), _stream()), "sweep finalize_merged")
+    return out
 
 
 def compact(state):

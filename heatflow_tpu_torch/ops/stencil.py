@@ -250,3 +250,31 @@ def stencil_to_coo(C: np.ndarray):
         cols.append((it * nr + jt)[ok])
         vals.append(C[k][ok])
     return (np.concatenate(rows), np.concatenate(cols), np.concatenate(vals))
+
+
+def sparse_to_stencil(A, shape: tuple[int, int], n_points: int = 9
+                      ) -> np.ndarray:
+    """scipy sparse (N, N) on the z-major flattened grid → (n_points, Nz, Nr)
+    stencil. Raises if any non-negligible entry falls outside the offset
+    pattern (a bilinear RAP product is provably 9-point; this guards it)."""
+    nz, nr = shape
+    A = A.tocoo()
+    offs = offsets_for(n_points)
+    ri, rj = A.row // nr, A.row % nr
+    di = (A.col // nr) - ri
+    dj = (A.col % nr) - rj
+    ks = np.full(len(A.data), -1, dtype=np.int64)
+    for k, (a, b) in enumerate(offs):
+        ks[(di == a) & (dj == b)] = k
+    outside = ks < 0
+    if outside.any():
+        scale = np.abs(A.data).max() or 1.0
+        bad = np.abs(A.data[outside]).max()
+        if bad > 1e-12 * scale:
+            raise ValueError(
+                f"{int(outside.sum())} entries outside the {n_points}-point "
+                f"pattern (max |v| {bad:.3e})")
+    C = np.zeros((n_points, nz, nr))
+    sel = ~outside
+    np.add.at(C, (ks[sel], ri[sel], rj[sel]), A.data[sel])
+    return C

@@ -10,9 +10,12 @@ points and radial bands. Here each step is:
     A g0 and A g1 are applied once per run;
   * RHS: one stencil application (M_op @ u_n);
   * solve: PCG on the symmetrically Jacobi-scaled operator, eager
-    (``solver='xla'``) or through the CUDA kernel (``solver='vmem'``,
-    :func:`heatflow_tpu_torch.ops.cuda_cg.cg_tol`), optionally inside f64
-    residual refinement passes;
+    (``solver='xla'``; preconditioned by nothing, a line solve, the ADI
+    composition or the geometric multigrid V-cycle) or through the CUDA
+    kernel (``solver='vmem'``,
+    :func:`heatflow_tpu_torch.ops.cuda_cg.cg_tol`, in its r-line, ADI,
+    adaptive, Chebyshev or mgz form), optionally inside f64 residual
+    refinement passes;
   * gradient projection: stencil rhs (G_r @ u) and a mass-matrix PCG;
   * watcher traces, band averages and axis profiles gathered on the device
     and stacked at the end. The host reads nothing inside the step, except
@@ -28,7 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from heatflow_tpu_torch.ops.cg import pcg, refine_inner_scale
+from heatflow_tpu_torch.ops.cg import (pcg, pcg_fixed, refine_inner_scale,
+                                       refine_inner_seed)
 from heatflow_tpu_torch.ops.stencil import apply_stencil, combine_operator
 from heatflow_tpu_torch.sim.problem import Problem2D, band_average
 from heatflow_tpu_torch.utils import resolve_device
@@ -73,9 +77,55 @@ def _not_ported(what: str, item: str):
                                f"yet (ROADMAP {item})")
 
 
-def make_step_fn(problem: Problem2D, **_kw):
-    """A single fixed-iteration step function (not ported yet)."""
-    raise _not_ported("make_step_fn", "P3")
+def make_step_fn(problem: Problem2D, *, dtype: torch.dtype = torch.float32,
+                 fixed_iters: int = 100, device="cuda"):
+    """A single backward-Euler step ``step(u, t) -> u_next`` on the problem's
+    operator (fixed-iteration CG, so the control flow is static), on
+    ``device`` (the card unless the caller passes ``device='cpu'``). For
+    external integrators."""
+    device = resolve_device(device)
+    dev = problem.device_arrays(dtype, device)
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    dt, ic = as_t(problem.dt), as_t(problem.ic_temp)
+    A, M_op = combine_operator(dev["K"], dev["M"], dev["kappas"],
+                               dev["rho_cvs"], dt)
+    free, dirich = dev["free"], dev["dirichlet"]
+    s = torch.rsqrt(torch.where(A[0] > 0, A[0], torch.ones_like(A[0]))) \
+        * free + dirich
+    coeff = as_t(-4.0 * math.log(2.0) / problem.fwhm ** 2)
+    profile = torch.exp(coeff * dev["r_sq"]) * dev["heat_profile_base"]
+    amp_offset = dev["heat_T"][0] - ic
+    apply_A_s = lambda y: s * apply_stencil(A, s * y)
+
+    def step(u_prev, t):
+        with torch.no_grad():
+            u_prev, t = as_t(u_prev), as_t(t)
+            amp = interp(t, dev["heat_t"], dev["heat_T"]) - amp_offset
+            g = ic * dirich + (amp - ic) * profile
+            b_lift = (apply_stencil(M_op, u_prev) - apply_stencil(A, g)) * s
+            y0 = (u_prev / torch.where(s > 0, s, torch.ones_like(s))) * free
+            sol = pcg_fixed(apply_A_s, b_lift, y0, mask=free,
+                            iters=fixed_iters)
+            return sol.x * s * free + g
+
+    return step
+
+
+def mgz_operands(problem: Problem2D, dtype: torch.dtype, device) -> dict:
+    """The mgz V-cycle's coarse and transfer operands (``ops.mgz.mgz_pack``)
+    for the problem's DEFAULT coefficients, as ``dtype`` tensors on
+    ``device``: scipy RAP on the host, once."""
+    from heatflow_tpu_torch.ops.mgz import mgz_pack
+    st = problem.stencils
+    A7 = (np.einsum("m,mkij->kij", problem.rho_cvs, st.M)
+          + float(problem.dt) * np.einsum("m,mkij->kij", problem.kappas,
+                                          st.K))
+    free = np.asarray(problem.free_mask, np.float64)
+    s = np.where(free > 0, 1.0 / np.sqrt(np.where(A7[0] > 0, A7[0], 1.0)),
+                 1.0)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    return {k: torch.as_tensor(v, device=device).contiguous()
+            for k, v in mgz_pack(A7, s, free, np_dtype).items()}
 
 
 def _resolve_solver(solver: str, precondition: str, device: torch.device,
@@ -86,17 +136,23 @@ def _resolve_solver(solver: str, precondition: str, device: torch.device,
     use_vmem = solver == "vmem" or (
         solver == "auto" and device.type == "cuda"
         and dtype == torch.float32)
-    if use_vmem and precondition == "zline":
-        # only the r-line (and ADI) forms have a PCR in the kernel
+    if use_vmem and precondition in ("zline", "mg"):
+        # the kernel has no z-line-only form and no geometric multigrid
         if solver == "vmem":
-            raise ValueError("precondition='zline' is not available in the "
-                             "cg_tol kernel; use solver='xla'")
+            raise ValueError(f"precondition={precondition!r} is not "
+                             "available in the cg_tol kernel (only 'rline' "
+                             "has an in-kernel PCR); use solver='xla'")
         use_vmem = False
     if precondition == "adaptive" and not use_vmem:
         raise ValueError("precondition='adaptive' (per-step rline/adi "
                          "switch) requires the cg_tol solver path "
                          "(solver='vmem', or 'auto' on a CUDA device in "
                          "float32)")
+    if precondition == "mgz" and not use_vmem:
+        raise ValueError("precondition='mgz' (in-kernel z-semicoarsened MG "
+                         "over the rline smoother) requires the cg_tol "
+                         "solver path (solver='vmem', or 'auto' on a CUDA "
+                         "device in float32)")
     return use_vmem
 
 
@@ -106,7 +162,7 @@ class Simulator(nn.Module):
 
     def __init__(self, problem: Problem2D, dev: dict[str, torch.Tensor], *,
                  dtype: torch.dtype, cdt: torch.dtype, use_vmem: bool,
-                 opts: dict):
+                 opts: dict, mg=None):
         super().__init__()
         for name, t in dev.items():
             self.register_buffer(name, t, persistent=False)
@@ -116,6 +172,8 @@ class Simulator(nn.Module):
         self.cdt = cdt
         self.use_vmem = use_vmem
         self.opts = opts
+        # 'mg': the hierarchy's device levels; 'mgz': the V-cycle operands
+        self.mg = mg
 
     @property
     def dev(self) -> dict[str, torch.Tensor]:
@@ -123,6 +181,13 @@ class Simulator(nn.Module):
 
     def forward(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
                 t0=0.0, source=None) -> dict[str, torch.Tensor]:
+        if self.opts["precondition"] == "mgz" and (kappas is not None
+                                                   or rho_cvs is not None):
+            raise ValueError(
+                "precondition='mgz' bakes the coarse operator from the "
+                "problem's default coefficients at maker time; per-call "
+                "kappa/rho_cv overrides would silently mismatch it — use "
+                "'rline'/'adi'/'adaptive' for coefficient sweeps")
         d = self.dev
         cdt, device = self.cdt, d["free"].device
         as_c = lambda v: torch.as_tensor(v, dtype=cdt, device=device)
@@ -176,9 +241,14 @@ class Simulator(nn.Module):
         from heatflow_tpu_torch.ops.linesolve import (adi_preconditioner,
                                                       line_preconditioner)
 
+        mgz = self.mg if precondition == "mgz" else None
+        kernel_kw = dict(maxiter=maxiter, mgz=mgz,
+                         mgz_sweeps=o["mgz_sweeps"])
+
         def line_pre(A_, s_, free_):
             """(eager preconditioner, r-stack, z-stack) for the form."""
-            if use_vmem and precondition in ("rline", "adi", "adaptive"):
+            if use_vmem and precondition in ("rline", "adi", "adaptive",
+                                             "mgz"):
                 z_stack = (pcr_pack(A_, s_, free_, axis=-2)
                            if precondition in ("adi", "adaptive") else None)
                 return None, pcr_pack(A_, s_, free_), z_stack
@@ -192,6 +262,15 @@ class Simulator(nn.Module):
 
         if not f64_refine:
             pre, pcr_stack, pcr_z_stack = line_pre(A, s, free)
+            if precondition == "mg":
+                from heatflow_tpu_torch.ops.multigrid import make_vcycle
+                level_ops = [{**lv, "A": combine_operator(
+                    lv["K"], lv["M"], kp, rc, dt)[0]} for lv in self.mg]
+                vcycle = make_vcycle(level_ops)
+                inv_s = 1.0 / torch.where(s > 0, s, one(s))
+                # the V-cycle approximates A⁻¹; conjugate it into the scaled
+                # system: precond(r̃) = S⁻¹ vcycle(S⁻¹ r̃)
+                pre = lambda r: inv_s * vcycle(inv_s * r)
 
         coeff = torch.tensor(-4.0 * math.log(2.0), dtype=cdt,
                              device=device) / (fw * fw)
@@ -217,9 +296,14 @@ class Simulator(nn.Module):
             apply_Mp_s32 = lambda y: s_mp32 * apply_stencil(M_proj32,
                                                             s_mp32 * y)
 
-        def solve_refined(b_lift, y0, use_adi):
+        carry_inner = o["inner_seed"] == "carry"
+
+        def solve_refined(b_lift, y0, dys, use_adi):
             """f64_refine passes of f64 residual / f32 correction on the
-            scaled system, each inner solve from a zero seed."""
+            scaled system, each inner solve from a zero seed, or (inner_seed
+            ='carry') from the previous step's correction of the same pass
+            ``dys[i]``, zeroed on a degenerate pass. Returns (y, iters, the
+            passes' corrections)."""
             bt = b_lift * free
             # inner stop floor: a residual at f64 roundoff relative to the
             # step's rhs has nothing left to correct
@@ -227,34 +311,51 @@ class Simulator(nn.Module):
             y = y0
             iters = torch.zeros((), dtype=torch.int32, device=device)
             z32 = torch.zeros((nz, nr), dtype=dtype, device=device)
-            for _ in range(f64_refine):
+            new_dys = []
+            for i in range(f64_refine):
                 r64 = bt - free * apply_A_s(y)
                 rn2 = torch.sum(r64 * r64)
                 rnorm, rtol_eff = refine_inner_scale(rn2, floor2, rtol,
                                                      dtype)
                 r32 = (r64 / rnorm).to(dtype)
+                seed = (refine_inner_seed(dys[i], rtol_eff).contiguous()
+                        if carry_inner else z32)
                 if use_vmem:
                     dy, its = cg_tol(
-                        A32, sm32, r32, z32, rtol_eff, maxiter=maxiter,
-                        rtol_wrt="b", pcr=pcr_stack32,
-                        pcr_z=None if use_adi is False else pcr_z_stack32)
+                        A32, sm32, r32, seed, rtol_eff, rtol_wrt="b",
+                        pcr=pcr_stack32,
+                        pcr_z=None if use_adi is False else pcr_z_stack32,
+                        **kernel_kw)
                 else:
-                    sol = pcg(apply_A32_s, r32, z32, precond=pre32,
+                    sol = pcg(apply_A32_s, r32, seed, precond=pre32,
                               mask=free32, rtol=rtol_eff, maxiter=maxiter,
                               rtol_wrt="b")
                     dy, its = sol.x, sol.iters
+                new_dys.append(dy)
                 y = y + dy.to(cdt) * rnorm
                 iters = iters + its
-            return y, iters
+            return y, iters, new_dys
 
         adaptive = precondition == "adaptive"
         extrapolate = o["warm_start"] == "extrapolate"
+        order2 = o["warm_start"] == "extrapolate2"
+        fixed_iters = o["fixed_iters"]
+
+        def seed_of(prev, pp, ppp):
+            """The warm-start seed: the previous field, or its linear or
+            quadratic extrapolation in time."""
+            if order2:
+                return 3.0 * (prev - pp) + ppp
+            return 2.0 * prev - pp if extrapolate else prev
         # the first (cold) step is the deepest solve: start on the ADI form
         it_prev = maxiter
         ts = torch.arange(1, num_steps + 1, dtype=cdt, device=device) * dt \
             + t0
-        u_prev = u_pp = u0
-        gr_prev = gr_pp = torch.zeros((nz, nr), dtype=dtype, device=device)
+        u_prev = u_pp = u_ppp = u0
+        gr_prev = gr_pp = gr_ppp = torch.zeros((nz, nr), dtype=dtype,
+                                               device=device)
+        dys = [torch.zeros((nz, nr), dtype=dtype, device=device)
+               for _ in range(f64_refine)]
         outs: dict[str, list] = {"cg_iters": []}
         for n in range(num_steps):
             use_adi = it_prev > o["adaptive_thresh"] if adaptive else None
@@ -262,15 +363,21 @@ class Simulator(nn.Module):
             g = g0 + amp * g1
             b = apply_stencil(M_op, u_prev) + b_src
             b_lift = (b - (Ag0 + amp * Ag1)) * s
-            u_seed = 2.0 * u_prev - u_pp if extrapolate else u_prev
+            u_seed = seed_of(u_prev, u_pp, u_ppp)
             y0 = (u_seed / torch.where(s > 0, s, one(s))) * free
             if f64_refine:
-                x, iters = solve_refined(b_lift, y0, use_adi)
+                x, iters, dys = solve_refined(b_lift, y0, dys, use_adi)
             elif use_vmem:
                 x, iters = cg_tol(
-                    A, sm_vmem, b_lift * free, y0, rtol, maxiter=maxiter,
-                    rtol_wrt=rtol_wrt, pcr=pcr_stack,
-                    pcr_z=None if use_adi is False else pcr_z_stack)
+                    A, sm_vmem, b_lift * free, y0, rtol, rtol_wrt=rtol_wrt,
+                    cheb_degree=0 if adaptive else o["vmem_cheb_degree"],
+                    pcr=pcr_stack,
+                    pcr_z=None if use_adi is False else pcr_z_stack,
+                    **kernel_kw)
+            elif fixed_iters is not None:
+                sol = pcg_fixed(apply_A_s, b_lift, y0, precond=pre,
+                                mask=free, iters=fixed_iters)
+                x, iters = sol.x, sol.iters
             else:
                 sol = pcg(apply_A_s, b_lift, y0, precond=pre, mask=free,
                           rtol=rtol, maxiter=maxiter, rtol_wrt=rtol_wrt)
@@ -282,7 +389,7 @@ class Simulator(nn.Module):
                     u.reshape(-1)[d["watch_flat"]])
             if has_radial:
                 # the projection seed rides the same warm-start knob
-                gr_seed = 2.0 * gr_prev - gr_pp if extrapolate else gr_prev
+                gr_seed = seed_of(gr_prev, gr_pp, gr_ppp)
                 if f64_refine:
                     br = s_mp32 * apply_stencil(G_r32, u.to(dtype))
                     gsol = pcg(apply_Mp_s32, br, gr_seed / s_mp32,
@@ -304,8 +411,8 @@ class Simulator(nn.Module):
                 gr = gr_prev
             if o["record_fields"]:
                 outs.setdefault("field", []).append(u)
-            u_pp, u_prev = u_prev, u
-            gr_pp, gr_prev = gr_prev, gr
+            u_ppp, u_pp, u_prev = u_pp, u_prev, u
+            gr_ppp, gr_pp, gr_prev = gr_pp, gr_prev, gr
             if adaptive:
                 it_prev = int(iters)   # the one host read of a step
         ys = {k: torch.stack(v) for k, v in outs.items()}
@@ -346,7 +453,24 @@ def make_simulate_fn(problem: Problem2D,
     carried in float64.
 
     ``warm_start``: 'previous' seeds each step's CG with u_n, 'extrapolate'
-    with 2·u_n − u_{n−1}.
+    with 2·u_n − u_{n−1}, 'extrapolate2' with the quadratic
+    3·u_n − 3·u_{n−1} + u_{n−2}; the projection seed rides the same knob.
+
+    ``inner_seed`` (refined path only): 'zero' starts each pass's correction
+    CG from 0; 'carry' seeds it with the previous step's correction of the
+    same pass (zeroed on a degenerate pass).
+
+    ``fixed_iters``: the eager path runs ``pcg_fixed`` with that count
+    instead of the tolerance stop.
+
+    ``precondition='mg'`` (eager path): the geometric multigrid V-cycle
+    (``ops.multigrid``), its hierarchy built once here. ``'mgz'`` (cg_tol
+    path only): the z-semicoarsened two-level V-cycle over the r-line
+    smoother inside the kernel, ``mgz_sweeps`` coarse sweeps; its coarse
+    operator is built here from the problem's DEFAULT coefficients, so
+    ``simulate()`` then refuses ``kappas``/``rho_cvs`` overrides.
+    ``vmem_cheb_degree`` (cg_tol path, static preconditioners without
+    r-line stack): the kernel's Chebyshev polynomial preconditioner.
 
     ``precondition='adaptive'`` (cg_tol path only): each step runs the r-line
     form unless the previous step's iteration count exceeded
@@ -359,26 +483,19 @@ def make_simulate_fn(problem: Problem2D,
 
     Memoized per problem (``problem.extras``) keyed by every argument.
     """
-    if precondition == "mg":
-        raise _not_ported("precondition='mg'", "P8")
-    if precondition == "mgz":
-        raise _not_ported("precondition='mgz'", "K5")
-    if fixed_iters is not None:
-        raise _not_ported("fixed_iters (pcg_fixed)", "P3")
-    if vmem_cheb_degree:
-        raise _not_ported("vmem_cheb_degree (the Chebyshev form of cg_tol)",
-                          "K1")
     if mesh is not None:
         raise _not_ported("z-sharding through mesh=", "P11")
-    if warm_start == "extrapolate2":
-        raise _not_ported("warm_start='extrapolate2'", "P3")
-    if inner_seed == "carry":
-        raise _not_ported("inner_seed='carry'", "P3")
-    if inner_seed != "zero":
+    if f64_refine:
+        # the refined inner solves stop wrt their own unit-norm rhs
+        rtol_wrt = "b"
+    if inner_seed not in ("zero", "carry"):
         raise ValueError(f"unknown inner_seed {inner_seed!r}")
-    if warm_start not in ("previous", "extrapolate"):
+    if not f64_refine:
+        inner_seed = "zero"   # only meaningful for the refined inner solves
+    if warm_start not in ("previous", "extrapolate", "extrapolate2"):
         raise ValueError(f"unknown warm_start {warm_start!r}")
-    if precondition not in ("jacobi", "rline", "zline", "adi", "adaptive"):
+    if precondition not in ("jacobi", "mg", "rline", "zline", "adi",
+                            "adaptive", "mgz"):
         raise ValueError(f"unknown precondition {precondition!r}")
     if rtol_wrt not in ("r0", "b"):
         raise ValueError(f"unknown rtol_wrt {rtol_wrt!r}")
@@ -386,25 +503,53 @@ def make_simulate_fn(problem: Problem2D,
     if f64_refine:
         if dtype != torch.float32:
             raise ValueError("f64_refine is the mixed-precision mode: dtype "
-                             "must be float32")
-        # the refined inner solves stop wrt their own unit-norm rhs
-        rtol_wrt = "b"
+                             "must be float32 (the all-f64 path needs no "
+                             "refinement)")
+        if fixed_iters is not None or vmem_cheb_degree \
+                or precondition == "mg":
+            raise ValueError("f64_refine composes with the tolerance-based "
+                             "jacobi/line (rline/zline/adi) solvers on one "
+                             "chip (no fixed_iters / cheb / mg / mesh)")
     use_vmem = _resolve_solver(solver, precondition, device, dtype)
+    if precondition == "adaptive" and vmem_cheb_degree:
+        # the per-step rline/adi branches run the plain kernel forms
+        raise ValueError("vmem_cheb_degree is not available with "
+                         "precondition='adaptive' (the per-step rline/adi "
+                         "branches run the plain kernels); use a static "
+                         "precondition with cheb, or drop the degree")
+    if precondition == "mgz" and vmem_cheb_degree:
+        raise ValueError("vmem_cheb_degree does not compose with "
+                         "precondition='mgz'")
 
-    opts = dict(rtol=rtol, maxiter=maxiter, proj_rtol=proj_rtol,
+    opts = dict(fixed_iters=fixed_iters, inner_seed=inner_seed,
+                vmem_cheb_degree=int(vmem_cheb_degree),
+                mgz_sweeps=int(mgz_sweeps) if precondition == "mgz" else 1,
+                rtol=rtol, maxiter=maxiter, proj_rtol=proj_rtol,
                 proj_maxiter=proj_maxiter, record_gradient=record_gradient,
                 record_fields=record_fields, precondition=precondition,
                 rtol_wrt=rtol_wrt, warm_start=warm_start,
                 f64_refine=int(f64_refine),
                 adaptive_thresh=adaptive_thresh)
+    if precondition != "adaptive":
+        opts["adaptive_thresh"] = None
     cache_key = ("simulate_fn", str(dtype), str(device), use_vmem,
-                 tuple(sorted(opts.items())))
+                 tuple(sorted(opts.items(), key=lambda kv: kv[0])))
     cache = problem.extras.setdefault("_fn_cache", {})
     if cache_key in cache:
         return cache[cache_key]
     cdt = torch.float64 if f64_refine else dtype
+    mg = None
+    if precondition == "mg":
+        from heatflow_tpu_torch.ops.multigrid import (build_hierarchy,
+                                                      device_levels)
+        mg = device_levels(build_hierarchy(problem.mesh,
+                                           problem.dirichlet_mask,
+                                           stencils=problem.stencils),
+                           dtype, device)
+    elif precondition == "mgz":
+        mg = mgz_operands(problem, dtype, device)
     fn = Simulator(problem, problem.device_arrays(cdt, device), dtype=dtype,
-                   cdt=cdt, use_vmem=use_vmem, opts=opts)
+                   cdt=cdt, use_vmem=use_vmem, opts=opts, mg=mg)
     cache[cache_key] = fn
     return fn
 

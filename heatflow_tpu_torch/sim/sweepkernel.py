@@ -275,10 +275,25 @@ def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
              "axis": torch.stack(rows["axis"], dim=1)}, u_fin, u_pen)
 
 
+def _mg_preconditioner(mg, dks, s):
+    """The geometric multigrid V-cycle of every lane's operator, conjugated
+    into the scaled system: pre(r̃) = S⁻¹ vcycle(S⁻¹ r̃). ``mg``: the
+    hierarchy's device levels with the base operator 'A0' and the varied
+    material's stiffness 'K_var' on each (RAP is linear in the coefficients,
+    so lane b's level operator is A0 + dk_b·K_var there too)."""
+    from heatflow_tpu_torch.ops.multigrid import make_vcycle
+    dk = dks.reshape(-1, 1, 1, 1)
+    level_ops = [{**lv, "A": lv["A0"] + dk * lv["K_var"]} for lv in mg]
+    vcycle = make_vcycle(level_ops, nu_pre=1, nu_post=1)
+    inv_s = 1.0 / torch.where(s > 0, s, torch.ones_like(s))
+    return lambda r: inv_s * vcycle(inv_s * r)
+
+
 def _xla_solver(ops, *, precondition, fixed_iters, rtol, maxiter, rtol_wrt):
     """The eager batched solve: pcg (per-lane freeze) or pcg_fixed on
     sm·A_b·sm, with a per-lane line preconditioner factored once per scan
-    from A0 + dk_b·Kv (two coupling planes combined per lane)."""
+    from A0 + dk_b·Kv (two coupling planes combined per lane), or the
+    multigrid V-cycle of each lane's operator."""
     from heatflow_tpu_torch.ops.linesolve import (adi_preconditioner,
                                                   line_preconditioner)
     A0, Kv, free = ops["A0"], ops["K_var"], ops["free"]
@@ -286,7 +301,9 @@ def _xla_solver(ops, *, precondition, fixed_iters, rtol, maxiter, rtol_wrt):
     def make_solve(dks, s, sm):
         apply_op = lambda y: sm * apply_combined(A0, Kv, dks, sm * y)
         pre = None
-        if precondition == "adi":
+        if ops.get("mg") is not None:
+            pre = _mg_preconditioner(ops["mg"], dks, s)
+        elif precondition == "adi":
             pre = adi_preconditioner(A0, s, free, Kv=Kv, dk=dks)
         elif precondition in ("rline", "zline"):
             pre = line_preconditioner(
@@ -358,7 +375,8 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
     tensors; ``precondition`` 'jacobi' (scaled identity), 'rline', 'adi'
     (r-line + z-line) or 'adaptive' (the per-lane, per-step r-line/ADI
     switch). ``solver='xla'``: the eager batched PCG; 'jacobi', 'rline',
-    'zline' or 'adi'.
+    'zline', 'adi' or 'mg' (the geometric multigrid V-cycle, its hierarchy
+    built once here).
 
     ``rtol_wrt``: 'b' stops each solve at ‖r‖ ≤ rtol·‖b‖, 'r0' at
     rtol·‖r0‖. ``warm_start='extrapolate'`` seeds each step with
@@ -392,8 +410,6 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         raise ValueError(f"unknown rtol_wrt {rtol_wrt!r}")
     if solver not in ("xla", "vmem"):
         raise ValueError(f"unknown solver {solver!r}")
-    if precondition == "mg":
-        raise _not_ported("precondition='mg'", "P8")
     if precondition == "adaptive" and solver != "vmem":
         raise ValueError("precondition='adaptive' requires solver='vmem' "
                          "for sweeps (the per-lane switch lives in the "
@@ -420,7 +436,7 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                 "equal-rtol solution error); prefer precondition='rline' "
                 "for refined sweeps", stacklevel=2)
     if solver == "vmem":
-        if precondition == "zline":
+        if precondition in ("zline", "mg"):
             raise ValueError("solver='vmem' supports precondition='jacobi' "
                              "(scaled identity), 'rline' (r-line PCR), 'adi' "
                              "(r-line + z-line) or 'adaptive' (per-lane "
@@ -431,9 +447,20 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                              "tolerance-based (drop fixed_iters)")
 
     wdt = torch.float64 if f64_refine else dtype
-    ops, base_k, dt, ic, _ = _sweep_ops(problem, vary_material, wdt, device)
+    ops, base_k, dt, ic, dev = _sweep_ops(problem, vary_material, wdt, device)
     nz, nr = problem.mesh.shape
     extrapolate = warm_start == "extrapolate"
+    if precondition == "mg":
+        from heatflow_tpu_torch.ops.multigrid import (build_hierarchy,
+                                                      device_levels)
+        m_idx = list(problem.mesh.material_tags).index(vary_material)
+        ops["mg"] = []
+        for lv in device_levels(build_hierarchy(
+                problem.mesh, problem.dirichlet_mask,
+                stencils=problem.stencils), dtype, device):
+            A_l, _ = combine_operator(lv["K"], lv["M"], dev["kappas"],
+                                      dev["rho_cvs"], dt)
+            ops["mg"].append({**lv, "A0": A_l, "K_var": lv["K"][m_idx]})
 
     def core(ks, fs, u0, u_pp, step0, iters_out=None):
         kw = dict(ic=ic, dt=dt, num_steps=n_steps, base_k=base_k,
@@ -507,7 +534,9 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                 return solve
 
             pre = None
-            if precondition == "adi":
+            if precondition == "mg":
+                pre = _mg_preconditioner(ops["mg"], dks_d, s_d)
+            elif precondition == "adi":
                 pre = adi_preconditioner(A0, s_d, free, Kv=Kv, dk=dks_d)
             elif precondition in ("rline", "zline"):
                 pre = line_preconditioner(

@@ -78,6 +78,10 @@ def test_port_imports_neither_jax_nor_the_jax_package(where):
     files = ([path] if path.endswith(".py") else
              glob.glob(os.path.join(path, "**", "*.py"), recursive=True))
     assert files
+    if where == "heatflow_tpu_torch":
+        have = {os.path.relpath(f, path) for f in files}
+        assert {"ops/mgz.py", "ops/multigrid.py", "sim/steady.py",
+                "drivers/steady.py"} <= have
     bad = [(os.path.relpath(f, ROOT), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "heatflow_tpu")]

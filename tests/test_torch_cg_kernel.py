@@ -139,6 +139,125 @@ def test_phase_wrappers_on_cpu_are_the_plain_phases(system, form):
     assert torch.equal(z, z_ref) and float(rz) == float(rz_ref)
 
 
+def _form_kw(d, form):
+    """cheb2..cheb4, the merged recurrence over identity, r-line, ADI and
+    Chebyshev (K1's forms beside the standard ones)."""
+    if form.startswith("merged_"):
+        return dict(_form_kw(d, form[len("merged_"):]), merged=True)
+    if form.startswith("cheb"):
+        return dict(cheb_degree=int(form[4:]))
+    return dict(_stacks(d, form))
+
+
+@pytest.mark.parametrize("form", ["cheb2", "cheb3", "cheb4",
+                                  "merged_identity", "merged_rline",
+                                  "merged_adi", "merged_cheb3"])
+@pytest.mark.parametrize("rtol_wrt", ["r0", "b"])
+def test_cheb_and_merged_plain_match_pallas_interpret(system, form, rtol_wrt):
+    """The Chebyshev and merged-dot forms: the plain version against the
+    Pallas kernel in interpret mode in float64 (the same recurrence: counts
+    within 1, x within 1e-10), and the merged forms against the standard
+    recurrence at solve tolerance."""
+    j, t, x_true = system
+    kw = dict(maxiter=20000, rtol_wrt=rtol_wrt)
+    jkw = dict(_form_kw(j, form))
+    jkw.setdefault("merged", False)
+    xj, ij = cg_vmem_tol(j["A"], j["sm"], j["b"], j["x0"], 1e-11,
+                         interpret=True, **kw, **jkw)
+    xt, it = cuda_cg.cg_tol(t["A"], t["sm"], t["b"], t["x0"], 1e-11, **kw,
+                            **_form_kw(t, form))
+    assert abs(int(it) - int(ij)) <= 1, (int(it), int(ij))
+    xj = np.asarray(xj)
+    assert np.abs(xt.numpy() - xj).max() <= 1e-10 * np.abs(xj).max()
+    assert np.abs(xt.numpy() - x_true).max() <= 1e-8 * np.abs(x_true).max()
+    if form.startswith("merged_"):
+        std = dict(_form_kw(t, form), merged=False)
+        xs, its = cuda_cg.cg_tol(t["A"], t["sm"], t["b"], t["x0"], 1e-11,
+                                 **kw, **std)
+        assert abs(int(it) - int(its)) <= 3
+        assert np.abs(xt.numpy() - xs.numpy()).max() \
+            <= 1e-8 * np.abs(xs.numpy()).max()
+
+
+def test_cheb_cuts_identity_iterations_and_lmax_bounds_the_spectrum(system):
+    _, t, _ = system
+    args = (t["A"], t["sm"], t["b"], t["x0"], 1e-10)
+    it0 = int(cuda_cg.cg_tol(*args)[1])
+    it3 = int(cuda_cg.cg_tol(*args, cheb_degree=3)[1])
+    assert it3 < 0.6 * it0, (it3, it0)
+    lmax = float(cuda_cg.gershgorin_lmax(t["A"], t["sm"]))
+    v = torch.tensor(np.random.default_rng(2).standard_normal(t["b"].shape))
+    for _ in range(50):          # power iteration from below
+        v = t["sm"] * cuda_cg.apply_stencil(t["A"], t["sm"] * v)
+        v = v / v.norm()
+    lam = float((v * (t["sm"] * cuda_cg.apply_stencil(
+        t["A"], t["sm"] * v))).sum())
+    assert 0 < lam <= lmax * (1 + 1e-12)
+
+
+def test_merged_default_is_read_at_call_time(system):
+    _, t, _ = system
+    args = (t["A"], t["sm"], t["b"], t["x0"], 1e-9)
+    want = cuda_cg.cg_tol(*args, pcr=t["pcr"], merged=True)[0]
+    std = cuda_cg.cg_tol(*args, pcr=t["pcr"])[0]
+    assert cuda_cg.MERGED_DEFAULT is False
+    cuda_cg.MERGED_DEFAULT = True
+    try:
+        got = cuda_cg.cg_tol(*args, pcr=t["pcr"])[0]
+        ref = cuda_cg.cg_tol_reference(*args, pcr=t["pcr"])[0]
+    finally:
+        cuda_cg.MERGED_DEFAULT = False
+    assert torch.equal(got, want) and torch.equal(ref, want)
+    assert not torch.equal(got, std)
+
+
+@pytest.mark.parametrize("form", ["cheb3", "merged_rline"])
+def test_new_forms_guards(system, form):
+    """rtol 2 stops at zero iterations; a NaN rhs poisons x; maxiter caps."""
+    _, t, _ = system
+    fkw = _form_kw(t, form)
+    zero = torch.zeros_like(t["b"])
+    x, it = cuda_cg.cg_tol(t["A"], t["sm"], t["b"], zero, 2.0, maxiter=50,
+                           rtol_wrt="b", **fkw)
+    assert int(it) == 0 and torch.equal(x, zero)
+    bn = t["b"].clone()
+    bn[3, 4] = float("nan")
+    x, it = cuda_cg.cg_tol(t["A"], t["sm"], bn, t["x0"], 1e-8, maxiter=50,
+                           **fkw)
+    assert torch.isnan(x).all() and int(it) == 0
+    _, it = cuda_cg.cg_tol(t["A"], t["sm"], t["b"], t["x0"], 1e-14,
+                           maxiter=5, **fkw)
+    assert int(it) == 5
+
+
+def test_merged_phase_wrappers_on_cpu_are_the_plain_phases(system):
+    _, t, _ = system
+    rng = np.random.default_rng(9)
+    free = (t["sm"] != 0).double()
+    u, r, p, q = (torch.tensor(rng.standard_normal(t["b"].shape)) * free
+                  for _ in range(4))
+    w, delta, rr, gamma = cuda_cg.merged_w(t["A"], t["sm"], u, r)
+    assert torch.equal(w, t["sm"] * cuda_cg.apply_stencil(t["A"],
+                                                          t["sm"] * u))
+    assert float(delta) == pytest.approx(float((w * u).sum()), rel=1e-13)
+    assert float(rr) == pytest.approx(float((r * r).sum()), rel=1e-13)
+    assert float(gamma) == pytest.approx(float((r * u).sum()), rel=1e-13)
+    p_n, q_n = cuda_cg.pq_update(p, q, u, w, 0.25)
+    assert torch.equal(p_n, u + 0.25 * p) and torch.equal(q_n, w + 0.25 * q)
+    st = dict(rz=2.0, rr=1.0, stop2=1e-3, alpha=0.5, beta=0.0, k=4, done=0)
+    nxt = cuda_cg.finalize_merged(st, 3.0, 1.0, 1.0, first=False,
+                                  preconditioned=True, maxiter=9,
+                                  device="cpu")
+    # beta = 1/2, alpha' = 1 / (3 - 0.5 * 1 / 0.5)
+    assert nxt["beta"] == 0.5 and nxt["alpha"] == 0.5 and nxt["k"] == 5
+    assert nxt["done"] == 0 and nxt["rz"] == 1.0
+    first = cuda_cg.finalize_merged(st, 3.0, 1.0, 1.0, 9.0, first=True,
+                                    preconditioned=True, rtol=0.5,
+                                    maxiter=9, rtol_wrt="b", device="cpu")
+    assert first["alpha"] == 1 / 3 and first["stop2"] == 0.25 * 9
+    assert first["k"] == 0 and first["done"] == 1
+
+
 def test_no_fallback_off_cpu(system):
     """A tensor that is neither on the CPU nor on a CUDA device is refused,
     not computed on the CPU."""
@@ -175,5 +294,29 @@ def test_cuda_kernel_matches_plain(system, form):
     assert getattr(cuda_cg.cg_tol, f"launches_{form}") == 1
     xp, ip = cuda_cg.cg_tol_reference(g["A"], g["sm"], g["b"], g["x0"], 1e-5,
                                       maxiter=5000, **_stacks(g, form))
+    assert abs(int(ik) - int(ip)) <= max(3, int(0.05 * int(ip)))
+    assert float((xk - xp).abs().max() / xp.abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["cheb3", "merged_rline", "merged_adi",
+                                  "merged_cheb3"])
+def test_cuda_kernel_new_forms_match_plain(system, form):
+    """The Chebyshev and merged-dot forms of the CUDA kernel in float32
+    against their plain versions on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    _, t, _ = system
+    dev = torch.device("cuda")
+    g = {k: v.to(dev, torch.float32).contiguous() for k, v in t.items()}
+    cuda_cg.reset_counters()
+    fkw = _form_kw(g, form)
+    xk, ik = cuda_cg.cg_tol(g["A"], g["sm"], g["b"], g["x0"], 1e-5,
+                            maxiter=5000, **fkw)
+    assert cuda_cg.cg_tol.launches == 1
+    assert cuda_cg.cg_tol.launches_merged == int("merged" in form)
+    assert cuda_cg.cg_tol.launches_cheb == int("cheb" in form)
+    xp, ip = cuda_cg.cg_tol_reference(g["A"], g["sm"], g["b"], g["x0"], 1e-5,
+                                      maxiter=5000, **fkw)
     assert abs(int(ik) - int(ip)) <= max(3, int(0.05 * int(ip)))
     assert float((xk - xp).abs().max() / xp.abs().max()) < 1e-3

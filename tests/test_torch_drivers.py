@@ -83,6 +83,14 @@ def test_run_simulation_matches_jax(cfg, tmp_path):
     assert np.abs(zt["u"] - zj["u"]).max() <= F64_TOL * np.abs(zj["u"]).max()
 
 
+def test_run_simulation_with_mg_matches_jax(cfg, tmp_path):
+    """``--precondition mg`` through the 2D driver: the V-cycle on the eager
+    path, the CSVs within F64_TOL of the JAX driver's."""
+    oj, ot = _run2d_pair(cfg, tmp_path, precondition="mg", write_xdmf=False)
+    for f in CSVS:
+        _csv_close(str(ot / f), str(oj / f))
+
+
 def test_mesh_folders_read_across_packages_and_resume(cfg, tmp_path):
     """Each package runs on the mesh folder the other wrote, and a run
     resumed from the checkpoint continues as the JAX package's does."""
@@ -167,6 +175,17 @@ def test_sweep_matches_jax(cfg, tmp_path, record_gradient):
     assert set(meta["solver_resolved"].values()) == {"xla"}
     for r in t[1]:
         assert r["runtime"] > 0 and r["output_dir"].startswith(t[0])
+
+
+def test_sweep_with_mg_matches_jax(cfg, tmp_path):
+    """``--precondition mg`` through the sweep driver resolves 'auto' to the
+    eager path and matches the JAX driver's records."""
+    j, t = _sweep_pair(cfg, tmp_path, "mg", num_points=(1, 2, 1),
+                       precondition="mg")
+    assert len(t[1]) == 2 and not t[2]
+    meta = _same_sweep(j, t, False)
+    assert set(meta["solver_resolved"].values()) == {"xla"}
+    assert meta["precondition"] == "mg"
 
 
 def test_sweep_resume_matches_jax(cfg, tmp_path):

@@ -70,7 +70,8 @@ def fit_pair():
 
 ONE_CONFIG = [dict(solver="vmem", precondition="rline"),
               dict(solver="vmem", precondition="adi"),
-              dict(solver="xla", precondition="jacobi")]
+              dict(solver="xla", precondition="jacobi"),
+              dict(solver="xla", precondition="mg")]
 
 
 @pytest.mark.parametrize("kw", ONE_CONFIG,

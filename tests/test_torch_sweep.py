@@ -68,6 +68,9 @@ def _close(got, want, tol=F64_TOL):
     dict(solver="vmem", warm_start="extrapolate", rtol_wrt="r0"),
     dict(solver="xla", fixed_iters=30),
     dict(solver="vmem", fixed_iters=30, warm_start="extrapolate"),
+    dict(solver="xla", precondition="mg"),
+    dict(solver="xla", precondition="mg", warm_start="extrapolate",
+         rtol_wrt="r0"),
 ], ids=lambda kw: "-".join(f"{v}" for v in kw.values()))
 def test_make_sweep_fn_matches_jax_f64(pair, kw):
     pj, pt = pair
@@ -342,12 +345,23 @@ def test_no_diamond_host_problem_exact():
     assert np.array_equal(pj.heating.temp, pt.heating.temp)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(precondition="mg"), dict(mesh=object())], ids=["mg", "mesh"])
+@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
 def test_unported_options_raise(pair, kw):
     _, pt = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsw.make_sweep_fn(pt, **kw, device="cpu")
+
+
+def test_mg_one_config_matches_the_batch_and_jax(pair):
+    """one_config with precondition='mg' (the differentiable single-lane
+    path) equals the batch's lane and the JAX one_config within 1e-9."""
+    pj, pt = pair
+    kw = dict(rtol=1e-10, solver="xla", precondition="mg")
+    ft = tsw.make_sweep_fn(pt, dtype=torch.float64, **kw, device="cpu")
+    fj = jsw.make_sweep_fn(pj, dtype=jnp.float64, **kw)
+    one = ft.one_config(KS[1], FS[1])
+    _close(one, ft(KS, FS)[1])
+    _close(one, fj.one_config(KS[1], FS[1]))
 
 
 def test_unported_paths_raise(pair):
@@ -361,6 +375,7 @@ def test_unported_paths_raise(pair):
 @pytest.mark.parametrize("kw, match", [
     (dict(solver="xla", precondition="adaptive"), "adaptive"),
     (dict(solver="vmem", precondition="zline"), "zline|rline"),
+    (dict(solver="vmem", precondition="mg"), "jacobi"),
     (dict(solver="vmem", precondition="rline", fixed_iters=5), "fixed"),
     (dict(solver="xla", f64_refine=1), "vmem"),
     (dict(solver="vmem", f64_refine=1, dtype=torch.float64), "float32"),

@@ -424,6 +424,116 @@ def test_counters_do_not_move_on_cpu(batch):
     assert set(cuda_sweep.phase_launches().values()) == {0}
 
 
+MERGED_FORMS = {"identity": {}, "rline": dict(rline=True),
+                "adi": dict(adi=True), "adaptive": "flags", "no_kv": "no_kv"}
+
+
+def _merged_kw(form, lib):
+    flags = np.array([1, 0, 1], np.int32)
+    if form == "adaptive":
+        return dict(adi_flags=(jnp.asarray(flags) if lib == "jax"
+                               else torch.tensor(flags)))
+    return {} if form == "no_kv" else dict(MERGED_FORMS[form])
+
+
+@pytest.mark.parametrize("form", list(MERGED_FORMS))
+@pytest.mark.parametrize("rtol_wrt", ["r0", "b"])
+def test_merged_plain_matches_pallas_interpret(batch, form, rtol_wrt):
+    """K2's merged-dot recurrence in each form: the plain version against
+    the Pallas kernel (merged=True) in interpret mode in float64 — the same
+    recurrence, so counts within 1 and x within X_TOL — and against the
+    standard recurrence at solve tolerance."""
+    t, j = _t(batch), _j(batch)
+    aj, at = list(_args(j)), list(_args(t))
+    if form == "no_kv":          # the config-independent operator
+        aj[1] = at[1] = at[2] = None     # (the Pallas entry still reads
+        aj[2] = jnp.zeros(3)             # the dks operand's shape)
+        aj[3], at[3] = j["sm"][:1].repeat(3, 0), t["sm"][:1].repeat(3, 1, 1)
+        aj[4], at[4] = aj[4] * (aj[3] != 0), at[4] * (at[3] != 0)
+        aj[5], at[5] = aj[5] * (aj[3] != 0), at[5] * (at[3] != 0)
+    kw = dict(maxiter=20000, rtol_wrt=rtol_wrt)
+    xj, ij = cg_vmem_batched_tol(*aj, 1e-11, interpret=True, merged=True,
+                                 **kw, **_merged_kw(form, "jax"))
+    xt, it = cuda_sweep.cg_batched_tol(*at, 1e-11, merged=True, **kw,
+                                       **_merged_kw(form, "torch"))
+    xs, its = cuda_sweep.cg_batched_tol(*at, 1e-11, merged=False, **kw,
+                                        **_merged_kw(form, "torch"))
+    assert np.abs(it.numpy() - np.asarray(ij)).max() <= 1, (it, ij)
+    assert _rel(xt.numpy(), xj) <= X_TOL
+    # tolerance-equal, not bitwise, to the standard recurrence
+    assert np.abs(it.numpy() - its.numpy()).max() <= 3, (it, its)
+    assert _rel(xt.numpy(), xs.numpy()) <= 1e-8
+
+
+def test_merged_adaptive_lanes_equal_static_merged_lanes_bitwise(batch):
+    t = _t(batch)
+    flags = torch.tensor([1, 0, 1], dtype=torch.int32)
+    kw = dict(maxiter=20000, rtol_wrt="r0", merged=True)
+    xa, ia = cuda_sweep.cg_batched_tol(*_args(t), 1e-10, adi_flags=flags,
+                                       **kw)
+    xd, id_ = cuda_sweep.cg_batched_tol(*_args(t), 1e-10, adi=True, **kw)
+    xr, ir = cuda_sweep.cg_batched_tol(*_args(t), 1e-10, rline=True, **kw)
+    for i, f in enumerate(flags.tolist()):
+        xs, is_ = (xd, id_) if f else (xr, ir)
+        assert torch.equal(xa[i], xs[i]) and int(ia[i]) == int(is_[i])
+
+
+def test_merged_default_is_read_at_call_time(batch):
+    from heatflow_tpu_torch.ops import cuda_cg
+    t = _t(batch)
+    want = cuda_sweep.cg_batched_tol(*_args(t), 1e-9, rline=True,
+                                     merged=True)
+    std = cuda_sweep.cg_batched_tol(*_args(t), 1e-9, rline=True)
+    assert cuda_cg.MERGED_DEFAULT is False
+    cuda_cg.MERGED_DEFAULT = True
+    try:
+        got = cuda_sweep.cg_batched_tol(*_args(t), 1e-9, rline=True)
+    finally:
+        cuda_cg.MERGED_DEFAULT = False
+    assert torch.equal(got[0], want[0]) and not torch.equal(got[0], std[0])
+
+
+def test_merged_phase_references_and_per_lane_guards(batch):
+    """merged_w, pq_update and finalize_merged on CPU tensors are their
+    plain versions; a NaN lane is poisoned, a lane at rtol 2 runs no
+    iteration, and the scalar phase follows the recurrence's rules."""
+    t = _t(batch)
+    A0, Kv, dks, sm, b, x0 = _args(t)
+    w, delta, rr, gamma = cuda_sweep.merged_w(A0, Kv, dks, sm, x0, b)
+    want = sm * apply_combined(A0, Kv, dks, sm * x0)
+    assert torch.equal(w, want)
+    assert torch.allclose(delta, (want * x0).sum(dim=(-2, -1)), rtol=1e-13)
+    assert torch.allclose(gamma, (b * x0).sum(dim=(-2, -1)), rtol=1e-13)
+    beta = torch.tensor([0.5, 0.25, 2.0], dtype=torch.float64)
+    p_n, q_n = cuda_sweep.pq_update(b, x0, w, b, beta)
+    assert torch.equal(p_n, w + beta[:, None, None] * b)
+    assert torch.equal(q_n, b + beta[:, None, None] * x0)
+    bn = b.clone()
+    bn[1, 2, 3] = float("nan")
+    rtol = torch.tensor([1e-10, 1e-10, 2.0], dtype=torch.float64)
+    x, it = cuda_sweep.cg_batched_tol(A0, Kv, dks, sm, bn, torch.zeros_like(b),
+                                      rtol, merged=True, rline=True)
+    assert torch.isnan(x[1]).all() and int(it[1]) == 0
+    assert int(it[2]) == 0 and int(it[0]) > 0
+    st = cuda_sweep.pack_state(2, "cpu", rz=torch.tensor([2.0, 0.0]),
+                               alpha=torch.tensor([0.5, 0.0]),
+                               stop2=torch.tensor([1e-3, 1e-3]),
+                               k=torch.tensor([4, 4]))
+    parts = torch.tensor([[[3.0], [3.0]], [[1.0], [1e-6]], [[1.0], [1.0]],
+                          [[9.0], [9.0]]], dtype=torch.float64)
+    out = cuda_sweep.unpack_state(cuda_sweep.finalize_merged(
+        st, parts, False, preconditioned=True, maxiter=9))
+    # lane 0: beta = 1/2, alpha' = 1 / (3 - 0.5 * 1 / 0.5); lane 1: guards
+    assert out["beta"].tolist() == [0.5, 1.0]
+    assert out["alpha"].tolist() == [0.5, 1.0 / (3.0 - 1.0)]
+    assert out["k"].tolist() == [5, 5] and out["done"].tolist() == [0, 1]
+    first = cuda_sweep.unpack_state(cuda_sweep.finalize_merged(
+        st, parts, True, 0.5, preconditioned=True, maxiter=9, rtol_wrt="b"))
+    assert first["alpha"].tolist() == [1 / 3, 1 / 3]
+    assert first["stop2"].tolist() == [0.25 * 9, 0.25 * 9]
+    assert first["k"].tolist() == [0, 0] and first["done"].tolist() == [1, 1]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["identity", "rline", "fixed", "adi",
                                   "adaptive"])
