@@ -105,10 +105,37 @@ Phases (each raises on failure; nothing is caught):
    CLI with ``--precondition mgz``, its ``watcher_points.csv`` bitwise
    equal to ``run_transient`` in-process;
 16. ``precondition='mg'`` on the card through the eager path (flagship,
-   float32, 2 steps: an eager V-cycle of 7 levels takes ~12 s a step);
+   float32, 1 step: an eager V-cycle of 7 levels takes ~12 s a step);
    ``solve_steady`` on the flagship problem with the heating line held at
    2000 K ('adi', float64) and its field as ``u0`` of a 10-step transient;
-   the steady CLI (float32) against that solve.
+   the steady CLI (float32) against that solve;
+17. the last two kernels and the 9-plane branch of the first two. On the
+   flagship's multigrid hierarchy (4 levels: 251 x 1107, 127 x 555, 65 x 279,
+   33 x 141): (a) ``cg_tol`` (identity, r-line, ADI) and ``cg_batched_tol``
+   (8 lanes) on the 9-plane level-1 operator against their plain versions;
+   (b) each phase kernel of the multigrid cycle alone on the flagship plane
+   and on level 1, the whole V-cycle (held to the plain float32 version's
+   distance from the float64 cycle) and its symmetry; (c) ``mgcg_vmem_tol``
+   on the first step's system at rtol 1e-3, 1e-5 and 1e-6 wrt r0 against
+   its plain version and a float64 solve, with iterations, ms a solve, us
+   and launches an iteration; (d) ``cg_vmem`` (64 iterations) on the baked
+   flagship operator against its plain version, and the baked operator
+   against the on-the-fly form;
+18. the paths that run those kernels at full width: the first 10 steps of
+   the flagship transient with every step's system (right-hand side, seed
+   and float64 residual from the stepper) solved by ``mgcg_vmem_tol`` at
+   rtol 1e-5 in float32, the traces within 1.0 K of the float64 truth,
+   beside the r-line kernel on the same steps; 8 steps with every system
+   solved by ``cg_vmem`` (1500 iterations on the baked operator) against
+   the same steps through its plain version;
+19. the 2D -> 1D pipeline through the CLIs: ``run2d`` on
+   ``cfgs/geballe_no_diamond_read_flux.yaml`` with the gradient recorded,
+   then ``run1d`` on ``cfgs/geballe_1d.yaml`` reading that run's
+   ``radial_gradient.csv``, correction on and off, on the card and with
+   ``--device cpu`` (float64, equal within 1e-8 rel-L2).
+Phase 10 also holds its recording run (watch, band, axis), and the same
+rows from a run with two float64 refinement passes, to
+``benchmarks/.flagship_truth_recording.npz``.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, the plain version's, and its bound: the larger of the bytes
@@ -1195,7 +1222,7 @@ def run_drivers(device, out: dict) -> dict:
     from heatflow_tpu_torch.io.csvio import (read_gradient_csv,
                                              read_watcher_csv)
     from heatflow_tpu_torch.ops import cuda_sweep
-    from heatflow_tpu_torch.sim.stepper import run_transient
+    from heatflow_tpu_torch.sim.stepper import make_simulate_fn, run_transient
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     cfgs = {}
@@ -1265,6 +1292,35 @@ def run_drivers(device, out: dict) -> dict:
         require(vals.size and np.isfinite(vals).all(), (grad, "finite"))
     require(os.path.isfile(os.path.join(run_out, "checkpoint.npz")),
             "run2d checkpoint")
+    # the recording path of that run against the float64 recording truth
+    rec_truth = np.load(TRUTH_RECORDING)
+    rec_err = {}
+    for key, got_rows in (("watch", res.watcher), ("band", res.band_rows),
+                          ("axis", res.axis_rows)):
+        want = rec_truth[key]
+        require(got_rows.shape == want.shape, (key, got_rows.shape))
+        rec_err[key] = float(np.abs(got_rows - want).max()
+                             / np.abs(want).max())
+    print("recording run (float32, adi, rtol 1e-4) vs the float64 recording "
+          "truth, max |error| / max |truth|: "
+          + ", ".join(f"{k} {v:.3e} (limit {RECORDING_TOL[k]:.0e})"
+                      for k, v in rec_err.items()))
+    require(all(v <= RECORDING_TOL[k] for k, v in rec_err.items()), rec_err)
+    # the same rows from a run with two float64 refinement passes: with the
+    # solve's float32 error out of the way, the recording itself is held
+    fine = make_simulate_fn(problem, dtype=torch.float32, device=device,
+                            rtol=1e-4, rtol_wrt="r0", maxiter=20000,
+                            record_gradient=True, record_fields=False,
+                            solver="auto", precondition="rline",
+                            warm_start="previous", f64_refine=2)()
+    fine_err = {k: float(np.abs(fine[k].cpu().numpy() - rec_truth[k]).max()
+                         / np.abs(rec_truth[k]).max())
+                for k in RECORDING_TOL}
+    print("recording run (r-line, two float64 passes) vs the truth: "
+          + ", ".join(f"{k} {v:.3e} (limit {REFINED_RECORDING_TOL[k]:.0e})"
+                      for k, v in fine_err.items()))
+    require(all(v <= REFINED_RECORDING_TOL[k] for k, v in fine_err.items()),
+            fine_err)
     truth = np.load(TRUTH)["watch"]
     peak = np.abs(got[:, 1:] - truth).max(axis=0)
     print(f"run2d CLI: {run_s:.2f} s (mesh build and .msh write included); "
@@ -1273,7 +1329,8 @@ def run_drivers(device, out: dict) -> dict:
           + ", ".join(f"{n} {e:.4f} K" for n, e in zip(names, peak)))
     out["drivers"] = dict(sweep_cli_s=wall_s, sweep_launches=counts,
                           **{f"sweep_{k}": v for k, v in timings.items()},
-                          run2d_cli_s=run_s,
+                          run2d_cli_s=run_s, recording_vs_truth=rec_err,
+                          refined_recording_vs_truth=fine_err,
                           run2d_peak_err_K=dict(zip(names, peak.tolist())))
     return counts
 
@@ -2315,7 +2372,7 @@ def run_mg_and_steady(problem, device, out: dict) -> None:
                                                steady_heating_values)
     from heatflow_tpu_torch.sim.stepper import make_simulate_fn
 
-    mg_steps = 2     # ~12 s a step on an H100: the eager V-cycle of 7 levels
+    mg_steps = 1     # ~12 s a step on an H100: the eager V-cycle of 7 levels
     short = copy.copy(problem)
     short.num_steps = mg_steps
     short.extras = {}
@@ -2398,6 +2455,593 @@ def run_mg_and_steady(problem, device, out: dict) -> None:
                             steady_residual=info["residual"],
                             steady_s=steady_s, steady_cli_s=cli_s,
                             steady_cli_diff_K=d)
+
+
+K6_REPLACES = "heatflow_tpu/ops/pallas_mg.py:291"
+K7_REPLACES = "heatflow_tpu/ops/pallas_cg.py:99"
+TRUTH_RECORDING = os.path.join(ROOT, "benchmarks",
+                               ".flagship_truth_recording.npz")
+# phase 10: the recording run against the float64 recording truth, each
+# family as a fraction of the truth's largest value. The raw axis rows are
+# (u[:, 1] - u[:, 0]) / h_r at the finest cells, so they carry the solve's
+# error times 1 / h_r: the float32 ADI run that the CLI makes reads 0.25
+# there (watch 7.6e-4), and its bound only separates that floor from a wrong
+# row, sign or scale, which reads 1 or more; watch and band follow the
+# ladder of tests/test_recording_precondition.py. The run with two float64
+# refinement passes takes the solve's error out and holds the rows
+# themselves (it reads watch 4.9e-8, band 3.2e-4, axis 4.2e-2 on an NVIDIA
+# H100 80GB HBM3 at 700 W).
+RECORDING_TOL = dict(watch=1e-3, band=1e-2, axis=0.5)
+REFINED_RECORDING_TOL = dict(watch=1e-6, band=1e-3, axis=0.1)
+MG_LEVELS = 4
+MG_STEPS = 10          # phase 18: steps of the flagship solved by K6
+K7_STEPS, K7_ITERS = 8, 1500   # the pulse reaches the watchers by step 5
+ONE_D_CFG = os.path.join(ROOT, "cfgs", "geballe_1d.yaml")
+
+
+def flagship_operator(problem):
+    """The flagship's unscaled backward-Euler operator (7, Nz, Nr) and its
+    free mask on the host, in float64."""
+    import numpy as np
+    st = problem.stencils
+    A7 = (np.einsum("m,mkij->kij", problem.rho_cvs, st.M)
+          + float(problem.dt) * np.einsum("m,mkij->kij", problem.kappas,
+                                          st.K))
+    return A7, np.asarray(problem.free_mask, np.float64)
+
+
+def mg_cycle_ops(setup, nu: int, nu_coarse: int) -> float:
+    """Float32 operations of one V-cycle, counted for what it computes: a
+    stencil apply is 2 npts - 1 a point; a smoothing step from zero 3, with
+    an iterate 2 npts + 6; a residual 2 npts; a restriction ~20 a coarse
+    point and a prolongation ~10 a fine point."""
+    shapes = setup["meta"]["shapes"]
+    total = 0.0
+    for l, (lv, (nz, nr)) in enumerate(zip(setup["levels"], shapes)):
+        n, npts = nz * nr, lv["C"].shape[0]
+        step = 2 * npts + 6
+        if l == len(shapes) - 1:
+            total += n * (3 + (nu_coarse - 1) * step)
+            continue
+        total += n * (3 + (2 * nu - 1) * step + 2 * npts + 10)
+        total += 20 * shapes[l + 1][0] * shapes[l + 1][1]
+    return total
+
+
+def nine_plane_checks(problem, setup, device, out: dict) -> dict:
+    """Phase 17a: K1 (identity, r-line, ADI) and K2 (8 lanes) on a 9-plane
+    operator, the flagship hierarchy's level 1 (a Galerkin product: both
+    anti-diagonal planes filled). The solves are driven once with the counts
+    set to 0 just before (no ported entry point reaches a 9-plane operator
+    before the unstructured path exists, so these driven solves are their
+    path), then held against the plain versions."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg, cuda_mg
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+    from heatflow_tpu_torch.ops.stencil import apply_stencil
+
+    A9 = setup["levels"][1]["C"]
+    nz, nr = A9.shape[1:]
+    n = nz * nr
+    A7, free7 = flagship_operator(problem)
+    # a second 9-plane operator for K2's lanes: the same level of the
+    # hierarchy at four times the time step, minus the first, so that
+    # A0 + dk Kv, dk in [0, 1], is a convex combination of the two
+    st = problem.stencils
+    A7b = A7 + 3.0 * float(problem.dt) * np.einsum(
+        "m,mkij->kij", problem.kappas, st.K)
+    other = cuda_mg.build_mg_setup(A7b, free7, problem.mesh.z,
+                                   problem.mesh.r, n_levels=2, device=device)
+    Kv = (other["levels"][1]["C"] - A9).contiguous()
+    require(A9.shape[0] == 9 and Kv.shape == A9.shape
+            and float(A9[7:].abs().max()) > 1e-3 * float(A9.abs().max()),
+            "level 1 is not a filled 9-plane operator")
+    rng = np.random.default_rng(17)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32,
+                                 device=device).contiguous()
+    free = torch.ones((nz, nr), dtype=torch.float32, device=device)
+    s = torch.rsqrt(torch.where(A9[0] > 0, A9[0], free))
+    sm = (s * free).contiguous()
+    x_true = f32(rng.standard_normal((nz, nr)))
+    b = (sm * apply_stencil(A9, sm * x_true)).contiguous()
+    b = (b / torch.linalg.vector_norm(b)).contiguous()
+    x0 = torch.zeros_like(b)
+    pcr = cuda_cg.pcr_pack(A9, s, free).contiguous()
+    pcr_z = cuda_cg.pcr_pack(A9, s, free, axis=-2).contiguous()
+    B = 8
+    dks = f32(np.linspace(0.0, 1.0, B))
+    diag = A9[0][None] + dks[:, None, None] * Kv[0][None]
+    smb = torch.rsqrt(torch.where(diag > 0, diag, torch.ones_like(diag))) \
+        .contiguous()
+    xb = f32(rng.standard_normal((B, nz, nr)))
+    bb = torch.stack([smb[i] * apply_stencil(A9 + dks[i] * Kv, smb[i] * xb[i])
+                      for i in range(B)]).contiguous()
+    xb0 = torch.zeros_like(bb)
+    rtol = 1e-6
+    k1_forms = (("identity", {}), ("rline", {"pcr": pcr}),
+                ("adi", {"pcr": pcr, "pcr_z": pcr_z}))
+    k2_forms = (("identity", {}), ("rline", {"rline": True}),
+                ("adi", {"adi": True}))
+    k1 = lambda fn, kw: fn(A9, sm, b, x0, rtol, maxiter=20000, rtol_wrt="b",
+                           **kw)
+    k2 = lambda fn, kw, cast=lambda t: t: fn(
+        *(cast(t) for t in (A9, Kv, dks, smb, bb, xb0)), rtol, maxiter=20000,
+        rtol_wrt="b", **kw)
+
+    # the driven solves, counted
+    cuda_cg.reset_counters()
+    cs.reset_counters()
+    got1 = {form: k1(cuda_cg.cg_tol, kw) for form, kw in k1_forms}
+    got2 = {form: k2(cs.cg_batched_tol, kw) for form, kw in k2_forms}
+    torch.cuda.synchronize()
+    counts = dict(k1={f: getattr(cuda_cg.cg_tol, f"launches_{f}")
+                      for f, _ in k1_forms}, k2=_sweep_counts())
+    require(all(v == 1 for v in counts["k1"].values())
+            and all(counts["k2"][f] == 1 for f, _ in k2_forms), counts)
+
+    norm = lambda v: float(torch.linalg.vector_norm(v.double()))
+    rows = {}
+    for form, kw in k1_forms:
+        x_k, it_k = got1[form]
+        x_p, it_p = k1(cuda_cg.cg_tol_reference, kw)
+        x64, _ = cuda_cg.cg_tol_reference(
+            A9.double(), sm.double(), b.double(), x0.double(), rtol,
+            maxiter=20000, rtol_wrt="b",
+            **{k: v.double() for k, v in kw.items()})
+        it_k, it_p = int(it_k), int(it_p)
+        rel_l2 = norm(x_k - x_p) / norm(x_p)
+        err_k, err_p = norm(x_k - x64) / norm(x64), \
+            norm(x_p - x64) / norm(x64)
+        print(f"9-plane K1 {form} ({nz} x {nr}): iters kernel {it_k} plain "
+              f"{it_p}; kernel vs plain rel-L2 {rel_l2:.3e}; vs float64 "
+              f"kernel {err_k:.3e} plain {err_p:.3e}")
+        require(abs(it_k - it_p) <= max(3, int(0.05 * it_p)),
+                (form, it_k, it_p))
+        require(rel_l2 <= max(1e-4, 2.0 * err_p), (form, rel_l2, err_p))
+        require(err_k <= max(1e-4, 1.5 * err_p), (form, err_k, err_p))
+        rows[f"cg_tol[{form},9-plane]"] = dict(
+            iters=it_k, plain_iters=it_p, rel_l2=rel_l2, err_vs_f64=err_k,
+            plain_err_vs_f64=err_p, launches=counts["k1"][form],
+            max_abs_err=float((x_k - x_p).abs().max()),
+            ms=cuda_ms(lambda: k1(cuda_cg.cg_tol, kw), 3),
+            plain_ms=cuda_ms(lambda: k1(cuda_cg.cg_tol_reference, kw), 1),
+            **bound(nbytes(A9, sm, b, x0, b, *kw.values()),
+                    it_k * n * (k1_iter_ops(bool(kw), "pcr_z" in kw) + 4)))
+    d64 = lambda t: t.double()
+    for form, kw in k2_forms:
+        x_k, it_k = got2[form]
+        x_p, it_p = k2(cs.cg_batched_tol_reference, kw)
+        x64, _ = k2(cs.cg_batched_tol_reference, kw, d64)
+        worst = dict(rel_l2=0.0, err_k=0.0, err_p=0.0)
+        for i in range(B):
+            rel_l2 = norm(x_k[i] - x_p[i]) / norm(x_p[i])
+            err_k = norm(x_k[i] - x64[i]) / norm(x64[i])
+            err_p = norm(x_p[i] - x64[i]) / norm(x64[i])
+            ik, ip = int(it_k[i]), int(it_p[i])
+            require(abs(ik - ip) <= max(3, int(0.05 * ip)), (form, i, ik, ip))
+            require(rel_l2 <= max(1e-4, 2.0 * err_p), (form, i, rel_l2,
+                                                       err_p))
+            require(err_k <= max(1e-4, 1.5 * err_p), (form, i, err_k, err_p))
+            for key, v in (("rel_l2", rel_l2), ("err_k", err_k),
+                           ("err_p", err_p)):
+                worst[key] = max(worst[key], v)
+        its = [int(i) for i in it_k.tolist()]
+        print(f"9-plane K2 {form}, {B} lanes: iters kernel {its} plain "
+              f"{[int(i) for i in it_p.tolist()]}; worst lane: kernel vs "
+              f"plain rel-L2 {worst['rel_l2']:.3e}, vs float64 kernel "
+              f"{worst['err_k']:.3e} plain {worst['err_p']:.3e}")
+        rows[f"cg_batched_tol[{form},9-plane]"] = dict(
+            iters=its, **worst, launches=counts["k2"][form],
+            max_abs_err=float((x_k - x_p).abs().max()),
+            ms=cuda_ms(lambda: k2(cs.cg_batched_tol, kw), 2),
+            plain_ms=cuda_ms(lambda: k2(cs.cg_batched_tol_reference, kw), 1),
+            **k2_solve_bound(A9, Kv, dks, smb, bb, xb0, its,
+                             k2_iter_ops("rline" in kw or "adi" in kw,
+                                         "adi" in kw) + 8))
+    out["nine_plane"] = rows
+    return rows
+
+
+def mg_checks(problem, setup, device, out: dict) -> dict:
+    """Phase 17b-d: each phase kernel of the multigrid cycle alone against
+    its plain version on the flagship plane and on level 1, the whole cycle
+    and its symmetry, ``mgcg_vmem_tol`` on the first step's system at three
+    tolerances, and ``cg_vmem`` on the baked flagship operator."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg, cuda_mg
+    from heatflow_tpu_torch.ops.stencil import apply_stencil
+
+    A32, sm32, s32, free32, b32 = first_step_system(problem, device)
+    nz, nr = b32.shape
+    pz, pr = setup["meta"]["padded"]
+    require((pz, pr) == (nz, nr), "the flagship grid has odd sides")
+    shapes = setup["meta"]["shapes"]
+    print(f"multigrid levels {shapes}, Gershgorin bounds "
+          f"{[round(v, 4) for v in setup['meta']['lmaxs']]}")
+    rng = np.random.default_rng(171)
+    field = lambda shape: torch.tensor(rng.standard_normal(tuple(shape)),
+                                       dtype=torch.float32,
+                                       device=device).contiguous()
+    norm = lambda v: float(torch.linalg.vector_norm(v.double()))
+    rows = {}
+
+    def distance(got, want):
+        err = rel = 0.0
+        for a, b_ in zip(got, want, strict=True):
+            if b_ is None:
+                continue
+            d = float((a.double() - b_.double()).abs().max())
+            err, rel = max(err, d), max(rel, d / float(b_.double().abs().max()))
+        return err, rel
+
+    def phase(name, counter, kernel, plain, moved, ops, tol=1e-5, reps=50):
+        err, rel = distance(kernel(), plain())
+        require(rel <= tol, (name, rel, tol))
+        rows[name] = dict(name=name, phase=counter, max_abs_err=err, rel=rel,
+                          ms=cuda_ms(kernel, reps),
+                          plain_ms=cuda_ms(plain, 10), **bound(moved, ops))
+        print(f"mg phase {name}: max|err| {err:.3e} (rel {rel:.3e}, bound "
+              f"{tol:.0e}), kernel {rows[name]['ms']:.4f} ms, plain "
+              f"{rows[name]['plain_ms']:.4f} ms")
+
+    as_t = lambda v: v if isinstance(v, tuple) else (v,)
+    for l in (0, 1):
+        lv = setup["levels"][l]
+        C, wz, wr = lv["C"], lv["wz"], lv["wr"]
+        npts, shape = C.shape[0], shapes[l]
+        n = shape[0] * shape[1]
+        b, x, d = field(shape), field(shape), field(shape)
+        mask = (field(shape) > -1.0).float().contiguous()
+        theta, coefs = cuda_mg.cheb_coefficients(
+            setup["meta"]["lmaxs"][l], 3, torch.float32)
+        cases = (("first", (C, b, None, None, theta), {}, 3),
+                 ("next", (C, b, x, d, theta, *coefs[1]),
+                  dict(mask=mask, dot=b), 2 * npts + 9))
+        for tag, args, kw, per in cases:
+            ins = [t for t in (*args, *kw.values()) if torch.is_tensor(t)]
+            phase(f"mgcg.cheb_step[{tag},L{l}]", "mg_cheb",
+                  lambda: cuda_mg.mg_cheb_step(*args, **kw),
+                  lambda: cuda_mg.mg_cheb_step_reference(*args, **kw),
+                  nbytes(*ins, b, b) + 8, per * n)
+        phase(f"mgcg.residual[L{l}]", "mg_residual",
+              lambda: as_t(cuda_mg.mg_residual(C, b, x)),
+              lambda: as_t(b - apply_stencil(C, x)),
+              nbytes(C, b, x, b), 2 * npts * n)
+        cshape = shapes[l + 1]
+        xc = field(cshape)
+        phase(f"mgcg.restrict[L{l}]", "mg_restrict",
+              lambda: as_t(cuda_mg.mg_restrict(b, wz, wr, cshape)),
+              lambda: as_t(cuda_mg.mg_restrict_reference(b, wz, wr, cshape)),
+              nbytes(b, wz, wr, xc), 20 * xc.numel())
+        phase(f"mgcg.prolong[L{l}]", "mg_prolong",
+              lambda: as_t(cuda_mg.mg_prolong_add(x, xc, wz, wr)),
+              lambda: as_t(cuda_mg.mg_prolong_add_reference(x, xc, wz, wr)),
+              nbytes(x, xc, wz, wr, x), 10 * n)
+
+    # the whole cycle: held to the plain float32 version's own distance from
+    # the float64 cycle where a composition of float32 passes cannot reach
+    # 1e-4; and its symmetry on masked fields
+    setup64 = {"A": setup["A"].double(), "sm": setup["sm"].double(),
+               "levels": [{k: v.double() for k, v in lv.items()}
+                          for lv in setup["levels"]], "meta": setup["meta"]}
+    fmask = (setup["sm"] > 0).float()
+    u, r = (field((pz, pr)) * fmask).contiguous(), \
+        (field((pz, pr)) * fmask).contiguous()
+    z_k, rz_k = cuda_mg.mg_vcycle(setup, r)
+    z_p, rz_p = cuda_mg.mg_vcycle_reference(setup, r)
+    z64, _ = cuda_mg.mg_vcycle_reference(setup64, r.double())
+    err, rel = distance((z_k,), (z_p,))
+    floor, rel64 = distance((z_p,), (z64,))[1], distance((z_k,), (z64,))[1]
+    dot_rel = abs(float(rz_k - rz_p)) / abs(float(rz_p))
+    print(f"mg V-cycle ({len(shapes)} levels, nu 2, nu_coarse 10): kernel "
+          f"vs plain rel {rel:.3e}; vs float64 kernel {rel64:.3e}, plain "
+          f"{floor:.3e}; <r, z> rel {dot_rel:.3e}")
+    require(rel <= max(1e-4, 2.0 * floor) and rel64 <= max(1e-4, 1.5 * floor)
+            and dot_rel <= max(1e-4, 2.0 * floor),
+            ("V-cycle", rel, rel64, floor, dot_rel))
+    Mu, _ = cuda_mg.mg_vcycle(setup, u)
+    a = float((r.double() * Mu.double()).sum())
+    b_ = float((u.double() * z_k.double()).sum())
+    asym = abs(a - b_) / (norm(r) * norm(Mu))
+    print(f"mg V-cycle symmetry: <v, Mu> {a:.6e}, <u, Mv> {b_:.6e}, "
+          f"|difference| / (|v| |Mu|) {asym:.3e}")
+    require(asym <= 1e-5, ("V-cycle asymmetry", asym))
+    cycle_ops = mg_cycle_ops(setup, 2, 10)
+    cycle_bytes = nbytes(*[lv[k] for lv in setup["levels"]
+                           for k in ("C", "wz", "wr")], setup["sm"], r, r) + 8
+    rows["mgcg.vcycle"] = dict(
+        name="mgcg.vcycle", phase="mg_prolong", max_abs_err=err, rel=rel,
+        asymmetry=asym, ms=cuda_ms(lambda: cuda_mg.mg_vcycle(setup, r), 20),
+        plain_ms=cuda_ms(lambda: cuda_mg.mg_vcycle_reference(setup, r), 3),
+        **bound(cycle_bytes, cycle_ops))
+    print(f"mg V-cycle: kernel {rows['mgcg.vcycle']['ms']:.4f} ms, plain "
+          f"{rows['mgcg.vcycle']['plain_ms']:.4f} ms")
+
+    # the solve on the first step's system at three tolerances wrt r0
+    x0 = torch.zeros_like(b32)
+    t0 = time.perf_counter()
+    x64, it64 = cuda_mg.mgcg_tol_reference(setup64, b32.double(),
+                                           x0.double(), 1e-9, maxiter=1500)
+    torch.cuda.synchronize()
+    print(f"mgcg float64 plain solve at rtol 1e-9: {int(it64)} iterations "
+          f"in {time.perf_counter() - t0:.2f} s")
+    op64 = lambda y: (sm32.double()
+                      * apply_stencil(A32.double(), sm32.double() * y))
+    res64 = norm(b32.double() - op64(x64)) / norm(b32)
+    require(int(it64) < 1500 and res64 <= 1e-8, ("float64 mgcg", int(it64),
+                                                 res64))
+    solves = {}
+    n = nz * nr
+    for rtol in (1e-3, 1e-5, 1e-6):
+        cuda_cg.reset_counters()
+        x_k, it_k = cuda_mg.mgcg_vmem_tol(setup, b32, x0, rtol)
+        torch.cuda.synchronize()
+        launches = sum(cuda_cg.phase_launches().values())
+        t0 = time.perf_counter()
+        x_p, it_p = cuda_mg.mgcg_tol_reference(setup, b32, x0, rtol)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        it_k, it_p = int(it_k), int(it_p)
+        rel_l2 = norm(x_k - x_p) / norm(x_p)
+        err_k, err_p = norm(x_k - x64) / norm(x64), \
+            norm(x_p - x64) / norm(x64)
+        res = norm(b32.double() - op64(x_k.double())) / norm(b32)
+        ms = cuda_ms(lambda: cuda_mg.mgcg_vmem_tol(setup, b32, x0, rtol), 2)
+        print(f"mgcg_vmem_tol rtol {rtol:g} wrt r0: iters kernel {it_k} "
+              f"plain {it_p}; kernel vs plain rel-L2 {rel_l2:.3e}; vs "
+              f"float64 kernel {err_k:.3e} plain {err_p:.3e}; true residual "
+              f"{res:.3e} x ||b||; kernel {ms:.3f} ms a solve, "
+              f"{1e3 * ms / max(it_k, 1):.1f} us an iteration, "
+              f"{launches / max(it_k, 1):.1f} launches an iteration; plain "
+              f"{plain_ms:.1f} ms")
+        require(abs(it_k - it_p) <= max(3, int(0.02 * it_p)),
+                ("mgcg", rtol, it_k, it_p))
+        require(it_k < 2000, ("mgcg ran to maxiter", rtol))
+        require(rel_l2 <= max(1e-4, 2.0 * err_p) or rtol > 1e-5,
+                ("mgcg", rtol, rel_l2, err_p))
+        require(err_k <= max(rtol * 10, 1.5 * err_p), ("mgcg", rtol, err_k,
+                                                       err_p))
+        solves[f"mgcg_vmem_tol[{rtol:g}]"] = dict(
+            iters=it_k, plain_iters=it_p, rel_l2=rel_l2, err_vs_f64=err_k,
+            plain_err_vs_f64=err_p, true_res_over_ref=res,
+            launches_per_iter=launches / max(it_k, 1),
+            max_abs_err=float((x_k - x_p).abs().max()), ms=ms,
+            plain_ms=plain_ms,
+            **bound(nbytes(*cuda_mg.setup_tensors(setup), b32, x0, b32),
+                    (it_k + 1) * (cycle_ops + n * (17 + 6 + 2 + 3))))
+    solves["float64"] = dict(iters=int(it64), true_res_over_ref=res64)
+
+    # K7: 64 fixed iterations on the baked operator; the baked operator
+    # against the on-the-fly form
+    C, s_b = cuda_cg.masked_scaled_operator(A32, free32)
+    C = C.contiguous()
+    p = (field((nz, nr)) * free32).contiguous()
+    baked = apply_stencil(C, p)
+    onfly = sm32 * apply_stencil(A32, sm32 * p)
+    d_op = float((baked - onfly).abs().max() / onfly.abs().max())
+    d_s = float((s_b - s32).abs().max() / s32.abs().max())
+    print(f"baked operator against sm A sm on a random free field: rel "
+          f"{d_op:.3e}; its scaling against the stepper's: rel {d_s:.3e}")
+    require(d_op <= 1e-5 and d_s <= 1e-6, ("baked operator", d_op, d_s))
+    x_k = cuda_cg.cg_vmem(C, b32, x0, iters=64)
+    x_p = cuda_cg.cg_vmem_reference(C, b32, x0, iters=64)
+    x64_ = cuda_cg.cg_vmem_reference(C.double(), b32.double(), x0.double(),
+                                     iters=64)
+    rel_l2 = norm(x_k - x_p) / norm(x_p)
+    err_k, err_p = norm(x_k - x64_) / norm(x64_), norm(x_p - x64_) / norm(x64_)
+    print(f"cg_vmem 64 iterations: kernel vs plain rel-L2 {rel_l2:.3e}; vs "
+          f"float64 kernel {err_k:.3e} plain {err_p:.3e}")
+    require(rel_l2 <= max(1e-4, 2.0 * err_p)
+            and err_k <= max(1e-4, 1.5 * err_p), ("cg_vmem", rel_l2, err_k,
+                                                  err_p))
+    solves["cg_vmem[64]"] = dict(
+        iters=64, rel_l2=rel_l2, err_vs_f64=err_k, plain_err_vs_f64=err_p,
+        max_abs_err=float((x_k - x_p).abs().max()),
+        ms=cuda_ms(lambda: cuda_cg.cg_vmem(C, b32, x0, iters=64), 5),
+        plain_ms=cuda_ms(lambda: cuda_cg.cg_vmem_reference(C, b32, x0,
+                                                           iters=64), 2),
+        **bound(nbytes(C, b32, x0, b32), 64 * n * (13 + 2 + 6 + 2)))
+    print(f"cg_vmem 64 iterations: kernel {solves['cg_vmem[64]']['ms']:.3f} "
+          f"ms, plain {solves['cg_vmem[64]']['plain_ms']:.3f} ms")
+    out["mg_phases"] = rows
+    out["mg_solves"] = solves
+    return dict(phases=rows, solves=solves)
+
+
+def _patched_transient(problem, device, steps: int, solver, **kw):
+    """``steps`` steps of the flagship transient through
+    ``make_simulate_fn``'s refined recipe (the stepper forms each step's
+    right-hand side, seed and float64 residual), every inner float32 system
+    handed to ``solver(A32, sm32, r32, seed, rtol)`` in place of ``cg_tol``:
+    (watch (steps, W), iterations a step, seconds)."""
+    import copy
+    import functools
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg
+    from heatflow_tpu_torch.sim.stepper import make_simulate_fn
+    short = copy.copy(problem)
+    short.num_steps = steps
+    short.extras = {}
+    kernel = cuda_cg.cg_tol
+
+    @functools.wraps(kernel)
+    def stand_in(A, sm, b, x0, rtol, **_kw):
+        return solver(A, sm, b, x0, rtol)
+
+    fn = make_simulate_fn(short, dtype=torch.float32, device=device,
+                          record_gradient=False, record_fields=False,
+                          solver="vmem", precondition="rline", f64_refine=1,
+                          warm_start="previous", rtol_wrt="r0", maxiter=8000,
+                          **kw)
+    if solver is not None:
+        cuda_cg.cg_tol = stand_in
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys = fn()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        cuda_cg.cg_tol = kernel
+    return ys["watch"].cpu().numpy(), ys["cg_iters"].cpu().numpy(), run_s
+
+
+def run_mg_transient(problem, setup, device, out: dict) -> dict:
+    """Phase 18: the paths that run K6 and K7 at full width. (a) The first
+    steps of the flagship transient, every step's system solved by
+    ``mgcg_vmem_tol`` at rtol 1e-5 in float32 inside one float64 residual
+    pass, the traces held to the float64 truth, beside the r-line kernel on
+    the same steps. (b) A few steps with every system solved by ``cg_vmem``
+    on the baked operator (a fixed count, no stop test), against the same
+    steps through its plain version."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg, cuda_mg
+
+    truth = np.load(TRUTH)["watch"]
+    names = list(problem.watcher_names)
+    mg_solver = lambda A, sm, b, x0, rtol: cuda_mg.mgcg_vmem_tol(
+        setup, b, x0, rtol, maxiter=2000, rtol_wrt="r0")
+    _patched_transient(problem, device, 2, mg_solver, rtol=1e-5)   # warm-up
+    cuda_mg.reset_counters()
+    watch, iters, run_s = _patched_transient(problem, device, MG_STEPS,
+                                             mg_solver, rtol=1e-5)
+    phases = cuda_cg.phase_launches()
+    solves = cuda_mg.mgcg_vmem_tol.launches
+    require(solves == MG_STEPS and cuda_cg.cg_tol.launches == 0,
+            (solves, cuda_cg.cg_tol.launches))
+    peak = np.abs(watch - truth[:MG_STEPS]).max(axis=0)
+    _, it_rl, rl_s = _patched_transient(problem, device, MG_STEPS, None,
+                                        rtol=1e-5)
+    print(f"K6 path: {MG_STEPS} flagship steps by mgcg_vmem_tol "
+          f"({len(setup['levels'])} levels, rtol 1e-5, one float64 pass) in "
+          f"{run_s:.3f} s = {MG_STEPS / run_s:.2f} steps/s; iterations a "
+          f"step {iters.tolist()} (mean {iters.mean():.1f}); the r-line "
+          f"kernel on the same steps {it_rl.tolist()} (mean "
+          f"{it_rl.mean():.1f}) in {rl_s:.3f} s; peak |error| vs f64 truth "
+          f"[K]: " + ", ".join(f"{n} {e:.4f}" for n, e in zip(names, peak)))
+    require(np.isfinite(watch).all() and int(iters.max()) < 2000,
+            ("K6 path", iters))
+    require((peak <= TRACE_TOL_K).all(), f"K6 path trace error {peak} K")
+
+    # (b) K7: the fixed-count solve on the baked operator
+    baked = {}
+
+    def k7(solve):
+        def solver(A, sm, b, x0, rtol):
+            if "C" not in baked:
+                free = (sm != 0).to(A.dtype)
+                baked["C"] = cuda_cg.masked_scaled_operator(A, free)[0] \
+                    .contiguous()
+            x = solve(baked["C"], b.contiguous(), x0, iters=K7_ITERS)
+            return x, torch.tensor(K7_ITERS, dtype=torch.int32,
+                                   device=b.device)
+        return solver
+
+    cuda_mg.reset_counters()
+    w_k, _, k7_s = _patched_transient(problem, device, K7_STEPS,
+                                      k7(cuda_cg.cg_vmem), rtol=1e-5)
+    k7_phases = cuda_cg.phase_launches()
+    k7_solves = cuda_cg.cg_vmem.launches
+    require(k7_solves == K7_STEPS, k7_solves)
+    w_p, _, k7_plain_s = _patched_transient(
+        problem, device, K7_STEPS, k7(cuda_cg.cg_vmem_reference), rtol=1e-5)
+    d_kp = float(np.abs(w_k - w_p).max())
+    d_truth = np.abs(w_k - truth[:K7_STEPS]).max(axis=0)
+    print(f"K7 path: {K7_STEPS} flagship steps by cg_vmem ({K7_ITERS} "
+          f"iterations a step on the baked operator, one float64 pass) in "
+          f"{k7_s:.3f} s (plain version {k7_plain_s:.2f} s); traces within "
+          f"{d_kp:.3e} K of the plain version's, {np.round(d_truth, 4).tolist()}"
+          f" K of the f64 truth")
+    # 1500 unpreconditioned iterations do not converge a pulse step (the
+    # identity form needs ~4000): the kernel is held to its plain version,
+    # the distance from the truth only to a sane size
+    require(np.isfinite(w_k).all() and d_kp <= 0.5
+            and (d_truth <= 50.0).all(), ("K7 path", d_kp, d_truth))
+    out["mg_transient"] = dict(
+        steps=MG_STEPS, run_s=run_s, iters=iters.tolist(),
+        rline_iters=it_rl.tolist(), rline_run_s=rl_s,
+        peak_err_K=dict(zip(names, peak.tolist())), phase_launches=phases,
+        solves=solves, k7_steps=K7_STEPS, k7_iters=K7_ITERS, k7_run_s=k7_s,
+        k7_plain_run_s=k7_plain_s, k7_vs_plain_K=d_kp,
+        k7_vs_truth_K=d_truth.tolist(), k7_solves=k7_solves)
+    # a phase row reads its kernel's launches on the K6 path; K7's phases
+    # are K1's own rows
+    return dict(phases=phases, solves=solves, k7_solves=k7_solves,
+                k7_phases=k7_phases)
+
+
+def run_pipeline_1d(device, out: dict) -> None:
+    """Phase 19: the 2D -> 1D pipeline at full width through the CLIs: the
+    2D recording run, then the 1D reduced model on that run's gradient CSV
+    with the correction on and off, on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.config import load_config, save_config
+    from heatflow_tpu_torch.drivers import run1d, run2d
+    from heatflow_tpu_torch.io.csvio import read_gradient_csv, read_watcher_csv
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "pipeline")
+    os.makedirs(work, exist_ok=True)
+    paths = {}
+    for tag, src in (("2d", FIT_CFG), ("1d", ONE_D_CFG)):
+        cfg = load_config(src)
+        cfg["heating"]["file"] = CSV
+        paths[tag] = os.path.join(work, f"{tag}.yaml")
+        save_config(cfg, paths[tag])
+    mesh, out2d = os.path.join(work, "mesh"), os.path.join(work, "out2d")
+    t0 = time.perf_counter()
+    run2d.main(["--config", paths["2d"], "--mesh-folder", mesh,
+                "--rebuild-mesh", "--output-folder", out2d,
+                "--watcher-points", "auto", "--device", str(device),
+                "--suppress-print"])
+    torch.cuda.synchronize()
+    run2d_s = time.perf_counter() - t0
+    grad = os.path.join(out2d, "radial_gradient.csv")
+    gt, gz, gv = read_gradient_csv(grad)
+    require(gv.size and np.isfinite(gv).all() and np.abs(gv).max() > 0,
+            "the 2D run's radial_gradient.csv")
+    runs = {}
+    for tag, dev in (("card", str(device)), ("cpu", "cpu")):
+        for corr in (True, False):
+            o = os.path.join(work, f"out1d_{tag}_{int(corr)}")
+            t0 = time.perf_counter()
+            run1d.main(["--config", paths["1d"], "--mesh-folder-2d", mesh,
+                        "--output-folder", o, "--radial-gradient-path", grad,
+                        "--device", dev, "--suppress-print"]
+                       + ([] if corr else ["--no-radial-correction"]))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            cols = read_watcher_csv(os.path.join(o, "watcher_points.csv"))
+            require(list(cols) == ["time", "pside", "oside"], list(cols))
+            runs[tag, corr] = (
+                np.column_stack([cols["pside"], cols["oside"]]), secs)
+    rel = {}
+    for corr in (True, False):
+        a, b = runs["card", corr][0], runs["cpu", corr][0]
+        require(a.shape == b.shape and np.isfinite(a).all(), "1D traces")
+        rel[corr] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        require(rel[corr] <= 1e-8, ("1D card vs CPU", corr, rel[corr]))
+    d_corr = float(np.abs(runs["card", True][0]
+                          - runs["card", False][0]).max())
+    require(d_corr > 1e-6, "the radial correction changes nothing")
+    w = runs["card", True][0]
+    print(f"2D -> 1D pipeline: run2d CLI ({os.path.basename(FIT_CFG)}, "
+          f"gradient recorded, {len(gt)} steps x {len(gz)} z-bins) "
+          f"{run2d_s:.2f} s; run1d CLI ({os.path.basename(ONE_D_CFG)}, "
+          f"float64) on the card {runs['card', True][1]:.2f} s corrected, "
+          f"{runs['card', False][1]:.2f} s uncorrected; on the CPU "
+          f"{runs['cpu', True][1]:.2f} s, {runs['cpu', False][1]:.2f} s; "
+          f"card vs CPU rel-L2 {rel[True]:.3e} (corrected), {rel[False]:.3e} "
+          f"(uncorrected); the correction moves the traces by up to "
+          f"{d_corr:.3f} K; watcher range [{w.min():.2f}, {w.max():.2f}] K")
+    out["pipeline_1d"] = dict(
+        run2d_s=run2d_s, card_vs_cpu_rel_l2={str(k): v for k, v in rel.items()},
+        correction_K=d_corr,
+        run1d_s={f"{dev}_{'on' if c else 'off'}": secs
+                 for (dev, c), (_, secs) in runs.items()})
 
 
 def main() -> None:
@@ -2489,6 +3133,20 @@ def main() -> None:
     form_counts = run_forms_slice(problem, sweep_problem, device, out)
     run_mg_and_steady(problem, device, out)
 
+    from heatflow_tpu_torch.ops import cuda_mg
+    t0 = time.perf_counter()
+    setup = cuda_mg.build_mg_setup(*flagship_operator(problem),
+                                   problem.mesh.z, problem.mesh.r,
+                                   n_levels=MG_LEVELS, device=device)
+    print(f"multigrid setup (host, scipy Galerkin products, {MG_LEVELS} "
+          f"levels): {time.perf_counter() - t0:.2f} s")
+    nine_rows = nine_plane_checks(problem, setup, device, out)
+    mg_rows = mg_checks(problem, setup, device, out)
+    mg_counts = run_mg_transient(problem, setup, device, out)
+    run_pipeline_1d(device, out)
+    out["phases_17_19_s"] = time.perf_counter() - t0
+    print(f"phases 17-19: {out['phases_17_19_s']:.1f} s")
+
     counts = out["slice"]["phase_launches"]
     solves = out["slice"]["solves"]
     kernel = lambda name, source, replaces, launches, r: dict(
@@ -2544,6 +3202,24 @@ def main() -> None:
         kernels.append(kernel(name, SWEEP_SOURCE, K2_REPLACES,
                               k2["phases"][phase] if phase else k2["merged"],
                               r))
+    # the 9-plane runs of K1 and K2: their driven solves of phase 17; the
+    # multigrid cycle's phase kernels and the multigrid solve: their launches
+    # on the K6 path of phase 18; the fixed-count solve: on the K7 path
+    for name, r in nine_rows.items():
+        k2_row = name.startswith("cg_batched")
+        kernels.append(kernel(name, SWEEP_SOURCE if k2_row else SOURCE,
+                              K2_REPLACES if k2_row else REPLACES,
+                              r["launches"], r))
+    for r in mg_rows["phases"].values():
+        kernels.append(kernel(r["name"], SOURCE, K6_REPLACES,
+                              mg_counts["phases"][r["phase"]], r))
+    for name, r in mg_rows["solves"].items():
+        if name.startswith("mgcg_vmem_tol["):
+            kernels.append(kernel(name, SOURCE, K6_REPLACES,
+                                  mg_counts["solves"], r))
+        elif name.startswith("cg_vmem["):
+            kernels.append(kernel(name, SOURCE, K7_REPLACES,
+                                  mg_counts["k7_solves"], r))
     require(all(k["launches"] > 0 for k in kernels), kernels)
     out["wall_s"] = time.perf_counter() - t_script
     print(f"chip_smoke wall time: {out['wall_s']:.1f} s")

@@ -47,6 +47,26 @@
 // scalar kernel forms beta and the coupled alpha (k_finalize_merged), and
 // one pass updates p and q (k_pq_update): 4 launches an identity iteration
 // against 5, at one more plane of traffic.
+//
+// Also replaces heatflow_tpu/ops/pallas_mg.py:_mgcg_kernel (the whole
+// multigrid-preconditioned solve in one TPU kernel) and
+// heatflow_tpu/ops/pallas_cg.py:_cg_kernel (the fixed-count unpreconditioned
+// CG on a baked operator). The first is one more preconditioner of the same
+// solve loop: a V-cycle over baked level operators (7 planes on the finest
+// level, 9 on the Galerkin coarse ones), each level smoothed by a Chebyshev
+// polynomial in D^-1 C whose coefficients the host computes once, with
+// bilinear factor-2 transfers on the odd-padded grids of the TPU scheme. The
+// TPU kernel moves data between levels with reshapes and transposes because
+// its compiler has no gathers; here a restriction is one thread per coarse
+// point that gathers its nine fine residuals in a fixed order (no atomics,
+// so a cycle is repeatable bitwise) and a prolongation one thread per fine
+// point. A smoothing step reads its iterate's neighbours from one plane and
+// writes the next iterate into another, like k_cheb_step. One cycle of four
+// levels with 2 + 2 smoothing steps and 10 on the last level is 31 launches;
+// the coarse levels (18 k and 4.7 k points on the flagship) are bound by
+// launch latency, not traffic: one kernel for the lower levels is the next
+// step. The second is the standard loop with the stop test switched off
+// (`fixed`), sm = 1 and no preconditioner: no host read during the solve.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,7 +89,8 @@ enum Phase {
   kPhInit = 0, kPhStencilDot, kPhUpdate, kPhPcrR, kPhPcrZ, kPhFinalize,
   kPhPUpdate, kPhFinish, kPhChebInit, kPhChebStep, kPhMergedW,
   kPhFinalizeMerged, kPhPqUpdate, kPhResidual, kPhPcrRow, kPhCoarseRes,
-  kPhProlong, kNumPhases
+  kPhProlong, kPhMgCheb, kPhMgResidual, kPhMgRestrict, kPhMgProlong,
+  kNumPhases
 };
 
 enum FinalizeMode { kFinInit = 0, kFinAlpha = 1, kFinBeta = 2 };
@@ -114,6 +135,28 @@ __device__ __forceinline__ float stencil_at(const float* __restrict__ A,
       const size_t q = (size_t)ii * nr + jj;
       out += A[(size_t)(k + 1) * n + idx] * (sm[q] * v[q]);
     }
+  }
+  return out;
+}
+
+// (C v)[i, j] for a baked 7-point (or 9-point) level operator of the
+// multigrid cycle: no scaling, the same accumulation order.
+__device__ __forceinline__ float level_stencil_at(const float* __restrict__ C,
+                                                  int npts,
+                                                  const float* __restrict__ v,
+                                                  int i, int j, int nz,
+                                                  int nr) {
+  const size_t n = (size_t)nz * nr;
+  const size_t idx = (size_t)i * nr + j;
+  float out = C[idx] * v[idx];
+  const int di[8] = {1, -1, 0, 0, 1, -1, 1, -1};
+  const int dj[8] = {0, 0, 1, -1, 1, -1, -1, 1};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (k >= npts - 1) break;
+    const int ii = i + di[k], jj = j + dj[k];
+    if (ii >= 0 && ii < nz && jj >= 0 && jj < nr)
+      out += C[(size_t)(k + 1) * n + idx] * v[(size_t)ii * nr + jj];
   }
   return out;
 }
@@ -539,6 +582,129 @@ __global__ void k_prolong(float* __restrict__ x, const float* __restrict__ y,
   x[idx] = v;
 }
 
+// One Chebyshev smoothing step on D^-1 C of a multigrid level, for the
+// right-hand side b: res = b - C x_in (b itself when x_in is null: the
+// iterate starts at zero), dinv = 1 / diag(C) (1 where the diagonal is 0),
+//   first step:  d = dinv res / theta
+//   later steps: d = c1 d + c2 (dinv res)
+// x_out = x_in + d, another plane than x_in (the stencil reads x_in's
+// neighbours while other blocks write x_out). With `mask` (the CG scaling
+// plane sm) the result is multiplied by (sm > 0); with `dot` the block's
+// partial of <dot, x_out> is written.
+__global__ void k_mg_cheb(const float* __restrict__ C, int npts,
+                          const float* __restrict__ b, const float* x_in,
+                          float* __restrict__ d, float* x_out, int first,
+                          float theta, float c1, float c2,
+                          const float* __restrict__ mask,
+                          const float* __restrict__ dot, double* part,
+                          const CGState* st, int nz, int nr) {
+  if (st != nullptr && st->done) return;
+  const size_t n = (size_t)nz * nr;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  double acc = 0.0;
+  if (idx < n) {
+    const int i = (int)(idx / nr), j = (int)(idx % nr);
+    const float diag = C[idx];
+    const float dinv = diag != 0.0f ? 1.0f / diag : 1.0f;
+    float xv = 0.0f, res = b[idx];
+    if (x_in != nullptr) {
+      xv = x_in[idx];
+      res = res - level_stencil_at(C, npts, x_in, i, j, nz, nr);
+    }
+    const float dv = first ? dinv * res / theta
+                           : c1 * d[idx] + c2 * (dinv * res);
+    float xo = xv + dv;
+    if (mask != nullptr) xo = xo * (mask[idx] > 0.0f ? 1.0f : 0.0f);
+    d[idx] = dv;
+    x_out[idx] = xo;
+    if (dot != nullptr) acc = (double)(dot[idx] * xo);
+  }
+  if (dot != nullptr) {
+    acc = block_sum(acc);
+    if (threadIdx.x == 0) part[blockIdx.x] = acc;
+  }
+}
+
+// out = b - C x on a multigrid level.
+__global__ void k_mg_residual(const float* __restrict__ C, int npts,
+                              const float* __restrict__ b,
+                              const float* __restrict__ x,
+                              float* __restrict__ out, const CGState* st,
+                              int nz, int nr) {
+  if (st != nullptr && st->done) return;
+  const size_t n = (size_t)nz * nr;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int i = (int)(idx / nr), j = (int)(idx % nr);
+  out[idx] = b[idx] - level_stencil_at(C, npts, x, i, j, nz, nr);
+}
+
+// Restriction (the transpose of the bilinear prolongation) of a fine field
+// (nz, nr), both odd, onto the (cz, cr) plane of the next level, one thread
+// a coarse point: along z then along r, coarse i takes fine 2i, w[i] of
+// fine 2i+1 and (1 - w[i-1]) of fine 2i-1, summed in that order. Points
+// past the coarse grid ((nz+1)/2, (nr+1)/2), the next level's odd padding,
+// get 0.
+__global__ void k_mg_restrict(const float* __restrict__ v,
+                              const float* __restrict__ wz,
+                              const float* __restrict__ wr,
+                              float* __restrict__ out, const CGState* st,
+                              int nz, int nr, int cz, int cr) {
+  if (st != nullptr && st->done) return;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= cz * cr) return;
+  const int I = idx / cr, J = idx % cr;
+  const int mz = (nz + 1) / 2, mr = (nr + 1) / 2;
+  if (I >= mz || J >= mr) {
+    out[idx] = 0.0f;
+    return;
+  }
+  const float wz_lo = I < mz - 1 ? wz[I] : 0.0f;
+  const float wz_hi = I >= 1 ? 1.0f - wz[I - 1] : 0.0f;
+  float cols[3] = {0.0f, 0.0f, 0.0f};   // z-restricted columns 2J-1, 2J, 2J+1
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int jf = 2 * J - 1 + c;
+    if (jf < 0 || jf >= nr) continue;
+    float s = v[(size_t)(2 * I) * nr + jf];
+    if (I < mz - 1) s += wz_lo * v[(size_t)(2 * I + 1) * nr + jf];
+    if (I >= 1) s += wz_hi * v[(size_t)(2 * I - 1) * nr + jf];
+    cols[c] = s;
+  }
+  float s = cols[1];
+  if (J < mr - 1) s += wr[J] * cols[2];
+  if (J >= 1) s += (1.0f - wr[J - 1]) * cols[0];
+  out[idx] = s;
+}
+
+// x += P xc in place: the bilinear prolongation of the coarse correction
+// (its leading ((nz+1)/2, (nr+1)/2) part; rows are `cstride` apart), one
+// thread a fine point: along r then along z, fine 2i+1 takes w[i] of
+// coarse i and (1 - w[i]) of coarse i+1.
+__global__ void k_mg_prolong(float* __restrict__ x,
+                             const float* __restrict__ xc,
+                             const float* __restrict__ wz,
+                             const float* __restrict__ wr, const CGState* st,
+                             int nz, int nr, int cstride) {
+  if (st != nullptr && st->done) return;
+  const size_t n = (size_t)nz * nr;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int i = (int)(idx / nr), j = (int)(idx % nr);
+  const int I = i >> 1, J = j >> 1;
+  float rows[2] = {0.0f, 0.0f};   // r-prolonged coarse rows I and I+1
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (c == 1 && !(i & 1)) break;
+    const float* row = xc + (size_t)(I + c) * cstride;
+    rows[c] = (j & 1) ? wr[J] * row[J] + (1.0f - wr[J]) * row[J + 1]
+                      : row[J];
+  }
+  const float add = (i & 1) ? wz[I] * rows[0] + (1.0f - wz[I]) * rows[1]
+                            : rows[0];
+  x[idx] = x[idx] + add;
+}
+
 // Reduce n partials in a fixed order (deterministic); valid in all threads.
 __device__ double reduce_parts(const double* part, int n) {
   double s = 0.0;
@@ -549,12 +715,13 @@ __device__ double reduce_parts(const double* part, int n) {
 // The CG scalars, in one block. Guards and stop rule of the TPU kernel:
 // pAp == 0 -> 1, rz == 0 -> 1; rr is <r, r> when preconditioned and rz
 // otherwise; the loop runs while k < maxiter && rr > stop2 (a NaN rr stops
-// it). n_rz == 0 means z is r (identity form), so <r, z> = <r, r>.
+// it). n_rz == 0 means z is r (identity form), so <r, z> = <r, r>. With
+// `fixed` the stop test is off and the loop runs maxiter iterations.
 __global__ void k_finalize(CGState* st, const double* part_pap,
                            const double* part_rr, const double* part_rz,
                            const double* part_bb, int n_elem, int n_rz,
                            int mode, const float* rtol, int maxiter,
-                           int wrt_r0) {
+                           int wrt_r0, int fixed) {
   if (mode != kFinInit && st->done) return;
   if (mode == kFinAlpha) {
     const double pap = reduce_parts(part_pap, n_elem);
@@ -573,7 +740,7 @@ __global__ void k_finalize(CGState* st, const double* part_pap,
       st->alpha = 0.0;
       st->beta = 0.0;
       st->k = 0;
-      st->done = !(0 < maxiter && st->rr > st->stop2);
+      st->done = !(0 < maxiter && (fixed || st->rr > st->stop2));
     }
     return;
   }
@@ -582,7 +749,7 @@ __global__ void k_finalize(CGState* st, const double* part_pap,
     st->rz = rz;
     st->rr = n_rz > 0 ? rr : rz;
     st->k += 1;
-    st->done = !(st->k < maxiter && st->rr > st->stop2);
+    st->done = !(st->k < maxiter && (fixed || st->rr > st->stop2));
   }
 }
 
@@ -651,6 +818,30 @@ __global__ void k_finish(float* __restrict__ x, int* iters,
   if (idx < n && !isfinite(st->rr)) x[idx] = nanf("");
 }
 
+// The multigrid V-cycle's levels, finest first, built by the Python wrapper
+// (heatflow_tpu_torch/ops/cuda_mg.py mirrors both records with ctypes) in
+// host memory: device pointers, shapes, and the Chebyshev coefficients the
+// host computed in float32 from each level's eigenvalue bound (c1[k], c2[k]
+// belong to step k + 1). wz (nz/2) and wr (nr/2) are the transfer weights
+// between this level and the next; b, xa, xb, d and res are scratch planes
+// of the level's shape (level 0 needs no b: its right-hand side is the CG
+// residual).
+constexpr int kMaxLevels = 8;
+constexpr int kMaxCheb = 32;
+
+struct MGLevel {
+  const float *C, *wz, *wr;
+  float *b, *xa, *xb, *d, *res;
+  int npts, nz, nr;
+  float theta;
+  float c1[kMaxCheb], c2[kMaxCheb];
+};
+
+struct MGDesc {
+  int n_levels, nu, nu_coarse, reserved;
+  MGLevel lv[kMaxLevels];
+};
+
 struct Solve {
   const float *A, *sm, *b, *x0, *rtol, *pcr, *pcrz;
   float *x, *r, *z, *p, *Ap;
@@ -666,6 +857,8 @@ struct Solve {
   int lc, sweeps;
   float omega, omega_c;
   float* extra;
+  const MGDesc* mgd;         // the multigrid V-cycle's levels (host memory)
+  int fixed;                 // run maxiter iterations, no stop test
 
   int n() const { return nz * nr; }
   int elem_blocks() const { return (n() + kThreads - 1) / kThreads; }
@@ -674,9 +867,9 @@ struct Solve {
   bool rline() const { return pcr != nullptr; }
   bool adi() const { return pcrz != nullptr; }
   bool mgz() const { return pcrc != nullptr; }
-  bool preconditioned() const { return rline() || cheb > 0; }
+  bool preconditioned() const { return rline() || cheb > 0 || mgd; }
   int n_rz() const {
-    return mgz() ? nz : adi() ? col_tiles() : rline() ? nz
+    return mgd ? elem_blocks() : mgz() ? nz : adi() ? col_tiles() : rline() ? nz
            : cheb > 0 ? elem_blocks() : 0;
   }
   float* plane(int k) const { return extra + (size_t)k * n(); }
@@ -832,9 +1025,128 @@ cudaError_t precondition_cheb(const Solve& s, const float* r,
   return e;
 }
 
+cudaError_t mg_check(const MGDesc* mg) {
+  if (mg->n_levels < 1 || mg->n_levels > kMaxLevels || mg->nu < 1 ||
+      mg->nu > kMaxCheb || mg->nu_coarse < 1 || mg->nu_coarse > kMaxCheb)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// `degree` Chebyshev steps on level L for the right-hand side b, from x_in
+// (null: from zero), alternating between the level's planes xa and xb (the
+// first step from zero writes xa); the last step applies `mask` and writes
+// the <dot, x> partials when given. *result is the plane of the last iterate.
+cudaError_t mg_smooth(const MGLevel& L, const float* b, const float* x_in,
+                      int degree, const float* mask, const float* dot,
+                      double* part, const CGState* st, long long* counts,
+                      cudaStream_t stream, float** result) {
+  const int blocks = (L.nz * L.nr + kThreads - 1) / kThreads;
+  const float* cur = x_in;
+  float* nxt = x_in == L.xa ? L.xb : L.xa;
+  for (int k = 0; k < degree; ++k) {
+    const bool last = k == degree - 1;
+    k_mg_cheb<<<blocks, kThreads, 0, stream>>>(
+        L.C, L.npts, b, cur, L.d, nxt, k == 0, L.theta,
+        k ? L.c1[k - 1] : 0.0f, k ? L.c2[k - 1] : 0.0f,
+        last ? mask : nullptr, last ? dot : nullptr, part, st, L.nz, L.nr);
+    counts[kPhMgCheb] += 1;
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    cur = nxt;
+    nxt = nxt == L.xa ? L.xb : L.xa;
+  }
+  *result = const_cast<float*>(cur);
+  return cudaSuccess;
+}
+
+cudaError_t launch_mg_residual(const float* C, int npts, const float* b,
+                               const float* x, float* out, const CGState* st,
+                               int nz, int nr, long long* counts,
+                               cudaStream_t stream) {
+  const int blocks = (nz * nr + kThreads - 1) / kThreads;
+  k_mg_residual<<<blocks, kThreads, 0, stream>>>(C, npts, b, x, out, st, nz,
+                                                 nr);
+  counts[kPhMgResidual] += 1;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mg_restrict(const float* v, const float* wz,
+                               const float* wr, float* out, const CGState* st,
+                               int nz, int nr, int cz, int cr,
+                               long long* counts, cudaStream_t stream) {
+  if (!(nz & 1) || !(nr & 1) || cz < (nz + 1) / 2 || cr < (nr + 1) / 2)
+    return cudaErrorInvalidValue;
+  const int blocks = (cz * cr + kThreads - 1) / kThreads;
+  k_mg_restrict<<<blocks, kThreads, 0, stream>>>(v, wz, wr, out, st, nz, nr,
+                                                 cz, cr);
+  counts[kPhMgRestrict] += 1;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mg_prolong(float* x, const float* xc, const float* wz,
+                              const float* wr, const CGState* st, int nz,
+                              int nr, int cstride, long long* counts,
+                              cudaStream_t stream) {
+  if (!(nz & 1) || !(nr & 1) || cstride < (nr + 1) / 2)
+    return cudaErrorInvalidValue;
+  const int blocks = (nz * nr + kThreads - 1) / kThreads;
+  k_mg_prolong<<<blocks, kThreads, 0, stream>>>(x, xc, wz, wr, st, nz, nr,
+                                                cstride);
+  counts[kPhMgProlong] += 1;
+  return cudaGetLastError();
+}
+
+// The V-cycle from level l down for the right-hand side b: smoothing from
+// zero, residual, restriction into the next level's right-hand side, the
+// cycle there, prolongation added in place, smoothing; `nu_coarse` steps
+// from zero on the last level. `mask`, `dot` and `part` go to the last
+// smoothing step of this level.
+cudaError_t mg_cycle(const MGDesc* mg, int l, const float* b,
+                     const float* mask, const float* dot, double* part,
+                     const CGState* st, long long* counts,
+                     cudaStream_t stream, float** result) {
+  const MGLevel& L = mg->lv[l];
+  if (l == mg->n_levels - 1)
+    return mg_smooth(L, b, nullptr, mg->nu_coarse, mask, dot, part, st,
+                     counts, stream, result);
+  const MGLevel& N = mg->lv[l + 1];
+  float *x = nullptr, *xc = nullptr;
+  cudaError_t e;
+#define HF_TRY(call) if ((e = (call)) != cudaSuccess) return e
+  HF_TRY(mg_smooth(L, b, nullptr, mg->nu, nullptr, nullptr, nullptr, st,
+                   counts, stream, &x));
+  HF_TRY(launch_mg_residual(L.C, L.npts, b, x, L.res, st, L.nz, L.nr, counts,
+                            stream));
+  HF_TRY(launch_mg_restrict(L.res, L.wz, L.wr, N.b, st, L.nz, L.nr, N.nz,
+                            N.nr, counts, stream));
+  HF_TRY(mg_cycle(mg, l + 1, N.b, nullptr, nullptr, nullptr, st, counts,
+                  stream, &xc));
+  HF_TRY(launch_mg_prolong(x, xc, L.wz, L.wr, st, L.nz, L.nr, N.nr, counts,
+                           stream));
+  return mg_smooth(L, b, x, mg->nu, mask, dot, part, st, counts, stream,
+                   result);
+#undef HF_TRY
+}
+
+// The multigrid form: z = V-cycle(r) (sm > 0) with the <r, z> partials (one
+// an elementwise block). The wrapper lays out level 0's two planes so that
+// the last iterate lands in s.z.
+cudaError_t precondition_mg(const Solve& s) {
+  cudaError_t e = mg_check(s.mgd);
+  if (e != cudaSuccess) return e;
+  if (s.mgd->lv[0].nz != s.nz || s.mgd->lv[0].nr != s.nr)
+    return cudaErrorInvalidValue;
+  float* out = nullptr;
+  e = mg_cycle(s.mgd, 0, s.r, s.sm, s.r, s.part(2), s.st, s.counts, s.stream,
+               &out);
+  if (e != cudaSuccess) return e;
+  return out == s.z ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // M^-1 r for the solve's form, with the <r, z> partials; the result is in
 // s.zout() (r itself in the identity form, where z aliases r).
 cudaError_t precondition(const Solve& s) {
+  if (s.mgd) return precondition_mg(s);
   if (s.mgz()) return precondition_mgz(s, s.r, s.z, s.st);
   if (s.cheb > 0) return precondition_cheb(s, s.r, s.st);
   if (!s.rline()) return cudaSuccess;   // identity: z aliases r
@@ -849,7 +1161,7 @@ cudaError_t precondition(const Solve& s) {
 cudaError_t finalize(const Solve& s, int mode) {
   k_finalize<<<1, kThreads, 0, s.stream>>>(
       s.st, s.part(0), s.part(1), s.part(2), s.part(3), s.elem_blocks(),
-      s.n_rz(), mode, s.rtol, s.maxiter, s.wrt_r0);
+      s.n_rz(), mode, s.rtol, s.maxiter, s.wrt_r0, s.fixed);
   s.counts[kPhFinalize] += 1;
   return cudaGetLastError();
 }
@@ -936,13 +1248,13 @@ cudaError_t iterate(const Solve& s) {
       int maxiter, int wrt_r0, long long *counts, void *stream,              \
       const float *lmax, int cheb, int merged, const float *ac9,             \
       const float *pcrc, int lc, const float *aux, int sweeps, float omega,  \
-      float omega_c, float *extra
+      float omega_c, float *extra, const void *mg, int fixed
 
 #define HF_SOLVE_INIT                                                        \
   Solve s{A, sm, b, x0, rtol, pcr, pcrz, x, r, z, p, Ap, parts,              \
           (CGState *)state, npts, lr, lz, nz, nr, maxiter, wrt_r0, nparts,   \
           counts, (cudaStream_t)stream, lmax, cheb, merged, ac9, pcrc, aux,  \
-          lc, sweeps, omega, omega_c, extra}
+          lc, sweeps, omega, omega_c, extra, (const MGDesc *)mg, fixed}
 
 extern "C" {
 
@@ -1026,7 +1338,8 @@ int hf_precond_apply(const float *A, int npts, const float *sm,
   Solve s{A, sm, nullptr, nullptr, nullptr, pcr, nullptr, nullptr,
           const_cast<float *>(r), z, nullptr, nullptr, parts, nullptr, npts,
           lr, 0, nz, nr, 0, 0, nparts, counts, (cudaStream_t)stream, lmax,
-          cheb, 0, ac9, pcrc, aux, lc, sweeps, omega, omega_c, extra};
+          cheb, 0, ac9, pcrc, aux, lc, sweeps, omega, omega_c, extra,
+          nullptr, 0};
   *which = s.zout() != z;
   return (int)precondition(s);
 }
@@ -1097,6 +1410,61 @@ int hf_pq_update(float *p, float *q, const float *u, const float *w,
                                         n);
   counts[kPhPqUpdate] += 1;
   return (int)cudaGetLastError();
+}
+
+// Bytes of the multigrid descriptor, for the wrapper's layout check.
+int hf_mg_desc_bytes() { return (int)sizeof(MGDesc); }
+
+// Single phases of the multigrid cycle, for checking each kernel against
+// its plain version. x_in, mask and dot may be null.
+int hf_mg_cheb(const float *C, int npts, const float *b, const float *x_in,
+               float *d, float *x_out, int first, float theta, float c1,
+               float c2, const float *mask, const float *dot, double *part,
+               int nz, int nr, long long *counts, void *stream) {
+  const int blocks = (nz * nr + kThreads - 1) / kThreads;
+  k_mg_cheb<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      C, npts, b, x_in, d, x_out, first, theta, c1, c2, mask, dot, part,
+      nullptr, nz, nr);
+  counts[kPhMgCheb] += 1;
+  return (int)cudaGetLastError();
+}
+
+int hf_mg_residual(const float *C, int npts, const float *b, const float *x,
+                   float *out, int nz, int nr, long long *counts,
+                   void *stream) {
+  return (int)launch_mg_residual(C, npts, b, x, out, nullptr, nz, nr, counts,
+                                 (cudaStream_t)stream);
+}
+
+int hf_mg_restrict(const float *v, const float *wz, const float *wr,
+                   float *out, int nz, int nr, int cz, int cr,
+                   long long *counts, void *stream) {
+  return (int)launch_mg_restrict(v, wz, wr, out, nullptr, nz, nr, cz, cr,
+                                 counts, (cudaStream_t)stream);
+}
+
+int hf_mg_prolong(float *x, const float *xc, const float *wz, const float *wr,
+                  int nz, int nr, int cstride, long long *counts,
+                  void *stream) {
+  return (int)launch_mg_prolong(x, xc, wz, wr, nullptr, nz, nr, cstride,
+                                counts, (cudaStream_t)stream);
+}
+
+// The whole V-cycle alone: the cycle of `mg` on the right-hand side r, the
+// result times (mask > 0) when mask is given, with the <r, z> partials (one
+// an elementwise block of level 0) in part; *result is the device pointer
+// of the plane that holds z (level 0's xa or xb).
+int hf_mg_vcycle(const void *mg, const float *r, const float *mask,
+                 double *part, long long *counts, void *stream,
+                 void **result) {
+  const MGDesc *desc = (const MGDesc *)mg;
+  cudaError_t e = mg_check(desc);
+  if (e != cudaSuccess) return (int)e;
+  float *out = nullptr;
+  e = mg_cycle(desc, 0, r, mask, r, part, nullptr, counts,
+               (cudaStream_t)stream, &out);
+  *result = out;
+  return (int)e;
 }
 
 }  // extern "C"

@@ -113,7 +113,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     solve = [P, I, P, P, P, P, P, I, P, I, P, P, P, P, P, P, I, P, I, I, I,
-             I, P, P, P, I, I, P, P, I, P, I, F, F, P]
+             I, P, P, P, I, I, P, P, I, P, I, F, F, P, P, I]
     _sig(lib.hf_cg_nparts, I, I)
     _sig(lib.hf_cg_state_bytes)
     _sig(lib.hf_num_phases)
@@ -133,6 +133,12 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_merged_w, P, I, P, P, P, P, P, I, I, I, P, P)
     _sig(lib.hf_finalize_merged, P, P, I, I, I, I, P, I, I, P, P)
     _sig(lib.hf_pq_update, P, P, P, P, P, I, P, P)
+    _sig(lib.hf_mg_desc_bytes)
+    _sig(lib.hf_mg_cheb, P, I, P, P, P, P, I, F, F, F, P, P, P, I, I, P, P)
+    _sig(lib.hf_mg_residual, P, I, P, P, P, I, I, P, P)
+    _sig(lib.hf_mg_restrict, P, P, P, P, I, I, I, I, P, P)
+    _sig(lib.hf_mg_prolong, P, P, P, P, I, I, I, P, P)
+    _sig(lib.hf_mg_vcycle, P, P, P, P, P, P, P)
     # csrc/sweep_cg.cu
     sweep = [P, P, I, P, P, I, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I,
              I, I, I, I, I, P, P, P, I, P, P]

@@ -14,6 +14,11 @@ CPU goes to :func:`cg_tol_reference`; a CUDA tensor goes to the kernel, or
 the call raises. The kernel replaces heatflow_tpu/ops/pallas_cg.py:
 _cg_tol_kernel; the PCR factor stacks it consumes are packed once per
 transient by :func:`pcr_pack`.
+
+``cg_vmem`` is the fixed-count, unpreconditioned CG on a *baked* operator
+(:func:`masked_scaled_operator`): the same phase kernels with sm = 1 and the
+stop test off, replacing heatflow_tpu/ops/pallas_cg.py:_cg_kernel. The
+multigrid-preconditioned solve that shares this loop is in ``ops/cuda_mg``.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from heatflow_tpu_torch.ops.cg import implicit_solve
 from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_factor,
                                               pcr_fold)
 from heatflow_tpu_torch.ops.mgz import coarse_apply, prolong, restrict
-from heatflow_tpu_torch.ops.stencil import apply_stencil, shifted
+from heatflow_tpu_torch.ops.stencil import OFFSETS, apply_stencil, shifted
 
 CHECK_EVERY = 8   # CG iterations enqueued between two host reads of the
                   # device-side stop flag; the iterate and the count do not
@@ -40,7 +45,8 @@ MERGED_DEFAULT = False   # the merged-dot recurrence when ``merged=None``;
 PHASES = ("init", "stencil_dot", "update", "pcr_r", "pcr_z", "finalize",
           "p_update", "finish", "cheb_init", "cheb_step", "merged_w",
           "finalize_merged", "pq_update", "residual", "pcr_row",
-          "coarse_res", "prolong")
+          "coarse_res", "prolong", "mg_cheb", "mg_residual", "mg_restrict",
+          "mg_prolong")
 # phase kernel launches, counted by the C host code where it launches them
 _phase_counts = np.zeros(len(PHASES), dtype=np.int64)
 
@@ -89,6 +95,7 @@ def reset_counters() -> None:
         setattr(cg_tol, name, 0)
     for name in ("launches_forward", "launches_backward", "launches_jvp"):
         setattr(cg_vmem_solve, name, 0)
+    cg_vmem.launches = 0
 
 
 def pcr_pack(A: torch.Tensor, s: torch.Tensor, free: torch.Tensor,
@@ -409,6 +416,34 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
                                 cheb_degree=cheb_degree, merged=merged,
                                 mgz=mgz, mgz_sweeps=mgz_sweeps,
                                 mgz_omega=mgz_omega, mgz_omega_c=mgz_omega_c)
+    forms = ["launches", "launches_mgz" if mgz is not None else
+             "launches_adi" if pcr_z is not None else
+             "launches_rline" if pcr is not None else
+             "launches_cheb" if cheb_degree > 0 else "launches_identity"]
+    if merged:
+        forms.append("launches_merged")
+    return _kernel_solve(A, sm, b, x0, rtol, maxiter=maxiter,
+                         rtol_wrt=rtol_wrt, pcr=pcr, pcr_z=pcr_z,
+                         cheb_degree=cheb_degree, merged=merged, mgz=mgz,
+                         mgz_sweeps=mgz_sweeps, mgz_omega=mgz_omega,
+                         mgz_omega_c=mgz_omega_c, poison=True,
+                         count=(cg_tol, forms))
+
+
+def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
+                  pcr=None, pcr_z=None, cheb_degree: int = 0,
+                  merged: bool = False, mgz=None, mgz_sweeps: int = 1,
+                  mgz_omega: float = 0.8, mgz_omega_c: float = 0.8, mg=None,
+                  fixed: bool = False, poison: bool = False,
+                  count=None, what: str = "cg_tol"):
+    """One solve through the phase kernels of ``csrc/cg_tol.cu`` on CUDA
+    float32 tensors: (x, iters). ``mg`` (a function of the z plane that
+    returns the multigrid descriptor, see ``ops/cuda_mg``) selects the
+    V-cycle preconditioner; ``fixed`` runs ``maxiter`` iterations with the
+    stop test off and never reads the device; ``poison`` makes x NaN when
+    the residual is not finite (``cg_tol``'s contract); ``count`` (a
+    wrapper function and the names of its launch counts) is counted where
+    the solve is launched."""
     lib = _library()
     dev = b.device
     nz, nr = _check_operator(A, sm, dev)
@@ -431,7 +466,7 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
     x = torch.empty_like(b)
     vecs = torch.empty((4, nz, nr), dtype=torch.float32, device=dev)
     r, z, p, Ap = vecs.unbind(0)
-    if pcr is None and cheb_degree == 0:
+    if pcr is None and cheb_degree == 0 and mg is None:
         z = r                         # identity form: z aliases r
     n_extra = lib.hf_cg_extra_planes(cheb_degree, int(merged),
                                      int(mgz is not None))
@@ -440,41 +475,105 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
     nparts = lib.hf_cg_nparts(nz, nr)
     parts = torch.empty((4, nparts), dtype=torch.float64, device=dev)
     state = torch.empty(8, dtype=torch.float64, device=dev)
-    iters = torch.empty((), dtype=torch.int32, device=dev)
     stream = _stream()
+    desc = None if mg is None else mg(z)
     args = (_ptr(A), A.shape[0], _ptr(sm), _ptr(b), _ptr(x0), _ptr(rtol_t),
             _ptr(pcr), lr, _ptr(pcr_z), lz, _ptr(x), _ptr(r), _ptr(z),
             _ptr(p), _ptr(Ap), _ptr(parts), nparts, _ptr(state), nz, nr,
             int(maxiter), int(rtol_wrt == "r0"), _counts_ptr(), stream,
             _ptr(lmax), cheb_degree, int(merged), _ptr(ac9), _ptr(pcrc), lc,
             _ptr(aux), int(mgz_sweeps), float(mgz_omega), float(mgz_omega_c),
-            _ptr(extra))
+            _ptr(extra), None if desc is None else ctypes.addressof(desc),
+            int(fixed))
 
-    cg_tol.launches += 1
-    forms = ["launches_mgz" if mgz is not None else
-             "launches_adi" if pcr_z is not None else
-             "launches_rline" if pcr is not None else
-             "launches_cheb" if cheb_degree > 0 else "launches_identity"]
-    if merged:
-        forms.append("launches_merged")
-    for form in forms:
-        setattr(cg_tol, form, getattr(cg_tol, form) + 1)
-    _check(lib.hf_cg_tol_start(*args), "cg_tol start")
-    done = state.view(torch.int32)[11]
-    launched = 0
-    while launched < maxiter:
-        n = min(CHECK_EVERY, maxiter - launched)
-        _check(lib.hf_cg_tol_iterate(*args, n), "cg_tol iterate")
-        launched += n
-        if done.item():
-            break
+    if count is not None:
+        fn, names = count
+        for name in names:
+            setattr(fn, name, getattr(fn, name) + 1)
+    _check(lib.hf_cg_tol_start(*args), f"{what} start")
+    ints = state.view(torch.int32)
+    if fixed:
+        _check(lib.hf_cg_tol_iterate(*args, int(maxiter)), f"{what} iterate")
+    else:
+        launched = 0
+        while launched < maxiter:
+            n = min(CHECK_EVERY, maxiter - launched)
+            _check(lib.hf_cg_tol_iterate(*args, n), f"{what} iterate")
+            launched += n
+            if ints[11].item():
+                break
+    if not poison:
+        return x, ints[10].clone()
+    iters = torch.empty((), dtype=torch.int32, device=dev)
     _check(lib.hf_cg_tol_finish(_ptr(x), _ptr(iters), _ptr(state), nz * nr,
-                                _counts_ptr(), stream), "cg_tol finish")
+                                _counts_ptr(), stream), f"{what} finish")
     return x, iters
 
 
 for _name in _FORM_COUNTERS:
     setattr(cg_tol, _name, 0)
+
+
+def masked_scaled_operator(A: torch.Tensor, free: torch.Tensor):
+    """The baked operator of :func:`cg_vmem`: symmetric Jacobi scaling and
+    exact Dirichlet row/column elimination written into the coefficients.
+
+    Returns (C, s) with C the scaled and masked stencil (identity rows at
+    constrained nodes) and s the scaling vector; solve C y = s·(b − A g),
+    then u = s·y·free + g. Leading batch dimensions of ``A`` (..., 7, Nz, Nr)
+    and ``free`` carry through."""
+    diag = A[..., 0, :, :]
+    s = torch.rsqrt(torch.where(diag > 0, diag, torch.ones_like(diag))) \
+        * free + (1.0 - free)
+    sf = s * free
+    C = A * sf[..., None, :, :]
+    parts = [C[..., 0, :, :] * s * free + (1.0 - free)]
+    for k, (di, dj) in enumerate(OFFSETS[1:], start=1):
+        parts.append(C[..., k, :, :] * shifted(shifted(sf, di, -2), dj, -1))
+    return torch.stack(parts, dim=-3), s
+
+
+def cg_vmem_reference(C, b, x0, *, iters: int = 64):
+    """Plain PyTorch version of :func:`cg_vmem`, in the inputs' dtype: the
+    standard recurrence with A p recomputed, the guards pAp == 0 → 1 and
+    rz == 0 → 1, no stop test."""
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    x = x0
+    r = b - apply_stencil(C, x)
+    p = r
+    rz = torch.sum(r * r)
+    for _ in range(iters):
+        Ap = apply_stencil(C, p)
+        pAp = torch.sum(p * Ap)
+        alpha = rz / torch.where(pAp != 0, pAp, one)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rz_new = torch.sum(r * r)
+        beta = rz_new / torch.where(rz != 0, rz, one)
+        p = r + beta * p
+        rz = rz_new
+    return x
+
+
+def cg_vmem(C: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, *,
+            iters: int = 64) -> torch.Tensor:
+    """Solve C x = b with ``iters`` unpreconditioned CG iterations.
+
+    C: (7|9, Nz, Nr) scaled and masked stencil
+    (:func:`masked_scaled_operator`); b, x0: (Nz, Nr). CPU tensors take the
+    plain version; CUDA float32 tensors the phase kernels of ``cg_tol`` with
+    sm = 1, the identity preconditioner and the stop test off: the count is
+    fixed, so every iteration is enqueued at once and the host reads nothing
+    during the solve."""
+    if _on_cpu(C, b, x0):
+        return cg_vmem_reference(C, b, x0, iters=iters)
+    x, _ = _kernel_solve(C, torch.ones_like(b), b, x0, 0.0,
+                         maxiter=int(iters), fixed=True,
+                         count=(cg_vmem, ["launches"]), what="cg_vmem")
+    return x
+
+
+cg_vmem.launches = 0
 
 
 def precond_apply(A: torch.Tensor, sm: torch.Tensor, r: torch.Tensor, *,

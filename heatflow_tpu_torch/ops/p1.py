@@ -124,3 +124,27 @@ def tri_dz_coeff(coords: np.ndarray) -> np.ndarray:
     """Coefficients with (∂u/∂z)|_T = Σ_a c_a u_a."""
     _, grads = tri_area_grads(coords)
     return grads[..., :, 0]
+
+
+# ----------------------------------------------------------------------
+# 1D interval elements (for the reduced model, ref run_no_diamond_1d.py:537-546)
+# ----------------------------------------------------------------------
+
+def interval_stiffness(h: np.ndarray) -> np.ndarray:
+    """K = 1/h [[1,-1],[-1,1]] (unit conductivity), h (...,)."""
+    k = 1.0 / np.asarray(h, dtype=np.float64)
+    e = np.array([[1.0, -1.0], [-1.0, 1.0]])
+    return k[..., None, None] * e
+
+
+def interval_mass(h: np.ndarray) -> np.ndarray:
+    """M = h/6 [[2,1],[1,2]] (unit density)."""
+    h = np.asarray(h, dtype=np.float64)
+    e = np.array([[2.0, 1.0], [1.0, 2.0]]) / 6.0
+    return h[..., None, None] * e
+
+
+def interval_load(h: np.ndarray) -> np.ndarray:
+    """∫ φ_a dz = h/2 per vertex."""
+    h = np.asarray(h, dtype=np.float64)
+    return np.broadcast_to((h / 2.0)[..., None], h.shape + (2,)).copy()

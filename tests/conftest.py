@@ -21,3 +21,6 @@ jax.config.update("jax_enable_x64", True)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU; skipped where CUDA is absent")
+    config.addinivalue_line(
+        "markers", "slow: a full-size run, minutes on the CPU; run by hand "
+                   "with -m slow")

@@ -81,7 +81,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(where):
     if where == "heatflow_tpu_torch":
         have = {os.path.relpath(f, path) for f in files}
         assert {"ops/mgz.py", "ops/multigrid.py", "sim/steady.py",
-                "drivers/steady.py"} <= have
+                "drivers/steady.py", "ops/cuda_mg.py", "ops/tridiag.py",
+                "sim/reduced1d.py", "drivers/run1d.py"} <= have
     bad = [(os.path.relpath(f, ROOT), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "heatflow_tpu")]

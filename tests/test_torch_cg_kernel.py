@@ -258,6 +258,110 @@ def test_merged_phase_wrappers_on_cpu_are_the_plain_phases(system):
     assert first["k"] == 0 and first["done"] == 1
 
 
+def nine_plane_system(n_lanes: int = 0):
+    """An SPD 9-plane operator with a known solution, in numpy: level 1 of
+    the multigrid hierarchy of the tiny no-diamond operator (a Galerkin
+    product, so both anti-diagonal planes are filled), under a random
+    Dirichlet pattern. With ``n_lanes`` also a second 9-plane operator Kv
+    (the same level of the hierarchy at another time step, minus the
+    first), so that A0 + dk·Kv, dk in [0, 1], is a convex combination of
+    the two and SPD, with per-lane scalings, solutions and seeds."""
+    from heatflow_tpu.ops.pallas_mg import build_mg_setup
+    cfg = tiny_no_diamond_cfg(coarse=2.0)
+    domain, mats = build_layout(cfg)
+    mesh = build_structured_mesh(domain, mats)
+    pack = assemble_stencils(mesh)
+    kp = jnp.asarray([m.kappa for m in mats])
+    rc = jnp.asarray([m.rho_cv for m in mats])
+    ones = np.ones(mesh.shape)
+    levels = []
+    for dt in (1.5e-7, 6.0e-7):
+        A7, _ = combine_operator(jnp.asarray(pack.K), jnp.asarray(pack.M),
+                                 kp, rc, dt)
+        setup = build_mg_setup(np.asarray(A7), ones, mesh.z, mesh.r,
+                               n_levels=2, dtype=jnp.float64)
+        levels.append(np.asarray(setup["levels"][1]["C"]))
+    A9 = levels[0]
+    assert A9.shape[0] == 9 and np.abs(A9[7:]).max() > 1e-3 * np.abs(A9).max()
+    shape = A9.shape[1:]
+    rng = np.random.default_rng(9)
+    free = (rng.random(shape) > 0.15).astype(float)
+    if not n_lanes:
+        s = 1.0 / np.sqrt(np.where(A9[0] > 0, A9[0], 1.0)) * free + (1 - free)
+        sm = s * free
+        x_true = rng.standard_normal(shape) * free
+        b = sm * np.asarray(apply_stencil(jnp.asarray(A9),
+                                          jnp.asarray(sm * x_true)))
+        x0 = rng.standard_normal(shape) * free
+        return dict(A=A9, s=s, free=free, sm=sm, b=b, x0=x0, x_true=x_true)
+    Kv = levels[1] - A9
+    dks = np.linspace(0.0, 1.0, n_lanes)
+    diag = A9[0][None] + dks[:, None, None] * Kv[0][None]
+    s = 1.0 / np.sqrt(np.where(diag > 0, diag, 1.0)) * free + (1 - free)
+    sm = s * free
+    x_true = rng.standard_normal((n_lanes,) + shape) * free
+    b = np.stack([sm[i] * np.asarray(apply_stencil(
+        jnp.asarray(A9 + dks[i] * Kv), jnp.asarray(sm[i] * x_true[i])))
+        for i in range(n_lanes)])
+    x0 = rng.standard_normal((n_lanes,) + shape) * free
+    return dict(A0=A9, Kv=Kv, dks=dks, sm=sm, s=s, free=free, b=b, x0=x0,
+                x_true=x_true)
+
+
+@pytest.fixture(scope="module")
+def nine():
+    d = nine_plane_system()
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    t = {k: torch.tensor(v) for k, v in d.items()}
+    for axis, key in ((-1, "pcr"), (-2, "pcr_z")):
+        j[key] = j_pcr_pack(j["A"], j["s"], j["free"], axis=axis)
+        t[key] = cuda_cg.pcr_pack(t["A"], t["s"], t["free"], axis=axis)
+    return j, t, d["x_true"]
+
+
+@pytest.mark.parametrize("axis", [-1, -2])
+def test_nine_plane_pcr_pack_drops_the_anti_diagonals_like_jax(nine, axis):
+    """The line factors of a 9-plane operator read its planes 1-4 only, in
+    both packages: equal stacks, and equal to the stack of the same operator
+    with its two anti-diagonal planes zeroed."""
+    from heatflow_tpu.ops import linesolve as jls
+    from heatflow_tpu_torch.ops import linesolve as tls
+    j, t, _ = nine
+    key = "pcr" if axis == -1 else "pcr_z"
+    want, got = np.asarray(j[key]), t[key].numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
+    lj, uj = jls.line_couplings(j["A"], j["s"] * j["free"], axis)
+    lt, ut = tls.line_couplings(t["A"], t["s"] * t["free"], axis)
+    assert np.abs(lt.numpy() - np.asarray(lj)).max() <= 1e-15
+    assert np.abs(ut.numpy() - np.asarray(uj)).max() <= 1e-15
+    A7 = t["A"].clone()
+    A7[7:] = 0.0
+    assert torch.equal(cuda_cg.pcr_pack(A7, t["s"], t["free"], axis=axis),
+                       t[key])
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_nine_plane_plain_matches_pallas_interpret(nine, form):
+    """K1's plain version on a 9-plane system against the Pallas kernel in
+    interpret mode in float64: the anti-diagonal planes enter the operator
+    (the solve reaches the known solution) and not the line factors."""
+    j, t, x_true = nine
+    xj, ij = cg_vmem_tol(j["A"], j["sm"], j["b"], j["x0"], 1e-11,
+                         maxiter=20000, interpret=True, merged=False,
+                         **_stacks(j, form))
+    xt, it = cuda_cg.cg_tol(t["A"], t["sm"], t["b"], t["x0"], 1e-11,
+                            maxiter=20000, **_stacks(t, form))
+    assert int(it) == int(ij), (int(it), int(ij))
+    xj = np.asarray(xj)
+    assert np.abs(xt.numpy() - xj).max() <= 1e-10 * np.abs(xj).max()
+    assert np.abs(xt.numpy() - x_true).max() <= 1e-8 * np.abs(x_true).max()
+    # a 7-plane reading of the same planes solves another system
+    x7, _ = cuda_cg.cg_tol(t["A"][:7].contiguous(), t["sm"], t["b"], t["x0"],
+                           1e-11, maxiter=20000)
+    assert np.abs(x7.numpy() - x_true).max() > 1e-3 * np.abs(x_true).max()
+
+
 def test_no_fallback_off_cpu(system):
     """A tensor that is neither on the CPU nor on a CUDA device is refused,
     not computed on the CPU."""
@@ -318,5 +422,23 @@ def test_cuda_kernel_new_forms_match_plain(system, form):
     assert cuda_cg.cg_tol.launches_cheb == int("cheb" in form)
     xp, ip = cuda_cg.cg_tol_reference(g["A"], g["sm"], g["b"], g["x0"], 1e-5,
                                       maxiter=5000, **fkw)
+    assert abs(int(ik) - int(ip)) <= max(3, int(0.05 * int(ip)))
+    assert float((xk - xp).abs().max() / xp.abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+def test_cuda_kernel_nine_plane_matches_plain(nine, form):
+    """The CUDA kernel's 9-plane branch in float32 against the plain
+    version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    _, t, _ = nine
+    dev = torch.device("cuda")
+    g = {k: v.to(dev, torch.float32).contiguous() for k, v in t.items()}
+    xk, ik = cuda_cg.cg_tol(g["A"], g["sm"], g["b"], g["x0"], 1e-5,
+                            maxiter=5000, **_stacks(g, form))
+    xp, ip = cuda_cg.cg_tol_reference(g["A"], g["sm"], g["b"], g["x0"], 1e-5,
+                                      maxiter=5000, **_stacks(g, form))
     assert abs(int(ik) - int(ip)) <= max(3, int(0.05 * int(ip)))
     assert float((xk - xp).abs().max() / xp.abs().max()) < 1e-3

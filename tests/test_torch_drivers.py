@@ -1,7 +1,8 @@
 """The port's drivers against the JAX package's, in float64 on the CPU: the 2D
 driver (artifacts, mesh folders read across packages, ``--resume``), the
-sweep driver (plain, recording, resume, NaN range), both CLIs with jax,
-pandas and yaml blocked, and the options the slice rejects."""
+sweep driver (plain, recording, resume, NaN range), the 1D driver on the
+gradient CSV of the port's own 2D run, the CLIs with jax, pandas and yaml
+blocked, and the options the slice rejects."""
 
 import filecmp
 import json
@@ -14,7 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from heatflow_tpu.drivers import run1d as jrun1d
 from heatflow_tpu.drivers import run2d as jrun, sweep as jsweep
+from heatflow_tpu.geometry import coupler_watcher_points
+from heatflow_tpu_torch.drivers import run1d as trun1d
 from heatflow_tpu_torch.drivers import run2d as trun, sweep as tsweep
 from heatflow_tpu_torch.io.csvio import read_gradient_csv, read_watcher_csv
 from tests.fixtures import synthetic_heating, tiny_no_diamond_cfg
@@ -375,3 +379,187 @@ def test_sweep_with_adi_on_the_batched_kernel(cfg, tmp_path):
         for key, v in cols.items():
             want = runs["xla"][name][key]
             assert np.abs(v - want).max() <= 1e-8 * np.abs(want).max()
+
+
+# ----------------------------------------------------------------------
+# the 1D driver: 2D recording run -> gradient CSV -> 1D run
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pipeline(tmp_path_factory):
+    """The fixture of tests/test_pipeline_2d_to_1d.py, its 2D run and its
+    gradient CSV made by the port's own ``run2d``."""
+    root = tmp_path_factory.mktemp("pipe")
+    heat = root / "heat.csv"
+    synthetic_heating(heat)
+    c = tiny_no_diamond_cfg(coarse=2.0)
+    c["heating"]["file"] = str(heat)
+    c["timing"]["num_steps"] = 6
+    mesh_folder, out2d = str(root / "meshes"), str(root / "out2d")
+    wp = coupler_watcher_points(c)
+    trun.run_simulation(c, mesh_folder, rebuild_mesh=True,
+                        output_folder=out2d, watcher_points=wp,
+                        write_xdmf=False, suppress_print=True, device="cpu")
+    return c, mesh_folder, out2d, root, wp
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
+                 / np.linalg.norm(np.asarray(b)))
+
+
+@pytest.mark.parametrize("correction", [True, False])
+def test_run_1d_matches_jax(pipeline, correction):
+    c, mesh_folder, out2d, root, wp = pipeline
+    grad = os.path.join(out2d, "radial_gradient.csv")
+    outs = {}
+    for tag, fn, kw in (("j", jrun1d.run_1d, {}),
+                        ("t", trun1d.run_1d, {"device": "cpu"})):
+        out = str(root / f"o1_{tag}_{correction}")
+        problem, ys = fn(c, mesh_folder, output_folder=out,
+                         watcher_points=wp, write_xdmf=False,
+                         suppress_print=True,
+                         use_radial_correction=correction,
+                         radial_gradient_path=grad, **kw)
+        outs[tag] = (out, problem, ys)
+    (oj, pj, yj), (ot, pt, yt) = outs["j"], outs["t"]
+    assert isinstance(yt["watch"], np.ndarray)
+    assert _rel_l2(yt["watch"], yj["watch"]) < 1e-8
+    assert _rel_l2(yt["final_u"], yj["final_u"]) < 1e-8
+    assert (pt.gradient is not None) == (pj.gradient is not None) \
+        == correction
+    _csv_close(os.path.join(ot, "watcher_points.csv"),
+               os.path.join(oj, "watcher_points.csv"))
+    assert os.path.isfile(os.path.join(ot, "used_config.yaml"))
+    assert list(read_watcher_csv(os.path.join(ot, "watcher_points.csv"))) \
+        == ["time", "pside", "oside"]
+
+
+def test_run_1d_correction_toggle_and_list_watchers(pipeline):
+    c, mesh_folder, out2d, root, wp = pipeline
+    grad = os.path.join(out2d, "radial_gradient_raw.csv")
+    as_list = [{"name": k, "coords": list(v)} for k, v in wp.items()]
+    p_on, on = trun1d.run_1d(c, mesh_folder, watcher_points=as_list,
+                             write_xdmf=False, suppress_print=True,
+                             output_folder=str(root / "on"),
+                             radial_gradient_path=grad, device="cpu")
+    _, off = trun1d.run_1d(c, mesh_folder, watcher_points=wp,
+                           write_xdmf=False, suppress_print=True,
+                           output_folder=str(root / "off"),
+                           use_radial_correction=False, device="cpu")
+    assert np.abs(on["watch"] - off["watch"]).max() > 1e-6
+    assert p_on.gradient.delta_r == 0.07e-6       # the raw CSV's radius
+    with pytest.raises(ValueError, match="watcher_points"):
+        trun1d.run_1d(c, mesh_folder, watcher_points="pside",
+                      write_xdmf=False, suppress_print=True,
+                      output_folder=str(root / "bad"), device="cpu")
+
+
+def test_run_1d_missing_gradient_falls_back(pipeline, tmp_path, monkeypatch):
+    """No gradient file anywhere: the correction switches itself off and the
+    run equals the uncorrected one."""
+    c, mesh_folder, _, root, wp = pipeline
+    monkeypatch.chdir(tmp_path)
+    _, ys = trun1d.run_1d(c, mesh_folder, watcher_points=wp,
+                          write_xdmf=False, suppress_print=True,
+                          output_folder=str(tmp_path / "fb"), device="cpu")
+    _, off = trun1d.run_1d(c, mesh_folder, watcher_points=wp,
+                           write_xdmf=False, suppress_print=True,
+                           output_folder=str(tmp_path / "off"),
+                           use_radial_correction=False, device="cpu")
+    assert np.isfinite(ys["watch"]).all()
+    np.testing.assert_array_equal(ys["watch"], off["watch"])
+
+
+def test_find_gradient_csv_order_matches_jax(tmp_path, monkeypatch):
+    """Named run directories first (both CSV kinds, smoothed before raw),
+    then any run directory; the same answer as the JAX driver at each
+    stage."""
+    monkeypatch.chdir(tmp_path)
+    mesh = tmp_path / "meshes" / "m"
+    os.makedirs(mesh)
+
+    def both():
+        got = trun1d._find_gradient_csv(str(mesh), config_name="mine")
+        assert got == jrun1d._find_gradient_csv(str(mesh), config_name="mine")
+        return got
+
+    assert both() is None
+    other = tmp_path / "meshes" / "outputs" / "zzz"
+    os.makedirs(other)
+    (other / "radial_gradient.csv").write_text("x")
+    assert both().endswith(os.path.join("zzz", "radial_gradient.csv"))
+    canon = tmp_path / "outputs" / "geballe_no_diamond_read_flux"
+    os.makedirs(canon)
+    (canon / "radial_gradient_raw.csv").write_text("x")
+    assert both().endswith(os.path.join("geballe_no_diamond_read_flux",
+                                        "radial_gradient_raw.csv"))
+    mine = tmp_path / "sim_outputs" / "mine"
+    os.makedirs(mine)
+    (mine / "radial_gradient_raw.csv").write_text("x")
+    assert "geballe_no_diamond_read_flux" in both()   # an earlier base wins
+    (mine / "radial_gradient.csv").write_text("x")
+    assert both().endswith(os.path.join("mine", "radial_gradient.csv"))
+
+
+def test_run_1d_defaults_to_the_card_and_unported_meshes_raise(pipeline,
+                                                               tmp_path):
+    c, mesh_folder, _, _, wp = pipeline
+    with pytest.raises(NotImplementedError, match="ROADMAP P9"):
+        trun1d.run_1d(c, str(tmp_path / "u"), rebuild_mesh=True,
+                      mesh_style="unstructured", device="cpu")
+    os.makedirs(tmp_path / "m")
+    open(tmp_path / "m" / "mesh.msh", "w").close()
+    open(tmp_path / "m" / "mesh_cfg.yaml", "w").write("material_tags: {}\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP P9"):
+        trun1d.run_1d(c, str(tmp_path / "m"), device="cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trun1d.run_1d(c, mesh_folder, watcher_points=wp, write_xdmf=False)
+
+
+def test_run1d_cli_without_jax_pandas_yaml(pipeline, tmp_path):
+    """The 1D CLI in a subprocess with jax, jaxlib, pandas and yaml blocked,
+    against the JAX driver's traces; --watcher-points as JSON."""
+    c, mesh_folder, out2d, _, wp = pipeline
+    from heatflow_tpu_torch.config import save_config
+    cfg_path = tmp_path / "one_d.yaml"
+    save_config(c, str(cfg_path))
+    grad = os.path.join(out2d, "radial_gradient.csv")
+    points = json.dumps({k: list(v) for k, v in wp.items()})
+    code = f"""
+import sys
+for name in ("jax", "jaxlib", "pandas", "yaml"):
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+from heatflow_tpu_torch.drivers import run1d
+run1d.main(["--config", {str(cfg_path)!r}, "--mesh-folder-2d",
+            {mesh_folder!r}, "--output-folder", {str(tmp_path / "cli")!r},
+            "--radial-gradient-path", {grad!r}, "--device", "cpu"])
+run1d.main(["--config", {str(cfg_path)!r}, "--mesh-folder-2d",
+            {mesh_folder!r}, "--output-folder", {str(tmp_path / "cli_off")!r},
+            "--no-radial-correction", "--watcher-points", {points!r},
+            "--device", "cpu", "--suppress-print"])
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "heatflow_tpu", "pandas",
+                              "yaml") and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+    assert "Radial heating correction: ENABLED" in proc.stdout
+    _, yj = jrun1d.run_1d(c, mesh_folder, output_folder=str(tmp_path / "j"),
+                          watcher_points=wp, write_xdmf=False,
+                          suppress_print=True, radial_gradient_path=grad)
+    got = read_watcher_csv(str(tmp_path / "cli" / "watcher_points.csv"))
+    off = read_watcher_csv(str(tmp_path / "cli_off" / "watcher_points.csv"))
+    assert list(got) == list(off) == ["time", "pside", "oside"]
+    cols = np.column_stack([got["pside"], got["oside"]])
+    assert _rel_l2(cols, yj["watch"]) < 1e-8
+    assert np.abs(cols - np.column_stack([off["pside"],
+                                          off["oside"]])).max() > 1e-6

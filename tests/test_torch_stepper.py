@@ -109,6 +109,49 @@ def test_f64_default_path_passes_golden(tiny_runs):
         / np.abs(g["axis"]).max() < 1e-6
 
 
+def test_f64_transient_matches_the_scipy_fem():
+    """The port's float64 transient against an independent scipy LU
+    backward-Euler P1 FEM on the same triangulation (the pattern of
+    tests/test_stepper.py): fields and watcher traces within 1e-8 rel-L2,
+    the band rows of the projected radial gradient within 2e-5."""
+    import math
+    from tests import reference_fem
+    _, pt = _tiny_pair()
+    res = t_run(pt, rtol=1e-13, record_fields=True, device="cpu")
+    mesh = pt.mesh
+    nodes = mesh.node_coords()
+    tris, tri_tags = mesh.triangles()
+    ck, cr = pt.kappas[tri_tags - 1], pt.rho_cvs[tri_tags - 1]
+    ic = pt.ic_temp
+    dir_f = pt.dirichlet_mask.astype(float).ravel()
+    profile = (np.exp(-4.0 * math.log(2.0) / pt.fwhm ** 2 * pt.r_sq)
+               * pt.heat_mask.astype(float)).ravel()
+    heat_t, heat_T = pt.heating.time, pt.heating.temp
+    off = heat_T[0] - ic
+
+    def g_of_t(t):
+        amp = np.interp(t, heat_t, heat_T) - off
+        return ic * dir_f + (amp - ic) * profile
+
+    watch_nodes = [mesh.nearest_node(*p)
+                   for p in t_watch(tiny_no_diamond_cfg(coarse=2.0)).values()]
+    ref = reference_fem.backward_euler(
+        nodes, tris, ck, cr, pt.dt, pt.num_steps, pt.dirichlet_mask.ravel(),
+        g_of_t, ic, watch_nodes=watch_nodes, project_gradient=True)
+    ours = res.fields.reshape(res.fields.shape[0], -1)
+    assert rel_l2(ours, ref["u"]) < 1e-8
+    assert np.abs(ours - ref["u"]).max() / np.abs(ref["u"]).max() < 2e-8
+    assert rel_l2(res.watcher, ref["watch"]) < 1e-8
+    rad = pt.radial
+    vals = ref["grad_r"][:, rad.band_nodes]
+    sums = np.zeros((vals.shape[0], len(rad.bin_counts)))
+    np.add.at(sums, (slice(None), rad.band_bin_ids), vals)
+    band_ref = sums / np.where(rad.bin_counts > 0, rad.bin_counts, 1)
+    scale = np.abs(band_ref).max()
+    # gradients amplify the solve tolerance by ~1/h (tests/test_stepper.py)
+    assert np.abs(res.band_rows - band_ref).max() / scale < 2e-5
+
+
 @pytest.mark.parametrize("precondition", ["rline", "zline", "adi"])
 def test_f64_line_preconditioned_paths_match_jax(precondition):
     pj, pt = _tiny_pair()

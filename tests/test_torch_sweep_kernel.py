@@ -133,6 +133,33 @@ def test_tol_plain_matches_pallas_interpret(batch, rline, rtol_wrt):
     assert _rel(xt.numpy(), batch["x_true"]) <= 1e-8
 
 
+@pytest.fixture(scope="module")
+def nine_batch():
+    """Three lanes A0 + dk_b·Kv of 9-plane operators (see
+    tests/test_torch_cg_kernel.py::nine_plane_system)."""
+    from tests.test_torch_cg_kernel import nine_plane_system
+    return nine_plane_system(n_lanes=3)
+
+
+@pytest.mark.parametrize("form", ["identity", "rline", "adi"])
+def test_tol_nine_plane_plain_matches_pallas_interpret(nine_batch, form):
+    """K2's plain version on 9-plane lanes against the Pallas kernel in
+    interpret mode in float64: equal per-lane counts, x within 1e-10."""
+    t, j = _t(nine_batch), _j(nine_batch)
+    assert t["A0"].shape[0] == t["Kv"].shape[0] == 9
+    kw = dict(rline=form == "rline", adi=form == "adi")
+    xj, ij = cg_vmem_batched_tol(*_args(j), 1e-11, maxiter=20000,
+                                 rtol_wrt="r0", interpret=True, merged=False,
+                                 **kw)
+    xt, it = cuda_sweep.cg_batched_tol(*_args(t), 1e-11, maxiter=20000,
+                                       rtol_wrt="r0", **kw)
+    assert it.tolist() == np.asarray(ij).tolist(), (it, ij)
+    assert _rel(xt.numpy(), xj) <= X_TOL
+    assert _rel(xt.numpy(), nine_batch["x_true"]) <= 1e-8
+    # the lanes differ: Kv's anti-diagonal planes act
+    assert np.abs(nine_batch["Kv"][7:]).max() > 0
+
+
 @pytest.mark.parametrize("rtol_wrt", ["r0", "b"])
 @pytest.mark.parametrize("form", ["adi", "adaptive"])
 def test_tol_adi_forms_match_pallas_interpret(batch, form, rtol_wrt):
