@@ -12,14 +12,20 @@ Phases (each raises on failure; nothing is caught):
    normal first use and print the build time;
 3. at the flagship shape (``cfgs/geballe_with_diamond.yaml``, 251 x 1107
    nodes) compare each phase kernel of ``cg_tol`` with its plain PyTorch
-   version on numpy-seeded inputs, then one full solve of the first step's
-   refinement system in the identity, r-line and ADI forms, timing kernel
-   and plain version with CUDA events;
+   version on numpy-seeded inputs (the stencil with its alpha tail, the
+   PCR phases, the fused update-and-PCR phases with their beta tail), then
+   one full solve of the first step's refinement system in the identity,
+   r-line and ADI forms, timing kernel and plain version with CUDA events,
+   and one more of each under the profiler: each kernel's time in the
+   solve, launches and us an iteration;
 4. run the flagship transient (100 backward-Euler steps, the float32
    adaptive r-line/ADI recipe with one float64 refinement pass) through
    ``make_simulate_fn``: one warm-up run, then one timed run with the
    launch counters reset just before it; check the traces against the
-   float64 truth in ``benchmarks/.flagship_truth_f64.npz``;
+   float64 truth in ``benchmarks/.flagship_truth_f64.npz``; report the
+   launches an iteration (at most 3 r-line, 4 ADI) and, from one more run
+   under the profiler, the device's busy share and its idle time inside
+   and between the solves;
 5. at the sweep shape (``cfgs/geballe_no_diamond.yaml``, 243 x 1001
    nodes), on the 10th step's system of 8 numpy-seeded lanes spanning
    kappa in [1, 100] (one lane NaN, one at rtol 2), compare each of the
@@ -117,8 +123,11 @@ Phases (each raises on failure; nothing is caught):
    and on level 1, the whole V-cycle (held to the plain float32 version's
    distance from the float64 cycle) and its symmetry; (c) ``mgcg_vmem_tol``
    on the first step's system at rtol 1e-3, 1e-5 and 1e-6 wrt r0 against
-   its plain version and a float64 solve, with iterations, ms a solve, us
-   and launches an iteration; (d) ``cg_vmem`` (64 iterations) on the baked
+   the float64 solution (the plain r-line solve at rtol 1e-10) and, at
+   1e-3 and 1e-5, its plain version (the 1e-6 solve, which has no plain
+   run and no row in the kernels line, at least as many iterations as the
+   1e-5 one and as close to float64 as its plain version), with
+   iterations, ms a solve, us and launches an iteration; (d) ``cg_vmem`` (64 iterations) on the baked
    flagship operator against its plain version, and the baked operator
    against the on-the-fly form;
 18. the paths that run those kernels at full width: the first 10 steps of
@@ -347,16 +356,23 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
     rows = []
     n = nz * nr
 
-    # stencil and <p, Ap>
-    Ap_k, pap_k = cuda_cg.stencil_dot(A32, sm32, p)
+    # stencil and <p, Ap>, with the alpha tail on a state record
+    st0 = dict(rz=0.731, rr=0.5, stop2=1e-12, alpha=0.0, beta=0.0, k=3,
+               done=0)
+    Ap_k, pap_k, st_k = cuda_cg.stencil_dot_alpha(A32, sm32, p, st0)
     Ap_p, pap_p = cuda_cg.stencil_dot_reference(A32, sm32, p)
+    st_p = cuda_cg.finalize_reference(st0, "alpha", pap=pap_p)
     err = float((Ap_k - Ap_p).abs().max())
     rel = rel_max(Ap_k, Ap_p)
     dot_rel = abs(float(pap_k - pap_p)) / abs(float(pap_p))
-    require(rel <= 1e-5 and dot_rel <= 1e-5, ("stencil_dot", rel, dot_rel))
+    alpha_rel = abs(st_k["alpha"] - st_p["alpha"]) / abs(st_p["alpha"])
+    require(rel <= 1e-5 and dot_rel <= 1e-5 and alpha_rel <= 1e-5
+            and st_k["k"] == st_p["k"] and st_k["rz"] == st_p["rz"],
+            ("stencil_dot", rel, dot_rel, st_k, st_p))
     rows.append(dict(name="cg_tol.stencil_dot", phase="stencil_dot",
                      **bound(nbytes(A32, sm32, p, p) + 8, 17 * n),
                      max_abs_err=err, rel=rel, dot_rel=dot_rel,
+                     alpha_rel=alpha_rel,
                      ms=cuda_ms(lambda: cuda_cg.stencil_dot(A32, sm32, p),
                                 50),
                      plain_ms=cuda_ms(
@@ -381,10 +397,51 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
             plain_ms=cuda_ms(
                 lambda: cuda_cg.precond_reference(sm32, p, pcr, zst), 20)))
 
+    # the fused iteration phases: x += alpha p, r -= alpha Ap, z = M^-1 r
+    # with the partials and the beta tail (the r-line row kernel; for ADI
+    # the row kernel and the z-line kernel), as a solve launches them
+    x = (torch.tensor(rng.standard_normal((nz, nr)), dtype=torch.float32,
+                      device=device) * free32).contiguous()
+    Ap = cuda_cg.stencil_dot_reference(A32, sm32, p)[0].contiguous()
+    st1 = dict(rz=0.731, rr=0.5, stop2=1e-12, alpha=0.0137, beta=0.0, k=3,
+               done=0)
+    for name, phase, zst in (("cg_tol.update_pcr_r", "update_pcr_r", None),
+                             ("cg_tol.update_pcr_adi", "pcr_z", pcr_z)):
+        args = (x, b32, p, Ap, sm32, pcr, zst)
+
+        def plain():
+            out = cuda_cg.update_precond_reference(*args[:4], st1["alpha"],
+                                                   *args[4:])
+            return out + (cuda_cg.finalize_reference(
+                st1, "beta", rr=out[3], rz=out[4]),)
+        out_k = cuda_cg.update_precond(*args, state=st1)
+        out_p = plain()
+        fields = [rel_max(a, b) for a, b in zip(out_k[:3], out_p[:3])]
+        sums = [abs(float(a) - float(b)) / abs(float(b))
+                for a, b in zip(out_k[3:5], out_p[3:5])]
+        st_k, st_p = out_k[5], out_p[5]
+        beta_rel = abs(st_k["beta"] - st_p["beta"]) / abs(st_p["beta"])
+        rel = max(fields)
+        require(rel <= 1e-4 and max(sums) <= 1e-5 and beta_rel <= 1e-5
+                and st_k["k"] == st_p["k"] == 4 and st_k["done"] == 0,
+                (name, fields, sums, st_k, st_p))
+        rows.append(dict(
+            name=name, phase=phase, rel=rel, dot_rel=max(sums),
+            beta_rel=beta_rel,
+            max_abs_err=max(float((a - b).abs().max())
+                            for a, b in zip(out_k[:3], out_p[:3])),
+            **bound(nbytes(x, b32, p, Ap, sm32, pcr, zst, x, b32, b32) + 16,
+                    n * (6 + (LINE_SOLVE_OPS + 4)
+                         * (1 if zst is None else 2))),
+            ms=cuda_ms(lambda: cuda_cg.update_precond(*args, state=st1),
+                       50),
+            plain_ms=cuda_ms(plain, 20)))
+
     for row in rows:
         print(f"phase {row['name']}: max|err| {row['max_abs_err']:.3e} "
               f"(rel {row['rel']:.3e}, dot rel {row['dot_rel']:.3e}), "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms")
+    large_shape_checks(device, out)
 
     # full solves of the first step's refinement system. Its solution is
     # ~4e3 ||b||, so a float32 solve carries a rounding floor: its true
@@ -439,9 +496,106 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
                             max_abs_err=float((x_k - x_p).abs().max()),
                             ms=ms, plain_ms=plain_ms)
         print(f"solve {form}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        # in-solve: one more solve under the profiler, by kernel
+        prof = kernel_profile(
+            lambda: cuda_cg.cg_tol(A32, sm32, b32, x0, rtol, **kw))
+        k1 = k1_kernels(prof)
+        launched = sum(c for name, (_, c) in k1.items()
+                       if name not in ("k_init", "k_finish"))
+        solves[form].update(
+            in_solve_us={name: us / c for name, (us, c) in k1.items()},
+            in_solve_calls={name: c for name, (_, c) in k1.items()},
+            us_per_iter=prof["span_us"] / it_k,
+            launches_per_iter=launched / it_k,
+            busy_pct=100 * prof["busy_us"] / prof["span_us"])
+        print(f"solve {form} in-solve: {prof['span_us'] / it_k:.2f} us an "
+              f"iteration, {launched / it_k:.3f} launches an iteration "
+              f"(with the no-op tail of the last block), device busy "
+              f"{solves[form]['busy_pct']:.2f}% of the solve; "
+              + ", ".join(f"{name} {us / c:.2f} us x {c}"
+                          for name, (us, c) in sorted(k1.items())))
+    # the phase rows' in-solve times: their kernels in the r-line and ADI
+    # solves (the ADI row: its row kernel and its z-line kernel)
+    rl, adi = solves["rline"]["in_solve_us"], solves["adi"]["in_solve_us"]
+    in_solve = {"cg_tol.stencil_dot": rl.get("k_stencil_dot"),
+                "cg_tol.pcr_r": rl.get("k_pcr_r<false>"),
+                "cg_tol.pcr_z_adi": adi.get("k_pcr_z"),
+                "cg_tol.update_pcr_r": rl.get("k_pcr_r<true>"),
+                "cg_tol.update_pcr_adi": adi.get("k_pcr_r<true>", 0.0)
+                + adi.get("k_pcr_z", 0.0)}
+    for row in rows:
+        row["in_solve_ms"] = in_solve[row["name"]] / 1e3
+        print(f"phase {row['name']}: in-solve {row['in_solve_ms']:.4f} ms "
+              f"(bound {row['bound_ms']:.4f} ms)")
+    stats = cuda_cg.graph_stats()
+    print("graphs: " + ", ".join(
+        f"{form} {v['launches_per_iteration']:.3f} launches an iteration, "
+        f"capture + instantiation {v['capture_s'] * 1e3:.3f} ms"
+        for form, v in sorted(stats.items())))
+    out["graph_stats"] = stats
     out["solves"] = solves
     out["phases"] = rows
     return rows
+
+
+def large_shape_checks(device, out: dict, nz: int = 300, nr: int = 4096):
+    """The line kernels' paths for shapes past the flagship's: a row whose
+    factor stack does not fit shared memory (read from device memory) and
+    z-lines taller than the register-held kernel takes (``k_pcr_z_tall``),
+    on a numpy-seeded anisotropic 5-point operator: the PCR phases, the
+    fused phase with its beta tail and an ADI solve against their plain
+    versions."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg
+    rng = np.random.default_rng(3)
+    az = torch.tensor(rng.uniform(0.5, 1.5, (nz - 1, nr)))
+    ar = torch.tensor(rng.uniform(0.5, 1.5, (nz, nr - 1))) * 20.0
+    A = torch.zeros((7, nz, nr), dtype=torch.float64)
+    A[1, :-1], A[2, 1:] = -az, -az
+    A[3, :, :-1], A[4, :, 1:] = -ar, -ar
+    A[0] = -A[1:5].sum(dim=0) + 0.1
+    free = torch.ones((nz, nr), dtype=torch.float64)
+    free[0] = 0.0
+    s = torch.rsqrt(A[0]) * free + (1.0 - free)
+    f32 = lambda t: t.float().to(device).contiguous()
+    A32, sm32, s32, free32 = f32(A), f32(s * free), f32(s), f32(free)
+    pcr = cuda_cg.pcr_pack(A32, s32, free32).contiguous()
+    pcr_z = cuda_cg.pcr_pack(A32, s32, free32, axis=-2).contiguous()
+    field = lambda: f32(torch.tensor(rng.standard_normal((nz, nr))) * free)
+    r, x, p = field(), field(), field()
+    z_k, rz_k = cuda_cg.precond(sm32, r, pcr, pcr_z)
+    z_p, rz_p = cuda_cg.precond_reference(sm32, r, pcr, pcr_z)
+    res = dict(precond_rel=rel_max(z_k, z_p),
+               precond_dot_rel=abs(float(rz_k - rz_p)) / abs(float(rz_p)))
+    Ap = cuda_cg.stencil_dot_reference(A32, sm32, p)[0].contiguous()
+    st = dict(rz=1.0, rr=1.0, stop2=1e-12, alpha=0.021, beta=0.0, k=0,
+              done=0)
+    out_k = cuda_cg.update_precond(x, r, p, Ap, sm32, pcr, pcr_z, state=st)
+    out_p = cuda_cg.update_precond_reference(x, r, p, Ap, st["alpha"], sm32,
+                                             pcr, pcr_z)
+    st_p = cuda_cg.finalize_reference(st, "beta", rr=out_p[3], rz=out_p[4])
+    res.update(fused_rel=max(rel_max(a, b) for a, b in zip(out_k[:3],
+                                                           out_p[:3])),
+               beta_rel=abs(out_k[5]["beta"] - st_p["beta"])
+               / abs(st_p["beta"]))
+    b32 = field()
+    x0 = torch.zeros_like(b32)
+    kw = dict(maxiter=2000, rtol_wrt="b", pcr=pcr, pcr_z=pcr_z)
+    x_k, it_k = cuda_cg.cg_tol(A32, sm32, b32, x0, 1e-5, **kw)
+    x_p, it_p = cuda_cg.cg_tol_reference(A32, sm32, b32, x0, 1e-5, **kw)
+    it_k, it_p = int(it_k), int(it_p)
+    res.update(adi_iters=it_k, adi_plain_iters=it_p,
+               adi_rel_l2=float(torch.linalg.vector_norm((x_k - x_p).double())
+                                / torch.linalg.vector_norm(x_p.double())))
+    print(f"large shape {nz} x {nr} (row stack read from device memory, "
+          f"z-lines by k_pcr_z_tall): {res}")
+    require(res["precond_rel"] <= 1e-4 and res["precond_dot_rel"] <= 1e-5
+            and res["fused_rel"] <= 1e-4 and res["beta_rel"] <= 1e-5
+            and out_k[5]["k"] == 1, ("large shape", res))
+    require(abs(it_k - it_p) <= max(3, int(0.05 * it_p))
+            and res["adi_rel_l2"] <= 1e-3, ("large shape ADI", res))
+    out["large_shape"] = res
 
 
 def run_slice(problem, device, out: dict):
@@ -484,20 +638,49 @@ def run_slice(problem, device, out: dict):
     print("slice peak |error| vs f64 truth [K]: "
           + ", ".join(f"{n} {e:.4f}" for n, e in zip(names, peak)))
     print(f"slice phase launches: {counts}")
+    # launches an iteration: as the graphs' loop bodies hold them, and all
+    # K1 launches of the run (starts, finishes and the no-op tail of each
+    # solve's last block of CHECK_EVERY included) over its iterations
+    stats = cuda_cg.graph_stats()
+    per_iter = {f: stats[f]["launches_per_iteration"]
+                for f in ("rline", "adi") if f in stats}
+    launched = sum(counts.values())
+    print(f"slice: launches an iteration {per_iter} (graph bodies); "
+          f"{launched} K1 launches over {int(iters.sum())} iterations = "
+          f"{launched / iters.sum():.3f} an iteration")
+    # one more run under the profiler: the device's busy share and where
+    # the idle time lies
+    prof = kernel_profile(fn)
+    split = idle_split(prof)
+    busy_pct = 100 * prof["busy_us"] / prof["span_us"]
+    print(f"slice profiled run: device busy {busy_pct:.2f}% of a "
+          f"{prof['span_us'] / 1e3:.3f} ms span; {split['solves']} solves "
+          f"span {split['solve_span_us'] / 1e3:.3f} ms "
+          f"({split['solve_busy_us'] / 1e3:.3f} ms of kernels, idle "
+          f"{split['idle_in_solves_us'] / 1e3:.3f} ms between launches and "
+          f"{split['idle_after_host_reads_us'] / 1e3:.3f} ms after "
+          f"{split['host_reads']} host reads); idle between solves "
+          f"{split['idle_between_solves_us'] / 1e3:.3f} ms")
     out["slice"] = dict(steps=problem.num_steps, run_s=run_s,
                         warm_run_s=warm_s, steps_per_s=steps_per_s,
                         cg_iters=iters.tolist(), solves=solves,
                         phase_launches=counts,
+                        launches_per_iteration=per_iter,
+                        launches_per_run_iteration=launched / iters.sum(),
+                        device_busy_pct=busy_pct, idle_split=split,
                         peak_err_K=dict(zip(names, peak.tolist())))
     require((peak <= TRACE_TOL_K).all(), f"trace error {peak} K > 1.0 K")
+    require(all(v <= {"rline": 3, "adi": 4}[f] for f, v in per_iter.items())
+            and per_iter, ("launches an iteration", per_iter))
+    require(split["host_reads"] == 0, ("host reads inside solves", split))
     return fn
 
 
-def profile_run(fn, path: str, out: dict, key: str = "profile") -> None:
-    """One more run of ``fn`` under torch.profiler: device time by kernel,
-    and the device's busy and idle share of the run (kernel intervals
-    merged, over the span from the first kernel's start to the last one's
-    end). Writes the kernel table to ``path``, the summary to out[key]."""
+def kernel_profile(fn) -> dict:
+    """One run of ``fn`` under torch.profiler: wall seconds (profiler on),
+    the device span from the first kernel's start to the last one's end,
+    the busy time in it (kernel intervals merged), and device time and
+    calls by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -507,8 +690,8 @@ def profile_run(fn, path: str, out: dict, key: str = "profile") -> None:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == cuda)
+    events = [e for e in prof.events() if e.device_type == cuda]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     require(spans, "the profiler saw no device time")
     busy, (cur_s, cur_e) = 0.0, spans[0]
     for s0, s1 in spans[1:]:
@@ -518,14 +701,78 @@ def profile_run(fn, path: str, out: dict, key: str = "profile") -> None:
         else:
             cur_e = max(cur_e, s1)
     busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
     by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == cuda:
-            acc = by_name.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.end - e.time_range.start
-            acc[1] += 1
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for e in events:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.end - e.time_range.start
+        acc[1] += 1
+    timeline = sorted((e.time_range.start, e.time_range.end, e.name)
+                      for e in events)
+    return dict(wall_s=wall_s, span_us=spans[-1][1] - spans[0][0],
+                busy_us=busy, kernels=by_name, timeline=timeline)
+
+
+def idle_split(prof: dict) -> dict:
+    """The device's idle time of a profiled run, in us: inside K1's solves
+    (from a solve's k_init to its k_finish), split into the gaps that follow
+    a device-to-host copy (the host reading the solve's stop flag) and the
+    rest, and between the solves (the caller's own work), with the solves'
+    span and kernel time and the count of copies to the host inside them."""
+    import re
+    inside = after_read = between = solve_span = solve_busy = 0.0
+    start, prev_end, prev_name, solves, reads = None, None, "", 0, 0
+    for s0, s1, name in prof["timeline"]:
+        m = re.search(r"\b(k_[a-z_]+)", name)
+        k = m.group(1) if m else ""
+        gap = 0.0 if prev_end is None else max(0.0, s0 - prev_end)
+        if k == "k_init" and start is None:
+            start = s0
+            between += gap
+        elif start is not None:
+            if "DtoH" in prev_name:
+                after_read += gap
+            else:
+                inside += gap
+            solve_busy += s1 - s0
+            reads += "DtoH" in name
+        else:
+            between += gap
+        if k == "k_init":
+            solve_busy += s1 - s0
+        if k == "k_finish" and start is not None:
+            solve_span += s1 - start
+            solves += 1
+            start = None
+        if prev_end is None or s1 >= prev_end:
+            prev_end, prev_name = s1, name
+    return dict(solves=solves, solve_span_us=solve_span,
+                solve_busy_us=solve_busy, idle_in_solves_us=inside,
+                idle_after_host_reads_us=after_read, host_reads=reads,
+                idle_between_solves_us=between)
+
+
+def k1_kernels(prof: dict) -> dict:
+    """A profile's K1 kernels (``k_*`` of csrc/cg_tol.cu) by short name
+    (template arguments kept): [device us, calls]."""
+    import re
+    out: dict[str, list] = {}
+    for name, (us, n) in prof["kernels"].items():
+        m = re.search(r"\b(k_[a-z_]+(?:<\w+>)?)\(", name)
+        if m:
+            acc = out.setdefault(m.group(1), [0.0, 0])
+            acc[0] += us
+            acc[1] += n
+    return out
+
+
+def profile_run(fn, path: str, out: dict, key: str = "profile") -> None:
+    """One more run of ``fn`` under torch.profiler: device time by kernel,
+    and the device's busy and idle share of the run (kernel intervals
+    merged, over the span from the first kernel's start to the last one's
+    end). Writes the kernel table to ``path``, the summary to out[key]."""
+    prof = kernel_profile(fn)
+    wall_s, span, busy = prof["wall_s"], prof["span_us"], prof["busy_us"]
+    rows = sorted(prof["kernels"].items(), key=lambda kv: -kv[1][0])
     with open(path, "w") as f:
         f.write(f"profiled run: wall {wall_s * 1e3:.3f} ms (profiler on), "
                 f"device span {span / 1e3:.3f} ms, device busy "
@@ -540,8 +787,9 @@ def profile_run(fn, path: str, out: dict, key: str = "profile") -> None:
     for name, (us, n) in rows[:8]:
         print(f"profile: {us / 1e3:8.3f} ms {n:6d} x  {name[:90]}")
     out[key] = dict(wall_s=wall_s, device_span_ms=span / 1e3,
-                          device_busy_ms=busy / 1e3,
-                          kernels={k: v for k, v in rows})
+                    device_busy_ms=busy / 1e3,
+                    device_busy_pct=100 * busy / span,
+                    kernels={k: v for k, v in rows})
 
 
 def sweep_system(problem, ks, fs, device, step: int = 10):
@@ -2759,19 +3007,25 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
     print(f"mg V-cycle: kernel {rows['mgcg.vcycle']['ms']:.4f} ms, plain "
           f"{rows['mgcg.vcycle']['plain_ms']:.4f} ms")
 
-    # the solve on the first step's system at three tolerances wrt r0
+    # the solve on the first step's system at three tolerances wrt r0,
+    # against the float64 solution of the same system (the plain r-line
+    # solve in float64 at rtol 1e-10 wrt ||b||); the plain float32 version
+    # runs at 1e-3 and 1e-5, and the solve at 1e-6 (no plain run, no row of
+    # the kernels line) is held between them
     x0 = torch.zeros_like(b32)
     t0 = time.perf_counter()
-    x64, it64 = cuda_mg.mgcg_tol_reference(setup64, b32.double(),
-                                           x0.double(), 1e-9, maxiter=1500)
+    pcr64 = cuda_cg.pcr_pack(A32.double(), s32.double(), free32.double())
+    x64, it64 = cuda_cg.cg_tol_reference(
+        A32.double(), sm32.double(), b32.double(), x0.double(), 1e-10,
+        maxiter=20000, rtol_wrt="b", pcr=pcr64)
     torch.cuda.synchronize()
-    print(f"mgcg float64 plain solve at rtol 1e-9: {int(it64)} iterations "
-          f"in {time.perf_counter() - t0:.2f} s")
+    print(f"float64 plain r-line solve at rtol 1e-10: {int(it64)} "
+          f"iterations in {time.perf_counter() - t0:.2f} s")
     op64 = lambda y: (sm32.double()
                       * apply_stencil(A32.double(), sm32.double() * y))
     res64 = norm(b32.double() - op64(x64)) / norm(b32)
-    require(int(it64) < 1500 and res64 <= 1e-8, ("float64 mgcg", int(it64),
-                                                 res64))
+    require(int(it64) < 20000 and res64 <= 1e-8, ("float64 solve",
+                                                  int(it64), res64))
     solves = {}
     n = nz * nr
     for rtol in (1e-3, 1e-5, 1e-6):
@@ -2779,16 +3033,35 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
         x_k, it_k = cuda_mg.mgcg_vmem_tol(setup, b32, x0, rtol)
         torch.cuda.synchronize()
         launches = sum(cuda_cg.phase_launches().values())
+        it_k = int(it_k)
+        err_k = norm(x_k - x64) / norm(x64)
+        res = norm(b32.double() - op64(x_k.double())) / norm(b32)
+        ms = cuda_ms(lambda: cuda_mg.mgcg_vmem_tol(setup, b32, x0, rtol), 2)
+        require(it_k < 2000, ("mgcg ran to maxiter", rtol))
+        if rtol == 1e-6:
+            # at least the 1e-5 solve's count, and no farther from float64
+            # than the plain version at 1e-5
+            at = solves["mgcg_vmem_tol[1e-05]"]
+            print(f"mgcg_vmem_tol rtol 1e-06 wrt r0 (no plain run): iters "
+                  f"kernel {it_k}; vs float64 kernel {err_k:.3e}, the plain "
+                  f"version at 1e-5 {at['plain_err_vs_f64']:.3e}; true "
+                  f"residual {res:.3e} x ||b||; kernel {ms:.3f} ms a solve, "
+                  f"{1e3 * ms / it_k:.1f} us an iteration, "
+                  f"{launches / it_k:.1f} launches an iteration")
+            require(it_k >= at["iters"]
+                    and err_k <= max(1e-5, 1.5 * at["plain_err_vs_f64"]),
+                    ("mgcg 1e-6", it_k, err_k, at["plain_err_vs_f64"]))
+            out["mgcg_vmem_tol_1e-06"] = dict(
+                iters=it_k, err_vs_f64=err_k, true_res_over_ref=res,
+                launches_per_iter=launches / it_k, ms=ms)
+            continue
         t0 = time.perf_counter()
         x_p, it_p = cuda_mg.mgcg_tol_reference(setup, b32, x0, rtol)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        it_k, it_p = int(it_k), int(it_p)
+        it_p = int(it_p)
         rel_l2 = norm(x_k - x_p) / norm(x_p)
-        err_k, err_p = norm(x_k - x64) / norm(x64), \
-            norm(x_p - x64) / norm(x64)
-        res = norm(b32.double() - op64(x_k.double())) / norm(b32)
-        ms = cuda_ms(lambda: cuda_mg.mgcg_vmem_tol(setup, b32, x0, rtol), 2)
+        err_p = norm(x_p - x64) / norm(x64)
         print(f"mgcg_vmem_tol rtol {rtol:g} wrt r0: iters kernel {it_k} "
               f"plain {it_p}; kernel vs plain rel-L2 {rel_l2:.3e}; vs "
               f"float64 kernel {err_k:.3e} plain {err_p:.3e}; true residual "
@@ -2798,7 +3071,6 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
               f"{plain_ms:.1f} ms")
         require(abs(it_k - it_p) <= max(3, int(0.02 * it_p)),
                 ("mgcg", rtol, it_k, it_p))
-        require(it_k < 2000, ("mgcg ran to maxiter", rtol))
         require(rel_l2 <= max(1e-4, 2.0 * err_p) or rtol > 1e-5,
                 ("mgcg", rtol, rel_l2, err_p))
         require(err_k <= max(rtol * 10, 1.5 * err_p), ("mgcg", rtol, err_k,
@@ -3089,7 +3361,13 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
     out["build_s"] = build_s
+    print(f"K1 loop: each solve one CUDA graph launch, blocks of "
+          f"{cuda_cg.CHECK_EVERY} iterations under a conditional WHILE node "
+          f"(the device tests the stop flag; no host read before the end)")
 
+    # a graph's loop body is traced in full only by profiler sessions that
+    # began before the graph was captured: open the process's first one now
+    kernel_profile(lambda: torch.ones(1, device=device) + 1)
     t0 = time.perf_counter()
     problem = build_flagship()
     print(f"flagship setup (host): {time.perf_counter() - t0:.2f} s")

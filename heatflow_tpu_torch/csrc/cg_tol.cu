@@ -7,29 +7,55 @@
 // and z-semicoarsened two-level multigrid (mgz) forms, with the standard
 // recurrence or the Chronopoulos-Gear merged-dot recurrence.
 //
-// What bounds it on an H100: memory latency and launches, not arithmetic.
-// At the flagship shape (251 x 1107 = 277,857 nodes, one f32 plane is
-// 1.11 MB) one r-line iteration moves about 45 planes (~50 MB): the 7
-// stencil planes, ~15 vector planes (p, Ap, x, r, z, sm and their re-reads)
-// and the 23-plane folded r-line PCR stack, ~15 us at the HBM roofline.
-// The ADI form adds the 17-plane z-line stack. The working set (~40 MB
-// r-line, ~59 MB ADI) is about the size of the 50 MB L2, and no block can
-// hold it: shared memory is 227 KB a block. Each iteration costs 5-7
-// kernel launches. Measured on an H100 80GB HBM3 at 700 W: an r-line
-// iteration takes ~59 us of kernel time, 28 us of it in k_pcr_r, whose
-// 11 levels each wait on two dependent global-row loads.
+// What bounds it on an H100: memory traffic, the latency of dependent
+// loads, and the gaps between launches; not arithmetic. At the flagship
+// shape (251 x 1107 = 277,857 nodes, one f32 plane is 1.11 MB) an r-line
+// iteration must move ~34 planes (~38 MB, ~11 us at 3.35 TB/s): the 7
+// stencil planes, the vectors (p, Ap, x, r, z, sm) and the 23-plane folded
+// r-line PCR stack; the ADI form adds the 17-plane z-line stack. Shared
+// memory is 227 KB a block: a row's stack (~102 KB) fits one block, a
+// z-line tile's does not, and the working set (~40 MB r-line, ~59 MB ADI)
+// fits no block. The first design, one kernel per CG phase: 6 launches and
+// ~60 us an r-line iteration (28 us in a PCR kernel whose 11 levels each
+// waited on dependent global loads), 7 and ~149 us an ADI one, and a host
+// read of the stop flag every 8 iterations.
 //
-// What the design does about that: one kernel per CG phase, each a single
-// coalesced pass over its planes, so the traffic is the planes' size and
-// nothing more; the PCR levels of a whole line run in shared memory (one
-// r-line of 1107 values, or a tile of 16 z-lines of 251 values, double
-// buffered), so a PCR apply reads each factor plane once and never writes
-// an intermediate level to device memory. The CG scalars and the stop flag
-// stay in device memory: every phase kernel returns at once when the flag
-// is set, so the host launches blocks of iterations and reads the flag
-// only between blocks — no host round trip per iteration. Partial sums are
-// reduced in a fixed order in double, so a solve is deterministic.
-// Fusing phases, a CUDA graph or a persistent kernel are the next steps.
+// What this design does about that. Times: NVIDIA H100 80GB HBM3, 700 W,
+// in-solve by torch.profiler (chip_smoke.py phase 3), solves by CUDA events
+// (chip_smoke.py, tools/k1_ab.py against the one-kernel-a-phase design in
+// the same run):
+// - PCR factors in flight. The r-line row kernel (one block a grid row)
+//   requests its row of r and Ap, then its row's whole factor stack, into
+//   shared memory with 4-byte cp.async copies, one commit group a level;
+//   the update starts on the vectors and level k waits for its own group
+//   only while the later levels keep arriving. 110.7 KB a block on the
+//   flagship: two blocks an SM, the 251 rows one wave on 132 SMs. In a
+//   solve: 24.4 us for the update and the PCR together (27.8 + 3.7
+//   before), against a 10.3 us traffic bound; 16-byte copies through L2
+//   made no difference. The z-line kernel holds a tile's factors in
+//   registers instead, each thread requesting the next level's before it
+//   computes this one: 21.5 us (bound 14.3), against 35 us for tiles
+//   narrowed to fit shared memory and 76 us before.
+// - Fewer launches. The scalars ride in the tails of the kernels: each
+//   block writes its partial, fences and takes a ticket; the last block
+//   reduces the partials in a fixed order (no atomics on the sums, so a
+//   solve is bitwise repeatable) and sets alpha (after the stencil) or
+//   beta, the count and the stop flag (after the kernel that writes the
+//   last partials). An r-line iteration is 3 launches (k_stencil_dot,
+//   k_pcr_r<true>, k_p_update), an ADI one 4 (+ k_pcr_z), an identity one
+//   3 (k_update takes beta). The alpha tail costs the stencil ~4 us (12.6
+//   us against 8.8).
+// - No host in the loop. A solve is one CUDA graph: the start, a
+//   conditional WHILE node whose body is CHECK_EVERY iterations, and the
+//   finish. The last kernel of the start and of each body sets the loop
+//   condition from the done flag, so the device runs blocks until the
+//   solve stops and the host reads nothing before the end; every phase
+//   kernel still returns at once when the flag is set, so an iterate does
+//   not depend on CHECK_EVERY. The wrapper captures a graph once per
+//   operand set (capture and instantiation 0.6-1.2 ms) on buffers it keeps
+//   per shape, form and device. The flagship's first-step solves: r-line
+//   544 iterations, 40.7 us an iteration, 22.1 ms (32.4-32.8 before); ADI
+//   229, 63.9 us, 14.4-14.6 ms (34.2 before).
 //
 // The further forms reuse those phases. Chebyshev: each polynomial step is
 // one pass (k_cheb_step) that reads z's neighbours from one plane and writes
@@ -46,7 +72,9 @@
 // delta and <r, r> are taken in the one pass that forms w (k_merged_w), one
 // scalar kernel forms beta and the coupled alpha (k_finalize_merged), and
 // one pass updates p and q (k_pq_update): 4 launches an identity iteration
-// against 5, at one more plane of traffic.
+// (k_update, k_merged_w, k_finalize_merged, k_pq_update), at one more plane
+// of traffic than the standard recurrence; these forms keep k_update and a
+// k_finalize of their own and share the graph loop.
 //
 // Also replaces heatflow_tpu/ops/pallas_mg.py:_mgcg_kernel (the whole
 // multigrid-preconditioned solve in one TPU kernel) and
@@ -74,15 +102,25 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // elementwise and finalize blocks
-constexpr int kTileCols = 16;   // z-line PCR: columns per block
-constexpr int kTileRows = 16;   // z-line PCR: thread rows per block
+constexpr int kThreads = 256;     // elementwise and finalize blocks
+constexpr int kTileCols = 16;     // k_pcr_z_tall: columns a block at most
+constexpr int kRowThreads = 512;  // r-line row kernel: threads a block
+constexpr int kZCols = 8;         // z-line kernel: columns a block,
+constexpr int kZRows = 32;        // thread rows a block,
+constexpr int kZPer = 8;          // rows a thread (Nz <= kZRows * kZPer)
+constexpr int kZTallThreads = 512;  // z-line kernel for taller columns
+// The most dynamic shared memory a block may ask for (227 KB opt-in, less
+// the static shared memory of block_sum and last_block).
+constexpr size_t kMaxDynSmem = 232448 - 1024;
 
 // Solve state kept in device memory (mirrored by the Python wrapper:
 // k is int32 word 10 and done is int32 word 11 of the 64-byte buffer).
+// ticket[0] / ticket[1] count the blocks of a launch that carries the
+// alpha / beta tail; its last block resets them to 0.
 struct CGState {
   double rz, rr, stop2, alpha, beta;
   int k, done;
+  unsigned ticket[2];
 };
 
 enum Phase {
@@ -90,10 +128,10 @@ enum Phase {
   kPhPUpdate, kPhFinish, kPhChebInit, kPhChebStep, kPhMergedW,
   kPhFinalizeMerged, kPhPqUpdate, kPhResidual, kPhPcrRow, kPhCoarseRes,
   kPhProlong, kPhMgCheb, kPhMgResidual, kPhMgRestrict, kPhMgProlong,
-  kNumPhases
+  kPhUpdatePcrR, kNumPhases
 };
 
-enum FinalizeMode { kFinInit = 0, kFinAlpha = 1, kFinBeta = 2 };
+enum FinalizeMode { kFinInit = 0, kFinBeta = 1 };
 
 // Sum of v over the block; the result is valid in every thread.
 __device__ double block_sum(double v) {
@@ -112,6 +150,80 @@ __device__ double block_sum(double v) {
   }
   __syncthreads();
   return total;
+}
+
+// Reduce n partials in a fixed order (deterministic); valid in all threads.
+// The partials bypass L1: the last block of a launch reads what the other
+// blocks wrote.
+__device__ double reduce_parts(const double* part, int n) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  double s = 0.0;
+  for (int t = tid; t < n; t += nthreads) s += __ldcg(part + t);
+  return block_sum(s);
+}
+
+// The last-block pattern: thread 0 of every block has written the block's
+// partials; each block takes a ticket after a fence, and the block that
+// draws the last one (true in all its threads) sees every partial. No
+// atomics touch the sums, so they keep a fixed order.
+__device__ bool last_block(unsigned* ticket) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+  }
+  __syncthreads();
+  return last;
+}
+
+// The CG scalars: the guards and stop rule of the TPU kernel. pAp == 0 ->
+// 1, rz == 0 -> 1; rr is <r, r> when preconditioned and rz otherwise; the
+// loop runs while k < maxiter && rr > stop2 (a NaN rr stops it). With
+// `fixed` the stop test is off and the loop runs maxiter iterations.
+__device__ void alpha_rule(CGState* st, double pap) {
+  st->alpha = st->rz / (pap != 0.0 ? pap : 1.0);
+}
+
+__device__ void beta_rule(CGState* st, double rr, double rz,
+                          bool preconditioned, int maxiter, int fixed) {
+  st->beta = rz / (st->rz != 0.0 ? st->rz : 1.0);
+  st->rz = rz;
+  st->rr = preconditioned ? rr : rz;
+  st->k += 1;
+  st->done = !(st->k < maxiter && (fixed || st->rr > st->stop2));
+}
+
+// The beta step a kernel's last block takes after the kernel's partials
+// are written: <r, r> from part_rr (n_rr of them), <r, z> from part_rz
+// (n_rz; none: z is r, the identity form). Off when st is null.
+struct BetaTail {
+  CGState* st;
+  const double* part_rr;
+  const double* part_rz;
+  int n_rr, n_rz, maxiter, fixed;
+};
+
+__device__ void beta_tail(const BetaTail& t) {
+  if (t.st == nullptr || !last_block(&t.st->ticket[1])) return;
+  const double rr = reduce_parts(t.part_rr, t.n_rr);
+  const double rz = t.n_rz > 0 ? reduce_parts(t.part_rz, t.n_rz) : rr;
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    beta_rule(t.st, rr, rz, t.n_rz > 0, t.maxiter, t.fixed);
+    t.st->ticket[1] = 0;
+  }
+}
+
+// The loop condition of the solve's graph, set by the kernel that ends the
+// start or a block of iterations: 1 while the solve runs. `runs` counts the
+// block's launches (null at the start).
+__device__ void set_loop(const CGState* st, int set_cond,
+                         cudaGraphConditionalHandle cond,
+                         unsigned long long* runs) {
+  if (!set_cond || blockIdx.x != 0 || threadIdx.x != 0) return;
+  if (runs != nullptr) *runs += 1;
+  cudaGraphSetConditional(cond, st->done ? 0u : 1u);
 }
 
 // (A (sm . v))[i, j] for the 7-point (or 9-point) stencil, neighbours
@@ -188,12 +300,13 @@ __global__ void k_init(const float* __restrict__ A, int npts,
   }
 }
 
-// Ap = sm A (sm p); partials of <p, Ap>.
+// Ap = sm A (sm p); partials of <p, Ap>. With `tail` the last block
+// reduces them and sets alpha = rz / pAp.
 __global__ void k_stencil_dot(const float* __restrict__ A, int npts,
                               const float* __restrict__ sm,
                               const float* __restrict__ p,
                               float* __restrict__ Ap, double* part,
-                              const CGState* st, int nz, int nr) {
+                              CGState* st, int tail, int nz, int nr) {
   if (st != nullptr && st->done) return;
   const size_t n = (size_t)nz * nr;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -206,13 +319,20 @@ __global__ void k_stencil_dot(const float* __restrict__ A, int npts,
   }
   acc = block_sum(acc);
   if (threadIdx.x == 0) part[blockIdx.x] = acc;
+  if (!tail || st == nullptr || !last_block(&st->ticket[0])) return;
+  const double pap = reduce_parts(part, gridDim.x);
+  if (threadIdx.x == 0) {
+    alpha_rule(st, pap);
+    st->ticket[0] = 0;
+  }
 }
 
-// x += alpha p, r -= alpha Ap; partials of <r, r>.
+// x += alpha p, r -= alpha Ap; partials of <r, r>, and the beta tail when
+// one is given (the identity form, where z is r).
 __global__ void k_update(float* __restrict__ x, float* __restrict__ r,
                          const float* __restrict__ p,
                          const float* __restrict__ Ap, double* part_rr,
-                         const CGState* st, int n) {
+                         const CGState* st, BetaTail tail, int n) {
   if (st->done) return;
   const float alpha = (float)st->alpha;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -225,107 +345,299 @@ __global__ void k_update(float* __restrict__ x, float* __restrict__ r,
   }
   acc = block_sum(acc);
   if (threadIdx.x == 0) part_rr[blockIdx.x] = acc;
+  beta_tail(tail);
 }
 
-// r-line PCR apply, one block per z-row. The row sits in shared memory,
-// double buffered; level k (stride s = 2^k) is
-//   d[j] <- d[j] - F[2k][j] d[j-s] - F[2k+1][j] d[j+s]   (zeros outside),
-// then z = F[2L] d * free with free = (sm != 0). Optionally writes the
-// row's partial of <r, z>.
-__global__ void k_pcr_r(const float* __restrict__ r,
-                        const float* __restrict__ sm,
-                        const float* __restrict__ F, int levels,
-                        float* __restrict__ z, double* part_rz,
-                        int write_partial, const CGState* st, int nz,
-                        int nr) {
-  if (st != nullptr && st->done) return;
-  extern __shared__ float line[];
-  float* d0 = line;
-  float* d1 = line + nr;
-  const size_t n = (size_t)nz * nr;
-  const size_t row = (size_t)blockIdx.x * nr;
-  for (int j = threadIdx.x; j < nr; j += blockDim.x) d0[j] = r[row + j];
-  __syncthreads();
+// ---- line PCR with the factor stack in flight ----------------------------
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most `pending` of this thread's copy groups are in flight
+// (waiting for fewer than asked is also correct: at most 15 are left).
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 7: cp_async_wait<7>(); break;
+    case 8: cp_async_wait<8>(); break;
+    case 9: cp_async_wait<9>(); break;
+    case 10: cp_async_wait<10>(); break;
+    case 11: cp_async_wait<11>(); break;
+    case 12: cp_async_wait<12>(); break;
+    case 13: cp_async_wait<13>(); break;
+    case 14: cp_async_wait<14>(); break;
+    default: cp_async_wait<15>(); break;
+  }
+}
+
+// The lines a block solves: `len` positions of `w` adjacent lines, of which
+// the first `valid` exist; position i of line c lies at base + i * stride
+// + c in a plane. In shared memory they are position-major: e = i * w + c.
+// Thread (x, y) takes line x and positions y, y + blockDim.y, ...
+struct Lines {
+  size_t base, stride;
+  int len, w, valid;
+};
+
+// Request the block's share of the folded factor stack F (2L+1 planes of n
+// values) into fs with 4-byte asynchronous copies, in level order, one
+// commit group per level (planes 2k and 2k+1) and one for the diagonal,
+// after the group of the block's vectors.
+__device__ void stage_stack(float* fs, const float* __restrict__ F, size_t n,
+                            int levels, const Lines& ln) {
+  const int c = threadIdx.x;
+  const size_t plane = (size_t)ln.len * ln.w;
+  for (int q = 0; q <= 2 * levels; ++q) {
+    if (c < ln.valid)
+      for (int i = threadIdx.y; i < ln.len; i += blockDim.y)
+        cp_async4(fs + q * plane + (size_t)i * ln.w + c,
+                  F + q * n + ln.base + (size_t)i * ln.stride + c);
+    if (q % 2 == 1 || q == 2 * levels) cp_async_commit();
+  }
+}
+
+// The folded PCR levels of stack F on the block's lines, d0 holding them on
+// entry; returns the buffer that holds the result. Level k (s = 2^k):
+//   d[i] <- d[i] - F[2k][i] d[i-s] - F[2k+1][i] d[i+s]   (zeros outside).
+// Staged (kStaged), the block's vectors are copy group 0 and level k's
+// factors group k + 1: level k waits for its own group only and the later
+// levels' factors keep arriving; else the factors are read from device
+// memory.
+template <bool kStaged>
+__device__ float* pcr_levels(float* d0, float* d1, const float* fs,
+                             const float* __restrict__ F, size_t n,
+                             int levels, const Lines& ln) {
+  const int c = threadIdx.x;
+  const size_t plane = (size_t)ln.len * ln.w;
   int s = 1;
   for (int k = 0; k < levels; ++k) {
-    const float* lo = F + (size_t)(2 * k) * n + row;
-    const float* up = F + (size_t)(2 * k + 1) * n + row;
-    for (int j = threadIdx.x; j < nr; j += blockDim.x) {
-      float v = d0[j];
-      if (j - s >= 0) v = v - lo[j] * d0[j - s];
-      if (j + s < nr) v = v - up[j] * d0[j + s];
-      d1[j] = v;
+    if (kStaged) cp_async_wait_pending(levels - k);
+    __syncthreads();  // level k's factors and the previous level's d landed
+    const float* lo = kStaged ? fs + (2 * k) * plane : F + (2 * k) * n;
+    const float* up = kStaged ? fs + (2 * k + 1) * plane : F + (2 * k + 1) * n;
+    if (c < ln.valid) {
+      for (int i = threadIdx.y; i < ln.len; i += blockDim.y) {
+        const int e = i * ln.w + c;
+        const size_t q = kStaged ? e : ln.base + (size_t)i * ln.stride + c;
+        float v = d0[e];
+        if (i - s >= 0) v = v - lo[q] * d0[e - s * ln.w];
+        if (i + s < ln.len) v = v - up[q] * d0[e + s * ln.w];
+        d1[e] = v;
+      }
     }
-    __syncthreads();
     float* t = d0; d0 = d1; d1 = t;
     s <<= 1;
   }
-  const float* g = F + (size_t)(2 * levels) * n + row;
-  double acc = 0.0;
-  for (int j = threadIdx.x; j < nr; j += blockDim.x) {
+  if (kStaged) cp_async_wait<0>();
+  __syncthreads();
+  return d0;
+}
+
+// The r-line row kernel, one block per z-row. Its shared memory is the row
+// double buffered and, when staged, the row's whole factor stack (2L+1 rows
+// of nr values, ~102 KB on the flagship). At its start the block requests
+// its row of r (and Ap) into the two row buffers, then the stack level by
+// level, all with asynchronous copies, so the update starts on the vectors
+// while the factors stream in. With kUpdate it takes the CG update of its
+// row,
+//   r -= alpha Ap, x += alpha p    (and the row's partial of <r, r>),
+// then z = F[2L] d * free with free = (sm != 0), and optionally the row's
+// partial of <r, z> and the beta tail: the whole iteration after A p, local
+// to one grid row.
+template <bool kUpdate>
+__global__ void __launch_bounds__(kRowThreads, 2)
+    k_pcr_r(float* r, float* x, const float* __restrict__ p,
+            const float* __restrict__ Ap, const float* __restrict__ sm,
+            const float* __restrict__ F, int levels, int staged,
+            float* __restrict__ z, double* part_rr, double* part_rz,
+            const CGState* st, BetaTail tail, int nz, int nr) {
+  if (st != nullptr && st->done) return;
+  extern __shared__ float smem[];
+  float* d0 = smem;
+  float* d1 = smem + nr;
+  float* fs = smem + 2 * nr;
+  const size_t n = (size_t)nz * nr;
+  const size_t row = (size_t)blockIdx.x * nr;
+  const Lines ln{row, 1, nr, 1, 1};
+  for (int j = threadIdx.y; j < nr; j += blockDim.y) {
+    cp_async4(d0 + j, r + row + j);
+    if (kUpdate) cp_async4(d1 + j, Ap + row + j);
+  }
+  cp_async_commit();
+  if (staged) stage_stack(fs, F, n, levels, ln);
+  // this thread's own row copies (group 0) landed; it reads only those
+  cp_async_wait_pending(staged ? levels + 1 : 0);
+  const float alpha = kUpdate ? (float)st->alpha : 0.0f;
+  double rr = 0.0;
+  if (kUpdate) {
+    for (int j = threadIdx.y; j < nr; j += blockDim.y) {
+      const float rv = d0[j] - alpha * d1[j];
+      d0[j] = rv;
+      r[row + j] = rv;
+      rr += (double)(rv * rv);
+    }
+  }
+  d0 = staged ? pcr_levels<true>(d0, d1, fs, F, n, levels, ln)
+              : pcr_levels<false>(d0, d1, fs, F, n, levels, ln);
+  const size_t gq = (size_t)(2 * levels);
+  const float* g = staged ? fs + gq * nr : F + gq * n + row;
+  double rz = 0.0;
+  for (int j = threadIdx.y; j < nr; j += blockDim.y) {
+    if (kUpdate) x[row + j] = x[row + j] + alpha * p[row + j];
     const float fm = sm[row + j] != 0.0f ? 1.0f : 0.0f;
     const float zv = g[j] * d0[j] * fm;
     z[row + j] = zv;
-    acc += (double)(r[row + j] * zv);
+    rz += (double)(r[row + j] * zv);
   }
-  if (write_partial) {
-    acc = block_sum(acc);
-    if (threadIdx.x == 0) part_rz[blockIdx.x] = acc;
+  const bool tid0 = threadIdx.x == 0 && threadIdx.y == 0;
+  if (part_rr != nullptr) {
+    rr = block_sum(rr);
+    if (tid0) part_rr[blockIdx.x] = rr;
   }
+  if (part_rz != nullptr) {
+    rz = block_sum(rz);
+    if (tid0) part_rz[blockIdx.x] = rz;
+  }
+  beta_tail(tail);
 }
 
-// z-line PCR apply and the ADI combine, one block per tile of kTileCols
-// adjacent columns x all Nz rows (rows loaded coalesced along r). On entry
-// z holds the r-line result R r * free; on exit
+// z-line PCR apply and the ADI combine for columns of at most kZRows x
+// kZPer values, one block per tile of kZCols adjacent columns. A z-line's
+// 17-plane stack (for 251 rows) does not fit a tile's shared memory, so the
+// factors go to registers: each thread holds its kZPer rows' factors of a
+// level and requests the next level's before it computes this one, so a
+// level's loads are in flight while the level before it runs. On entry z
+// holds the r-line result R r * free; on exit
 //   z = (R r + Z r - r) * free
-// and the tile's partial of <r, z> is written.
-__global__ void k_pcr_z(const float* __restrict__ r,
-                        const float* __restrict__ sm,
-                        const float* __restrict__ F, int levels,
-                        float* __restrict__ z, double* part_rz,
-                        const CGState* st, int nz, int nr) {
+// and the tile's partial of <r, z> is written; then the beta tail.
+__global__ void __launch_bounds__(kZCols * kZRows)
+    k_pcr_z(const float* __restrict__ r, const float* __restrict__ sm,
+            const float* __restrict__ F, int levels,
+            float* __restrict__ z, double* part_rz, const CGState* st,
+            BetaTail tail, int nz, int nr) {
   if (st != nullptr && st->done) return;
-  extern __shared__ float tile[];
-  float* d0 = tile;
-  float* d1 = tile + (size_t)nz * kTileCols;
+  extern __shared__ float smem[];
+  const int w = kZCols;
+  float* d0 = smem;
+  float* d1 = smem + nz * w;
   const size_t n = (size_t)nz * nr;
-  const int tx = threadIdx.x;
-  const int c = blockIdx.x * kTileCols + tx;
-  const bool valid = c < nr;
-  for (int i = threadIdx.y; i < nz; i += blockDim.y)
-    d0[i * kTileCols + tx] = valid ? r[(size_t)i * nr + c] : 0.0f;
-  __syncthreads();
+  const int c = threadIdx.x;
+  const size_t col = (size_t)blockIdx.x * w + c;
+  const bool valid = col < (size_t)nr;
+  float lo[kZPer], up[kZPer];
+#pragma unroll
+  for (int m = 0; m < kZPer; ++m) {
+    const int i = threadIdx.y + m * kZRows;
+    const bool ok = valid && i < nz;
+    if (i < nz) d0[i * w + c] = ok ? r[(size_t)i * nr + col] : 0.0f;
+    lo[m] = ok ? F[(size_t)i * nr + col] : 0.0f;
+    up[m] = ok && levels > 0 ? F[n + (size_t)i * nr + col] : 0.0f;
+  }
   int s = 1;
   for (int k = 0; k < levels; ++k) {
-    const float* lo = F + (size_t)(2 * k) * n;
-    const float* up = F + (size_t)(2 * k + 1) * n;
-    for (int i = threadIdx.y; i < nz; i += blockDim.y) {
-      if (valid) {
-        const size_t q = (size_t)i * nr + c;
-        float v = d0[i * kTileCols + tx];
-        if (i - s >= 0) v = v - lo[q] * d0[(i - s) * kTileCols + tx];
-        if (i + s < nz) v = v - up[q] * d0[(i + s) * kTileCols + tx];
-        d1[i * kTileCols + tx] = v;
+    // the next level's factors (after the last level: the diagonal)
+    float nlo[kZPer], nup[kZPer];
+#pragma unroll
+    for (int m = 0; m < kZPer; ++m) {
+      const int i = threadIdx.y + m * kZRows;
+      const bool ok = valid && i < nz;
+      const size_t q = (size_t)i * nr + col;
+      nlo[m] = ok ? F[(size_t)(2 * k + 2) * n + q] : 0.0f;
+      nup[m] = ok && k + 1 < levels ? F[(size_t)(2 * k + 3) * n + q] : 0.0f;
+    }
+    __syncthreads();  // the previous level's d landed
+#pragma unroll
+    for (int m = 0; m < kZPer; ++m) {
+      const int i = threadIdx.y + m * kZRows;
+      if (valid && i < nz) {
+        const int e = i * w + c;
+        float v = d0[e];
+        if (i - s >= 0) v = v - lo[m] * d0[e - s * w];
+        if (i + s < nz) v = v - up[m] * d0[e + s * w];
+        d1[e] = v;
       }
     }
-    __syncthreads();
     float* t = d0; d0 = d1; d1 = t;
     s <<= 1;
+#pragma unroll
+    for (int m = 0; m < kZPer; ++m) {
+      lo[m] = nlo[m];
+      up[m] = nup[m];
+    }
   }
-  const float* g = F + (size_t)(2 * levels) * n;
+  __syncthreads();
   double acc = 0.0;
-  for (int i = threadIdx.y; i < nz; i += blockDim.y) {
-    if (valid) {
-      const size_t q = (size_t)i * nr + c;
+#pragma unroll
+  for (int m = 0; m < kZPer; ++m) {
+    const int i = threadIdx.y + m * kZRows;
+    if (valid && i < nz) {
+      const size_t q = (size_t)i * nr + col;
       const float fm = sm[q] != 0.0f ? 1.0f : 0.0f;
       const float rv = r[q];
-      const float zv = (z[q] + g[q] * d0[i * kTileCols + tx] - rv) * fm;
+      const float zv = (z[q] + lo[m] * d0[i * w + c] - rv) * fm;
       z[q] = zv;
       acc += (double)(rv * zv);
     }
   }
   acc = block_sum(acc);
-  if (tx == 0 && threadIdx.y == 0) part_rz[blockIdx.x] = acc;
+  if (threadIdx.x == 0 && threadIdx.y == 0) part_rz[blockIdx.x] = acc;
+  beta_tail(tail);
+}
+
+// The same for taller columns: a tile of w columns x all Nz rows, the
+// levels' factors read from device memory (pcr_levels).
+__global__ void k_pcr_z_tall(const float* __restrict__ r,
+                             const float* __restrict__ sm,
+                             const float* __restrict__ F, int levels, int w,
+                             float* __restrict__ z, double* part_rz,
+                             const CGState* st, BetaTail tail, int nz,
+                             int nr) {
+  if (st != nullptr && st->done) return;
+  extern __shared__ float smem[];
+  float* d0 = smem;
+  float* d1 = smem + (size_t)nz * w;
+  const size_t n = (size_t)nz * nr;
+  const int c0 = blockIdx.x * w;
+  const Lines ln{(size_t)c0, (size_t)nr, nz, w, min(w, nr - c0)};
+  const int c = threadIdx.x;
+  const bool valid = c < ln.valid;
+  for (int i = threadIdx.y; i < nz; i += blockDim.y)
+    d0[i * w + c] = valid ? r[(size_t)i * nr + c0 + c] : 0.0f;
+  d0 = pcr_levels<false>(d0, d1, nullptr, F, n, levels, ln);
+  const size_t gq = (size_t)(2 * levels);
+  double acc = 0.0;
+  if (valid) {
+    for (int i = threadIdx.y; i < nz; i += blockDim.y) {
+      const size_t q = (size_t)i * nr + c0 + c;
+      const float fm = sm[q] != 0.0f ? 1.0f : 0.0f;
+      const float rv = r[q];
+      const float zv = (z[q] + F[gq * n + q] * d0[i * w + c] - rv) * fm;
+      z[q] = zv;
+      acc += (double)(rv * zv);
+    }
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0 && threadIdx.y == 0) part_rz[blockIdx.x] = acc;
+  beta_tail(tail);
 }
 
 // out = r - sm A (sm v): the fine residual of the mgz cycle.
@@ -454,7 +766,10 @@ __global__ void k_merged_w(const float* __restrict__ A, int npts,
 __global__ void k_pq_update(float* __restrict__ p, float* __restrict__ q,
                             const float* __restrict__ u,
                             const float* __restrict__ w, const CGState* st,
-                            int first, int n) {
+                            int first, int n, int set_cond,
+                            cudaGraphConditionalHandle cond,
+                            unsigned long long* runs) {
+  set_loop(st, set_cond, cond, runs);
   if (st->done && !first) return;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
@@ -705,29 +1020,18 @@ __global__ void k_mg_prolong(float* __restrict__ x,
   x[idx] = x[idx] + add;
 }
 
-// Reduce n partials in a fixed order (deterministic); valid in all threads.
-__device__ double reduce_parts(const double* part, int n) {
-  double s = 0.0;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) s += part[t];
-  return block_sum(s);
-}
-
-// The CG scalars, in one block. Guards and stop rule of the TPU kernel:
-// pAp == 0 -> 1, rz == 0 -> 1; rr is <r, r> when preconditioned and rz
-// otherwise; the loop runs while k < maxiter && rr > stop2 (a NaN rr stops
-// it). n_rz == 0 means z is r (identity form), so <r, z> = <r, r>. With
-// `fixed` the stop test is off and the loop runs maxiter iterations.
-__global__ void k_finalize(CGState* st, const double* part_pap,
-                           const double* part_rr, const double* part_rz,
+// The start's scalars and stop target (kFinInit), or beta by beta_rule
+// (kFinBeta), in one block. n_rz == 0 means z is r (identity form), so
+// <r, z> = <r, r>. The standard loop takes alpha and beta in the tails of
+// k_stencil_dot and of the kernel that writes the last partials; this
+// kernel serves the start and the preconditioners whose last kernel has no
+// tail (Chebyshev, mgz, multigrid).
+__global__ void k_finalize(CGState* st, const double* part_rr,
+                           const double* part_rz,
                            const double* part_bb, int n_elem, int n_rz,
                            int mode, const float* rtol, int maxiter,
                            int wrt_r0, int fixed) {
   if (mode != kFinInit && st->done) return;
-  if (mode == kFinAlpha) {
-    const double pap = reduce_parts(part_pap, n_elem);
-    if (threadIdx.x == 0) st->alpha = st->rz / (pap != 0.0 ? pap : 1.0);
-    return;
-  }
   const double rr = reduce_parts(part_rr, n_elem);
   const double rz = n_rz > 0 ? reduce_parts(part_rz, n_rz) : rr;
   if (mode == kFinInit) {
@@ -744,13 +1048,7 @@ __global__ void k_finalize(CGState* st, const double* part_pap,
     }
     return;
   }
-  if (threadIdx.x == 0) {
-    st->beta = rz / (st->rz != 0.0 ? st->rz : 1.0);
-    st->rz = rz;
-    st->rr = n_rz > 0 ? rr : rz;
-    st->k += 1;
-    st->done = !(st->k < maxiter && (fixed || st->rr > st->stop2));
-  }
+  if (threadIdx.x == 0) beta_rule(st, rr, rz, n_rz > 0, maxiter, fixed);
 }
 
 // The scalars of the merged-dot recurrence, in one block: gamma = <r, u>
@@ -798,7 +1096,10 @@ __global__ void k_finalize_merged(CGState* st, const double* part_delta,
 
 // p = z + beta p (p = z on the first call).
 __global__ void k_p_update(float* __restrict__ p, const float* __restrict__ z,
-                           const CGState* st, int first, int n) {
+                           const CGState* st, int first, int n, int set_cond,
+                           cudaGraphConditionalHandle cond,
+                           unsigned long long* runs) {
+  set_loop(st, set_cond, cond, runs);
   if (st->done && !first) return;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
@@ -810,12 +1111,13 @@ __global__ void k_p_update(float* __restrict__ p, const float* __restrict__ z,
   }
 }
 
-// x = NaN everywhere when the residual is not finite; iters = k.
+// iters = k; with `poison`, x = NaN everywhere when the residual is not
+// finite.
 __global__ void k_finish(float* __restrict__ x, int* iters,
-                         const CGState* st, int n) {
+                         const CGState* st, int poison, int n) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx == 0) iters[0] = st->k;
-  if (idx < n && !isfinite(st->rr)) x[idx] = nanf("");
+  if (poison && idx < n && !isfinite(st->rr)) x[idx] = nanf("");
 }
 
 // The multigrid V-cycle's levels, finest first, built by the Python wrapper
@@ -862,7 +1164,7 @@ struct Solve {
 
   int n() const { return nz * nr; }
   int elem_blocks() const { return (n() + kThreads - 1) / kThreads; }
-  int col_tiles() const { return (nr + kTileCols - 1) / kTileCols; }
+  int col_tiles() const;
   double* part(int which) const { return parts + (size_t)which * nparts; }
   bool rline() const { return pcr != nullptr; }
   bool adi() const { return pcrz != nullptr; }
@@ -887,41 +1189,108 @@ struct Solve {
   }
 };
 
-size_t pcr_r_smem(int nr) { return 2 * (size_t)nr * sizeof(float); }
-size_t pcr_z_smem(int nz) {
-  return 2 * (size_t)nz * kTileCols * sizeof(float);
+// Shared memory of the r-line row kernel: the row double buffered, then
+// the staged stack (110.7 KB on the flagship: two blocks an SM, so its 251
+// rows are one wave on 132 SMs).
+size_t pcr_r_smem(int nr, int levels, bool staged) {
+  return (size_t)(staged ? 2 * levels + 3 : 2) * nr * sizeof(float);
 }
 
-cudaError_t set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+// The row kernel stages its row's factor stack when it fits a block's
+// shared memory; else it reads the factors from device memory.
+bool r_staged(int nr, int levels) {
+  return pcr_r_smem(nr, levels, true) <= kMaxDynSmem;
 }
 
-cudaError_t launch_pcr_r(const float* r, const float* sm, const float* F,
-                         int levels, float* z, double* part_rz,
-                         int write_partial, const CGState* st, int nz, int nr,
-                         long long* counts, cudaStream_t stream) {
-  const size_t smem = pcr_r_smem(nr);
-  cudaError_t e = set_smem((const void*)k_pcr_r, smem);
+// Columns of a block of the z-line kernel: kZCols (k_pcr_z), or for
+// columns taller than kZRows x kZPer as many as let k_pcr_z_tall's double
+// buffer fit, at most kTileCols.
+bool z_short(int nz) { return nz <= kZRows * kZPer; }
+
+int z_cols(int nz) {
+  if (z_short(nz)) return kZCols;
+  const int w = (int)(kMaxDynSmem / (2 * (size_t)nz * sizeof(float)));
+  return w < 1 ? 1 : (w < kTileCols ? w : kTileCols);
+}
+
+int Solve::col_tiles() const { return (nr + z_cols(nz) - 1) / z_cols(nz); }
+
+// Once a process and device: the line kernels may take up to kMaxDynSmem
+// of dynamic shared memory, the staged ones with the SM's carveout at its
+// largest shared share (the attributes are not set again in the launch
+// path).
+cudaError_t configure() {
+  static unsigned done = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  k_pcr_r<<<nz, kThreads, smem, stream>>>(r, sm, F, levels, z, part_rz,
-                                          write_partial, st, nz, nr);
-  counts[kPhPcrR] += 1;
+  if (dev < 32 && (done >> dev) & 1u) return cudaSuccess;
+  const void* fns[] = {(const void*)k_pcr_r<true>,
+                       (const void*)k_pcr_r<false>,
+                       (const void*)k_pcr_z_tall, (const void*)k_pcr_row};
+  for (const void* fn : fns) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kMaxDynSmem);
+    if (e != cudaSuccess) return e;
+    if (fn == (const void*)k_pcr_row) continue;
+    e = cudaFuncSetAttribute(fn,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+  }
+  if (dev < 32) done |= 1u << dev;
+  return cudaSuccess;
+}
+
+const BetaTail kNoTail{nullptr, nullptr, nullptr, 0, 0, 0, 0};
+
+// The r-line row kernel: with `update` (x and r updated by alpha from st,
+// p and Ap given) the fused iteration phase, else PCR of r alone.
+cudaError_t launch_pcr_r(bool update, float* r, float* x, const float* p,
+                         const float* Ap, const float* sm, const float* F,
+                         int levels, float* z, double* part_rr,
+                         double* part_rz, const CGState* st,
+                         const BetaTail& tail, int nz, int nr,
+                         long long* counts, cudaStream_t stream) {
+  cudaError_t e = configure();
+  if (e != cudaSuccess) return e;
+  const bool staged = r_staged(nr, levels);
+  const size_t smem = pcr_r_smem(nr, levels, staged);
+  const dim3 block(1, kRowThreads);
+  if (update) {
+    k_pcr_r<true><<<nz, block, smem, stream>>>(r, x, p, Ap, sm, F, levels,
+                                               staged, z, part_rr, part_rz,
+                                               st, tail, nz, nr);
+    counts[kPhUpdatePcrR] += 1;
+  } else {
+    k_pcr_r<false><<<nz, block, smem, stream>>>(r, x, p, Ap, sm, F, levels,
+                                                staged, z, part_rr, part_rz,
+                                                st, tail, nz, nr);
+    counts[kPhPcrR] += 1;
+  }
   return cudaGetLastError();
 }
 
 cudaError_t launch_pcr_z(const float* r, const float* sm, const float* F,
                          int levels, float* z, double* part_rz,
-                         const CGState* st, int nz, int nr,
-                         long long* counts, cudaStream_t stream) {
-  const size_t smem = pcr_z_smem(nz);
-  cudaError_t e = set_smem((const void*)k_pcr_z, smem);
+                         const CGState* st, const BetaTail& tail, int nz,
+                         int nr, long long* counts, cudaStream_t stream) {
+  cudaError_t e = configure();
   if (e != cudaSuccess) return e;
-  const dim3 block(kTileCols, kTileRows);
-  const int tiles = (nr + kTileCols - 1) / kTileCols;
-  k_pcr_z<<<tiles, block, smem, stream>>>(r, sm, F, levels, z, part_rz, st,
-                                          nz, nr);
+  const int w = z_cols(nz);
+  const size_t smem = 2 * (size_t)nz * w * sizeof(float);
+  if (z_short(nz)) {
+    k_pcr_z<<<(nr + w - 1) / w, dim3(kZCols, kZRows), smem, stream>>>(
+        r, sm, F, levels, z, part_rz, st, tail, nz, nr);
+  } else {
+    // thread rows: as many as kZTallThreads allows in whole warps (w * rows
+    // a multiple of 32: rows a multiple of 32 / gcd(w, 32))
+    const int low = w & -w;
+    const int step = 32 / (low < 32 ? low : 32);
+    const dim3 block(w, (kZTallThreads / w) / step * step);
+    k_pcr_z_tall<<<(nr + w - 1) / w, block, smem, stream>>>(
+        r, sm, F, levels, w, z, part_rz, st, tail, nz, nr);
+  }
   counts[kPhPcrZ] += 1;
   return cudaGetLastError();
 }
@@ -932,12 +1301,12 @@ cudaError_t launch_pcr_row(const float* src, const float* aux, float* store,
                            const float* dot, double* part, const CGState* st,
                            int nz, int nr, long long* counts,
                            cudaStream_t stream) {
-  const size_t smem = pcr_r_smem(nr);
-  cudaError_t e = set_smem((const void*)k_pcr_row, smem);
+  cudaError_t e = configure();
   if (e != cudaSuccess) return e;
-  k_pcr_row<<<nz, kThreads, smem, stream>>>(src, aux, store, F, levels, scale,
-                                            acc, sm, out, dot, part, st, nz,
-                                            nr);
+  const size_t smem = 2 * (size_t)nr * sizeof(float);
+  if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
+  k_pcr_row<<<nz, kThreads, smem, stream>>>(
+      src, aux, store, F, levels, scale, acc, sm, out, dot, part, st, nz, nr);
   counts[kPhPcrRow] += 1;
   return cudaGetLastError();
 }
@@ -1150,32 +1519,41 @@ cudaError_t precondition(const Solve& s) {
   if (s.mgz()) return precondition_mgz(s, s.r, s.z, s.st);
   if (s.cheb > 0) return precondition_cheb(s, s.r, s.st);
   if (!s.rline()) return cudaSuccess;   // identity: z aliases r
-  cudaError_t e = launch_pcr_r(s.r, s.sm, s.pcr, s.lr, s.z, s.part(2),
-                               s.adi() ? 0 : 1, s.st, s.nz, s.nr, s.counts,
-                               s.stream);
+  cudaError_t e = launch_pcr_r(false, s.r, nullptr, nullptr, nullptr, s.sm,
+                               s.pcr, s.lr, s.z, nullptr,
+                               s.adi() ? nullptr : s.part(2), s.st, kNoTail,
+                               s.nz, s.nr, s.counts, s.stream);
   if (e != cudaSuccess || !s.adi()) return e;
-  return launch_pcr_z(s.r, s.sm, s.pcrz, s.lz, s.z, s.part(2), s.st, s.nz,
-                      s.nr, s.counts, s.stream);
+  return launch_pcr_z(s.r, s.sm, s.pcrz, s.lz, s.z, s.part(2), s.st, kNoTail,
+                      s.nz, s.nr, s.counts, s.stream);
 }
 
 cudaError_t finalize(const Solve& s, int mode) {
   k_finalize<<<1, kThreads, 0, s.stream>>>(
-      s.st, s.part(0), s.part(1), s.part(2), s.part(3), s.elem_blocks(),
+      s.st, s.part(1), s.part(2), s.part(3), s.elem_blocks(),
       s.n_rz(), mode, s.rtol, s.maxiter, s.wrt_r0, s.fixed);
   s.counts[kPhFinalize] += 1;
   return cudaGetLastError();
 }
 
-cudaError_t p_update(const Solve& s, int first) {
-  k_p_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(s.p, s.zout(), s.st,
-                                                         first, s.n());
+// The graph's loop condition: the handle, and the block-run counter (null
+// for the start). A null LoopCond* leaves the condition alone.
+struct LoopCond {
+  cudaGraphConditionalHandle handle;
+  unsigned long long* runs;
+};
+
+cudaError_t p_update(const Solve& s, int first, const LoopCond* lc) {
+  k_p_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
+      s.p, s.zout(), s.st, first, s.n(), lc != nullptr,
+      lc ? lc->handle : 0, lc ? lc->runs : nullptr);
   s.counts[kPhPUpdate] += 1;
   return cudaGetLastError();
 }
 
 // The merged-dot tail of a step: w = A u with gamma, delta and <r, r>, the
 // scalars, then p and q.
-cudaError_t merged_tail(const Solve& s, int first) {
+cudaError_t merged_tail(const Solve& s, int first, const LoopCond* lc) {
   k_merged_w<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
       s.A, s.npts, s.sm, s.zout(), s.r, s.w(), s.part(0), s.part(1),
       s.part(2), s.st, s.nz, s.nr);
@@ -1188,12 +1566,13 @@ cudaError_t merged_tail(const Solve& s, int first) {
   s.counts[kPhFinalizeMerged] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   k_pq_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
-      s.p, s.q(), s.zout(), s.w(), s.st, first, s.n());
+      s.p, s.q(), s.zout(), s.w(), s.st, first, s.n(), lc != nullptr,
+      lc ? lc->handle : 0, lc ? lc->runs : nullptr);
   s.counts[kPhPqUpdate] += 1;
   return cudaGetLastError();
 }
 
-cudaError_t start(const Solve& s) {
+cudaError_t start(const Solve& s, const LoopCond* lc) {
   cudaError_t e = cudaMemsetAsync(s.st, 0, sizeof(CGState), s.stream);
   if (e != cudaSuccess) return e;
   k_init<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
@@ -1202,34 +1581,118 @@ cudaError_t start(const Solve& s) {
   s.counts[kPhInit] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if ((e = precondition(s)) != cudaSuccess) return e;
-  if (s.merged) return merged_tail(s, 1);
+  if (s.merged) return merged_tail(s, 1, lc);
   if ((e = finalize(s, kFinInit)) != cudaSuccess) return e;
-  return p_update(s, 1);
+  return p_update(s, 1, lc);
 }
 
-cudaError_t iterate(const Solve& s) {
+// One iteration. The standard recurrence takes alpha in k_stencil_dot's
+// tail and beta in the tail of the kernel that writes the last partials:
+// identity 3 launches (k_stencil_dot, k_update, k_p_update), r-line 3
+// (k_update folded into the row kernel), ADI 4 (+ k_pcr_z); the
+// Chebyshev, mgz and multigrid forms keep k_update, their cycle and a
+// k_finalize. The merged recurrence keeps its own five-phase sequence.
+cudaError_t iterate(const Solve& s, const LoopCond* lc) {
   cudaError_t e;
   if (s.merged) {
     // x += alpha p, r -= alpha q; u = M^-1 r; then the merged tail
     k_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
-        s.x, s.r, s.p, s.q(), s.part(1), s.st, s.n());
+        s.x, s.r, s.p, s.q(), s.part(1), s.st, kNoTail, s.n());
     s.counts[kPhUpdate] += 1;
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     if ((e = precondition(s)) != cudaSuccess) return e;
-    return merged_tail(s, 0);
+    return merged_tail(s, 0, lc);
   }
   k_stencil_dot<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
-      s.A, s.npts, s.sm, s.p, s.Ap, s.part(0), s.st, s.nz, s.nr);
+      s.A, s.npts, s.sm, s.p, s.Ap, s.part(0), s.st, 1, s.nz, s.nr);
   s.counts[kPhStencilDot] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if ((e = finalize(s, kFinAlpha)) != cudaSuccess) return e;
-  k_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
-      s.x, s.r, s.p, s.Ap, s.part(1), s.st, s.n());
-  s.counts[kPhUpdate] += 1;
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if ((e = precondition(s)) != cudaSuccess) return e;
-  if ((e = finalize(s, kFinBeta)) != cudaSuccess) return e;
-  return p_update(s, 0);
+  if (s.rline() && !s.mgz()) {
+    const BetaTail tail{s.st, s.part(1), s.part(2), s.nz,
+                        s.adi() ? s.col_tiles() : s.nz, s.maxiter, s.fixed};
+    e = launch_pcr_r(true, s.r, s.x, s.p, s.Ap, s.sm, s.pcr, s.lr, s.z,
+                     s.part(1), s.adi() ? nullptr : s.part(2), s.st,
+                     s.adi() ? kNoTail : tail, s.nz, s.nr, s.counts,
+                     s.stream);
+    if (e == cudaSuccess && s.adi())
+      e = launch_pcr_z(s.r, s.sm, s.pcrz, s.lz, s.z, s.part(2), s.st, tail,
+                       s.nz, s.nr, s.counts, s.stream);
+    if (e != cudaSuccess) return e;
+  } else {
+    const bool identity = !s.preconditioned();
+    const BetaTail tail{s.st, s.part(1), nullptr, s.elem_blocks(), 0,
+                        s.maxiter, s.fixed};
+    k_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
+        s.x, s.r, s.p, s.Ap, s.part(1), s.st, identity ? tail : kNoTail,
+        s.n());
+    s.counts[kPhUpdate] += 1;
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if (!identity) {
+      if ((e = precondition(s)) != cudaSuccess) return e;
+      if ((e = finalize(s, kFinBeta)) != cudaSuccess) return e;
+    }
+  }
+  return p_update(s, 0, lc);
+}
+
+cudaError_t finish(const Solve& s, int poison, int* iters) {
+  k_finish<<<s.elem_blocks(), kThreads, 0, s.stream>>>(s.x, iters, s.st,
+                                                       poison, s.n());
+  s.counts[kPhFinish] += 1;
+  return cudaGetLastError();
+}
+
+// Record a whole solve into the graph being captured on s.stream: the
+// start, a conditional WHILE node whose body (captured on `body_stream`,
+// its launches counted in counts_body) is `check_every` iterations, and the
+// finish. The start's and each body's last kernel set the loop condition
+// from the done flag, so the device runs blocks of iterations until the
+// solve stops and the host reads nothing before the end.
+cudaError_t record_solve(const Solve& s, cudaStream_t body_stream,
+                         int check_every, int poison, int* iters,
+                         unsigned long long* runs, long long* counts_body) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  cudaError_t e =
+      cudaStreamGetCaptureInfo(s.stream, &status, nullptr, &graph);
+  if (e != cudaSuccess) return e;
+  cudaGraphConditionalHandle handle;
+  e = cudaGraphConditionalHandleCreate(&handle, graph, 1,
+                                       cudaGraphCondAssignDefault);
+  if (e != cudaSuccess) return e;
+  const LoopCond at_start{handle, nullptr};
+  if ((e = start(s, &at_start)) != cudaSuccess) return e;
+  const cudaGraphNode_t* deps;
+  size_t ndeps;
+  e = cudaStreamGetCaptureInfo(s.stream, &status, nullptr, &graph, &deps,
+                               &ndeps);
+  if (e != cudaSuccess) return e;
+  cudaGraphNodeParams params = {};
+  params.type = cudaGraphNodeTypeConditional;
+  params.conditional.handle = handle;
+  params.conditional.type = cudaGraphCondTypeWhile;
+  params.conditional.size = 1;
+  cudaGraphNode_t node;
+  if ((e = cudaGraphAddNode(&node, graph, deps, ndeps, &params)) !=
+      cudaSuccess)
+    return e;
+  e = cudaStreamUpdateCaptureDependencies(s.stream, &node, 1,
+                                          cudaStreamSetCaptureDependencies);
+  if (e != cudaSuccess) return e;
+  cudaGraph_t body = params.conditional.phGraph_out[0];
+  e = cudaStreamBeginCaptureToGraph(body_stream, body, nullptr, nullptr, 0,
+                                    cudaStreamCaptureModeThreadLocal);
+  if (e != cudaSuccess) return e;
+  Solve b = s;
+  b.stream = body_stream;
+  b.counts = counts_body;
+  const LoopCond at_end{handle, runs};
+  for (int it = 0; it < check_every && e == cudaSuccess; ++it)
+    e = iterate(b, it == check_every - 1 ? &at_end : nullptr);
+  const cudaError_t ended = cudaStreamEndCapture(body_stream, &body);
+  if (e != cudaSuccess) return e;
+  if (ended != cudaSuccess) return ended;
+  return finish(s, poison, iters);
 }
 
 }  // namespace
@@ -1245,25 +1708,25 @@ cudaError_t iterate(const Solve& s) {
       const float *x0, const float *rtol, const float *pcr, int lr,          \
       const float *pcrz, int lz, float *x, float *r, float *z, float *p,     \
       float *Ap, double *parts, int nparts, void *state, int nz, int nr,     \
-      int maxiter, int wrt_r0, long long *counts, void *stream,              \
-      const float *lmax, int cheb, int merged, const float *ac9,             \
+      int maxiter, int wrt_r0, long long *counts, const float *lmax,         \
+      int cheb, int merged, const float *ac9,             \
       const float *pcrc, int lc, const float *aux, int sweeps, float omega,  \
       float omega_c, float *extra, const void *mg, int fixed
 
 #define HF_SOLVE_INIT                                                        \
   Solve s{A, sm, b, x0, rtol, pcr, pcrz, x, r, z, p, Ap, parts,              \
           (CGState *)state, npts, lr, lz, nz, nr, maxiter, wrt_r0, nparts,   \
-          counts, (cudaStream_t)stream, lmax, cheb, merged, ac9, pcrc, aux,  \
+          counts, nullptr, lmax, cheb, merged, ac9, pcrc, aux,               \
           lc, sweeps, omega, omega_c, extra, (const MGDesc *)mg, fixed}
 
 extern "C" {
 
-// Bytes of the partial-sum and state scratch the solve needs.
+// Entries of each partial-sum plane the solve needs: one an elementwise
+// block, a row or a z-line tile (at least one column a tile).
 int hf_cg_nparts(int nz, int nr) {
   const int elem = (nz * nr + kThreads - 1) / kThreads;
-  const int tiles = (nr + kTileCols - 1) / kTileCols;
   int m = elem > nz ? elem : nz;
-  return m > tiles ? m : tiles;
+  return m > nr ? m : nr;
 }
 
 int hf_cg_state_bytes() { return (int)sizeof(CGState); }
@@ -1276,37 +1739,62 @@ int hf_cg_extra_planes(int cheb, int merged, int mgz) {
   return (merged ? 2 : 0) + (cheb > 0 ? 2 : 0) + (mgz ? 4 : 0);
 }
 
-// x = x0, initial residual, preconditioned residual, scalars, p = z.
-int hf_cg_tol_start(HF_SOLVE_ARGS) {
+// Capture a whole solve (see record_solve) into an executable graph
+// (*exec_out): `counts` receives the launches of its start and finish,
+// counts_body those of one block of check_every iterations, whose runs
+// the device counts in *runs. The graph reads and writes the buffers
+// given here whenever it is launched.
+int hf_cg_tol_graph(HF_SOLVE_ARGS, int check_every, int poison, int *iters,
+                    void *runs, long long *counts_body, void **exec_out) {
   HF_SOLVE_INIT;
-  return (int)start(s);
-}
-
-// Enqueue n_iter CG iterations; each phase is a no-op once done is set.
-int hf_cg_tol_iterate(HF_SOLVE_ARGS, int n_iter) {
-  HF_SOLVE_INIT;
-  for (int it = 0; it < n_iter; ++it) {
-    cudaError_t e = iterate(s);
-    if (e != cudaSuccess) return (int)e;
+  *exec_out = nullptr;
+  if (check_every < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = configure();
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t cs, bs;
+  if ((e = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking)) !=
+      cudaSuccess)
+    return (int)e;
+  if ((e = cudaStreamCreateWithFlags(&bs, cudaStreamNonBlocking)) !=
+      cudaSuccess) {
+    cudaStreamDestroy(cs);
+    return (int)e;
   }
-  return 0;
+  s.stream = cs;
+  cudaGraph_t graph = nullptr;
+  e = cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
+  if (e == cudaSuccess) {
+    const cudaError_t rec =
+        record_solve(s, bs, check_every, poison, iters,
+                     (unsigned long long *)runs, counts_body);
+    const cudaError_t ended = cudaStreamEndCapture(cs, &graph);
+    e = rec != cudaSuccess ? rec : ended;
+  }
+  if (e == cudaSuccess)
+    e = cudaGraphInstantiate((cudaGraphExec_t *)exec_out, graph, 0);
+  if (graph != nullptr) cudaGraphDestroy(graph);
+  cudaStreamDestroy(bs);
+  cudaStreamDestroy(cs);
+  return (int)e;
 }
 
-int hf_cg_tol_finish(float *x, int *iters, void *state, int n,
-                     long long *counts, void *stream) {
-  k_finish<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-             (cudaStream_t)stream>>>(x, iters, (const CGState *)state, n);
-  counts[kPhFinish] += 1;
-  return (int)cudaGetLastError();
+int hf_graph_launch(void *exec, void *stream) {
+  return (int)cudaGraphLaunch((cudaGraphExec_t)exec, (cudaStream_t)stream);
+}
+
+int hf_graph_destroy(void *exec) {
+  return (int)cudaGraphExecDestroy((cudaGraphExec_t)exec);
 }
 
 // Single phases, for checking each kernel against its plain version.
+// Ap = sm A (sm p) with the <p, Ap> partials; with a state record, also
+// the alpha tail on it.
 int hf_stencil_dot(const float *A, int npts, const float *sm, const float *p,
-                   float *Ap, double *part, int nz, int nr, long long *counts,
-                   void *stream) {
+                   float *Ap, double *part, void *state, int nz, int nr,
+                   long long *counts, void *stream) {
   const int blocks = (nz * nr + kThreads - 1) / kThreads;
   k_stencil_dot<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      A, npts, sm, p, Ap, part, nullptr, nz, nr);
+      A, npts, sm, p, Ap, part, (CGState *)state, state != nullptr, nz, nr);
   counts[kPhStencilDot] += 1;
   return (int)cudaGetLastError();
 }
@@ -1314,15 +1802,42 @@ int hf_stencil_dot(const float *A, int npts, const float *sm, const float *p,
 int hf_pcr_r(const float *r, const float *sm, const float *F, int levels,
              float *z, double *part, int nz, int nr, long long *counts,
              void *stream) {
-  return (int)launch_pcr_r(r, sm, F, levels, z, part, 1, nullptr, nz, nr,
-                           counts, (cudaStream_t)stream);
+  return (int)launch_pcr_r(false, const_cast<float *>(r), nullptr, nullptr,
+                           nullptr, sm, F, levels, z, nullptr, part, nullptr,
+                           kNoTail, nz, nr, counts, (cudaStream_t)stream);
 }
 
 int hf_pcr_z(const float *r, const float *sm, const float *F, int levels,
              float *z, double *part, int nz, int nr, long long *counts,
              void *stream) {
-  return (int)launch_pcr_z(r, sm, F, levels, z, part, nullptr, nz, nr,
-                           counts, (cudaStream_t)stream);
+  return (int)launch_pcr_z(r, sm, F, levels, z, part, nullptr, kNoTail, nz,
+                           nr, counts, (cudaStream_t)stream);
+}
+
+// The fused iteration phase of the r-line (pcrz null) or ADI form, as the
+// solve launches it, on the state record's alpha: x and r updated in
+// place, z, the partials (4 x nparts: rr in plane 1, rz in plane 2) and
+// the beta tail on the state.
+int hf_update_pcr(float *x, float *r, const float *p, const float *Ap,
+                  const float *sm, const float *pcr, int lr, const float *pcrz,
+                  int lz, float *z, double *parts, int nparts, void *state,
+                  int maxiter, int fixed, int nz, int nr, long long *counts,
+                  void *stream) {
+  Solve s{nullptr, sm, nullptr, nullptr, nullptr, pcr, pcrz, x, r, z,
+          const_cast<float *>(p), const_cast<float *>(Ap), parts,
+          (CGState *)state, 7, lr, lz, nz, nr, maxiter, 0, nparts, counts,
+          (cudaStream_t)stream, nullptr, 0, 0, nullptr, nullptr, nullptr, 0,
+          1, 0.0f, 0.0f, nullptr, nullptr, fixed};
+  const BetaTail tail{s.st, s.part(1), s.part(2), nz,
+                      s.adi() ? s.col_tiles() : nz, maxiter, fixed};
+  cudaError_t e = launch_pcr_r(true, r, x, p, Ap, sm, pcr, lr, z, s.part(1),
+                               s.adi() ? nullptr : s.part(2), s.st,
+                               s.adi() ? kNoTail : tail, nz, nr, counts,
+                               s.stream);
+  if (e == cudaSuccess && s.adi())
+    e = launch_pcr_z(r, sm, pcrz, lz, z, s.part(2), s.st, tail, nz, nr,
+                     counts, s.stream);
+  return (int)e;
 }
 
 // z = M^-1 r of the Chebyshev (cheb > 0) or mgz (pcrc given) form alone,
@@ -1407,7 +1922,7 @@ int hf_pq_update(float *p, float *q, const float *u, const float *w,
                  const void *state, int n, long long *counts, void *stream) {
   k_pq_update<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                 (cudaStream_t)stream>>>(p, q, u, w, (const CGState *)state, 0,
-                                        n);
+                                        n, 0, 0, nullptr);
   counts[kPhPqUpdate] += 1;
   return (int)cudaGetLastError();
 }

@@ -113,14 +113,16 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     solve = [P, I, P, P, P, P, P, I, P, I, P, P, P, P, P, P, I, P, I, I, I,
-             I, P, P, P, I, I, P, P, I, P, I, F, F, P, P, I]
+             I, P, P, I, I, P, P, I, P, I, F, F, P, P, I]
     _sig(lib.hf_cg_nparts, I, I)
     _sig(lib.hf_cg_state_bytes)
     _sig(lib.hf_num_phases)
-    _sig(lib.hf_cg_tol_start, *solve)
-    _sig(lib.hf_cg_tol_iterate, *solve, I)
-    _sig(lib.hf_cg_tol_finish, P, P, P, I, P, P)
-    _sig(lib.hf_stencil_dot, P, I, P, P, P, P, I, I, P, P)
+    _sig(lib.hf_cg_tol_graph, *solve, I, I, P, P, P, P)
+    _sig(lib.hf_graph_launch, P, P)
+    _sig(lib.hf_graph_destroy, P)
+    _sig(lib.hf_stencil_dot, P, I, P, P, P, P, P, I, I, P, P)
+    _sig(lib.hf_update_pcr, P, P, P, P, P, P, I, P, I, P, P, I, P, I, I, I, I,
+         P, P)
     _sig(lib.hf_pcr_r, P, P, P, I, P, P, I, I, P, P)
     _sig(lib.hf_pcr_z, P, P, P, I, P, P, I, I, P, P)
     _sig(lib.hf_cg_extra_planes, I, I, I)

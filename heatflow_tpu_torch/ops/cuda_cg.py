@@ -24,6 +24,8 @@ multigrid-preconditioned solve that shares this loop is in ``ops/cuda_mg``.
 from __future__ import annotations
 
 import ctypes
+import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -34,9 +36,12 @@ from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_factor,
 from heatflow_tpu_torch.ops.mgz import coarse_apply, prolong, restrict
 from heatflow_tpu_torch.ops.stencil import OFFSETS, apply_stencil, shifted
 
-CHECK_EVERY = 8   # CG iterations enqueued between two host reads of the
-                  # device-side stop flag; the iterate and the count do not
-                  # depend on it (every phase is a no-op once the flag is set)
+CHECK_EVERY = 8   # CG iterations in one block of the solve's graph; the
+                  # device tests the stop flag between blocks (a conditional
+                  # graph node), the host not at all; the iterate and the
+                  # count do not depend on it (every phase is a no-op once
+                  # the flag is set)
+GRAPHS_KEPT = 4   # captured graphs a workspace keeps (the last used)
 
 MERGED_DEFAULT = False   # the merged-dot recurrence when ``merged=None``;
                          # read at call time, so a caller may set it around
@@ -46,8 +51,10 @@ PHASES = ("init", "stencil_dot", "update", "pcr_r", "pcr_z", "finalize",
           "p_update", "finish", "cheb_init", "cheb_step", "merged_w",
           "finalize_merged", "pq_update", "residual", "pcr_row",
           "coarse_res", "prolong", "mg_cheb", "mg_residual", "mg_restrict",
-          "mg_prolong")
-# phase kernel launches, counted by the C host code where it launches them
+          "mg_prolong", "update_pcr_r")
+# phase kernel launches: counted by the C host code where it launches a
+# phase alone, and for a solve's graph where the graph is launched (start
+# and finish) and by the device where it runs a block of iterations
 _phase_counts = np.zeros(len(PHASES), dtype=np.int64)
 
 
@@ -80,8 +87,24 @@ def _check(code: int, what: str) -> None:
 
 
 def phase_launches() -> dict[str, int]:
-    """Launches of each phase kernel since the last :func:`reset_counters`."""
-    return {name: int(n) for name, n in zip(PHASES, _phase_counts)}
+    """Launches of each phase kernel since the last :func:`reset_counters`
+    (reads the devices' block-run counters: a host sync)."""
+    counts = _phase_counts.copy()
+    for ws in _workspaces.values():
+        for g in ws.graphs.values():
+            counts += int(g.runs.item()) * g.counts_body
+    return {name: int(n) for name, n in zip(PHASES, counts)}
+
+
+def graph_stats() -> dict[str, dict]:
+    """For each solve form with a captured graph: the kernel launches of
+    one iteration, as the graph's loop body holds them (``CHECK_EVERY``
+    iterations a body), the graphs kept and the host seconds the last
+    capture and instantiation took."""
+    return {ws.form_name: dict(
+        launches_per_iteration=float(g.counts_body.sum()) / CHECK_EVERY,
+        graphs=len(ws.graphs), capture_s=g.capture_s)
+        for ws in _workspaces.values() for g in ws.graphs.values()}
 
 
 _FORM_COUNTERS = ("launches", "launches_identity", "launches_rline",
@@ -91,6 +114,9 @@ _FORM_COUNTERS = ("launches", "launches_identity", "launches_rline",
 
 def reset_counters() -> None:
     _phase_counts[:] = 0
+    for ws in _workspaces.values():
+        for g in ws.graphs.values():
+            g.runs.zero_()
     for name in _FORM_COUNTERS:
         setattr(cg_tol, name, 0)
     for name in ("launches_forward", "launches_backward", "launches_jvp"):
@@ -237,20 +263,33 @@ def _check_forms(pcr, pcr_z, cheb_degree, merged, mgz) -> None:
         raise ValueError("mgz is mutually exclusive with pcr_z/merged")
 
 
+def _guard(v):
+    """A divisor as the kernels guard it: v, or 1 where v == 0 (pAp, rz,
+    the merged recurrence's gamma, alpha and denominator). v is a Python
+    float or a 0-d tensor (guarded on its device, with no host read)."""
+    if torch.is_tensor(v):
+        return torch.where(v != 0, v, torch.ones_like(v))
+    return v if v != 0 else 1.0
+
+
+def _done(k, rr, stop2, maxiter: int, fixed: bool = False) -> bool:
+    """The stop rule: the loop runs while k < maxiter and rr > stop2 (a
+    NaN rr stops it); ``fixed`` drops the tolerance test."""
+    return not (k < maxiter and (fixed or bool(rr > stop2)))
+
+
 def _merged_reference(apply_op, precond, r, x, stop2, rr0, maxiter,
                       preconditioned):
     """The Chronopoulos–Gear loop of the TPU kernel on the precomputed
     first residual ``r``: (x, rr, k)."""
-    one = torch.ones((), dtype=r.dtype, device=r.device)
-    guard = lambda v: torch.where(v != 0, v, one)
     u = precond(r)
     w = apply_op(u)
     gamma = torch.sum(r * u)
-    alpha = gamma / guard(torch.sum(w * u))
+    alpha = gamma / _guard(torch.sum(w * u))
     p, q = u, w
     rr = rr0
     k = 0
-    while k < maxiter and bool(rr > stop2):
+    while not _done(k, rr, stop2, maxiter):
         x = x + alpha * p
         r = r - alpha * q
         u = precond(r)
@@ -258,9 +297,9 @@ def _merged_reference(apply_op, precond, r, x, stop2, rr0, maxiter,
         gamma_new = torch.sum(r * u)
         delta = torch.sum(w * u)
         rr = torch.sum(r * r) if preconditioned else gamma_new
-        beta = gamma_new / guard(gamma)
-        denom = delta - beta * gamma_new / guard(alpha)
-        alpha = gamma_new / guard(denom)
+        beta = gamma_new / _guard(gamma)
+        denom = delta - beta * gamma_new / _guard(alpha)
+        alpha = gamma_new / _guard(denom)
         p = u + beta * p
         q = w + beta * q
         gamma = gamma_new
@@ -284,7 +323,6 @@ def cg_tol_reference(A, sm, b, x0, rtol, *, maxiter: int = 4000,
         merged = MERGED_DEFAULT
     _check_forms(pcr, pcr_z, cheb_degree, merged, mgz)
     dtype = b.dtype
-    one = torch.ones((), dtype=dtype, device=b.device)
     apply_op = lambda y: sm * apply_stencil(A, sm * y)
     precond = _precond_reference(A, sm, pcr, pcr_z, cheb_degree, mgz,
                                  mgz_sweeps, mgz_omega, mgz_omega_c)
@@ -304,15 +342,14 @@ def cg_tol_reference(A, sm, b, x0, rtol, *, maxiter: int = 4000,
         p = z
         rz = torch.sum(r * z)
         k = 0
-        while k < maxiter and bool(rr > stop2):
+        while not _done(k, rr, stop2, maxiter):
             Ap = apply_op(p)
-            pAp = torch.sum(p * Ap)
-            alpha = rz / torch.where(pAp != 0, pAp, one)
+            alpha = rz / _guard(torch.sum(p * Ap))
             x = x + alpha * p
             r = r - alpha * Ap
             z = precond(r)
             rz_new = torch.sum(r * z)
-            beta = rz_new / torch.where(rz != 0, rz, one)
+            beta = rz_new / _guard(rz)
             p = z + beta * p
             rz = rz_new
             rr = torch.sum(r * r) if preconditioned else rz_new
@@ -430,6 +467,68 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
                          count=(cg_tol, forms))
 
 
+class _Graph:
+    """One captured solve: the executable CUDA graph, the launches of its
+    start and finish (``counts``, added where the graph is launched), those
+    of one loop body (``counts_body``) and the device's count of body runs
+    (``runs``, int64)."""
+
+    def __init__(self, lib, exec_ptr: int, counts, counts_body, runs,
+                 capture_s: float):
+        self.lib, self.exec_ptr = lib, exec_ptr
+        self.counts, self.counts_body, self.runs = counts, counts_body, runs
+        self.capture_s = capture_s
+
+    def __del__(self):
+        self.lib.hf_graph_destroy(self.exec_ptr)
+
+
+class _Workspace:
+    """The buffers of one solve form at one shape on one device, and the
+    graphs captured on them: a graph reads and writes these buffers, so it
+    stays valid across the solves of a transient or a fit. The caller's b,
+    x0 and scalars are copied in before a launch; x is copied out."""
+
+    def __init__(self, lib, dev, nz: int, nr: int, n_extra: int,
+                 form_name: str):
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.form_name = form_name
+        self.b = torch.empty((nz, nr), **f32)
+        self.x0 = torch.empty((nz, nr), **f32)
+        self.x = torch.empty((nz, nr), **f32)
+        self.vecs = torch.empty((4, nz, nr), **f32)       # r, z, p, Ap
+        self.extra = torch.empty((n_extra, nz, nr), **f32) if n_extra \
+            else None
+        self.parts = torch.empty((4, lib.hf_cg_nparts(nz, nr)),
+                                 dtype=torch.float64, device=dev)
+        self.state = torch.empty(8, dtype=torch.float64, device=dev)
+        self.rtol = torch.empty((), **f32)
+        self.lmax = torch.empty(1, **f32)
+        self.iters = torch.empty((), dtype=torch.int32, device=dev)
+        self.graphs: OrderedDict = OrderedDict()
+
+
+_workspaces: dict = {}
+
+
+def _workspace(lib, dev, nz: int, nr: int, form: tuple, n_extra: int,
+               form_name: str) -> _Workspace:
+    """The workspace of (device, shape, form), made at its first use."""
+    key = (str(dev), nz, nr, form)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = _workspaces[key] = _Workspace(lib, dev, nz, nr, n_extra,
+                                           form_name)
+    return ws
+
+
+def _retire(g: _Graph) -> None:
+    """Fold an evicted graph's device-counted launches into the host
+    counts before it goes."""
+    global _phase_counts
+    _phase_counts += int(g.runs.item()) * g.counts_body
+
+
 def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
                   pcr=None, pcr_z=None, cheb_degree: int = 0,
                   merged: bool = False, mgz=None, mgz_sweeps: int = 1,
@@ -437,13 +536,14 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
                   fixed: bool = False, poison: bool = False,
                   count=None, what: str = "cg_tol"):
     """One solve through the phase kernels of ``csrc/cg_tol.cu`` on CUDA
-    float32 tensors: (x, iters). ``mg`` (a function of the z plane that
+    float32 tensors: (x, iters). The solve is one CUDA graph launch: the
+    graph is captured once per workspace (see :class:`_Workspace`) and set
+    of operands, then replayed. ``mg`` (a function of the z plane that
     returns the multigrid descriptor, see ``ops/cuda_mg``) selects the
     V-cycle preconditioner; ``fixed`` runs ``maxiter`` iterations with the
-    stop test off and never reads the device; ``poison`` makes x NaN when
-    the residual is not finite (``cg_tol``'s contract); ``count`` (a
-    wrapper function and the names of its launch counts) is counted where
-    the solve is launched."""
+    stop test off; ``poison`` makes x NaN when the residual is not finite
+    (``cg_tol``'s contract); ``count`` (a wrapper function and the names of
+    its launch counts) is counted where the solve is launched."""
     lib = _library()
     dev = b.device
     nz, nr = _check_operator(A, sm, dev)
@@ -455,59 +555,68 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
     lc = 0
     if mgz is not None:
         ac9, pcrc, aux, lc = _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
-    lmax = None
-    if cheb_degree > 0:
-        lmax = gershgorin_lmax(A, sm).reshape(1).contiguous()
     rtol_t = torch.as_tensor(rtol, dtype=torch.float32, device=dev)
     if rtol_t.numel() != 1:
         raise ValueError("rtol must be a scalar")
-    rtol_t = rtol_t.reshape(()).contiguous()
 
-    x = torch.empty_like(b)
-    vecs = torch.empty((4, nz, nr), dtype=torch.float32, device=dev)
-    r, z, p, Ap = vecs.unbind(0)
+    form = (pcr is not None, pcr_z is not None, cheb_degree, bool(merged),
+            mgz is not None, mg is not None)
+    name = ("mg" if mg is not None else "mgz" if mgz is not None else
+            "adi" if pcr_z is not None else "rline" if pcr is not None else
+            f"cheb{cheb_degree}" if cheb_degree else "identity") \
+        + ("_merged" if merged else "")
+    ws = _workspace(lib, dev, nz, nr, form,
+                    lib.hf_cg_extra_planes(cheb_degree, int(merged),
+                                           int(mgz is not None)), name)
+    ws.b.copy_(b)
+    ws.x0.copy_(x0)
+    ws.rtol.copy_(rtol_t.reshape(()))
+    if cheb_degree > 0:
+        ws.lmax.copy_(gershgorin_lmax(A, sm).reshape(1))
+    r, z, p, Ap = ws.vecs.unbind(0)
     if pcr is None and cheb_degree == 0 and mg is None:
         z = r                         # identity form: z aliases r
-    n_extra = lib.hf_cg_extra_planes(cheb_degree, int(merged),
-                                     int(mgz is not None))
-    extra = (torch.empty((n_extra, nz, nr), dtype=torch.float32, device=dev)
-             if n_extra else None)
-    nparts = lib.hf_cg_nparts(nz, nr)
-    parts = torch.empty((4, nparts), dtype=torch.float64, device=dev)
-    state = torch.empty(8, dtype=torch.float64, device=dev)
-    stream = _stream()
     desc = None if mg is None else mg(z)
-    args = (_ptr(A), A.shape[0], _ptr(sm), _ptr(b), _ptr(x0), _ptr(rtol_t),
-            _ptr(pcr), lr, _ptr(pcr_z), lz, _ptr(x), _ptr(r), _ptr(z),
-            _ptr(p), _ptr(Ap), _ptr(parts), nparts, _ptr(state), nz, nr,
-            int(maxiter), int(rtol_wrt == "r0"), _counts_ptr(), stream,
-            _ptr(lmax), cheb_degree, int(merged), _ptr(ac9), _ptr(pcrc), lc,
-            _ptr(aux), int(mgz_sweeps), float(mgz_omega), float(mgz_omega_c),
-            _ptr(extra), None if desc is None else ctypes.addressof(desc),
-            int(fixed))
+    args = (_ptr(A), A.shape[0], _ptr(sm), _ptr(ws.b), _ptr(ws.x0),
+            _ptr(ws.rtol), _ptr(pcr), lr, _ptr(pcr_z), lz, _ptr(ws.x),
+            _ptr(r), _ptr(z), _ptr(p), _ptr(Ap), _ptr(ws.parts),
+            ws.parts.shape[1], _ptr(ws.state), nz, nr, int(maxiter),
+            int(rtol_wrt == "r0"))
+    extra = (_ptr(ws.lmax), cheb_degree, int(merged), _ptr(ac9), _ptr(pcrc),
+             lc, _ptr(aux), int(mgz_sweeps), float(mgz_omega),
+             float(mgz_omega_c), _ptr(ws.extra),
+             None if desc is None else ctypes.addressof(desc), int(fixed))
+    # the descriptor's address changes from call to call, its content
+    # (the levels' pointers and coefficients) is what the graph holds
+    key = args + extra[:-2] + (int(fixed), int(poison),
+                               None if desc is None else bytes(desc))
+    graph = ws.graphs.get(key)
+    if graph is None:
+        counts = np.zeros(len(PHASES), dtype=np.int64)
+        counts_body = np.zeros(len(PHASES), dtype=np.int64)
+        runs = torch.zeros(1, dtype=torch.int64, device=dev)
+        handle = ctypes.c_void_p()
+        t0 = time.perf_counter()
+        _check(lib.hf_cg_tol_graph(
+            *args, ctypes.c_void_p(counts.ctypes.data), *extra,
+            CHECK_EVERY, int(poison), _ptr(ws.iters), _ptr(runs),
+            ctypes.c_void_p(counts_body.ctypes.data),
+            ctypes.byref(handle)), f"{what} capture")
+        graph = ws.graphs[key] = _Graph(lib, handle.value, counts,
+                                        counts_body, runs,
+                                        time.perf_counter() - t0)
+        while len(ws.graphs) > GRAPHS_KEPT:
+            _retire(ws.graphs.popitem(last=False)[1])
+    else:
+        ws.graphs.move_to_end(key)
 
     if count is not None:
         fn, names = count
         for name in names:
             setattr(fn, name, getattr(fn, name) + 1)
-    _check(lib.hf_cg_tol_start(*args), f"{what} start")
-    ints = state.view(torch.int32)
-    if fixed:
-        _check(lib.hf_cg_tol_iterate(*args, int(maxiter)), f"{what} iterate")
-    else:
-        launched = 0
-        while launched < maxiter:
-            n = min(CHECK_EVERY, maxiter - launched)
-            _check(lib.hf_cg_tol_iterate(*args, n), f"{what} iterate")
-            launched += n
-            if ints[11].item():
-                break
-    if not poison:
-        return x, ints[10].clone()
-    iters = torch.empty((), dtype=torch.int32, device=dev)
-    _check(lib.hf_cg_tol_finish(_ptr(x), _ptr(iters), _ptr(state), nz * nr,
-                                _counts_ptr(), stream), f"{what} finish")
-    return x, iters
+    _check(lib.hf_graph_launch(graph.exec_ptr, _stream()), f"{what} launch")
+    _phase_counts[:] += graph.counts
+    return ws.x.clone(), ws.iters.clone()
 
 
 for _name in _FORM_COUNTERS:
@@ -638,17 +747,63 @@ def merged_w(A: torch.Tensor, sm: torch.Tensor, u: torch.Tensor,
     return w, delta, rr, gamma
 
 
+_STATE_FIELDS = ("rz", "rr", "stop2", "alpha", "beta")
+
+
 def _state(device, **fields) -> torch.Tensor:
     """A solve-state record (8 float64 words: rz, rr, stop2, alpha, beta,
     then the int32 count and done flag in words 10 and 11 of its int32
-    view); fields not given are 0."""
+    view, the tails' block tickets in words 12 and 13); fields not given
+    are 0."""
     st = torch.zeros(8, dtype=torch.float64, device=device)
-    for i, name in enumerate(("rz", "rr", "stop2", "alpha", "beta")):
+    for i, name in enumerate(_STATE_FIELDS):
         if name in fields:
             st[i] = float(fields[name])
     ints = st.view(torch.int32)
     ints[10] = int(fields.get("k", 0))
     ints[11] = int(fields.get("done", 0))
+    return st
+
+
+def _read_state(st: torch.Tensor) -> dict:
+    host = st.cpu()
+    ints = host.view(torch.int32)
+    out = {name: float(host[i]) for i, name in enumerate(_STATE_FIELDS)}
+    out.update(k=int(ints[10]), done=int(ints[11]))
+    return out
+
+
+def finalize_reference(state: dict, mode: str, *, pap=None, rr=None,
+                       rz=None, bb=None, preconditioned: bool = True,
+                       rtol=0.0, maxiter: int = 4000, rtol_wrt: str = "r0",
+                       fixed: bool = False) -> dict:
+    """The standard recurrence's scalar step in Python floats on a state
+    dict (rz, rr, stop2, alpha, beta, k, done), as ``k_finalize`` and the
+    kernels' alpha and beta tails take it: ``'init'`` (the stop target from
+    ⟨r0, r0⟩ or ⟨b, b⟩ and rtol rounded to float32), ``'alpha'``
+    (rz / pAp, pAp == 0 → 1) or ``'beta'`` (β = rz' / rz, rz == 0 → 1;
+    rr is ⟨r, r⟩ when preconditioned, else rz; k += 1). The loop runs
+    while k < maxiter and rr > stop2 (a NaN rr stops it); ``fixed`` drops
+    the tolerance test. Returns the new dict; a done state is left as it
+    is, but for 'init'."""
+    if mode not in ("init", "alpha", "beta"):
+        raise ValueError(f"mode must be 'init', 'alpha' or 'beta': {mode!r}")
+    st = dict(state)
+    if mode != "init" and st.get("done"):
+        return st
+    if mode == "alpha":
+        st["alpha"] = st["rz"] / _guard(float(pap))
+        return st
+    rr = float(rr)
+    rz = rr if rz is None else float(rz)
+    if mode == "init":
+        rt = float(np.float32(rtol))
+        st.update(rz=rz, rr=rr, alpha=0.0, beta=0.0, k=0,
+                  stop2=rt * rt * (rr if rtol_wrt == "r0" else float(bb)))
+    else:
+        st.update(beta=rz / _guard(st["rz"]), rz=rz,
+                  rr=rr if preconditioned else rz, k=st["k"] + 1)
+    st["done"] = int(_done(st["k"], st["rr"], st["stop2"], maxiter, fixed))
     return st
 
 
@@ -679,22 +834,21 @@ def finalize_merged_reference(state: dict, delta, rr, gamma, bb=0.0, *,
                               maxiter: int = 4000, rtol_wrt: str = "r0"):
     """The merged recurrence's scalar phase in Python floats on a state
     dict (rz = γ, rr, stop2, alpha, beta, k, done); returns the new dict."""
-    g = lambda v: v if v != 0 else 1.0
     delta, rr, gamma, bb = (float(v) for v in (delta, rr, gamma, bb))
     st = dict(state)
     if first:
         rt = float(np.float32(rtol))
         st.update(rz=gamma, rr=rr,
                   stop2=rt * rt * (rr if rtol_wrt == "r0" else bb),
-                  alpha=gamma / g(delta), beta=0.0, k=0)
+                  alpha=gamma / _guard(delta), beta=0.0, k=0)
     else:
         if st.get("done"):
             return st
-        beta = gamma / g(st["rz"])
-        denom = delta - beta * gamma / g(st["alpha"])
-        st.update(alpha=gamma / g(denom), beta=beta, rz=gamma,
+        beta = gamma / _guard(st["rz"])
+        denom = delta - beta * gamma / _guard(st["alpha"])
+        st.update(alpha=gamma / _guard(denom), beta=beta, rz=gamma,
                   rr=rr if preconditioned else gamma, k=st["k"] + 1)
-    st["done"] = int(not (st["k"] < maxiter and st["rr"] > st["stop2"]))
+    st["done"] = int(_done(st["k"], st["rr"], st["stop2"], maxiter))
     return st
 
 
@@ -720,12 +874,7 @@ def finalize_merged(state: dict, delta, rr, gamma, bb=0.0, *, first: bool,
                                   _ptr(rtol_t), int(maxiter),
                                   int(rtol_wrt == "r0"), _counts_ptr(),
                                   _stream()), "finalize_merged")
-    host = st.cpu()
-    ints = host.view(torch.int32)
-    out = {name: float(host[i]) for i, name in
-           enumerate(("rz", "rr", "stop2", "alpha", "beta"))}
-    out.update(k=int(ints[10]), done=int(ints[11]))
-    return out
+    return _read_state(st)
 
 
 def mgz_residual(A, sm, r, v):
@@ -825,14 +974,34 @@ def stencil_dot(A: torch.Tensor, sm: torch.Tensor, p: torch.Tensor):
     lib = _library()
     nz, nr = _check_operator(A, sm, p.device)
     _require(p, "p", (nz, nr), p.device)
+    Ap, part = _stencil_dot_launch(lib, A, sm, p, None)
+    return Ap, part.sum()
+
+
+def _stencil_dot_launch(lib, A, sm, p, state):
+    nz, nr = sm.shape
     Ap = torch.empty_like(p)
-    blocks = lib.hf_cg_nparts(nz, nr)
-    part = torch.empty(blocks, dtype=torch.float64, device=p.device)
+    part = torch.zeros((nz * nr + 255) // 256, dtype=torch.float64,
+                       device=p.device)
     _check(lib.hf_stencil_dot(_ptr(A), A.shape[0], _ptr(sm), _ptr(p),
-                              _ptr(Ap), _ptr(part), nz, nr, _counts_ptr(),
-                              _stream()), "stencil_dot")
-    used = (nz * nr + 255) // 256
-    return Ap, part[:used].sum()
+                              _ptr(Ap), _ptr(part), _ptr(state), nz, nr,
+                              _counts_ptr(), _stream()), "stencil_dot")
+    return Ap, part
+
+
+def stencil_dot_alpha(A: torch.Tensor, sm: torch.Tensor, p: torch.Tensor,
+                      state: dict):
+    """The solve's first phase alone: (Ap, ⟨p, Ap⟩, the state after the
+    alpha tail) with the state a dict as :func:`finalize_reference` takes."""
+    if _on_cpu(A, sm, p):
+        Ap, pap = stencil_dot_reference(A, sm, p)
+        return Ap, pap, finalize_reference(state, "alpha", pap=pap)
+    lib = _library()
+    nz, nr = _check_operator(A, sm, p.device)
+    _require(p, "p", (nz, nr), p.device)
+    st = _state(p.device, **state)
+    Ap, part = _stencil_dot_launch(lib, A, sm, p, st)
+    return Ap, part.sum(), _read_state(st)
 
 
 def precond(sm: torch.Tensor, r: torch.Tensor, pcr: torch.Tensor,
@@ -849,17 +1018,65 @@ def precond(sm: torch.Tensor, r: torch.Tensor, pcr: torch.Tensor,
     _require(r, "r", (nz, nr), dev)
     lr = _stack_levels(pcr, "pcr", nz, nr, dev)
     z = torch.empty_like(r)
-    part = torch.empty(lib.hf_cg_nparts(nz, nr), dtype=torch.float64,
+    part = torch.zeros(lib.hf_cg_nparts(nz, nr), dtype=torch.float64,
                        device=dev)
     stream = _stream()
     _check(lib.hf_pcr_r(_ptr(r), _ptr(sm), _ptr(pcr), lr, _ptr(z),
                         _ptr(part), nz, nr, _counts_ptr(), stream), "pcr_r")
     if pcr_z is None:
-        return z, part[:nz].sum()
+        return z, part.sum()
     lz = _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
+    part.zero_()
     _check(lib.hf_pcr_z(_ptr(r), _ptr(sm), _ptr(pcr_z), lz, _ptr(z),
                         _ptr(part), nz, nr, _counts_ptr(), stream), "pcr_z")
-    return z, part[:(nr + 15) // 16].sum()
+    return z, part.sum()
+
+
+def update_precond_reference(x, r, p, Ap, alpha, sm, pcr, pcr_z=None):
+    """Plain version of :func:`update_precond`: (x + α·p, r − α·Ap, z,
+    ⟨r, r⟩, ⟨r, z⟩) with the new r, α rounded to the fields' dtype; the
+    sums are float64, summed a grid row at a time (a z-line tile for ⟨r, z⟩
+    in the ADI form, one column here) in the order of the kernel's
+    partials, then over the rows (columns)."""
+    a = torch.as_tensor(float(alpha), dtype=torch.float64).to(x.dtype)
+    x = x + a * p
+    r = r - a * Ap
+    z, _ = precond_reference(sm, r, pcr, pcr_z)
+    r64 = r.double()
+    rr = (r64 * r64).sum(dim=1).sum()
+    rz = (r64 * z.double()).sum(dim=0 if pcr_z is not None else 1).sum()
+    return x, r, z, rr, rz
+
+
+def update_precond(x, r, p, Ap, sm, pcr, pcr_z=None, *, state: dict,
+                   maxiter: int = 4000, fixed: bool = False):
+    """The r-line (``pcr``) or ADI (``pcr``, ``pcr_z``) solve's fused phase
+    alone, as an iteration runs it on ``state``'s alpha: (x + α·p, r − α·Ap,
+    z = M⁻¹r, ⟨r, r⟩, ⟨r, z⟩, the state after the beta tail); the inputs
+    are left as they are."""
+    if _on_cpu(x, r, p, Ap, sm, pcr, pcr_z):
+        x, r, z, rr, rz = update_precond_reference(
+            x, r, p, Ap, state["alpha"], sm, pcr, pcr_z)
+        return x, r, z, rr, rz, finalize_reference(
+            state, "beta", rr=rr, rz=rz, preconditioned=True,
+            maxiter=maxiter, fixed=fixed)
+    lib = _library()
+    dev = r.device
+    nz, nr = sm.shape
+    for name, t in (("x", x), ("r", r), ("p", p), ("Ap", Ap), ("sm", sm)):
+        _require(t, name, (nz, nr), dev)
+    lr = _stack_levels(pcr, "pcr", nz, nr, dev)
+    lz = 0 if pcr_z is None else _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
+    x_n, r_n, z = x.clone(), r.clone(), torch.empty_like(r)
+    parts = torch.zeros((4, lib.hf_cg_nparts(nz, nr)), dtype=torch.float64,
+                        device=dev)
+    st = _state(dev, **state)
+    _check(lib.hf_update_pcr(_ptr(x_n), _ptr(r_n), _ptr(p), _ptr(Ap),
+                             _ptr(sm), _ptr(pcr), lr, _ptr(pcr_z), lz,
+                             _ptr(z), _ptr(parts), parts.shape[1], _ptr(st),
+                             int(maxiter), int(fixed), nz, nr, _counts_ptr(),
+                             _stream()), "update_pcr")
+    return x_n, r_n, z, parts[1].sum(), parts[2].sum(), _read_state(st)
 
 
 def _implicit_cg(solver, A, sm, b, x0, rtol, maxiter, rtol_wrt, pcr, pcr_z,

@@ -1,7 +1,7 @@
 """The port's simulation-vs-experiment comparison (``analysis.compare``)
 against the JAX package's on the same arrays, and the port's independence:
-no module of ``heatflow_tpu_torch`` nor ``chip_smoke.py`` imports JAX or the
-JAX package."""
+no module of ``heatflow_tpu_torch``, ``chip_smoke.py`` or ``tools/`` imports
+JAX or the JAX package."""
 
 import ast
 import glob
@@ -72,7 +72,8 @@ def _imports(path):
                     yield words[1].rstrip(",")
 
 
-@pytest.mark.parametrize("where", ["heatflow_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("where", ["heatflow_tpu_torch", "chip_smoke.py",
+                                   "tools"])
 def test_port_imports_neither_jax_nor_the_jax_package(where):
     path = os.path.join(ROOT, where)
     files = ([path] if path.endswith(".py") else
