@@ -28,18 +28,31 @@ Phases (each raises on failure; nothing is caught):
    and between the solves;
 5. at the sweep shape (``cfgs/geballe_no_diamond.yaml``, 243 x 1001
    nodes), on the 10th step's system of 8 numpy-seeded lanes spanning
-   kappa in [1, 100] (one lane NaN, one at rtol 2), compare each of the
-   eight phase kernels of the batched solve (K2/K3) alone with its plain
-   version, then full solves in the identity and r-line forms and 120
-   fixed iterations (K3), timing kernel and plain version with CUDA
-   events;
+   kappa in [1, 100] (one lane NaN, one at rtol 2), compare each phase
+   kernel of the batched solve (K2/K3) alone with its plain version: the
+   operator pass, update, r-line PCR, p update, compaction, finish and
+   scalar kernels, and the kernels with their per-lane tails (the first
+   residual with the first scalars, the stencil with alpha, the update
+   with beta, the fused update and r-line PCR with beta, alone and with the
+   z-line phase) on a state with done lanes; the tail kernels again at the
+   batch sizes of the paths that run them (B = 1024, 256, 64; fields from a
+   seeded generator on the card); then full solves in the identity and
+   r-line forms and 120 fixed iterations (K3), timing kernel and plain
+   version with CUDA events;
 6. run the coefficient sweep (B = 1024, kappa = logspace(0, 2), the
    config's FWHM, 40 steps chunked 20 + 20, float32, Jacobi, rtol 1e-4 wrt
    ||b||) through ``run_sweep_time_chunked``: one warm-up run, one timed
    run with the counters reset just before it; hold four lanes to the
    same lanes run as a B = 4 sweep (bitwise), to the plain eager float32
    sweep's iteration total, and to its traces within 2x its distance from
-   the plain float64 sweep of the same recipe, + 0.1 K;
+   the plain float64 sweep of the same recipe, + 0.1 K; one more run under
+   the profiler: the device's busy share, its idle time inside and between
+   K2's solves (``idle_split``), and each K2 kernel's device time per
+   lane-iteration. Wherever K2's counters are read after a path
+   (``_sweep_counts``), each form's iteration must have taken its launches
+   (3 identity, r-line, Kv-free and fixed; 4 ADI and adaptive; the same
+   under the merged recurrence) and no solve may have launched the
+   single-phase scalar kernels;
 7. run the other sweep forms at B = 64: ``fixed_iters=120`` (K3) and
    ``precondition='rline'`` through ``make_sweep_fn``, and an
    'extrapolate' sweep at B = 8 chunked 20 + 20 against unchunked
@@ -71,7 +84,8 @@ Phases (each raises on failure; nothing is caught):
 12. run two B = 64 sweeps of ``geballe_no_diamond`` (40 steps, float32):
    (a) 'adi', rtol 1e-5 wrt ||r0||, 'extrapolate'; (b) 'adaptive' with one
    float64 refinement pass; configs/s, finite lanes, the share of flagged
-   lane-steps, four lanes again at B = 4 (bitwise);
+   lane-steps, four lanes again at B = 4 (bitwise); and the ADI sweep once
+   more under the profiler, split as in phase 6;
 13. (a) the differentiable ``cg_vmem_solve`` on the flagship's first-step
    system: value, backward (gradients to A, sm, b) and forward-mode
    tangent against its plain version on the card; (b) ``one_config`` on the
@@ -146,7 +160,9 @@ Phase 10 also holds its recording run (watch, band, axis), and the same
 rows from a run with two float64 refinement passes, to
 ``benchmarks/.flagship_truth_recording.npz``.
 
-The line before the last is a JSON object with one entry per kernel, each
+The line before the last is a JSON object with one entry per kernel of the
+paths (K2's single-phase scalar kernels, checked in phases 5 and 14 but run
+by no solve, have none), each
 with its time, the plain version's, and its bound: the larger of the bytes
 it must move (each input read once, each output written once) at the
 card's memory rate and the float32 operations this run's data needs at its
@@ -195,6 +211,7 @@ PROJ_REL_L2 = 1e-5        # Kv-free projection solve, kernel vs plain
 REC_MARGIN = dict(watch=0.1, band=1e-2, axis=5e-2)
 FIT_CFG = os.path.join(ROOT, "cfgs", "geballe_no_diamond_read_flux.yaml")
 ADI_B = 64
+MERGED_B = 64      # phase 15's adaptive refined sweep, merged recurrence
 ADI_RECIPES = {
     "adi": dict(precondition="adi", rtol=1e-5, rtol_wrt="r0",
                 warm_start="extrapolate"),
@@ -712,20 +729,31 @@ def kernel_profile(fn) -> dict:
                 busy_us=busy, kernels=by_name, timeline=timeline)
 
 
-def idle_split(prof: dict) -> dict:
-    """The device's idle time of a profiled run, in us: inside K1's solves
-    (from a solve's k_init to its k_finish), split into the gaps that follow
-    a device-to-host copy (the host reading the solve's stop flag) and the
-    rest, and between the solves (the caller's own work), with the solves'
-    span and kernel time and the count of copies to the host inside them."""
+def is_k2_start(k: str) -> bool:
+    """K2's first kernel of a solve: the operator pass in its first-residual
+    mode (ks_apply<HAS_KV, 1, NPTS>)."""
+    return (k.startswith("ks_apply<")
+            and k[len("ks_apply<"):-1].split(",")[1].strip() == "1")
+
+
+def idle_split(prof: dict, first: str = "k_init",
+               last: str = "k_finish") -> dict:
+    """The device's idle time of a profiled run, in us: inside the solves
+    (from a solve's first kernel, K1's k_init or with ``first="k2"`` K2's
+    first-residual pass, to its ``last`` kernel), split into the gaps that
+    follow a device-to-host copy (the host reading the solve's stop flag or
+    running-lane count) and the rest, and between the solves (the caller's
+    own work), with the solves' span and kernel time and the count of
+    copies to the host inside them."""
     import re
     inside = after_read = between = solve_span = solve_busy = 0.0
     start, prev_end, prev_name, solves, reads = None, None, "", 0, 0
+    starts = is_k2_start if first == "k2" else (lambda k: k == first)
     for s0, s1, name in prof["timeline"]:
-        m = re.search(r"\b(k_[a-z_]+)", name)
+        m = re.search(r"\b(ks?_[a-z_]+(?:<[^>(]*>)?)", name)
         k = m.group(1) if m else ""
         gap = 0.0 if prev_end is None else max(0.0, s0 - prev_end)
-        if k == "k_init" and start is None:
+        if starts(k) and start is None:
             start = s0
             between += gap
         elif start is not None:
@@ -737,9 +765,9 @@ def idle_split(prof: dict) -> dict:
             reads += "DtoH" in name
         else:
             between += gap
-        if k == "k_init":
+        if starts(k):
             solve_busy += s1 - s0
-        if k == "k_finish" and start is not None:
+        if k == last and start is not None:
             solve_span += s1 - start
             solves += 1
             start = None
@@ -749,6 +777,58 @@ def idle_split(prof: dict) -> dict:
                 solve_busy_us=solve_busy, idle_in_solves_us=inside,
                 idle_after_host_reads_us=after_read, host_reads=reads,
                 idle_between_solves_us=between)
+
+
+def k2_kernels(prof: dict) -> dict:
+    """A profile's K2 / K3 kernels (``ks_*`` of csrc/sweep_cg.cu) by short
+    name (template arguments kept): [device us, calls]."""
+    import re
+    out: dict[str, list] = {}
+    for name, (us, n) in prof["kernels"].items():
+        m = re.search(r"\b(ks_[a-z_]+(?:<[^>(]*>)?)\(", name)
+        if m:
+            acc = out.setdefault(m.group(1), [0.0, 0])
+            acc[0] += us
+            acc[1] += n
+    return out
+
+
+def sweep_profile(run, label: str, out: dict, key: str) -> dict:
+    """One more run of a sweep (``run(iters_out=list)``) under the
+    profiler: the device's busy share, its idle time inside K2's solves
+    (between launches, and after the host's reads of the running-lane
+    count) and between them, and each K2 kernel's device time per
+    lane-iteration (the iterations of every lane and step)."""
+    import torch
+    its = []
+    prof = kernel_profile(lambda: run(iters_out=its))
+    lane_iters = int(torch.stack(its).sum())
+    split = idle_split(prof, first="k2", last="ks_finish")
+    require(split["solves"] > 0, (label, "no K2 solve found in the profile"))
+    k2 = k2_kernels(prof)
+    busy_pct = 100 * prof["busy_us"] / prof["span_us"]
+    res = dict(busy_pct=busy_pct, span_ms=prof["span_us"] / 1e3,
+               lane_iterations=lane_iters,
+               us_per_lane_iteration=prof["busy_us"] / lane_iters,
+               split=split,
+               kernels={k: dict(us_per_lane_iteration=us / lane_iters,
+                                us_per_call=us / c, calls=c)
+                        for k, (us, c) in k2.items()})
+    print(f"{label} profiled: busy {busy_pct:.2f}% of "
+          f"{prof['span_us'] / 1e3:.3f} ms; {lane_iters} lane-iterations, "
+          f"{res['us_per_lane_iteration']:.3f} us of device time each; "
+          f"{split['solves']} solves, idle in solves "
+          f"{split['idle_in_solves_us'] / 1e3:.3f} ms between launches and "
+          f"{split['idle_after_host_reads_us'] / 1e3:.3f} ms after "
+          f"{split['host_reads']} host reads, between solves "
+          f"{split['idle_between_solves_us'] / 1e3:.3f} ms", flush=True)
+    for k, v in sorted(res["kernels"].items(),
+                       key=lambda kv: -kv[1]["us_per_lane_iteration"]):
+        print(f"{label} profiled: {k} {v['us_per_lane_iteration']:.4f} us "
+              f"a lane-iteration ({v['calls']} calls, "
+              f"{v['us_per_call']:.2f} us each)", flush=True)
+    out[key] = res
+    return res
 
 
 def k1_kernels(prof: dict) -> dict:
@@ -873,7 +953,80 @@ def sweep_phase_cases(A0, Kv, dks, sm, b, x0, rng) -> dict:
     for mode, rline in (("init", True), ("alpha", False), ("beta", True)):
         cases[f"finalize[{mode}]"] = (*fin(mode, rline), (state, parts),
                                       1e-12)
+    # the redesigned phases with their per-lane tails, on a state of the
+    # given lanes with one lane done (the merged-dot pass's: phase 14b)
+    tails = tail_cases(A0, Kv, dks, sm, b, x0, x, r, p, Ap, rng)
+    cases.update((k, v) for k, v in tails.items()
+                 if not k.startswith("merged_w"))
     return cases
+
+
+def tail_state(B: int, rng, device):
+    """A per-lane state of B lanes for the tail checks: random scalars and
+    counts, about one lane in eight done."""
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+    lane = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, B),
+                                       dtype=torch.float64, device=device)
+    done = rng.random(B) < 0.125
+    done[0] = False
+    done[-1] = B > 1
+    return cs.pack_state(B, device, rz=lane(0.5, 2.0), rr=lane(0.5, 2.0),
+                         stop2=lane(0.0, 1e-3), alpha=lane(0.1, 1.0),
+                         beta=lane(0.1, 1.0),
+                         k=torch.tensor(rng.integers(0, 50, B)),
+                         done=torch.tensor(done))
+
+
+def tail_cases(A0, Kv, dks, sm, b, x0, x, r, p, Ap, rng,
+               which=None) -> dict:
+    """name -> (kernel, plain, arguments, bound) of the phase kernels that
+    carry a per-lane tail, on the given lanes' fields (``which``: a subset
+    of the names): the first residual with the identity form's first
+    scalars, the r-line PCR with the r-line form's, the stencil with alpha,
+    the merged-dot pass with its recurrence's scalars, the update with
+    beta, the fused update and r-line PCR with beta (alone, and with the
+    z-line phase after it taking beta)."""
+    import torch
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+    B = b.shape[0]
+    state = tail_state(B, rng, b.device)
+    rtol = torch.full((B,), 1e-5, dtype=torch.float32, device=b.device)
+    op = (A0, Kv, dks, sm)
+    # <r, r> and <b, b> a lane for the r-line start: about half the lanes
+    # meet rtol at once
+    lane = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, B),
+                                       dtype=torch.float64, device=b.device)
+    rr0, bb0 = lane(0.5, 2.0), lane(0.5e10, 2.0e10)
+    cases = {
+        "init[tail]": (
+            lambda *a: cs.init(*a, maxiter=40),
+            lambda *a: cs.init_reference(*a, maxiter=40),
+            (*op, b, x0, state, rtol), 1e-5),
+        "pcr_r[init]": (
+            lambda *a: cs.pcr_r(*a, maxiter=40),
+            lambda *a: cs.pcr_r_reference(*a, maxiter=40),
+            (*op, r, state, rr0, bb0, rtol), 1e-4),
+        "stencil_dot[alpha]": (cs.stencil_dot, cs.stencil_dot_reference,
+                               (*op, p, state), 1e-5),
+        "merged_w[tail]": (
+            lambda *a: cs.merged_w(*a, maxiter=40),
+            lambda *a: cs.merged_w_reference(*a, maxiter=40),
+            (*op, p, r, state), 1e-5),
+        "update[beta]": (
+            lambda *a: cs.update_beta(*a, maxiter=40),
+            lambda *a: cs.update_beta_reference(*a, maxiter=40),
+            (x, r, p, Ap, state), 1e-5),
+        "pcr_r_update": (
+            lambda *a: cs.pcr_r_update(*a, maxiter=40),
+            lambda *a: cs.pcr_r_update_state_reference(*a, maxiter=40),
+            (*op, x, r, p, Ap, state), 1e-4),
+        "pcr_r_update[adi]": (
+            lambda *a: cs.pcr_r_update(*a, adi=True, maxiter=40),
+            lambda *a: cs.pcr_r_update_state_reference(*a, adi=True,
+                                                       maxiter=40),
+            (*op, x, r, p, Ap, state), 1e-4)}
+    return {k: v for k, v in cases.items() if which is None or k in which}
 
 
 def k2_phase_bound(name: str, args, outs) -> dict:
@@ -885,8 +1038,10 @@ def k2_phase_bound(name: str, args, outs) -> dict:
     outs = outs if isinstance(outs, tuple) else (outs,)
     ins = [a for a in args if torch.is_tensor(a)]
     base = name.split("[")[0]
-    if base in ("pcr_r", "pcr_z"):
-        slots = slice(3, 5) if base == "pcr_r" else slice(1, 3)
+    adi = name.endswith("[adi]")
+    if base in ("pcr_r", "pcr_z", "pcr_r_update"):
+        slots = (slice(1, 5) if adi else slice(3, 5) if base != "pcr_z"
+                 else slice(1, 3))
         ins[0] = ins[0][slots]
         if args[1] is not None:
             ins[1] = ins[1][slots]
@@ -894,13 +1049,18 @@ def k2_phase_bound(name: str, args, outs) -> dict:
     if base in ("finalize", "compact"):
         return bound(moved, ins[-1].numel() if base == "finalize" else
                      ins[0].shape[0])
-    fields = next(t for t in reversed(ins) if t.dtype == torch.float32)
+    fields = next(t for t in reversed(ins)
+                  if t.dtype == torch.float32 and t.ndim == 3)
     nz, nr = fields.shape[-2:]
-    kv = args[1] is not None if base in ("init", "stencil_dot") else True
+    kv = (args[1] is not None if base in ("init", "stencil_dot", "merged_w")
+          else True)
     per_point = {"init": 35 if kv else 21, "stencil_dot": 31 if kv else 17,
+                 "merged_w": 35 if kv else 21,
                  "update": 6, "p_update": 2, "finish": 1,
                  "pcr_r": k2_line_ops() + 2,
-                 "pcr_z": k2_line_ops() + 5}[base]
+                 "pcr_z": k2_line_ops() + 5,
+                 "pcr_r_update": 6 + k2_line_ops() + 2
+                 + (k2_line_ops() + 5 if adi else 0)}[base]
     return bound(moved, per_point * fields.numel())
 
 
@@ -987,6 +1147,8 @@ def sweep_kernel_checks(problem, device, out: dict) -> dict:
               f"bound {tol:.0e}), kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms")
 
+    path_b_checks(A0, Kv, dks[sel].contiguous(), sm[sel].contiguous(), rows)
+
     norm = lambda v: float(torch.linalg.vector_norm(v.double()))
     d64 = lambda *ts: tuple(t.double() for t in ts)
 
@@ -1067,9 +1229,77 @@ def sweep_kernel_checks(problem, device, out: dict) -> dict:
     return rows
 
 
-def _sweep_counts():
+# phase 5: the batch sizes of the main paths at which each tail kernel runs
+# there is held to its plain version: the B = 1024 Jacobi sweep (the first
+# residual with the first scalars, stencil with alpha, update with beta),
+# the B = 256 recording sweep (the r-line start, the fused update and
+# r-line PCR), the B = 64 ADI sweep (the same with the z-line phase)
+PATH_B = {"init[tail]": SWEEP_B, "stencil_dot[alpha]": SWEEP_B,
+          "update[beta]": SWEEP_B, "pcr_r[init]": REC_B,
+          "pcr_r_update": REC_B, "pcr_r_update[adi]": ADI_B}
+# phase 14b: the merged-dot pass with its tail at phase 15's batch size
+MERGED_PATH_B = {"merged_w[tail]": MERGED_B}
+
+
+def path_b_checks(A0, Kv, dks, sm, rows: dict, path_b=PATH_B) -> None:
+    """Phases 5 and 14b, at the paths' batch sizes (``path_b``, tail case
+    -> B): each tail kernel against its plain version on lanes cycled from
+    the given ones, fields from a seeded generator on the card;
+    rows[f"...[B=n]"] with the wrapper's time."""
+    import numpy as np
+    import torch
     from heatflow_tpu_torch.ops import cuda_sweep as cs
-    return dict(phases=cs.phase_launches(),
+    rng = np.random.default_rng(55)
+    gen = torch.Generator(device=A0.device)
+    gen.manual_seed(55)
+    for name, B in path_b.items():
+        reps = -(-B // len(dks))
+        smb = sm.repeat(reps, 1, 1)[:B].contiguous()
+        dkb = dks.repeat(reps)[:B].contiguous()
+        free = (smb != 0).to(torch.float32)
+        field = lambda: (torch.randn(smb.shape, generator=gen,
+                                     device=A0.device) * free).contiguous()
+        x, r, p, b, x0 = field(), field(), field(), field(), field()
+        Ap = cs.stencil_dot_reference(A0, Kv, dkb, smb, p)[0].contiguous()
+        (fn, ref, args, tol), = tail_cases(A0, Kv, dkb, smb, b, x0, x, r, p,
+                                           Ap, rng, (name,)).values()
+        out_p = ref(*args)
+        err, rel = compare_outputs(fn(*args), out_p)
+        require(rel <= tol, (name, B, rel, tol))
+        key = f"cg_batched_tol.{name}[B={B}]"
+        rows[key] = dict(name=key, phase=name.split("[")[0], B=B,
+                         max_abs_err=err, rel=rel,
+                         ms=cuda_ms(lambda: fn(*args), 3),
+                         plain_ms=cuda_ms(lambda: ref(*args), 1),
+                         **k2_phase_bound(name, args, out_p))
+        print(f"sweep phase {name} at B = {B}: max|err| {err:.3e} (rel "
+              f"{rel:.3e}, bound {tol:.0e}), wrapper {rows[key]['ms']:.3f} "
+              f"ms (with its copies), plain {rows[key]['plain_ms']:.3f} ms",
+              flush=True)
+        del x, r, p, b, x0, Ap, smb, args, out_p
+        torch.cuda.empty_cache()
+
+
+# K2 / K3 phase-kernel launches an enqueued iteration, by solve form (the
+# merged-dot recurrence's the same): the operator pass with the alpha tail,
+# the update (identity) or the fused update and r-line PCR with the beta
+# tail, the p update; ADI and adaptive + the z-line phase
+K2_LAUNCHES = dict(identity=3, rline=3, adi=4, adaptive=4, no_kv=3, fixed=3)
+
+
+def _sweep_counts():
+    """K2 / K3 launches since the counters were set to 0: by phase kernel,
+    solves by form, and launches an iteration by form; checks that each
+    form's iteration took its K2_LAUNCHES and that no solve launched the
+    single-phase scalar kernels."""
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+    phases = cs.phase_launches()
+    per_iter = cs.launches_per_iteration()
+    want = {f: K2_LAUNCHES[f.removesuffix("_merged")] for f in per_iter}
+    require(per_iter == want, ("K2 launches an iteration", per_iter, want))
+    require(phases["finalize"] == 0 and phases["finalize_merged"] == 0,
+            ("a solve launched a scalar kernel", phases))
+    return dict(phases=phases, per_iteration=per_iter,
                 identity=cs.cg_batched_tol.launches_identity,
                 rline=cs.cg_batched_tol.launches_rline,
                 adi=cs.cg_batched_tol.launches_adi,
@@ -1171,6 +1401,7 @@ def run_sweep(problem, device, out: dict) -> dict:
         if d_k > 2.0 * d_p + 0.1:
             failed.append(("sweep lane traces", ks[i], d_k, d_p))
     require(not failed, failed)
+    sweep_profile(sweep, f"sweep B = {SWEEP_B}", out, "sweep_split")
     out["sweep"] = dict(B=SWEEP_B, steps=problem.num_steps, run_s=run_s,
                         warm_run_s=warm_s, configs_per_s=cps,
                         iters_mean=float(iters.mean()),
@@ -1747,7 +1978,10 @@ def run_adi_sweeps(problem, device, out: dict):
     out["adi_sweeps"] = runs
     kw = dict(ADI_RECIPES["adi"], solver="vmem", dtype=torch.float32,
               device=device, step_chunk=problem.num_steps)
-    return counts_all, lambda: run_sweep_time_chunked(problem, ks, fs, **kw)
+    adi_sweep = lambda **more: run_sweep_time_chunked(problem, ks, fs, **kw,
+                                                      **more)
+    sweep_profile(adi_sweep, f"adi sweep B = {ADI_B}", out, "adi_split")
+    return counts_all, adi_sweep
 
 
 def vmem_solve_checks(problem, device, out: dict) -> dict:
@@ -2242,6 +2476,7 @@ def merged_sweep_checks(problem, device, out: dict) -> dict:
                        for k in ("rz", "rr", "stop2", "alpha", "beta")},
         k=torch.tensor(rng.integers(0, 50, nb)),
         done=torch.tensor(rng.random(nb) < 0.3))
+    st7 = tail_state(len(live), rng, device)
     fin = lambda fn, first: (lambda: fn(state, parts, first, rtol_s,
                                         preconditioned=True, maxiter=40,
                                         rtol_wrt="b"))
@@ -2254,6 +2489,11 @@ def merged_sweep_checks(problem, device, out: dict) -> dict:
             lambda: cs.merged_w(A0, None, None, sm7, u, r),
             lambda: cs.merged_w_reference(A0, None, None, sm7, u, r),
             nbytes(A0, sm7, u, r, u), 21 * n_pts, 1e-5),
+        "merged_w[tail]": (
+            lambda: cs.merged_w(A0, Kv, dk7, sm7, u, r, st7, maxiter=40),
+            lambda: cs.merged_w_reference(A0, Kv, dk7, sm7, u, r, st7,
+                                          maxiter=40),
+            nbytes(A0, Kv, dk7, sm7, u, r, u, st7, st7), 35 * n_pts, 1e-5),
         "pq_update": (lambda: cs.pq_update(p, q, u, r, beta),
                       lambda: cs.pq_update_reference(p, q, u, r, beta),
                       nbytes(p, q, u, r, p, q), 4 * n_pts, 1e-5),
@@ -2276,6 +2516,7 @@ def merged_sweep_checks(problem, device, out: dict) -> dict:
         print(f"merged sweep phase {name}: max|err| {err:.3e} (rel {rel:.3e}"
               f", bound {tol:.0e}), kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms")
+    path_b_checks(A0, Kv, dk7, sm7, rows, MERGED_PATH_B)
 
     norm = lambda v: float(torch.linalg.vector_norm(v.double()))
     rtol = torch.full((B,), 1e-6, dtype=torch.float32, device=device)
@@ -2526,8 +2767,8 @@ def run_forms_slice(problem, sweep_problem, device, out: dict) -> dict:
     # K2 with the merged recurrence: an adaptive refined sweep (B = 64) and
     # a recording sweep (B = 8: the Kv-free projection), each held to the
     # standard recurrence's traces at the solves' tolerance
-    ks = np.logspace(0.0, 2.0, 64)
-    fs = np.full(64, sweep_problem.fwhm)
+    ks = np.logspace(0.0, 2.0, MERGED_B)
+    fs = np.full(MERGED_B, sweep_problem.fwhm)
     kw = dict(ADI_RECIPES["adaptive"], solver="vmem", dtype=torch.float32,
               device=device, step_chunk=sweep_problem.num_steps)
     tr_std = run_sweep_time_chunked(sweep_problem, ks, fs, **kw)
@@ -2557,8 +2798,8 @@ def run_forms_slice(problem, sweep_problem, device, out: dict) -> dict:
     d_sweep = float(np.abs(tr_m - tr_std).max())
     d_rec = float((rec_m["watch"] - rec_tight["watch"]).abs().max())
     d_rec_std = float((rec_std["watch"] - rec_tight["watch"]).abs().max())
-    print(f"merged K2: adaptive refined sweep B = 64 in {sweep_s:.2f} s = "
-          f"{64 / sweep_s:.3f} configs/s, max |trace difference| from the "
+    print(f"merged K2: adaptive refined sweep B = {MERGED_B} in "
+          f"{sweep_s:.2f} s = {MERGED_B / sweep_s:.3f} configs/s, max |trace difference| from the "
           f"standard recurrence {d_sweep:.3e} K; recording B = 8: "
           f"merged {d_rec:.3e} K, standard {d_rec_std:.3e} K from the same "
           f"recording at rtol 1e-7; launches {k2}")
@@ -3448,8 +3689,13 @@ def main() -> None:
                  "cg_batched_tol[adi]": "adi",
                  "cg_batched_tol[adaptive]": "adaptive"}
     adi_runs = adi_counts + [f["k2_launches"] for f in fit_runs]
+    # the single-phase scalar kernels (ks_finalize, ks_finalize_merged) are
+    # checked in phases 5 and 14 but run on no path: no row of the line
+    scalar = ("finalize", "finalize_merged")
     for name, r in (list(sweep_rows.items()) + list(proj_rows.items())
                     + list(adi_rows.items())):
+        if r.get("phase") in scalar:
+            continue
         runs = (rec_counts if name.endswith("[no_kv]") else
                 adi_runs if name in adi_rows else sweep_counts)
         n = sum(c["phases"][r["phase"]] if "phase" in r
@@ -3475,6 +3721,8 @@ def main() -> None:
                               form_rows["solves"][form]))
     k2 = form_counts["k2"]
     for name, r in merged_rows.items():
+        if r.get("phase") in scalar:
+            continue
         phase = ("merged_w_no_kv" if name.endswith("merged_w[no_kv]")
                  else r.get("phase"))
         kernels.append(kernel(name, SWEEP_SOURCE, K2_REPLACES,

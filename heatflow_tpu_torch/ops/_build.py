@@ -143,8 +143,9 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_mg_vcycle, P, P, P, P, P, P, P)
     # csrc/sweep_cg.cu
     sweep = [P, P, I, P, P, I, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I,
-             I, I, I, I, I, P, P, P, I, P, P]
+             I, I, I, I, I, P, P, P, I, P, P, P]
     _sig(lib.hf_sweep_tiles, I, I)
+    _sig(lib.hf_sweep_tiles2d, I, I)
     _sig(lib.hf_sweep_z_tiles, I, I)
     _sig(lib.hf_sweep_nparts, I, I)
     _sig(lib.hf_sweep_n_rz, I, I, I, I)
@@ -154,17 +155,21 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_sweep_iterate, *sweep, I, I)
     _sig(lib.hf_sweep_compact, P, I, P, P, P, P)
     _sig(lib.hf_sweep_finish, P, P, P, I, I, I, I, P, P)
-    _sig(lib.hf_sweep_init, P, P, I, P, P, I, P, P, P, P, P, P, P, I, I, I,
-         I, P, P)
+    _sig(lib.hf_sweep_init, P, P, I, P, P, I, P, P, P, P, P, P, I, I, I, I,
+         I, P, P, P, I, I, I, P, P)
     _sig(lib.hf_sweep_stencil_dot, P, P, I, P, P, I, P, P, P, P, I, I, I, I,
-         P, P)
-    _sig(lib.hf_sweep_update, P, P, P, P, P, P, P, I, I, I, I, P, P)
-    _sig(lib.hf_sweep_pcr_r, P, P, P, P, I, P, P, P, P, I, I, I, I, P, P)
-    _sig(lib.hf_sweep_pcr_z, P, P, P, P, I, P, P, P, P, I, I, I, I, P, P)
+         I, P, P, P, P)
+    _sig(lib.hf_sweep_update, P, P, P, P, P, P, P, I, P, I, I, I, I, I, I,
+         I, P, P)
+    _sig(lib.hf_sweep_pcr_r, P, P, P, P, I, P, P, P, P, I, I, I, I, I, P, P,
+         P, I, I, I, P, P)
+    _sig(lib.hf_sweep_pcr_r_update, P, P, P, P, I, P, P, P, P, P, P, P, P, I,
+         I, P, I, I, I, I, I, I, I, P, P)
+    _sig(lib.hf_sweep_pcr_z, P, P, P, P, I, P, P, P, P, I, I, I, I, I, P, P)
     _sig(lib.hf_sweep_finalize, P, P, I, I, I, I, I, P, I, I, I, P, I, P, P)
     _sig(lib.hf_sweep_p_update, P, P, P, P, I, I, I, I, P, P)
     _sig(lib.hf_sweep_merged_w, P, P, I, P, P, I, P, P, P, P, P, I, I, I, I,
-         I, P, P)
+         I, P, P, I, I, P, P)
     _sig(lib.hf_sweep_finalize_merged, P, P, I, I, I, I, I, P, I, I, P, I, P,
          P)
     _sig(lib.hf_sweep_pq_update, P, P, P, P, P, P, I, I, I, P, P)

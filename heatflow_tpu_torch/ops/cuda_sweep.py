@@ -32,7 +32,7 @@ from heatflow_tpu_torch.ops.cuda_cg import (_check, _check_rtol_wrt,
                                             _on_cpu, _ptr, _require, _stream)
 from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_apply,
                                               pcr_factor)
-from heatflow_tpu_torch.ops.stencil import apply_combined
+from heatflow_tpu_torch.ops.stencil import apply_combined, offsets_for
 
 CHECK_EVERY = 8   # iterations enqueued between two host reads of the number
                   # of running lanes; the iterates and the counts do not
@@ -40,11 +40,14 @@ CHECK_EVERY = 8   # iterations enqueued between two host reads of the number
 
 PHASES = ("init", "stencil_dot", "update", "pcr_r", "finalize", "p_update",
           "compact", "finish", "init_no_kv", "stencil_dot_no_kv", "pcr_z",
-          "merged_w", "merged_w_no_kv", "finalize_merged", "pq_update")
+          "merged_w", "merged_w_no_kv", "finalize_merged", "pq_update",
+          "pcr_r_update")
 # phase kernel launches, counted by the C host code where it launches them
 _phase_counts = np.zeros(len(PHASES), dtype=np.int64)
 _STATE_WORDS = 6   # float64 words of one lane's solve state
 _MAX_LANES = 65535   # the CUDA grid's y extent
+TILE = (16, 32)    # rows and columns of a tile of the operator passes
+                   # (ks_apply), one partial sum a (lane, tile)
 
 
 def _counts_ptr() -> ctypes.c_void_p:
@@ -57,10 +60,16 @@ def _library():
     from heatflow_tpu_torch.ops._build import load_library
     lib = load_library()
     if (lib.hf_sweep_num_phases() != len(PHASES)
-            or lib.hf_sweep_state_bytes() != 8 * _STATE_WORDS):
+            or lib.hf_sweep_state_bytes() != 8 * _STATE_WORDS
+            or lib.hf_sweep_tiles2d(TILE[0] + 1, TILE[1] + 1) != 4):
         raise RuntimeError("csrc/sweep_cg.cu and ops/cuda_sweep.py disagree "
-                           "on the solve-state layout")
+                           "on the solve-state or tile layout")
     return lib
+
+
+def tiles2d(nz: int, nr: int) -> int:
+    """Tiles of the operator passes on an (nz, nr) grid, row-major."""
+    return -(-nz // TILE[0]) * -(-nr // TILE[1])
 
 
 def phase_launches() -> dict[str, int]:
@@ -74,7 +83,17 @@ def reset_counters() -> None:
                  "launches_adi", "launches_adaptive", "launches_no_kv",
                  "launches_merged"):
         setattr(cg_batched_tol, name, 0)
+    cg_batched_tol.iteration_launches = {}
     cg_batched.launches = 0
+
+
+def launches_per_iteration() -> dict[str, float]:
+    """Phase-kernel launches an enqueued CG iteration, by solve form
+    ('identity', 'rline', 'adi', 'adaptive', 'no_kv', 'fixed', each with
+    '_merged' for the merged-dot recurrence), since the last
+    :func:`reset_counters`."""
+    return {form: n / its for form, (n, its)
+            in cg_batched_tol.iteration_launches.items() if its}
 
 
 _SCALARS = ("rz", "rr", "stop2", "alpha", "beta")   # float64 words 0-4
@@ -141,18 +160,36 @@ def _preconditioner(A0, Kv, dks, sm, rline, adi, adi_flags):
     return pre
 
 
-def stencil_dot_reference(A0, Kv, dks, sm, p):
+def stencil_dot_reference(A0, Kv, dks, sm, p, state=None):
     """(sm·A_b·(sm·p), ⟨p, sm·A_b·(sm·p)⟩ per lane) — the plain stencil-and-
-    dot phase."""
+    dot phase; with a per-lane ``state`` the lanes it marks done read 0 and
+    the others' alpha tail gives the new state, returned last."""
     Ap = sm * apply_combined(A0, Kv, dks, sm * p)
-    return Ap, _dot(p.double(), Ap.double())
+    out = _skip_done(state, Ap, _dot(p.double(), Ap.double()))
+    if state is None:
+        return out
+    return out + (tail_reference(state, _parts4(len(p), p.device,
+                                                pap=out[1]),
+                                 "alpha", rline=False, maxiter=0),)
 
 
-def pcr_r_reference(A0, Kv, dks, sm, r):
+def pcr_r_reference(A0, Kv, dks, sm, r, state=None, rr=None, bb=None,
+                    rtol=0.0, *, maxiter: int = 0, rtol_wrt: str = "b",
+                    fixed: bool = False):
     """(z, ⟨r, z⟩ per lane) for the r-line preconditioner — the plain PCR
-    phase."""
+    phase. With a per-lane ``state`` (and ⟨r, r⟩ ``rr``, ⟨b, b⟩ ``bb`` per
+    lane), the start of an r-line solve: the lanes the state marks done
+    read 0 and keep their state, the others get the r-line form's first
+    scalars (tail mode 'init'); the new state is returned last."""
     z = rline_reference(A0, Kv, dks, sm)(r)
-    return z, _dot(r.double(), z.double())
+    out = _skip_done(state, z, _dot(r.double(), z.double()))
+    if state is None:
+        return out
+    run = torch.nonzero(unpack_state(state)["done"] == 0).flatten()
+    return out + (tail_reference(
+        state, _parts4(len(r), r.device, rr=rr, rz=out[1], bb=bb), "init",
+        rtol, lanes=run, rline=True, maxiter=maxiter, rtol_wrt=rtol_wrt,
+        fixed=fixed),)
 
 
 def pcr_z_reference(A0, Kv, dks, sm, r, z_r):
@@ -163,12 +200,149 @@ def pcr_z_reference(A0, Kv, dks, sm, r, z_r):
     return z, _dot(r.double(), z.double())
 
 
-def init_reference(A0, Kv, dks, sm, b, x0):
+def pcr_r_update_reference(A0, Kv, dks, sm, x, r, p, Ap, alpha, *,
+                           adi: bool = False):
+    """(x + α·p, r' = r − α·Ap, z = M⁻¹ r', ⟨r', r'⟩, ⟨r', z⟩ per lane) —
+    the plain fused update and preconditioner phase (``ks_pcr_r<true>``, and
+    with ``adi`` the z-line phase after it): :func:`update_reference`, then
+    :func:`pcr_r_reference` (and :func:`pcr_z_reference`)."""
+    x_n, r_n, rr = update_reference(x, r, p, Ap, alpha)
+    z, rz = pcr_r_reference(A0, Kv, dks, sm, r_n)
+    if adi:
+        z, rz = pcr_z_reference(A0, Kv, dks, sm, r_n, z)
+    return x_n, r_n, z, rr, rz
+
+
+def pcr_r_update_state_reference(A0, Kv, dks, sm, x, r, p, Ap, state, *,
+                                 adi: bool = False, maxiter: int = 0,
+                                 fixed: bool = False, tail: bool = True):
+    """:func:`pcr_r_update_reference` with α from each lane's state, a lane
+    the state marks done left as it is (z and its dots 0), and with
+    ``tail`` the beta tail: (x', r', z, ⟨r', r'⟩, ⟨r', z⟩, new state)."""
+    f = unpack_state(state)
+    out = pcr_r_update_reference(A0, Kv, dks, sm, x, r, p, Ap, f["alpha"],
+                                 adi=adi)
+    run = _lane(f["done"] == 0)
+    x_n, r_n = torch.where(run, out[0], x), torch.where(run, out[1], r)
+    z, rr, rz = _skip_done(state, *out[2:])
+    st = (tail_reference(state, _parts4(len(x), x.device, rr=rr, rz=rz),
+                         "beta", rline=True, maxiter=maxiter, fixed=fixed)
+          if tail else state.clone())
+    return x_n, r_n, z, rr, rz, st
+
+
+def apply_blocked_reference(A0, Kv, dks, sm, v, lanes=None):
+    """The lane-blocked operator pass as its kernel tiles it: for the
+    entries of ``lanes`` (default every lane) the coefficients A0 + dk·Kv,
+    sv = sm·v over the grid with a zero halo, and s = sm·A_b·sv at every
+    point, in the offset order of ``ops/stencil.py``. Returns (s (B, Nz,
+    Nr), zero on the lanes not listed, and the partial sums of ⟨v, s⟩
+    (B, tiles2d) in float64, one a (lane, tile) of :data:`TILE`)."""
+    B, nz, nr = v.shape
+    lanes = (torch.arange(B) if lanes is None
+             else torch.as_tensor(lanes).long())
+    out = torch.zeros_like(v)
+    ty, tx = TILE
+    nty, ntx = -(-nz // ty), -(-nr // tx)
+    parts = torch.zeros((B, nty * ntx), dtype=torch.float64)
+    smg = sm[lanes] if sm.ndim == 3 else sm.expand(len(lanes), nz, nr)
+    sv = torch.nn.functional.pad(smg * v[lanes], (1, 1, 1, 1))
+    coef = (A0[None] if Kv is None
+            else A0[None] + dks[lanes][:, None, None, None] * Kv[None])
+    acc = None
+    for k, (di, dj) in enumerate(offsets_for(A0.shape[0])):
+        term = coef[:, k] * sv[:, 1 + di:1 + di + nz, 1 + dj:1 + dj + nr]
+        acc = term if acc is None else acc + term
+    s = smg * acc
+    out[lanes] = s
+    prod = torch.nn.functional.pad((v[lanes] * s).double(),
+                                   (0, ntx * tx - nr, 0, nty * ty - nz))
+    parts[lanes] = prod.reshape(len(lanes), nty, ty, ntx, tx) \
+        .sum(dim=(2, 4)).reshape(len(lanes), -1)
+    return out, parts
+
+
+TAIL_MODES = ("init", "alpha", "beta", "merged_first", "merged")
+
+
+def tail_reference(state, parts, mode: str, rtol=0.0, *, lanes=None,
+                   flags=None, flag_sel: int = -1, rline: bool,
+                   maxiter: int, rtol_wrt: str = "b",
+                   fixed: bool = False) -> torch.Tensor:
+    """The per-lane tail of a phase kernel on a state (B, 6) and partial
+    sums parts (4, B, n): the lanes the kernel works on (those of ``lanes``,
+    default every lane; a done lane only in mode 'init'; with ``flag_sel``
+    >= 0 only the lanes whose flag is (flag_sel != 0)) get the scalar rule
+    of :func:`finalize_reference` ('init', 'alpha', 'beta') or of
+    :func:`finalize_merged_reference` ('merged_first', 'merged'); the other
+    lanes are left as they are. Returns the new state."""
+    if mode not in TAIL_MODES:
+        raise ValueError(f"tail mode must be one of {TAIL_MODES}")
+    B = state.shape[0]
+    on = torch.zeros(B, dtype=torch.bool, device=state.device)
+    on[torch.arange(B) if lanes is None else torch.as_tensor(lanes).long()] \
+        = True
+    if mode not in ("init", "merged_first"):
+        on &= unpack_state(state)["done"] == 0
+    if flag_sel >= 0:
+        on &= (torch.as_tensor(flags, device=state.device) != 0) \
+            == bool(flag_sel)
+    if mode.startswith("merged"):
+        new = finalize_merged_reference(state, parts, mode == "merged_first",
+                                        rtol, preconditioned=rline,
+                                        maxiter=maxiter, rtol_wrt=rtol_wrt)
+    else:
+        new = finalize_reference(state, parts, mode, rtol, rline=rline,
+                                 maxiter=maxiter, rtol_wrt=rtol_wrt,
+                                 fixed=fixed)
+    return torch.where(on[:, None], new, state)
+
+
+def _parts4(B, device, pap=None, rr=None, rz=None, bb=None) -> torch.Tensor:
+    """(4, B, 1) partial sums of pAp, rr, rz, bb from per-lane sums."""
+    zero = torch.zeros(B, dtype=torch.float64, device=device)
+    return torch.stack([zero if t is None else t.double()
+                        for t in (pap, rr, rz, bb)])[..., None]
+
+
+def _skip_done(state, *outs):
+    """The plain phase's outputs with the lanes that a state marks done
+    zeroed (fields) or set to 0 (sums): the kernels skip those lanes."""
+    if state is None:
+        return outs
+    run = unpack_state(state)["done"] == 0
+    return tuple(torch.where(_lane(run) if o.ndim == 3 else run, o,
+                             torch.zeros_like(o)) for o in outs)
+
+
+def init_reference(A0, Kv, dks, sm, b, x0, state=None, rtol=0.0, *,
+                   maxiter: int = 0, rtol_wrt: str = "b",
+                   fixed: bool = False):
     """(x = x0, r = b − sm·A_b·(sm·x0), ⟨r, r⟩, ⟨b, b⟩ per lane) — the plain
-    first-residual phase."""
+    first-residual phase; with a per-lane ``state`` also the identity
+    form's first scalars (tail mode 'init'), the new state returned last."""
     r = b - sm * apply_combined(A0, Kv, dks, sm * x0)
-    return x0.clone(), r, _dot(r.double(), r.double()), \
-        _dot(b.double(), b.double())
+    out = (x0.clone(), r, _dot(r.double(), r.double()),
+           _dot(b.double(), b.double()))
+    if state is None:
+        return out
+    return out + (tail_reference(
+        state, _parts4(len(b), b.device, rr=out[2], bb=out[3]), "init", rtol,
+        rline=False, maxiter=maxiter, rtol_wrt=rtol_wrt, fixed=fixed),)
+
+
+def update_beta_reference(x, r, p, Ap, state, *, maxiter: int,
+                          fixed: bool = False):
+    """(x', r', ⟨r', r'⟩, new state): :func:`update_reference` with α from
+    each lane's state, then the identity form's beta tail; a lane the state
+    marks done is left as it is (its dot 0)."""
+    f = unpack_state(state)
+    x_n, r_n, rr = update_reference(x, r, p, Ap, f["alpha"])
+    run = _lane(f["done"] == 0)
+    (rr,) = _skip_done(state, rr)
+    return (torch.where(run, x_n, x), torch.where(run, r_n, r), rr,
+            tail_reference(state, _parts4(len(x), x.device, rr=rr), "beta",
+                           rline=False, maxiter=maxiter, fixed=fixed))
 
 
 def update_reference(x, r, p, Ap, alpha):
@@ -358,12 +532,20 @@ def _merged_reference(apply_op, precond, b, x, r, rt, k, maxiter, rtol_wrt,
     return x, k
 
 
-def merged_w_reference(A0, Kv, dks, sm, u, r):
+def merged_w_reference(A0, Kv, dks, sm, u, r, state=None, *,
+                       preconditioned: bool = True, maxiter: int = 0):
     """(w = sm·A_b·(sm·u), δ = ⟨w, u⟩, ⟨r, r⟩, γ = ⟨r, u⟩ per lane) — the
-    plain merged-dot pass; the sums are float64."""
+    plain merged-dot pass; the sums are float64. With a per-lane ``state``
+    the lanes it marks done read 0 and the others' merged tail (a later
+    step) gives the new state, returned last."""
     w = sm * apply_combined(A0, Kv, dks, sm * u)
     d = lambda a, c: _dot(a.double(), c.double())
-    return w, d(w, u), d(r, r), d(r, u)
+    out = _skip_done(state, w, d(w, u), d(r, r), d(r, u))
+    if state is None:
+        return out
+    return out + (tail_reference(
+        state, _parts4(len(u), u.device, pap=out[1], rr=out[2], rz=out[3]),
+        "merged", rline=preconditioned, maxiter=maxiter),)
 
 
 def pq_update_reference(p, q, u, w, beta):
@@ -464,6 +646,7 @@ class _Solve:
         self.lanes = torch.arange(B, dtype=torch.int32, device=dev)
         self.count = torch.empty((), dtype=torch.int32, device=dev)
         self.iters = torch.empty(B, dtype=torch.int32, device=dev)
+        self.tickets = torch.empty(B, dtype=torch.int32, device=dev)
         self.stream = _stream()
         self._keep = (vecs, rtol_t, flags)
         self.args = (_ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm),
@@ -473,14 +656,20 @@ class _Solve:
                      _ptr(self.state), _ptr(self.lanes), B, nz, nr,
                      int(maxiter), int(wrt_r0), int(rline), int(fixed),
                      int(adi), _ptr(flags), _counts_ptr(), self.stream,
-                     int(merged), _ptr(q), _ptr(w))
+                     int(merged), _ptr(q), _ptr(w), _ptr(self.tickets))
 
     def start(self):
         _check(self.lib.hf_sweep_start(*self.args), "sweep start")
 
-    def iterate(self, n_iter: int, n_lanes: int):
+    def iterate(self, n_iter: int, n_lanes: int, form: str):
+        """Enqueue n_iter iterations; their launches count under ``form``
+        (see :func:`launches_per_iteration`)."""
+        before = int(_phase_counts.sum())
         _check(self.lib.hf_sweep_iterate(*self.args, n_iter, n_lanes),
                "sweep iterate")
+        acc = cg_batched_tol.iteration_launches.setdefault(form, [0, 0])
+        acc[0] += int(_phase_counts.sum()) - before
+        acc[1] += n_iter
 
     def running(self) -> int:
         """Compact the running lanes to the front of the lane list; returns
@@ -548,9 +737,10 @@ def cg_batched_tol(A0: torch.Tensor, Kv: torch.Tensor | None,
     solve.start()
     n_lanes = solve.running()
     launched = 0
+    tag = form[len("launches_"):] + ("_merged" if merged else "")
     while n_lanes and launched < maxiter:
         n = min(CHECK_EVERY, maxiter - launched)
-        solve.iterate(n, n_lanes)
+        solve.iterate(n, n_lanes, tag)
         launched += n
         n_lanes = solve.running()
     solve.finish(poison=True)
@@ -564,6 +754,7 @@ cg_batched_tol.launches_adi = 0
 cg_batched_tol.launches_adaptive = 0
 cg_batched_tol.launches_no_kv = 0
 cg_batched_tol.launches_merged = 0
+cg_batched_tol.iteration_launches = {}
 
 
 def cg_batched(A0: torch.Tensor, Kv: torch.Tensor, dks: torch.Tensor,
@@ -581,7 +772,7 @@ def cg_batched(A0: torch.Tensor, Kv: torch.Tensor, dks: torch.Tensor,
     cg_batched.launches += 1
     solve.start()
     if iters > 0:
-        solve.iterate(iters, B)
+        solve.iterate(iters, B, "fixed")
     solve.finish(poison=False)
     return solve.x
 
@@ -617,44 +808,69 @@ def _check_state(state, device) -> int:
     return state.shape[0]
 
 
-def _lane_sums(lib, part, nz, nr):
-    return part[..., :lib.hf_sweep_tiles(nz, nr)].sum(dim=-1)
+def _parts(B, nparts, device) -> torch.Tensor:
+    """Four zeroed partial-sum planes (pAp, rr, rz, bb) of B x nparts."""
+    return torch.zeros((4, B, nparts), dtype=torch.float64, device=device)
 
 
-def init(A0, Kv, dks, sm, b, x0):
+def _tail_args(state, B, device):
+    """(new state, tickets) of a phase with a tail: a copy of ``state``
+    that the kernel updates and B zero tickets; (None, None) without."""
+    if state is None:
+        return None, None
+    if _check_state(state, device) != B:
+        raise ValueError(f"state has {state.shape[0]} lanes, the fields {B}")
+    return state.clone(), torch.zeros(B, dtype=torch.int32, device=device)
+
+
+def init(A0, Kv, dks, sm, b, x0, state=None, rtol=0.0, *, maxiter: int = 0,
+         rtol_wrt: str = "b", fixed: bool = False):
     """The first-residual phase alone: (x, r, ⟨r, r⟩, ⟨b, b⟩ per lane) with
     r = b − sm·A_b·(sm·x0); the dots are float64. ``Kv=dks=None``: the
-    Kv-free form."""
+    Kv-free form. With a per-lane ``state``, also the identity form's tail
+    (the first step's scalars, :func:`tail_reference` mode 'init'): the new
+    state is returned last."""
     if _on_cpu(A0, Kv, dks, sm, b, x0):
-        return init_reference(A0, Kv, dks, sm, b, x0)
+        return init_reference(A0, Kv, dks, sm, b, x0, state, rtol,
+                              maxiter=maxiter, rtol_wrt=rtol_wrt,
+                              fixed=fixed)
+    _check_rtol_wrt(rtol_wrt)
     lib, B, nz, nr, nparts, lanes = _phase_setup({"b": b, "x0": x0}, A0, Kv,
                                                  dks, sm)
     x, r = torch.empty_like(b), torch.empty_like(b)
-    part = torch.empty((2, B, nparts), dtype=torch.float64, device=b.device)
+    parts = _parts(B, nparts, b.device)
+    st, tickets = _tail_args(state, B, b.device)
+    rtol_t = _rtol_lanes(rtol, B, torch.float32, b.device).contiguous()
     _check(lib.hf_sweep_init(
         _ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm),
-        int(sm.ndim == 3), _ptr(b), _ptr(x0), _ptr(x), _ptr(r),
-        _ptr(part[0]), _ptr(part[1]),
-        _ptr(lanes), B, nz, nr, nparts, _counts_ptr(), _stream()),
-        "sweep init")
-    rr, bb = _lane_sums(lib, part, nz, nr)
-    return x, r, rr, bb
+        int(sm.ndim == 3), _ptr(b), _ptr(x0), _ptr(x), _ptr(r), _ptr(parts),
+        _ptr(lanes), B, B, nz, nr, nparts, _ptr(st), _ptr(tickets),
+        _ptr(rtol_t), int(maxiter), int(rtol_wrt == "r0"), int(fixed),
+        _counts_ptr(), _stream()), "sweep init")
+    n = lib.hf_sweep_tiles2d(nz, nr)
+    out = (x, r, parts[1, :, :n].sum(dim=1), parts[3, :, :n].sum(dim=1))
+    return out if st is None else out + (st,)
 
 
-def stencil_dot(A0, Kv, dks, sm, p):
+def stencil_dot(A0, Kv, dks, sm, p, state=None):
     """The stencil-and-dot phase alone: (Ap, ⟨p, Ap⟩ per lane) with
     Ap = sm·A_b·(sm·p); the dots are float64. ``Kv=dks=None``: the Kv-free
-    form."""
+    form. With a per-lane ``state``, the lanes it marks done are skipped
+    (Ap and the dot 0) and the others get the alpha tail: the new state is
+    returned last."""
     if _on_cpu(A0, Kv, dks, sm, p):
-        return stencil_dot_reference(A0, Kv, dks, sm, p)
+        return stencil_dot_reference(A0, Kv, dks, sm, p, state)
     lib, B, nz, nr, nparts, lanes = _phase_setup({"p": p}, A0, Kv, dks, sm)
-    Ap = torch.empty_like(p)
-    part = torch.empty((B, nparts), dtype=torch.float64, device=p.device)
+    Ap = torch.zeros_like(p)
+    parts = _parts(B, nparts, p.device)
+    st, tickets = _tail_args(state, B, p.device)
     _check(lib.hf_sweep_stencil_dot(
         _ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm),
-        int(sm.ndim == 3), _ptr(p), _ptr(Ap), _ptr(part), _ptr(lanes), B, nz,
-        nr, nparts, _counts_ptr(), _stream()), "sweep stencil_dot")
-    return Ap, _lane_sums(lib, part, nz, nr)
+        int(sm.ndim == 3), _ptr(p), _ptr(Ap), _ptr(parts), _ptr(lanes), B, B,
+        nz, nr, nparts, _ptr(st), _ptr(tickets), _counts_ptr(), _stream()),
+        "sweep stencil_dot")
+    pap = parts[0, :, :lib.hf_sweep_tiles2d(nz, nr)].sum(dim=1)
+    return (Ap, pap) if st is None else (Ap, pap, st)
 
 
 def update(x, r, p, Ap, alpha):
@@ -662,32 +878,92 @@ def update(x, r, p, Ap, alpha):
     α (B,) float64; the inputs are left as they are."""
     if _on_cpu(x, r, p, Ap, alpha):
         return update_reference(x, r, p, Ap, alpha)
+    x_n, r_n, rr, _ = _update(x, r, p, Ap,
+                              pack_state(x.shape[0], x.device, alpha=alpha),
+                              tail=False, maxiter=0, fixed=False)
+    return x_n, r_n, rr
+
+
+def update_beta(x, r, p, Ap, state, *, maxiter: int, fixed: bool = False):
+    """The update phase with the identity form's beta tail: (x + α·p,
+    r' = r − α·Ap, ⟨r', r'⟩, new state) with α from each lane's state; a
+    lane the state marks done is left as it is (its dot 0)."""
+    if _on_cpu(x, r, p, Ap, state):
+        return update_beta_reference(x, r, p, Ap, state, maxiter=maxiter,
+                                     fixed=fixed)
+    return _update(x, r, p, Ap, state, tail=True, maxiter=maxiter,
+                   fixed=fixed)
+
+
+def _update(x, r, p, Ap, state, *, tail, maxiter, fixed):
     lib, B, nz, nr, nparts, lanes = _phase_setup(
         {"x": x, "r": r, "p": p, "Ap": Ap})
     x_n, r_n = x.clone(), r.clone()
-    state = pack_state(B, x.device, alpha=alpha)
-    part = torch.empty((B, nparts), dtype=torch.float64, device=x.device)
+    parts = _parts(B, nparts, x.device)
+    st, tickets = _tail_args(state, B, x.device)
     _check(lib.hf_sweep_update(
-        _ptr(x_n), _ptr(r_n), _ptr(p), _ptr(Ap), _ptr(part), _ptr(state),
-        _ptr(lanes), B, nz, nr, nparts, _counts_ptr(), _stream()),
-        "sweep update")
-    return x_n, r_n, _lane_sums(lib, part, nz, nr)
+        _ptr(x_n), _ptr(r_n), _ptr(p), _ptr(Ap), _ptr(parts), _ptr(st),
+        _ptr(tickets), int(tail), _ptr(lanes), B, B, nz, nr, nparts,
+        int(maxiter), int(fixed), _counts_ptr(), _stream()), "sweep update")
+    return x_n, r_n, parts[1, :, :lib.hf_sweep_tiles(nz, nr)].sum(dim=1), st
 
 
-def pcr_r(A0, Kv, dks, sm, r):
+def pcr_r(A0, Kv, dks, sm, r, state=None, rr=None, bb=None, rtol=0.0, *,
+          maxiter: int = 0, rtol_wrt: str = "b", fixed: bool = False):
     """The r-line PCR phase alone: (z, ⟨r, z⟩ per lane); the dots are
-    float64."""
-    if _on_cpu(A0, Kv, dks, sm, r):
-        return pcr_r_reference(A0, Kv, dks, sm, r)
+    float64. With a per-lane ``state`` and ⟨r, r⟩ ``rr``, ⟨b, b⟩ ``bb``
+    (B,) float64, the start of an r-line solve (see
+    :func:`pcr_r_reference`): the new state is returned last."""
+    _check_rtol_wrt(rtol_wrt)
+    if state is not None and (rr is None or bb is None):
+        raise ValueError("the start's tail needs rr and bb with the state")
+    if _on_cpu(A0, Kv, dks, sm, r, state, rr, bb):
+        return pcr_r_reference(A0, Kv, dks, sm, r, state, rr, bb, rtol,
+                               maxiter=maxiter, rtol_wrt=rtol_wrt,
+                               fixed=fixed)
     lib, B, nz, nr, nparts, lanes = _phase_setup({"r": r}, A0, Kv, dks, sm)
-    z = torch.empty_like(r)
-    part = torch.empty((B, nparts), dtype=torch.float64, device=r.device)
+    z = torch.zeros_like(r)
+    parts = _parts(B, nparts, r.device)
+    st, tickets = _tail_args(state, B, r.device)
+    rtol_t = None
+    if st is not None:
+        parts[1, :, 0], parts[3, :, 0] = rr, bb
+        rtol_t = _rtol_lanes(rtol, B, torch.float32, r.device).contiguous()
     _check(lib.hf_sweep_pcr_r(
         _ptr(A0), _ptr(Kv), _ptr(dks), _ptr(sm), int(sm.ndim == 3), _ptr(r),
-        _ptr(z),
-        _ptr(part), _ptr(lanes), B, nz, nr, nparts, _counts_ptr(),
-        _stream()), "sweep pcr_r")
-    return z, part[:, :nz].sum(dim=1)
+        _ptr(z), _ptr(parts), _ptr(lanes), B, B, nz, nr, nparts, _ptr(st),
+        _ptr(tickets), _ptr(rtol_t), int(maxiter), int(rtol_wrt == "r0"),
+        int(fixed), _counts_ptr(), _stream()), "sweep pcr_r")
+    rz = parts[2, :, :nz].sum(dim=1)
+    return (z, rz) if st is None else (z, rz, st)
+
+
+def pcr_r_update(A0, Kv, dks, sm, x, r, p, Ap, state, *, adi: bool = False,
+                 maxiter: int = 0, fixed: bool = False, tail: bool = True):
+    """The fused update and r-line PCR (``ks_pcr_r<true>``; with ``adi``
+    the z-line phase after it, as an ADI iteration runs them):
+    (x + α·p, r' = r − α·Ap, z = M⁻¹ r', ⟨r', r'⟩, ⟨r', z⟩, new state) with α
+    from each lane's state and, with ``tail``, the beta tail in the kernel
+    that writes ⟨r', z⟩ last; a lane the state marks done is left as it is
+    (z and its dots 0). The inputs are left as they are."""
+    if _on_cpu(A0, Kv, dks, sm, x, r, p, Ap, state):
+        return pcr_r_update_state_reference(A0, Kv, dks, sm, x, r, p, Ap,
+                                            state, adi=adi, maxiter=maxiter,
+                                            fixed=fixed, tail=tail)
+    lib, B, nz, nr, nparts, lanes = _phase_setup(
+        {"x": x, "r": r, "p": p, "Ap": Ap}, A0, Kv, dks, sm)
+    x_n, r_n, z = x.clone(), r.clone(), torch.zeros_like(r)
+    parts = _parts(B, nparts, x.device)
+    st, tickets = _tail_args(state, B, x.device)
+    _check(lib.hf_sweep_pcr_r_update(
+        _ptr(A0), _ptr(Kv), _ptr(dks), _ptr(sm), int(sm.ndim == 3),
+        _ptr(x_n), _ptr(r_n), _ptr(p), _ptr(Ap), _ptr(z), _ptr(parts),
+        _ptr(st), _ptr(tickets), int(tail), int(adi), _ptr(lanes), B, B, nz,
+        nr, nparts, int(maxiter), int(fixed), _counts_ptr(), _stream()),
+        "sweep pcr_r_update")
+    n_rz = lib.hf_sweep_n_rz(nz, nr, 1, int(adi))
+    return (x_n, r_n, z, parts[1, :, :nz].sum(dim=1),
+            parts[2, :, :n_rz].sum(dim=1), st)
 
 
 def pcr_z(A0, Kv, dks, sm, r, z_r):
@@ -699,12 +975,12 @@ def pcr_z(A0, Kv, dks, sm, r, z_r):
     lib, B, nz, nr, nparts, lanes = _phase_setup({"r": r, "z_r": z_r}, A0,
                                                  Kv, dks, sm)
     z = z_r.clone()
-    part = torch.empty((B, nparts), dtype=torch.float64, device=r.device)
+    parts = _parts(B, nparts, r.device)
     _check(lib.hf_sweep_pcr_z(
         _ptr(A0), _ptr(Kv), _ptr(dks), _ptr(sm), int(sm.ndim == 3), _ptr(r),
-        _ptr(z), _ptr(part), _ptr(lanes), B, nz, nr, nparts, _counts_ptr(),
-        _stream()), "sweep pcr_z")
-    return z, part[:, :lib.hf_sweep_z_tiles(nz, nr)].sum(dim=1)
+        _ptr(z), _ptr(parts), _ptr(lanes), B, B, nz, nr, nparts,
+        _counts_ptr(), _stream()), "sweep pcr_z")
+    return z, parts[2, :, :lib.hf_sweep_z_tiles(nz, nr)].sum(dim=1)
 
 
 def finalize(state, parts, mode: str, rtol=0.0, *, rline: bool,
@@ -752,22 +1028,30 @@ def p_update(p, z, beta):
     return p_n
 
 
-def merged_w(A0, Kv, dks, sm, u, r):
+def merged_w(A0, Kv, dks, sm, u, r, state=None, *,
+             preconditioned: bool = True, maxiter: int = 0):
     """The merged-dot pass alone: (w = sm·A_b·(sm·u), δ = ⟨w, u⟩, ⟨r, r⟩,
-    γ = ⟨r, u⟩ per lane); the sums are float64."""
+    γ = ⟨r, u⟩ per lane); the sums are float64. With a per-lane ``state``,
+    the lanes it marks done are skipped (w and the sums 0) and the others
+    get the merged recurrence's tail (a later step's scalars): the new
+    state is returned last."""
     if _on_cpu(A0, Kv, dks, sm, u, r):
-        return merged_w_reference(A0, Kv, dks, sm, u, r)
+        return merged_w_reference(A0, Kv, dks, sm, u, r, state,
+                                  preconditioned=preconditioned,
+                                  maxiter=maxiter)
     lib, B, nz, nr, nparts, lanes = _phase_setup({"u": u, "r": r}, A0, Kv,
                                                  dks, sm)
-    w = torch.empty_like(u)
-    parts = torch.empty((3, B, nparts), dtype=torch.float64, device=u.device)
+    w = torch.zeros_like(u)
+    parts = _parts(B, nparts, u.device)
+    st, tickets = _tail_args(state, B, u.device)
     _check(lib.hf_sweep_merged_w(
         _ptr(A0), _ptr(Kv), A0.shape[0], _ptr(dks), _ptr(sm),
         int(sm.ndim == 3), _ptr(u), _ptr(r), _ptr(w), _ptr(parts),
-        _ptr(lanes), B, B, nz, nr, nparts, _counts_ptr(), _stream()),
+        _ptr(lanes), B, B, nz, nr, nparts, _ptr(st), _ptr(tickets),
+        int(preconditioned), int(maxiter), _counts_ptr(), _stream()),
         "sweep merged_w")
-    delta, rr, gamma = _lane_sums(lib, parts, nz, nr)
-    return w, delta, rr, gamma
+    delta, rr, gamma = parts[:3, :, :lib.hf_sweep_tiles2d(nz, nr)].sum(dim=-1)
+    return (w, delta, rr, gamma) if st is None else (w, delta, rr, gamma, st)
 
 
 def pq_update(p, q, u, w, beta):

@@ -640,3 +640,441 @@ def test_cuda_phase_kernels_match_plain(batch):
     counts = cuda_sweep.phase_launches()
     assert counts["finalize"] == 3 and counts["update"] == 1
     assert counts["pcr_z"] == 1
+
+
+# ----------------------------------------------------------------------
+# The redesigned phases: the fused update and r-line PCR, the lane-blocked
+# operator pass and the per-lane tails, on a 12 x 17 grid of five lanes
+# (one NaN, one that converges first)
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small():
+    """Five lanes of a random symmetric 7-point operator A0 + dk_b·Kv on a
+    12 x 17 grid (edge conductances and a mass term), a Dirichlet pattern,
+    lane 3's coefficient NaN, float64 torch tensors."""
+    rng = np.random.default_rng(12)
+    nz, nr, B = 12, 17, 5
+
+    def laplacian():
+        cz = rng.uniform(0.5, 1.5, (nz - 1, nr))
+        cr = rng.uniform(0.5, 1.5, (nz, nr - 1))
+        cd = rng.uniform(0.0, 0.2, (nz - 1, nr - 1))
+        A = np.zeros((7, nz, nr))
+        A[1, :-1], A[2, 1:] = -cz, -cz
+        A[3, :, :-1], A[4, :, 1:] = -cr, -cr
+        A[5, :-1, :-1], A[6, 1:, 1:] = -cd, -cd
+        A[0] = -A[1:].sum(axis=0)
+        return A
+    A0 = laplacian()
+    A0[0] += 0.3
+    Kv = laplacian()
+    dks = np.array([0.5, 1.0, 2.0, np.nan, 4.0])
+    free = (rng.random((nz, nr)) > 0.1).astype(float)
+    diag = A0[0][None] + dks[:, None, None] * Kv[0][None]
+    sm = np.where(np.isfinite(diag) & (diag > 0),
+                  1.0 / np.sqrt(np.abs(diag)), 1.0) * free
+    field = lambda: rng.standard_normal((B, nz, nr)) * free
+    t = {k: torch.tensor(v) for k, v in dict(
+        A0=A0, Kv=Kv, dks=dks, sm=sm, free=np.broadcast_to(free, (B, nz, nr)),
+        x=field(), r=field(), p=field(), b=field(), x0=field()).items()}
+    t["Ap"] = cuda_sweep.stencil_dot_reference(t["A0"], t["Kv"], t["dks"],
+                                               t["sm"], t["p"])[0]
+    lanes = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, B))
+    t["state"] = cuda_sweep.pack_state(
+        B, "cpu", rz=lanes(0.5, 2.0), rr=lanes(0.5, 2.0),
+        stop2=torch.tensor([1e-3, 1e-3, 1e-3, 1e-3, 50.0]),
+        alpha=lanes(0.1, 1.0), beta=lanes(0.1, 1.0), k=[2, 3, 4, 5, 6],
+        done=[0, 1, 0, 0, 0])
+    return t
+
+
+def _same(a, b):
+    """Equal values, NaN where NaN."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def _op(t):
+    return t["A0"], t["Kv"], t["dks"], t["sm"]
+
+
+@pytest.mark.parametrize("adi", [False, True], ids=["rline", "adi"])
+def test_pcr_r_update_reference_is_update_then_pcr_r(small, adi):
+    """The fused phase's plain version is update_reference, then the r-line
+    solve (and the z-line phase with adi) on the updated residual."""
+    t = small
+    alpha = torch.tensor([0.3, 0.7, 1.1, 0.2, 0.9])
+    got = cuda_sweep.pcr_r_update_reference(*_op(t), t["x"], t["r"], t["p"],
+                                            t["Ap"], alpha, adi=adi)
+    x_n, r_n, rr = cuda_sweep.update_reference(t["x"], t["r"], t["p"],
+                                               t["Ap"], alpha)
+    z, rz = cuda_sweep.pcr_r_reference(*_op(t), r_n)
+    if adi:
+        z, rz = cuda_sweep.pcr_z_reference(*_op(t), r_n, z)
+    for a, b in zip(got, (x_n, r_n, z, rr, rz), strict=True):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.parametrize("adi", [False, True], ids=["rline", "adi"])
+def test_pcr_r_update_with_state_skips_done_lanes_and_takes_beta(small, adi):
+    """The fused phase on a per-lane state: alpha from the state, a done
+    lane left as it is, and the beta tail of finalize_reference on the
+    others."""
+    t = small
+    st = t["state"]
+    x_n, r_n, z, rr, rz, st_n = cuda_sweep.pcr_r_update(
+        *_op(t), t["x"], t["r"], t["p"], t["Ap"], st, adi=adi, maxiter=9)
+    f = cuda_sweep.unpack_state(st)
+    want = cuda_sweep.pcr_r_update_reference(
+        *_op(t), t["x"], t["r"], t["p"], t["Ap"], f["alpha"], adi=adi)
+    live = [0, 2, 4]
+    for a, b in zip((x_n, r_n, z, rr, rz), want):
+        assert _same(a[live], b[live])
+    assert torch.equal(x_n[1], t["x"][1]) and torch.equal(r_n[1], t["r"][1])
+    assert float(rr[1]) == 0.0 and not z[1].any()
+    parts = torch.stack([torch.zeros(5), rr, rz, torch.zeros(5)])[..., None]
+    fin = cuda_sweep.finalize_reference(st, parts, "beta", rline=True,
+                                        maxiter=9)
+    assert _same(st_n, fin)
+    g = cuda_sweep.unpack_state(st_n)
+    assert g["k"].tolist() == [3, 3, 5, 6, 7]
+    assert g["done"].tolist()[:3] == [0, 1, 0]
+
+
+@pytest.mark.parametrize("L", [4, 8, 16])
+@pytest.mark.parametrize("lanes", [None, [0, 2, 3, 4], [4, 1]],
+                         ids=["all", "four", "two"])
+def test_apply_blocked_reference_is_stencil_dot_lane_by_lane(small, L,
+                                                             lanes):
+    """The lane-blocked pass equals stencil_dot_reference on every listed
+    lane; the others stay 0; one partial a tile of TILE, summing to
+    <p, Ap>. The lane list cut into groups of L entries (the list not a
+    multiple of L) gives the same bits on every lane: a lane's result does
+    not depend on the lanes listed with it."""
+    t = small
+    out, parts = cuda_sweep.apply_blocked_reference(*_op(t), t["p"], lanes)
+    Ap, pap = cuda_sweep.stencil_dot_reference(*_op(t), t["p"])
+    listed = list(range(5)) if lanes is None else lanes
+    for g in range(0, len(listed), L):
+        grp = listed[g:g + L]
+        o_g, p_g = cuda_sweep.apply_blocked_reference(*_op(t), t["p"], grp)
+        assert _same(o_g[grp], out[grp]) and _same(p_g[grp], parts[grp])
+    assert parts.shape == (5, cuda_sweep.tiles2d(12, 17)) == (5, 1)
+    for i in range(5):
+        if i not in listed:
+            assert not out[i].any() and not parts[i].any()
+        elif i == 3:
+            assert torch.isnan(out[i]).any()
+        else:
+            assert _rel(out[i].numpy(), Ap[i].numpy()) <= 1e-14
+            assert float(parts[i].sum()) == pytest.approx(float(pap[i]),
+                                                          rel=1e-13)
+
+
+def test_apply_blocked_reference_tiles_and_kv_free(small):
+    """On a grid of several tiles, one partial a (lane, tile) in row-major
+    tile order; the Kv-free form with one shared sm plane."""
+    rng = np.random.default_rng(3)
+    nz, nr = 37, 70
+    A0 = torch.tensor(rng.uniform(-1, 1, (7, nz, nr)))
+    sm = torch.tensor(rng.uniform(0.5, 1.0, (nz, nr)))
+    v = torch.tensor(rng.standard_normal((3, nz, nr)))
+    out, parts = cuda_sweep.apply_blocked_reference(A0, None, None, sm, v)
+    want = sm * apply_combined(A0, None, None, sm * v)
+    assert _rel(out.numpy(), want.numpy()) <= 1e-14
+    ty, tx = cuda_sweep.TILE
+    assert parts.shape == (3, cuda_sweep.tiles2d(nz, nr)) == (3, 3 * 3)
+    prod = (v * want).numpy()
+    assert parts[1, 4].item() == pytest.approx(
+        prod[1, ty:2 * ty, tx:2 * tx].sum(), rel=1e-12)
+    assert parts[2, 8].item() == pytest.approx(
+        prod[2, 2 * ty:, 2 * tx:].sum(), rel=1e-12)
+
+
+@pytest.mark.parametrize("mode", ["init", "alpha", "beta"])
+def test_tail_reference_is_finalize_on_the_lanes_it_runs(small, mode):
+    """A tail over every lane is finalize_reference; over a lane list, or
+    the lanes of one adaptive flag, it leaves the other lanes as they
+    were."""
+    st = small["state"]
+    rng = np.random.default_rng(8)
+    parts = torch.tensor(rng.uniform(0.5, 1.5, (4, 5, 3)))
+    parts[1, 2] = float("nan")
+    kw = dict(rline=True, maxiter=5)
+    rtol = torch.tensor([1e-3, 1e-2, 1e-1, 0.5, 2.0])
+    whole = cuda_sweep.tail_reference(st, parts, mode, rtol, **kw)
+    assert _same(whole, cuda_sweep.finalize_reference(st, parts, mode,
+                                                      rtol, **kw))
+    some = cuda_sweep.tail_reference(st, parts, mode, rtol, lanes=[0, 2],
+                                     **kw)
+    assert _same(some[[0, 2]], whole[[0, 2]])
+    assert _same(some[[1, 3, 4]], st[[1, 3, 4]])
+    flags = torch.tensor([1, 0, 0, 1, 1])
+    off = cuda_sweep.tail_reference(st, parts, mode, rtol, flags=flags,
+                                    flag_sel=0, **kw)
+    assert _same(off[[1, 2]], whole[[1, 2]])
+    assert _same(off[[0, 3, 4]], st[[0, 3, 4]])
+
+
+@pytest.mark.parametrize("first", [True, False])
+def test_tail_reference_merged_is_finalize_merged(small, first):
+    st = small["state"]
+    parts = torch.tensor(np.random.default_rng(9).uniform(0.5, 1.5,
+                                                           (4, 5, 2)))
+    kw = dict(maxiter=7)
+    got = cuda_sweep.tail_reference(
+        st, parts, "merged_first" if first else "merged", 0.1, rline=True,
+        **kw)
+    want = cuda_sweep.finalize_merged_reference(st, parts, first, 0.1,
+                                                preconditioned=True, **kw)
+    assert _same(got, want)
+    with pytest.raises(ValueError, match="tail mode"):
+        cuda_sweep.tail_reference(st, parts, "gamma", rline=True, **kw)
+
+
+@pytest.mark.parametrize("form", ["identity", "rline", "adi", "fixed"])
+def test_tail_phases_compose_to_the_solve(small, form):
+    """The phase wrappers with their tails (plain versions here), chained as
+    an iteration of the redesigned kernels launches them: identity
+    stencil + alpha, update + beta, p update; r-line stencil + alpha, the
+    fused update and r-line PCR + beta, p update; ADI the same with the
+    z-line phase taking beta. After three iterations x and the counts are
+    the plain solve's (lane 4 at rtol 2, lane 3 NaN)."""
+    t = small
+    A0, Kv, dks, sm = _op(t)
+    b, x0 = t["b"], t["x0"]
+    B = 5
+    rline, adi = form in ("rline", "adi"), form == "adi"
+    fixed = form == "fixed"
+    rtol = torch.tensor([1e-12, 1e-12, 1e-12, 1e-12, 2.0])
+    st = cuda_sweep.pack_state(B, "cpu")
+    maxiter = 3
+    if rline:
+        x, r, rr, bb = cuda_sweep.init(A0, Kv, dks, sm, b, x0)
+        z, rz = cuda_sweep.pcr_r(A0, Kv, dks, sm, r)
+        if adi:
+            z, rz = cuda_sweep.pcr_z(A0, Kv, dks, sm, r, z)
+        st = cuda_sweep.tail_reference(
+            st, torch.stack([rr * 0, rr, rz, bb])[..., None], "init", rtol,
+            rline=True, maxiter=maxiter)
+    else:
+        x, r, rr, bb, st = cuda_sweep.init(A0, Kv, dks, sm, b, x0, st, rtol,
+                                           maxiter=maxiter, fixed=fixed)
+        z = r
+    p = z.clone()
+    for _ in range(maxiter):
+        Ap, _, st = cuda_sweep.stencil_dot(A0, Kv, dks, sm, p, st)
+        if rline:
+            x, r, z, _, _, st_n = cuda_sweep.pcr_r_update(
+                A0, Kv, dks, sm, x, r, p, Ap, st, adi=adi, maxiter=maxiter)
+        else:
+            x, r, _, st_n = cuda_sweep.update_beta(x, r, p, Ap, st,
+                                                   maxiter=maxiter,
+                                                   fixed=fixed)
+            z = r
+        run = (cuda_sweep.unpack_state(st_n)["done"] == 0)[:, None, None]
+        p = torch.where(run, cuda_sweep.p_update(
+            p, z, cuda_sweep.unpack_state(st_n)["beta"]), p)
+        st = st_n
+    x, iters = cuda_sweep.finish(x, st, poison=not fixed)
+    if fixed:
+        want_x = cuda_sweep.cg_batched_reference(A0, Kv, dks, sm, b, x0,
+                                                 iters=maxiter)
+        assert iters.tolist() == [3] * 5
+    else:
+        want_x, want_it = cuda_sweep.cg_batched_tol_reference(
+            A0, Kv, dks, sm, b, x0, rtol, rline=form == "rline", adi=adi,
+            maxiter=maxiter)
+        assert iters.tolist() == want_it.tolist() == [3, 3, 3, 0, 0]
+        assert torch.isnan(x[3]).all() and torch.equal(x[4], x0[4])
+    live = [0, 1, 2] if not fixed else [0, 1, 2, 4]
+    assert _rel(x[live].numpy(), want_x[live].numpy()) <= 1e-12
+
+
+def test_pcr_r_with_state_is_the_rline_start(small):
+    """pcr_r with a state and per-lane <r, r>, <b, b>: z and <r, z> of the
+    plain PCR, 0 on the lane the state marks done, which keeps its state;
+    the others get the r-line form's first scalars (finalize 'init' with
+    rline); without rr and bb it refuses."""
+    t = small
+    st = t["state"]
+    rr = torch.tensor([1.0, 2.0, 0.5, float("nan"), 1e-4])
+    bb = torch.tensor([4.0, 3.0, 2.0, 1.0, 1.0])
+    rtol = torch.tensor([1e-3, 1e-2, 1e-1, 0.5, 2.0])
+    z, rz, st_n = cuda_sweep.pcr_r(*_op(t), t["r"], st, rr, bb, rtol,
+                                   maxiter=9)
+    z0, rz0 = cuda_sweep.pcr_r(*_op(t), t["r"])
+    want = cuda_sweep.finalize_reference(
+        st, torch.stack([rr * 0, rr, rz0, bb])[..., None], "init", rtol,
+        rline=True, maxiter=9)
+    assert not z[1].any() and float(rz[1]) == 0.0
+    assert torch.equal(st_n[1], st[1])
+    run = [0, 2, 3, 4]
+    assert _same(z[run], z0[run]) and _same(rz[run], rz0[run])
+    assert _same(st_n[run], want[run])
+    f = cuda_sweep.unpack_state(st_n)
+    assert f["k"].tolist() == [0, 3, 0, 0, 0]
+    assert f["done"].tolist() == [0, 1, 0, 1, 1]    # lane 3 NaN, lane 4 met
+    with pytest.raises(ValueError, match="rr and bb"):
+        cuda_sweep.pcr_r(*_op(t), t["r"], st)
+
+
+def test_wrappers_with_state_on_cpu_match_their_references(small):
+    """init, stencil_dot, update_beta and merged_w with a state: the
+    wrapper's CPU path is the plain version with the tail; a done lane
+    reads 0 and keeps its state."""
+    t = small
+    st = t["state"]
+    Ap, pap, st_a = cuda_sweep.stencil_dot(*_op(t), t["p"], st)
+    assert not Ap[1].any() and float(pap[1]) == 0.0
+    assert torch.equal(st_a[1], st[1])
+    f = cuda_sweep.unpack_state(st_a)
+    rz = cuda_sweep.unpack_state(st)["rz"]
+    assert torch.allclose(f["alpha"][[0, 2, 4]], rz[[0, 2, 4]]
+                          / pap[[0, 2, 4]], rtol=1e-14)
+    x_n, r_n, rr, st_b = cuda_sweep.update_beta(t["x"], t["r"], t["p"], Ap,
+                                                st_a, maxiter=9)
+    assert torch.equal(x_n[1], t["x"][1])
+    g = cuda_sweep.unpack_state(st_b)
+    assert torch.allclose(g["rz"][[0, 2]], rr[[0, 2]], rtol=0)
+    w, delta, rr_m, gamma, st_m = cuda_sweep.merged_w(*_op(t), t["x"],
+                                                      t["r"], st, maxiter=9)
+    assert not w[1].any() and torch.equal(st_m[1], st[1])
+    assert _same(st_m, cuda_sweep.tail_reference(
+        st, torch.stack([delta, rr_m, gamma, delta * 0])[..., None],
+        "merged", rline=True, maxiter=9))
+    out = cuda_sweep.init(*_op(t), t["b"], t["x0"], st, 1e-3, maxiter=9)
+    assert len(out) == 5
+    assert cuda_sweep.unpack_state(out[4])["k"].tolist() == [0] * 5
+
+
+def _agree(got, want, tol):
+    """Kernel outputs against plain ones: fields and sums within tol of
+    their largest magnitude, NaN where NaN, integers equal."""
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+    for u, v in zip(as_tuple(got), as_tuple(want), strict=True):
+        if v.dtype == torch.float64 and v.ndim == 2:          # a lane state
+            su, sv = cuda_sweep.unpack_state(u), cuda_sweep.unpack_state(v)
+            _agree(tuple(su.values()), tuple(sv.values()), tol)
+            continue
+        if not v.dtype.is_floating_point:
+            assert torch.equal(u.cpu(), v.cpu())
+            continue
+        assert torch.equal(torch.isnan(u), torch.isnan(v))
+        fin = ~torch.isnan(v)
+        if fin.any():
+            assert float((u - v)[fin].abs().max()) <= \
+                tol * max(float(v[fin].abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_cuda_tail_phases_match_plain(small):
+    """The redesigned phase kernels with their tails on the card against
+    their plain versions on the same inputs: the first residual with the
+    identity form's first scalars, the stencil with alpha, the update with
+    beta, the fused update and r-line PCR with beta (and with the z-line
+    phase), the merged-dot pass with its scalars, the r-line PCR with the
+    r-line form's first scalars; at every lane block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    g = {k: (v.float() if k != "state" else v).cuda().contiguous()
+         for k, v in small.items()}
+    op = (g["A0"], g["Kv"], g["dks"], g["sm"])
+    st = g["state"]
+    rtol = torch.full((5,), 1e-4, dtype=torch.float32, device="cuda")
+    sums = torch.linspace(0.5, 2.0, 5, dtype=torch.float64, device="cuda")
+    cases = [
+        (lambda: cuda_sweep.init(*op, g["b"], g["x0"], st, rtol, maxiter=9),
+         lambda: cuda_sweep.init_reference(*op, g["b"], g["x0"], st, rtol,
+                                           maxiter=9), 1e-5),
+        (lambda: cuda_sweep.stencil_dot(*op, g["p"], st),
+         lambda: cuda_sweep.stencil_dot_reference(*op, g["p"], st), 1e-5),
+        (lambda: cuda_sweep.update_beta(g["x"], g["r"], g["p"], g["Ap"], st,
+                                        maxiter=9),
+         lambda: cuda_sweep.update_beta_reference(g["x"], g["r"], g["p"],
+                                                  g["Ap"], st, maxiter=9),
+         1e-5),
+        (lambda: cuda_sweep.merged_w(*op, g["x"], g["r"], st, maxiter=9),
+         lambda: cuda_sweep.merged_w_reference(*op, g["x"], g["r"], st,
+                                               maxiter=9), 1e-5),
+        (lambda: cuda_sweep.pcr_r(*op, g["r"], st, sums, sums * 4, rtol,
+                                  maxiter=9),
+         lambda: cuda_sweep.pcr_r_reference(*op, g["r"], st, sums, sums * 4,
+                                            rtol, maxiter=9), 1e-4)]
+    for adi in (False, True):
+        cases.append((
+            lambda adi=adi: cuda_sweep.pcr_r_update(
+                *op, g["x"], g["r"], g["p"], g["Ap"], st, adi=adi,
+                maxiter=9),
+            lambda adi=adi: cuda_sweep.pcr_r_update_state_reference(
+                *op, g["x"], g["r"], g["p"], g["Ap"], st, adi=adi,
+                maxiter=9), 1e-4))
+    for kernel, plain, tol in cases:
+        _agree(kernel(), plain(), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_launches_per_iteration_and_lane_groups(batch):
+    """A standard iteration takes 3 launches (identity, r-line) or 4 (ADI,
+    adaptive), as does a merged one, and no solve launches the
+    single-phase scalar kernels; each lane of a solve equals, bitwise, the
+    same lane solved alone (a lane's arithmetic does not depend on the
+    lanes that share its operator-pass block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    g = {k: v.cuda().contiguous() for k, v in _t(batch, torch.float32)
+         .items()}
+    flags = torch.tensor([1, 0, 1], dtype=torch.int32, device="cuda")
+    want = {"identity": 3, "rline": 3, "adi": 4, "adaptive": 4}
+    for merged in (False, True):
+        for form, fkw in (("identity", {}), ("rline", dict(rline=True)),
+                          ("adi", dict(adi=True)),
+                          ("adaptive", dict(adi_flags=flags))):
+            cuda_sweep.reset_counters()
+            x, it = cuda_sweep.cg_batched_tol(*_args(g), 1e-5, maxiter=5000,
+                                              merged=merged, **fkw)
+            tag = form + ("_merged" if merged else "")
+            assert cuda_sweep.launches_per_iteration() == {tag: want[form]}
+            counts = cuda_sweep.phase_launches()
+            assert counts["finalize"] == counts["finalize_merged"] == 0
+            for i in range(3):
+                one = {k: (v[i:i + 1].contiguous() if k in ("dks", "sm", "b",
+                                                           "x0") else v)
+                       for k, v in g.items()}
+                kw1 = dict(fkw)
+                if form == "adaptive":
+                    kw1["adi_flags"] = flags[i:i + 1].contiguous()
+                x1, it1 = cuda_sweep.cg_batched_tol(*_args(one), 1e-5,
+                                                    maxiter=5000,
+                                                    merged=merged, **kw1)
+                assert torch.equal(x1[0], x[i]) and int(it1[0]) == int(it[i])
+
+
+@pytest.mark.cuda
+def test_cuda_tall_columns_take_the_tall_z_kernel(small):
+    """Columns of more than 256 rows: the z-line phase and an ADI solve
+    against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    g = {k: v.float().cuda() for k, v in small.items() if k != "state"}
+    rows = torch.arange(300, device="cuda") % 12
+    A0, Kv = g["A0"][:, rows].contiguous(), g["Kv"][:, rows].contiguous()
+    sm = g["sm"][:, rows].contiguous()
+    r = (g["r"][:, rows] * (sm != 0)).contiguous()
+    live = [0, 1, 2, 4]
+    dks = g["dks"][live].contiguous()
+    sm, r = sm[live].contiguous(), r[live].contiguous()
+    z_r, _ = cuda_sweep.pcr_r(A0, Kv, dks, sm, r)
+    _agree(cuda_sweep.pcr_z(A0, Kv, dks, sm, r, z_r),
+           cuda_sweep.pcr_z_reference(A0, Kv, dks, sm, r, z_r), 1e-4)
+    b = (g["b"][live][:, rows] * (sm != 0)).contiguous()
+    x0 = torch.zeros_like(b)
+    xk, ik = cuda_sweep.cg_batched_tol(A0, Kv, dks, sm, b, x0, 1e-5,
+                                       adi=True, maxiter=5000)
+    xp, ip = cuda_sweep.cg_batched_tol_reference(A0, Kv, dks, sm, b, x0,
+                                                 1e-5, adi=True,
+                                                 maxiter=5000)
+    assert (ik - ip).abs().max() <= max(3, int(0.05 * int(ip.max())))
+    assert float((xk - xp).abs().max() / xp.abs().max()) < 1e-3
