@@ -98,13 +98,18 @@ Phases (each raises on failure; nothing is caught):
 14. the transient's other solver forms. At the flagship shape, on the first
    step's system: each new phase kernel of ``cg_tol`` alone against its
    plain version (the merged-dot pass, its scalars and its p/q update; the
-   Chebyshev polynomial in degrees 1, 3 and 4; the mgz cycle's row kernel,
-   residual, coarse residual, prolongation and the whole V-cycle with 1 and
-   2 coarse sweeps, held to the plain version's own distance from float64);
-   the V-cycle's symmetry; full solves in the Chebyshev (degree 3), merged
-   (identity, r-line, ADI, Chebyshev) and mgz (1 and 2 sweeps) forms
-   against their plain versions (counts, rel-L2, a NaN right-hand side
-   poisoned) and against the standard r-line solve. At the sweep shape, 8
+   Chebyshev polynomial in degrees 1, 3 and 4; the mgz cycle's fused
+   passes: the pre-smoothing row with the CG update, the coarse row with
+   the fine residual and its restriction on the even rows (the odd rows 0),
+   a later coarse sweep with the coarse residual, the prolongation with the
+   second residual, the post-smoothing row with the beta tail; and the
+   whole V-cycle with 1 and 2 coarse sweeps, held to the plain version's
+   own distance from float64); the V-cycle's symmetry; full solves in the
+   Chebyshev (degree 3), merged (identity, r-line, ADI, Chebyshev) and mgz
+   (1 and 2 sweeps) forms against their plain versions (counts, rel-L2, a
+   NaN right-hand side poisoned) and against the standard r-line solve, the
+   mgz solves with at most 6 / 7 launches an iteration read from the
+   counters (``MGZ_LAUNCHES``). At the sweep shape, 8
    lanes (one NaN, one at rtol 2): K2's merged phase kernels and its merged
    solves (identity, r-line, ADI, adaptive) against their plain versions
    and the standard solves, adaptive lanes bitwise the static merged lanes;
@@ -134,14 +139,21 @@ Phases (each raises on failure; nothing is caught):
    33 x 141): (a) ``cg_tol`` (identity, r-line, ADI) and ``cg_batched_tol``
    (8 lanes) on the 9-plane level-1 operator against their plain versions;
    (b) each phase kernel of the multigrid cycle alone on the flagship plane
-   and on level 1, the whole V-cycle (held to the plain float32 version's
-   distance from the float64 cycle) and its symmetry; (c) ``mgcg_vmem_tol``
+   and on level 1 (the smoothing step; the CG update fused into level 0's
+   first step; the residual fused into the restriction; the prolongation
+   fused into the first post-smoothing step; a level's first two steps
+   from zero in one pass), the coarsest level's right-hand side and
+   smoothing in one launch, the whole V-cycle (both held to the plain
+   float32 version's distance from the float64 cycle) and its symmetry;
+   (c) ``mgcg_vmem_tol``
    on the first step's system at rtol 1e-3, 1e-5 and 1e-6 wrt r0 against
    the float64 solution (the plain r-line solve at rtol 1e-10) and, at
    1e-3 and 1e-5, its plain version (the 1e-6 solve, which has no plain
    run and no row in the kernels line, at least as many iterations as the
    1e-5 one and as close to float64 as its plain version), with
-   iterations, ms a solve, us and launches an iteration; (d) ``cg_vmem`` (64 iterations) on the baked
+   iterations, ms a solve, us an iteration and launches an iteration read
+   from the counters (at most 15, ``MG_LAUNCHES``); (d) ``cg_vmem`` (64
+   iterations) on the baked
    flagship operator against its plain version, and the baked operator
    against the on-the-fly form;
 18. the paths that run those kernels at full width: the first 10 steps of
@@ -264,6 +276,8 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+# phase 14: K5's launches an iteration, at most, by coarse sweeps
+MGZ_LAUNCHES = {1: 6, 2: 7}
 # float32 operations a grid point of a lane costs, counted for what each
 # function computes, not for the algorithm its kernel runs. A line
 # preconditioner solves a tridiagonal system along each line: 8 a point by
@@ -535,10 +549,10 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
     # solves (the ADI row: its row kernel and its z-line kernel)
     rl, adi = solves["rline"]["in_solve_us"], solves["adi"]["in_solve_us"]
     in_solve = {"cg_tol.stencil_dot": rl.get("k_stencil_dot"),
-                "cg_tol.pcr_r": rl.get("k_pcr_r<false>"),
+                "cg_tol.pcr_r": rl.get("k_row_plain"),
                 "cg_tol.pcr_z_adi": adi.get("k_pcr_z"),
-                "cg_tol.update_pcr_r": rl.get("k_pcr_r<true>"),
-                "cg_tol.update_pcr_adi": adi.get("k_pcr_r<true>", 0.0)
+                "cg_tol.update_pcr_r": rl.get("k_row_update"),
+                "cg_tol.update_pcr_adi": adi.get("k_row_update", 0.0)
                 + adi.get("k_pcr_z", 0.0)}
     for row in rows:
         row["in_solve_ms"] = in_solve[row["name"]] / 1e3
@@ -2193,7 +2207,6 @@ def forms_checks(problem, device, out: dict) -> dict:
     import numpy as np
     import torch
     from heatflow_tpu_torch.ops import cuda_cg
-    from heatflow_tpu_torch.ops.mgz import restrict
     from heatflow_tpu_torch.sim.stepper import mgz_operands
 
     A32, sm32, s32, free32, b32 = first_step_system(problem, device)
@@ -2243,7 +2256,7 @@ def forms_checks(problem, device, out: dict) -> dict:
         # one launch a cycle)
         base = name.split("[")[0]
         counter = {"cheb": "cheb_init" if name == "cheb[1]" else "cheb_step",
-                   "mgz_vcycle": "prolong"}.get(base, base)
+                   "mgz_vcycle": "mgz_prolong_res"}.get(base, base)
         rows[f"cg_tol.{name}"] = dict(
             name=f"cg_tol.{name}", phase=counter, max_abs_err=err, rel=rel,
             ms=cuda_ms(kernel, reps), plain_ms=cuda_ms(plain, 10),
@@ -2260,28 +2273,69 @@ def forms_checks(problem, device, out: dict) -> dict:
     phase("pq_update", lambda: cuda_cg.pq_update(p, q, u, r, 0.37),
           lambda: cuda_cg.pq_update_reference(p, q, u, r, 0.37),
           6 * plane, 4 * n)
-    phase("residual", lambda: (cuda_cg.mgz_residual(A32, sm32, r, u),),
-          lambda: (r - sm32 * cuda_cg.apply_stencil(A32, sm32 * u),),
-          nbytes(A32, sm32, r, u, u), 17 * n)
-    row_kw = dict(acc=p, sm=sm32, dot=r)
-    phase("pcr_row", lambda: cuda_cg.mgz_pcr_row(u, pcr, 0.8, **row_kw),
-          lambda: cuda_cg.mgz_pcr_row_reference(u, pcr, 0.8, **row_kw),
-          nbytes(u, pcr, p, sm32, r, u) + 8, (LINE_SOLVE_OPS + 5) * n,
-          tol=1e-4)
-    phase("pcr_row[restrict]",
-          lambda: cuda_cg.mgz_pcr_row(u, mgz["pcrc"], 0.8, aux=mgz["aux"]),
-          lambda: cuda_cg.mgz_pcr_row_reference(u, mgz["pcrc"], 0.8,
-                                                aux=mgz["aux"]),
-          nbytes(u, mgz["pcrc"], mgz["aux"], u, u),
-          (LINE_SOLVE_OPS + 8) * n, tol=1e-4)
-    rcs = restrict(mgz["aux"], u).contiguous()
-    phase("coarse_res",
-          lambda: (cuda_cg.mgz_coarse_res(mgz["Ac9"], rcs, r),),
-          lambda: (rcs - cuda_cg.coarse_apply(mgz["Ac9"], r),),
-          nbytes(mgz["Ac9"], rcs, r, r), 18 * n)
-    phase("prolong", lambda: (cuda_cg.mgz_prolong(mgz["aux"], p, r),),
-          lambda: (cuda_cg.prolong(mgz["aux"], p, r),),
-          nbytes(mgz["aux"], p, r, p), 9 * n)
+    # the mgz cycle's passes on the first step's system: a state record for
+    # the fused update and the beta tail; the coarse passes on the
+    # pre-smoothed iterate, the coarse iterate and the restricted residual
+    # of the plain versions
+    aux, pcrc = mgz["aux"], mgz["pcrc"]
+    st = dict(rz=0.7, rr=1.3, stop2=1e-30, alpha=0.37, beta=0.1, k=3, done=0)
+    upd = dict(x=p, p=q, Ap=u)
+    phase("mgz_pre[update]",
+          lambda: cuda_cg.mgz_pre(r, pcr, 0.8, **upd, state=st),
+          lambda: cuda_cg.mgz_pre_reference(r, pcr, 0.8, **upd,
+                                            alpha=st["alpha"]),
+          nbytes(p, r, q, u, pcr, p, r, r) + 8,
+          (LINE_SOLVE_OPS + 7) * n, tol=1e-4)
+    # the passes with a residual in them (the smoothed iterate cancels most
+    # of r) are held to the plain float32 version's distance from float64
+    d64 = lambda *ts: [t.double() for t in ts]
+    z_pre = cuda_cg.mgz_pre_reference(r, pcr, 0.8)[2].contiguous()
+    co_in = (A32, sm32, r, z_pre, aux, pcrc)
+    phase("mgz_coarse",
+          lambda: cuda_cg.mgz_coarse(*co_in, 0.8),
+          lambda: cuda_cg.mgz_coarse_reference(*co_in, 0.8),
+          nbytes(A32, sm32, r, z_pre, aux, r, r) + nbytes(pcrc) // 2,
+          23 * n + (LINE_SOLVE_OPS + 1) * n // 2, tol=1e-4,
+          truth=lambda: cuda_cg.mgz_coarse_reference(*d64(*co_in), 0.8))
+    yc, rcs = (t.contiguous() for t in cuda_cg.mgz_coarse_reference(
+        *co_in, 0.8))
+    cr_in = (mgz["Ac9"], rcs, yc, pcrc)
+    phase("mgz_coarse_res",
+          lambda: (cuda_cg.mgz_coarse_res(*cr_in, 0.8),),
+          lambda: (cuda_cg.mgz_coarse_res_reference(*cr_in, 0.8),),
+          (nbytes(mgz["Ac9"], pcrc) + 2 * plane) // 2 + plane,
+          (18 + LINE_SOLVE_OPS + 2) * n // 2, tol=1e-4,
+          truth=lambda: (cuda_cg.mgz_coarse_res_reference(*d64(*cr_in),
+                                                          0.8),))
+    pr_in = (A32, sm32, r, z_pre, yc, aux)
+    phase("mgz_prolong_res",
+          lambda: cuda_cg.mgz_prolong_res(*pr_in),
+          lambda: cuda_cg.mgz_prolong_res_reference(*pr_in),
+          nbytes(A32, sm32, r, z_pre, yc, aux, r, r), 26 * n,
+          truth=lambda: cuda_cg.mgz_prolong_res_reference(*d64(*pr_in)))
+    zp, r1 = (t.contiguous() for t in cuda_cg.mgz_prolong_res_reference(
+        *pr_in))
+    rr = float((r.double() * r.double()).sum())
+    post_kw = dict(state=st, rr=rr, maxiter=9)
+    po_in = (r1, zp, pcr)
+    phase("mgz_post[tail]",
+          lambda: cuda_cg.mgz_post(*po_in, 0.8, sm32, r, **post_kw)[:2],
+          lambda: cuda_cg.mgz_post_reference(*po_in, 0.8, sm32, r),
+          nbytes(r1, zp, pcr, sm32, r, r) + 8, (LINE_SOLVE_OPS + 5) * n,
+          tol=1e-4, truth=lambda: cuda_cg.mgz_post_reference(
+              *d64(*po_in), 0.8, sm32.double(), r.double()))
+    _, rz_k, got = cuda_cg.mgz_post(r1, zp, pcr, 0.8, sm32, r, **post_kw)
+    want = cuda_cg.finalize_reference(st, "beta", rr=rr, rz=float(rz_k),
+                                      maxiter=9)
+    for key, v in want.items():
+        require(abs(got[key] - v) <= 1e-12 * max(1.0, abs(v)),
+                ("mgz_post beta tail", key, got[key], v))
+    # the odd rows of the coarse iterate are 0 and finite in the kernel too
+    yc_k, rcs_k = cuda_cg.mgz_coarse(A32, sm32, r, z_pre, aux, pcrc, 0.8)
+    require(bool(torch.isfinite(yc_k).all())
+            and float(yc_k[1::2].abs().max()) == 0.0
+            and float(rcs_k[1::2].abs().max()) == 0.0,
+            "mgz_coarse: odd rows not 0")
     for deg in (1, 3, 4):
         phase(f"cheb[{deg}]",
               lambda: cuda_cg.precond_apply(A32, sm32, r, cheb_degree=deg),
@@ -2364,7 +2418,9 @@ def forms_checks(problem, device, out: dict) -> dict:
     solves = {}
     for form, fkw in forms.items():
         kw = dict(maxiter=20000, rtol_wrt="b", **fkw)
+        cuda_cg.reset_counters()
         x_k, it_k = cuda_cg.cg_tol(A32, sm32, b32, x0, rtol, **kw)
+        per_iter = cuda_cg.launches_per_iteration()
         x_p, it_p = cuda_cg.cg_tol_reference(A32, sm32, b32, x0, rtol, **kw)
         x64, _ = cuda_cg.cg_tol_reference(
             A32.double(), sm32.double(), b32.double(), x0.double(), rtol,
@@ -2392,6 +2448,12 @@ def forms_checks(problem, device, out: dict) -> dict:
         require(vs_std <= max(1e-3, 4.0 * err_p), (form, vs_std, err_p))
         if form.startswith("mgz"):
             require(it_k < 0.5 * int(it_std), (form, it_k, int(it_std)))
+            # the fused cycle: 6 launches an iteration with one coarse sweep,
+            # one more a further sweep
+            want = MGZ_LAUNCHES[fkw["mgz_sweeps"]]
+            print(f"solve {form}: {per_iter['mgz']:.2f} launches an "
+                  f"iteration (at most {want})")
+            require(per_iter["mgz"] <= want, (form, per_iter))
         ms = cuda_ms(lambda: cuda_cg.cg_tol(A32, sm32, b32, x0, rtol, **kw),
                      3)
         plain_ms = cuda_ms(
@@ -2401,15 +2463,24 @@ def forms_checks(problem, device, out: dict) -> dict:
         if "mgz" in fkw:
             stacks += [mgz["pcrc"], mgz["aux"]] + (
                 [mgz["Ac9"]] if fkw["mgz_sweeps"] > 1 else [])
+        # the bound of the iterations: each iteration's inputs (operator,
+        # stacks, the vectors it carries) read once and its outputs written
+        # once, times the iterations
+        carried = 4 if fkw.get("merged") else 3
+        iter_ms = it_k * (nbytes(A32, sm32, *stacks) + 2 * carried * plane) \
+            / HBM_BYTES_PER_S * 1e3
         solves[form] = dict(
             iters=it_k, plain_iters=it_p, rline_iters=int(it_std),
+            launches_per_iter=sum(per_iter.values()),
             rel_l2=rel_l2, err_vs_f64=err_k, plain_err_vs_f64=err_p,
             vs_standard_rline=vs_std,
             max_abs_err=float((x_k - x_p).abs().max()), ms=ms,
-            plain_ms=plain_ms,
+            plain_ms=plain_ms, iter_bound_ms=iter_ms,
             **bound(nbytes(A32, sm32, b32, x0, b32, *stacks),
                     it_k * n * k1_form_ops(fkw)))
-        print(f"solve {form}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        print(f"solve {form}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+              f"{1e3 * ms / max(it_k, 1):.2f} us an iteration; bound of the "
+              f"iterations {iter_ms:.4f} ms (inputs once each)")
     out["form_phases"] = rows
     out["form_solves"] = solves
     return dict(phases=rows, solves=solves)
@@ -2964,6 +3035,7 @@ RECORDING_TOL = dict(watch=1e-3, band=1e-2, axis=0.5)
 REFINED_RECORDING_TOL = dict(watch=1e-6, band=1e-3, axis=0.1)
 MG_LEVELS = 4
 MG_STEPS = 10          # phase 18: steps of the flagship solved by K6
+MG_LAUNCHES = 15       # phase 17: K6's launches an iteration, at most
 K7_STEPS, K7_ITERS = 8, 1500   # the pulse reaches the watchers by step 5
 ONE_D_CFG = os.path.join(ROOT, "cfgs", "geballe_1d.yaml")
 
@@ -3194,27 +3266,75 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
                   lambda: cuda_mg.mg_cheb_step(*args, **kw),
                   lambda: cuda_mg.mg_cheb_step_reference(*args, **kw),
                   nbytes(*ins, b, b) + 8, per * n)
-        phase(f"mgcg.residual[L{l}]", "mg_residual",
-              lambda: as_t(cuda_mg.mg_residual(C, b, x)),
-              lambda: as_t(b - apply_stencil(C, x)),
-              nbytes(C, b, x, b), 2 * npts * n)
         cshape = shapes[l + 1]
         xc = field(cshape)
-        phase(f"mgcg.restrict[L{l}]", "mg_restrict",
-              lambda: as_t(cuda_mg.mg_restrict(b, wz, wr, cshape)),
-              lambda: as_t(cuda_mg.mg_restrict_reference(b, wz, wr, cshape)),
-              nbytes(b, wz, wr, xc), 20 * xc.numel())
-        phase(f"mgcg.prolong[L{l}]", "mg_prolong",
-              lambda: as_t(cuda_mg.mg_prolong_add(x, xc, wz, wr)),
-              lambda: as_t(cuda_mg.mg_prolong_add_reference(x, xc, wz, wr)),
-              nbytes(x, xc, wz, wr, x), 10 * n)
+        phase(f"mgcg.restrict_res[L{l}]", "mg_restrict_res",
+              lambda: as_t(cuda_mg.mg_restrict_res(C, b, x, wz, wr, cshape)),
+              lambda: as_t(cuda_mg.mg_restrict_res_reference(C, b, x, wz, wr,
+                                                             cshape)),
+              nbytes(C, b, x, wz, wr, xc), (2 * npts + 5) * n)
+        pkw = dict(mask=mask, dot=b)
+        phase(f"mgcg.prolong_cheb[L{l}]", "mg_prolong_cheb",
+              lambda: cuda_mg.mg_prolong_cheb(C, b, x, xc, wz, wr, theta,
+                                              **pkw),
+              lambda: cuda_mg.mg_prolong_cheb_reference(C, b, x, xc, wz, wr,
+                                                        theta, **pkw),
+              nbytes(C, b, x, xc, wz, wr, mask, b, b, b) + 8,
+              (2 * npts + 19) * n)
+        if l == 0:
+            p_, Ap_ = field(shape), field(shape)
+            st = dict(alpha=0.37)
+            phase("mgcg.cheb_update", "mg_cheb_update",
+                  lambda: cuda_mg.mg_cheb_update(C, b, x, p_, Ap_, theta,
+                                                 state=st),
+                  lambda: cuda_mg.mg_cheb_update_reference(
+                      C, b, x, p_, Ap_, st["alpha"], theta),
+                  nbytes(C[0], b, x, p_, Ap_, x, b, b, b) + 8, 9 * n)
 
-    # the whole cycle: held to the plain float32 version's own distance from
-    # the float64 cycle where a composition of float32 passes cannot reach
-    # 1e-4; and its symmetry on masked fields
+    # a level's first two smoothing steps in one pass (level 1, 2, 3: the
+    # levels that start from zero without the CG update)
+    lv1 = setup["levels"][1]
+    theta, coefs = cuda_mg.cheb_coefficients(setup["meta"]["lmaxs"][1], 2,
+                                             torch.float32)
+    b1 = field(shapes[1])
+    phase("mgcg.cheb_pre[L1]", "mg_cheb_pre",
+          lambda: cuda_mg.mg_cheb_pre(lv1["C"], b1, theta, *coefs[0]),
+          lambda: cuda_mg.mg_cheb_pre_reference(lv1["C"], b1, theta,
+                                                *coefs[0]),
+          nbytes(lv1["C"], b1, b1, b1) + nbytes(lv1["C"][0]),
+          (2 * lv1["C"].shape[0] + 12) * b1.numel())
+    # the coarsest level in one launch: its right-hand side from the level
+    # above and its smoothing steps, each block a tile with a halo in shared
+    # memory
     setup64 = {"A": setup["A"].double(), "sm": setup["sm"].double(),
                "levels": [{k: v.double() for k, v in lv.items()}
                           for lv in setup["levels"]], "meta": setup["meta"]}
+    q = len(shapes) - 1
+    bp, xp = field(shapes[q - 1]), field(shapes[q - 1])
+    x_k = cuda_mg.mg_last(setup, bp, xp)
+    x_p = cuda_mg.mg_last_reference(setup, bp, xp)
+    x64 = cuda_mg.mg_last_reference(setup64, bp.double(), xp.double())
+    err, rel = distance((x_k,), (x_p,))
+    floor, rel64 = distance((x_p,), (x64,))[1], distance((x_k,), (x64,))[1]
+    print(f"mg coarsest level {shapes[q]} in one launch: kernel vs plain "
+          f"rel {rel:.3e}; vs float64 kernel {rel64:.3e}, plain {floor:.3e}")
+    require(rel <= max(1e-5, 2.0 * floor) and rel64 <= max(1e-5, 1.5 * floor),
+            ("mg coarsest level", rel, rel64, floor))
+    sub = {"levels": setup["levels"][q:],
+           "meta": dict(shapes=shapes[q:], lmaxs=setup["meta"]["lmaxs"][q:])}
+    P = setup["levels"][q - 1]
+    rows["mgcg.last"] = dict(
+        name="mgcg.last", phase="mg_last", max_abs_err=err, rel=rel,
+        ms=cuda_ms(lambda: cuda_mg.mg_last(setup, bp, xp), 20),
+        plain_ms=cuda_ms(lambda: cuda_mg.mg_last_reference(setup, bp, xp),
+                         3),
+        **bound(nbytes(P["C"], P["wz"], P["wr"], bp, xp,
+                       *sub["levels"][0].values(), x_k),
+                mg_cycle_ops(sub, 2, 10)
+                + (2 * P["C"].shape[0] + 5) * bp.numel()))
+    print(f"mg coarsest level: kernel {rows['mgcg.last']['ms']:.4f} ms, "
+          f"plain {rows['mgcg.last']['plain_ms']:.4f} ms")
+
     fmask = (setup["sm"] > 0).float()
     u, r = (field((pz, pr)) * fmask).contiguous(), \
         (field((pz, pr)) * fmask).contiguous()
@@ -3241,7 +3361,7 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
     cycle_bytes = nbytes(*[lv[k] for lv in setup["levels"]
                            for k in ("C", "wz", "wr")], setup["sm"], r, r) + 8
     rows["mgcg.vcycle"] = dict(
-        name="mgcg.vcycle", phase="mg_prolong", max_abs_err=err, rel=rel,
+        name="mgcg.vcycle", phase="mg_last", max_abs_err=err, rel=rel,
         asymmetry=asym, ms=cuda_ms(lambda: cuda_mg.mg_vcycle(setup, r), 20),
         plain_ms=cuda_ms(lambda: cuda_mg.mg_vcycle_reference(setup, r), 3),
         **bound(cycle_bytes, cycle_ops))
@@ -3273,8 +3393,11 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
         cuda_cg.reset_counters()
         x_k, it_k = cuda_mg.mgcg_vmem_tol(setup, b32, x0, rtol)
         torch.cuda.synchronize()
-        launches = sum(cuda_cg.phase_launches().values())
+        launches = cuda_cg.launches_per_iteration()["mg"]
         it_k = int(it_k)
+        print(f"mgcg_vmem_tol rtol {rtol:g}: {launches:.2f} launches an "
+              f"iteration (at most {MG_LAUNCHES})")
+        require(launches <= MG_LAUNCHES, ("mgcg launches", rtol, launches))
         err_k = norm(x_k - x64) / norm(x64)
         res = norm(b32.double() - op64(x_k.double())) / norm(b32)
         ms = cuda_ms(lambda: cuda_mg.mgcg_vmem_tol(setup, b32, x0, rtol), 2)
@@ -3287,14 +3410,13 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
                   f"kernel {it_k}; vs float64 kernel {err_k:.3e}, the plain "
                   f"version at 1e-5 {at['plain_err_vs_f64']:.3e}; true "
                   f"residual {res:.3e} x ||b||; kernel {ms:.3f} ms a solve, "
-                  f"{1e3 * ms / it_k:.1f} us an iteration, "
-                  f"{launches / it_k:.1f} launches an iteration")
+                  f"{1e3 * ms / it_k:.1f} us an iteration")
             require(it_k >= at["iters"]
                     and err_k <= max(1e-5, 1.5 * at["plain_err_vs_f64"]),
                     ("mgcg 1e-6", it_k, err_k, at["plain_err_vs_f64"]))
             out["mgcg_vmem_tol_1e-06"] = dict(
                 iters=it_k, err_vs_f64=err_k, true_res_over_ref=res,
-                launches_per_iter=launches / it_k, ms=ms)
+                launches_per_iter=launches, ms=ms)
             continue
         t0 = time.perf_counter()
         x_p, it_p = cuda_mg.mgcg_tol_reference(setup, b32, x0, rtol)
@@ -3307,8 +3429,7 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
               f"plain {it_p}; kernel vs plain rel-L2 {rel_l2:.3e}; vs "
               f"float64 kernel {err_k:.3e} plain {err_p:.3e}; true residual "
               f"{res:.3e} x ||b||; kernel {ms:.3f} ms a solve, "
-              f"{1e3 * ms / max(it_k, 1):.1f} us an iteration, "
-              f"{launches / max(it_k, 1):.1f} launches an iteration; plain "
+              f"{1e3 * ms / max(it_k, 1):.1f} us an iteration; plain "
               f"{plain_ms:.1f} ms")
         require(abs(it_k - it_p) <= max(3, int(0.02 * it_p)),
                 ("mgcg", rtol, it_k, it_p))
@@ -3316,10 +3437,16 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
                 ("mgcg", rtol, rel_l2, err_p))
         require(err_k <= max(rtol * 10, 1.5 * err_p), ("mgcg", rtol, err_k,
                                                        err_p))
+        # each iteration's inputs (the operator and the levels' setup) read
+        # once and x, r, p read and written once, times the iterations
+        iter_ms = it_k * (nbytes(*cuda_mg.setup_tensors(setup))
+                          + 6 * nbytes(b32)) / HBM_BYTES_PER_S * 1e3
+        print(f"mgcg_vmem_tol rtol {rtol:g}: bound of the iterations "
+              f"{iter_ms:.4f} ms (inputs once each)")
         solves[f"mgcg_vmem_tol[{rtol:g}]"] = dict(
             iters=it_k, plain_iters=it_p, rel_l2=rel_l2, err_vs_f64=err_k,
             plain_err_vs_f64=err_p, true_res_over_ref=res,
-            launches_per_iter=launches / max(it_k, 1),
+            launches_per_iter=launches, iter_bound_ms=iter_ms,
             max_abs_err=float((x_k - x_p).abs().max()), ms=ms,
             plain_ms=plain_ms,
             **bound(nbytes(*cuda_mg.setup_tensors(setup), b32, x0, b32),

@@ -42,7 +42,7 @@
 //   solve is bitwise repeatable) and sets alpha (after the stencil) or
 //   beta, the count and the stop flag (after the kernel that writes the
 //   last partials). An r-line iteration is 3 launches (k_stencil_dot,
-//   k_pcr_r<true>, k_p_update), an ADI one 4 (+ k_pcr_z), an identity one
+//   k_row_update, k_p_update), an ADI one 4 (+ k_pcr_z), an identity one
 //   3 (k_update takes beta). The alpha tail costs the stencil ~4 us (12.6
 //   us against 8.8).
 // - No host in the loop. A solve is one CUDA graph: the start, a
@@ -61,20 +61,39 @@
 // one pass (k_cheb_step) that reads z's neighbours from one plane and writes
 // the new z into a second one, so no block reads a value another block is
 // rewriting; the step coefficients come from the device scalar lmax inside
-// the kernel, so no solve waits on a host read. mgz: one V(1,1) cycle is 7
-// launches (9 with two coarse sweeps): the damped r-line solve (k_pcr_row,
-// the row kernel with a scale, an optional plane to add to and an optional
-// restriction fused into its load), the fine residual (k_residual), the
-// restriction and coarse line solve in one pass, the embedded 9-point coarse
-// residual (k_coarse_res) between coarse sweeps, the prolongation
-// (k_prolong), the second residual and the post-smooth with the <r, z>
-// partials. Merged-dot: the vectors q = A p and w = A u are kept, gamma,
-// delta and <r, r> are taken in the one pass that forms w (k_merged_w), one
-// scalar kernel forms beta and the coupled alpha (k_finalize_merged), and
-// one pass updates p and q (k_pq_update): 4 launches an identity iteration
-// (k_update, k_merged_w, k_finalize_merged, k_pq_update), at one more plane
-// of traffic than the standard recurrence; these forms keep k_update and a
-// k_finalize of their own and share the graph loop.
+// the kernel, so no solve waits on a host read. Merged-dot: the vectors q =
+// A p and w = A u are kept, gamma, delta and <r, r> are taken in the one
+// pass that forms w (k_merged_w), one scalar kernel forms beta and the
+// coupled alpha (k_finalize_merged), and one pass updates p and q
+// (k_pq_update): 4 launches an identity iteration (k_update, k_merged_w,
+// k_finalize_merged, k_pq_update), at one more plane of traffic than the
+// standard recurrence; these forms keep k_update and a k_finalize of their
+// own and share the graph loop.
+//
+// mgz, the z-semicoarsened V(1,1) cycle (the mgz branch of _cg_tol_kernel,
+// operands from ops/mgz.py): its working set (A, the fine and the coarse
+// stacks, aux, ~10 planes: 75-85 MB at the flagship) does not fit the 50 MB
+// L2, so each pass streams from HBM, and each pass was a launch (11 an
+// iteration with one coarse sweep, 13 with two). This design: 6 launches an
+// iteration with one sweep, 7 with two. k_stencil_dot (alpha tail); the
+// pre-smoothing row (k_row_update: the row kernel of the r-line form, its
+// stack staged by cp.async, the CG update of x and r in its load); the
+// coarse row (k_row_restrict, 1024 threads a block on the even rows only:
+// the odd rows of the embedded coarse grid have zero couplings, unit
+// diagonal and zero restriction weights, so there d = 0 and the block
+// writes out = omega_c g 0 without a PCR) with the fine residual formed on
+// rows i-1 .. i+1 in its load from sm z staged in shared memory, then
+// restricted; a further sweep's coarse residual in the next coarse row's
+// load (k_row_coarse_res, into the other of two coarse planes); the
+// prolongation with the second residual in one pass (k_mgz_prolong_res:
+// the prolongated iterate formed at the point and its stencil neighbours);
+// the post-smoothing row (k_row_plain, with the mask, the <r, z> partials
+// and the beta tail); k_p_update. The row kernel requests its epilogue's
+// operands before the PCR levels. NVIDIA H100 80GB HBM3, 700 W, first-step
+// solve (tools/mg_ab.py, in-solve by torch.profiler): one sweep 179
+// iterations, 103.4-104.7 us an iteration (141.6-143.0 before), two sweeps
+// 137 and 122.5-123.6 (178.2-179.3); in-solve the coarse row 32.9 us, the
+// post row 24.6, the pre row 20.3, the prolongation 10.9.
 //
 // Also replaces heatflow_tpu/ops/pallas_mg.py:_mgcg_kernel (the whole
 // multigrid-preconditioned solve in one TPU kernel) and
@@ -85,16 +104,30 @@
 // polynomial in D^-1 C whose coefficients the host computes once, with
 // bilinear factor-2 transfers on the odd-padded grids of the TPU scheme. The
 // TPU kernel moves data between levels with reshapes and transposes because
-// its compiler has no gathers; here a restriction is one thread per coarse
-// point that gathers its nine fine residuals in a fixed order (no atomics,
-// so a cycle is repeatable bitwise) and a prolongation one thread per fine
-// point. A smoothing step reads its iterate's neighbours from one plane and
-// writes the next iterate into another, like k_cheb_step. One cycle of four
-// levels with 2 + 2 smoothing steps and 10 on the last level is 31 launches;
-// the coarse levels (18 k and 4.7 k points on the flagship) are bound by
-// launch latency, not traffic: one kernel for the lower levels is the next
-// step. The second is the standard loop with the stop test switched off
-// (`fixed`), sm = 1 and no preconditioner: no host read during the solve.
+// its compiler has no gathers; here a restriction gathers in a fixed order
+// (no atomics, so a cycle is repeatable bitwise). The coarse levels (18 k
+// and 4.7 k points on the flagship) are bound by latency, not traffic: a
+// cycle of four levels was 31 launches. This design, 15 launches an
+// iteration: level 0's first smoothing step takes the CG update (it reads r
+// at its own point only) and its last the beta tail; a level's first step
+// from zero is pointwise, so the other levels form it inside their second
+// (k_mg_step, from_b); a restriction forms the residual once a fine point
+// of its tile in shared memory (k_mg_restrict_res); a prolongation is
+// formed inside the first post-smoothing step that reads it; 1 / diag(C)
+// is a plane the wrapper forms once a level; and the coarsest level's
+// right-hand side and its nu_coarse steps are one launch with no barrier
+// between blocks (k_mg_last: each block a tile grown by a halo of
+// nu_coarse - 1, in shared memory). Running the lower levels inside one
+// thread-block cluster under cluster barriers instead was measured and
+// dropped: a barrier alone costs 0.77 us, a pass over the 4.7 k points
+// 2.3 us and over the 18 k 5-7 us, no faster than a launch in a graph. At
+// 1e-5 on the flagship's first-step system: 120.6-121.3 us an iteration
+// (145.0-145.9 before), in-solve the smoothing steps 64.9 us (10
+// launches), the restrictions 21.2, the coarsest level 18.0 (8 x 8 tiles;
+// 28.4 at 16 x 32, where fewer blocks each form more fine residuals in
+// turn). The second
+// is the standard loop with the stop test switched off (`fixed`), sm = 1
+// and no preconditioner: no host read during the solve.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -105,6 +138,7 @@ namespace {
 constexpr int kThreads = 256;     // elementwise and finalize blocks
 constexpr int kTileCols = 16;     // k_pcr_z_tall: columns a block at most
 constexpr int kRowThreads = 512;  // r-line row kernel: threads a block
+constexpr int kCoarseThreads = 1024;  // the mgz coarse rows: one block an SM
 constexpr int kZCols = 8;         // z-line kernel: columns a block,
 constexpr int kZRows = 32;        // thread rows a block,
 constexpr int kZPer = 8;          // rows a thread (Nz <= kZRows * kZPer)
@@ -126,9 +160,9 @@ struct CGState {
 enum Phase {
   kPhInit = 0, kPhStencilDot, kPhUpdate, kPhPcrR, kPhPcrZ, kPhFinalize,
   kPhPUpdate, kPhFinish, kPhChebInit, kPhChebStep, kPhMergedW,
-  kPhFinalizeMerged, kPhPqUpdate, kPhResidual, kPhPcrRow, kPhCoarseRes,
-  kPhProlong, kPhMgCheb, kPhMgResidual, kPhMgRestrict, kPhMgProlong,
-  kPhUpdatePcrR, kNumPhases
+  kPhFinalizeMerged, kPhPqUpdate, kPhMgzPre, kPhMgzCoarse, kPhMgzCoarseRes,
+  kPhMgzProlongRes, kPhMgzPost, kPhMgCheb, kPhMgChebUpdate, kPhMgChebPre,
+  kPhMgRestrictRes, kPhMgProlongCheb, kPhMgLast, kPhUpdatePcrR, kNumPhases
 };
 
 enum FinalizeMode { kFinInit = 0, kFinBeta = 1 };
@@ -228,47 +262,61 @@ __device__ void set_loop(const CGState* st, int set_cond,
 
 // (A (sm . v))[i, j] for the 7-point (or 9-point) stencil, neighbours
 // outside the grid read as 0. The accumulation order follows the offsets
-// of heatflow_tpu_torch/ops/stencil.py: OFFSETS, then OFFSETS9's two.
+// of heatflow_tpu_torch/ops/stencil.py: OFFSETS, then OFFSETS9's two. A
+// neighbour outside the grid is read at the point itself and its term not
+// added, so that the loads carry no branch and are issued together.
+// The same with the scaled iterate u = sm . v given as a function of the
+// grid point.
+template <class U>
+__device__ __forceinline__ float stencil_u(const float* __restrict__ A,
+                                           int npts, U u, int i, int j,
+                                           int nz, int nr) {
+  const int n = nz * nr;
+  const int idx = i * nr + j;
+  float out = A[idx] * u(i, j);
+  const int di[8] = {1, -1, 0, 0, 1, -1, 1, -1};
+  const int dj[8] = {0, 0, 1, -1, 1, -1, -1, 1};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (k >= npts - 1) break;
+    const int ii = i + di[k], jj = j + dj[k];
+    const bool in = ii >= 0 && ii < nz && jj >= 0 && jj < nr;
+    const float t = A[(k + 1) * n + idx] * u(in ? ii : i, in ? jj : j);
+    out = in ? out + t : out;
+  }
+  return out;
+}
+
 __device__ __forceinline__ float stencil_at(const float* __restrict__ A,
                                             int npts,
                                             const float* __restrict__ sm,
                                             const float* __restrict__ v,
                                             int i, int j, int nz, int nr) {
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)i * nr + j;
-  float out = A[idx] * (sm[idx] * v[idx]);
-  const int di[8] = {1, -1, 0, 0, 1, -1, 1, -1};
-  const int dj[8] = {0, 0, 1, -1, 1, -1, -1, 1};
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    if (k >= npts - 1) break;
-    const int ii = i + di[k], jj = j + dj[k];
-    if (ii >= 0 && ii < nz && jj >= 0 && jj < nr) {
-      const size_t q = (size_t)ii * nr + jj;
-      out += A[(size_t)(k + 1) * n + idx] * (sm[q] * v[q]);
-    }
-  }
-  return out;
+  return stencil_u(
+      A, npts, [&](int ii, int jj) { return sm[ii * nr + jj] * v[ii * nr + jj]; },
+      i, j, nz, nr);
 }
 
 // (C v)[i, j] for a baked 7-point (or 9-point) level operator of the
-// multigrid cycle: no scaling, the same accumulation order.
+// multigrid cycle: no scaling, the same accumulation order and the same
+// branch-free loads; the iterate is a function of the grid point (a plane,
+// or a plane plus the prolongated coarse correction).
+template <class V>
 __device__ __forceinline__ float level_stencil_at(const float* __restrict__ C,
-                                                  int npts,
-                                                  const float* __restrict__ v,
-                                                  int i, int j, int nz,
-                                                  int nr) {
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)i * nr + j;
-  float out = C[idx] * v[idx];
+                                                  int npts, V v, int i, int j,
+                                                  int nz, int nr) {
+  const int n = nz * nr;
+  const int idx = i * nr + j;
+  float out = C[idx] * v(i, j);
   const int di[8] = {1, -1, 0, 0, 1, -1, 1, -1};
   const int dj[8] = {0, 0, 1, -1, 1, -1, -1, 1};
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     if (k >= npts - 1) break;
     const int ii = i + di[k], jj = j + dj[k];
-    if (ii >= 0 && ii < nz && jj >= 0 && jj < nr)
-      out += C[(size_t)(k + 1) * n + idx] * v[(size_t)ii * nr + jj];
+    const bool in = ii >= 0 && ii < nz && jj >= 0 && jj < nr;
+    const float t = C[(k + 1) * n + idx] * v(in ? ii : i, in ? jj : j);
+    out = in ? out + t : out;
   }
   return out;
 }
@@ -280,11 +328,11 @@ __global__ void k_init(const float* __restrict__ A, int npts,
                        const float* __restrict__ x0, float* __restrict__ x,
                        float* __restrict__ r, double* part_rr,
                        double* part_bb, int nz, int nr) {
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = nz * nr;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   double rr = 0.0, bb = 0.0;
   if (idx < n) {
-    const int i = (int)(idx / nr), j = (int)(idx % nr);
+    const int i = idx / nr, j = idx - i * nr;
     const float bv = b[idx];
     const float rv = bv - sm[idx] * stencil_at(A, npts, sm, x0, i, j, nz, nr);
     x[idx] = x0[idx];
@@ -308,11 +356,11 @@ __global__ void k_stencil_dot(const float* __restrict__ A, int npts,
                               float* __restrict__ Ap, double* part,
                               CGState* st, int tail, int nz, int nr) {
   if (st != nullptr && st->done) return;
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = nz * nr;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   double acc = 0.0;
   if (idx < n) {
-    const int i = (int)(idx / nr), j = (int)(idx % nr);
+    const int i = idx / nr, j = idx - i * nr;
     const float v = sm[idx] * stencil_at(A, npts, sm, p, i, j, nz, nr);
     Ap[idx] = v;
     acc = (double)(p[idx] * v);
@@ -452,72 +500,233 @@ __device__ float* pcr_levels(float* d0, float* d1, const float* fs,
   return d0;
 }
 
-// The r-line row kernel, one block per z-row. Its shared memory is the row
-// double buffered and, when staged, the row's whole factor stack (2L+1 rows
-// of nr values, ~102 KB on the flagship). At its start the block requests
-// its row of r (and Ap) into the two row buffers, then the stack level by
-// level, all with asynchronous copies, so the update starts on the vectors
-// while the factors stream in. With kUpdate it takes the CG update of its
-// row,
-//   r -= alpha Ap, x += alpha p    (and the row's partial of <r, r>),
-// then z = F[2L] d * free with free = (sm != 0), and optionally the row's
-// partial of <r, z> and the beta tail: the whole iteration after A p, local
-// to one grid row.
-template <bool kUpdate>
-__global__ void __launch_bounds__(kRowThreads, 2)
-    k_pcr_r(float* r, float* x, const float* __restrict__ p,
-            const float* __restrict__ Ap, const float* __restrict__ sm,
-            const float* __restrict__ F, int levels, int staged,
-            float* __restrict__ z, double* part_rr, double* part_rz,
-            const CGState* st, BetaTail tail, int nz, int nr) {
-  if (st != nullptr && st->done) return;
+// The row kernel of the line-PCR forms, one block a z-row. Its shared
+// memory is the row double buffered and, when staged, the row's whole
+// factor stack (2L+1 rows of nr values, ~102 KB on the flagship). At its
+// start the block requests its row's vectors into the two row buffers, then
+// the stack level by level, all with asynchronous copies, so the row's load
+// work runs while the factors stream in. What the block loads as its row d
+// (kLoad):
+//   kRowPlain      d = r's row;
+//   kRowUpdate     the CG update of its row, r -= alpha Ap (in place, with
+//                  the row's partial of <r, r>) and x += alpha p; d = r's row
+//                  (the r-line form's whole iteration after A p, and the
+//                  mgz cycle's pre-smoothing);
+//   kRowRestrict   the mgz cycle's first coarse sweep: the fine residual
+//                  r1 = r - sm A (sm z) formed on fine rows i-1, i, i+1 and
+//                  restricted onto the embedded coarse row i,
+//                    d = sc (e_free r1[i] + (pp r1)[i-1] + (pm r1)[i+1]),
+//                  stored into `store` when given;
+//   kRowCoarseRes  a later coarse sweep: d = rcs - Ac9 y on coarse row i.
+// Then the folded PCR levels of stack F on d, and
+//   out = (acc + scale F[2L] d) * mask    (acc, mask = (sm != 0) optional)
+// with optionally the row's partial of <dot, out>, and the beta tail. The
+// two coarse modes run on the even rows only (block b: row 2b). The odd
+// rows of the embedded coarse grid have zero couplings and unit diagonal,
+// and every restriction weight is zero on them (ops/mgz.py), so there d is
+// 0 and the PCR is the identity: the block also writes the odd row below
+// its own as out = acc + scale (F[2L] 0), and 0 into `store`.
+enum RowLoad { kRowPlain = 0, kRowUpdate, kRowRestrict, kRowCoarseRes };
+
+struct RowArgs {
+  float* r;                 // the row (kRowUpdate: updated in place)
+  float* x;                 // kRowUpdate: x, p, Ap
+  const float *p, *Ap;
+  const float* sm;          // the free mask; the scaling of kRowRestrict
+  const float* F;           // the folded stack, `levels` levels
+  int levels, staged;
+  float scale;
+  const float* acc;         // optional
+  int mask;
+  float* out;
+  const float* dot;         // optional: partials of <dot, out> in part_dot
+  double *part_rr, *part_dot;
+  const CGState* st;
+  BetaTail tail;
+  const float *A, *z, *aux; // kRowRestrict: operator, iterate, [sc, pm, pp, ef]
+  int npts;
+  float* store;             // kRowRestrict: the restricted row (optional)
+  const float *ac9, *rcs, *y;  // kRowCoarseRes
+  int nz, nr;
+};
+
+// out = rcs - Ac9 y's operator part at (i, j): the embedded coarse 9-point
+// stencil, z-offsets +-2 fine rows (the plane order of
+// heatflow_tpu_torch/ops/mgz.py: MGZ_OFFSETS), zeros outside the grid.
+__device__ __forceinline__ float coarse_apply_at(const float* __restrict__ Ac9,
+                                                 const float* __restrict__ y,
+                                                 int i, int j, int nz,
+                                                 int nr) {
+  const int n = nz * nr;
+  const int idx = i * nr + j;
+  const int di[8] = {2, -2, 0, 0, 2, -2, 2, -2};
+  const int dj[8] = {0, 0, 1, -1, 1, -1, -1, 1};
+  float acc = Ac9[idx] * y[idx];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int ii = i + di[k], jj = j + dj[k];
+    const bool in = ii >= 0 && ii < nz && jj >= 0 && jj < nr;
+    const float t = Ac9[(k + 1) * n + idx] * y[in ? ii * nr + jj : idx];
+    acc = in ? acc + t : acc;
+  }
+  return acc;
+}
+
+template <int kLoad>
+__device__ __forceinline__ void row_pass(const RowArgs& a) {
+  if (a.st != nullptr && a.st->done) return;
   extern __shared__ float smem[];
+  constexpr bool kEven = kLoad == kRowRestrict || kLoad == kRowCoarseRes;
+  const int nz = a.nz, nr = a.nr;
+  const int n = nz * nr;
+  const int i = kEven ? 2 * blockIdx.x : blockIdx.x;
+  const int row = i * nr;
   float* d0 = smem;
   float* d1 = smem + nr;
   float* fs = smem + 2 * nr;
-  const size_t n = (size_t)nz * nr;
-  const size_t row = (size_t)blockIdx.x * nr;
-  const Lines ln{row, 1, nr, 1, 1};
-  for (int j = threadIdx.y; j < nr; j += blockDim.y) {
-    cp_async4(d0 + j, r + row + j);
-    if (kUpdate) cp_async4(d1 + j, Ap + row + j);
-  }
-  cp_async_commit();
-  if (staged) stage_stack(fs, F, n, levels, ln);
-  // this thread's own row copies (group 0) landed; it reads only those
-  cp_async_wait_pending(staged ? levels + 1 : 0);
-  const float alpha = kUpdate ? (float)st->alpha : 0.0f;
-  double rr = 0.0;
-  if (kUpdate) {
+  const Lines ln{(size_t)row, 1, nr, 1, 1};
+  if (!kEven) {
     for (int j = threadIdx.y; j < nr; j += blockDim.y) {
-      const float rv = d0[j] - alpha * d1[j];
-      d0[j] = rv;
-      r[row + j] = rv;
-      rr += (double)(rv * rv);
+      cp_async4(d0 + j, a.r + row + j);
+      if (kLoad == kRowUpdate) cp_async4(d1 + j, a.Ap + row + j);
     }
   }
-  d0 = staged ? pcr_levels<true>(d0, d1, fs, F, n, levels, ln)
-              : pcr_levels<false>(d0, d1, fs, F, n, levels, ln);
-  const size_t gq = (size_t)(2 * levels);
-  const float* g = staged ? fs + gq * nr : F + gq * n + row;
-  double rz = 0.0;
-  for (int j = threadIdx.y; j < nr; j += blockDim.y) {
-    if (kUpdate) x[row + j] = x[row + j] + alpha * p[row + j];
-    const float fm = sm[row + j] != 0.0f ? 1.0f : 0.0f;
-    const float zv = g[j] * d0[j] * fm;
-    z[row + j] = zv;
-    rz += (double)(r[row + j] * zv);
+  cp_async_commit();
+  if (a.staged) stage_stack(fs, a.F, n, a.levels, ln);
+  const float alpha = kLoad == kRowUpdate ? (float)a.st->alpha : 0.0f;
+  double rr = 0.0;
+  if (!kEven) {
+    // this thread's own row copies (group 0) landed; it reads only those
+    cp_async_wait_pending(a.staged ? a.levels + 1 : 0);
+    if (kLoad == kRowUpdate) {
+      for (int j = threadIdx.y; j < nr; j += blockDim.y) {
+        const float rv = d0[j] - alpha * d1[j];
+        d0[j] = rv;
+        a.r[row + j] = rv;
+        rr += (double)(rv * rv);
+      }
+    }
+  } else if (kLoad == kRowRestrict) {
+    const float* sc = a.aux;
+    const float* pm = a.aux + n;
+    const float* pp = a.aux + 2 * n;
+    const float* ef = a.aux + 3 * n;
+    // sm . z on fine rows i-2 .. i+2 (clamped: a row past an end is never
+    // read) into shared memory, while the stack streams in; then the fine
+    // residual at (k, j), r - sm A (sm . z), with stencil_at's arithmetic
+    float* us = fs + (a.staged ? (2 * a.levels + 1) * nr : 0);
+    for (int t = threadIdx.y; t < 5 * nr; t += blockDim.y) {
+      const int rw = t / nr, j = t - rw * nr;
+      const int q = min(max(i - 2 + rw, 0), nz - 1) * nr + j;
+      us[t] = a.sm[q] * a.z[q];
+    }
+    __syncthreads();
+    auto u = [&](int k, int j) { return us[(k - i + 2) * nr + j]; };
+    auto res = [&](int k, int j) {
+      const int q = k * nr + j;
+      return a.r[q] - a.sm[q] * stencil_u(a.A, a.npts, u, k, j, nz, nr);
+    };
+    // rows past the ends are read at row i and their terms are 0
+    const int im = i >= 1 ? i - 1 : i, ip = i + 1 < nz ? i + 1 : i;
+    for (int j = threadIdx.y; j < nr; j += blockDim.y) {
+      const float r0 = res(i, j), rm = res(im, j), rp = res(ip, j);
+      float rc = ef[row + j] * r0;
+      rc += i >= 1 ? pp[row - nr + j] * rm : 0.0f;
+      rc += i + 1 < nz ? pm[row + nr + j] * rp : 0.0f;
+      const float v = sc[row + j] * rc;
+      d0[j] = v;
+      if (a.store != nullptr) a.store[row + j] = v;
+    }
+  } else {
+    for (int j = threadIdx.y; j < nr; j += blockDim.y)
+      d0[j] = a.rcs[row + j] - coarse_apply_at(a.ac9, a.y, i, j, nz, nr);
+  }
+  // The epilogue's operands of this thread's first kEpi points (x and p,
+  // acc, sm, dot) are requested before the PCR levels, so that they arrive
+  // while the levels run.
+  constexpr int kEpi = 3;
+  float ex[kEpi] = {}, ep[kEpi] = {}, ea[kEpi] = {}, es[kEpi] = {},
+        ed[kEpi] = {};
+#pragma unroll
+  for (int m = 0; m < kEpi; ++m) {
+    const int j = threadIdx.y + m * blockDim.y;
+    if (j < nr) {
+      if (kLoad == kRowUpdate) {
+        ex[m] = a.x[row + j];
+        ep[m] = a.p[row + j];
+      }
+      if (a.acc != nullptr) ea[m] = a.acc[row + j];
+      if (a.mask) es[m] = a.sm[row + j];
+      if (a.dot != nullptr) ed[m] = a.dot[row + j];
+    }
+  }
+  d0 = a.staged ? pcr_levels<true>(d0, d1, fs, a.F, n, a.levels, ln)
+                : pcr_levels<false>(d0, d1, fs, a.F, n, a.levels, ln);
+  const float* g = a.staged ? fs + 2 * a.levels * nr
+                            : a.F + (size_t)(2 * a.levels) * n + row;
+  double dsum = 0.0;
+  // out = (acc + scale F[2L] d) * mask at point j, with its <dot, out> term
+  auto epilogue = [&](int j, float xv, float pv, float av, float sv,
+                      float dv) {
+    if (kLoad == kRowUpdate) a.x[row + j] = xv + alpha * pv;
+    float v = a.scale * (g[j] * d0[j]);
+    if (a.acc != nullptr) v = av + v;
+    if (a.mask) v = v * (sv != 0.0f ? 1.0f : 0.0f);
+    a.out[row + j] = v;
+    if (a.dot != nullptr) dsum += (double)(dv * v);
+  };
+#pragma unroll
+  for (int m = 0; m < kEpi; ++m) {
+    const int j = threadIdx.y + m * blockDim.y;
+    if (j < nr) epilogue(j, ex[m], ep[m], ea[m], es[m], ed[m]);
+  }
+  for (int j = threadIdx.y + kEpi * blockDim.y; j < nr; j += blockDim.y)
+    epilogue(j, kLoad == kRowUpdate ? a.x[row + j] : 0.0f,
+             kLoad == kRowUpdate ? a.p[row + j] : 0.0f,
+             a.acc != nullptr ? a.acc[row + j] : 0.0f,
+             a.mask ? a.sm[row + j] : 0.0f,
+             a.dot != nullptr ? a.dot[row + j] : 0.0f);
+  if (kEven && i + 1 < nz) {
+    const int orow = row + nr;
+    const float* go = a.F + (size_t)(2 * a.levels) * n + orow;
+    for (int j = threadIdx.y; j < nr; j += blockDim.y) {
+      float v = a.scale * (go[j] * 0.0f);
+      if (a.acc != nullptr) v = a.acc[orow + j] + v;
+      a.out[orow + j] = v;
+      if (a.store != nullptr) a.store[orow + j] = 0.0f;
+    }
   }
   const bool tid0 = threadIdx.x == 0 && threadIdx.y == 0;
-  if (part_rr != nullptr) {
+  if (a.part_rr != nullptr) {
     rr = block_sum(rr);
-    if (tid0) part_rr[blockIdx.x] = rr;
+    if (tid0) a.part_rr[blockIdx.x] = rr;
   }
-  if (part_rz != nullptr) {
-    rz = block_sum(rz);
-    if (tid0) part_rz[blockIdx.x] = rz;
+  if (a.dot != nullptr) {
+    dsum = block_sum(dsum);
+    if (tid0) a.part_dot[blockIdx.x] = dsum;
   }
-  beta_tail(tail);
+  beta_tail(a.tail);
+}
+
+// The row kernel's instantiations, one name a load mode.
+__global__ void __launch_bounds__(kRowThreads, 2)
+    k_row_plain(const __grid_constant__ RowArgs a) {
+  row_pass<kRowPlain>(a);
+}
+
+__global__ void __launch_bounds__(kRowThreads, 2)
+    k_row_update(const __grid_constant__ RowArgs a) {
+  row_pass<kRowUpdate>(a);
+}
+
+__global__ void __launch_bounds__(kCoarseThreads, 1)
+    k_row_restrict(const __grid_constant__ RowArgs a) {
+  row_pass<kRowRestrict>(a);
+}
+
+__global__ void __launch_bounds__(kCoarseThreads, 1)
+    k_row_coarse_res(const __grid_constant__ RowArgs a) {
+  row_pass<kRowCoarseRes>(a);
 }
 
 // z-line PCR apply and the ADI combine for columns of at most kZRows x
@@ -640,21 +849,6 @@ __global__ void k_pcr_z_tall(const float* __restrict__ r,
   beta_tail(tail);
 }
 
-// out = r - sm A (sm v): the fine residual of the mgz cycle.
-__global__ void k_residual(const float* __restrict__ A, int npts,
-                           const float* __restrict__ sm,
-                           const float* __restrict__ r,
-                           const float* __restrict__ v,
-                           float* __restrict__ out, const CGState* st, int nz,
-                           int nr) {
-  if (st != nullptr && st->done) return;
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int i = (int)(idx / nr), j = (int)(idx % nr);
-  out[idx] = r[idx] - sm[idx] * stencil_at(A, npts, sm, v, i, j, nz, nr);
-}
-
 // The Chebyshev polynomial's target interval [0.08, 1.05] lmax in the TPU
 // kernel's float32 arithmetic: theta, delta, and the coefficients of step
 // `step` (0-based) of d = c1 d + c2 res.
@@ -710,11 +904,11 @@ __global__ void k_cheb_step(const float* __restrict__ A, int npts,
                             const CGState* st, int nz, int nr) {
   if (st != nullptr && st->done) return;
   const ChebCoef c = cheb_coef(lmax[0], step);
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = nz * nr;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   double acc = 0.0;
   if (idx < n) {
-    const int i = (int)(idx / nr), j = (int)(idx % nr);
+    const int i = idx / nr, j = idx - i * nr;
     const float rv = r[idx];
     const float res = rv - sm[idx] * stencil_at(A, npts, sm, z_in, i, j, nz,
                                                 nr);
@@ -740,11 +934,11 @@ __global__ void k_merged_w(const float* __restrict__ A, int npts,
                            double* part_gamma, const CGState* st, int nz,
                            int nr) {
   if (st != nullptr && st->done) return;
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = nz * nr;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   double dl = 0.0, rr = 0.0, ga = 0.0;
   if (idx < n) {
-    const int i = (int)(idx / nr), j = (int)(idx % nr);
+    const int i = idx / nr, j = idx - i * nr;
     const float wv = sm[idx] * stencil_at(A, npts, sm, u, i, j, nz, nr);
     const float uv = u[idx], rv = r[idx];
     w[idx] = wv;
@@ -783,241 +977,410 @@ __global__ void k_pq_update(float* __restrict__ p, float* __restrict__ q,
   }
 }
 
-// The row kernel of the mgz cycle, one block per z-row: the folded r-line
-// PCR levels of stack F on the row d, then
-//   out = (acc + scale * F[2L] d) * mask
-// with acc and mask optional (mask = (sm != 0)), and optionally the row's
-// partial of <dot, out>. The row d is src's row, or, with aux (the planes
-// sc, pm, pp, e_free), the scaled restriction of src onto the embedded
-// coarse rows,
-//   d = sc (e_free src[i] + (pp src)[i-1] + (pm src)[i+1])   (0 past the ends),
-// which is also written to store when that is given.
-__global__ void k_pcr_row(const float* __restrict__ src,
-                          const float* __restrict__ aux, float* store,
-                          const float* __restrict__ F, int levels, float scale,
-                          const float* acc_in, const float* __restrict__ sm,
-                          float* out, const float* __restrict__ dot,
-                          double* part, const CGState* st, int nz, int nr) {
-  if (st != nullptr && st->done) return;
-  extern __shared__ float line[];
-  float* d0 = line;
-  float* d1 = line + nr;
-  const size_t n = (size_t)nz * nr;
-  const int i = blockIdx.x;
-  const size_t row = (size_t)i * nr;
-  for (int j = threadIdx.x; j < nr; j += blockDim.x) {
-    float v;
-    if (aux != nullptr) {
-      const float* sc = aux;
-      const float* pm = aux + n;
-      const float* pp = aux + 2 * n;
-      const float* ef = aux + 3 * n;
-      float rc = ef[row + j] * src[row + j];
-      rc += i >= 1 ? pp[row - nr + j] * src[row - nr + j] : 0.0f;
-      rc += i + 1 < nz ? pm[row + nr + j] * src[row + nr + j] : 0.0f;
-      v = sc[row + j] * rc;
-      if (store != nullptr) store[row + j] = v;
-    } else {
-      v = src[row + j];
-    }
-    d0[j] = v;
-  }
-  __syncthreads();
-  int s = 1;
-  for (int k = 0; k < levels; ++k) {
-    const float* lo = F + (size_t)(2 * k) * n + row;
-    const float* up = F + (size_t)(2 * k + 1) * n + row;
-    for (int j = threadIdx.x; j < nr; j += blockDim.x) {
-      float v = d0[j];
-      if (j - s >= 0) v = v - lo[j] * d0[j - s];
-      if (j + s < nr) v = v - up[j] * d0[j + s];
-      d1[j] = v;
-    }
-    __syncthreads();
-    float* t = d0; d0 = d1; d1 = t;
-    s <<= 1;
-  }
-  const float* g = F + (size_t)(2 * levels) * n + row;
-  double a = 0.0;
-  for (int j = threadIdx.x; j < nr; j += blockDim.x) {
-    float v = scale * (g[j] * d0[j]);
-    if (acc_in != nullptr) v = acc_in[row + j] + v;
-    if (sm != nullptr) v = v * (sm[row + j] != 0.0f ? 1.0f : 0.0f);
-    out[row + j] = v;
-    if (dot != nullptr) a += (double)(dot[row + j] * v);
-  }
-  if (dot != nullptr) {
-    a = block_sum(a);
-    if (threadIdx.x == 0) part[blockIdx.x] = a;
-  }
-}
-
-// out = rcs - Ac9 y: the residual of the scaled embedded coarse operator,
-// a 9-point stencil whose z-offsets are +-2 fine rows (the plane order of
-// heatflow_tpu_torch/ops/mgz.py: MGZ_OFFSETS), zeros outside the grid.
-__global__ void k_coarse_res(const float* __restrict__ Ac9,
-                             const float* __restrict__ rcs,
-                             const float* __restrict__ y,
-                             float* __restrict__ out, const CGState* st,
-                             int nz, int nr) {
-  if (st != nullptr && st->done) return;
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int i = (int)(idx / nr), j = (int)(idx % nr);
-  const int di[8] = {2, -2, 0, 0, 2, -2, 2, -2};
-  const int dj[8] = {0, 0, 1, -1, 1, -1, -1, 1};
-  float acc = Ac9[idx] * y[idx];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int ii = i + di[k], jj = j + dj[k];
-    if (ii >= 0 && ii < nz && jj >= 0 && jj < nr)
-      acc += Ac9[(size_t)(k + 1) * n + idx] * y[(size_t)ii * nr + jj];
-  }
-  out[idx] = rcs[idx] - acc;
-}
-
-// Prolongation of the coarse correction xc = sc y into x, in place:
-//   x += e_free xc[i] + pm xc[i-1] + pp xc[i+1]   (0 past the ends).
-__global__ void k_prolong(float* __restrict__ x, const float* __restrict__ y,
-                          const float* __restrict__ aux, const CGState* st,
-                          int nz, int nr) {
-  if (st != nullptr && st->done) return;
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int i = (int)(idx / nr);
+// The mgz cycle's prolongation of the coarse correction, at (k, j):
+//   x + e_free (sc y)[k] + pm (sc y)[k-1] + pp (sc y)[k+1]   (0 past the ends)
+// with aux = [sc, pm, pp, e_free], in the order of the plain version.
+__device__ __forceinline__ float mgz_prolong_at(const float* __restrict__ x,
+                                                const float* __restrict__ y,
+                                                const float* __restrict__ aux,
+                                                int k, int j, int nz, int nr) {
+  const int n = nz * nr;
+  const int idx = k * nr + j;
   const float* sc = aux;
   const float* pm = aux + n;
   const float* pp = aux + 2 * n;
   const float* ef = aux + 3 * n;
+  const int qm = k >= 1 ? idx - nr : idx, qp = k + 1 < nz ? idx + nr : idx;
+  const float lo = sc[qm] * y[qm], hi = sc[qp] * y[qp];
   float v = x[idx] + ef[idx] * (sc[idx] * y[idx]);
-  v += pm[idx] * (i >= 1 ? sc[idx - nr] * y[idx - nr] : 0.0f);
-  v += pp[idx] * (i + 1 < nz ? sc[idx + nr] * y[idx + nr] : 0.0f);
-  x[idx] = v;
+  v += pm[idx] * (k >= 1 ? lo : 0.0f);
+  v += pp[idx] * (k + 1 < nz ? hi : 0.0f);
+  return v;
 }
 
-// One Chebyshev smoothing step on D^-1 C of a multigrid level, for the
-// right-hand side b: res = b - C x_in (b itself when x_in is null: the
-// iterate starts at zero), dinv = 1 / diag(C) (1 where the diagonal is 0),
-//   first step:  d = dinv res / theta
-//   later steps: d = c1 d + c2 (dinv res)
-// x_out = x_in + d, another plane than x_in (the stencil reads x_in's
-// neighbours while other blocks write x_out). With `mask` (the CG scaling
-// plane sm) the result is multiplied by (sm > 0); with `dot` the block's
-// partial of <dot, x_out> is written.
-__global__ void k_mg_cheb(const float* __restrict__ C, int npts,
-                          const float* __restrict__ b, const float* x_in,
-                          float* __restrict__ d, float* x_out, int first,
-                          float theta, float c1, float c2,
-                          const float* __restrict__ mask,
-                          const float* __restrict__ dot, double* part,
-                          const CGState* st, int nz, int nr) {
+// The mgz cycle's prolongation fused into its second residual: with
+// zp = z + P (sc y) formed at the point and at its stencil neighbours,
+//   zout = zp,  r1 = r - sm A (sm zp)
+// (zout is another plane than z: other blocks read z's neighbours).
+__global__ void k_mgz_prolong_res(const float* __restrict__ A, int npts,
+                                  const float* __restrict__ sm,
+                                  const float* __restrict__ r,
+                                  const float* __restrict__ z,
+                                  const float* __restrict__ y,
+                                  const float* __restrict__ aux,
+                                  float* __restrict__ zout,
+                                  float* __restrict__ r1, const CGState* st,
+                                  int nz, int nr) {
   if (st != nullptr && st->done) return;
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  double acc = 0.0;
-  if (idx < n) {
-    const int i = (int)(idx / nr), j = (int)(idx % nr);
-    const float diag = C[idx];
-    const float dinv = diag != 0.0f ? 1.0f / diag : 1.0f;
-    float xv = 0.0f, res = b[idx];
-    if (x_in != nullptr) {
-      xv = x_in[idx];
-      res = res - level_stencil_at(C, npts, x_in, i, j, nz, nr);
-    }
-    const float dv = first ? dinv * res / theta
-                           : c1 * d[idx] + c2 * (dinv * res);
-    float xo = xv + dv;
-    if (mask != nullptr) xo = xo * (mask[idx] > 0.0f ? 1.0f : 0.0f);
-    d[idx] = dv;
-    x_out[idx] = xo;
-    if (dot != nullptr) acc = (double)(dot[idx] * xo);
-  }
-  if (dot != nullptr) {
-    acc = block_sum(acc);
-    if (threadIdx.x == 0) part[blockIdx.x] = acc;
-  }
-}
-
-// out = b - C x on a multigrid level.
-__global__ void k_mg_residual(const float* __restrict__ C, int npts,
-                              const float* __restrict__ b,
-                              const float* __restrict__ x,
-                              float* __restrict__ out, const CGState* st,
-                              int nz, int nr) {
-  if (st != nullptr && st->done) return;
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int i = (int)(idx / nr), j = (int)(idx % nr);
-  out[idx] = b[idx] - level_stencil_at(C, npts, x, i, j, nz, nr);
-}
-
-// Restriction (the transpose of the bilinear prolongation) of a fine field
-// (nz, nr), both odd, onto the (cz, cr) plane of the next level, one thread
-// a coarse point: along z then along r, coarse i takes fine 2i, w[i] of
-// fine 2i+1 and (1 - w[i-1]) of fine 2i-1, summed in that order. Points
-// past the coarse grid ((nz+1)/2, (nr+1)/2), the next level's odd padding,
-// get 0.
-__global__ void k_mg_restrict(const float* __restrict__ v,
-                              const float* __restrict__ wz,
-                              const float* __restrict__ wr,
-                              float* __restrict__ out, const CGState* st,
-                              int nz, int nr, int cz, int cr) {
-  if (st != nullptr && st->done) return;
+  const int n = nz * nr;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= cz * cr) return;
-  const int I = idx / cr, J = idx % cr;
-  const int mz = (nz + 1) / 2, mr = (nr + 1) / 2;
-  if (I >= mz || J >= mr) {
-    out[idx] = 0.0f;
-    return;
+  if (idx >= n) return;
+  const int i = idx / nr, j = idx - i * nr;
+  const float zc = mgz_prolong_at(z, y, aux, i, j, nz, nr);
+  // (A (sm . zp))[i, j] in stencil_at's order
+  float out = A[idx] * (sm[idx] * zc);
+  const int di[8] = {1, -1, 0, 0, 1, -1, 1, -1};
+  const int dj[8] = {0, 0, 1, -1, 1, -1, -1, 1};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (k >= npts - 1) break;
+    const int ii = i + di[k], jj = j + dj[k];
+    if (ii >= 0 && ii < nz && jj >= 0 && jj < nr) {
+      const int q = ii * nr + jj;
+      out += A[(k + 1) * n + idx] *
+             (sm[q] * mgz_prolong_at(z, y, aux, ii, jj, nz, nr));
+    }
   }
-  const float wz_lo = I < mz - 1 ? wz[I] : 0.0f;
-  const float wz_hi = I >= 1 ? 1.0f - wz[I - 1] : 0.0f;
+  zout[idx] = zc;
+  r1[idx] = r[idx] - sm[idx] * out;
+}
+
+// ---- the multigrid cycle (K6) ---------------------------------------------
+
+// The multigrid V-cycle's levels, finest first, built by the Python wrapper
+// (heatflow_tpu_torch/ops/cuda_mg.py mirrors both records with ctypes) in
+// host memory: device pointers, shapes, and the Chebyshev coefficients the
+// host computed in float32 from each level's eigenvalue bound (c1[k], c2[k]
+// belong to step k + 1). dinv is 1 / diag(C) (1 where the diagonal is 0),
+// formed once per level by the wrapper; wz (nz/2) and wr (nr/2) are the
+// transfer weights between this level and the next; b, xa, xb and d are
+// scratch planes of the level's shape (level 0 needs no b: its right-hand
+// side is the CG residual).
+constexpr int kMaxLevels = 8;
+constexpr int kMaxCheb = 32;
+
+struct MGLevel {
+  const float *C, *dinv, *wz, *wr;
+  float *b, *xa, *xb, *d;
+  int npts, nz, nr;
+  float theta;
+  float c1[kMaxCheb], c2[kMaxCheb];
+};
+
+struct MGDesc {
+  int n_levels, nu, nu_coarse, reserved;
+  MGLevel lv[kMaxLevels];
+};
+
+// The plane a level's smoothing step writes after reading `cur` (null:
+// from zero): the first step from zero writes xa, then the planes
+// alternate; and the plane that holds the iterate after `steps` steps.
+__host__ __device__ inline float* mg_next(const MGLevel& L, const float* cur) {
+  return cur == L.xa ? L.xb : L.xa;
+}
+
+__host__ __device__ inline float* mg_after(const MGLevel& L, const float* x_in,
+                                           int steps) {
+  float* cur = const_cast<float*>(x_in);
+  for (int k = 0; k < steps; ++k) cur = mg_next(L, cur);
+  return cur;
+}
+
+// x(i, j) + (P xc)(i, j): the bilinear prolongation of the coarse correction
+// (its leading ((nz+1)/2, (nr+1)/2) part), with the fine iterate x and the
+// coarse one xc given as functions of the grid point: along r then along
+// z, fine 2i+1 takes w[i] of coarse i and (1 - w[i]) of coarse i+1. Every
+// value is read, at row I (even i) and column J (even j) where the coarse
+// point I+1 or J+1 is not used, so that the loads carry no branch.
+template <class X, class XC>
+__device__ __forceinline__ float mg_prolong_at(X x, XC xc,
+                                               const float* __restrict__ wz,
+                                               const float* __restrict__ wr,
+                                               int i, int j) {
+  const int I = i >> 1, J = j >> 1;
+  const bool zo = i & 1, ro = j & 1;
+  const int I1 = zo ? I + 1 : I, J1 = ro ? J + 1 : J;
+  const float w = wr[ro ? J : 0], u = wz[zo ? I : 0];
+  const float a0 = xc(I, J), b0 = xc(I, J1), a1 = xc(I1, J), b1 = xc(I1, J1);
+  // the r-prolonged coarse rows I and I+1
+  const float rows0 = ro ? w * a0 + (1.0f - w) * b0 : a0;
+  const float rows1 = ro ? w * a1 + (1.0f - w) * b1 : a1;
+  const float add = zo ? u * rows0 + (1.0f - u) * rows1 : rows0;
+  return x(i, j) + add;
+}
+
+// The restriction (the transpose of the bilinear prolongation) of level L's
+// residual v = b - C x (a function of the grid point) onto coarse point
+// (I, J) of the next level: along z then along r, coarse i takes fine 2i,
+// w[i] of fine 2i+1 and (1 - w[i-1]) of fine 2i-1, summed in that order.
+// Points past the coarse grid ((nz+1)/2, (nr+1)/2), the next level's odd
+// padding, get 0.
+template <class V>
+__device__ float mg_restrict_at(const MGLevel& L, V v, int I, int J) {
+  const int nz = L.nz, nr = L.nr;
+  const int mz = (nz + 1) / 2, mr = (nr + 1) / 2;
+  if (I >= mz || J >= mr) return 0.0f;
+  const bool hi = I < mz - 1, lo = I >= 1;
+  const float wz_lo = hi ? L.wz[I] : 0.0f;
+  const float wz_hi = lo ? 1.0f - L.wz[I - 1] : 0.0f;
   float cols[3] = {0.0f, 0.0f, 0.0f};   // z-restricted columns 2J-1, 2J, 2J+1
+  // the nine values are read unconditionally (past an end: at a point
+  // inside, their terms not added), so that their loads are issued together
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const int jf = 2 * J - 1 + c;
-    if (jf < 0 || jf >= nr) continue;
-    float s = v[(size_t)(2 * I) * nr + jf];
-    if (I < mz - 1) s += wz_lo * v[(size_t)(2 * I + 1) * nr + jf];
-    if (I >= 1) s += wz_hi * v[(size_t)(2 * I - 1) * nr + jf];
-    cols[c] = s;
+    const bool in = jf >= 0 && jf < nr;
+    const int jc = in ? jf : 2 * J;
+    const float a = v(2 * I, jc);
+    const float bh = v(hi ? 2 * I + 1 : 2 * I, jc);
+    const float bl = v(lo ? 2 * I - 1 : 2 * I, jc);
+    float s = a;
+    s = hi ? s + wz_lo * bh : s;
+    s = lo ? s + wz_hi * bl : s;
+    cols[c] = in ? s : 0.0f;
   }
   float s = cols[1];
-  if (J < mr - 1) s += wr[J] * cols[2];
-  if (J >= 1) s += (1.0f - wr[J - 1]) * cols[0];
-  out[idx] = s;
+  if (J < mr - 1) s += L.wr[J] * cols[2];
+  if (J >= 1) s += (1.0f - L.wr[J - 1]) * cols[0];
+  return s;
 }
 
-// x += P xc in place: the bilinear prolongation of the coarse correction
-// (its leading ((nz+1)/2, (nr+1)/2) part; rows are `cstride` apart), one
-// thread a fine point: along r then along z, fine 2i+1 takes w[i] of
-// coarse i and (1 - w[i]) of coarse i+1.
-__global__ void k_mg_prolong(float* __restrict__ x,
-                             const float* __restrict__ xc,
-                             const float* __restrict__ wz,
-                             const float* __restrict__ wr, const CGState* st,
-                             int nz, int nr, int cstride) {
-  if (st != nullptr && st->done) return;
-  const size_t n = (size_t)nz * nr;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int i = (int)(idx / nr), j = (int)(idx % nr);
-  const int I = i >> 1, J = j >> 1;
-  float rows[2] = {0.0f, 0.0f};   // r-prolonged coarse rows I and I+1
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    if (c == 1 && !(i & 1)) break;
-    const float* row = xc + (size_t)(I + c) * cstride;
-    rows[c] = (j & 1) ? wr[J] * row[J] + (1.0f - wr[J]) * row[J + 1]
-                      : row[J];
+// One Chebyshev smoothing step on D^-1 C of a multigrid level at one point,
+// for the right-hand side res (b there): with an iterate x_in (a function
+// of the grid point; none for a first step from zero)
+//   res = b - C x_in,
+//   first step:  d = dinv res / theta
+//   later steps: d = c1 d + c2 (dinv res)
+// and returns x_in + d (with *d_io the point's d, read and written).
+template <class X>
+__device__ __forceinline__ float mg_step_point(const float* __restrict__ C,
+                                               int npts, float dinv,
+                                               float res, X x_in, bool has_x,
+                                               float* d_io, int first,
+                                               float theta, float c1,
+                                               float c2, int i, int j, int nz,
+                                               int nr) {
+  float xv = 0.0f;
+  if (has_x) {
+    xv = x_in(i, j);
+    res = res - level_stencil_at(C, npts, x_in, i, j, nz, nr);
   }
-  const float add = (i & 1) ? wz[I] * rows[0] + (1.0f - wz[I]) * rows[1]
-                            : rows[0];
-  x[idx] = x[idx] + add;
+  const float dv = first ? dinv * res / theta : c1 * *d_io + c2 * (dinv * res);
+  *d_io = dv;
+  return xv + dv;
+}
+
+// One smoothing step of a level as its own pass, one thread a point, for
+// the right-hand side b, from x_in (null: zero) into x_out, another plane
+// than x_in (the stencil reads x_in's neighbours while other blocks write
+// x_out). With xc, the iterate read is x_in + P xc (the prolongation fused
+// into the first post-smoothing step). With p (level 0's first step, from
+// zero), the CG update comes first at the point, x += alpha p, r -= alpha
+// Ap (b is r), with its <r, r> partial. With `mask` (the CG scaling plane
+// sm) the result is multiplied by (sm > 0); with `dot` the <dot, x_out>
+// partial is written.
+struct MGStep {
+  const float *C, *dinv, *b, *x_in;
+  float *d, *x_out;
+  int npts, nz, nr, first;
+  float theta, c1, c2;
+  const float *xc, *wz, *wr;
+  int cstride;
+  const float *mask, *dot;
+  double* part;
+  float *r, *x;
+  const float *p, *Ap;
+  double* part_rr;
+  int from_b;   // x_in is the first step from zero, formed from b and dinv
+};
+
+__global__ void k_mg_step(const __grid_constant__ MGStep s, const CGState* st,
+                          const __grid_constant__ BetaTail tail) {
+  if (st != nullptr && st->done) return;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  double rr = 0.0, acc = 0.0;
+  if (idx < s.nz * s.nr) {
+    const int nr = s.nr;
+    const int i = idx / nr, j = idx - i * nr;
+    float res;
+    if (s.p != nullptr) {
+      const float alpha = (float)st->alpha;
+      s.x[idx] = s.x[idx] + alpha * s.p[idx];
+      const float rv = s.r[idx] - alpha * s.Ap[idx];
+      s.r[idx] = rv;
+      rr = (double)(rv * rv);
+      res = rv;
+    } else {
+      res = s.b[idx];
+    }
+    auto xp = [&](int ii, int jj) { return s.x_in[ii * nr + jj]; };
+    auto cp = [&](int I, int J) { return s.xc[I * s.cstride + J]; };
+    auto xpro = [&](int ii, int jj) {
+      return mg_prolong_at(xp, cp, s.wz, s.wr, ii, jj);
+    };
+    // the first step from zero at (ii, jj): 0 + dinv b / theta
+    auto x1 = [&](int ii, int jj) {
+      const int q = ii * nr + jj;
+      return 0.0f + s.dinv[q] * s.b[q] / s.theta;
+    };
+    float d = s.from_b ? s.dinv[idx] * res / s.theta
+              : s.first ? 0.0f : s.d[idx];
+    float xo = s.xc != nullptr
+                   ? mg_step_point(s.C, s.npts, s.dinv[idx], res, xpro, true,
+                                   &d, s.first, s.theta, s.c1, s.c2, i, j,
+                                   s.nz, nr)
+               : s.from_b
+                   ? mg_step_point(s.C, s.npts, s.dinv[idx], res, x1, true,
+                                   &d, 0, s.theta, s.c1, s.c2, i, j, s.nz, nr)
+                   : mg_step_point(s.C, s.npts, s.dinv[idx], res, xp,
+                                   s.x_in != nullptr, &d, s.first, s.theta,
+                                   s.c1, s.c2, i, j, s.nz, nr);
+    if (s.mask != nullptr) xo = xo * (s.mask[idx] > 0.0f ? 1.0f : 0.0f);
+    s.d[idx] = d;
+    s.x_out[idx] = xo;
+    if (s.dot != nullptr) acc = (double)(s.dot[idx] * xo);
+  }
+  if (s.part_rr != nullptr) {
+    rr = block_sum(rr);
+    if (threadIdx.x == 0) s.part_rr[blockIdx.x] = rr;
+  }
+  if (s.dot != nullptr) {
+    acc = block_sum(acc);
+    if (threadIdx.x == 0) s.part[blockIdx.x] = acc;
+  }
+  beta_tail(tail);
+}
+
+// The next level's right-hand side: the restriction of level L's residual
+// b - C x. A block takes kRTI x kRTJ points of the next level's (padded)
+// plane: it forms the residual once at each fine point they gather from
+// (2 kRTI + 1 rows, 2 kRTJ + 1 columns) into shared memory, then one
+// thread restricts each coarse point.
+constexpr int kRTI = 8, kRTJ = 32;
+
+__global__ void __launch_bounds__(kRTI * kRTJ)
+    k_mg_restrict_res(const __grid_constant__ MGLevel L,
+                      const float* __restrict__ b,
+                      const float* __restrict__ x, float* __restrict__ out,
+                      int cz, int cr, const CGState* st) {
+  if (st != nullptr && st->done) return;
+  constexpr int H = 2 * kRTI + 1, W = 2 * kRTJ + 1;
+  __shared__ float res[H][W];
+  const int nz = L.nz, nr = L.nr;
+  const int I0 = blockIdx.y * kRTI, J0 = blockIdx.x * kRTJ;
+  const int fi0 = 2 * I0 - 1, fj0 = 2 * J0 - 1;   // res's first point
+  auto xv = [&](int ii, int jj) { return x[ii * nr + jj]; };
+  for (int t = threadIdx.x; t < H * W; t += blockDim.x) {
+    const int a = t / W, c = t - a * W;
+    const int ii = fi0 + a, jj = fj0 + c;
+    float v = 0.0f;
+    if (ii >= 0 && ii < nz && jj >= 0 && jj < nr)
+      v = b[ii * nr + jj] - level_stencil_at(L.C, L.npts, xv, ii, jj, nz, nr);
+    res[a][c] = v;
+  }
+  __syncthreads();
+  const int I = I0 + threadIdx.x / kRTJ, J = J0 + threadIdx.x % kRTJ;
+  if (I >= cz || J >= cr) return;
+  out[I * cr + J] = mg_restrict_at(
+      L, [&](int ii, int jj) { return res[ii - fi0][jj - fj0]; }, I, J);
+}
+
+// ---- the coarsest level in one launch -------------------------------------
+//
+// The last level's right-hand side (the restriction of the residual of the
+// level above) and its nu_coarse smoothing steps from zero in one launch,
+// with no barrier between blocks: each block takes a tile of the level and
+// works on the tile grown by a halo of nu_coarse - 1 points on each side
+// (clipped to the grid), all in its shared memory. A step at a point reads
+// the last iterate at its neighbours only, so step k is right on the
+// region shrunk by k (the grid's own edges do not shrink), and after the
+// last step on the tile. The fine residual the restriction gathers is
+// formed once per fine point of the region, into shared memory too. Each
+// point's arithmetic and order are those of the standalone passes.
+constexpr int kLastRows = 8, kLastCols = 8;   // a block's tile
+constexpr int kLastThreads = 1024;
+
+// The region of the tile of block (bx, by) on a level of nz x nr points,
+// halo h: rows [r0, r1), columns [c0, c1).
+struct LastRegion {
+  int r0, r1, c0, c1;
+  __host__ __device__ LastRegion(int by, int bx, int h, int nz, int nr) {
+    const int t0 = by * kLastRows, u0 = bx * kLastCols;
+    r0 = t0 - h > 0 ? t0 - h : 0;
+    c0 = u0 - h > 0 ? u0 - h : 0;
+    r1 = t0 + kLastRows + h < nz ? t0 + kLastRows + h : nz;
+    c1 = u0 + kLastCols + h < nr ? u0 + kLastCols + h : nr;
+  }
+  __host__ __device__ int rows() const { return r1 - r0; }
+  __host__ __device__ int cols() const { return c1 - c0; }
+};
+
+// Shared memory of k_mg_last: the coarse region's four planes (xa, xb, d,
+// b) and the fine residual region (2 rows + 1 by 2 columns + 1), for the
+// largest region of any tile.
+__host__ __device__ inline size_t last_smem(int nz, int nr, int h) {
+  const int rh = kLastRows + 2 * h < nz ? kLastRows + 2 * h : nz;
+  const int cw = kLastCols + 2 * h < nr ? kLastCols + 2 * h : nr;
+  return (4 * (size_t)rh * cw + (size_t)(2 * rh + 1) * (2 * cw + 1)) *
+         sizeof(float);
+}
+
+__global__ void __launch_bounds__(kLastThreads, 1)
+    k_mg_last(const __grid_constant__ MGLevel P, const float* __restrict__ bp,
+              const float* __restrict__ xp, const __grid_constant__ MGLevel Q,
+              int steps, float* __restrict__ out, const CGState* st) {
+  if (st != nullptr && st->done) return;
+  extern __shared__ float lsm[];
+  const int nz = Q.nz, nr = Q.nr;
+  const int h = steps > 1 ? steps - 1 : 0;
+  const LastRegion g(blockIdx.y, blockIdx.x, h, nz, nr);
+  const int rw = g.rows(), cw = g.cols(), m = rw * cw;
+  float* xa = lsm;
+  float* xb = lsm + m;
+  float* dd = lsm + 2 * m;
+  float* bb = lsm + 3 * m;
+  float* fr = lsm + 4 * m;   // the fine residual, rows 2 r0 - 1 .. 2 r1 - 1
+  const int fr0 = 2 * g.r0 - 1, fc0 = 2 * g.c0 - 1;
+  const int fh = 2 * rw + 1, fw = 2 * cw + 1;
+  {
+    const int pnr = P.nr;
+    auto xv = [&](int ii, int jj) { return xp[ii * pnr + jj]; };
+    for (int t = threadIdx.x; t < fh * fw; t += blockDim.x) {
+      const int a = t / fw, c = t - a * fw;
+      const int ii = fr0 + a, jj = fc0 + c;
+      float v = 0.0f;
+      if (ii >= 0 && ii < P.nz && jj >= 0 && jj < pnr)
+        v = bp[ii * pnr + jj] -
+            level_stencil_at(P.C, P.npts, xv, ii, jj, P.nz, pnr);
+      fr[t] = v;
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < m; t += blockDim.x) {
+    const int a = t / cw, c = t - a * cw;
+    bb[t] = mg_restrict_at(
+        P, [&](int ii, int jj) { return fr[(ii - fr0) * fw + jj - fc0]; },
+        g.r0 + a, g.c0 + c);
+  }
+  __syncthreads();
+  const float* cur = nullptr;
+  float* nxt = xa;
+  for (int k = 0; k < steps; ++k) {
+    const float c1 = k ? Q.c1[k - 1] : 0.0f, c2 = k ? Q.c2[k - 1] : 0.0f;
+    // the part of the region this step is right on
+    const int a0 = g.r0 > 0 ? k : 0, a1 = g.r1 < nz ? rw - k : rw;
+    const int e0 = g.c0 > 0 ? k : 0, e1 = g.c1 < nr ? cw - k : cw;
+    const int w = e1 - e0;
+    auto xv = [&](int ii, int jj) {
+      return cur[(ii - g.r0) * cw + jj - g.c0];
+    };
+    for (int t = threadIdx.x; t < (a1 - a0) * w; t += blockDim.x) {
+      const int a = a0 + t / w, c = e0 + t % w;
+      const int i = g.r0 + a, j = g.c0 + c, q = a * cw + c;
+      nxt[q] = mg_step_point(Q.C, Q.npts, Q.dinv[i * nr + j], bb[q], xv,
+                             cur != nullptr, dd + q, k == 0, Q.theta, c1, c2,
+                             i, j, nz, nr);
+    }
+    __syncthreads();
+    cur = nxt;
+    nxt = nxt == xa ? xb : xa;
+  }
+  // the tile's points of the last iterate
+  const int t0 = blockIdx.y * kLastRows, u0 = blockIdx.x * kLastCols;
+  for (int t = threadIdx.x; t < kLastRows * kLastCols; t += blockDim.x) {
+    const int i = t0 + t / kLastCols, j = u0 + t % kLastCols;
+    if (i < nz && j < nr) out[i * nr + j] = cur[(i - g.r0) * cw + j - g.c0];
+  }
 }
 
 // The start's scalars and stop target (kFinInit), or beta by beta_rule
@@ -1120,30 +1483,6 @@ __global__ void k_finish(float* __restrict__ x, int* iters,
   if (poison && idx < n && !isfinite(st->rr)) x[idx] = nanf("");
 }
 
-// The multigrid V-cycle's levels, finest first, built by the Python wrapper
-// (heatflow_tpu_torch/ops/cuda_mg.py mirrors both records with ctypes) in
-// host memory: device pointers, shapes, and the Chebyshev coefficients the
-// host computed in float32 from each level's eigenvalue bound (c1[k], c2[k]
-// belong to step k + 1). wz (nz/2) and wr (nr/2) are the transfer weights
-// between this level and the next; b, xa, xb, d and res are scratch planes
-// of the level's shape (level 0 needs no b: its right-hand side is the CG
-// residual).
-constexpr int kMaxLevels = 8;
-constexpr int kMaxCheb = 32;
-
-struct MGLevel {
-  const float *C, *wz, *wr;
-  float *b, *xa, *xb, *d, *res;
-  int npts, nz, nr;
-  float theta;
-  float c1[kMaxCheb], c2[kMaxCheb];
-};
-
-struct MGDesc {
-  int n_levels, nu, nu_coarse, reserved;
-  MGLevel lv[kMaxLevels];
-};
-
 struct Solve {
   const float *A, *sm, *b, *x0, *rtol, *pcr, *pcrz;
   float *x, *r, *z, *p, *Ap;
@@ -1176,7 +1515,8 @@ struct Solve {
   }
   float* plane(int k) const { return extra + (size_t)k * n(); }
   // planes of `extra`, in order: merged (q, w), Chebyshev (d, z2), mgz
-  // (r1, yc, rcs, res)
+  // (r1, the coarse iterate's two planes ya and yb, rcs, the prolongated
+  // iterate zp: see precondition_mgz)
   float* q() const { return plane(0); }
   float* w() const { return plane(1); }
   float* cheb_d() const { return plane(merged ? 2 : 0); }
@@ -1225,14 +1565,14 @@ cudaError_t configure() {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 32 && (done >> dev) & 1u) return cudaSuccess;
-  const void* fns[] = {(const void*)k_pcr_r<true>,
-                       (const void*)k_pcr_r<false>,
-                       (const void*)k_pcr_z_tall, (const void*)k_pcr_row};
+  const void* fns[] = {(const void*)k_row_plain, (const void*)k_row_update,
+                       (const void*)k_row_restrict,
+                       (const void*)k_row_coarse_res,
+                       (const void*)k_pcr_z_tall};
   for (const void* fn : fns) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kMaxDynSmem);
     if (e != cudaSuccess) return e;
-    if (fn == (const void*)k_pcr_row) continue;
     e = cudaFuncSetAttribute(fn,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
@@ -1244,31 +1584,58 @@ cudaError_t configure() {
 
 const BetaTail kNoTail{nullptr, nullptr, nullptr, 0, 0, 0, 0};
 
+// The row kernel in load mode `load` (k_row_plain, ...), counted as `phase`: one block
+// a row, the even rows only in the coarse modes.
+cudaError_t launch_row(int load, const RowArgs& args, int phase,
+                       long long* counts, cudaStream_t stream) {
+  cudaError_t e = configure();
+  if (e != cudaSuccess) return e;
+  RowArgs a = args;
+  a.staged = r_staged(a.nr, a.levels);
+  // kRowRestrict: five rows of sm . z after the stack
+  const size_t smem = pcr_r_smem(a.nr, a.levels, a.staged) +
+                      (load == kRowRestrict ? 5 * (size_t)a.nr * sizeof(float)
+                                            : 0);
+  if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
+  const dim3 block(1, kRowThreads);
+  const int even = (a.nz + 1) / 2;
+  switch (load) {
+    case kRowPlain:
+      k_row_plain<<<a.nz, block, smem, stream>>>(a);
+      break;
+    case kRowUpdate:
+      k_row_update<<<a.nz, block, smem, stream>>>(a);
+      break;
+    case kRowRestrict:
+      k_row_restrict<<<even, dim3(1, kCoarseThreads), smem, stream>>>(a);
+      break;
+    case kRowCoarseRes:
+      k_row_coarse_res<<<even, dim3(1, kCoarseThreads), smem, stream>>>(a);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  counts[phase] += 1;
+  return cudaGetLastError();
+}
+
 // The r-line row kernel: with `update` (x and r updated by alpha from st,
-// p and Ap given) the fused iteration phase, else PCR of r alone.
+// p and Ap given) the fused iteration phase, else PCR of r alone; z =
+// F[2L] d * free, the <r, z> partials when part_rz is given.
 cudaError_t launch_pcr_r(bool update, float* r, float* x, const float* p,
                          const float* Ap, const float* sm, const float* F,
                          int levels, float* z, double* part_rr,
                          double* part_rz, const CGState* st,
                          const BetaTail& tail, int nz, int nr,
                          long long* counts, cudaStream_t stream) {
-  cudaError_t e = configure();
-  if (e != cudaSuccess) return e;
-  const bool staged = r_staged(nr, levels);
-  const size_t smem = pcr_r_smem(nr, levels, staged);
-  const dim3 block(1, kRowThreads);
-  if (update) {
-    k_pcr_r<true><<<nz, block, smem, stream>>>(r, x, p, Ap, sm, F, levels,
-                                               staged, z, part_rr, part_rz,
-                                               st, tail, nz, nr);
-    counts[kPhUpdatePcrR] += 1;
-  } else {
-    k_pcr_r<false><<<nz, block, smem, stream>>>(r, x, p, Ap, sm, F, levels,
-                                                staged, z, part_rr, part_rz,
-                                                st, tail, nz, nr);
-    counts[kPhPcrR] += 1;
-  }
-  return cudaGetLastError();
+  RowArgs a = {};
+  a.r = r; a.x = x; a.p = p; a.Ap = Ap; a.sm = sm; a.F = F;
+  a.levels = levels; a.scale = 1.0f; a.mask = 1; a.out = z;
+  a.dot = part_rz != nullptr ? r : nullptr;
+  a.part_rr = part_rr; a.part_dot = part_rz; a.st = st; a.tail = tail;
+  a.nz = nz; a.nr = nr;
+  return launch_row(update ? kRowUpdate : kRowPlain, a,
+                    update ? kPhUpdatePcrR : kPhPcrR, counts, stream);
 }
 
 cudaError_t launch_pcr_z(const float* r, const float* sm, const float* F,
@@ -1295,81 +1662,65 @@ cudaError_t launch_pcr_z(const float* r, const float* sm, const float* F,
   return cudaGetLastError();
 }
 
-cudaError_t launch_pcr_row(const float* src, const float* aux, float* store,
-                           const float* F, int levels, float scale,
-                           const float* acc, const float* sm, float* out,
-                           const float* dot, double* part, const CGState* st,
-                           int nz, int nr, long long* counts,
-                           cudaStream_t stream) {
-  cudaError_t e = configure();
-  if (e != cudaSuccess) return e;
-  const size_t smem = 2 * (size_t)nr * sizeof(float);
-  if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
-  k_pcr_row<<<nz, kThreads, smem, stream>>>(
-      src, aux, store, F, levels, scale, acc, sm, out, dot, part, st, nz, nr);
-  counts[kPhPcrRow] += 1;
-  return cudaGetLastError();
-}
-
-cudaError_t launch_residual(const float* A, int npts, const float* sm,
-                            const float* r, const float* v, float* out,
-                            const CGState* st, int nz, int nr,
-                            long long* counts, cudaStream_t stream) {
+cudaError_t launch_mgz_prolong_res(const float* A, int npts, const float* sm,
+                                   const float* r, const float* z,
+                                   const float* y, const float* aux,
+                                   float* zout, float* r1, const CGState* st,
+                                   int nz, int nr, long long* counts,
+                                   cudaStream_t stream) {
   const int blocks = (nz * nr + kThreads - 1) / kThreads;
-  k_residual<<<blocks, kThreads, 0, stream>>>(A, npts, sm, r, v, out, st, nz,
-                                              nr);
-  counts[kPhResidual] += 1;
+  k_mgz_prolong_res<<<blocks, kThreads, 0, stream>>>(
+      A, npts, sm, r, z, y, aux, zout, r1, st, nz, nr);
+  counts[kPhMgzProlongRes] += 1;
   return cudaGetLastError();
 }
 
-cudaError_t launch_coarse_res(const float* ac9, const float* rcs,
-                              const float* y, float* out, const CGState* st,
-                              int nz, int nr, long long* counts,
-                              cudaStream_t stream) {
-  const int blocks = (nz * nr + kThreads - 1) / kThreads;
-  k_coarse_res<<<blocks, kThreads, 0, stream>>>(ac9, rcs, y, out, st, nz, nr);
-  counts[kPhCoarseRes] += 1;
-  return cudaGetLastError();
-}
-
-cudaError_t launch_prolong(float* x, const float* y, const float* aux,
-                           const CGState* st, int nz, int nr,
-                           long long* counts, cudaStream_t stream) {
-  const int blocks = (nz * nr + kThreads - 1) / kThreads;
-  k_prolong<<<blocks, kThreads, 0, stream>>>(x, y, aux, st, nz, nr);
-  counts[kPhProlong] += 1;
-  return cudaGetLastError();
-}
-
-// The mgz V(1,1) cycle: z = M^-1 r with the <r, z> partials (one a row).
-cudaError_t precondition_mgz(const Solve& s, const float* r, float* z,
-                             const CGState* st) {
-  float *r1 = s.mg(0), *yc = s.mg(1), *rcs = s.mg(2), *res = s.mg(3);
+// The mgz V(1,1) cycle, z = M^-1 r with the <r, z> partials (one a row), in
+// 4 launches with one coarse sweep (+1 a further sweep): the pre-smoothing
+// row (in an iteration with the CG update of x and r before it: `update`),
+// the coarse row with the fine residual and its restriction, the
+// prolongation with the second residual, the post-smoothing row (with the
+// beta tail `tail` when given).
+cudaError_t precondition_mgz(const Solve& s, bool update,
+                             const BetaTail& tail) {
+  float *r1 = s.mg(0), *ya = s.mg(1), *yb = s.mg(2), *rcs = s.mg(3),
+        *zp = s.mg(4);
   cudaError_t e;
 #define HF_TRY(call) if ((e = (call)) != cudaSuccess) return e
+  RowArgs a = {};
+  a.sm = s.sm; a.st = s.st; a.nz = s.nz; a.nr = s.nr;
   // pre-smooth from zero: one damped fine r-line solve
-  HF_TRY(launch_pcr_row(r, nullptr, nullptr, s.pcr, s.lr, s.omega, nullptr,
-                        nullptr, z, nullptr, nullptr, st, s.nz, s.nr,
-                        s.counts, s.stream));
-  HF_TRY(launch_residual(s.A, s.npts, s.sm, r, z, r1, st, s.nz, s.nr,
-                         s.counts, s.stream));
-  // restriction, scaling and the first coarse line solve, from zero
-  HF_TRY(launch_pcr_row(r1, s.aux, s.sweeps > 1 ? rcs : nullptr, s.pcrc, s.lc,
-                        s.omega_c, nullptr, nullptr, yc, nullptr, nullptr, st,
-                        s.nz, s.nr, s.counts, s.stream));
+  RowArgs pre = a;
+  pre.r = s.r; pre.x = s.x; pre.p = s.p; pre.Ap = s.Ap;
+  pre.F = s.pcr; pre.levels = s.lr; pre.scale = s.omega; pre.out = s.z;
+  pre.part_rr = update ? s.part(1) : nullptr;
+  HF_TRY(launch_row(update ? kRowUpdate : kRowPlain, pre, kPhMgzPre,
+                    s.counts, s.stream));
+  // the fine residual, its restriction and the first coarse line solve,
+  // from zero
+  RowArgs co = a;
+  co.r = s.r; co.A = s.A; co.npts = s.npts; co.z = s.z; co.aux = s.aux;
+  co.store = s.sweeps > 1 ? rcs : nullptr;
+  co.F = s.pcrc; co.levels = s.lc; co.scale = s.omega_c; co.out = ya;
+  HF_TRY(launch_row(kRowRestrict, co, kPhMgzCoarse, s.counts, s.stream));
+  float* y = ya;
   for (int k = 1; k < s.sweeps; ++k) {
-    HF_TRY(launch_coarse_res(s.ac9, rcs, yc, res, st, s.nz, s.nr, s.counts,
-                             s.stream));
-    HF_TRY(launch_pcr_row(res, nullptr, nullptr, s.pcrc, s.lc, s.omega_c, yc,
-                          nullptr, yc, nullptr, nullptr, st, s.nz, s.nr,
-                          s.counts, s.stream));
+    RowArgs cr = a;
+    cr.ac9 = s.ac9; cr.rcs = rcs; cr.y = y; cr.acc = y;
+    cr.F = s.pcrc; cr.levels = s.lc; cr.scale = s.omega_c;
+    cr.out = y == ya ? yb : ya;
+    HF_TRY(launch_row(kRowCoarseRes, cr, kPhMgzCoarseRes, s.counts,
+                      s.stream));
+    y = cr.out;
   }
-  HF_TRY(launch_prolong(z, yc, s.aux, st, s.nz, s.nr, s.counts, s.stream));
-  HF_TRY(launch_residual(s.A, s.npts, s.sm, r, z, r1, st, s.nz, s.nr,
-                         s.counts, s.stream));
+  HF_TRY(launch_mgz_prolong_res(s.A, s.npts, s.sm, s.r, s.z, y, s.aux, zp, r1,
+                                s.st, s.nz, s.nr, s.counts, s.stream));
   // post-smooth, the free mask and the <r, z> partials
-  return launch_pcr_row(r1, nullptr, nullptr, s.pcr, s.lr, s.omega, z, s.sm,
-                        z, r, s.part(2), st, s.nz, s.nr, s.counts, s.stream);
+  RowArgs post = a;
+  post.r = r1; post.F = s.pcr; post.levels = s.lr; post.scale = s.omega;
+  post.acc = zp; post.mask = 1; post.out = s.z;
+  post.dot = s.r; post.part_dot = s.part(2); post.tail = tail;
+  return launch_row(kRowPlain, post, kPhMgzPost, s.counts, s.stream);
 #undef HF_TRY
 }
 
@@ -1401,122 +1752,192 @@ cudaError_t mg_check(const MGDesc* mg) {
   return cudaSuccess;
 }
 
-// `degree` Chebyshev steps on level L for the right-hand side b, from x_in
-// (null: from zero), alternating between the level's planes xa and xb (the
-// first step from zero writes xa); the last step applies `mask` and writes
-// the <dot, x> partials when given. *result is the plane of the last iterate.
+// Level 0's part in the cycle: its right-hand side r (the CG residual);
+// the CG update its first smoothing step takes (p null: none); the mask,
+// the <dot, x> partials and the beta tail of its last step.
+struct MGRun {
+  float* r;
+  float* x;
+  const float *p, *Ap;
+  double* part_rr;
+  const float *mask, *dot;
+  double* part;
+  BetaTail tail;
+};
+
+cudaError_t launch_mg_restrict_res(const MGLevel& L, const float* b,
+                                   const float* x, const MGLevel& N,
+                                   const CGState* st, long long* counts,
+                                   cudaStream_t stream) {
+  if (!(L.nz & 1) || !(L.nr & 1) || N.nz < (L.nz + 1) / 2 ||
+      N.nr < (L.nr + 1) / 2)
+    return cudaErrorInvalidValue;
+  const dim3 grid((N.nr + kRTJ - 1) / kRTJ, (N.nz + kRTI - 1) / kRTI);
+  k_mg_restrict_res<<<grid, kRTI * kRTJ, 0, stream>>>(L, b, x, N.b, N.nz,
+                                                      N.nr, st);
+  counts[kPhMgRestrictRes] += 1;
+  return cudaGetLastError();
+}
+
+// `steps` smoothing steps of level L (one launch each) for the right-hand
+// side b, from x_in (null: zero), alternating between the level's planes
+// xa and xb (mg_next); the first reads x_in + P xc when xc (the coarse
+// level N's iterate) is given, and takes the CG update of `upd` when
+// given; the last takes the mask, partials and tail of `fin` when given.
+// From zero without an update, the first step (pointwise: it reads b at
+// its own point) is formed inside the second, one launch for both.
+// *result is the plane of the last iterate.
 cudaError_t mg_smooth(const MGLevel& L, const float* b, const float* x_in,
-                      int degree, const float* mask, const float* dot,
-                      double* part, const CGState* st, long long* counts,
-                      cudaStream_t stream, float** result) {
+                      const MGLevel* N, const float* xc, int steps,
+                      const MGRun* upd, const MGRun* fin, const CGState* st,
+                      long long* counts, cudaStream_t stream,
+                      float** result) {
   const int blocks = (L.nz * L.nr + kThreads - 1) / kThreads;
+  const bool has_upd = upd != nullptr && upd->p != nullptr;
   const float* cur = x_in;
-  float* nxt = x_in == L.xa ? L.xb : L.xa;
-  for (int k = 0; k < degree; ++k) {
-    const bool last = k == degree - 1;
-    k_mg_cheb<<<blocks, kThreads, 0, stream>>>(
-        L.C, L.npts, b, cur, L.d, nxt, k == 0, L.theta,
-        k ? L.c1[k - 1] : 0.0f, k ? L.c2[k - 1] : 0.0f,
-        last ? mask : nullptr, last ? dot : nullptr, part, st, L.nz, L.nr);
-    counts[kPhMgCheb] += 1;
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
+  float* nxt = mg_next(L, x_in);
+  const bool fuse = x_in == nullptr && steps > 1 && !has_upd;
+  if (fuse) {   // the first step's plane is never written
     cur = nxt;
-    nxt = nxt == L.xa ? L.xb : L.xa;
+    nxt = mg_next(L, nxt);
+  }
+  cudaError_t e;
+  for (int k = fuse ? 1 : 0; k < steps; ++k) {
+    MGStep s = {};
+    s.C = L.C; s.dinv = L.dinv; s.b = b; s.x_in = cur; s.d = L.d;
+    s.x_out = nxt; s.npts = L.npts; s.nz = L.nz; s.nr = L.nr;
+    s.first = k == 0; s.theta = L.theta;
+    s.c1 = k ? L.c1[k - 1] : 0.0f;
+    s.c2 = k ? L.c2[k - 1] : 0.0f;
+    int phase = kPhMgCheb;
+    if (fuse && k == 1) {
+      s.x_in = nullptr;
+      s.from_b = 1;
+      phase = kPhMgChebPre;
+    }
+    if (k == 0 && xc != nullptr) {
+      s.xc = xc; s.wz = L.wz; s.wr = L.wr; s.cstride = N->nr;
+      phase = kPhMgProlongCheb;
+    }
+    if (k == 0 && has_upd) {
+      s.r = upd->r; s.x = upd->x; s.p = upd->p; s.Ap = upd->Ap;
+      s.part_rr = upd->part_rr;
+      phase = kPhMgChebUpdate;
+    }
+    const bool last = k == steps - 1 && fin != nullptr;
+    if (last) {
+      s.mask = fin->mask; s.dot = fin->dot; s.part = fin->part;
+    }
+    k_mg_step<<<blocks, kThreads, 0, stream>>>(s, st,
+                                               last ? fin->tail : kNoTail);
+    counts[phase] += 1;
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    cur = nxt;
+    nxt = mg_next(L, nxt);
   }
   *result = const_cast<float*>(cur);
   return cudaSuccess;
 }
 
-cudaError_t launch_mg_residual(const float* C, int npts, const float* b,
-                               const float* x, float* out, const CGState* st,
-                               int nz, int nr, long long* counts,
-                               cudaStream_t stream) {
-  const int blocks = (nz * nr + kThreads - 1) / kThreads;
-  k_mg_residual<<<blocks, kThreads, 0, stream>>>(C, npts, b, x, out, st, nz,
-                                                 nr);
-  counts[kPhMgResidual] += 1;
-  return cudaGetLastError();
-}
-
-cudaError_t launch_mg_restrict(const float* v, const float* wz,
-                               const float* wr, float* out, const CGState* st,
-                               int nz, int nr, int cz, int cr,
-                               long long* counts, cudaStream_t stream) {
-  if (!(nz & 1) || !(nr & 1) || cz < (nz + 1) / 2 || cr < (nr + 1) / 2)
+// The coarsest level (k_mg_last): its right-hand side from the residual
+// b - C x of the level above, P, its nu_coarse steps from zero, the last
+// iterate into `out`; one block a tile.
+cudaError_t launch_mg_last(const MGLevel& P, const float* b, const float* x,
+                           const MGLevel& Q, int steps, float* out,
+                           const CGState* st, long long* counts,
+                           cudaStream_t stream) {
+  if (!(P.nz & 1) || !(P.nr & 1) || Q.nz < (P.nz + 1) / 2 ||
+      Q.nr < (P.nr + 1) / 2)
     return cudaErrorInvalidValue;
-  const int blocks = (cz * cr + kThreads - 1) / kThreads;
-  k_mg_restrict<<<blocks, kThreads, 0, stream>>>(v, wz, wr, out, st, nz, nr,
-                                                 cz, cr);
-  counts[kPhMgRestrict] += 1;
+  const size_t smem = last_smem(Q.nz, Q.nr, steps > 1 ? steps - 1 : 0);
+  if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
+  static unsigned configured = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 32 || !((configured >> dev) & 1u)) {
+    e = cudaFuncSetAttribute((const void*)k_mg_last,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kMaxDynSmem);
+    if (e != cudaSuccess) return e;
+    if (dev < 32) configured |= 1u << dev;
+  }
+  const dim3 grid((Q.nr + kLastCols - 1) / kLastCols,
+                  (Q.nz + kLastRows - 1) / kLastRows);
+  k_mg_last<<<grid, kLastThreads, smem, stream>>>(P, b, x, Q, steps, out, st);
+  counts[kPhMgLast] += 1;
   return cudaGetLastError();
 }
 
-cudaError_t launch_mg_prolong(float* x, const float* xc, const float* wz,
-                              const float* wr, const CGState* st, int nz,
-                              int nr, int cstride, long long* counts,
-                              cudaStream_t stream) {
-  if (!(nz & 1) || !(nr & 1) || cstride < (nr + 1) / 2)
-    return cudaErrorInvalidValue;
-  const int blocks = (nz * nr + kThreads - 1) / kThreads;
-  k_mg_prolong<<<blocks, kThreads, 0, stream>>>(x, xc, wz, wr, st, nz, nr,
-                                                cstride);
-  counts[kPhMgProlong] += 1;
-  return cudaGetLastError();
-}
-
-// The V-cycle from level l down for the right-hand side b: smoothing from
-// zero, residual, restriction into the next level's right-hand side, the
-// cycle there, prolongation added in place, smoothing; `nu_coarse` steps
-// from zero on the last level. `mask`, `dot` and `part` go to the last
-// smoothing step of this level.
-cudaError_t mg_cycle(const MGDesc* mg, int l, const float* b,
-                     const float* mask, const float* dot, double* part,
-                     const CGState* st, long long* counts,
-                     cudaStream_t stream, float** result) {
-  const MGLevel& L = mg->lv[l];
-  if (l == mg->n_levels - 1)
-    return mg_smooth(L, b, nullptr, mg->nu_coarse, mask, dot, part, st,
-                     counts, stream, result);
-  const MGLevel& N = mg->lv[l + 1];
-  float *x = nullptr, *xc = nullptr;
-  cudaError_t e;
+// The V-cycle for level 0's right-hand side run.r: down the levels (the
+// smoothing steps from zero, the residual fused into the restriction), the
+// coarsest level's right-hand side and smoothing in one launch (k_mg_last),
+// then back up (the prolongation fused into the first post-smoothing
+// step). *result is the plane of level 0's last iterate.
+cudaError_t mg_cycle(const MGDesc* mg, const MGRun& run, const CGState* st,
+                     long long* counts, cudaStream_t stream, float** result) {
+  cudaError_t e = mg_check(mg);
+  if (e != cudaSuccess) return e;
+  const int last = mg->n_levels - 1;
+  if (last == 0)
+    return mg_smooth(mg->lv[0], run.r, nullptr, nullptr, nullptr,
+                     mg->nu_coarse, &run, &run, st, counts, stream, result);
+  float* pre[kMaxLevels];
 #define HF_TRY(call) if ((e = (call)) != cudaSuccess) return e
-  HF_TRY(mg_smooth(L, b, nullptr, mg->nu, nullptr, nullptr, nullptr, st,
-                   counts, stream, &x));
-  HF_TRY(launch_mg_residual(L.C, L.npts, b, x, L.res, st, L.nz, L.nr, counts,
-                            stream));
-  HF_TRY(launch_mg_restrict(L.res, L.wz, L.wr, N.b, st, L.nz, L.nr, N.nz,
-                            N.nr, counts, stream));
-  HF_TRY(mg_cycle(mg, l + 1, N.b, nullptr, nullptr, nullptr, st, counts,
-                  stream, &xc));
-  HF_TRY(launch_mg_prolong(x, xc, L.wz, L.wr, st, L.nz, L.nr, N.nr, counts,
-                           stream));
-  return mg_smooth(L, b, x, mg->nu, mask, dot, part, st, counts, stream,
-                   result);
+  for (int l = 0; l < last; ++l) {
+    const MGLevel& L = mg->lv[l];
+    const float* b = l == 0 ? run.r : L.b;
+    HF_TRY(mg_smooth(L, b, nullptr, nullptr, nullptr, mg->nu,
+                     l == 0 ? &run : nullptr, nullptr, st, counts, stream,
+                     &pre[l]));
+    if (l < last - 1)
+      HF_TRY(launch_mg_restrict_res(L, b, pre[l], mg->lv[l + 1], st, counts,
+                                    stream));
+  }
+  const MGLevel& Q = mg->lv[last];
+  float* xc = mg_after(Q, nullptr, mg->nu_coarse);
+  HF_TRY(launch_mg_last(mg->lv[last - 1],
+                        last == 1 ? run.r : mg->lv[last - 1].b,
+                        pre[last - 1], Q, mg->nu_coarse, xc, st, counts,
+                        stream));
+  for (int l = last - 1; l >= 0; --l) {
+    const MGLevel& L = mg->lv[l];
+    const float* b = l == 0 ? run.r : L.b;
+    HF_TRY(mg_smooth(L, b, pre[l], &mg->lv[l + 1], xc, mg->nu, nullptr,
+                     l == 0 ? &run : nullptr, st, counts, stream, &xc));
+  }
 #undef HF_TRY
+  *result = xc;
+  return cudaSuccess;
 }
 
 // The multigrid form: z = V-cycle(r) (sm > 0) with the <r, z> partials (one
-// an elementwise block). The wrapper lays out level 0's two planes so that
-// the last iterate lands in s.z.
-cudaError_t precondition_mg(const Solve& s) {
-  cudaError_t e = mg_check(s.mgd);
-  if (e != cudaSuccess) return e;
+// an elementwise block); in an iteration (`update`) level 0's first step
+// takes the CG update and its last step the beta tail. The wrapper lays out
+// level 0's two planes so that the last iterate lands in s.z.
+cudaError_t precondition_mg(const Solve& s, bool update,
+                            const BetaTail& tail) {
   if (s.mgd->lv[0].nz != s.nz || s.mgd->lv[0].nr != s.nr)
     return cudaErrorInvalidValue;
+  MGRun run = {};
+  run.r = s.r; run.mask = s.sm; run.dot = s.r; run.part = s.part(2);
+  run.tail = tail;
+  if (update) {
+    run.x = s.x; run.p = s.p; run.Ap = s.Ap; run.part_rr = s.part(1);
+  }
   float* out = nullptr;
-  e = mg_cycle(s.mgd, 0, s.r, s.sm, s.r, s.part(2), s.st, s.counts, s.stream,
-               &out);
+  cudaError_t e = mg_cycle(s.mgd, run, s.st, s.counts, s.stream, &out);
   if (e != cudaSuccess) return e;
   return out == s.z ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // M^-1 r for the solve's form, with the <r, z> partials; the result is in
-// s.zout() (r itself in the identity form, where z aliases r).
-cudaError_t precondition(const Solve& s) {
-  if (s.mgd) return precondition_mg(s);
-  if (s.mgz()) return precondition_mgz(s, s.r, s.z, s.st);
+// s.zout() (r itself in the identity form, where z aliases r). In an
+// iteration (`update`) the multigrid forms take the CG update before their
+// cycle and the beta tail `tail` in its last kernel.
+cudaError_t precondition(const Solve& s, bool update, const BetaTail& tail) {
+  if (s.mgd) return precondition_mg(s, update, tail);
+  if (s.mgz()) return precondition_mgz(s, update, tail);
   if (s.cheb > 0) return precondition_cheb(s, s.r, s.st);
   if (!s.rline()) return cudaSuccess;   // identity: z aliases r
   cudaError_t e = launch_pcr_r(false, s.r, nullptr, nullptr, nullptr, s.sm,
@@ -1580,7 +2001,7 @@ cudaError_t start(const Solve& s, const LoopCond* lc) {
       s.nr);
   s.counts[kPhInit] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if ((e = precondition(s)) != cudaSuccess) return e;
+  if ((e = precondition(s, false, kNoTail)) != cudaSuccess) return e;
   if (s.merged) return merged_tail(s, 1, lc);
   if ((e = finalize(s, kFinInit)) != cudaSuccess) return e;
   return p_update(s, 1, lc);
@@ -1589,9 +2010,12 @@ cudaError_t start(const Solve& s, const LoopCond* lc) {
 // One iteration. The standard recurrence takes alpha in k_stencil_dot's
 // tail and beta in the tail of the kernel that writes the last partials:
 // identity 3 launches (k_stencil_dot, k_update, k_p_update), r-line 3
-// (k_update folded into the row kernel), ADI 4 (+ k_pcr_z); the
-// Chebyshev, mgz and multigrid forms keep k_update, their cycle and a
-// k_finalize. The merged recurrence keeps its own five-phase sequence.
+// (k_update folded into the row kernel), ADI 4 (+ k_pcr_z); mgz 6 with one
+// coarse sweep (the update folded into the pre-smoothing row, beta in the
+// post-smoothing row's tail), 7 with two; multigrid at four levels 13 (the
+// update folded into level 0's first smoothing step, beta in its last);
+// the Chebyshev form keeps k_update, its polynomial and a k_finalize. The
+// merged recurrence keeps its own five-phase sequence.
 cudaError_t iterate(const Solve& s, const LoopCond* lc) {
   cudaError_t e;
   if (s.merged) {
@@ -1600,14 +2024,21 @@ cudaError_t iterate(const Solve& s, const LoopCond* lc) {
         s.x, s.r, s.p, s.q(), s.part(1), s.st, kNoTail, s.n());
     s.counts[kPhUpdate] += 1;
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    if ((e = precondition(s)) != cudaSuccess) return e;
+    if ((e = precondition(s, false, kNoTail)) != cudaSuccess) return e;
     return merged_tail(s, 0, lc);
   }
   k_stencil_dot<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
       s.A, s.npts, s.sm, s.p, s.Ap, s.part(0), s.st, 1, s.nz, s.nr);
   s.counts[kPhStencilDot] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if (s.rline() && !s.mgz()) {
+  if (s.mgz() || s.mgd) {
+    // the partials of <r, r> and <r, z>: one a row (mgz), one an
+    // elementwise block of level 0 (multigrid)
+    const int np = s.mgz() ? s.nz : s.elem_blocks();
+    const BetaTail tail{s.st, s.part(1), s.part(2), np, np, s.maxiter,
+                        s.fixed};
+    if ((e = precondition(s, true, tail)) != cudaSuccess) return e;
+  } else if (s.rline()) {
     const BetaTail tail{s.st, s.part(1), s.part(2), s.nz,
                         s.adi() ? s.col_tiles() : s.nz, s.maxiter, s.fixed};
     e = launch_pcr_r(true, s.r, s.x, s.p, s.Ap, s.sm, s.pcr, s.lr, s.z,
@@ -1628,7 +2059,7 @@ cudaError_t iterate(const Solve& s, const LoopCond* lc) {
     s.counts[kPhUpdate] += 1;
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     if (!identity) {
-      if ((e = precondition(s)) != cudaSuccess) return e;
+      if ((e = precondition(s, false, kNoTail)) != cudaSuccess) return e;
       if ((e = finalize(s, kFinBeta)) != cudaSuccess) return e;
     }
   }
@@ -1734,9 +2165,9 @@ int hf_cg_state_bytes() { return (int)sizeof(CGState); }
 int hf_num_phases() { return kNumPhases; }
 
 // (Nz, Nr) planes of `extra` a form needs: q and w (merged), d and the
-// second z plane (Chebyshev), r1, yc, rcs and res (mgz).
+// second z plane (Chebyshev), r1, ya, yb, rcs and zp (mgz).
 int hf_cg_extra_planes(int cheb, int merged, int mgz) {
-  return (merged ? 2 : 0) + (cheb > 0 ? 2 : 0) + (mgz ? 4 : 0);
+  return (merged ? 2 : 0) + (cheb > 0 ? 2 : 0) + (mgz ? 5 : 0);
 }
 
 // Capture a whole solve (see record_solve) into an executable graph
@@ -1856,38 +2287,78 @@ int hf_precond_apply(const float *A, int npts, const float *sm,
           cheb, 0, ac9, pcrc, aux, lc, sweeps, omega, omega_c, extra,
           nullptr, 0};
   *which = s.zout() != z;
-  return (int)precondition(s);
+  return (int)precondition(s, false, kNoTail);
 }
 
-int hf_residual(const float *A, int npts, const float *sm, const float *r,
-                const float *v, float *out, int nz, int nr,
-                long long *counts, void *stream) {
-  return (int)launch_residual(A, npts, sm, r, v, out, nullptr, nz, nr, counts,
-                              (cudaStream_t)stream);
-}
-
-// The mgz row kernel alone (see k_pcr_row); aux, store, acc, sm and dot
-// may be null.
-int hf_pcr_row(const float *src, const float *aux, float *store,
-               const float *F, int levels, float scale, const float *acc,
-               const float *sm, float *out, const float *dot, double *part,
-               int nz, int nr, long long *counts, void *stream) {
-  return (int)launch_pcr_row(src, aux, store, F, levels, scale, acc, sm, out,
-                             dot, part, nullptr, nz, nr, counts,
-                             (cudaStream_t)stream);
-}
-
-int hf_coarse_res(const float *ac9, const float *rcs, const float *y,
-                  float *out, int nz, int nr, long long *counts,
-                  void *stream) {
-  return (int)launch_coarse_res(ac9, rcs, y, out, nullptr, nz, nr, counts,
-                                (cudaStream_t)stream);
-}
-
-int hf_prolong(float *x, const float *y, const float *aux, int nz, int nr,
+// The mgz cycle's pre-smoothing row alone: z = omega F[2L] PCR(r); with a
+// state record (its alpha), after the CG update of the row: x += alpha p,
+// r -= alpha Ap in place, the <r, r> partials (one a row) in part_rr.
+int hf_mgz_pre(float *r, float *x, const float *p, const float *Ap,
+               const float *pcr, int lr, float omega, float *z,
+               double *part_rr, const void *state, int nz, int nr,
                long long *counts, void *stream) {
-  return (int)launch_prolong(x, y, aux, nullptr, nz, nr, counts,
-                             (cudaStream_t)stream);
+  RowArgs a = {};
+  a.r = r; a.x = x; a.p = p; a.Ap = Ap; a.F = pcr; a.levels = lr;
+  a.scale = omega; a.out = z; a.st = (const CGState *)state;
+  a.part_rr = state != nullptr ? part_rr : nullptr; a.nz = nz; a.nr = nr;
+  return (int)launch_row(state != nullptr ? kRowUpdate : kRowPlain, a,
+                         kPhMgzPre, counts, (cudaStream_t)stream);
+}
+
+// The first coarse sweep alone: the fine residual r - sm A (sm z), its
+// restriction (into store, when given) and yc = omega_c F[2L] PCR of it,
+// every row of yc written.
+int hf_mgz_coarse(const float *A, int npts, const float *sm, const float *r,
+                  const float *z, const float *aux, const float *pcrc, int lc,
+                  float omega_c, float *yc, float *store, int nz, int nr,
+                  long long *counts, void *stream) {
+  RowArgs a = {};
+  a.A = A; a.npts = npts; a.sm = sm; a.r = const_cast<float *>(r); a.z = z;
+  a.aux = aux; a.store = store; a.F = pcrc; a.levels = lc;
+  a.scale = omega_c; a.out = yc; a.nz = nz; a.nr = nr;
+  return (int)launch_row(kRowRestrict, a, kPhMgzCoarse, counts,
+                         (cudaStream_t)stream);
+}
+
+// A later coarse sweep alone: out = y + omega_c F[2L] PCR(rcs - Ac9 y).
+int hf_mgz_coarse_res(const float *ac9, const float *rcs, const float *y,
+                      const float *pcrc, int lc, float omega_c, float *out,
+                      int nz, int nr, long long *counts, void *stream) {
+  RowArgs a = {};
+  a.ac9 = ac9; a.rcs = rcs; a.y = y; a.acc = y; a.F = pcrc; a.levels = lc;
+  a.scale = omega_c; a.out = out; a.nz = nz; a.nr = nr;
+  return (int)launch_row(kRowCoarseRes, a, kPhMgzCoarseRes, counts,
+                         (cudaStream_t)stream);
+}
+
+// The prolongation with the second residual alone: zout = z + P (sc y),
+// r1 = r - sm A (sm zout).
+int hf_mgz_prolong_res(const float *A, int npts, const float *sm,
+                       const float *r, const float *z, const float *y,
+                       const float *aux, float *zout, float *r1, int nz,
+                       int nr, long long *counts, void *stream) {
+  return (int)launch_mgz_prolong_res(A, npts, sm, r, z, y, aux, zout, r1,
+                                     nullptr, nz, nr, counts,
+                                     (cudaStream_t)stream);
+}
+
+// The post-smoothing row alone: z = (zp + omega F[2L] PCR(r1)) * free with
+// the <r, z> partials (one a row) in parts plane 2; with a state record,
+// the beta tail on it, <r, r> from the n_rr partials in parts plane 1.
+int hf_mgz_post(const float *r1, const float *zp, const float *pcr, int lr,
+                float omega, const float *sm, const float *r, float *z,
+                double *parts, int nparts, int n_rr, void *state,
+                int maxiter, int fixed, int nz, int nr, long long *counts,
+                void *stream) {
+  RowArgs a = {};
+  a.r = const_cast<float *>(r1); a.F = pcr; a.levels = lr; a.scale = omega;
+  a.acc = zp; a.mask = 1; a.sm = sm; a.out = z; a.dot = r;
+  a.part_dot = parts + 2 * (size_t)nparts; a.nz = nz; a.nr = nr;
+  if (state != nullptr)
+    a.tail = BetaTail{(CGState *)state, parts + nparts, a.part_dot, n_rr, nz,
+                      maxiter, fixed};
+  return (int)launch_row(kRowPlain, a, kPhMgzPost, counts,
+                         (cudaStream_t)stream);
 }
 
 // w = sm A (sm u) with the partials of delta, <r, r> and gamma in parts
@@ -1930,39 +2401,68 @@ int hf_pq_update(float *p, float *q, const float *u, const float *w,
 // Bytes of the multigrid descriptor, for the wrapper's layout check.
 int hf_mg_desc_bytes() { return (int)sizeof(MGDesc); }
 
-// Single phases of the multigrid cycle, for checking each kernel against
-// its plain version. x_in, mask and dot may be null.
-int hf_mg_cheb(const float *C, int npts, const float *b, const float *x_in,
-               float *d, float *x_out, int first, float theta, float c1,
-               float c2, const float *mask, const float *dot, double *part,
+// One smoothing step of a multigrid level alone (see k_mg_step). x_in, xc
+// (with wz, wr and cstride), mask, dot and the CG update (r, x, p, Ap,
+// with the state record's alpha and the <r, r> partials in part_rr) may be
+// null; with `tail`, the beta tail on the state record, <r, r> from
+// part_rr and <r, z> from part (one an elementwise block each).
+int hf_mg_step(const float *C, const float *dinv, int npts, const float *b,
+               const float *x_in, float *d, float *x_out, int first,
+               float theta, float c1, float c2, const float *xc,
+               const float *wz, const float *wr, int cstride,
+               const float *mask, const float *dot, double *part, float *r,
+               float *x, const float *p, const float *Ap, double *part_rr,
+               void *state, int tail, int maxiter, int fixed, int from_b,
                int nz, int nr, long long *counts, void *stream) {
+  MGStep s = {};
+  s.C = C; s.dinv = dinv; s.b = b; s.x_in = x_in; s.d = d; s.x_out = x_out;
+  s.npts = npts; s.nz = nz; s.nr = nr; s.first = first; s.theta = theta;
+  s.c1 = c1; s.c2 = c2; s.xc = xc; s.wz = wz; s.wr = wr; s.cstride = cstride;
+  s.mask = mask; s.dot = dot; s.part = part;
+  s.r = r; s.x = x; s.p = p; s.Ap = Ap; s.part_rr = part_rr;
+  s.from_b = from_b;
   const int blocks = (nz * nr + kThreads - 1) / kThreads;
-  k_mg_cheb<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      C, npts, b, x_in, d, x_out, first, theta, c1, c2, mask, dot, part,
-      nullptr, nz, nr);
-  counts[kPhMgCheb] += 1;
+  const BetaTail t = tail ? BetaTail{(CGState *)state, part_rr, part, blocks,
+                                     blocks, maxiter, fixed}
+                          : kNoTail;
+  k_mg_step<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      s, (const CGState *)state, t);
+  counts[xc != nullptr ? kPhMgProlongCheb
+         : p != nullptr ? kPhMgChebUpdate
+         : from_b ? kPhMgChebPre : kPhMgCheb] += 1;
   return (int)cudaGetLastError();
 }
 
-int hf_mg_residual(const float *C, int npts, const float *b, const float *x,
-                   float *out, int nz, int nr, long long *counts,
-                   void *stream) {
-  return (int)launch_mg_residual(C, npts, b, x, out, nullptr, nz, nr, counts,
-                                 (cudaStream_t)stream);
+// The restriction of a level's residual b - C x onto the next level's
+// (cz, cr) plane alone.
+int hf_mg_restrict_res(const float *C, int npts, const float *b,
+                       const float *x, const float *wz, const float *wr,
+                       float *out, int nz, int nr, int cz, int cr,
+                       long long *counts, void *stream) {
+  MGLevel L = {};
+  L.C = C; L.wz = wz; L.wr = wr; L.npts = npts; L.nz = nz; L.nr = nr;
+  MGLevel N = {};
+  N.b = out; N.nz = cz; N.nr = cr;
+  return (int)launch_mg_restrict_res(L, b, x, N, nullptr, counts,
+                                     (cudaStream_t)stream);
 }
 
-int hf_mg_restrict(const float *v, const float *wz, const float *wr,
-                   float *out, int nz, int nr, int cz, int cr,
-                   long long *counts, void *stream) {
-  return (int)launch_mg_restrict(v, wz, wr, out, nullptr, nz, nr, cz, cr,
-                                 counts, (cudaStream_t)stream);
-}
-
-int hf_mg_prolong(float *x, const float *xc, const float *wz, const float *wr,
-                  int nz, int nr, int cstride, long long *counts,
-                  void *stream) {
-  return (int)launch_mg_prolong(x, xc, wz, wr, nullptr, nz, nr, cstride,
-                                counts, (cudaStream_t)stream);
+// The coarsest level alone (see k_mg_last): level q = mg->n_levels - 1's
+// right-hand side from the residual b - C x of level q - 1, nu_coarse
+// steps from zero; *result is the device pointer of the plane that holds
+// the last iterate.
+int hf_mg_last(const void *mg, const float *b, const float *x,
+               long long *counts, void *stream, void **result) {
+  const MGDesc *desc = (const MGDesc *)mg;
+  cudaError_t e = mg_check(desc);
+  if (e != cudaSuccess || desc->n_levels < 2)
+    return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
+  const int q = desc->n_levels - 1;
+  float *out = mg_after(desc->lv[q], nullptr, desc->nu_coarse);
+  *result = out;
+  return (int)launch_mg_last(desc->lv[q - 1], b, x, desc->lv[q],
+                             desc->nu_coarse, out, nullptr, counts,
+                             (cudaStream_t)stream);
 }
 
 // The whole V-cycle alone: the cycle of `mg` on the right-hand side r, the
@@ -1972,14 +2472,15 @@ int hf_mg_prolong(float *x, const float *xc, const float *wz, const float *wr,
 int hf_mg_vcycle(const void *mg, const float *r, const float *mask,
                  double *part, long long *counts, void *stream,
                  void **result) {
-  const MGDesc *desc = (const MGDesc *)mg;
-  cudaError_t e = mg_check(desc);
-  if (e != cudaSuccess) return (int)e;
+  MGRun run = {};
+  run.r = const_cast<float *>(r); run.mask = mask; run.dot = r;
+  run.part = part; run.tail = kNoTail;
   float *out = nullptr;
-  e = mg_cycle(desc, 0, r, mask, r, part, nullptr, counts,
-               (cudaStream_t)stream, &out);
+  const cudaError_t e = mg_cycle((const MGDesc *)mg, run, nullptr, counts,
+                                 (cudaStream_t)stream, &out);
   *result = out;
   return (int)e;
 }
 
 }  // extern "C"
+

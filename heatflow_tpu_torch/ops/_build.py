@@ -128,18 +128,20 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_cg_extra_planes, I, I, I)
     _sig(lib.hf_precond_apply, P, I, P, P, P, I, P, P, I, I, I, P, P, P, I, P,
          P, I, P, I, F, F, P, P)
-    _sig(lib.hf_residual, P, I, P, P, P, P, I, I, P, P)
-    _sig(lib.hf_pcr_row, P, P, P, P, I, F, P, P, P, P, P, I, I, P, P)
-    _sig(lib.hf_coarse_res, P, P, P, P, I, I, P, P)
-    _sig(lib.hf_prolong, P, P, P, I, I, P, P)
+    _sig(lib.hf_mgz_pre, P, P, P, P, P, I, F, P, P, P, I, I, P, P)
+    _sig(lib.hf_mgz_coarse, P, I, P, P, P, P, P, I, F, P, P, I, I, P, P)
+    _sig(lib.hf_mgz_coarse_res, P, P, P, P, I, F, P, I, I, P, P)
+    _sig(lib.hf_mgz_prolong_res, P, I, P, P, P, P, P, P, P, I, I, P, P)
+    _sig(lib.hf_mgz_post, P, P, P, I, F, P, P, P, P, I, I, P, I, I, I, I, P,
+         P)
     _sig(lib.hf_merged_w, P, I, P, P, P, P, P, I, I, I, P, P)
     _sig(lib.hf_finalize_merged, P, P, I, I, I, I, P, I, I, P, P)
     _sig(lib.hf_pq_update, P, P, P, P, P, I, P, P)
     _sig(lib.hf_mg_desc_bytes)
-    _sig(lib.hf_mg_cheb, P, I, P, P, P, P, I, F, F, F, P, P, P, I, I, P, P)
-    _sig(lib.hf_mg_residual, P, I, P, P, P, I, I, P, P)
-    _sig(lib.hf_mg_restrict, P, P, P, P, I, I, I, I, P, P)
-    _sig(lib.hf_mg_prolong, P, P, P, P, I, I, I, P, P)
+    _sig(lib.hf_mg_step, P, P, I, P, P, P, P, I, F, F, F, P, P, P, I, P, P, P,
+         P, P, P, P, P, P, I, I, I, I, I, I, P, P)
+    _sig(lib.hf_mg_restrict_res, P, I, P, P, P, P, P, I, I, I, I, P, P)
+    _sig(lib.hf_mg_last, P, P, P, P, P, P)
     _sig(lib.hf_mg_vcycle, P, P, P, P, P, P, P)
     # csrc/sweep_cg.cu
     sweep = [P, P, I, P, P, I, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I,

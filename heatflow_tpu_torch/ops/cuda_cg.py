@@ -13,7 +13,10 @@ stopping on the true residual
 CPU goes to :func:`cg_tol_reference`; a CUDA tensor goes to the kernel, or
 the call raises. The kernel replaces heatflow_tpu/ops/pallas_cg.py:
 _cg_tol_kernel; the PCR factor stacks it consumes are packed once per
-transient by :func:`pcr_pack`.
+transient by :func:`pcr_pack`. The mgz cycle runs as fused passes
+(:func:`mgz_pre`, :func:`mgz_coarse`, :func:`mgz_coarse_res`,
+:func:`mgz_prolong_res`, :func:`mgz_post`, each with its plain version, and
+:func:`mgz_cycle_reference` composed from them).
 
 ``cg_vmem`` is the fixed-count, unpreconditioned CG on a *baked* operator
 (:func:`masked_scaled_operator`): the same phase kernels with sm = 1 and the
@@ -49,9 +52,10 @@ MERGED_DEFAULT = False   # the merged-dot recurrence when ``merged=None``;
 
 PHASES = ("init", "stencil_dot", "update", "pcr_r", "pcr_z", "finalize",
           "p_update", "finish", "cheb_init", "cheb_step", "merged_w",
-          "finalize_merged", "pq_update", "residual", "pcr_row",
-          "coarse_res", "prolong", "mg_cheb", "mg_residual", "mg_restrict",
-          "mg_prolong", "update_pcr_r")
+          "finalize_merged", "pq_update", "mgz_pre", "mgz_coarse",
+          "mgz_coarse_res", "mgz_prolong_res", "mgz_post", "mg_cheb",
+          "mg_cheb_update", "mg_cheb_pre", "mg_restrict_res",
+          "mg_prolong_cheb", "mg_last", "update_pcr_r")
 # phase kernel launches: counted by the C host code where it launches a
 # phase alone, and for a solve's graph where the graph is launched (start
 # and finish) and by the device where it runs a block of iterations
@@ -105,6 +109,22 @@ def graph_stats() -> dict[str, dict]:
         launches_per_iteration=float(g.counts_body.sum()) / CHECK_EVERY,
         graphs=len(ws.graphs), capture_s=g.capture_s)
         for ws in _workspaces.values() for g in ws.graphs.values()}
+
+
+def launches_per_iteration() -> dict[str, float]:
+    """Phase-kernel launches a CG iteration, by solve form (the workspace's
+    name: 'rline', 'adi', 'mgz', 'mg', ...), over the loop bodies the
+    device ran since the last :func:`reset_counters`: each body run is
+    ``CHECK_EVERY`` iterations (a host sync)."""
+    out: dict[str, list] = {}
+    for ws in _workspaces.values():
+        for g in ws.graphs.values():
+            runs = int(g.runs.item())
+            if runs:
+                acc = out.setdefault(ws.form_name, [0, 0])
+                acc[0] += runs * int(g.counts_body.sum())
+                acc[1] += runs * CHECK_EVERY
+    return {form: n / its for form, (n, its) in out.items()}
 
 
 _FORM_COUNTERS = ("launches", "launches_identity", "launches_rline",
@@ -877,93 +897,192 @@ def finalize_merged(state: dict, delta, rr, gamma, bb=0.0, *, first: bool,
     return _read_state(st)
 
 
-def mgz_residual(A, sm, r, v):
-    """The mgz cycle's fine residual alone: r − sm·A·(sm·v)."""
-    if _on_cpu(A, sm, r, v):
-        return r - sm * apply_stencil(A, sm * v)
-    lib = _library()
-    nz, nr = _check_operator(A, sm, r.device)
-    _require(r, "r", (nz, nr), r.device)
-    _require(v, "v", (nz, nr), r.device)
-    out = torch.empty_like(r)
-    _check(lib.hf_residual(_ptr(A), A.shape[0], _ptr(sm), _ptr(r), _ptr(v),
-                           _ptr(out), nz, nr, _counts_ptr(), _stream()),
-           "residual")
+def mgz_pre_reference(r, pcr, omega: float, *, x=None, p=None, Ap=None,
+                      alpha=None):
+    """Plain version of :func:`mgz_pre`: (x + α·p, r − α·Ap, z, ⟨r, r⟩
+    float64) with the update (``alpha`` given, rounded to the fields'
+    dtype), or (None, r, z, None) without; z = ω·PCR(r)."""
+    rr = None
+    if alpha is not None:
+        a = torch.as_tensor(float(alpha), dtype=torch.float64).to(r.dtype)
+        x = x + a * p
+        r = r - a * Ap
+        rr = (r.double() * r.double()).sum()
+    return x, r, omega * pcr_stack_apply(pcr, r), rr
+
+
+def mgz_coarse_reference(A, sm, r, z, aux, pcrc, omega_c: float):
+    """Plain version of :func:`mgz_coarse`: (yc, rcs). The fine residual
+    r − sm·A·(sm·z) restricted onto the embedded coarse rows, rcs, and the
+    damped coarse line solve from zero on the even rows, yc = ω_c·PCR(rcs).
+    Every restriction weight is 0 on an odd row (``ops/mgz.py``), and its
+    couplings are 0: there rcs = 0 and yc = ω_c·(g·0), the PCR's own result
+    on a zero row."""
+    rc = restrict(aux, r - sm * apply_stencil(A, sm * z))
+    rcs = torch.zeros_like(rc)
+    rcs[0::2] = rc[0::2]
+    yc = omega_c * (pcrc[-1] * rcs)
+    yc[0::2] = omega_c * pcr_stack_apply(pcrc[:, 0::2], rcs[0::2])
+    return yc, rcs
+
+
+def mgz_coarse_res_reference(Ac9, rcs, y, pcrc, omega_c: float):
+    """Plain version of :func:`mgz_coarse_res`: a later coarse sweep,
+    y + ω_c·PCR(rcs − Ac9·y) on the even rows and y + ω_c·(g·0) on the odd
+    rows (where rcs and y are 0: see :func:`mgz_coarse_reference`)."""
+    d = rcs - coarse_apply(Ac9, y)
+    out = y + omega_c * (pcrc[-1] * torch.zeros_like(d))
+    out[0::2] = y[0::2] + omega_c * pcr_stack_apply(pcrc[:, 0::2], d[0::2])
     return out
 
 
-def mgz_pcr_row_reference(src, F, scale, *, aux=None, acc=None, sm=None,
-                          dot=None):
-    """Plain version of :func:`mgz_pcr_row`."""
-    d = src if aux is None else restrict(aux, src)
-    out = scale * pcr_stack_apply(F, d)
-    if acc is not None:
-        out = acc + out
-    if sm is not None:
-        out = out * (sm != 0).to(out.dtype)
-    dsum = None if dot is None else (dot.double() * out.double()).sum()
-    return out, (None if aux is None else d), dsum
+def mgz_prolong_res_reference(A, sm, r, z, yc, aux):
+    """Plain version of :func:`mgz_prolong_res`: (zp = z + P(sc·yc),
+    r − sm·A·(sm·zp))."""
+    zp = prolong(aux, z, yc)
+    return zp, r - sm * apply_stencil(A, sm * zp)
 
 
-def mgz_pcr_row(src, F, scale: float, *, aux=None, acc=None, sm=None,
-                dot=None):
-    """The mgz cycle's row kernel alone: out = (acc + scale·PCR_F(d))·free
-    with d = src, or the scaled restriction of src when ``aux`` is given;
-    ``acc``, ``sm`` (the mask) and ``dot`` are optional. Returns (out, d or
-    None, ⟨dot, out⟩ float64 or None)."""
-    if _on_cpu(src, F, aux, acc, sm, dot):
-        return mgz_pcr_row_reference(src, F, scale, aux=aux, acc=acc, sm=sm,
-                                     dot=dot)
+def mgz_post_reference(r1, zp, pcr, omega: float, sm, r):
+    """Plain version of :func:`mgz_post`: (z = (zp + ω·PCR(r1))·free,
+    ⟨r, z⟩ float64)."""
+    z = (zp + omega * pcr_stack_apply(pcr, r1)) * (sm != 0).to(zp.dtype)
+    return z, (r.double() * z.double()).sum()
+
+
+def mgz_cycle_reference(A, sm, r, pcr, mgz, sweeps: int = 1,
+                        omega: float = 0.8, omega_c: float = 0.8):
+    """The mgz V-cycle as the kernel runs it, from the plain versions of its
+    passes: pre-smoothing row, coarse row with the fine residual, further
+    coarse sweeps, prolongation with the second residual, post-smoothing
+    row. Returns (z, ⟨r, z⟩); z equals :func:`mgz_precond_reference`'s."""
+    _, _, z, _ = mgz_pre_reference(r, pcr, omega)
+    yc, rcs = mgz_coarse_reference(A, sm, r, z, mgz["aux"], mgz["pcrc"],
+                                   omega_c)
+    for _ in range(sweeps - 1):
+        yc = mgz_coarse_res_reference(mgz["Ac9"], rcs, yc, mgz["pcrc"],
+                                      omega_c)
+    zp, r1 = mgz_prolong_res_reference(A, sm, r, z, yc, mgz["aux"])
+    return mgz_post_reference(r1, zp, pcr, omega, sm, r)
+
+
+def mgz_pre(r, pcr, omega: float, *, x=None, p=None, Ap=None, state=None):
+    """The mgz cycle's pre-smoothing row alone: z = ω·PCR(r); with a state
+    dict (its alpha, as :func:`finalize_reference` takes it), after the CG
+    update of the row as an iteration runs it. Returns (x + α·p, r − α·Ap,
+    z, ⟨r, r⟩) or (None, r, z, None); the inputs are left as they are."""
+    if _on_cpu(r, pcr, x, p, Ap):
+        return mgz_pre_reference(r, pcr, omega, x=x, p=p, Ap=Ap,
+                                 alpha=None if state is None
+                                 else state["alpha"])
     lib = _library()
-    dev = src.device
-    nz, nr = src.shape
-    _require(src, "src", (nz, nr), dev)
-    levels = _stack_levels(F, "F", nz, nr, dev)
-    for name, t in (("acc", acc), ("sm", sm), ("dot", dot)):
-        if t is not None:
-            _require(t, name, (nz, nr), dev)
-    store = None
-    if aux is not None:
-        _require(aux, "aux", (4, nz, nr), dev)
-        store = torch.empty_like(src)
-    out = torch.empty_like(src)
+    dev = r.device
+    nz, nr = r.shape
+    _require(r, "r", (nz, nr), dev)
+    lr = _stack_levels(pcr, "pcr", nz, nr, dev)
+    z = torch.empty_like(r)
     part = torch.zeros(lib.hf_cg_nparts(nz, nr), dtype=torch.float64,
                        device=dev)
-    _check(lib.hf_pcr_row(_ptr(src), _ptr(aux), _ptr(store), _ptr(F), levels,
-                          float(scale), _ptr(acc), _ptr(sm), _ptr(out),
-                          _ptr(dot), _ptr(part), nz, nr, _counts_ptr(),
-                          _stream()), "pcr_row")
-    return out, store, (None if dot is None else part[:nz].sum())
+    st = None
+    if state is not None:
+        for name, t in (("x", x), ("p", p), ("Ap", Ap)):
+            _require(t, name, (nz, nr), dev)
+        x, r = x.clone(), r.clone()
+        st = _state(dev, **state)
+    _check(lib.hf_mgz_pre(_ptr(r), _ptr(x), _ptr(p), _ptr(Ap), _ptr(pcr), lr,
+                          float(omega), _ptr(z), _ptr(part), _ptr(st), nz, nr,
+                          _counts_ptr(), _stream()), "mgz_pre")
+    return x, r, z, None if state is None else part[:nz].sum()
 
 
-def mgz_coarse_res(Ac9, rcs, y):
-    """The embedded coarse residual alone: rcs − Ac9·y."""
-    if _on_cpu(Ac9, rcs, y):
-        return rcs - coarse_apply(Ac9, y)
+def mgz_coarse(A, sm, r, z, aux, pcrc, omega_c: float):
+    """The mgz cycle's first coarse sweep alone: (yc, rcs), see
+    :func:`mgz_coarse_reference`."""
+    if _on_cpu(A, sm, r, z, aux, pcrc):
+        return mgz_coarse_reference(A, sm, r, z, aux, pcrc, omega_c)
     lib = _library()
-    nz, nr = rcs.shape
-    _require(Ac9, "Ac9", (9, nz, nr), rcs.device)
-    _require(rcs, "rcs", (nz, nr), rcs.device)
-    _require(y, "y", (nz, nr), rcs.device)
-    out = torch.empty_like(rcs)
-    _check(lib.hf_coarse_res(_ptr(Ac9), _ptr(rcs), _ptr(y), _ptr(out), nz, nr,
-                             _counts_ptr(), _stream()), "coarse_res")
+    dev = r.device
+    nz, nr = _check_operator(A, sm, dev)
+    for name, t in (("r", r), ("z", z)):
+        _require(t, name, (nz, nr), dev)
+    _require(aux, "aux", (4, nz, nr), dev)
+    lc = _stack_levels(pcrc, "pcrc", nz, nr, dev)
+    yc, rcs = torch.empty_like(r), torch.empty_like(r)
+    _check(lib.hf_mgz_coarse(_ptr(A), A.shape[0], _ptr(sm), _ptr(r), _ptr(z),
+                             _ptr(aux), _ptr(pcrc), lc, float(omega_c),
+                             _ptr(yc), _ptr(rcs), nz, nr, _counts_ptr(),
+                             _stream()), "mgz_coarse")
+    return yc, rcs
+
+
+def mgz_coarse_res(Ac9, rcs, y, pcrc, omega_c: float):
+    """A later coarse sweep of the mgz cycle alone, see
+    :func:`mgz_coarse_res_reference`."""
+    if _on_cpu(Ac9, rcs, y, pcrc):
+        return mgz_coarse_res_reference(Ac9, rcs, y, pcrc, omega_c)
+    lib = _library()
+    dev = y.device
+    nz, nr = y.shape
+    _require(Ac9, "Ac9", (9, nz, nr), dev)
+    _require(rcs, "rcs", (nz, nr), dev)
+    _require(y, "y", (nz, nr), dev)
+    lc = _stack_levels(pcrc, "pcrc", nz, nr, dev)
+    out = torch.empty_like(y)
+    _check(lib.hf_mgz_coarse_res(_ptr(Ac9), _ptr(rcs), _ptr(y), _ptr(pcrc),
+                                 lc, float(omega_c), _ptr(out), nz, nr,
+                                 _counts_ptr(), _stream()), "mgz_coarse_res")
     return out
 
 
-def mgz_prolong(aux, x, yc):
-    """The prolongation alone: x + P(sc·yc); x is left as it is."""
-    if _on_cpu(aux, x, yc):
-        return prolong(aux, x, yc)
+def mgz_prolong_res(A, sm, r, z, yc, aux):
+    """The mgz cycle's prolongation with its second residual alone: (zp,
+    r1), see :func:`mgz_prolong_res_reference`."""
+    if _on_cpu(A, sm, r, z, yc, aux):
+        return mgz_prolong_res_reference(A, sm, r, z, yc, aux)
     lib = _library()
-    nz, nr = x.shape
-    _require(aux, "aux", (4, nz, nr), x.device)
-    _require(x, "x", (nz, nr), x.device)
-    _require(yc, "yc", (nz, nr), x.device)
-    out = x.clone()
-    _check(lib.hf_prolong(_ptr(out), _ptr(yc), _ptr(aux), nz, nr,
-                          _counts_ptr(), _stream()), "prolong")
-    return out
+    dev = r.device
+    nz, nr = _check_operator(A, sm, dev)
+    for name, t in (("r", r), ("z", z), ("yc", yc)):
+        _require(t, name, (nz, nr), dev)
+    _require(aux, "aux", (4, nz, nr), dev)
+    zp, r1 = torch.empty_like(r), torch.empty_like(r)
+    _check(lib.hf_mgz_prolong_res(_ptr(A), A.shape[0], _ptr(sm), _ptr(r),
+                                  _ptr(z), _ptr(yc), _ptr(aux), _ptr(zp),
+                                  _ptr(r1), nz, nr, _counts_ptr(), _stream()),
+           "mgz_prolong_res")
+    return zp, r1
+
+
+def mgz_post(r1, zp, pcr, omega: float, sm, r, *, state=None, rr=None,
+             maxiter: int = 4000, fixed: bool = False):
+    """The mgz cycle's post-smoothing row alone: (z, ⟨r, z⟩) as
+    :func:`mgz_post_reference`; with a state dict and ⟨r, r⟩ (``rr``), also
+    the state after the beta tail the solve takes in this kernel."""
+    if _on_cpu(r1, zp, pcr, sm, r):
+        z, rz = mgz_post_reference(r1, zp, pcr, omega, sm, r)
+        if state is None:
+            return z, rz
+        return z, rz, finalize_reference(state, "beta", rr=rr, rz=rz,
+                                         maxiter=maxiter, fixed=fixed)
+    lib = _library()
+    dev = r.device
+    nz, nr = r.shape
+    for name, t in (("r1", r1), ("zp", zp), ("sm", sm), ("r", r)):
+        _require(t, name, (nz, nr), dev)
+    lr = _stack_levels(pcr, "pcr", nz, nr, dev)
+    z = torch.empty_like(r)
+    nparts = lib.hf_cg_nparts(nz, nr)
+    parts = torch.zeros((4, nparts), dtype=torch.float64, device=dev)
+    st = None
+    if state is not None:
+        parts[1, 0] = float(rr)
+        st = _state(dev, **state)
+    _check(lib.hf_mgz_post(_ptr(r1), _ptr(zp), _ptr(pcr), lr, float(omega),
+                           _ptr(sm), _ptr(r), _ptr(z), _ptr(parts), nparts, 1,
+                           _ptr(st), int(maxiter), int(fixed), nz, nr,
+                           _counts_ptr(), _stream()), "mgz_post")
+    rz = parts[2, :nz].sum()
+    return (z, rz) if state is None else (z, rz, _read_state(st))
 
 
 def stencil_dot(A: torch.Tensor, sm: torch.Tensor, p: torch.Tensor):

@@ -14,12 +14,23 @@ scheme's numbers, but moves data between levels with strided gathers.
 
 :func:`build_mg_setup` is numpy and scipy on the host, once per operator.
 :func:`mgcg_vmem_tol` takes the plain version :func:`mgcg_tol_reference` for
-tensors on the CPU and the kernels for float32 CUDA tensors, or raises.
+tensors on the CPU and the kernels for float32 CUDA tensors, or raises. On
+the card a cycle is fused passes: level 0's first smoothing step takes the
+CG update, the other levels' first step (from zero: it reads b at its own
+point) is formed inside their second, each residual inside the
+restriction that gathers it, each prolongation inside the first
+post-smoothing step that reads it, and the coarsest level's right-hand
+side and smoothing run in one launch (each block a tile with a halo, in
+shared memory); the single-pass wrappers (:func:`mg_cheb_update`,
+:func:`mg_cheb_pre`, :func:`mg_restrict_res`, :func:`mg_prolong_cheb`,
+:func:`mg_last`) and their plain versions hold each against the unfused
+passes it replaces.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -263,9 +274,8 @@ def mg_prolong_add_reference(x, xc, wz, wr):
     return x + prolong2d(xc[:mz, :mr], wz, wr)
 
 
-def vcycle_reference(setup: dict, nu: int = 2, nu_coarse: int = 10):
-    """The V-cycle over the baked level operators, r ↦ z (unmasked), in the
-    levels' dtype, on the padded fine grid."""
+def _vcycle(setup: dict, nu: int, nu_coarse: int):
+    """The V-cycle from level l down, (l, b) ↦ x, unmasked."""
     levels, meta = setup["levels"], setup["meta"]
     shapes, lmaxs = meta["shapes"], meta["lmaxs"]
     n_lv = len(levels)
@@ -281,7 +291,62 @@ def vcycle_reference(setup: dict, nu: int = 2, nu_coarse: int = 10):
         x = mg_prolong_add_reference(x, xc, wz, wr)
         return _cheb_reference(C, b, x, lmaxs[l], nu)
 
+    return vcycle
+
+
+def vcycle_reference(setup: dict, nu: int = 2, nu_coarse: int = 10):
+    """The V-cycle over the baked level operators, r ↦ z (unmasked), in the
+    levels' dtype, on the padded fine grid."""
+    vcycle = _vcycle(setup, nu, nu_coarse)
     return lambda rr: vcycle(0, rr)
+
+
+def mg_cheb_pre_reference(C, b, theta, c1, c2):
+    """Plain version of :func:`mg_cheb_pre`: the first two smoothing steps
+    from zero, (x, d) after the second."""
+    x, d, _ = mg_cheb_step_reference(C, b, None, None, theta)
+    x, d, _ = mg_cheb_step_reference(C, b, x, d, theta, c1, c2)
+    return x, d
+
+
+def mg_last_reference(setup: dict, b, x, *, nu_coarse: int = 10):
+    """Plain version of :func:`mg_last`: the coarsest level's right-hand
+    side, the restriction of the residual b − C·x of the level above it,
+    then ``nu_coarse`` smoothing steps from zero."""
+    q = len(setup["levels"]) - 1
+    P = setup["levels"][q - 1]
+    bq = mg_restrict_res_reference(P["C"], b, x, P["wz"], P["wr"],
+                                   setup["meta"]["shapes"][q])
+    return _cheb_reference(setup["levels"][q]["C"], bq, None,
+                           setup["meta"]["lmaxs"][q], nu_coarse)
+
+
+def mg_cheb_update_reference(C, r, x, p, Ap, alpha, theta):
+    """Plain version of :func:`mg_cheb_update`: the CG update x + α·p,
+    r − α·Ap (α rounded to the fields' dtype), then level 0's first
+    smoothing step from zero on the new r: (x, r, x_out, d, ⟨r, r⟩
+    float64)."""
+    a = torch.as_tensor(float(alpha), dtype=torch.float64).to(r.dtype)
+    x = x + a * p
+    r = r - a * Ap
+    x_out, d, _ = mg_cheb_step_reference(C, r, None, None, theta)
+    return x, r, x_out, d, (r.double() * r.double()).sum()
+
+
+def mg_restrict_res_reference(C, b, x, wz, wr, out_shape):
+    """Plain version of :func:`mg_restrict_res`: the restriction of the
+    residual b − C·x, zero-padded to the next level's shape."""
+    return mg_restrict_reference(b - apply_stencil(C, x), wz, wr, out_shape)
+
+
+def mg_prolong_cheb_reference(C, b, x, xc, wz, wr, theta, *, mask=None,
+                              dot=None):
+    """Plain version of :func:`mg_prolong_cheb`: the first post-smoothing
+    step from the prolongated iterate x + P·xc: (x_out, d, ⟨dot, x_out⟩ or
+    None)."""
+    return mg_cheb_step_reference(C, b, mg_prolong_add_reference(x, xc, wz,
+                                                                 wr),
+                                  None, theta, mask=mask, dot=dot)
 
 
 def mg_vcycle_reference(setup: dict, r, *, nu: int = 2, nu_coarse: int = 10):
@@ -354,7 +419,7 @@ def mgcg_tol_reference(setup: dict, b, x0, rtol, *, maxiter: int = 2000,
 class _MGLevel(ctypes.Structure):
     """Mirror of ``MGLevel`` in csrc/cg_tol.cu."""
     _fields_ = ([(name, ctypes.c_void_p) for name in
-                 ("C", "wz", "wr", "b", "xa", "xb", "d", "res")]
+                 ("C", "dinv", "wz", "wr", "b", "xa", "xb", "d")]
                 + [("npts", ctypes.c_int), ("nz", ctypes.c_int),
                    ("nr", ctypes.c_int), ("theta", ctypes.c_float),
                    ("c1", ctypes.c_float * MAX_CHEB),
@@ -372,6 +437,25 @@ def setup_tensors(setup: dict) -> list:
     """Every tensor of a :func:`build_mg_setup` result."""
     return [setup["A"], setup["sm"]] + [lv[k] for lv in setup["levels"]
                                         for k in ("C", "wz", "wr")]
+
+
+_dinv_kept: dict = {}
+
+
+def _level_dinv(C: torch.Tensor) -> torch.Tensor:
+    """1 / diag(C) (1 where the diagonal is 0) as the smoothing steps read
+    it, formed once per level operator on its device by :func:`_dinv` (the
+    plain version's own expression; on the card ``1.0 / d`` is the
+    correctly rounded float32 quotient the kernels formed before) and kept
+    while the operator lives and is not written."""
+    hit = _dinv_kept.get(id(C))
+    if hit is not None and hit[0]() is C and hit[1] == C._version:
+        return hit[2]
+    dinv = _dinv(C).contiguous()
+    _dinv_kept[id(C)] = (weakref.ref(C), C._version, dinv)
+    for key in [k for k, v in _dinv_kept.items() if v[0]() is None]:
+        del _dinv_kept[key]
+    return dinv
 
 
 def _descriptor(lib, setup: dict, nu: int, nu_coarse: int, z=None):
@@ -397,11 +481,13 @@ def _descriptor(lib, setup: dict, nu: int, nu_coarse: int, z=None):
         _require(C, f"levels[{l}]['C']", (C.shape[0], lnz, lnr), dev)
         _require(lv["wz"], f"levels[{l}]['wz']", ((lnz - 1) // 2, 1), dev)
         _require(lv["wr"], f"levels[{l}]['wr']", (1, (lnr - 1) // 2), dev)
-        planes = torch.empty((5, lnz, lnr), dtype=torch.float32, device=dev)
-        scratch.append(planes)
+        planes = torch.empty((4, lnz, lnr), dtype=torch.float32, device=dev)
+        dinv = _level_dinv(C)
+        scratch.append((planes, dinv))
         rec = desc.lv[l]
-        rec.C, rec.wz, rec.wr = _ptr(C), _ptr(lv["wz"]), _ptr(lv["wr"])
-        rec.b, rec.xa, rec.xb, rec.d, rec.res = (_ptr(p) for p in planes)
+        rec.C, rec.dinv = _ptr(C), _ptr(dinv)
+        rec.wz, rec.wr = _ptr(lv["wz"]), _ptr(lv["wr"])
+        rec.b, rec.xa, rec.xb, rec.d = (_ptr(p) for p in planes)
         rec.npts, rec.nz, rec.nr = C.shape[0], lnz, lnr
         theta, coefs = cheb_coefficients(meta["lmaxs"][l],
                                          max(nu, nu_coarse), torch.float32)
@@ -414,7 +500,7 @@ def _descriptor(lib, setup: dict, nu: int, nu_coarse: int, z=None):
     if z is None:
         z = torch.empty(meta["shapes"][0], dtype=torch.float32, device=dev)
     steps = nu_coarse if len(levels) == 1 else 2 * nu
-    other = scratch[0][1]
+    other = scratch[0][0][1]
     if steps % 2 == 0:
         desc.lv[0].xa, desc.lv[0].xb = _ptr(other), _ptr(z)
     else:
@@ -493,6 +579,32 @@ def mg_vcycle(setup: dict, r, *, nu: int = 2, nu_coarse: int = 10):
     return z, part[:(pz * pr + 255) // 256].sum()
 
 
+def _step(lib, C, b, x_in, d, x_out, first, theta, c1, c2, *, xc=None,
+          wz=None, wr=None, mask=None, dot=None, part=None, upd=None,
+          state=None, from_b=False, what="mg_step"):
+    """One k_mg_step launch on CUDA float32 tensors (see hf_mg_step)."""
+    nz, nr = x_out.shape
+    r = x = p = Ap = part_rr = None
+    if upd is not None:
+        r, x, p, Ap, part_rr = upd
+    _check(lib.hf_mg_step(
+        _ptr(C), _ptr(_level_dinv(C)), C.shape[0], _ptr(b), _ptr(x_in),
+        _ptr(d), _ptr(x_out), int(first), float(theta), float(c1), float(c2),
+        _ptr(xc), _ptr(wz), _ptr(wr), 0 if xc is None else xc.shape[1],
+        _ptr(mask), _ptr(dot), _ptr(part), _ptr(r), _ptr(x), _ptr(p),
+        _ptr(Ap), _ptr(part_rr), _ptr(state), 0, 0, 0, int(from_b), nz, nr,
+        _counts_ptr(), _stream()), what)
+
+
+def _check_level(C, shape, device, **fields):
+    if C.ndim != 3 or C.shape[0] not in (7, 9):
+        raise ValueError(f"C must be (7|9, nz, nr), got {tuple(C.shape)}")
+    _require(C, "C", (C.shape[0],) + tuple(shape), device)
+    for name, t in fields.items():
+        if t is not None:
+            _require(t, name, tuple(shape), device)
+
+
 def mg_cheb_step(C, b, x, d, theta, c1=None, c2=None, *, mask=None,
                  dot=None):
     """One Chebyshev smoothing step of a level alone: res = b − C·x (b when
@@ -505,47 +617,64 @@ def mg_cheb_step(C, b, x, d, theta, c1=None, c2=None, *, mask=None,
                                       dot=dot)
     lib = _library()
     dev = b.device
-    nz, nr = b.shape
-    if C.ndim != 3 or C.shape[0] not in (7, 9):
-        raise ValueError(f"C must be (7|9, nz, nr), got {tuple(C.shape)}")
-    _require(C, "C", (C.shape[0], nz, nr), dev)
-    _require(b, "b", (nz, nr), dev)
-    for name, t in (("x", x), ("d", d), ("mask", mask), ("dot", dot)):
-        if t is not None:
-            _require(t, name, (nz, nr), dev)
+    _check_level(C, b.shape, dev, b=b, x=x, d=d, mask=mask, dot=dot)
     first = c1 is None
     if not first and d is None:
         raise ValueError("a later step needs the previous d")
     d_new = torch.empty_like(b) if first else d.clone()
     x_new = torch.empty_like(b)
-    part = torch.zeros(lib.hf_cg_nparts(nz, nr), dtype=torch.float64,
+    part = torch.zeros(lib.hf_cg_nparts(*b.shape), dtype=torch.float64,
                        device=dev)
-    _check(lib.hf_mg_cheb(_ptr(C), C.shape[0], _ptr(b), _ptr(x), _ptr(d_new),
-                          _ptr(x_new), int(first), float(theta),
-                          0.0 if first else float(c1),
-                          0.0 if first else float(c2), _ptr(mask), _ptr(dot),
-                          _ptr(part), nz, nr, _counts_ptr(), _stream()),
-           "mg_cheb")
-    dsum = None if dot is None else part[:(nz * nr + 255) // 256].sum()
+    _step(lib, C, b, x, d_new, x_new, first, theta,
+          0.0 if first else c1, 0.0 if first else c2, mask=mask, dot=dot,
+          part=part, what="mg_cheb_step")
+    dsum = None if dot is None else part[:(b.numel() + 255) // 256].sum()
     return x_new, d_new, dsum
 
 
-def mg_residual(C, b, x):
-    """A level's residual alone: b − C·x."""
-    if _on_cpu(C, b, x):
-        return b - apply_stencil(C, x)
+def mg_cheb_update(C, r, x, p, Ap, theta, *, state: dict):
+    """Level 0's first smoothing step with the CG update fused in, alone, as
+    an iteration runs it on ``state``'s alpha: (x + α·p, r − α·Ap, x_out,
+    d, ⟨r, r⟩ float64); the inputs are left as they are."""
+    if _on_cpu(C, r, x, p, Ap):
+        return mg_cheb_update_reference(C, r, x, p, Ap, state["alpha"],
+                                        theta)
     lib = _library()
-    nz, nr = b.shape
-    if C.ndim != 3 or C.shape[0] not in (7, 9):
-        raise ValueError(f"C must be (7|9, nz, nr), got {tuple(C.shape)}")
-    _require(C, "C", (C.shape[0], nz, nr), b.device)
-    _require(b, "b", (nz, nr), b.device)
-    _require(x, "x", (nz, nr), b.device)
-    out = torch.empty_like(b)
-    _check(lib.hf_mg_residual(_ptr(C), C.shape[0], _ptr(b), _ptr(x),
-                              _ptr(out), nz, nr, _counts_ptr(), _stream()),
-           "mg_residual")
-    return out
+    dev = r.device
+    _check_level(C, r.shape, dev, r=r, x=x, p=p, Ap=Ap)
+    r_n, x_n = r.clone(), x.clone()
+    d, x_out = torch.empty_like(r), torch.empty_like(r)
+    part = torch.zeros(lib.hf_cg_nparts(*r.shape), dtype=torch.float64,
+                       device=dev)
+    st = cuda_cg._state(dev, **state)
+    _step(lib, C, r_n, None, d, x_out, True, theta, 0.0, 0.0,
+          upd=(r_n, x_n, p, Ap, part), state=st, what="mg_cheb_update")
+    return x_n, r_n, x_out, d, part[:(r.numel() + 255) // 256].sum()
+
+
+def mg_prolong_cheb(C, b, x, xc, wz, wr, theta, *, mask=None, dot=None):
+    """The first post-smoothing step from the prolongated iterate x + P·xc
+    alone (the prolongation fused into the step): (x_out, d, ⟨dot, x_out⟩
+    float64 or None); the inputs are left as they are."""
+    if _on_cpu(C, b, x, xc, wz, wr, mask, dot):
+        return mg_prolong_cheb_reference(C, b, x, xc, wz, wr, theta,
+                                         mask=mask, dot=dot)
+    lib = _library()
+    dev = b.device
+    _check_level(C, b.shape, dev, b=b, x=x, mask=mask, dot=dot)
+    _check_transfer(tuple(b.shape), wz, wr, dev)
+    _require(xc, "xc", tuple(xc.shape), dev)
+    if xc.ndim != 2 or xc.shape[0] < (b.shape[0] + 1) // 2 \
+            or xc.shape[1] < (b.shape[1] + 1) // 2:
+        raise ValueError(f"xc {tuple(xc.shape)} is smaller than the coarse "
+                         "grid")
+    d, x_out = torch.empty_like(b), torch.empty_like(b)
+    part = torch.zeros(lib.hf_cg_nparts(*b.shape), dtype=torch.float64,
+                       device=dev)
+    _step(lib, C, b, x, d, x_out, True, theta, 0.0, 0.0, xc=xc, wz=wz, wr=wr,
+          mask=mask, dot=dot, part=part, what="mg_prolong_cheb")
+    dsum = None if dot is None else part[:(b.numel() + 255) // 256].sum()
+    return x_out, d, dsum
 
 
 def _check_transfer(fine_shape, wz, wr, device):
@@ -556,42 +685,64 @@ def _check_transfer(fine_shape, wz, wr, device):
     _require(wr, "wr", (1, (nr - 1) // 2), device)
 
 
-def mg_restrict(v, wz, wr, out_shape):
-    """The restriction alone: Pᵀv on the next level's padded shape (zeros
-    in the padding), each coarse value a gather summed in a fixed order."""
-    if _on_cpu(v, wz, wr):
-        return mg_restrict_reference(v, wz, wr, out_shape)
+def mg_restrict_res(C, b, x, wz, wr, out_shape):
+    """The restriction of a level's residual b − C·x alone: Pᵀ(b − C·x) on
+    the next level's padded shape (zeros in the padding), each coarse value
+    a gather of fine residuals summed in a fixed order."""
+    if _on_cpu(C, b, x, wz, wr):
+        return mg_restrict_res_reference(C, b, x, wz, wr, out_shape)
     lib = _library()
-    nz, nr = v.shape
-    _require(v, "v", (nz, nr), v.device)
-    _check_transfer((nz, nr), wz, wr, v.device)
+    nz, nr = b.shape
+    _check_level(C, b.shape, b.device, b=b, x=x)
+    _check_transfer((nz, nr), wz, wr, b.device)
     cz, cr = (int(n) for n in out_shape)
     if cz < (nz + 1) // 2 or cr < (nr + 1) // 2:
         raise ValueError(f"out_shape {out_shape} is smaller than the coarse "
                          "grid")
-    out = torch.empty((cz, cr), dtype=torch.float32, device=v.device)
-    _check(lib.hf_mg_restrict(_ptr(v), _ptr(wz), _ptr(wr), _ptr(out), nz, nr,
-                              cz, cr, _counts_ptr(), _stream()),
-           "mg_restrict")
+    out = torch.empty((cz, cr), dtype=torch.float32, device=b.device)
+    _check(lib.hf_mg_restrict_res(_ptr(C), C.shape[0], _ptr(b), _ptr(x),
+                                  _ptr(wz), _ptr(wr), _ptr(out), nz, nr, cz,
+                                  cr, _counts_ptr(), _stream()),
+           "mg_restrict_res")
     return out
 
 
-def mg_prolong_add(x, xc, wz, wr):
-    """The prolongation alone: x + P·xc (the unpadded part of xc); x is left
-    as it is."""
-    if _on_cpu(x, xc, wz, wr):
-        return mg_prolong_add_reference(x, xc, wz, wr)
+def mg_cheb_pre(C, b, theta, c1, c2):
+    """A level's first two smoothing steps from zero alone, in the one
+    launch the cycle makes for them (the first step, pointwise, formed at
+    each point the second reads): (x, d) after the second."""
+    if _on_cpu(C, b):
+        return mg_cheb_pre_reference(C, b, theta, c1, c2)
     lib = _library()
-    nz, nr = x.shape
-    _require(x, "x", (nz, nr), x.device)
-    _check_transfer((nz, nr), wz, wr, x.device)
-    _require(xc, "xc", tuple(xc.shape), x.device)
-    if xc.ndim != 2 or xc.shape[0] < (nz + 1) // 2 \
-            or xc.shape[1] < (nr + 1) // 2:
-        raise ValueError(f"xc {tuple(xc.shape)} is smaller than the coarse "
-                         "grid")
-    out = x.clone()
-    _check(lib.hf_mg_prolong(_ptr(out), _ptr(xc), _ptr(wz), _ptr(wr), nz, nr,
-                             xc.shape[1], _counts_ptr(), _stream()),
-           "mg_prolong")
-    return out
+    _check_level(C, b.shape, b.device, b=b)
+    d, x_out = torch.empty_like(b), torch.empty_like(b)
+    _step(lib, C, b, None, d, x_out, False, theta, c1, c2, from_b=True,
+          what="mg_cheb_pre")
+    return x_out, d
+
+
+def mg_last(setup: dict, b, x, *, nu_coarse: int = 10):
+    """The coarsest level alone, in the one launch the cycle makes for it
+    (each block a tile with a halo, in shared memory): its right-hand side
+    from the residual b − C·x of the level above it (b, x on that level's
+    plane), then ``nu_coarse`` smoothing steps from zero; returns the last
+    iterate."""
+    if _on_cpu(*setup_tensors(setup), b, x):
+        return mg_last_reference(setup, b, x, nu_coarse=nu_coarse)
+    lib = _library()
+    if len(setup["levels"]) < 2:
+        raise ValueError("mg_last needs two levels at least")
+    shape = tuple(setup["meta"]["shapes"][-2])
+    _require(b, "b", shape, b.device)
+    _require(x, "x", shape, b.device)
+    desc, scratch, _ = _descriptor(lib, setup, 1, int(nu_coarse))
+    result = ctypes.c_void_p(0)
+    _check(lib.hf_mg_last(ctypes.addressof(desc), _ptr(b), _ptr(x),
+                          _counts_ptr(), _stream(), ctypes.addressof(result)),
+           "mg_last")
+    planes = scratch[-1][0]
+    which = [i for i in (1, 2) if planes[i].data_ptr() == result.value]
+    if not which:
+        raise RuntimeError("mg_last: the last iterate is in no plane of the "
+                           "level")
+    return planes[which[0]].clone()

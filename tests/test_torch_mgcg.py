@@ -224,12 +224,14 @@ def test_restriction_is_the_transpose_of_prolongation_and_repeatable(setups):
             jnp.asarray(lv["wr"].numpy()))), rtol=0, atol=1e-14)
     assert torch.equal(Rf, cuda_mg.restrict2d(f, lv["wz"], lv["wr"]))
     shape = got["meta"]["shapes"][1]
-    out = cuda_mg.mg_restrict(f, lv["wz"], lv["wr"], shape)
+    out = cuda_mg.mg_restrict_res(lv["C"], f, torch.zeros_like(f), lv["wz"],
+                                  lv["wr"], shape)
     assert out.shape == tuple(shape)
     assert torch.equal(out[:mz, :mr], Rf)
     assert float(out[mz:].abs().sum() + out[:, mr:].abs().sum()) == 0.0
     x = torch.tensor(rng.standard_normal((nz, nr)))
-    assert torch.equal(cuda_mg.mg_prolong_add(x, out, lv["wz"], lv["wr"]),
+    assert torch.equal(cuda_mg.mg_prolong_add_reference(x, out, lv["wz"],
+                                                        lv["wr"]),
                        x + cuda_mg.prolong2d(out[:mz, :mr], lv["wz"],
                                              lv["wr"]))
 
@@ -252,8 +254,10 @@ def test_cheb_step_wrapper_on_cpu_is_the_plain_smoother(setups):
                     jnp.asarray(x0.numpy()), lmax, 4, jnp.float64)
     assert np.abs(x.numpy() - np.asarray(xj)).max() \
         <= 1e-13 * np.abs(np.asarray(xj)).max()
-    res = cuda_mg.mg_residual(lv["C"], b, x)
-    assert torch.equal(res, b - cuda_cg.apply_stencil(lv["C"], x))
+    shape = got["meta"]["shapes"][2]
+    res = cuda_mg.mg_restrict_res(lv["C"], b, x, lv["wz"], lv["wr"], shape)
+    assert torch.equal(res, cuda_mg.mg_restrict_reference(
+        b - cuda_cg.apply_stencil(lv["C"], x), lv["wz"], lv["wr"], shape))
 
 
 def test_cheb_coefficients_round_in_the_working_type():

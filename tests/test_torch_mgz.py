@@ -137,14 +137,11 @@ def test_mgz_phase_wrappers_on_cpu_are_the_plain_phases(system):
     A, sm, pcr, m = t["A"], t["sm"], t["pcr"], t["mgz"]
     free = (sm != 0).double()
     r = torch.tensor(rng.standard_normal(sm.shape)) * free
-    x, _, _ = cuda_cg.mgz_pcr_row(r, pcr, 0.8)
-    r1 = cuda_cg.mgz_residual(A, sm, r, x)
-    yc, rcs, _ = cuda_cg.mgz_pcr_row(r1, m["pcrc"], 0.8, aux=m["aux"])
-    res = cuda_cg.mgz_coarse_res(m["Ac9"], rcs, yc)
-    yc, _, _ = cuda_cg.mgz_pcr_row(res, m["pcrc"], 0.8, acc=yc)
-    x = cuda_cg.mgz_prolong(m["aux"], x, yc)
-    r2 = cuda_cg.mgz_residual(A, sm, r, x)
-    z, _, rz = cuda_cg.mgz_pcr_row(r2, pcr, 0.8, acc=x, sm=sm, dot=r)
+    _, _, x, _ = cuda_cg.mgz_pre(r, pcr, 0.8)
+    yc, rcs = cuda_cg.mgz_coarse(A, sm, r, x, m["aux"], m["pcrc"], 0.8)
+    yc = cuda_cg.mgz_coarse_res(m["Ac9"], rcs, yc, m["pcrc"], 0.8)
+    x, r2 = cuda_cg.mgz_prolong_res(A, sm, r, x, yc, m["aux"])
+    z, rz = cuda_cg.mgz_post(r2, x, pcr, 0.8, sm, r)
     want, rz_want = cuda_cg.precond_apply_reference(A, sm, r, pcr=pcr, mgz=m,
                                                     mgz_sweeps=2)
     assert torch.equal(z, want) and float(rz) == float(rz_want)
