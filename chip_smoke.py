@@ -167,7 +167,33 @@ Phases (each raises on failure; nothing is caught):
    ``cfgs/geballe_no_diamond_read_flux.yaml`` with the gradient recorded,
    then ``run1d`` on ``cfgs/geballe_1d.yaml`` reading that run's
    ``radial_gradient.csv``, correction on and off, on the card and with
-   ``--device cpu`` (float64, equal within 1e-8 rel-L2).
+   ``--device cpu`` (float64, equal within 1e-8 rel-L2);
+20. the unstructured path (ROADMAP P9) at full width, on the perturbed
+   triangulations of ``benchmarks/bench_frontier.py:41-90``
+   (``perturb_structured_mesh(..., jitter=0.25, seed=3)``; host set-up
+   timed: generation, ``assemble_ell``, ``ell_to_stencils``): (a) the
+   flagship's 277,857 nodes on their 9-plane lattice, 100 steps through
+   ``make_simulate_fn_unstructured`` (float32 r-line, 'extrapolate', one
+   float64 pass, rtol 1e-4 wrt r0, ``solver='auto'``, which must take the
+   kernel path): steps/s, iterations a step, K1's solves, launches and
+   loop-body runs, the launches an iteration equal to the structured
+   r-line form's, the traces within 1.0 K of
+   ``benchmarks/.flagship_truth_unstructured.npz``; (b) the ADI form for 10
+   steps against them; (c) the ELL eager path on the same mesh without its
+   overlay, float64, Jacobi, rtol 1e-11, as many steps as fit in ~30 s,
+   within 0.05 K of the truth's first rows; (d) on the sweep config's
+   triangulation (243 x 1001): ``make_sweep_fn_unstructured(solver=
+   'vmem')`` at B = 256 (Jacobi, rtol 1e-4 wrt ||b||; configs/s), four
+   lanes bitwise at B = 4 and, solved to rtol 1e-5 wrt r0, against the
+   single transient on the kernel path (K1 identity); the r-line recording
+   at B = 64 (K2's r-line and Kv-free forms); ``fixed_iters`` at B = 8 (K3);
+   (e) the CLIs on the card: ``run2d --mesh-style unstructured
+   --rebuild-mesh``, ``run2d`` on that folder without its sidecar (the ELL
+   path, 10 steps) and ``sweep --num-points 2 2 1`` over an unstructured
+   width folder; (f) K1 (identity, r-line, ADI) on the flagship's
+   first-step inner system and K2 (identity, r-line, Kv-free) and K3 on 8
+   lanes of the sweep's 10th step, all 9-plane, against their plain
+   versions and float64.
 Phase 10 also holds its recording run (watch, band, axis), and the same
 rows from a run with two float64 refinement passes, to
 ``benchmarks/.flagship_truth_recording.npz``.
@@ -179,8 +205,11 @@ with its time, the plain version's, and its bound: the larger of the bytes
 it must move (each input read once, each output written once) at the
 card's memory rate and the float32 operations this run's data needs at its
 peak; no single PyTorch call computes a preconditioned CG solve or a PCR
-line solve, so ``library_ms`` is null. The last line is ``{"ok": true,
-"device": {...}}``.
+line solve, so ``library_ms`` is null. Each solve row of the ``--out``
+file also carries ``iter_bound_ms``, the bound of its iterations: each
+iteration's inputs (operator, scaling, stacks) read once and its carried
+vectors read and written once, times the iterations. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -274,6 +303,29 @@ def bound(nbytes: float, ops: float) -> dict:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def k1_iter_bound(its, operand_bytes: int, plane_bytes: int) -> float:
+    """The bound of a K1 solve's iterations (ms): each iteration's inputs
+    (the operator, the scaling, the PCR stacks or levels) read once and the
+    three vectors it carries (x, r, p) read and written once, times the
+    iterations, at the memory rate."""
+    return float(its) * (operand_bytes + 6 * plane_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def k2_iter_bound(its, A0, Kv, sm, b) -> float:
+    """The same for a batched K2 / K3 solve: the shared operator (A0, Kv;
+    a shared scaling plane) read once an iteration of the batch, each
+    running lane's scaling plane and carried x, r, p once a lane-iteration
+    (``its``: each lane's iterations)."""
+    import numpy as np
+    its = np.nan_to_num(np.asarray(its, float))
+    plane = b[0].numel() * b.element_size()
+    shared = nbytes(A0, Kv) + (nbytes(sm) if sm.ndim == 2 else 0)
+    lane = 6 * plane + (plane if sm.ndim == 3 else 0)
+    return float(its.max() * shared + its.sum() * lane) \
+        / HBM_BYTES_PER_S * 1e3
 
 
 # phase 14: K5's launches an iteration, at most, by coarse sweeps
@@ -525,7 +577,10 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
                             true_res_over_ref=res / ref,
                             plain_true_res_over_ref=res_p / ref,
                             max_abs_err=float((x_k - x_p).abs().max()),
-                            ms=ms, plain_ms=plain_ms)
+                            ms=ms, plain_ms=plain_ms,
+                            iter_bound_ms=k1_iter_bound(
+                                it_k, nbytes(A32, sm32, *stacks.values()),
+                                nbytes(b32)))
         print(f"solve {form}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         # in-solve: one more solve under the profiler, by kernel
         prof = kernel_profile(
@@ -892,26 +947,34 @@ def sweep_system(problem, ks, fs, device, step: int = 10):
     systems nearly solved by the seed), exactly as the sweep builds it:
     (A0, Kv, dks, sm, b, x0) in float32, read off the kernel wrapper's
     arguments during a ``step``-step sweep, the kernel solving each step."""
-    import functools
     import torch
     from heatflow_tpu_torch.ops import cuda_sweep
     from heatflow_tpu_torch.sim.sweepkernel import make_sweep_fn
-    seen = {}
-    kernel = cuda_sweep.cg_batched_tol
-
-    @functools.wraps(kernel)     # with its own copy of the launch counters
-    def capture(*args, **kw):
-        seen["args"] = args[:6]
-        return kernel(*args, **kw)
-
     fn = make_sweep_fn(problem, dtype=torch.float32, solver="vmem",
                        rtol=1e-4, num_steps=step, device=device)
-    cuda_sweep.cg_batched_tol = capture
+    return _capture(cuda_sweep, "cg_batched_tol",
+                    lambda: fn(ks, fs))[-1][0][:6]
+
+
+def _capture(module, name: str, run) -> list:
+    """Every call's positional and keyword arguments to ``module.name``
+    while ``run()`` runs (the wrapper itself runs, with its own copy of
+    the launch counters)."""
+    import functools
+    kernel = getattr(module, name)
+    seen = []
+
+    @functools.wraps(kernel)
+    def capture(*args, **kw):
+        seen.append((args, kw))
+        return kernel(*args, **kw)
+
+    setattr(module, name, capture)
     try:
-        fn(ks, fs)
+        run()
     finally:
-        cuda_sweep.cg_batched_tol = kernel
-    return seen["args"]
+        setattr(module, name, kernel)
+    return seen
 
 
 def sweep_phase_cases(A0, Kv, dks, sm, b, x0, rng) -> dict:
@@ -1222,6 +1285,7 @@ def sweep_kernel_checks(problem, device, out: dict) -> dict:
             iters=its, plain_iters=[int(i) for i in it_p.tolist()], **w,
             max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
             plain_ms=plain_ms,
+            iter_bound_ms=k2_iter_bound(its, A0, Kv, sm, b),
             **k2_solve_bound(*args, its, k2_iter_ops(rline)))
 
     # K3: 120 iterations, every lane
@@ -1238,6 +1302,7 @@ def sweep_kernel_checks(problem, device, out: dict) -> dict:
     rows["cg_batched[fixed]"] = dict(
         **w, max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
         plain_ms=plain_ms,
+        iter_bound_ms=k2_iter_bound([120] * B, A0, Kv, sm, b),
         **k2_solve_bound(*args, [120] * B, k2_iter_ops()))
     out["sweep_checks"] = rows
     return rows
@@ -1581,6 +1646,7 @@ def projection_checks(problem, device, out: dict) -> dict:
         iters=its_k, plain_iters=its_p, f64_iters=it64.tolist(), **worst,
         max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
         plain_ms=plain_ms,
+        iter_bound_ms=k2_iter_bound(its_k, Mp, None, s_mp, b),
         **k2_solve_bound(Mp, None, None, s_mp, b, x0, its_k,
                          k2_iter_ops(kv=False)))
     out["projection_checks"] = rows
@@ -1913,7 +1979,10 @@ def adi_checks(problem, device, out: dict) -> dict:
         rows[f"cg_batched_tol[{form}]"] = dict(
             iters=its, plain_iters=[int(i) for i in it_p.tolist()], **worst,
             max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
-            plain_ms=plain_ms, **k2_solve_bound(*args, its, per_lane))
+            plain_ms=plain_ms,
+            iter_bound_ms=k2_iter_bound(its, args[0], args[1], args[3],
+                                        args[4]),
+            **k2_solve_bound(*args, its, per_lane))
         print(f"ADI solve {form}: iters kernel {its} plain "
               f"{[int(i) for i in it_p.tolist()]}; worst lane: kernel vs "
               f"plain rel-L2 {worst['rel_l2']:.3e}, vs float64 kernel "
@@ -2089,6 +2158,8 @@ def vmem_solve_checks(problem, device, out: dict) -> dict:
             iters=iters[direction], max_abs_err=float((k - p).abs().max()),
             ms=times[(direction, "ms")],
             plain_ms=times[(direction, "plain_ms")],
+            iter_bound_ms=k1_iter_bound(solves, nbytes(A32, sm32, pcr),
+                                        nbytes(b32)),
             **bound(moved, solves * n * k1_iter_ops(True, False)))
         print(f"cg_vmem_solve.{direction}: {iters[direction]} iterations; "
               f"kernel {times[(direction, 'ms')]:.3f} ms, plain "
@@ -2642,7 +2713,10 @@ def merged_sweep_checks(problem, device, out: dict) -> dict:
             iters=its, plain_iters=[int(i) for i in it_p.tolist()],
             standard_iters=[int(i) for i in it_s.tolist()], **worst,
             max_abs_err=float((x_k[sel] - x_p[sel]).abs().max()), ms=ms,
-            plain_ms=plain_ms, **k2_solve_bound(*args, its, per_lane))
+            plain_ms=plain_ms,
+            iter_bound_ms=k2_iter_bound(its, args[0], args[1], args[3],
+                                        args[4]),
+            **k2_solve_bound(*args, its, per_lane))
         print(f"merged sweep solve {form}: iters kernel {its} plain "
               f"{[int(i) for i in it_p.tolist()]} standard "
               f"{[int(i) for i in it_s.tolist()]}; worst lane: kernel vs "
@@ -3167,6 +3241,8 @@ def nine_plane_checks(problem, setup, device, out: dict) -> dict:
             max_abs_err=float((x_k - x_p).abs().max()),
             ms=cuda_ms(lambda: k1(cuda_cg.cg_tol, kw), 3),
             plain_ms=cuda_ms(lambda: k1(cuda_cg.cg_tol_reference, kw), 1),
+            iter_bound_ms=k1_iter_bound(it_k, nbytes(A9, sm, *kw.values()),
+                                        nbytes(b)),
             **bound(nbytes(A9, sm, b, x0, b, *kw.values()),
                     it_k * n * (k1_iter_ops(bool(kw), "pcr_z" in kw) + 4)))
     d64 = lambda t: t.double()
@@ -3197,6 +3273,7 @@ def nine_plane_checks(problem, setup, device, out: dict) -> dict:
             max_abs_err=float((x_k - x_p).abs().max()),
             ms=cuda_ms(lambda: k2(cs.cg_batched_tol, kw), 2),
             plain_ms=cuda_ms(lambda: k2(cs.cg_batched_tol_reference, kw), 1),
+            iter_bound_ms=k2_iter_bound(its, A9, Kv, smb, bb),
             **k2_solve_bound(A9, Kv, dks, smb, bb, xb0, its,
                              k2_iter_ops("rline" in kw or "adi" in kw,
                                          "adi" in kw) + 8))
@@ -3482,6 +3559,7 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
         ms=cuda_ms(lambda: cuda_cg.cg_vmem(C, b32, x0, iters=64), 5),
         plain_ms=cuda_ms(lambda: cuda_cg.cg_vmem_reference(C, b32, x0,
                                                            iters=64), 2),
+        iter_bound_ms=k1_iter_bound(64, nbytes(C), nbytes(b32)),
         **bound(nbytes(C, b32, x0, b32), 64 * n * (13 + 2 + 6 + 2)))
     print(f"cg_vmem 64 iterations: kernel {solves['cg_vmem[64]']['ms']:.3f} "
           f"ms, plain {solves['cg_vmem[64]']['plain_ms']:.3f} ms")
@@ -3684,6 +3762,579 @@ def run_pipeline_1d(device, out: dict) -> None:
                  for (dev, c), (_, secs) in runs.items()})
 
 
+# ----------------------------------------------------------------------
+# Phase 20: the unstructured path (ROADMAP P9) at full width
+# ----------------------------------------------------------------------
+
+UTRUTH = os.path.join(ROOT, "benchmarks", ".flagship_truth_unstructured.npz")
+U_SEED = 3             # benchmarks/bench_frontier.py's perturbation
+U_RECIPE = dict(rtol=1e-4, maxiter=8000, record_gradient=False,
+                record_fields=False, rtol_wrt="r0", solver="auto",
+                precondition="rline", warm_start="extrapolate",
+                f64_refine=1)
+U_ADI_STEPS = 10
+U_ELL_BUDGET_S = 30.0  # (c): full-width steps of the ELL path in ~30 s
+# (c): the float64 ELL traces against the truth's first rows (the truth is
+# the refine-2 f32 overlay run at 1e-4, within ~1e-5 K of float64)
+U_ELL_TOL_K = 0.05
+U_SWEEP_B, U_REC_B, U_FIXED_B, U_LANES = 256, 64, 8, 4
+U_SWEEP_RECIPE = dict(solver="vmem", precondition="jacobi", rtol=1e-4,
+                      rtol_wrt="b")
+U_FIXED_ITERS = 120
+# 20d: four lanes against single transients, both solved to this
+U_CLOSE = dict(solver="vmem", precondition="jacobi", rtol=1e-5,
+               rtol_wrt="r0", warm_start="extrapolate")
+
+
+def build_unstructured(path: str = CFG):
+    """The perturbed triangulation of a config's stack
+    (``perturb_structured_mesh(build_structured_mesh(...), jitter=0.25,
+    seed=3)``, as ``benchmarks/bench_frontier.py:41-90`` builds it) and its
+    problem through the port's entry points; the host seconds of the
+    generation, of ``build_problem_unstructured`` (``assemble_ell`` and the
+    masks) and of ``ell_to_stencils``."""
+    from heatflow_tpu_torch import (build_layout, build_structured_mesh,
+                                    load_config)
+    from heatflow_tpu_torch.geometry import coupler_watcher_points
+    from heatflow_tpu_torch.mesh.unstructured_gen import \
+        perturb_structured_mesh
+    from heatflow_tpu_torch.sim.bc import HeatingCurve
+    from heatflow_tpu_torch.sim.unstructured import (
+        _overlay_prep, build_problem_unstructured)
+    t0 = time.perf_counter()
+    cfg = load_config(path)
+    domain, mats = build_layout(cfg)
+    umesh = perturb_structured_mesh(build_structured_mesh(domain, mats),
+                                    jitter=0.25, seed=U_SEED)
+    t1 = time.perf_counter()
+    problem = build_problem_unstructured(
+        umesh, HeatingCurve.from_csv(CSV), cfg,
+        watcher_points=coupler_watcher_points(cfg))
+    t2 = time.perf_counter()
+    _overlay_prep(problem)              # ell_to_stencils, cached
+    t3 = time.perf_counter()
+    return problem, dict(generate_s=t1 - t0, assemble_s=t2 - t1,
+                         stencils_s=t3 - t2)
+
+
+def _cut(problem, **kw):
+    """The problem with fields replaced (``num_steps``, ``mesh``), its
+    cached lattice stencils kept unless the mesh changes."""
+    import dataclasses
+    keep = {} if "mesh" in kw else {
+        "_overlay_stencils": problem.extras["_overlay_stencils"]}
+    return dataclasses.replace(problem, extras=keep, **kw)
+
+
+def _k1_solves() -> dict:
+    from heatflow_tpu_torch.ops import cuda_cg
+    runs = sum(int(g.runs.item()) for ws in cuda_cg._workspaces.values()
+               for g in ws.graphs.values())
+    return dict(solves=cuda_cg.cg_tol.launches,
+                rline=cuda_cg.cg_tol.launches_rline,
+                adi=cuda_cg.cg_tol.launches_adi,
+                identity=cuda_cg.cg_tol.launches_identity,
+                graph_body_runs=runs,
+                phases=cuda_cg.phase_launches(),
+                per_iteration=cuda_cg.launches_per_iteration())
+
+
+def run_unstructured_flagship(problem, device, out: dict) -> dict:
+    """Phase 20a-c: the unstructured flagship through
+    ``make_simulate_fn_unstructured`` on the overlay kernel path (r-line,
+    100 steps; ADI, 10 steps) and on the ELL eager path (float64)."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
+    from heatflow_tpu_torch.ops import cuda_cg
+    from heatflow_tpu_torch.sim.unstructured import \
+        make_simulate_fn_unstructured
+
+    truth = np.load(UTRUTH)["watch"]
+    names = list(problem.watcher_names)
+    res = {}
+    # (a) the flagship recipe: a warm-up run (graph captures), then the run
+    fn = make_simulate_fn_unstructured(problem, dtype=torch.float32,
+                                       device=device, **U_RECIPE)
+    require(fn.use_vmem and fn.overlay, "the overlay kernel path")
+    fn()
+    torch.cuda.synchronize()
+    cuda_cg.reset_counters()
+    t0 = time.perf_counter()
+    ys = fn()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    k1 = _k1_solves()
+    watch = ys["watch"].cpu().numpy()
+    iters = ys["cg_iters"].cpu().numpy()
+    require(watch.shape == truth.shape and np.isfinite(watch).all(),
+            ("unstructured traces", watch.shape))
+    peak = np.abs(watch - truth).max(axis=0)
+    want = out.get("slice", {}).get("launches_per_iteration", {}).get(
+        "rline", 3.0)
+    print(f"20a unstructured flagship ({len(problem.mesh.nodes)} nodes, "
+          f"{len(problem.mesh.cells)} triangles, 9-plane lattice "
+          f"{problem.mesh.grid_overlay['shape']}): {problem.num_steps} steps "
+          f"in {run_s:.4f} s = {problem.num_steps / run_s:.2f} steps/s; "
+          f"iterations a step mean {iters.mean():.2f} max {int(iters.max())};"
+          f" K1 solves {k1['solves']} (graph launches; r-line "
+          f"{k1['rline']}), {sum(k1['phases'].values())} kernel launches, "
+          f"{k1['graph_body_runs']} loop-body runs, launches an iteration "
+          f"{k1['per_iteration']} (structured r-line {want})")
+    print("20a peak |error| vs .flagship_truth_unstructured.npz [K]: "
+          + ", ".join(f"{n} {e:.4f}" for n, e in zip(names, peak)))
+    require((peak <= TRACE_TOL_K).all(), ("unstructured error", peak))
+    require(k1["rline"] == problem.num_steps and k1["identity"] == 0, k1)
+    require(k1["per_iteration"].get("rline") == want,
+            ("r-line launches an iteration", k1["per_iteration"], want))
+    res["flagship"] = dict(run_s=run_s,
+                           steps_per_s=problem.num_steps / run_s,
+                           cg_iters_mean=float(iters.mean()),
+                           peak_err_K=dict(zip(names, peak.tolist())),
+                           k1=k1)
+
+    # (b) the ADI form, the first steps
+    p_adi = _cut(problem, num_steps=U_ADI_STEPS)
+    fa = make_simulate_fn_unstructured(p_adi, dtype=torch.float32,
+                                       device=device,
+                                       **dict(U_RECIPE, precondition="adi"))
+    cuda_cg.reset_counters()
+    t0 = time.perf_counter()
+    ya = fa()
+    torch.cuda.synchronize()
+    adi_s = time.perf_counter() - t0
+    k1a = _k1_solves()
+    wa = ya["watch"].cpu().numpy()
+    d_adi = float(np.abs(wa - watch[:U_ADI_STEPS]).max())
+    e_adi = float(np.abs(wa - truth[:U_ADI_STEPS]).max())
+    print(f"20b ADI form, {U_ADI_STEPS} steps: {adi_s:.3f} s (graph "
+          f"captures included), iterations a step "
+          f"{ya['cg_iters'].cpu().numpy().tolist()}, K1 ADI solves "
+          f"{k1a['adi']}; max |ADI - r-line| {d_adi:.3e} K, vs truth "
+          f"{e_adi:.3e} K")
+    require(k1a["adi"] == U_ADI_STEPS and d_adi <= TRACE_TOL_K
+            and e_adi <= TRACE_TOL_K, ("ADI form", d_adi, e_adi, k1a))
+    res["adi"] = dict(run_s=adi_s, max_vs_rline_K=d_adi,
+                      max_vs_truth_K=e_adi, k1=k1a)
+
+    # (c) the ELL eager path on the same mesh, the overlay dropped: as many
+    # full-width float64 steps as fit in the budget, each step a call from
+    # the previous step's field
+    m = problem.mesh
+    bare = UnstructuredMesh(nodes=m.nodes, cells=m.cells,
+                            cell_tags=m.cell_tags,
+                            material_tags=dict(m.material_tags))
+    fe = make_simulate_fn_unstructured(
+        _cut(problem, mesh=bare, num_steps=1), dtype=torch.float64,
+        device=device, rtol=1e-11, maxiter=20000, record_gradient=False,
+        precondition="jacobi", solver="auto")
+    require(not fe.use_vmem and not fe.overlay, "the ELL eager path")
+    u, rows, its = None, [], []
+    t0 = time.perf_counter()
+    while (time.perf_counter() - t0 < U_ELL_BUDGET_S
+           and len(rows) < problem.num_steps):
+        ye = fe(u0=u, t0=len(rows) * problem.dt)
+        u = ye["final_u"]
+        rows.append(ye["watch"][0].cpu().numpy())
+        its.append(int(ye["cg_iters"][0]))
+    ell_s = time.perf_counter() - t0
+    we = np.asarray(rows)
+    n_ell = len(rows)
+    e_truth = np.abs(we - truth[:n_ell]).max(axis=0)
+    e_ov = np.abs(we - watch[:n_ell]).max(axis=0)
+    print(f"20c ELL eager path (float64, Jacobi, rtol 1e-11): {n_ell} steps "
+          f"in {ell_s:.2f} s, iterations {its}; max |ELL - truth| "
+          f"{e_truth.tolist()} K, |ELL - overlay run| {e_ov.tolist()} K")
+    require(n_ell >= 2 and np.isfinite(we).all(), ("ELL steps", n_ell))
+    require((e_truth <= U_ELL_TOL_K).all(), ("ELL vs truth", e_truth))
+    require((e_ov <= TRACE_TOL_K).all(), ("ELL vs overlay", e_ov))
+    res["ell"] = dict(steps=n_ell, run_s=ell_s, iters=its,
+                      max_vs_truth_K=e_truth.tolist(),
+                      max_vs_overlay_K=e_ov.tolist())
+    out["unstructured"] = res
+    return res
+
+
+def run_unstructured_sweeps(problem, device, out: dict) -> dict:
+    """Phase 20d: sweeps on the unstructured sweep mesh through
+    ``make_sweep_fn_unstructured(solver='vmem')``: K2's identity form (B =
+    256) with four lanes again at B = 4 (bitwise) and against the single
+    transient on the kernel path (K1); the r-line recording (B = 64, K2's
+    r-line and Kv-free forms); K3 (``fixed_iters``, B = 8)."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg, cuda_sweep as cs
+    from heatflow_tpu_torch.sim.unstructured import (
+        make_simulate_fn_unstructured, make_sweep_fn_unstructured)
+
+    res = {}
+    ks = np.logspace(0.0, 2.0, U_SWEEP_B)
+    fs = np.full(U_SWEEP_B, problem.fwhm)
+    fn = make_sweep_fn_unstructured(problem, dtype=torch.float32,
+                                    device=device, **U_SWEEP_RECIPE)
+    cs.reset_counters()
+    t0 = time.perf_counter()
+    tr = fn(ks, fs)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    counts = _sweep_counts()
+    tr = tr.cpu().numpy()
+    require(np.isfinite(tr).all(), "non-finite sweep lanes")
+    lanes = np.linspace(0, U_SWEEP_B - 1, U_LANES).astype(int)
+    small = fn(ks[lanes], fs[lanes]).cpu().numpy()
+    bitwise = bool(np.array_equal(small, tr[lanes]))
+    # the same lanes as single transients on the kernel path (K1, identity)
+    # against a B = 4 sweep, both to U_CLOSE: at the sweep's own rtol 1e-4
+    # wrt ||b|| two float32 solvers stop ~10 K apart (11.4 K on an H100)
+    close = make_sweep_fn_unstructured(problem, dtype=torch.float32,
+                                       device=device, **U_CLOSE)
+    pair = close(ks[lanes], fs[lanes]).cpu().numpy()
+    single = make_simulate_fn_unstructured(
+        problem, dtype=torch.float32, device=device, record_gradient=False,
+        maxiter=8000, **U_CLOSE)
+    m_idx = [nm for nm, _ in sorted(problem.mesh.material_tags.items(),
+                                    key=lambda kv: kv[1])].index("p_sample")
+    cuda_cg.reset_counters()
+    d_single = 0.0
+    for j, i in enumerate(lanes):
+        kp = np.array(problem.kappas, float)
+        kp[m_idx] = ks[i]
+        one = single(kappas=kp, fwhm=fs[i])["watch"].cpu().numpy()
+        d_single = max(d_single, float(np.abs(one - pair[j]).max()))
+    k1 = _k1_solves()
+    cfg_s = U_SWEEP_B / sweep_s
+    print(f"20d unstructured sweep ({problem.mesh.grid_overlay['shape']} "
+          f"lattice, {problem.num_steps} steps, B = {U_SWEEP_B}, Jacobi, "
+          f"rtol 1e-4 wrt b): {sweep_s:.3f} s = {cfg_s:.2f} configs/s; "
+          f"lanes {lanes.tolist()} at B = {U_LANES} bitwise: {bitwise}; at "
+          f"rtol 1e-5 wrt r0, max |lane - single transient (K1 identity, "
+          f"{k1['identity']} solves)| {d_single:.3e} K; K2 {counts}")
+    require(bitwise, "B = 4 lanes differ from the B = 256 lanes")
+    require(d_single <= TRACE_TOL_K, ("sweep lane vs single", d_single))
+    require(k1["identity"] == U_LANES * problem.num_steps, k1)
+    res["sweep"] = dict(run_s=sweep_s, configs_per_s=cfg_s,
+                        bitwise_b4=bitwise, max_vs_single_K=d_single,
+                        k2=counts, k1_identity=k1)
+
+    # the recording sweep, r-line (K2 r-line + the Kv-free projection)
+    rec = make_sweep_fn_unstructured(
+        problem, dtype=torch.float32, device=device, solver="vmem",
+        precondition="rline", rtol=1e-5, warm_start="extrapolate",
+        record_gradient=True)
+    rk, rf = ks[:: U_SWEEP_B // U_REC_B], fs[:U_REC_B]
+    cs.reset_counters()
+    t0 = time.perf_counter()
+    ry = rec(rk, rf)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    rcounts = _sweep_counts()
+    finite = all(bool(torch.isfinite(ry[k]).all())
+                 for k in ("watch", "band", "axis"))
+    print(f"20d recording sweep (B = {U_REC_B}, r-line, rtol 1e-5): "
+          f"{rec_s:.3f} s = {U_REC_B / rec_s:.2f} configs/s; finite "
+          f"{finite}; K2 r-line solves {rcounts['rline']}, Kv-free "
+          f"{rcounts['no_kv']}")
+    require(finite and rcounts["rline"] > 0 and rcounts["no_kv"] > 0,
+            ("recording sweep", finite, rcounts))
+    res["recording"] = dict(run_s=rec_s, configs_per_s=U_REC_B / rec_s,
+                            k2=rcounts)
+
+    # K3: a fixed iteration count
+    fx = make_sweep_fn_unstructured(
+        problem, dtype=torch.float32, device=device, solver="vmem",
+        fixed_iters=U_FIXED_ITERS)
+    cs.reset_counters()
+    t0 = time.perf_counter()
+    fy = fx(ks[:: U_SWEEP_B // U_FIXED_B], fs[:U_FIXED_B]).cpu().numpy()
+    torch.cuda.synchronize()
+    fixed_s = time.perf_counter() - t0
+    fcounts = _sweep_counts()
+    print(f"20d fixed_iters={U_FIXED_ITERS} sweep (B = {U_FIXED_B}): "
+          f"{fixed_s:.3f} s, finite {bool(np.isfinite(fy).all())}, K3 "
+          f"solves {fcounts['fixed']}")
+    require(np.isfinite(fy).all() and fcounts["fixed"] == problem.num_steps,
+            ("fixed sweep", fcounts))
+    res["fixed"] = dict(run_s=fixed_s, k3=fcounts)
+    out.setdefault("unstructured", {}).update(res)
+    return res
+
+
+def run_unstructured_clis(device, out: dict) -> dict:
+    """Phase 20e: the CLIs on the card: ``run2d --mesh-style unstructured
+    --rebuild-mesh`` (the overlay kernel path), ``run2d`` on the same folder
+    without its sidecar (an imported mesh: the ELL path, the step count cut
+    to 10 at the same dt), and ``sweep`` over an unstructured mesh folder
+    (``--num-points 2 2 1``)."""
+    import csv
+    import shutil
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.config import (load_config, save_config,
+                                           with_parameters)
+    from heatflow_tpu_torch.drivers import run2d, sweep
+    from heatflow_tpu_torch.drivers.sweep import mesh_folder_for_width
+    from heatflow_tpu_torch.io.csvio import read_watcher_csv
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "unstructured")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = load_config(CFG)
+    cfg["heating"]["file"] = CSV
+    paths = {"run2d": os.path.join(work, "run2d.yaml"),
+             "ell": os.path.join(work, "ell.yaml"),
+             "sweep": os.path.join(work, "sweep.yaml")}
+    save_config(cfg, paths["run2d"])
+    short = load_config(paths["run2d"])
+    dt = float(short["timing"]["t_final"]) / int(short["timing"]["num_steps"])
+    short["timing"]["num_steps"] = 10
+    short["timing"]["t_final"] = 10 * dt
+    save_config(short, paths["ell"])
+    res = {}
+
+    def run(tag, argv):
+        t0 = time.perf_counter()
+        run2d.main(argv + ["--device", str(device), "--suppress-print",
+                           "--watcher-points", "auto"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        o = argv[argv.index("--output-folder") + 1]
+        w = read_watcher_csv(os.path.join(o, "watcher_points.csv"))
+        v = np.column_stack([w["pside"], w["oside"]])
+        require(np.isfinite(v).all() and os.path.isfile(
+            os.path.join(o, "radial_gradient.csv")), (tag, "CSVs"))
+        res[tag] = dict(wall_s=secs, steps=len(v),
+                        oside_max_K=float(v[:, 1].max()))
+        return v
+
+    mesh = os.path.join(work, "mesh")
+    v_ov = run("run2d_overlay", ["--config", paths["run2d"], "--mesh-folder",
+                                 mesh, "--rebuild-mesh", "--mesh-style",
+                                 "unstructured", "--output-folder",
+                                 os.path.join(work, "out_overlay")])
+    require(os.path.isfile(os.path.join(mesh, "mesh_overlay.npz")),
+            "the overlay sidecar")
+    os.remove(os.path.join(mesh, "mesh_overlay.npz"))
+    v_ell = run("run2d_ell", ["--config", paths["ell"], "--mesh-folder",
+                              mesh, "--output-folder",
+                              os.path.join(work, "out_ell")])
+    d = float(np.abs(v_ell - v_ov[:10]).max())
+    require(d <= TRACE_TOL_K, ("ELL CLI vs overlay CLI", d))
+    res["run2d_ell"]["max_vs_overlay_K"] = d
+
+    # the sweep over an unstructured width folder (the config's own width)
+    scfg = load_config(SWEEP_CFG)
+    scfg["heating"]["file"] = CSV
+    save_config(scfg, paths["sweep"])
+    width = float(scfg["mats"]["p_sample"]["z"])
+    base = os.path.join(work, "sweep_meshes")
+    run2d._prepare_mesh(with_parameters(scfg, sample_z=width),
+                        mesh_folder_for_width(base, width), True, "auto",
+                        "unstructured")
+    sweep_out = os.path.join(work, "sweep_out")
+    t0 = time.perf_counter()
+    sweep.main(["--config", paths["sweep"], "--output-dir", sweep_out,
+                "--mesh-folder", base, "--num-points", "2", "2", "1",
+                "--width-range", str(width), str(width),
+                "--device", str(device)])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    with open(os.path.join(sweep_out, "successful_runs.csv")) as f:
+        ok_runs = list(csv.DictReader(f))
+    meta = json.load(open(os.path.join(sweep_out, "sweep_metadata.json")))
+    require(len(ok_runs) == 4 and set(meta["solver_resolved"].values())
+            == {"vmem"}, ("unstructured sweep CLI", len(ok_runs), meta))
+    for rec in ok_runs:
+        require(os.path.isfile(os.path.join(sweep_out, rec["run_name"],
+                                            "watcher_points.csv")),
+                rec["run_name"])
+    res["sweep_cli"] = dict(wall_s=sweep_s, runs=len(ok_runs))
+    print("20e CLIs: " + "; ".join(
+        f"{k} {v['wall_s']:.2f} s" for k, v in res.items())
+        + f"; ELL CLI vs overlay CLI (10 steps) max {d:.3e} K")
+    out.setdefault("unstructured", {})["clis"] = res
+    return res
+
+
+def unstructured_kernel_checks(problem, sweep_problem, device,
+                               out: dict) -> dict:
+    """Phase 20f: K1 (identity, r-line, ADI), K2 (identity, r-line,
+    Kv-free) and K3 on the 9-plane lattice operators of this path, at its
+    shapes, against their plain versions: K1 on the unstructured flagship's
+    first-step refinement system (read off the kernel's arguments), K2 and
+    K3 on 8 lanes of the unstructured sweep's 10th step (and of its
+    recording's 10th projection)."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg, cuda_sweep as cs
+    from heatflow_tpu_torch.sim.unstructured import (
+        make_simulate_fn_unstructured, make_sweep_fn_unstructured)
+
+    norm = lambda v: float(torch.linalg.vector_norm(v.double()))
+    rows = {}
+    rtol = 1e-6
+
+    def once(fn):
+        """(fn(), its milliseconds by CUDA events): one run of a plain
+        version, which takes seconds at these shapes."""
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return got, start.elapsed_time(stop)
+
+    def hold(name, x_k, x_p, x64, it_k=None, it_p=None):
+        """Kernel within 1e-4 rel-L2 of plain (or 2x plain float32's own
+        distance from float64), counts within max(3, 5 %)."""
+        rel_l2 = norm(x_k - x_p) / norm(x_p)
+        err_k, err_p = norm(x_k - x64) / norm(x64), norm(x_p - x64) / norm(x64)
+        require(rel_l2 <= max(1e-4, 2.0 * err_p), (name, rel_l2, err_p))
+        require(err_k <= max(1e-4, 1.5 * err_p), (name, err_k, err_p))
+        if it_k is not None:
+            for ik, ip in zip(np.atleast_1d(it_k.cpu().numpy()),
+                              np.atleast_1d(it_p.cpu().numpy())):
+                require(abs(int(ik) - int(ip)) <= max(3, int(0.05 * ip)),
+                        (name, int(ik), int(ip)))
+        return dict(rel_l2=rel_l2, err_vs_f64=err_k, plain_err_vs_f64=err_p,
+                    max_abs_err=float((x_k - x_p).abs().max()))
+
+    # K1: the first step's inner system of the flagship recipe
+    fn1 = make_simulate_fn_unstructured(
+        _cut(problem, num_steps=1), dtype=torch.float32, device=device,
+        **dict(U_RECIPE, precondition="adi"))
+    args, kw = _capture(cuda_cg, "cg_tol", fn1)[0]
+    A9, sm, b, x0 = (t.contiguous() for t in args[:4])
+    pcr, pcr_z = kw["pcr"], kw["pcr_z"]
+    nz, nr = b.shape
+    n = nz * nr
+    require(A9.shape[0] == 9, "the unstructured operator has 9 planes")
+    # the identity form at the tolerance its path (20d's single transients)
+    # solves to: its plain version at 1e-6 takes thousands of iterations
+    for form, fkw, tol in (("identity", {}, 1e-4),
+                           ("rline", {"pcr": pcr}, rtol),
+                           ("adi", {"pcr": pcr, "pcr_z": pcr_z}, rtol)):
+        k1 = lambda f, cast=lambda t: t: f(
+            cast(A9), cast(sm), cast(b), cast(x0), tol, maxiter=20000,
+            rtol_wrt="b", **{k: cast(v) for k, v in fkw.items()})
+        x_k, it_k = k1(cuda_cg.cg_tol)
+        (x_p, it_p), plain_ms = once(lambda: k1(cuda_cg.cg_tol_reference))
+        x64, _ = k1(cuda_cg.cg_tol_reference, lambda t: t.double())
+        r = hold(f"K1 {form}", x_k, x_p, x64, it_k, it_p)
+        its = int(it_k)
+        rows[f"cg_tol[{form},unstructured]"] = dict(
+            iters=its, plain_iters=int(it_p), rtol=tol, **r,
+            ms=cuda_ms(lambda: k1(cuda_cg.cg_tol), 3), plain_ms=plain_ms,
+            iter_bound_ms=k1_iter_bound(its, nbytes(A9, sm, *fkw.values()),
+                                        nbytes(b)),
+            **bound(nbytes(A9, sm, b, x0, b, *fkw.values()),
+                    its * n * (k1_iter_ops(bool(fkw), "pcr_z" in fkw) + 4)))
+        print(f"20f K1 {form} (9-plane {nz} x {nr}, first-step system): "
+              f"iters kernel {its} plain {int(it_p)}; rel-L2 "
+              f"{r['rel_l2']:.3e}, vs float64 kernel {r['err_vs_f64']:.3e} "
+              f"plain {r['plain_err_vs_f64']:.3e}")
+
+    # K2 / K3: 8 lanes of the sweep's 10th step
+    B = 8
+    ks = np.logspace(0.0, 2.0, B)
+    fs = np.full(B, sweep_problem.fwhm)
+    A0, Kv, dks, smb, bb, xb0 = sweep_system(sweep_problem, ks, fs, device)
+    require(A0.shape[0] == 9, "the unstructured sweep operator")
+    d64 = lambda ts: tuple(t.double() for t in ts)
+    sargs = (A0, Kv, dks, smb, bb, xb0)
+    for form, fkw in (("identity", {}), ("rline", {"rline": True})):
+        kw2 = dict(maxiter=20000, rtol_wrt="b", **fkw)
+        x_k, it_k = cs.cg_batched_tol(*sargs, rtol, **kw2)
+        (x_p, it_p), plain_ms = once(lambda: cs.cg_batched_tol_reference(
+            *sargs, rtol, **kw2))
+        x64, _ = cs.cg_batched_tol_reference(*d64(sargs), rtol, **kw2)
+        r = hold(f"K2 {form}", x_k, x_p, x64, it_k, it_p)
+        its = [int(i) for i in it_k.tolist()]
+        rows[f"cg_batched_tol[{form},unstructured]"] = dict(
+            iters=its, **r,
+            ms=cuda_ms(lambda: cs.cg_batched_tol(*sargs, rtol, **kw2), 2),
+            plain_ms=plain_ms,
+            iter_bound_ms=k2_iter_bound(its, A0, Kv, smb, bb),
+            **k2_solve_bound(*sargs, its, k2_iter_ops(bool(fkw))))
+        print(f"20f K2 {form} ({B} lanes, 9-plane {tuple(bb.shape[1:])}): "
+              f"iters kernel {its} plain {it_p.tolist()}; rel-L2 "
+              f"{r['rel_l2']:.3e}, vs float64 kernel {r['err_vs_f64']:.3e} "
+              f"plain {r['plain_err_vs_f64']:.3e}")
+    x_k = cs.cg_batched(*sargs, iters=U_FIXED_ITERS)
+    x_p, plain_ms = once(lambda: cs.cg_batched_reference(
+        *sargs, iters=U_FIXED_ITERS))
+    x64 = cs.cg_batched_reference(*d64(sargs), iters=U_FIXED_ITERS)
+    r = hold("K3", x_k, x_p, x64)
+    rows["cg_batched[fixed,unstructured]"] = dict(
+        **r, ms=cuda_ms(lambda: cs.cg_batched(*sargs, iters=U_FIXED_ITERS),
+                        3), plain_ms=plain_ms,
+        iter_bound_ms=k2_iter_bound([U_FIXED_ITERS] * B, A0, Kv, smb, bb),
+        **k2_solve_bound(*sargs, [U_FIXED_ITERS] * B, k2_iter_ops()))
+    print(f"20f K3 ({B} lanes, {U_FIXED_ITERS} iterations): rel-L2 "
+          f"{r['rel_l2']:.3e}, vs float64 kernel {r['err_vs_f64']:.3e} plain "
+          f"{r['plain_err_vs_f64']:.3e}")
+
+    # K2's Kv-free form: the recording's projection at its 10th step
+    rec = make_sweep_fn_unstructured(
+        _cut(sweep_problem, num_steps=10), dtype=torch.float32,
+        device=device, solver="vmem", precondition="rline", rtol=1e-5,
+        warm_start="extrapolate", record_gradient=True)
+    calls = [c for c in _capture(cs, "cg_batched_tol",
+                                 lambda: rec(ks, fs)) if c[0][1] is None]
+    pargs, pkw = calls[-1]
+    Mp, _, _, s_mp, br, seed = pargs[:6]
+    p_rtol = pargs[6]
+    pkw = dict(pkw)
+    x_k, it_k = cs.cg_batched_tol(Mp, None, None, s_mp, br, seed, p_rtol,
+                                  **pkw)
+    (x_p, it_p), plain_ms = once(lambda: cs.cg_batched_tol_reference(
+        Mp, None, None, s_mp, br, seed, p_rtol, **pkw))
+    x64, _ = cs.cg_batched_tol_reference(
+        *d64((Mp,)), None, None, *d64((s_mp, br, seed)), p_rtol, **pkw)
+    r = hold("K2 no_kv", x_k, x_p, x64, it_k, it_p)
+    its = [int(i) for i in it_k.tolist()]
+    rows["cg_batched_tol[no_kv,unstructured]"] = dict(
+        iters=its, **r,
+        ms=cuda_ms(lambda: cs.cg_batched_tol(Mp, None, None, s_mp, br, seed,
+                                             p_rtol, **pkw), 3),
+        plain_ms=plain_ms,
+        iter_bound_ms=k2_iter_bound(its, Mp, None, s_mp, br),
+        **k2_solve_bound(Mp, None, None, s_mp, br, seed, its,
+                         k2_iter_ops(kv=False)))
+    print(f"20f K2 Kv-free (the projection, {B} lanes): iters kernel {its} "
+          f"plain {it_p.tolist()}; rel-L2 {r['rel_l2']:.3e}")
+    out.setdefault("unstructured", {})["kernel_rows"] = rows
+    return rows
+
+
+def run_unstructured(device, out: dict) -> dict:
+    """Phase 20: set-up, (a)-(c) the flagship, (d) the sweeps, (e) the
+    CLIs, (f) the kernels against their plain versions; returns the kernel
+    rows with the launches of (a)-(e)."""
+    t0 = time.perf_counter()
+    problem, setup = build_unstructured(CFG)
+    sweep_problem, sweep_setup = build_unstructured(SWEEP_CFG)
+    print(f"20 set-up (host): flagship {setup}, sweep {sweep_setup}")
+    res = run_unstructured_flagship(problem, device, out)
+    sw = run_unstructured_sweeps(sweep_problem, device, out)
+    run_unstructured_clis(device, out)
+    rows = unstructured_kernel_checks(problem, sweep_problem, device, out)
+    k1 = {f: res["flagship"]["k1"][f] + res["adi"]["k1"][f]
+          + sw["sweep"]["k1_identity"][f] for f in ("identity", "rline",
+                                                    "adi")}
+    k2 = {f: sw["sweep"]["k2"][f] + sw["recording"]["k2"][f]
+          + sw["fixed"]["k3"][f] for f in ("identity", "rline", "no_kv",
+                                           "fixed")}
+    for name, r in rows.items():
+        form = name[name.index("[") + 1:name.index(",")]
+        r["launches"] = (k1 if name.startswith("cg_tol") else k2)[form]
+    out.setdefault("unstructured", {}).update(
+        setup=setup, sweep_setup=sweep_setup,
+        phase_s=time.perf_counter() - t0)
+    print(f"phase 20: {out['unstructured']['phase_s']:.1f} s")
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this "
@@ -3792,6 +4443,7 @@ def main() -> None:
     run_pipeline_1d(device, out)
     out["phases_17_19_s"] = time.perf_counter() - t0
     print(f"phases 17-19: {out['phases_17_19_s']:.1f} s")
+    unstructured_rows = run_unstructured(device, out)
 
     counts = out["slice"]["phase_launches"]
     solves = out["slice"]["solves"]
@@ -3873,6 +4525,14 @@ def main() -> None:
         elif name.startswith("cg_vmem["):
             kernels.append(kernel(name, SOURCE, K7_REPLACES,
                                   mg_counts["k7_solves"], r))
+    # the unstructured path's 9-plane K1, K2 and K3: launches over phase
+    # 20's runs (a)-(d), each read just after its run
+    for name, r in unstructured_rows.items():
+        k1_row = name.startswith("cg_tol")
+        kernels.append(kernel(
+            name, SOURCE if k1_row else SWEEP_SOURCE,
+            REPLACES if k1_row else K3_REPLACES if name.startswith(
+                "cg_batched[") else K2_REPLACES, r["launches"], r))
     require(all(k["launches"] > 0 for k in kernels), kernels)
     out["wall_s"] = time.perf_counter() - t_script
     print(f"chip_smoke wall time: {out['wall_s']:.1f} s")

@@ -6,9 +6,11 @@ stencils → ``Problem2D`` → backward-Euler steps solved by preconditioned CG,
 eager PyTorch on any device, for one run (``sim.stepper``) or a batch of
 coefficient-sweep configs (``sim.sweepkernel``), with solves that are
 differentiable by implicit differentiation for the gradient-based fit
-(``drivers.fit``). On an NVIDIA H100 the solves go through hand-written CUDA
-kernels (``csrc/cg_tol.cu``, ``csrc/sweep_cg.cu``, built with ``nvcc`` at
-first use). Importing the package loads no CUDA library and builds nothing.
+(``drivers.fit``). Unstructured triangle meshes (gmsh ``.msh`` or
+generated, ``sim.unstructured``) run on ELL operators, or, when their
+topology embeds in a lattice, on its 9-point stencils. On an NVIDIA H100
+the solves go through hand-written CUDA kernels (``csrc/cg_tol.cu``,
+``csrc/sweep_cg.cu``, built with ``nvcc`` at first use). Importing the package loads no CUDA library and builds nothing.
 """
 
 __version__ = "0.1.0"

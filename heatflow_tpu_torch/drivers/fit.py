@@ -90,7 +90,8 @@ def resolve_fit_solver(dtype, rtol, rtol_wrt, solver, precondition,
     the ``cg_tol`` kernel for the gradients) with 'rline'; float64 or the
     CPU → 'xla' with 'jacobi'. An explicit preconditioner the kernels lack
     ('mg', 'zline') resolves 'auto' to 'xla', as does an unstructured
-    problem. Explicit settings pass through. Returns (rtol, rtol_wrt,
+    problem (its differentiable solve is the eager ``pcg_solve``, as in the
+    JAX package). Explicit settings pass through. Returns (rtol, rtol_wrt,
     solver, precondition)."""
     f64 = dtype == torch.float64
     if rtol is None:
@@ -118,11 +119,11 @@ def experimental_objective(problem, *, dtype: torch.dtype = torch.float64,
     ``objective.batch(ks, fs)`` (B,) without autograd, and
     ``objective.residuals(k, fwhm)`` the per-point residuals. Solver
     settings default per dtype and device (:func:`resolve_fit_solver`).
-    On the card unless ``device='cpu'``."""
-    if not isinstance(problem, Problem2D):
-        raise NotImplementedError("fits over unstructured problems are not "
-                                  "ported to heatflow_tpu_torch yet "
-                                  "(ROADMAP P9)")
+    On the card unless ``device='cpu'``. A :class:`ProblemUnstructured`
+    runs its batch through ``make_sweep_fn_unstructured`` and its
+    gradients through the differentiable
+    ``make_simulate_fn_unstructured`` (on its overlay's lattice or the ELL
+    gather)."""
     device = resolve_device(device)
     rtol, rtol_wrt, solver, precondition = resolve_fit_solver(
         dtype, rtol, rtol_wrt, solver, precondition, problem, device=device)
@@ -134,6 +135,12 @@ def experimental_objective(problem, *, dtype: torch.dtype = torch.float64,
     exp_o = (shifted - shifted[0]) / (heating.temp.max() - heating.temp.min())
     exp_t = np.asarray(heating.time, float)
 
+    if not isinstance(problem, Problem2D):
+        return _unstructured_objective(
+            problem, dtype=dtype, rtol=rtol, maxiter=maxiter,
+            vary_material=vary_material, rtol_wrt=rtol_wrt, solver=solver,
+            precondition=precondition, device=device, exp_t=exp_t,
+            exp_o=exp_o)
     warm = "extrapolate" if dtype == torch.float32 else "previous"
     # one maker serves the coarse batch and the gradients: on 'vmem' its
     # one_config runs the cg_tol kernel, on 'xla' the eager pcg_solve
@@ -151,6 +158,46 @@ def experimental_objective(problem, *, dtype: torch.dtype = torch.float64,
         times, fn(ks, fs), exp_t, exp_o)
     objective.residuals = lambda k, fwhm: normalized_oside_residuals(
         times, fn.one_config(k, fwhm), exp_t, exp_o)
+    objective.device, objective.solver = device, solver
+    objective.precondition = precondition
+    return objective
+
+
+def _unstructured_objective(problem, *, dtype, rtol, maxiter, vary_material,
+                            rtol_wrt, solver, precondition, device, exp_t,
+                            exp_o):
+    """:func:`experimental_objective` on an unstructured problem, as the
+    JAX package builds it: the coarse batch on the sweep maker of the
+    resolved solver, every gradient and residual through the
+    differentiable eager transient (one ``pcg_solve`` a step)."""
+    from heatflow_tpu_torch.sim.unstructured import (
+        _material_order, make_simulate_fn_unstructured,
+        make_sweep_fn_unstructured)
+    fnb = make_sweep_fn_unstructured(
+        problem, dtype=dtype, rtol=rtol, maxiter=maxiter,
+        vary_material=vary_material, rtol_wrt=rtol_wrt, solver=solver,
+        precondition=precondition, device=device)
+    fn1 = make_simulate_fn_unstructured(
+        problem, dtype=dtype, device=device, rtol=rtol, maxiter=maxiter,
+        record_gradient=False, differentiable=True, rtol_wrt=rtol_wrt)
+    times = fnb.times
+    m_idx = _material_order(problem.mesh).index(vary_material)
+    base_k = torch.as_tensor(problem.kappas, dtype=dtype, device=device)
+    onehot = torch.zeros_like(base_k)
+    onehot[m_idx] = 1.0
+
+    def traces(k, fwhm):
+        # κ enters out of place, so gradients and tangents reach it
+        kp = base_k * (1.0 - onehot) + onehot * k
+        return fn1(kappas=kp, fwhm=fwhm)["watch"]
+
+    def objective(k, fwhm):
+        return normalized_oside_rmse(times, traces(k, fwhm), exp_t, exp_o)
+
+    objective.batch = lambda ks, fs: normalized_oside_rmse(
+        times, fnb(ks, fs), exp_t, exp_o)
+    objective.residuals = lambda k, fwhm: normalized_oside_residuals(
+        times, traces(k, fwhm), exp_t, exp_o)
     objective.device, objective.solver = device, solver
     objective.precondition = precondition
     return objective
@@ -266,6 +313,7 @@ def main(argv=None) -> FitResult:
     from heatflow_tpu_torch.config import load_config
     from heatflow_tpu_torch.drivers.run2d import _prepare_mesh, default_dtype
     from heatflow_tpu_torch.geometry import coupler_watcher_points
+    from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
     from heatflow_tpu_torch.sim.bc import HeatingCurve
     from heatflow_tpu_torch.sim.problem import build_problem
 
@@ -302,6 +350,9 @@ def main(argv=None) -> FitResult:
     cfg = load_config(args.config)
     mesh = _prepare_mesh(cfg, args.mesh_folder, args.rebuild_mesh, "auto")
     heating = HeatingCurve.from_csv(cfg["heating"]["file"])
+    if isinstance(mesh, UnstructuredMesh):
+        from heatflow_tpu_torch.sim.unstructured import \
+            build_problem_unstructured as build_problem
     problem = build_problem(mesh, heating, cfg,
                             watcher_points=coupler_watcher_points(cfg))
     res = fit_parameters(problem, k_range=tuple(args.k_range),

@@ -9,8 +9,9 @@ radial-correction source interpolated from a 2D run's radial-gradient CSV,
 and integrates with exact tridiagonal solves. Same on-disk artifacts as the
 reference: used_config.yaml, watcher_points.csv, output.xdmf.
 
-Structured meshes only: an imported non-grid ``.msh`` and
-``mesh_style='unstructured'`` (ROADMAP P9) raise.
+An unstructured 2D mesh folder (``mesh_style='unstructured'`` or an
+imported non-grid ``.msh``) gives its axis by the facet scan of the
+reference (ref run_no_diamond_1d.py:30-164).
 """
 
 from __future__ import annotations
@@ -27,10 +28,11 @@ from heatflow_tpu_torch.drivers.run2d import (_parse_watchers, _prepare_mesh,
                                               suppress_output)
 from heatflow_tpu_torch.geometry import coupler_watcher_points
 from heatflow_tpu_torch.io.csvio import write_watcher_csv
+from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
 from heatflow_tpu_torch.sim.bc import HeatingCurve
-from heatflow_tpu_torch.sim.reduced1d import (GradientTable, build_problem_1d,
-                                              extract_axis_submesh,
-                                              make_simulate_fn_1d)
+from heatflow_tpu_torch.sim.reduced1d import (
+    GradientTable, build_problem_1d, extract_axis_submesh,
+    extract_axis_submesh_unstructured, make_simulate_fn_1d)
 from heatflow_tpu_torch.utils import resolve_device
 
 
@@ -91,7 +93,12 @@ def run_1d(cfg, mesh_folder_2d, mesh_folder_1d=None, rebuild_mesh=False,
 
         mesh2d = _prepare_mesh(cfg, mesh_folder_2d, rebuild_mesh, layout,
                                mesh_style)
-        z, tags1d = extract_axis_submesh(mesh2d)
+        if isinstance(mesh2d, UnstructuredMesh):
+            # imported gmsh mesh: facet-scan axis extraction
+            z, tags1d = extract_axis_submesh_unstructured(mesh2d)
+            print(f"Found {len(tags1d)} facets on the r=0 axis")
+        else:
+            z, tags1d = extract_axis_submesh(mesh2d)
         print(f"Extracted 1D axis submesh: {len(z)} nodes, "
               f"{len(tags1d)} cells, z-range [{z.min():.6e}, {z.max():.6e}]")
         uniq, counts = np.unique(tags1d, return_counts=True)

@@ -16,8 +16,14 @@ so one driver covers the 5- and the 9-material DAC stacks. Outputs per run:
   * ``checkpoint.npz``            — final field and time, for ``--resume``
   * mesh folder: ``mesh.msh`` + ``mesh_cfg.yaml`` (with material_tags)
 
-Structured meshes only: unstructured meshes (ROADMAP P9), z-sharding (P11)
-and mesh plots (P10) are not ported yet and raise.
+``--mesh-style unstructured`` generates a graded non-grid triangulation
+(the gmsh-mesh analogue) with its grid overlay, persisted as ``mesh.msh``
+with a ``mesh_overlay.npz`` sidecar: it runs on the overlay's 9-point
+lattice operators (the CUDA kernels on a card in float32). A mesh folder
+whose ``mesh_cfg.yaml`` has no ``structured_grid`` (an imported gmsh mesh)
+runs through the unstructured path too: on the lattice when the sidecar
+exists, else on the ELL gather. z-sharding (ROADMAP P11) and mesh plots
+(P10) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -36,12 +42,17 @@ from heatflow_tpu_torch.config import (dump_yaml, load_config, save_config,
                                        validate_config)
 from heatflow_tpu_torch.geometry import build_layout, coupler_watcher_points
 from heatflow_tpu_torch.io.csvio import write_gradient_csv, write_watcher_csv
-from heatflow_tpu_torch.mesh.msh_io import write_msh
+from heatflow_tpu_torch.mesh.msh_io import (UnstructuredMesh, read_msh,
+                                            write_msh)
 from heatflow_tpu_torch.mesh.structured import (build_structured_mesh,
                                                 mesh_from_meta)
+from heatflow_tpu_torch.mesh.unstructured_gen import build_unstructured_mesh
 from heatflow_tpu_torch.sim.bc import HeatingCurve
 from heatflow_tpu_torch.sim.problem import build_problem
 from heatflow_tpu_torch.sim.stepper import _not_ported, run_transient
+from heatflow_tpu_torch.sim.unstructured import (
+    auto_selects_vmem, build_problem_unstructured,
+    make_simulate_fn_unstructured)
 from heatflow_tpu_torch.utils import resolve_device
 
 
@@ -66,20 +77,37 @@ def default_dtype(device) -> torch.dtype:
 
 def _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
                   mesh_style="structured"):
-    """Build-or-load the structured mesh, persisting/consuming mesh.msh +
-    mesh_cfg.yaml as the reference does (ref run_no_diamond.py:140-180)."""
-    if mesh_style == "unstructured":
-        raise _not_ported("mesh_style='unstructured'", "P9")
-    if mesh_style != "structured":
+    """Build-or-load the mesh, persisting/consuming mesh.msh + mesh_cfg.yaml
+    as the reference does (ref run_no_diamond.py:140-180).
+
+    mesh_style: 'structured' (the graded tensor grid) or 'unstructured' (a
+    graded non-grid triangulation, the analogue of the reference's gmsh
+    meshes, ref mesh_and_materials/mesh.py:81-149, with its grid overlay in
+    a ``mesh_overlay.npz`` sidecar). A folder without ``structured_grid`` in
+    its mesh_cfg.yaml loads as an :class:`UnstructuredMesh`."""
+    if mesh_style not in ("structured", "unstructured"):
         raise ValueError(f"unknown mesh_style {mesh_style!r}")
     mesh_cfg_path = os.path.join(mesh_folder, "mesh_cfg.yaml")
     mesh_file_path = os.path.join(mesh_folder, "mesh.msh")
+    overlay_path = os.path.join(mesh_folder, "mesh_overlay.npz")
     domain, mats = build_layout(cfg, layout)
 
     if rebuild_mesh:
         os.makedirs(mesh_folder, exist_ok=True)
-        mesh = build_structured_mesh(domain, mats)
         mesh_cfg = copy.deepcopy(cfg)
+        if mesh_style == "unstructured":
+            umesh = build_unstructured_mesh(domain, mats)
+            mesh_cfg["material_tags"] = dict(umesh.material_tags)
+            # no structured_grid key: the folder reloads through the import
+            with open(mesh_cfg_path, "w") as f:
+                f.write(dump_yaml(mesh_cfg))
+            write_msh(mesh_file_path, umesh.nodes, umesh.cells,
+                      umesh.cell_tags, umesh.material_tags)
+            np.savez(overlay_path,
+                     shape=np.asarray(umesh.grid_overlay["shape"]),
+                     index=umesh.grid_overlay["index"])
+            return umesh
+        mesh = build_structured_mesh(domain, mats)
         mesh_cfg["material_tags"] = dict(mesh.material_tags)
         mesh_cfg["structured_grid"] = mesh.to_meta()
         with open(mesh_cfg_path, "w") as f:
@@ -95,9 +123,22 @@ def _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
         raise FileNotFoundError(
             f"Missing required file(s) in {mesh_folder}: {', '.join(missing)}")
     mesh_cfg = load_config(mesh_cfg_path)
+    if mesh_style == "unstructured" and "structured_grid" in mesh_cfg:
+        raise ValueError(
+            f"{mesh_folder} holds a structured mesh but "
+            "mesh_style='unstructured' was requested; pass rebuild_mesh=True "
+            "to regenerate it")
     if "structured_grid" not in mesh_cfg:
-        raise _not_ported(f"the imported non-grid mesh in {mesh_folder} "
-                          "(the unstructured path)", "P9")
+        # an externally produced mesh (e.g. the reference's gmsh output):
+        # the unstructured path, on the lattice when the sidecar exists
+        umesh = read_msh(mesh_file_path)
+        if not umesh.material_tags:
+            umesh.material_tags = dict(mesh_cfg.get("material_tags", {}))
+        if os.path.isfile(overlay_path):
+            with np.load(overlay_path) as ov:
+                umesh.grid_overlay = {"shape": tuple(ov["shape"]),
+                                      "index": ov["index"]}
+        return umesh
     return mesh_from_meta(mesh_cfg["structured_grid"], materials=mats)
 
 
@@ -110,7 +151,8 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
                    warm_start=None, precondition=None,
                    z_shards=1, f64_refine=0, device="cuda"):
     """Run the 2D transient simulation on ``device``; see the module
-    docstring for the outputs. Returns the :class:`TransientResult`.
+    docstring for the outputs. Returns the :class:`TransientResult` (for
+    an unstructured mesh the dict of numpy traces, as the JAX driver).
 
     watcher_points: dict name -> (z, r), or list of {'name','coords'} dicts
     (same accepted forms as the reference, ref run_no_diamond.py:385-393).
@@ -138,15 +180,31 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
 
         mesh = _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
                              mesh_style)
+        unstructured = isinstance(mesh, UnstructuredMesh)
         if precondition is None:
             from heatflow_tpu_torch.utils import \
                 resolve_recording_precondition
             # will the stepper take its kernel path (the 'vmem' solver)?
-            vmem_single = solver == "vmem" or (
-                solver == "auto" and device.type == "cuda" and f32)
+            vmem_single = not unstructured and (solver == "vmem" or (
+                solver == "auto" and device.type == "cuda" and f32))
+            # the unstructured r-line engine is the overlay kernel path:
+            # the default follows what 'auto' (or 'xla') will run
+            unstructured_xla = unstructured and (
+                not auto_selects_vmem(mesh, dtype, device=device)
+                if solver == "auto" else solver == "xla")
             precondition = resolve_recording_precondition(
-                record_gradient, dtype, f64_refine=f64_refine,
+                record_gradient, dtype, unstructured_xla=unstructured_xla,
+                unstructured=unstructured, f64_refine=f64_refine,
                 vmem_single=vmem_single, rtol_wrt="r0")
+        if unstructured:
+            return _run_unstructured(
+                cfg, mesh, output_folder, watcher_points, write_xdmf,
+                dtype=dtype, rtol=rtol, maxiter=maxiter,
+                record_gradient=record_gradient, solver=solver,
+                profile_dir=profile_dir, resume_from=resume_from,
+                write_checkpoint=write_checkpoint, warm_start=warm_start,
+                precondition=precondition, f64_refine=f64_refine,
+                device=device)
         print(f"Mesh ready: {mesh.shape[0]} x {mesh.shape[1]} grid = "
               f"{mesh.num_nodes} nodes, {2 * mesh.num_cells} triangles")
 
@@ -247,6 +305,75 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
         return result
 
 
+def _run_unstructured(cfg, umesh, output_folder, watcher_points, write_xdmf,
+                      *, dtype, rtol, maxiter, record_gradient,
+                      solver="xla", profile_dir=None, resume_from=None,
+                      write_checkpoint=True, warm_start="previous",
+                      precondition="jacobi", f64_refine=0, device="cuda"):
+    """The transient on an unstructured mesh (``sim/unstructured.py``),
+    with the structured driver's artifacts and options (resume, profile,
+    checkpoint). Returns the dict of numpy traces."""
+    form = ("grid-overlay 9-point stencil"
+            if getattr(umesh, "grid_overlay", None) is not None else
+            "ELL gather")
+    print(f"Imported unstructured mesh: {len(umesh.nodes)} nodes, "
+          f"{len(umesh.cells)} triangles ({form} operator path)")
+    heating = HeatingCurve.from_csv(cfg["heating"]["file"])
+    if isinstance(watcher_points, list):
+        watcher_points = {pt["name"]: tuple(pt["coords"])
+                          for pt in watcher_points}
+    problem = build_problem_unstructured(umesh, heating, cfg,
+                                         watcher_points=watcher_points)
+    u0, t0 = None, 0.0
+    if resume_from is not None:
+        from heatflow_tpu_torch.io.checkpoint import load_checkpoint
+        u0, t0, step0, _ = load_checkpoint(resume_from)
+        print(f"Resuming from checkpoint at t={t0:.4e} s"
+              + (f" (step {step0})" if step0 is not None else ""))
+
+    fn = make_simulate_fn_unstructured(
+        problem, dtype=dtype, device=device, rtol=rtol, maxiter=maxiter,
+        rtol_wrt="r0", record_gradient=record_gradient,
+        record_fields=write_xdmf, solver=solver, warm_start=warm_start,
+        precondition=precondition, f64_refine=f64_refine)
+    t_loop = time.time()
+    from heatflow_tpu_torch.utils import profile_trace
+    with profile_trace(profile_dir):
+        ys = {k: v.cpu().numpy() for k, v in fn(u0=u0, t0=t0).items()}
+    loop = time.time() - t_loop
+
+    save_folder = output_folder or os.path.join(os.getcwd(), "sim_outputs",
+                                                "unstructured_run")
+    os.makedirs(save_folder, exist_ok=True)
+    save_config(cfg, os.path.join(save_folder, "used_config.yaml"))
+    if watcher_points:
+        write_watcher_csv(os.path.join(save_folder, "watcher_points.csv"),
+                          ys["times"],
+                          {n: ys["watch"][:, k]
+                           for k, n in enumerate(problem.watcher_names)})
+    if record_gradient and "band" in ys:
+        write_gradient_csv(os.path.join(save_folder, "radial_gradient.csv"),
+                           ys["times"], problem.bin_centers, ys["band"])
+        write_gradient_csv(
+            os.path.join(save_folder, "radial_gradient_raw.csv"),
+            ys["times"], problem.axis_z, ys["axis"])
+    if write_xdmf:
+        from heatflow_tpu_torch.io.xdmfio import XDMFTimeSeriesWriter
+        w = XDMFTimeSeriesWriter(os.path.join(save_folder, "output.xdmf"),
+                                 umesh.nodes, umesh.cells)
+        w.write(np.full(len(umesh.nodes), problem.ic_temp), 0.0)
+        for s, t in enumerate(ys["times"]):
+            w.write(ys["field"][s], float(t))
+        w.close()
+    if write_checkpoint:
+        from heatflow_tpu_torch.io.checkpoint import save_checkpoint
+        save_checkpoint(save_folder, ys["final_u"], float(ys["times"][-1]),
+                        step=problem.num_steps)
+    print(f"Loop time: {loop:.2f} s (includes the kernels' first build); "
+          f"CG iters mean {np.asarray(ys['cg_iters']).mean():.1f}")
+    return ys
+
+
 def _parse_watchers(text: str) -> dict:
     """A mapping name -> [z, r] given as YAML (when PyYAML is installed) or
     JSON."""
@@ -280,7 +407,9 @@ def main(argv=None):
                         "[zmin,zmax,rmin,rmax]")
     p.add_argument("--mesh-style", choices=["structured", "unstructured"],
                    default="structured",
-                   help="'unstructured' is not ported yet (ROADMAP P9)")
+                   help="'unstructured': graded non-grid triangulation "
+                        "(the gmsh-mesh analogue) on its 9-point lattice "
+                        "operators")
     p.add_argument("--solver", choices=["xla", "vmem", "auto"],
                    default="auto",
                    help="'vmem': the hand-written CUDA PCG kernel; 'xla': "

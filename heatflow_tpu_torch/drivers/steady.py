@@ -23,6 +23,7 @@ from heatflow_tpu_torch.drivers.run2d import _prepare_mesh, default_dtype
 from heatflow_tpu_torch.geometry import coupler_watcher_points
 from heatflow_tpu_torch.io.csvio import write_watcher_csv
 from heatflow_tpu_torch.io.xdmfio import XDMFTimeSeriesWriter
+from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
 from heatflow_tpu_torch.sim.bc import HeatingCurve
 from heatflow_tpu_torch.sim.problem import build_problem
 from heatflow_tpu_torch.sim.steady import solve_steady, steady_heating_values
@@ -40,6 +41,11 @@ def run_steady(cfg, mesh_folder, *, rebuild_mesh=False, output_folder=None,
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     mesh = _prepare_mesh(cfg, mesh_folder, rebuild_mesh, "auto")
+    if isinstance(mesh, UnstructuredMesh):
+        # as the JAX driver: the steady workflow runs on structured meshes
+        # (solve_steady_unstructured is the library call for the others)
+        raise ValueError("run_steady requires a structured mesh; rebuild "
+                         "with rebuild_mesh=True")
     heating = HeatingCurve.from_csv(cfg["heating"]["file"])
     problem = build_problem(mesh, heating, cfg,
                             watcher_points=watcher_points)

@@ -8,7 +8,10 @@ Grid: FWHM (log-spaced) x sample conductivity (log-spaced) x sample width
 (linear). Width changes the geometry, so runs are grouped by width with one
 mesh per group (ref :367-373); within a group the (fwhm, k) plane runs as
 batches of concurrent transients on one device (the batched CUDA kernels on
-a card, their plain versions on the CPU).
+a card, their plain versions on the CPU). A width's mesh folder that holds
+an unstructured mesh (no ``structured_grid`` in its mesh_cfg.yaml) runs
+through ``make_sweep_fn_unstructured``: the batched kernels on the 9-point
+lattice of its grid overlay, else the eager batched PCG on the ELL gather.
 
 Artifacts match the reference: sweep_metadata.json, successful_runs.csv,
 failed_runs.csv, per-run directories named fwhm_{:.2e}_k_{:.2f}_width_{:.2e}
@@ -39,10 +42,14 @@ from heatflow_tpu_torch.drivers.run2d import (_not_ported, _prepare_mesh,
 from heatflow_tpu_torch.geometry import coupler_watcher_points
 from heatflow_tpu_torch.io.csvio import (write_gradient_csv, write_rows,
                                          write_watcher_csv)
+from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
 from heatflow_tpu_torch.sim.bc import HeatingCurve
 from heatflow_tpu_torch.sim.problem import build_problem
 from heatflow_tpu_torch.sim.sweepkernel import (make_sweep_fn,
                                                 make_sweep_fn_recording)
+from heatflow_tpu_torch.sim.unstructured import (build_problem_unstructured,
+                                                 make_sweep_fn_unstructured,
+                                                 sweep_auto_selects_vmem)
 from heatflow_tpu_torch.utils import resolve_device
 
 
@@ -112,8 +119,10 @@ def _cached_group(cfg_w, mesh_folder):
                                                    "mesh_cfg.yaml")))
     mesh_w = _prepare_mesh(cfg_w, mesh_folder, rebuild, "auto")
     heating = HeatingCurve.from_csv(cfg_w["heating"]["file"])
-    problem = build_problem(mesh_w, heating, cfg_w,
-                            watcher_points=coupler_watcher_points(cfg_w))
+    build = (build_problem_unstructured
+             if isinstance(mesh_w, UnstructuredMesh) else build_problem)
+    problem = build(mesh_w, heating, cfg_w,
+                    watcher_points=coupler_watcher_points(cfg_w))
     entry = (mesh_w, problem, heating)
     _GROUP_CACHE[key] = (entry, _group_sigs(cfg_w, mesh_folder))
     while len(_GROUP_CACHE) > _GROUP_CACHE_MAX:
@@ -122,17 +131,22 @@ def _cached_group(cfg_w, mesh_folder):
 
 
 def _resolve_solver(solver, *, dtype, device, precondition, f64_refine,
-                    record_gradient):
+                    record_gradient, mesh_w=None):
     """'auto' → 'vmem' (the batched CUDA kernels: Jacobi, r-line, ADI and
     adaptive) for float32 on a CUDA device and for plain f64_refine sweeps
     (the only engine that refines without recording), 'xla' (the eager
-    batched PCG) otherwise, and for a preconditioner the kernels lack."""
+    batched PCG) otherwise, and for a preconditioner the kernels lack. An
+    unstructured mesh takes the kernels only through its grid overlay
+    (``sweep_auto_selects_vmem``)."""
     if solver != "auto":
         return solver
     if precondition in ("mg", "zline"):
         return "xla"
     if f64_refine and not record_gradient:
         return "vmem"
+    if isinstance(mesh_w, UnstructuredMesh):
+        return ("vmem" if sweep_auto_selects_vmem(mesh_w, dtype, device)
+                else "xla")
     return ("vmem" if device.type == "cuda" and dtype == torch.float32
             else "xla")
 
@@ -307,13 +321,28 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
             # fwhm/k are runtime batch arguments relative to the problem's
             # base values, so the group cache does not depend on the ranges
             cfg_w = with_parameters(base_config, sample_z=width)
-            _mesh_w, problem, _heating = _cached_group(cfg_w, mesh_folder)
+            mesh_w, problem, _heating = _cached_group(cfg_w, mesh_folder)
             solver_w = _resolve_solver(solver, dtype=dtype, device=device,
                                        precondition=precondition,
                                        f64_refine=f64_refine,
-                                       record_gradient=record_gradient)
+                                       record_gradient=record_gradient,
+                                       mesh_w=mesh_w)
             solver_resolved[f"{width:.6e}"] = solver_w
-            if record_gradient:
+            if isinstance(mesh_w, UnstructuredMesh):
+                # an imported or generated non-grid mesh: the unstructured
+                # sweep maker (the batched kernels on an overlay's lattice)
+                prec_u = precondition
+                if prec_u == "rline" and solver_w == "xla" \
+                        and prec_defaulted:
+                    # the unstructured r-line path is the overlay kernel
+                    # path: a defaulted 'rline' falls back to 'jacobi'
+                    prec_u = "jacobi"
+                sweep_fn = make_sweep_fn_unstructured(
+                    problem, dtype=dtype, fixed_iters=fixed_iters,
+                    warm_start=warm_start, solver=solver_w,
+                    record_gradient=record_gradient, f64_refine=f64_refine,
+                    precondition=prec_u, device=device, **rec_rtol)
+            elif record_gradient:
                 # every run also gets the reference's gradient CSVs (ref
                 # run_no_diamond.py:602-617 under parameter_sweep.py:157-166)
                 sweep_fn = make_sweep_fn_recording(

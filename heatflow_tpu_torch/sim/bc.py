@@ -69,6 +69,44 @@ def structured_row_mask(z: np.ndarray, r: np.ndarray, location: str, *,
     raise ValueError(f"unknown BC location {location!r}")
 
 
+def node_row_mask(nodes: np.ndarray, location: str, *,
+                  coord: float | None = None, center: float | None = None,
+                  length: float | None = None,
+                  width: float = DEFAULT_WIDTH) -> np.ndarray:
+    """(N,) boolean mask over arbitrary (z, r) node arrays — the unstructured
+    counterpart of :func:`structured_row_mask`, matching RowDirichletBC's
+    geometric predicates verbatim (ref bc.py:56-101)."""
+    z, r = nodes[:, 0], nodes[:, 1]
+    zmin, zmax = z.min(), z.max()
+    rmin, rmax = r.min(), r.max()
+    zmid, rmid = 0.5 * (zmin + zmax), 0.5 * (rmin + rmax)
+
+    if location == "left":
+        return _close(z, zmin, width) & _centred(r, rmid, length)
+    if location == "right":
+        return _close(z, zmax, width) & _centred(r, rmid, length)
+    if location == "bottom":
+        return _close(r, rmin, width) & _centred(z, zmid, length)
+    if location == "top":
+        return _close(r, rmax, width) & _centred(z, zmid, length)
+    if location == "outer":
+        out = np.zeros(len(nodes), bool)
+        for loc in ("left", "right", "bottom", "top"):
+            out |= node_row_mask(nodes, loc, length=length, width=width)
+        return out
+    if location == "x":
+        if coord is None:
+            raise ValueError("coord required for location='x'")
+        ctr = zmid if center is None else center  # reference quirk, bc.py:47
+        return _close(z, float(coord), width) & _centred(r, ctr, length)
+    if location == "y":
+        if coord is None:
+            raise ValueError("coord required for location='y'")
+        ctr = rmid if center is None else center
+        return _close(r, float(coord), width) & _centred(z, ctr, length)
+    raise ValueError(f"unknown BC location {location!r}")
+
+
 _POW10 = [float(f"1e{k}") for k in range(309)]
 _NUMBER = re.compile(r"\s*([-+]?)(\d*)(?:\.(\d*))?(?:[eE]([-+]?\d+))?\s*")
 
@@ -158,3 +196,28 @@ class HeatingCurve:
         (ref run_no_diamond.py:299-301)."""
         return float(self.temp[0]) - float(ic_temp)
 
+
+
+def gaussian_coeff(fwhm):
+    """-4 ln2 / FWHM² (ref run_no_diamond.py:304)."""
+    return -4.0 * np.log(2.0) / (fwhm ** 2)
+
+
+def describe_row_bcs(masks: dict[str, np.ndarray], nodes: np.ndarray, *,
+                     label: str = "Row BC") -> list[str]:
+    """Print coordinate bounds for each named BC mask — the debugging helper
+    of ref bc.py:152-174. ``masks``: name -> (N,) or (Nz, Nr) boolean;
+    ``nodes``: (N, 2) coordinates. Returns the printed lines."""
+    lines = []
+    for k, (name, mask) in enumerate(masks.items()):
+        sel = nodes[np.asarray(mask).ravel().astype(bool)]
+        if sel.size == 0:
+            line = f"{label} #{k} ({name}): no DOFs"
+        else:
+            line = (f"{label} #{k} ({name}): "
+                    f"x in [{sel[:, 0].min():.3e}, {sel[:, 0].max():.3e}]  "
+                    f"y in [{sel[:, 1].min():.3e}, {sel[:, 1].max():.3e}]  "
+                    f"(n = {len(sel)} DOFs)")
+        print(line)
+        lines.append(line)
+    return lines

@@ -384,10 +384,20 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
     refinement passes around the float32 kernel solve, fields in float64.
 
     Memoized on ``problem.extras`` keyed by every argument; mutating the
-    problem afterwards does not invalidate the cache.
+    problem afterwards does not invalidate the cache. An unstructured
+    problem goes to ``sim.unstructured.make_sweep_fn_unstructured``
+    ('jacobi', 'rline' or 'adi' on 'vmem', 'jacobi' on 'xla'; no
+    ``one_config``).
     """
     if not isinstance(problem, Problem2D):
-        raise _not_ported("sweeps over unstructured problems", "P9")
+        from heatflow_tpu_torch.sim.unstructured import \
+            make_sweep_fn_unstructured
+        return make_sweep_fn_unstructured(
+            problem, vary_material=vary_material, dtype=dtype, rtol=rtol,
+            maxiter=maxiter, fixed_iters=fixed_iters, warm_start=warm_start,
+            solver=solver, num_steps=num_steps, mesh=mesh,
+            rtol_wrt=rtol_wrt, precondition=precondition,
+            f64_refine=f64_refine, device=device)
     if f64_refine:
         rtol_wrt = "b"   # the refined inner solves stop wrt their own rhs
     device = resolve_device(device)
@@ -691,7 +701,10 @@ def make_sweep_fn_recording(problem: Problem2D, *,
     (their plain versions on the CPU); ``'jacobi'``, ``'rline'``, ``'adi'``
     or ``'adaptive'``. ``solver='xla'``: the eager stepper once per lane.
 
-    Memoized on ``problem.extras`` keyed by every argument.
+    Memoized on ``problem.extras`` keyed by every argument. An
+    unstructured problem goes to the recording form of
+    ``sim.unstructured.make_sweep_fn_unstructured``, whose projection
+    stops at the defaults.
     """
     if f64_refine:
         rtol_wrt = "b"   # no effect on the refined inner solves
@@ -703,8 +716,20 @@ def make_sweep_fn_recording(problem: Problem2D, *,
     if cache_key in cache:
         return cache[cache_key]
     if not isinstance(problem, Problem2D):
-        raise _not_ported("recording sweeps over unstructured problems",
-                          "P9")
+        # the unstructured maker's projection: 1e-11 ('xla': ``rtol``), 400
+        if (proj_rtol, proj_maxiter) != (1e-11, 400):
+            raise ValueError("unstructured recording sweeps take the "
+                             "default projection tolerance")
+        from heatflow_tpu_torch.sim.unstructured import \
+            make_sweep_fn_unstructured
+        simulate_batch = make_sweep_fn_unstructured(
+            problem, vary_material=vary_material, dtype=dtype, rtol=rtol,
+            maxiter=maxiter, fixed_iters=fixed_iters, warm_start=warm_start,
+            solver=solver, record_gradient=True, mesh=mesh,
+            rtol_wrt=rtol_wrt, precondition=precondition,
+            f64_refine=f64_refine, device=device)
+        cache[cache_key] = simulate_batch
+        return simulate_batch
     if problem.radial is None:
         raise ValueError("gradient-recording sweeps need radial sampling "
                          "on the problem")
@@ -756,11 +781,14 @@ def run_sweep_time_chunked(problem: Problem2D, sample_k, fwhm, *,
     ``warm_start='extrapolate'`` is exact across chunk boundaries: each
     chunk's penultimate field enters the next, so the chunked trajectory
     equals the unchunked one bitwise. ``iters_out``, a list, receives each
-    step's (B,) CG iteration counts."""
-    if not isinstance(problem, Problem2D):
-        raise _not_ported("sweeps over unstructured problems", "P9")
+    step's (B,) CG iteration counts. An unstructured problem chunks through
+    its overlay's lattice on the batched kernels (``solver='vmem'``)."""
     total = int(problem.num_steps)
     chunk_len = balanced_chunk_len(total, step_chunk)
+    if not isinstance(problem, Problem2D) and solver != "vmem":
+        # overlay meshes chunk through the shared kernel scan
+        raise ValueError("time-chunked unstructured sweeps run through "
+                         "solver='vmem' (grid-overlay meshes)")
     fn = make_sweep_fn(problem, dtype=dtype, fixed_iters=fixed_iters,
                        rtol=rtol, maxiter=maxiter, precondition=precondition,
                        num_steps=chunk_len, mesh=mesh, solver=solver,

@@ -231,7 +231,8 @@ def test_sweep_records_failed_runs(cfg, tmp_path):
 
 @pytest.mark.parametrize("call, match", [
     (lambda c, p: trun.run_simulation(c, p, True, mesh_style="unstructured",
-                                      device="cpu"), "ROADMAP P9"),
+                                      z_shards=2, device="cpu"),
+     "ROADMAP P11"),
     (lambda c, p: trun.run_simulation(c, p, True, z_shards=2,
                                       device="cpu"), "ROADMAP P11"),
     (lambda c, p: trun.run_simulation(c, p, True, visualize_mesh=True,
@@ -246,10 +247,26 @@ def test_unported_driver_options_raise(cfg, tmp_path, call, match):
 
 
 def test_imported_mesh_and_missing_card_raise(cfg, tmp_path):
+    """A folder without ``structured_grid`` imports through the unstructured
+    path: a gmsh mesh runs (the ELL gather, no sidecar), an empty file is
+    no mesh."""
+    from heatflow_tpu_torch.mesh.msh_io import write_msh
+    from heatflow_tpu_torch.mesh.unstructured_gen import \
+        build_unstructured_mesh
+    um = build_unstructured_mesh(*trun.build_layout(cfg), seed=2)
+    os.makedirs(tmp_path / "g")
+    write_msh(str(tmp_path / "g" / "mesh.msh"), um.nodes, um.cells,
+              um.cell_tags, um.material_tags)
+    open(tmp_path / "g" / "mesh_cfg.yaml", "w").write("timing: {}\n")
+    ys = trun.run_simulation(cfg, str(tmp_path / "g"), device="cpu",
+                             output_folder=str(tmp_path / "go"),
+                             watcher_points=coupler_watcher_points(cfg),
+                             write_xdmf=False, suppress_print=True)
+    assert ys["watch"].shape == (3, 2) and np.isfinite(ys["watch"]).all()
     os.makedirs(tmp_path / "m")
     open(tmp_path / "m" / "mesh.msh", "w").close()
     open(tmp_path / "m" / "mesh_cfg.yaml", "w").write("material_tags: {}\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP P9"):
+    with pytest.raises(ValueError, match="MeshFormat"):
         trun.run_simulation(cfg, str(tmp_path / "m"), device="cpu")
     with pytest.raises(FileNotFoundError, match="mesh_cfg.yaml"):
         trun.run_simulation(cfg, str(tmp_path / "none"), device="cpu")
@@ -504,14 +521,27 @@ def test_find_gradient_csv_order_matches_jax(tmp_path, monkeypatch):
 
 def test_run_1d_defaults_to_the_card_and_unported_meshes_raise(pipeline,
                                                                tmp_path):
+    """An unstructured 2D mesh gives the 1D model its axis by the facet
+    scan (as many nodes as the structured mesh of the same stack, its z
+    jittered); an empty imported file is no mesh; without a card the
+    default raises."""
     c, mesh_folder, _, _, wp = pipeline
-    with pytest.raises(NotImplementedError, match="ROADMAP P9"):
-        trun1d.run_1d(c, str(tmp_path / "u"), rebuild_mesh=True,
-                      mesh_style="unstructured", device="cpu")
+    pu, yu = trun1d.run_1d(c, str(tmp_path / "u"), rebuild_mesh=True,
+                           mesh_style="unstructured", device="cpu",
+                           use_radial_correction=False, watcher_points=wp,
+                           output_folder=str(tmp_path / "ou"),
+                           write_xdmf=False, suppress_print=True)
+    ps, ys = trun1d.run_1d(c, mesh_folder, device="cpu", watcher_points=wp,
+                           use_radial_correction=False, write_xdmf=False,
+                           output_folder=str(tmp_path / "os"),
+                           suppress_print=True)
+    assert len(pu.z) == len(ps.z) and not np.array_equal(pu.z, ps.z)
+    assert yu["watch"].shape == ys["watch"].shape
+    assert np.isfinite(yu["watch"]).all()
     os.makedirs(tmp_path / "m")
     open(tmp_path / "m" / "mesh.msh", "w").close()
     open(tmp_path / "m" / "mesh_cfg.yaml", "w").write("material_tags: {}\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP P9"):
+    with pytest.raises(ValueError, match="MeshFormat"):
         trun1d.run_1d(c, str(tmp_path / "m"), device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")

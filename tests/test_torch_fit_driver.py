@@ -168,9 +168,48 @@ def test_resolve_fit_solver_rule():
         (1e-6, "b", "vmem", "adi")
 
 
-def test_unstructured_fit_raises():
-    with pytest.raises(NotImplementedError, match="P9"):
-        tfit.experimental_objective(object(), device="cpu")
+def test_unstructured_fit_raises(fit_pair):
+    """An unstructured problem fits: its objective and gradient against
+    the JAX package's (the batch on the eager sweep, the gradients through
+    the differentiable eager transient); a heating curve without an
+    'oside' column still raises."""
+    import dataclasses
+    from heatflow_tpu.mesh.unstructured_gen import build_unstructured_mesh
+    from heatflow_tpu.sim.unstructured import build_problem_unstructured as jb
+    from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
+    from heatflow_tpu_torch.sim.unstructured import \
+        build_problem_unstructured as tb
+    pj, pt = fit_pair
+    cfg = tiny_no_diamond_cfg(coarse=3.0)
+    cfg["timing"]["num_steps"] = 5
+    m = build_unstructured_mesh(*J.build_layout(cfg), seed=4)
+    h = pj.heating
+    uj = jb(m, JHeating(time=h.time, temp=h.temp, oside=h.oside), cfg,
+            watcher_points=j_watch(cfg))
+    ut = tb(UnstructuredMesh(nodes=m.nodes, cells=m.cells,
+                             cell_tags=m.cell_tags,
+                             material_tags=dict(m.material_tags),
+                             grid_overlay=dict(m.grid_overlay)),
+            THeating(time=h.time, temp=h.temp, oside=h.oside), cfg,
+            watcher_points=t_watch(cfg))
+    oj = jfit.experimental_objective(uj)
+    ot = tfit.experimental_objective(ut, device="cpu")
+    assert ot.solver == "xla" and ot.precondition == "jacobi"
+    vj, gj = jax.value_and_grad(oj, argnums=(0, 1))(4.0, 6e-6)
+    k = torch.tensor(4.0, dtype=torch.float64, requires_grad=True)
+    f = torch.tensor(6e-6, dtype=torch.float64, requires_grad=True)
+    vt = ot(k, f)
+    vt.backward()
+    assert _rel(float(vt.detach()), float(vj)) <= FIT_TOL
+    assert _rel(float(k.grad), float(gj[0])) <= FIT_TOL
+    assert _rel(float(f.grad), float(gj[1])) <= FIT_TOL
+    ks, fs = np.array([2.0, 5.0]), np.array([5e-6, 7e-6])
+    assert _rel(ot.batch(ks, fs).numpy(), oj.batch(jnp.asarray(ks),
+                                                   jnp.asarray(fs))) <= FIT_TOL
+    with pytest.raises(ValueError, match="oside"):
+        tfit.experimental_objective(dataclasses.replace(
+            ut, heating=THeating(time=h.time, temp=h.temp), extras={}),
+            device="cpu")
 
 
 def test_fit_cli_prints_best_fit(tmp_path, monkeypatch, capsys):

@@ -365,11 +365,13 @@ def test_mg_one_config_matches_the_batch_and_jax(pair):
 
 
 def test_unported_paths_raise(pair):
+    """Sharded sweeps (``mesh=``) are ROADMAP P11; unstructured problems,
+    P9, go to their own maker (tests/test_torch_unstructured.py)."""
     _, pt = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP P9"):
-        tsw.run_sweep_time_chunked(object(), KS, FS, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP P9"):
-        tsw.make_sweep_fn(object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP P11"):
+        tsw.run_sweep_time_chunked(pt, KS, FS, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP P11"):
+        tsw.make_sweep_fn(pt, mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("kw, match", [
