@@ -193,7 +193,18 @@ Phases (each raises on failure; nothing is caught):
    width folder; (f) K1 (identity, r-line, ADI) on the flagship's
    first-step inner system and K2 (identity, r-line, Kv-free) and K3 on 8
    lanes of the sweep's 10th step, all 9-plane, against their plain
-   versions and float64.
+   versions and float64;
+21. the analysis pipeline (ROADMAP P10) and the native set-up (P12) on
+   phase 19's 2D run: (a) ``analyze_split_normal_fits`` ('rmse' and
+   'maxerr') on the card against the same call on the CPU (the bounds of
+   ``tests/test_torch_analysis_splitnormal.py``, ``fits_agree``), timed on
+   each; (b) the full and amplitude-only fitted curves written as gradient
+   CSVs and ``run1d`` on the card with each as ``--radial-gradient-path``
+   (finite traces, their distance from phase 19's raw-gradient run);
+   (c) the split-normal CLI (and, where matplotlib is installed, the
+   radial CLI and a mesh plot) with every save flag, every file written;
+   (d) ``assemble_stencils`` at the flagship and sweep shapes, 'native'
+   (g++, host) against 'numpy', every plane within 1e-13 of its max abs.
 Phase 10 also holds its recording run (watch, band, axis), and the same
 rows from a run with two float64 refinement passes, to
 ``benchmarks/.flagship_truth_recording.npz``.
@@ -582,18 +593,34 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
                                 it_k, nbytes(A32, sm32, *stacks.values()),
                                 nbytes(b32)))
         print(f"solve {form}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        # in-solve: one more solve under the profiler, by kernel
-        prof = kernel_profile(
-            lambda: cuda_cg.cg_tol(A32, sm32, b32, x0, rtol, **kw))
-        k1 = k1_kernels(prof)
+        # in-solve: one more solve under the profiler, by kernel. The loop
+        # body launches k_stencil_dot once an iteration: a profile holding
+        # fewer missed the graph's body (the profiler does, now and then)
+        # and is taken again, at most twice; past that the in-solve times
+        # are not measured (None), and no check reads them
+        for attempt in range(1, 4):
+            prof = kernel_profile(
+                lambda: cuda_cg.cg_tol(A32, sm32, b32, x0, rtol, **kw))
+            k1 = k1_kernels(prof)
+            seen = k1.get("k_stencil_dot", (0.0, 0))[1]
+            if seen >= it_k:
+                break
+            print(f"solve {form} in-solve: the profile holds {seen} of "
+                  f"{it_k} k_stencil_dot launches (attempt {attempt} of 3)")
         launched = sum(c for name, (_, c) in k1.items()
                        if name not in ("k_init", "k_finish"))
+        traced = seen >= it_k
         solves[form].update(
-            in_solve_us={name: us / c for name, (us, c) in k1.items()},
+            in_solve_us={name: us / c for name, (us, c) in k1.items()}
+            if traced else None,
             in_solve_calls={name: c for name, (_, c) in k1.items()},
             us_per_iter=prof["span_us"] / it_k,
             launches_per_iter=launched / it_k,
             busy_pct=100 * prof["busy_us"] / prof["span_us"])
+        if not traced:
+            print(f"solve {form} in-solve: not measured (the profiler saw "
+                  f"no full loop body)")
+            continue
         print(f"solve {form} in-solve: {prof['span_us'] / it_k:.2f} us an "
               f"iteration, {launched / it_k:.3f} launches an iteration "
               f"(with the no-op tail of the last block), device busy "
@@ -602,17 +629,20 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
                           for name, (us, c) in sorted(k1.items())))
     # the phase rows' in-solve times: their kernels in the r-line and ADI
     # solves (the ADI row: its row kernel and its z-line kernel)
-    rl, adi = solves["rline"]["in_solve_us"], solves["adi"]["in_solve_us"]
-    in_solve = {"cg_tol.stencil_dot": rl.get("k_stencil_dot"),
-                "cg_tol.pcr_r": rl.get("k_row_plain"),
-                "cg_tol.pcr_z_adi": adi.get("k_pcr_z"),
-                "cg_tol.update_pcr_r": rl.get("k_row_update"),
-                "cg_tol.update_pcr_adi": adi.get("k_row_update", 0.0)
-                + adi.get("k_pcr_z", 0.0)}
+    in_solve = {"cg_tol.stencil_dot": ("rline", "k_stencil_dot"),
+                "cg_tol.pcr_r": ("rline", "k_row_plain"),
+                "cg_tol.pcr_z_adi": ("adi", "k_pcr_z"),
+                "cg_tol.update_pcr_r": ("rline", "k_row_update"),
+                "cg_tol.update_pcr_adi": ("adi", "k_row_update", "k_pcr_z")}
     for row in rows:
-        row["in_solve_ms"] = in_solve[row["name"]] / 1e3
-        print(f"phase {row['name']}: in-solve {row['in_solve_ms']:.4f} ms "
-              f"(bound {row['bound_ms']:.4f} ms)")
+        form, *names = in_solve[row["name"]]
+        us = solves[form]["in_solve_us"]
+        row["in_solve_ms"] = (None if us is None
+                              else sum(us[n] for n in names) / 1e3)
+        print(f"phase {row['name']}: in-solve "
+              + ("not measured" if us is None
+                 else f"{row['in_solve_ms']:.4f} ms")
+              + f" (bound {row['bound_ms']:.4f} ms)")
     stats = cuda_cg.graph_stats()
     print("graphs: " + ", ".join(
         f"{form} {v['launches_per_iteration']:.3f} launches an iteration, "
@@ -4335,6 +4365,223 @@ def run_unstructured(device, out: dict) -> dict:
     return rows
 
 
+# ----------------------------------------------------------------------
+# Phase 21: the analysis pipeline (P10) and the native set-up (P12)
+# ----------------------------------------------------------------------
+
+# the bounds of tests/test_torch_analysis_splitnormal.py: a row whose fit
+# explains the data (R² >= FIT_R2_MIN on the CPU) holds its parameters
+# within FIT_PARAM_RTOL (amplitude of itself, offset of |amplitude| +
+# |offset|, center and sigmas of the radial span) and its RMSE within
+# FIT_ERR_RTOL; the minimax polish's max error within FIT_MAXERR_RTOL (its
+# coordinate search takes other probes on last-bit differences); a noise-like
+# row (R² below FIT_R2_MIN) its error within FIT_NOISE_RTOL, each device's
+# error that of its own parameters
+FIT_PARAM_RTOL = 1e-6
+FIT_ERR_RTOL = 1e-8
+FIT_MAXERR_RTOL = 1e-4
+FIT_NOISE_RTOL = 1e-2
+FIT_R2_MIN = 0.5
+NATIVE_TOL = 1e-13     # each plane, of its max abs (tests/test_native.py)
+FIT_KEYS = ("amplitudes", "centers", "sigma_lefts", "sigma_rights",
+            "offsets")
+
+
+def fits_agree(got: dict, want: dict, r, grid, method: str) -> dict:
+    """Hold the card's fits (``got``) to the CPU's (``want``) row by row
+    with the bounds above; returns the largest differences by row class."""
+    import numpy as np
+    from heatflow_tpu_torch.analysis.splitnormal import split_normal_function
+    span = float(np.ptp(r))
+    worst = dict(param=0.0, err=0.0, noise_err=0.0, determined=0, noise=0)
+    for i, row in enumerate(grid):
+        pg = np.array([got[k][i] for k in FIT_KEYS])
+        pw = np.array([want[k][i] for k in FIT_KEYS])
+        eg, ew = float(got["rmse_values"][i]), float(want["rmse_values"][i])
+        resid = np.abs(row - split_normal_function(r, *pg))
+        own = resid.max() if method == "maxerr" else np.sqrt(
+            np.mean(resid ** 2))
+        require(abs(eg - own) <= 1e-12 * max(own, 1e-300),
+                ("fit error is not its parameters'", method, i, eg, own))
+        derr = abs(eg - ew) / max(abs(ew), 1e-300)
+        if want["r_squared_values"][i] < FIT_R2_MIN:
+            worst["noise"] += 1
+            worst["noise_err"] = max(worst["noise_err"], derr)
+            require(derr <= FIT_NOISE_RTOL, ("noise row", method, i, eg, ew))
+            continue
+        worst["determined"] += 1
+        scale = np.array([abs(pw[0]), span, span, span,
+                          abs(pw[0]) + abs(pw[4])])
+        dp = float((np.abs(pg - pw) / np.maximum(scale, 1e-300)).max())
+        worst["param"] = max(worst["param"], dp)
+        worst["err"] = max(worst["err"], derr)
+        if method == "maxerr":
+            require(derr <= FIT_MAXERR_RTOL, ("maxerr", i, eg, ew))
+        else:
+            require(dp <= FIT_PARAM_RTOL and derr <= FIT_ERR_RTOL,
+                    ("rmse fit", i, dp, derr))
+    return worst
+
+
+def run_analysis(device, out: dict) -> None:
+    """Phase 21: (a) the split-normal fits of phase 19's 2D run on the card
+    against the CPU, (b) the fitted curves as the 1D model's gradient CSV,
+    (c) the two analysis CLIs, (d) the native stencil assembly against
+    numpy at the flagship and sweep shapes."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.analysis import radial, splitnormal as sn
+    from heatflow_tpu_torch.config import load_config
+    from heatflow_tpu_torch.drivers import run1d
+    from heatflow_tpu_torch.geometry import build_layout
+    from heatflow_tpu_torch.io.csvio import read_gradient_csv, read_watcher_csv
+    from heatflow_tpu_torch.mesh.structured import build_structured_mesh
+    from heatflow_tpu_torch.ops import _build
+    from heatflow_tpu_torch.ops.stencil import assemble_stencils
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke", "pipeline")
+    grad = os.path.join(work, "out2d", "radial_gradient.csv")
+    plotter = radial.RadialGradientPlotter(grad)
+    r, grid = plotter.radial_positions, plotter.grid
+    res = {}
+    secs = {}
+    for method in ("rmse", "maxerr"):
+        for tag, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            times = []
+            for _ in range(2):      # the first call on a device warms it
+                t0 = time.perf_counter()
+                res[method, tag] = sn.analyze_split_normal_fits(
+                    plotter, fit_method=method, device=dev)
+                times.append(time.perf_counter() - t0)
+            secs[method, tag] = times
+        got, want = res[method, "card"], res[method, "cpu"]
+        worst = fits_agree(got, want, r, grid, method)
+        print(f"21a split-normal fits ({method}) of {grid.shape[0]} rows x "
+              f"2 guesses ({grid.shape[1]} points a row, one batch): card "
+              f"{secs[method, 'card'][1]:.3f} s (first "
+              f"{secs[method, 'card'][0]:.3f}), "
+              f"CPU {secs[method, 'cpu'][1]:.3f} s (first "
+              f"{secs[method, 'cpu'][0]:.3f}); mean error "
+              f"{np.mean(got['rmse_values']):.6e} K/m (CPU "
+              f"{np.mean(want['rmse_values']):.6e}), mean R² "
+              f"{np.mean(got['r_squared_values']):.6f}; {worst['determined']} "
+              f"rows with R² >= {FIT_R2_MIN}: parameters within "
+              f"{worst['param']:.2e}, errors within {worst['err']:.2e}; "
+              f"{worst['noise']} noise-like rows: errors within "
+              f"{worst['noise_err']:.2e}")
+        out.setdefault("analysis", {})[method] = dict(
+            card_s=secs[method, "card"], cpu_s=secs[method, "cpu"],
+            mean_err=float(np.mean(got["rmse_values"])),
+            mean_r2=float(np.mean(got["r_squared_values"])), **worst)
+
+    # (b) the fitted curves as run1d's gradient CSV (the reference's
+    # 2D -> fit -> 1D route), against phase 19's raw-gradient run
+    full = res["rmse", "card"]
+    amp = sn.analyze_split_normal_fits_amplitude_only(
+        plotter, *[float(np.mean(full[k])) for k in FIT_KEYS[1:]])
+    raw = read_watcher_csv(os.path.join(work, "out1d_card_1",
+                                        "watcher_points.csv"))
+    raw = np.column_stack([raw["pside"], raw["oside"]])
+    one_d = os.path.join(work, "1d.yaml")
+    for tag, fit in (("full", full), ("amp", amp)):
+        csv = os.path.join(work, f"fitted_{tag}.csv")
+        sn.save_fitted_curves_csv(fit, r, csv)
+        gt, gz, gv = read_gradient_csv(csv)
+        require(gv.shape == grid.shape and np.isfinite(gv).all(), csv)
+        o = os.path.join(work, f"out1d_fit_{tag}")
+        t0 = time.perf_counter()
+        run1d.main(["--config", one_d, "--mesh-folder-2d",
+                    os.path.join(work, "mesh"), "--output-folder", o,
+                    "--radial-gradient-path", csv, "--device", str(device),
+                    "--suppress-print"])
+        torch.cuda.synchronize()
+        s1d = time.perf_counter() - t0
+        cols = read_watcher_csv(os.path.join(o, "watcher_points.csv"))
+        w = np.column_stack([cols["pside"], cols["oside"]])
+        require(w.shape == raw.shape and np.isfinite(w).all(), (tag, w.shape))
+        d = float(np.abs(w - raw).max())
+        print(f"21b run1d on the card with the {tag} fitted curves as "
+              f"--radial-gradient-path: {s1d:.2f} s, finite, max |Δ| "
+              f"{d:.4f} K from phase 19's raw-gradient run "
+              f"(watcher range [{w.min():.2f}, {w.max():.2f}] K)")
+        out["analysis"][f"run1d_{tag}"] = dict(seconds=s1d, max_dK=d)
+
+    # (c) the CLIs through their main(...)
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    arts = os.path.join(work, "analysis_cli")
+    os.makedirs(arts, exist_ok=True)
+    files = {k: os.path.join(arts, f"{k}.csv")
+             for k in ("results", "full", "amp")}
+    flags = ["--save-results", files["results"],
+             "--save-fitted-csv-full", files["full"],
+             "--save-fitted-csv-amp", files["amp"]]
+    if have_mpl:
+        for k in ("analysis", "comparison", "compare"):
+            files[k] = os.path.join(arts, f"{k}.png")
+        flags += ["--save-analysis-plot", files["analysis"],
+                  "--save-comparison-plot", files["comparison"],
+                  "--save-compare-plot", files["compare"]]
+    else:
+        print("matplotlib: absent (21c: the split-normal CLI's CSV flags "
+              "only; no radial CLI, no mesh plot)")
+    for f in files.values():
+        if os.path.exists(f):
+            os.remove(f)
+    t0 = time.perf_counter()
+    sn.main([grad, "--no-show", "--device", str(device), *flags])
+    if have_mpl:
+        from heatflow_tpu_torch.mesh.viz import plot_mesh
+        ev, hm = (os.path.join(arts, f"{k}.png")
+                  for k in ("evolution", "heatmap"))
+        radial.main([grad, "--plot-type", "both", "--save-evolution", ev,
+                     "--save-heatmap", hm, "--no-show"])
+        png = os.path.join(arts, "mesh.png")
+        plot_mesh(build_structured_mesh(*build_layout(load_config(
+            FIT_CFG))), png)
+        files.update(evolution=ev, heatmap=hm, mesh=png)
+    cli_s = time.perf_counter() - t0
+    missing = [f for f in files.values() if not os.path.exists(f)]
+    require(not missing, ("CLI files missing", missing))
+    print(f"21c heatflow-torch-splitnormal"
+          f"{' and heatflow-torch-radial' if have_mpl else ''} on the card: "
+          f"{len(files)} files written, {cli_s:.2f} s")
+    out["analysis"].update(matplotlib=have_mpl, cli_s=cli_s,
+                           cli_files=len(files))
+
+    # (d) the native stencil assembly against numpy, flagship and sweep
+    t0 = time.perf_counter()
+    _build.build_native()
+    build_s = time.perf_counter() - t0
+    for name, path in (("flagship", CFG), ("sweep", SWEEP_CFG)):
+        mesh = build_structured_mesh(*build_layout(load_config(path)))
+        packs, tt = {}, {}
+        for backend in ("native", "numpy"):
+            t0 = time.perf_counter()
+            packs[backend] = assemble_stencils(mesh, backend=backend)
+            tt[backend] = time.perf_counter() - t0
+        worst = 0.0
+        for plane in ("K", "M", "K_flat", "M_flat", "G_r", "G_z", "M_proj"):
+            a = getattr(packs["native"], plane)
+            b = getattr(packs["numpy"], plane)
+            err = float(np.abs(a - b).max() / np.abs(b).max())
+            require(a.shape == b.shape and err <= NATIVE_TOL,
+                    ("native assembly", name, plane, err))
+            worst = max(worst, err)
+        print(f"21d assemble_stencils at the {name} shape "
+              f"({mesh.shape[0]} x {mesh.shape[1]}, {len(mesh.material_tags)}"
+              f" materials): native {tt['native']:.3f} s, numpy "
+              f"{tt['numpy']:.3f} s; every plane within {worst:.2e} of its "
+              f"max abs")
+        out["analysis"][f"assembly_{name}"] = dict(
+            native_s=tt["native"], numpy_s=tt["numpy"], max_rel=worst)
+    out["analysis"].update(native_build_s=build_s,
+                           phase_s=time.perf_counter() - t_phase)
+    print(f"g++ build of the mesh kernels: {build_s:.2f} s (0 when cached)")
+    print(f"phase 21: {out['analysis']['phase_s']:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this "
@@ -4385,7 +4632,10 @@ def main() -> None:
           f"(the device tests the stop flag; no host read before the end)")
 
     # a graph's loop body is traced in full only by profiler sessions that
-    # began before the graph was captured: open the process's first one now
+    # began before the graph was captured: open the process's first one now,
+    # and keep CUPTI set up between sessions (torch's own setting for CUDA
+    # graphs: a teardown and re-init loses the graphs' kernel nodes)
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     kernel_profile(lambda: torch.ones(1, device=device) + 1)
     t0 = time.perf_counter()
     problem = build_flagship()
@@ -4444,6 +4694,7 @@ def main() -> None:
     out["phases_17_19_s"] = time.perf_counter() - t0
     print(f"phases 17-19: {out['phases_17_19_s']:.1f} s")
     unstructured_rows = run_unstructured(device, out)
+    run_analysis(device, out)
 
     counts = out["slice"]["phase_launches"]
     solves = out["slice"]["solves"]

@@ -1,11 +1,14 @@
 """Simulation-vs-experiment comparison (ref analysis_utils.py:6-93 and the
 normalization math of no_diamond.py:65-75 / sweep_test.py:80-86), numpy
-only. The traces are dicts of columns, as ``io.read_watcher_csv`` returns
-them (or anything indexable by column name)."""
+only (matplotlib at first use, for the plot). The traces are dicts of
+columns, as ``io.read_watcher_csv`` returns them (or anything indexable by
+column name)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from heatflow_tpu_torch.utils import pyplot
 
 
 def calculate_rmse(exp_time, exp_data, sim_time, sim_data) -> float:
@@ -44,8 +47,30 @@ def normalized_traces(df_sim, df_exp, ic_temp: float) -> dict:
     }
 
 
-def plot_temperature_curves(*_args, **_kw):
-    """The simulation-vs-experiment plot (not ported yet: the port has no
-    plotting dependency)."""
-    raise NotImplementedError("plot_temperature_curves is not ported to "
-                              "heatflow_tpu_torch yet (ROADMAP P10)")
+def plot_temperature_curves(sim_time, sim_pside, sim_oside, exp_pside,
+                            exp_oside, exp_time=None, save_path=None,
+                            show_plot=True):
+    """Same plot contract as ref analysis_utils.py:6-63."""
+    plt = pyplot(show_plot)
+
+    plt.figure(figsize=(12, 8))
+    plt.plot(sim_time, sim_pside, "b-", linewidth=2, label="Sim P-side")
+    plt.plot(sim_time, sim_oside, "r-", linewidth=2, label="Sim O-side")
+    t = exp_time if exp_time is not None else np.arange(len(exp_pside))
+    plt.scatter(t, exp_pside, color="blue", marker="o", s=40,
+                label="Exp P-side")
+    plt.scatter(t, exp_oside, color="red", marker="o", s=40,
+                label="Exp O-side")
+    plt.xlabel("Time (s)", fontsize=12)
+    plt.ylabel("Temperature (K)", fontsize=12)
+    plt.title("Temperature: Simulation vs Experiment", fontsize=14,
+              fontweight="bold")
+    plt.grid(True, alpha=0.3)
+    plt.legend(fontsize=11)
+    plt.tight_layout()
+    if save_path:
+        plt.savefig(save_path, dpi=300, bbox_inches="tight")
+    if show_plot:
+        plt.show()
+    else:
+        plt.close()

@@ -22,8 +22,9 @@ with a ``mesh_overlay.npz`` sidecar: it runs on the overlay's 9-point
 lattice operators (the CUDA kernels on a card in float32). A mesh folder
 whose ``mesh_cfg.yaml`` has no ``structured_grid`` (an imported gmsh mesh)
 runs through the unstructured path too: on the lattice when the sidecar
-exists, else on the ELL gather. z-sharding (ROADMAP P11) and mesh plots
-(P10) are not ported yet and raise.
+exists, else on the ELL gather. ``--visualize-mesh`` writes
+``mesh_visualization.png`` into the mesh folder. z-sharding (ROADMAP P11) is
+not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -161,8 +162,6 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
         t_start = time.time()
         device = resolve_device(device)
         validate_config(cfg, require_heating_file=True)
-        if visualize_mesh:
-            raise _not_ported("mesh visualization (--visualize-mesh)", "P10")
         if z_shards > 1:
             raise _not_ported("z-sharding (--z-shards > 1)", "P11")
         if f64_refine and dtype is None:
@@ -180,6 +179,11 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
 
         mesh = _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
                              mesh_style)
+        if visualize_mesh:
+            from heatflow_tpu_torch.mesh.viz import plot_mesh
+            png = os.path.join(mesh_folder, "mesh_visualization.png")
+            plot_mesh(mesh, png)
+            print(f"Mesh visualization written to {png}")
         unstructured = isinstance(mesh, UnstructuredMesh)
         if precondition is None:
             from heatflow_tpu_torch.utils import \
@@ -393,7 +397,7 @@ def main(argv=None):
     p.add_argument("--mesh-folder", type=str, default="meshes")
     p.add_argument("--rebuild-mesh", action="store_true")
     p.add_argument("--visualize-mesh", action="store_true",
-                   help="not ported yet (ROADMAP P10)")
+                   help="write mesh_visualization.png into the mesh folder")
     p.add_argument("--output-folder", type=str, default=None)
     p.add_argument("--watcher-points", type=str, default=None,
                    help="YAML/JSON mapping name -> [z, r]; 'auto' places "

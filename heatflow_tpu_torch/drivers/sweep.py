@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import csv
 import itertools
 import json
 import os
@@ -40,8 +39,8 @@ from heatflow_tpu_torch.config import load_config, save_config, with_parameters
 from heatflow_tpu_torch.drivers.run2d import (_not_ported, _prepare_mesh,
                                               default_dtype)
 from heatflow_tpu_torch.geometry import coupler_watcher_points
-from heatflow_tpu_torch.io.csvio import (write_gradient_csv, write_rows,
-                                         write_watcher_csv)
+from heatflow_tpu_torch.io.csvio import (read_records, write_gradient_csv,
+                                         write_records, write_watcher_csv)
 from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
 from heatflow_tpu_torch.sim.bc import HeatingCurve
 from heatflow_tpu_torch.sim.problem import build_problem
@@ -151,29 +150,6 @@ def _resolve_solver(solver, *, dtype, device, precondition, f64_refine,
             else "xla")
 
 
-def _read_records(path: str) -> list[dict]:
-    """The rows of a run-record CSV, with numbers parsed back and empty
-    fields as None."""
-    def value(text):
-        if text == "":
-            return None
-        for cast in (int, float):
-            try:
-                return cast(text)
-            except ValueError:
-                pass
-        return text
-
-    with open(path, newline="") as f:
-        return [{k: value(v) for k, v in row.items()}
-                for row in csv.DictReader(f)]
-
-
-def _write_records(path: str, records: list[dict]) -> None:
-    keys = list(dict.fromkeys(k for rec in records for k in rec))
-    write_rows(path, keys, ([rec.get(k) for k in keys] for rec in records))
-
-
 def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
                         width_range, num_points, base_mesh_folder="meshes",
                         write_xdmf=False, suppress_print=True,
@@ -257,7 +233,7 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
     done_names = set()
     succ_csv = os.path.join(output_dir, "successful_runs.csv")
     if resume and os.path.isfile(succ_csv):
-        prior_records = _read_records(succ_csv)
+        prior_records = read_records(succ_csv)
         done_names = {rec["run_name"] for rec in prior_records}
         if not suppress_print:
             print(f"resume: {len(done_names)} runs already recorded, "
@@ -444,10 +420,10 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
 
     results = prior_records + results
     if results:
-        _write_records(succ_csv, results)
+        write_records(succ_csv, results)
     failed_csv = os.path.join(output_dir, "failed_runs.csv")
     if failed:
-        _write_records(failed_csv, failed)
+        write_records(failed_csv, failed)
     elif resume and os.path.isfile(failed_csv):
         # every previously failed run succeeded on retry
         os.remove(failed_csv)

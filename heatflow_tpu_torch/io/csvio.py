@@ -57,6 +57,31 @@ def write_gradient_csv(path: str, times: np.ndarray, columns: np.ndarray,
                ([t, *row] for t, row in zip(np.asarray(times), rows)))
 
 
+def write_records(path: str, records: list[dict]) -> None:
+    """Dicts as rows, the union of their keys (in first-seen order) as the
+    header; a missing key is an empty field."""
+    keys = list(dict.fromkeys(k for rec in records for k in rec))
+    write_rows(path, keys, ([rec.get(k) for k in keys] for rec in records))
+
+
+def read_records(path: str) -> list[dict]:
+    """The rows of a CSV as dicts, with numbers parsed back (int, else
+    float) and empty fields as None."""
+    def value(text):
+        if text == "":
+            return None
+        for cast in (int, float):
+            try:
+                return cast(text)
+            except ValueError:
+                pass
+        return text
+
+    with open(path, newline="") as f:
+        return [{k: value(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
+
+
 def read_watcher_csv(path: str) -> dict[str, np.ndarray]:
     """The columns of a watcher CSV by name (``time`` first), as float64."""
     with open(path, newline="") as f:

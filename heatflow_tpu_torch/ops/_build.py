@@ -1,11 +1,14 @@
-"""Build-on-demand of the package's CUDA sources and their ctypes binding.
+"""Build-on-demand of the package's CUDA sources and their ctypes binding,
+and of the host C++ mesh kernels.
 
 ``csrc/*.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, at first use, under
 ``build/heatflow_tpu_torch/`` beside the package; the file name carries a
 hash of the sources and flags, so an edited source rebuilds and an unchanged
-one loads the cached library. Nothing here runs at import time.
+one loads the cached library. ``csrc/meshkernel.cpp`` is host code: it is
+built apart, with ``g++`` (:func:`build_native`), into the same directory
+under the same naming rule. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "heatflow_tpu_torch")
+MESH_SRC = os.path.join(CSRC, "meshkernel.cpp")
+CXX_FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -95,6 +100,41 @@ def build() -> str:
         os.remove(obj)
     build_info.update(path=so, seconds=time.perf_counter() - t0,
                       cached=False, ptxas="".join(ptxas))
+    return so
+
+
+def find_cxx() -> str | None:
+    """The host C++ compiler on PATH (``g++``, else ``c++``), or None."""
+    return shutil.which("g++") or shutil.which("c++")
+
+
+def native_library_path() -> str:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    with open(MESH_SRC, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libhf_mesh_{h.hexdigest()[:16]}.so")
+
+
+def build_native() -> str:
+    """Compile ``csrc/meshkernel.cpp`` with the host C++ compiler if the
+    hashed library is missing; returns its path. Raises if there is no
+    compiler or the compile fails."""
+    so = native_library_path()
+    if os.path.exists(so):
+        return so
+    cxx = find_cxx()
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++ or c++) on PATH: the "
+                           "native mesh kernels cannot be built")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [cxx, *CXX_FLAGS, MESH_SRC, "-o", tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{os.path.basename(cxx)} failed "
+                           f"({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, so)
     return so
 
 

@@ -111,11 +111,30 @@ class StencilPack:
                 for name in ("K", "M", "G_r", "G_z", "M_proj")}
 
 
-def assemble_stencils(mesh: StructuredMesh) -> StencilPack:
-    """Assemble all geometric stencils for ``mesh`` (host-side, exact P1)."""
+def assemble_stencils(mesh: StructuredMesh, *, backend: str = "auto"
+                      ) -> StencilPack:
+    """Assemble all geometric stencils for ``mesh`` (host-side, exact P1).
+
+    backend: 'native' assembles in C++ (``heatflow_tpu_torch.native``) and
+    raises if the library cannot be built or loaded; 'numpy' in vectorized
+    numpy; 'auto' takes 'native' where a C++ compiler is on PATH and
+    ``HEATFLOW_TPU_NO_NATIVE=1`` is not set, else 'numpy' (a failed build
+    raises: there is no quiet fall back).
+    """
+    from heatflow_tpu_torch import native
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"backend {backend!r}: 'auto', 'native' or 'numpy'")
+    if backend == "auto":
+        backend = "native" if native.available() else "numpy"
     nz, nr = mesh.shape
     n_mats = len(mesh.material_tags)
     shape = (7, nz, nr)
+
+    if backend == "native":
+        K, M, K_flat, M_flat, G_r, G_z = native.native_assemble_stencils(
+            mesh.z, mesh.r, mesh.cell_tags, n_mats)
+        return StencilPack(K=K, M=M, K_flat=K_flat, M_flat=M_flat,
+                           G_r=G_r, G_z=G_z, M_proj=M.sum(axis=0))
 
     K = np.zeros((n_mats,) + shape)
     M = np.zeros((n_mats,) + shape)

@@ -1,11 +1,12 @@
 """Small shared utilities: the device an entry point runs on, profiling,
-timing, batch padding and the drivers' per-regime preconditioner
-default."""
+timing, batch padding, the drivers' per-regime preconditioner default and
+matplotlib at first use."""
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 
 import numpy as np
@@ -24,6 +25,30 @@ def resolve_device(device="cuda") -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def pyplot(show: bool):
+    """``matplotlib.pyplot``, imported at first use (the port has no
+    plotting dependency until a figure is asked for). A process whose first
+    figure is not to be shown gets the non-interactive Agg backend, so that
+    plots are written without a display."""
+    if not show and "matplotlib.pyplot" not in sys.modules:
+        import matplotlib
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
+def finish_figure(fig, save_path=None, show: bool = False,
+                  dpi: int = 300) -> None:
+    """Save ``fig`` (when a path is given), then show it or close it."""
+    plt = pyplot(show)
+    if save_path:
+        fig.savefig(save_path, dpi=dpi, bbox_inches="tight")
+    if show:
+        plt.show()
+    else:
+        plt.close(fig)
 
 
 @contextlib.contextmanager

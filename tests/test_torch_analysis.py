@@ -1,5 +1,6 @@
 """The port's simulation-vs-experiment comparison (``analysis.compare``)
-against the JAX package's on the same arrays, and the port's independence:
+against the JAX package's on the same arrays, its plot, the analysis
+package's exports, and the port's independence:
 no module of ``heatflow_tpu_torch``, ``chip_smoke.py`` or ``tools/`` imports
 JAX or the JAX package."""
 
@@ -51,9 +52,29 @@ def test_normalized_traces_match_jax():
     assert got["sim_pside"][0] == 0.0 and got["exp_oside"][0] == 0.0
 
 
-def test_plot_is_not_ported():
-    with pytest.raises(NotImplementedError, match="P10"):
-        tcmp.plot_temperature_curves([0, 1], [0, 1], [0, 1], [0, 1], [0, 1])
+def test_plot_temperature_curves_writes_its_figure(tmp_path):
+    """The simulation-vs-experiment plot (the JAX package's contract): a PNG
+    under Agg, with and without experimental times, the figure closed."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    sim, exp = _traces(np.random.default_rng(3))
+    tr = tcmp.normalized_traces(sim, exp, 300.0)
+    for name, t_exp in (("timed", exp["time"]), ("indexed", None)):
+        png = tmp_path / f"{name}.png"
+        tcmp.plot_temperature_curves(sim["time"], tr["sim_pside"],
+                                     tr["sim_oside"], tr["exp_pside"],
+                                     tr["exp_oside"], exp_time=t_exp,
+                                     save_path=str(png), show_plot=False)
+        assert png.stat().st_size > 1000
+    assert not plt.get_fignums()
+
+
+def test_analysis_package_exports_like_jax():
+    import heatflow_tpu.analysis as ja
+    import heatflow_tpu_torch.analysis as ta
+    assert ta.__all__ == ja.__all__
+    assert all(hasattr(ta, name) for name in ta.__all__)
 
 
 def _imports(path):
@@ -83,7 +104,11 @@ def test_port_imports_neither_jax_nor_the_jax_package(where):
         have = {os.path.relpath(f, path) for f in files}
         assert {"ops/mgz.py", "ops/multigrid.py", "sim/steady.py",
                 "drivers/steady.py", "ops/cuda_mg.py", "ops/tridiag.py",
-                "sim/reduced1d.py", "drivers/run1d.py"} <= have
+                "sim/reduced1d.py", "drivers/run1d.py",
+                "analysis/splitnormal.py", "analysis/radial.py",
+                "analysis/gradcheck.py", "analysis/konopkova.py",
+                "analysis/sweep_surface.py", "analysis/viewer.py",
+                "mesh/viz.py", "native/__init__.py"} <= have
     bad = [(os.path.relpath(f, ROOT), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "heatflow_tpu")]

@@ -235,12 +235,10 @@ def test_sweep_records_failed_runs(cfg, tmp_path):
      "ROADMAP P11"),
     (lambda c, p: trun.run_simulation(c, p, True, z_shards=2,
                                       device="cpu"), "ROADMAP P11"),
-    (lambda c, p: trun.run_simulation(c, p, True, visualize_mesh=True,
-                                      device="cpu"), "ROADMAP P10"),
     (lambda c, p: tsweep.run_parameter_sweep(
         c, p, (4e-6, 4e-6), (2.0, 2.0), (1e-6, 1e-6), (1, 1, 1),
         devices=["cpu", "cpu"]), "ROADMAP P11")],
-    ids=["unstructured", "z-shards", "visualize", "devices"])
+    ids=["unstructured", "z-shards", "devices"])
 def test_unported_driver_options_raise(cfg, tmp_path, call, match):
     with pytest.raises(NotImplementedError, match=match):
         call(cfg, str(tmp_path / "x"))

@@ -251,13 +251,6 @@ def test_unported_options_raise(kw):
         t_make(pt, **kw, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["plot_temperature_curves"])
-def test_unported_functions_raise(name):
-    from heatflow_tpu_torch.analysis import compare
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(compare, name)(None)
-
-
 # float64 eager options: the same recurrences in both packages, so the traces
 # agree to 1e-8 rel-L2 (summation order only) and the counts exactly
 F64_OPTIONS = {
