@@ -204,7 +204,24 @@ Phases (each raises on failure; nothing is caught):
    (c) the split-normal CLI (and, where matplotlib is installed, the
    radial CLI and a mesh plot) with every save flag, every file written;
    (d) ``assemble_stencils`` at the flagship and sweep shapes, 'native'
-   (g++, host) against 'numpy', every plane within 1e-13 of its max abs.
+   (g++, host) against 'numpy', every plane within 1e-13 of its max abs;
+22. multi-device execution (ROADMAP P11) over ``torch.distributed``, on the
+   sweep config (243 x 1001, 40 steps), the CUDA library built before any
+   rank starts: (a) ``run_sweep_multihost`` over 2 processes joined over
+   tcp:// on localhost, gloo ranks sharing cuda:0: the B = 64 float32
+   kernel sweep (drivers/sweep.py's recipe: K2 Jacobi, rtol 1e-4 wrt
+   ||b||) and the B = 16 recording (K2 r-line with the Kv-free
+   projection), the gathered results bitwise the single-process runs of
+   the same B, each rank's K2 counters read just after its run; configs/s
+   at 2 ranks beside one process (ranks sharing one card: sharing, not
+   scaling); (b) ``make_simulate_fn(mesh=)`` over 3 gloo ranks on cuda:0
+   (Nz = 243 = 3 x 81), float64, eager 'rline' (5 steps) and 'jacobi' (2
+   steps) with the gradient recorded: watch and final_u within 1e-9 /
+   1e-11 of the unsharded eager run on the card, band and axis (the
+   projection's rows) within that or 2x the unsharded run's own distance
+   when its CG dots are summed in another order (rows first); (c)
+   ``run_sweep_multihost`` over NCCL in a world of one rank, bitwise the
+   single-process sweep.
 Phase 10 also holds its recording run (watch, band, axis), and the same
 rows from a run with two float64 refinement passes, to
 ``benchmarks/.flagship_truth_recording.npz``.
@@ -4582,6 +4599,258 @@ def run_analysis(device, out: dict) -> None:
     print(f"phase 21: {out['analysis']['phase_s']:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 22: multi-device execution (P11) over torch.distributed
+# ----------------------------------------------------------------------
+
+SHARD_B = 64          # 22a: the config-sharded sweep, 32 lanes a rank
+SHARD_REC_B = 16      # 22a: the config-sharded recording
+# drivers/sweep.py's float32 kernel recipe ('jacobi',
+# rtol 1e-4 wrt ||b||) and its recording recipe (REC_RECIPE)
+SHARD_RECIPE = dict(solver="vmem", precondition="jacobi", rtol=1e-4)
+SHARD_REC_RECIPE = dict(solver="vmem", precondition="rline",
+                        warm_start="extrapolate", rtol=1e-5,
+                        record_gradient=True)
+# 22b: the z-sharded stepper against the unsharded eager run, each family's
+# max abs difference over max(1, its max abs): watch and final_u within the
+# bounds of tests/test_sharding.py (rline 1e-9, jacobi 1e-11); band and axis,
+# the gradient projection's rows, within the bound or 2x the unsharded run's
+# own distance under another valid summation order (its CG dots summed rows
+# first), whichever is larger: on this problem that order alone moves them
+# by ~2e-10 / ~4e-8 of their max, as the ranks' partial sums do
+Z_SHARDS = 3          # geballe_no_diamond: Nz = 243 = 3 * 81
+Z_CASES = (("rline", 5, 1e-9), ("jacobi", 2, 1e-11))
+Z_FAMILIES = ("watch", "band", "axis", "final_u")
+Z_EXACT = ("watch", "final_u")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _np_rel(a, b) -> dict:
+    """Where two batches of lanes differ: the lanes that do and the max
+    relative difference."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = np.abs(a - b).reshape(len(a), -1).max(axis=1)
+    return dict(lanes=np.nonzero(d)[0].tolist(),
+                rel=float(d.max() / np.abs(b).max()))
+
+
+def _shard_inputs(problem, B: int):
+    import numpy as np
+    return np.logspace(0.0, 2.0, B), np.full(B, problem.fwhm)
+
+
+def _multihost_rank(port: int, n: int, backend: str, cases: dict) -> dict:
+    """One process of a multi-process sweep (22a, 22c): joins the group
+    over tcp:// on localhost, builds the sweep problem and runs each case
+    (B, recipe, warm: run it once before the timed run) through
+    ``run_sweep_multihost`` on cuda:0, with K2's counters set to 0 just
+    before each timed run; returns the full results, seconds and counts."""
+    import torch
+    from heatflow_tpu_torch.ops import _build
+    from heatflow_tpu_torch.ops import cuda_sweep as cs
+    from heatflow_tpu_torch.parallel import multihost
+    rank = int(os.environ["RANK"])
+    multihost.initialize(f"localhost:{port}", n, rank, backend=backend)
+    _build.load_library()
+    problem = build_flagship(SWEEP_CFG)
+    out = {}
+    for name, (B, kw, warm) in cases.items():
+        ks, fs = _shard_inputs(problem, B)
+        run = lambda: multihost.run_sweep_multihost(
+            problem, ks, fs, device="cuda", dtype=torch.float32, **kw)
+        if warm:
+            run()
+        torch.cuda.synchronize()
+        cs.reset_counters()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        out[name] = dict(result=res, seconds=time.perf_counter() - t0,
+                         counts=_sweep_counts())
+    return out
+
+
+def _rows_first_dots(*pairs) -> tuple:
+    """The CG dots summed along r, then along z: another order of the same
+    sums (22b's yardstick)."""
+    return tuple((a * b).sum(dim=-1).sum(dim=-1) for a, b in pairs)
+
+
+def _z_rank(cases) -> dict:
+    """One rank of the z-sharded stepper (22b): its rows of the sweep
+    problem's 243 x 1001 field on cuda:0 (gloo ranks); each case's full
+    outputs and seconds."""
+    import dataclasses
+    import torch
+    from heatflow_tpu_torch.parallel.sharding import config_mesh
+    from heatflow_tpu_torch.sim.stepper import make_simulate_fn
+    mesh = config_mesh(z_shards=Z_SHARDS, device="cuda")
+    problem = build_flagship(SWEEP_CFG)
+    out = {}
+    for prec, steps, _tol in cases:
+        p = dataclasses.replace(problem, num_steps=steps, extras={})
+        t0 = time.perf_counter()
+        ys = make_simulate_fn(p, dtype=torch.float64, precondition=prec,
+                              solver="xla", record_gradient=True, mesh=mesh,
+                              device=mesh.device)()
+        torch.cuda.synchronize()
+        out[prec] = dict(seconds=time.perf_counter() - t0,
+                         **{k: ys[k].cpu().numpy()
+                            for k in Z_FAMILIES + ("cg_iters",)})
+    return out
+
+
+def run_sharded(problem, device, out: dict) -> dict:
+    """Phase 22: (a) ``run_sweep_multihost`` over 2 gloo ranks sharing
+    cuda:0 (tcp:// on localhost): the B = 64 float32 kernel sweep and the
+    B = 16 recording, bitwise the single-process runs of the same B; (b)
+    ``make_simulate_fn(mesh=)`` over 3 gloo ranks on cuda:0, float64,
+    eager r-line (5 steps) and Jacobi (2 steps) with the gradient recorded,
+    against the unsharded eager run; (c) ``run_sweep_multihost`` over NCCL
+    in a world of one rank, bitwise the single-process sweep. Every
+    sub-check fatal; the seconds of each beside the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.parallel.sharding import spawn
+    from heatflow_tpu_torch.sim.stepper import make_simulate_fn
+    from heatflow_tpu_torch.sim.sweepkernel import (make_sweep_fn,
+                                                    make_sweep_fn_recording)
+    t_phase = time.perf_counter()
+    card = out["card"]
+    res = out.setdefault("sharded", {})
+    rec_kw = {k: v for k, v in SHARD_REC_RECIPE.items()
+              if k != "record_gradient"}
+
+    # (a) the config axis: 2 gloo ranks on the one card
+    t0 = time.perf_counter()
+    cases = {"sweep": (SHARD_B, SHARD_RECIPE, True),
+             "recording": (SHARD_REC_B, SHARD_REC_RECIPE, False)}
+    ranks = spawn(_multihost_rank, 2, init=False, device="cuda",
+                  timeout=300.0, args=(_free_port(), 2, "gloo", cases))
+    spawn_s = time.perf_counter() - t0
+    ks, fs = _shard_inputs(problem, SHARD_B)
+    one = make_sweep_fn(problem, dtype=torch.float32, device=device,
+                        **SHARD_RECIPE)
+    one(ks, fs)                      # warm, as the ranks' timed runs are
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = one(ks, fs).cpu().numpy()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    ks_r, fs_r = _shard_inputs(problem, SHARD_REC_B)
+    want_rec = make_sweep_fn_recording(problem, dtype=torch.float32,
+                                       device=device, **rec_kw)(ks_r, fs_r)
+    for r, got in enumerate(ranks):
+        require(np.isfinite(got["sweep"]["result"]).all(), "22a finite")
+        require(np.array_equal(got["sweep"]["result"], want),
+                ("22a sweep not bitwise", r,
+                 _np_rel(got["sweep"]["result"], want)))
+        for k in ("watch", "band", "axis"):
+            w = want_rec[k].cpu().numpy()
+            require(np.array_equal(got["recording"]["result"][k], w),
+                    ("22a recording not bitwise", r, k,
+                     _np_rel(got["recording"]["result"][k], w)))
+        require(got["sweep"]["counts"]["identity"] > 0
+                and got["recording"]["counts"]["no_kv"] > 0,
+                ("22a: a rank ran no K2 solve", r, got["sweep"]["counts"]))
+    sweep_s = max(g["sweep"]["seconds"] for g in ranks)
+    res["a"] = dict(
+        seconds=time.perf_counter() - t_phase, spawn_s=spawn_s,
+        sweep_s=[g["sweep"]["seconds"] for g in ranks],
+        recording_s=[g["recording"]["seconds"] for g in ranks],
+        configs_per_s_2_ranks=SHARD_B / sweep_s,
+        configs_per_s_1_process=SHARD_B / one_s,
+        k2_identity_solves=[g["sweep"]["counts"]["identity"] for g in ranks],
+        k2_no_kv_solves=[g["recording"]["counts"]["no_kv"]
+                         for g in ranks])
+    print(f"22a config axis, 2 gloo ranks on cuda:0 ({card}): B = {SHARD_B} "
+          f"sweep bitwise, {SHARD_B / sweep_s:.2f} configs/s at 2 ranks "
+          f"against {SHARD_B / one_s:.2f} in one process (ranks share the "
+          f"card: sharing, not scaling); B = {SHARD_REC_B} recording "
+          f"bitwise; K2 solves a rank {res['a']['k2_identity_solves']} / "
+          f"{res['a']['k2_no_kv_solves']} (Kv-free); "
+          f"{res['a']['seconds']:.1f} s")
+
+    # (b) the z axis: 3 gloo ranks on the one card, float64 eager
+    from heatflow_tpu_torch.ops import cg
+    t0 = time.perf_counter()
+    zr = spawn(_z_rank, Z_SHARDS, backend="gloo", device="cuda",
+               timeout=300.0, args=(Z_CASES,))
+    res["b"] = dict(spawn_s=time.perf_counter() - t0)
+    rel = lambda a, b: float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+    for prec, steps, tol in Z_CASES:
+        p = dataclasses.replace(problem, num_steps=steps, extras={})
+        runs = {}
+        for order, dots in (("default", cg._dots),
+                            ("rows_first", _rows_first_dots)):
+            plain, cg._dots = cg._dots, dots
+            try:
+                t1 = time.perf_counter()
+                ys = make_simulate_fn(p, dtype=torch.float64,
+                                      precondition=prec, solver="xla",
+                                      record_gradient=True, device=device)()
+                torch.cuda.synchronize()
+            finally:
+                cg._dots = plain
+            runs[order] = {k: v.cpu().numpy() for k, v in ys.items()}
+            runs[order]["seconds"] = time.perf_counter() - t1
+        ref = runs["default"]
+        yard = {k: rel(runs["rows_first"][k], ref[k]) for k in Z_FAMILIES}
+        errs = {}
+        for r, got in enumerate(zr):
+            for k in Z_FAMILIES:
+                a = got[prec][k]
+                require(a.shape == ref[k].shape and np.isfinite(a).all(),
+                        ("22b", prec, k, a.shape, ref[k].shape))
+                errs[k] = max(errs.get(k, 0.0), rel(a, ref[k]))
+        bound = {k: tol if k in Z_EXACT else max(tol, 2.0 * yard[k])
+                 for k in Z_FAMILIES}
+        require(all(errs[k] <= bound[k] for k in Z_FAMILIES),
+                ("22b", prec, errs, bound))
+        res["b"][prec] = dict(
+            steps=steps, tol=tol, errs=errs, rows_first=yard, bound=bound,
+            sharded_s=[g[prec]["seconds"] for g in zr],
+            unsharded_s=ref["seconds"],
+            iters=ref["cg_iters"].tolist(),
+            iters_sharded=zr[0][prec]["cg_iters"].tolist())
+        print(f"22b z axis, {Z_SHARDS} gloo ranks on cuda:0 ({card}): "
+              f"'{prec}' {steps} steps, float64, sharded / rows-first "
+              "dots against the unsharded run: "
+              + ", ".join(f"{k} {errs[k]:.2e} / {yard[k]:.2e}"
+                          for k in Z_FAMILIES)
+              + f" (bound {tol:g}; band, axis 2x rows-first); "
+              f"{max(res['b'][prec]['sharded_s']):.1f} s sharded against "
+              f"{ref['seconds']:.1f} s unsharded; iterations "
+              f"{res['b'][prec]['iters_sharded']} / {res['b'][prec]['iters']}")
+    res["b"]["seconds"] = time.perf_counter() - t0
+
+    # (c) NCCL in a world of one rank
+    t0 = time.perf_counter()
+    nc = spawn(_multihost_rank, 1, init=False, device="cuda", timeout=300.0,
+               args=(_free_port(), 1, "nccl",
+                     {"sweep": (SHARD_B, SHARD_RECIPE, False)}))[0]
+    require(np.array_equal(nc["sweep"]["result"], want),
+            ("22c not bitwise", _np_rel(nc["sweep"]["result"], want)))
+    require(nc["sweep"]["counts"]["identity"] > 0, "22c: no K2 solve")
+    res["c"] = dict(seconds=time.perf_counter() - t0,
+                    sweep_s=nc["sweep"]["seconds"],
+                    configs_per_s_1_rank=SHARD_B / nc["sweep"]["seconds"])
+    print(f"22c NCCL, a world of one rank ({card}): B = {SHARD_B} sweep "
+          f"bitwise ({res['c']['configs_per_s_1_rank']:.2f} configs/s, the "
+          f"process's first sweep); {res['c']['seconds']:.1f} s")
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 22: {res['phase_s']:.1f} s ({card})")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this "
@@ -4695,6 +4964,7 @@ def main() -> None:
     print(f"phases 17-19: {out['phases_17_19_s']:.1f} s")
     unstructured_rows = run_unstructured(device, out)
     run_analysis(device, out)
+    run_sharded(sweep_problem, device, out)
 
     counts = out["slice"]["phase_launches"]
     solves = out["slice"]["solves"]

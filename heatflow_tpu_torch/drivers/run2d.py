@@ -23,8 +23,11 @@ lattice operators (the CUDA kernels on a card in float32). A mesh folder
 whose ``mesh_cfg.yaml`` has no ``structured_grid`` (an imported gmsh mesh)
 runs through the unstructured path too: on the lattice when the sidecar
 exists, else on the ELL gather. ``--visualize-mesh`` writes
-``mesh_visualization.png`` into the mesh folder. z-sharding (ROADMAP P11) is
-not ported yet and raises.
+``mesh_visualization.png`` into the mesh folder. ``--z-shards N``
+(structured meshes) shards the field's z rows over N ranks
+(``make_simulate_fn(mesh=)``, the eager path): N processes started here
+(``parallel.sharding.spawn``; ranks share a card over gloo), or the
+processes of an existing group (``torchrun``); rank 0 writes the artifacts.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from heatflow_tpu_torch.mesh.structured import (build_structured_mesh,
 from heatflow_tpu_torch.mesh.unstructured_gen import build_unstructured_mesh
 from heatflow_tpu_torch.sim.bc import HeatingCurve
 from heatflow_tpu_torch.sim.problem import build_problem
-from heatflow_tpu_torch.sim.stepper import _not_ported, run_transient
+from heatflow_tpu_torch.sim.stepper import run_transient
 from heatflow_tpu_torch.sim.unstructured import (
     auto_selects_vmem, build_problem_unstructured,
     make_simulate_fn_unstructured)
@@ -77,9 +80,11 @@ def default_dtype(device) -> torch.dtype:
 
 
 def _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
-                  mesh_style="structured"):
+                  mesh_style="structured", write=True):
     """Build-or-load the mesh, persisting/consuming mesh.msh + mesh_cfg.yaml
-    as the reference does (ref run_no_diamond.py:140-180).
+    as the reference does (ref run_no_diamond.py:140-180). ``write=False``
+    builds without writing the folder (the ranks of a group that rank 0
+    writes for: every rank then holds the mesh the one-device run would).
 
     mesh_style: 'structured' (the graded tensor grid) or 'unstructured' (a
     graded non-grid triangulation, the analogue of the reference's gmsh
@@ -94,10 +99,12 @@ def _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
     domain, mats = build_layout(cfg, layout)
 
     if rebuild_mesh:
-        os.makedirs(mesh_folder, exist_ok=True)
         mesh_cfg = copy.deepcopy(cfg)
         if mesh_style == "unstructured":
             umesh = build_unstructured_mesh(domain, mats)
+            if not write:
+                return umesh
+            os.makedirs(mesh_folder, exist_ok=True)
             mesh_cfg["material_tags"] = dict(umesh.material_tags)
             # no structured_grid key: the folder reloads through the import
             with open(mesh_cfg_path, "w") as f:
@@ -109,6 +116,9 @@ def _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
                      index=umesh.grid_overlay["index"])
             return umesh
         mesh = build_structured_mesh(domain, mats)
+        if not write:
+            return mesh
+        os.makedirs(mesh_folder, exist_ok=True)
         mesh_cfg["material_tags"] = dict(mesh.material_tags)
         mesh_cfg["structured_grid"] = mesh.to_meta()
         with open(mesh_cfg_path, "w") as f:
@@ -150,20 +160,26 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
                    solver="auto", profile_dir=None, resume_from=None,
                    write_checkpoint=True, mesh_style="structured",
                    warm_start=None, precondition=None,
-                   z_shards=1, f64_refine=0, device="cuda"):
+                   z_shards=1, f64_refine=0, device="cuda", write_mesh=True):
     """Run the 2D transient simulation on ``device``; see the module
     docstring for the outputs. Returns the :class:`TransientResult` (for
     an unstructured mesh the dict of numpy traces, as the JAX driver).
 
     watcher_points: dict name -> (z, r), or list of {'name','coords'} dicts
     (same accepted forms as the reference, ref run_no_diamond.py:385-393).
+
+    ``z_shards > 1`` (structured meshes): the field's z rows over that many
+    ranks, started here (each rank runs this function) unless this process
+    is already in a group of that size; every rank returns the result and
+    rank 0 writes the artifacts. ``write_mesh=False``: a (re)built mesh is
+    not written to ``mesh_folder`` (its writer is another process).
     """
-    with suppress_output(suppress_print):
+    import torch.distributed as dist
+    rank = dist.get_rank() if z_shards > 1 and dist.is_initialized() else 0
+    with suppress_output(suppress_print or rank != 0):
         t_start = time.time()
         device = resolve_device(device)
         validate_config(cfg, require_heating_file=True)
-        if z_shards > 1:
-            raise _not_ported("z-sharding (--z-shards > 1)", "P11")
         if f64_refine and dtype is None:
             dtype = torch.float32   # refinement is the mixed-precision mode
         dtype = dtype or default_dtype(device)
@@ -177,9 +193,10 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
             # the inner correction tolerance
             rtol = 1e-11 if dtype == torch.float64 else 1e-4
 
+        # rank 0 writes a rebuilt mesh; the others build the same in memory
         mesh = _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
-                             mesh_style)
-        if visualize_mesh:
+                             mesh_style, write=write_mesh and rank == 0)
+        if visualize_mesh and rank == 0:
             from heatflow_tpu_torch.mesh.viz import plot_mesh
             png = os.path.join(mesh_folder, "mesh_visualization.png")
             plot_mesh(mesh, png)
@@ -189,8 +206,10 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
             from heatflow_tpu_torch.utils import \
                 resolve_recording_precondition
             # will the stepper take its kernel path (the 'vmem' solver)?
-            vmem_single = not unstructured and (solver == "vmem" or (
-                solver == "auto" and device.type == "cuda" and f32))
+            # (a z-sharded run takes the eager path)
+            vmem_single = not unstructured and z_shards == 1 and (
+                solver == "vmem" or (solver == "auto"
+                                     and device.type == "cuda" and f32))
             # the unstructured r-line engine is the overlay kernel path:
             # the default follows what 'auto' (or 'xla') will run
             unstructured_xla = unstructured and (
@@ -200,6 +219,32 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
                 record_gradient, dtype, unstructured_xla=unstructured_xla,
                 unstructured=unstructured, f64_refine=f64_refine,
                 vmem_single=vmem_single, rtol_wrt="r0")
+        if unstructured and z_shards > 1:
+            # z-sharding is wired for the structured stepper only
+            # (make_simulate_fn(mesh=)); a quiet one-device run would
+            # contradict the flag
+            raise ValueError(
+                "--z-shards applies to structured meshes only (the "
+                "unstructured path runs whole problems on one device); "
+                "drop the flag or use --mesh-style structured")
+        if z_shards > 1 and not dist.is_initialized():
+            # one process a shard, each running this driver in the group
+            from heatflow_tpu_torch.parallel.sharding import spawn
+            kw = dict(layout=layout, dtype=dtype, rtol=rtol,
+                      maxiter=maxiter, record_gradient=record_gradient,
+                      solver=solver, profile_dir=profile_dir,
+                      resume_from=resume_from,
+                      write_checkpoint=write_checkpoint,
+                      mesh_style=mesh_style, warm_start=warm_start,
+                      precondition=precondition, z_shards=z_shards,
+                      f64_refine=f64_refine, device=str(device),
+                      write_mesh=False)
+            print(f"z-sharding the field over {z_shards} ranks")
+            return spawn(_z_rank, z_shards, device=device,
+                         timeout=None,
+                         args=((cfg, mesh_folder, rebuild_mesh, False,
+                                output_folder, watcher_points, write_xdmf,
+                                suppress_print), kw))[0]
         if unstructured:
             return _run_unstructured(
                 cfg, mesh, output_folder, watcher_points, write_xdmf,
@@ -225,7 +270,7 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
         problem = build_problem(mesh, heating, cfg,
                                 watcher_points=watcher_points)
         print("Material properties assigned.")
-        if record_gradient:
+        if record_gradient and rank == 0:
             from heatflow_tpu_torch.sim.problem import radial_band_analysis
             band = radial_band_analysis(mesh)
             print(f"--- Radial Band Analysis ---\n"
@@ -240,8 +285,9 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
         else:
             save_folder = os.path.join(os.getcwd(), "sim_outputs",
                                        "heatflow_tpu_run")
-        os.makedirs(save_folder, exist_ok=True)
-        save_config(cfg, os.path.join(save_folder, "used_config.yaml"))
+        if rank == 0:
+            os.makedirs(save_folder, exist_ok=True)
+            save_config(cfg, os.path.join(save_folder, "used_config.yaml"))
 
         u0, t0 = None, 0.0
         if resume_from is not None:
@@ -250,18 +296,29 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
             print(f"Resuming from checkpoint at t={t0:.4e} s"
                   + (f" (step {step0})" if step0 is not None else ""))
 
+        dev_mesh = None
+        if z_shards > 1:
+            # this process's rows of the field, in the group
+            from heatflow_tpu_torch.parallel.sharding import config_mesh
+            dev_mesh = config_mesh(z_shards=z_shards, device=device)
+            print(f"z-sharding the field over {z_shards} ranks "
+                  f"({dev_mesh.backend})")
+
         print("Beginning loop...")
         t_loop = time.time()
         from heatflow_tpu_torch.utils import profile_trace
-        with profile_trace(profile_dir):
+        with profile_trace(profile_dir if rank == 0 else None):
             result = run_transient(problem, dtype=dtype, device=device,
                                    rtol=rtol, maxiter=maxiter,
                                    record_gradient=record_gradient,
                                    record_fields=write_xdmf, solver=solver,
                                    warm_start=warm_start,
                                    precondition=precondition,
-                                   f64_refine=f64_refine, u0=u0, t0=t0)
+                                   f64_refine=f64_refine, u0=u0, t0=t0,
+                                   mesh=dev_mesh)
         t_end = time.time()
+        if rank != 0:
+            return result       # rank 0 writes the artifacts
 
         # ---------------- outputs ----------------
         if watcher_points:
@@ -307,6 +364,11 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
               f"max {result.cg_iters.max()} mean {result.cg_iters.mean():.1f}")
         print("----------------------\n")
         return result
+
+
+def _z_rank(args, kw):
+    """One z-shard rank of :func:`run_simulation` (started by ``spawn``)."""
+    return run_simulation(*args, **kw)
 
 
 def _run_unstructured(cfg, umesh, output_folder, watcher_points, write_xdmf,
@@ -448,7 +510,10 @@ def main(argv=None):
                    help="mixed-precision iterative refinement: N passes of "
                         "f64-residual / f32-correction per step")
     p.add_argument("--z-shards", type=int, default=1,
-                   help="not ported yet beyond 1 (ROADMAP P11)")
+                   help="shard the field's z rows over this many ranks "
+                        "(structured meshes, eager path; Nz must divide): "
+                        "processes started here, or those of a torchrun "
+                        "group")
     p.add_argument("--rtol", type=float, default=None,
                    help="CG stopping tolerance (increment-relative, "
                         "rtol_wrt='r0'; with --f64-refine the inner "

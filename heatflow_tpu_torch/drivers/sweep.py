@@ -12,6 +12,10 @@ a card, their plain versions on the CPU). A width's mesh folder that holds
 an unstructured mesh (no ``structured_grid`` in its mesh_cfg.yaml) runs
 through ``make_sweep_fn_unstructured``: the batched kernels on the 9-point
 lattice of its grid overlay, else the eager batched PCG on the ELL gather.
+``devices`` with more than one entry shards each batch's configs over one
+rank a device (``mesh=``, the config axis): processes started here
+(``parallel.sharding.spawn``), or those of a ``torchrun`` group; rank 0
+writes the artifacts.
 
 Artifacts match the reference: sweep_metadata.json, successful_runs.csv,
 failed_runs.csv, per-run directories named fwhm_{:.2e}_k_{:.2f}_width_{:.2e}
@@ -36,8 +40,7 @@ import numpy as np
 import torch
 
 from heatflow_tpu_torch.config import load_config, save_config, with_parameters
-from heatflow_tpu_torch.drivers.run2d import (_not_ported, _prepare_mesh,
-                                              default_dtype)
+from heatflow_tpu_torch.drivers.run2d import _prepare_mesh, default_dtype
 from heatflow_tpu_torch.geometry import coupler_watcher_points
 from heatflow_tpu_torch.io.csvio import (read_records, write_gradient_csv,
                                          write_records, write_watcher_csv)
@@ -102,21 +105,25 @@ def _group_sigs(cfg_w, mesh_folder):
             _file_sig(os.path.join(mesh_folder, "mesh_cfg.yaml")))
 
 
-def _cached_group(cfg_w, mesh_folder):
+def _mesh_missing(mesh_folder) -> bool:
+    return not (os.path.exists(os.path.join(mesh_folder, "mesh.msh"))
+                and os.path.exists(os.path.join(mesh_folder, "mesh_cfg.yaml")))
+
+
+def _cached_group(cfg_w, mesh_folder, rebuild=None, write=True):
     """(mesh, problem, heating) for one width group, LRU-cached across
     :func:`run_parameter_sweep` calls. ``cfg_w`` carries the group's width
     and the base config's fwhm/k, so the key does not depend on the sweep
-    ranges."""
+    ranges. The mesh is built (and, with ``write``, written) when the
+    folder lacks it, or as ``rebuild`` says."""
     key = (json.dumps(cfg_w, sort_keys=True, default=str), mesh_folder)
     hit = _GROUP_CACHE.pop(key, None)
     if hit is not None and hit[1] == _group_sigs(cfg_w, mesh_folder):
         _GROUP_CACHE[key] = hit          # re-insert: most recently used
         return hit[0]
-    os.makedirs(mesh_folder, exist_ok=True)
-    rebuild = not (os.path.exists(os.path.join(mesh_folder, "mesh.msh"))
-                   and os.path.exists(os.path.join(mesh_folder,
-                                                   "mesh_cfg.yaml")))
-    mesh_w = _prepare_mesh(cfg_w, mesh_folder, rebuild, "auto")
+    if rebuild is None:
+        rebuild = _mesh_missing(mesh_folder)
+    mesh_w = _prepare_mesh(cfg_w, mesh_folder, rebuild, "auto", write=write)
     heating = HeatingCurve.from_csv(cfg_w["heating"]["file"])
     build = (build_problem_unstructured
              if isinstance(mesh_w, UnstructuredMesh) else build_problem)
@@ -168,17 +175,44 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
                         timings: dict | None = None):
     """Run the sweep on ``device``; returns (successful records, failed
     records). ``num_processes`` is accepted for API parity and ignored (the
-    parallelism is the batch); ``devices`` may name one device (more is
-    ROADMAP P11). ``resume=True`` skips the runs already in the output
-    dir's successful_runs.csv and retries failed ones. ``timings``, a dict,
-    receives the sweep's wall, compute and write seconds."""
+    parallelism is the batch). ``devices``, more than one: each batch's
+    configs are sharded over one rank a device (rank r on ``devices[r]``;
+    ranks that share a card talk over gloo), started here unless this
+    process is already in a group of that size. ``resume=True`` skips the
+    runs already in the output dir's successful_runs.csv and retries failed
+    ones. ``timings``, a dict, receives the sweep's wall, compute and write
+    seconds."""
     del write_xdmf  # per-run XDMF in sweeps is supported only via run2d
+    mesh = None
     if devices is not None:
-        devices = list(devices)
-        if len(devices) > 1:
-            raise _not_ported("sweeps over more than one device", "P11")
+        devices = [str(d) for d in devices]
         device = devices[0] if devices else device
+        if len(devices) > 1:
+            import torch.distributed as dist
+            if not dist.is_initialized():
+                from heatflow_tpu_torch.parallel.sharding import spawn
+                kw = dict(base_mesh_folder=base_mesh_folder,
+                          suppress_print=suppress_print, dtype=dtype,
+                          batch_size=batch_size, save_run_dirs=save_run_dirs,
+                          devices=devices, solver=solver,
+                          fixed_iters=fixed_iters, warm_start=warm_start,
+                          record_gradient=record_gradient, rtol=rtol,
+                          rtol_wrt=rtol_wrt, f64_refine=f64_refine,
+                          precondition=precondition, resume=resume)
+                results, failed, t = spawn(
+                    _sweep_rank, len(devices), device=device,
+                    timeout=None,
+                    args=((base_config_path, output_dir, fwhm_range,
+                           k_range, width_range, num_points), kw))[0]
+                if timings is not None:
+                    timings.update(t)
+                return results, failed
+            from heatflow_tpu_torch.parallel.sharding import config_mesh
+            mesh = config_mesh(devices=devices)
+            device = mesh.device
     device = resolve_device(device)
+    lead = mesh is None or mesh.rank == 0     # the rank that writes
+    suppress_print = suppress_print or not lead
     if f64_refine and dtype is None:
         dtype = torch.float32   # the mixed mode is f32 around f64
     dtype = dtype or default_dtype(device)
@@ -245,13 +279,15 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
         "width_range": list(width_range), "num_points": list(num_points),
         "fwhm_values": fwhm_vals.tolist(), "k_values": k_vals.tolist(),
         "width_values": width_vals.tolist(), "total_runs": len(combos),
-        "engine": "heatflow_tpu_torch batched sweep",
+        "engine": "heatflow_tpu_torch batched sweep"
+                  + ("" if mesh is None else
+                     f" sharded over {mesh.shape['config']} devices"),
         "solver": solver,
         "fixed_iters": fixed_iters,
         "record_gradient": record_gradient,
         "f64_refine": f64_refine,
         "precondition": precondition,
-        "devices": [str(device)],
+        "devices": [str(device)] if mesh is None else devices,
         "timestamp": datetime.now().isoformat(),
         "watcher_points": {
             "description": "Temperature monitoring points positioned halfway "
@@ -260,8 +296,9 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
                           "oside": "Center of o-side coupler (r=0)"},
         },
     }
-    with open(os.path.join(output_dir, "sweep_metadata.json"), "w") as f:
-        json.dump(metadata, f, indent=2)
+    if lead:
+        with open(os.path.join(output_dir, "sweep_metadata.json"), "w") as f:
+            json.dump(metadata, f, indent=2)
 
     results, failed = [], []
     solver_resolved = {}     # width → engine actually used
@@ -297,7 +334,15 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
             # fwhm/k are runtime batch arguments relative to the problem's
             # base values, so the group cache does not depend on the ranges
             cfg_w = with_parameters(base_config, sample_z=width)
-            mesh_w, problem, _heating = _cached_group(cfg_w, mesh_folder)
+            rebuild = None
+            if mesh is not None:
+                # every rank looks before rank 0 writes, then builds what
+                # the one-device run would
+                import torch.distributed as dist
+                rebuild = _mesh_missing(mesh_folder)
+                dist.barrier()
+            mesh_w, problem, _heating = _cached_group(
+                cfg_w, mesh_folder, rebuild=rebuild, write=lead)
             solver_w = _resolve_solver(solver, dtype=dtype, device=device,
                                        precondition=precondition,
                                        f64_refine=f64_refine,
@@ -317,7 +362,8 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
                     problem, dtype=dtype, fixed_iters=fixed_iters,
                     warm_start=warm_start, solver=solver_w,
                     record_gradient=record_gradient, f64_refine=f64_refine,
-                    precondition=prec_u, device=device, **rec_rtol)
+                    precondition=prec_u, device=device, mesh=mesh,
+                    **rec_rtol)
             elif record_gradient:
                 # every run also gets the reference's gradient CSVs (ref
                 # run_no_diamond.py:602-617 under parameter_sweep.py:157-166)
@@ -325,7 +371,7 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
                     problem, dtype=dtype, fixed_iters=fixed_iters,
                     warm_start=warm_start, solver=solver_w,
                     f64_refine=f64_refine, precondition=precondition,
-                    device=device, **rec_rtol)
+                    device=device, mesh=mesh, **rec_rtol)
             else:
                 sweep_fn = make_sweep_fn(problem, dtype=dtype,
                                          solver=solver_w,
@@ -333,7 +379,8 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
                                          warm_start=warm_start,
                                          f64_refine=f64_refine,
                                          precondition=precondition,
-                                         device=device, **rtol_kw)
+                                         device=device, mesh=mesh,
+                                         **rtol_kw)
 
             ks = np.array([c["k"] for c in group])
             fs = np.array([c["fwhm"] for c in group])
@@ -396,7 +443,7 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
                             with_parameters(base_config, fwhm=combo["fwhm"],
                                             sample_k=combo["k"],
                                             sample_z=width)))
-                if jobs:
+                if jobs and lead:
                     pending_writes.append(writer.submit(write_artifacts,
                                                         jobs))
             for rec in group_results + group_failed:
@@ -412,19 +459,21 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
     finally:
         writer.shutdown(wait=True)
 
-    if solver_resolved:
+    results = prior_records + results
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier()       # every rank read the records before they change
+    if solver_resolved and lead:
         # the engine each width group ran ('auto' resolves per group)
         metadata["solver_resolved"] = solver_resolved
         with open(os.path.join(output_dir, "sweep_metadata.json"), "w") as f:
             json.dump(metadata, f, indent=2)
-
-    results = prior_records + results
-    if results:
-        write_records(succ_csv, results)
     failed_csv = os.path.join(output_dir, "failed_runs.csv")
-    if failed:
+    if results and lead:
+        write_records(succ_csv, results)
+    if failed and lead:
         write_records(failed_csv, failed)
-    elif resume and os.path.isfile(failed_csv):
+    elif resume and lead and os.path.isfile(failed_csv):
         # every previously failed run succeeded on retry
         os.remove(failed_csv)
 
@@ -439,6 +488,14 @@ def run_parameter_sweep(base_config_path, output_dir, fwhm_range, k_range,
               f"{compute_s:.2f}s, artifact writes {write_s:.2f}s of CPU (in "
               "a background thread)")
     return results, failed
+
+
+def _sweep_rank(args, kw):
+    """One rank of a sweep over several devices (started by ``spawn``):
+    (successful records, failed records, timings)."""
+    timings = {}
+    results, failed = run_parameter_sweep(*args, **kw, timings=timings)
+    return results, failed, timings
 
 
 def main(argv=None, timings: dict | None = None):

@@ -32,6 +32,11 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum(dim=(-2, -1))
 
 
+def _dots(*pairs) -> tuple:
+    """The per-lane inner products of pairs of fields, each a local sum."""
+    return tuple(_dot(a, b) for a, b in pairs)
+
+
 def _lane(v: torch.Tensor) -> torch.Tensor:
     """A per-lane scalar broadcast against (..., Nz, Nr) fields."""
     return v[..., None, None]
@@ -88,7 +93,8 @@ def pcg(apply_op: Callable[[torch.Tensor], torch.Tensor],
         rtol: float = 1e-10,
         atol: float = 0.0,
         maxiter: int = 2000,
-        rtol_wrt: str = "b") -> CGResult:
+        rtol_wrt: str = "b",
+        dot=None) -> CGResult:
     """Solve A x = b with preconditioned CG restricted to ``mask`` dofs.
 
     ``x0`` provides both the initial guess and the values of constrained dofs
@@ -97,19 +103,27 @@ def pcg(apply_op: Callable[[torch.Tensor], torch.Tensor],
     rtol_wrt: 'b' stops at ||r|| <= rtol ||b||; 'r0' stops at
     ||r|| <= rtol ||r0|| (ties the tolerance to the increment scale of a
     warm-started time step).
+
+    ``dot(*pairs)``: the per-lane inner products over the last two dims of
+    each pair of fields, as a tuple (the local sums by default; a z-sharded
+    solve passes ``parallel.sharding.ZAxis.dots``, one collective for the
+    pairs of a call, the same bits on every rank).
     """
     msk = (torch.ones((), dtype=b.dtype, device=b.device) if mask is None
            else mask.to(b.dtype))
     pre = precond if precond is not None else (lambda r: r)
+    dot = _dots if dot is None else dot
 
     bm = b * msk
     r = (bm - apply_op(x0) * msk) * msk
     z = pre(r) * msk
     p = z
     x = x0
-    rz = _dot(r, z)
-    rr2 = _dot(r, r)
-    ref2 = rr2 if rtol_wrt == "r0" else _dot(bm, bm)
+    if rtol_wrt == "r0":
+        rz, rr2 = dot((r, z), (r, r))
+        ref2 = rr2
+    else:
+        rz, rr2, ref2 = dot((r, z), (r, r), (bm, bm))
     stop2 = torch.clamp(rtol * rtol * ref2, min=atol * atol)
     k = torch.zeros(rr2.shape, dtype=torch.int32, device=b.device)
 
@@ -118,15 +132,14 @@ def pcg(apply_op: Callable[[torch.Tensor], torch.Tensor],
         if not bool(active.any()):
             break
         Ap = apply_op(p) * msk
-        pAp = _dot(p, Ap)
+        pAp, = dot((p, Ap))
         alpha = rz / torch.where(pAp != 0, pAp, torch.ones_like(pAp))
         x_n = x + _lane(alpha) * p
         r_n = r - _lane(alpha) * Ap
         z_n = pre(r_n) * msk
-        rz_n = _dot(r_n, z_n)
+        rz_n, rr2_n = dot((r_n, z_n), (r_n, r_n))
         beta = rz_n / torch.where(rz != 0, rz, torch.ones_like(rz))
         p_n = z_n + _lane(beta) * p
-        rr2_n = _dot(r_n, r_n)
         am = _lane(active)
         x, r, z, p = (torch.where(am, x_n, x), torch.where(am, r_n, r),
                       torch.where(am, z_n, z), torch.where(am, p_n, p))
@@ -134,13 +147,13 @@ def pcg(apply_op: Callable[[torch.Tensor], torch.Tensor],
         rr2 = torch.where(active, rr2_n, rr2)
         k = k + active.to(torch.int32)
 
-    rnorm = torch.sqrt(_dot(r, r))
+    rr2, = dot((r, r))
+    rnorm = torch.sqrt(rr2)
     # a non-finite residual stops the loop at its first check and would
     # return the finite seed as if converged: poison the solution instead
     x = torch.where(_lane(torch.isfinite(rnorm)), x,
                     torch.full_like(x, float("nan")))
-    return CGResult(x=x, iters=k, residual=rnorm,
-                    converged=_dot(r, r) <= stop2)
+    return CGResult(x=x, iters=k, residual=rnorm, converged=rr2 <= stop2)
 
 
 def pcg_fixed(apply_op: Callable[[torch.Tensor], torch.Tensor],
@@ -149,32 +162,35 @@ def pcg_fixed(apply_op: Callable[[torch.Tensor], torch.Tensor],
               *,
               precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
               mask: torch.Tensor | None = None,
-              iters: int = 50) -> CGResult:
+              iters: int = 50, dot=None) -> CGResult:
     """Fixed-iteration PCG: ``iters`` iterations on every lane, no stop test
     and no freeze, with the guards of :func:`pcg` (pAp == 0 → 1,
-    rz == 0 → 1). ``iters`` in the result is that count, per lane."""
+    rz == 0 → 1). ``iters`` in the result is that count, per lane;
+    ``dot`` as in :func:`pcg`."""
     msk = (torch.ones((), dtype=b.dtype, device=b.device) if mask is None
            else mask.to(b.dtype))
     pre = precond if precond is not None else (lambda r: r)
+    dot = _dots if dot is None else dot
 
     bm = b * msk
     r = (bm - apply_op(x0) * msk) * msk
     z = pre(r) * msk
     p = z
     x = x0
-    rz = _dot(r, z)
+    rz, = dot((r, z))
     for _ in range(iters):
         Ap = apply_op(p) * msk
-        pAp = _dot(p, Ap)
+        pAp, = dot((p, Ap))
         alpha = rz / torch.where(pAp != 0, pAp, torch.ones_like(pAp))
         x = x + _lane(alpha) * p
         r = r - _lane(alpha) * Ap
         z = pre(r) * msk
-        rz_new = _dot(r, z)
+        rz_new, = dot((r, z))
         beta = rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))
         p = z + _lane(beta) * p
         rz = rz_new
-    rnorm = torch.sqrt(_dot(r, r))
+    rr2, = dot((r, r))
+    rnorm = torch.sqrt(rr2)
     return CGResult(x=x, iters=torch.full(rnorm.shape, iters,
                                           dtype=torch.int32,
                                           device=b.device),

@@ -189,26 +189,43 @@ def _shifted2(u: torch.Tensor, di: int, dj: int) -> torch.Tensor:
     return shifted(shifted(u, di, -2), dj, -1)
 
 
-def apply_stencil(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """A @ u for a 7-point (or 9-point) stencil C (..., 7|9, Nz, Nr)."""
+def _neighbours(u: torch.Tensor, halo):
+    """``shift(di, dj)`` -> u[i+di, j+dj], zero outside the grid. ``halo``
+    (a z-sharded slab's, ``parallel.sharding.ZAxis.halo``) pads the slab
+    with its neighbours' rows; the shifts read them and are cut back to the
+    slab's rows, so each product is the unsharded apply's."""
+    if halo is None:
+        return lambda di, dj: _shifted2(u, di, dj)
+    ue = halo(u)
+    return lambda di, dj: _shifted2(ue, di, dj)[..., 1:-1, :]
+
+
+def apply_stencil(C: torch.Tensor, u: torch.Tensor, halo=None
+                  ) -> torch.Tensor:
+    """A @ u for a 7-point (or 9-point) stencil C (..., 7|9, Nz, Nr);
+    ``halo``: see :func:`_neighbours`."""
     offs = offsets_for(C.shape[-3])
+    nb = _neighbours(u, halo)
     out = C[..., 0, :, :] * u
     for k, (di, dj) in enumerate(offs[1:], start=1):
-        out = out + C[..., k, :, :] * _shifted2(u, di, dj)
+        out = out + C[..., k, :, :] * nb(di, dj)
     return out
 
 
 def apply_combined(A0: torch.Tensor, Kv: torch.Tensor | None,
-                   dks: torch.Tensor | None, v: torch.Tensor) -> torch.Tensor:
+                   dks: torch.Tensor | None, v: torch.Tensor,
+                   halo=None) -> torch.Tensor:
     """(A0 + dk_b·Kv) v_b for every lane b of v (B, Nz, Nr), dks (B,): the
     operator combined plane by plane as it is applied, as the sweep kernels
-    combine it (never a (B, 7|9, Nz, Nr) operator). ``Kv=None``: A0 v_b."""
+    combine it (never a (B, 7|9, Nz, Nr) operator). ``Kv=None``: A0 v_b.
+    ``halo``: see :func:`_neighbours`."""
     if Kv is None:
-        return apply_stencil(A0, v)
+        return apply_stencil(A0, v, halo=halo)
     dk = dks.reshape(-1, 1, 1)
+    nb = _neighbours(v, halo)
     out = (A0[0] + dk * Kv[0]) * v
     for k, (di, dj) in enumerate(offsets_for(A0.shape[0])[1:], start=1):
-        out = out + (A0[k] + dk * Kv[k]) * _shifted2(v, di, dj)
+        out = out + (A0[k] + dk * Kv[k]) * nb(di, dj)
     return out
 
 

@@ -170,8 +170,20 @@ def band_average(flat: torch.Tensor, slots: torch.Tensor,
     pairwise in a fixed order, so a lane's rows depend neither on the batch
     nor on the device's thread order (a CUDA ``index_add_`` adds in
     arbitrary order)."""
-    v = torch.where(fill, flat[..., slots], torch.zeros((), dtype=flat.dtype,
-                                                        device=flat.device))
+    return band_reduce(band_values(flat, slots, fill), bin_counts)
+
+
+def band_values(flat: torch.Tensor, slots: torch.Tensor, fill: torch.Tensor
+                ) -> torch.Tensor:
+    """Each bin's band node values in their padded slots (..., n_bins, P),
+    zeros in the unfilled ones."""
+    return torch.where(fill, flat[..., slots],
+                       torch.zeros((), dtype=flat.dtype, device=flat.device))
+
+
+def band_reduce(v: torch.Tensor, bin_counts: torch.Tensor) -> torch.Tensor:
+    """The slots' pairwise sums in a fixed order over the count: the band
+    average of :func:`band_values`."""
     while v.shape[-1] > 1:
         half = v.shape[-1] // 2
         v = v[..., :half] + v[..., half:]

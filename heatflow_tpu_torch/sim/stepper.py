@@ -34,7 +34,8 @@ from torch import nn
 from heatflow_tpu_torch.ops.cg import (pcg, pcg_fixed, refine_inner_scale,
                                        refine_inner_seed)
 from heatflow_tpu_torch.ops.stencil import apply_stencil, combine_operator
-from heatflow_tpu_torch.sim.problem import Problem2D, band_average
+from heatflow_tpu_torch.sim.problem import (Problem2D, band_average,
+                                            band_reduce, band_values)
 from heatflow_tpu_torch.utils import resolve_device
 
 
@@ -70,11 +71,6 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     ends = fp.shape[:-1] + (1,) * x.ndim
     f = torch.where(x < xp[0], fp[..., 0].reshape(ends), f)
     return torch.where(x > xp[-1], fp[..., -1].reshape(ends), f)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to heatflow_tpu_torch "
-                               f"yet (ROADMAP {item})")
 
 
 def make_step_fn(problem: Problem2D, *, dtype: torch.dtype = torch.float32,
@@ -129,13 +125,18 @@ def mgz_operands(problem: Problem2D, dtype: torch.dtype, device) -> dict:
 
 
 def _resolve_solver(solver: str, precondition: str, device: torch.device,
-                    dtype: torch.dtype) -> bool:
-    """True when the step solves go through ``cg_tol`` (the 'vmem' path)."""
+                    dtype: torch.dtype, z_sharded: bool = False) -> bool:
+    """True when the step solves go through ``cg_tol`` (the 'vmem' path).
+    A z-sharded problem takes the eager path ('auto' resolves to it)."""
     if solver not in ("xla", "vmem", "auto"):
         raise ValueError(f"unknown solver {solver!r}")
-    use_vmem = solver == "vmem" or (
+    if z_sharded and solver == "vmem":
+        raise ValueError("z-sharding a single problem runs the XLA (eager) "
+                         "solver path (the cg_tol kernel keeps whole "
+                         "problems on one device); use solver='xla'")
+    use_vmem = not z_sharded and (solver == "vmem" or (
         solver == "auto" and device.type == "cuda"
-        and dtype == torch.float32)
+        and dtype == torch.float32))
     if use_vmem and precondition in ("zline", "mg"):
         # the kernel has no z-line-only form and no geometric multigrid
         if solver == "vmem":
@@ -162,8 +163,10 @@ class Simulator(nn.Module):
 
     def __init__(self, problem: Problem2D, dev: dict[str, torch.Tensor], *,
                  dtype: torch.dtype, cdt: torch.dtype, use_vmem: bool,
-                 opts: dict, mg=None):
+                 opts: dict, mg=None, zax=None):
         super().__init__()
+        if zax is not None:
+            dev = _z_slabs(dev, zax)
         for name, t in dev.items():
             self.register_buffer(name, t, persistent=False)
         self._names = tuple(dev)
@@ -174,6 +177,8 @@ class Simulator(nn.Module):
         self.opts = opts
         # 'mg': the hierarchy's device levels; 'mgz': the V-cycle operands
         self.mg = mg
+        # z-sharding: this rank's rows (``parallel.sharding.ZAxis``)
+        self.zax = zax
 
     @property
     def dev(self) -> dict[str, torch.Tensor]:
@@ -199,6 +204,9 @@ class Simulator(nn.Module):
         u0 = torch.full((nz, nr), float(self.problem.ic_temp), dtype=cdt,
                         device=device) if u0 is None else as_c(u0)
         src = None if source is None else as_c(source)
+        if self.zax is not None:
+            u0 = self.zax.rows(u0)
+            src = None if src is None else self.zax.rows(src)
         with torch.no_grad():
             return self._run(d, kp, rc, fw, ic, u0, as_c(t0), src)
 
@@ -208,8 +216,14 @@ class Simulator(nn.Module):
         precondition, f64_refine = o["precondition"], o["f64_refine"]
         rtol, maxiter, rtol_wrt = o["rtol"], o["maxiter"], o["rtol_wrt"]
         problem = self.problem
-        nz, nr = problem.mesh.shape
+        nz, nr = u0.shape
         device = u0.device
+        # z-sharded: slabs of nz rows, halos at the stencil applies, ranks'
+        # partial sums in the CG dots
+        zax = self.zax
+        halo = None if zax is None else zax.halo
+        dot = None if zax is None else zax.dots
+        ap = lambda C, v: apply_stencil(C, v, halo=halo)
         num_steps = int(problem.num_steps)
         dt = torch.tensor(problem.dt, dtype=cdt, device=device)
         has_watch = "watch_flat" in d
@@ -226,7 +240,7 @@ class Simulator(nn.Module):
         # (operator entries span ~15 decades; unit diagonal is f32-safe)
         s_mp = torch.rsqrt(torch.where(M_proj[0] > 0, M_proj[0],
                                        one(M_proj[0])))
-        apply_Mp_s = lambda y: s_mp * apply_stencil(M_proj, s_mp * y)
+        apply_Mp_s = lambda y: s_mp * ap(M_proj, s_mp * y)
 
         A, M_op = combine_operator(K, M, kp, rc, dt)
         diag_a = A[0]
@@ -234,7 +248,7 @@ class Simulator(nn.Module):
         # arithmetic, numerically far better at low precision)
         s = torch.rsqrt(torch.where(diag_a > 0, diag_a, one(diag_a))) \
             * free + dirich
-        apply_A_s = lambda y: s * apply_stencil(A, s * y)
+        apply_A_s = lambda y: s * ap(A, s * y)
         sm_vmem = s * free if use_vmem else None
 
         from heatflow_tpu_torch.ops.cuda_cg import cg_tol, pcr_pack
@@ -252,11 +266,18 @@ class Simulator(nn.Module):
                 z_stack = (pcr_pack(A_, s_, free_, axis=-2)
                            if precondition in ("adi", "adaptive") else None)
                 return None, pcr_pack(A_, s_, free_), z_stack
+            if zax is not None and precondition in ("zline", "adi"):
+                # rows coupled: replicated on the full field
+                A_, s_, free_ = (zax.gather(A_), zax.gather(s_),
+                                 zax.gather(free_))
+                wrap = zax.full
+            else:
+                wrap = lambda f: f
             if precondition == "adi":
-                return adi_preconditioner(A_, s_, free_), None, None
+                return wrap(adi_preconditioner(A_, s_, free_)), None, None
             if precondition in ("rline", "zline"):
                 axis = -1 if precondition == "rline" else -2
-                return line_preconditioner(A_, s_, free_, axis=axis), \
+                return wrap(line_preconditioner(A_, s_, free_, axis=axis)), \
                     None, None
             return None, None, None
 
@@ -267,10 +288,13 @@ class Simulator(nn.Module):
                 level_ops = [{**lv, "A": combine_operator(
                     lv["K"], lv["M"], kp, rc, dt)[0]} for lv in self.mg]
                 vcycle = make_vcycle(level_ops)
-                inv_s = 1.0 / torch.where(s > 0, s, one(s))
+                s_f = s if zax is None else zax.gather(s)
+                inv_s = 1.0 / torch.where(s_f > 0, s_f, one(s_f))
                 # the V-cycle approximates A⁻¹; conjugate it into the scaled
                 # system: precond(r̃) = S⁻¹ vcycle(S⁻¹ r̃)
                 pre = lambda r: inv_s * vcycle(inv_s * r)
+                if zax is not None:
+                    pre = zax.full(pre)     # replicated on the full field
 
         coeff = torch.tensor(-4.0 * math.log(2.0), dtype=cdt,
                              device=device) / (fw * fw)
@@ -279,10 +303,10 @@ class Simulator(nn.Module):
         # heating line, ic on fixed edges (ref run_no_diamond.py:303-309)
         g0 = ic * (dirich - profile)
         g1 = profile
-        Ag0 = apply_stencil(A, g0)
-        Ag1 = apply_stencil(A, g1)
+        Ag0 = ap(A, g0)
+        Ag1 = ap(A, g1)
         # volumetric source: rhs += dt ∫ f φ r dx = dt (M_proj @ f)
-        b_src = 0.0 if source is None else dt * apply_stencil(M_proj, source)
+        b_src = 0.0 if source is None else dt * ap(M_proj, source)
 
         if f64_refine:
             # f32 casts of the scaled system for the inner correction
@@ -361,7 +385,7 @@ class Simulator(nn.Module):
             use_adi = it_prev > o["adaptive_thresh"] if adaptive else None
             amp = interp(ts[n], heat_t, heat_T) - amp_offset
             g = g0 + amp * g1
-            b = apply_stencil(M_op, u_prev) + b_src
+            b = ap(M_op, u_prev) + b_src
             b_lift = (b - (Ag0 + amp * Ag1)) * s
             u_seed = seed_of(u_prev, u_pp, u_ppp)
             y0 = (u_seed / torch.where(s > 0, s, one(s))) * free
@@ -376,11 +400,12 @@ class Simulator(nn.Module):
                     **kernel_kw)
             elif fixed_iters is not None:
                 sol = pcg_fixed(apply_A_s, b_lift, y0, precond=pre,
-                                mask=free, iters=fixed_iters)
+                                mask=free, iters=fixed_iters, dot=dot)
                 x, iters = sol.x, sol.iters
             else:
                 sol = pcg(apply_A_s, b_lift, y0, precond=pre, mask=free,
-                          rtol=rtol, maxiter=maxiter, rtol_wrt=rtol_wrt)
+                          rtol=rtol, maxiter=maxiter, rtol_wrt=rtol_wrt,
+                          dot=dot)
                 x, iters = sol.x, sol.iters
             u = x * s * free + g
             outs["cg_iters"].append(iters)
@@ -397,14 +422,20 @@ class Simulator(nn.Module):
                                maxiter=o["proj_maxiter"])
                     gr = gsol.x * s_mp32
                 else:
-                    br = s_mp * apply_stencil(G_r, u)
+                    br = s_mp * ap(G_r, u)
                     gsol = pcg(apply_Mp_s, br, gr_seed / s_mp,
                                rtol=o["proj_rtol"],
-                               maxiter=o["proj_maxiter"])
+                               maxiter=o["proj_maxiter"], dot=dot)
                     gr = gsol.x * s_mp
-                outs.setdefault("band", []).append(band_average(
-                    gr.reshape(-1), d["band_slots"], d["band_fill"],
-                    d["bin_counts"]))
+                if zax is None:
+                    outs.setdefault("band", []).append(band_average(
+                        gr.reshape(-1), d["band_slots"], d["band_fill"],
+                        d["bin_counts"]))
+                else:
+                    # this rank's band slots; the ranks' exact zeros
+                    # elsewhere, added at the end
+                    outs.setdefault("band", []).append(band_values(
+                        gr.reshape(-1), d["band_slots"], d["band_fill"]))
                 outs.setdefault("axis", []).append(gr[:, 0])
                 outs.setdefault("proj_iters", []).append(gsol.iters)
             else:
@@ -417,8 +448,43 @@ class Simulator(nn.Module):
                 it_prev = int(iters)   # the one host read of a step
         ys = {k: torch.stack(v) for k, v in outs.items()}
         ys["final_u"] = u_prev
+        if zax is not None:
+            ys = _z_gather(ys, zax, d)
         ys["times"] = ts
         return ys
+
+
+def _z_slabs(dev: dict, zax) -> dict:
+    """This rank's rows of the problem's (..., Nz, Nr) planes, its slab ids
+    of the watchers (with their owners) and of the band slots (filled where
+    it owns the node)."""
+    out = {k: zax.rows(v) if v.dtype.is_floating_point and v.ndim >= 2
+           and tuple(v.shape[-2:]) == (zax.nz, zax.nr) else v
+           for k, v in dev.items()}
+    if "watch_flat" in dev:
+        out["watch_flat"], out["watch_owner"] = zax.local_ids(
+            dev["watch_flat"])
+    if "band_slots" in dev:
+        out["band_slots"], owner = zax.local_ids(dev["band_slots"])
+        out["band_fill"] = dev["band_fill"] & (owner == zax.mesh.coords["z"])
+    return out
+
+
+def _z_gather(ys: dict, zax, d: dict) -> dict:
+    """The full outputs of a z-sharded run on every rank: watchers read on
+    their owners, the band slots added over the ranks (each slot is one
+    rank's value and the others' exact zeros), axis rows, fields and the
+    final field gathered along z."""
+    if "watch" in ys:
+        ys["watch"] = zax.owned(ys["watch"], d["watch_owner"])
+    if "band" in ys:
+        ys["band"] = band_reduce(zax.sum(ys["band"]), d["bin_counts"])
+    if "axis" in ys:
+        ys["axis"] = zax.gather(ys["axis"], dim=-1)
+    for k in ("field", "final_u"):
+        if k in ys:
+            ys[k] = zax.gather(ys[k])
+    return ys
 
 
 def make_simulate_fn(problem: Problem2D,
@@ -481,10 +547,19 @@ def make_simulate_fn(problem: Problem2D,
     path (its plain version for CPU tensors), 'auto' the kernel on a CUDA
     device in float32 and eager otherwise.
 
+    ``mesh`` (a ``parallel.sharding.DeviceMesh``; every rank of the mesh
+    builds and calls the function with the same arguments): shard THIS
+    problem's stencils, masks and fields along z over the 'z' axis, on the
+    mesh's device, for problems too big for one device. The eager path
+    only ('auto' resolves to it, 'vmem', 'adaptive' and 'mgz' raise); Nz
+    must divide by the axis size. Each rank holds Nz/zs rows; the stencil
+    applies exchange one halo row with each neighbour, the CG dots add the
+    ranks' partial sums in rank order, and every rank returns the full
+    outputs. 'jacobi' and 'rline' run on the slab; 'zline', 'adi' and 'mg'
+    run replicated on the full field (``ZAxis.full``).
+
     Memoized per problem (``problem.extras``) keyed by every argument.
     """
-    if mesh is not None:
-        raise _not_ported("z-sharding through mesh=", "P11")
     if f64_refine:
         # the refined inner solves stop wrt their own unit-norm rhs
         rtol_wrt = "b"
@@ -499,18 +574,24 @@ def make_simulate_fn(problem: Problem2D,
         raise ValueError(f"unknown precondition {precondition!r}")
     if rtol_wrt not in ("r0", "b"):
         raise ValueError(f"unknown rtol_wrt {rtol_wrt!r}")
-    device = resolve_device(device)
+    from heatflow_tpu_torch.sim.sweepkernel import _mesh_device
+    device = _mesh_device(mesh, device)
     if f64_refine:
         if dtype != torch.float32:
             raise ValueError("f64_refine is the mixed-precision mode: dtype "
                              "must be float32 (the all-f64 path needs no "
                              "refinement)")
         if fixed_iters is not None or vmem_cheb_degree \
-                or precondition == "mg":
+                or precondition == "mg" or mesh is not None:
             raise ValueError("f64_refine composes with the tolerance-based "
                              "jacobi/line (rline/zline/adi) solvers on one "
                              "chip (no fixed_iters / cheb / mg / mesh)")
-    use_vmem = _resolve_solver(solver, precondition, device, dtype)
+    use_vmem = _resolve_solver(solver, precondition, device, dtype,
+                               z_sharded=mesh is not None)
+    zax = None
+    if mesh is not None:
+        from heatflow_tpu_torch.parallel.sharding import ZAxis
+        zax = ZAxis(mesh, *problem.mesh.shape)
     if precondition == "adaptive" and vmem_cheb_degree:
         # the per-step rline/adi branches run the plain kernel forms
         raise ValueError("vmem_cheb_degree is not available with "
@@ -532,7 +613,7 @@ def make_simulate_fn(problem: Problem2D,
                 adaptive_thresh=adaptive_thresh)
     if precondition != "adaptive":
         opts["adaptive_thresh"] = None
-    cache_key = ("simulate_fn", str(dtype), str(device), use_vmem,
+    cache_key = ("simulate_fn", str(dtype), str(device), use_vmem, mesh,
                  tuple(sorted(opts.items(), key=lambda kv: kv[0])))
     cache = problem.extras.setdefault("_fn_cache", {})
     if cache_key in cache:
@@ -549,7 +630,7 @@ def make_simulate_fn(problem: Problem2D,
     elif precondition == "mgz":
         mg = mgz_operands(problem, dtype, device)
     fn = Simulator(problem, problem.device_arrays(cdt, device), dtype=dtype,
-                   cdt=cdt, use_vmem=use_vmem, opts=opts, mg=mg)
+                   cdt=cdt, use_vmem=use_vmem, opts=opts, mg=mg, zax=zax)
     cache[cache_key] = fn
     return fn
 

@@ -43,9 +43,34 @@ from heatflow_tpu_torch.sim.stepper import interp, make_simulate_fn
 from heatflow_tpu_torch.utils import resolve_device
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to heatflow_tpu_torch "
-                               f"yet (ROADMAP {item})")
+# the sweep ops that hold (..., Nz, Nr) planes: a z-sharded rank's rows
+_Z_SHARDED = ("A0", "K_var", "M_op", "free", "dirich", "base", "r_sq")
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """A maker's device: the mesh's under ``mesh=`` (a
+    ``parallel.sharding.DeviceMesh``, checked), else ``device``."""
+    if mesh is None:
+        return resolve_device(device)
+    from heatflow_tpu_torch.parallel.sharding import check_mesh
+    return check_mesh(mesh).device
+
+
+def _config_axis_only(mesh) -> None:
+    """The kernel engines keep whole problems on one device: under a mesh
+    they shard the configs only."""
+    if mesh is not None and mesh.shape["z"] > 1:
+        raise ValueError("solver='vmem' shards the config axis only "
+                         "(whole problems stay on one device); use "
+                         "z_shards=1")
+
+
+def material_index(mesh, name: str) -> int:
+    """The stencil slot of material ``name``: slots are ordered by tag
+    value. (A mesh reloaded from its folder lists its tags in the YAML's
+    sorted-key order, so their dict order is not the slot order.)"""
+    order = sorted(mesh.material_tags, key=mesh.material_tags.get)
+    return order.index(name)
 
 
 def lane_sum(x: torch.Tensor) -> torch.Tensor:
@@ -63,7 +88,7 @@ def lane_sum(x: torch.Tensor) -> torch.Tensor:
 
 def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
                 base_k, extrapolate, make_solve, iters_out=None,
-                project=None, inplace=True):
+                project=None, inplace=True, halo=None):
     """The batched backward-Euler loop shared by both solvers and by the
     differentiable one-config run.
 
@@ -76,7 +101,9 @@ def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
     given, is called with each step's new fields. ``inplace=False`` forms
     the right-hand side and the new fields out of place, with the same
     bits, for autograd and ``torch.func`` (a batch of tangents cannot be
-    written into a tensor that carries none)."""
+    written into a tensor that carries none). ``halo``: the fields are
+    z-sharded slabs (``parallel.sharding.ZAxis.halo``; the watcher ids
+    ``ops['watch']`` are then the slab's)."""
     device = ops["A0"].device
     free, dirich = ops["free"], ops["dirich"]
     A0, Kv = ops["A0"], ops["K_var"]
@@ -94,8 +121,8 @@ def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
     # the Dirichlet lift is affine in the interpolated amplitude,
     # g(t) = g0 + amp(t)·g1, so A g is applied once per scan, not per step
     g0 = ic * (dirich - g1)
-    Ag0 = apply_combined(A0, Kv, dks, g0)
-    Ag1 = apply_combined(A0, Kv, dks, g1)
+    Ag0 = apply_combined(A0, Kv, dks, g0, halo=halo)
+    Ag1 = apply_combined(A0, Kv, dks, g1, halo=halo)
     solve = make_solve(dks, s, sm)
 
     # times as (step0 + i)·dt in ONE rounding, so a chunked run's absolute
@@ -109,7 +136,7 @@ def _sweep_scan(ops, ks, fs, u0, u_pp, step0, *, cdt, ic, dt, num_steps,
     traces = []
     for n in range(num_steps):
         amp = interp(ts[n], ops["heat_t"], ops["heat_T"]) - amp_offset
-        Bv = apply_stencil(ops["M_op"], U)
+        Bv = apply_stencil(ops["M_op"], U, halo=halo)
         if inplace:
             Bv -= Ag0 + amp * Ag1      # in place: one plane fewer a step
             Bv *= sm
@@ -289,34 +316,55 @@ def _mg_preconditioner(mg, dks, s):
     return lambda r: inv_s * vcycle(inv_s * r)
 
 
-def _xla_solver(ops, *, precondition, fixed_iters, rtol, maxiter, rtol_wrt):
-    """The eager batched solve: pcg (per-lane freeze) or pcg_fixed on
-    sm·A_b·sm, with a per-lane line preconditioner factored once per scan
-    from A0 + dk_b·Kv (two coupling planes combined per lane), or the
+def _preconditioner(ops, precondition, dks, s):
+    """The eager batch's preconditioner of the scaled system, or None: a
+    per-lane line preconditioner factored once per scan from A0 + dk_b·Kv
+    (two coupling planes combined per lane), the ADI composition, or the
     multigrid V-cycle of each lane's operator."""
     from heatflow_tpu_torch.ops.linesolve import (adi_preconditioner,
                                                   line_preconditioner)
     A0, Kv, free = ops["A0"], ops["K_var"], ops["free"]
+    if precondition == "mg":
+        return _mg_preconditioner(ops["mg"], dks, s)
+    if precondition == "adi":
+        return adi_preconditioner(A0, s, free, Kv=Kv, dk=dks)
+    if precondition in ("rline", "zline"):
+        return line_preconditioner(
+            A0, s, free, axis=-1 if precondition == "rline" else -2,
+            Kv=Kv, dk=dks)
+    return None
+
+
+def _xla_solver(ops, *, precondition, fixed_iters, rtol, maxiter, rtol_wrt,
+                zax=None, full_ops=None):
+    """The eager batched solve: pcg (per-lane freeze) or pcg_fixed on
+    sm·A_b·sm with :func:`_preconditioner`. ``zax``: ``ops`` hold z-sharded
+    slabs (``parallel.sharding.ZAxis``): the stencil applies exchange
+    halos, the dots add the ranks' partial sums, 'jacobi' and 'rline' run
+    on the slab (row-local), and 'zline', 'adi' and 'mg', which couple
+    rows, run replicated on the full field (``full_ops``) through
+    ``ZAxis.full``."""
+    A0, Kv, free = ops["A0"], ops["K_var"], ops["free"]
+    halo = None if zax is None else zax.halo
+    dot = None if zax is None else zax.dots
 
     def make_solve(dks, s, sm):
-        apply_op = lambda y: sm * apply_combined(A0, Kv, dks, sm * y)
-        pre = None
-        if ops.get("mg") is not None:
-            pre = _mg_preconditioner(ops["mg"], dks, s)
-        elif precondition == "adi":
-            pre = adi_preconditioner(A0, s, free, Kv=Kv, dk=dks)
-        elif precondition in ("rline", "zline"):
-            pre = line_preconditioner(
-                A0, s, free, axis=-1 if precondition == "rline" else -2,
-                Kv=Kv, dk=dks)
+        apply_op = lambda y: sm * apply_combined(A0, Kv, dks, sm * y,
+                                                 halo=halo)
+        if zax is not None and precondition in ("zline", "adi", "mg"):
+            pre = zax.full(_preconditioner(full_ops, precondition, dks,
+                                           zax.gather(s)))
+        else:
+            pre = _preconditioner(ops, precondition, dks, s)
 
         def solve(Bv, Y0):
             if fixed_iters is not None:
                 sol = pcg_fixed(apply_op, Bv, Y0, precond=pre, mask=free,
-                                iters=fixed_iters)
+                                iters=fixed_iters, dot=dot)
             else:
                 sol = pcg(apply_op, Bv, Y0, precond=pre, mask=free,
-                          rtol=rtol, maxiter=maxiter, rtol_wrt=rtol_wrt)
+                          rtol=rtol, maxiter=maxiter, rtol_wrt=rtol_wrt,
+                          dot=dot)
             return sol.x, sol.iters
 
         return solve
@@ -333,8 +381,7 @@ def _sweep_ops(problem: Problem2D, vary_material: str, wdt, device):
         raise ValueError("sweeps need watcher points on the problem")
     dt = torch.tensor(problem.dt, dtype=wdt, device=device)
     ic = torch.tensor(problem.ic_temp, dtype=wdt, device=device)
-    # stencil slots are ordered by tag, i.e. by material insertion order
-    m_idx = list(problem.mesh.material_tags).index(vary_material)
+    m_idx = material_index(problem.mesh, vary_material)
     base_k = float(problem.kappas[m_idx])
     A0, M_op = combine_operator(dev["K"], dev["M"], dev["kappas"],
                                 dev["rho_cvs"], dt)
@@ -400,7 +447,7 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
             f64_refine=f64_refine, device=device)
     if f64_refine:
         rtol_wrt = "b"   # the refined inner solves stop wrt their own rhs
-    device = resolve_device(device)
+    device = _mesh_device(mesh, device)
     n_steps = int(problem.num_steps if num_steps is None else num_steps)
     cache_key = ("sweep_fn", vary_material, str(dtype), rtol, maxiter,
                  fixed_iters, precondition, n_steps, mesh, solver,
@@ -408,8 +455,6 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
     cache = problem.extras.setdefault("_fn_cache", {})
     if cache_key in cache:
         return cache[cache_key]
-    if mesh is not None:
-        raise _not_ported("sharded sweeps (mesh=)", "P11")
     if warm_start not in ("previous", "extrapolate"):
         raise ValueError(f"unknown warm_start {warm_start!r} for sweep "
                          "engines (use 'previous' or 'extrapolate')")
@@ -446,6 +491,7 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                 "equal-rtol solution error); prefer precondition='rline' "
                 "for refined sweeps", stacklevel=2)
     if solver == "vmem":
+        _config_axis_only(mesh)
         if precondition in ("zline", "mg"):
             raise ValueError("solver='vmem' supports precondition='jacobi' "
                              "(scaled identity), 'rline' (r-line PCR), 'adi' "
@@ -463,7 +509,7 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
     if precondition == "mg":
         from heatflow_tpu_torch.ops.multigrid import (build_hierarchy,
                                                       device_levels)
-        m_idx = list(problem.mesh.material_tags).index(vary_material)
+        m_idx = material_index(problem.mesh, vary_material)
         ops["mg"] = []
         for lv in device_levels(build_hierarchy(
                 problem.mesh, problem.dirichlet_mask,
@@ -471,6 +517,17 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
             A_l, _ = combine_operator(lv["K"], lv["M"], dev["kappas"],
                                       dev["rho_cvs"], dt)
             ops["mg"].append({**lv, "A0": A_l, "K_var": lv["K"][m_idx]})
+
+    # z-sharding (the eager path): this rank's rows of the stencils, masks
+    # and fields; the watchers are read on the ranks that own their rows
+    zax, lops = None, ops
+    if mesh is not None and mesh.shape["z"] > 1 and nz % mesh.shape["z"] == 0:
+        from heatflow_tpu_torch.parallel.sharding import ZAxis
+        zax = ZAxis(mesh, nz, nr)
+        lops = {k: zax.rows(v) if k in _Z_SHARDED else v
+                for k, v in ops.items() if k != "mg"}
+        lops["watch"], w_owner = zax.local_ids(ops["watch"])
+    nz_l = nz if zax is None else zax.n_rows
 
     def core(ks, fs, u0, u_pp, step0, iters_out=None):
         kw = dict(ic=ic, dt=dt, num_steps=n_steps, base_k=base_k,
@@ -484,17 +541,23 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                     adi=precondition == "adi",
                     adaptive=precondition == "adaptive", rtol_wrt=rtol_wrt,
                     f64_refine=f64_refine, **kw)
-            make_solve = _xla_solver(ops, precondition=precondition,
+            make_solve = _xla_solver(lops, precondition=precondition,
                                      fixed_iters=fixed_iters, rtol=rtol,
-                                     maxiter=maxiter, rtol_wrt=rtol_wrt)
-            return _sweep_scan(ops, ks, fs, u0, u_pp, step0, cdt=wdt,
-                               make_solve=make_solve, **kw)
+                                     maxiter=maxiter, rtol_wrt=rtol_wrt,
+                                     zax=zax, full_ops=ops)
+            tr, u_fin, u_pen = _sweep_scan(
+                lops, ks, fs, u0, u_pp, step0, cdt=wdt,
+                make_solve=make_solve,
+                halo=None if zax is None else zax.halo, **kw)
+            if zax is not None:
+                tr = zax.owned(tr, w_owner)
+            return tr, u_fin, u_pen
 
-    def simulate_batch(sample_k, fwhm):
+    def simulate_batch(sample_k, fwhm, iters_out=None):
         B = len(np.atleast_1d(np.asarray(sample_k)))
-        u0 = torch.full((B, nz, nr), float(problem.ic_temp), dtype=wdt,
+        u0 = torch.full((B, nz_l, nr), float(problem.ic_temp), dtype=wdt,
                         device=device)
-        return core(sample_k, fwhm, u0, u0, 0)[0]
+        return core(sample_k, fwhm, u0, u0, 0, iters_out)[0]
 
     def segment(sample_k, fwhm, u0, step0, u_pp=None, iters_out=None):
         """(traces (B, S, W), u_fin, u_penultimate) for one time chunk
@@ -502,7 +565,9 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         (step0+i)·dt, so chunked runs hit the unchunked times bitwise).
         Pass the previous chunk's u_penultimate as ``u_pp`` so
         warm_start='extrapolate' seeds the chunk's first step from real
-        history (omitted: seeds from u0, a fresh start)."""
+        history (omitted: seeds from u0, a fresh start). Under a mesh it
+        works on this rank's shard: its lanes and its rows
+        (``local_shape``)."""
         u0 = torch.as_tensor(u0, dtype=wdt, device=device)
         u_pp = u0 if u_pp is None else u_pp
         return core(sample_k, fwhm, u0, u_pp, int(step0), iters_out)
@@ -577,10 +642,14 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
     simulate_batch.segment = segment
     simulate_batch.one_config = one_config
     simulate_batch.shape = (nz, nr)
+    simulate_batch.local_shape = (nz_l, nr)
     simulate_batch.ic_temp = float(problem.ic_temp)
     simulate_batch.dt = float(problem.dt)
     simulate_batch.times = np.arange(1, n_steps + 1) * problem.dt
     simulate_batch.device = device
+    if mesh is not None:
+        from heatflow_tpu_torch.parallel.sharding import shard_configs
+        simulate_batch = shard_configs(mesh, simulate_batch)
     cache[cache_key] = simulate_batch
     return simulate_batch
 
@@ -654,7 +723,7 @@ def _recording_xla(problem: Problem2D, *, vary_material, dtype, rtol,
                           rtol_wrt=rtol_wrt, f64_refine=f64_refine,
                           precondition=precondition, proj_rtol=proj_rtol,
                           proj_maxiter=proj_maxiter, solver="xla")
-    m_idx = list(problem.mesh.material_tags).index(vary_material)
+    m_idx = material_index(problem.mesh, vary_material)
     base_kp = np.asarray(problem.kappas, float)
 
     def simulate_batch(sample_k, fwhm, iters_out=None, proj_iters_out=None):
@@ -708,7 +777,7 @@ def make_sweep_fn_recording(problem: Problem2D, *,
     """
     if f64_refine:
         rtol_wrt = "b"   # no effect on the refined inner solves
-    device = resolve_device(device)
+    device = _mesh_device(mesh, device)
     cache_key = ("sweep_fn_rec", vary_material, str(dtype), rtol, maxiter,
                  fixed_iters, warm_start, mesh, rtol_wrt, f64_refine, solver,
                  precondition, proj_rtol, proj_maxiter, str(device))
@@ -733,10 +802,10 @@ def make_sweep_fn_recording(problem: Problem2D, *,
     if problem.radial is None:
         raise ValueError("gradient-recording sweeps need radial sampling "
                          "on the problem")
-    if mesh is not None:
-        raise _not_ported("sharded sweeps (mesh=)", "P11")
     if solver not in ("xla", "vmem"):
         raise ValueError(f"unknown solver {solver!r}")
+    if solver == "vmem":
+        _config_axis_only(mesh)
     make = _recording_vmem if solver == "vmem" else _recording_xla
     simulate_batch = make(
         problem, vary_material=vary_material, dtype=dtype, rtol=rtol,
@@ -748,6 +817,11 @@ def make_sweep_fn_recording(problem: Problem2D, *,
     simulate_batch.axis_z = problem.radial.axis_z
     simulate_batch.watcher_names = list(problem.watcher_names)
     simulate_batch.device = device
+    if mesh is not None:
+        # the configs over the mesh; a 'z' axis replicates (each rank of a
+        # z group runs its config shard whole, as the JAX package's maker)
+        from heatflow_tpu_torch.parallel.sharding import shard_configs
+        simulate_batch = shard_configs(mesh, simulate_batch)
     cache[cache_key] = simulate_batch
     return simulate_batch
 
@@ -782,7 +856,13 @@ def run_sweep_time_chunked(problem: Problem2D, sample_k, fwhm, *,
     chunk's penultimate field enters the next, so the chunked trajectory
     equals the unchunked one bitwise. ``iters_out``, a list, receives each
     step's (B,) CG iteration counts. An unstructured problem chunks through
-    its overlay's lattice on the batched kernels (``solver='vmem'``)."""
+    its overlay's lattice on the batched kernels (``solver='vmem'``).
+
+    ``mesh`` (a ``parallel.sharding.DeviceMesh``; every rank calls with the
+    same full batch): the batch is padded to a multiple of the 'config'
+    size, each rank integrates its lanes chunk by chunk (and, on the eager
+    path, its rows of the 'z' axis), and the traces are gathered once at
+    the end and cut back to B on every rank."""
     total = int(problem.num_steps)
     chunk_len = balanced_chunk_len(total, step_chunk)
     if not isinstance(problem, Problem2D) and solver != "vmem":
@@ -794,28 +874,34 @@ def run_sweep_time_chunked(problem: Problem2D, sample_k, fwhm, *,
                        num_steps=chunk_len, mesh=mesh, solver=solver,
                        warm_start=warm_start, rtol_wrt=rtol_wrt,
                        f64_refine=f64_refine, device=device)
-    sample_k = np.asarray(sample_k)
-    fwhm = np.asarray(fwhm)
-    nz, nr = fn.shape
-    u = torch.full((len(sample_k), nz, nr), fn.ic_temp, dtype=dtype,
-                   device=fn.device)
-    u_pp = u
-    pieces = []
-    done = 0
-    while done < total:
-        n = min(chunk_len, total - done)
-        # a ragged final chunk runs the full-length segment and keeps its
-        # first n steps (past t_final the heating interpolation clamps)
-        its = []
-        tr, u, u_pp = fn.segment(sample_k, fwhm, u, done, u_pp,
-                                 iters_out=its)
-        pieces.append(tr[:, :n].cpu().numpy())
-        if iters_out is not None:
-            iters_out.extend(its[:n])
-        done += n
-        if verbose:
-            print(f"  time chunk done: {done}/{total} steps")
-    return np.concatenate(pieces, axis=1)
+
+    def run(ks, fs, iters_out=None):
+        u = torch.full((len(ks),) + getattr(fn, "local_shape", fn.shape),
+                       fn.ic_temp, dtype=dtype, device=fn.device)
+        u_pp = u
+        pieces = []
+        done = 0
+        while done < total:
+            n = min(chunk_len, total - done)
+            # a ragged final chunk runs the full-length segment and keeps
+            # its first n steps (past t_final the heating interpolation
+            # clamps)
+            its = []
+            tr, u, u_pp = fn.segment(ks, fs, u, done, u_pp, iters_out=its)
+            pieces.append(tr[:, :n])
+            if iters_out is not None:
+                iters_out.extend(its[:n])
+            done += n
+            if verbose:
+                print(f"  time chunk done: {done}/{total} steps")
+        return torch.cat(pieces, dim=1)
+
+    if mesh is not None:
+        from heatflow_tpu_torch.parallel.sharding import shard_configs
+        run = shard_configs(mesh, run)
+    return run(np.atleast_1d(np.asarray(sample_k)),
+               np.atleast_1d(np.asarray(fwhm)),
+               iters_out=iters_out).cpu().numpy()
 
 
 def normalized_oside_residuals(times, traces, exp_time, exp_oside_normed,

@@ -42,7 +42,7 @@ from heatflow_tpu_torch.ops.stencil import (apply_stencil, combine_operator,
 from heatflow_tpu_torch.sim.bc import HeatingCurve, node_row_mask
 from heatflow_tpu_torch.sim.problem import (BAND_RMAX, BIN_DZ, RadialSampling,
                                             band_average, band_slots)
-from heatflow_tpu_torch.sim.stepper import _not_ported, interp
+from heatflow_tpu_torch.sim.stepper import interp
 from heatflow_tpu_torch.utils import resolve_device
 
 AXIS_TOL = 1e-12        # r = 0 node rule of the raw gradient CSV
@@ -731,12 +731,16 @@ def make_sweep_fn_unstructured(problem: ProblemUnstructured, *,
     projection runs through K2's Kv-free form on the lattice.
 
     ``rtol_wrt``, ``precondition`` ('jacobi' / 'rline' / 'adi' on 'vmem')
-    and ``f64_refine`` mirror the structured maker. ``mesh=`` (sharding the
-    configs over devices) raises: ROADMAP P11. Memoized on
-    ``problem.extras``."""
+    and ``f64_refine`` mirror the structured maker. ``mesh`` (a
+    ``parallel.sharding.DeviceMesh``): every rank calls with the same full
+    batch, runs its shard of the configs on its device and returns the
+    whole gathered batch (``parallel.sharding.shard_configs``); a 'z' axis
+    replicates (the lanes of a z group run whole on each of its ranks, as
+    in the JAX package). Memoized on ``problem.extras``."""
+    from heatflow_tpu_torch.sim.sweepkernel import _mesh_device
     if f64_refine:
         rtol_wrt = "b"   # the refined inner solves stop wrt their own rhs
-    device = resolve_device(device)
+    device = _mesh_device(mesh, device)
     cache_key = ("sweep_fn", vary_material, str(dtype), rtol, maxiter,
                  fixed_iters, warm_start, solver, record_gradient,
                  num_steps, mesh, rtol_wrt, precondition, f64_refine,
@@ -744,8 +748,6 @@ def make_sweep_fn_unstructured(problem: ProblemUnstructured, *,
     cache = problem.extras.setdefault("_fn_cache", {})
     if cache_key in cache:
         return cache[cache_key]
-    if mesh is not None:
-        raise _not_ported("sharded unstructured sweeps (mesh=)", "P11")
     if warm_start not in ("previous", "extrapolate"):
         raise ValueError(f"unknown warm_start {warm_start!r} for sweep "
                          "engines (use 'previous' or 'extrapolate')")
@@ -772,8 +774,8 @@ def make_sweep_fn_unstructured(problem: ProblemUnstructured, *,
             record_gradient=record_gradient)
         simulate_batch.watcher_names = list(problem.watcher_names)
         simulate_batch.device = device
-        cache[cache_key] = simulate_batch
-        return simulate_batch
+        cache[cache_key] = _sharded(mesh, simulate_batch)
+        return cache[cache_key]
     if solver != "xla":
         raise ValueError(f"unknown solver {solver!r}")
     if num_steps is not None:
@@ -818,8 +820,17 @@ def make_sweep_fn_unstructured(problem: ProblemUnstructured, *,
     if record_gradient:
         simulate_batch.band_centers = problem.bin_centers
         simulate_batch.axis_z = problem.axis_z
-    cache[cache_key] = simulate_batch
-    return simulate_batch
+    cache[cache_key] = _sharded(mesh, simulate_batch)
+    return cache[cache_key]
+
+
+def _sharded(mesh, simulate_batch):
+    """``simulate_batch`` itself, or under ``mesh`` its config-sharded form
+    (``parallel.sharding.shard_configs``)."""
+    if mesh is None:
+        return simulate_batch
+    from heatflow_tpu_torch.parallel.sharding import shard_configs
+    return shard_configs(mesh, simulate_batch)
 
 
 def solve_steady_unstructured(problem: ProblemUnstructured,

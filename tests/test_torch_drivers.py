@@ -229,19 +229,39 @@ def test_sweep_records_failed_runs(cfg, tmp_path):
     assert not os.path.exists(os.path.join(t[0], "successful_runs.csv"))
 
 
-@pytest.mark.parametrize("call, match", [
-    (lambda c, p: trun.run_simulation(c, p, True, mesh_style="unstructured",
-                                      z_shards=2, device="cpu"),
-     "ROADMAP P11"),
-    (lambda c, p: trun.run_simulation(c, p, True, z_shards=2,
-                                      device="cpu"), "ROADMAP P11"),
-    (lambda c, p: tsweep.run_parameter_sweep(
-        c, p, (4e-6, 4e-6), (2.0, 2.0), (1e-6, 1e-6), (1, 1, 1),
-        devices=["cpu", "cpu"]), "ROADMAP P11")],
-    ids=["unstructured", "z-shards", "devices"])
-def test_unported_driver_options_raise(cfg, tmp_path, call, match):
-    with pytest.raises(NotImplementedError, match=match):
-        call(cfg, str(tmp_path / "x"))
+@pytest.mark.parametrize("case", ["unstructured", "z-shards", "devices"])
+def test_unported_driver_options_raise(cfg, tmp_path, case):
+    """The drivers' multi-device options (P11): ``--z-shards`` on an
+    unstructured mesh raises as the JAX driver does; ``--z-shards 2`` (two
+    gloo ranks; rank 0 writes) and ``devices=['cpu', 'cpu']`` run, their
+    artifacts within 1e-9 of (the sweep's: equal to) the one-device run's."""
+    d = str(tmp_path)
+    if case == "unstructured":
+        with pytest.raises(ValueError, match="structured meshes only"):
+            trun.run_simulation(cfg, d + "/m", True, mesh_style="unstructured",
+                                z_shards=2, device="cpu")
+        return
+    if case == "z-shards":
+        wp = coupler_watcher_points(cfg)
+        for tag, zs in (("one", 1), ("two", 2)):
+            res = trun.run_simulation(
+                cfg, f"{d}/m_{tag}", True, output_folder=f"{d}/{tag}",
+                watcher_points=wp, write_xdmf=False, suppress_print=True,
+                z_shards=zs, device="cpu")
+            assert res.final_u.shape == (14, 51)
+        for name in CSVS:
+            _csv_close(f"{d}/two/{name}", f"{d}/one/{name}")
+        return
+    runs = {}
+    for tag, devs in (("one", ["cpu"]), ("two", ["cpu", "cpu"])):
+        runs[tag] = tsweep.run_parameter_sweep(
+            cfg, f"{d}/{tag}", (4e-6, 8e-6), (2.0, 6.0), (1e-6, 1e-6),
+            (1, 3, 1), base_mesh_folder=f"{d}/m_{tag}", devices=devs)
+    assert _strip(runs["one"][0]) == _strip(runs["two"][0])
+    for rec in runs["one"][0]:
+        assert filecmp.cmp(f"{d}/one/{rec['run_name']}/watcher_points.csv",
+                           f"{d}/two/{rec['run_name']}/watcher_points.csv",
+                           shallow=False)
 
 
 def test_imported_mesh_and_missing_card_raise(cfg, tmp_path):

@@ -215,7 +215,7 @@ def test_recording_memo_metadata_and_rejections(pair):
     np.testing.assert_array_equal(fn.axis_z, pt.radial.axis_z)
     assert fn.watcher_names == list(pt.watcher_names)
     for kw, err, match in (
-            (dict(mesh=object()), NotImplementedError, "ROADMAP P11"),
+            (dict(mesh=object()), TypeError, "DeviceMesh"),
             (dict(solver="vmem", precondition="rline", fixed_iters=5),
              ValueError, "tolerance-based"),
             (dict(solver="tpu"), ValueError, "solver")):

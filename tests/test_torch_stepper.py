@@ -246,8 +246,10 @@ def test_auto_resolves_to_eager_on_cpu():
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
 def test_unported_options_raise(kw):
+    """``mesh=`` takes a ``parallel.sharding.DeviceMesh`` (z-sharding, P11:
+    tests/test_torch_sharding.py); anything else is a TypeError."""
     _, pt = _tiny_pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         t_make(pt, **kw, device="cpu")
 
 

@@ -347,8 +347,10 @@ def test_no_diamond_host_problem_exact():
 
 @pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
 def test_unported_options_raise(pair, kw):
+    """``mesh=`` takes a ``parallel.sharding.DeviceMesh`` (P11:
+    tests/test_torch_sharding.py); anything else is a TypeError."""
     _, pt = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsw.make_sweep_fn(pt, **kw, device="cpu")
 
 
@@ -365,12 +367,14 @@ def test_mg_one_config_matches_the_batch_and_jax(pair):
 
 
 def test_unported_paths_raise(pair):
-    """Sharded sweeps (``mesh=``) are ROADMAP P11; unstructured problems,
-    P9, go to their own maker (tests/test_torch_unstructured.py)."""
+    """Sharded sweeps take a ``parallel.sharding.DeviceMesh`` (P11,
+    tests/test_torch_sharding.py): another ``mesh=`` is a TypeError, in
+    the chunked runner as in the maker; unstructured problems, P9, go to
+    their own maker (tests/test_torch_unstructured.py)."""
     _, pt = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP P11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsw.run_sweep_time_chunked(pt, KS, FS, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP P11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsw.make_sweep_fn(pt, mesh=object(), device="cpu")
 
 
@@ -445,3 +449,36 @@ def test_lane_sum_is_a_sum_independent_of_the_batch():
                                rtol=1e-13)
     for sub in ([0], [1, 3], [4, 2, 0]):
         assert torch.equal(tsw.lane_sum(x[sub]), got[sub])
+
+
+def test_sweep_on_a_reloaded_mesh_varies_the_sample(tmp_path):
+    """A mesh read back from its folder lists its material tags in the
+    YAML's sorted-key order. The port takes the swept material's stencil
+    slot by tag value (``material_index``), so a sweep on the reloaded mesh
+    is bitwise the sweep on the built one; the JAX package's
+    ``list(material_tags).index`` (``heatflow_tpu/sim/sweepkernel.py:360``)
+    picks another material's slot there (ROADMAP §3)."""
+    from heatflow_tpu.drivers.run2d import _prepare_mesh as j_prepare
+    from heatflow_tpu_torch.drivers.run2d import _prepare_mesh as t_prepare
+    cfg = tiny_no_diamond_cfg(coarse=3.0)
+    cfg["timing"]["num_steps"] = 3
+    df = synthetic_heating()
+    t, temp = df["time"].to_numpy(), df["temp"].to_numpy()
+    runs = {}
+    for pkg, prepare, build, heat, sweep, kw in (
+            ("t", t_prepare, t_build_problem, THeating, tsw.make_sweep_fn,
+             dict(dtype=torch.float64, device="cpu")),
+            ("j", j_prepare, j_build_problem, JHeating, jsw.make_sweep_fn,
+             dict(dtype=jnp.float64))):
+        for rebuild in (True, False):
+            mesh = prepare(cfg, str(tmp_path / pkg), rebuild, "auto")
+            p = build(mesh, heat(time=t, temp=temp), cfg,
+                      watcher_points=t_watch(cfg))
+            runs[pkg, rebuild] = np.asarray(sweep(p, fixed_iters=8,
+                                                  **kw)(KS, FS))
+            if pkg == "t":
+                assert tsw.material_index(mesh, "p_sample") == 2
+    assert list(mesh.material_tags).index("p_sample") == 4
+    assert np.array_equal(runs["t", False], runs["t", True])
+    _close(runs["t", True], runs["j", True])
+    assert not np.allclose(runs["j", False], runs["j", True])

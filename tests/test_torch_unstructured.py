@@ -460,7 +460,7 @@ def test_maker_options(case):
                          tp, np.zeros(len(tp.mesh.nodes)))):
             with pytest.raises(RuntimeError, match="CUDA"):
                 call()
-    with pytest.raises(NotImplementedError, match="P11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tu.make_sweep_fn_unstructured(tp, mesh=object(), device="cpu")
 
 
