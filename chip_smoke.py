@@ -20,12 +20,26 @@ Phases (each raises on failure; nothing is caught):
    solve, launches and us an iteration;
 4. run the flagship transient (100 backward-Euler steps, the float32
    adaptive r-line/ADI recipe with one float64 refinement pass) through
-   ``make_simulate_fn``: one warm-up run, then one timed run with the
-   launch counters reset just before it; check the traces against the
-   float64 truth in ``benchmarks/.flagship_truth_f64.npz``; report the
-   launches an iteration (at most 3 r-line, 4 ADI) and, from one more run
-   under the profiler, the device's busy share and its idle time inside
-   and between the solves;
+   ``make_simulate_fn``, on the card one CUDA graph launch (the steps under
+   a conditional WHILE node, the step kernels of ``csrc/step.cu`` around
+   K1's recorded solve, the r-line/ADI switch set on the device): one
+   warm-up run, then one timed run with the launch counters reset just
+   before it; check the traces against the float64 truth in
+   ``benchmarks/.flagship_truth_f64.npz``; report the launches an
+   iteration (at most 3 r-line, 4 ADI); run the eager loop
+   (``forward_eager``) in the same process: the graph's outputs bitwise
+   the eager loop's when its two refinement sums are taken in the step
+   kernels' order (``cuda_step.kernel_order_sum``), and within the inner
+   solves' rtol (traces), 2 % (iteration totals) and the same forms of the
+   eager loop's own (torch.sum); hold each step kernel (prologue, float64
+   residual with its tail, inner scale, epilogue) against its plain
+   version on flagship planes (float64 with one and two carried passes,
+   float32 with a source and recorded fields: planes bitwise, the tails'
+   sums bitwise in the kernels' order and within 1e-12 of torch.sum's),
+   with its device time in the graph; from one more run of each path
+   under the profiler, the device's busy share, its idle time inside,
+   between (0 host reads for the graph) and before the solves; and the
+   host time of one eager step by part beside the graph path's;
 5. at the sweep shape (``cfgs/geballe_no_diamond.yaml``, 243 x 1001
    nodes), on the 10th step's system of 8 numpy-seeded lanes spanning
    kappa in [1, 100] (one lane NaN, one at rtol 2), compare each phase
@@ -228,11 +242,12 @@ rows from a run with two float64 refinement passes, to
 
 The line before the last is a JSON object with one entry per kernel of the
 paths (K2's single-phase scalar kernels, checked in phases 5 and 14 but run
-by no solve, have none), each
+by no solve, have none; the step kernels' rows give their device time a
+launch inside phase 4's graph run and its launches there), each
 with its time, the plain version's, and its bound: the larger of the bytes
 it must move (each input read once, each output written once) at the
 card's memory rate and the float32 operations this run's data needs at its
-peak; no single PyTorch call computes a preconditioned CG solve or a PCR
+peak (the step kernels': float64, at 34 TFLOP/s); no single PyTorch call computes a preconditioned CG solve or a PCR
 line solve, so ``library_ms`` is null. Each solve row of the ``--out``
 file also carries ``iter_bound_ms``, the bound of its iterations: each
 iteration's inputs (operator, scaling, stacks) read once and its carried
@@ -297,10 +312,19 @@ VMEM_SOLVE_REL = 1e-3
 # ~10 % of the gradient reads ~1e-1
 FIT_RMSE_ABS = 1e-3
 FIT_GRAD_REL = 1e-2
-# the bound of a kernel: H100 SXM HBM3 rate and float32 peak outside the
-# tensor cores (NVIDIA data sheet)
+# the bound of a kernel: H100 SXM HBM3 rate and float32 and float64 peaks
+# outside the tensor cores (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+# the step kernels (csrc/step.cu), the counterparts of the XLA fusions of
+# the JAX stepper's scan body (the lines they compute)
+STEP_SOURCE = "heatflow_tpu_torch/csrc/step.cu"
+STEP_REPLACES = {"step_prologue": "heatflow_tpu/sim/stepper.py:538",
+                 "refine_residual": "heatflow_tpu/sim/stepper.py:475",
+                 "refine_scale": "heatflow_tpu/sim/stepper.py:480",
+                 "step_epilogue": "heatflow_tpu/sim/stepper.py:590"}
+STEP_SCALAR_REL = 1e-12   # the tails' sums against torch.sum (order only)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -731,12 +755,235 @@ def large_shape_checks(device, out: dict, nz: int = 300, nr: int = 4096):
     out["large_shape"] = res
 
 
+def adaptive_forms(iters, thresh: int, maxiter: int) -> list[int]:
+    """The form each step of an adaptive run took (1: ADI), from its
+    iteration counts: ADI after a step deeper than the threshold, the
+    first step counting as ``maxiter``."""
+    prev = [maxiter] + [int(i) for i in iters[:-1]]
+    return [int(p > thresh) for p in prev]
+
+
+def eager_step_host_times(fn, steps: int = 20) -> dict:
+    """Host microseconds of one eager step of the phase-4 recipe, by part,
+    over the first ``steps`` steps of the flagship: the prologue (the step's
+    right-hand side, seed, float64 residual and scale: eager launches), the
+    K1 wrapper (its checks, copies in and out and the graph launch), the
+    epilogue (the field update and the watcher gather) and the read of the
+    iteration count (it waits for the solve to end)."""
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg
+    from heatflow_tpu_torch.ops.cuda_step import (refine_residual_reference,
+                                                  refine_scale_reference,
+                                                  step_epilogue_reference,
+                                                  step_prologue_reference)
+    from heatflow_tpu_torch.ops.stencil import apply_stencil
+    o = fn.opts
+    d, kp, rc, fw, ic, u0, t0, _ = fn._inputs(None, None, None, None, 0.0,
+                                              None)
+    A, M_op, s, g0, g1, Ag0, Ag1, b_src, _, amps = fn._operands(
+        d, kp, rc, fw, ic, t0, None, apply_stencil)
+    free = d["free"]
+    As, sm, pcr, pcr_z = fn._solve_operands(A, s, free)
+    parts = dict(prologue=0.0, wrapper=0.0, epilogue=0.0, read=0.0)
+    u_prev = u_pp = u_ppp = u0
+    it_prev = o["maxiter"]
+    torch.cuda.synchronize()
+    for n in range(steps):
+        t_a = time.perf_counter()
+        b_lift, y0 = step_prologue_reference(
+            M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1, amps[n], s, free,
+            o["warm_start"])
+        bt = b_lift * free
+        floor2 = 1e-30 * torch.sum(bt * bt)
+        y, r64, rnorm, rtol_eff = refine_residual_reference(
+            A, s, free, bt, y0, floor2, o["rtol"], torch.float32)
+        r32, seed = refine_scale_reference(r64, rnorm, rtol_eff,
+                                           torch.float32)
+        t_b = time.perf_counter()
+        dy, its = cuda_cg.cg_tol(
+            As, sm, r32, seed, rtol_eff, rtol_wrt="b", pcr=pcr,
+            pcr_z=pcr_z if it_prev > o["adaptive_thresh"] else None,
+            maxiter=o["maxiter"])
+        t_c = time.perf_counter()
+        u = step_epilogue_reference(y, s, free, g0, g1, amps[n], dy, rnorm)
+        u.reshape(-1)[d["watch_flat"]]
+        t_d = time.perf_counter()
+        it_prev = int(its)
+        t_e = time.perf_counter()
+        u_ppp, u_pp, u_prev = u_pp, u_prev, u
+        for k, dt_ in (("prologue", t_b - t_a), ("wrapper", t_c - t_b),
+                       ("epilogue", t_d - t_c), ("read", t_e - t_d)):
+            parts[k] += dt_
+    return {k: 1e6 * v / steps for k, v in parts.items()}
+
+
+def step_workspace(fn, source=None):
+    """The graph path's step workspace of ``fn`` with the default call's
+    operands loaded (nothing run)."""
+    ws, _ = fn._step_workspace(*fn._inputs(None, None, None, None, 0.0,
+                                           source))
+    return ws
+
+
+def step_case(ws, n: int, timed: bool = False) -> dict:
+    """Each step kernel once on the workspace ``ws`` at step ``n`` against
+    its plain version on the same inputs: the planes bitwise, the tails'
+    scalars (rnorm, the <bt, bt> and <r64, r64> sums) bitwise when the
+    plain version sums in the kernels' order and within
+    ``STEP_SCALAR_REL`` of torch.sum's. With ``timed``: each wrapper's and
+    plain version's
+    time by CUDA events and its bound. Returns rows by kernel name."""
+    import torch
+    from heatflow_tpu_torch.ops import cuda_step as cs
+    f32 = torch.float32
+    ints = ws.state.view(torch.int32)
+    ints[0], ints[1] = n, 80
+    torch.cuda.synchronize()
+    N = ws.nz * ws.nr
+    nb = (N + 255) // 256
+    rows: dict = {}
+
+    def row(name, err, kernel_fn, plain_fn, reads, writes, ops_pt):
+        r = dict(name=name, max_abs_err=float(err))
+        if timed:
+            r["wrapper_ms"] = cuda_ms(kernel_fn, 50)
+            r["plain_ms"] = cuda_ms(plain_fn, 20)
+            by = nbytes(*reads) + nbytes(*writes)
+            t_b, t_o = by / HBM_BYTES_PER_S * 1e3, \
+                ops_pt * N / F64_OPS_PER_S * 1e3
+            r.update(bound_ms=max(t_b, t_o),
+                     bound_by="bytes" if t_b >= t_o else "operations",
+                     bytes=by)
+        rows[name] = r
+
+    ring = [ws.ring[(n + k) % 3] for k in (2, 1, 0)]
+    order = cs.WARM_ORDER[ws.warm_start]
+    src = 0.0 if ws.src is None else ws.src
+    plain_pro = lambda: cs.step_prologue_reference(
+        ws.Mop, *ring, src, ws.Ag0, ws.Ag1, ws.amps[n], ws.s, ws.free,
+        ws.warm_start)
+    cs.step_prologue(ws)
+    b_lift, y0 = plain_pro()
+    bt = b_lift * ws.free
+    torch.cuda.synchronize()
+    require(torch.equal(ws.bt, bt.to(ws.bt.dtype))
+            and torch.equal(ws.y[0], y0.to(ws.y.dtype)),
+            ("step_prologue planes", n))
+    err = 0.0
+    if ws.refine:
+        want = torch.sum(bt * bt)
+        err = rel_max(ws.part_bt[:nb].sum(), want)
+        require(err <= STEP_SCALAR_REL, ("step_prologue <bt, bt>", err))
+    row("step_prologue", err, lambda: cs.step_prologue(ws), plain_pro,
+        [ws.Mop, *ring[:1 + min(order, 2)], ws.Ag0, ws.Ag1, ws.s, ws.free,
+         None if ws.src is None else ws.src], [ws.bt, ws.y[0]],
+        2 * ws.npts + 14)
+    for p in range(ws.passes if ws.refine else 0):
+        floor2 = 1e-30 * torch.sum(ws.bt * ws.bt)
+        dy = ws.dx[p - 1] if p else None
+        rn = ws.state[3 + p - 1].clone() if p else None
+        y_in = ws.y[0].clone()
+        plain_res = lambda: cs.refine_residual_reference(
+            ws.A, ws.s, ws.free, ws.bt, y_in, floor2, ws.rtol, f32, dy, rn)
+        cs.refine_residual(ws, p)
+        y, r64, rnorm, rtol_eff = plain_res()
+        torch.cuda.synchronize()
+        require(torch.equal(ws.r64, r64)
+                and (p == 0 or torch.equal(ws.y[p], y))
+                and torch.equal(ws.rtol32, rtol_eff),
+                ("refine_residual planes", n, p))
+        err = rel_max(ws.state[3 + p], rnorm)
+        require(err <= STEP_SCALAR_REL, ("refine_residual rnorm", p, err))
+        # in the kernels' own summation order: bitwise
+        k_floor2 = 1e-30 * cs.kernel_order_sum(ws.bt * ws.bt)
+        _, _, k_rnorm, k_rtol = cs.refine_residual_reference(
+            ws.A, ws.s, ws.free, ws.bt, y_in, k_floor2, ws.rtol, f32, dy, rn,
+            cs.kernel_order_sum)
+        require(torch.equal(ws.state[3 + p], k_rnorm)
+                and torch.equal(ws.state[2], k_floor2)
+                and torch.equal(ws.rtol32, k_rtol),
+                ("refine_residual tail against the kernels' order", p))
+        if p == 0:
+            row("refine_residual", err, lambda: cs.refine_residual(ws, 0),
+                plain_res, [ws.A, ws.s, ws.free, ws.bt, ws.y[0]], [ws.r64],
+                3 * ws.npts + 6)
+        rn_p = ws.state[3 + p].clone()
+        carried = ws.dx[p].clone() if ws.carry else None
+        plain_sc = lambda: cs.refine_scale_reference(
+            ws.r64, rn_p, ws.rtol32, f32, carried)
+        cs.refine_scale(ws, p)
+        r32, seed = plain_sc()
+        torch.cuda.synchronize()
+        require(torch.equal(ws.b32, r32) and torch.equal(ws.x0, seed),
+                ("refine_scale planes", n, p))
+        if p == 0:
+            row("refine_scale", 0.0, lambda: cs.refine_scale(ws, 0),
+                plain_sc, [ws.r64, carried], [ws.b32, ws.x0], 2)
+    last = ws.passes - 1
+    x = (ws.y[last] if ws.refine else ws.dx[0]).clone()
+    dy = ws.dx[last] if ws.refine else None
+    rn = ws.state[3 + last].clone() if ws.refine else None
+    plain_epi = lambda: cs.step_epilogue_reference(
+        x, ws.s, ws.free, ws.g0, ws.g1, ws.amps[n], dy, rn)
+    ws.iters.copy_(torch.arange(40, 40 + ws.passes, dtype=torch.int32))
+    cs.step_epilogue(ws)
+    u = plain_epi()
+    torch.cuda.synchronize()
+    require(torch.equal(ws.ring[n % 3], u)
+            and (ws.watch is None or torch.equal(
+                ws.watch[n], u.reshape(-1)[ws.watch_flat]))
+            and (ws.fields is None or torch.equal(ws.fields[n], u))
+            and int(ws.cg_iters[n]) == int(ws.iters.sum())
+            and int(ints[0]) == n + 1 and int(ints[1]) == int(ws.iters.sum()),
+            ("step_epilogue", n))
+    # timed from step 10: each launch advances the step (51 launches)
+    ints[0] = 10
+    row("step_epilogue", 0.0, lambda: cs.step_epilogue(ws), plain_epi,
+        [x, dy, ws.s, ws.free, ws.g0, ws.g1],
+        [ws.ring[0], None if ws.fields is None else ws.fields[0]], 11)
+    return rows
+
+
+def step_kernel_checks(problem, fn, device, out: dict) -> dict:
+    """Phase 4a: the step kernels (csrc/step.cu) against their plain
+    versions on flagship planes: the phase-4 recipe's workspace (float64
+    planes, one refinement pass, 'extrapolate') at step 50 of a finished run
+    (its ring and corrections), timed; two carried refinement passes with
+    'extrapolate2'; the float32 r-line form with a volumetric source and
+    recorded fields."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.sim.stepper import make_simulate_fn
+    ws = fn._workspaces[next(iter(fn._workspaces))]
+    rows = step_case(ws, 50, timed=True)
+    two = make_simulate_fn(problem, dtype=torch.float32, device=device,
+                           **dict(RECIPE, f64_refine=2, inner_seed="carry",
+                                  warm_start="extrapolate2"))
+    ws2 = step_workspace(two)
+    ws2.ring.copy_(ws.ring)
+    ws2.dx.copy_(torch.stack([ws.dx[0], 0.5 * ws.dx[0]]))
+    step_case(ws2, 50)
+    one = make_simulate_fn(problem, dtype=torch.float32, device=device,
+                           **dict(RECIPE, precondition="rline",
+                                  f64_refine=0, warm_start="previous",
+                                  record_fields=True))
+    rng = np.random.default_rng(4)
+    ws3 = step_workspace(one, source=rng.uniform(0, 1e12,
+                                                 problem.mesh.shape))
+    ws3.ring.copy_(ws.ring)
+    ws3.dx[0].copy_(ws.dx[0])
+    step_case(ws3, 50)
+    out["step_kernels"] = rows
+    return rows
+
+
 def run_slice(problem, device, out: dict):
     import numpy as np
     import torch
-    from heatflow_tpu_torch.ops import cuda_cg
+    from heatflow_tpu_torch.ops import cuda_cg, cuda_step
     from heatflow_tpu_torch.sim.stepper import make_simulate_fn
 
+    t_phase = time.perf_counter()
     fn = make_simulate_fn(problem, dtype=torch.float32, device=device,
                           **RECIPE)
     t0 = time.perf_counter()
@@ -744,6 +991,7 @@ def run_slice(problem, device, out: dict):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     cuda_cg.reset_counters()
+    cuda_step.reset_counters()
     t0 = time.perf_counter()
     ys = fn()
     torch.cuda.synchronize()
@@ -753,21 +1001,30 @@ def run_slice(problem, device, out: dict):
                   rline=cuda_cg.cg_tol.launches_rline,
                   adi=cuda_cg.cg_tol.launches_adi,
                   identity=cuda_cg.cg_tol.launches_identity)
+    step_launches = {f.__name__: f.launches for f in (
+        cuda_step.step_prologue, cuda_step.refine_residual,
+        cuda_step.refine_scale, cuda_step.step_epilogue)}
     watch = ys["watch"].cpu().numpy()
     iters = ys["cg_iters"].cpu().numpy()
     require(np.isfinite(watch).all()
             and np.isfinite(ys["final_u"].cpu().numpy()).all(),
             "non-finite traces")
     require(solves["rline"] > 0 and solves["adi"] >= 1, solves)
+    thresh, maxiter = fn.opts["adaptive_thresh"], RECIPE["maxiter"]
+    forms = adaptive_forms(iters, thresh, maxiter)
+    require(solves["adi"] == sum(forms)
+            and solves["rline"] == len(forms) - sum(forms),
+            ("device-counted forms against the counts", solves, forms))
     truth = np.load(TRUTH)["watch"]
     require(watch.shape == truth.shape, (watch.shape, truth.shape))
     peak = np.abs(watch - truth).max(axis=0)
     names = list(problem.watcher_names)
     steps_per_s = problem.num_steps / run_s
-    print(f"slice: {problem.num_steps} steps in {run_s:.4f} s = "
-          f"{steps_per_s:.2f} steps/s (warm-up run {warm_s:.2f} s); "
-          f"cg_iters mean {iters.mean():.2f} max {int(iters.max())}; "
-          f"ADI steps {solves['adi']}, r-line steps {solves['rline']}")
+    print(f"slice: {problem.num_steps} steps as one CUDA graph launch in "
+          f"{run_s:.4f} s = {steps_per_s:.2f} steps/s (warm-up run with the "
+          f"capture {warm_s:.2f} s); cg_iters mean {iters.mean():.2f} max "
+          f"{int(iters.max())}; ADI steps {solves['adi']}, r-line steps "
+          f"{solves['rline']}; step kernels {step_launches}")
     print("slice peak |error| vs f64 truth [K]: "
           + ", ".join(f"{n} {e:.4f}" for n, e in zip(names, peak)))
     print(f"slice phase launches: {counts}")
@@ -781,32 +1038,145 @@ def run_slice(problem, device, out: dict):
     print(f"slice: launches an iteration {per_iter} (graph bodies); "
           f"{launched} K1 launches over {int(iters.sum())} iterations = "
           f"{launched / iters.sum():.3f} an iteration")
-    # one more run under the profiler: the device's busy share and where
-    # the idle time lies
+
+    # the eager loop (the graph's plain version, K1 through its wrapper, the
+    # host reading each step's count) in the same process; once more with
+    # the refinement's two sums in the step kernels' order, which must give
+    # the graph's outputs bitwise
+    fn.forward_eager()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ye = fn.forward_eager()
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    yk = fn.forward_eager(inner_sum=cuda_step.kernel_order_sum)
+    same = {k: torch.equal(ys[k], yk[k]) for k in ys if k != "times"}
+    we, ie = ye["watch"].cpu().numpy(), ye["cg_iters"].cpu().numpy()
+    trace_rel = float(np.abs(watch - we).max() / np.abs(we).max())
+    dit = np.abs(iters.astype(int) - ie.astype(int))
+    total_rel = abs(int(iters.sum()) - int(ie.sum())) / int(ie.sum())
+    forms_e = adaptive_forms(ie, thresh, maxiter)
+    prev_g = np.array([maxiter] + list(iters[:-1]))
+    prev_e = np.array([maxiter] + list(ie[:-1]))
+    near = (np.abs(prev_g - thresh) <= 2) | (np.abs(prev_e - thresh) <= 2)
+    form_diff = [i for i, (a, b) in enumerate(zip(forms, forms_e))
+                 if a != b]
+    print(f"slice eager loop: {problem.num_steps} steps in {eager_s:.4f} s "
+          f"= {problem.num_steps / eager_s:.2f} steps/s; graph against the "
+          f"eager loop with its sums in the kernels' order: {same} "
+          f"(bitwise); against the eager loop (torch.sum): traces rel "
+          f"{trace_rel:.3e}, iterations differ by at most {int(dit.max())} "
+          f"a step (steps {np.nonzero(dit)[0].tolist()}), totals "
+          f"{int(iters.sum())} / {int(ie.sum())}, forms differ at steps "
+          f"{form_diff} (near the threshold: "
+          f"{[i for i in form_diff if near[i]]})", flush=True)
+    step_rows = step_kernel_checks(problem, fn, device, out)
+
+    # one more run of each under the profiler: the device's busy share and
+    # where the idle time lies
     prof = kernel_profile(fn)
     split = idle_split(prof)
     busy_pct = 100 * prof["busy_us"] / prof["span_us"]
-    print(f"slice profiled run: device busy {busy_pct:.2f}% of a "
-          f"{prof['span_us'] / 1e3:.3f} ms span; {split['solves']} solves "
-          f"span {split['solve_span_us'] / 1e3:.3f} ms "
-          f"({split['solve_busy_us'] / 1e3:.3f} ms of kernels, idle "
-          f"{split['idle_in_solves_us'] / 1e3:.3f} ms between launches and "
-          f"{split['idle_after_host_reads_us'] / 1e3:.3f} ms after "
-          f"{split['host_reads']} host reads); idle between solves "
-          f"{split['idle_between_solves_us'] / 1e3:.3f} ms")
+    prof_e = kernel_profile(fn.forward_eager)
+    split_e = idle_split(prof_e)
+    busy_e = 100 * prof_e["busy_us"] / prof_e["span_us"]
+    # the step kernels' time: in the graph, device time a launch
+    k1 = k1_kernels(prof)
+    for name, r in step_rows.items():
+        us, calls = [sum(v[i] for k, v in k1.items()
+                         if k.split("<")[0] == "k_" + name) for i in (0, 1)]
+        require(calls > 0, ("no in-graph launch of", name))
+        r["ms"] = us / calls / 1e3
+        print(f"4a {name}: planes bitwise the plain version's in float64 "
+              f"(1 and 2 passes) and float32, the tails' sums bitwise in "
+              f"the kernels' order (rel {r['max_abs_err']:.3e} from "
+              f"torch.sum); in the graph {r['ms'] * 1e3:.2f} us a launch "
+              f"({calls} launches seen by the profiler, "
+              f"{step_launches[name]} counted by the device in the timed "
+              f"run; the wrapper alone "
+              f"{r['wrapper_ms'] * 1e3:.2f} us), plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}",
+              flush=True)
+    for label, pr, sp, bp in (("graph", prof, split, busy_pct),
+                              ("eager", prof_e, split_e, busy_e)):
+        print(f"slice profiled run ({label}): device busy {bp:.2f}% of a "
+              f"{pr['span_us'] / 1e3:.3f} ms span; {sp['solves']} solves "
+              f"span {sp['solve_span_us'] / 1e3:.3f} ms "
+              f"({sp['solve_busy_us'] / 1e3:.3f} ms of kernels, idle "
+              f"{sp['idle_in_solves_us'] / 1e3:.3f} ms between launches and "
+              f"{sp['idle_after_host_reads_us'] / 1e3:.3f} ms after "
+              f"{sp['host_reads']} host reads); idle between solves "
+              f"{sp['idle_between_solves_us'] / 1e3:.3f} ms (before the "
+              f"first {sp['idle_before_first_solve_us'] / 1e3:.3f} ms), "
+              f"{sp['host_reads_between_solves']} host reads between "
+              f"solves", flush=True)
+    host = eager_step_host_times(fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ws = step_workspace(fn)
+    t1 = time.perf_counter()
+    g = cuda_step.launch(ws)
+    t2 = time.perf_counter()
+    cuda_step.count_launches(ws, g)
+    t3 = time.perf_counter()
+    graph_host = dict(load_us=1e6 * (t1 - t0), launch_us=1e6 * (t2 - t1),
+                      wait_us=1e6 * (t3 - t2),
+                      per_step_us=1e6 * (t2 - t0) / problem.num_steps)
+    print(f"slice host time of one eager step (us, mean of the first 20): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+          + f"; graph path: the run's operands in (eager, once a run) "
+          f"{graph_host['load_us']:.1f}, the launch "
+          f"{graph_host['launch_us']:.1f} ({graph_host['per_step_us']:.2f} "
+          f"a step for both), then the host waits "
+          f"{graph_host['wait_us'] / 1e3:.3f} ms for the run", flush=True)
     out["slice"] = dict(steps=problem.num_steps, run_s=run_s,
                         warm_run_s=warm_s, steps_per_s=steps_per_s,
                         cg_iters=iters.tolist(), solves=solves,
-                        phase_launches=counts,
+                        phase_launches=counts, step_launches=step_launches,
                         launches_per_iteration=per_iter,
                         launches_per_run_iteration=launched / iters.sum(),
                         device_busy_pct=busy_pct, idle_split=split,
-                        peak_err_K=dict(zip(names, peak.tolist())))
+                        span_ms=prof["span_us"] / 1e3,
+                        peak_err_K=dict(zip(names, peak.tolist())),
+                        eager=dict(run_s=eager_s,
+                                   steps_per_s=problem.num_steps / eager_s,
+                                   cg_iters=ie.tolist(),
+                                   device_busy_pct=busy_e,
+                                   span_ms=prof_e["span_us"] / 1e3,
+                                   idle_split=split_e, host_us=host),
+                        graph_host=graph_host, trace_rel=trace_rel,
+                        iters_max_diff=int(dit.max()),
+                        iters_total_rel=total_rel,
+                        bitwise_kernel_order=same,
+                        forms_differ_at=form_diff)
     require((peak <= TRACE_TOL_K).all(), f"trace error {peak} K > 1.0 K")
     require(all(v <= {"rline": 3, "adi": 4}[f] for f, v in per_iter.items())
             and per_iter, ("launches an iteration", per_iter))
     require(split["host_reads"] == 0, ("host reads inside solves", split))
-    return fn
+    require(split["host_reads_between_solves"] == 0,
+            ("host reads between the graph path's solves", split))
+    require(all(same.values()),
+            ("graph against the eager loop in the kernels' order", same))
+    # against torch.sum's order: the last bits of rnorm move each inner
+    # solve's stop within its tolerance (rtol 1e-4 wrt its rhs)
+    require(trace_rel <= RECIPE["rtol"],
+            ("graph against eager traces", trace_rel))
+    require(total_rel <= 0.02, ("graph against eager iterations", iters,
+                                ie))
+    require(all(near[i] for i in form_diff),
+            ("graph against eager forms", form_diff))
+    # the device's counts: every step ran its prologue and epilogue, every
+    # refinement pass its residual and scale
+    passes = RECIPE["f64_refine"]
+    require(step_launches == dict(
+        step_prologue=problem.num_steps,
+        refine_residual=problem.num_steps * passes,
+        refine_scale=problem.num_steps * passes,
+        step_epilogue=problem.num_steps), step_launches)
+    out["slice"]["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 4: {out['slice']['phase_s']:.1f} s", flush=True)
+    return fn, step_rows
 
 
 def kernel_profile(fn) -> dict:
@@ -859,11 +1229,14 @@ def idle_split(prof: dict, first: str = "k_init",
     first-residual pass, to its ``last`` kernel), split into the gaps that
     follow a device-to-host copy (the host reading the solve's stop flag or
     running-lane count) and the rest, and between the solves (the caller's
-    own work), with the solves' span and kernel time and the count of
-    copies to the host inside them."""
+    own work), with the solves' span and kernel time, the count of copies
+    to the host inside them and of those between two solves (the host
+    reading a step's result before it queues the next step's solve)."""
     import re
     inside = after_read = between = solve_span = solve_busy = 0.0
     start, prev_end, prev_name, solves, reads = None, None, "", 0, 0
+    reads_between = pending = 0
+    before_first = None
     starts = is_k2_start if first == "k2" else (lambda k: k == first)
     for s0, s1, name in prof["timeline"]:
         m = re.search(r"\b(ks?_[a-z_]+(?:<[^>(]*>)?)", name)
@@ -872,6 +1245,11 @@ def idle_split(prof: dict, first: str = "k_init",
         if starts(k) and start is None:
             start = s0
             between += gap
+            if before_first is None:
+                before_first = between
+            # copies to the host after a solve that another solve follows
+            reads_between += pending if solves else 0
+            pending = 0
         elif start is not None:
             if "DtoH" in prev_name:
                 after_read += gap
@@ -881,6 +1259,7 @@ def idle_split(prof: dict, first: str = "k_init",
             reads += "DtoH" in name
         else:
             between += gap
+            pending += "DtoH" in name
         if starts(k):
             solve_busy += s1 - s0
         if k == last and start is not None:
@@ -892,7 +1271,9 @@ def idle_split(prof: dict, first: str = "k_init",
     return dict(solves=solves, solve_span_us=solve_span,
                 solve_busy_us=solve_busy, idle_in_solves_us=inside,
                 idle_after_host_reads_us=after_read, host_reads=reads,
-                idle_between_solves_us=between)
+                idle_between_solves_us=between,
+                idle_before_first_solve_us=before_first or 0.0,
+                host_reads_between_solves=reads_between)
 
 
 def k2_kernels(prof: dict) -> dict:
@@ -2833,7 +3214,8 @@ def _timed_transient(problem, device, label: str, **kw):
 
 def _merged_stall(problem, device, res: dict):
     """Where a step of the merged adaptive run ran to ``maxiter``: that
-    step's system, read off ``cg_tol``'s arguments in one more run, solved
+    step's system, read off ``cg_tol``'s arguments in one more run (the
+    eager loop, which calls the wrapper), solved
     again by the standard kernel, the merged kernel and the plain merged
     version (capped at 2000 iterations), to tell a fault of the kernel from
     a property of the recurrence in float32. Returns the counts, or None
@@ -2855,7 +3237,7 @@ def _merged_stall(problem, device, res: dict):
     cuda_cg.cg_tol, cuda_cg.MERGED_DEFAULT = capture, True
     try:
         make_simulate_fn(problem, dtype=torch.float32, device=device,
-                         **RECIPE)()
+                         **RECIPE).forward_eager()
     finally:
         cuda_cg.cg_tol, cuda_cg.MERGED_DEFAULT = kernel, False
     args, kw = calls[res["iters_argmax"]]
@@ -3617,9 +3999,10 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
 
 def _patched_transient(problem, device, steps: int, solver, **kw):
     """``steps`` steps of the flagship transient through
-    ``make_simulate_fn``'s refined recipe (the stepper forms each step's
-    right-hand side, seed and float64 residual), every inner float32 system
-    handed to ``solver(A32, sm32, r32, seed, rtol)`` in place of ``cg_tol``:
+    ``make_simulate_fn``'s refined recipe through its eager loop (the
+    stepper forms each step's right-hand side, seed and float64 residual),
+    every inner float32 system handed to ``solver(A32, sm32, r32, seed,
+    rtol)`` in place of ``cg_tol``:
     (watch (steps, W), iterations a step, seconds)."""
     import copy
     import functools
@@ -3645,7 +4028,7 @@ def _patched_transient(problem, device, steps: int, solver, **kw):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ys = fn()
+        ys = fn.forward_eager()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
     finally:
@@ -4707,7 +5090,7 @@ def _z_rank(cases) -> dict:
     return out
 
 
-def run_sharded(problem, device, out: dict) -> dict:
+def run_sharded(problem, device, out: dict, repeats: int = 1) -> dict:
     """Phase 22: (a) ``run_sweep_multihost`` over 2 gloo ranks sharing
     cuda:0 (tcp:// on localhost): the B = 64 float32 kernel sweep and the
     B = 16 recording, bitwise the single-process runs of the same B; (b)
@@ -4715,7 +5098,8 @@ def run_sharded(problem, device, out: dict) -> dict:
     eager r-line (5 steps) and Jacobi (2 steps) with the gradient recorded,
     against the unsharded eager run; (c) ``run_sweep_multihost`` over NCCL
     in a world of one rank, bitwise the single-process sweep. Every
-    sub-check fatal; the seconds of each beside the card."""
+    sub-check fatal; the seconds of each beside the card. (a) runs
+    ``repeats`` times, each run held bitwise and recorded."""
     import dataclasses
     import numpy as np
     import torch
@@ -4729,55 +5113,62 @@ def run_sharded(problem, device, out: dict) -> dict:
     rec_kw = {k: v for k, v in SHARD_REC_RECIPE.items()
               if k != "record_gradient"}
 
-    # (a) the config axis: 2 gloo ranks on the one card
-    t0 = time.perf_counter()
-    cases = {"sweep": (SHARD_B, SHARD_RECIPE, True),
-             "recording": (SHARD_REC_B, SHARD_REC_RECIPE, False)}
-    ranks = spawn(_multihost_rank, 2, init=False, device="cuda",
-                  timeout=300.0, args=(_free_port(), 2, "gloo", cases))
-    spawn_s = time.perf_counter() - t0
-    ks, fs = _shard_inputs(problem, SHARD_B)
-    one = make_sweep_fn(problem, dtype=torch.float32, device=device,
-                        **SHARD_RECIPE)
-    one(ks, fs)                      # warm, as the ranks' timed runs are
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = one(ks, fs).cpu().numpy()
-    torch.cuda.synchronize()
-    one_s = time.perf_counter() - t0
-    ks_r, fs_r = _shard_inputs(problem, SHARD_REC_B)
-    want_rec = make_sweep_fn_recording(problem, dtype=torch.float32,
-                                       device=device, **rec_kw)(ks_r, fs_r)
-    for r, got in enumerate(ranks):
-        require(np.isfinite(got["sweep"]["result"]).all(), "22a finite")
-        require(np.array_equal(got["sweep"]["result"], want),
-                ("22a sweep not bitwise", r,
-                 _np_rel(got["sweep"]["result"], want)))
-        for k in ("watch", "band", "axis"):
-            w = want_rec[k].cpu().numpy()
-            require(np.array_equal(got["recording"]["result"][k], w),
-                    ("22a recording not bitwise", r, k,
-                     _np_rel(got["recording"]["result"][k], w)))
-        require(got["sweep"]["counts"]["identity"] > 0
-                and got["recording"]["counts"]["no_kv"] > 0,
-                ("22a: a rank ran no K2 solve", r, got["sweep"]["counts"]))
-    sweep_s = max(g["sweep"]["seconds"] for g in ranks)
-    res["a"] = dict(
-        seconds=time.perf_counter() - t_phase, spawn_s=spawn_s,
-        sweep_s=[g["sweep"]["seconds"] for g in ranks],
-        recording_s=[g["recording"]["seconds"] for g in ranks],
-        configs_per_s_2_ranks=SHARD_B / sweep_s,
-        configs_per_s_1_process=SHARD_B / one_s,
-        k2_identity_solves=[g["sweep"]["counts"]["identity"] for g in ranks],
-        k2_no_kv_solves=[g["recording"]["counts"]["no_kv"]
-                         for g in ranks])
-    print(f"22a config axis, 2 gloo ranks on cuda:0 ({card}): B = {SHARD_B} "
-          f"sweep bitwise, {SHARD_B / sweep_s:.2f} configs/s at 2 ranks "
-          f"against {SHARD_B / one_s:.2f} in one process (ranks share the "
-          f"card: sharing, not scaling); B = {SHARD_REC_B} recording "
-          f"bitwise; K2 solves a rank {res['a']['k2_identity_solves']} / "
-          f"{res['a']['k2_no_kv_solves']} (Kv-free); "
-          f"{res['a']['seconds']:.1f} s")
+    # (a) the config axis: 2 gloo ranks on the one card, ``repeats`` times
+    # (each run held bitwise; ROADMAP §3's fault was one such run)
+    for run in range(repeats):
+        t_a = time.perf_counter()
+        t0 = time.perf_counter()
+        cases = {"sweep": (SHARD_B, SHARD_RECIPE, True),
+                 "recording": (SHARD_REC_B, SHARD_REC_RECIPE, False)}
+        ranks = spawn(_multihost_rank, 2, init=False, device="cuda",
+                      timeout=300.0, args=(_free_port(), 2, "gloo", cases))
+        spawn_s = time.perf_counter() - t0
+        ks, fs = _shard_inputs(problem, SHARD_B)
+        one = make_sweep_fn(problem, dtype=torch.float32, device=device,
+                            **SHARD_RECIPE)
+        one(ks, fs)                  # warm, as the ranks' timed runs are
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = one(ks, fs).cpu().numpy()
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        ks_r, fs_r = _shard_inputs(problem, SHARD_REC_B)
+        want_rec = make_sweep_fn_recording(
+            problem, dtype=torch.float32, device=device, **rec_kw)(ks_r, fs_r)
+        for r, got in enumerate(ranks):
+            require(np.isfinite(got["sweep"]["result"]).all(), "22a finite")
+            require(np.array_equal(got["sweep"]["result"], want),
+                    ("22a sweep not bitwise", r,
+                     _np_rel(got["sweep"]["result"], want)))
+            for k in ("watch", "band", "axis"):
+                w = want_rec[k].cpu().numpy()
+                require(np.array_equal(got["recording"]["result"][k], w),
+                        ("22a recording not bitwise", r, k,
+                         _np_rel(got["recording"]["result"][k], w)))
+            require(got["sweep"]["counts"]["identity"] > 0
+                    and got["recording"]["counts"]["no_kv"] > 0,
+                    ("22a: a rank ran no K2 solve", r,
+                     got["sweep"]["counts"]))
+        sweep_s = max(g["sweep"]["seconds"] for g in ranks)
+        res.setdefault("a_runs", []).append(dict(
+            seconds=time.perf_counter() - t_a, spawn_s=spawn_s,
+            sweep_s=[g["sweep"]["seconds"] for g in ranks],
+            recording_s=[g["recording"]["seconds"] for g in ranks],
+            configs_per_s_2_ranks=SHARD_B / sweep_s,
+            configs_per_s_1_process=SHARD_B / one_s,
+            k2_identity_solves=[g["sweep"]["counts"]["identity"]
+                                for g in ranks],
+            k2_no_kv_solves=[g["recording"]["counts"]["no_kv"]
+                             for g in ranks], bitwise=True))
+        res["a"] = res["a_runs"][0]
+        a = res["a_runs"][-1]
+        print(f"22a (run {run + 1} of {repeats}) config axis, 2 gloo ranks "
+              f"on cuda:0 ({card}): B = {SHARD_B} sweep bitwise, "
+              f"{SHARD_B / sweep_s:.2f} configs/s at 2 ranks against "
+              f"{SHARD_B / one_s:.2f} in one process (ranks share the card: "
+              f"sharing, not scaling); B = {SHARD_REC_B} recording bitwise; "
+              f"K2 solves a rank {a['k2_identity_solves']} / "
+              f"{a['k2_no_kv_solves']} (Kv-free); {a['seconds']:.1f} s")
 
     # (b) the z axis: 3 gloo ranks on the one card, float64 eager
     from heatflow_tpu_torch.ops import cg
@@ -4863,6 +5254,9 @@ def main() -> None:
                                       "FILE_recording, FILE_adi and "
                                       "FILE_fit) and write its kernel "
                                       "table here")
+    ap.add_argument("--shard-repeats", type=int, default=1,
+                    help="run phase 22a (the 2-rank config-sharded sweep "
+                         "and recording, each held bitwise) this many times")
     args = ap.parse_args()
     t_script = time.perf_counter()
 
@@ -4910,7 +5304,7 @@ def main() -> None:
     problem = build_flagship()
     print(f"flagship setup (host): {time.perf_counter() - t0:.2f} s")
     rows = phase_checks(problem, device, out)
-    fn = run_slice(problem, device, out)
+    fn, step_rows = run_slice(problem, device, out)
     if args.profile:
         profile_run(fn, args.profile, out)
 
@@ -4964,7 +5358,7 @@ def main() -> None:
     print(f"phases 17-19: {out['phases_17_19_s']:.1f} s")
     unstructured_rows = run_unstructured(device, out)
     run_analysis(device, out)
-    run_sharded(sweep_problem, device, out)
+    run_sharded(sweep_problem, device, out, args.shard_repeats)
 
     counts = out["slice"]["phase_launches"]
     solves = out["slice"]["solves"]
@@ -4978,6 +5372,10 @@ def main() -> None:
     for form in ("rline", "adi"):
         kernels.append(kernel(f"cg_tol[{form}]", SOURCE, REPLACES,
                               solves[form], out["solves"][form]))
+    # the step kernels: their launches in phase 4's graph run
+    for name, r in step_rows.items():
+        kernels.append(kernel(name, STEP_SOURCE, STEP_REPLACES[name],
+                              out["slice"]["step_launches"][name], r))
     # K2 and K3: launches summed over phases 6 and 7 (K2's Kv-free form:
     # over phases 9 and 10; its ADI and adaptive forms and z-line phase:
     # over phases 12 and 13), each path's counts read just after it ran; a

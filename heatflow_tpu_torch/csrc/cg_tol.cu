@@ -132,6 +132,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -2128,6 +2129,32 @@ cudaError_t record_solve(const Solve& s, cudaStream_t body_stream,
 
 }  // namespace
 
+// A solve recorded into another graph's capture (csrc/step.cu records the
+// transient's solves this way): `desc` is a solve record packed by
+// hf_solve_desc, `stream` the stream capturing the graph that receives the
+// start, the conditional WHILE node and the finish, `body_stream` a stream
+// for the loop body's capture; `counts` receives the launches of the start
+// and finish, counts_body those of one body.
+namespace hf {
+
+cudaError_t configure_solves() { return configure(); }
+
+cudaError_t record_solve_desc(const void* desc, cudaStream_t stream,
+                              cudaStream_t body_stream, int check_every,
+                              int poison, int* iters,
+                              unsigned long long* runs, long long* counts,
+                              long long* counts_body) {
+  if (check_every < 1) return cudaErrorInvalidValue;
+  Solve s;
+  memcpy(&s, desc, sizeof(Solve));
+  s.stream = stream;
+  s.counts = counts;
+  return record_solve(s, body_stream, check_every, poison, iters, runs,
+                      counts_body);
+}
+
+}  // namespace hf
+
 // ---------------------------------------------------------------------
 // C interface (bound with ctypes by heatflow_tpu_torch/ops/cuda_cg.py).
 // Every entry returns a cudaError_t code, 0 on success. Pointers are
@@ -2207,6 +2234,16 @@ int hf_cg_tol_graph(HF_SOLVE_ARGS, int check_every, int poison, int *iters,
   cudaStreamDestroy(bs);
   cudaStreamDestroy(cs);
   return (int)e;
+}
+
+// A solve record (the arguments of hf_cg_tol_graph, packed) for
+// hf::record_solve_desc, into `out` (hf_solve_desc_bytes() bytes).
+int hf_solve_desc_bytes() { return (int)sizeof(Solve); }
+
+int hf_solve_desc(HF_SOLVE_ARGS, void *out) {
+  HF_SOLVE_INIT;
+  memcpy(out, &s, sizeof(Solve));
+  return 0;
 }
 
 int hf_graph_launch(void *exec, void *stream) {

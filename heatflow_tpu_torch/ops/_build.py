@@ -158,6 +158,8 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_cg_state_bytes)
     _sig(lib.hf_num_phases)
     _sig(lib.hf_cg_tol_graph, *solve, I, I, P, P, P, P)
+    _sig(lib.hf_solve_desc_bytes)
+    _sig(lib.hf_solve_desc, *solve, P)
     _sig(lib.hf_graph_launch, P, P)
     _sig(lib.hf_graph_destroy, P)
     _sig(lib.hf_stencil_dot, P, I, P, P, P, P, P, I, I, P, P)
@@ -183,6 +185,14 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_mg_restrict_res, P, I, P, P, P, P, P, I, I, I, I, P, P)
     _sig(lib.hf_mg_last, P, P, P, P, P, P)
     _sig(lib.hf_mg_vcycle, P, P, P, P, P, P, P)
+    # csrc/step.cu
+    _sig(lib.hf_step_args_bytes)
+    _sig(lib.hf_step_state_bytes)
+    _sig(lib.hf_step_prologue, P, P)
+    _sig(lib.hf_refine_residual, P, I, P)
+    _sig(lib.hf_refine_scale, P, I, P)
+    _sig(lib.hf_step_epilogue, P, P)
+    _sig(lib.hf_step_graph, P, P, I, I, P, P, P)
     # csrc/sweep_cg.cu
     sweep = [P, P, I, P, P, I, P, P, P, P, P, P, P, P, P, I, P, P, I, I, I,
              I, I, I, I, I, P, P, P, I, P, P, P]

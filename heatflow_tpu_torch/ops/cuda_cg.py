@@ -104,11 +104,15 @@ def graph_stats() -> dict[str, dict]:
     """For each solve form with a captured graph: the kernel launches of
     one iteration, as the graph's loop body holds them (``CHECK_EVERY``
     iterations a body), the graphs kept and the host seconds the last
-    capture and instantiation took."""
-    return {ws.form_name: dict(
+    capture and instantiation took; a solve form recorded into a
+    transient's graph (``ops/cuda_step``) as its latest capture holds it."""
+    stats = lambda g, kept: dict(
         launches_per_iteration=float(g.counts_body.sum()) / CHECK_EVERY,
-        graphs=len(ws.graphs), capture_s=g.capture_s)
-        for ws in _workspaces.values() for g in ws.graphs.values()}
+        graphs=kept, capture_s=g.capture_s)
+    out = {ws.form_name: stats(g, len(ws.graphs))
+           for ws in _workspaces.values() for g in ws.graphs.values()}
+    out.update({name: stats(g, 1) for name, g in _recorded.items()})
+    return out
 
 
 def launches_per_iteration() -> dict[str, float]:
@@ -116,7 +120,7 @@ def launches_per_iteration() -> dict[str, float]:
     name: 'rline', 'adi', 'mgz', 'mg', ...), over the loop bodies the
     device ran since the last :func:`reset_counters`: each body run is
     ``CHECK_EVERY`` iterations (a host sync)."""
-    out: dict[str, list] = {}
+    out = {form: list(acc) for form, acc in _recorded_runs.items()}
     for ws in _workspaces.values():
         for g in ws.graphs.values():
             runs = int(g.runs.item())
@@ -134,6 +138,7 @@ _FORM_COUNTERS = ("launches", "launches_identity", "launches_rline",
 
 def reset_counters() -> None:
     _phase_counts[:] = 0
+    _recorded_runs.clear()
     for ws in _workspaces.values():
         for g in ws.graphs.values():
             g.runs.zero_()
@@ -440,6 +445,22 @@ def _mgz_operands(mgz, sweeps: int, nz: int, nr: int, device):
     return ac9, pcrc, aux, lc
 
 
+def _check_solve(A, sm, *, pcr, pcr_z, cheb_degree: int, merged: bool, mgz,
+                 mgz_sweeps: int, rtol_wrt: str) -> None:
+    """``cg_tol``'s checks of a solve's form and operands (the right-hand
+    side and seed aside), for a solve recorded into another graph
+    (``ops/cuda_step``)."""
+    _check_rtol_wrt(rtol_wrt)
+    _check_forms(pcr, pcr_z, int(cheb_degree), merged, mgz)
+    dev = sm.device
+    nz, nr = _check_operator(A, sm, dev)
+    for t, name in ((pcr, "pcr"), (pcr_z, "pcr_z")):
+        if t is not None:
+            _stack_levels(t, name, nz, nr, dev)
+    if mgz is not None:
+        _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
+
+
 def _mgz_tensors(mgz):
     return () if mgz is None else tuple(mgz[k] for k in ("Ac9", "pcrc", "aux")
                                         if k in mgz)
@@ -473,18 +494,69 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
                                 cheb_degree=cheb_degree, merged=merged,
                                 mgz=mgz, mgz_sweeps=mgz_sweeps,
                                 mgz_omega=mgz_omega, mgz_omega_c=mgz_omega_c)
-    forms = ["launches", "launches_mgz" if mgz is not None else
-             "launches_adi" if pcr_z is not None else
-             "launches_rline" if pcr is not None else
-             "launches_cheb" if cheb_degree > 0 else "launches_identity"]
-    if merged:
-        forms.append("launches_merged")
+    forms = _form_counters(pcr, pcr_z, cheb_degree, merged,
+                           mgz is not None)
     return _kernel_solve(A, sm, b, x0, rtol, maxiter=maxiter,
                          rtol_wrt=rtol_wrt, pcr=pcr, pcr_z=pcr_z,
                          cheb_degree=cheb_degree, merged=merged, mgz=mgz,
                          mgz_sweeps=mgz_sweeps, mgz_omega=mgz_omega,
                          mgz_omega_c=mgz_omega_c, poison=True,
                          count=(cg_tol, forms))
+
+
+def _form_counters(pcr, pcr_z, cheb_degree: int, merged: bool,
+                   mgz: bool) -> list[str]:
+    """The ``cg_tol`` counters one solve of the form adds to."""
+    forms = ["launches", "launches_mgz" if mgz else
+             "launches_adi" if pcr_z is not None else
+             "launches_rline" if pcr is not None else
+             "launches_cheb" if cheb_degree > 0 else "launches_identity"]
+    if merged:
+        forms.append("launches_merged")
+    return forms
+
+
+def _form_name(pcr, pcr_z, cheb_degree: int, merged: bool, mgz: bool,
+               mg: bool = False) -> str:
+    """A solve form's name: 'rline', 'adi', 'mgz', 'cheb3', ..., with
+    '_merged' for the merged-dot recurrence."""
+    return ("mg" if mg else "mgz" if mgz else
+            "adi" if pcr_z is not None else "rline" if pcr is not None else
+            f"cheb{cheb_degree}" if cheb_degree else "identity") \
+        + ("_merged" if merged else "")
+
+
+class _Recorded:
+    """A solve form recorded into a transient's graph (``ops/cuda_step``):
+    the launches of a solve's start and finish (``counts``) and of one loop
+    body (``counts_body``), and the ``cg_tol`` counters each of its solves
+    adds to."""
+
+    def __init__(self, form_name: str, counters: list[str], counts,
+                 counts_body):
+        self.form_name, self.counters = form_name, counters
+        self.counts, self.counts_body = counts, counts_body
+        self.capture_s = 0.0
+
+
+# the solve forms recorded into transients' graphs: the latest capture of
+# each form, and [launches, iterations] of its loop bodies since the last
+# reset_counters
+_recorded: dict[str, _Recorded] = {}
+_recorded_runs: dict[str, list] = {}
+
+
+def _count_solves(g: _Recorded, n: int, runs: int) -> None:
+    """Count ``n`` solves that a transient's graph ran on the form of
+    ``g``, whose loop bodies ran ``runs`` times (both counted by the
+    device): the wrapper's counters and the phase kernels' launches."""
+    global _phase_counts
+    for name in g.counters:
+        setattr(cg_tol, name, getattr(cg_tol, name) + int(n))
+    _phase_counts += int(n) * g.counts + int(runs) * g.counts_body
+    acc = _recorded_runs.setdefault(g.form_name, [0, 0])
+    acc[0] += int(runs) * int(g.counts_body.sum())
+    acc[1] += int(runs) * CHECK_EVERY
 
 
 class _Graph:
@@ -581,10 +653,8 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
 
     form = (pcr is not None, pcr_z is not None, cheb_degree, bool(merged),
             mgz is not None, mg is not None)
-    name = ("mg" if mg is not None else "mgz" if mgz is not None else
-            "adi" if pcr_z is not None else "rline" if pcr is not None else
-            f"cheb{cheb_degree}" if cheb_degree else "identity") \
-        + ("_merged" if merged else "")
+    name = _form_name(pcr, pcr_z, cheb_degree, merged, mgz is not None,
+                      mg is not None)
     ws = _workspace(lib, dev, nz, nr, form,
                     lib.hf_cg_extra_planes(cheb_degree, int(merged),
                                            int(mgz is not None)), name)

@@ -1,4 +1,5 @@
-"""Backward-Euler transient stepper: a Python loop of device steps.
+"""Backward-Euler transient stepper: one CUDA graph on the kernel path, a
+Python loop of device steps elsewhere.
 
 The reference's hot loop (run_no_diamond.py:529-589) does, per step: update
 the heating BC, re-assemble the RHS, a MUMPS back-substitution, a second
@@ -18,8 +19,16 @@ points and radial bands. Here each step is:
     refinement passes;
   * gradient projection: stencil rhs (G_r @ u) and a mass-matrix PCG;
   * watcher traces, band averages and axis profiles gathered on the device
-    and stacked at the end. The host reads nothing inside the step, except
-    the previous step's iteration count under ``precondition='adaptive'``.
+    and stacked at the end.
+
+On the card the kernel path (``solver='vmem'``, or 'auto' in float32)
+without the gradient projection runs the whole transient as one CUDA graph
+(``ops/cuda_step``: the step's elementwise work as four kernels around
+``cg_tol``'s recorded solve, the adaptive r-line/ADI switch set on the
+device), as the JAX package runs it as one XLA program; the host reads
+nothing between steps. The eager loop (:meth:`Simulator.forward_eager`) is
+its plain version and runs everything else; there it reads the previous
+step's iteration count under ``precondition='adaptive'``.
 """
 
 from __future__ import annotations
@@ -31,8 +40,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from heatflow_tpu_torch.ops.cg import (pcg, pcg_fixed, refine_inner_scale,
-                                       refine_inner_seed)
+from heatflow_tpu_torch.ops.cg import pcg, pcg_fixed
+from heatflow_tpu_torch.ops.cuda_step import (refine_residual_reference,
+                                              refine_scale_reference,
+                                              step_epilogue_reference,
+                                              step_prologue_reference,
+                                              warm_seed)
 from heatflow_tpu_torch.ops.stencil import apply_stencil, combine_operator
 from heatflow_tpu_torch.sim.problem import (Problem2D, band_average,
                                             band_reduce, band_values)
@@ -179,13 +192,14 @@ class Simulator(nn.Module):
         self.mg = mg
         # z-sharding: this rank's rows (``parallel.sharding.ZAxis``)
         self.zax = zax
+        # the kernel path's step workspaces (``ops.cuda_step``), by key
+        self._workspaces: dict = {}
 
     @property
     def dev(self) -> dict[str, torch.Tensor]:
         return {name: getattr(self, name) for name in self._names}
 
-    def forward(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
-                t0=0.0, source=None) -> dict[str, torch.Tensor]:
+    def _inputs(self, kappas, rho_cvs, fwhm, u0, t0, source) -> tuple:
         if self.opts["precondition"] == "mgz" and (kappas is not None
                                                    or rho_cvs is not None):
             raise ValueError(
@@ -207,15 +221,152 @@ class Simulator(nn.Module):
         if self.zax is not None:
             u0 = self.zax.rows(u0)
             src = None if src is None else self.zax.rows(src)
+        return d, kp, rc, fw, ic, u0, as_c(t0), src
+
+    def forward(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
+                t0=0.0, source=None) -> dict[str, torch.Tensor]:
         with torch.no_grad():
-            return self._run(d, kp, rc, fw, ic, u0, as_c(t0), src)
+            return self._run(*self._inputs(kappas, rho_cvs, fwhm, u0, t0,
+                                           source))
+
+    def forward_eager(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
+                      t0=0.0, source=None, inner_sum=torch.sum
+                      ) -> dict[str, torch.Tensor]:
+        """:meth:`forward` through the eager step loop on any device (the
+        plain version of the kernel path's graph). ``inner_sum`` takes the
+        refinement's two inner products (``ops.cuda_step.kernel_order_sum``:
+        in the step kernels' order)."""
+        with torch.no_grad():
+            return self._run_eager(*self._inputs(kappas, rho_cvs, fwhm, u0,
+                                                 t0, source), inner_sum)
+
+    def _has_radial(self) -> bool:
+        return self.problem.radial is not None and \
+            self.opts["record_gradient"]
 
     def _run(self, d, kp, rc, fw, ic, u0, t0, source):
+        """The kernel path on the card runs as one CUDA graph
+        (:meth:`_run_graph`); the CPU, the recording path (its projection
+        reads the host each iteration), the z-sharded stepper and the eager
+        solvers run the eager loop."""
+        if (u0.device.type == "cuda" and self.use_vmem and self.zax is None
+                and not self._has_radial()):
+            return self._run_graph(d, kp, rc, fw, ic, u0, t0, source)
+        return self._run_eager(d, kp, rc, fw, ic, u0, t0, source)
+
+    def _operands(self, d, kp, rc, fw, ic, t0, source, ap):
+        """The run's operators and affine boundary terms: (A, M_op, s, g0,
+        g1, Ag0, Ag1, b_src, ts, amps). ``amps[n]`` is the heating
+        amplitude of step n, elementwise the per-step interpolation."""
+        problem = self.problem
+        dt = torch.tensor(problem.dt, dtype=self.cdt, device=ic.device)
+        free, dirich = d["free"], d["dirichlet"]
+        A, M_op = combine_operator(d["K"], d["M"], kp, rc, dt)
+        diag_a = A[0]
+        # symmetric Jacobi scaling (≡ Jacobi preconditioning in exact
+        # arithmetic, numerically far better at low precision)
+        s = torch.rsqrt(torch.where(diag_a > 0, diag_a,
+                                    torch.ones_like(diag_a))) * free + dirich
+        coeff = torch.tensor(-4.0 * math.log(2.0), dtype=self.cdt,
+                             device=ic.device) / (fw * fw)
+        profile = torch.exp(coeff * d["r_sq"]) * d["heat_profile_base"]
+        # BC value g(t) = g0 + amp(t)·g1: (amp - ic) Gaussian + ic on the
+        # heating line, ic on fixed edges (ref run_no_diamond.py:303-309)
+        g0 = ic * (dirich - profile)
+        g1 = profile
+        Ag0 = ap(A, g0)
+        Ag1 = ap(A, g1)
+        # volumetric source: rhs += dt ∫ f φ r dx = dt (M_proj @ f)
+        b_src = 0.0 if source is None else dt * ap(d["M_proj"], source)
+        ts = torch.arange(1, int(problem.num_steps) + 1, dtype=self.cdt,
+                          device=ic.device) * dt + t0
+        amp_offset = d["heat_T"][0] - ic   # ref run_no_diamond.py:299-301
+        amps = interp(ts, d["heat_t"], d["heat_T"]) - amp_offset
+        return A, M_op, s, g0, g1, Ag0, Ag1, b_src, ts, amps
+
+    def _solve_operands(self, A, s, free):
+        """The kernel path's inner-solve operands: (A, sm, pcr, pcr_z) in
+        float32 (the casts of the float64 operator when refining)."""
+        from heatflow_tpu_torch.ops.cuda_cg import pcr_pack
+        prec = self.opts["precondition"]
+        if self.opts["f64_refine"]:
+            A, s, free = A.to(self.dtype), s.to(self.dtype), \
+                free.to(self.dtype)
+        pcr = pcr_pack(A, s, free) if prec in ("rline", "adi", "adaptive",
+                                               "mgz") else None
+        pcr_z = pcr_pack(A, s, free, axis=-2) \
+            if prec in ("adi", "adaptive") else None
+        return A, s * free, pcr, pcr_z
+
+    def _run_graph(self, d, kp, rc, fw, ic, u0, t0, source):
+        """The kernel path as one device program (``ops/cuda_step``): the
+        call's operands copied into this module's workspace, the captured
+        transient launched once, the outputs copied out."""
+        from heatflow_tpu_torch.ops import cuda_step
+        ws, ts = self._step_workspace(d, kp, rc, fw, ic, u0, t0, source)
+        cuda_step.run(ws)
+        ys = {"cg_iters": ws.cg_iters.clone()}
+        if ws.watch is not None:
+            ys["watch"] = ws.watch.clone()
+        if ws.fields is not None:
+            ys["field"] = ws.fields.clone()
+        ys["final_u"] = ws.ring[(ws.num_steps - 1) % 3].clone()
+        ys["times"] = ts
+        return ys
+
+    def _step_workspace(self, d, kp, rc, fw, ic, u0, t0, source):
+        """(workspace, times): this module's step workspace for the call's
+        options, made at its first use, with the call's operands loaded.
+        The inner solve's form and operands pass ``cg_tol``'s checks first
+        (its operands float32: ``dtype=torch.float32``)."""
+        from heatflow_tpu_torch.ops import cuda_cg, cuda_step
+        o, problem = self.opts, self.problem
+        A, M_op, s, g0, g1, Ag0, Ag1, b_src, ts, amps = self._operands(
+            d, kp, rc, fw, ic, t0, source, apply_stencil)
+        free = d["free"]
+        As, sm, pcr, pcr_z = self._solve_operands(A, s, free)
+        adaptive = o["precondition"] == "adaptive"
+        merged = bool(cuda_cg.MERGED_DEFAULT)
+        solve = dict(pcr=pcr is not None, pcr_z=pcr_z is not None,
+                     cheb=0 if adaptive or o["f64_refine"]
+                     else o["vmem_cheb_degree"],
+                     mgz=self.mg if o["precondition"] == "mgz" else None,
+                     mgz_sweeps=o["mgz_sweeps"], merged=merged,
+                     maxiter=o["maxiter"],
+                     rtol_wrt="b" if o["f64_refine"] else o["rtol_wrt"])
+        cuda_cg._check_solve(As, sm, pcr=pcr, pcr_z=pcr_z,
+                             cheb_degree=solve["cheb"], merged=merged,
+                             mgz=solve["mgz"],
+                             mgz_sweeps=solve["mgz_sweeps"],
+                             rtol_wrt=solve["rtol_wrt"])
+        key = (merged, source is not None, u0.device.type)
+        ws = self._workspaces.get(key)
+        if ws is None:
+            nz, nr = u0.shape
+            lv = lambda t: 0 if t is None else (t.shape[0] - 1) // 2
+            ws = self._workspaces[key] = cuda_step.StepWorkspace(
+                device=u0.device, nz=nz, nr=nr, npts=A.shape[0],
+                cdt=self.cdt, num_steps=int(problem.num_steps),
+                f64_refine=o["f64_refine"],
+                carry=o["inner_seed"] == "carry",
+                warm_start=o["warm_start"], adaptive=adaptive,
+                thresh=o["adaptive_thresh"], rtol=o["rtol"],
+                n_watch=len(d["watch_flat"]) if "watch_flat" in d else 0,
+                record_fields=o["record_fields"],
+                has_src=source is not None, solve=solve,
+                levels=(lv(pcr), lv(pcr_z)))
+        ws.load(Mop=M_op, s=s, free=free, g0=g0, g1=g1, Ag0=Ag0, Ag1=Ag1,
+                src=None if source is None else b_src, amps=amps,
+                A=A if o["f64_refine"] else None, As=As, sm=sm, pcr=pcr,
+                pcr_z=pcr_z, u0=u0, watch_flat=d.get("watch_flat"))
+        return ws, ts
+
+    def _run_eager(self, d, kp, rc, fw, ic, u0, t0, source,
+                   inner_sum=torch.sum):
         o = self.opts
         dtype, cdt, use_vmem = self.dtype, self.cdt, self.use_vmem
         precondition, f64_refine = o["precondition"], o["f64_refine"]
         rtol, maxiter, rtol_wrt = o["rtol"], o["maxiter"], o["rtol_wrt"]
-        problem = self.problem
         nz, nr = u0.shape
         device = u0.device
         # z-sharded: slabs of nz rows, halos at the stencil applies, ranks'
@@ -224,17 +375,13 @@ class Simulator(nn.Module):
         halo = None if zax is None else zax.halo
         dot = None if zax is None else zax.dots
         ap = lambda C, v: apply_stencil(C, v, halo=halo)
-        num_steps = int(problem.num_steps)
-        dt = torch.tensor(problem.dt, dtype=cdt, device=device)
+        num_steps = int(self.problem.num_steps)
         has_watch = "watch_flat" in d
-        has_radial = problem.radial is not None and o["record_gradient"]
+        has_radial = self._has_radial()
         one = lambda v: torch.ones_like(v)
 
-        K, M = d["K"], d["M"]
         G_r, M_proj = d["G_r"], d["M_proj"]
-        free, dirich = d["free"], d["dirichlet"]
-        heat_t, heat_T = d["heat_t"], d["heat_T"]
-        amp_offset = heat_T[0] - ic   # ref run_no_diamond.py:299-301
+        free = d["free"]
 
         # symmetrically scaled mass solve for the gradient projection
         # (operator entries span ~15 decades; unit diagonal is f32-safe)
@@ -242,16 +389,12 @@ class Simulator(nn.Module):
                                        one(M_proj[0])))
         apply_Mp_s = lambda y: s_mp * ap(M_proj, s_mp * y)
 
-        A, M_op = combine_operator(K, M, kp, rc, dt)
-        diag_a = A[0]
-        # symmetric Jacobi scaling (≡ Jacobi preconditioning in exact
-        # arithmetic, numerically far better at low precision)
-        s = torch.rsqrt(torch.where(diag_a > 0, diag_a, one(diag_a))) \
-            * free + dirich
+        A, M_op, s, g0, g1, Ag0, Ag1, b_src, ts, amps = self._operands(
+            d, kp, rc, fw, ic, t0, source, ap)
         apply_A_s = lambda y: s * ap(A, s * y)
         sm_vmem = s * free if use_vmem else None
 
-        from heatflow_tpu_torch.ops.cuda_cg import cg_tol, pcr_pack
+        from heatflow_tpu_torch.ops.cuda_cg import cg_tol
         from heatflow_tpu_torch.ops.linesolve import (adi_preconditioner,
                                                       line_preconditioner)
 
@@ -263,9 +406,8 @@ class Simulator(nn.Module):
             """(eager preconditioner, r-stack, z-stack) for the form."""
             if use_vmem and precondition in ("rline", "adi", "adaptive",
                                              "mgz"):
-                z_stack = (pcr_pack(A_, s_, free_, axis=-2)
-                           if precondition in ("adi", "adaptive") else None)
-                return None, pcr_pack(A_, s_, free_), z_stack
+                _, _, pcr, pcr_z = self._solve_operands(A_, s_, free_)
+                return None, pcr, pcr_z
             if zax is not None and precondition in ("zline", "adi"):
                 # rows coupled: replicated on the full field
                 A_, s_, free_ = (zax.gather(A_), zax.gather(s_),
@@ -285,6 +427,7 @@ class Simulator(nn.Module):
             pre, pcr_stack, pcr_z_stack = line_pre(A, s, free)
             if precondition == "mg":
                 from heatflow_tpu_torch.ops.multigrid import make_vcycle
+                dt = torch.tensor(self.problem.dt, dtype=cdt, device=device)
                 level_ops = [{**lv, "A": combine_operator(
                     lv["K"], lv["M"], kp, rc, dt)[0]} for lv in self.mg]
                 vcycle = make_vcycle(level_ops)
@@ -296,25 +439,16 @@ class Simulator(nn.Module):
                 if zax is not None:
                     pre = zax.full(pre)     # replicated on the full field
 
-        coeff = torch.tensor(-4.0 * math.log(2.0), dtype=cdt,
-                             device=device) / (fw * fw)
-        profile = torch.exp(coeff * d["r_sq"]) * d["heat_profile_base"]
-        # BC value g(t) = g0 + amp(t)·g1: (amp - ic) Gaussian + ic on the
-        # heating line, ic on fixed edges (ref run_no_diamond.py:303-309)
-        g0 = ic * (dirich - profile)
-        g1 = profile
-        Ag0 = ap(A, g0)
-        Ag1 = ap(A, g1)
-        # volumetric source: rhs += dt ∫ f φ r dx = dt (M_proj @ f)
-        b_src = 0.0 if source is None else dt * ap(M_proj, source)
-
         if f64_refine:
             # f32 casts of the scaled system for the inner correction
             # solves; the f64 master operator computes only the residuals
-            A32, s32, free32 = A.to(dtype), s.to(dtype), free.to(dtype)
-            sm32 = (s * free).to(dtype)
-            apply_A32_s = lambda y: s32 * apply_stencil(A32, s32 * y)
-            pre32, pcr_stack32, pcr_z_stack32 = line_pre(A32, s32, free32)
+            if use_vmem:
+                A32, sm32, pcr_stack32, pcr_z_stack32 = \
+                    self._solve_operands(A, s, free)
+            else:
+                A32, s32, free32 = A.to(dtype), s.to(dtype), free.to(dtype)
+                apply_A32_s = lambda y: s32 * apply_stencil(A32, s32 * y)
+                pre32, _, _ = line_pre(A32, s32, free32)
             s_mp32 = s_mp.to(dtype)
             G_r32, M_proj32 = G_r.to(dtype), M_proj.to(dtype)
             apply_Mp_s32 = lambda y: s_mp32 * apply_stencil(M_proj32,
@@ -322,28 +456,26 @@ class Simulator(nn.Module):
 
         carry_inner = o["inner_seed"] == "carry"
 
-        def solve_refined(b_lift, y0, dys, use_adi):
+        def solve_refined(bt, y, dys, use_adi):
             """f64_refine passes of f64 residual / f32 correction on the
             scaled system, each inner solve from a zero seed, or (inner_seed
             ='carry') from the previous step's correction of the same pass
-            ``dys[i]``, zeroed on a degenerate pass. Returns (y, iters, the
-            passes' corrections)."""
-            bt = b_lift * free
+            ``dys[i]``, zeroed on a degenerate pass. Returns (y before the
+            last pass's correction, iters, the passes' corrections, the
+            last pass's rnorm)."""
             # inner stop floor: a residual at f64 roundoff relative to the
             # step's rhs has nothing left to correct
-            floor2 = 1e-30 * torch.sum(bt * bt)
-            y = y0
+            floor2 = 1e-30 * inner_sum(bt * bt)
             iters = torch.zeros((), dtype=torch.int32, device=device)
-            z32 = torch.zeros((nz, nr), dtype=dtype, device=device)
             new_dys = []
+            dy = rn = None
             for i in range(f64_refine):
-                r64 = bt - free * apply_A_s(y)
-                rn2 = torch.sum(r64 * r64)
-                rnorm, rtol_eff = refine_inner_scale(rn2, floor2, rtol,
-                                                     dtype)
-                r32 = (r64 / rnorm).to(dtype)
-                seed = (refine_inner_seed(dys[i], rtol_eff).contiguous()
-                        if carry_inner else z32)
+                y, r64, rnorm, rtol_eff = refine_residual_reference(
+                    A, s, free, bt, y, floor2, rtol, dtype, dy, rn,
+                    inner_sum)
+                r32, seed = refine_scale_reference(
+                    r64, rnorm, rtol_eff, dtype,
+                    dys[i] if carry_inner else None)
                 if use_vmem:
                     dy, its = cg_tol(
                         A32, sm32, r32, seed, rtol_eff, rtol_wrt="b",
@@ -356,25 +488,15 @@ class Simulator(nn.Module):
                               rtol_wrt="b")
                     dy, its = sol.x, sol.iters
                 new_dys.append(dy)
-                y = y + dy.to(cdt) * rnorm
+                rn = rnorm
                 iters = iters + its
-            return y, iters, new_dys
+            return y, iters, new_dys, rn
 
         adaptive = precondition == "adaptive"
-        extrapolate = o["warm_start"] == "extrapolate"
-        order2 = o["warm_start"] == "extrapolate2"
+        warm_start = o["warm_start"]
         fixed_iters = o["fixed_iters"]
-
-        def seed_of(prev, pp, ppp):
-            """The warm-start seed: the previous field, or its linear or
-            quadratic extrapolation in time."""
-            if order2:
-                return 3.0 * (prev - pp) + ppp
-            return 2.0 * prev - pp if extrapolate else prev
         # the first (cold) step is the deepest solve: start on the ADI form
         it_prev = maxiter
-        ts = torch.arange(1, num_steps + 1, dtype=cdt, device=device) * dt \
-            + t0
         u_prev = u_pp = u_ppp = u0
         gr_prev = gr_pp = gr_ppp = torch.zeros((nz, nr), dtype=dtype,
                                                device=device)
@@ -383,38 +505,42 @@ class Simulator(nn.Module):
         outs: dict[str, list] = {"cg_iters": []}
         for n in range(num_steps):
             use_adi = it_prev > o["adaptive_thresh"] if adaptive else None
-            amp = interp(ts[n], heat_t, heat_T) - amp_offset
-            g = g0 + amp * g1
-            b = ap(M_op, u_prev) + b_src
-            b_lift = (b - (Ag0 + amp * Ag1)) * s
-            u_seed = seed_of(u_prev, u_pp, u_ppp)
-            y0 = (u_seed / torch.where(s > 0, s, one(s))) * free
+            amp = amps[n]
+            b_lift, y0 = step_prologue_reference(
+                M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1, amp, s, free,
+                warm_start, halo=halo)
             if f64_refine:
-                x, iters, dys = solve_refined(b_lift, y0, dys, use_adi)
-            elif use_vmem:
-                x, iters = cg_tol(
-                    A, sm_vmem, b_lift * free, y0, rtol, rtol_wrt=rtol_wrt,
-                    cheb_degree=0 if adaptive else o["vmem_cheb_degree"],
-                    pcr=pcr_stack,
-                    pcr_z=None if use_adi is False else pcr_z_stack,
-                    **kernel_kw)
-            elif fixed_iters is not None:
-                sol = pcg_fixed(apply_A_s, b_lift, y0, precond=pre,
-                                mask=free, iters=fixed_iters, dot=dot)
-                x, iters = sol.x, sol.iters
+                x, iters, dys, rn = solve_refined(b_lift * free, y0, dys,
+                                                  use_adi)
+                u = step_epilogue_reference(x, s, free, g0, g1, amp,
+                                            dys[-1], rn)
             else:
-                sol = pcg(apply_A_s, b_lift, y0, precond=pre, mask=free,
-                          rtol=rtol, maxiter=maxiter, rtol_wrt=rtol_wrt,
-                          dot=dot)
-                x, iters = sol.x, sol.iters
-            u = x * s * free + g
+                if use_vmem:
+                    x, iters = cg_tol(
+                        A, sm_vmem, b_lift * free, y0, rtol,
+                        rtol_wrt=rtol_wrt,
+                        cheb_degree=0 if adaptive
+                        else o["vmem_cheb_degree"],
+                        pcr=pcr_stack,
+                        pcr_z=None if use_adi is False else pcr_z_stack,
+                        **kernel_kw)
+                elif fixed_iters is not None:
+                    sol = pcg_fixed(apply_A_s, b_lift, y0, precond=pre,
+                                    mask=free, iters=fixed_iters, dot=dot)
+                    x, iters = sol.x, sol.iters
+                else:
+                    sol = pcg(apply_A_s, b_lift, y0, precond=pre, mask=free,
+                              rtol=rtol, maxiter=maxiter,
+                              rtol_wrt=rtol_wrt, dot=dot)
+                    x, iters = sol.x, sol.iters
+                u = step_epilogue_reference(x, s, free, g0, g1, amp)
             outs["cg_iters"].append(iters)
             if has_watch:
                 outs.setdefault("watch", []).append(
                     u.reshape(-1)[d["watch_flat"]])
             if has_radial:
                 # the projection seed rides the same warm-start knob
-                gr_seed = seed_of(gr_prev, gr_pp, gr_ppp)
+                gr_seed = warm_seed(gr_prev, gr_pp, gr_ppp, warm_start)
                 if f64_refine:
                     br = s_mp32 * apply_stencil(G_r32, u.to(dtype))
                     gsol = pcg(apply_Mp_s32, br, gr_seed / s_mp32,
@@ -545,7 +671,10 @@ def make_simulate_fn(problem: Problem2D,
 
     ``solver``: 'xla' is the eager torch PCG, 'vmem' the ``cg_tol`` kernel
     path (its plain version for CPU tensors), 'auto' the kernel on a CUDA
-    device in float32 and eager otherwise.
+    device in float32 and eager otherwise. On a CUDA device the kernel path
+    runs the whole transient as one CUDA graph launch (unless the gradient
+    is recorded: the projection runs the eager loop); a capture or launch
+    that fails raises.
 
     ``mesh`` (a ``parallel.sharding.DeviceMesh``; every rank of the mesh
     builds and calls the function with the same arguments): shard THIS

@@ -12,6 +12,7 @@ matplotlib.use("Agg")
 
 import os
 
+import matplotlib.pyplot as plt
 import numpy as np
 import pytest
 import torch
@@ -286,6 +287,7 @@ def test_viewer_builds_headless_and_steps(tmp_path):
     assert "step 8/20" in v["ax"].get_title()
     v["slider"].set_val(3)
     np.testing.assert_array_equal(v["line"].get_ydata(), rows[3])
+    plt.close(v["ax"].figure)      # the viewer's window stays open for a user
 
 
 def test_viewer_ylim_keeps_positive_data(tmp_path):
@@ -295,7 +297,9 @@ def test_viewer_ylim_keeps_positive_data(tmp_path):
     rows = 500.0 + np.arange(12.0).reshape(3, 4)
     path = str(tmp_path / "pos.csv")
     write_gradient_csv(path, np.arange(3.0), np.arange(4.0), rows)
-    lo, hi = tview.build_viewer(path)["ax"].get_ylim()
+    ax = tview.build_viewer(path)["ax"]
+    lo, hi = ax.get_ylim()
+    plt.close(ax.figure)
     assert lo < rows.min() and hi > rows.max()
     assert (lo, hi) == pytest.approx((500.0 - 0.55, 511.0 + 0.55))
     # the JAX viewer's lower limit cuts the data off
