@@ -38,6 +38,7 @@ from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_factor,
                                               pcr_fold)
 from heatflow_tpu_torch.ops.mgz import coarse_apply, prolong, restrict
 from heatflow_tpu_torch.ops.stencil import OFFSETS, apply_stencil, shifted
+from heatflow_tpu_torch.utils import span
 
 CHECK_EVERY = 8   # CG iterations in one block of the solve's graph; the
                   # device tests the stop flag between blocks (a conditional
@@ -450,15 +451,16 @@ def _check_solve(A, sm, *, pcr, pcr_z, cheb_degree: int, merged: bool, mgz,
     """``cg_tol``'s checks of a solve's form and operands (the right-hand
     side and seed aside), for a solve recorded into another graph
     (``ops/cuda_step``)."""
-    _check_rtol_wrt(rtol_wrt)
-    _check_forms(pcr, pcr_z, int(cheb_degree), merged, mgz)
-    dev = sm.device
-    nz, nr = _check_operator(A, sm, dev)
-    for t, name in ((pcr, "pcr"), (pcr_z, "pcr_z")):
-        if t is not None:
-            _stack_levels(t, name, nz, nr, dev)
-    if mgz is not None:
-        _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
+    with span("transient.operands"):
+        _check_rtol_wrt(rtol_wrt)
+        _check_forms(pcr, pcr_z, int(cheb_degree), merged, mgz)
+        dev = sm.device
+        nz, nr = _check_operator(A, sm, dev)
+        for t, name in ((pcr, "pcr"), (pcr_z, "pcr_z")):
+            if t is not None:
+                _stack_levels(t, name, nz, nr, dev)
+        if mgz is not None:
+            _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
 
 
 def _mgz_tensors(mgz):

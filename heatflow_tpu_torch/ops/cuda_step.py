@@ -50,6 +50,7 @@ import torch
 from heatflow_tpu_torch.ops import cuda_cg
 from heatflow_tpu_torch.ops.cg import refine_inner_scale, refine_inner_seed
 from heatflow_tpu_torch.ops.stencil import apply_stencil
+from heatflow_tpu_torch.utils import span
 
 WARM_ORDER = {"previous": 0, "extrapolate": 1, "extrapolate2": 2}
 
@@ -237,22 +238,24 @@ class StepWorkspace:
         """Copy a call's operands in (the graph reads these buffers) and
         reset the state: the ring holds u0 three times, the carried
         corrections are zero."""
-        for dst, v in ((self.Mop, Mop), (self.s, s), (self.free, free),
-                       (self.g0, g0), (self.g1, g1), (self.Ag0, Ag0),
-                       (self.Ag1, Ag1), (self.src, src), (self.amps, amps),
-                       (self.A, A), (self.As, As), (self.sm, sm),
-                       (self.pcr, pcr), (self.pcr_z, pcr_z)):
-            if dst is not None:
-                dst.copy_(v)
-        self.ring.copy_(u0.expand(3, *u0.shape))
-        self.dx.zero_()
-        self.state.zero_()
-        self.watch_flat = watch_flat
-        if self.solve["cheb"] > 0:
-            self.lmax.copy_(cuda_cg.gershgorin_lmax(self.As, self.sm)
-                            .reshape(1))
-        if not self.refine:
-            self.rtol32.fill_(float(self.rtol))
+        with span("transient.load"):
+            for dst, v in ((self.Mop, Mop), (self.s, s), (self.free, free),
+                           (self.g0, g0), (self.g1, g1), (self.Ag0, Ag0),
+                           (self.Ag1, Ag1), (self.src, src),
+                           (self.amps, amps), (self.A, A), (self.As, As),
+                           (self.sm, sm), (self.pcr, pcr),
+                           (self.pcr_z, pcr_z)):
+                if dst is not None:
+                    dst.copy_(v)
+            self.ring.copy_(u0.expand(3, *u0.shape))
+            self.dx.zero_()
+            self.state.zero_()
+            self.watch_flat = watch_flat
+            if self.solve["cheb"] > 0:
+                self.lmax.copy_(cuda_cg.gershgorin_lmax(self.As, self.sm)
+                                .reshape(1))
+            if not self.refine:
+                self.rtol32.fill_(float(self.rtol))
 
     # the state's fields, read and written by the plain versions
     def _ints(self):
@@ -492,43 +495,45 @@ class _StepGraph:
 
 
 def _capture(ws: StepWorkspace) -> _StepGraph:
-    lib = _library()
-    dev, nz, nr, sv = ws.device, ws.nz, ws.nr, ws.solve
-    f32 = dict(dtype=torch.float32, device=dev)
-    n_extra = lib.hf_cg_extra_planes(sv["cheb"], int(sv["merged"]),
-                                     int(sv["mgz"] is not None))
-    k1 = dict(vecs=torch.empty((4, nz, nr), **f32),
-              parts=torch.empty((4, lib.hf_cg_nparts(nz, nr)),
-                                dtype=torch.float64, device=dev),
-              state=torch.empty(8, dtype=torch.float64, device=dev),
-              extra=torch.empty((n_extra, nz, nr), **f32) if n_extra
-              else None)
-    forms = _forms(ws)
-    descs = [_desc(lib, ws, adi, p, k1) for adi in forms
-             for p in range(ws.passes)]
-    bodies = []
-    for adi in forms:
-        form = (ws.pcr, ws.pcr_z if adi else None, sv["cheb"], sv["merged"],
-                sv["mgz"] is not None)
-        bodies.append(cuda_cg._Recorded(
-            cuda_cg._form_name(*form), cuda_cg._form_counters(*form),
-            np.zeros(len(cuda_cg.PHASES), dtype=np.int64),
-            np.zeros(len(cuda_cg.PHASES), dtype=np.int64)))
-    P = ctypes.c_void_p
-    handle = P()
-    args = _args(ws)
-    t0 = time.perf_counter()
-    _check(lib.hf_step_graph(
-        ctypes.byref(args), (P * len(descs))(*map(ctypes.addressof, descs)),
-        len(forms), cuda_cg.CHECK_EVERY,
-        (P * len(bodies))(*[b.counts.ctypes.data for b in bodies]),
-        (P * len(bodies))(*[b.counts_body.ctypes.data for b in bodies]),
-        ctypes.byref(handle)), "step graph capture")
-    capture_s = time.perf_counter() - t0
-    for b in bodies:
-        b.capture_s = capture_s
-        cuda_cg._recorded[b.form_name] = b
-    return _StepGraph(lib, handle.value, bodies, k1)
+    with span("transient.capture"):
+        lib = _library()
+        dev, nz, nr, sv = ws.device, ws.nz, ws.nr, ws.solve
+        f32 = dict(dtype=torch.float32, device=dev)
+        n_extra = lib.hf_cg_extra_planes(sv["cheb"], int(sv["merged"]),
+                                         int(sv["mgz"] is not None))
+        k1 = dict(vecs=torch.empty((4, nz, nr), **f32),
+                  parts=torch.empty((4, lib.hf_cg_nparts(nz, nr)),
+                                    dtype=torch.float64, device=dev),
+                  state=torch.empty(8, dtype=torch.float64, device=dev),
+                  extra=torch.empty((n_extra, nz, nr), **f32) if n_extra
+                  else None)
+        forms = _forms(ws)
+        descs = [_desc(lib, ws, adi, p, k1) for adi in forms
+                 for p in range(ws.passes)]
+        bodies = []
+        for adi in forms:
+            form = (ws.pcr, ws.pcr_z if adi else None, sv["cheb"],
+                    sv["merged"], sv["mgz"] is not None)
+            bodies.append(cuda_cg._Recorded(
+                cuda_cg._form_name(*form), cuda_cg._form_counters(*form),
+                np.zeros(len(cuda_cg.PHASES), dtype=np.int64),
+                np.zeros(len(cuda_cg.PHASES), dtype=np.int64)))
+        P = ctypes.c_void_p
+        handle = P()
+        args = _args(ws)
+        t0 = time.perf_counter()
+        _check(lib.hf_step_graph(
+            ctypes.byref(args),
+            (P * len(descs))(*map(ctypes.addressof, descs)), len(forms),
+            cuda_cg.CHECK_EVERY,
+            (P * len(bodies))(*[b.counts.ctypes.data for b in bodies]),
+            (P * len(bodies))(*[b.counts_body.ctypes.data for b in bodies]),
+            ctypes.byref(handle)), "step graph capture")
+        capture_s = time.perf_counter() - t0
+        for b in bodies:
+            b.capture_s = capture_s
+            cuda_cg._recorded[b.form_name] = b
+        return _StepGraph(lib, handle.value, bodies, k1)
 
 
 def run(ws: StepWorkspace) -> None:
@@ -548,8 +553,9 @@ def launch(ws: StepWorkspace) -> _StepGraph:
     if ws.graph is None:
         ws.graph = _capture(ws)
     g = ws.graph
-    _check(g.lib.hf_graph_launch(g.exec_ptr, cuda_cg._stream()),
-           "step graph launch")
+    with span("transient.launch"):
+        _check(g.lib.hf_graph_launch(g.exec_ptr, cuda_cg._stream()),
+               "step graph launch")
     return g
 
 
@@ -558,7 +564,8 @@ def count_launches(ws: StepWorkspace, g: _StepGraph) -> None:
     the step state (one read, which waits for the run), to the step
     kernels' counters, and its solves by form (with their loop bodies'
     runs) to ``cg_tol``'s."""
-    words = ws.state.view(torch.int64).tolist()
+    with span("transient.wait"):
+        words = ws.state.view(torch.int64).tolist()
     for fn, n in zip(_KERNELS, words[_LAUNCHES:_LAUNCHES + 4]):
         fn.launches += n
     for f, b in enumerate(g.bodies):

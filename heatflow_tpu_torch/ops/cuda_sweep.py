@@ -33,6 +33,7 @@ from heatflow_tpu_torch.ops.cuda_cg import (_check, _check_rtol_wrt,
 from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_apply,
                                               pcr_factor)
 from heatflow_tpu_torch.ops.stencil import apply_combined, offsets_for
+from heatflow_tpu_torch.utils import span
 
 CHECK_EVERY = 8   # iterations enqueued between two host reads of the number
                   # of running lanes; the iterates and the counts do not
@@ -664,21 +665,23 @@ class _Solve:
     def iterate(self, n_iter: int, n_lanes: int, form: str):
         """Enqueue n_iter iterations; their launches count under ``form``
         (see :func:`launches_per_iteration`)."""
-        before = int(_phase_counts.sum())
-        _check(self.lib.hf_sweep_iterate(*self.args, n_iter, n_lanes),
-               "sweep iterate")
-        acc = cg_batched_tol.iteration_launches.setdefault(form, [0, 0])
-        acc[0] += int(_phase_counts.sum()) - before
-        acc[1] += n_iter
+        with span("k2.iterate"):
+            before = int(_phase_counts.sum())
+            _check(self.lib.hf_sweep_iterate(*self.args, n_iter, n_lanes),
+                   "sweep iterate")
+            acc = cg_batched_tol.iteration_launches.setdefault(form, [0, 0])
+            acc[0] += int(_phase_counts.sum()) - before
+            acc[1] += n_iter
 
     def running(self) -> int:
         """Compact the running lanes to the front of the lane list; returns
         their number (one host read)."""
-        _check(self.lib.hf_sweep_compact(_ptr(self.state), self.B,
-                                         _ptr(self.lanes), _ptr(self.count),
-                                         _counts_ptr(), self.stream),
-               "sweep compact")
-        return int(self.count.item())
+        with span("k2.check"):
+            _check(self.lib.hf_sweep_compact(_ptr(self.state), self.B,
+                                             _ptr(self.lanes),
+                                             _ptr(self.count), _counts_ptr(),
+                                             self.stream), "sweep compact")
+            return int(self.count.item())
 
     def finish(self, poison: bool):
         _check(self.lib.hf_sweep_finish(_ptr(self.x), _ptr(self.iters),
@@ -713,38 +716,39 @@ def cg_batched_tol(A0: torch.Tensor, Kv: torch.Tensor | None,
                                         maxiter=maxiter, rtol_wrt=rtol_wrt,
                                         rline=rline, adi=adi,
                                         adi_flags=adi_flags, merged=merged)
-    lib = _library()
-    B, _, _ = _check_batch(A0, Kv, dks, sm, {"b": b, "x0": x0})
-    rtol_t = _rtol_lanes(rtol, B, torch.float32, b.device).contiguous()
-    flags = None
-    if adi_flags is not None:
-        if (adi_flags.shape != (B,) or adi_flags.device != b.device):
-            raise ValueError(f"adi_flags must be ({B},) on {b.device}")
-        flags = adi_flags.to(torch.int32).contiguous()
-    solve = _Solve(lib, A0, Kv, dks, sm, b, x0, rtol_t, maxiter=maxiter,
-                   wrt_r0=rtol_wrt == "r0",
-                   rline=rline or adi or flags is not None, fixed=False,
-                   adi=2 if flags is not None else int(adi), flags=flags,
-                   merged=bool(merged))
-    cg_batched_tol.launches += 1
-    if merged:
-        cg_batched_tol.launches_merged += 1
-    form = ("launches_no_kv" if Kv is None else
-            "launches_adaptive" if flags is not None else
-            "launches_adi" if adi else
-            "launches_rline" if rline else "launches_identity")
-    setattr(cg_batched_tol, form, getattr(cg_batched_tol, form) + 1)
-    solve.start()
-    n_lanes = solve.running()
-    launched = 0
-    tag = form[len("launches_"):] + ("_merged" if merged else "")
-    while n_lanes and launched < maxiter:
-        n = min(CHECK_EVERY, maxiter - launched)
-        solve.iterate(n, n_lanes, tag)
-        launched += n
+    with span("k2.solve"):
+        lib = _library()
+        B, _, _ = _check_batch(A0, Kv, dks, sm, {"b": b, "x0": x0})
+        rtol_t = _rtol_lanes(rtol, B, torch.float32, b.device).contiguous()
+        flags = None
+        if adi_flags is not None:
+            if (adi_flags.shape != (B,) or adi_flags.device != b.device):
+                raise ValueError(f"adi_flags must be ({B},) on {b.device}")
+            flags = adi_flags.to(torch.int32).contiguous()
+        solve = _Solve(lib, A0, Kv, dks, sm, b, x0, rtol_t, maxiter=maxiter,
+                       wrt_r0=rtol_wrt == "r0",
+                       rline=rline or adi or flags is not None, fixed=False,
+                       adi=2 if flags is not None else int(adi), flags=flags,
+                       merged=bool(merged))
+        cg_batched_tol.launches += 1
+        if merged:
+            cg_batched_tol.launches_merged += 1
+        form = ("launches_no_kv" if Kv is None else
+                "launches_adaptive" if flags is not None else
+                "launches_adi" if adi else
+                "launches_rline" if rline else "launches_identity")
+        setattr(cg_batched_tol, form, getattr(cg_batched_tol, form) + 1)
+        solve.start()
         n_lanes = solve.running()
-    solve.finish(poison=True)
-    return solve.x, solve.iters
+        launched = 0
+        tag = form[len("launches_"):] + ("_merged" if merged else "")
+        while n_lanes and launched < maxiter:
+            n = min(CHECK_EVERY, maxiter - launched)
+            solve.iterate(n, n_lanes, tag)
+            launched += n
+            n_lanes = solve.running()
+        solve.finish(poison=True)
+        return solve.x, solve.iters
 
 
 cg_batched_tol.launches = 0

@@ -49,7 +49,7 @@ from heatflow_tpu_torch.ops.cuda_step import (refine_residual_reference,
 from heatflow_tpu_torch.ops.stencil import apply_stencil, combine_operator
 from heatflow_tpu_torch.sim.problem import (Problem2D, band_average,
                                             band_reduce, band_values)
-from heatflow_tpu_torch.utils import resolve_device
+from heatflow_tpu_torch.utils import resolve_device, span
 
 
 @dataclass
@@ -207,25 +207,26 @@ class Simulator(nn.Module):
                 "problem's default coefficients at maker time; per-call "
                 "kappa/rho_cv overrides would silently mismatch it — use "
                 "'rline'/'adi'/'adaptive' for coefficient sweeps")
-        d = self.dev
-        cdt, device = self.cdt, d["free"].device
-        as_c = lambda v: torch.as_tensor(v, dtype=cdt, device=device)
-        kp = d["kappas"] if kappas is None else as_c(kappas)
-        rc = d["rho_cvs"] if rho_cvs is None else as_c(rho_cvs)
-        fw = as_c(self.problem.fwhm if fwhm is None else fwhm)
-        nz, nr = self.problem.mesh.shape
-        ic = as_c(self.problem.ic_temp)
-        u0 = torch.full((nz, nr), float(self.problem.ic_temp), dtype=cdt,
-                        device=device) if u0 is None else as_c(u0)
-        src = None if source is None else as_c(source)
-        if self.zax is not None:
-            u0 = self.zax.rows(u0)
-            src = None if src is None else self.zax.rows(src)
-        return d, kp, rc, fw, ic, u0, as_c(t0), src
+        with span("transient.operands"):
+            d = self.dev
+            cdt, device = self.cdt, d["free"].device
+            as_c = lambda v: torch.as_tensor(v, dtype=cdt, device=device)
+            kp = d["kappas"] if kappas is None else as_c(kappas)
+            rc = d["rho_cvs"] if rho_cvs is None else as_c(rho_cvs)
+            fw = as_c(self.problem.fwhm if fwhm is None else fwhm)
+            nz, nr = self.problem.mesh.shape
+            ic = as_c(self.problem.ic_temp)
+            u0 = torch.full((nz, nr), float(self.problem.ic_temp), dtype=cdt,
+                            device=device) if u0 is None else as_c(u0)
+            src = None if source is None else as_c(source)
+            if self.zax is not None:
+                u0 = self.zax.rows(u0)
+                src = None if src is None else self.zax.rows(src)
+            return d, kp, rc, fw, ic, u0, as_c(t0), src
 
     def forward(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
                 t0=0.0, source=None) -> dict[str, torch.Tensor]:
-        with torch.no_grad():
+        with torch.no_grad(), span("transient"):
             return self._run(*self._inputs(kappas, rho_cvs, fwhm, u0, t0,
                                            source))
 
@@ -236,7 +237,7 @@ class Simulator(nn.Module):
         plain version of the kernel path's graph). ``inner_sum`` takes the
         refinement's two inner products (``ops.cuda_step.kernel_order_sum``:
         in the step kernels' order)."""
-        with torch.no_grad():
+        with torch.no_grad(), span("transient"):
             return self._run_eager(*self._inputs(kappas, rho_cvs, fwhm, u0,
                                                  t0, source), inner_sum)
 
@@ -258,45 +259,48 @@ class Simulator(nn.Module):
         """The run's operators and affine boundary terms: (A, M_op, s, g0,
         g1, Ag0, Ag1, b_src, ts, amps). ``amps[n]`` is the heating
         amplitude of step n, elementwise the per-step interpolation."""
-        problem = self.problem
-        dt = torch.tensor(problem.dt, dtype=self.cdt, device=ic.device)
-        free, dirich = d["free"], d["dirichlet"]
-        A, M_op = combine_operator(d["K"], d["M"], kp, rc, dt)
-        diag_a = A[0]
-        # symmetric Jacobi scaling (≡ Jacobi preconditioning in exact
-        # arithmetic, numerically far better at low precision)
-        s = torch.rsqrt(torch.where(diag_a > 0, diag_a,
-                                    torch.ones_like(diag_a))) * free + dirich
-        coeff = torch.tensor(-4.0 * math.log(2.0), dtype=self.cdt,
-                             device=ic.device) / (fw * fw)
-        profile = torch.exp(coeff * d["r_sq"]) * d["heat_profile_base"]
-        # BC value g(t) = g0 + amp(t)·g1: (amp - ic) Gaussian + ic on the
-        # heating line, ic on fixed edges (ref run_no_diamond.py:303-309)
-        g0 = ic * (dirich - profile)
-        g1 = profile
-        Ag0 = ap(A, g0)
-        Ag1 = ap(A, g1)
-        # volumetric source: rhs += dt ∫ f φ r dx = dt (M_proj @ f)
-        b_src = 0.0 if source is None else dt * ap(d["M_proj"], source)
-        ts = torch.arange(1, int(problem.num_steps) + 1, dtype=self.cdt,
-                          device=ic.device) * dt + t0
-        amp_offset = d["heat_T"][0] - ic   # ref run_no_diamond.py:299-301
-        amps = interp(ts, d["heat_t"], d["heat_T"]) - amp_offset
-        return A, M_op, s, g0, g1, Ag0, Ag1, b_src, ts, amps
+        with span("transient.operands"):
+            problem = self.problem
+            dt = torch.tensor(problem.dt, dtype=self.cdt, device=ic.device)
+            free, dirich = d["free"], d["dirichlet"]
+            A, M_op = combine_operator(d["K"], d["M"], kp, rc, dt)
+            diag_a = A[0]
+            # symmetric Jacobi scaling (≡ Jacobi preconditioning in exact
+            # arithmetic, numerically far better at low precision)
+            s = torch.rsqrt(torch.where(diag_a > 0, diag_a,
+                                        torch.ones_like(diag_a))) \
+                * free + dirich
+            coeff = torch.tensor(-4.0 * math.log(2.0), dtype=self.cdt,
+                                 device=ic.device) / (fw * fw)
+            profile = torch.exp(coeff * d["r_sq"]) * d["heat_profile_base"]
+            # BC value g(t) = g0 + amp(t)·g1: (amp - ic) Gaussian + ic on the
+            # heating line, ic on fixed edges (ref run_no_diamond.py:303-309)
+            g0 = ic * (dirich - profile)
+            g1 = profile
+            Ag0 = ap(A, g0)
+            Ag1 = ap(A, g1)
+            # volumetric source: rhs += dt ∫ f φ r dx = dt (M_proj @ f)
+            b_src = 0.0 if source is None else dt * ap(d["M_proj"], source)
+            ts = torch.arange(1, int(problem.num_steps) + 1, dtype=self.cdt,
+                              device=ic.device) * dt + t0
+            amp_offset = d["heat_T"][0] - ic   # ref run_no_diamond.py:299-301
+            amps = interp(ts, d["heat_t"], d["heat_T"]) - amp_offset
+            return A, M_op, s, g0, g1, Ag0, Ag1, b_src, ts, amps
 
     def _solve_operands(self, A, s, free):
         """The kernel path's inner-solve operands: (A, sm, pcr, pcr_z) in
         float32 (the casts of the float64 operator when refining)."""
-        from heatflow_tpu_torch.ops.cuda_cg import pcr_pack
-        prec = self.opts["precondition"]
-        if self.opts["f64_refine"]:
-            A, s, free = A.to(self.dtype), s.to(self.dtype), \
-                free.to(self.dtype)
-        pcr = pcr_pack(A, s, free) if prec in ("rline", "adi", "adaptive",
-                                               "mgz") else None
-        pcr_z = pcr_pack(A, s, free, axis=-2) \
-            if prec in ("adi", "adaptive") else None
-        return A, s * free, pcr, pcr_z
+        with span("transient.operands"):
+            from heatflow_tpu_torch.ops.cuda_cg import pcr_pack
+            prec = self.opts["precondition"]
+            if self.opts["f64_refine"]:
+                A, s, free = A.to(self.dtype), s.to(self.dtype), \
+                    free.to(self.dtype)
+            pcr = pcr_pack(A, s, free) if prec in ("rline", "adi", "adaptive",
+                                                   "mgz") else None
+            pcr_z = pcr_pack(A, s, free, axis=-2) \
+                if prec in ("adi", "adaptive") else None
+            return A, s * free, pcr, pcr_z
 
     def _run_graph(self, d, kp, rc, fw, ic, u0, t0, source):
         """The kernel path as one device program (``ops/cuda_step``): the
@@ -305,12 +309,13 @@ class Simulator(nn.Module):
         from heatflow_tpu_torch.ops import cuda_step
         ws, ts = self._step_workspace(d, kp, rc, fw, ic, u0, t0, source)
         cuda_step.run(ws)
-        ys = {"cg_iters": ws.cg_iters.clone()}
-        if ws.watch is not None:
-            ys["watch"] = ws.watch.clone()
-        if ws.fields is not None:
-            ys["field"] = ws.fields.clone()
-        ys["final_u"] = ws.ring[(ws.num_steps - 1) % 3].clone()
+        with span("transient.outputs"):
+            ys = {"cg_iters": ws.cg_iters.clone()}
+            if ws.watch is not None:
+                ys["watch"] = ws.watch.clone()
+            if ws.fields is not None:
+                ys["field"] = ws.fields.clone()
+            ys["final_u"] = ws.ring[(ws.num_steps - 1) % 3].clone()
         ys["times"] = ts
         return ys
 
@@ -504,74 +509,83 @@ class Simulator(nn.Module):
                for _ in range(f64_refine)]
         outs: dict[str, list] = {"cg_iters": []}
         for n in range(num_steps):
-            use_adi = it_prev > o["adaptive_thresh"] if adaptive else None
-            amp = amps[n]
-            b_lift, y0 = step_prologue_reference(
-                M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1, amp, s, free,
-                warm_start, halo=halo)
-            if f64_refine:
-                x, iters, dys, rn = solve_refined(b_lift * free, y0, dys,
-                                                  use_adi)
-                u = step_epilogue_reference(x, s, free, g0, g1, amp,
-                                            dys[-1], rn)
-            else:
-                if use_vmem:
-                    x, iters = cg_tol(
-                        A, sm_vmem, b_lift * free, y0, rtol,
-                        rtol_wrt=rtol_wrt,
-                        cheb_degree=0 if adaptive
-                        else o["vmem_cheb_degree"],
-                        pcr=pcr_stack,
-                        pcr_z=None if use_adi is False else pcr_z_stack,
-                        **kernel_kw)
-                elif fixed_iters is not None:
-                    sol = pcg_fixed(apply_A_s, b_lift, y0, precond=pre,
-                                    mask=free, iters=fixed_iters, dot=dot)
-                    x, iters = sol.x, sol.iters
-                else:
-                    sol = pcg(apply_A_s, b_lift, y0, precond=pre, mask=free,
-                              rtol=rtol, maxiter=maxiter,
-                              rtol_wrt=rtol_wrt, dot=dot)
-                    x, iters = sol.x, sol.iters
-                u = step_epilogue_reference(x, s, free, g0, g1, amp)
-            outs["cg_iters"].append(iters)
-            if has_watch:
-                outs.setdefault("watch", []).append(
-                    u.reshape(-1)[d["watch_flat"]])
-            if has_radial:
-                # the projection seed rides the same warm-start knob
-                gr_seed = warm_seed(gr_prev, gr_pp, gr_ppp, warm_start)
+            with span("transient.step"):
+                use_adi = it_prev > o["adaptive_thresh"] if adaptive \
+                    else None
+                amp = amps[n]
+                b_lift, y0 = step_prologue_reference(
+                    M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1, amp, s,
+                    free, warm_start, halo=halo)
+                with span("k1.solve"):
+                    if f64_refine:
+                        x, iters, dys, rn = solve_refined(
+                            b_lift * free, y0, dys, use_adi)
+                    elif use_vmem:
+                        x, iters = cg_tol(
+                            A, sm_vmem, b_lift * free, y0, rtol,
+                            rtol_wrt=rtol_wrt,
+                            cheb_degree=0 if adaptive
+                            else o["vmem_cheb_degree"],
+                            pcr=pcr_stack,
+                            pcr_z=None if use_adi is False else pcr_z_stack,
+                            **kernel_kw)
+                    elif fixed_iters is not None:
+                        sol = pcg_fixed(apply_A_s, b_lift, y0, precond=pre,
+                                        mask=free, iters=fixed_iters,
+                                        dot=dot)
+                        x, iters = sol.x, sol.iters
+                    else:
+                        sol = pcg(apply_A_s, b_lift, y0, precond=pre,
+                                  mask=free, rtol=rtol, maxiter=maxiter,
+                                  rtol_wrt=rtol_wrt, dot=dot)
+                        x, iters = sol.x, sol.iters
                 if f64_refine:
-                    br = s_mp32 * apply_stencil(G_r32, u.to(dtype))
-                    gsol = pcg(apply_Mp_s32, br, gr_seed / s_mp32,
-                               rtol=o["proj_rtol"],
-                               maxiter=o["proj_maxiter"])
-                    gr = gsol.x * s_mp32
+                    u = step_epilogue_reference(x, s, free, g0, g1, amp,
+                                                dys[-1], rn)
                 else:
-                    br = s_mp * ap(G_r, u)
-                    gsol = pcg(apply_Mp_s, br, gr_seed / s_mp,
-                               rtol=o["proj_rtol"],
-                               maxiter=o["proj_maxiter"], dot=dot)
-                    gr = gsol.x * s_mp
-                if zax is None:
-                    outs.setdefault("band", []).append(band_average(
-                        gr.reshape(-1), d["band_slots"], d["band_fill"],
-                        d["bin_counts"]))
+                    u = step_epilogue_reference(x, s, free, g0, g1, amp)
+                outs["cg_iters"].append(iters)
+                if has_watch:
+                    outs.setdefault("watch", []).append(
+                        u.reshape(-1)[d["watch_flat"]])
+                if has_radial:
+                    with span("step.project"):
+                        # the projection seed rides the same warm-start knob
+                        gr_seed = warm_seed(gr_prev, gr_pp, gr_ppp,
+                                            warm_start)
+                        if f64_refine:
+                            br = s_mp32 * apply_stencil(G_r32, u.to(dtype))
+                            gsol = pcg(apply_Mp_s32, br, gr_seed / s_mp32,
+                                       rtol=o["proj_rtol"],
+                                       maxiter=o["proj_maxiter"])
+                            gr = gsol.x * s_mp32
+                        else:
+                            br = s_mp * ap(G_r, u)
+                            gsol = pcg(apply_Mp_s, br, gr_seed / s_mp,
+                                       rtol=o["proj_rtol"],
+                                       maxiter=o["proj_maxiter"], dot=dot)
+                            gr = gsol.x * s_mp
+                        if zax is None:
+                            band = band_average(
+                                gr.reshape(-1), d["band_slots"],
+                                d["band_fill"], d["bin_counts"])
+                        else:
+                            # this rank's band slots; the ranks' exact
+                            # zeros elsewhere, added at the end
+                            band = band_values(gr.reshape(-1),
+                                               d["band_slots"],
+                                               d["band_fill"])
+                        outs.setdefault("band", []).append(band)
+                        outs.setdefault("axis", []).append(gr[:, 0])
+                        outs.setdefault("proj_iters", []).append(gsol.iters)
                 else:
-                    # this rank's band slots; the ranks' exact zeros
-                    # elsewhere, added at the end
-                    outs.setdefault("band", []).append(band_values(
-                        gr.reshape(-1), d["band_slots"], d["band_fill"]))
-                outs.setdefault("axis", []).append(gr[:, 0])
-                outs.setdefault("proj_iters", []).append(gsol.iters)
-            else:
-                gr = gr_prev
-            if o["record_fields"]:
-                outs.setdefault("field", []).append(u)
-            u_ppp, u_pp, u_prev = u_pp, u_prev, u
-            gr_ppp, gr_pp, gr_prev = gr_pp, gr_prev, gr
-            if adaptive:
-                it_prev = int(iters)   # the one host read of a step
+                    gr = gr_prev
+                if o["record_fields"]:
+                    outs.setdefault("field", []).append(u)
+                u_ppp, u_pp, u_prev = u_pp, u_prev, u
+                gr_ppp, gr_pp, gr_prev = gr_pp, gr_prev, gr
+                if adaptive:
+                    it_prev = int(iters)   # the one host read of a step
         ys = {k: torch.stack(v) for k, v in outs.items()}
         ys["final_u"] = u_prev
         if zax is not None:

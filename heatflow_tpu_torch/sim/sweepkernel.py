@@ -40,7 +40,7 @@ from heatflow_tpu_torch.ops.stencil import (apply_combined, apply_stencil,
                                             combine_operator)
 from heatflow_tpu_torch.sim.problem import Problem2D, band_average
 from heatflow_tpu_torch.sim.stepper import interp, make_simulate_fn
-from heatflow_tpu_torch.utils import resolve_device
+from heatflow_tpu_torch.utils import resolve_device, span
 
 
 # the sweep ops that hold (..., Nz, Nr) planes: a z-sharded rank's rows
@@ -274,28 +274,32 @@ def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
         rows.update(band=[], axis=[], GR=None, GR_pp=None)
 
         def project(U):
-            if rows["GR"] is None:
-                rows["GR"] = rows["GR_pp"] = torch.zeros(
-                    U.shape, dtype=dtype, device=U.device)
-            br = s_mp * apply_stencil(Gr, U.to(dtype))
-            seed = (2.0 * rows["GR"] - rows["GR_pp"] if extrapolate
-                    else rows["GR"])
-            Xp, its = cg_batched_tol(Mp, None, None, s_mp, br.contiguous(),
-                                     (seed / s_mp).contiguous(), proj_rtol,
-                                     maxiter=proj_maxiter, rtol_wrt="b")
-            gr = Xp * s_mp
-            flat = gr.reshape(gr.shape[0], -1)
-            rows["band"].append(band_average(flat, record["band_slots"],
-                                             record["band_fill"], bin_counts))
-            rows["axis"].append(flat[:, record["axis_nodes"]])
-            rows["GR_pp"], rows["GR"] = rows["GR"], gr
-            if proj_iters_out is not None:
-                proj_iters_out.append(its)
+            with span("sweep.project"):
+                if rows["GR"] is None:
+                    rows["GR"] = rows["GR_pp"] = torch.zeros(
+                        U.shape, dtype=dtype, device=U.device)
+                br = s_mp * apply_stencil(Gr, U.to(dtype))
+                seed = (2.0 * rows["GR"] - rows["GR_pp"] if extrapolate
+                        else rows["GR"])
+                Xp, its = cg_batched_tol(
+                    Mp, None, None, s_mp, br.contiguous(),
+                    (seed / s_mp).contiguous(), proj_rtol,
+                    maxiter=proj_maxiter, rtol_wrt="b")
+                gr = Xp * s_mp
+                flat = gr.reshape(gr.shape[0], -1)
+                rows["band"].append(band_average(
+                    flat, record["band_slots"], record["band_fill"],
+                    bin_counts))
+                rows["axis"].append(flat[:, record["axis_nodes"]])
+                rows["GR_pp"], rows["GR"] = rows["GR"], gr
+                if proj_iters_out is not None:
+                    proj_iters_out.append(its)
 
-    traces, u_fin, u_pen = _sweep_scan(
-        ops, ks, fs, u0, u_pp, step0, cdt=cdt, ic=ic, dt=dt,
-        num_steps=num_steps, base_k=base_k, extrapolate=extrapolate,
-        make_solve=make_solve, iters_out=iters_out, project=project)
+    with span("sweep.chunk"):
+        traces, u_fin, u_pen = _sweep_scan(
+            ops, ks, fs, u0, u_pp, step0, cdt=cdt, ic=ic, dt=dt,
+            num_steps=num_steps, base_k=base_k, extrapolate=extrapolate,
+            make_solve=make_solve, iters_out=iters_out, project=project)
     if record is None:
         return traces, u_fin, u_pen
     return ({"watch": traces, "band": torch.stack(rows["band"], dim=1),
@@ -694,7 +698,7 @@ def _recording_vmem(problem: Problem2D, *, vary_material, dtype, rtol,
         B = len(np.atleast_1d(np.asarray(sample_k)))
         u0 = torch.full((B, nz, nr), float(problem.ic_temp), dtype=wdt,
                         device=device)
-        with torch.no_grad():
+        with torch.no_grad(), span("sweep"):
             ys = vmem_sweep_scan(
                 ops, sample_k, fwhm, u0, u0, 0, dtype=dtype, ic=ic, dt=dt,
                 num_steps=int(problem.num_steps), base_k=base_k,
@@ -899,9 +903,10 @@ def run_sweep_time_chunked(problem: Problem2D, sample_k, fwhm, *,
     if mesh is not None:
         from heatflow_tpu_torch.parallel.sharding import shard_configs
         run = shard_configs(mesh, run)
-    return run(np.atleast_1d(np.asarray(sample_k)),
-               np.atleast_1d(np.asarray(fwhm)),
-               iters_out=iters_out).cpu().numpy()
+    with span("sweep"):
+        return run(np.atleast_1d(np.asarray(sample_k)),
+                   np.atleast_1d(np.asarray(fwhm)),
+                   iters_out=iters_out).cpu().numpy()
 
 
 def normalized_oside_residuals(times, traces, exp_time, exp_oside_normed,

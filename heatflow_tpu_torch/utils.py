@@ -1,16 +1,16 @@
-"""Small shared utilities: the device an entry point runs on, profiling,
-timing, batch padding, the drivers' per-regime preconditioner default and
-matplotlib at first use."""
+"""Small shared utilities: the device an entry point runs on, profiling
+and the program's spans, batch padding, the drivers' per-regime
+preconditioner default and matplotlib at first use."""
 
 from __future__ import annotations
 
 import contextlib
 import os
 import sys
-import time
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -72,27 +72,15 @@ def profile_trace(outdir: str | None):
     print(f"Profiler trace written to {path}")
 
 
-class StepTimer:
-    """Wall-clock section timer with the reference's summary format."""
-
-    def __init__(self):
-        self.t0 = time.time()
-        self.marks: dict[str, float] = {}
-
-    def mark(self, name: str):
-        self.marks[name] = time.time()
-
-    def summary(self, num_steps: int) -> str:
-        total = time.time() - self.t0
-        lines = ["--- Timing Summary ---", f"Total time: {total:.2f} s"]
-        prev = self.t0
-        for name, t in self.marks.items():
-            lines.append(f"{name}: {t - prev:.2f} s")
-            prev = t
-        if num_steps:
-            lines.append(f"Average time per step: {total / num_steps:.4f} s")
-        lines.append("----------------------")
-        return "\n".join(lines)
+def span(name: str) -> _RecordFunctionFast:
+    """A named range of the host's timeline, for ``with``: under a running
+    ``torch.profiler`` session a host event of kind ``cpu_op``, on the
+    clock of the device events (so a reader can lay it against the
+    device's gaps) and in :func:`profile_trace`'s ``trace.json``; never a
+    device event. With no profiler recording it costs a fraction of a
+    microsecond and touches no tensor. The program's span names, and the
+    metrics that read them, are listed in PERF.md §3."""
+    return _RecordFunctionFast(name)
 
 
 def pad_to_multiple(arr, m: int):
