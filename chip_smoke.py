@@ -11,22 +11,23 @@ Phases (each raises on failure; nothing is caught):
 2. build the CUDA kernels from ``heatflow_tpu_torch/csrc`` through their
    normal first use and print the build time;
 3. at the flagship shape (``cfgs/geballe_with_diamond.yaml``, 251 x 1107
-   nodes) compare each phase kernel of ``cg_tol`` with its plain PyTorch
-   version on numpy-seeded inputs (the stencil with its alpha tail, the
-   PCR phases, the fused update-and-PCR phases with their beta tail), then
-   one full solve of the first step's refinement system in the identity,
-   r-line and ADI forms, timing kernel and plain version with CUDA events,
-   and one more of each under the profiler: each kernel's time in the
-   solve, launches and us an iteration;
+   nodes) compare the r-line factor kernel (``rline_pack``) and each
+   phase kernel of ``cg_tol`` with its plain PyTorch version, the phases
+   on numpy-seeded inputs (the stencil with its alpha tail, the
+   line-solve phases, the fused update-and-line-solve phases with their
+   beta tail), then one full solve of the first step's refinement system
+   in the identity, r-line and ADI forms, timing kernel and plain version
+   with CUDA events, and one more of each under the profiler: each
+   kernel's time in the solve, launches and us an iteration;
 4. run the flagship transient (100 backward-Euler steps, the float32
    adaptive r-line/ADI recipe with one float64 refinement pass) through
    ``make_simulate_fn``, on the card one CUDA graph launch (the steps under
    a conditional WHILE node, the step kernels of ``csrc/step.cu`` around
    K1's recorded solve, the r-line/ADI switch set on the device): one
    warm-up run, then one timed run with the launch counters reset just
-   before it; check the traces against the float64 truth in
-   ``benchmarks/.flagship_truth_f64.npz``; report the launches an
-   iteration (at most 3 r-line, 4 ADI); run the eager loop
+   before it (one r-line factorization a run); check the traces against
+   the float64 truth in ``benchmarks/.flagship_truth_f64.npz``; report the
+   launches an iteration (at most 3 r-line, 4 ADI); run the eager loop
    (``forward_eager``) in the same process: the graph's outputs bitwise
    the eager loop's when its two refinement sums are taken in the step
    kernels' order (``cuda_step.kernel_order_sum``), and within the inner
@@ -243,7 +244,8 @@ rows from a run with two float64 refinement passes, to
 The line before the last is a JSON object with one entry per kernel of the
 paths (K2's single-phase scalar kernels, checked in phases 5 and 14 but run
 by no solve, have none; the step kernels' rows give their device time a
-launch inside phase 4's graph run and its launches there), each
+launch inside phase 4's graph run and its launches there, as does the
+r-line factor kernel's row), each
 with its time, the plain version's, and its bound: the larger of the bytes
 it must move (each input read once, each output written once) at the
 card's memory rate and the float32 operations this run's data needs at its
@@ -271,6 +273,7 @@ CSV = os.path.join(ROOT, "experimental_data", "geballe_heat_data.csv")
 TRUTH = os.path.join(ROOT, "benchmarks", ".flagship_truth_f64.npz")
 SOURCE = "heatflow_tpu_torch/csrc/cg_tol.cu"
 REPLACES = "heatflow_tpu/ops/pallas_cg.py:308"
+FACTOR_REPLACES = "heatflow_tpu/ops/pallas_cg.py:668"   # its r-line pcr_pack
 SWEEP_SOURCE = "heatflow_tpu_torch/csrc/sweep_cg.cu"
 K2_REPLACES = "heatflow_tpu/ops/pallas_cg.py:802"
 K3_REPLACES = "heatflow_tpu/ops/pallas_cg.py:729"
@@ -473,6 +476,38 @@ def first_step_system(problem, device):
     return f32(A), f32(s * free), f32(s), f32(free), b32
 
 
+def rline_factor_check(A32, s32, free32, out: dict) -> dict:
+    """The r-line factor kernel (``k_rline_factor``, one launch an operand
+    set) on the flagship's float32 operator against its plain version on
+    the same inputs: each of its three planes within 1e-6 of the plane's
+    largest value (the same float32 couplings and float64 sweep, each
+    product and difference rounded alone). Its bound: the 7 planes it moves
+    (A's two r couplings, s and the mask read, three factor planes
+    written), and 5 float32 and 5 float64 operations a point."""
+    from heatflow_tpu_torch.ops import cuda_cg
+    pack = lambda: cuda_cg.rline_pack(A32, s32, free32)
+    plain = lambda: cuda_cg.rline_pack_reference(A32, s32, free32)
+    F_k, F_p = pack(), plain()
+    require(F_k.shape == F_p.shape == (3,) + tuple(s32.shape),
+            ("rline_factor", F_k.shape, F_p.shape))
+    rels = [rel_max(a, b) for a, b in zip(F_k, F_p)]
+    require(max(rels) <= 1e-6, ("rline_factor", rels))
+    n = s32.numel()
+    t_b = 7 * nbytes(s32) / HBM_BYTES_PER_S * 1e3
+    t_o = (5 * n / F32_OPS_PER_S + 5 * n / F64_OPS_PER_S) * 1e3
+    row = dict(name="cg_tol.rline_factor", rel=max(rels), plane_rel=rels,
+               max_abs_err=float((F_k - F_p).abs().max()),
+               bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               ms=cuda_ms(pack, 20), plain_ms=cuda_ms(plain, 3))
+    print(f"phase cg_tol.rline_factor: planes (m, 1/den, cp) rel "
+          + ", ".join(f"{r:.3e}" for r in rels)
+          + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
+    out["rline_factor"] = row
+    return row
+
+
 def phase_checks(problem, device, out: dict) -> list[dict]:
     import numpy as np
     import torch
@@ -480,11 +515,12 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
     from heatflow_tpu_torch.ops.stencil import apply_stencil
 
     A32, sm32, s32, free32, b32 = first_step_system(problem, device)
-    pcr = cuda_cg.pcr_pack(A32, s32, free32).contiguous()
+    pcr = cuda_cg.rline_pack(A32, s32, free32)
     pcr_z = cuda_cg.pcr_pack(A32, s32, free32, axis=-2).contiguous()
     nz, nr = b32.shape
-    print(f"flagship grid {nz} x {nr}; r-stack {pcr.shape[0]} planes, "
-          f"z-stack {pcr_z.shape[0]} planes")
+    print(f"flagship grid {nz} x {nr}; r-line factors {pcr.shape[0]} "
+          f"planes, z-stack {pcr_z.shape[0]} planes")
+    rline_factor_check(A32, s32, free32, out)
     rng = np.random.default_rng(0)
     p = (torch.tensor(rng.standard_normal((nz, nr)), dtype=torch.float32,
                       device=device) * free32).contiguous()
@@ -695,9 +731,9 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
     return rows
 
 
-def large_shape_checks(device, out: dict, nz: int = 300, nr: int = 4096):
+def large_shape_checks(device, out: dict, nz: int = 300, nr: int = 12288):
     """The line kernels' paths for shapes past the flagship's: a row whose
-    factor stack does not fit shared memory (read from device memory) and
+    Thomas factors do not fit shared memory (read from device memory) and
     z-lines taller than the register-held kernel takes (``k_pcr_z_tall``),
     on a numpy-seeded anisotropic 5-point operator: the PCR phases, the
     fused phase with its beta tail and an ADI solve against their plain
@@ -717,7 +753,7 @@ def large_shape_checks(device, out: dict, nz: int = 300, nr: int = 4096):
     s = torch.rsqrt(A[0]) * free + (1.0 - free)
     f32 = lambda t: t.float().to(device).contiguous()
     A32, sm32, s32, free32 = f32(A), f32(s * free), f32(s), f32(free)
-    pcr = cuda_cg.pcr_pack(A32, s32, free32).contiguous()
+    pcr = cuda_cg.rline_pack(A32, s32, free32)
     pcr_z = cuda_cg.pcr_pack(A32, s32, free32, axis=-2).contiguous()
     field = lambda: f32(torch.tensor(rng.standard_normal((nz, nr))) * free)
     r, x, p = field(), field(), field()
@@ -745,7 +781,7 @@ def large_shape_checks(device, out: dict, nz: int = 300, nr: int = 4096):
     res.update(adi_iters=it_k, adi_plain_iters=it_p,
                adi_rel_l2=float(torch.linalg.vector_norm((x_k - x_p).double())
                                 / torch.linalg.vector_norm(x_p.double())))
-    print(f"large shape {nz} x {nr} (row stack read from device memory, "
+    print(f"large shape {nz} x {nr} (row factors read from device memory, "
           f"z-lines by k_pcr_z_tall): {res}")
     require(res["precond_rel"] <= 1e-4 and res["precond_dot_rel"] <= 1e-5
             and res["fused_rel"] <= 1e-4 and res["beta_rel"] <= 1e-5
@@ -997,6 +1033,7 @@ def run_slice(problem, device, out: dict):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = cuda_cg.phase_launches()
+    factor_launches = cuda_cg.rline_pack.launches
     solves = dict(total=cuda_cg.cg_tol.launches,
                   rline=cuda_cg.cg_tol.launches_rline,
                   adi=cuda_cg.cg_tol.launches_adi,
@@ -1010,6 +1047,8 @@ def run_slice(problem, device, out: dict):
             and np.isfinite(ys["final_u"].cpu().numpy()).all(),
             "non-finite traces")
     require(solves["rline"] > 0 and solves["adi"] >= 1, solves)
+    # the r-line factors: one factorization a transient
+    require(factor_launches == 1, ("rline_pack launches", factor_launches))
     thresh, maxiter = fn.opts["adaptive_thresh"], RECIPE["maxiter"]
     forms = adaptive_forms(iters, thresh, maxiter)
     require(solves["adi"] == sum(forms)
@@ -1134,6 +1173,7 @@ def run_slice(problem, device, out: dict):
                         warm_run_s=warm_s, steps_per_s=steps_per_s,
                         cg_iters=iters.tolist(), solves=solves,
                         phase_launches=counts, step_launches=step_launches,
+                        rline_factor_launches=factor_launches,
                         launches_per_iteration=per_iter,
                         launches_per_run_iteration=launched / iters.sum(),
                         device_busy_pct=busy_pct, idle_split=split,
@@ -2504,7 +2544,7 @@ def vmem_solve_checks(problem, device, out: dict) -> dict:
     from heatflow_tpu_torch.ops import cuda_cg
 
     A32, sm32, s32, free32, b32 = first_step_system(problem, device)
-    pcr = cuda_cg.pcr_pack(A32, s32, free32).contiguous()
+    pcr = cuda_cg.rline_pack(A32, s32, free32)
     nz, nr = b32.shape
     rng = np.random.default_rng(13)
     dev = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
@@ -2709,7 +2749,7 @@ def forms_checks(problem, device, out: dict) -> dict:
     from heatflow_tpu_torch.sim.stepper import mgz_operands
 
     A32, sm32, s32, free32, b32 = first_step_system(problem, device)
-    pcr = cuda_cg.pcr_pack(A32, s32, free32).contiguous()
+    pcr = cuda_cg.rline_pack(A32, s32, free32)
     pcr_z = cuda_cg.pcr_pack(A32, s32, free32, axis=-2).contiguous()
     mgz = mgz_operands(problem, torch.float32, device)
     nz, nr = b32.shape
@@ -3611,7 +3651,7 @@ def nine_plane_checks(problem, setup, device, out: dict) -> dict:
     b = (sm * apply_stencil(A9, sm * x_true)).contiguous()
     b = (b / torch.linalg.vector_norm(b)).contiguous()
     x0 = torch.zeros_like(b)
-    pcr = cuda_cg.pcr_pack(A9, s, free).contiguous()
+    pcr = cuda_cg.rline_pack(A9, s, free)
     pcr_z = cuda_cg.pcr_pack(A9, s, free, axis=-2).contiguous()
     B = 8
     dks = f32(np.linspace(0.0, 1.0, B))
@@ -3881,7 +3921,8 @@ def mg_checks(problem, setup, device, out: dict) -> dict:
     # the kernels line) is held between them
     x0 = torch.zeros_like(b32)
     t0 = time.perf_counter()
-    pcr64 = cuda_cg.pcr_pack(A32.double(), s32.double(), free32.double())
+    pcr64 = cuda_cg.rline_pack_reference(A32.double(), s32.double(),
+                                         free32.double())
     x64, it64 = cuda_cg.cg_tol_reference(
         A32.double(), sm32.double(), b32.double(), x0.double(), 1e-10,
         maxiter=20000, rtol_wrt="b", pcr=pcr64)
@@ -5369,6 +5410,10 @@ def main() -> None:
         bound_by=r["bound_by"], library_ms=None)
     kernels = [kernel(r["name"], SOURCE, REPLACES, counts[r["phase"]], r)
                for r in rows]
+    kernels.append(kernel("cg_tol.rline_factor", SOURCE,
+                          FACTOR_REPLACES,
+                          out["slice"]["rline_factor_launches"],
+                          out["rline_factor"]))
     for form in ("rline", "adi"):
         kernels.append(kernel(f"cg_tol[{form}]", SOURCE, REPLACES,
                               solves[form], out["solves"][form]))

@@ -3,39 +3,49 @@
 //
 // Replaces: heatflow_tpu/ops/pallas_cg.py:_cg_tol_kernel (the Pallas TPU
 // kernel that keeps the whole solve resident in VMEM), in its identity,
-// r-line PCR, split-additive ADI (r-line + z-line PCR), Chebyshev-polynomial
+// r-line, split-additive ADI (r-line + z-line), Chebyshev-polynomial
 // and z-semicoarsened two-level multigrid (mgz) forms, with the standard
 // recurrence or the Chronopoulos-Gear merged-dot recurrence.
 //
 // What bounds it on an H100: memory traffic, the latency of dependent
 // loads, and the gaps between launches; not arithmetic. At the flagship
 // shape (251 x 1107 = 277,857 nodes, one f32 plane is 1.11 MB) an r-line
-// iteration must move ~34 planes (~38 MB, ~11 us at 3.35 TB/s): the 7
-// stencil planes, the vectors (p, Ap, x, r, z, sm) and the 23-plane folded
-// r-line PCR stack; the ADI form adds the 17-plane z-line stack. Shared
-// memory is 227 KB a block: a row's stack (~102 KB) fits one block, a
-// z-line tile's does not, and the working set (~40 MB r-line, ~59 MB ADI)
-// fits no block. The first design, one kernel per CG phase: 6 launches and
-// ~60 us an r-line iteration (28 us in a PCR kernel whose 11 levels each
-// waited on dependent global loads), 7 and ~149 us an ADI one, and a host
-// read of the stop flag every 8 iterations.
+// iteration must move ~16 planes (~18 MB, ~5.3 us at 3.35 TB/s): the 7
+// stencil planes, the vectors (p, Ap, x, r, z, sm) and the r-line's 3
+// Thomas factor planes; the ADI form adds the 17-plane z-line PCR stack.
+// Shared memory is 227 KB a block: a z-line tile's stack does not fit it,
+// and the working set (~18 MB r-line, ~37 MB ADI) fits no block. An
+// earlier design ran the r-line as folded PCR too, from a 23-plane stack
+// (~34 planes an iteration). The first design, one kernel per CG phase: 6
+// launches and ~60 us an r-line iteration (28 us in a PCR kernel whose 11
+// levels each waited on dependent global loads), 7 and ~149 us an ADI one,
+// and a host read of the stop flag every 8 iterations.
 //
 // What this design does about that. Times: NVIDIA H100 80GB HBM3, 700 W,
 // in-solve by torch.profiler (chip_smoke.py phase 3), solves by CUDA events
 // (chip_smoke.py, tools/k1_ab.py against the one-kernel-a-phase design in
 // the same run):
-// - PCR factors in flight. The r-line row kernel (one block a grid row)
-//   requests its row of r and Ap, then its row's whole factor stack, into
-//   shared memory with 4-byte cp.async copies, one commit group a level;
-//   the update starts on the vectors and level k waits for its own group
-//   only while the later levels keep arriving. 110.7 KB a block on the
-//   flagship: two blocks an SM, the 251 rows one wave on 132 SMs. In a
-//   solve: 24.4 us for the update and the PCR together (27.8 + 3.7
-//   before), against a 10.3 us traffic bound; 16-byte copies through L2
-//   made no difference. The z-line kernel holds a tile's factors in
-//   registers instead, each thread requesting the next level's before it
-//   computes this one: 21.5 us (bound 14.3), against 35 us for tiles
-//   narrowed to fit shared memory and 76 us before.
+// - The r-line factored once, solved by scans. The line operator is fixed
+//   for a transient, so k_rline_factor factors every row once per operand
+//   set (Thomas' elimination, one thread a row, in float64) into three
+//   float32 planes: 3.3 MB in place of the 25.6 MB folded PCR stack that
+//   the earlier row kernel staged in every iteration (24.4 us a launch
+//   in a solve against a 10.3 us traffic bound; 16-byte copies through L2
+//   had made no difference, 11 levels a barrier each). The row kernel (one
+//   block a grid row) now requests its row of r and Ap and its three factor
+//   planes into shared memory with 4-byte cp.async copies, one group, and
+//   solves the row's forward and back substitutions as two block-wide
+//   scans of affine maps (a chunk a thread, shuffles within a warp, one
+//   step across warps): 22.1 KB a block, six barriers. In the flagship
+//   transient (tools/k1_ab.py, in-solve by torch.profiler): 8.68 us a
+//   launch against 22.7 (the update with the folded PCR), its traffic
+//   bound 3.7 us (11 planes); the stencil pass beside it went from 11.4 to
+//   9.4 us with the stack out of L2. k_rline_factor takes 0.79 ms once a
+//   transient, while the host still prepares the transient's operands.
+//   The z-line kernel holds a tile's PCR factors in registers, each thread
+//   requesting the next level's before it computes this one: 21.5 us
+//   (bound 14.3), against 35 us for tiles narrowed to fit shared memory
+//   and 76 us before.
 // - Fewer launches. The scalars ride in the tails of the kernels: each
 //   block writes its partial, fences and takes a ticket; the last block
 //   reduces the partials in a fixed order (no atomics on the sums, so a
@@ -54,8 +64,9 @@
 //   not depend on CHECK_EVERY. The wrapper captures a graph once per
 //   operand set (capture and instantiation 0.6-1.2 ms) on buffers it keeps
 //   per shape, form and device. The flagship's first-step solves: r-line
-//   544 iterations, 40.7 us an iteration, 22.1 ms (32.4-32.8 before); ADI
-//   229, 63.9 us, 14.4-14.6 ms (34.2 before).
+//   543 iterations, 21.1 us an iteration, 11.4 ms (20.7 with the folded PCR
+//   rows; 32.4-32.8 with a kernel a phase); ADI 229, 42.9 us, 9.8 ms (14.0;
+//   34.2).
 //
 // The further forms reuse those phases. Chebyshev: each polynomial step is
 // one pass (k_cheb_step) that reads z's neighbours from one plane and writes
@@ -77,11 +88,11 @@
 // iteration with one coarse sweep, 13 with two). This design: 6 launches an
 // iteration with one sweep, 7 with two. k_stencil_dot (alpha tail); the
 // pre-smoothing row (k_row_update: the row kernel of the r-line form, its
-// stack staged by cp.async, the CG update of x and r in its load); the
+// factors staged by cp.async, the CG update of x and r in its load); the
 // coarse row (k_row_restrict, 1024 threads a block on the even rows only:
 // the odd rows of the embedded coarse grid have zero couplings, unit
 // diagonal and zero restriction weights, so there d = 0 and the block
-// writes out = omega_c g 0 without a PCR) with the fine residual formed on
+// writes out = omega_c 0 without a line solve) with the fine residual formed on
 // rows i-1 .. i+1 in its load from sm z staged in shared memory, then
 // restricted; a further sweep's coarse residual in the next coarse row's
 // load (k_row_coarse_res, into the other of two coarse planes); the
@@ -89,7 +100,8 @@
 // the prolongated iterate formed at the point and its stencil neighbours);
 // the post-smoothing row (k_row_plain, with the mask, the <r, z> partials
 // and the beta tail); k_p_update. The row kernel requests its epilogue's
-// operands before the PCR levels. NVIDIA H100 80GB HBM3, 700 W, first-step
+// operands before the line solve. With the earlier folded PCR rows:
+// NVIDIA H100 80GB HBM3, 700 W, first-step
 // solve (tools/mg_ab.py, in-solve by torch.profiler): one sweep 179
 // iterations, 103.4-104.7 us an iteration (141.6-143.0 before), two sweeps
 // 137 and 122.5-123.6 (178.2-179.3); in-solve the coarse row 32.9 us, the
@@ -145,7 +157,8 @@ constexpr int kZRows = 32;        // thread rows a block,
 constexpr int kZPer = 8;          // rows a thread (Nz <= kZRows * kZPer)
 constexpr int kZTallThreads = 512;  // z-line kernel for taller columns
 // The most dynamic shared memory a block may ask for (227 KB opt-in, less
-// the static shared memory of block_sum and last_block).
+// the static shared memory of block_sum, last_block and the row kernel's
+// scan totals: 784 bytes).
 constexpr size_t kMaxDynSmem = 232448 - 1024;
 
 // Solve state kept in device memory (mirrored by the Python wrapper:
@@ -397,7 +410,7 @@ __global__ void k_update(float* __restrict__ x, float* __restrict__ r,
   beta_tail(tail);
 }
 
-// ---- line PCR with the factor stack in flight ----------------------------
+// ---- line solves -----------------------------------------------------------
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -410,32 +423,8 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Wait until at most `pending` of this thread's copy groups are in flight
-// (waiting for fewer than asked is also correct: at most 15 are left).
-__device__ __forceinline__ void cp_async_wait_pending(int pending) {
-  switch (pending) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    case 7: cp_async_wait<7>(); break;
-    case 8: cp_async_wait<8>(); break;
-    case 9: cp_async_wait<9>(); break;
-    case 10: cp_async_wait<10>(); break;
-    case 11: cp_async_wait<11>(); break;
-    case 12: cp_async_wait<12>(); break;
-    case 13: cp_async_wait<13>(); break;
-    case 14: cp_async_wait<14>(); break;
-    default: cp_async_wait<15>(); break;
-  }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // The lines a block solves: `len` positions of `w` adjacent lines, of which
@@ -447,46 +436,23 @@ struct Lines {
   int len, w, valid;
 };
 
-// Request the block's share of the folded factor stack F (2L+1 planes of n
-// values) into fs with 4-byte asynchronous copies, in level order, one
-// commit group per level (planes 2k and 2k+1) and one for the diagonal,
-// after the group of the block's vectors.
-__device__ void stage_stack(float* fs, const float* __restrict__ F, size_t n,
-                            int levels, const Lines& ln) {
-  const int c = threadIdx.x;
-  const size_t plane = (size_t)ln.len * ln.w;
-  for (int q = 0; q <= 2 * levels; ++q) {
-    if (c < ln.valid)
-      for (int i = threadIdx.y; i < ln.len; i += blockDim.y)
-        cp_async4(fs + q * plane + (size_t)i * ln.w + c,
-                  F + q * n + ln.base + (size_t)i * ln.stride + c);
-    if (q % 2 == 1 || q == 2 * levels) cp_async_commit();
-  }
-}
-
-// The folded PCR levels of stack F on the block's lines, d0 holding them on
-// entry; returns the buffer that holds the result. Level k (s = 2^k):
+// The folded PCR levels of stack F (2L+1 planes of n values, read from
+// device memory) on the block's lines, d0 holding them on entry; returns
+// the buffer that holds the result. Level k (s = 2^k):
 //   d[i] <- d[i] - F[2k][i] d[i-s] - F[2k+1][i] d[i+s]   (zeros outside).
-// Staged (kStaged), the block's vectors are copy group 0 and level k's
-// factors group k + 1: level k waits for its own group only and the later
-// levels' factors keep arriving; else the factors are read from device
-// memory.
-template <bool kStaged>
-__device__ float* pcr_levels(float* d0, float* d1, const float* fs,
+__device__ float* pcr_levels(float* d0, float* d1,
                              const float* __restrict__ F, size_t n,
                              int levels, const Lines& ln) {
   const int c = threadIdx.x;
-  const size_t plane = (size_t)ln.len * ln.w;
   int s = 1;
   for (int k = 0; k < levels; ++k) {
-    if (kStaged) cp_async_wait_pending(levels - k);
-    __syncthreads();  // level k's factors and the previous level's d landed
-    const float* lo = kStaged ? fs + (2 * k) * plane : F + (2 * k) * n;
-    const float* up = kStaged ? fs + (2 * k + 1) * plane : F + (2 * k + 1) * n;
+    __syncthreads();  // the previous level's d landed
+    const float* lo = F + (2 * k) * n;
+    const float* up = F + (2 * k + 1) * n;
     if (c < ln.valid) {
       for (int i = threadIdx.y; i < ln.len; i += blockDim.y) {
         const int e = i * ln.w + c;
-        const size_t q = kStaged ? e : ln.base + (size_t)i * ln.stride + c;
+        const size_t q = ln.base + (size_t)i * ln.stride + c;
         float v = d0[e];
         if (i - s >= 0) v = v - lo[q] * d0[e - s * ln.w];
         if (i + s < ln.len) v = v - up[q] * d0[e + s * ln.w];
@@ -496,18 +462,144 @@ __device__ float* pcr_levels(float* d0, float* d1, const float* fs,
     float* t = d0; d0 = d1; d1 = t;
     s <<= 1;
   }
-  if (kStaged) cp_async_wait<0>();
   __syncthreads();
   return d0;
 }
 
-// The row kernel of the line-PCR forms, one block a z-row. Its shared
-// memory is the row double buffered and, when staged, the row's whole
-// factor stack (2L+1 rows of nr values, ~102 KB on the flagship). At its
-// start the block requests its row's vectors into the two row buffers, then
-// the stack level by level, all with asynchronous copies, so the row's load
-// work runs while the factors stream in. What the block loads as its row d
-// (kLoad):
+// The r-line systems x_j + l_j x_{j-1} + u_j x_{j+1} = d_j of a grid row
+// (unit diagonal: (l, u) are the couplings of sm A sm along r, zero across
+// a Dirichlet point and past the ends; SPD, so LU without pivoting is
+// stable), factored once per operand set by Thomas' elimination, one
+// thread a row sweeping it in float64: den_0 = 1, den_j = 1 - l_j cp_{j-1},
+// and three float32 planes F[0] = m_j = -l_j / den_{j-1} (the forward
+// multiplier), F[1] = 1 / den_j (the inverse pivot), F[2] = cp_j = u_j /
+// den_j. The couplings are formed in float32 as
+// heatflow_tpu_torch/ops/linesolve.py:line_couplings forms them, and the
+// sweep rounds each product and difference alone (no contraction), so the
+// factors are the plain version's (ops/linesolve.py:thomas_factor_lines).
+__global__ void k_rline_factor(const float* __restrict__ A,
+                               const float* __restrict__ s,
+                               const float* __restrict__ fmask,
+                               float* __restrict__ F, int nz, int nr) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nz) return;
+  const size_t n = (size_t)nz * nr;
+  const size_t row = (size_t)i * nr;
+  const float* up = A + 3 * n + row;  // couples j -> j+1
+  const float* lo = A + 4 * n + row;  // couples j -> j-1
+  const float* sr = s + row;
+  const float* fr = fmask + row;
+  double den_prev = 1.0, cp = 0.0;
+  float sf_prev = 0.0f, sf = __fmul_rn(sr[0], fr[0]);
+  for (int j = 0; j < nr; ++j) {
+    const float sf_next =
+        j + 1 < nr ? __fmul_rn(sr[j + 1], fr[j + 1]) : 0.0f;
+    const double l = (double)__fmul_rn(__fmul_rn(sf, lo[j]), sf_prev);
+    const double u = (double)__fmul_rn(__fmul_rn(sf, up[j]), sf_next);
+    const double den = __dsub_rn(1.0, __dmul_rn(l, cp));
+    F[row + j] = (float)(-l / den_prev);
+    F[n + row + j] = (float)(1.0 / den);
+    cp = u / den;
+    F[2 * n + row + j] = (float)cp;
+    den_prev = den;
+    sf_prev = sf;
+    sf = sf_next;
+  }
+}
+
+// The value entering this thread's link of a chain of affine maps
+// v <- a v + b, one link a thread (the composition of its chunk's maps),
+// chained in thread order (`reverse`: in reverse thread order) from v = 0:
+// an inclusive scan of the links across each warp by shuffles, then one
+// across the block's warp totals (at most 32 warps) through `tot` in
+// shared memory. The block is a whole number of warps.
+__device__ float chain_carry(float a, float b, bool reverse, float2* tot) {
+  const unsigned full = 0xffffffffu;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nw = (blockDim.x * blockDim.y) >> 5;
+  const int lane = tid & 31;
+  const int pos = reverse ? 31 - lane : lane;          // in chain order
+  const int w = reverse ? nw - 1 - (tid >> 5) : tid >> 5;
+  auto take = [&](float v, int o) {
+    return reverse ? __shfl_down_sync(full, v, o) : __shfl_up_sync(full, v, o);
+  };
+  // (a, b) <- this link after the earlier ones: v -> a (pa v + pb) + b
+  for (int o = 1; o < 32; o <<= 1) {
+    const float pa = take(a, o), pb = take(b, o);
+    if (pos >= o) {
+      b = fmaf(a, pb, b);
+      a = a * pa;
+    }
+  }
+  // the warp's links before this one, and the warp's total
+  float ea = take(a, 1), eb = take(b, 1);
+  if (pos == 0) {
+    ea = 1.0f;
+    eb = 0.0f;
+  }
+  if (pos == 31) tot[w] = make_float2(a, b);
+  __syncthreads();
+  if (tid < 32) {
+    float2 t = tid < nw ? tot[tid] : make_float2(1.0f, 0.0f);
+    for (int o = 1; o < 32; o <<= 1) {
+      const float pa = __shfl_up_sync(full, t.x, o);
+      const float pb = __shfl_up_sync(full, t.y, o);
+      if (tid >= o) {
+        t.y = fmaf(t.x, pb, t.y);
+        t.x = t.x * pa;
+      }
+    }
+    if (tid < nw) tot[tid] = t;
+  }
+  __syncthreads();
+  return fmaf(ea, w > 0 ? tot[w - 1].y : 0.0f, eb);
+}
+
+// x = T^-1 d on the block's row d in shared memory, in place, from the
+// row's Thomas factors (fm, fi, fc: F[0..2] of k_rline_factor, in shared or
+// device memory). The forward substitution w_j = m_j w_{j-1} + d_j and the
+// back substitution x_j = w_j / den_j - cp_j x_{j+1} are each a chain of
+// affine maps: thread t composes the maps of its contiguous chunk of
+// ceil(nr / threads) points, chain_carry scans the chunks, and the thread
+// reruns its chunk from the value that enters it. Six barriers; tot: two
+// arrays of 32 in shared memory.
+__device__ void thomas_row(float* d, const float* fm, const float* fi,
+                           const float* fc, int nr, float2 (*tot)[32]) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  const int per = (nr + nt - 1) / nt;
+  const int j0 = min(tid * per, nr), j1 = min(j0 + per, nr);
+  __syncthreads();  // the row and the staged factors landed
+  float a = 1.0f, b = 0.0f;
+  for (int j = j0; j < j1; ++j) {
+    b = fmaf(fm[j], b, d[j]);
+    a = a * fm[j];
+  }
+  float v = chain_carry(a, b, false, tot[0]);
+  for (int j = j0; j < j1; ++j) {
+    v = fmaf(fm[j], v, d[j]);
+    d[j] = fi[j] * v;
+  }
+  a = 1.0f;
+  b = 0.0f;
+  for (int j = j1 - 1; j >= j0; --j) {
+    b = fmaf(-fc[j], b, d[j]);
+    a = a * -fc[j];
+  }
+  v = chain_carry(a, b, true, tot[1]);
+  for (int j = j1 - 1; j >= j0; --j) {
+    v = fmaf(-fc[j], v, d[j]);
+    d[j] = v;
+  }
+  __syncthreads();
+}
+
+// The row kernel of the r-line forms, one block a z-row. Its shared memory
+// is the row and a second row buffer and, when staged, the row's three
+// Thomas factor planes (F[0..2] of k_rline_factor, 13.3 KB on the
+// flagship). At its start the block requests its row's vectors and its
+// factors into shared memory, one group of asynchronous copies. What the
+// block loads as its row d (kLoad):
 //   kRowPlain      d = r's row;
 //   kRowUpdate     the CG update of its row, r -= alpha Ap (in place, with
 //                  the row's partial of <r, r>) and x += alpha p; d = r's row
@@ -519,14 +611,14 @@ __device__ float* pcr_levels(float* d0, float* d1, const float* fs,
 //                    d = sc (e_free r1[i] + (pp r1)[i-1] + (pm r1)[i+1]),
 //                  stored into `store` when given;
 //   kRowCoarseRes  a later coarse sweep: d = rcs - Ac9 y on coarse row i.
-// Then the folded PCR levels of stack F on d, and
-//   out = (acc + scale F[2L] d) * mask    (acc, mask = (sm != 0) optional)
+// Then the row's line solve T^-1 d from its factors (thomas_row), and
+//   out = (acc + scale T^-1 d) * mask    (acc, mask = (sm != 0) optional)
 // with optionally the row's partial of <dot, out>, and the beta tail. The
 // two coarse modes run on the even rows only (block b: row 2b). The odd
 // rows of the embedded coarse grid have zero couplings and unit diagonal,
 // and every restriction weight is zero on them (ops/mgz.py), so there d is
-// 0 and the PCR is the identity: the block also writes the odd row below
-// its own as out = acc + scale (F[2L] 0), and 0 into `store`.
+// 0 and so is its solve: the block also writes the odd row below its own as
+// out = acc + scale 0, and 0 into `store`.
 enum RowLoad { kRowPlain = 0, kRowUpdate, kRowRestrict, kRowCoarseRes };
 
 struct RowArgs {
@@ -534,8 +626,8 @@ struct RowArgs {
   float* x;                 // kRowUpdate: x, p, Ap
   const float *p, *Ap;
   const float* sm;          // the free mask; the scaling of kRowRestrict
-  const float* F;           // the folded stack, `levels` levels
-  int levels, staged;
+  const float* F;           // the row factors, 3 planes (k_rline_factor)
+  int staged;               // F staged in shared memory
   float scale;
   const float* acc;         // optional
   int mask;
@@ -577,28 +669,33 @@ template <int kLoad>
 __device__ __forceinline__ void row_pass(const RowArgs& a) {
   if (a.st != nullptr && a.st->done) return;
   extern __shared__ float smem[];
+  __shared__ float2 tot[2][32];
   constexpr bool kEven = kLoad == kRowRestrict || kLoad == kRowCoarseRes;
   const int nz = a.nz, nr = a.nr;
-  const int n = nz * nr;
+  const size_t n = (size_t)nz * nr;
   const int i = kEven ? 2 * blockIdx.x : blockIdx.x;
-  const int row = i * nr;
+  const size_t row = (size_t)i * nr;
   float* d0 = smem;
   float* d1 = smem + nr;
   float* fs = smem + 2 * nr;
-  const Lines ln{(size_t)row, 1, nr, 1, 1};
-  if (!kEven) {
-    for (int j = threadIdx.y; j < nr; j += blockDim.y) {
+  for (int j = threadIdx.y; j < nr; j += blockDim.y) {
+    if (!kEven) {
       cp_async4(d0 + j, a.r + row + j);
       if (kLoad == kRowUpdate) cp_async4(d1 + j, a.Ap + row + j);
     }
+    if (a.staged)
+      for (int q = 0; q < 3; ++q)
+        cp_async4(fs + q * nr + j, a.F + q * n + row + j);
   }
   cp_async_commit();
-  if (a.staged) stage_stack(fs, a.F, n, a.levels, ln);
+  const float* fm = a.staged ? fs : a.F + row;
+  const float* fi = a.staged ? fs + nr : a.F + n + row;
+  const float* fc = a.staged ? fs + 2 * nr : a.F + 2 * n + row;
   const float alpha = kLoad == kRowUpdate ? (float)a.st->alpha : 0.0f;
   double rr = 0.0;
   if (!kEven) {
-    // this thread's own row copies (group 0) landed; it reads only those
-    cp_async_wait_pending(a.staged ? a.levels + 1 : 0);
+    // this thread's own row copies landed; it reads only those
+    cp_async_wait_all();
     if (kLoad == kRowUpdate) {
       for (int j = threadIdx.y; j < nr; j += blockDim.y) {
         const float rv = d0[j] - alpha * d1[j];
@@ -613,9 +710,9 @@ __device__ __forceinline__ void row_pass(const RowArgs& a) {
     const float* pp = a.aux + 2 * n;
     const float* ef = a.aux + 3 * n;
     // sm . z on fine rows i-2 .. i+2 (clamped: a row past an end is never
-    // read) into shared memory, while the stack streams in; then the fine
+    // read) into shared memory, while the factors stream in; then the fine
     // residual at (k, j), r - sm A (sm . z), with stencil_at's arithmetic
-    float* us = fs + (a.staged ? (2 * a.levels + 1) * nr : 0);
+    float* us = fs + (a.staged ? 3 * nr : 0);
     for (int t = threadIdx.y; t < 5 * nr; t += blockDim.y) {
       const int rw = t / nr, j = t - rw * nr;
       const int q = min(max(i - 2 + rw, 0), nz - 1) * nr + j;
@@ -643,8 +740,8 @@ __device__ __forceinline__ void row_pass(const RowArgs& a) {
       d0[j] = a.rcs[row + j] - coarse_apply_at(a.ac9, a.y, i, j, nz, nr);
   }
   // The epilogue's operands of this thread's first kEpi points (x and p,
-  // acc, sm, dot) are requested before the PCR levels, so that they arrive
-  // while the levels run.
+  // acc, sm, dot) are requested before the line solve, so that they arrive
+  // while it runs.
   constexpr int kEpi = 3;
   float ex[kEpi] = {}, ep[kEpi] = {}, ea[kEpi] = {}, es[kEpi] = {},
         ed[kEpi] = {};
@@ -661,16 +758,14 @@ __device__ __forceinline__ void row_pass(const RowArgs& a) {
       if (a.dot != nullptr) ed[m] = a.dot[row + j];
     }
   }
-  d0 = a.staged ? pcr_levels<true>(d0, d1, fs, a.F, n, a.levels, ln)
-                : pcr_levels<false>(d0, d1, fs, a.F, n, a.levels, ln);
-  const float* g = a.staged ? fs + 2 * a.levels * nr
-                            : a.F + (size_t)(2 * a.levels) * n + row;
+  cp_async_wait_all();
+  thomas_row(d0, fm, fi, fc, nr, tot);
   double dsum = 0.0;
-  // out = (acc + scale F[2L] d) * mask at point j, with its <dot, out> term
+  // out = (acc + scale T^-1 d) * mask at point j, with its <dot, out> term
   auto epilogue = [&](int j, float xv, float pv, float av, float sv,
                       float dv) {
     if (kLoad == kRowUpdate) a.x[row + j] = xv + alpha * pv;
-    float v = a.scale * (g[j] * d0[j]);
+    float v = a.scale * d0[j];
     if (a.acc != nullptr) v = av + v;
     if (a.mask) v = v * (sv != 0.0f ? 1.0f : 0.0f);
     a.out[row + j] = v;
@@ -688,10 +783,9 @@ __device__ __forceinline__ void row_pass(const RowArgs& a) {
              a.mask ? a.sm[row + j] : 0.0f,
              a.dot != nullptr ? a.dot[row + j] : 0.0f);
   if (kEven && i + 1 < nz) {
-    const int orow = row + nr;
-    const float* go = a.F + (size_t)(2 * a.levels) * n + orow;
+    const size_t orow = row + nr;
     for (int j = threadIdx.y; j < nr; j += blockDim.y) {
-      float v = a.scale * (go[j] * 0.0f);
+      float v = a.scale * 0.0f;
       if (a.acc != nullptr) v = a.acc[orow + j] + v;
       a.out[orow + j] = v;
       if (a.store != nullptr) a.store[orow + j] = 0.0f;
@@ -832,7 +926,7 @@ __global__ void k_pcr_z_tall(const float* __restrict__ r,
   const bool valid = c < ln.valid;
   for (int i = threadIdx.y; i < nz; i += blockDim.y)
     d0[i * w + c] = valid ? r[(size_t)i * nr + c0 + c] : 0.0f;
-  d0 = pcr_levels<false>(d0, d1, nullptr, F, n, levels, ln);
+  d0 = pcr_levels(d0, d1, F, n, levels, ln);
   const size_t gq = (size_t)(2 * levels);
   double acc = 0.0;
   if (valid) {
@@ -1485,18 +1579,21 @@ __global__ void k_finish(float* __restrict__ x, int* iters,
 }
 
 struct Solve {
-  const float *A, *sm, *b, *x0, *rtol, *pcr, *pcrz;
+  const float *A, *sm, *b, *x0, *rtol;
+  const float* pcr;    // the r-line Thomas factors (3 planes)
+  const float* pcrz;   // the z-line folded PCR stack (2 lz + 1 planes)
   float *x, *r, *z, *p, *Ap;
   double* parts;   // 4 x nparts: pAp (delta), rr, rz (gamma), bb
   CGState* st;
-  int npts, lr, lz, nz, nr, maxiter, wrt_r0, nparts;
+  int npts, lz, nz, nr, maxiter, wrt_r0, nparts;
   long long* counts;
   cudaStream_t stream;
   // the further forms (see hf_cg_extra_planes for the layout of `extra`)
   const float* lmax;   // Chebyshev: device scalar, the bound on lambda_max
   int cheb, merged;    // polynomial degree (0: none); merged-dot recurrence
-  const float *ac9, *pcrc, *aux;   // mgz operands (ac9 null: one sweep)
-  int lc, sweeps;
+  const float *ac9, *pcrc, *aux;   // mgz operands (ac9 null: one sweep;
+                                   // pcrc the coarse rows' Thomas factors)
+  int sweeps;
   float omega, omega_c;
   float* extra;
   const MGDesc* mgd;         // the multigrid V-cycle's levels (host memory)
@@ -1530,17 +1627,17 @@ struct Solve {
   }
 };
 
-// Shared memory of the r-line row kernel: the row double buffered, then
-// the staged stack (110.7 KB on the flagship: two blocks an SM, so its 251
-// rows are one wave on 132 SMs).
-size_t pcr_r_smem(int nr, int levels, bool staged) {
-  return (size_t)(staged ? 2 * levels + 3 : 2) * nr * sizeof(float);
+// Shared memory of the r-line row kernel: two row buffers, then the
+// staged factors (22.1 KB on the flagship), then in kRowRestrict five rows
+// of sm . z. It stages its row's factors when they fit a block's shared
+// memory; else it reads them from device memory.
+size_t row_smem(int nr, int load, bool staged) {
+  return (size_t)(2 + (staged ? 3 : 0) + (load == kRowRestrict ? 5 : 0)) *
+         nr * sizeof(float);
 }
 
-// The row kernel stages its row's factor stack when it fits a block's
-// shared memory; else it reads the factors from device memory.
-bool r_staged(int nr, int levels) {
-  return pcr_r_smem(nr, levels, true) <= kMaxDynSmem;
+bool r_staged(int nr, int load) {
+  return row_smem(nr, load, true) <= kMaxDynSmem;
 }
 
 // Columns of a block of the z-line kernel: kZCols (k_pcr_z), or for
@@ -1592,11 +1689,8 @@ cudaError_t launch_row(int load, const RowArgs& args, int phase,
   cudaError_t e = configure();
   if (e != cudaSuccess) return e;
   RowArgs a = args;
-  a.staged = r_staged(a.nr, a.levels);
-  // kRowRestrict: five rows of sm . z after the stack
-  const size_t smem = pcr_r_smem(a.nr, a.levels, a.staged) +
-                      (load == kRowRestrict ? 5 * (size_t)a.nr * sizeof(float)
-                                            : 0);
+  a.staged = r_staged(a.nr, load);
+  const size_t smem = row_smem(a.nr, load, a.staged);
   if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
   const dim3 block(1, kRowThreads);
   const int even = (a.nz + 1) / 2;
@@ -1621,17 +1715,17 @@ cudaError_t launch_row(int load, const RowArgs& args, int phase,
 }
 
 // The r-line row kernel: with `update` (x and r updated by alpha from st,
-// p and Ap given) the fused iteration phase, else PCR of r alone; z =
-// F[2L] d * free, the <r, z> partials when part_rz is given.
+// p and Ap given) the fused iteration phase, else the line solve of r
+// alone; z = T^-1 d * free from the Thomas factors F, the <r, z> partials
+// when part_rz is given.
 cudaError_t launch_pcr_r(bool update, float* r, float* x, const float* p,
                          const float* Ap, const float* sm, const float* F,
-                         int levels, float* z, double* part_rr,
-                         double* part_rz, const CGState* st,
-                         const BetaTail& tail, int nz, int nr,
-                         long long* counts, cudaStream_t stream) {
+                         float* z, double* part_rr, double* part_rz,
+                         const CGState* st, const BetaTail& tail, int nz,
+                         int nr, long long* counts, cudaStream_t stream) {
   RowArgs a = {};
   a.r = r; a.x = x; a.p = p; a.Ap = Ap; a.sm = sm; a.F = F;
-  a.levels = levels; a.scale = 1.0f; a.mask = 1; a.out = z;
+  a.scale = 1.0f; a.mask = 1; a.out = z;
   a.dot = part_rz != nullptr ? r : nullptr;
   a.part_rr = part_rr; a.part_dot = part_rz; a.st = st; a.tail = tail;
   a.nz = nz; a.nr = nr;
@@ -1693,7 +1787,7 @@ cudaError_t precondition_mgz(const Solve& s, bool update,
   // pre-smooth from zero: one damped fine r-line solve
   RowArgs pre = a;
   pre.r = s.r; pre.x = s.x; pre.p = s.p; pre.Ap = s.Ap;
-  pre.F = s.pcr; pre.levels = s.lr; pre.scale = s.omega; pre.out = s.z;
+  pre.F = s.pcr; pre.scale = s.omega; pre.out = s.z;
   pre.part_rr = update ? s.part(1) : nullptr;
   HF_TRY(launch_row(update ? kRowUpdate : kRowPlain, pre, kPhMgzPre,
                     s.counts, s.stream));
@@ -1702,13 +1796,13 @@ cudaError_t precondition_mgz(const Solve& s, bool update,
   RowArgs co = a;
   co.r = s.r; co.A = s.A; co.npts = s.npts; co.z = s.z; co.aux = s.aux;
   co.store = s.sweeps > 1 ? rcs : nullptr;
-  co.F = s.pcrc; co.levels = s.lc; co.scale = s.omega_c; co.out = ya;
+  co.F = s.pcrc; co.scale = s.omega_c; co.out = ya;
   HF_TRY(launch_row(kRowRestrict, co, kPhMgzCoarse, s.counts, s.stream));
   float* y = ya;
   for (int k = 1; k < s.sweeps; ++k) {
     RowArgs cr = a;
     cr.ac9 = s.ac9; cr.rcs = rcs; cr.y = y; cr.acc = y;
-    cr.F = s.pcrc; cr.levels = s.lc; cr.scale = s.omega_c;
+    cr.F = s.pcrc; cr.scale = s.omega_c;
     cr.out = y == ya ? yb : ya;
     HF_TRY(launch_row(kRowCoarseRes, cr, kPhMgzCoarseRes, s.counts,
                       s.stream));
@@ -1718,7 +1812,7 @@ cudaError_t precondition_mgz(const Solve& s, bool update,
                                 s.st, s.nz, s.nr, s.counts, s.stream));
   // post-smooth, the free mask and the <r, z> partials
   RowArgs post = a;
-  post.r = r1; post.F = s.pcr; post.levels = s.lr; post.scale = s.omega;
+  post.r = r1; post.F = s.pcr; post.scale = s.omega;
   post.acc = zp; post.mask = 1; post.out = s.z;
   post.dot = s.r; post.part_dot = s.part(2); post.tail = tail;
   return launch_row(kRowPlain, post, kPhMgzPost, s.counts, s.stream);
@@ -1942,7 +2036,7 @@ cudaError_t precondition(const Solve& s, bool update, const BetaTail& tail) {
   if (s.cheb > 0) return precondition_cheb(s, s.r, s.st);
   if (!s.rline()) return cudaSuccess;   // identity: z aliases r
   cudaError_t e = launch_pcr_r(false, s.r, nullptr, nullptr, nullptr, s.sm,
-                               s.pcr, s.lr, s.z, nullptr,
+                               s.pcr, s.z, nullptr,
                                s.adi() ? nullptr : s.part(2), s.st, kNoTail,
                                s.nz, s.nr, s.counts, s.stream);
   if (e != cudaSuccess || !s.adi()) return e;
@@ -2042,7 +2136,7 @@ cudaError_t iterate(const Solve& s, const LoopCond* lc) {
   } else if (s.rline()) {
     const BetaTail tail{s.st, s.part(1), s.part(2), s.nz,
                         s.adi() ? s.col_tiles() : s.nz, s.maxiter, s.fixed};
-    e = launch_pcr_r(true, s.r, s.x, s.p, s.Ap, s.sm, s.pcr, s.lr, s.z,
+    e = launch_pcr_r(true, s.r, s.x, s.p, s.Ap, s.sm, s.pcr, s.z,
                      s.part(1), s.adi() ? nullptr : s.part(2), s.st,
                      s.adi() ? kNoTail : tail, s.nz, s.nr, s.counts,
                      s.stream);
@@ -2163,19 +2257,19 @@ cudaError_t record_solve_desc(const void* desc, cudaStream_t stream,
 
 #define HF_SOLVE_ARGS                                                        \
   const float *A, int npts, const float *sm, const float *b,                 \
-      const float *x0, const float *rtol, const float *pcr, int lr,          \
+      const float *x0, const float *rtol, const float *pcr,                  \
       const float *pcrz, int lz, float *x, float *r, float *z, float *p,     \
       float *Ap, double *parts, int nparts, void *state, int nz, int nr,     \
       int maxiter, int wrt_r0, long long *counts, const float *lmax,         \
       int cheb, int merged, const float *ac9,             \
-      const float *pcrc, int lc, const float *aux, int sweeps, float omega,  \
+      const float *pcrc, const float *aux, int sweeps, float omega,          \
       float omega_c, float *extra, const void *mg, int fixed
 
 #define HF_SOLVE_INIT                                                        \
   Solve s{A, sm, b, x0, rtol, pcr, pcrz, x, r, z, p, Ap, parts,              \
-          (CGState *)state, npts, lr, lz, nz, nr, maxiter, wrt_r0, nparts,   \
+          (CGState *)state, npts, lz, nz, nr, maxiter, wrt_r0, nparts,       \
           counts, nullptr, lmax, cheb, merged, ac9, pcrc, aux,               \
-          lc, sweeps, omega, omega_c, extra, (const MGDesc *)mg, fixed}
+          sweeps, omega, omega_c, extra, (const MGDesc *)mg, fixed}
 
 extern "C" {
 
@@ -2267,12 +2361,22 @@ int hf_stencil_dot(const float *A, int npts, const float *sm, const float *p,
   return (int)cudaGetLastError();
 }
 
-int hf_pcr_r(const float *r, const float *sm, const float *F, int levels,
-             float *z, double *part, int nz, int nr, long long *counts,
-             void *stream) {
+// The r-line Thomas factors F (3 planes, see k_rline_factor) of the
+// operator A (7 or 9 planes) under the scaling s and the free mask.
+int hf_rline_factor(const float *A, const float *s, const float *fmask,
+                    float *F, int nz, int nr, void *stream) {
+  constexpr int kFactorThreads = 32;
+  k_rline_factor<<<(nz + kFactorThreads - 1) / kFactorThreads,
+                   kFactorThreads, 0, (cudaStream_t)stream>>>(A, s, fmask,
+                                                              F, nz, nr);
+  return (int)cudaGetLastError();
+}
+
+int hf_pcr_r(const float *r, const float *sm, const float *F, float *z,
+             double *part, int nz, int nr, long long *counts, void *stream) {
   return (int)launch_pcr_r(false, const_cast<float *>(r), nullptr, nullptr,
-                           nullptr, sm, F, levels, z, nullptr, part, nullptr,
-                           kNoTail, nz, nr, counts, (cudaStream_t)stream);
+                           nullptr, sm, F, z, nullptr, part, nullptr, kNoTail,
+                           nz, nr, counts, (cudaStream_t)stream);
 }
 
 int hf_pcr_z(const float *r, const float *sm, const float *F, int levels,
@@ -2287,18 +2391,18 @@ int hf_pcr_z(const float *r, const float *sm, const float *F, int levels,
 // place, z, the partials (4 x nparts: rr in plane 1, rz in plane 2) and
 // the beta tail on the state.
 int hf_update_pcr(float *x, float *r, const float *p, const float *Ap,
-                  const float *sm, const float *pcr, int lr, const float *pcrz,
+                  const float *sm, const float *pcr, const float *pcrz,
                   int lz, float *z, double *parts, int nparts, void *state,
                   int maxiter, int fixed, int nz, int nr, long long *counts,
                   void *stream) {
   Solve s{nullptr, sm, nullptr, nullptr, nullptr, pcr, pcrz, x, r, z,
           const_cast<float *>(p), const_cast<float *>(Ap), parts,
-          (CGState *)state, 7, lr, lz, nz, nr, maxiter, 0, nparts, counts,
-          (cudaStream_t)stream, nullptr, 0, 0, nullptr, nullptr, nullptr, 0,
+          (CGState *)state, 7, lz, nz, nr, maxiter, 0, nparts, counts,
+          (cudaStream_t)stream, nullptr, 0, 0, nullptr, nullptr, nullptr,
           1, 0.0f, 0.0f, nullptr, nullptr, fixed};
   const BetaTail tail{s.st, s.part(1), s.part(2), nz,
                       s.adi() ? s.col_tiles() : nz, maxiter, fixed};
-  cudaError_t e = launch_pcr_r(true, r, x, p, Ap, sm, pcr, lr, z, s.part(1),
+  cudaError_t e = launch_pcr_r(true, r, x, p, Ap, sm, pcr, z, s.part(1),
                                s.adi() ? nullptr : s.part(2), s.st,
                                s.adi() ? kNoTail : tail, nz, nr, counts,
                                s.stream);
@@ -2312,30 +2416,30 @@ int hf_update_pcr(float *x, float *r, const float *p, const float *Ap,
 // with the <r, z> partials in parts plane 2; *which = 1 when the result is
 // in the second plane of `extra` and not in z (Chebyshev, even degree).
 int hf_precond_apply(const float *A, int npts, const float *sm,
-                     const float *r, const float *pcr, int lr, float *z,
+                     const float *r, const float *pcr, float *z,
                      double *parts, int nparts, int nz, int nr,
                      long long *counts, void *stream, const float *lmax,
-                     int cheb, const float *ac9, const float *pcrc, int lc,
+                     int cheb, const float *ac9, const float *pcrc,
                      const float *aux, int sweeps, float omega, float omega_c,
                      float *extra, int *which) {
   Solve s{A, sm, nullptr, nullptr, nullptr, pcr, nullptr, nullptr,
           const_cast<float *>(r), z, nullptr, nullptr, parts, nullptr, npts,
-          lr, 0, nz, nr, 0, 0, nparts, counts, (cudaStream_t)stream, lmax,
-          cheb, 0, ac9, pcrc, aux, lc, sweeps, omega, omega_c, extra,
+          0, nz, nr, 0, 0, nparts, counts, (cudaStream_t)stream, lmax,
+          cheb, 0, ac9, pcrc, aux, sweeps, omega, omega_c, extra,
           nullptr, 0};
   *which = s.zout() != z;
   return (int)precondition(s, false, kNoTail);
 }
 
-// The mgz cycle's pre-smoothing row alone: z = omega F[2L] PCR(r); with a
+// The mgz cycle's pre-smoothing row alone: z = omega T^-1 r; with a
 // state record (its alpha), after the CG update of the row: x += alpha p,
 // r -= alpha Ap in place, the <r, r> partials (one a row) in part_rr.
 int hf_mgz_pre(float *r, float *x, const float *p, const float *Ap,
-               const float *pcr, int lr, float omega, float *z,
-               double *part_rr, const void *state, int nz, int nr,
-               long long *counts, void *stream) {
+               const float *pcr, float omega, float *z, double *part_rr,
+               const void *state, int nz, int nr, long long *counts,
+               void *stream) {
   RowArgs a = {};
-  a.r = r; a.x = x; a.p = p; a.Ap = Ap; a.F = pcr; a.levels = lr;
+  a.r = r; a.x = x; a.p = p; a.Ap = Ap; a.F = pcr;
   a.scale = omega; a.out = z; a.st = (const CGState *)state;
   a.part_rr = state != nullptr ? part_rr : nullptr; a.nz = nz; a.nr = nr;
   return (int)launch_row(state != nullptr ? kRowUpdate : kRowPlain, a,
@@ -2343,26 +2447,26 @@ int hf_mgz_pre(float *r, float *x, const float *p, const float *Ap,
 }
 
 // The first coarse sweep alone: the fine residual r - sm A (sm z), its
-// restriction (into store, when given) and yc = omega_c F[2L] PCR of it,
-// every row of yc written.
+// restriction (into store, when given) and yc = omega_c Tc^-1 of it, every
+// row of yc written.
 int hf_mgz_coarse(const float *A, int npts, const float *sm, const float *r,
-                  const float *z, const float *aux, const float *pcrc, int lc,
+                  const float *z, const float *aux, const float *pcrc,
                   float omega_c, float *yc, float *store, int nz, int nr,
                   long long *counts, void *stream) {
   RowArgs a = {};
   a.A = A; a.npts = npts; a.sm = sm; a.r = const_cast<float *>(r); a.z = z;
-  a.aux = aux; a.store = store; a.F = pcrc; a.levels = lc;
+  a.aux = aux; a.store = store; a.F = pcrc;
   a.scale = omega_c; a.out = yc; a.nz = nz; a.nr = nr;
   return (int)launch_row(kRowRestrict, a, kPhMgzCoarse, counts,
                          (cudaStream_t)stream);
 }
 
-// A later coarse sweep alone: out = y + omega_c F[2L] PCR(rcs - Ac9 y).
+// A later coarse sweep alone: out = y + omega_c Tc^-1 (rcs - Ac9 y).
 int hf_mgz_coarse_res(const float *ac9, const float *rcs, const float *y,
-                      const float *pcrc, int lc, float omega_c, float *out,
-                      int nz, int nr, long long *counts, void *stream) {
+                      const float *pcrc, float omega_c, float *out, int nz,
+                      int nr, long long *counts, void *stream) {
   RowArgs a = {};
-  a.ac9 = ac9; a.rcs = rcs; a.y = y; a.acc = y; a.F = pcrc; a.levels = lc;
+  a.ac9 = ac9; a.rcs = rcs; a.y = y; a.acc = y; a.F = pcrc;
   a.scale = omega_c; a.out = out; a.nz = nz; a.nr = nr;
   return (int)launch_row(kRowCoarseRes, a, kPhMgzCoarseRes, counts,
                          (cudaStream_t)stream);
@@ -2379,16 +2483,16 @@ int hf_mgz_prolong_res(const float *A, int npts, const float *sm,
                                      (cudaStream_t)stream);
 }
 
-// The post-smoothing row alone: z = (zp + omega F[2L] PCR(r1)) * free with
-// the <r, z> partials (one a row) in parts plane 2; with a state record,
-// the beta tail on it, <r, r> from the n_rr partials in parts plane 1.
-int hf_mgz_post(const float *r1, const float *zp, const float *pcr, int lr,
+// The post-smoothing row alone: z = (zp + omega T^-1 r1) * free with the
+// <r, z> partials (one a row) in parts plane 2; with a state record, the
+// beta tail on it, <r, r> from the n_rr partials in parts plane 1.
+int hf_mgz_post(const float *r1, const float *zp, const float *pcr,
                 float omega, const float *sm, const float *r, float *z,
                 double *parts, int nparts, int n_rr, void *state,
                 int maxiter, int fixed, int nz, int nr, long long *counts,
                 void *stream) {
   RowArgs a = {};
-  a.r = const_cast<float *>(r1); a.F = pcr; a.levels = lr; a.scale = omega;
+  a.r = const_cast<float *>(r1); a.F = pcr; a.scale = omega;
   a.acc = zp; a.mask = 1; a.sm = sm; a.out = z; a.dot = r;
   a.part_dot = parts + 2 * (size_t)nparts; a.nz = nz; a.nr = nr;
   if (state != nullptr)

@@ -152,8 +152,8 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    solve = [P, I, P, P, P, P, P, I, P, I, P, P, P, P, P, P, I, P, I, I, I,
-             I, P, P, I, I, P, P, I, P, I, F, F, P, P, I]
+    solve = [P, I, P, P, P, P, P, P, I, P, P, P, P, P, P, I, P, I, I, I, I,
+             P, P, I, I, P, P, P, I, F, F, P, P, I]
     _sig(lib.hf_cg_nparts, I, I)
     _sig(lib.hf_cg_state_bytes)
     _sig(lib.hf_num_phases)
@@ -163,19 +163,19 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_graph_launch, P, P)
     _sig(lib.hf_graph_destroy, P)
     _sig(lib.hf_stencil_dot, P, I, P, P, P, P, P, I, I, P, P)
-    _sig(lib.hf_update_pcr, P, P, P, P, P, P, I, P, I, P, P, I, P, I, I, I, I,
+    _sig(lib.hf_rline_factor, P, P, P, P, I, I, P)
+    _sig(lib.hf_update_pcr, P, P, P, P, P, P, P, I, P, P, I, P, I, I, I, I,
          P, P)
-    _sig(lib.hf_pcr_r, P, P, P, I, P, P, I, I, P, P)
+    _sig(lib.hf_pcr_r, P, P, P, P, P, I, I, P, P)
     _sig(lib.hf_pcr_z, P, P, P, I, P, P, I, I, P, P)
     _sig(lib.hf_cg_extra_planes, I, I, I)
-    _sig(lib.hf_precond_apply, P, I, P, P, P, I, P, P, I, I, I, P, P, P, I, P,
-         P, I, P, I, F, F, P, P)
-    _sig(lib.hf_mgz_pre, P, P, P, P, P, I, F, P, P, P, I, I, P, P)
-    _sig(lib.hf_mgz_coarse, P, I, P, P, P, P, P, I, F, P, P, I, I, P, P)
-    _sig(lib.hf_mgz_coarse_res, P, P, P, P, I, F, P, I, I, P, P)
+    _sig(lib.hf_precond_apply, P, I, P, P, P, P, P, I, I, I, P, P, P, I, P,
+         P, P, I, F, F, P, P)
+    _sig(lib.hf_mgz_pre, P, P, P, P, P, F, P, P, P, I, I, P, P)
+    _sig(lib.hf_mgz_coarse, P, I, P, P, P, P, P, F, P, P, I, I, P, P)
+    _sig(lib.hf_mgz_coarse_res, P, P, P, P, F, P, I, I, P, P)
     _sig(lib.hf_mgz_prolong_res, P, I, P, P, P, P, P, P, P, I, I, P, P)
-    _sig(lib.hf_mgz_post, P, P, P, I, F, P, P, P, P, I, I, P, I, I, I, I, P,
-         P)
+    _sig(lib.hf_mgz_post, P, P, P, F, P, P, P, P, I, I, P, I, I, I, I, P, P)
     _sig(lib.hf_merged_w, P, I, P, P, P, P, P, I, I, I, P, P)
     _sig(lib.hf_finalize_merged, P, P, I, I, I, I, P, I, I, P, P)
     _sig(lib.hf_pq_update, P, P, P, P, P, I, P, P)

@@ -3,8 +3,9 @@
 
 ``cg_tol`` solves sm·A·sm y = b, with b and x0 vanishing at constrained
 dofs and sm = rsqrt(diag(A))·free, preconditioned by nothing, by the r-line
-PCR block-Jacobi solve (``pcr``), by the split-additive ADI solve
-R r + Z r − r (``pcr`` and ``pcr_z``), by a fixed Chebyshev polynomial in
+block-Jacobi solve (``pcr``: each line's exact tridiagonal solve from its
+Thomas factors), by the split-additive ADI solve R r + Z r − r (``pcr`` and
+the z-line PCR stack ``pcr_z``), by a fixed Chebyshev polynomial in
 the operator (``cheb_degree``) or by the z-semicoarsened two-level V-cycle
 over the r-line smoother (``mgz``, operands from ``ops/mgz.py``), with the
 standard recurrence or the Chronopoulos–Gear merged-dot one (``merged``),
@@ -12,8 +13,9 @@ stopping on the true residual
 ‖r‖ ≤ rtol·‖r0‖ (``rtol_wrt='r0'``) or rtol·‖b‖ (``'b'``). A tensor on the
 CPU goes to :func:`cg_tol_reference`; a CUDA tensor goes to the kernel, or
 the call raises. The kernel replaces heatflow_tpu/ops/pallas_cg.py:
-_cg_tol_kernel; the PCR factor stacks it consumes are packed once per
-transient by :func:`pcr_pack`. The mgz cycle runs as fused passes
+_cg_tol_kernel; the r-line factors it consumes are packed once per
+operand set by :func:`rline_pack` (a kernel of their own on the card), the
+z-line stack by :func:`pcr_pack`. The mgz cycle runs as fused passes
 (:func:`mgz_pre`, :func:`mgz_coarse`, :func:`mgz_coarse_res`,
 :func:`mgz_prolong_res`, :func:`mgz_post`, each with its plain version, and
 :func:`mgz_cycle_reference` composed from them).
@@ -35,7 +37,8 @@ import torch
 
 from heatflow_tpu_torch.ops.cg import implicit_solve
 from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_factor,
-                                              pcr_fold)
+                                              pcr_fold, thomas_apply_lines,
+                                              thomas_factor_lines)
 from heatflow_tpu_torch.ops.mgz import coarse_apply, prolong, restrict
 from heatflow_tpu_torch.ops.stencil import OFFSETS, apply_stencil, shifted
 from heatflow_tpu_torch.utils import span
@@ -148,18 +151,79 @@ def reset_counters() -> None:
     for name in ("launches_forward", "launches_backward", "launches_jvp"):
         setattr(cg_vmem_solve, name, 0)
     cg_vmem.launches = 0
+    rline_pack.launches = 0
 
 
 def pcr_pack(A: torch.Tensor, s: torch.Tensor, free: torch.Tensor,
              axis: int = -1) -> torch.Tensor:
-    """Folded line-PCR factor stack (2L+1, Nz, Nr) for :func:`cg_tol`:
-    rows 2k/2k+1 are level k's rescaled lower/upper couplings, the last row
-    the accumulated diagonal. ``axis=-1`` packs the r-line factors (the
-    ``pcr`` operand), ``axis=-2`` the z-line factors (``pcr_z``). Eager
+    """Folded line-PCR factor stack (2L+1, Nz, Nr): rows 2k/2k+1 are level
+    k's rescaled lower/upper couplings, the last row the accumulated
+    diagonal. ``axis=-2`` packs the z-line factors, :func:`cg_tol`'s
+    ``pcr_z`` operand; ``axis=-1`` the r-line stack of the JAX package's
+    kernel (``cg_tol`` takes :func:`rline_pack`'s factors there). Eager
     torch, once per transient."""
     l, u = line_couplings(A, s * free, axis)
     levels2, g = pcr_fold(pcr_factor(l, u, axis=axis), axis=axis)
     return torch.stack([p for lv in levels2 for p in lv] + [g])
+
+
+def rline_pack_reference(A, s, free) -> torch.Tensor:
+    """Plain version of :func:`rline_pack`, on any device: the couplings of
+    (s·free)·A·(s·free) along r and their Thomas factors
+    (:func:`~heatflow_tpu_torch.ops.linesolve.thomas_factor_lines`)."""
+    l, u = line_couplings(A, s * free, -1)
+    return thomas_factor_lines(l, u)
+
+
+def rline_pack(A: torch.Tensor, s: torch.Tensor,
+               free: torch.Tensor) -> torch.Tensor:
+    """The r-line operand of :func:`cg_tol` (``pcr``): the (3, Nz, Nr)
+    Thomas factors of every grid row's line-tridiagonal system, once per
+    operand set. CPU tensors take the plain version; CUDA float32 tensors
+    the factor kernel (one launch, counted in ``rline_pack.launches``)."""
+    if _on_cpu(A, s, free):
+        return rline_pack_reference(A, s, free)
+    if A.ndim != 3 or A.shape[0] not in (7, 9):
+        raise ValueError(f"A must be (7|9, Nz, Nr), got {tuple(A.shape)}")
+    return _RLineFactor.apply(A.contiguous(), s.contiguous(),
+                              free.contiguous())
+
+
+rline_pack.launches = 0
+
+
+def _rline_factor_launch(A, s, free) -> torch.Tensor:
+    dev = s.device
+    nz, nr = s.shape
+    _require(A, "A", (A.shape[0], nz, nr), dev)
+    _require(s, "s", (nz, nr), dev)
+    _require(free, "free", (nz, nr), dev)
+    F = torch.empty((3, nz, nr), dtype=torch.float32, device=dev)
+    _check(_library().hf_rline_factor(_ptr(A), _ptr(s), _ptr(free), _ptr(F),
+                                      nz, nr, _stream()), "rline_pack")
+    rline_pack.launches += 1
+    return F
+
+
+class _RLineFactor(torch.autograd.Function):
+    """The factor kernel's launch as a Function, so that under torch.func's
+    transforms (the fit's jvp, vmapped over its tangents) the operator
+    comes in as plain tensors whose pointers the kernel takes; the factors
+    only steer the solves and are never differentiated."""
+
+    @staticmethod
+    def forward(A, s, free):
+        return _rline_factor_launch(A, s, free)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def vmap(info, in_dims, A, s, free):
+        if any(d is not None for d in in_dims):
+            raise NotImplementedError("a batch of operators under vmap")
+        return _rline_factor_launch(A, s, free), None
 
 
 # ----------------------------------------------------------------------
@@ -217,14 +281,14 @@ def mgz_precond_reference(A, sm, pcr, mgz, sweeps: int = 1,
     apply_op = lambda y: sm * apply_stencil(A, sm * y)
 
     def pre(r):
-        xv = omega * pcr_stack_apply(pcr, r)
+        xv = omega * thomas_apply_lines(pcr, r)
         rcs = restrict(aux, r - apply_op(xv))
-        yc = omega_c * pcr_stack_apply(pcrc, rcs)
+        yc = omega_c * thomas_apply_lines(pcrc, rcs)
         for _ in range(sweeps - 1):
-            yc = yc + omega_c * pcr_stack_apply(
+            yc = yc + omega_c * thomas_apply_lines(
                 pcrc, rcs - coarse_apply(mgz["Ac9"], yc))
         xv = prolong(aux, xv, yc)
-        xv = xv + omega * pcr_stack_apply(pcr, r - apply_op(xv))
+        xv = xv + omega * thomas_apply_lines(pcr, r - apply_op(xv))
         return xv * free
     return pre
 
@@ -236,10 +300,10 @@ def _precond_reference(A, sm, pcr, pcr_z, cheb_degree=0, mgz=None,
         return mgz_precond_reference(A, sm, pcr, mgz, mgz_sweeps, mgz_omega,
                                      mgz_omega_c)
     if pcr_z is not None:
-        return lambda r: (pcr_stack_apply(pcr, r, -1)
+        return lambda r: (thomas_apply_lines(pcr, r)
                           + pcr_stack_apply(pcr_z, r, -2) - r) * free
     if pcr is not None:
-        return lambda r: pcr_stack_apply(pcr, r, -1) * free
+        return lambda r: thomas_apply_lines(pcr, r) * free
     if cheb_degree > 0:
         return cheb_precond_reference(A, sm, cheb_degree)
     return lambda r: r
@@ -253,7 +317,7 @@ def stencil_dot_reference(A, sm, p):
 
 def precond_reference(sm, r, pcr=None, pcr_z=None):
     """(z, ⟨r, z⟩) for the r-line (``pcr``) or ADI (``pcr`` + ``pcr_z``)
-    preconditioner — the plain PCR phases."""
+    preconditioner — the plain line-solve phases."""
     z = _precond_reference(None, sm, pcr, pcr_z)(r)
     return z, (r.double() * z.double()).sum()
 
@@ -276,8 +340,24 @@ def merged_w_reference(A, sm, u, r):
     return w, d(w, u), d(r, r), d(r, u)
 
 
+def _check_rline(F, name: str = "pcr") -> None:
+    """The r-line operand is :func:`rline_pack`'s (3, ..., Nr) Thomas
+    factors: a folded PCR stack in its place (2⌈log2 Nr⌉+1 planes, 3 only
+    on lines of 2 points) raises rather than being misread."""
+    if F.ndim < 3 or F.shape[0] != 3:
+        raise ValueError(
+            f"{name} must be the (3, Nz, Nr) r-line Thomas factors of "
+            f"rline_pack, got shape {tuple(F.shape)} (a folded PCR stack "
+            f"from pcr_pack is not this operand)")
+
+
 def _check_forms(pcr, pcr_z, cheb_degree, merged, mgz) -> None:
-    """The form checks of the TPU entry point."""
+    """The form checks of the TPU entry point, and the r-line operands'
+    (``pcr``, the mgz coarse rows' ``pcrc``)."""
+    if pcr is not None:
+        _check_rline(pcr)
+    if mgz is not None:
+        _check_rline(mgz["pcrc"], "mgz['pcrc']")
     if pcr is not None and cheb_degree:
         raise ValueError("pcr and cheb_degree are mutually exclusive")
     if pcr_z is not None and pcr is None:
@@ -432,18 +512,18 @@ def _check_operator(A, sm, device):
 
 
 def _mgz_operands(mgz, sweeps: int, nz: int, nr: int, device):
-    """(Ac9 or None, pcrc, aux, coarse levels) after checking the mgz
-    operand dict; one sweep needs no coarse operator."""
+    """(Ac9 or None, pcrc, aux) after checking the mgz operand dict; one
+    sweep needs no coarse operator."""
     if sweeps < 1:
         raise ValueError(f"mgz_sweeps must be >= 1, got {sweeps}")
     pcrc, aux = mgz["pcrc"], mgz["aux"]
-    lc = _stack_levels(pcrc, "mgz['pcrc']", nz, nr, device)
+    _require(pcrc, "mgz['pcrc']", (3, nz, nr), device)
     _require(aux, "mgz['aux']", (4, nz, nr), device)
     ac9 = None
     if sweeps > 1:
         ac9 = mgz["Ac9"]
         _require(ac9, "mgz['Ac9']", (9, nz, nr), device)
-    return ac9, pcrc, aux, lc
+    return ac9, pcrc, aux
 
 
 def _check_solve(A, sm, *, pcr, pcr_z, cheb_degree: int, merged: bool, mgz,
@@ -456,9 +536,10 @@ def _check_solve(A, sm, *, pcr, pcr_z, cheb_degree: int, merged: bool, mgz,
         _check_forms(pcr, pcr_z, int(cheb_degree), merged, mgz)
         dev = sm.device
         nz, nr = _check_operator(A, sm, dev)
-        for t, name in ((pcr, "pcr"), (pcr_z, "pcr_z")):
-            if t is not None:
-                _stack_levels(t, name, nz, nr, dev)
+        if pcr is not None:
+            _require(pcr, "pcr", (3, nz, nr), dev)
+        if pcr_z is not None:
+            _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
         if mgz is not None:
             _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
 
@@ -643,12 +724,12 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
     nz, nr = _check_operator(A, sm, dev)
     _require(b, "b", (nz, nr), dev)
     _require(x0, "x0", (nz, nr), dev)
-    lr = 0 if pcr is None else _stack_levels(pcr, "pcr", nz, nr, dev)
+    if pcr is not None:
+        _require(pcr, "pcr", (3, nz, nr), dev)
     lz = 0 if pcr_z is None else _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
     ac9 = pcrc = aux = None
-    lc = 0
     if mgz is not None:
-        ac9, pcrc, aux, lc = _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
+        ac9, pcrc, aux = _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
     rtol_t = torch.as_tensor(rtol, dtype=torch.float32, device=dev)
     if rtol_t.numel() != 1:
         raise ValueError("rtol must be a scalar")
@@ -670,12 +751,12 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
         z = r                         # identity form: z aliases r
     desc = None if mg is None else mg(z)
     args = (_ptr(A), A.shape[0], _ptr(sm), _ptr(ws.b), _ptr(ws.x0),
-            _ptr(ws.rtol), _ptr(pcr), lr, _ptr(pcr_z), lz, _ptr(ws.x),
+            _ptr(ws.rtol), _ptr(pcr), _ptr(pcr_z), lz, _ptr(ws.x),
             _ptr(r), _ptr(z), _ptr(p), _ptr(Ap), _ptr(ws.parts),
             ws.parts.shape[1], _ptr(ws.state), nz, nr, int(maxiter),
             int(rtol_wrt == "r0"))
     extra = (_ptr(ws.lmax), cheb_degree, int(merged), _ptr(ac9), _ptr(pcrc),
-             lc, _ptr(aux), int(mgz_sweeps), float(mgz_omega),
+             _ptr(aux), int(mgz_sweeps), float(mgz_omega),
              float(mgz_omega_c), _ptr(ws.extra),
              None if desc is None else ctypes.addressof(desc), int(fixed))
     # the descriptor's address changes from call to call, its content
@@ -795,11 +876,11 @@ def precond_apply(A: torch.Tensor, sm: torch.Tensor, r: torch.Tensor, *,
     dev = r.device
     nz, nr = _check_operator(A, sm, dev)
     _require(r, "r", (nz, nr), dev)
-    lr = 0 if pcr is None else _stack_levels(pcr, "pcr", nz, nr, dev)
+    if pcr is not None:
+        _require(pcr, "pcr", (3, nz, nr), dev)
     ac9 = pcrc = aux = lmax = None
-    lc = 0
     if mgz is not None:
-        ac9, pcrc, aux, lc = _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
+        ac9, pcrc, aux = _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
     else:
         lmax = gershgorin_lmax(A, sm).reshape(1).contiguous()
     z = torch.empty_like(r)
@@ -810,9 +891,9 @@ def precond_apply(A: torch.Tensor, sm: torch.Tensor, r: torch.Tensor, *,
     parts = torch.zeros((4, nparts), dtype=torch.float64, device=dev)
     which = ctypes.c_int(0)
     _check(lib.hf_precond_apply(
-        _ptr(A), A.shape[0], _ptr(sm), _ptr(r), _ptr(pcr), lr, _ptr(z),
+        _ptr(A), A.shape[0], _ptr(sm), _ptr(r), _ptr(pcr), _ptr(z),
         _ptr(parts), nparts, nz, nr, _counts_ptr(), _stream(), _ptr(lmax),
-        int(cheb_degree), _ptr(ac9), _ptr(pcrc), lc, _ptr(aux),
+        int(cheb_degree), _ptr(ac9), _ptr(pcrc), _ptr(aux),
         int(mgz_sweeps), float(mgz_omega), float(mgz_omega_c), _ptr(extra),
         ctypes.addressof(which)), "precond_apply")
     n_rz = nz if mgz is not None else (nz * nr + 255) // 256
@@ -973,39 +1054,37 @@ def mgz_pre_reference(r, pcr, omega: float, *, x=None, p=None, Ap=None,
                       alpha=None):
     """Plain version of :func:`mgz_pre`: (x + α·p, r − α·Ap, z, ⟨r, r⟩
     float64) with the update (``alpha`` given, rounded to the fields'
-    dtype), or (None, r, z, None) without; z = ω·PCR(r)."""
+    dtype), or (None, r, z, None) without; z = ω·T⁻¹r, the rows' line
+    solves from the Thomas factors ``pcr``."""
     rr = None
     if alpha is not None:
         a = torch.as_tensor(float(alpha), dtype=torch.float64).to(r.dtype)
         x = x + a * p
         r = r - a * Ap
         rr = (r.double() * r.double()).sum()
-    return x, r, omega * pcr_stack_apply(pcr, r), rr
+    return x, r, omega * thomas_apply_lines(pcr, r), rr
 
 
 def mgz_coarse_reference(A, sm, r, z, aux, pcrc, omega_c: float):
     """Plain version of :func:`mgz_coarse`: (yc, rcs). The fine residual
     r − sm·A·(sm·z) restricted onto the embedded coarse rows, rcs, and the
-    damped coarse line solve from zero on the even rows, yc = ω_c·PCR(rcs).
-    Every restriction weight is 0 on an odd row (``ops/mgz.py``), and its
-    couplings are 0: there rcs = 0 and yc = ω_c·(g·0), the PCR's own result
-    on a zero row."""
+    damped coarse line solve from zero, yc = ω_c·Tc⁻¹rcs (``pcrc``: the
+    coarse rows' Thomas factors). Every restriction weight is 0 on an odd
+    row (``ops/mgz.py``), and its couplings are 0: there rcs = 0 and so is
+    its solve."""
     rc = restrict(aux, r - sm * apply_stencil(A, sm * z))
     rcs = torch.zeros_like(rc)
     rcs[0::2] = rc[0::2]
-    yc = omega_c * (pcrc[-1] * rcs)
-    yc[0::2] = omega_c * pcr_stack_apply(pcrc[:, 0::2], rcs[0::2])
-    return yc, rcs
+    return omega_c * thomas_apply_lines(pcrc, rcs), rcs
 
 
 def mgz_coarse_res_reference(Ac9, rcs, y, pcrc, omega_c: float):
     """Plain version of :func:`mgz_coarse_res`: a later coarse sweep,
-    y + ω_c·PCR(rcs − Ac9·y) on the even rows and y + ω_c·(g·0) on the odd
+    y + ω_c·Tc⁻¹(rcs − Ac9·y) on the even rows and y + ω_c·0 on the odd
     rows (where rcs and y are 0: see :func:`mgz_coarse_reference`)."""
-    d = rcs - coarse_apply(Ac9, y)
-    out = y + omega_c * (pcrc[-1] * torch.zeros_like(d))
-    out[0::2] = y[0::2] + omega_c * pcr_stack_apply(pcrc[:, 0::2], d[0::2])
-    return out
+    d = torch.zeros_like(y)
+    d[0::2] = (rcs - coarse_apply(Ac9, y))[0::2]
+    return y + omega_c * thomas_apply_lines(pcrc, d)
 
 
 def mgz_prolong_res_reference(A, sm, r, z, yc, aux):
@@ -1016,9 +1095,9 @@ def mgz_prolong_res_reference(A, sm, r, z, yc, aux):
 
 
 def mgz_post_reference(r1, zp, pcr, omega: float, sm, r):
-    """Plain version of :func:`mgz_post`: (z = (zp + ω·PCR(r1))·free,
+    """Plain version of :func:`mgz_post`: (z = (zp + ω·T⁻¹r1)·free,
     ⟨r, z⟩ float64)."""
-    z = (zp + omega * pcr_stack_apply(pcr, r1)) * (sm != 0).to(zp.dtype)
+    z = (zp + omega * thomas_apply_lines(pcr, r1)) * (sm != 0).to(zp.dtype)
     return z, (r.double() * z.double()).sum()
 
 
@@ -1039,10 +1118,11 @@ def mgz_cycle_reference(A, sm, r, pcr, mgz, sweeps: int = 1,
 
 
 def mgz_pre(r, pcr, omega: float, *, x=None, p=None, Ap=None, state=None):
-    """The mgz cycle's pre-smoothing row alone: z = ω·PCR(r); with a state
+    """The mgz cycle's pre-smoothing row alone: z = ω·T⁻¹r; with a state
     dict (its alpha, as :func:`finalize_reference` takes it), after the CG
     update of the row as an iteration runs it. Returns (x + α·p, r − α·Ap,
     z, ⟨r, r⟩) or (None, r, z, None); the inputs are left as they are."""
+    _check_rline(pcr)
     if _on_cpu(r, pcr, x, p, Ap):
         return mgz_pre_reference(r, pcr, omega, x=x, p=p, Ap=Ap,
                                  alpha=None if state is None
@@ -1051,7 +1131,7 @@ def mgz_pre(r, pcr, omega: float, *, x=None, p=None, Ap=None, state=None):
     dev = r.device
     nz, nr = r.shape
     _require(r, "r", (nz, nr), dev)
-    lr = _stack_levels(pcr, "pcr", nz, nr, dev)
+    _require(pcr, "pcr", (3, nz, nr), dev)
     z = torch.empty_like(r)
     part = torch.zeros(lib.hf_cg_nparts(nz, nr), dtype=torch.float64,
                        device=dev)
@@ -1061,7 +1141,7 @@ def mgz_pre(r, pcr, omega: float, *, x=None, p=None, Ap=None, state=None):
             _require(t, name, (nz, nr), dev)
         x, r = x.clone(), r.clone()
         st = _state(dev, **state)
-    _check(lib.hf_mgz_pre(_ptr(r), _ptr(x), _ptr(p), _ptr(Ap), _ptr(pcr), lr,
+    _check(lib.hf_mgz_pre(_ptr(r), _ptr(x), _ptr(p), _ptr(Ap), _ptr(pcr),
                           float(omega), _ptr(z), _ptr(part), _ptr(st), nz, nr,
                           _counts_ptr(), _stream()), "mgz_pre")
     return x, r, z, None if state is None else part[:nz].sum()
@@ -1070,6 +1150,7 @@ def mgz_pre(r, pcr, omega: float, *, x=None, p=None, Ap=None, state=None):
 def mgz_coarse(A, sm, r, z, aux, pcrc, omega_c: float):
     """The mgz cycle's first coarse sweep alone: (yc, rcs), see
     :func:`mgz_coarse_reference`."""
+    _check_rline(pcrc, "pcrc")
     if _on_cpu(A, sm, r, z, aux, pcrc):
         return mgz_coarse_reference(A, sm, r, z, aux, pcrc, omega_c)
     lib = _library()
@@ -1078,10 +1159,10 @@ def mgz_coarse(A, sm, r, z, aux, pcrc, omega_c: float):
     for name, t in (("r", r), ("z", z)):
         _require(t, name, (nz, nr), dev)
     _require(aux, "aux", (4, nz, nr), dev)
-    lc = _stack_levels(pcrc, "pcrc", nz, nr, dev)
+    _require(pcrc, "pcrc", (3, nz, nr), dev)
     yc, rcs = torch.empty_like(r), torch.empty_like(r)
     _check(lib.hf_mgz_coarse(_ptr(A), A.shape[0], _ptr(sm), _ptr(r), _ptr(z),
-                             _ptr(aux), _ptr(pcrc), lc, float(omega_c),
+                             _ptr(aux), _ptr(pcrc), float(omega_c),
                              _ptr(yc), _ptr(rcs), nz, nr, _counts_ptr(),
                              _stream()), "mgz_coarse")
     return yc, rcs
@@ -1090,6 +1171,7 @@ def mgz_coarse(A, sm, r, z, aux, pcrc, omega_c: float):
 def mgz_coarse_res(Ac9, rcs, y, pcrc, omega_c: float):
     """A later coarse sweep of the mgz cycle alone, see
     :func:`mgz_coarse_res_reference`."""
+    _check_rline(pcrc, "pcrc")
     if _on_cpu(Ac9, rcs, y, pcrc):
         return mgz_coarse_res_reference(Ac9, rcs, y, pcrc, omega_c)
     lib = _library()
@@ -1098,10 +1180,10 @@ def mgz_coarse_res(Ac9, rcs, y, pcrc, omega_c: float):
     _require(Ac9, "Ac9", (9, nz, nr), dev)
     _require(rcs, "rcs", (nz, nr), dev)
     _require(y, "y", (nz, nr), dev)
-    lc = _stack_levels(pcrc, "pcrc", nz, nr, dev)
+    _require(pcrc, "pcrc", (3, nz, nr), dev)
     out = torch.empty_like(y)
     _check(lib.hf_mgz_coarse_res(_ptr(Ac9), _ptr(rcs), _ptr(y), _ptr(pcrc),
-                                 lc, float(omega_c), _ptr(out), nz, nr,
+                                 float(omega_c), _ptr(out), nz, nr,
                                  _counts_ptr(), _stream()), "mgz_coarse_res")
     return out
 
@@ -1130,6 +1212,7 @@ def mgz_post(r1, zp, pcr, omega: float, sm, r, *, state=None, rr=None,
     """The mgz cycle's post-smoothing row alone: (z, ⟨r, z⟩) as
     :func:`mgz_post_reference`; with a state dict and ⟨r, r⟩ (``rr``), also
     the state after the beta tail the solve takes in this kernel."""
+    _check_rline(pcr)
     if _on_cpu(r1, zp, pcr, sm, r):
         z, rz = mgz_post_reference(r1, zp, pcr, omega, sm, r)
         if state is None:
@@ -1141,7 +1224,7 @@ def mgz_post(r1, zp, pcr, omega: float, sm, r, *, state=None, rr=None,
     nz, nr = r.shape
     for name, t in (("r1", r1), ("zp", zp), ("sm", sm), ("r", r)):
         _require(t, name, (nz, nr), dev)
-    lr = _stack_levels(pcr, "pcr", nz, nr, dev)
+    _require(pcr, "pcr", (3, nz, nr), dev)
     z = torch.empty_like(r)
     nparts = lib.hf_cg_nparts(nz, nr)
     parts = torch.zeros((4, nparts), dtype=torch.float64, device=dev)
@@ -1149,7 +1232,7 @@ def mgz_post(r1, zp, pcr, omega: float, sm, r, *, state=None, rr=None,
     if state is not None:
         parts[1, 0] = float(rr)
         st = _state(dev, **state)
-    _check(lib.hf_mgz_post(_ptr(r1), _ptr(zp), _ptr(pcr), lr, float(omega),
+    _check(lib.hf_mgz_post(_ptr(r1), _ptr(zp), _ptr(pcr), float(omega),
                            _ptr(sm), _ptr(r), _ptr(z), _ptr(parts), nparts, 1,
                            _ptr(st), int(maxiter), int(fixed), nz, nr,
                            _counts_ptr(), _stream()), "mgz_post")
@@ -1197,9 +1280,10 @@ def stencil_dot_alpha(A: torch.Tensor, sm: torch.Tensor, p: torch.Tensor,
 
 def precond(sm: torch.Tensor, r: torch.Tensor, pcr: torch.Tensor,
             pcr_z: torch.Tensor | None = None):
-    """The kernel's PCR phases alone: (z, ⟨r, z⟩) with z the r-line
+    """The kernel's line-solve phases alone: (z, ⟨r, z⟩) with z the r-line
     (``pcr``) or ADI (``pcr`` + ``pcr_z``) preconditioned residual;
     ⟨r, z⟩ is a float64 0-d tensor."""
+    _check_rline(pcr)
     if _on_cpu(sm, r, pcr, pcr_z):
         return precond_reference(sm, r, pcr, pcr_z)
     lib = _library()
@@ -1207,13 +1291,13 @@ def precond(sm: torch.Tensor, r: torch.Tensor, pcr: torch.Tensor,
     nz, nr = sm.shape
     _require(sm, "sm", (nz, nr), dev)
     _require(r, "r", (nz, nr), dev)
-    lr = _stack_levels(pcr, "pcr", nz, nr, dev)
+    _require(pcr, "pcr", (3, nz, nr), dev)
     z = torch.empty_like(r)
     part = torch.zeros(lib.hf_cg_nparts(nz, nr), dtype=torch.float64,
                        device=dev)
     stream = _stream()
-    _check(lib.hf_pcr_r(_ptr(r), _ptr(sm), _ptr(pcr), lr, _ptr(z),
-                        _ptr(part), nz, nr, _counts_ptr(), stream), "pcr_r")
+    _check(lib.hf_pcr_r(_ptr(r), _ptr(sm), _ptr(pcr), _ptr(z), _ptr(part),
+                        nz, nr, _counts_ptr(), stream), "pcr_r")
     if pcr_z is None:
         return z, part.sum()
     lz = _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
@@ -1245,6 +1329,7 @@ def update_precond(x, r, p, Ap, sm, pcr, pcr_z=None, *, state: dict,
     alone, as an iteration runs it on ``state``'s alpha: (x + α·p, r − α·Ap,
     z = M⁻¹r, ⟨r, r⟩, ⟨r, z⟩, the state after the beta tail); the inputs
     are left as they are."""
+    _check_rline(pcr)
     if _on_cpu(x, r, p, Ap, sm, pcr, pcr_z):
         x, r, z, rr, rz = update_precond_reference(
             x, r, p, Ap, state["alpha"], sm, pcr, pcr_z)
@@ -1256,14 +1341,14 @@ def update_precond(x, r, p, Ap, sm, pcr, pcr_z=None, *, state: dict,
     nz, nr = sm.shape
     for name, t in (("x", x), ("r", r), ("p", p), ("Ap", Ap), ("sm", sm)):
         _require(t, name, (nz, nr), dev)
-    lr = _stack_levels(pcr, "pcr", nz, nr, dev)
+    _require(pcr, "pcr", (3, nz, nr), dev)
     lz = 0 if pcr_z is None else _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
     x_n, r_n, z = x.clone(), r.clone(), torch.empty_like(r)
     parts = torch.zeros((4, lib.hf_cg_nparts(nz, nr)), dtype=torch.float64,
                         device=dev)
     st = _state(dev, **state)
     _check(lib.hf_update_pcr(_ptr(x_n), _ptr(r_n), _ptr(p), _ptr(Ap),
-                             _ptr(sm), _ptr(pcr), lr, _ptr(pcr_z), lz,
+                             _ptr(sm), _ptr(pcr), _ptr(pcr_z), lz,
                              _ptr(z), _ptr(parts), parts.shape[1], _ptr(st),
                              int(maxiter), int(fixed), nz, nr, _counts_ptr(),
                              _stream()), "update_pcr")
@@ -1278,6 +1363,12 @@ def _implicit_cg(solver, A, sm, b, x0, rtol, maxiter, rtol_wrt, pcr, pcr_z,
         if rhs.ndim == 3:     # a batch of right-hand sides (torch.func.vmap)
             return torch.stack([solve(v, direction, A, sm, b, x0, pcr,
                                       pcr_z) for v in rhs])
+        # cg_tol's right-hand side vanishes at constrained dofs (sm = 0),
+        # where the operator's rows are 0. A cotangent need not, and its
+        # entries there reach no entry of the solution; left in, they would
+        # hold the residual above every stop, and float32 CG run to maxiter
+        # past convergence drifts through underflow into overflow.
+        rhs = rhs * (sm != 0).to(rhs.dtype)
         bb = torch.sum(b * b)
         c = torch.sum(rhs * b) / torch.where(bb > 0, bb, torch.ones_like(bb))
         x, _ = solver(A, sm, rhs.contiguous(), (c * x0).contiguous(), rtol,
@@ -1302,7 +1393,8 @@ def cg_vmem_solve(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
     """Differentiable :func:`cg_tol`: solves sm·A·sm y = b by implicit
     differentiation (replaces heatflow_tpu/ops/pallas_cg.py:cg_vmem_solve).
     Gradients and tangents flow to ``A``, ``sm`` and ``b`` (not to ``x0``);
-    the ``pcr``/``pcr_z`` stacks only steer the solves and are detached.
+    the ``pcr`` factors (:func:`rline_pack`) and the ``pcr_z`` stack only
+    steer the solves and are detached.
     The forward pass, each backward pass and each forward-mode tangent is
     one ``cg_tol`` solve: the kernel on CUDA float32 tensors (counted in
     ``cg_vmem_solve.launches_forward``, ``.launches_backward`` and

@@ -16,6 +16,11 @@ rhs phase runs per CG iteration:
         u'  = -u_i u_{i+s} / alpha_i
         d'  = (d_i - l_i d_{i-s} - u_i d_{i+s}) / alpha_i   (rhs phase, per apply)
     after 2^K >= N every coupling leaves the domain and x = d.
+
+The CG kernel's r-line (``ops/cuda_cg.py``) solves each line from its
+Thomas factors instead (:func:`thomas_factor_lines`, three planes, once per
+operand set): the forward and back substitutions of the LU factorization,
+which a card runs as two scans along the line.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from heatflow_tpu_torch.ops.stencil import shifted
+from heatflow_tpu_torch.ops.tridiag import thomas_apply, thomas_factor
 
 
 def _dim(axis: int) -> int:
@@ -148,3 +154,38 @@ def adi_preconditioner(A: torch.Tensor, s: torch.Tensor, free: torch.Tensor,
         return R(r) + Z(r) - r * free
 
     return pre
+
+
+def thomas_factor_lines(l: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Thomas (LU) factors of the unit-diagonal tridiagonal systems
+    x_i + l_i x_{i-1} + u_i x_{i+1} = d_i along the last axis (l_0 and
+    u_{N-1} zero): the (3, ..., N) stack of the forward multipliers
+    m_i = −l_i/den_{i−1}, the inverse pivots 1/den_i and cp_i = u_i/den_i,
+    from :func:`~heatflow_tpu_torch.ops.tridiag.thomas_factor`'s pivots
+    den_i = 1 − l_i·cp_{i−1} (den_{−1} = 1). The sweep runs in float64,
+    each product and difference rounded alone, as the card's factor kernel
+    runs it; the factors come back in the couplings' dtype. No pivoting:
+    the systems are SPD (principal submatrices of an SPD operator)."""
+    l64 = l.double()
+    dl, den, cp = thomas_factor(
+        torch.stack([torch.ones_like(l64), u.double(), l64], dim=-2))
+    return torch.stack([-dl / _before(den), 1.0 / den, cp]).to(l.dtype)
+
+
+def _before(den: torch.Tensor) -> torch.Tensor:
+    """den_{i−1} along the last axis, with den_{−1} = 1."""
+    return torch.cat([torch.ones_like(den[..., :1]), den[..., :-1]], dim=-1)
+
+
+def thomas_apply_lines(F: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Solve with the factors of :func:`thomas_factor_lines` along the last
+    axis, in d's dtype: :func:`~heatflow_tpu_torch.ops.tridiag.thomas_apply`
+    on the factors read back as (l, den, cp), leading dimensions
+    broadcasting. The sweeps run on the host, a step a line position (on a
+    card each step would be a launch); the result comes back on d's
+    device. The plain version of the card's row kernel: it is never
+    differentiated, and takes and returns plain tensors."""
+    m, inv, cp = F.detach().to(device="cpu", dtype=d.dtype)
+    den = 1.0 / inv
+    return thomas_apply((-m * _before(den), den, cp),
+                        d.detach().cpu()).to(d.device)

@@ -9,7 +9,8 @@ row and column shifts:
 
   restriction   rc = e_free*r + sh(pp*r, -1) + sh(pm*r, +1)
   coarse apply  9 shifted multiply-adds, z-offsets {0, +-2}, r {0, +-1}
-  coarse line   folded PCR along r of the scaled embedded operator
+  coarse line   exact tridiagonal solve along r of the scaled embedded
+                operator, from its Thomas factors
   prolongation  x += e_free*xc + pm*sh(xc, -1) + pp*sh(xc, +1)
 
 with pm/pp the linear-in-z interpolation weights (zero on even rows and on
@@ -30,8 +31,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_apply_folded,
-                                              pcr_factor, pcr_fold)
+from heatflow_tpu_torch.ops.linesolve import (line_couplings,
+                                              thomas_apply_lines,
+                                              thomas_factor_lines)
 from heatflow_tpu_torch.ops.stencil import (apply_stencil, shifted,
                                             stencil_to_coo)
 
@@ -50,7 +52,9 @@ def mgz_pack(A7: np.ndarray, s: np.ndarray, free: np.ndarray,
     free mask. Returns numpy arrays of ``dtype``:
       Ac9   (9, Nz, Nr)  embedded scaled coarse stencil (unit diagonal on
                          live even rows, identity odd/dead rows)
-      pcrc  (2L+1, Nz, Nr) folded r-line PCR factors of Ac9's tridiag part
+      pcrc  (3, Nz, Nr)  r-line Thomas factors of Ac9's tridiag part (the
+                         r-line operand's layout: ops/linesolve.py:
+                         thomas_factor_lines)
       aux   (4, Nz, Nr)  [sc, pm, pp, e_free]
     """
     import scipy.sparse as sp
@@ -131,13 +135,12 @@ def mgz_pack(A7: np.ndarray, s: np.ndarray, free: np.ndarray,
     sc = np.ones((nz, nr))
     sc[0::2, :] = sc_c.reshape(nzc, nr)
 
-    # folded r-line PCR factors of the embedded coarse tridiagonal part.
-    # Boundary couplings are zero by construction; odd rows have zero
-    # couplings and unit diagonal, so their PCR levels are identities.
-    levels2, g = pcr_fold(pcr_factor(torch.from_numpy(Ac9[4].copy()),
-                                     torch.from_numpy(Ac9[3].copy()),
-                                     axis=-1), axis=-1)
-    pcrc = np.stack([p.numpy() for lv in levels2 for p in lv] + [g.numpy()])
+    # r-line Thomas factors of the embedded coarse tridiagonal part, once,
+    # in float64. Boundary couplings are zero by construction; odd rows
+    # have zero couplings and unit diagonal, so their factors are those of
+    # the identity.
+    pcrc = thomas_factor_lines(torch.from_numpy(Ac9[4].copy()),
+                               torch.from_numpy(Ac9[3].copy())).numpy()
 
     return {"Ac9": Ac9.astype(dtype), "pcrc": pcrc.astype(dtype),
             "aux": np.stack([sc, pm, pp, e_free]).astype(dtype)}
@@ -177,16 +180,13 @@ def mgz_reference_vcycle(A7, s, free, pack, *, omega=0.8, omega_c=0.8,
     f64 = lambda v: torch.tensor(np.asarray(v, np.float64))
     A7, s, free = f64(A7), f64(s), f64(free)
     sf = s * free
-    l, u = line_couplings(A7, sf, -1)
-    lv2, g = pcr_fold(pcr_factor(l, u, axis=-1), axis=-1)
-    line = lambda r: pcr_apply_folded(lv2, g, r, axis=-1) * free
+    fine = thomas_factor_lines(*line_couplings(A7, sf, -1))
+    line = lambda r: thomas_apply_lines(fine, r) * free
     # annihilated-Dirichlet convention, as the kernel's operator apply
     apply_h = lambda y: sf * apply_stencil(A7, sf * y)
 
     Ac9, pcrc, aux = f64(pack["Ac9"]), f64(pack["pcrc"]), f64(pack["aux"])
-    Lc = (pcrc.shape[0] - 1) // 2
-    lvc = [(pcrc[2 * k], pcrc[2 * k + 1]) for k in range(Lc)]
-    line_c = lambda r: pcr_apply_folded(lvc, pcrc[2 * Lc], r, axis=-1)
+    line_c = lambda r: thomas_apply_lines(pcrc, r)
 
     def precond(r):
         r = f64(r)

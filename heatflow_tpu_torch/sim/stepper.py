@@ -289,15 +289,16 @@ class Simulator(nn.Module):
 
     def _solve_operands(self, A, s, free):
         """The kernel path's inner-solve operands: (A, sm, pcr, pcr_z) in
-        float32 (the casts of the float64 operator when refining)."""
+        float32 (the casts of the float64 operator when refining): the
+        r-line Thomas factors and the z-line PCR stack."""
         with span("transient.operands"):
-            from heatflow_tpu_torch.ops.cuda_cg import pcr_pack
+            from heatflow_tpu_torch.ops.cuda_cg import pcr_pack, rline_pack
             prec = self.opts["precondition"]
             if self.opts["f64_refine"]:
                 A, s, free = A.to(self.dtype), s.to(self.dtype), \
                     free.to(self.dtype)
-            pcr = pcr_pack(A, s, free) if prec in ("rline", "adi", "adaptive",
-                                                   "mgz") else None
+            pcr = rline_pack(A, s, free) if prec in (
+                "rline", "adi", "adaptive", "mgz") else None
             pcr_z = pcr_pack(A, s, free, axis=-2) \
                 if prec in ("adi", "adaptive") else None
             return A, s * free, pcr, pcr_z
@@ -348,7 +349,6 @@ class Simulator(nn.Module):
         ws = self._workspaces.get(key)
         if ws is None:
             nz, nr = u0.shape
-            lv = lambda t: 0 if t is None else (t.shape[0] - 1) // 2
             ws = self._workspaces[key] = cuda_step.StepWorkspace(
                 device=u0.device, nz=nz, nr=nr, npts=A.shape[0],
                 cdt=self.cdt, num_steps=int(problem.num_steps),
@@ -359,7 +359,7 @@ class Simulator(nn.Module):
                 n_watch=len(d["watch_flat"]) if "watch_flat" in d else 0,
                 record_fields=o["record_fields"],
                 has_src=source is not None, solve=solve,
-                levels=(lv(pcr), lv(pcr_z)))
+                lz=0 if pcr_z is None else (pcr_z.shape[0] - 1) // 2)
         ws.load(Mop=M_op, s=s, free=free, g0=g0, g1=g1, Ag0=Ag0, Ag1=Ag1,
                 src=None if source is None else b_src, amps=amps,
                 A=A if o["f64_refine"] else None, As=As, sm=sm, pcr=pcr,
@@ -680,8 +680,8 @@ def make_simulate_fn(problem: Problem2D,
 
     ``precondition='adaptive'`` (cg_tol path only): each step runs the r-line
     form unless the previous step's iteration count exceeded
-    ``adaptive_thresh``, in which case it runs the ADI form; both PCR stacks
-    are packed once per run.
+    ``adaptive_thresh``, in which case it runs the ADI form; the r-line
+    factors and the z-line PCR stack are packed once per run.
 
     ``solver``: 'xla' is the eager torch PCG, 'vmem' the ``cg_tol`` kernel
     path (its plain version for CPU tensors), 'auto' the kernel on a CUDA

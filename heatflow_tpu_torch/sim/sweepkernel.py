@@ -587,7 +587,8 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         ``fwhm`` (0-d tensors that require grad or carry tangents): the
         batch loop for one lane, out of place, with each step's solve
         implicitly differentiated."""
-        from heatflow_tpu_torch.ops.cuda_cg import cg_vmem_solve, pcr_pack
+        from heatflow_tpu_torch.ops.cuda_cg import (cg_vmem_solve, pcr_pack,
+                                                    rline_pack)
         from heatflow_tpu_torch.ops.linesolve import (adi_preconditioner,
                                                       line_preconditioner)
         A0, Kv, free = ops["A0"], ops["K_var"], ops["free"]
@@ -600,8 +601,8 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                 stacks = {}
                 if precondition in ("rline", "adi", "adaptive"):
                     # 'adaptive' has no per-step switch here (one solve a
-                    # call): it runs the static r-line stack
-                    stacks["pcr"] = pcr_pack(A_full.detach(), s_d[0], free)
+                    # call): it runs the static r-line factors
+                    stacks["pcr"] = rline_pack(A_full.detach(), s_d[0], free)
                 if precondition == "adi":
                     stacks["pcr_z"] = pcr_pack(A_full.detach(), s_d[0], free,
                                                axis=-2)

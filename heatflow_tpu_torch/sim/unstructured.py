@@ -306,16 +306,17 @@ class SimulatorUnstructured(nn.Module):
         s_mp = torch.rsqrt(torch.where(Mp_diag > 0, Mp_diag, one(Mp_diag)))
         apply_mp_s = lambda y: s_mp * F.apply(d["Mp"], s_mp * y)
 
-        from heatflow_tpu_torch.ops.cuda_cg import cg_tol, pcr_pack
+        from heatflow_tpu_torch.ops.cuda_cg import (cg_tol, pcr_pack,
+                                                    rline_pack)
 
         def stacks(A_, s_, free_):
-            """The kernel path's PCR factor stacks (r-line; ADI adds the
-            z-line stack), factored once per transient."""
+            """The kernel path's line factors (the r-line's Thomas factors;
+            ADI adds the z-line PCR stack), factored once per transient."""
             if not (use_vmem and precondition in ("rline", "adi")):
                 return None, None
             pz = (pcr_pack(A_, s_, free_, axis=-2).contiguous()
                   if precondition == "adi" else None)
-            return pcr_pack(A_, s_, free_).contiguous(), pz
+            return rline_pack(A_, s_, free_), pz
 
         if f64_refine:
             # float32 casts of the scaled system for the inner correction
@@ -462,7 +463,7 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
     ``solver='vmem'`` (grid-overlay meshes only): each step's solve through
     the ``cg_tol`` kernel on the 9-plane lattice operator (its plain version
     for CPU tensors; float32 on a card), 'jacobi' the scaled identity,
-    'rline' and 'adi' the PCR stacks packed once per transient. 'auto': that
+    'rline' and 'adi' the line factors packed once per transient. 'auto': that
     path for a grid overlay in float32 on a CUDA device
     (:func:`auto_selects_vmem`), else 'xla': the eager PCG on the overlay's
     stencils, or on the ELL gather for a mesh without overlay.

@@ -27,7 +27,8 @@ FORMS = ("identity", "rline", "adi")
 @pytest.fixture(scope="module")
 def system():
     """The system fixture of the JAX kernel tests (tests/test_pallas_cg.py),
-    with both PCR stacks packed by each package."""
+    with both PCR stacks packed by each package, and the port's r-line
+    operand (the rows' Thomas factors)."""
     cfg = tiny_no_diamond_cfg(coarse=3.0)
     domain, mats = build_layout(cfg)
     mesh = build_structured_mesh(domain, mats)
@@ -46,8 +47,10 @@ def system():
     j = dict(A=A, sm=sm, b=b, x0=x0, pcr=j_pcr_pack(A, s, free),
              pcr_z=j_pcr_pack(A, s, free, axis=-2))
     t = {k: torch.tensor(np.asarray(v)) for k, v in j.items()}
-    t["pcr"] = cuda_cg.pcr_pack(t["A"], torch.tensor(np.asarray(s)),
-                                torch.tensor(np.asarray(free)))
+    t["pcr_stack"] = cuda_cg.pcr_pack(t["A"], torch.tensor(np.asarray(s)),
+                                      torch.tensor(np.asarray(free)))
+    t["pcr"] = cuda_cg.rline_pack(t["A"], torch.tensor(np.asarray(s)),
+                                  torch.tensor(np.asarray(free)))
     t["pcr_z"] = cuda_cg.pcr_pack(t["A"], torch.tensor(np.asarray(s)),
                                   torch.tensor(np.asarray(free)), axis=-2)
     return j, t, np.asarray(x_true)
@@ -62,7 +65,8 @@ def _stacks(d, form):
 def test_pcr_pack_matches_jax(system, axis):
     j, t, _ = system
     key = "pcr" if axis == -1 else "pcr_z"
-    want, got = np.asarray(j[key]), t[key].numpy()
+    want = np.asarray(j[key])
+    got = t["pcr_stack" if axis == -1 else key].numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
 
@@ -316,6 +320,8 @@ def nine():
     for axis, key in ((-1, "pcr"), (-2, "pcr_z")):
         j[key] = j_pcr_pack(j["A"], j["s"], j["free"], axis=axis)
         t[key] = cuda_cg.pcr_pack(t["A"], t["s"], t["free"], axis=axis)
+    t["pcr_stack"] = t["pcr"]
+    t["pcr"] = cuda_cg.rline_pack(t["A"], t["s"], t["free"])
     return j, t, d["x_true"]
 
 
@@ -328,7 +334,8 @@ def test_nine_plane_pcr_pack_drops_the_anti_diagonals_like_jax(nine, axis):
     from heatflow_tpu_torch.ops import linesolve as tls
     j, t, _ = nine
     key = "pcr" if axis == -1 else "pcr_z"
-    want, got = np.asarray(j[key]), t[key].numpy()
+    tkey = "pcr_stack" if axis == -1 else key
+    want, got = np.asarray(j[key]), t[tkey].numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
     lj, uj = jls.line_couplings(j["A"], j["s"] * j["free"], axis)
@@ -338,7 +345,7 @@ def test_nine_plane_pcr_pack_drops_the_anti_diagonals_like_jax(nine, axis):
     A7 = t["A"].clone()
     A7[7:] = 0.0
     assert torch.equal(cuda_cg.pcr_pack(A7, t["s"], t["free"], axis=axis),
-                       t[key])
+                       t[tkey])
 
 
 @pytest.mark.parametrize("form", FORMS)

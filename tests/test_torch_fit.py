@@ -105,7 +105,7 @@ def _torch_solve(d, kind, form, rtol_wrt):
                                  mask=d["free"], rtol=1e-12, maxiter=5000,
                                  rtol_wrt=rtol_wrt)
         stacks = {} if form == "identity" else {
-            "pcr": cuda_cg.pcr_pack(As, ss, d["free"])}
+            "pcr": cuda_cg.rline_pack(As, ss, d["free"])}
         if form == "adi":
             stacks["pcr_z"] = cuda_cg.pcr_pack(As, ss, d["free"], axis=-2)
         return cuda_cg.cg_vmem_solve(A, sm, b, d["x0"], 1e-12, maxiter=5000,
@@ -134,6 +134,29 @@ def test_differentiable_solve_matches_jax(system, kind, form, rtol_wrt):
     assert _rel(xt.detach().numpy(), xj) <= SOLVE_TOL
     assert _rel(gt.numpy(), gj) <= SOLVE_TOL
     assert _rel(tt.numpy(), tj) <= SOLVE_TOL
+
+
+@pytest.mark.parametrize("form", ["rline", "adi"])
+def test_vmem_solve_gradient_ignores_the_cotangent_at_constrained_dofs(
+        system, form):
+    """A cotangent's entries at constrained dofs (free = 0) reach no entry
+    of the solution: cg_vmem_solve masks the adjoint solve's right-hand side
+    there, so the gradient from a cotangent nonzero at those dofs is the
+    masked cotangent's bitwise, and each is the JAX package's."""
+    fj = _jax_solve(system, "cg_vmem_solve", form, "b")
+    ft = _torch_solve(system, "cg_vmem_solve", form, "b")
+    _, vjp = jax.vjp(fj, jnp.asarray(THETA))
+    g = system["g"]
+    masked = g * system["free"]
+    assert (g != masked).any()
+    grads = []
+    for cot in (g, masked):
+        (gj,) = vjp(jnp.asarray(cot))
+        th = torch.tensor(THETA, requires_grad=True)
+        (gt,) = torch.autograd.grad(ft(th), th, torch.tensor(cot))
+        assert _rel(gt.numpy(), gj) <= SOLVE_TOL
+        grads.append(gt)
+    assert torch.equal(*grads)
 
 
 def test_derivative_solves_are_seeded_at_their_scale(system):
@@ -184,7 +207,7 @@ def test_vmem_solve_reference_is_the_cpu_path(system):
         th = torch.tensor(THETA, requires_grad=True)
         A, s, sm, b = _operator(torch, t_apply, d, th)
         x = solve(A, sm, b, d["x0"], 1e-10, rtol_wrt="b",
-                  pcr=cuda_cg.pcr_pack(A.detach(), s.detach(), d["free"]))
+                  pcr=cuda_cg.rline_pack(A.detach(), s.detach(), d["free"]))
         (g,) = torch.autograd.grad(x, th, d["g"])
         outs.append((x.detach(), g))
     assert all(torch.equal(u, v) for u, v in zip(*outs))
@@ -207,8 +230,8 @@ def test_cuda_vmem_solve_counts_each_direction(system):
         A, s, sm, b = _operator(torch, t_apply, d, th)
         return solve(A.contiguous(), sm.contiguous(), b.contiguous(),
                      d["x0"], 1e-5, rtol_wrt="b",
-                     pcr=cuda_cg.pcr_pack(A.detach(), s.detach(),
-                                          d["free"]).contiguous())
+                     pcr=cuda_cg.rline_pack(A.detach(), s.detach(),
+                                            d["free"]).contiguous())
     cuda_cg.reset_counters()
     thg = th.clone().requires_grad_()
     x = f(cuda_cg.cg_vmem_solve, thg)

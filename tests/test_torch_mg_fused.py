@@ -23,6 +23,7 @@ from heatflow_tpu.ops.stencil import (apply_stencil, assemble_stencils,
                                       combine_operator)
 from heatflow_tpu_torch.ops import cuda_cg, cuda_mg
 from heatflow_tpu_torch.ops import mgz as t_mgz
+from heatflow_tpu_torch.ops.linesolve import thomas_apply_lines
 from heatflow_tpu_torch.ops.mgz import coarse_apply, prolong, restrict
 from tests.fixtures import tiny_no_diamond_cfg
 
@@ -61,6 +62,8 @@ def mgz_system():
              mgz={k: jnp.asarray(v)
                   for k, v in j_mgz.mgz_pack(*host, np.float64).items()})
     t = {k: torch.tensor(np.asarray(v)) for k, v in j.items() if k != "mgz"}
+    t["pcr"] = cuda_cg.rline_pack(t["A"], torch.tensor(host[1]),
+                                  torch.tensor(host[2]))
     t["mgz"] = {k: torch.tensor(v)
                 for k, v in t_mgz.mgz_pack(*host, np.float64).items()}
     f32 = {k: v.float() for k, v in t.items() if k != "mgz"}
@@ -90,11 +93,11 @@ def test_mgz_pre_is_the_update_then_the_smoothing_row(mgz_system):
     a = torch.tensor(alpha, dtype=torch.float32)
     x_want, r_want = x + a * p, r - a * Ap
     assert torch.equal(xn, x_want) and torch.equal(rn, r_want)
-    assert torch.equal(z, OMEGA * cuda_cg.pcr_stack_apply(t["pcr"], r_want))
+    assert torch.equal(z, OMEGA * thomas_apply_lines(t["pcr"], r_want))
     assert float(rr) == float((r_want.double() ** 2).sum())
     _, r0, z0, rr0 = cuda_cg.mgz_pre(r, t["pcr"], OMEGA)
     assert rr0 is None and r0 is r
-    assert torch.equal(z0, OMEGA * cuda_cg.pcr_stack_apply(t["pcr"], r))
+    assert torch.equal(z0, OMEGA * thomas_apply_lines(t["pcr"], r))
 
 
 def test_mgz_coarse_is_residual_restriction_and_coarse_row(mgz_system):
@@ -107,7 +110,7 @@ def test_mgz_coarse_is_residual_restriction_and_coarse_row(mgz_system):
     r, z = _field(rng, t["b"], t["free"]), _field(rng, t["b"])
     yc, rcs = cuda_cg.mgz_coarse(A, sm, r, z, m["aux"], m["pcrc"], OMEGA)
     rc = restrict(m["aux"], r - sm * cuda_cg.apply_stencil(A, sm * z))
-    want = OMEGA * cuda_cg.pcr_stack_apply(m["pcrc"], rc)
+    want = OMEGA * thomas_apply_lines(m["pcrc"], rc)
     assert torch.equal(yc, want) and torch.equal(rcs, rc)
     assert torch.equal(yc[0::2], want[0::2])
     assert float(yc[1::2].abs().max()) == 0.0
@@ -120,9 +123,9 @@ def test_mgz_coarse_res_is_coarse_residual_then_coarse_row(mgz_system):
     A, sm, m = t["A"], t["sm"], t["mgz"]
     r, z = _field(rng, t["b"], t["free"]), _field(rng, t["b"])
     rc = restrict(m["aux"], r - sm * cuda_cg.apply_stencil(A, sm * z))
-    y = OMEGA * cuda_cg.pcr_stack_apply(m["pcrc"], rc)
+    y = OMEGA * thomas_apply_lines(m["pcrc"], rc)
     out = cuda_cg.mgz_coarse_res(m["Ac9"], rc, y, m["pcrc"], OMEGA)
-    want = y + OMEGA * cuda_cg.pcr_stack_apply(m["pcrc"],
+    want = y + OMEGA * thomas_apply_lines(m["pcrc"],
                                                rc - coarse_apply(m["Ac9"], y))
     assert torch.equal(out, want)
 
@@ -143,7 +146,7 @@ def test_mgz_post_is_the_masked_row_with_its_dot_and_beta(mgz_system):
     rng = np.random.default_rng(5)
     r1, zp, r = (_field(rng, t["b"]) for _ in range(3))
     z, rz = cuda_cg.mgz_post(r1, zp, t["pcr"], OMEGA, t["sm"], r)
-    want = (zp + OMEGA * cuda_cg.pcr_stack_apply(t["pcr"], r1)) * t["free"]
+    want = (zp + OMEGA * thomas_apply_lines(t["pcr"], r1)) * t["free"]
     assert torch.equal(z, want)
     assert float(rz) == float((r.double() * want.double()).sum())
     st = dict(rz=0.7, rr=1.3, stop2=1e-3, alpha=0.4, beta=0.1, k=3, done=0)
@@ -174,8 +177,9 @@ def test_mgz_odd_rows_of_the_coarse_iterate_do_not_reach_z(mgz_system,
                                                           sweeps):
     """z is bitwise the same when the odd rows of the coarse iterate hold
     any finite values (the prolongation weighs them by 0, and a further
-    sweep reads the even rows only); and on the odd rows the coarse PCR's
-    output is the elementwise omega_c (g rc), rc being 0 there."""
+    sweep reads the even rows only); and on the odd rows the coarse line
+    solve's output is the elementwise omega_c (1/den rc), rc being 0
+    there."""
     _, _, t = mgz_system
     rng = np.random.default_rng(20 + sweeps)
     A, sm, pcr, m = t["A"], t["sm"], t["pcr"], t["mgz"]
@@ -201,8 +205,8 @@ def test_mgz_odd_rows_of_the_coarse_iterate_do_not_reach_z(mgz_system,
     assert torch.equal(cycle(True), cycle(False))
     rc = restrict(m["aux"], r - sm * cuda_cg.apply_stencil(A, sm * z0))
     assert float(rc[1::2].abs().max()) == 0.0
-    pcr_out = OMEGA * cuda_cg.pcr_stack_apply(m["pcrc"], rc)
-    assert torch.equal(pcr_out[1::2], OMEGA * (m["pcrc"][-1][1::2]
+    pcr_out = OMEGA * thomas_apply_lines(m["pcrc"], rc)
+    assert torch.equal(pcr_out[1::2], OMEGA * (m["pcrc"][1][1::2]
                                                * rc[1::2]))
 
 

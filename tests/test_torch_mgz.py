@@ -17,6 +17,7 @@ from heatflow_tpu.ops.stencil import (apply_stencil, assemble_stencils,
                                       combine_operator)
 from heatflow_tpu_torch.ops import cuda_cg
 from heatflow_tpu_torch.ops import mgz as t_mgz
+from heatflow_tpu_torch.ops.linesolve import thomas_apply_lines
 from tests.fixtures import tiny_no_diamond_cfg
 
 torch.set_num_threads(1)
@@ -47,16 +48,30 @@ def system():
     j = dict(A=A, sm=sm, b=b, x0=x0, pcr=j_pcr_pack(A, s, free),
              mgz={k: jnp.asarray(v) for k, v in pj.items()})
     t = {k: torch.tensor(np.asarray(v)) for k, v in j.items() if k != "mgz"}
+    t["pcr"] = cuda_cg.rline_pack(t["A"], torch.tensor(np.asarray(s)),
+                                  torch.tensor(np.asarray(free)))
     t["mgz"] = {k: torch.tensor(v) for k, v in pt.items()}
     return j, t, host, pj, pt, rng
 
 
 @pytest.mark.parametrize("key", ["Ac9", "pcrc", "aux"])
 def test_mgz_pack_matches_jax(system, key):
-    """Each operand within 1e-12 of the JAX module's, in float64."""
+    """Each operand within 1e-12 of the JAX module's, in float64; the
+    coarse rows' Thomas factors (the JAX module packs their folded PCR
+    stack) by the line solves they give."""
     _, _, host, pj, pt, _ = system
-    assert pt[key].shape == pj[key].shape and pt[key].dtype == np.float64
-    assert np.abs(pt[key] - pj[key]).max() <= 1e-12 * np.abs(pj[key]).max()
+    assert pt[key].dtype == np.float64
+    if key == "pcrc":
+        assert pt[key].shape == (3,) + pj[key].shape[1:]
+        d = torch.tensor(np.random.default_rng(3).standard_normal(
+            pj[key].shape[1:]))
+        want = cuda_cg.pcr_stack_apply(torch.tensor(pj[key]), d).numpy()
+        got = thomas_apply_lines(torch.tensor(pt[key]), d).numpy()
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    else:
+        assert pt[key].shape == pj[key].shape
+        assert np.abs(pt[key] - pj[key]).max() \
+            <= 1e-12 * np.abs(pj[key]).max()
     p32 = t_mgz.mgz_pack(*host)
     assert p32[key].dtype == np.float32
 
@@ -80,7 +95,8 @@ def test_reference_vcycle_matches_jax_and_is_symmetric(system, sweeps):
     u = rng.standard_normal(free.shape) * free
     v = rng.standard_normal(free.shape) * free
     Mu_j, Mu_t = vj(u), vt(u)
-    # the same operations in the same order: 1e-12 of the largest value
+    # the same cycle (its line solves by Thomas' algorithm here, by PCR
+    # there): 1e-12 of the largest value
     assert np.abs(Mu_t - Mu_j).max() <= 1e-12 * np.abs(Mu_j).max()
     # symmetric by construction: <v, M u> = <u, M v> to float64 rounding
     a, b = float((v * Mu_t).sum()), float((u * vt(v)).sum())

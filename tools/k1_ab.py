@@ -54,7 +54,7 @@ def worker(root: str, tag: str) -> dict:
     _build.load_library()
     problem = cs.build_flagship()
     A32, sm32, s32, free32, b32 = cs.first_step_system(problem, dev)
-    pcr = cuda_cg.pcr_pack(A32, s32, free32).contiguous()
+    pcr = cuda_cg.rline_pack(A32, s32, free32)
     pcr_z = cuda_cg.pcr_pack(A32, s32, free32, axis=-2).contiguous()
     x0 = torch.zeros_like(b32)
     res = dict(tag=tag, root=root)

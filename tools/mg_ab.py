@@ -73,7 +73,7 @@ def worker(root: str, tag: str) -> dict:
     _build.load_library()
     problem = cs.build_flagship()
     A32, sm32, s32, free32, b32 = cs.first_step_system(problem, dev)
-    pcr = cuda_cg.pcr_pack(A32, s32, free32).contiguous()
+    pcr = cuda_cg.rline_pack(A32, s32, free32)
     mgz = mgz_operands(problem, torch.float32, dev)
     setup = cuda_mg.build_mg_setup(*cs.flagship_operator(problem),
                                    problem.mesh.z, problem.mesh.r,
