@@ -9,16 +9,19 @@ watchers never move by ``RISE_K`` over the transient, never came
 (``gaps``): ``check_samples`` drawn from the seed, and for each record key
 that ``check_hardest`` names, the lane whose values of it sum highest
 (the transient with the most ADI solves, the sweep lane with the most
-iterations). Where a unit kept fields at the ends of time steps
-(``states``), each of those steps is held to the recipe's stopping rule
-(``step_resid``: the reference's ||r|| / ||b|| of the step's system). The
-numbers that the cell's workload file gives a limit (``limits``) are
-compared, each limit set from the readings that ``PERF.md`` gives; the
-others are printed beside them.
+iterations). The reference runs on the mesh the configuration file names:
+the structured grid, or the same graded triangulation as the program's,
+built by the reference's own frozen copy. Where a unit kept fields at the
+ends of time steps (``states``), each of those steps is held to the
+recipe's stopping rule (``step_resid``: the reference's ||r|| / ||b|| of
+the step's system). The numbers that the cell's workload file gives a
+limit (``limits``) are compared, each limit set from the readings that
+``PERF.md`` gives; the others are printed beside them.
 """
 
 from __future__ import annotations
 
+import math
 import sys
 import time
 
@@ -45,12 +48,14 @@ def unanswered(rec: dict) -> int:
 
 def gaps(got: dict, want: dict, ic: float) -> dict:
     """The readings of one answer against the reference's (a gap that is
-    not a number reads as infinite): the watchers' widest gap, and the
-    widest gap of their step increments (the first from the initial
-    temperature ``ic``), in kelvin; the gradient rows' widest gap over the
-    reference's largest magnitude."""
+    not a number, or between rows of different shapes, as from another
+    mesh, reads as infinite): the watchers' widest gap, and the widest gap
+    of their step increments (the first from the initial temperature
+    ``ic``), in kelvin; the gradient rows' widest gap over the reference's
+    largest magnitude."""
     widest = lambda a, b: float(np.nan_to_num(np.abs(a - b).max(),
-                                              nan=np.inf))
+                                              nan=np.inf)) \
+        if np.shape(a) == np.shape(b) else math.inf
     steps = lambda w: np.diff(w, axis=0, prepend=np.full((1,) + w.shape[1:],
                                                          ic))
     out = {"watch_gap_K": widest(got["watch"], want["watch"]),
@@ -82,9 +87,11 @@ def sample(run, n: int, hardest=()) -> list[tuple[int, int]]:
 
 
 def reference_for(run) -> Reference:
+    """The reference of the cell's configuration, on the kind of mesh its
+    file names (``run.mesh``) at the cell's ``size_scale``."""
     return Reference(run.cfg, run.heating_csv,
                      size_scale=run.params.get("size_scale", 1.0),
-                     vary=run.params["vary_material"])
+                     vary=run.params["vary_material"], mesh=run.mesh)
 
 
 def judge(run) -> dict:

@@ -4,7 +4,9 @@ window, the comparison with the plain reference and the result line.
 
 Nothing here names a cell, a configuration or a metric: a cell's
 ``hfbench/workloads/<cell>.json`` names its configuration
-(``hfbench/configs/<config>.json``) and its traffic family
+(``hfbench/configs/<config>.json``, whose ``mesh`` names the mesh that the
+program's problem is built on: the structured grid, or a graded
+triangulation) and its traffic family
 (``hfbench/traffic/<family>.py``), and ``BENCHMARK.json`` names the metrics,
 each read by ``hfbench/metrics/<metric>.py`` or, where no such file
 exists, by the reader of its longest dotted prefix that has one
@@ -24,11 +26,14 @@ from dataclasses import dataclass, field
 
 from hfbench import draws
 from hfbench.reference import chipmath
+from hfbench.reference import triangulation
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # top-level module names that may not be loaded in a run's process
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "heatflow_tpu")
 BREAKDOWN_ENTRIES = 10
+# the meshes a configuration file may name under its top-level ``mesh``
+MESH_KINDS = ("structured", "triangulation")
 
 
 def log(*args) -> None:
@@ -116,6 +121,19 @@ class Run:
     def heating_csv(self) -> str:
         return os.path.join(self.root, self.config["heating_csv"])
 
+    @property
+    def mesh(self) -> str:
+        """The kind of mesh the configuration file names: its ``mesh``,
+        ``{"kind": <one of MESH_KINDS>}``, or the structured grid where it
+        has none. Another kind, or another key, raises."""
+        spec = self.config.get("mesh", {"kind": "structured"})
+        if (not isinstance(spec, dict) or set(spec) != {"kind"}
+                or spec["kind"] not in MESH_KINDS):
+            raise ValueError(f"mesh {spec!r}: a configuration's mesh is "
+                             f"{{\"kind\": k}}, k one of "
+                             f"{', '.join(MESH_KINDS)}")
+        return spec["kind"]
+
     def recipe(self) -> dict:
         """The workload's ``recipe``: the program's own keyword arguments,
         ``dtype`` named as a torch dtype."""
@@ -136,16 +154,30 @@ class Run:
 
 
 def build_problem(run: Run):
-    """The program's problem of the cell's configuration, through the
-    port's entry points (the host set-up)."""
-    from heatflow_tpu_torch import build_layout, build_structured_mesh
+    """The program's problem of the cell's configuration on the mesh its
+    file names, through the port's entry points (the host set-up): the
+    structured grid's ``Problem2D``, or for ``triangulation`` the graded
+    non-grid triangulation's ``ProblemUnstructured``, built as ``run2d
+    --mesh-style unstructured`` builds it."""
+    from heatflow_tpu_torch import build_layout
     from heatflow_tpu_torch.geometry import coupler_watcher_points
     from heatflow_tpu_torch.sim.bc import HeatingCurve
-    from heatflow_tpu_torch.sim.problem import build_problem as build
+    kind = run.mesh
     cfg = run.cfg
+    size_scale = run.params.get("size_scale", 1.0)
     domain, mats = build_layout(cfg)
-    mesh = build_structured_mesh(domain, mats,
-                                 size_scale=run.params.get("size_scale", 1.0))
+    if kind == "triangulation":
+        from heatflow_tpu_torch.mesh import unstructured_gen
+        from heatflow_tpu_torch.sim import unstructured
+        umesh = unstructured_gen.build_unstructured_mesh(
+            domain, mats, size_scale=size_scale,
+            jitter=triangulation.JITTER, seed=triangulation.SEED)
+        return unstructured.build_problem_unstructured(
+            umesh, HeatingCurve.from_csv(run.heating_csv), cfg,
+            watcher_points=coupler_watcher_points(cfg))
+    from heatflow_tpu_torch import build_structured_mesh
+    from heatflow_tpu_torch.sim.problem import build_problem as build
+    mesh = build_structured_mesh(domain, mats, size_scale=size_scale)
     heating = HeatingCurve.from_csv(run.heating_csv)
     return build(mesh, heating, cfg,
                  watcher_points=coupler_watcher_points(cfg))

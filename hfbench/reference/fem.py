@@ -2,14 +2,18 @@
 configuration in float64, with scipy's sparse LU.
 
 Independent of the program: the operators are assembled here by
-quadrature over the grid's triangles (the degree-3 rule of
+quadrature over the mesh's triangles (the degree-3 rule of
 ``tests/reference_fem.py``, exact for these integrands), from the layout
-and the graded grid of the frozen copies beside this file. The boundary
-terms, the watchers and the radial-gradient rows follow the upstream
-project's semantics (``run_no_diamond.py``): fixed edges at the initial
-temperature, a Gaussian heating line driven by the heating curve, the
-nearest node to each watcher point, and the r-weighted projection of
-du/dr averaged over z bins of the band 0 < r <= 0.25 um.
+and the mesh of the frozen copies beside this file. The mesh is the one
+the configuration file names (its ``mesh`` kind, ``MESHES``): the
+graded grid, two triangles a cell, or the graded non-grid triangulation
+of ``triangulation.py`` in its permuted numbering; the node rules below
+are the same for both. The boundary terms, the watchers and the
+radial-gradient rows follow the upstream project's semantics
+(``run_no_diamond.py``): fixed edges at the initial temperature, a
+Gaussian heating line driven by the heating curve, the nearest node to
+each watcher point, the axis nodes sorted by z, and the r-weighted
+projection of du/dr averaged over z bins of the band 0 < r <= 0.25 um.
 
 Each step factors nothing: the LU of the free block is made once a
 coefficient set, then every step is two triangular solves.
@@ -32,6 +36,7 @@ import scipy.sparse.linalg as spla
 from hfbench.reference.geometry import (build_layout, coupler_watcher_points,
                                         heating_line)
 from hfbench.reference.structured import build_structured_mesh
+from hfbench.reference.triangulation import build_triangulation
 
 # symmetric degree-3 rule (4 points) in barycentric coordinates
 _QP = np.array([[1 / 3, 1 / 3, 1 / 3], [0.6, 0.2, 0.2], [0.2, 0.6, 0.2],
@@ -40,6 +45,7 @@ _QW = np.array([-27 / 48, 25 / 48, 25 / 48, 25 / 48])
 BAND_RMAX = 0.25e-6      # radial band of the gradient rows (upstream :409)
 BIN_DZ = 0.2e-6          # z bin width of the band rows (upstream :494-499)
 EDGE_WIDTH = 1e-10       # a boundary row's geometric tolerance (upstream bc.py)
+AXIS_TOL = 1e-12         # the axis rows' |r| (upstream :457-465)
 
 
 def read_heating(path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -98,23 +104,70 @@ def _scatter(E, tris, n, weight=None):
     return sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
 
 
+def _close(v, t):
+    return np.isclose(v, t, atol=EDGE_WIDTH)
+
+
+def _grid(domain, mats, size_scale):
+    """The structured grid's nodes (z-major), its triangles (two a cell)
+    and their tags."""
+    mesh = build_structured_mesh(domain, mats, size_scale=size_scale)
+    zz, rr = np.meshgrid(mesh.z, mesh.r, indexing="ij")
+    return (np.stack([zz.ravel(), rr.ravel()], 1), _triangles(*mesh.shape),
+            np.concatenate([mesh.cell_tags.ravel()] * 2))
+
+
+def _triangulation(domain, mats, size_scale):
+    """The graded non-grid triangulation's nodes, triangles and tags, in
+    its permuted numbering."""
+    tri = build_triangulation(domain, mats, size_scale=size_scale)
+    return tri.nodes, tri.cells, tri.cell_tags
+
+
+# each mesh kind that a configuration file may name (``harness.MESH_KINDS``)
+MESHES = {"structured": _grid, "triangulation": _triangulation}
+
+
+def _node_rules(cfg, mats, nodes):
+    """The node rows (Dirichlet, heating line, watchers, axis, band nodes
+    and their bins, bin count) of either mesh, by the upstream project's
+    rules: each watcher the node nearest by Euclidean distance
+    (run_no_diamond.py:385-406), the axis rows the nodes with |r| <=
+    AXIS_TOL sorted by z (:457-465), the band rows the nodes with 0 < r <=
+    BAND_RMAX in BIN_DZ z-bins (:494-513), the Dirichlet rows the fixed
+    edges and the heating line within EDGE_WIDTH. On the grid's z-major
+    nodes these are its per-axis rules: the watchers lie on r = 0, and the
+    axis rows are its first column."""
+    z, r = nodes[:, 0], nodes[:, 1]
+    edges = _close(z, z.min()) | _close(z, z.max()) | _close(r, r.max())
+    heat_z, length = heating_line(cfg, mats)
+    heat = _close(z, heat_z)
+    if length is not None:
+        heat &= np.abs(r) <= 0.5 * length + 1e-14
+    watch = np.array([int(np.argmin(((nodes - p) ** 2).sum(1)))
+                      for p in coupler_watcher_points(cfg).values()])
+    axis = np.where(np.abs(r) <= AXIS_TOL)[0]
+    axis = axis[np.argsort(z[axis], kind="stable")]
+    band = np.where((r > 0.0) & (r <= BAND_RMAX))[0]
+    edges_z = np.arange(z.min(), z.max() + BIN_DZ, BIN_DZ)
+    raw = np.searchsorted(edges_z, z[band]) - 1
+    ok = (raw >= 0) & (raw < len(edges_z) - 1)
+    used, bins = np.unique(raw[ok], return_inverse=True)
+    return edges | heat, heat, watch, axis, band[ok], bins, len(used)
+
+
 class Reference:
     """The transient of one configuration for any (kappa, fwhm) of the
     varied material: ``run(kappa, fwhm)`` -> dict of ``watch`` (S, W) and,
-    with ``record=True``, ``band`` (S, bins) and ``axis`` (S, Nz)."""
+    with ``record=True``, ``band`` (S, bins) and ``axis`` (S, axis nodes).
+    ``mesh`` is the kind of mesh the configuration file names (a key of
+    ``MESHES``); fields are in that mesh's node numbering."""
 
     def __init__(self, cfg: dict, heating_csv: str, *, size_scale=1.0,
-                 vary: str = "p_sample"):
+                 vary: str = "p_sample", mesh: str = "structured"):
         domain, mats = build_layout(cfg)
-        mesh = build_structured_mesh(domain, mats, size_scale=size_scale)
-        z, r = mesh.z, mesh.r
-        nz, nr = len(z), len(r)
-        self.shape = (nz, nr)
-        zz, rr = np.meshgrid(z, r, indexing="ij")
-        nodes = np.stack([zz.ravel(), rr.ravel()], 1)
-        tris = _triangles(nz, nr)
-        tags = np.concatenate([mesh.cell_tags.ravel()] * 2)
-        n = nz * nr
+        nodes, tris, tags = MESHES[mesh](domain, mats, size_scale)
+        n = len(nodes)
         Ke, Me, Ge = _element_matrices(nodes, tris)
         kappa = np.array([m.kappa for m in mats])[tags - 1]
         rho_cv = np.array([m.rho_cv for m in mats])[tags - 1]
@@ -131,30 +184,10 @@ class Reference:
         self.dt = float(timing["t_final"]) / self.num_steps
         self.ic = float(cfg["heating"]["ic_temp"])
         self.heat_t, self.heat_T = read_heating(heating_csv)
-
-        close = lambda v, t: np.isclose(v, t, atol=EDGE_WIDTH)
-        edges = close(zz, z.min()) | close(zz, z.max()) | close(rr, r.max())
-        heat_z, length = heating_line(cfg, mats)
-        heat = close(zz, heat_z)
-        if length is not None:
-            heat &= np.abs(rr) <= 0.5 * length + 1e-14
-        self.dirichlet = (edges | heat).ravel()
-        self.heat = heat.ravel()
-        self.r_sq = (rr ** 2).ravel()
-        self.watch = np.array(
-            [int(np.argmin(np.abs(z - pz))) * nr
-             + int(np.argmin(np.abs(r - pr)))
-             for pz, pr in coupler_watcher_points(cfg).values()])
-
-        band_j = np.where((r > 0.0) & (r <= BAND_RMAX))[0]
-        ii, jj = np.meshgrid(np.arange(nz), band_j, indexing="ij")
-        edges_z = np.arange(z.min(), z.max() + BIN_DZ, BIN_DZ)
-        raw = np.searchsorted(edges_z, z[ii.ravel()]) - 1
-        ok = (raw >= 0) & (raw < len(edges_z) - 1)
-        used, bins = np.unique(raw[ok], return_inverse=True)
-        self.band_nodes = (ii * nr + jj).ravel()[ok]
-        self.band_bins = bins
-        self.n_bins = len(used)
+        self.r_sq = nodes[:, 1] ** 2
+        (self.dirichlet, self.heat, self.watch, self.axis_nodes,
+         self.band_nodes, self.band_bins, self.n_bins) = _node_rules(
+            cfg, mats, nodes)
         self._proj: dict = {}
 
     def run(self, kappa: float, fwhm: float, *, record: bool = False,
@@ -295,4 +328,4 @@ class Reference:
         sums = np.bincount(self.band_bins, weights=gr[self.band_nodes],
                            minlength=self.n_bins)
         counts = np.bincount(self.band_bins, minlength=self.n_bins)
-        return sums / counts, gr.reshape(self.shape)[:, 0]
+        return sums / counts, gr[self.axis_nodes]

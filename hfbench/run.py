@@ -16,7 +16,11 @@ checkout; the caches this script sets (``TRITON_CACHE_DIR``,
 ``build/hfbench/``. A later change adds, without editing a file here: a
 cell as ``hfbench/workloads/<cell>.json`` (its configuration, traffic
 family, parameters and limits) with its entry in ``BENCHMARK.json``; a
-configuration as ``hfbench/configs/<config>.json``; a traffic family as
+configuration as ``hfbench/configs/<config>.json``, which may name its
+mesh under a top-level ``mesh`` key (``{"kind": "structured"}``, the
+default, or ``{"kind": "triangulation"}``, the graded non-grid
+triangulation that ``run2d --mesh-style unstructured`` builds); a traffic
+family as
 ``hfbench/traffic/<family>.py`` (``setup(run)`` and ``unit(run, i)``); a
 per-layer metric as ``hfbench/metrics/<metric>.py`` (``read(run)``, None
 where it finds nothing) with its entry in ``BENCHMARK.json``, or the entry

@@ -16,10 +16,11 @@ if ROOT not in sys.path:
 # kernels' plain versions. On the coarse sweep grid the band rows of a wide
 # beam hold a few nodes of weak gradient, and a sound run's band gap reads
 # up to 0.8 there (0.25 at full width): the recording sweep's band limit
-# is 2 at this size
+# is 2 at this size. A traced flagship run profiles one transient: on the
+# CPU each of its eager operations is a profiler event, ~6 GB a transient
 SMALL = {
     "flagship.transient": {"size_scale": 16.0, "draw_set": 2,
-                           "recipe": {"solver": "vmem"}},
+                           "recipe": {"solver": "vmem"}, "trace_units": 1},
     "sweep.b1024": {"size_scale": 8.0, "batch": 4, "draw_set": 4},
     "sweep.record_b256": {"size_scale": 8.0, "batch": 4, "draw_set": 4,
                           "limits": {"band_gap_rel": 2.0}},
