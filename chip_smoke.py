@@ -190,8 +190,9 @@ Phases (each raises on failure; nothing is caught):
    flagship's 277,857 nodes on their 9-plane lattice, 100 steps through
    ``make_simulate_fn_unstructured`` (float32 r-line, 'extrapolate', one
    float64 pass, rtol 1e-4 wrt r0, ``solver='auto'``, which must take the
-   kernel path): steps/s, iterations a step, K1's solves, launches and
-   loop-body runs, the launches an iteration equal to the structured
+   kernel path, one CUDA graph a transient): steps/s, iterations a step,
+   K1's solves, launches and loop-body runs as the device counted them,
+   the launches an iteration equal to the structured
    r-line form's, the traces within 1.0 K of
    ``benchmarks/.flagship_truth_unstructured.npz``; (b) the ADI form for 10
    steps against them; (c) the ELL eager path on the same mesh without its
@@ -206,7 +207,7 @@ Phases (each raises on failure; nothing is caught):
    --rebuild-mesh``, ``run2d`` on that folder without its sidecar (the ELL
    path, 10 steps) and ``sweep --num-points 2 2 1`` over an unstructured
    width folder; (f) K1 (identity, r-line, ADI) on the flagship's
-   first-step inner system and K2 (identity, r-line, Kv-free) and K3 on 8
+   first-step inner system (read off the eager step loop) and K2 (identity, r-line, Kv-free) and K3 on 8
    lanes of the sweep's 10th step, all 9-plane, against their plain
    versions and float64;
 21. the analysis pipeline (ROADMAP P10) and the native set-up (P12) on
@@ -4299,8 +4300,12 @@ def _cut(problem, **kw):
 
 def _k1_solves() -> dict:
     from heatflow_tpu_torch.ops import cuda_cg
+    # the solves' own graphs, and the solves recorded into transients'
+    # graphs (their loop bodies as CHECK_EVERY iterations each)
     runs = sum(int(g.runs.item()) for ws in cuda_cg._workspaces.values()
-               for g in ws.graphs.values())
+               for g in ws.graphs.values()) + sum(
+        its for _, its in cuda_cg._recorded_runs.values()) \
+        // cuda_cg.CHECK_EVERY
     return dict(solves=cuda_cg.cg_tol.launches,
                 rline=cuda_cg.cg_tol.launches_rline,
                 adi=cuda_cg.cg_tol.launches_adi,
@@ -4674,6 +4679,9 @@ def unstructured_kernel_checks(problem, sweep_problem, device,
     fn1 = make_simulate_fn_unstructured(
         _cut(problem, num_steps=1), dtype=torch.float32, device=device,
         **dict(U_RECIPE, precondition="adi"))
+    # read off the eager step loop, which calls cg_tol a solve (the call's
+    # own path, the transient's graph, records K1 and calls no wrapper)
+    fn1._run = fn1._run_eager
     args, kw = _capture(cuda_cg, "cg_tol", fn1)[0]
     A9, sm, b, x0 = (t.contiguous() for t in args[:4])
     pcr, pcr_z = kw["pcr"], kw["pcr_z"]

@@ -19,7 +19,11 @@ so one driver covers the 5- and the 9-material DAC stacks. Outputs per run:
 ``--mesh-style unstructured`` generates a graded non-grid triangulation
 (the gmsh-mesh analogue) with its grid overlay, persisted as ``mesh.msh``
 with a ``mesh_overlay.npz`` sidecar: it runs on the overlay's 9-point
-lattice operators (the CUDA kernels on a card in float32). A mesh folder
+lattice operators (the CUDA kernels on a card in float32; the library's
+``make_simulate_fn_unstructured`` runs such a transient without gradient
+rows as one CUDA graph launch, which takes ``precondition='adaptive'``,
+while this driver writes the gradient CSVs and so runs the eager step
+loop, which refuses it). A mesh folder
 whose ``mesh_cfg.yaml`` has no ``structured_grid`` (an imported gmsh mesh)
 runs through the unstructured path too: on the lattice when the sidecar
 exists, else on the ELL gather. ``--visualize-mesh`` writes
@@ -475,7 +479,10 @@ def main(argv=None):
                    default="structured",
                    help="'unstructured': graded non-grid triangulation "
                         "(the gmsh-mesh analogue) on its 9-point lattice "
-                        "operators")
+                        "operators. The library runs its transient without "
+                        "gradient rows as one CUDA graph, with 'adaptive'; "
+                        "this driver records them, so it runs the eager "
+                        "step loop there and refuses 'adaptive'")
     p.add_argument("--solver", choices=["xla", "vmem", "auto"],
                    default="auto",
                    help="'vmem': the hand-written CUDA PCG kernel; 'xla': "
@@ -501,7 +508,9 @@ def main(argv=None):
                    help="CG preconditioner: 'rline' r-line block-"
                         "tridiagonal (PCR), 'adi' r-line + z-line, "
                         "'adaptive' the per-step rline/adi switch (kernel "
-                        "path), 'mg' the geometric multigrid V-cycle "
+                        "path; unstructured meshes: the one-graph path "
+                        "only, without gradient rows), 'mg' the geometric "
+                        "multigrid V-cycle "
                         "(eager path), 'mgz' the z-semicoarsened two-level "
                         "V-cycle inside the kernel (kernel path). Default: "
                         "the per-regime choice (f32 'adi', refined "

@@ -543,6 +543,32 @@ def run(ws: StepWorkspace) -> None:
     count_launches(ws, launch(ws))
 
 
+def run_stepwise(ws: StepWorkspace) -> None:
+    """The plain version of :func:`run` that the tests put in its place:
+    the graph's transient a launch at a time, the host looping over the
+    steps and passes: each step wrapper (its plain version on a CPU
+    workspace) and each pass's ``cg_tol`` solve (the plain version, or the
+    kernel launched eagerly), the form of each solve read back from the
+    state where the wrapper before it set it."""
+    sv, ints = ws.solve, ws._ints()
+    for _ in range(ws.num_steps):
+        step_prologue(ws)
+        for p in range(ws.passes):
+            if ws.refine:
+                refine_residual(ws, p)
+                refine_scale(ws, p)
+            adi = bool(ints[_ADI]) if ws.adaptive else ws.pcr_z is not None
+            x, its = cuda_cg.cg_tol(
+                ws.As, ws.sm, ws.b32, ws.x0, ws.rtol32,
+                maxiter=int(sv["maxiter"]), rtol_wrt=sv["rtol_wrt"],
+                pcr=ws.pcr, pcr_z=ws.pcr_z if adi else None,
+                cheb_degree=sv["cheb"], merged=sv["merged"], mgz=sv["mgz"],
+                mgz_sweeps=sv["mgz_sweeps"])
+            ws.dx[p].copy_(x)
+            ws.iters[p].copy_(its)
+        step_epilogue(ws)
+
+
 def launch(ws: StepWorkspace) -> _StepGraph:
     """Queue the whole transient on the card (the graph captured at the
     workspace's first run: it reads and writes only the workspace's

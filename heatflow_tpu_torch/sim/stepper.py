@@ -170,90 +170,17 @@ def _resolve_solver(solver: str, precondition: str, device: torch.device,
     return use_vmem
 
 
-class Simulator(nn.Module):
-    """``simulate(kappas, rho_cvs, fwhm, u0, t0, source) -> dict`` of
-    per-step traces; the buffers are the problem's device tensors."""
-
-    def __init__(self, problem: Problem2D, dev: dict[str, torch.Tensor], *,
-                 dtype: torch.dtype, cdt: torch.dtype, use_vmem: bool,
-                 opts: dict, mg=None, zax=None):
-        super().__init__()
-        if zax is not None:
-            dev = _z_slabs(dev, zax)
-        for name, t in dev.items():
-            self.register_buffer(name, t, persistent=False)
-        self._names = tuple(dev)
-        self.problem = problem
-        self.dtype = dtype
-        self.cdt = cdt
-        self.use_vmem = use_vmem
-        self.opts = opts
-        # 'mg': the hierarchy's device levels; 'mgz': the V-cycle operands
-        self.mg = mg
-        # z-sharding: this rank's rows (``parallel.sharding.ZAxis``)
-        self.zax = zax
-        # the kernel path's step workspaces (``ops.cuda_step``), by key
-        self._workspaces: dict = {}
-
-    @property
-    def dev(self) -> dict[str, torch.Tensor]:
-        return {name: getattr(self, name) for name in self._names}
-
-    def _inputs(self, kappas, rho_cvs, fwhm, u0, t0, source) -> tuple:
-        if self.opts["precondition"] == "mgz" and (kappas is not None
-                                                   or rho_cvs is not None):
-            raise ValueError(
-                "precondition='mgz' bakes the coarse operator from the "
-                "problem's default coefficients at maker time; per-call "
-                "kappa/rho_cv overrides would silently mismatch it — use "
-                "'rline'/'adi'/'adaptive' for coefficient sweeps")
-        with span("transient.operands"):
-            d = self.dev
-            cdt, device = self.cdt, d["free"].device
-            as_c = lambda v: torch.as_tensor(v, dtype=cdt, device=device)
-            kp = d["kappas"] if kappas is None else as_c(kappas)
-            rc = d["rho_cvs"] if rho_cvs is None else as_c(rho_cvs)
-            fw = as_c(self.problem.fwhm if fwhm is None else fwhm)
-            nz, nr = self.problem.mesh.shape
-            ic = as_c(self.problem.ic_temp)
-            u0 = torch.full((nz, nr), float(self.problem.ic_temp), dtype=cdt,
-                            device=device) if u0 is None else as_c(u0)
-            src = None if source is None else as_c(source)
-            if self.zax is not None:
-                u0 = self.zax.rows(u0)
-                src = None if src is None else self.zax.rows(src)
-            return d, kp, rc, fw, ic, u0, as_c(t0), src
-
-    def forward(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
-                t0=0.0, source=None) -> dict[str, torch.Tensor]:
-        with torch.no_grad(), span("transient"):
-            return self._run(*self._inputs(kappas, rho_cvs, fwhm, u0, t0,
-                                           source))
-
-    def forward_eager(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
-                      t0=0.0, source=None, inner_sum=torch.sum
-                      ) -> dict[str, torch.Tensor]:
-        """:meth:`forward` through the eager step loop on any device (the
-        plain version of the kernel path's graph). ``inner_sum`` takes the
-        refinement's two inner products (``ops.cuda_step.kernel_order_sum``:
-        in the step kernels' order)."""
-        with torch.no_grad(), span("transient"):
-            return self._run_eager(*self._inputs(kappas, rho_cvs, fwhm, u0,
-                                                 t0, source), inner_sum)
-
-    def _has_radial(self) -> bool:
-        return self.problem.radial is not None and \
-            self.opts["record_gradient"]
-
-    def _run(self, d, kp, rc, fw, ic, u0, t0, source):
-        """The kernel path on the card runs as one CUDA graph
-        (:meth:`_run_graph`); the CPU, the recording path (its projection
-        reads the host each iteration), the z-sharded stepper and the eager
-        solvers run the eager loop."""
-        if (u0.device.type == "cuda" and self.use_vmem and self.zax is None
-                and not self._has_radial()):
-            return self._run_graph(d, kp, rc, fw, ic, u0, t0, source)
-        return self._run_eager(d, kp, rc, fw, ic, u0, t0, source)
+class GraphPath:
+    """The kernel path's transient as one device program (``ops/cuda_step``)
+    on a lattice of 7- or 9-point stencils: the call's operands, the inner
+    solve's operands, the step workspace and the captured graph's run.
+    Shared by :class:`Simulator` (the structured grid) and the grid-overlay
+    transient of ``sim/unstructured`` (its permuted 9-point lattice). Reads
+    ``problem.dt`` and ``problem.num_steps``, ``opts``, ``dtype``, ``cdt``,
+    ``mg`` and ``_workspaces`` of the module, and the lattice's planes under
+    the names of ``Problem2D.device_arrays`` (``K``, ``M``, ``M_proj``,
+    ``free``, ``dirichlet``, ``r_sq``, ``heat_profile_base``, ``heat_t``,
+    ``heat_T``; ``watch_flat``, the watchers' flat lattice positions)."""
 
     def _operands(self, d, kp, rc, fw, ic, t0, source, ap):
         """The run's operators and affine boundary terms: (A, M_op, s, g0,
@@ -365,6 +292,92 @@ class Simulator(nn.Module):
                 A=A if o["f64_refine"] else None, As=As, sm=sm, pcr=pcr,
                 pcr_z=pcr_z, u0=u0, watch_flat=d.get("watch_flat"))
         return ws, ts
+
+
+class Simulator(GraphPath, nn.Module):
+    """``simulate(kappas, rho_cvs, fwhm, u0, t0, source) -> dict`` of
+    per-step traces; the buffers are the problem's device tensors."""
+
+    def __init__(self, problem: Problem2D, dev: dict[str, torch.Tensor], *,
+                 dtype: torch.dtype, cdt: torch.dtype, use_vmem: bool,
+                 opts: dict, mg=None, zax=None):
+        super().__init__()
+        if zax is not None:
+            dev = _z_slabs(dev, zax)
+        for name, t in dev.items():
+            self.register_buffer(name, t, persistent=False)
+        self._names = tuple(dev)
+        self.problem = problem
+        self.dtype = dtype
+        self.cdt = cdt
+        self.use_vmem = use_vmem
+        self.opts = opts
+        # 'mg': the hierarchy's device levels; 'mgz': the V-cycle operands
+        self.mg = mg
+        # z-sharding: this rank's rows (``parallel.sharding.ZAxis``)
+        self.zax = zax
+        # the kernel path's step workspaces (``ops.cuda_step``), by key
+        self._workspaces: dict = {}
+
+    @property
+    def dev(self) -> dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in self._names}
+
+    def _inputs(self, kappas, rho_cvs, fwhm, u0, t0, source) -> tuple:
+        if self.opts["precondition"] == "mgz" and (kappas is not None
+                                                   or rho_cvs is not None):
+            raise ValueError(
+                "precondition='mgz' bakes the coarse operator from the "
+                "problem's default coefficients at maker time; per-call "
+                "kappa/rho_cv overrides would silently mismatch it — use "
+                "'rline'/'adi'/'adaptive' for coefficient sweeps")
+        with span("transient.operands"):
+            d = self.dev
+            cdt, device = self.cdt, d["free"].device
+            as_c = lambda v: torch.as_tensor(v, dtype=cdt, device=device)
+            kp = d["kappas"] if kappas is None else as_c(kappas)
+            rc = d["rho_cvs"] if rho_cvs is None else as_c(rho_cvs)
+            fw = as_c(self.problem.fwhm if fwhm is None else fwhm)
+            nz, nr = self.problem.mesh.shape
+            ic = as_c(self.problem.ic_temp)
+            u0 = torch.full((nz, nr), float(self.problem.ic_temp), dtype=cdt,
+                            device=device) if u0 is None else as_c(u0)
+            src = None if source is None else as_c(source)
+            if self.zax is not None:
+                u0 = self.zax.rows(u0)
+                src = None if src is None else self.zax.rows(src)
+            return d, kp, rc, fw, ic, u0, as_c(t0), src
+
+    def forward(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
+                t0=0.0, source=None) -> dict[str, torch.Tensor]:
+        with torch.no_grad(), span("transient"):
+            return self._run(*self._inputs(kappas, rho_cvs, fwhm, u0, t0,
+                                           source))
+
+    def forward_eager(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
+                      t0=0.0, source=None, inner_sum=torch.sum
+                      ) -> dict[str, torch.Tensor]:
+        """:meth:`forward` through the eager step loop on any device (the
+        plain version of the kernel path's graph). ``inner_sum`` takes the
+        refinement's two inner products (``ops.cuda_step.kernel_order_sum``:
+        in the step kernels' order)."""
+        with torch.no_grad(), span("transient"):
+            return self._run_eager(*self._inputs(kappas, rho_cvs, fwhm, u0,
+                                                 t0, source), inner_sum)
+
+    def _has_radial(self) -> bool:
+        return self.problem.radial is not None and \
+            self.opts["record_gradient"]
+
+    def _run(self, d, kp, rc, fw, ic, u0, t0, source):
+        """The kernel path on the card runs as one CUDA graph
+        (:meth:`_run_graph`); the CPU, the recording path (its projection
+        reads the host each iteration), the z-sharded stepper and the eager
+        solvers run the eager loop."""
+        if (u0.device.type == "cuda" and self.use_vmem and self.zax is None
+                and not self._has_radial()):
+            return self._run_graph(d, kp, rc, fw, ic, u0, t0, source)
+        return self._run_eager(d, kp, rc, fw, ic, u0, t0, source)
 
     def _run_eager(self, d, kp, rc, fw, ic, u0, t0, source,
                    inner_sum=torch.sum):

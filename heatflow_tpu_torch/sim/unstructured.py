@@ -42,8 +42,8 @@ from heatflow_tpu_torch.ops.stencil import (apply_stencil, combine_operator,
 from heatflow_tpu_torch.sim.bc import HeatingCurve, node_row_mask
 from heatflow_tpu_torch.sim.problem import (BAND_RMAX, BIN_DZ, RadialSampling,
                                             band_average, band_slots)
-from heatflow_tpu_torch.sim.stepper import interp
-from heatflow_tpu_torch.utils import resolve_device
+from heatflow_tpu_torch.sim.stepper import GraphPath, interp
+from heatflow_tpu_torch.utils import resolve_device, span
 
 AXIS_TOL = 1e-12        # r = 0 node rule of the raw gradient CSV
 
@@ -211,14 +211,20 @@ def _flat(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(*v.shape[:-2], -1)
 
 
-class SimulatorUnstructured(nn.Module):
+class SimulatorUnstructured(GraphPath, nn.Module):
     """``simulate(kappas, rho_cvs, fwhm, u0, t0, source) -> dict`` of
     per-step traces on an unstructured problem; the buffers are the
     problem's device tensors in the core layout. ``kappas`` (..., n_mats)
     and ``fwhm`` (...) with leading batch dims run that many lanes
     together (``u0`` then (..., N)); traces come back as (..., S, ·).
     ``core(...)`` is the same without the node ↔ lattice reordering of u0
-    and of the returned fields."""
+    and of the returned fields.
+
+    On a CUDA device the overlay's kernel path runs a one-lane transient
+    without gradient recording as one CUDA graph launch, through the
+    structured stepper's own code (:class:`stepper.GraphPath` over
+    ``ops/cuda_step``, with 9 planes and the watchers at their lattice
+    positions); everything else runs the eager step loop."""
 
     def __init__(self, problem: ProblemUnstructured,
                  dev: dict[str, torch.Tensor], *, dtype: torch.dtype,
@@ -234,6 +240,10 @@ class SimulatorUnstructured(nn.Module):
         self.overlay = overlay
         self.shape = shape
         self.opts = opts
+        # the graph path's state (``stepper.GraphPath``): no mgz operands,
+        # the step workspaces by key
+        self.mg = None
+        self._workspaces: dict = {}
 
     @property
     def dev(self) -> dict[str, torch.Tensor]:
@@ -249,23 +259,27 @@ class SimulatorUnstructured(nn.Module):
 
     def forward(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
                 t0=0.0, source=None) -> dict[str, torch.Tensor]:
-        kp, rc, fw = self._coeffs(kappas, rho_cvs, fwhm)
-        lead = fw.shape
-        n = len(self.problem.mesh.nodes)
-        as_c = lambda v: torch.as_tensor(v, dtype=self.cdt,
-                                         device=self.free.device)
-        u0 = (torch.full(lead + (n,), float(self.problem.ic_temp),
-                         dtype=self.cdt, device=self.free.device)
-              if u0 is None else as_c(u0))
-        to_core = ((lambda v: v[..., self.to_latt]) if self.overlay
-                   else (lambda v: v))
-        src = None if source is None else to_core(as_c(source))
-        ys = self.core(kp, rc, fw, to_core(u0), t0, src)
-        if self.overlay:
-            ys["final_u"] = ys["final_u"][..., self.to_node]
-            if "field" in ys:
-                ys["field"] = ys["field"][..., self.to_node]
-        return ys
+        with span("transient"):
+            kp, rc, fw = self._coeffs(kappas, rho_cvs, fwhm)
+            lead = fw.shape
+            n = len(self.problem.mesh.nodes)
+            as_c = lambda v: torch.as_tensor(v, dtype=self.cdt,
+                                             device=self.free.device)
+            u0 = (torch.full(lead + (n,), float(self.problem.ic_temp),
+                             dtype=self.cdt, device=self.free.device)
+                  if u0 is None else as_c(u0))
+            src = None if source is None else as_c(source)
+            if self.overlay:
+                with span("transient.reorder"):
+                    u0 = u0[..., self.to_latt]
+                    src = None if src is None else src[..., self.to_latt]
+            ys = self.core(kp, rc, fw, u0, t0, src)
+            if self.overlay:
+                with span("transient.reorder"):
+                    ys["final_u"] = ys["final_u"][..., self.to_node]
+                    if "field" in ys:
+                        ys["field"] = ys["field"][..., self.to_node]
+            return ys
 
     def core(self, kp, rc, fw, u0, t0, source) -> dict[str, torch.Tensor]:
         """Traces of the transient from ``u0`` ((..., N) in core order; the
@@ -280,7 +294,42 @@ class SimulatorUnstructured(nn.Module):
             return self._run(kp, rc, fw, u0, t0, source)
 
     def _run(self, kp, rc, fw, u0, t0, source):
+        """One CUDA graph (:meth:`_run_lattice`) for a one-lane call of the
+        overlay's kernel path on a CUDA device without gradient recording;
+        the eager step loop otherwise."""
         o = self.opts
+        if (self.use_vmem and u0.device.type == "cuda" and u0.ndim == 2
+                and kp.ndim == 1 and rc.ndim == 1 and fw.ndim == 0
+                and not o["record_gradient"] and not o["differentiable"]):
+            return self._run_lattice(kp, rc, fw, u0, t0, source)
+        return self._run_eager(kp, rc, fw, u0, t0, source)
+
+    def _run_lattice(self, kp, rc, fw, u0, t0, source):
+        """The transient on the overlay's lattice through the structured
+        stepper's graph path; fields returned flat, in core order."""
+        d = self.dev
+        lattice = dict(K=d["K"], M=d["M"], M_proj=d["Mp"], free=d["free"],
+                       dirichlet=d["dirich"], r_sq=d["r_sq"],
+                       heat_profile_base=d["heat_f"], heat_t=d["heat_t"],
+                       heat_T=d["heat_T"])
+        if "watch" in d:
+            lattice["watch_flat"] = d["watch"]
+        ic = torch.tensor(self.problem.ic_temp, dtype=self.cdt,
+                          device=u0.device)
+        ys = self._run_graph(lattice, kp, rc, fw, ic, u0, t0, source)
+        ys["final_u"] = _flat(ys["final_u"])
+        if "field" in ys:
+            ys["field"] = _flat(ys["field"])
+        return ys
+
+    def _run_eager(self, kp, rc, fw, u0, t0, source):
+        o = self.opts
+        if o["precondition"] == "adaptive":
+            raise ValueError(
+                "precondition='adaptive' on an unstructured problem runs "
+                "only as the overlay's one CUDA graph (one lane a call on "
+                "a CUDA device): the eager step loop has no per-step "
+                "r-line/ADI switch; use 'rline' or 'adi' here")
         d = self.dev
         dtype, cdt, use_vmem = self.dtype, self.cdt, self.use_vmem
         precondition, f64_refine = o["precondition"], o["f64_refine"]
@@ -382,61 +431,71 @@ class SimulatorUnstructured(nn.Module):
         gr_prev = gr_pp = torch.zeros(u0.shape, dtype=dtype, device=device)
         outs: dict[str, list] = {}
         for n in range(num_steps):
-            seed = 2.0 * u_prev - u_pp if extrapolate else u_prev
-            gr_seed = 2.0 * gr_prev - gr_pp if extrapolate else gr_prev
-            amp = lane(interp(ts[n], heat_t, heat_T) - amp_offset)
-            g = g0 + amp * g1
-            b = (F.apply(M_op, u_prev) + b_src - (Ag0 + amp * Ag1)) * s
-            y0 = (seed / torch.where(s > 0, s, one(s))) * free
-            if f64_refine:
-                y, iters = solve_refined(b * free, y0)
-                u = y * s * free + g
-            elif o["differentiable"]:
-                x = pcg_solve(apply_s, b * free, y0, op_args=(s, A),
-                              mask=free, rtol=rtol, maxiter=maxiter,
-                              rtol_wrt=rtol_wrt)
-                u, iters = x * s * free + g, None
-            elif use_vmem:
-                x, iters = cg_tol(A, sm, (b * free).contiguous(),
-                                  y0.contiguous(), rtol, maxiter=maxiter,
-                                  rtol_wrt=rtol_wrt, pcr=pcr, pcr_z=pcr_z)
-                u = x * s * free + g
-            else:
-                op = lambda v: apply_s(v, s, A)
-                if fixed_iters is not None:
-                    sol = pcg_fixed(op, b * free, y0, mask=free,
-                                    iters=fixed_iters)
+            with span("transient.step"):
+                seed = 2.0 * u_prev - u_pp if extrapolate else u_prev
+                gr_seed = 2.0 * gr_prev - gr_pp if extrapolate else gr_prev
+                amp = lane(interp(ts[n], heat_t, heat_T) - amp_offset)
+                g = g0 + amp * g1
+                b = (F.apply(M_op, u_prev) + b_src - (Ag0 + amp * Ag1)) * s
+                y0 = (seed / torch.where(s > 0, s, one(s))) * free
+                with span("k1.solve"):
+                    if f64_refine:
+                        y, iters = solve_refined(b * free, y0)
+                        u = y * s * free + g
+                    elif o["differentiable"]:
+                        x = pcg_solve(apply_s, b * free, y0, op_args=(s, A),
+                                      mask=free, rtol=rtol, maxiter=maxiter,
+                                      rtol_wrt=rtol_wrt)
+                        u, iters = x * s * free + g, None
+                    elif use_vmem:
+                        x, iters = cg_tol(A, sm, (b * free).contiguous(),
+                                          y0.contiguous(), rtol,
+                                          maxiter=maxiter, rtol_wrt=rtol_wrt,
+                                          pcr=pcr, pcr_z=pcr_z)
+                        u = x * s * free + g
+                    else:
+                        op = lambda v: apply_s(v, s, A)
+                        if fixed_iters is not None:
+                            sol = pcg_fixed(op, b * free, y0, mask=free,
+                                            iters=fixed_iters)
+                        else:
+                            sol = pcg(op, b * free, y0, mask=free, rtol=rtol,
+                                      maxiter=maxiter, rtol_wrt=rtol_wrt)
+                        u, iters = sol.x * s * free + g, sol.iters
+                if iters is not None:
+                    outs.setdefault("cg_iters", []).append(iters)
+                if "watch" in d:
+                    outs.setdefault("watch", []).append(
+                        _flat(u)[..., d["watch"]])
+                if record:
+                    with span("step.project"):
+                        if f64_refine:
+                            # the scaled mass solve is well conditioned: f32
+                            # suffices
+                            br = s_mp32 * F.apply(G32, u.to(dtype))
+                            gsol = pcg(apply_mp_s32, br, gr_seed / s_mp32,
+                                       rtol=o["proj_rtol"],
+                                       maxiter=o["proj_maxiter"])
+                            gr = gsol.x * s_mp32
+                        else:
+                            br = s_mp * F.apply(d["G"], u)
+                            gsol = pcg(apply_mp_s, br, gr_seed / s_mp,
+                                       rtol=o["proj_rtol"],
+                                       maxiter=o["proj_maxiter"])
+                            gr = gsol.x * s_mp
+                        flat = _flat(gr)
+                        outs.setdefault("band", []).append(band_average(
+                            flat, d["band_slots"], d["band_fill"],
+                            d["bin_counts"]))
+                        outs.setdefault("axis", []).append(
+                            flat[..., d["axis_nodes"]])
+                        outs.setdefault("proj_iters", []).append(gsol.iters)
                 else:
-                    sol = pcg(op, b * free, y0, mask=free, rtol=rtol,
-                              maxiter=maxiter, rtol_wrt=rtol_wrt)
-                u, iters = sol.x * s * free + g, sol.iters
-            if iters is not None:
-                outs.setdefault("cg_iters", []).append(iters)
-            if "watch" in d:
-                outs.setdefault("watch", []).append(_flat(u)[..., d["watch"]])
-            if record:
-                if f64_refine:
-                    # the scaled mass solve is well conditioned: f32 suffices
-                    br = s_mp32 * F.apply(G32, u.to(dtype))
-                    gsol = pcg(apply_mp_s32, br, gr_seed / s_mp32,
-                               rtol=o["proj_rtol"], maxiter=o["proj_maxiter"])
-                    gr = gsol.x * s_mp32
-                else:
-                    br = s_mp * F.apply(d["G"], u)
-                    gsol = pcg(apply_mp_s, br, gr_seed / s_mp,
-                               rtol=o["proj_rtol"], maxiter=o["proj_maxiter"])
-                    gr = gsol.x * s_mp
-                flat = _flat(gr)
-                outs.setdefault("band", []).append(band_average(
-                    flat, d["band_slots"], d["band_fill"], d["bin_counts"]))
-                outs.setdefault("axis", []).append(flat[..., d["axis_nodes"]])
-                outs.setdefault("proj_iters", []).append(gsol.iters)
-            else:
-                gr = gr_prev
-            if o["record_fields"]:
-                outs.setdefault("field", []).append(_flat(u))
-            u_pp, u_prev = u_prev, u
-            gr_pp, gr_prev = gr_prev, gr
+                    gr = gr_prev
+                if o["record_fields"]:
+                    outs.setdefault("field", []).append(_flat(u))
+                u_pp, u_prev = u_prev, u
+                gr_pp, gr_prev = gr_prev, gr
         ys = {k: torch.stack(v, dim=nb) for k, v in outs.items()}
         ys["times"] = ts
         ys["final_u"] = _flat(u_prev)
@@ -452,7 +511,8 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
                                   record_fields=False, rtol_wrt="b",
                                   differentiable=False, solver="xla",
                                   warm_start="previous",
-                                  precondition="jacobi", f64_refine=0
+                                  precondition="jacobi", f64_refine=0,
+                                  adaptive_thresh=100
                                   ) -> SimulatorUnstructured:
     """Build ``simulate(kappas, rho_cvs, fwhm, u0, t0, source)`` on an
     unstructured problem, on ``device`` (the card unless the caller passes
@@ -466,7 +526,16 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
     'rline' and 'adi' the line factors packed once per transient. 'auto': that
     path for a grid overlay in float32 on a CUDA device
     (:func:`auto_selects_vmem`), else 'xla': the eager PCG on the overlay's
-    stencils, or on the ELL gather for a mesh without overlay.
+    stencils, or on the ELL gather for a mesh without overlay. On a CUDA
+    device that path runs a one-lane transient without gradient recording
+    as one CUDA graph launch (the structured stepper's ``ops/cuda_step``
+    graph on the 9-plane lattice), the host reading nothing between steps.
+
+    ``precondition='adaptive'`` (that graph path only, ``record_gradient``
+    off): each step runs the r-line form unless the previous step's
+    iteration count exceeded ``adaptive_thresh``, then the ADI form, the
+    switch set on the device as in ``stepper.make_simulate_fn``. The eager
+    loop and the ELL gather refuse it.
 
     ``differentiable=True`` solves each step with ``pcg_solve`` (implicit
     differentiation: one adjoint solve a step under backward) and drops the
@@ -483,10 +552,12 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
     cache_key = ("sim_fn", str(dtype), str(device), rtol, maxiter,
                  fixed_iters, proj_rtol, proj_maxiter, record_gradient,
                  record_fields, rtol_wrt, differentiable, solver, warm_start,
-                 precondition, f64_refine)
-    if precondition not in ("jacobi", "rline", "adi"):
+                 precondition, f64_refine,
+                 adaptive_thresh if precondition == "adaptive" else None)
+    if precondition not in ("jacobi", "rline", "adi", "adaptive"):
         raise ValueError(f"unknown precondition {precondition!r}")
-    if precondition in ("rline", "adi") and solver not in ("vmem", "auto"):
+    if precondition in ("rline", "adi", "adaptive") \
+            and solver not in ("vmem", "auto"):
         raise ValueError(f"{precondition} preconditioning on unstructured "
                          "problems runs the grid-overlay kernel path "
                          "(solver='vmem')")
@@ -518,7 +589,7 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
         use_vmem = True
     elif solver == "auto":
         use_vmem = auto_selects_vmem(problem.mesh, dtype, device)
-    if precondition in ("rline", "adi") and not use_vmem:
+    if precondition in ("rline", "adi", "adaptive") and not use_vmem:
         # the only unstructured line-preconditioned engine is the overlay
         # kernel path; running the eager path here would silently drop the
         # preconditioner
@@ -533,6 +604,10 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
         raise ValueError("the grid-overlay kernel path is tolerance-based "
                          "and not differentiable (drop fixed_iters / "
                          "differentiable, or use solver='xla')")
+    if precondition == "adaptive" and record_gradient:
+        raise ValueError("precondition='adaptive' on unstructured problems "
+                         "runs only as the overlay's one CUDA graph, which "
+                         "records no gradient rows (record_gradient=False)")
 
     cdt = torch.float64 if f64_refine else dtype
     nodes = problem.mesh.nodes
@@ -576,7 +651,11 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
                 proj_maxiter=proj_maxiter, record_gradient=record_gradient,
                 record_fields=record_fields, rtol_wrt=rtol_wrt,
                 differentiable=differentiable, warm_start=warm_start,
-                precondition=precondition, f64_refine=int(f64_refine))
+                precondition=precondition, f64_refine=int(f64_refine),
+                # the graph path's options beside those (stepper.GraphPath)
+                inner_seed="zero", vmem_cheb_degree=0, mgz_sweeps=1,
+                adaptive_thresh=adaptive_thresh
+                if precondition == "adaptive" else None)
     fn = SimulatorUnstructured(problem, dev, dtype=dtype, cdt=cdt,
                                use_vmem=use_vmem,
                                overlay=overlay is not None, shape=shape,

@@ -11,6 +11,7 @@ with the spans in the host's events; (e) on the card, the spans stay out
 of the device timeline (marked ``cuda``; skipped here).
 """
 
+import functools
 import time
 import types
 
@@ -22,11 +23,14 @@ from torch.profiler import ProfilerActivity, profile
 import heatflow_tpu_torch as T
 from hfbench import harness
 from heatflow_tpu_torch.geometry import coupler_watcher_points
+from heatflow_tpu_torch.mesh.unstructured_gen import build_unstructured_mesh
 from heatflow_tpu_torch.ops import cuda_sweep
 from heatflow_tpu_torch.sim import sweepkernel
 from heatflow_tpu_torch.sim.bc import HeatingCurve
 from heatflow_tpu_torch.sim.problem import build_problem
 from heatflow_tpu_torch.sim.stepper import make_simulate_fn
+from heatflow_tpu_torch.sim.unstructured import (build_problem_unstructured,
+                                                 make_simulate_fn_unstructured)
 from heatflow_tpu_torch.utils import span
 from tests.fixtures import synthetic_heating, tiny_no_diamond_cfg
 
@@ -34,7 +38,8 @@ torch.set_num_threads(1)
 
 SPANS = ("transient", "transient.operands", "transient.load",
          "transient.capture", "transient.launch", "transient.wait",
-         "transient.outputs", "transient.step", "k1.solve", "step.project",
+         "transient.outputs", "transient.reorder", "transient.step",
+         "k1.solve", "step.project",
          "sweep", "sweep.chunk", "sweep.project", "k2.solve", "k2.iterate",
          "k2.check")
 STEPS = 4
@@ -51,6 +56,20 @@ def problem():
                          HeatingCurve(time=df["time"].to_numpy(),
                                       temp=df["temp"].to_numpy()),
                          cfg, watcher_points=coupler_watcher_points(cfg))
+
+
+@functools.cache
+def _triangulation():
+    """The tiny stack on a graded triangulation with its grid overlay."""
+    cfg = tiny_no_diamond_cfg(coarse=2.0)
+    cfg["timing"]["num_steps"] = STEPS
+    df = synthetic_heating()
+    mesh = build_unstructured_mesh(*T.build_layout(cfg), jitter=0.25,
+                                   seed=7)
+    return build_problem_unstructured(
+        mesh, HeatingCurve(time=df["time"].to_numpy(),
+                           temp=df["temp"].to_numpy()),
+        cfg, watcher_points=coupler_watcher_points(cfg))
 
 
 def _profiled(body, activities=(ProfilerActivity.CPU,)):
@@ -90,6 +109,25 @@ PATHS = {
             warm_start="extrapolate", record_gradient=False).forward_eager(),
         {"transient": (None, 1),
          "transient.operands": ("transient", 3),
+         "transient.step": ("transient", STEPS),
+         "k1.solve": ("transient.step", STEPS)}),
+    # the overlay's eager loop (the CPU): the reorders at the call's edges
+    "unstructured_recording": (
+        lambda p: make_simulate_fn_unstructured(
+            _triangulation(), dtype=torch.float64, device="cpu",
+            record_gradient=True)(),
+        {"transient": (None, 1),
+         "transient.reorder": ("transient", 2),
+         "transient.step": ("transient", STEPS),
+         "k1.solve": ("transient.step", STEPS),
+         "step.project": ("transient.step", STEPS)}),
+    "unstructured_kernel_refined": (
+        lambda p: make_simulate_fn_unstructured(
+            _triangulation(), dtype=torch.float32, device="cpu",
+            solver="vmem", precondition="rline", f64_refine=1, rtol=1e-4,
+            warm_start="extrapolate", record_gradient=False)(),
+        {"transient": (None, 1),
+         "transient.reorder": ("transient", 2),
          "transient.step": ("transient", STEPS),
          "k1.solve": ("transient.step", STEPS)}),
     "sweep_chunked": (
