@@ -11,9 +11,9 @@ Phases (each raises on failure; nothing is caught):
 2. build the CUDA kernels from ``heatflow_tpu_torch/csrc`` through their
    normal first use and print the build time;
 3. at the flagship shape (``cfgs/geballe_with_diamond.yaml``, 251 x 1107
-   nodes) compare the r-line factor kernel (``rline_pack``) and each
-   phase kernel of ``cg_tol`` with its plain PyTorch version, the phases
-   on numpy-seeded inputs (the stencil with its alpha tail, the
+   nodes) compare the line factor kernels (``rline_pack``, ``zline_pack``)
+   and each phase kernel of ``cg_tol`` with its plain PyTorch version, the
+   phases on numpy-seeded inputs (the stencil with its alpha tail, the
    line-solve phases, the fused update-and-line-solve phases with their
    beta tail), then one full solve of the first step's refinement system
    in the identity, r-line and ADI forms, timing kernel and plain version
@@ -25,9 +25,10 @@ Phases (each raises on failure; nothing is caught):
    a conditional WHILE node, the step kernels of ``csrc/step.cu`` around
    K1's recorded solve, the r-line/ADI switch set on the device): one
    warm-up run, then one timed run with the launch counters reset just
-   before it (one r-line factorization a run); check the traces against
-   the float64 truth in ``benchmarks/.flagship_truth_f64.npz``; report the
-   launches an iteration (at most 3 r-line, 4 ADI); run the eager loop
+   before it (one r-line and one z-line factorization a run); check the
+   traces against the float64 truth in
+   ``benchmarks/.flagship_truth_f64.npz``; report the launches an
+   iteration (at most 3 r-line, 4 ADI); run the eager loop
    (``forward_eager``) in the same process: the graph's outputs bitwise
    the eager loop's when its two refinement sums are taken in the step
    kernels' order (``cuda_step.kernel_order_sum``), and within the inner
@@ -274,7 +275,7 @@ CSV = os.path.join(ROOT, "experimental_data", "geballe_heat_data.csv")
 TRUTH = os.path.join(ROOT, "benchmarks", ".flagship_truth_f64.npz")
 SOURCE = "heatflow_tpu_torch/csrc/cg_tol.cu"
 REPLACES = "heatflow_tpu/ops/pallas_cg.py:308"
-FACTOR_REPLACES = "heatflow_tpu/ops/pallas_cg.py:668"   # its r-line pcr_pack
+FACTOR_REPLACES = "heatflow_tpu/ops/pallas_cg.py:668"   # its pcr_pack
 SWEEP_SOURCE = "heatflow_tpu_torch/csrc/sweep_cg.cu"
 K2_REPLACES = "heatflow_tpu/ops/pallas_cg.py:802"
 K3_REPLACES = "heatflow_tpu/ops/pallas_cg.py:729"
@@ -477,35 +478,38 @@ def first_step_system(problem, device):
     return f32(A), f32(s * free), f32(s), f32(free), b32
 
 
-def rline_factor_check(A32, s32, free32, out: dict) -> dict:
-    """The r-line factor kernel (``k_rline_factor``, one launch an operand
-    set) on the flagship's float32 operator against its plain version on
-    the same inputs: each of its three planes within 1e-6 of the plane's
-    largest value (the same float32 couplings and float64 sweep, each
-    product and difference rounded alone). Its bound: the 7 planes it moves
-    (A's two r couplings, s and the mask read, three factor planes
+def line_factor_check(A32, s32, free32, out: dict, line: str) -> dict:
+    """A line factor kernel (``k_rline_factor`` for ``line='r'``,
+    ``k_zline_factor`` for 'z'; one launch an operand set) on the
+    flagship's float32 operator against its plain version on the same
+    inputs: each of its three planes within 1e-6 of the plane's largest
+    value (the same float32 couplings and float64 sweep, each product and
+    difference rounded alone). Its bound: the 7 planes it moves (A's two
+    couplings along the line, s and the mask read, three factor planes
     written), and 5 float32 and 5 float64 operations a point."""
     from heatflow_tpu_torch.ops import cuda_cg
-    pack = lambda: cuda_cg.rline_pack(A32, s32, free32)
-    plain = lambda: cuda_cg.rline_pack_reference(A32, s32, free32)
-    F_k, F_p = pack(), plain()
+    name = f"{line}line_factor"
+    pack = getattr(cuda_cg, f"{line}line_pack")
+    reference = getattr(cuda_cg, f"{line}line_pack_reference")
+    F_k, F_p = pack(A32, s32, free32), reference(A32, s32, free32)
     require(F_k.shape == F_p.shape == (3,) + tuple(s32.shape),
-            ("rline_factor", F_k.shape, F_p.shape))
+            (name, F_k.shape, F_p.shape))
     rels = [rel_max(a, b) for a, b in zip(F_k, F_p)]
-    require(max(rels) <= 1e-6, ("rline_factor", rels))
+    require(max(rels) <= 1e-6, (name, rels))
     n = s32.numel()
     t_b = 7 * nbytes(s32) / HBM_BYTES_PER_S * 1e3
     t_o = (5 * n / F32_OPS_PER_S + 5 * n / F64_OPS_PER_S) * 1e3
-    row = dict(name="cg_tol.rline_factor", rel=max(rels), plane_rel=rels,
+    row = dict(name=f"cg_tol.{name}", rel=max(rels), plane_rel=rels,
                max_abs_err=float((F_k - F_p).abs().max()),
                bound_ms=max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations",
-               ms=cuda_ms(pack, 20), plain_ms=cuda_ms(plain, 3))
-    print(f"phase cg_tol.rline_factor: planes (m, 1/den, cp) rel "
+               ms=cuda_ms(lambda: pack(A32, s32, free32), 20),
+               plain_ms=cuda_ms(lambda: reference(A32, s32, free32), 3))
+    print(f"phase cg_tol.{name}: planes (m, 1/den, cp) rel "
           + ", ".join(f"{r:.3e}" for r in rels)
           + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
           f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
-    out["rline_factor"] = row
+    out[name] = row
     return row
 
 
@@ -517,11 +521,12 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
 
     A32, sm32, s32, free32, b32 = first_step_system(problem, device)
     pcr = cuda_cg.rline_pack(A32, s32, free32)
-    pcr_z = cuda_cg.pcr_pack(A32, s32, free32, axis=-2).contiguous()
+    pcr_z = cuda_cg.zline_pack(A32, s32, free32)
     nz, nr = b32.shape
     print(f"flagship grid {nz} x {nr}; r-line factors {pcr.shape[0]} "
-          f"planes, z-stack {pcr_z.shape[0]} planes")
-    rline_factor_check(A32, s32, free32, out)
+          f"planes, z-line factors {pcr_z.shape[0]} planes")
+    for line in "rz":
+        line_factor_check(A32, s32, free32, out, line)
     rng = np.random.default_rng(0)
     p = (torch.tensor(rng.standard_normal((nz, nr)), dtype=torch.float32,
                       device=device) * free32).contiguous()
@@ -551,7 +556,7 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
                          lambda: cuda_cg.stencil_dot_reference(A32, sm32, p),
                          50)))
 
-    # r-line PCR, then z-line PCR with the ADI combine
+    # the r-line solve, then the z-line solve with the ADI combine
     for name, phase, zst in (("cg_tol.pcr_r", "pcr_r", None),
                              ("cg_tol.pcr_z_adi", "pcr_z", pcr_z)):
         z_k, rz_k = cuda_cg.precond(sm32, p, pcr, zst)
@@ -709,9 +714,9 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
     # solves (the ADI row: its row kernel and its z-line kernel)
     in_solve = {"cg_tol.stencil_dot": ("rline", "k_stencil_dot"),
                 "cg_tol.pcr_r": ("rline", "k_row_plain"),
-                "cg_tol.pcr_z_adi": ("adi", "k_pcr_z"),
+                "cg_tol.pcr_z_adi": ("adi", "k_zline"),
                 "cg_tol.update_pcr_r": ("rline", "k_row_update"),
-                "cg_tol.update_pcr_adi": ("adi", "k_row_update", "k_pcr_z")}
+                "cg_tol.update_pcr_adi": ("adi", "k_row_update", "k_zline")}
     for row in rows:
         form, *names = in_solve[row["name"]]
         us = solves[form]["in_solve_us"]
@@ -735,8 +740,8 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
 def large_shape_checks(device, out: dict, nz: int = 300, nr: int = 12288):
     """The line kernels' paths for shapes past the flagship's: a row whose
     Thomas factors do not fit shared memory (read from device memory) and
-    z-lines taller than the register-held kernel takes (``k_pcr_z_tall``),
-    on a numpy-seeded anisotropic 5-point operator: the PCR phases, the
+    z-lines taller than the flagship's (300 rows: 11 a lane of ``k_zline``,
+    in two pieces), on a numpy-seeded anisotropic 5-point operator: the PCR phases, the
     fused phase with its beta tail and an ADI solve against their plain
     versions."""
     import numpy as np
@@ -755,7 +760,7 @@ def large_shape_checks(device, out: dict, nz: int = 300, nr: int = 12288):
     f32 = lambda t: t.float().to(device).contiguous()
     A32, sm32, s32, free32 = f32(A), f32(s * free), f32(s), f32(free)
     pcr = cuda_cg.rline_pack(A32, s32, free32)
-    pcr_z = cuda_cg.pcr_pack(A32, s32, free32, axis=-2).contiguous()
+    pcr_z = cuda_cg.zline_pack(A32, s32, free32)
     field = lambda: f32(torch.tensor(rng.standard_normal((nz, nr))) * free)
     r, x, p = field(), field(), field()
     z_k, rz_k = cuda_cg.precond(sm32, r, pcr, pcr_z)
@@ -783,7 +788,7 @@ def large_shape_checks(device, out: dict, nz: int = 300, nr: int = 12288):
                adi_rel_l2=float(torch.linalg.vector_norm((x_k - x_p).double())
                                 / torch.linalg.vector_norm(x_p.double())))
     print(f"large shape {nz} x {nr} (row factors read from device memory, "
-          f"z-lines by k_pcr_z_tall): {res}")
+          f"z-lines of {nz} rows): {res}")
     require(res["precond_rel"] <= 1e-4 and res["precond_dot_rel"] <= 1e-5
             and res["fused_rel"] <= 1e-4 and res["beta_rel"] <= 1e-5
             and out_k[5]["k"] == 1, ("large shape", res))
@@ -1035,6 +1040,7 @@ def run_slice(problem, device, out: dict):
     run_s = time.perf_counter() - t0
     counts = cuda_cg.phase_launches()
     factor_launches = cuda_cg.rline_pack.launches
+    zfactor_launches = cuda_cg.zline_pack.launches
     solves = dict(total=cuda_cg.cg_tol.launches,
                   rline=cuda_cg.cg_tol.launches_rline,
                   adi=cuda_cg.cg_tol.launches_adi,
@@ -1048,8 +1054,9 @@ def run_slice(problem, device, out: dict):
             and np.isfinite(ys["final_u"].cpu().numpy()).all(),
             "non-finite traces")
     require(solves["rline"] > 0 and solves["adi"] >= 1, solves)
-    # the r-line factors: one factorization a transient
+    # the line factors: one factorization each a transient
     require(factor_launches == 1, ("rline_pack launches", factor_launches))
+    require(zfactor_launches == 1, ("zline_pack launches", zfactor_launches))
     thresh, maxiter = fn.opts["adaptive_thresh"], RECIPE["maxiter"]
     forms = adaptive_forms(iters, thresh, maxiter)
     require(solves["adi"] == sum(forms)
@@ -1175,6 +1182,7 @@ def run_slice(problem, device, out: dict):
                         cg_iters=iters.tolist(), solves=solves,
                         phase_launches=counts, step_launches=step_launches,
                         rline_factor_launches=factor_launches,
+                        zline_factor_launches=zfactor_launches,
                         launches_per_iteration=per_iter,
                         launches_per_run_iteration=launched / iters.sum(),
                         device_busy_pct=busy_pct, idle_split=split,
@@ -2751,7 +2759,7 @@ def forms_checks(problem, device, out: dict) -> dict:
 
     A32, sm32, s32, free32, b32 = first_step_system(problem, device)
     pcr = cuda_cg.rline_pack(A32, s32, free32)
-    pcr_z = cuda_cg.pcr_pack(A32, s32, free32, axis=-2).contiguous()
+    pcr_z = cuda_cg.zline_pack(A32, s32, free32)
     mgz = mgz_operands(problem, torch.float32, device)
     nz, nr = b32.shape
     n = nz * nr
@@ -3653,7 +3661,7 @@ def nine_plane_checks(problem, setup, device, out: dict) -> dict:
     b = (b / torch.linalg.vector_norm(b)).contiguous()
     x0 = torch.zeros_like(b)
     pcr = cuda_cg.rline_pack(A9, s, free)
-    pcr_z = cuda_cg.pcr_pack(A9, s, free, axis=-2).contiguous()
+    pcr_z = cuda_cg.zline_pack(A9, s, free)
     B = 8
     dks = f32(np.linspace(0.0, 1.0, B))
     diag = A9[0][None] + dks[:, None, None] * Kv[0][None]
@@ -5418,10 +5426,11 @@ def main() -> None:
         bound_by=r["bound_by"], library_ms=None)
     kernels = [kernel(r["name"], SOURCE, REPLACES, counts[r["phase"]], r)
                for r in rows]
-    kernels.append(kernel("cg_tol.rline_factor", SOURCE,
-                          FACTOR_REPLACES,
-                          out["slice"]["rline_factor_launches"],
-                          out["rline_factor"]))
+    for line in "rz":
+        kernels.append(kernel(f"cg_tol.{line}line_factor", SOURCE,
+                              FACTOR_REPLACES,
+                              out["slice"][f"{line}line_factor_launches"],
+                              out[f"{line}line_factor"]))
     for form in ("rline", "adi"):
         kernels.append(kernel(f"cg_tol[{form}]", SOURCE, REPLACES,
                               solves[form], out["solves"][form]))

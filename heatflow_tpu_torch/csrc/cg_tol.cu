@@ -12,11 +12,12 @@
 // shape (251 x 1107 = 277,857 nodes, one f32 plane is 1.11 MB) an r-line
 // iteration must move ~16 planes (~18 MB, ~5.3 us at 3.35 TB/s): the 7
 // stencil planes, the vectors (p, Ap, x, r, z, sm) and the r-line's 3
-// Thomas factor planes; the ADI form adds the 17-plane z-line PCR stack.
-// Shared memory is 227 KB a block: a z-line tile's stack does not fit it,
-// and the working set (~18 MB r-line, ~37 MB ADI) fits no block. An
-// earlier design ran the r-line as folded PCR too, from a 23-plane stack
-// (~34 planes an iteration). The first design, one kernel per CG phase: 6
+// Thomas factor planes; the ADI form adds the z-line's 3 and its pass over
+// r, z and sm (~21 MB of working set; ~37 MB when the z-line read a
+// 17-plane folded PCR stack). The working set fits no block's 227 KB of
+// shared memory. Earlier designs ran both line directions as folded PCR,
+// the r-line from a 23-plane stack (~34 planes an iteration). The first
+// design, one kernel per CG phase: 6
 // launches and ~60 us an r-line iteration (28 us in a PCR kernel whose 11
 // levels each waited on dependent global loads), 7 and ~149 us an ADI one,
 // and a host read of the stop flag every 8 iterations.
@@ -42,17 +43,29 @@
 //   bound 3.7 us (11 planes); the stencil pass beside it went from 11.4 to
 //   9.4 us with the stack out of L2. k_rline_factor takes 0.79 ms once a
 //   transient, while the host still prepares the transient's operands.
-//   The z-line kernel holds a tile's PCR factors in registers, each thread
-//   requesting the next level's before it computes this one: 21.5 us
-//   (bound 14.3), against 35 us for tiles narrowed to fit shared memory
-//   and 76 us before.
+// - The z-line the same way (k_zline_factor: a thread a grid column, the
+//   threads of a warp on adjacent columns, 0.17 ms once a transient). The
+//   z-line kernel (k_zline) moves 7 planes (r, sm, z in and out, the three
+//   factors: 2.3 us at 3.35 TB/s) where its predecessor read a 17-plane
+//   folded PCR stack from registers level by level (21.0 us a launch in the
+//   flagship transient, its bound 14.3). A column's points lie Nr apart:
+//   the block stages its tile of 12 adjacent columns with coalesced
+//   cp.async requests, then each warp solves one column by two warp scans
+//   of affine maps, a lane's rows in registers. Timed in a CUDA graph of
+//   400 launches at the flagship shape, data in L2 (a microbenchmark of
+//   variants): 8.2 us with its beta tail (9.7-10.1 us a launch in the
+//   flagship transient, tools/k1_ab.py), of which the tail (fence, ticket,
+//   the last block's reductions) is ~2.6 us; 10.9 us with 8-column tiles
+//   read from shared memory, the first form of this kernel (11.2 us in the
+//   transient). Wider tiles help while the grid still fits the 132 SMs a
+//   block each: 12 columns a block (93 blocks) beat 8 (139) and 16 (70).
 // - Fewer launches. The scalars ride in the tails of the kernels: each
 //   block writes its partial, fences and takes a ticket; the last block
 //   reduces the partials in a fixed order (no atomics on the sums, so a
 //   solve is bitwise repeatable) and sets alpha (after the stencil) or
 //   beta, the count and the stop flag (after the kernel that writes the
 //   last partials). An r-line iteration is 3 launches (k_stencil_dot,
-//   k_row_update, k_p_update), an ADI one 4 (+ k_pcr_z), an identity one
+//   k_row_update, k_p_update), an ADI one 4 (+ k_zline), an identity one
 //   3 (k_update takes beta). The alpha tail costs the stencil ~4 us (12.6
 //   us against 8.8).
 // - No host in the loop. A solve is one CUDA graph: the start, a
@@ -149,17 +162,39 @@
 namespace {
 
 constexpr int kThreads = 256;     // elementwise and finalize blocks
-constexpr int kTileCols = 16;     // k_pcr_z_tall: columns a block at most
 constexpr int kRowThreads = 512;  // r-line row kernel: threads a block
 constexpr int kCoarseThreads = 1024;  // the mgz coarse rows: one block an SM
-constexpr int kZCols = 8;         // z-line kernel: columns a block,
-constexpr int kZRows = 32;        // thread rows a block,
-constexpr int kZPer = 8;          // rows a thread (Nz <= kZRows * kZPer)
-constexpr int kZTallThreads = 512;  // z-line kernel for taller columns
+constexpr int kZCols = 12;        // z-line kernel: columns a block at most,
+constexpr int kZPiece = 9;        // rows a lane holds in registers at once,
+constexpr int kZPlanes = 6;       // staged planes: r, m, 1/den, cp, z, sm
 // The most dynamic shared memory a block may ask for (227 KB opt-in, less
 // the static shared memory of block_sum, last_block and the row kernel's
 // scan totals: 784 bytes).
 constexpr size_t kMaxDynSmem = 232448 - 1024;
+
+// The z-line kernel's shape, from the column height nz: the rows a lane
+// takes (ceil(nz / 32) made odd), the stride of a staged tile's rows for
+// w columns (odd: w is even or 1), its shared memory, and the columns a
+// block: kZCols, or fewer (even, then 1) for columns too tall for kZCols of
+// them to fit (at most kMaxDynSmem / (kZPlanes * 4) = 9642 rows; 0 past
+// that).
+__host__ __device__ __forceinline__ int zline_per(int nz) {
+  return ((nz + 31) / 32) | 1;
+}
+
+__host__ __device__ __forceinline__ int zline_pitch(int w) {
+  return w > 1 ? w + 1 : 1;
+}
+
+size_t zline_smem(int nz, int w) {
+  return (size_t)kZPlanes * nz * zline_pitch(w) * sizeof(float);
+}
+
+int zline_cols(int nz) {
+  int w = kZCols;
+  while (w > 0 && zline_smem(nz, w) > kMaxDynSmem) w = w > 2 ? w - 2 : w - 1;
+  return w;
+}
 
 // Solve state kept in device memory (mirrored by the Python wrapper:
 // k is int32 word 10 and done is int32 word 11 of the 64-byte buffer).
@@ -427,83 +462,96 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The lines a block solves: `len` positions of `w` adjacent lines, of which
-// the first `valid` exist; position i of line c lies at base + i * stride
-// + c in a plane. In shared memory they are position-major: e = i * w + c.
-// Thread (x, y) takes line x and positions y, y + blockDim.y, ...
-struct Lines {
-  size_t base, stride;
-  int len, w, valid;
-};
-
-// The folded PCR levels of stack F (2L+1 planes of n values, read from
-// device memory) on the block's lines, d0 holding them on entry; returns
-// the buffer that holds the result. Level k (s = 2^k):
-//   d[i] <- d[i] - F[2k][i] d[i-s] - F[2k+1][i] d[i+s]   (zeros outside).
-__device__ float* pcr_levels(float* d0, float* d1,
-                             const float* __restrict__ F, size_t n,
-                             int levels, const Lines& ln) {
-  const int c = threadIdx.x;
-  int s = 1;
-  for (int k = 0; k < levels; ++k) {
-    __syncthreads();  // the previous level's d landed
-    const float* lo = F + (2 * k) * n;
-    const float* up = F + (2 * k + 1) * n;
-    if (c < ln.valid) {
-      for (int i = threadIdx.y; i < ln.len; i += blockDim.y) {
-        const int e = i * ln.w + c;
-        const size_t q = ln.base + (size_t)i * ln.stride + c;
-        float v = d0[e];
-        if (i - s >= 0) v = v - lo[q] * d0[e - s * ln.w];
-        if (i + s < ln.len) v = v - up[q] * d0[e + s * ln.w];
-        d1[e] = v;
-      }
-    }
-    float* t = d0; d0 = d1; d1 = t;
-    s <<= 1;
-  }
-  __syncthreads();
-  return d0;
+// all but the latest group of this thread's copies landed
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// The r-line systems x_j + l_j x_{j-1} + u_j x_{j+1} = d_j of a grid row
-// (unit diagonal: (l, u) are the couplings of sm A sm along r, zero across
-// a Dirichlet point and past the ends; SPD, so LU without pivoting is
-// stable), factored once per operand set by Thomas' elimination, one
-// thread a row sweeping it in float64: den_0 = 1, den_j = 1 - l_j cp_{j-1},
-// and three float32 planes F[0] = m_j = -l_j / den_{j-1} (the forward
-// multiplier), F[1] = 1 / den_j (the inverse pivot), F[2] = cp_j = u_j /
-// den_j. The couplings are formed in float32 as
-// heatflow_tpu_torch/ops/linesolve.py:line_couplings forms them, and the
-// sweep rounds each product and difference alone (no contraction), so the
-// factors are the plain version's (ops/linesolve.py:thomas_factor_lines).
+// The line systems x_k + l_k x_{k-1} + u_k x_{k+1} = d_k of a grid row
+// (the r-line) or a grid column (the z-line) (unit diagonal: (l, u) are the
+// couplings of sm A sm along the line, zero across a Dirichlet point and
+// past the ends; SPD, so LU without pivoting is stable), factored once per
+// operand set by Thomas' elimination, one thread a line sweeping it in
+// float64: den_0 = 1, den_k = 1 - l_k cp_{k-1}, and three float32 planes
+// F[0] = m_k = -l_k / den_{k-1} (the forward multiplier), F[1] = 1 / den_k
+// (the inverse pivot), F[2] = cp_k = u_k / den_k. The couplings are formed
+// in float32 as heatflow_tpu_torch/ops/linesolve.py:line_couplings forms
+// them, and the sweep rounds each product and difference alone (no
+// contraction), so the factors are the plain version's
+// (ops/linesolve.py:thomas_factor_lines). The line's `len` points lie at
+// base + k * step in each plane of n values; A's planes `up` and `lo` hold
+// its couplings to k+1 and k-1.
+__device__ void line_factor(const float* __restrict__ A,
+                            const float* __restrict__ s,
+                            const float* __restrict__ fmask,
+                            float* __restrict__ F, size_t n, size_t base,
+                            size_t step, int len, int up, int lo) {
+  double den_prev = 1.0, cp = 0.0;
+  float sf_prev = 0.0f, sf = __fmul_rn(s[base], fmask[base]);
+  for (int k = 0; k < len; ++k) {
+    const size_t q = base + k * step;
+    const float sf_next =
+        k + 1 < len ? __fmul_rn(s[q + step], fmask[q + step]) : 0.0f;
+    const double l = (double)__fmul_rn(__fmul_rn(sf, A[lo * n + q]), sf_prev);
+    const double u = (double)__fmul_rn(__fmul_rn(sf, A[up * n + q]), sf_next);
+    const double den = __dsub_rn(1.0, __dmul_rn(l, cp));
+    F[q] = (float)(-l / den_prev);
+    F[n + q] = (float)(1.0 / den);
+    cp = u / den;
+    F[2 * n + q] = (float)cp;
+    den_prev = den;
+    sf_prev = sf;
+    sf = sf_next;
+  }
+}
+
+// The r-line factors: a thread a grid row, A's planes 3 (j -> j+1) and 4.
 __global__ void k_rline_factor(const float* __restrict__ A,
                                const float* __restrict__ s,
                                const float* __restrict__ fmask,
                                float* __restrict__ F, int nz, int nr) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nz) return;
-  const size_t n = (size_t)nz * nr;
-  const size_t row = (size_t)i * nr;
-  const float* up = A + 3 * n + row;  // couples j -> j+1
-  const float* lo = A + 4 * n + row;  // couples j -> j-1
-  const float* sr = s + row;
-  const float* fr = fmask + row;
-  double den_prev = 1.0, cp = 0.0;
-  float sf_prev = 0.0f, sf = __fmul_rn(sr[0], fr[0]);
-  for (int j = 0; j < nr; ++j) {
-    const float sf_next =
-        j + 1 < nr ? __fmul_rn(sr[j + 1], fr[j + 1]) : 0.0f;
-    const double l = (double)__fmul_rn(__fmul_rn(sf, lo[j]), sf_prev);
-    const double u = (double)__fmul_rn(__fmul_rn(sf, up[j]), sf_next);
-    const double den = __dsub_rn(1.0, __dmul_rn(l, cp));
-    F[row + j] = (float)(-l / den_prev);
-    F[n + row + j] = (float)(1.0 / den);
-    cp = u / den;
-    F[2 * n + row + j] = (float)cp;
-    den_prev = den;
-    sf_prev = sf;
-    sf = sf_next;
+  line_factor(A, s, fmask, F, (size_t)nz * nr, (size_t)i * nr, 1, nr, 3, 4);
+}
+
+// The z-line factors: a thread a grid column, A's planes 1 (i -> i+1) and
+// 2; the threads of a warp read and write adjacent columns.
+__global__ void k_zline_factor(const float* __restrict__ A,
+                               const float* __restrict__ s,
+                               const float* __restrict__ fmask,
+                               float* __restrict__ F, int nz, int nr) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= nr) return;
+  line_factor(A, s, fmask, F, (size_t)nz * nr, j, nr, nz, 1, 2);
+}
+
+// A chain of affine maps v <- a v + b across a warp, one link a lane,
+// chained in lane order (`reverse`: in reverse lane order): an inclusive
+// scan by shuffles. On return (a, b) is this link after the earlier ones,
+// and (ea, eb) the earlier ones alone (the identity in the first link), so
+// eb is the value that enters this link from v = 0.
+__device__ __forceinline__ void warp_chain(float& a, float& b, float& ea,
+                                           float& eb, bool reverse) {
+  const unsigned full = 0xffffffffu;
+  const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+  const int pos = reverse ? 31 - lane : lane;          // in chain order
+  auto take = [&](float v, int o) {
+    return reverse ? __shfl_down_sync(full, v, o) : __shfl_up_sync(full, v, o);
+  };
+  // (a, b) <- this link after the earlier ones: v -> a (pa v + pb) + b
+  for (int o = 1; o < 32; o <<= 1) {
+    const float pa = take(a, o), pb = take(b, o);
+    if (pos >= o) {
+      b = fmaf(a, pb, b);
+      a = a * pa;
+    }
+  }
+  ea = take(a, 1);
+  eb = take(b, 1);
+  if (pos == 0) {
+    ea = 1.0f;
+    eb = 0.0f;
   }
 }
 
@@ -517,26 +565,11 @@ __device__ float chain_carry(float a, float b, bool reverse, float2* tot) {
   const unsigned full = 0xffffffffu;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nw = (blockDim.x * blockDim.y) >> 5;
-  const int lane = tid & 31;
-  const int pos = reverse ? 31 - lane : lane;          // in chain order
+  const int pos = reverse ? 31 - (tid & 31) : tid & 31;  // in chain order
   const int w = reverse ? nw - 1 - (tid >> 5) : tid >> 5;
-  auto take = [&](float v, int o) {
-    return reverse ? __shfl_down_sync(full, v, o) : __shfl_up_sync(full, v, o);
-  };
-  // (a, b) <- this link after the earlier ones: v -> a (pa v + pb) + b
-  for (int o = 1; o < 32; o <<= 1) {
-    const float pa = take(a, o), pb = take(b, o);
-    if (pos >= o) {
-      b = fmaf(a, pb, b);
-      a = a * pa;
-    }
-  }
   // the warp's links before this one, and the warp's total
-  float ea = take(a, 1), eb = take(b, 1);
-  if (pos == 0) {
-    ea = 1.0f;
-    eb = 0.0f;
-  }
+  float ea, eb;
+  warp_chain(a, b, ea, eb, reverse);
   if (pos == 31) tot[w] = make_float2(a, b);
   __syncthreads();
   if (tid < 32) {
@@ -824,123 +857,167 @@ __global__ void __launch_bounds__(kCoarseThreads, 1)
   row_pass<kRowCoarseRes>(a);
 }
 
-// z-line PCR apply and the ADI combine for columns of at most kZRows x
-// kZPer values, one block per tile of kZCols adjacent columns. A z-line's
-// 17-plane stack (for 251 rows) does not fit a tile's shared memory, so the
-// factors go to registers: each thread holds its kZPer rows' factors of a
-// level and requests the next level's before it computes this one, so a
-// level's loads are in flight while the level before it runs. On entry z
-// holds the r-line result R r * free; on exit
+// The z-line phase of the ADI form: each grid column's line solve from its
+// Thomas factors (F[0..2] of k_zline_factor), w adjacent columns a block,
+// a warp a column (w = zline_cols(nz)). On entry z holds the r-line result
+// R r * free; on exit
 //   z = (R r + Z r - r) * free
-// and the tile's partial of <r, z> is written; then the beta tail.
-__global__ void __launch_bounds__(kZCols * kZRows)
-    k_pcr_z(const float* __restrict__ r, const float* __restrict__ sm,
-            const float* __restrict__ F, int levels,
-            float* __restrict__ z, double* part_rz, const CGState* st,
-            BetaTail tail, int nz, int nr) {
+// and the tile's partial of <r, z> is written; then the beta tail. A
+// column's points lie Nr apart, so the block first requests its tile into
+// shared memory with 4-byte cp.async copies, a thread a column of the tile
+// and every 32nd row, so that each request of a warp reads adjacent
+// columns: r and the three factor planes as one group, z and sm as a
+// second, which lands while the columns are solved. A tile's row is w + 1
+// values apart (1 for one column), an odd number. Lane t of a column's
+// warp takes its rows per t .. per t + per - 1, per = zline_per(nz) (odd),
+// so the 32 lanes of a request read 32 distinct banks. The forward
+// substitution w_i = m_i w_{i-1} + d_i and the back substitution
+// x_i = w_i / den_i - cp_i x_{i+1} are each a chain of affine maps: a lane
+// composes its rows' maps, warp_chain scans the lanes by shuffles, and the
+// lane reruns its rows from the value that enters them (the result over
+// m's plane). A lane takes its rows in pieces of kZPiece, each piece's
+// operands loaded into registers together before its chain runs: one
+// piece at the flagship's 251 rows. No barrier between the two scans: a
+// warp reads and writes its own column only. Then the ADI combine, a
+// thread a column and every 32nd row again.
+__global__ void __launch_bounds__(32 * kZCols)
+    k_zline(const float* __restrict__ r, const float* __restrict__ sm,
+            const float* __restrict__ F, float* __restrict__ z,
+            double* part_rz, const CGState* st, BetaTail tail, int nz,
+            int nr) {
   if (st != nullptr && st->done) return;
   extern __shared__ float smem[];
-  const int w = kZCols;
-  float* d0 = smem;
-  float* d1 = smem + nz * w;
-  const size_t n = (size_t)nz * nr;
-  const int c = threadIdx.x;
-  const size_t col = (size_t)blockIdx.x * w + c;
-  const bool valid = col < (size_t)nr;
-  float lo[kZPer], up[kZPer];
-#pragma unroll
-  for (int m = 0; m < kZPer; ++m) {
-    const int i = threadIdx.y + m * kZRows;
-    const bool ok = valid && i < nz;
-    if (i < nz) d0[i * w + c] = ok ? r[(size_t)i * nr + col] : 0.0f;
-    lo[m] = ok ? F[(size_t)i * nr + col] : 0.0f;
-    up[m] = ok && levels > 0 ? F[n + (size_t)i * nr + col] : 0.0f;
-  }
-  int s = 1;
-  for (int k = 0; k < levels; ++k) {
-    // the next level's factors (after the last level: the diagonal)
-    float nlo[kZPer], nup[kZPer];
-#pragma unroll
-    for (int m = 0; m < kZPer; ++m) {
-      const int i = threadIdx.y + m * kZRows;
-      const bool ok = valid && i < nz;
-      const size_t q = (size_t)i * nr + col;
-      nlo[m] = ok ? F[(size_t)(2 * k + 2) * n + q] : 0.0f;
-      nup[m] = ok && k + 1 < levels ? F[(size_t)(2 * k + 3) * n + q] : 0.0f;
-    }
-    __syncthreads();  // the previous level's d landed
-#pragma unroll
-    for (int m = 0; m < kZPer; ++m) {
-      const int i = threadIdx.y + m * kZRows;
-      if (valid && i < nz) {
-        const int e = i * w + c;
-        float v = d0[e];
-        if (i - s >= 0) v = v - lo[m] * d0[e - s * w];
-        if (i + s < nz) v = v - up[m] * d0[e + s * w];
-        d1[e] = v;
-      }
-    }
-    float* t = d0; d0 = d1; d1 = t;
-    s <<= 1;
-#pragma unroll
-    for (int m = 0; m < kZPer; ++m) {
-      lo[m] = nlo[m];
-      up[m] = nup[m];
-    }
-  }
-  __syncthreads();
-  double acc = 0.0;
-#pragma unroll
-  for (int m = 0; m < kZPer; ++m) {
-    const int i = threadIdx.y + m * kZRows;
-    if (valid && i < nz) {
-      const size_t q = (size_t)i * nr + col;
-      const float fm = sm[q] != 0.0f ? 1.0f : 0.0f;
-      const float rv = r[q];
-      const float zv = (z[q] + lo[m] * d0[i * w + c] - rv) * fm;
-      z[q] = zv;
-      acc += (double)(rv * zv);
-    }
-  }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0 && threadIdx.y == 0) part_rz[blockIdx.x] = acc;
-  beta_tail(tail);
-}
-
-// The same for taller columns: a tile of w columns x all Nz rows, the
-// levels' factors read from device memory (pcr_levels).
-__global__ void k_pcr_z_tall(const float* __restrict__ r,
-                             const float* __restrict__ sm,
-                             const float* __restrict__ F, int levels, int w,
-                             float* __restrict__ z, double* part_rz,
-                             const CGState* st, BetaTail tail, int nz,
-                             int nr) {
-  if (st != nullptr && st->done) return;
-  extern __shared__ float smem[];
-  float* d0 = smem;
-  float* d1 = smem + (size_t)nz * w;
+  const int w = blockDim.x >> 5;
+  const int pitch = zline_pitch(w);
+  const size_t tile = (size_t)nz * pitch;
+  float* rs = smem;
+  float* fm = smem + tile;
+  float* fi = smem + 2 * tile;
+  float* fc = smem + 3 * tile;
+  float* zs = smem + 4 * tile;
+  float* ss = smem + 5 * tile;
   const size_t n = (size_t)nz * nr;
   const int c0 = blockIdx.x * w;
-  const Lines ln{(size_t)c0, (size_t)nr, nz, w, min(w, nr - c0)};
-  const int c = threadIdx.x;
-  const bool valid = c < ln.valid;
-  for (int i = threadIdx.y; i < nz; i += blockDim.y)
-    d0[i * w + c] = valid ? r[(size_t)i * nr + c0 + c] : 0.0f;
-  d0 = pcr_levels(d0, d1, F, n, levels, ln);
-  const size_t gq = (size_t)(2 * levels);
+  const int valid = min(w, nr - c0);
+  const int tid = threadIdx.x;
+  const int cs = tid % w;      // this thread's column when staging
+  if (cs < valid) {
+    for (int i = tid / w; i < nz; i += 32) {
+      const size_t q = (size_t)i * nr + c0 + cs;
+      const int e = i * pitch + cs;
+      cp_async4(rs + e, r + q);
+      cp_async4(fm + e, F + q);
+      cp_async4(fi + e, F + n + q);
+      cp_async4(fc + e, F + 2 * n + q);
+    }
+  }
+  cp_async_commit();
+  if (cs < valid) {
+    for (int i = tid / w; i < nz; i += 32) {
+      const size_t q = (size_t)i * nr + c0 + cs;
+      const int e = i * pitch + cs;
+      cp_async4(zs + e, z + q);
+      cp_async4(ss + e, sm + q);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_one();
+  __syncthreads();
+  const int c = tid >> 5;      // this warp's column
+  if (c < valid) {
+    const int per = zline_per(nz);
+    const int i0 = min((tid & 31) * per, nz), i1 = min(i0 + per, nz);
+    // the first row of the lane's last piece (i0 when it has no rows)
+    const int last = i0 + (i1 > i0 ? (i1 - i0 - 1) / kZPiece : 0) * kZPiece;
+    float a = 1.0f, b = 0.0f, ea, v;
+    for (int p0 = i0; p0 < i1; p0 += kZPiece) {
+      const int cnt = min(kZPiece, i1 - p0);
+      float m[kZPiece], d[kZPiece];
+#pragma unroll
+      for (int k = 0; k < kZPiece; ++k)
+        if (k < cnt) {
+          const int e = (p0 + k) * pitch + c;
+          m[k] = fm[e];
+          d[k] = rs[e];
+        }
+#pragma unroll
+      for (int k = 0; k < kZPiece; ++k)
+        if (k < cnt) {
+          b = fmaf(m[k], b, d[k]);
+          a = a * m[k];
+        }
+    }
+    warp_chain(a, b, ea, v, false);
+    for (int p0 = i0; p0 < i1; p0 += kZPiece) {
+      const int cnt = min(kZPiece, i1 - p0);
+      float m[kZPiece], d[kZPiece], f[kZPiece];
+#pragma unroll
+      for (int k = 0; k < kZPiece; ++k)
+        if (k < cnt) {
+          const int e = (p0 + k) * pitch + c;
+          m[k] = fm[e];
+          d[k] = rs[e];
+          f[k] = fi[e];
+        }
+#pragma unroll
+      for (int k = 0; k < kZPiece; ++k)
+        if (k < cnt) {
+          v = fmaf(m[k], v, d[k]);
+          fm[(p0 + k) * pitch + c] = f[k] * v;
+        }
+    }
+    a = 1.0f;
+    b = 0.0f;
+    for (int p0 = last; p0 >= i0 && i1 > i0; p0 -= kZPiece) {
+      const int cnt = min(kZPiece, i1 - p0);
+      float y[kZPiece], cp[kZPiece];
+#pragma unroll
+      for (int k = 0; k < kZPiece; ++k)
+        if (k < cnt) {
+          const int e = (p0 + k) * pitch + c;
+          y[k] = fm[e];
+          cp[k] = fc[e];
+        }
+#pragma unroll
+      for (int k = kZPiece - 1; k >= 0; --k)
+        if (k < cnt) {
+          b = fmaf(-cp[k], b, y[k]);
+          a = a * -cp[k];
+        }
+    }
+    warp_chain(a, b, ea, v, true);
+    for (int p0 = last; p0 >= i0 && i1 > i0; p0 -= kZPiece) {
+      const int cnt = min(kZPiece, i1 - p0);
+      float y[kZPiece], cp[kZPiece];
+#pragma unroll
+      for (int k = 0; k < kZPiece; ++k)
+        if (k < cnt) {
+          const int e = (p0 + k) * pitch + c;
+          y[k] = fm[e];
+          cp[k] = fc[e];
+        }
+#pragma unroll
+      for (int k = kZPiece - 1; k >= 0; --k)
+        if (k < cnt) {
+          v = fmaf(-cp[k], v, y[k]);
+          fm[(p0 + k) * pitch + c] = v;
+        }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
   double acc = 0.0;
-  if (valid) {
-    for (int i = threadIdx.y; i < nz; i += blockDim.y) {
-      const size_t q = (size_t)i * nr + c0 + c;
-      const float fm = sm[q] != 0.0f ? 1.0f : 0.0f;
-      const float rv = r[q];
-      const float zv = (z[q] + F[gq * n + q] * d0[i * w + c] - rv) * fm;
-      z[q] = zv;
+  if (cs < valid) {
+    for (int i = tid / w; i < nz; i += 32) {
+      const int e = i * pitch + cs;
+      const float rv = rs[e];
+      const float zv = (zs[e] + fm[e] - rv) * (ss[e] != 0.0f ? 1.0f : 0.0f);
+      z[(size_t)i * nr + c0 + cs] = zv;
       acc += (double)(rv * zv);
     }
   }
   acc = block_sum(acc);
-  if (threadIdx.x == 0 && threadIdx.y == 0) part_rz[blockIdx.x] = acc;
+  if (tid == 0) part_rz[blockIdx.x] = acc;
   beta_tail(tail);
 }
 
@@ -1581,11 +1658,11 @@ __global__ void k_finish(float* __restrict__ x, int* iters,
 struct Solve {
   const float *A, *sm, *b, *x0, *rtol;
   const float* pcr;    // the r-line Thomas factors (3 planes)
-  const float* pcrz;   // the z-line folded PCR stack (2 lz + 1 planes)
+  const float* pcrz;   // the z-line Thomas factors (3 planes)
   float *x, *r, *z, *p, *Ap;
   double* parts;   // 4 x nparts: pAp (delta), rr, rz (gamma), bb
   CGState* st;
-  int npts, lz, nz, nr, maxiter, wrt_r0, nparts;
+  int npts, nz, nr, maxiter, wrt_r0, nparts;
   long long* counts;
   cudaStream_t stream;
   // the further forms (see hf_cg_extra_planes for the layout of `extra`)
@@ -1640,18 +1717,11 @@ bool r_staged(int nr, int load) {
   return row_smem(nr, load, true) <= kMaxDynSmem;
 }
 
-// Columns of a block of the z-line kernel: kZCols (k_pcr_z), or for
-// columns taller than kZRows x kZPer as many as let k_pcr_z_tall's double
-// buffer fit, at most kTileCols.
-bool z_short(int nz) { return nz <= kZRows * kZPer; }
-
-int z_cols(int nz) {
-  if (z_short(nz)) return kZCols;
-  const int w = (int)(kMaxDynSmem / (2 * (size_t)nz * sizeof(float)));
-  return w < 1 ? 1 : (w < kTileCols ? w : kTileCols);
+// The z-line kernel's blocks, a tile of columns each (one partial each).
+int Solve::col_tiles() const {
+  const int w = zline_cols(nz);
+  return w > 0 ? (nr + w - 1) / w : 0;
 }
-
-int Solve::col_tiles() const { return (nr + z_cols(nz) - 1) / z_cols(nz); }
 
 // Once a process and device: the line kernels may take up to kMaxDynSmem
 // of dynamic shared memory, the staged ones with the SM's carveout at its
@@ -1666,7 +1736,7 @@ cudaError_t configure() {
   const void* fns[] = {(const void*)k_row_plain, (const void*)k_row_update,
                        (const void*)k_row_restrict,
                        (const void*)k_row_coarse_res,
-                       (const void*)k_pcr_z_tall};
+                       (const void*)k_zline};
   for (const void* fn : fns) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kMaxDynSmem);
@@ -1733,26 +1803,19 @@ cudaError_t launch_pcr_r(bool update, float* r, float* x, const float* p,
                     update ? kPhUpdatePcrR : kPhPcrR, counts, stream);
 }
 
-cudaError_t launch_pcr_z(const float* r, const float* sm, const float* F,
-                         int levels, float* z, double* part_rz,
-                         const CGState* st, const BetaTail& tail, int nz,
-                         int nr, long long* counts, cudaStream_t stream) {
+// The z-line phase (k_zline) from the z-line Thomas factors F: z = (z + Z r
+// - r) * free with the <r, z> partials (one a tile of columns), and the
+// beta tail when given.
+cudaError_t launch_zline(const float* r, const float* sm, const float* F,
+                         float* z, double* part_rz, const CGState* st,
+                         const BetaTail& tail, int nz, int nr,
+                         long long* counts, cudaStream_t stream) {
   cudaError_t e = configure();
   if (e != cudaSuccess) return e;
-  const int w = z_cols(nz);
-  const size_t smem = 2 * (size_t)nz * w * sizeof(float);
-  if (z_short(nz)) {
-    k_pcr_z<<<(nr + w - 1) / w, dim3(kZCols, kZRows), smem, stream>>>(
-        r, sm, F, levels, z, part_rz, st, tail, nz, nr);
-  } else {
-    // thread rows: as many as kZTallThreads allows in whole warps (w * rows
-    // a multiple of 32: rows a multiple of 32 / gcd(w, 32))
-    const int low = w & -w;
-    const int step = 32 / (low < 32 ? low : 32);
-    const dim3 block(w, (kZTallThreads / w) / step * step);
-    k_pcr_z_tall<<<(nr + w - 1) / w, block, smem, stream>>>(
-        r, sm, F, levels, w, z, part_rz, st, tail, nz, nr);
-  }
+  const int w = zline_cols(nz);
+  if (w < 1) return cudaErrorInvalidValue;
+  k_zline<<<(nr + w - 1) / w, 32 * w, zline_smem(nz, w), stream>>>(
+      r, sm, F, z, part_rz, st, tail, nz, nr);
   counts[kPhPcrZ] += 1;
   return cudaGetLastError();
 }
@@ -2040,7 +2103,7 @@ cudaError_t precondition(const Solve& s, bool update, const BetaTail& tail) {
                                s.adi() ? nullptr : s.part(2), s.st, kNoTail,
                                s.nz, s.nr, s.counts, s.stream);
   if (e != cudaSuccess || !s.adi()) return e;
-  return launch_pcr_z(s.r, s.sm, s.pcrz, s.lz, s.z, s.part(2), s.st, kNoTail,
+  return launch_zline(s.r, s.sm, s.pcrz, s.z, s.part(2), s.st, kNoTail,
                       s.nz, s.nr, s.counts, s.stream);
 }
 
@@ -2105,7 +2168,7 @@ cudaError_t start(const Solve& s, const LoopCond* lc) {
 // One iteration. The standard recurrence takes alpha in k_stencil_dot's
 // tail and beta in the tail of the kernel that writes the last partials:
 // identity 3 launches (k_stencil_dot, k_update, k_p_update), r-line 3
-// (k_update folded into the row kernel), ADI 4 (+ k_pcr_z); mgz 6 with one
+// (k_update folded into the row kernel), ADI 4 (+ k_zline); mgz 6 with one
 // coarse sweep (the update folded into the pre-smoothing row, beta in the
 // post-smoothing row's tail), 7 with two; multigrid at four levels 13 (the
 // update folded into level 0's first smoothing step, beta in its last);
@@ -2141,7 +2204,7 @@ cudaError_t iterate(const Solve& s, const LoopCond* lc) {
                      s.adi() ? kNoTail : tail, s.nz, s.nr, s.counts,
                      s.stream);
     if (e == cudaSuccess && s.adi())
-      e = launch_pcr_z(s.r, s.sm, s.pcrz, s.lz, s.z, s.part(2), s.st, tail,
+      e = launch_zline(s.r, s.sm, s.pcrz, s.z, s.part(2), s.st, tail,
                        s.nz, s.nr, s.counts, s.stream);
     if (e != cudaSuccess) return e;
   } else {
@@ -2258,7 +2321,7 @@ cudaError_t record_solve_desc(const void* desc, cudaStream_t stream,
 #define HF_SOLVE_ARGS                                                        \
   const float *A, int npts, const float *sm, const float *b,                 \
       const float *x0, const float *rtol, const float *pcr,                  \
-      const float *pcrz, int lz, float *x, float *r, float *z, float *p,     \
+      const float *pcrz, float *x, float *r, float *z, float *p,             \
       float *Ap, double *parts, int nparts, void *state, int nz, int nr,     \
       int maxiter, int wrt_r0, long long *counts, const float *lmax,         \
       int cheb, int merged, const float *ac9,             \
@@ -2267,7 +2330,7 @@ cudaError_t record_solve_desc(const void* desc, cudaStream_t stream,
 
 #define HF_SOLVE_INIT                                                        \
   Solve s{A, sm, b, x0, rtol, pcr, pcrz, x, r, z, p, Ap, parts,              \
-          (CGState *)state, npts, lz, nz, nr, maxiter, wrt_r0, nparts,       \
+          (CGState *)state, npts, nz, nr, maxiter, wrt_r0, nparts,           \
           counts, nullptr, lmax, cheb, merged, ac9, pcrc, aux,               \
           sweeps, omega, omega_c, extra, (const MGDesc *)mg, fixed}
 
@@ -2372,6 +2435,17 @@ int hf_rline_factor(const float *A, const float *s, const float *fmask,
   return (int)cudaGetLastError();
 }
 
+// The z-line Thomas factors F (3 planes, see k_zline_factor), the same
+// way: a thread a grid column.
+int hf_zline_factor(const float *A, const float *s, const float *fmask,
+                    float *F, int nz, int nr, void *stream) {
+  constexpr int kFactorThreads = 32;
+  k_zline_factor<<<(nr + kFactorThreads - 1) / kFactorThreads,
+                   kFactorThreads, 0, (cudaStream_t)stream>>>(A, s, fmask,
+                                                              F, nz, nr);
+  return (int)cudaGetLastError();
+}
+
 int hf_pcr_r(const float *r, const float *sm, const float *F, float *z,
              double *part, int nz, int nr, long long *counts, void *stream) {
   return (int)launch_pcr_r(false, const_cast<float *>(r), nullptr, nullptr,
@@ -2379,11 +2453,13 @@ int hf_pcr_r(const float *r, const float *sm, const float *F, float *z,
                            nz, nr, counts, (cudaStream_t)stream);
 }
 
-int hf_pcr_z(const float *r, const float *sm, const float *F, int levels,
-             float *z, double *part, int nz, int nr, long long *counts,
-             void *stream) {
-  return (int)launch_pcr_z(r, sm, F, levels, z, part, nullptr, kNoTail, nz,
-                           nr, counts, (cudaStream_t)stream);
+// The z-line phase alone: z (holding R r * free) becomes (R r + Z r - r) *
+// free, from the z-line Thomas factors F (3 planes, see k_zline_factor),
+// with the <r, z> partials.
+int hf_pcr_z(const float *r, const float *sm, const float *F, float *z,
+             double *part, int nz, int nr, long long *counts, void *stream) {
+  return (int)launch_zline(r, sm, F, z, part, nullptr, kNoTail, nz, nr,
+                           counts, (cudaStream_t)stream);
 }
 
 // The fused iteration phase of the r-line (pcrz null) or ADI form, as the
@@ -2392,12 +2468,12 @@ int hf_pcr_z(const float *r, const float *sm, const float *F, int levels,
 // the beta tail on the state.
 int hf_update_pcr(float *x, float *r, const float *p, const float *Ap,
                   const float *sm, const float *pcr, const float *pcrz,
-                  int lz, float *z, double *parts, int nparts, void *state,
+                  float *z, double *parts, int nparts, void *state,
                   int maxiter, int fixed, int nz, int nr, long long *counts,
                   void *stream) {
   Solve s{nullptr, sm, nullptr, nullptr, nullptr, pcr, pcrz, x, r, z,
           const_cast<float *>(p), const_cast<float *>(Ap), parts,
-          (CGState *)state, 7, lz, nz, nr, maxiter, 0, nparts, counts,
+          (CGState *)state, 7, nz, nr, maxiter, 0, nparts, counts,
           (cudaStream_t)stream, nullptr, 0, 0, nullptr, nullptr, nullptr,
           1, 0.0f, 0.0f, nullptr, nullptr, fixed};
   const BetaTail tail{s.st, s.part(1), s.part(2), nz,
@@ -2407,8 +2483,8 @@ int hf_update_pcr(float *x, float *r, const float *p, const float *Ap,
                                s.adi() ? kNoTail : tail, nz, nr, counts,
                                s.stream);
   if (e == cudaSuccess && s.adi())
-    e = launch_pcr_z(r, sm, pcrz, lz, z, s.part(2), s.st, tail, nz, nr,
-                     counts, s.stream);
+    e = launch_zline(r, sm, pcrz, z, s.part(2), s.st, tail, nz, nr, counts,
+                     s.stream);
   return (int)e;
 }
 
@@ -2424,7 +2500,7 @@ int hf_precond_apply(const float *A, int npts, const float *sm,
                      float *extra, int *which) {
   Solve s{A, sm, nullptr, nullptr, nullptr, pcr, nullptr, nullptr,
           const_cast<float *>(r), z, nullptr, nullptr, parts, nullptr, npts,
-          0, nz, nr, 0, 0, nparts, counts, (cudaStream_t)stream, lmax,
+          nz, nr, 0, 0, nparts, counts, (cudaStream_t)stream, lmax,
           cheb, 0, ac9, pcrc, aux, sweeps, omega, omega_c, extra,
           nullptr, 0};
   *which = s.zout() != z;

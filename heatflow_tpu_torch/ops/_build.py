@@ -152,8 +152,8 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    solve = [P, I, P, P, P, P, P, P, I, P, P, P, P, P, P, I, P, I, I, I, I,
-             P, P, I, I, P, P, P, I, F, F, P, P, I]
+    solve = [P, I, P, P, P, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, P,
+             P, I, I, P, P, P, I, F, F, P, P, I]
     _sig(lib.hf_cg_nparts, I, I)
     _sig(lib.hf_cg_state_bytes)
     _sig(lib.hf_num_phases)
@@ -164,10 +164,11 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_graph_destroy, P)
     _sig(lib.hf_stencil_dot, P, I, P, P, P, P, P, I, I, P, P)
     _sig(lib.hf_rline_factor, P, P, P, P, I, I, P)
-    _sig(lib.hf_update_pcr, P, P, P, P, P, P, P, I, P, P, I, P, I, I, I, I,
-         P, P)
+    _sig(lib.hf_zline_factor, P, P, P, P, I, I, P)
+    _sig(lib.hf_update_pcr, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, P,
+         P)
     _sig(lib.hf_pcr_r, P, P, P, P, P, I, I, P, P)
-    _sig(lib.hf_pcr_z, P, P, P, I, P, P, I, I, P, P)
+    _sig(lib.hf_pcr_z, P, P, P, P, P, I, I, P, P)
     _sig(lib.hf_cg_extra_planes, I, I, I)
     _sig(lib.hf_precond_apply, P, I, P, P, P, P, P, I, I, I, P, P, P, I, P,
          P, P, I, F, F, P, P)

@@ -5,7 +5,7 @@
 dofs and sm = rsqrt(diag(A))·free, preconditioned by nothing, by the r-line
 block-Jacobi solve (``pcr``: each line's exact tridiagonal solve from its
 Thomas factors), by the split-additive ADI solve R r + Z r − r (``pcr`` and
-the z-line PCR stack ``pcr_z``), by a fixed Chebyshev polynomial in
+the z-line Thomas factors ``pcr_z``), by a fixed Chebyshev polynomial in
 the operator (``cheb_degree``) or by the z-semicoarsened two-level V-cycle
 over the r-line smoother (``mgz``, operands from ``ops/mgz.py``), with the
 standard recurrence or the Chronopoulos–Gear merged-dot one (``merged``),
@@ -13,9 +13,9 @@ stopping on the true residual
 ‖r‖ ≤ rtol·‖r0‖ (``rtol_wrt='r0'``) or rtol·‖b‖ (``'b'``). A tensor on the
 CPU goes to :func:`cg_tol_reference`; a CUDA tensor goes to the kernel, or
 the call raises. The kernel replaces heatflow_tpu/ops/pallas_cg.py:
-_cg_tol_kernel; the r-line factors it consumes are packed once per
-operand set by :func:`rline_pack` (a kernel of their own on the card), the
-z-line stack by :func:`pcr_pack`. The mgz cycle runs as fused passes
+_cg_tol_kernel; the line factors it consumes are packed once per operand
+set by :func:`rline_pack` and :func:`zline_pack` (a kernel each on the
+card). The mgz cycle runs as fused passes
 (:func:`mgz_pre`, :func:`mgz_coarse`, :func:`mgz_coarse_res`,
 :func:`mgz_prolong_res`, :func:`mgz_post`, each with its plain version, and
 :func:`mgz_cycle_reference` composed from them).
@@ -152,16 +152,16 @@ def reset_counters() -> None:
         setattr(cg_vmem_solve, name, 0)
     cg_vmem.launches = 0
     rline_pack.launches = 0
+    zline_pack.launches = 0
 
 
 def pcr_pack(A: torch.Tensor, s: torch.Tensor, free: torch.Tensor,
              axis: int = -1) -> torch.Tensor:
     """Folded line-PCR factor stack (2L+1, Nz, Nr): rows 2k/2k+1 are level
     k's rescaled lower/upper couplings, the last row the accumulated
-    diagonal. ``axis=-2`` packs the z-line factors, :func:`cg_tol`'s
-    ``pcr_z`` operand; ``axis=-1`` the r-line stack of the JAX package's
-    kernel (``cg_tol`` takes :func:`rline_pack`'s factors there). Eager
-    torch, once per transient."""
+    diagonal: the JAX package's kernel operand, applied by
+    :func:`pcr_stack_apply`. ``cg_tol`` takes the Thomas factors of
+    :func:`rline_pack` and :func:`zline_pack` instead. Eager torch."""
     l, u = line_couplings(A, s * free, axis)
     levels2, g = pcr_fold(pcr_factor(l, u, axis=axis), axis=axis)
     return torch.stack([p for lv in levels2 for p in lv] + [g])
@@ -175,6 +175,14 @@ def rline_pack_reference(A, s, free) -> torch.Tensor:
     return thomas_factor_lines(l, u)
 
 
+def zline_pack_reference(A, s, free) -> torch.Tensor:
+    """Plain version of :func:`zline_pack`, on any device: the couplings of
+    (s·free)·A·(s·free) along z and their Thomas factors down each
+    column."""
+    l, u = line_couplings(A, s * free, -2)
+    return thomas_factor_lines(l, u, axis=-2)
+
+
 def rline_pack(A: torch.Tensor, s: torch.Tensor,
                free: torch.Tensor) -> torch.Tensor:
     """The r-line operand of :func:`cg_tol` (``pcr``): the (3, Nz, Nr)
@@ -183,47 +191,66 @@ def rline_pack(A: torch.Tensor, s: torch.Tensor,
     the factor kernel (one launch, counted in ``rline_pack.launches``)."""
     if _on_cpu(A, s, free):
         return rline_pack_reference(A, s, free)
-    if A.ndim != 3 or A.shape[0] not in (7, 9):
-        raise ValueError(f"A must be (7|9, Nz, Nr), got {tuple(A.shape)}")
-    return _RLineFactor.apply(A.contiguous(), s.contiguous(),
-                              free.contiguous())
+    return _line_pack(A, s, free, -1)
+
+
+def zline_pack(A: torch.Tensor, s: torch.Tensor,
+               free: torch.Tensor) -> torch.Tensor:
+    """The z-line operand of :func:`cg_tol` (``pcr_z``, the ADI form): the
+    (3, Nz, Nr) Thomas factors of every grid column's line-tridiagonal
+    system, once per operand set. CPU tensors take the plain version; CUDA
+    float32 tensors the factor kernel (one launch, counted in
+    ``zline_pack.launches``)."""
+    if _on_cpu(A, s, free):
+        return zline_pack_reference(A, s, free)
+    return _line_pack(A, s, free, -2)
 
 
 rline_pack.launches = 0
+zline_pack.launches = 0
 
 
-def _rline_factor_launch(A, s, free) -> torch.Tensor:
+def _line_pack(A, s, free, axis: int) -> torch.Tensor:
+    if A.ndim != 3 or A.shape[0] not in (7, 9):
+        raise ValueError(f"A must be (7|9, Nz, Nr), got {tuple(A.shape)}")
+    return _LineFactor.apply(A.contiguous(), s.contiguous(),
+                             free.contiguous(), axis)
+
+
+def _line_factor_launch(A, s, free, axis: int) -> torch.Tensor:
     dev = s.device
     nz, nr = s.shape
     _require(A, "A", (A.shape[0], nz, nr), dev)
     _require(s, "s", (nz, nr), dev)
     _require(free, "free", (nz, nr), dev)
     F = torch.empty((3, nz, nr), dtype=torch.float32, device=dev)
-    _check(_library().hf_rline_factor(_ptr(A), _ptr(s), _ptr(free), _ptr(F),
-                                      nz, nr, _stream()), "rline_pack")
-    rline_pack.launches += 1
+    wrapper, launch = ((rline_pack, _library().hf_rline_factor) if axis == -1
+                       else (zline_pack, _library().hf_zline_factor))
+    _check(launch(_ptr(A), _ptr(s), _ptr(free), _ptr(F), nz, nr, _stream()),
+           wrapper.__name__)
+    wrapper.launches += 1
     return F
 
 
-class _RLineFactor(torch.autograd.Function):
-    """The factor kernel's launch as a Function, so that under torch.func's
+class _LineFactor(torch.autograd.Function):
+    """A factor kernel's launch as a Function, so that under torch.func's
     transforms (the fit's jvp, vmapped over its tangents) the operator
     comes in as plain tensors whose pointers the kernel takes; the factors
     only steer the solves and are never differentiated."""
 
     @staticmethod
-    def forward(A, s, free):
-        return _rline_factor_launch(A, s, free)
+    def forward(A, s, free, axis):
+        return _line_factor_launch(A, s, free, axis)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.mark_non_differentiable(output)
 
     @staticmethod
-    def vmap(info, in_dims, A, s, free):
+    def vmap(info, in_dims, A, s, free, axis):
         if any(d is not None for d in in_dims):
             raise NotImplementedError("a batch of operators under vmap")
-        return _rline_factor_launch(A, s, free), None
+        return _line_factor_launch(A, s, free, axis), None
 
 
 # ----------------------------------------------------------------------
@@ -301,7 +328,7 @@ def _precond_reference(A, sm, pcr, pcr_z, cheb_degree=0, mgz=None,
                                      mgz_omega_c)
     if pcr_z is not None:
         return lambda r: (thomas_apply_lines(pcr, r)
-                          + pcr_stack_apply(pcr_z, r, -2) - r) * free
+                          + thomas_apply_lines(pcr_z, r, axis=-2) - r) * free
     if pcr is not None:
         return lambda r: thomas_apply_lines(pcr, r) * free
     if cheb_degree > 0:
@@ -316,8 +343,9 @@ def stencil_dot_reference(A, sm, p):
 
 
 def precond_reference(sm, r, pcr=None, pcr_z=None):
-    """(z, ⟨r, z⟩) for the r-line (``pcr``) or ADI (``pcr`` + ``pcr_z``)
-    preconditioner — the plain line-solve phases."""
+    """(z, ⟨r, z⟩) for the r-line (``pcr``) or ADI (``pcr`` + ``pcr_z``,
+    the rows' and the columns' Thomas factors) preconditioner — the plain
+    line-solve phases."""
     z = _precond_reference(None, sm, pcr, pcr_z)(r)
     return z, (r.double() * z.double()).sum()
 
@@ -340,24 +368,27 @@ def merged_w_reference(A, sm, u, r):
     return w, d(w, u), d(r, r), d(r, u)
 
 
-def _check_rline(F, name: str = "pcr") -> None:
-    """The r-line operand is :func:`rline_pack`'s (3, ..., Nr) Thomas
-    factors: a folded PCR stack in its place (2⌈log2 Nr⌉+1 planes, 3 only
-    on lines of 2 points) raises rather than being misread."""
+def _check_line_factors(F, name: str = "pcr", line: str = "r") -> None:
+    """The r-line operand is :func:`rline_pack`'s (3, Nz, Nr) Thomas
+    factors, the z-line operand (``line='z'``) :func:`zline_pack`'s: a
+    folded PCR stack in their place (2⌈log2 N⌉+1 planes, 3 only on lines
+    of 2 points) raises rather than being misread."""
     if F.ndim < 3 or F.shape[0] != 3:
         raise ValueError(
-            f"{name} must be the (3, Nz, Nr) r-line Thomas factors of "
-            f"rline_pack, got shape {tuple(F.shape)} (a folded PCR stack "
-            f"from pcr_pack is not this operand)")
+            f"{name} must be the (3, Nz, Nr) {line}-line Thomas factors of "
+            f"{line}line_pack, got shape {tuple(F.shape)} (a folded PCR "
+            f"stack from pcr_pack is not this operand)")
 
 
 def _check_forms(pcr, pcr_z, cheb_degree, merged, mgz) -> None:
-    """The form checks of the TPU entry point, and the r-line operands'
-    (``pcr``, the mgz coarse rows' ``pcrc``)."""
+    """The form checks of the TPU entry point, and the line operands'
+    (``pcr``, ``pcr_z``, the mgz coarse rows' ``pcrc``)."""
     if pcr is not None:
-        _check_rline(pcr)
+        _check_line_factors(pcr)
+    if pcr_z is not None:
+        _check_line_factors(pcr_z, "pcr_z", "z")
     if mgz is not None:
-        _check_rline(mgz["pcrc"], "mgz['pcrc']")
+        _check_line_factors(mgz["pcrc"], "mgz['pcrc']")
     if pcr is not None and cheb_degree:
         raise ValueError("pcr and cheb_degree are mutually exclusive")
     if pcr_z is not None and pcr is None:
@@ -494,12 +525,11 @@ def _require(t: torch.Tensor, name: str, shape: tuple, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _stack_levels(stack: torch.Tensor, name: str, nz: int, nr: int,
-                  device) -> int:
-    if stack.ndim != 3 or stack.shape[0] % 2 != 1:
-        raise ValueError(f"{name} must be a (2L+1, Nz, Nr) PCR stack")
-    _require(stack, name, (stack.shape[0], nz, nr), device)
-    return (stack.shape[0] - 1) // 2
+def _require_factors(pcr, pcr_z, nz: int, nr: int, device) -> None:
+    """The line factors given, (3, Nz, Nr) float32 on ``device``."""
+    for name, F in (("pcr", pcr), ("pcr_z", pcr_z)):
+        if F is not None:
+            _require(F, name, (3, nz, nr), device)
 
 
 def _check_operator(A, sm, device):
@@ -536,10 +566,7 @@ def _check_solve(A, sm, *, pcr, pcr_z, cheb_degree: int, merged: bool, mgz,
         _check_forms(pcr, pcr_z, int(cheb_degree), merged, mgz)
         dev = sm.device
         nz, nr = _check_operator(A, sm, dev)
-        if pcr is not None:
-            _require(pcr, "pcr", (3, nz, nr), dev)
-        if pcr_z is not None:
-            _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
+        _require_factors(pcr, pcr_z, nz, nr, dev)
         if mgz is not None:
             _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
 
@@ -724,9 +751,7 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
     nz, nr = _check_operator(A, sm, dev)
     _require(b, "b", (nz, nr), dev)
     _require(x0, "x0", (nz, nr), dev)
-    if pcr is not None:
-        _require(pcr, "pcr", (3, nz, nr), dev)
-    lz = 0 if pcr_z is None else _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
+    _require_factors(pcr, pcr_z, nz, nr, dev)
     ac9 = pcrc = aux = None
     if mgz is not None:
         ac9, pcrc, aux = _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
@@ -751,7 +776,7 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
         z = r                         # identity form: z aliases r
     desc = None if mg is None else mg(z)
     args = (_ptr(A), A.shape[0], _ptr(sm), _ptr(ws.b), _ptr(ws.x0),
-            _ptr(ws.rtol), _ptr(pcr), _ptr(pcr_z), lz, _ptr(ws.x),
+            _ptr(ws.rtol), _ptr(pcr), _ptr(pcr_z), _ptr(ws.x),
             _ptr(r), _ptr(z), _ptr(p), _ptr(Ap), _ptr(ws.parts),
             ws.parts.shape[1], _ptr(ws.state), nz, nr, int(maxiter),
             int(rtol_wrt == "r0"))
@@ -1122,7 +1147,7 @@ def mgz_pre(r, pcr, omega: float, *, x=None, p=None, Ap=None, state=None):
     dict (its alpha, as :func:`finalize_reference` takes it), after the CG
     update of the row as an iteration runs it. Returns (x + α·p, r − α·Ap,
     z, ⟨r, r⟩) or (None, r, z, None); the inputs are left as they are."""
-    _check_rline(pcr)
+    _check_line_factors(pcr)
     if _on_cpu(r, pcr, x, p, Ap):
         return mgz_pre_reference(r, pcr, omega, x=x, p=p, Ap=Ap,
                                  alpha=None if state is None
@@ -1150,7 +1175,7 @@ def mgz_pre(r, pcr, omega: float, *, x=None, p=None, Ap=None, state=None):
 def mgz_coarse(A, sm, r, z, aux, pcrc, omega_c: float):
     """The mgz cycle's first coarse sweep alone: (yc, rcs), see
     :func:`mgz_coarse_reference`."""
-    _check_rline(pcrc, "pcrc")
+    _check_line_factors(pcrc, "pcrc")
     if _on_cpu(A, sm, r, z, aux, pcrc):
         return mgz_coarse_reference(A, sm, r, z, aux, pcrc, omega_c)
     lib = _library()
@@ -1171,7 +1196,7 @@ def mgz_coarse(A, sm, r, z, aux, pcrc, omega_c: float):
 def mgz_coarse_res(Ac9, rcs, y, pcrc, omega_c: float):
     """A later coarse sweep of the mgz cycle alone, see
     :func:`mgz_coarse_res_reference`."""
-    _check_rline(pcrc, "pcrc")
+    _check_line_factors(pcrc, "pcrc")
     if _on_cpu(Ac9, rcs, y, pcrc):
         return mgz_coarse_res_reference(Ac9, rcs, y, pcrc, omega_c)
     lib = _library()
@@ -1212,7 +1237,7 @@ def mgz_post(r1, zp, pcr, omega: float, sm, r, *, state=None, rr=None,
     """The mgz cycle's post-smoothing row alone: (z, ⟨r, z⟩) as
     :func:`mgz_post_reference`; with a state dict and ⟨r, r⟩ (``rr``), also
     the state after the beta tail the solve takes in this kernel."""
-    _check_rline(pcr)
+    _check_line_factors(pcr)
     if _on_cpu(r1, zp, pcr, sm, r):
         z, rz = mgz_post_reference(r1, zp, pcr, omega, sm, r)
         if state is None:
@@ -1283,7 +1308,9 @@ def precond(sm: torch.Tensor, r: torch.Tensor, pcr: torch.Tensor,
     """The kernel's line-solve phases alone: (z, ⟨r, z⟩) with z the r-line
     (``pcr``) or ADI (``pcr`` + ``pcr_z``) preconditioned residual;
     ⟨r, z⟩ is a float64 0-d tensor."""
-    _check_rline(pcr)
+    _check_line_factors(pcr)
+    if pcr_z is not None:
+        _check_line_factors(pcr_z, "pcr_z", "z")
     if _on_cpu(sm, r, pcr, pcr_z):
         return precond_reference(sm, r, pcr, pcr_z)
     lib = _library()
@@ -1291,7 +1318,7 @@ def precond(sm: torch.Tensor, r: torch.Tensor, pcr: torch.Tensor,
     nz, nr = sm.shape
     _require(sm, "sm", (nz, nr), dev)
     _require(r, "r", (nz, nr), dev)
-    _require(pcr, "pcr", (3, nz, nr), dev)
+    _require_factors(pcr, pcr_z, nz, nr, dev)
     z = torch.empty_like(r)
     part = torch.zeros(lib.hf_cg_nparts(nz, nr), dtype=torch.float64,
                        device=dev)
@@ -1300,10 +1327,9 @@ def precond(sm: torch.Tensor, r: torch.Tensor, pcr: torch.Tensor,
                         nz, nr, _counts_ptr(), stream), "pcr_r")
     if pcr_z is None:
         return z, part.sum()
-    lz = _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
     part.zero_()
-    _check(lib.hf_pcr_z(_ptr(r), _ptr(sm), _ptr(pcr_z), lz, _ptr(z),
-                        _ptr(part), nz, nr, _counts_ptr(), stream), "pcr_z")
+    _check(lib.hf_pcr_z(_ptr(r), _ptr(sm), _ptr(pcr_z), _ptr(z), _ptr(part),
+                        nz, nr, _counts_ptr(), stream), "pcr_z")
     return z, part.sum()
 
 
@@ -1329,7 +1355,9 @@ def update_precond(x, r, p, Ap, sm, pcr, pcr_z=None, *, state: dict,
     alone, as an iteration runs it on ``state``'s alpha: (x + α·p, r − α·Ap,
     z = M⁻¹r, ⟨r, r⟩, ⟨r, z⟩, the state after the beta tail); the inputs
     are left as they are."""
-    _check_rline(pcr)
+    _check_line_factors(pcr)
+    if pcr_z is not None:
+        _check_line_factors(pcr_z, "pcr_z", "z")
     if _on_cpu(x, r, p, Ap, sm, pcr, pcr_z):
         x, r, z, rr, rz = update_precond_reference(
             x, r, p, Ap, state["alpha"], sm, pcr, pcr_z)
@@ -1341,15 +1369,14 @@ def update_precond(x, r, p, Ap, sm, pcr, pcr_z=None, *, state: dict,
     nz, nr = sm.shape
     for name, t in (("x", x), ("r", r), ("p", p), ("Ap", Ap), ("sm", sm)):
         _require(t, name, (nz, nr), dev)
-    _require(pcr, "pcr", (3, nz, nr), dev)
-    lz = 0 if pcr_z is None else _stack_levels(pcr_z, "pcr_z", nz, nr, dev)
+    _require_factors(pcr, pcr_z, nz, nr, dev)
     x_n, r_n, z = x.clone(), r.clone(), torch.empty_like(r)
     parts = torch.zeros((4, lib.hf_cg_nparts(nz, nr)), dtype=torch.float64,
                         device=dev)
     st = _state(dev, **state)
     _check(lib.hf_update_pcr(_ptr(x_n), _ptr(r_n), _ptr(p), _ptr(Ap),
-                             _ptr(sm), _ptr(pcr), _ptr(pcr_z), lz,
-                             _ptr(z), _ptr(parts), parts.shape[1], _ptr(st),
+                             _ptr(sm), _ptr(pcr), _ptr(pcr_z), _ptr(z),
+                             _ptr(parts), parts.shape[1], _ptr(st),
                              int(maxiter), int(fixed), nz, nr, _counts_ptr(),
                              _stream()), "update_pcr")
     return x_n, r_n, z, parts[1].sum(), parts[2].sum(), _read_state(st)
@@ -1393,8 +1420,8 @@ def cg_vmem_solve(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
     """Differentiable :func:`cg_tol`: solves sm·A·sm y = b by implicit
     differentiation (replaces heatflow_tpu/ops/pallas_cg.py:cg_vmem_solve).
     Gradients and tangents flow to ``A``, ``sm`` and ``b`` (not to ``x0``);
-    the ``pcr`` factors (:func:`rline_pack`) and the ``pcr_z`` stack only
-    steer the solves and are detached.
+    the ``pcr`` and ``pcr_z`` factors (:func:`rline_pack`,
+    :func:`zline_pack`) only steer the solves and are detached.
     The forward pass, each backward pass and each forward-mode tangent is
     one ``cg_tol`` solve: the kernel on CUDA float32 tensors (counted in
     ``cg_vmem_solve.launches_forward``, ``.launches_backward`` and

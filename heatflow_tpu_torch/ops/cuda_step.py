@@ -166,14 +166,14 @@ class StepWorkspace:
     output plane a pass, which the next step's carried seed reads), the
     outputs and the step state. ``solve`` holds the solve's form: 'pcr',
     'pcr_z', 'cheb', 'mgz', 'mgz_sweeps', 'merged', 'maxiter',
-    'rtol_wrt'; ``lz`` the z-line stack's levels. The r-line operand is
-    ``cuda_cg.rline_pack``'s three factor planes."""
+    'rtol_wrt'. The line operands are ``cuda_cg.rline_pack``'s and
+    ``cuda_cg.zline_pack``'s three factor planes each."""
 
     def __init__(self, *, device, nz: int, nr: int, npts: int, cdt,
                  num_steps: int, f64_refine: int, carry: bool,
                  warm_start: str, adaptive: bool, thresh, rtol: float,
                  n_watch: int, record_fields: bool, has_src: bool,
-                 solve: dict, lz: int):
+                 solve: dict):
         f = dict(dtype=cdt, device=device)
         f32 = dict(dtype=torch.float32, device=device)
         self.device, self.nz, self.nr, self.npts = device, nz, nr, npts
@@ -201,13 +201,13 @@ class StepWorkspace:
                                     device=device)
         self.state = torch.zeros(_STATE_WORDS, dtype=torch.float64,
                                  device=device)
-        # the inner solve: operator, scaling, the r-line factors and the
-        # z-line stack (float32)
+        # the inner solve: operator, scaling, the r-line and the z-line
+        # factors (float32)
         self.As = torch.empty((npts, nz, nr), **f32)
         self.sm = torch.empty((nz, nr), **f32)
         self.pcr = torch.empty((3, nz, nr), **f32) if solve["pcr"] else None
-        self.pcr_z = torch.empty((2 * lz + 1, nz, nr), **f32) \
-            if solve["pcr_z"] else None
+        self.pcr_z = torch.empty((3, nz, nr), **f32) if solve["pcr_z"] \
+            else None
         self.lmax = torch.empty(1, **f32)
         self.b32 = torch.empty((nz, nr), **f32)
         self.x0 = torch.empty((nz, nr), **f32)
@@ -447,8 +447,8 @@ def reset_counters() -> None:
 # ----------------------------------------------------------------------
 
 def _forms(ws: StepWorkspace) -> list[bool]:
-    """The solve forms of the graph, as 'has the z-line stack': [r-line,
-    ADI] under 'adaptive', else the one form."""
+    """The solve forms of the graph, as 'has the z-line factors':
+    [r-line, ADI] under 'adaptive', else the one form."""
     return [False, True] if ws.adaptive else [ws.pcr_z is not None]
 
 
@@ -458,7 +458,6 @@ def _desc(lib, ws: StepWorkspace, adi: bool, p: int, k1) -> ctypes.Array:
     sv = ws.solve
     mgz = sv["mgz"]
     nz, nr = ws.nz, ws.nr
-    levels = lambda t: 0 if t is None else (t.shape[0] - 1) // 2
     pcr_z = ws.pcr_z if adi else None
     r, z, pp, Ap = k1["vecs"].unbind(0)
     if ws.pcr is None and sv["cheb"] == 0:
@@ -468,8 +467,8 @@ def _desc(lib, ws: StepWorkspace, adi: bool, p: int, k1) -> ctypes.Array:
     buf = ctypes.create_string_buffer(lib.hf_solve_desc_bytes())
     _check(lib.hf_solve_desc(
         _ptr(ws.As), ws.npts, _ptr(ws.sm), _ptr(ws.b32), _ptr(ws.x0),
-        _ptr(ws.rtol32), _ptr(ws.pcr), _ptr(pcr_z), levels(pcr_z),
-        _ptr(ws.dx[p]), _ptr(r), _ptr(z), _ptr(pp), _ptr(Ap),
+        _ptr(ws.rtol32), _ptr(ws.pcr), _ptr(pcr_z), _ptr(ws.dx[p]), _ptr(r),
+        _ptr(z), _ptr(pp), _ptr(Ap),
         _ptr(k1["parts"]), k1["parts"].shape[1], _ptr(k1["state"]), nz, nr,
         int(sv["maxiter"]), int(sv["rtol_wrt"] == "r0"), None,
         _ptr(ws.lmax), int(sv["cheb"]), int(sv["merged"]), _ptr(ac9),

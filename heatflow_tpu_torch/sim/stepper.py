@@ -217,17 +217,17 @@ class GraphPath:
     def _solve_operands(self, A, s, free):
         """The kernel path's inner-solve operands: (A, sm, pcr, pcr_z) in
         float32 (the casts of the float64 operator when refining): the
-        r-line Thomas factors and the z-line PCR stack."""
+        r-line and the z-line Thomas factors."""
         with span("transient.operands"):
-            from heatflow_tpu_torch.ops.cuda_cg import pcr_pack, rline_pack
+            from heatflow_tpu_torch.ops.cuda_cg import rline_pack, zline_pack
             prec = self.opts["precondition"]
             if self.opts["f64_refine"]:
                 A, s, free = A.to(self.dtype), s.to(self.dtype), \
                     free.to(self.dtype)
             pcr = rline_pack(A, s, free) if prec in (
                 "rline", "adi", "adaptive", "mgz") else None
-            pcr_z = pcr_pack(A, s, free, axis=-2) \
-                if prec in ("adi", "adaptive") else None
+            pcr_z = zline_pack(A, s, free) if prec in ("adi", "adaptive") \
+                else None
             return A, s * free, pcr, pcr_z
 
     def _run_graph(self, d, kp, rc, fw, ic, u0, t0, source):
@@ -285,8 +285,7 @@ class GraphPath:
                 thresh=o["adaptive_thresh"], rtol=o["rtol"],
                 n_watch=len(d["watch_flat"]) if "watch_flat" in d else 0,
                 record_fields=o["record_fields"],
-                has_src=source is not None, solve=solve,
-                lz=0 if pcr_z is None else (pcr_z.shape[0] - 1) // 2)
+                has_src=source is not None, solve=solve)
         ws.load(Mop=M_op, s=s, free=free, g0=g0, g1=g1, Ag0=Ag0, Ag1=Ag1,
                 src=None if source is None else b_src, amps=amps,
                 A=A if o["f64_refine"] else None, As=As, sm=sm, pcr=pcr,

@@ -587,8 +587,8 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         ``fwhm`` (0-d tensors that require grad or carry tangents): the
         batch loop for one lane, out of place, with each step's solve
         implicitly differentiated."""
-        from heatflow_tpu_torch.ops.cuda_cg import (cg_vmem_solve, pcr_pack,
-                                                    rline_pack)
+        from heatflow_tpu_torch.ops.cuda_cg import (cg_vmem_solve,
+                                                    rline_pack, zline_pack)
         from heatflow_tpu_torch.ops.linesolve import (adi_preconditioner,
                                                       line_preconditioner)
         A0, Kv, free = ops["A0"], ops["K_var"], ops["free"]
@@ -604,8 +604,8 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                     # call): it runs the static r-line factors
                     stacks["pcr"] = rline_pack(A_full.detach(), s_d[0], free)
                 if precondition == "adi":
-                    stacks["pcr_z"] = pcr_pack(A_full.detach(), s_d[0], free,
-                                               axis=-2)
+                    stacks["pcr_z"] = zline_pack(A_full.detach(), s_d[0],
+                                                 free)
 
                 def solve(Bv, Y0):
                     return cg_vmem_solve(A_full, sm[0], Bv[0], Y0[0], rtol,

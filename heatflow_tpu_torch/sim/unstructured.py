@@ -355,16 +355,15 @@ class SimulatorUnstructured(GraphPath, nn.Module):
         s_mp = torch.rsqrt(torch.where(Mp_diag > 0, Mp_diag, one(Mp_diag)))
         apply_mp_s = lambda y: s_mp * F.apply(d["Mp"], s_mp * y)
 
-        from heatflow_tpu_torch.ops.cuda_cg import (cg_tol, pcr_pack,
-                                                    rline_pack)
+        from heatflow_tpu_torch.ops.cuda_cg import (cg_tol, rline_pack,
+                                                    zline_pack)
 
         def stacks(A_, s_, free_):
             """The kernel path's line factors (the r-line's Thomas factors;
-            ADI adds the z-line PCR stack), factored once per transient."""
+            ADI adds the z-line's), factored once per transient."""
             if not (use_vmem and precondition in ("rline", "adi")):
                 return None, None
-            pz = (pcr_pack(A_, s_, free_, axis=-2).contiguous()
-                  if precondition == "adi" else None)
+            pz = zline_pack(A_, s_, free_) if precondition == "adi" else None
             return rline_pack(A_, s_, free_), pz
 
         if f64_refine:

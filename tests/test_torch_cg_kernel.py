@@ -27,8 +27,8 @@ FORMS = ("identity", "rline", "adi")
 @pytest.fixture(scope="module")
 def system():
     """The system fixture of the JAX kernel tests (tests/test_pallas_cg.py),
-    with both PCR stacks packed by each package, and the port's r-line
-    operand (the rows' Thomas factors)."""
+    with both PCR stacks packed by each package, and the port's line
+    operands (the rows' and the columns' Thomas factors)."""
     cfg = tiny_no_diamond_cfg(coarse=3.0)
     domain, mats = build_layout(cfg)
     mesh = build_structured_mesh(domain, mats)
@@ -51,8 +51,11 @@ def system():
                                       torch.tensor(np.asarray(free)))
     t["pcr"] = cuda_cg.rline_pack(t["A"], torch.tensor(np.asarray(s)),
                                   torch.tensor(np.asarray(free)))
-    t["pcr_z"] = cuda_cg.pcr_pack(t["A"], torch.tensor(np.asarray(s)),
-                                  torch.tensor(np.asarray(free)), axis=-2)
+    t["pcr_z_stack"] = cuda_cg.pcr_pack(t["A"], torch.tensor(np.asarray(s)),
+                                        torch.tensor(np.asarray(free)),
+                                        axis=-2)
+    t["pcr_z"] = cuda_cg.zline_pack(t["A"], torch.tensor(np.asarray(s)),
+                                    torch.tensor(np.asarray(free)))
     return j, t, np.asarray(x_true)
 
 
@@ -66,7 +69,7 @@ def test_pcr_pack_matches_jax(system, axis):
     j, t, _ = system
     key = "pcr" if axis == -1 else "pcr_z"
     want = np.asarray(j[key])
-    got = t["pcr_stack" if axis == -1 else key].numpy()
+    got = t["pcr_stack" if axis == -1 else "pcr_z_stack"].numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
 
@@ -319,9 +322,10 @@ def nine():
     t = {k: torch.tensor(v) for k, v in d.items()}
     for axis, key in ((-1, "pcr"), (-2, "pcr_z")):
         j[key] = j_pcr_pack(j["A"], j["s"], j["free"], axis=axis)
-        t[key] = cuda_cg.pcr_pack(t["A"], t["s"], t["free"], axis=axis)
-    t["pcr_stack"] = t["pcr"]
+        t[key + "_stack"] = cuda_cg.pcr_pack(t["A"], t["s"], t["free"],
+                                             axis=axis)
     t["pcr"] = cuda_cg.rline_pack(t["A"], t["s"], t["free"])
+    t["pcr_z"] = cuda_cg.zline_pack(t["A"], t["s"], t["free"])
     return j, t, d["x_true"]
 
 
@@ -334,7 +338,7 @@ def test_nine_plane_pcr_pack_drops_the_anti_diagonals_like_jax(nine, axis):
     from heatflow_tpu_torch.ops import linesolve as tls
     j, t, _ = nine
     key = "pcr" if axis == -1 else "pcr_z"
-    tkey = "pcr_stack" if axis == -1 else key
+    tkey = key + "_stack"
     want, got = np.asarray(j[key]), t[tkey].numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()

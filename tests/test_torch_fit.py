@@ -107,7 +107,7 @@ def _torch_solve(d, kind, form, rtol_wrt):
         stacks = {} if form == "identity" else {
             "pcr": cuda_cg.rline_pack(As, ss, d["free"])}
         if form == "adi":
-            stacks["pcr_z"] = cuda_cg.pcr_pack(As, ss, d["free"], axis=-2)
+            stacks["pcr_z"] = cuda_cg.zline_pack(As, ss, d["free"])
         return cuda_cg.cg_vmem_solve(A, sm, b, d["x0"], 1e-12, maxiter=5000,
                                      rtol_wrt=rtol_wrt, **stacks)
     return f

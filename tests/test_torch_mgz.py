@@ -48,8 +48,9 @@ def system():
     j = dict(A=A, sm=sm, b=b, x0=x0, pcr=j_pcr_pack(A, s, free),
              mgz={k: jnp.asarray(v) for k, v in pj.items()})
     t = {k: torch.tensor(np.asarray(v)) for k, v in j.items() if k != "mgz"}
-    t["pcr"] = cuda_cg.rline_pack(t["A"], torch.tensor(np.asarray(s)),
-                                  torch.tensor(np.asarray(free)))
+    ts, tfree = torch.tensor(np.asarray(s)), torch.tensor(np.asarray(free))
+    t["pcr"] = cuda_cg.rline_pack(t["A"], ts, tfree)
+    t["pcr_z"] = cuda_cg.zline_pack(t["A"], ts, tfree)
     t["mgz"] = {k: torch.tensor(v) for k, v in pt.items()}
     return j, t, host, pj, pt, rng
 
@@ -137,7 +138,7 @@ def test_mgz_argument_checks(system):
     with pytest.raises(ValueError, match="smoother"):
         cuda_cg.cg_tol(*args, mgz=t["mgz"])
     with pytest.raises(ValueError, match="mutually exclusive"):
-        cuda_cg.cg_tol(*args, pcr=t["pcr"], pcr_z=t["pcr"], mgz=t["mgz"])
+        cuda_cg.cg_tol(*args, pcr=t["pcr"], pcr_z=t["pcr_z"], mgz=t["mgz"])
     with pytest.raises(ValueError, match="mutually exclusive"):
         cuda_cg.cg_tol(*args, pcr=t["pcr"], mgz=t["mgz"], merged=True)
     with pytest.raises(ValueError, match="mutually exclusive"):

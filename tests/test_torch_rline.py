@@ -346,8 +346,7 @@ def test_cuda_flagship_first_step_solve_counts_match_plain(card_flagship,
     F = cuda_cg.rline_pack(g["A"], g["s"], g["free"])
     stacks = dict(pcr=F)
     if form == "adi":
-        stacks["pcr_z"] = cuda_cg.pcr_pack(g["A"], g["s"], g["free"],
-                                           axis=-2).contiguous()
+        stacks["pcr_z"] = cuda_cg.zline_pack(g["A"], g["s"], g["free"])
     b = g["b"]
     x0 = torch.zeros_like(b)
     kw = dict(maxiter=20000, rtol_wrt="b", **stacks)
