@@ -46,8 +46,8 @@ Phases (each raises on failure; nothing is caught):
    nodes), on the 10th step's system of 8 numpy-seeded lanes spanning
    kappa in [1, 100] (one lane NaN, one at rtol 2), compare each phase
    kernel of the batched solve (K2/K3) alone with its plain version: the
-   operator pass, update, r-line PCR, p update, compaction, finish and
-   scalar kernels, and the kernels with their per-lane tails (the first
+   operator pass, update, r-line PCR, p update, compaction and finish
+   kernels, and the kernels with their per-lane tails (the first
    residual with the first scalars, the stencil with alpha, the update
    with beta, the fused update and r-line PCR with beta, alone and with the
    z-line phase) on a state with done lanes; the tail kernels again at the
@@ -67,8 +67,7 @@ Phases (each raises on failure; nothing is caught):
    lane-iteration. Wherever K2's counters are read after a path
    (``_sweep_counts``), each form's iteration must have taken its launches
    (3 identity, r-line, Kv-free and fixed; 4 ADI and adaptive; the same
-   under the merged recurrence) and no solve may have launched the
-   single-phase scalar kernels;
+   under the merged recurrence);
 7. run the other sweep forms at B = 64: ``fixed_iters=120`` (K3) and
    ``precondition='rline'`` through ``make_sweep_fn``, and an
    'extrapolate' sweep at B = 8 chunked 20 + 20 against unchunked
@@ -244,10 +243,9 @@ rows from a run with two float64 refinement passes, to
 ``benchmarks/.flagship_truth_recording.npz``.
 
 The line before the last is a JSON object with one entry per kernel of the
-paths (K2's single-phase scalar kernels, checked in phases 5 and 14 but run
-by no solve, have none; the step kernels' rows give their device time a
-launch inside phase 4's graph run and its launches there, as does the
-r-line factor kernel's row), each
+paths (the step kernels' rows give their device time a launch inside
+phase 4's graph run and its launches there, as does the r-line factor
+kernel's row), each
 with its time, the plain version's, and its bound: the larger of the bytes
 it must move (each input read once, each output written once) at the
 card's memory rate and the float32 operations this run's data needs at its
@@ -823,7 +821,7 @@ def eager_step_host_times(fn, steps: int = 20) -> dict:
     d, kp, rc, fw, ic, u0, t0, _ = fn._inputs(None, None, None, None, 0.0,
                                               None)
     A, M_op, s, g0, g1, Ag0, Ag1, b_src, _, amps = fn._operands(
-        d, kp, rc, fw, ic, t0, None, apply_stencil)
+        d, kp, rc, fw, ic, t0, None)
     free = d["free"]
     As, sm, pcr, pcr_z = fn._solve_operands(A, s, free)
     parts = dict(prologue=0.0, wrapper=0.0, epilogue=0.0, read=0.0)
@@ -833,12 +831,13 @@ def eager_step_host_times(fn, steps: int = 20) -> dict:
     for n in range(steps):
         t_a = time.perf_counter()
         b_lift, y0 = step_prologue_reference(
-            M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1, amps[n], s, free,
-            o["warm_start"])
+            apply_stencil, M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1,
+            amps[n], s, free, o["warm_start"])
         bt = b_lift * free
         floor2 = 1e-30 * torch.sum(bt * bt)
         y, r64, rnorm, rtol_eff = refine_residual_reference(
-            A, s, free, bt, y0, floor2, o["rtol"], torch.float32)
+            apply_stencil, A, s, free, bt, y0, floor2, o["rtol"],
+            torch.float32)
         r32, seed = refine_scale_reference(r64, rnorm, rtol_eff,
                                            torch.float32)
         t_b = time.perf_counter()
@@ -877,6 +876,7 @@ def step_case(ws, n: int, timed: bool = False) -> dict:
     time by CUDA events and its bound. Returns rows by kernel name."""
     import torch
     from heatflow_tpu_torch.ops import cuda_step as cs
+    from heatflow_tpu_torch.ops.stencil import apply_stencil
     f32 = torch.float32
     ints = ws.state.view(torch.int32)
     ints[0], ints[1] = n, 80
@@ -902,8 +902,8 @@ def step_case(ws, n: int, timed: bool = False) -> dict:
     order = cs.WARM_ORDER[ws.warm_start]
     src = 0.0 if ws.src is None else ws.src
     plain_pro = lambda: cs.step_prologue_reference(
-        ws.Mop, *ring, src, ws.Ag0, ws.Ag1, ws.amps[n], ws.s, ws.free,
-        ws.warm_start)
+        apply_stencil, ws.Mop, *ring, src, ws.Ag0, ws.Ag1, ws.amps[n], ws.s,
+        ws.free, ws.warm_start)
     cs.step_prologue(ws)
     b_lift, y0 = plain_pro()
     bt = b_lift * ws.free
@@ -926,7 +926,8 @@ def step_case(ws, n: int, timed: bool = False) -> dict:
         rn = ws.state[3 + p - 1].clone() if p else None
         y_in = ws.y[0].clone()
         plain_res = lambda: cs.refine_residual_reference(
-            ws.A, ws.s, ws.free, ws.bt, y_in, floor2, ws.rtol, f32, dy, rn)
+            apply_stencil, ws.A, ws.s, ws.free, ws.bt, y_in, floor2, ws.rtol,
+            f32, dy, rn)
         cs.refine_residual(ws, p)
         y, r64, rnorm, rtol_eff = plain_res()
         torch.cuda.synchronize()
@@ -939,8 +940,8 @@ def step_case(ws, n: int, timed: bool = False) -> dict:
         # in the kernels' own summation order: bitwise
         k_floor2 = 1e-30 * cs.kernel_order_sum(ws.bt * ws.bt)
         _, _, k_rnorm, k_rtol = cs.refine_residual_reference(
-            ws.A, ws.s, ws.free, ws.bt, y_in, k_floor2, ws.rtol, f32, dy, rn,
-            cs.kernel_order_sum)
+            apply_stencil, ws.A, ws.s, ws.free, ws.bt, y_in, k_floor2,
+            ws.rtol, f32, dy, rn, cs.kernel_order_sum)
         require(torch.equal(ws.state[3 + p], k_rnorm)
                 and torch.equal(ws.state[2], k_floor2)
                 and torch.equal(ws.rtol32, k_rtol),
@@ -1457,9 +1458,9 @@ def _capture(module, name: str, run) -> list:
 def sweep_phase_cases(A0, Kv, dks, sm, b, x0, rng) -> dict:
     """name -> (kernel wrapper, plain version, arguments, bound on the
     relative error) for each phase kernel of K2/K3. Field phases run on the
-    given lanes with numpy-seeded fields; finalize, compact and finish on
-    per-lane states of 1024 lanes (finish: of the given lanes, one of them
-    with a NaN residual)."""
+    given lanes with numpy-seeded fields; compact on a per-lane state of
+    1024 lanes, finish on one of the given lanes (one of them with a NaN
+    residual)."""
     import torch
     from heatflow_tpu_torch.ops import cuda_sweep as cs
     B, nz, nr = b.shape
@@ -1472,12 +1473,6 @@ def sweep_phase_cases(A0, Kv, dks, sm, b, x0, rng) -> dict:
                                             dtype=torch.float64, device=dev)
     x, r, p, Ap = field(), field(), field(), field()
     nb = 1024
-    parts = torch.tensor(rng.uniform(0.5, 1.5, (4, nb, nz)),
-                         dtype=torch.float64, device=dev)
-    parts[1, 7] = float("nan")              # a lane with a NaN residual
-    rtol = torch.tensor(rng.uniform(1e-6, 1e-1, nb), dtype=torch.float32,
-                        device=dev)
-    rtol[5] = 2.0
     state = cs.pack_state(nb, dev, rz=lane(0.5, 2.0, nb),
                           rr=lane(0.5, 2.0, nb), stop2=lane(0.0, 2.0, nb),
                           alpha=lane(0.1, 1.0, nb), beta=lane(0.1, 1.0, nb),
@@ -1487,12 +1482,6 @@ def sweep_phase_cases(A0, Kv, dks, sm, b, x0, rng) -> dict:
     rr_b[B // 2] = float("nan")
     fin_state = cs.pack_state(B, dev, rr=rr_b,
                               k=torch.tensor(rng.integers(0, 500, B)))
-    fin = lambda mode, rline: (
-        lambda st, pt: cs.finalize(st, pt, mode, rtol, rline=rline,
-                                   maxiter=40, rtol_wrt="b"),
-        lambda st, pt: cs.finalize_reference(st, pt, mode, rtol,
-                                             rline=rline, maxiter=40,
-                                             rtol_wrt="b"))
     cases = {
         "init": (cs.init, cs.init_reference, (A0, Kv, dks, sm, b, x0), 1e-5),
         "stencil_dot": (cs.stencil_dot, cs.stencil_dot_reference,
@@ -1504,9 +1493,6 @@ def sweep_phase_cases(A0, Kv, dks, sm, b, x0, rng) -> dict:
                      (p, r, lane(0.1, 1.0)), 1e-5),
         "compact": (cs.compact, cs.compact_reference, (state,), 0.0),
         "finish": (cs.finish, cs.finish_reference, (x, fin_state), 0.0)}
-    for mode, rline in (("init", True), ("alpha", False), ("beta", True)):
-        cases[f"finalize[{mode}]"] = (*fin(mode, rline), (state, parts),
-                                      1e-12)
     # the redesigned phases with their per-lane tails, on a state of the
     # given lanes with one lane done (the merged-dot pass's: phase 14b)
     tails = tail_cases(A0, Kv, dks, sm, b, x0, x, r, p, Ap, rng)
@@ -1587,7 +1573,7 @@ def k2_phase_bound(name: str, args, outs) -> dict:
     """The bound of one K2 phase kernel on its arguments: the operands it
     reads (the two coupling slots of A0 and Kv for a line solve) and the
     outputs it writes, once each; its operations per grid point and lane,
-    or per partial sum / lane for the scalar phases."""
+    or per lane for the compaction."""
     import torch
     outs = outs if isinstance(outs, tuple) else (outs,)
     ins = [a for a in args if torch.is_tensor(a)]
@@ -1600,9 +1586,8 @@ def k2_phase_bound(name: str, args, outs) -> dict:
         if args[1] is not None:
             ins[1] = ins[1][slots]
     moved = nbytes(*ins, *outs)
-    if base in ("finalize", "compact"):
-        return bound(moved, ins[-1].numel() if base == "finalize" else
-                     ins[0].shape[0])
+    if base == "compact":
+        return bound(moved, ins[0].shape[0])
     fields = next(t for t in reversed(ins)
                   if t.dtype == torch.float32 and t.ndim == 3)
     nz, nr = fields.shape[-2:]
@@ -1846,15 +1831,12 @@ K2_LAUNCHES = dict(identity=3, rline=3, adi=4, adaptive=4, no_kv=3, fixed=3)
 def _sweep_counts():
     """K2 / K3 launches since the counters were set to 0: by phase kernel,
     solves by form, and launches an iteration by form; checks that each
-    form's iteration took its K2_LAUNCHES and that no solve launched the
-    single-phase scalar kernels."""
+    form's iteration took its K2_LAUNCHES."""
     from heatflow_tpu_torch.ops import cuda_sweep as cs
     phases = cs.phase_launches()
     per_iter = cs.launches_per_iteration()
     want = {f: K2_LAUNCHES[f.removesuffix("_merged")] for f in per_iter}
     require(per_iter == want, ("K2 launches an iteration", per_iter, want))
-    require(phases["finalize"] == 0 and phases["finalize_merged"] == 0,
-            ("a solve launched a scalar kernel", phases))
     return dict(phases=phases, per_iteration=per_iter,
                 identity=cs.cg_batched_tol.launches_identity,
                 rline=cs.cg_batched_tol.launches_rline,
@@ -3083,22 +3065,7 @@ def merged_sweep_checks(problem, device, out: dict) -> dict:
     u, r, p, q = field(), field(), field(), field()
     beta = torch.tensor(rng.uniform(0.1, 1.0, len(live)),
                         dtype=torch.float64, device=device)
-    nb = 1024
-    parts = torch.tensor(rng.uniform(0.5, 1.5, (4, nb, nz)),
-                         dtype=torch.float64, device=device)
-    parts[1, 7] = float("nan")
-    rtol_s = torch.tensor(rng.uniform(1e-6, 1e-1, nb), dtype=torch.float32,
-                          device=device)
-    state = cs.pack_state(
-        nb, device, **{k: torch.tensor(rng.uniform(0.5, 2.0, nb),
-                                       dtype=torch.float64, device=device)
-                       for k in ("rz", "rr", "stop2", "alpha", "beta")},
-        k=torch.tensor(rng.integers(0, 50, nb)),
-        done=torch.tensor(rng.random(nb) < 0.3))
     st7 = tail_state(len(live), rng, device)
-    fin = lambda fn, first: (lambda: fn(state, parts, first, rtol_s,
-                                        preconditioned=True, maxiter=40,
-                                        rtol_wrt="b"))
     n_pts = len(live) * nz * nr
     cases = {
         "merged_w": (lambda: cs.merged_w(A0, Kv, dk7, sm7, u, r),
@@ -3115,15 +3082,7 @@ def merged_sweep_checks(problem, device, out: dict) -> dict:
             nbytes(A0, Kv, dk7, sm7, u, r, u, st7, st7), 35 * n_pts, 1e-5),
         "pq_update": (lambda: cs.pq_update(p, q, u, r, beta),
                       lambda: cs.pq_update_reference(p, q, u, r, beta),
-                      nbytes(p, q, u, r, p, q), 4 * n_pts, 1e-5),
-        "finalize_merged[first]": (
-            fin(cs.finalize_merged, True),
-            fin(cs.finalize_merged_reference, True),
-            nbytes(state, parts, state), parts.numel(), 1e-12),
-        "finalize_merged[next]": (
-            fin(cs.finalize_merged, False),
-            fin(cs.finalize_merged_reference, False),
-            nbytes(state, parts, state), parts.numel(), 1e-12)}
+                      nbytes(p, q, u, r, p, q), 4 * n_pts, 1e-5)}
     for name, (kernel, plain, moved, ops, tol) in cases.items():
         out_p = plain()
         err, rel = compare_outputs(kernel(), out_p)
@@ -5449,13 +5408,8 @@ def main() -> None:
                  "cg_batched_tol[adi]": "adi",
                  "cg_batched_tol[adaptive]": "adaptive"}
     adi_runs = adi_counts + [f["k2_launches"] for f in fit_runs]
-    # the single-phase scalar kernels (ks_finalize, ks_finalize_merged) are
-    # checked in phases 5 and 14 but run on no path: no row of the line
-    scalar = ("finalize", "finalize_merged")
     for name, r in (list(sweep_rows.items()) + list(proj_rows.items())
                     + list(adi_rows.items())):
-        if r.get("phase") in scalar:
-            continue
         runs = (rec_counts if name.endswith("[no_kv]") else
                 adi_runs if name in adi_rows else sweep_counts)
         n = sum(c["phases"][r["phase"]] if "phase" in r
@@ -5481,8 +5435,6 @@ def main() -> None:
                               form_rows["solves"][form]))
     k2 = form_counts["k2"]
     for name, r in merged_rows.items():
-        if r.get("phase") in scalar:
-            continue
         phase = ("merged_w_no_kv" if name.endswith("merged_w[no_kv]")
                  else r.get("phase"))
         kernels.append(kernel(name, SWEEP_SOURCE, K2_REPLACES,

@@ -70,8 +70,7 @@
 //    ks_update with the beta tail, ks_p_update), an r-line one 3 (ks_apply,
 //    ks_pcr_r<true>, ks_p_update), an ADI one 4 (+ ks_pcr_z with the beta
 //    tail); the merged-dot recurrence's scalars are the tail of its pass
-//    (3 / 3 / 4 launches). ks_finalize and ks_finalize_merged remain as
-//    single phases, run by no solve;
+//    (3 / 3 / 4 launches);
 //  * the elementwise and row kernels issue a thread's loads before its
 //    stores: ks_update 2.41 us a lane-iteration in the B = 1024 sweep
 //    (six planes, with the beta tail) against the first design's 3.18;
@@ -130,13 +129,11 @@ struct LaneState {
 
 // Launch-count slots; the Kv-free forms of init and stencil_dot count apart.
 enum Phase {
-  kPhInit = 0, kPhStencilDot, kPhUpdate, kPhPcrR, kPhFinalize, kPhPUpdate,
-  kPhCompact, kPhFinish, kPhInitNoKv, kPhStencilDotNoKv, kPhPcrZ,
-  kPhMergedW, kPhMergedWNoKv, kPhFinalizeMerged, kPhPqUpdate, kPhPcrRUpdate,
+  kPhInit = 0, kPhStencilDot, kPhUpdate, kPhPcrR, kPhPUpdate, kPhCompact,
+  kPhFinish, kPhInitNoKv, kPhStencilDotNoKv, kPhPcrZ, kPhMergedW,
+  kPhMergedWNoKv, kPhPqUpdate, kPhPcrRUpdate,
   kNumPhases
 };
-
-enum FinalizeMode { kFinInit = 0, kFinAlpha = 1, kFinBeta = 2 };
 
 // Partial-sum planes: 4 x B x nparts doubles.
 enum Part { kPartPap = 0, kPartRr = 1, kPartRz = 2, kPartBb = 3 };
@@ -982,38 +979,6 @@ __global__ void __launch_bounds__(kThreads)
   single_tail(tail, lane);
 }
 
-// The CG scalars of one lane a block (the single-phase form of the tails):
-// mode kFinInit the first step's scalars, kFinAlpha alpha, kFinBeta beta,
-// the count and the stop test. n_rz == 0 means z is r (identity form), so
-// <r, z> = <r, r>.
-__global__ void ks_finalize(LaneState* st, const double* parts, int B,
-                            int nparts, int n_elem, int n_rz, int mode,
-                            const float* __restrict__ rtol, int maxiter,
-                            int wrt_r0, int fixed,
-                            const int* __restrict__ lanes) {
-  const int lane = lanes[blockIdx.x];
-  LaneState* s = st + lane;
-  if (mode != kFinInit && s->done) return;
-  const size_t plane = (size_t)B * nparts;
-  const double* base = parts + (size_t)lane * nparts;
-  if (mode == kFinAlpha) {
-    const double pap = reduce_parts(base + kPartPap * plane, n_elem);
-    if (threadIdx.x == 0) alpha_rule(s, pap);
-    return;
-  }
-  const double rr = reduce_parts(base + kPartRr * plane, n_elem);
-  const double rz = n_rz > 0 ? reduce_parts(base + kPartRz * plane, n_rz)
-                             : rr;
-  if (mode == kFinInit) {
-    const double bb = reduce_parts(base + kPartBb * plane, n_elem);
-    if (threadIdx.x == 0)
-      init_rule(s, rr, rz, bb, n_rz > 0, fixed ? 0.0 : (double)rtol[lane],
-                maxiter, wrt_r0, fixed);
-    return;
-  }
-  if (threadIdx.x == 0) beta_rule(s, rr, rz, n_rz > 0, maxiter, fixed);
-}
-
 // p = z + beta p (p = z on the first call).
 __global__ void ks_p_update(float* __restrict__ p, const float* __restrict__ z,
                             const LaneState* st,
@@ -1037,28 +1002,6 @@ __global__ void ks_p_update(float* __restrict__ p, const float* __restrict__ z,
     const size_t idx = elem(m);
     if (idx < n) p[off + idx] = first ? zv[m] : zv[m] + beta * pv[m];
   }
-}
-
-// The merged recurrence's scalars of one lane a block (the single-phase
-// form of its tail).
-__global__ void ks_finalize_merged(LaneState* st, const double* parts, int B,
-                                   int nparts, int n_elem, int preconditioned,
-                                   int first, const float* __restrict__ rtol,
-                                   int maxiter, int wrt_r0,
-                                   const int* __restrict__ lanes) {
-  const int lane = lanes[blockIdx.x];
-  LaneState* s = st + lane;
-  if (!first && s->done) return;
-  const size_t plane = (size_t)B * nparts;
-  const double* base = parts + (size_t)lane * nparts;
-  const double delta = reduce_parts(base + kPartPap * plane, n_elem);
-  const double rr = reduce_parts(base + kPartRr * plane, n_elem);
-  const double gamma = reduce_parts(base + kPartRz * plane, n_elem);
-  const double bb =
-      first ? reduce_parts(base + kPartBb * plane, n_elem) : 0.0;
-  if (threadIdx.x == 0)
-    merged_rule(s, delta, rr, gamma, bb, first != 0, preconditioned != 0,
-                first ? (double)rtol[lane] : 0.0, maxiter, wrt_r0);
 }
 
 // p = u + beta p, q = w + beta q (p = u, q = w on the first call).
@@ -1339,36 +1282,12 @@ cudaError_t launch_pcr_z(const float* A0, const float* Kv, const float* dks,
   return cudaGetLastError();
 }
 
-cudaError_t launch_finalize(LaneState* st, const double* parts, int B,
-                            int nparts, int n_elem, int n_rz, int mode,
-                            const float* rtol, int maxiter, int wrt_r0,
-                            int fixed, const int* lanes, int n_lanes,
-                            long long* counts, cudaStream_t stream) {
-  ks_finalize<<<n_lanes, kThreads, 0, stream>>>(
-      st, parts, B, nparts, n_elem, n_rz, mode, rtol, maxiter, wrt_r0, fixed,
-      lanes);
-  counts[kPhFinalize] += 1;
-  return cudaGetLastError();
-}
-
 cudaError_t launch_p_update(float* p, const float* z, const LaneState* st,
                             const int* lanes, int first, int n_lanes, int nz,
                             int nr, long long* counts, cudaStream_t stream) {
   ks_p_update<<<dim3(tiles_of(nz, nr), n_lanes), kThreads, 0, stream>>>(
       p, z, st, lanes, first, (size_t)nz * nr);
   counts[kPhPUpdate] += 1;
-  return cudaGetLastError();
-}
-
-cudaError_t launch_finalize_merged(LaneState* st, const double* parts, int B,
-                                   int nparts, int n_elem, int preconditioned,
-                                   int first, const float* rtol, int maxiter,
-                                   int wrt_r0, const int* lanes, int n_lanes,
-                                   long long* counts, cudaStream_t stream) {
-  ks_finalize_merged<<<n_lanes, kThreads, 0, stream>>>(
-      st, parts, B, nparts, n_elem, preconditioned, first, rtol, maxiter,
-      wrt_r0, lanes);
-  counts[kPhFinalizeMerged] += 1;
   return cudaGetLastError();
 }
 
@@ -1694,17 +1613,6 @@ int hf_sweep_pcr_z(const float *A0, const float *Kv, const float *dks,
                            no_tail(), counts, (cudaStream_t)stream);
 }
 
-// mode 0: the first step's scalars; 1: alpha; 2: beta and the stop test.
-// n_elem partials of pAp, rr and bb a lane, n_rz of rz (0: z is r).
-int hf_sweep_finalize(void *state, const double *parts, int B, int nparts,
-                      int n_elem, int n_rz, int mode, const float *rtol,
-                      int maxiter, int wrt_r0, int fixed, const int *lanes,
-                      int n_lanes, long long *counts, void *stream) {
-  return (int)launch_finalize((LaneState *)state, parts, B, nparts, n_elem,
-                              n_rz, mode, rtol, maxiter, wrt_r0, fixed, lanes,
-                              n_lanes, counts, (cudaStream_t)stream);
-}
-
 int hf_sweep_p_update(float *p, const float *z, const void *state,
                       const int *lanes, int first, int n_lanes, int nz,
                       int nr, long long *counts, void *stream) {
@@ -1730,19 +1638,6 @@ int hf_sweep_merged_w(const float *A0, const float *Kv, int npts,
       phase_tail(state, tickets, parts, B, nparts, kTailMerged, t2, t2, t2,
                  nullptr, maxiter, 0, 0, preconditioned),
       counts, (cudaStream_t)stream);
-}
-
-// The merged recurrence's scalar phase alone; `parts` four planes (delta,
-// rr, gamma, bb), n_elem partials of each a lane.
-int hf_sweep_finalize_merged(void *state, const double *parts, int B,
-                             int nparts, int n_elem, int preconditioned,
-                             int first, const float *rtol, int maxiter,
-                             int wrt_r0, const int *lanes, int n_lanes,
-                             long long *counts, void *stream) {
-  return (int)launch_finalize_merged((LaneState *)state, parts, B, nparts,
-                                     n_elem, preconditioned, first, rtol,
-                                     maxiter, wrt_r0, lanes, n_lanes, counts,
-                                     (cudaStream_t)stream);
 }
 
 // p = u + beta p, q = w + beta q in place, beta from each lane's state.

@@ -219,12 +219,9 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_sweep_pcr_r_update, P, P, P, P, I, P, P, P, P, P, P, P, P, I,
          I, P, I, I, I, I, I, I, I, P, P)
     _sig(lib.hf_sweep_pcr_z, P, P, P, P, I, P, P, P, P, I, I, I, I, I, P, P)
-    _sig(lib.hf_sweep_finalize, P, P, I, I, I, I, I, P, I, I, I, P, I, P, P)
     _sig(lib.hf_sweep_p_update, P, P, P, P, I, I, I, I, P, P)
     _sig(lib.hf_sweep_merged_w, P, P, I, P, P, I, P, P, P, P, P, I, I, I, I,
          I, P, P, I, I, P, P)
-    _sig(lib.hf_sweep_finalize_merged, P, P, I, I, I, I, I, P, I, I, P, I, P,
-         P)
     _sig(lib.hf_sweep_pq_update, P, P, P, P, P, P, I, I, I, P, P)
     _lib = lib
     return _lib

@@ -25,13 +25,15 @@ kernel there; these kernels are the counterparts of those fusions. A step:
   added), the watcher row, the step's iteration count and the adaptive
   flag for the next step.
 
-The elementwise work rounds each product and sum as the eager expressions
-do (``__fmul_rn`` / ``__dadd_rn`` ..., the stencil summed in
+Each kernel's plain version below is the step's arithmetic as the eager
+step loop (``sim/stepper.GraphPath._run_eager``) runs it, on any operator
+format. The kernels round each product and sum as the plain versions do
+(``__fmul_rn`` / ``__dadd_rn`` ..., the stencil summed in
 ``apply_stencil``'s order), so the planes are bitwise the eager loop's; only
 the two inner products are summed in another (fixed) order.
 
 A :class:`StepWorkspace` holds every plane a run reads and writes, so one
-captured graph serves every call of a ``Simulator``: the call's operands are
+captured graph serves every call of a simulator: the call's operands are
 copied in, the graph launched once (a conditional WHILE node over the
 steps), the outputs copied out. The device counts each kernel's launches
 and each solve form's solves in the step state; the host reads them once,
@@ -56,7 +58,7 @@ WARM_ORDER = {"previous": 0, "extrapolate": 1, "extrapolate2": 2}
 
 
 # ----------------------------------------------------------------------
-# Plain versions (the eager loop's expressions)
+# Plain versions (the eager step loop runs them)
 # ----------------------------------------------------------------------
 
 def warm_seed(prev, pp, ppp, warm_start: str):
@@ -67,12 +69,12 @@ def warm_seed(prev, pp, ppp, warm_start: str):
     return 2.0 * prev - pp if warm_start == "extrapolate" else prev
 
 
-def step_prologue_reference(M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1, amp,
-                            s, free, warm_start: str, halo=None):
+def step_prologue_reference(apply, M_op, u_prev, u_pp, u_ppp, b_src, Ag0,
+                            Ag1, amp, s, free, warm_start: str):
     """(b_lift, y0): the step's lifted, scaled right-hand side and the
-    scaled warm-start seed. ``b_src`` is a plane or 0.0; ``halo``: see
-    ``ops.stencil.apply_stencil``."""
-    b = apply_stencil(M_op, u_prev, halo=halo) + b_src
+    scaled warm-start seed. ``apply(C, v)`` is the operator format's
+    product; ``b_src`` is a plane or 0.0."""
+    b = apply(M_op, u_prev) + b_src
     b_lift = (b - (Ag0 + amp * Ag1)) * s
     u_seed = warm_seed(u_prev, u_pp, u_ppp, warm_start)
     y0 = (u_seed / torch.where(s > 0, s, torch.ones_like(s))) * free
@@ -108,16 +110,24 @@ def kernel_order_sum(v: torch.Tensor) -> torch.Tensor:
     return _block_sums(acc)[0]
 
 
-def refine_residual_reference(A, s, free, bt, y, floor2, rtol,
+def _lane(v: torch.Tensor) -> torch.Tensor:
+    """A scalar of each lane (its leading dims) against (..., Nz, Nr)
+    planes."""
+    return v[..., None, None]
+
+
+def refine_residual_reference(apply, A, s, free, bt, y, floor2, rtol,
                               dtype: torch.dtype, dy=None, rnorm=None,
                               total=torch.sum):
     """One refinement pass's float64 residual: (y, r64, rnorm, rtol_eff),
     y first taking the previous pass's correction ``dy``·``rnorm`` when
-    given; ``total`` sums ⟨r64, r64⟩ (:func:`kernel_order_sum`: in the
-    kernel's order)."""
+    given. ``apply(C, v)`` is the operator format's product; ``total``
+    sums ⟨r64, r64⟩, over the whole plane or one sum a lane
+    (:func:`kernel_order_sum`: in the kernel's order), and ``floor2``,
+    rnorm and rtol_eff have its shape."""
     if dy is not None:
-        y = y + dy.to(y.dtype) * rnorm
-    r64 = bt - free * (s * apply_stencil(A, s * y))
+        y = y + dy.to(y.dtype) * _lane(rnorm)
+    r64 = bt - free * (s * apply(A, s * y))
     rn2 = total(r64 * r64)
     rnorm, rtol_eff = refine_inner_scale(rn2, floor2, rtol, dtype)
     return y, r64, rnorm, rtol_eff
@@ -128,7 +138,7 @@ def refine_scale_reference(r64, rnorm, rtol_eff, dtype: torch.dtype,
     """(r32, seed): the inner solve's unit-norm right-hand side and its
     seed, zero or the carried correction ``dy`` (zeroed on a degenerate
     pass)."""
-    r32 = (r64 / rnorm).to(dtype)
+    r32 = (r64 / _lane(rnorm)).to(dtype)
     seed = (refine_inner_seed(dy, rtol_eff).contiguous() if dy is not None
             else torch.zeros(r64.shape, dtype=dtype, device=r64.device))
     return r32, seed
@@ -138,7 +148,7 @@ def step_epilogue_reference(x, s, free, g0, g1, amp, dy=None, rnorm=None):
     """The new field u = x·s·free + (g0 + amp·g1), x first taking the last
     pass's correction ``dy``·``rnorm`` when given."""
     if dy is not None:
-        x = x + dy.to(x.dtype) * rnorm
+        x = x + dy.to(x.dtype) * _lane(rnorm)
     return x * s * free + (g0 + amp * g1)
 
 
@@ -351,7 +361,8 @@ def step_prologue(ws: StepWorkspace) -> None:
         n = ws.step_index()
         prev, pp, ppp = (ws.ring[(n + k) % 3] for k in (2, 1, 0))
         b_lift, y0 = step_prologue_reference(
-            ws.Mop, prev, pp, ppp, 0.0 if ws.src is None else ws.src,
+            apply_stencil, ws.Mop, prev, pp, ppp,
+            0.0 if ws.src is None else ws.src,
             ws.Ag0, ws.Ag1, ws.amps[n], ws.s, ws.free, ws.warm_start)
         bt = b_lift * ws.free
         ws.bt.copy_(bt)
@@ -373,7 +384,7 @@ def refine_residual(ws: StepWorkspace, p: int) -> None:
         dy = ws.dx[p - 1] if p else None
         rn = ws.state[_RNORM + p - 1] if p else None
         y, r64, rnorm, rtol_eff = refine_residual_reference(
-            ws.A, ws.s, ws.free, ws.bt, ws.y[max(p - 1, 0)],
+            apply_stencil, ws.A, ws.s, ws.free, ws.bt, ws.y[max(p - 1, 0)],
             ws.state[_FLOOR2], ws.rtol, torch.float32, dy, rn)
         if p:
             ws.y[p].copy_(y)

@@ -39,10 +39,9 @@ CHECK_EVERY = 8   # iterations enqueued between two host reads of the number
                   # of running lanes; the iterates and the counts do not
                   # depend on it
 
-PHASES = ("init", "stencil_dot", "update", "pcr_r", "finalize", "p_update",
-          "compact", "finish", "init_no_kv", "stencil_dot_no_kv", "pcr_z",
-          "merged_w", "merged_w_no_kv", "finalize_merged", "pq_update",
-          "pcr_r_update")
+PHASES = ("init", "stencil_dot", "update", "pcr_r", "p_update", "compact",
+          "finish", "init_no_kv", "stencil_dot_no_kv", "pcr_z", "merged_w",
+          "merged_w_no_kv", "pq_update", "pcr_r_update")
 # phase kernel launches, counted by the C host code where it launches them
 _phase_counts = np.zeros(len(PHASES), dtype=np.int64)
 _STATE_WORDS = 6   # float64 words of one lane's solve state
@@ -987,37 +986,6 @@ def pcr_z(A0, Kv, dks, sm, r, z_r):
     return z, parts[2, :, :lib.hf_sweep_z_tiles(nz, nr)].sum(dim=1)
 
 
-def finalize(state, parts, mode: str, rtol=0.0, *, rline: bool,
-             maxiter: int, rtol_wrt: str = "b", fixed: bool = False):
-    """The scalar phase alone (see :func:`finalize_reference`) on a state
-    (B, 6) float64 and partial sums (4, B, n) float64; returns the new
-    state, the input left as it is."""
-    _check_rtol_wrt(rtol_wrt)
-    if mode not in FINALIZE_MODES:
-        raise ValueError(f"finalize mode must be one of {FINALIZE_MODES}")
-    if _on_cpu(state, parts):
-        return finalize_reference(state, parts, mode, rtol, rline=rline,
-                                  maxiter=maxiter, rtol_wrt=rtol_wrt,
-                                  fixed=fixed)
-    B = _check_state(state, state.device)
-    if (parts.ndim != 3 or parts.shape[:2] != (4, B)
-            or parts.dtype != torch.float64 or not parts.is_contiguous()
-            or parts.device != state.device):
-        raise ValueError("parts must be contiguous (4, B, n) float64 partial "
-                         "sums on the state's device")
-    lib = _library()
-    n = parts.shape[2]
-    out = state.clone()
-    rtol_t = _rtol_lanes(rtol, B, torch.float32, state.device).contiguous()
-    lanes = torch.arange(B, dtype=torch.int32, device=state.device)
-    _check(lib.hf_sweep_finalize(
-        _ptr(out), _ptr(parts), B, n, n, n if rline else 0,
-        FINALIZE_MODES.index(mode), _ptr(rtol_t), int(maxiter),
-        int(rtol_wrt == "r0"), int(fixed), _ptr(lanes), B, _counts_ptr(),
-        _stream()), "sweep finalize")
-    return out
-
-
 def p_update(p, z, beta):
     """The search-direction phase alone: z + β·p per lane for β (B,)
     float64; p is left as it is."""
@@ -1071,34 +1039,6 @@ def pq_update(p, q, u, w, beta):
                                   _counts_ptr(), _stream()),
            "sweep pq_update")
     return p_n, q_n
-
-
-def finalize_merged(state, parts, first: bool, rtol=0.0, *,
-                    preconditioned: bool, maxiter: int,
-                    rtol_wrt: str = "b"):
-    """The merged recurrence's scalar phase alone (see
-    :func:`finalize_merged_reference`); returns the new state."""
-    _check_rtol_wrt(rtol_wrt)
-    if _on_cpu(state, parts):
-        return finalize_merged_reference(
-            state, parts, first, rtol, preconditioned=preconditioned,
-            maxiter=maxiter, rtol_wrt=rtol_wrt)
-    B = _check_state(state, state.device)
-    if (parts.ndim != 3 or parts.shape[:2] != (4, B)
-            or parts.dtype != torch.float64 or not parts.is_contiguous()
-            or parts.device != state.device):
-        raise ValueError("parts must be contiguous (4, B, n) float64 partial "
-                         "sums on the state's device")
-    lib = _library()
-    n = parts.shape[2]
-    out = state.clone()
-    rtol_t = _rtol_lanes(rtol, B, torch.float32, state.device).contiguous()
-    lanes = torch.arange(B, dtype=torch.int32, device=state.device)
-    _check(lib.hf_sweep_finalize_merged(
-        _ptr(out), _ptr(parts), B, n, n, int(preconditioned), int(first),
-        _ptr(rtol_t), int(maxiter), int(rtol_wrt == "r0"), _ptr(lanes), B,
-        _counts_ptr(), _stream()), "sweep finalize_merged")
-    return out
 
 
 def compact(state):

@@ -29,6 +29,12 @@ device), as the JAX package runs it as one XLA program; the host reads
 nothing between steps. The eager loop (:meth:`Simulator.forward_eager`) is
 its plain version and runs everything else; there it reads the previous
 step's iteration count under ``precondition='adaptive'``.
+
+The step is written once, in :class:`GraphPath`, which also runs the
+unstructured meshes' transient (``sim/unstructured``): the operator format
+sits behind a form object (:class:`StencilForm` here, with the z-sharded
+halo; the ELL gather's there), and each simulator supplies its inputs, its
+eager solve and its output gather.
 """
 
 from __future__ import annotations
@@ -47,8 +53,8 @@ from heatflow_tpu_torch.ops.cuda_step import (refine_residual_reference,
                                               step_prologue_reference,
                                               warm_seed)
 from heatflow_tpu_torch.ops.stencil import apply_stencil, combine_operator
-from heatflow_tpu_torch.sim.problem import (Problem2D, band_average,
-                                            band_reduce, band_values)
+from heatflow_tpu_torch.sim.problem import (Problem2D, band_reduce,
+                                            band_values)
 from heatflow_tpu_torch.utils import resolve_device, span
 
 
@@ -170,28 +176,80 @@ def _resolve_solver(solver: str, precondition: str, device: torch.device,
     return use_vmem
 
 
-class GraphPath:
-    """The kernel path's transient as one device program (``ops/cuda_step``)
-    on a lattice of 7- or 9-point stencils: the call's operands, the inner
-    solve's operands, the step workspace and the captured graph's run.
-    Shared by :class:`Simulator` (the structured grid) and the grid-overlay
-    transient of ``sim/unstructured`` (its permuted 9-point lattice). Reads
-    ``problem.dt`` and ``problem.num_steps``, ``opts``, ``dtype``, ``cdt``,
-    ``mg`` and ``_workspaces`` of the module, and the lattice's planes under
-    the names of ``Problem2D.device_arrays`` (``K``, ``M``, ``M_proj``,
-    ``free``, ``dirichlet``, ``r_sq``, ``heat_profile_base``, ``heat_t``,
-    ``heat_T``; ``watch_flat``, the watchers' flat lattice positions)."""
+class StencilForm:
+    """The operator format of a lattice: 7- or 9-plane stencils
+    (..., npts, Nz, Nr) on (..., Nz, Nr) fields. On a z-sharded slab
+    (``zax``, a ``parallel.sharding.ZAxis``) a product reads one halo row
+    of each neighbour and the CG's ``dot`` adds the ranks' partial sums."""
 
-    def _operands(self, d, kp, rc, fw, ic, t0, source, ap):
+    combine = staticmethod(combine_operator)
+
+    def __init__(self, zax=None):
+        self.halo = None if zax is None else zax.halo
+        self.dot = None if zax is None else zax.dots
+
+    def apply(self, C, v):
+        return apply_stencil(C, v, halo=self.halo)
+
+    @staticmethod
+    def diag(C):
+        return C[..., 0, :, :]
+
+
+def _flat(v: torch.Tensor) -> torch.Tensor:
+    return v.reshape(*v.shape[:-2], -1)
+
+
+def _lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """One sum a lane: over the last two dims."""
+    return v.sum(dim=(-2, -1))
+
+
+class GraphPath:
+    """The transient's step loop, shared by :class:`Simulator` (the
+    structured grid) and ``sim/unstructured.SimulatorUnstructured`` (the
+    grid overlay's 9-point lattice, or the ELL gather): the call's
+    operands, the eager loop (:meth:`_run_eager`) and, on a lattice, the
+    kernel path as one device program (:meth:`_run_graph` over
+    ``ops/cuda_step``), whose plain version the eager loop is.
+
+    The operator format is the module's ``form`` (``apply``, ``diag``,
+    ``combine`` and the CG's ``dot``: :class:`StencilForm`, or the ELL
+    gather's). A subclass supplies the rest: ``_inputs`` (a call's
+    arguments as (d, kp, rc, fw, ic, u0, t0, source), fields in the form's
+    layout with leading lane dims), ``_eager_solver`` (the solve off the
+    kernel path) and ``_gather`` (its outputs). Reads ``problem.dt`` and
+    ``problem.num_steps``, ``opts``, ``dtype``, ``cdt``, ``use_vmem``,
+    ``mg`` and ``_workspaces`` of the module, and ``d``'s planes under the
+    names of ``Problem2D.device_arrays`` (``K``, ``M``, ``G_r``,
+    ``M_proj``, ``free``, ``dirichlet``, ``r_sq``, ``heat_profile_base``,
+    ``heat_t``, ``heat_T``; ``watch_flat``, the watchers' flat positions;
+    the gradient rows' ``band_slots``, ``band_fill``, ``bin_counts`` and
+    ``axis_nodes``)."""
+
+    def _register(self, dev: dict[str, torch.Tensor]) -> None:
+        for name, t in dev.items():
+            self.register_buffer(name, t, persistent=False)
+        self._names = tuple(dev)
+
+    @property
+    def dev(self) -> dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in self._names}
+
+    def _records_gradient(self) -> bool:
+        return self.opts["record_gradient"] and "band_slots" in self._names
+
+    def _operands(self, d, kp, rc, fw, ic, t0, source):
         """The run's operators and affine boundary terms: (A, M_op, s, g0,
-        g1, Ag0, Ag1, b_src, ts, amps). ``amps[n]`` is the heating
-        amplitude of step n, elementwise the per-step interpolation."""
+        g1, Ag0, Ag1, b_src, ts, amps), each lane with its own coefficients
+        and ``fw`` (shape (...)). ``amps[n]`` is the heating amplitude of
+        step n, elementwise the per-step interpolation."""
         with span("transient.operands"):
-            problem = self.problem
+            F, problem = self.form, self.problem
             dt = torch.tensor(problem.dt, dtype=self.cdt, device=ic.device)
             free, dirich = d["free"], d["dirichlet"]
-            A, M_op = combine_operator(d["K"], d["M"], kp, rc, dt)
-            diag_a = A[0]
+            A, M_op = F.combine(d["K"], d["M"], kp, rc, dt)
+            diag_a = F.diag(A)
             # symmetric Jacobi scaling (≡ Jacobi preconditioning in exact
             # arithmetic, numerically far better at low precision)
             s = torch.rsqrt(torch.where(diag_a > 0, diag_a,
@@ -199,15 +257,17 @@ class GraphPath:
                 * free + dirich
             coeff = torch.tensor(-4.0 * math.log(2.0), dtype=self.cdt,
                                  device=ic.device) / (fw * fw)
-            profile = torch.exp(coeff * d["r_sq"]) * d["heat_profile_base"]
+            profile = torch.exp(coeff[..., None, None] * d["r_sq"]) \
+                * d["heat_profile_base"]
             # BC value g(t) = g0 + amp(t)·g1: (amp - ic) Gaussian + ic on the
             # heating line, ic on fixed edges (ref run_no_diamond.py:303-309)
             g0 = ic * (dirich - profile)
             g1 = profile
-            Ag0 = ap(A, g0)
-            Ag1 = ap(A, g1)
+            Ag0 = F.apply(A, g0)
+            Ag1 = F.apply(A, g1)
             # volumetric source: rhs += dt ∫ f φ r dx = dt (M_proj @ f)
-            b_src = 0.0 if source is None else dt * ap(d["M_proj"], source)
+            b_src = 0.0 if source is None else \
+                dt * F.apply(d["M_proj"], source)
             ts = torch.arange(1, int(problem.num_steps) + 1, dtype=self.cdt,
                               device=ic.device) * dt + t0
             amp_offset = d["heat_T"][0] - ic   # ref run_no_diamond.py:299-301
@@ -230,6 +290,157 @@ class GraphPath:
                 else None
             return A, s * free, pcr, pcr_z
 
+    def _solver(self, kp, rc, A, s, free):
+        """``solve(b, y0, rtol, use_adi) -> (x, iters)``: a step's solve of
+        the scaled system, or under ``f64_refine`` a pass's correction
+        solve (on the float32 casts of the operands). The kernel path's
+        ``cg_tol`` (its plain version for CPU tensors; the ADI form unless
+        ``use_adi`` is False); else the subclass's eager solve."""
+        if not self.use_vmem:
+            return self._eager_solver(kp, rc, *(v.to(self.dtype)
+                                                for v in (A, s, free)))
+        from heatflow_tpu_torch.ops.cuda_cg import cg_tol
+        o = self.opts
+        As, sm, pcr, pcr_z = self._solve_operands(A, s, free)
+        prec = o["precondition"]
+        kw = dict(maxiter=o["maxiter"], rtol_wrt=o["rtol_wrt"], pcr=pcr,
+                  cheb_degree=0 if prec == "adaptive"
+                  else o["vmem_cheb_degree"],
+                  mgz=self.mg if prec == "mgz" else None,
+                  mgz_sweeps=o["mgz_sweeps"])
+        return lambda b, y0, rtol, use_adi: cg_tol(
+            As, sm, b, y0, rtol, pcr_z=None if use_adi is False else pcr_z,
+            **kw)
+
+    def _pcg_solver(self, A, s, free, pre=None):
+        """The eager PCG (``pcg_fixed`` under ``fixed_iters``) on the scaled
+        system, preconditioned by ``pre``."""
+        o, F = self.opts, self.form
+        op = lambda y: s * F.apply(A, s * y)
+
+        def solve(b, y0, rtol, use_adi):
+            if o["fixed_iters"] is not None:
+                sol = pcg_fixed(op, b, y0, precond=pre, mask=free,
+                                iters=o["fixed_iters"], dot=F.dot)
+            else:
+                sol = pcg(op, b, y0, precond=pre, mask=free, rtol=rtol,
+                          maxiter=o["maxiter"], rtol_wrt=o["rtol_wrt"],
+                          dot=F.dot)
+            return sol.x, sol.iters
+        return solve
+
+    def _projection(self, d):
+        """``project(u, seed) -> (gr, iters)``: the gradient projection,
+        G_r u solved against the mass matrix M_proj by a symmetrically
+        scaled PCG in ``dtype`` (operator entries span ~15 decades; the
+        unit diagonal is float32-safe)."""
+        o, F, dtype = self.opts, self.form, self.dtype
+        diag = F.diag(d["M_proj"])
+        s_mp = torch.rsqrt(torch.where(diag > 0, diag, torch.ones_like(diag))
+                           ).to(dtype)
+        Mp, G = d["M_proj"].to(dtype), d["G_r"].to(dtype)
+        op = lambda y: s_mp * F.apply(Mp, s_mp * y)
+
+        def project(u, seed):
+            br = s_mp * F.apply(G, u.to(dtype))
+            sol = pcg(op, br, seed / s_mp, rtol=o["proj_rtol"],
+                      maxiter=o["proj_maxiter"], dot=F.dot)
+            return sol.x * s_mp, sol.iters
+        return project
+
+    def _run_eager(self, d, kp, rc, fw, ic, u0, t0, source,
+                   inner_sum=_lane_sum):
+        """The transient as a loop of eager steps on any device, the plain
+        versions of the step kernels (``ops/cuda_step``) around each solve:
+        ``f64_refine`` passes of float64 residual and float32 correction,
+        each inner solve from zero or (inner_seed='carry') from the previous
+        step's correction of the same pass; then the watcher row, the
+        gradient rows and the field. Under 'adaptive' the host reads each
+        step's iteration count. ``inner_sum`` takes the refinement's inner
+        products, one a lane (``ops.cuda_step.kernel_order_sum``: in the
+        step kernels' order)."""
+        o, F, dtype = self.opts, self.form, self.dtype
+        passes, warm_start = o["f64_refine"], o["warm_start"]
+        carry = o["inner_seed"] == "carry"
+        adaptive = o["precondition"] == "adaptive"
+        A, M_op, s, g0, g1, Ag0, Ag1, b_src, ts, amps = self._operands(
+            d, kp, rc, fw, ic, t0, source)
+        free = d["free"]
+        solve = self._solver(kp, rc, A, s, free)
+        project = self._projection(d) if self._records_gradient() else None
+        zero = lambda: torch.zeros(u0.shape, dtype=dtype, device=u0.device)
+        dys = [zero() for _ in range(passes)]
+
+        def refined(bt, y, use_adi):
+            """The step's refinement passes: (y before the last pass's
+            correction, iters, that correction, its rnorm)."""
+            # inner stop floor: a residual at f64 roundoff relative to the
+            # step's rhs has nothing left to correct
+            floor2 = 1e-30 * inner_sum(bt * bt)
+            iters = torch.zeros((), dtype=torch.int32, device=u0.device)
+            dy = rn = None
+            for i in range(passes):
+                y, r64, rn, rtol_eff = refine_residual_reference(
+                    F.apply, A, s, free, bt, y, floor2, o["rtol"], dtype, dy,
+                    rn, inner_sum)
+                r32, seed = refine_scale_reference(
+                    r64, rn, rtol_eff, dtype, dys[i] if carry else None)
+                dy, its = solve(r32, seed, rtol_eff, use_adi)
+                dys[i] = dy
+                iters = iters + its
+            return y, iters, dy, rn
+
+        # the first (cold) step is the deepest solve: start on the ADI form
+        it_prev = o["maxiter"]
+        u_prev = u_pp = u_ppp = u0
+        gr_prev = gr_pp = gr_ppp = zero()
+        outs: dict[str, list] = {}
+        for n in range(int(self.problem.num_steps)):
+            with span("transient.step"):
+                use_adi = it_prev > o["adaptive_thresh"] if adaptive \
+                    else None
+                amp = amps[n]
+                b_lift, y0 = step_prologue_reference(
+                    F.apply, M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1, amp,
+                    s, free, warm_start)
+                bt = b_lift * free
+                dy = rn = None
+                with span("k1.solve"):
+                    if passes:
+                        x, iters, dy, rn = refined(bt, y0, use_adi)
+                    else:
+                        x, iters = solve(bt, y0, o["rtol"], use_adi)
+                u = step_epilogue_reference(x, s, free, g0, g1, amp, dy, rn)
+                if iters is not None:
+                    outs.setdefault("cg_iters", []).append(iters)
+                if "watch_flat" in d:
+                    outs.setdefault("watch", []).append(
+                        _flat(u)[..., d["watch_flat"]])
+                if project is not None:
+                    with span("step.project"):
+                        # the projection seed rides the same warm-start knob
+                        gr, its = project(u, warm_seed(gr_prev, gr_pp, gr_ppp,
+                                                       warm_start))
+                        flat = _flat(gr)
+                        outs.setdefault("band", []).append(band_values(
+                            flat, d["band_slots"], d["band_fill"]))
+                        outs.setdefault("axis", []).append(
+                            flat[..., d["axis_nodes"]])
+                        outs.setdefault("proj_iters", []).append(its)
+                    gr_ppp, gr_pp, gr_prev = gr_pp, gr_prev, gr
+                if o["record_fields"]:
+                    outs.setdefault("field", []).append(u)
+                u_ppp, u_pp, u_prev = u_pp, u_prev, u
+                if adaptive:
+                    it_prev = int(iters)   # the one host read of a step
+        ys = {k: torch.stack(v, dim=u0.ndim - 2) for k, v in outs.items()}
+        ys["final_u"] = u_prev
+        ys = self._gather(ys, d)
+        if "band" in ys:
+            ys["band"] = band_reduce(ys["band"], d["bin_counts"])
+        ys["times"] = ts
+        return ys
+
     def _run_graph(self, d, kp, rc, fw, ic, u0, t0, source):
         """The kernel path as one device program (``ops/cuda_step``): the
         call's operands copied into this module's workspace, the captured
@@ -244,6 +455,7 @@ class GraphPath:
             if ws.fields is not None:
                 ys["field"] = ws.fields.clone()
             ys["final_u"] = ws.ring[(ws.num_steps - 1) % 3].clone()
+        ys = self._gather(ys, d)
         ys["times"] = ts
         return ys
 
@@ -255,7 +467,7 @@ class GraphPath:
         from heatflow_tpu_torch.ops import cuda_cg, cuda_step
         o, problem = self.opts, self.problem
         A, M_op, s, g0, g1, Ag0, Ag1, b_src, ts, amps = self._operands(
-            d, kp, rc, fw, ic, t0, source, apply_stencil)
+            d, kp, rc, fw, ic, t0, source)
         free = d["free"]
         As, sm, pcr, pcr_z = self._solve_operands(A, s, free)
         adaptive = o["precondition"] == "adaptive"
@@ -295,17 +507,21 @@ class GraphPath:
 
 class Simulator(GraphPath, nn.Module):
     """``simulate(kappas, rho_cvs, fwhm, u0, t0, source) -> dict`` of
-    per-step traces; the buffers are the problem's device tensors."""
+    per-step traces; the buffers are the problem's device tensors (under
+    z-sharding, this rank's slabs)."""
 
     def __init__(self, problem: Problem2D, dev: dict[str, torch.Tensor], *,
                  dtype: torch.dtype, cdt: torch.dtype, use_vmem: bool,
                  opts: dict, mg=None, zax=None):
         super().__init__()
+        if problem.radial is not None:
+            # the gradient's axis rows: the r = 0 column
+            nz, nr = problem.mesh.shape
+            dev = dict(dev, axis_nodes=torch.arange(
+                nz, device=dev["free"].device) * nr)
         if zax is not None:
             dev = _z_slabs(dev, zax)
-        for name, t in dev.items():
-            self.register_buffer(name, t, persistent=False)
-        self._names = tuple(dev)
+        self._register(dev)
         self.problem = problem
         self.dtype = dtype
         self.cdt = cdt
@@ -315,12 +531,9 @@ class Simulator(GraphPath, nn.Module):
         self.mg = mg
         # z-sharding: this rank's rows (``parallel.sharding.ZAxis``)
         self.zax = zax
+        self.form = StencilForm(zax)
         # the kernel path's step workspaces (``ops.cuda_step``), by key
         self._workspaces: dict = {}
-
-    @property
-    def dev(self) -> dict[str, torch.Tensor]:
-        return {name: getattr(self, name) for name in self._names}
 
     def _inputs(self, kappas, rho_cvs, fwhm, u0, t0, source) -> tuple:
         if self.opts["precondition"] == "mgz" and (kappas is not None
@@ -364,252 +577,70 @@ class Simulator(GraphPath, nn.Module):
             return self._run_eager(*self._inputs(kappas, rho_cvs, fwhm, u0,
                                                  t0, source), inner_sum)
 
-    def _has_radial(self) -> bool:
-        return self.problem.radial is not None and \
-            self.opts["record_gradient"]
-
     def _run(self, d, kp, rc, fw, ic, u0, t0, source):
         """The kernel path on the card runs as one CUDA graph
         (:meth:`_run_graph`); the CPU, the recording path (its projection
         reads the host each iteration), the z-sharded stepper and the eager
         solvers run the eager loop."""
         if (u0.device.type == "cuda" and self.use_vmem and self.zax is None
-                and not self._has_radial()):
+                and not self._records_gradient()):
             return self._run_graph(d, kp, rc, fw, ic, u0, t0, source)
         return self._run_eager(d, kp, rc, fw, ic, u0, t0, source)
 
-    def _run_eager(self, d, kp, rc, fw, ic, u0, t0, source,
-                   inner_sum=torch.sum):
-        o = self.opts
-        dtype, cdt, use_vmem = self.dtype, self.cdt, self.use_vmem
-        precondition, f64_refine = o["precondition"], o["f64_refine"]
-        rtol, maxiter, rtol_wrt = o["rtol"], o["maxiter"], o["rtol_wrt"]
-        nz, nr = u0.shape
-        device = u0.device
-        # z-sharded: slabs of nz rows, halos at the stencil applies, ranks'
-        # partial sums in the CG dots
-        zax = self.zax
-        halo = None if zax is None else zax.halo
-        dot = None if zax is None else zax.dots
-        ap = lambda C, v: apply_stencil(C, v, halo=halo)
-        num_steps = int(self.problem.num_steps)
-        has_watch = "watch_flat" in d
-        has_radial = self._has_radial()
-        one = lambda v: torch.ones_like(v)
-
-        G_r, M_proj = d["G_r"], d["M_proj"]
-        free = d["free"]
-
-        # symmetrically scaled mass solve for the gradient projection
-        # (operator entries span ~15 decades; unit diagonal is f32-safe)
-        s_mp = torch.rsqrt(torch.where(M_proj[0] > 0, M_proj[0],
-                                       one(M_proj[0])))
-        apply_Mp_s = lambda y: s_mp * ap(M_proj, s_mp * y)
-
-        A, M_op, s, g0, g1, Ag0, Ag1, b_src, ts, amps = self._operands(
-            d, kp, rc, fw, ic, t0, source, ap)
-        apply_A_s = lambda y: s * ap(A, s * y)
-        sm_vmem = s * free if use_vmem else None
-
-        from heatflow_tpu_torch.ops.cuda_cg import cg_tol
+    def _eager_solver(self, kp, rc, A, s, free):
+        """The eager PCG preconditioned by a line solve, the ADI
+        composition or the multigrid V-cycle; the preconditioners that
+        couple z rows run replicated on the full field of a z-sharded
+        slab."""
         from heatflow_tpu_torch.ops.linesolve import (adi_preconditioner,
                                                       line_preconditioner)
+        prec, zax = self.opts["precondition"], self.zax
+        full = (lambda f: f) if zax is None else zax.full
+        pre = None
+        if prec == "mg":
+            from heatflow_tpu_torch.ops.multigrid import make_vcycle
+            dt = torch.tensor(self.problem.dt, dtype=self.cdt,
+                              device=s.device)
+            vcycle = make_vcycle([{**lv, "A": combine_operator(
+                lv["K"], lv["M"], kp, rc, dt)[0]} for lv in self.mg])
+            s_f = s if zax is None else zax.gather(s)
+            inv_s = 1.0 / torch.where(s_f > 0, s_f, torch.ones_like(s_f))
+            # the V-cycle approximates A⁻¹; conjugate it into the scaled
+            # system: precond(r̃) = S⁻¹ vcycle(S⁻¹ r̃)
+            pre = full(lambda r: inv_s * vcycle(inv_s * r))
+        elif prec == "rline":
+            pre = line_preconditioner(A, s, free, axis=-1)
+        elif prec in ("zline", "adi"):
+            if zax is not None:
+                A, s, free = zax.gather(A), zax.gather(s), zax.gather(free)
+            pre = full(adi_preconditioner(A, s, free) if prec == "adi"
+                       else line_preconditioner(A, s, free, axis=-2))
+        return self._pcg_solver(A, s, free, pre)
 
-        mgz = self.mg if precondition == "mgz" else None
-        kernel_kw = dict(maxiter=maxiter, mgz=mgz,
-                         mgz_sweeps=o["mgz_sweeps"])
-
-        def line_pre(A_, s_, free_):
-            """(eager preconditioner, r-stack, z-stack) for the form."""
-            if use_vmem and precondition in ("rline", "adi", "adaptive",
-                                             "mgz"):
-                _, _, pcr, pcr_z = self._solve_operands(A_, s_, free_)
-                return None, pcr, pcr_z
-            if zax is not None and precondition in ("zline", "adi"):
-                # rows coupled: replicated on the full field
-                A_, s_, free_ = (zax.gather(A_), zax.gather(s_),
-                                 zax.gather(free_))
-                wrap = zax.full
-            else:
-                wrap = lambda f: f
-            if precondition == "adi":
-                return wrap(adi_preconditioner(A_, s_, free_)), None, None
-            if precondition in ("rline", "zline"):
-                axis = -1 if precondition == "rline" else -2
-                return wrap(line_preconditioner(A_, s_, free_, axis=axis)), \
-                    None, None
-            return None, None, None
-
-        if not f64_refine:
-            pre, pcr_stack, pcr_z_stack = line_pre(A, s, free)
-            if precondition == "mg":
-                from heatflow_tpu_torch.ops.multigrid import make_vcycle
-                dt = torch.tensor(self.problem.dt, dtype=cdt, device=device)
-                level_ops = [{**lv, "A": combine_operator(
-                    lv["K"], lv["M"], kp, rc, dt)[0]} for lv in self.mg]
-                vcycle = make_vcycle(level_ops)
-                s_f = s if zax is None else zax.gather(s)
-                inv_s = 1.0 / torch.where(s_f > 0, s_f, one(s_f))
-                # the V-cycle approximates A⁻¹; conjugate it into the scaled
-                # system: precond(r̃) = S⁻¹ vcycle(S⁻¹ r̃)
-                pre = lambda r: inv_s * vcycle(inv_s * r)
-                if zax is not None:
-                    pre = zax.full(pre)     # replicated on the full field
-
-        if f64_refine:
-            # f32 casts of the scaled system for the inner correction
-            # solves; the f64 master operator computes only the residuals
-            if use_vmem:
-                A32, sm32, pcr_stack32, pcr_z_stack32 = \
-                    self._solve_operands(A, s, free)
-            else:
-                A32, s32, free32 = A.to(dtype), s.to(dtype), free.to(dtype)
-                apply_A32_s = lambda y: s32 * apply_stencil(A32, s32 * y)
-                pre32, _, _ = line_pre(A32, s32, free32)
-            s_mp32 = s_mp.to(dtype)
-            G_r32, M_proj32 = G_r.to(dtype), M_proj.to(dtype)
-            apply_Mp_s32 = lambda y: s_mp32 * apply_stencil(M_proj32,
-                                                            s_mp32 * y)
-
-        carry_inner = o["inner_seed"] == "carry"
-
-        def solve_refined(bt, y, dys, use_adi):
-            """f64_refine passes of f64 residual / f32 correction on the
-            scaled system, each inner solve from a zero seed, or (inner_seed
-            ='carry') from the previous step's correction of the same pass
-            ``dys[i]``, zeroed on a degenerate pass. Returns (y before the
-            last pass's correction, iters, the passes' corrections, the
-            last pass's rnorm)."""
-            # inner stop floor: a residual at f64 roundoff relative to the
-            # step's rhs has nothing left to correct
-            floor2 = 1e-30 * inner_sum(bt * bt)
-            iters = torch.zeros((), dtype=torch.int32, device=device)
-            new_dys = []
-            dy = rn = None
-            for i in range(f64_refine):
-                y, r64, rnorm, rtol_eff = refine_residual_reference(
-                    A, s, free, bt, y, floor2, rtol, dtype, dy, rn,
-                    inner_sum)
-                r32, seed = refine_scale_reference(
-                    r64, rnorm, rtol_eff, dtype,
-                    dys[i] if carry_inner else None)
-                if use_vmem:
-                    dy, its = cg_tol(
-                        A32, sm32, r32, seed, rtol_eff, rtol_wrt="b",
-                        pcr=pcr_stack32,
-                        pcr_z=None if use_adi is False else pcr_z_stack32,
-                        **kernel_kw)
-                else:
-                    sol = pcg(apply_A32_s, r32, seed, precond=pre32,
-                              mask=free32, rtol=rtol_eff, maxiter=maxiter,
-                              rtol_wrt="b")
-                    dy, its = sol.x, sol.iters
-                new_dys.append(dy)
-                rn = rnorm
-                iters = iters + its
-            return y, iters, new_dys, rn
-
-        adaptive = precondition == "adaptive"
-        warm_start = o["warm_start"]
-        fixed_iters = o["fixed_iters"]
-        # the first (cold) step is the deepest solve: start on the ADI form
-        it_prev = maxiter
-        u_prev = u_pp = u_ppp = u0
-        gr_prev = gr_pp = gr_ppp = torch.zeros((nz, nr), dtype=dtype,
-                                               device=device)
-        dys = [torch.zeros((nz, nr), dtype=dtype, device=device)
-               for _ in range(f64_refine)]
-        outs: dict[str, list] = {"cg_iters": []}
-        for n in range(num_steps):
-            with span("transient.step"):
-                use_adi = it_prev > o["adaptive_thresh"] if adaptive \
-                    else None
-                amp = amps[n]
-                b_lift, y0 = step_prologue_reference(
-                    M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1, amp, s,
-                    free, warm_start, halo=halo)
-                with span("k1.solve"):
-                    if f64_refine:
-                        x, iters, dys, rn = solve_refined(
-                            b_lift * free, y0, dys, use_adi)
-                    elif use_vmem:
-                        x, iters = cg_tol(
-                            A, sm_vmem, b_lift * free, y0, rtol,
-                            rtol_wrt=rtol_wrt,
-                            cheb_degree=0 if adaptive
-                            else o["vmem_cheb_degree"],
-                            pcr=pcr_stack,
-                            pcr_z=None if use_adi is False else pcr_z_stack,
-                            **kernel_kw)
-                    elif fixed_iters is not None:
-                        sol = pcg_fixed(apply_A_s, b_lift, y0, precond=pre,
-                                        mask=free, iters=fixed_iters,
-                                        dot=dot)
-                        x, iters = sol.x, sol.iters
-                    else:
-                        sol = pcg(apply_A_s, b_lift, y0, precond=pre,
-                                  mask=free, rtol=rtol, maxiter=maxiter,
-                                  rtol_wrt=rtol_wrt, dot=dot)
-                        x, iters = sol.x, sol.iters
-                if f64_refine:
-                    u = step_epilogue_reference(x, s, free, g0, g1, amp,
-                                                dys[-1], rn)
-                else:
-                    u = step_epilogue_reference(x, s, free, g0, g1, amp)
-                outs["cg_iters"].append(iters)
-                if has_watch:
-                    outs.setdefault("watch", []).append(
-                        u.reshape(-1)[d["watch_flat"]])
-                if has_radial:
-                    with span("step.project"):
-                        # the projection seed rides the same warm-start knob
-                        gr_seed = warm_seed(gr_prev, gr_pp, gr_ppp,
-                                            warm_start)
-                        if f64_refine:
-                            br = s_mp32 * apply_stencil(G_r32, u.to(dtype))
-                            gsol = pcg(apply_Mp_s32, br, gr_seed / s_mp32,
-                                       rtol=o["proj_rtol"],
-                                       maxiter=o["proj_maxiter"])
-                            gr = gsol.x * s_mp32
-                        else:
-                            br = s_mp * ap(G_r, u)
-                            gsol = pcg(apply_Mp_s, br, gr_seed / s_mp,
-                                       rtol=o["proj_rtol"],
-                                       maxiter=o["proj_maxiter"], dot=dot)
-                            gr = gsol.x * s_mp
-                        if zax is None:
-                            band = band_average(
-                                gr.reshape(-1), d["band_slots"],
-                                d["band_fill"], d["bin_counts"])
-                        else:
-                            # this rank's band slots; the ranks' exact
-                            # zeros elsewhere, added at the end
-                            band = band_values(gr.reshape(-1),
-                                               d["band_slots"],
-                                               d["band_fill"])
-                        outs.setdefault("band", []).append(band)
-                        outs.setdefault("axis", []).append(gr[:, 0])
-                        outs.setdefault("proj_iters", []).append(gsol.iters)
-                else:
-                    gr = gr_prev
-                if o["record_fields"]:
-                    outs.setdefault("field", []).append(u)
-                u_ppp, u_pp, u_prev = u_pp, u_prev, u
-                gr_ppp, gr_pp, gr_prev = gr_pp, gr_prev, gr
-                if adaptive:
-                    it_prev = int(iters)   # the one host read of a step
-        ys = {k: torch.stack(v) for k, v in outs.items()}
-        ys["final_u"] = u_prev
-        if zax is not None:
-            ys = _z_gather(ys, zax, d)
-        ys["times"] = ts
+    def _gather(self, ys: dict, d: dict) -> dict:
+        """Under z-sharding, the full outputs on every rank: watchers read
+        on their owners, the band slots summed over the ranks (each slot is
+        one rank's value and the others' exact zeros), axis rows, fields
+        and the final field gathered along z."""
+        zax = self.zax
+        if zax is None:
+            return ys
+        if "watch" in ys:
+            ys["watch"] = zax.owned(ys["watch"], d["watch_owner"])
+        if "band" in ys:
+            ys["band"] = zax.sum(ys["band"])
+        if "axis" in ys:
+            ys["axis"] = zax.gather(ys["axis"], dim=-1)
+        for k in ("field", "final_u"):
+            if k in ys:
+                ys[k] = zax.gather(ys[k])
         return ys
 
 
 def _z_slabs(dev: dict, zax) -> dict:
     """This rank's rows of the problem's (..., Nz, Nr) planes, its slab ids
-    of the watchers (with their owners) and of the band slots (filled where
-    it owns the node)."""
+    of the watchers (with their owners), of the band slots (filled where it
+    owns the node) and of its axis rows."""
     out = {k: zax.rows(v) if v.dtype.is_floating_point and v.ndim >= 2
            and tuple(v.shape[-2:]) == (zax.nz, zax.nr) else v
            for k, v in dev.items()}
@@ -619,24 +650,9 @@ def _z_slabs(dev: dict, zax) -> dict:
     if "band_slots" in dev:
         out["band_slots"], owner = zax.local_ids(dev["band_slots"])
         out["band_fill"] = dev["band_fill"] & (owner == zax.mesh.coords["z"])
+    if "axis_nodes" in dev:
+        out["axis_nodes"] = dev["axis_nodes"][zax.lo:zax.hi] - zax.lo * zax.nr
     return out
-
-
-def _z_gather(ys: dict, zax, d: dict) -> dict:
-    """The full outputs of a z-sharded run on every rank: watchers read on
-    their owners, the band slots added over the ranks (each slot is one
-    rank's value and the others' exact zeros), axis rows, fields and the
-    final field gathered along z."""
-    if "watch" in ys:
-        ys["watch"] = zax.owned(ys["watch"], d["watch_owner"])
-    if "band" in ys:
-        ys["band"] = band_reduce(zax.sum(ys["band"]), d["bin_counts"])
-    if "axis" in ys:
-        ys["axis"] = zax.gather(ys["axis"], dim=-1)
-    for k in ("field", "final_u"):
-        if k in ys:
-            ys[k] = zax.gather(ys[k])
-    return ys
 
 
 def make_simulate_fn(problem: Problem2D,

@@ -15,6 +15,10 @@ forms:
     eager PCG. Its fields are (..., 1, N): the PCG's per-lane sums run
     over the last two dims, as for a lattice.
 
+The transient is the structured stepper's own step loop
+(``sim/stepper.GraphPath``) on the form of the mesh's layout
+(``stepper.StencilForm`` or :class:`EllForm`).
+
 Node and cell semantics follow the reference everywhere:
 
   * watcher points → nearest mesh node (ref run_no_diamond.py:397-401);
@@ -24,7 +28,6 @@ Node and cell semantics follow the reference everywhere:
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -33,16 +36,14 @@ import torch
 from torch import nn
 
 from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
-from heatflow_tpu_torch.ops.cg import (pcg, pcg_fixed, pcg_solve,
-                                       refine_inner_scale)
+from heatflow_tpu_torch.ops.cg import pcg, pcg_solve
 from heatflow_tpu_torch.ops.ell import (EllOps, assemble_ell, ell_apply,
                                         ell_combine, ell_diag)
-from heatflow_tpu_torch.ops.stencil import (apply_stencil, combine_operator,
-                                            material_combine)
+from heatflow_tpu_torch.ops.stencil import combine_operator, material_combine
 from heatflow_tpu_torch.sim.bc import HeatingCurve, node_row_mask
 from heatflow_tpu_torch.sim.problem import (BAND_RMAX, BIN_DZ, RadialSampling,
-                                            band_average, band_slots)
-from heatflow_tpu_torch.sim.stepper import GraphPath, interp
+                                            band_slots)
+from heatflow_tpu_torch.sim.stepper import GraphPath, StencilForm, _flat
 from heatflow_tpu_torch.utils import resolve_device, span
 
 AXIS_TOL = 1e-12        # r = 0 node rule of the raw gradient CSV
@@ -183,97 +184,85 @@ def sweep_auto_selects_vmem(mesh, dtype: torch.dtype, device="cuda") -> bool:
     return auto_selects_vmem(mesh, dtype, device)
 
 
-class _Forms:
-    """The operator form of a problem's core layout: the lattice (Nz, Nr)
-    of an overlay mesh, or (1, N) node fields on the ELL gather."""
+class EllForm:
+    """The operator format of a mesh on the ELL gather: (..., 1, N) node
+    fields, so that the PCG's per-lane sums run over the last two dims as
+    on a lattice."""
 
-    def __init__(self, dev: dict, overlay: bool):
-        self.overlay = overlay
-        self.cols = None if overlay else dev["cols"]
+    combine = staticmethod(ell_combine)
+    dot = None
+
+    def __init__(self, cols: torch.Tensor):
+        self.cols = cols
 
     def apply(self, C, v):
-        if self.overlay:
-            return apply_stencil(C, v)
         return ell_apply(self.cols, C, v[..., 0, :])[..., None, :]
 
     def diag(self, C):
-        if self.overlay:
-            return C[..., 0, :, :]
         return ell_diag(self.cols, C)[..., None, :]
-
-    def combine(self, K, M, kp, rc, dt):
-        if self.overlay:
-            return combine_operator(K, M, kp, rc, dt)
-        return ell_combine(K, M, kp, rc, dt)
-
-
-def _flat(v: torch.Tensor) -> torch.Tensor:
-    return v.reshape(*v.shape[:-2], -1)
 
 
 class SimulatorUnstructured(GraphPath, nn.Module):
     """``simulate(kappas, rho_cvs, fwhm, u0, t0, source) -> dict`` of
     per-step traces on an unstructured problem; the buffers are the
-    problem's device tensors in the core layout. ``kappas`` (..., n_mats)
-    and ``fwhm`` (...) with leading batch dims run that many lanes
-    together (``u0`` then (..., N)); traces come back as (..., S, ·).
-    ``core(...)`` is the same without the node ↔ lattice reordering of u0
-    and of the returned fields.
+    problem's device tensors in the core layout (the overlay's lattice, or
+    (1, N) nodes). ``kappas`` (..., n_mats) and ``fwhm`` (...) with leading
+    batch dims run that many lanes together (``u0`` then (..., N)); traces
+    come back as (..., S, ·), fields in node order.
 
-    On a CUDA device the overlay's kernel path runs a one-lane transient
-    without gradient recording as one CUDA graph launch, through the
-    structured stepper's own code (:class:`stepper.GraphPath` over
-    ``ops/cuda_step``, with 9 planes and the watchers at their lattice
-    positions); everything else runs the eager step loop."""
+    The structured stepper's code runs it (:class:`stepper.GraphPath`, on
+    the form of its core layout): on a CUDA device the overlay's kernel
+    path runs a one-lane transient without gradient recording as one CUDA
+    graph launch (``ops/cuda_step``, with 9 planes and the watchers at
+    their lattice positions); everything else runs the eager step loop."""
 
     def __init__(self, problem: ProblemUnstructured,
                  dev: dict[str, torch.Tensor], *, dtype: torch.dtype,
                  cdt: torch.dtype, use_vmem: bool, overlay: bool,
                  shape: tuple, opts: dict):
         super().__init__()
-        for name, t in dev.items():
-            self.register_buffer(name, t, persistent=False)
-        self._names = tuple(dev)
+        self._register(dev)
         self.problem = problem
         self.dtype, self.cdt = dtype, cdt
         self.use_vmem = use_vmem
         self.overlay = overlay
         self.shape = shape
         self.opts = opts
+        self.form = StencilForm() if overlay else EllForm(self.cols)
         # the graph path's state (``stepper.GraphPath``): no mgz operands,
         # the step workspaces by key
         self.mg = None
         self._workspaces: dict = {}
 
-    @property
-    def dev(self) -> dict[str, torch.Tensor]:
-        return {name: getattr(self, name) for name in self._names}
-
-    def _coeffs(self, kappas, rho_cvs, fwhm):
+    def _inputs(self, kappas, rho_cvs, fwhm, u0, t0, source) -> tuple:
+        """A call's arguments on the device: the coefficients (parameter
+        overrides default to the problem's values), u0 and the source in
+        core order and layout."""
         cdt, device = self.cdt, self.free.device
-        as_c = lambda v, default: torch.as_tensor(
+        as_c = lambda v, default=None: torch.as_tensor(
             default if v is None else v, dtype=cdt, device=device)
-        return (as_c(kappas, self.problem.kappas),
-                as_c(rho_cvs, self.problem.rho_cvs),
-                as_c(fwhm, self.problem.fwhm))
+        p = self.problem
+        kp, rc = as_c(kappas, p.kappas), as_c(rho_cvs, p.rho_cvs)
+        fw = as_c(fwhm, p.fwhm)
+        u0 = (torch.full(fw.shape + (len(p.mesh.nodes),), float(p.ic_temp),
+                         dtype=cdt, device=device)
+              if u0 is None else as_c(u0))
+        src = None if source is None else as_c(source)
+        if self.overlay:
+            with span("transient.reorder"):
+                u0 = u0[..., self.to_latt]
+                src = None if src is None else src[..., self.to_latt]
+        core = lambda v: v.reshape(*v.shape[:-1], *self.shape)
+        return (self.dev, kp, rc, fw, as_c(p.ic_temp), core(u0), as_c(t0),
+                None if src is None else core(src))
 
     def forward(self, kappas=None, rho_cvs=None, fwhm=None, u0=None,
                 t0=0.0, source=None) -> dict[str, torch.Tensor]:
         with span("transient"):
-            kp, rc, fw = self._coeffs(kappas, rho_cvs, fwhm)
-            lead = fw.shape
-            n = len(self.problem.mesh.nodes)
-            as_c = lambda v: torch.as_tensor(v, dtype=self.cdt,
-                                             device=self.free.device)
-            u0 = (torch.full(lead + (n,), float(self.problem.ic_temp),
-                             dtype=self.cdt, device=self.free.device)
-                  if u0 is None else as_c(u0))
-            src = None if source is None else as_c(source)
-            if self.overlay:
-                with span("transient.reorder"):
-                    u0 = u0[..., self.to_latt]
-                    src = None if src is None else src[..., self.to_latt]
-            ys = self.core(kp, rc, fw, u0, t0, src)
+            args = self._inputs(kappas, rho_cvs, fwhm, u0, t0, source)
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and self.opts["differentiable"]):
+                ys = self._run(*args)
             if self.overlay:
                 with span("transient.reorder"):
                     ys["final_u"] = ys["final_u"][..., self.to_node]
@@ -281,19 +270,7 @@ class SimulatorUnstructured(GraphPath, nn.Module):
                         ys["field"] = ys["field"][..., self.to_node]
             return ys
 
-    def core(self, kp, rc, fw, u0, t0, source) -> dict[str, torch.Tensor]:
-        """Traces of the transient from ``u0`` ((..., N) in core order; the
-        sources likewise), fields returned in core order."""
-        shape = tuple(u0.shape[:-1]) + tuple(self.shape)
-        u0 = u0.reshape(shape)
-        source = None if source is None else source.reshape(shape)
-        t0 = torch.as_tensor(t0, dtype=self.cdt, device=u0.device)
-        if self.opts["differentiable"]:
-            return self._run(kp, rc, fw, u0, t0, source)
-        with torch.no_grad():
-            return self._run(kp, rc, fw, u0, t0, source)
-
-    def _run(self, kp, rc, fw, u0, t0, source):
+    def _run(self, d, kp, rc, fw, ic, u0, t0, source):
         """One CUDA graph (:meth:`_run_lattice`) for a one-lane call of the
         overlay's kernel path on a CUDA device without gradient recording;
         the eager step loop otherwise."""
@@ -301,203 +278,35 @@ class SimulatorUnstructured(GraphPath, nn.Module):
         if (self.use_vmem and u0.device.type == "cuda" and u0.ndim == 2
                 and kp.ndim == 1 and rc.ndim == 1 and fw.ndim == 0
                 and not o["record_gradient"] and not o["differentiable"]):
-            return self._run_lattice(kp, rc, fw, u0, t0, source)
-        return self._run_eager(kp, rc, fw, u0, t0, source)
-
-    def _run_lattice(self, kp, rc, fw, u0, t0, source):
-        """The transient on the overlay's lattice through the structured
-        stepper's graph path; fields returned flat, in core order."""
-        d = self.dev
-        lattice = dict(K=d["K"], M=d["M"], M_proj=d["Mp"], free=d["free"],
-                       dirichlet=d["dirich"], r_sq=d["r_sq"],
-                       heat_profile_base=d["heat_f"], heat_t=d["heat_t"],
-                       heat_T=d["heat_T"])
-        if "watch" in d:
-            lattice["watch_flat"] = d["watch"]
-        ic = torch.tensor(self.problem.ic_temp, dtype=self.cdt,
-                          device=u0.device)
-        ys = self._run_graph(lattice, kp, rc, fw, ic, u0, t0, source)
-        ys["final_u"] = _flat(ys["final_u"])
-        if "field" in ys:
-            ys["field"] = _flat(ys["field"])
-        return ys
-
-    def _run_eager(self, kp, rc, fw, u0, t0, source):
-        o = self.opts
+            return self._run_lattice(d, kp, rc, fw, ic, u0, t0, source)
         if o["precondition"] == "adaptive":
             raise ValueError(
                 "precondition='adaptive' on an unstructured problem runs "
                 "only as the overlay's one CUDA graph (one lane a call on "
                 "a CUDA device): the eager step loop has no per-step "
                 "r-line/ADI switch; use 'rline' or 'adi' here")
-        d = self.dev
-        dtype, cdt, use_vmem = self.dtype, self.cdt, self.use_vmem
-        precondition, f64_refine = o["precondition"], o["f64_refine"]
-        rtol, maxiter, rtol_wrt = o["rtol"], o["maxiter"], o["rtol_wrt"]
-        problem = self.problem
-        device = u0.device
-        nb = u0.ndim - 2                  # leading batch dims
-        lane = lambda v: v.reshape(v.shape + (1, 1))
-        F = _Forms(d, self.overlay)
-        dt = torch.tensor(problem.dt, dtype=cdt, device=device)
-        ic = torch.tensor(problem.ic_temp, dtype=cdt, device=device)
-        free, dirich = d["free"], d["dirich"]
-        heat_t, heat_T = d["heat_t"], d["heat_T"]
-        amp_offset = heat_T[0] - ic
-        one = lambda v: torch.ones_like(v)
+        return self._run_eager(d, kp, rc, fw, ic, u0, t0, source)
 
-        A, M_op = F.combine(d["K"], d["M"], kp, rc, dt)
-        apply_A = lambda v: F.apply(A, v)
-        diag = F.diag(A)
-        s = torch.rsqrt(torch.where(diag > 0, diag, one(diag))) * free + dirich
-        apply_s = lambda y, s_, A_: s_ * F.apply(A_, s_ * y)
-        Mp_diag = F.diag(d["Mp"])
-        s_mp = torch.rsqrt(torch.where(Mp_diag > 0, Mp_diag, one(Mp_diag)))
-        apply_mp_s = lambda y: s_mp * F.apply(d["Mp"], s_mp * y)
+    # the overlay's transient as one device program
+    _run_lattice = GraphPath._run_graph
 
-        from heatflow_tpu_torch.ops.cuda_cg import (cg_tol, rline_pack,
-                                                    zline_pack)
+    def _eager_solver(self, kp, rc, A, s, free):
+        """The eager PCG; under ``differentiable``, ``pcg_solve`` (implicit
+        differentiation: one adjoint solve a step under backward), which
+        counts no iterations."""
+        o = self.opts
+        if not o["differentiable"]:
+            return self._pcg_solver(A, s, free)
+        op = lambda y, s_, A_: s_ * self.form.apply(A_, s_ * y)
+        return lambda b, y0, rtol, use_adi: (pcg_solve(
+            op, b, y0, op_args=(s, A), mask=free, rtol=rtol,
+            maxiter=o["maxiter"], rtol_wrt=o["rtol_wrt"]), None)
 
-        def stacks(A_, s_, free_):
-            """The kernel path's line factors (the r-line's Thomas factors;
-            ADI adds the z-line's), factored once per transient."""
-            if not (use_vmem and precondition in ("rline", "adi")):
-                return None, None
-            pz = zline_pack(A_, s_, free_) if precondition == "adi" else None
-            return rline_pack(A_, s_, free_), pz
-
-        if f64_refine:
-            # float32 casts of the scaled system for the inner correction
-            # solves; the float64 masters compute only per-pass residuals
-            A32 = A.to(dtype).contiguous()
-            s32, free32 = s.to(dtype), free.to(dtype)
-            sm32 = (s32 * free32).contiguous()
-            s_mp32 = s_mp.to(dtype)
-            Mp32, G32 = d["Mp"].to(dtype), d["G"].to(dtype)
-            apply_mp_s32 = lambda y: s_mp32 * F.apply(Mp32, s_mp32 * y)
-            pcr, pcr_z = stacks(A32, s32, free32)
-        else:
-            pcr, pcr_z = stacks(A, s, free)
-            sm = (s * free).contiguous()
-
-        def solve_refined(bt, y0):
-            """float64-residual / float32-correction refinement: unit-norm
-            inner right-hand side, degenerate passes stopped at once
-            (``ops.cg.refine_inner_scale``)."""
-            sq = lambda v: (v * v).sum(dim=(-2, -1))    # per lane
-            floor2 = 1e-30 * sq(bt)
-            y = y0
-            iters = torch.zeros((), dtype=torch.int32, device=device)
-            for _ in range(f64_refine):
-                r64 = bt - free * apply_s(y, s, A)
-                rnorm, rtol_eff = refine_inner_scale(sq(r64), floor2, rtol,
-                                                     dtype)
-                rnorm = lane(rnorm)
-                r32 = (r64 / rnorm).to(dtype).contiguous()
-                z32 = torch.zeros_like(r32)
-                if use_vmem:
-                    dy, its = cg_tol(A32, sm32, r32, z32, rtol_eff,
-                                     maxiter=maxiter, rtol_wrt="b", pcr=pcr,
-                                     pcr_z=pcr_z)
-                else:
-                    sol = pcg(lambda v: apply_s(v, s32, A32), r32, z32,
-                              mask=free32, rtol=rtol_eff, maxiter=maxiter,
-                              rtol_wrt="b")
-                    dy, its = sol.x, sol.iters
-                y = y + dy.to(cdt) * rnorm
-                iters = iters + its
-            return y, iters
-
-        coeff = lane(torch.tensor(-4.0 * math.log(2.0), dtype=cdt,
-                                  device=device) / (fw * fw))
-        profile = torch.exp(coeff * d["r_sq"]) * d["heat_f"]
-        # volumetric source: rhs += dt ∫ f φ r dx = dt (M_proj @ f)
-        b_src = 0.0 if source is None else dt * F.apply(d["Mp"], source)
-        # the Dirichlet lift is affine in the amplitude: A g0 and A g1 once
-        # per transient
-        g0 = ic * (dirich - profile)
-        g1 = profile
-        Ag0 = apply_A(g0)
-        Ag1 = apply_A(g1)
-
-        extrapolate = o["warm_start"] == "extrapolate"
-        fixed_iters = o["fixed_iters"]
-        record = o["record_gradient"]
-        num_steps = int(problem.num_steps)
-        ts = torch.arange(1, num_steps + 1, dtype=cdt, device=device) * dt \
-            + t0
-        u_prev = u_pp = u0
-        gr_prev = gr_pp = torch.zeros(u0.shape, dtype=dtype, device=device)
-        outs: dict[str, list] = {}
-        for n in range(num_steps):
-            with span("transient.step"):
-                seed = 2.0 * u_prev - u_pp if extrapolate else u_prev
-                gr_seed = 2.0 * gr_prev - gr_pp if extrapolate else gr_prev
-                amp = lane(interp(ts[n], heat_t, heat_T) - amp_offset)
-                g = g0 + amp * g1
-                b = (F.apply(M_op, u_prev) + b_src - (Ag0 + amp * Ag1)) * s
-                y0 = (seed / torch.where(s > 0, s, one(s))) * free
-                with span("k1.solve"):
-                    if f64_refine:
-                        y, iters = solve_refined(b * free, y0)
-                        u = y * s * free + g
-                    elif o["differentiable"]:
-                        x = pcg_solve(apply_s, b * free, y0, op_args=(s, A),
-                                      mask=free, rtol=rtol, maxiter=maxiter,
-                                      rtol_wrt=rtol_wrt)
-                        u, iters = x * s * free + g, None
-                    elif use_vmem:
-                        x, iters = cg_tol(A, sm, (b * free).contiguous(),
-                                          y0.contiguous(), rtol,
-                                          maxiter=maxiter, rtol_wrt=rtol_wrt,
-                                          pcr=pcr, pcr_z=pcr_z)
-                        u = x * s * free + g
-                    else:
-                        op = lambda v: apply_s(v, s, A)
-                        if fixed_iters is not None:
-                            sol = pcg_fixed(op, b * free, y0, mask=free,
-                                            iters=fixed_iters)
-                        else:
-                            sol = pcg(op, b * free, y0, mask=free, rtol=rtol,
-                                      maxiter=maxiter, rtol_wrt=rtol_wrt)
-                        u, iters = sol.x * s * free + g, sol.iters
-                if iters is not None:
-                    outs.setdefault("cg_iters", []).append(iters)
-                if "watch" in d:
-                    outs.setdefault("watch", []).append(
-                        _flat(u)[..., d["watch"]])
-                if record:
-                    with span("step.project"):
-                        if f64_refine:
-                            # the scaled mass solve is well conditioned: f32
-                            # suffices
-                            br = s_mp32 * F.apply(G32, u.to(dtype))
-                            gsol = pcg(apply_mp_s32, br, gr_seed / s_mp32,
-                                       rtol=o["proj_rtol"],
-                                       maxiter=o["proj_maxiter"])
-                            gr = gsol.x * s_mp32
-                        else:
-                            br = s_mp * F.apply(d["G"], u)
-                            gsol = pcg(apply_mp_s, br, gr_seed / s_mp,
-                                       rtol=o["proj_rtol"],
-                                       maxiter=o["proj_maxiter"])
-                            gr = gsol.x * s_mp
-                        flat = _flat(gr)
-                        outs.setdefault("band", []).append(band_average(
-                            flat, d["band_slots"], d["band_fill"],
-                            d["bin_counts"]))
-                        outs.setdefault("axis", []).append(
-                            flat[..., d["axis_nodes"]])
-                        outs.setdefault("proj_iters", []).append(gsol.iters)
-                else:
-                    gr = gr_prev
-                if o["record_fields"]:
-                    outs.setdefault("field", []).append(_flat(u))
-                u_pp, u_prev = u_prev, u
-                gr_pp, gr_prev = gr_prev, gr
-        ys = {k: torch.stack(v, dim=nb) for k, v in outs.items()}
-        ys["times"] = ts
-        ys["final_u"] = _flat(u_prev)
+    def _gather(self, ys: dict, d: dict) -> dict:
+        """The fields flat, in core order."""
+        for k in ("field", "final_u"):
+            if k in ys:
+                ys[k] = _flat(ys[k])
         return ys
 
 
@@ -618,23 +427,25 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
         idx_np, inv_np, oshape, stn = _overlay_prep(problem)
         remap = lambda v: np.asarray(v)[inv_np].reshape(oshape)
         node_ids = lambda ids: idx_np[np.asarray(ids)]
-        dev = {k: f(stn[k]) for k in ("K", "M", "G", "Mp")}
-        dev["to_node"], dev["to_latt"] = ix(idx_np), ix(inv_np)
+        ops = {k: f(stn[k]) for k in ("K", "M", "G", "Mp")}
+        dev = dict(to_node=ix(idx_np), to_latt=ix(inv_np))
         shape = oshape
     else:
         n = len(nodes)
         remap = lambda v: np.asarray(v).reshape(1, n)
         node_ids = lambda ids: np.asarray(ids)
-        dev = problem.ell.to(device, cdt)
-        del dev["own"]
+        ops = problem.ell.to(device, cdt)
+        dev = dict(cols=ops["cols"])
         shape = (1, n)
-    dev.update(free=f(remap(~problem.dirichlet)),
-               dirich=f(remap(problem.dirichlet)),
+    # the names of Problem2D.device_arrays, which the step loop reads
+    dev.update(K=ops["K"], M=ops["M"], G_r=ops["G"], M_proj=ops["Mp"],
+               free=f(remap(~problem.dirichlet)),
+               dirichlet=f(remap(problem.dirichlet)),
                heat_t=f(problem.heating.time), heat_T=f(problem.heating.temp),
                r_sq=f(remap(nodes[:, 1] ** 2)),
-               heat_f=f(remap(problem.heat_mask)))
+               heat_profile_base=f(remap(problem.heat_mask)))
     if problem.watcher_nodes is not None:
-        dev["watch"] = ix(node_ids(problem.watcher_nodes))
+        dev["watch_flat"] = ix(node_ids(problem.watcher_nodes))
     if record_gradient:
         slots, fill = band_slots(RadialSampling(
             band_nodes=node_ids(problem.band_nodes),
@@ -651,7 +462,7 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
                 record_fields=record_fields, rtol_wrt=rtol_wrt,
                 differentiable=differentiable, warm_start=warm_start,
                 precondition=precondition, f64_refine=int(f64_refine),
-                # the graph path's options beside those (stepper.GraphPath)
+                # the step loop's options beside those (stepper.GraphPath)
                 inner_seed="zero", vmem_cheb_degree=0, mgz_sweeps=1,
                 adaptive_thresh=adaptive_thresh
                 if precondition == "adaptive" else None)

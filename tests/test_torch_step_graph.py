@@ -70,7 +70,8 @@ def test_prologue_is_the_eager_expressions(dtype, warm, source):
     amp = torch.tensor(812.5, dtype=dt)
     b_src = src if source else 0.0
     b_lift, y0 = cuda_step.step_prologue_reference(
-        M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1, amp, s, free, warm)
+        apply_stencil, M_op, u_prev, u_pp, u_ppp, b_src, Ag0, Ag1, amp, s,
+        free, warm)
     # the eager loop's own lines
     b = apply_stencil(M_op, u_prev) + b_src
     want_lift = (b - (Ag0 + amp * Ag1)) * s
@@ -99,7 +100,8 @@ def test_refine_residual_is_the_eager_expressions(case):
         dy = _planes(torch.float32, seed=5, n=1)[0]
         rn = torch.tensor(3.25e-3, dtype=dt)
     y_out, r64, rnorm, rtol_eff = cuda_step.refine_residual_reference(
-        A, s, free, bt, y, floor2, 1e-5, torch.float32, dy, rn)
+        apply_stencil, A, s, free, bt, y, floor2, 1e-5, torch.float32, dy,
+        rn)
     want_y = y if dy is None else y + dy.to(dt) * rn
     apply_A_s = lambda v: s * apply_stencil(A, s * v)
     want_r = bt - free * apply_A_s(want_y)
@@ -193,7 +195,7 @@ def test_amps_are_the_per_step_interpolation(dtype, t0):
     fn = t_make(pt, dtype=DTYPES[dtype], record_gradient=False, device="cpu")
     d, kp, rc, fw, ic, _, t0_, _ = fn._inputs(None, None, None, None, t0,
                                               None)
-    *_, ts, amps = fn._operands(d, kp, rc, fw, ic, t0_, None, apply_stencil)
+    *_, ts, amps = fn._operands(d, kp, rc, fw, ic, t0_, None)
     offset = d["heat_T"][0] - ic
     per_step = torch.stack([interp(ts[n], d["heat_t"], d["heat_T"]) - offset
                             for n in range(len(ts))])
@@ -325,8 +327,8 @@ def test_step_wrappers_on_cpu_run_the_plain_versions(refine):
     f32 = torch.float32
     cuda_step.step_prologue(ws)
     b_lift, y0 = cuda_step.step_prologue_reference(
-        ws.Mop, *ring, 0.0, ws.Ag0, ws.Ag1, ws.amps[0], ws.s, ws.free,
-        "extrapolate")
+        apply_stencil, ws.Mop, *ring, 0.0, ws.Ag0, ws.Ag1, ws.amps[0], ws.s,
+        ws.free, "extrapolate")
     bt = b_lift * ws.free
     assert torch.equal(ws.bt, bt.to(ws.bt.dtype))
     assert torch.equal(ws.y[0], y0.to(ws.y.dtype))
@@ -337,7 +339,8 @@ def test_step_wrappers_on_cpu_run_the_plain_versions(refine):
     for p in range(ws.passes if ws.refine else 0):
         cuda_step.refine_residual(ws, p)
         y, r64, rnorm, rtol_eff = cuda_step.refine_residual_reference(
-            ws.A, ws.s, ws.free, bt, y, floor2, ws.rtol, f32, dy, rn)
+            apply_stencil, ws.A, ws.s, ws.free, bt, y, floor2, ws.rtol, f32,
+            dy, rn)
         assert torch.equal(ws.r64, r64) and torch.equal(ws.y[p], y)
         assert torch.equal(ws.state[3 + p], rnorm)
         assert torch.equal(ws.rtol32, rtol_eff)

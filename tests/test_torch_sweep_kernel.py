@@ -315,8 +315,8 @@ def _nan_lane_batch(batch, dtype=torch.float64):
 
 @pytest.mark.parametrize("rline", [False, True], ids=["identity", "rline"])
 def test_phases_compose_to_the_solve(batch, rline):
-    """The phase wrappers (their plain versions here), chained as the
-    kernels chain them, with a done lane's fields frozen: after two
+    """The phase wrappers (their plain versions here) and the scalar
+    phase's plain version, chained as the kernels chain them, with a done lane's fields frozen: after two
     iterations x and the counts are the plain solve's at maxiter=2 (lane 0
     running, lane 1 at rtol 2, lane 2 NaN). Compaction lists the running
     lanes at each step; finish poisons the NaN lane."""
@@ -331,17 +331,20 @@ def test_phases_compose_to_the_solve(batch, rline):
                else (lambda r: (r, zero)))
     x, r, rr, bb = cuda_sweep.init(A0, Kv, dks, sm, b, x0)
     z, rz = precond(r)
-    st = cuda_sweep.finalize(cuda_sweep.pack_state(3, "cpu"),
-                             parts(rr=rr, rz=rz, bb=bb), "init", rtol, **kw)
+    st = cuda_sweep.finalize_reference(cuda_sweep.pack_state(3, "cpu"),
+                                       parts(rr=rr, rz=rz, bb=bb), "init",
+                                       rtol, **kw)
     p = z
     for _ in range(2):
         assert cuda_sweep.compact(st).tolist() == [0]
         Ap, pap = cuda_sweep.stencil_dot(A0, Kv, dks, sm, p)
-        st = cuda_sweep.finalize(st, parts(pap=pap), "alpha", **kw)
+        st = cuda_sweep.finalize_reference(st, parts(pap=pap), "alpha",
+                                           **kw)
         x_n, r_n, rr = cuda_sweep.update(
             x, r, p, Ap, cuda_sweep.unpack_state(st)["alpha"])
         z_n, rz = precond(r_n)
-        st_n = cuda_sweep.finalize(st, parts(rr=rr, rz=rz), "beta", **kw)
+        st_n = cuda_sweep.finalize_reference(st, parts(rr=rr, rz=rz),
+                                             "beta", **kw)
         p_n = cuda_sweep.p_update(p, z_n,
                                   cuda_sweep.unpack_state(st_n)["beta"])
         run = (cuda_sweep.unpack_state(st)["done"] == 0)[:, None, None]
@@ -365,27 +368,31 @@ def test_finalize_reference_rules():
     parts = torch.zeros(4, 3, 2, dtype=torch.float64)
     parts[1] = torch.tensor([[1.0, 1.0], [0.5, 0.5], [8.0, 1.0]])  # rr
     parts[3] = 1.0                                               # bb
-    st = cuda_sweep.finalize(cuda_sweep.pack_state(3, "cpu"), parts, "init",
-                             torch.tensor([0.5, 2.0, 0.1]), rline=False,
-                             maxiter=3)
+    st = cuda_sweep.finalize_reference(cuda_sweep.pack_state(3, "cpu"),
+                                       parts, "init",
+                                       torch.tensor([0.5, 2.0, 0.1]),
+                                       rline=False, maxiter=3)
     f = cuda_sweep.unpack_state(st)
     assert f["rz"].tolist() == f["rr"].tolist() == [2.0, 1.0, 9.0]
     assert f["stop2"].tolist() == pytest.approx([0.5, 8.0, 0.02])
     assert f["done"].tolist() == [0, 1, 0] and f["k"].tolist() == [0, 0, 0]
-    st = cuda_sweep.finalize(st, torch.zeros(4, 3, 2, dtype=torch.float64),
-                             "alpha", rline=False, maxiter=3)
+    st = cuda_sweep.finalize_reference(
+        st, torch.zeros(4, 3, 2, dtype=torch.float64), "alpha", rline=False,
+        maxiter=3)
     assert cuda_sweep.unpack_state(st)["alpha"].tolist() == [2.0, 0.0, 9.0]
     beta_parts = torch.zeros(4, 3, 1, dtype=torch.float64)
     beta_parts[1] = torch.tensor([[0.25], [5.0], [0.0]])
-    st2 = cuda_sweep.finalize(st, beta_parts, "beta", rline=False, maxiter=3)
+    st2 = cuda_sweep.finalize_reference(st, beta_parts, "beta", rline=False,
+                                        maxiter=3)
     f2 = cuda_sweep.unpack_state(st2)
     assert f2["beta"].tolist() == [0.125, 0.0, 0.0]
     assert f2["k"].tolist() == [1, 0, 1] and f2["done"].tolist() == [1, 1, 1]
-    fixed = cuda_sweep.finalize(st, beta_parts, "beta", rline=False,
-                                maxiter=3, fixed=True)
+    fixed = cuda_sweep.finalize_reference(st, beta_parts, "beta",
+                                          rline=False, maxiter=3, fixed=True)
     assert cuda_sweep.unpack_state(fixed)["done"].tolist() == [0, 1, 0]
     with pytest.raises(ValueError, match="mode"):
-        cuda_sweep.finalize(st, beta_parts, "gamma", rline=False, maxiter=3)
+        cuda_sweep.finalize_reference(st, beta_parts, "gamma", rline=False,
+                                      maxiter=3)
 
 
 def test_batched_line_couplings_match_jax_per_lane(batch):
@@ -521,8 +528,7 @@ def test_merged_default_is_read_at_call_time(batch):
 
 
 def test_merged_phase_references_and_per_lane_guards(batch):
-    """merged_w, pq_update and finalize_merged on CPU tensors are their
-    plain versions; a NaN lane is poisoned, a lane at rtol 2 runs no
+    """merged_w and pq_update on CPU tensors are their plain versions; a NaN lane is poisoned, a lane at rtol 2 runs no
     iteration, and the scalar phase follows the recurrence's rules."""
     t = _t(batch)
     A0, Kv, dks, sm, b, x0 = _args(t)
@@ -548,13 +554,13 @@ def test_merged_phase_references_and_per_lane_guards(batch):
                                k=torch.tensor([4, 4]))
     parts = torch.tensor([[[3.0], [3.0]], [[1.0], [1e-6]], [[1.0], [1.0]],
                           [[9.0], [9.0]]], dtype=torch.float64)
-    out = cuda_sweep.unpack_state(cuda_sweep.finalize_merged(
+    out = cuda_sweep.unpack_state(cuda_sweep.finalize_merged_reference(
         st, parts, False, preconditioned=True, maxiter=9))
     # lane 0: beta = 1/2, alpha' = 1 / (3 - 0.5 * 1 / 0.5); lane 1: guards
     assert out["beta"].tolist() == [0.5, 1.0]
     assert out["alpha"].tolist() == [0.5, 1.0 / (3.0 - 1.0)]
     assert out["k"].tolist() == [5, 5] and out["done"].tolist() == [0, 1]
-    first = cuda_sweep.unpack_state(cuda_sweep.finalize_merged(
+    first = cuda_sweep.unpack_state(cuda_sweep.finalize_merged_reference(
         st, parts, True, 0.5, preconditioned=True, maxiter=9, rtol_wrt="b"))
     assert first["alpha"].tolist() == [1 / 3, 1 / 3]
     assert first["stop2"].tolist() == [0.25 * 9, 0.25 * 9]
@@ -601,8 +607,6 @@ def test_cuda_phase_kernels_match_plain(batch):
                                   dtype=torch.float32).cuda() * g["free"])
     lane = lambda: torch.tensor(rng.uniform(0.1, 1.0, 3)).cuda()
     x, r, p, Ap = field(), field(), field(), field()
-    parts = torch.tensor(rng.uniform(0.5, 1.5, (4, 3, 5))).cuda()
-    rtol = lane().float()
     state = cuda_sweep.pack_state(3, "cuda", rz=lane(), rr=lane(),
                                   stop2=lane(), k=[3, 4, 5], done=[0, 1, 0])
 
@@ -631,14 +635,8 @@ def test_cuda_phase_kernels_match_plain(batch):
     agree(cuda_sweep.pcr_z(g["A0"], g["Kv"], g["dks"], g["sm"], r, z_r),
           cuda_sweep.pcr_z_reference(g["A0"], g["Kv"], g["dks"], g["sm"], r,
                                      z_r), 1e-4)
-    for mode in ("init", "alpha", "beta"):
-        kw = dict(rline=True, maxiter=4)
-        got = cuda_sweep.finalize(state, parts, mode, rtol, **kw)
-        want = cuda_sweep.finalize_reference(state, parts, mode, rtol, **kw)
-        agree(tuple(cuda_sweep.unpack_state(got).values()),
-              tuple(cuda_sweep.unpack_state(want).values()), 1e-12)
     counts = cuda_sweep.phase_launches()
-    assert counts["finalize"] == 3 and counts["update"] == 1
+    assert counts["update"] == 1
     assert counts["pcr_z"] == 1
 
 
@@ -1018,9 +1016,8 @@ def test_cuda_tail_phases_match_plain(small):
 @pytest.mark.cuda
 def test_cuda_launches_per_iteration_and_lane_groups(batch):
     """A standard iteration takes 3 launches (identity, r-line) or 4 (ADI,
-    adaptive), as does a merged one, and no solve launches the
-    single-phase scalar kernels; each lane of a solve equals, bitwise, the
-    same lane solved alone (a lane's arithmetic does not depend on the
+    adaptive), as does a merged one; each lane of a solve equals, bitwise,
+    the same lane solved alone (a lane's arithmetic does not depend on the
     lanes that share its operator-pass block)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
@@ -1037,8 +1034,6 @@ def test_cuda_launches_per_iteration_and_lane_groups(batch):
                                               merged=merged, **fkw)
             tag = form + ("_merged" if merged else "")
             assert cuda_sweep.launches_per_iteration() == {tag: want[form]}
-            counts = cuda_sweep.phase_launches()
-            assert counts["finalize"] == counts["finalize_merged"] == 0
             for i in range(3):
                 one = {k: (v[i:i + 1].contiguous() if k in ("dks", "sm", "b",
                                                            "x0") else v)

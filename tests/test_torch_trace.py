@@ -111,12 +111,14 @@ PATHS = {
          "transient.operands": ("transient", 3),
          "transient.step": ("transient", STEPS),
          "k1.solve": ("transient.step", STEPS)}),
-    # the overlay's eager loop (the CPU): the reorders at the call's edges
+    # the overlay's eager loop (the CPU), the structured stepper's: the
+    # reorders at the call's edges
     "unstructured_recording": (
         lambda p: make_simulate_fn_unstructured(
             _triangulation(), dtype=torch.float64, device="cpu",
             record_gradient=True)(),
         {"transient": (None, 1),
+         "transient.operands": ("transient", 1),
          "transient.reorder": ("transient", 2),
          "transient.step": ("transient", STEPS),
          "k1.solve": ("transient.step", STEPS),
@@ -127,6 +129,7 @@ PATHS = {
             solver="vmem", precondition="rline", f64_refine=1, rtol=1e-4,
             warm_start="extrapolate", record_gradient=False)(),
         {"transient": (None, 1),
+         "transient.operands": ("transient", 2),
          "transient.reorder": ("transient", 2),
          "transient.step": ("transient", STEPS),
          "k1.solve": ("transient.step", STEPS)}),

@@ -1,6 +1,6 @@
 """The grid-overlay transient on the structured stepper's graph path
-(``sim/unstructured.SimulatorUnstructured._run_lattice`` over
-``sim/stepper.GraphPath`` and ``ops/cuda_step``).
+(``sim/unstructured.SimulatorUnstructured._run_lattice``, that is
+``sim/stepper.GraphPath._run_graph`` over ``ops/cuda_step``).
 
 (a) On the CPU the graph's plain version (``cuda_step.run_stepwise`` in
 place of ``cuda_step.run``: each step wrapper's plain version and
@@ -66,15 +66,9 @@ def _make(p, device="cpu", **kw):
 
 
 def _args(fn, kappas=None, fwhm=None, source=None):
-    """The core's arguments of a call: coefficients, u0 and the source on
-    the lattice."""
-    kp, rc, fw = fn._coeffs(kappas, None, fwhm)
-    n = len(fn.problem.mesh.nodes)
-    lattice = lambda v: torch.as_tensor(v, dtype=fn.cdt, device=kp.device)[
-        fn.to_latt].reshape(fn.shape)
-    u0 = lattice(np.full(n, fn.problem.ic_temp))
-    t0 = torch.tensor(0.0, dtype=fn.cdt, device=kp.device)
-    return kp, rc, fw, u0, t0, None if source is None else lattice(source)
+    """The step loop's arguments of a call: the buffers, coefficients, u0
+    and the source on the lattice."""
+    return fn._inputs(kappas, None, fwhm, None, 0.0, source)
 
 
 def _stepwise(fn, *args):

@@ -55,10 +55,7 @@ def worker(root: str, tag: str) -> dict:
     problem = cs.build_flagship()
     A32, sm32, s32, free32, b32 = cs.first_step_system(problem, dev)
     pcr = cuda_cg.rline_pack(A32, s32, free32)
-    # the z-line factors; a tree from before them takes the folded stack
-    zline_pack = getattr(cuda_cg, "zline_pack", None)
-    pcr_z = (zline_pack(A32, s32, free32) if zline_pack is not None else
-             cuda_cg.pcr_pack(A32, s32, free32, axis=-2).contiguous())
+    pcr_z = cuda_cg.zline_pack(A32, s32, free32)
     x0 = torch.zeros_like(b32)
     res = dict(tag=tag, root=root)
     for form, st in (("rline", dict(pcr=pcr)),
