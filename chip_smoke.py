@@ -123,7 +123,7 @@ Phases (each raises on failure; nothing is caught):
    Chebyshev (degree 3), merged (identity, r-line, ADI, Chebyshev) and mgz
    (1 and 2 sweeps) forms against their plain versions (counts, rel-L2, a
    NaN right-hand side poisoned) and against the standard r-line solve, the
-   mgz solves with at most 6 / 7 launches an iteration read from the
+   mgz solves with at most 5 / 6 launches an iteration read from the
    counters (``MGZ_LAUNCHES``). At the sweep shape, 8
    lanes (one NaN, one at rtol 2): K2's merged phase kernels and its merged
    solves (identity, r-line, ADI, adaptive) against their plain versions
@@ -167,7 +167,7 @@ Phases (each raises on failure; nothing is caught):
    run and no row in the kernels line, at least as many iterations as the
    1e-5 one and as close to float64 as its plain version), with
    iterations, ms a solve, us an iteration and launches an iteration read
-   from the counters (at most 15, ``MG_LAUNCHES``); (d) ``cg_vmem`` (64
+   from the counters (at most 14, ``MG_LAUNCHES``); (d) ``cg_vmem`` (64
    iterations) on the baked
    flagship operator against its plain version, and the baked operator
    against the on-the-fly form;
@@ -384,7 +384,7 @@ def k2_iter_bound(its, A0, Kv, sm, b) -> float:
 
 
 # phase 14: K5's launches an iteration, at most, by coarse sweeps
-MGZ_LAUNCHES = {1: 6, 2: 7}
+MGZ_LAUNCHES = {1: 5, 2: 6}
 # float32 operations a grid point of a lane costs, counted for what each
 # function computes, not for the algorithm its kernel runs. A line
 # preconditioner solves a tridiagonal system along each line: 8 a point by
@@ -531,21 +531,25 @@ def phase_checks(problem, device, out: dict) -> list[dict]:
     rows = []
     n = nz * nr
 
-    # stencil and <p, Ap>, with the alpha tail on a state record
-    st0 = dict(rz=0.731, rr=0.5, stop2=1e-12, alpha=0.0, beta=0.0, k=3,
+    # the direction p = z + beta p formed in the stencil pass, Ap and
+    # <p, Ap>, with the alpha tail on a state record
+    z = (torch.tensor(rng.standard_normal((nz, nr)), dtype=torch.float32,
+                      device=device) * free32).contiguous()
+    st0 = dict(rz=0.731, rr=0.5, stop2=1e-12, alpha=0.0, beta=0.37, k=3,
                done=0)
-    Ap_k, pap_k, st_k = cuda_cg.stencil_dot_alpha(A32, sm32, p, st0)
-    Ap_p, pap_p = cuda_cg.stencil_dot_reference(A32, sm32, p)
+    pn_k, Ap_k, pap_k, st_k = cuda_cg.stencil_dot_p(A32, sm32, z, p, st0)
+    pn_p, Ap_p, pap_p = cuda_cg.stencil_dot_p_reference(A32, sm32, z, p,
+                                                        0.37, False)
     st_p = cuda_cg.finalize_reference(st0, "alpha", pap=pap_p)
     err = float((Ap_k - Ap_p).abs().max())
-    rel = rel_max(Ap_k, Ap_p)
+    rel = max(rel_max(Ap_k, Ap_p), rel_max(pn_k, pn_p))
     dot_rel = abs(float(pap_k - pap_p)) / abs(float(pap_p))
     alpha_rel = abs(st_k["alpha"] - st_p["alpha"]) / abs(st_p["alpha"])
     require(rel <= 1e-5 and dot_rel <= 1e-5 and alpha_rel <= 1e-5
             and st_k["k"] == st_p["k"] and st_k["rz"] == st_p["rz"],
             ("stencil_dot", rel, dot_rel, st_k, st_p))
     rows.append(dict(name="cg_tol.stencil_dot", phase="stencil_dot",
-                     **bound(nbytes(A32, sm32, p, p) + 8, 17 * n),
+                     **bound(nbytes(A32, sm32, z, p, p, p) + 8, 19 * n),
                      max_abs_err=err, rel=rel, dot_rel=dot_rel,
                      alpha_rel=alpha_rel,
                      ms=cuda_ms(lambda: cuda_cg.stencil_dot(A32, sm32, p),
@@ -1201,7 +1205,7 @@ def run_slice(problem, device, out: dict):
                         bitwise_kernel_order=same,
                         forms_differ_at=form_diff)
     require((peak <= TRACE_TOL_K).all(), f"trace error {peak} K > 1.0 K")
-    require(all(v <= {"rline": 3, "adi": 4}[f] for f, v in per_iter.items())
+    require(all(v <= {"rline": 2, "adi": 3}[f] for f, v in per_iter.items())
             and per_iter, ("launches an iteration", per_iter))
     require(split["host_reads"] == 0, ("host reads inside solves", split))
     require(split["host_reads_between_solves"] == 0,
@@ -3546,7 +3550,7 @@ RECORDING_TOL = dict(watch=1e-3, band=1e-2, axis=0.5)
 REFINED_RECORDING_TOL = dict(watch=1e-6, band=1e-3, axis=0.1)
 MG_LEVELS = 4
 MG_STEPS = 10          # phase 18: steps of the flagship solved by K6
-MG_LAUNCHES = 15       # phase 17: K6's launches an iteration, at most
+MG_LAUNCHES = 14       # phase 17: K6's launches an iteration, at most
 K7_STEPS, K7_ITERS = 8, 1500   # the pulse reaches the watchers by step 5
 ONE_D_CFG = os.path.join(ROOT, "cfgs", "geballe_1d.yaml")
 

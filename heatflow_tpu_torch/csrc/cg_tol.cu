@@ -64,14 +64,25 @@
 //   reduces the partials in a fixed order (no atomics on the sums, so a
 //   solve is bitwise repeatable) and sets alpha (after the stencil) or
 //   beta, the count and the stop flag (after the kernel that writes the
-//   last partials). An r-line iteration is 3 launches (k_stencil_dot,
-//   k_row_update, k_p_update), an ADI one 4 (+ k_zline), an identity one
-//   3 (k_update takes beta). The alpha tail costs the stencil ~4 us (12.6
-//   us against 8.8).
+//   last partials). The stencil pass forms the search direction itself:
+//   p = z + beta p from z and the last p (p = z on a solve's first
+//   iteration, read from the device's count), u = sm p staged in shared
+//   memory on the block's points and one grid row below and above, and
+//   p written at the point into the other of two planes (blocks still
+//   read the last p around their points). An r-line iteration is 2
+//   launches (k_stencil_dot, k_row_update), an ADI one 3 (+ k_zline), an
+//   identity one 2 (k_update takes beta); each was one more while a pass
+//   of its own formed p (k_p_update, 2.3-2.4 us a launch in the flagship
+//   transient). In that transient (tools/k1_ab.py, in-solve) the stencil
+//   pass takes 9.97 us with p formed in it, against 9.1-9.3 before; 10.4
+//   with p formed at each neighbour from global memory (every neighbour
+//   read from z, p and sm, behind a read of the count). The alpha tail
+//   costs the stencil ~4 us (12.6 us against 8.8).
 // - No host in the loop. A solve is one CUDA graph: the start, a
 //   conditional WHILE node whose body is CHECK_EVERY iterations, and the
-//   finish. The last kernel of the start and of each body sets the loop
-//   condition from the done flag, so the device runs blocks until the
+//   finish. The last kernel of the start (k_finalize) and of each body
+//   (the one with the beta tail) sets the loop condition from the done
+//   flag, also when it returns at once, so the device runs blocks until the
 //   solve stops and the host reads nothing before the end; every phase
 //   kernel still returns at once when the flag is set, so an iterate does
 //   not depend on CHECK_EVERY. The wrapper captures a graph once per
@@ -98,10 +109,10 @@
 // operands from ops/mgz.py): its working set (A, the fine and the coarse
 // stacks, aux, ~10 planes: 75-85 MB at the flagship) does not fit the 50 MB
 // L2, so each pass streams from HBM, and each pass was a launch (11 an
-// iteration with one coarse sweep, 13 with two). This design: 6 launches an
-// iteration with one sweep, 7 with two. k_stencil_dot (alpha tail); the
-// pre-smoothing row (k_row_update: the row kernel of the r-line form, its
-// factors staged by cp.async, the CG update of x and r in its load); the
+// iteration with one coarse sweep, 13 with two). This design:
+// k_stencil_dot (alpha tail, forming p); the pre-smoothing row
+// (k_row_update: the row kernel of the r-line form, its factors staged by
+// cp.async, the CG update of x and r in its load); the
 // coarse row (k_row_restrict, 1024 threads a block on the even rows only:
 // the odd rows of the embedded coarse grid have zero couplings, unit
 // diagonal and zero restriction weights, so there d = 0 and the block
@@ -112,9 +123,10 @@
 // prolongation with the second residual in one pass (k_mgz_prolong_res:
 // the prolongated iterate formed at the point and its stencil neighbours);
 // the post-smoothing row (k_row_plain, with the mask, the <r, z> partials
-// and the beta tail); k_p_update. The row kernel requests its epilogue's
-// operands before the line solve. With the earlier folded PCR rows:
-// NVIDIA H100 80GB HBM3, 700 W, first-step
+// and the beta tail): 5 launches an iteration with one sweep, 6 with two
+// (one more each while p had a pass of its own). The row kernel requests
+// its epilogue's operands before the line solve. With the earlier folded
+// PCR rows and a pass for p: NVIDIA H100 80GB HBM3, 700 W, first-step
 // solve (tools/mg_ab.py, in-solve by torch.profiler): one sweep 179
 // iterations, 103.4-104.7 us an iteration (141.6-143.0 before), two sweeps
 // 137 and 122.5-123.6 (178.2-179.3); in-solve the coarse row 32.9 us, the
@@ -132,8 +144,9 @@
 // its compiler has no gathers; here a restriction gathers in a fixed order
 // (no atomics, so a cycle is repeatable bitwise). The coarse levels (18 k
 // and 4.7 k points on the flagship) are bound by latency, not traffic: a
-// cycle of four levels was 31 launches. This design, 15 launches an
-// iteration: level 0's first smoothing step takes the CG update (it reads r
+// cycle of four levels was 31 launches. This design, 14 launches an
+// iteration with the stencil pass (15 while p had a pass of its own):
+// level 0's first smoothing step takes the CG update (it reads r
 // at its own point only) and its last the beta tail; a level's first step
 // from zero is pointwise, so the other levels form it inside their second
 // (k_mg_step, from_b); a restriction forms the residual once a fine point
@@ -206,6 +219,8 @@ struct CGState {
   unsigned ticket[2];
 };
 
+// The phases' launch counters (ops/cuda_cg.py: PHASES). kPhPUpdate counts
+// no kernel since the stencil pass forms p: it reads 0.
 enum Phase {
   kPhInit = 0, kPhStencilDot, kPhUpdate, kPhPcrR, kPhPcrZ, kPhFinalize,
   kPhPUpdate, kPhFinish, kPhChebInit, kPhChebStep, kPhMergedW,
@@ -278,14 +293,45 @@ __device__ void beta_rule(CGState* st, double rr, double rz,
   st->done = !(st->k < maxiter && (fixed || st->rr > st->stop2));
 }
 
+// The loop condition of the solve's graph, carried by the kernel that ends
+// the start or a block of iterations (`set`): 1 while the solve runs.
+// `runs` counts the block's runs (null at the start). One thread sets it.
+struct LoopSet {
+  int set;
+  cudaGraphConditionalHandle cond;
+  unsigned long long* runs;
+};
+
+__device__ void loop_set(const LoopSet& l, bool done) {
+  if (!l.set) return;
+  if (l.runs != nullptr) *l.runs += 1;
+  cudaGraphSetConditional(l.cond, done ? 0u : 1u);
+}
+
+__device__ __forceinline__ bool first_thread() {
+  return blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 &&
+         threadIdx.y == 0;
+}
+
+// The done flag at a phase kernel's start: when it is set every block
+// returns at once, and a kernel that carries the loop condition still sets
+// it (the solve stopped) and counts the run, in its first thread.
+__device__ bool stopped(const CGState* st, const LoopSet& l) {
+  if (!st->done) return false;
+  if (first_thread()) loop_set(l, true);
+  return true;
+}
+
 // The beta step a kernel's last block takes after the kernel's partials
 // are written: <r, r> from part_rr (n_rr of them), <r, z> from part_rz
-// (n_rz; none: z is r, the identity form). Off when st is null.
+// (n_rz; none: z is r, the identity form); then the loop condition from the
+// new done flag, when the kernel carries it. Off when st is null.
 struct BetaTail {
   CGState* st;
   const double* part_rr;
   const double* part_rz;
   int n_rr, n_rz, maxiter, fixed;
+  LoopSet loop;
 };
 
 __device__ void beta_tail(const BetaTail& t) {
@@ -295,18 +341,8 @@ __device__ void beta_tail(const BetaTail& t) {
   if (threadIdx.x == 0 && threadIdx.y == 0) {
     beta_rule(t.st, rr, rz, t.n_rz > 0, t.maxiter, t.fixed);
     t.st->ticket[1] = 0;
+    loop_set(t.loop, t.st->done);
   }
-}
-
-// The loop condition of the solve's graph, set by the kernel that ends the
-// start or a block of iterations: 1 while the solve runs. `runs` counts the
-// block's launches (null at the start).
-__device__ void set_loop(const CGState* st, int set_cond,
-                         cudaGraphConditionalHandle cond,
-                         unsigned long long* runs) {
-  if (!set_cond || blockIdx.x != 0 || threadIdx.x != 0) return;
-  if (runs != nullptr) *runs += 1;
-  cudaGraphSetConditional(cond, st->done ? 0u : 1u);
 }
 
 // (A (sm . v))[i, j] for the 7-point (or 9-point) stencil, neighbours
@@ -314,15 +350,13 @@ __device__ void set_loop(const CGState* st, int set_cond,
 // of heatflow_tpu_torch/ops/stencil.py: OFFSETS, then OFFSETS9's two. A
 // neighbour outside the grid is read at the point itself and its term not
 // added, so that the loads carry no branch and are issued together.
-// The same with the scaled iterate u = sm . v given as a function of the
-// grid point.
-template <class U>
-__device__ __forceinline__ float stencil_u(const float* __restrict__ A,
-                                           int npts, U u, int i, int j,
+// stencil_c takes the point's coefficients as a function c(k) of the plane
+// and the scaled iterate u = sm . v as a function of the grid point;
+// stencil_u reads the coefficients from A.
+template <class C, class U>
+__device__ __forceinline__ float stencil_c(C c, int npts, U u, int i, int j,
                                            int nz, int nr) {
-  const int n = nz * nr;
-  const int idx = i * nr + j;
-  float out = A[idx] * u(i, j);
+  float out = c(0) * u(i, j);
   const int di[8] = {1, -1, 0, 0, 1, -1, 1, -1};
   const int dj[8] = {0, 0, 1, -1, 1, -1, -1, 1};
 #pragma unroll
@@ -330,10 +364,20 @@ __device__ __forceinline__ float stencil_u(const float* __restrict__ A,
     if (k >= npts - 1) break;
     const int ii = i + di[k], jj = j + dj[k];
     const bool in = ii >= 0 && ii < nz && jj >= 0 && jj < nr;
-    const float t = A[(k + 1) * n + idx] * u(in ? ii : i, in ? jj : j);
+    const float t = c(k + 1) * u(in ? ii : i, in ? jj : j);
     out = in ? out + t : out;
   }
   return out;
+}
+
+template <class U>
+__device__ __forceinline__ float stencil_u(const float* __restrict__ A,
+                                           int npts, U u, int i, int j,
+                                           int nz, int nr) {
+  const int n = nz * nr;
+  const int idx = i * nr + j;
+  return stencil_c([&](int k) { return A[k * n + idx]; }, npts, u, i, j, nz,
+                   nr);
 }
 
 __device__ __forceinline__ float stencil_at(const float* __restrict__ A,
@@ -397,22 +441,68 @@ __global__ void k_init(const float* __restrict__ A, int npts,
   }
 }
 
-// Ap = sm A (sm p); partials of <p, Ap>. With `tail` the last block
-// reduces them and sets alpha = rz / pAp.
+// The search direction p = z + beta p_old (p = z on a solve's first
+// iteration, the state's count k == 0, or without a state record), written
+// at the point into p, another plane than p_old (other blocks read p_old
+// around their points); Ap = sm A (sm p); partials of <p, Ap>. With `tail`
+// the last block reduces them and sets alpha = rz / pAp. The block (one
+// point a thread, kThreads of them in a row of the flattened grid) stages
+// u = sm p, each value formed once by the one expression
+// sm * (z + beta * p_old), on the points of its range and on those one
+// grid row below and above, with one point more at each end, in shared
+// memory; the stencil then reads its neighbours' u there.
 __global__ void k_stencil_dot(const float* __restrict__ A, int npts,
                               const float* __restrict__ sm,
-                              const float* __restrict__ p,
-                              float* __restrict__ Ap, double* part,
-                              CGState* st, int tail, int nz, int nr) {
-  if (st != nullptr && st->done) return;
+                              const float* __restrict__ z,
+                              const float* __restrict__ p_old,
+                              float* __restrict__ p, float* __restrict__ Ap,
+                              double* part, CGState* st, int tail, int nz,
+                              int nr) {
+  // the state's flag, count and beta read together, before any plane
+  const int done = st != nullptr ? st->done : 0;
+  const bool first = st == nullptr || st->k == 0;
+  const float beta = st != nullptr ? (float)st->beta : 0.0f;
+  if (done) return;
+  // us[r][1 + t]: u at thread t's point + (r - 1) nr; us[r][0] and
+  // us[r][kThreads + 1] the points before and after the block's
+  __shared__ float us[3][kThreads + 2];
   const int n = nz * nr;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = threadIdx.x;
+  const int b0 = blockIdx.x * kThreads;
+  const int idx = b0 + t;
+  const bool in = idx < n;
+  // p at a point: both planes are read whichever is taken, so that the
+  // loads carry no branch (p_old is never used on a first iteration)
+  auto pv = [&](int q) {
+    const float zq = z[q], pq = p_old[q];
+    return first ? zq : zq + beta * pq;
+  };
+  auto u_at = [&](int q) { return q >= 0 && q < n ? sm[q] * pv(q) : 0.0f; };
+  float a[9], h[3] = {0.0f, 0.0f, 0.0f};
+  if (t < 2) {
+    const int q = t == 0 ? b0 - 1 : b0 + kThreads;
+    for (int r = 0; r < 3; ++r) h[r] = u_at(q + (r - 1) * nr);
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) a[k] = in && k < npts ? A[k * n + idx] : 0.0f;
+  const float pc = in ? pv(idx) : 0.0f;
+  const float sc = in ? sm[idx] : 0.0f;
+  us[0][t + 1] = u_at(idx - nr);
+  us[1][t + 1] = sc * pc;
+  us[2][t + 1] = u_at(idx + nr);
+  if (t < 2)
+    for (int r = 0; r < 3; ++r) us[r][t == 0 ? 0 : kThreads + 1] = h[r];
+  __syncthreads();
   double acc = 0.0;
-  if (idx < n) {
+  if (in) {
     const int i = idx / nr, j = idx - i * nr;
-    const float v = sm[idx] * stencil_at(A, npts, sm, p, i, j, nz, nr);
+    const float v = sc * stencil_c(
+        [&](int k) { return a[k]; }, npts,
+        [&](int ii, int jj) { return us[ii - i + 1][t + 1 + jj - j]; }, i,
+        j, nz, nr);
+    p[idx] = pc;
     Ap[idx] = v;
-    acc = (double)(p[idx] * v);
+    acc = (double)(pc * v);
   }
   acc = block_sum(acc);
   if (threadIdx.x == 0) part[blockIdx.x] = acc;
@@ -430,7 +520,7 @@ __global__ void k_update(float* __restrict__ x, float* __restrict__ r,
                          const float* __restrict__ p,
                          const float* __restrict__ Ap, double* part_rr,
                          const CGState* st, BetaTail tail, int n) {
-  if (st->done) return;
+  if (stopped(st, tail.loop)) return;
   const float alpha = (float)st->alpha;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   double acc = 0.0;
@@ -700,7 +790,7 @@ __device__ __forceinline__ float coarse_apply_at(const float* __restrict__ Ac9,
 
 template <int kLoad>
 __device__ __forceinline__ void row_pass(const RowArgs& a) {
-  if (a.st != nullptr && a.st->done) return;
+  if (a.st != nullptr && stopped(a.st, a.tail.loop)) return;
   extern __shared__ float smem[];
   __shared__ float2 tot[2][32];
   constexpr bool kEven = kLoad == kRowRestrict || kLoad == kRowCoarseRes;
@@ -885,7 +975,7 @@ __global__ void __launch_bounds__(32 * kZCols)
             const float* __restrict__ F, float* __restrict__ z,
             double* part_rz, const CGState* st, BetaTail tail, int nz,
             int nr) {
-  if (st != nullptr && st->done) return;
+  if (st != nullptr && stopped(st, tail.loop)) return;
   extern __shared__ float smem[];
   const int w = blockDim.x >> 5;
   const int pitch = zline_pitch(w);
@@ -1128,14 +1218,13 @@ __global__ void k_merged_w(const float* __restrict__ A, int npts,
   }
 }
 
-// p = u + beta p, q = w + beta q (p = u, q = w on the first call).
+// p = u + beta p, q = w + beta q (p = u, q = w on the first call); sets
+// the loop condition when it carries it.
 __global__ void k_pq_update(float* __restrict__ p, float* __restrict__ q,
                             const float* __restrict__ u,
                             const float* __restrict__ w, const CGState* st,
-                            int first, int n, int set_cond,
-                            cudaGraphConditionalHandle cond,
-                            unsigned long long* runs) {
-  set_loop(st, set_cond, cond, runs);
+                            int first, int n, LoopSet loop) {
+  if (first_thread()) loop_set(loop, st->done);
   if (st->done && !first) return;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
@@ -1358,7 +1447,7 @@ struct MGStep {
 
 __global__ void k_mg_step(const __grid_constant__ MGStep s, const CGState* st,
                           const __grid_constant__ BetaTail tail) {
-  if (st != nullptr && st->done) return;
+  if (st != nullptr && stopped(st, tail.loop)) return;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   double rr = 0.0, acc = 0.0;
   if (idx < s.nz * s.nr) {
@@ -1556,17 +1645,17 @@ __global__ void __launch_bounds__(kLastThreads, 1)
 }
 
 // The start's scalars and stop target (kFinInit), or beta by beta_rule
-// (kFinBeta), in one block. n_rz == 0 means z is r (identity form), so
-// <r, z> = <r, r>. The standard loop takes alpha and beta in the tails of
-// k_stencil_dot and of the kernel that writes the last partials; this
-// kernel serves the start and the preconditioners whose last kernel has no
-// tail (Chebyshev, mgz, multigrid).
+// (kFinBeta), in one block, then the loop condition when the kernel
+// carries it. n_rz == 0 means z is r (identity form), so <r, z> = <r, r>.
+// The standard loop takes alpha and beta in the tails of k_stencil_dot and
+// of the kernel that writes the last partials; this kernel serves the start
+// and the preconditioner whose last kernel has no tail (Chebyshev).
 __global__ void k_finalize(CGState* st, const double* part_rr,
                            const double* part_rz,
                            const double* part_bb, int n_elem, int n_rz,
                            int mode, const float* rtol, int maxiter,
-                           int wrt_r0, int fixed) {
-  if (mode != kFinInit && st->done) return;
+                           int wrt_r0, int fixed, LoopSet loop) {
+  if (mode != kFinInit && stopped(st, loop)) return;
   const double rr = reduce_parts(part_rr, n_elem);
   const double rz = n_rz > 0 ? reduce_parts(part_rz, n_rz) : rr;
   if (mode == kFinInit) {
@@ -1580,10 +1669,14 @@ __global__ void k_finalize(CGState* st, const double* part_rr,
       st->beta = 0.0;
       st->k = 0;
       st->done = !(0 < maxiter && (fixed || st->rr > st->stop2));
+      loop_set(loop, st->done);
     }
     return;
   }
-  if (threadIdx.x == 0) beta_rule(st, rr, rz, n_rz > 0, maxiter, fixed);
+  if (threadIdx.x == 0) {
+    beta_rule(st, rr, rz, n_rz > 0, maxiter, fixed);
+    loop_set(loop, st->done);
+  }
 }
 
 // The scalars of the merged-dot recurrence, in one block: gamma = <r, u>
@@ -1629,23 +1722,6 @@ __global__ void k_finalize_merged(CGState* st, const double* part_delta,
   }
 }
 
-// p = z + beta p (p = z on the first call).
-__global__ void k_p_update(float* __restrict__ p, const float* __restrict__ z,
-                           const CGState* st, int first, int n, int set_cond,
-                           cudaGraphConditionalHandle cond,
-                           unsigned long long* runs) {
-  set_loop(st, set_cond, cond, runs);
-  if (st->done && !first) return;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  if (first) {
-    p[idx] = z[idx];
-  } else {
-    const float beta = (float)st->beta;
-    p[idx] = z[idx] + beta * p[idx];
-  }
-}
-
 // iters = k; with `poison`, x = NaN everywhere when the residual is not
 // finite.
 __global__ void k_finish(float* __restrict__ x, int* iters,
@@ -1659,7 +1735,11 @@ struct Solve {
   const float *A, *sm, *b, *x0, *rtol;
   const float* pcr;    // the r-line Thomas factors (3 planes)
   const float* pcrz;   // the z-line Thomas factors (3 planes)
-  float *x, *r, *z, *p, *Ap;
+  float *x, *r, *z;
+  float* p;        // two planes, p and p + n: the search direction of the
+                   // even and the odd iterations (the merged recurrence
+                   // uses the first only)
+  float* Ap;
   double* parts;   // 4 x nparts: pAp (delta), rr, rz (gamma), bb
   CGState* st;
   int npts, nz, nr, maxiter, wrt_r0, nparts;
@@ -2107,32 +2187,19 @@ cudaError_t precondition(const Solve& s, bool update, const BetaTail& tail) {
                       s.nz, s.nr, s.counts, s.stream);
 }
 
-cudaError_t finalize(const Solve& s, int mode) {
+cudaError_t finalize(const Solve& s, int mode, const LoopSet& loop) {
   k_finalize<<<1, kThreads, 0, s.stream>>>(
       s.st, s.part(1), s.part(2), s.part(3), s.elem_blocks(),
-      s.n_rz(), mode, s.rtol, s.maxiter, s.wrt_r0, s.fixed);
+      s.n_rz(), mode, s.rtol, s.maxiter, s.wrt_r0, s.fixed, loop);
   s.counts[kPhFinalize] += 1;
   return cudaGetLastError();
 }
 
-// The graph's loop condition: the handle, and the block-run counter (null
-// for the start). A null LoopCond* leaves the condition alone.
-struct LoopCond {
-  cudaGraphConditionalHandle handle;
-  unsigned long long* runs;
-};
-
-cudaError_t p_update(const Solve& s, int first, const LoopCond* lc) {
-  k_p_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
-      s.p, s.zout(), s.st, first, s.n(), lc != nullptr,
-      lc ? lc->handle : 0, lc ? lc->runs : nullptr);
-  s.counts[kPhPUpdate] += 1;
-  return cudaGetLastError();
-}
+const LoopSet kNoLoop{0, 0, nullptr};
 
 // The merged-dot tail of a step: w = A u with gamma, delta and <r, r>, the
 // scalars, then p and q.
-cudaError_t merged_tail(const Solve& s, int first, const LoopCond* lc) {
+cudaError_t merged_tail(const Solve& s, int first, const LoopSet& loop) {
   k_merged_w<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
       s.A, s.npts, s.sm, s.zout(), s.r, s.w(), s.part(0), s.part(1),
       s.part(2), s.st, s.nz, s.nr);
@@ -2145,13 +2212,15 @@ cudaError_t merged_tail(const Solve& s, int first, const LoopCond* lc) {
   s.counts[kPhFinalizeMerged] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   k_pq_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
-      s.p, s.q(), s.zout(), s.w(), s.st, first, s.n(), lc != nullptr,
-      lc ? lc->handle : 0, lc ? lc->runs : nullptr);
+      s.p, s.q(), s.zout(), s.w(), s.st, first, s.n(), loop);
   s.counts[kPhPqUpdate] += 1;
   return cudaGetLastError();
 }
 
-cudaError_t start(const Solve& s, const LoopCond* lc) {
+// The start: x = x0, r, z = M^-1 r and the scalars; its last kernel sets
+// the loop condition. The standard recurrence forms p in the first
+// iteration's stencil pass.
+cudaError_t start(const Solve& s, const LoopSet& loop) {
   cudaError_t e = cudaMemsetAsync(s.st, 0, sizeof(CGState), s.stream);
   if (e != cudaSuccess) return e;
   k_init<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
@@ -2160,21 +2229,23 @@ cudaError_t start(const Solve& s, const LoopCond* lc) {
   s.counts[kPhInit] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if ((e = precondition(s, false, kNoTail)) != cudaSuccess) return e;
-  if (s.merged) return merged_tail(s, 1, lc);
-  if ((e = finalize(s, kFinInit)) != cudaSuccess) return e;
-  return p_update(s, 1, lc);
+  if (s.merged) return merged_tail(s, 1, loop);
+  return finalize(s, kFinInit, loop);
 }
 
-// One iteration. The standard recurrence takes alpha in k_stencil_dot's
-// tail and beta in the tail of the kernel that writes the last partials:
-// identity 3 launches (k_stencil_dot, k_update, k_p_update), r-line 3
-// (k_update folded into the row kernel), ADI 4 (+ k_zline); mgz 6 with one
-// coarse sweep (the update folded into the pre-smoothing row, beta in the
-// post-smoothing row's tail), 7 with two; multigrid at four levels 13 (the
-// update folded into level 0's first smoothing step, beta in its last);
-// the Chebyshev form keeps k_update, its polynomial and a k_finalize. The
-// merged recurrence keeps its own five-phase sequence.
-cudaError_t iterate(const Solve& s, const LoopCond* lc) {
+// One iteration, at `slot` in the loop body (whose length is even, so the
+// slot's parity is the iteration count's). The standard recurrence forms p
+// and takes alpha in k_stencil_dot (p into the plane of the slot's parity,
+// from the other), and beta in the tail of the kernel that writes the last
+// partials, which also carries the loop condition (`loop`): identity 2
+// launches (k_stencil_dot, k_update), r-line 2 (k_update folded into the
+// row kernel), ADI 3 (+ k_zline); mgz 5 with one coarse sweep (the update
+// folded into the pre-smoothing row, beta in the post-smoothing row's
+// tail), 6 with two; multigrid at four levels 12 (the update folded into
+// level 0's first smoothing step, beta in its last); the Chebyshev form
+// keeps k_update, its polynomial and a k_finalize. The merged recurrence
+// keeps its own five-phase sequence.
+cudaError_t iterate(const Solve& s, int slot, const LoopSet& loop) {
   cudaError_t e;
   if (s.merged) {
     // x += alpha p, r -= alpha q; u = M^-1 r; then the merged tail
@@ -2183,45 +2254,49 @@ cudaError_t iterate(const Solve& s, const LoopCond* lc) {
     s.counts[kPhUpdate] += 1;
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     if ((e = precondition(s, false, kNoTail)) != cudaSuccess) return e;
-    return merged_tail(s, 0, lc);
+    return merged_tail(s, 0, loop);
   }
+  // t: the solve with p at this iteration's plane, which every later
+  // kernel of the iteration reads
+  Solve t = s;
+  t.p = s.p + (size_t)(slot & 1) * s.n();
+  const float* p_old = s.p + (size_t)((slot + 1) & 1) * s.n();
   k_stencil_dot<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
-      s.A, s.npts, s.sm, s.p, s.Ap, s.part(0), s.st, 1, s.nz, s.nr);
+      s.A, s.npts, s.sm, s.zout(), p_old, t.p, s.Ap, s.part(0), s.st, 1,
+      s.nz, s.nr);
   s.counts[kPhStencilDot] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if (s.mgz() || s.mgd) {
+  if (t.mgz() || t.mgd) {
     // the partials of <r, r> and <r, z>: one a row (mgz), one an
     // elementwise block of level 0 (multigrid)
-    const int np = s.mgz() ? s.nz : s.elem_blocks();
-    const BetaTail tail{s.st, s.part(1), s.part(2), np, np, s.maxiter,
-                        s.fixed};
-    if ((e = precondition(s, true, tail)) != cudaSuccess) return e;
-  } else if (s.rline()) {
-    const BetaTail tail{s.st, s.part(1), s.part(2), s.nz,
-                        s.adi() ? s.col_tiles() : s.nz, s.maxiter, s.fixed};
-    e = launch_pcr_r(true, s.r, s.x, s.p, s.Ap, s.sm, s.pcr, s.z,
-                     s.part(1), s.adi() ? nullptr : s.part(2), s.st,
-                     s.adi() ? kNoTail : tail, s.nz, s.nr, s.counts,
-                     s.stream);
-    if (e == cudaSuccess && s.adi())
-      e = launch_zline(s.r, s.sm, s.pcrz, s.z, s.part(2), s.st, tail,
-                       s.nz, s.nr, s.counts, s.stream);
-    if (e != cudaSuccess) return e;
-  } else {
-    const bool identity = !s.preconditioned();
-    const BetaTail tail{s.st, s.part(1), nullptr, s.elem_blocks(), 0,
-                        s.maxiter, s.fixed};
-    k_update<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
-        s.x, s.r, s.p, s.Ap, s.part(1), s.st, identity ? tail : kNoTail,
-        s.n());
-    s.counts[kPhUpdate] += 1;
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    if (!identity) {
-      if ((e = precondition(s, false, kNoTail)) != cudaSuccess) return e;
-      if ((e = finalize(s, kFinBeta)) != cudaSuccess) return e;
-    }
+    const int np = t.mgz() ? t.nz : t.elem_blocks();
+    const BetaTail tail{t.st, t.part(1), t.part(2), np, np, t.maxiter,
+                        t.fixed, loop};
+    return precondition(t, true, tail);
   }
-  return p_update(s, 0, lc);
+  if (t.rline()) {
+    const BetaTail tail{t.st, t.part(1), t.part(2), t.nz,
+                        t.adi() ? t.col_tiles() : t.nz, t.maxiter, t.fixed,
+                        loop};
+    e = launch_pcr_r(true, t.r, t.x, t.p, t.Ap, t.sm, t.pcr, t.z,
+                     t.part(1), t.adi() ? nullptr : t.part(2), t.st,
+                     t.adi() ? kNoTail : tail, t.nz, t.nr, t.counts,
+                     t.stream);
+    if (e == cudaSuccess && t.adi())
+      e = launch_zline(t.r, t.sm, t.pcrz, t.z, t.part(2), t.st, tail,
+                       t.nz, t.nr, t.counts, t.stream);
+    return e;
+  }
+  const bool identity = !t.preconditioned();
+  const BetaTail tail{t.st, t.part(1), nullptr, t.elem_blocks(), 0,
+                      t.maxiter, t.fixed, loop};
+  k_update<<<t.elem_blocks(), kThreads, 0, t.stream>>>(
+      t.x, t.r, t.p, t.Ap, t.part(1), t.st, identity ? tail : kNoTail,
+      t.n());
+  t.counts[kPhUpdate] += 1;
+  if ((e = cudaGetLastError()) != cudaSuccess || identity) return e;
+  if ((e = precondition(t, false, kNoTail)) != cudaSuccess) return e;
+  return finalize(t, kFinBeta, loop);
 }
 
 cudaError_t finish(const Solve& s, int poison, int* iters) {
@@ -2236,10 +2311,13 @@ cudaError_t finish(const Solve& s, int poison, int* iters) {
 // its launches counted in counts_body) is `check_every` iterations, and the
 // finish. The start's and each body's last kernel set the loop condition
 // from the done flag, so the device runs blocks of iterations until the
-// solve stops and the host reads nothing before the end.
+// solve stops and the host reads nothing before the end. check_every is
+// even: an iteration's slot in the body gives the parity of its count,
+// which picks its plane of p.
 cudaError_t record_solve(const Solve& s, cudaStream_t body_stream,
                          int check_every, int poison, int* iters,
                          unsigned long long* runs, long long* counts_body) {
+  if (check_every < 2 || check_every % 2) return cudaErrorInvalidValue;
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
   cudaError_t e =
@@ -2249,8 +2327,7 @@ cudaError_t record_solve(const Solve& s, cudaStream_t body_stream,
   e = cudaGraphConditionalHandleCreate(&handle, graph, 1,
                                        cudaGraphCondAssignDefault);
   if (e != cudaSuccess) return e;
-  const LoopCond at_start{handle, nullptr};
-  if ((e = start(s, &at_start)) != cudaSuccess) return e;
+  if ((e = start(s, LoopSet{1, handle, nullptr})) != cudaSuccess) return e;
   const cudaGraphNode_t* deps;
   size_t ndeps;
   e = cudaStreamGetCaptureInfo(s.stream, &status, nullptr, &graph, &deps,
@@ -2275,9 +2352,9 @@ cudaError_t record_solve(const Solve& s, cudaStream_t body_stream,
   Solve b = s;
   b.stream = body_stream;
   b.counts = counts_body;
-  const LoopCond at_end{handle, runs};
+  const LoopSet at_end{1, handle, runs};
   for (int it = 0; it < check_every && e == cudaSuccess; ++it)
-    e = iterate(b, it == check_every - 1 ? &at_end : nullptr);
+    e = iterate(b, it, it == check_every - 1 ? at_end : kNoLoop);
   const cudaError_t ended = cudaStreamEndCapture(body_stream, &body);
   if (e != cudaSuccess) return e;
   if (ended != cudaSuccess) return ended;
@@ -2301,7 +2378,6 @@ cudaError_t record_solve_desc(const void* desc, cudaStream_t stream,
                               int poison, int* iters,
                               unsigned long long* runs, long long* counts,
                               long long* counts_body) {
-  if (check_every < 1) return cudaErrorInvalidValue;
   Solve s;
   memcpy(&s, desc, sizeof(Solve));
   s.stream = stream;
@@ -2363,7 +2439,6 @@ int hf_cg_tol_graph(HF_SOLVE_ARGS, int check_every, int poison, int *iters,
                     void *runs, long long *counts_body, void **exec_out) {
   HF_SOLVE_INIT;
   *exec_out = nullptr;
-  if (check_every < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = configure();
   if (e != cudaSuccess) return (int)e;
   cudaStream_t cs, bs;
@@ -2412,14 +2487,17 @@ int hf_graph_destroy(void *exec) {
 }
 
 // Single phases, for checking each kernel against its plain version.
-// Ap = sm A (sm p) with the <p, Ap> partials; with a state record, also
-// the alpha tail on it.
-int hf_stencil_dot(const float *A, int npts, const float *sm, const float *p,
-                   float *Ap, double *part, void *state, int nz, int nr,
-                   long long *counts, void *stream) {
+// p = z + beta p_old into p (p = z when the state record's count is 0, or
+// without a state record), Ap = sm A (sm p) with the <p, Ap> partials; with
+// a state record, also the alpha tail on it.
+int hf_stencil_dot(const float *A, int npts, const float *sm, const float *z,
+                   const float *p_old, float *p, float *Ap, double *part,
+                   void *state, int nz, int nr, long long *counts,
+                   void *stream) {
   const int blocks = (nz * nr + kThreads - 1) / kThreads;
   k_stencil_dot<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      A, npts, sm, p, Ap, part, (CGState *)state, state != nullptr, nz, nr);
+      A, npts, sm, z, p_old, p, Ap, part, (CGState *)state,
+      state != nullptr, nz, nr);
   counts[kPhStencilDot] += 1;
   return (int)cudaGetLastError();
 }
@@ -2610,7 +2688,7 @@ int hf_pq_update(float *p, float *q, const float *u, const float *w,
                  const void *state, int n, long long *counts, void *stream) {
   k_pq_update<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                 (cudaStream_t)stream>>>(p, q, u, w, (const CGState *)state, 0,
-                                        n, 0, 0, nullptr);
+                                        n, kNoLoop);
   counts[kPhPqUpdate] += 1;
   return (int)cudaGetLastError();
 }

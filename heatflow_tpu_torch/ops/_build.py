@@ -162,7 +162,7 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_solve_desc, *solve, P)
     _sig(lib.hf_graph_launch, P, P)
     _sig(lib.hf_graph_destroy, P)
-    _sig(lib.hf_stencil_dot, P, I, P, P, P, P, P, I, I, P, P)
+    _sig(lib.hf_stencil_dot, P, I, P, P, P, P, P, P, P, I, I, P, P)
     _sig(lib.hf_rline_factor, P, P, P, P, I, I, P)
     _sig(lib.hf_zline_factor, P, P, P, P, I, I, P)
     _sig(lib.hf_update_pcr, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, P,

@@ -47,7 +47,8 @@ CHECK_EVERY = 8   # CG iterations in one block of the solve's graph; the
                   # device tests the stop flag between blocks (a conditional
                   # graph node), the host not at all; the iterate and the
                   # count do not depend on it (every phase is a no-op once
-                  # the flag is set)
+                  # the flag is set); even, since an iteration's slot in the
+                  # block picks its plane of p (the capture refuses odd)
 GRAPHS_KEPT = 4   # captured graphs a workspace keeps (the last used)
 
 MERGED_DEFAULT = False   # the merged-dot recurrence when ``merged=None``;
@@ -340,6 +341,18 @@ def stencil_dot_reference(A, sm, p):
     """(sm·A·(sm·p), ⟨p, sm·A·(sm·p)⟩) — the plain stencil-and-dot phase."""
     Ap = sm * apply_stencil(A, sm * p)
     return Ap, (p.double() * Ap.double()).sum()
+
+
+def stencil_dot_p_reference(A, sm, z, p, beta, first: bool):
+    """The plain version of an iteration's first phase as the kernel fuses
+    it: the direction p' = z + β·p (p' = z on a solve's first iteration,
+    where p is not read), then :func:`stencil_dot_reference` of p'. Returns
+    (p', sm·A·(sm·p'), ⟨p', sm·A·(sm·p')⟩); β is rounded to the fields'
+    dtype."""
+    if not first:
+        b = torch.as_tensor(float(beta), dtype=torch.float64).to(z.dtype)
+        z = z + b * p
+    return (z, *stencil_dot_reference(A, sm, z))
 
 
 def precond_reference(sm, r, pcr=None, pcr_z=None):
@@ -698,7 +711,8 @@ class _Workspace:
         self.b = torch.empty((nz, nr), **f32)
         self.x0 = torch.empty((nz, nr), **f32)
         self.x = torch.empty((nz, nr), **f32)
-        self.vecs = torch.empty((4, nz, nr), **f32)       # r, z, p, Ap
+        # r, z, Ap, then p's two planes (the even and odd iterations')
+        self.vecs = torch.empty((5, nz, nr), **f32)
         self.extra = torch.empty((n_extra, nz, nr), **f32) if n_extra \
             else None
         self.parts = torch.empty((4, lib.hf_cg_nparts(nz, nr)),
@@ -771,7 +785,7 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
     ws.rtol.copy_(rtol_t.reshape(()))
     if cheb_degree > 0:
         ws.lmax.copy_(gershgorin_lmax(A, sm).reshape(1))
-    r, z, p, Ap = ws.vecs.unbind(0)
+    r, z, Ap, p, _ = ws.vecs.unbind(0)
     if pcr is None and cheb_degree == 0 and mg is None:
         z = r                         # identity form: z aliases r
     desc = None if mg is None else mg(z)
@@ -1267,40 +1281,47 @@ def mgz_post(r1, zp, pcr, omega: float, sm, r, *, state=None, rr=None,
 
 def stencil_dot(A: torch.Tensor, sm: torch.Tensor, p: torch.Tensor):
     """The kernel's stencil-and-dot phase alone: (Ap, ⟨p, Ap⟩) with
-    Ap = sm·A·(sm·p); ⟨p, Ap⟩ is a float64 0-d tensor."""
+    Ap = sm·A·(sm·p); ⟨p, Ap⟩ is a float64 0-d tensor. With no state record
+    the kernel runs as on a solve's first iteration, p' = z (here p)."""
     if _on_cpu(A, sm, p):
         return stencil_dot_reference(A, sm, p)
     lib = _library()
     nz, nr = _check_operator(A, sm, p.device)
     _require(p, "p", (nz, nr), p.device)
-    Ap, part = _stencil_dot_launch(lib, A, sm, p, None)
+    _, Ap, part = _stencil_dot_launch(lib, A, sm, p, p, None)
     return Ap, part.sum()
 
 
-def _stencil_dot_launch(lib, A, sm, p, state):
+def _stencil_dot_launch(lib, A, sm, z, p, state):
     nz, nr = sm.shape
-    Ap = torch.empty_like(p)
+    p_n, Ap = torch.empty_like(z), torch.empty_like(z)
     part = torch.zeros((nz * nr + 255) // 256, dtype=torch.float64,
-                       device=p.device)
-    _check(lib.hf_stencil_dot(_ptr(A), A.shape[0], _ptr(sm), _ptr(p),
-                              _ptr(Ap), _ptr(part), _ptr(state), nz, nr,
-                              _counts_ptr(), _stream()), "stencil_dot")
-    return Ap, part
+                       device=z.device)
+    _check(lib.hf_stencil_dot(_ptr(A), A.shape[0], _ptr(sm), _ptr(z),
+                              _ptr(p), _ptr(p_n), _ptr(Ap), _ptr(part),
+                              _ptr(state), nz, nr, _counts_ptr(), _stream()),
+           "stencil_dot")
+    return p_n, Ap, part
 
 
-def stencil_dot_alpha(A: torch.Tensor, sm: torch.Tensor, p: torch.Tensor,
-                      state: dict):
-    """The solve's first phase alone: (Ap, ⟨p, Ap⟩, the state after the
-    alpha tail) with the state a dict as :func:`finalize_reference` takes."""
-    if _on_cpu(A, sm, p):
-        Ap, pap = stencil_dot_reference(A, sm, p)
-        return Ap, pap, finalize_reference(state, "alpha", pap=pap)
+def stencil_dot_p(A: torch.Tensor, sm: torch.Tensor, z: torch.Tensor,
+                  p: torch.Tensor, state: dict):
+    """An iteration's first phase alone, as a solve runs it on ``state``
+    (a dict as :func:`finalize_reference` takes): (p' = z + β·p, or z when
+    the state's count k is 0, Ap = sm·A·(sm·p'), ⟨p', Ap⟩, the state after
+    the alpha tail); the inputs are left as they are."""
+    first = state.get("k", 0) == 0
+    if _on_cpu(A, sm, z, p):
+        p_n, Ap, pap = stencil_dot_p_reference(A, sm, z, p,
+                                               state.get("beta", 0.0), first)
+        return p_n, Ap, pap, finalize_reference(state, "alpha", pap=pap)
     lib = _library()
-    nz, nr = _check_operator(A, sm, p.device)
-    _require(p, "p", (nz, nr), p.device)
-    st = _state(p.device, **state)
-    Ap, part = _stencil_dot_launch(lib, A, sm, p, st)
-    return Ap, part.sum(), _read_state(st)
+    nz, nr = _check_operator(A, sm, z.device)
+    _require(z, "z", (nz, nr), z.device)
+    _require(p, "p", (nz, nr), z.device)
+    st = _state(z.device, **state)
+    p_n, Ap, part = _stencil_dot_launch(lib, A, sm, z, p, st)
+    return p_n, Ap, part.sum(), _read_state(st)
 
 
 def precond(sm: torch.Tensor, r: torch.Tensor, pcr: torch.Tensor,

@@ -470,7 +470,7 @@ def _desc(lib, ws: StepWorkspace, adi: bool, p: int, k1) -> ctypes.Array:
     mgz = sv["mgz"]
     nz, nr = ws.nz, ws.nr
     pcr_z = ws.pcr_z if adi else None
-    r, z, pp, Ap = k1["vecs"].unbind(0)
+    r, z, Ap, pp, _ = k1["vecs"].unbind(0)   # p: the last two planes
     if ws.pcr is None and sv["cheb"] == 0:
         z = r                         # identity form: z aliases r
     ac9 = mgz.get("Ac9") if mgz is not None and sv["mgz_sweeps"] > 1 \
@@ -510,7 +510,7 @@ def _capture(ws: StepWorkspace) -> _StepGraph:
         f32 = dict(dtype=torch.float32, device=dev)
         n_extra = lib.hf_cg_extra_planes(sv["cheb"], int(sv["merged"]),
                                          int(sv["mgz"] is not None))
-        k1 = dict(vecs=torch.empty((4, nz, nr), **f32),
+        k1 = dict(vecs=torch.empty((5, nz, nr), **f32),
                   parts=torch.empty((4, lib.hf_cg_nparts(nz, nr)),
                                     dtype=torch.float64, device=dev),
                   state=torch.empty(8, dtype=torch.float64, device=dev),

@@ -32,6 +32,55 @@ def _fields(t, dtype, seed):
             * (t["sm"] != 0).to(dtype) for _ in range(3)]
 
 
+def _operator(t, planes: int):
+    """The system's 7-plane operator, or a 9-plane one: the same planes and
+    two couplings along the diagonals (offsets (1, -1) and (-1, 1))."""
+    if planes == 7:
+        return t["A"]
+    rng = np.random.default_rng(planes)
+    diag = torch.tensor(0.1 * rng.standard_normal((2, *t["A"].shape[1:])),
+                        dtype=t["A"].dtype)
+    return torch.cat([t["A"], diag * (t["sm"] != 0).to(diag.dtype)])
+
+
+@pytest.mark.parametrize("planes", [7, 9])
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_stencil_phase_plain_is_the_p_update_then_the_stencil(
+        system, planes, first, dtype):
+    """The stencil phase's plain version with the direction folded in,
+    against p = z + beta p followed by the plain stencil-and-dot phase: p,
+    Ap and <p, Ap> bitwise; on a solve's first iteration p = z, and the
+    last p (NaN here) is not read; the wrapper's CPU branch is the same
+    phase with the alpha tail on its state."""
+    _, t, _ = system
+    A, sm = _operator(t, planes).to(dtype), t["sm"].to(dtype)
+    z, p, _ = _fields(t, dtype, 17)
+    beta = 0.6180339887
+    if first:
+        p = torch.full_like(p, math.nan)
+        p_c = z
+    else:
+        p_c = z + torch.tensor(beta, dtype=torch.float64).to(dtype) * p
+    got = cuda_cg.stencil_dot_p_reference(A, sm, z, p, beta, first)
+    want = (p_c, *cuda_cg.stencil_dot_reference(A, sm, p_c))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(torch.isfinite(got[0]).all())
+    st = dict(rz=0.9, rr=1.0, stop2=1e-12, alpha=0.0, beta=beta,
+              k=0 if first else 5, done=0)
+    p_n, Ap, pap, st_n = cuda_cg.stencil_dot_p(A, sm, z, p, st)
+    assert torch.equal(p_n, got[0]) and torch.equal(Ap, got[1])
+    assert torch.equal(pap, got[2])
+    assert st_n == cuda_cg.finalize_reference(st, "alpha", pap=pap)
+
+
+def test_check_every_is_even():
+    """An iteration's slot in the solve graph's loop body gives the parity
+    of its count, which picks its plane of p: the body's length is even."""
+    assert cuda_cg.CHECK_EVERY >= 2 and cuda_cg.CHECK_EVERY % 2 == 0
+
+
 @pytest.mark.parametrize("form", ["rline", "adi"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_fused_phase_plain_is_the_composition_of_the_plain_phases(
@@ -99,9 +148,10 @@ def test_tail_scalars_follow_the_finalize_rules():
 
 def _phase_solve(t, form, rtol, maxiter, rtol_wrt):
     """The standard loop as the kernels run it, through the plain versions
-    of its phases: the start, then an iteration of k_stencil_dot with the
-    alpha tail, the fused row (and z-line) phase with the beta tail, and
-    the p update; x is NaN when the residual is not finite."""
+    of its phases: the start, then an iteration of k_stencil_dot, which
+    forms p = z + beta p (z on the first iteration) with the alpha tail,
+    and the fused row (and z-line) phase with the beta tail; x is NaN when
+    the residual is not finite."""
     A, sm, b, x = t["A"], t["sm"], t["b"], t["x0"]
     pcr, pcr_z = _stacks(t, form)
     r = b - sm * apply_stencil(A, sm * x)
@@ -109,13 +159,12 @@ def _phase_solve(t, form, rtol, maxiter, rtol_wrt):
     st = cuda_cg.finalize_reference(
         {}, "init", rr=(r * r).sum(), rz=rz, bb=(b * b).sum(), rtol=rtol,
         maxiter=maxiter, rtol_wrt=rtol_wrt)
-    p = z
+    p = torch.full_like(z, math.nan)   # not read on the first iteration
     while not st["done"]:
-        Ap, _, st = cuda_cg.stencil_dot_alpha(A, sm, p, st)
+        p, Ap, _, st = cuda_cg.stencil_dot_p(A, sm, z, p, st)
         x, r, z, _, _, st = cuda_cg.update_precond(x, r, p, Ap, sm, pcr,
                                                    pcr_z, state=st,
                                                    maxiter=maxiter)
-        p = z + torch.tensor(st["beta"], dtype=p.dtype) * p
     if not math.isfinite(st["rr"]):
         x = torch.full_like(x, math.nan)
     return x, st["k"]
@@ -172,7 +221,7 @@ def test_workspaces_are_kept_per_shape_form_and_device(monkeypatch):
     adi = (True, True, 0, False, False, False)
     ws = cuda_cg._workspace(_Lib, cpu, 5, 7, rline, 0, "rline")
     assert cuda_cg._workspace(_Lib, cpu, 5, 7, rline, 0, "rline") is ws
-    assert ws.b.shape == ws.x.shape == (5, 7) and ws.vecs.shape == (4, 5, 7)
+    assert ws.b.shape == ws.x.shape == (5, 7) and ws.vecs.shape == (5, 5, 7)
     assert ws.parts.shape == (4, 7) and ws.parts.dtype == torch.float64
     assert ws.extra is None and not ws.graphs
     other = [cuda_cg._workspace(_Lib, cpu, 5, 9, rline, 0, "rline"),
@@ -204,12 +253,15 @@ def test_cuda_fused_phases_and_tails_match_plain(system, form):
     dev = torch.device("cuda")
     g = {k: v.to(dev, torch.float32).contiguous() for k, v in t.items()}
     pcr, pcr_z = _stacks(g, form)
-    x, r, p = (f.to(dev).contiguous() for f in _fields(t, torch.float32, 5))
+    x, r, p0 = (f.to(dev).contiguous() for f in _fields(t, torch.float32, 5))
+    z = _fields(t, torch.float32, 6)[0].to(dev).contiguous()
     x_in, r_in = x.clone(), r.clone()
-    st0 = dict(rz=0.9, rr=1.0, stop2=1e-12, alpha=0.0, beta=0.0, k=2,
+    st0 = dict(rz=0.9, rr=1.0, stop2=1e-12, alpha=0.0, beta=0.3, k=2,
                done=0)
-    Ap, pap, st = cuda_cg.stencil_dot_alpha(g["A"], g["sm"], p, st0)
-    Ap_p, pap_p = cuda_cg.stencil_dot_reference(g["A"], g["sm"], p)
+    p, Ap, pap, st = cuda_cg.stencil_dot_p(g["A"], g["sm"], z, p0, st0)
+    p_p, Ap_p, pap_p = cuda_cg.stencil_dot_p_reference(g["A"], g["sm"], z,
+                                                       p0, 0.3, False)
+    assert float((p - p_p).abs().max()) <= 1e-6 * float(p_p.abs().max())
     assert float((Ap - Ap_p).abs().max()) <= 1e-5 * float(Ap_p.abs().max())
     assert st["alpha"] == pytest.approx(0.9 / float(pap_p), rel=1e-5)
     out = cuda_cg.update_precond(x, r, p, Ap, g["sm"], pcr, pcr_z, state=st)
@@ -231,9 +283,9 @@ def test_cuda_fused_phases_and_tails_match_plain(system, form):
 @pytest.mark.parametrize("form", ["identity", "rline", "adi"])
 def test_cuda_solve_graph_is_reused_and_counted(system, form):
     """A solve is one captured graph, reused by the next solve of the same
-    operands; an iteration is 3 launches (4 for ADI); the device-counted
-    block runs cover the iterations; the counts equal the plain
-    version's."""
+    operands; an iteration is 2 launches (3 for ADI), p formed in the
+    stencil pass, no p_update launched; the device-counted block runs cover
+    the iterations; the counts equal the plain version's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     _, t, _ = system
@@ -250,12 +302,86 @@ def test_cuda_solve_graph_is_reused_and_counted(system, form):
     assert x1.data_ptr() != x2.data_ptr()
     stats = cuda_cg.graph_stats()[form]
     assert stats["graphs"] == 1
-    assert stats["launches_per_iteration"] == (4 if form == "adi" else 3)
+    assert stats["launches_per_iteration"] == (3 if form == "adi" else 2)
     counts = cuda_cg.phase_launches()
     k, every = int(i1), cuda_cg.CHECK_EVERY
     assert counts["stencil_dot"] == 2 * every * math.ceil(k / every)
     assert counts["init"] == counts["finish"] == 2
+    assert counts["p_update"] == 0
     xp, ip = cuda_cg.cg_tol_reference(g["A"], g["sm"], g["b"], g["x0"], 1e-5,
                                       maxiter=5000, **kw)
     assert abs(k - int(ip)) <= max(3, int(0.05 * int(ip)))
     assert float((x1 - xp).abs().max() / xp.abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [7, 9])
+@pytest.mark.parametrize("first", [True, False])
+def test_cuda_fused_stencil_phase_matches_plain(system, planes, first):
+    """On the card, on the 7- and a 9-plane operator: k_stencil_dot forming
+    p = z + beta p (p = z at the state's count 0, the last p unread: NaN
+    here) with its alpha tail, against its plain version; its Ap and
+    <p, Ap> bitwise those of the pass over the p it wrote."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    _, t, _ = system
+    dev = torch.device("cuda")
+    A = _operator(t, planes).to(dev, torch.float32).contiguous()
+    sm = t["sm"].to(dev, torch.float32).contiguous()
+    z, p, _ = (f.to(dev).contiguous() for f in _fields(t, torch.float32, 9))
+    if first:
+        p = torch.full_like(p, math.nan)
+    st0 = dict(rz=0.7, rr=1.0, stop2=1e-12, alpha=0.0, beta=0.45,
+               k=0 if first else 3, done=0)
+    got = cuda_cg.stencil_dot_p(A, sm, z, p, st0)
+    want = cuda_cg.stencil_dot_p_reference(A, sm, z, p, 0.45, first)
+    assert torch.equal(got[0], want[0]) if first else \
+        float((got[0] - want[0]).abs().max()) <= 1e-6 * float(
+            want[0].abs().max())
+    assert float((got[1] - want[1]).abs().max()) <= 1e-5 * float(
+        want[1].abs().max())
+    assert float(got[2]) == pytest.approx(float(want[2]), rel=1e-5)
+    st_p = cuda_cg.finalize_reference(st0, "alpha", pap=want[2])
+    assert got[3]["alpha"] == pytest.approx(st_p["alpha"], rel=1e-5)
+    assert got[3]["k"] == st0["k"] and got[3]["beta"] == st0["beta"]
+    # the pass that forms p is bitwise the pass over the plane of p it
+    # wrote
+    Ap, pap = cuda_cg.stencil_dot(A, sm, got[0])
+    assert torch.equal(got[1], Ap) and float(got[2]) == float(pap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["identity", "rline", "adi"])
+def test_cuda_solve_stops_mid_body_and_at_its_start(system, form):
+    """A solve whose tolerance stop falls inside a loop body has the x and
+    the count of the same solve stopped there by maxiter (the body's
+    remaining slots change nothing, whichever plane of p they would
+    write); a solve done at its start returns x0 and 0 iterations and runs
+    no body, and the next solve on the same buffers is unchanged by it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    _, t, _ = system
+    dev = torch.device("cuda")
+    g = {k: v.to(dev, torch.float32).contiguous() for k, v in t.items()}
+    kw = {"identity": {}, "rline": {"pcr": g["pcr"]},
+          "adi": {"pcr": g["pcr"], "pcr_z": g["pcr_z"]}}[form]
+    every = cuda_cg.CHECK_EVERY
+    solve = lambda rtol, maxiter: cuda_cg.cg_tol(
+        g["A"], g["sm"], g["b"], g["x0"], rtol, maxiter=maxiter, **kw)
+    for rtol in (1e-5, 2e-5, 5e-5, 1e-4, 3e-4):
+        x_a, k_a = solve(rtol, 5000)
+        if int(k_a) % every:
+            break
+    k = int(k_a)
+    assert k % every and 0 < k < 5000, k
+    x_b, k_b = solve(0.0, k)
+    assert int(k_b) == k and torch.equal(x_a, x_b)
+    cuda_cg.reset_counters()
+    x_0, k_0 = cuda_cg.cg_tol(g["A"], g["sm"], g["b"], g["x0"], 10.0,
+                              maxiter=5000, rtol_wrt="b", **kw)
+    assert int(k_0) == 0 and torch.equal(x_0, g["x0"])
+    counts = cuda_cg.phase_launches()
+    assert counts["stencil_dot"] == counts["p_update"] == 0
+    assert counts["init"] == counts["finish"] == 1
+    x_c, k_c = solve(rtol, 5000)
+    assert int(k_c) == k and torch.equal(x_c, x_a)
