@@ -4227,6 +4227,12 @@ U_FIXED_ITERS = 120
 # 20d: four lanes against single transients, both solved to this
 U_CLOSE = dict(solver="vmem", precondition="jacobi", rtol=1e-5,
                rtol_wrt="r0", warm_start="extrapolate")
+# 20f, 20g: the mesh without its overlay (an imported mesh) on the kernel
+# path, the recipe of hfbench's msh_flagship.transient
+U_ELL_RECIPE = dict(rtol=1e-4, maxiter=8000, record_gradient=False,
+                    record_fields=False, rtol_wrt="r0", solver="vmem",
+                    precondition="jacobi", warm_start="extrapolate",
+                    f64_refine=1)
 
 
 def build_unstructured(path: str = CFG):
@@ -4262,11 +4268,23 @@ def build_unstructured(path: str = CFG):
 
 def _cut(problem, **kw):
     """The problem with fields replaced (``num_steps``, ``mesh``), its
-    cached lattice stencils kept unless the mesh changes."""
+    cached lattice stencils and locality order kept unless the mesh
+    changes."""
     import dataclasses
     keep = {} if "mesh" in kw else {
-        "_overlay_stencils": problem.extras["_overlay_stencils"]}
+        k: v for k, v in problem.extras.items()
+        if k in ("_overlay_stencils", "_ell_order")}
     return dataclasses.replace(problem, extras=keep, **kw)
+
+
+def _bare(problem):
+    """The problem on its mesh with the grid overlay dropped: what the port
+    sees of an imported mesh (the same nodes, cells and ELL operators)."""
+    from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
+    m = problem.mesh
+    return _cut(problem, mesh=UnstructuredMesh(
+        nodes=m.nodes, cells=m.cells, cell_tags=m.cell_tags,
+        material_tags=dict(m.material_tags)))
 
 
 def _k1_solves() -> dict:
@@ -4281,6 +4299,7 @@ def _k1_solves() -> dict:
                 rline=cuda_cg.cg_tol.launches_rline,
                 adi=cuda_cg.cg_tol.launches_adi,
                 identity=cuda_cg.cg_tol.launches_identity,
+                ell=cuda_cg.cg_tol.launches_ell,
                 graph_body_runs=runs,
                 phases=cuda_cg.phase_launches(),
                 per_iteration=cuda_cg.launches_per_iteration())
@@ -4292,7 +4311,6 @@ def run_unstructured_flagship(problem, device, out: dict) -> dict:
     100 steps; ADI, 10 steps) and on the ELL eager path (float64)."""
     import numpy as np
     import torch
-    from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
     from heatflow_tpu_torch.ops import cuda_cg
     from heatflow_tpu_torch.sim.unstructured import \
         make_simulate_fn_unstructured
@@ -4317,8 +4335,10 @@ def run_unstructured_flagship(problem, device, out: dict) -> dict:
     require(watch.shape == truth.shape and np.isfinite(watch).all(),
             ("unstructured traces", watch.shape))
     peak = np.abs(watch - truth).max(axis=0)
+    # the structured r-line's launches an iteration (phase 4), else its
+    # count since p is formed in the stencil pass
     want = out.get("slice", {}).get("launches_per_iteration", {}).get(
-        "rline", 3.0)
+        "rline", 2.0)
     print(f"20a unstructured flagship ({len(problem.mesh.nodes)} nodes, "
           f"{len(problem.mesh.cells)} triangles, 9-plane lattice "
           f"{problem.mesh.grid_overlay['shape']}): {problem.num_steps} steps "
@@ -4367,12 +4387,8 @@ def run_unstructured_flagship(problem, device, out: dict) -> dict:
     # (c) the ELL eager path on the same mesh, the overlay dropped: as many
     # full-width float64 steps as fit in the budget, each step a call from
     # the previous step's field
-    m = problem.mesh
-    bare = UnstructuredMesh(nodes=m.nodes, cells=m.cells,
-                            cell_tags=m.cell_tags,
-                            material_tags=dict(m.material_tags))
     fe = make_simulate_fn_unstructured(
-        _cut(problem, mesh=bare, num_steps=1), dtype=torch.float64,
+        _cut(_bare(problem), num_steps=1), dtype=torch.float64,
         device=device, rtol=1e-11, maxiter=20000, record_gradient=False,
         precondition="jacobi", solver="auto")
     require(not fe.use_vmem and not fe.overlay, "the ELL eager path")
@@ -4399,6 +4415,68 @@ def run_unstructured_flagship(problem, device, out: dict) -> dict:
                       max_vs_truth_K=e_truth.tolist(),
                       max_vs_overlay_K=e_ov.tolist())
     out["unstructured"] = res
+    return res
+
+
+def run_unstructured_ell(problem, device, out: dict) -> dict:
+    """Phase 20g: the unstructured flagship with its overlay dropped (what
+    the port sees of an imported mesh) through
+    ``make_simulate_fn_unstructured`` on the kernel path, the recipe of
+    hfbench's msh_flagship.transient: a transient is one graph launch, its
+    solves one a step and 2 K1 launches an iteration by the device's counts
+    (counters reset just before the timed run; a ``cg_tol`` call beside the
+    graph would count more solves), its traces against the truth."""
+    import numpy as np
+    import torch
+    from heatflow_tpu_torch.ops import cuda_cg, cuda_step
+    from heatflow_tpu_torch.sim.unstructured import \
+        make_simulate_fn_unstructured
+
+    truth = np.load(UTRUTH)["watch"]
+    names = list(problem.watcher_names)
+    fn = make_simulate_fn_unstructured(_bare(problem), dtype=torch.float32,
+                                       device=device, **U_ELL_RECIPE)
+    require(fn.use_vmem and not fn.overlay and fn.reordered,
+            "the ELL kernel path")
+    fn()                                # the graph's capture
+    torch.cuda.synchronize()
+    cuda_cg.reset_counters()
+    cuda_step.reset_counters()
+    ys = {}
+    t0 = time.perf_counter()
+    graphs = _capture(cuda_step, "launch", lambda: ys.update(fn()))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    k1 = _k1_solves()
+    steps = problem.num_steps
+    watch = ys["watch"].cpu().numpy()
+    iters = ys["cg_iters"].cpu().numpy()
+    peak = np.abs(watch - truth).max(axis=0)
+    passes = k1["phases"]["stencil_dot"]
+    print(f"20g ELL kernel path ({len(problem.mesh.nodes)} nodes, "
+          f"{tuple(fn.form.cols.shape)} ELL rows, reverse Cuthill-McKee "
+          f"order): {steps} steps in {run_s:.4f} s = {steps / run_s:.2f} "
+          f"steps/s, {len(graphs)} graph launch; iterations a step mean "
+          f"{iters.mean():.2f} max {int(iters.max())}; K1 ELL solves "
+          f"{k1['ell']}, "
+          f"{sum(k1['phases'].values())} kernel launches ({passes} "
+          f"k_ell_dot), launches an iteration {k1['per_iteration']}; step "
+          f"prologues {cuda_step.step_prologue.launches}")
+    print("20g peak |error| vs .flagship_truth_unstructured.npz [K]: "
+          + ", ".join(f"{n} {e:.4f}" for n, e in zip(names, peak)))
+    require(len(graphs) == 1, ("one graph launch", len(graphs)))
+    require(k1["ell"] == k1["solves"] == steps
+            and cuda_step.step_prologue.launches == steps, k1)
+    require(k1["per_iteration"] == {"ell": 2.0}
+            and cuda_cg.graph_stats()["ell"]["launches_per_iteration"]
+            == 2.0, ("ELL launches an iteration", k1["per_iteration"]))
+    require(watch.shape == truth.shape and (peak <= TRACE_TOL_K).all(),
+            ("ELL traces vs truth", peak))
+    res = dict(run_s=run_s, steps_per_s=steps / run_s,
+               cg_iters_mean=float(iters.mean()),
+               peak_err_K=dict(zip(names, peak.tolist())), k1=k1,
+               ell_dot_launches=passes, graph_launches=len(graphs))
+    out.setdefault("unstructured", {})["ell_graph"] = res
     return res
 
 
@@ -4609,10 +4687,11 @@ def unstructured_kernel_checks(problem, sweep_problem, device,
     shapes, against their plain versions: K1 on the unstructured flagship's
     first-step refinement system (read off the kernel's arguments), K2 and
     K3 on 8 lanes of the unstructured sweep's 10th step (and of its
-    recording's 10th projection)."""
+    recording's 10th projection); K1's ELL form, its pass and the step
+    kernels' ELL products on the flagship mesh without its overlay."""
     import numpy as np
     import torch
-    from heatflow_tpu_torch.ops import cuda_cg, cuda_sweep as cs
+    from heatflow_tpu_torch.ops import cuda_cg, cuda_step, cuda_sweep as cs
     from heatflow_tpu_torch.sim.unstructured import (
         make_simulate_fn_unstructured, make_sweep_fn_unstructured)
 
@@ -4683,6 +4762,96 @@ def unstructured_kernel_checks(problem, sweep_problem, device,
               f"iters kernel {its} plain {int(it_p)}; rel-L2 "
               f"{r['rel_l2']:.3e}, vs float64 kernel {r['err_vs_f64']:.3e} "
               f"plain {r['plain_err_vs_f64']:.3e}")
+
+    # K1's ELL form on the same mesh without its overlay (an imported
+    # mesh), in the kernel path's row order: the first step's inner system
+    # of msh_flagship.transient's recipe, at the tolerance its path solves
+    # to; the pass alone (k_ell_dot: p = z + beta p, Ap, <p, Ap> and the
+    # alpha tail) on a solve's first and a later iteration, bitwise the
+    # plain pass (the same products and sums, rounded alike) but for
+    # <p, Ap> (each term rounded to float32 before the float64 sum, as
+    # k_stencil_dot does); the step kernels' ELL products, bitwise
+    fe1 = make_simulate_fn_unstructured(
+        _cut(_bare(problem), num_steps=1), dtype=torch.float32,
+        device=device, **U_ELL_RECIPE)
+    require(fe1.use_vmem and not fe1.overlay and fe1.reordered,
+            "the ELL kernel path")
+    fe1._run = fe1._run_eager
+    args, kw = _capture(cuda_cg, "cg_tol", fe1)[0]
+    Ae, sme, be, xe0 = (t.contiguous() for t in args[:4])
+    cols = kw["cols"]
+    ne, ke = (int(v) for v in cols.shape)
+    require(Ae.shape == (ne, ke) and be.shape == (1, ne),
+            ("the ELL operands", tuple(Ae.shape), tuple(be.shape)))
+    # a row: its gather (2 K), the scaling and <p, Ap> (4), the update,
+    # <r, r> and p (8)
+    ell_ops = 2 * ke + 4 + 8
+    k1e = lambda f, cast=lambda t: t: f(
+        cast(Ae), cast(sme), cast(be), cast(xe0), 1e-4, maxiter=20000,
+        rtol_wrt="b", cols=cols)
+    x_k, it_k = k1e(cuda_cg.cg_tol)
+    (x_p, it_p), plain_ms = once(lambda: k1e(cuda_cg.cg_tol_reference))
+    x64, _ = k1e(cuda_cg.cg_tol_reference, lambda t: t.double())
+    r = hold("K1 ell", x_k, x_p, x64, it_k, it_p)
+    its = int(it_k)
+    rows["cg_tol[ell,unstructured]"] = dict(
+        iters=its, plain_iters=int(it_p), rtol=1e-4, **r,
+        ms=cuda_ms(lambda: k1e(cuda_cg.cg_tol), 3), plain_ms=plain_ms,
+        iter_bound_ms=k1_iter_bound(its, nbytes(Ae, cols, sme), nbytes(be)),
+        **bound(nbytes(Ae, cols, sme, be, xe0, be), its * ne * ell_ops))
+    print(f"20f K1 ell ({ne} rows of {ke}, first-step system): iters "
+          f"kernel {its} plain {int(it_p)}; rel-L2 {r['rel_l2']:.3e}, vs "
+          f"float64 kernel {r['err_vs_f64']:.3e} plain "
+          f"{r['plain_err_vs_f64']:.3e}")
+    g = torch.Generator(device="cpu").manual_seed(23)
+    live = (sme != 0).float()
+    z, pv = (torch.randn(sme.shape, generator=g).to(device) * live
+             for _ in range(2))
+    state = dict(k=1, beta=0.37, rz=2.5)
+    for it, st in (("first", None), ("later", state)):
+        p_n, Ap, pap, got = cuda_cg.ell_dot(Ae, cols, sme, z, pv, st)
+        beta = 0.0 if st is None else st["beta"]
+        (w_p, w_ap, w_pap), pass_ms = once(
+            lambda: cuda_cg.stencil_dot_p_reference(
+                Ae, sme, z, pv, beta, st is None, cols))
+        d_pap = abs(float(pap) - float(w_pap)) / abs(float(w_pap))
+        require(torch.equal(p_n, w_p) and torch.equal(Ap, w_ap)
+                and d_pap <= 1e-6, ("the ELL pass", it, d_pap))
+        if st is not None:
+            d_alpha = abs(got["alpha"] * float(w_pap) / st["rz"] - 1.0)
+            require(d_alpha <= 1e-6, ("the ELL pass's alpha", d_alpha))
+    rows["cg_tol[ell_dot,unstructured]"] = dict(
+        max_abs_err=0.0, pap_rel_err=d_pap, alpha_rel_err=d_alpha,
+        ms=cuda_ms(lambda: cuda_cg.ell_dot(Ae, cols, sme, z, pv, state), 5),
+        plain_ms=pass_ms,
+        **bound(nbytes(Ae, cols, sme, z, pv, z, z), ne * (2 * ke + 4)))
+    ws, _ = fe1._step_workspace(*fe1._inputs(None, None, None, None, 0.0,
+                                             None))
+    # the warm-start ring: three fields apart, so that M u and the seed
+    # read every slot
+    for k in range(ws.ring.shape[0]):
+        ws.ring[k].add_(10.0 * torch.randn(ws.ring[k].shape, generator=g)
+                        .to(device) * ws.free)
+    ring = ws.ring.clone()
+    b_lift, y0 = cuda_step.step_prologue_reference(
+        ws.apply, ws.Mop, ring[2], ring[1], ring[0], 0.0, ws.Ag0, ws.Ag1,
+        ws.amps[0], ws.s, ws.free, ws.warm_start)
+    cuda_step.step_prologue(ws)
+    require(torch.equal(ws.bt, b_lift * ws.free)
+            and torch.equal(ws.y[0], y0), "the ELL step prologue")
+    floor2 = 1e-30 * cuda_step.kernel_order_sum(ws.bt * ws.bt)
+    _, r64, rnorm, _ = cuda_step.refine_residual_reference(
+        ws.apply, ws.A, ws.s, ws.free, ws.bt, ws.y[0], floor2, ws.rtol,
+        torch.float32, total=cuda_step.kernel_order_sum)
+    cuda_step.refine_residual(ws, 0)
+    d_rnorm = abs(float(ws.state[cuda_step._RNORM]) / float(rnorm) - 1.0)
+    require(torch.equal(ws.r64, r64) and d_rnorm <= 1e-14,
+            ("the ELL refinement residual", d_rnorm))
+    print(f"20f K1 ell pass ({ne} rows): p and Ap bitwise the plain pass "
+          f"on a first and a later iteration, <p, Ap> within {d_pap:.1e}, "
+          f"alpha {d_alpha:.1e}; the step prologue's planes and the "
+          f"refinement residual bitwise their plain versions (rnorm "
+          f"{d_rnorm:.1e})")
 
     # K2 / K3: 8 lanes of the sweep's 10th step
     B = 8
@@ -4759,8 +4928,9 @@ def unstructured_kernel_checks(problem, sweep_problem, device,
 
 def run_unstructured(device, out: dict) -> dict:
     """Phase 20: set-up, (a)-(c) the flagship, (d) the sweeps, (e) the
-    CLIs, (f) the kernels against their plain versions; returns the kernel
-    rows with the launches of (a)-(e)."""
+    CLIs, (f) the kernels against their plain versions, (g) the flagship
+    mesh without its overlay on the kernel path; returns the kernel rows
+    with the launches of (a)-(e) and, for K1's ELL form, of (g)."""
     t0 = time.perf_counter()
     problem, setup = build_unstructured(CFG)
     sweep_problem, sweep_setup = build_unstructured(SWEEP_CFG)
@@ -4769,9 +4939,11 @@ def run_unstructured(device, out: dict) -> dict:
     sw = run_unstructured_sweeps(sweep_problem, device, out)
     run_unstructured_clis(device, out)
     rows = unstructured_kernel_checks(problem, sweep_problem, device, out)
+    ell = run_unstructured_ell(problem, device, out)
     k1 = {f: res["flagship"]["k1"][f] + res["adi"]["k1"][f]
           + sw["sweep"]["k1_identity"][f] for f in ("identity", "rline",
                                                     "adi")}
+    k1.update(ell=ell["k1"]["ell"], ell_dot=ell["ell_dot_launches"])
     k2 = {f: sw["sweep"]["k2"][f] + sw["recording"]["k2"][f]
           + sw["fixed"]["k3"][f] for f in ("identity", "rline", "no_kv",
                                            "fixed")}

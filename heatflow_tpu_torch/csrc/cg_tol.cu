@@ -132,6 +132,27 @@
 // 137 and 122.5-123.6 (178.2-179.3); in-solve the coarse row 32.9 us, the
 // post row 24.6, the pre row 20.3, the prolongation 10.9.
 //
+// The ELL form (cols given; identity preconditioner, standard recurrence):
+// a mesh with no lattice under it (an imported gmsh triangulation) runs the
+// same loop on its rows as a 1 x N grid. Its operator is the ELL gather of
+// ops/ell.py: a row's K (column id int32, value float32) slots, padded
+// slots (the row's own column, value 0) included, summed in slot order.
+// k_ell_dot is its stencil pass: p = z + beta p_old at the row, Ap from
+// the row's K values of u = sm p, the <p, Ap> partials and the alpha tail;
+// k_update, the identity form's, takes beta: 2 launches an iteration, as
+// the identity form on a lattice. The rows come in reverse Cuthill-McKee
+// order (ops/ell.py locality_order): a block's 256 rows then reach a range
+// of ~1300 columns (2100 at most) on the imported flagship mesh, so the
+// block forms u once a column of that range by coalesced loads into shared
+// memory and gathers it there. Its products and sums are rounded as
+// ell_apply's (__fmul_rn, __fadd_rn), so p and Ap are bitwise the plain
+// version's. NVIDIA H100 80GB HBM3, 700 W, the imported flagship transient
+// (12 draws, a process each): gathering z, p and sm from global memory at
+// each slot, 93.5-98.9 steps/s, the speed set by where a process's buffers
+// fall; staged, 103.6-104.0. In the mesh's own (generator's) numbering a
+// block's range is the whole mesh, and the pass gathered from global
+// memory took 53.4 us in-solve against 16.0 in the locality order.
+//
 // Also replaces heatflow_tpu/ops/pallas_mg.py:_mgcg_kernel (the whole
 // multigrid-preconditioned solve in one TPU kernel) and
 // heatflow_tpu/ops/pallas_cg.py:_cg_kernel (the fixed-count unpreconditioned
@@ -414,8 +435,24 @@ __device__ __forceinline__ float level_stencil_at(const float* __restrict__ C,
   return out;
 }
 
-// x = x0, r = b - sm A (sm x0); partials of <r, r> and <b, b>.
+// (A u)[row] for an ELL operator (vals and cols (N, K), row-major): the
+// row's K slots summed in slot order, each product and sum rounded as
+// ops/ell.py ell_apply's; u is a function of the column.
+template <class U>
+__device__ __forceinline__ float ell_row(const float* __restrict__ vals,
+                                         const int* __restrict__ cols, int K,
+                                         U u, int row) {
+  const float* v = vals + (size_t)row * K;
+  const int* c = cols + (size_t)row * K;
+  float out = __fmul_rn(v[0], u(c[0]));
+  for (int k = 1; k < K; ++k) out = __fadd_rn(out, __fmul_rn(v[k], u(c[k])));
+  return out;
+}
+
+// x = x0, r = b - sm A (sm x0); partials of <r, r> and <b, b>. With cols,
+// A is the ELL operator's values (npts slots a row).
 __global__ void k_init(const float* __restrict__ A, int npts,
+                       const int* __restrict__ cols,
                        const float* __restrict__ sm,
                        const float* __restrict__ b,
                        const float* __restrict__ x0, float* __restrict__ x,
@@ -427,7 +464,12 @@ __global__ void k_init(const float* __restrict__ A, int npts,
   if (idx < n) {
     const int i = idx / nr, j = idx - i * nr;
     const float bv = b[idx];
-    const float rv = bv - sm[idx] * stencil_at(A, npts, sm, x0, i, j, nz, nr);
+    const float ax =
+        cols != nullptr
+            ? ell_row(A, cols, npts,
+                      [&](int q) { return __fmul_rn(sm[q], x0[q]); }, idx)
+            : stencil_at(A, npts, sm, x0, i, j, nz, nr);
+    const float rv = bv - sm[idx] * ax;
     x[idx] = x0[idx];
     r[idx] = rv;
     rr = (double)(rv * rv);
@@ -500,6 +542,83 @@ __global__ void k_stencil_dot(const float* __restrict__ A, int npts,
         [&](int k) { return a[k]; }, npts,
         [&](int ii, int jj) { return us[ii - i + 1][t + 1 + jj - j]; }, i,
         j, nz, nr);
+    p[idx] = pc;
+    Ap[idx] = v;
+    acc = (double)(pc * v);
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) part[blockIdx.x] = acc;
+  if (!tail || st == nullptr || !last_block(&st->ticket[0])) return;
+  const double pap = reduce_parts(part, gridDim.x);
+  if (threadIdx.x == 0) {
+    alpha_rule(st, pap);
+    st->ticket[0] = 0;
+  }
+}
+
+// The ELL form's stencil pass (vals and cols (n, K)): one thread a row,
+// p = z + beta p_old at the row (p = z on a solve's first iteration, or
+// without a state record) into p, another plane than p_old; Ap = sm A (sm
+// p) from the row's K values of u = sm p; the <p, Ap> partials, and with
+// `tail` the alpha tail. In the locality order a block's rows reach a
+// narrow range of columns: the block forms u once a column of that range,
+// by coalesced loads, in shared memory, and the rows gather it there (a
+// range wider than kEllWindow: each gather forms u at its column, by the
+// same expression).
+constexpr int kEllWindow = 4096;
+__global__ void __launch_bounds__(kThreads)
+    k_ell_dot(const float* __restrict__ vals, const int* __restrict__ cols,
+              int K, const float* __restrict__ sm,
+              const float* __restrict__ z, const float* __restrict__ p_old,
+              float* __restrict__ p, float* __restrict__ Ap, double* part,
+              CGState* st, int tail, int n) {
+  const int done = st != nullptr ? st->done : 0;
+  const bool first = st == nullptr || st->k == 0;
+  const float beta = st != nullptr ? (float)st->beta : 0.0f;
+  if (done) return;
+  __shared__ float us[kEllWindow];
+  __shared__ int range[2][kThreads / 32];
+  const int t = threadIdx.x;
+  const int idx = blockIdx.x * blockDim.x + t;
+  auto pv = [&](int q) {
+    return first ? z[q] : __fadd_rn(z[q], __fmul_rn(beta, p_old[q]));
+  };
+  auto u_at = [&](int q) { return __fmul_rn(sm[q], pv(q)); };
+  // the block's column range
+  int lo = n, hi = -1;
+  if (idx < n)
+    for (int k = 0; k < K; ++k) {
+      const int c = cols[(size_t)idx * K + k];
+      lo = min(lo, c);
+      hi = max(hi, c);
+    }
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_down_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_down_sync(0xffffffffu, hi, o));
+  }
+  if ((t & 31) == 0) {
+    range[0][t >> 5] = lo;
+    range[1][t >> 5] = hi;
+  }
+  __syncthreads();
+  lo = range[0][0];
+  hi = range[1][0];
+  for (int w = 1; w < kThreads / 32; ++w) {
+    lo = min(lo, range[0][w]);
+    hi = max(hi, range[1][w]);
+  }
+  const bool staged = hi - lo < kEllWindow;
+  if (staged)
+    for (int q = lo + t; q <= hi; q += kThreads) us[q - lo] = u_at(q);
+  __syncthreads();
+  double acc = 0.0;
+  if (idx < n) {
+    const float pc = pv(idx);
+    const float v = __fmul_rn(
+        sm[idx],
+        staged ? ell_row(vals, cols, K, [&](int q) { return us[q - lo]; },
+                         idx)
+               : ell_row(vals, cols, K, u_at, idx));
     p[idx] = pc;
     Ap[idx] = v;
     acc = (double)(pc * v);
@@ -1755,6 +1874,8 @@ struct Solve {
   float* extra;
   const MGDesc* mgd;         // the multigrid V-cycle's levels (host memory)
   int fixed;                 // run maxiter iterations, no stop test
+  const int* cols;           // the ELL form: column ids (nz = 1, nr = N;
+                             // A the values, npts slots a row), else null
 
   int n() const { return nz * nr; }
   int elem_blocks() const { return (n() + kThreads - 1) / kThreads; }
@@ -1763,6 +1884,7 @@ struct Solve {
   bool rline() const { return pcr != nullptr; }
   bool adi() const { return pcrz != nullptr; }
   bool mgz() const { return pcrc != nullptr; }
+  bool ell() const { return cols != nullptr; }
   bool preconditioned() const { return rline() || cheb > 0 || mgd; }
   int n_rz() const {
     return mgd ? elem_blocks() : mgz() ? nz : adi() ? col_tiles() : rline() ? nz
@@ -2224,8 +2346,8 @@ cudaError_t start(const Solve& s, const LoopSet& loop) {
   cudaError_t e = cudaMemsetAsync(s.st, 0, sizeof(CGState), s.stream);
   if (e != cudaSuccess) return e;
   k_init<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
-      s.A, s.npts, s.sm, s.b, s.x0, s.x, s.r, s.part(1), s.part(3), s.nz,
-      s.nr);
+      s.A, s.npts, s.cols, s.sm, s.b, s.x0, s.x, s.r, s.part(1), s.part(3),
+      s.nz, s.nr);
   s.counts[kPhInit] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if ((e = precondition(s, false, kNoTail)) != cudaSuccess) return e;
@@ -2238,13 +2360,13 @@ cudaError_t start(const Solve& s, const LoopSet& loop) {
 // and takes alpha in k_stencil_dot (p into the plane of the slot's parity,
 // from the other), and beta in the tail of the kernel that writes the last
 // partials, which also carries the loop condition (`loop`): identity 2
-// launches (k_stencil_dot, k_update), r-line 2 (k_update folded into the
-// row kernel), ADI 3 (+ k_zline); mgz 5 with one coarse sweep (the update
-// folded into the pre-smoothing row, beta in the post-smoothing row's
-// tail), 6 with two; multigrid at four levels 12 (the update folded into
-// level 0's first smoothing step, beta in its last); the Chebyshev form
-// keeps k_update, its polynomial and a k_finalize. The merged recurrence
-// keeps its own five-phase sequence.
+// launches (k_stencil_dot, k_update; the ELL form k_ell_dot, k_update),
+// r-line 2 (k_update folded into the row kernel), ADI 3 (+ k_zline); mgz 5
+// with one coarse sweep (the update folded into the pre-smoothing row, beta
+// in the post-smoothing row's tail), 6 with two; multigrid at four levels
+// 12 (the update folded into level 0's first smoothing step, beta in its
+// last); the Chebyshev form keeps k_update, its polynomial and a
+// k_finalize. The merged recurrence keeps its own five-phase sequence.
 cudaError_t iterate(const Solve& s, int slot, const LoopSet& loop) {
   cudaError_t e;
   if (s.merged) {
@@ -2261,9 +2383,14 @@ cudaError_t iterate(const Solve& s, int slot, const LoopSet& loop) {
   Solve t = s;
   t.p = s.p + (size_t)(slot & 1) * s.n();
   const float* p_old = s.p + (size_t)((slot + 1) & 1) * s.n();
-  k_stencil_dot<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
-      s.A, s.npts, s.sm, s.zout(), p_old, t.p, s.Ap, s.part(0), s.st, 1,
-      s.nz, s.nr);
+  if (s.ell())
+    k_ell_dot<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
+        s.A, s.cols, s.npts, s.sm, s.zout(), p_old, t.p, s.Ap, s.part(0),
+        s.st, 1, s.n());
+  else
+    k_stencil_dot<<<s.elem_blocks(), kThreads, 0, s.stream>>>(
+        s.A, s.npts, s.sm, s.zout(), p_old, t.p, s.Ap, s.part(0), s.st, 1,
+        s.nz, s.nr);
   s.counts[kPhStencilDot] += 1;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if (t.mgz() || t.mgd) {
@@ -2318,6 +2445,10 @@ cudaError_t record_solve(const Solve& s, cudaStream_t body_stream,
                          int check_every, int poison, int* iters,
                          unsigned long long* runs, long long* counts_body) {
   if (check_every < 2 || check_every % 2) return cudaErrorInvalidValue;
+  // the ELL form has the identity preconditioner and the standard
+  // recurrence only
+  if (s.ell() && (s.rline() || s.cheb > 0 || s.merged || s.mgz() || s.mgd))
+    return cudaErrorInvalidValue;
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
   cudaError_t e =
@@ -2402,13 +2533,14 @@ cudaError_t record_solve_desc(const void* desc, cudaStream_t stream,
       int maxiter, int wrt_r0, long long *counts, const float *lmax,         \
       int cheb, int merged, const float *ac9,             \
       const float *pcrc, const float *aux, int sweeps, float omega,          \
-      float omega_c, float *extra, const void *mg, int fixed
+      float omega_c, float *extra, const void *mg, int fixed,                \
+      const int *cols
 
 #define HF_SOLVE_INIT                                                        \
   Solve s{A, sm, b, x0, rtol, pcr, pcrz, x, r, z, p, Ap, parts,              \
           (CGState *)state, npts, nz, nr, maxiter, wrt_r0, nparts,           \
           counts, nullptr, lmax, cheb, merged, ac9, pcrc, aux,               \
-          sweeps, omega, omega_c, extra, (const MGDesc *)mg, fixed}
+          sweeps, omega, omega_c, extra, (const MGDesc *)mg, fixed, cols}
 
 extern "C" {
 
@@ -2498,6 +2630,20 @@ int hf_stencil_dot(const float *A, int npts, const float *sm, const float *z,
   k_stencil_dot<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       A, npts, sm, z, p_old, p, Ap, part, (CGState *)state,
       state != nullptr, nz, nr);
+  counts[kPhStencilDot] += 1;
+  return (int)cudaGetLastError();
+}
+
+// The ELL form's pass (k_ell_dot): vals and cols (n, K), the rest as
+// hf_stencil_dot's.
+int hf_ell_dot(const float *vals, const int *cols, int K, const float *sm,
+               const float *z, const float *p_old, float *p, float *Ap,
+               double *part, void *state, int n, long long *counts,
+               void *stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  k_ell_dot<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      vals, cols, K, sm, z, p_old, p, Ap, part, (CGState *)state,
+      state != nullptr, n);
   counts[kPhStencilDot] += 1;
   return (int)cudaGetLastError();
 }

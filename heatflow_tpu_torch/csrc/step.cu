@@ -29,6 +29,10 @@
 //   iteration count; its last block advances the step, records the count
 //   the adaptive switch reads and sets the step loop's condition.
 // The step index is read on the device, so each kernel is graph-safe.
+// A mesh with no lattice (the ELL form: StepArgs.cols, the planes 1 x N)
+// takes the operator products M_op u_n and A (s y) as ops/ell.py
+// ell_apply's gathers, each row's slots in slot order (ell_rn), in place of
+// the stencil; the rest of each kernel is the lattice's.
 //
 // Numerics: every product and sum is rounded as the eager expressions are
 // (__fmul_rn, __dadd_rn, ...: no contraction into FMAs), the stencil summed
@@ -94,6 +98,7 @@ struct StepArgs {
   const void *Mop, *A, *s, *free, *g0, *g1, *Ag0, *Ag1, *src, *amps;  // T
   void *ring, *bt, *y0, *y1, *r64, *fields, *watch;                   // T
   const long long* watch_flat;
+  const int* cols;   // ELL column ids (nz * nr rows, npts slots), or null
   float *b32, *x0, *dx0, *dx1, *rtol32;
   int *iters, *cg_iters;
   double *part_bt, *part_r;
@@ -192,6 +197,20 @@ __device__ __forceinline__ T stencil_rn(const T* __restrict__ C, int npts,
   return out;
 }
 
+// (C u)[row] for an ELL operator C (nz * nr rows of npts slots, column ids
+// cols) in ell_apply's order: the row's slots in turn, each product and sum
+// rounded; u is a function of the column.
+template <class T, class U>
+__device__ __forceinline__ T ell_rn(const T* __restrict__ C,
+                                    const int* __restrict__ cols, int npts,
+                                    U u, int row) {
+  const T* c = C + (size_t)row * npts;
+  const int* col = cols + (size_t)row * npts;
+  T out = mul(c[0], u(col[0]));
+  for (int k = 1; k < npts; ++k) out = add(out, mul(c[k], u(col[k])));
+  return out;
+}
+
 // The form of pass p's solve (thread 0 of block 0 of the kernel before
 // it): under 'adaptive' ADI when the last step's count (the first step:
 // maxiter) exceeds the threshold; counted, and the IF nodes' conditions set
@@ -221,9 +240,13 @@ __global__ void __launch_bounds__(kThreads) k_step_prologue(StepArgs a) {
     const T* uppp = ring + (size_t)(n % 3) * N;
     const int i = idx / a.nr, j = idx - i * a.nr;
     const int nr = a.nr;
-    T b = stencil_rn<T>((const T*)a.Mop, a.npts,
-                        [&](int ii, int jj) { return up[ii * nr + jj]; }, i,
-                        j, a.nz, a.nr);
+    T b = a.cols != nullptr
+              ? ell_rn<T>((const T*)a.Mop, a.cols, a.npts,
+                          [&](int q) { return up[q]; }, idx)
+              : stencil_rn<T>(
+                    (const T*)a.Mop, a.npts,
+                    [&](int ii, int jj) { return up[ii * nr + jj]; }, i, j,
+                    a.nz, a.nr);
     b = add(b, a.src != nullptr ? ((const T*)a.src)[idx] : T(0));
     const T amp = ((const T*)a.amps)[n];
     const T s = ((const T*)a.s)[idx];
@@ -269,13 +292,14 @@ __global__ void __launch_bounds__(kThreads) k_refine_residual(StepArgs a,
   if (idx < N) {
     const int i = idx / a.nr, j = idx - i * a.nr;
     const int nr = a.nr;
-    const double Au = stencil_rn<double>(
-        (const double*)a.A, a.npts,
-        [&](int ii, int jj) {
-          const int k = ii * nr + jj;
-          return __dmul_rn(s[k], yv(k));
-        },
-        i, j, a.nz, a.nr);
+    auto sy = [&](int k) { return __dmul_rn(s[k], yv(k)); };
+    const double Au =
+        a.cols != nullptr
+            ? ell_rn<double>((const double*)a.A, a.cols, a.npts, sy, idx)
+            : stencil_rn<double>(
+                  (const double*)a.A, a.npts,
+                  [&](int ii, int jj) { return sy(ii * nr + jj); }, i, j,
+                  a.nz, a.nr);
     const double r = __dsub_rn(
         ((const double*)a.bt)[idx],
         __dmul_rn(((const double*)a.free)[idx], __dmul_rn(s[idx], Au)));

@@ -26,7 +26,9 @@ while this driver writes the gradient CSVs and so runs the eager step
 loop, which refuses it). A mesh folder
 whose ``mesh_cfg.yaml`` has no ``structured_grid`` (an imported gmsh mesh)
 runs through the unstructured path too: on the lattice when the sidecar
-exists, else on the ELL gather. ``--visualize-mesh`` writes
+exists, else on the ELL gather (the kernel path in float32 on a card, with
+'jacobi': there are no lines; the library runs such a transient without
+gradient rows as one CUDA graph launch too). ``--visualize-mesh`` writes
 ``mesh_visualization.png`` into the mesh folder. ``--z-shards N``
 (structured meshes) shards the field's z rows over N ranks
 (``make_simulate_fn(mesh=)``, the eager path): N processes started here
@@ -214,13 +216,16 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
             vmem_single = not unstructured and z_shards == 1 and (
                 solver == "vmem" or (solver == "auto"
                                      and device.type == "cuda" and f32))
-            # the unstructured r-line engine is the overlay kernel path:
-            # the default follows what 'auto' (or 'xla') will run
-            unstructured_xla = unstructured and (
-                not auto_selects_vmem(mesh, dtype, device=device)
-                if solver == "auto" else solver == "xla")
+            # the unstructured line preconditioners run on the overlay's
+            # kernel path only: the default follows what 'auto' (or 'xla')
+            # will run, and a mesh without overlay has no lines to solve
+            # along, whichever path runs it
+            lines = getattr(mesh, "grid_overlay", None) is not None and (
+                auto_selects_vmem(mesh, dtype, device=device)
+                if solver == "auto" else solver != "xla")
             precondition = resolve_recording_precondition(
-                record_gradient, dtype, unstructured_xla=unstructured_xla,
+                record_gradient, dtype,
+                unstructured_xla=unstructured and not lines,
                 unstructured=unstructured, f64_refine=f64_refine,
                 vmem_single=vmem_single, rtol_wrt="r0")
         if unstructured and z_shards > 1:
@@ -383,11 +388,13 @@ def _run_unstructured(cfg, umesh, output_folder, watcher_points, write_xdmf,
     """The transient on an unstructured mesh (``sim/unstructured.py``),
     with the structured driver's artifacts and options (resume, profile,
     checkpoint). Returns the dict of numpy traces."""
-    form = ("grid-overlay 9-point stencil"
-            if getattr(umesh, "grid_overlay", None) is not None else
-            "ELL gather")
+    lattice = getattr(umesh, "grid_overlay", None) is not None
+    form = "grid-overlay 9-point stencil" if lattice else "ELL gather"
+    note = "" if lattice else (
+        "; on a card in float32 its kernel path, one CUDA graph a transient "
+        "without gradient rows")
     print(f"Imported unstructured mesh: {len(umesh.nodes)} nodes, "
-          f"{len(umesh.cells)} triangles ({form} operator path)")
+          f"{len(umesh.cells)} triangles ({form} operator path{note})")
     heating = HeatingCurve.from_csv(cfg["heating"]["file"])
     if isinstance(watcher_points, list):
         watcher_points = {pt["name"]: tuple(pt["coords"])

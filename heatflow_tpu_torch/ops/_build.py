@@ -153,7 +153,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     solve = [P, I, P, P, P, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, P,
-             P, I, I, P, P, P, I, F, F, P, P, I]
+             P, I, I, P, P, P, I, F, F, P, P, I, P]
     _sig(lib.hf_cg_nparts, I, I)
     _sig(lib.hf_cg_state_bytes)
     _sig(lib.hf_num_phases)
@@ -163,6 +163,7 @@ def load_library() -> ctypes.CDLL:
     _sig(lib.hf_graph_launch, P, P)
     _sig(lib.hf_graph_destroy, P)
     _sig(lib.hf_stencil_dot, P, I, P, P, P, P, P, P, P, I, I, P, P)
+    _sig(lib.hf_ell_dot, P, P, I, P, P, P, P, P, P, P, I, P, P)
     _sig(lib.hf_rline_factor, P, P, P, P, I, I, P)
     _sig(lib.hf_zline_factor, P, P, P, P, I, I, P)
     _sig(lib.hf_update_pcr, P, P, P, P, P, P, P, P, P, I, P, I, I, I, I, P,

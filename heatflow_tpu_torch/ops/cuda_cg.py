@@ -10,7 +10,10 @@ the operator (``cheb_degree``) or by the z-semicoarsened two-level V-cycle
 over the r-line smoother (``mgz``, operands from ``ops/mgz.py``), with the
 standard recurrence or the Chronopoulos–Gear merged-dot one (``merged``),
 stopping on the true residual
-‖r‖ ≤ rtol·‖r0‖ (``rtol_wrt='r0'``) or rtol·‖b‖ (``'b'``). A tensor on the
+‖r‖ ≤ rtol·‖r0‖ (``rtol_wrt='r0'``) or rtol·‖b‖ (``'b'``). With ``cols``
+(the ELL form, preconditioned by nothing) the operator is an ELL gather
+(``ops/ell.py``) on a mesh's nodes as a 1 × N grid: A the (N, K) values,
+``cols`` the int32 column ids. A tensor on the
 CPU goes to :func:`cg_tol_reference`; a CUDA tensor goes to the kernel, or
 the call raises. The kernel replaces heatflow_tpu/ops/pallas_cg.py:
 _cg_tol_kernel; the line factors it consumes are packed once per operand
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from heatflow_tpu_torch.ops.cg import implicit_solve
+from heatflow_tpu_torch.ops.ell import operator_product
 from heatflow_tpu_torch.ops.linesolve import (line_couplings, pcr_factor,
                                               pcr_fold, thomas_apply_lines,
                                               thomas_factor_lines)
@@ -138,7 +142,7 @@ def launches_per_iteration() -> dict[str, float]:
 
 _FORM_COUNTERS = ("launches", "launches_identity", "launches_rline",
                   "launches_adi", "launches_cheb", "launches_merged",
-                  "launches_mgz")
+                  "launches_mgz", "launches_ell")
 
 
 def reset_counters() -> None:
@@ -337,13 +341,14 @@ def _precond_reference(A, sm, pcr, pcr_z, cheb_degree=0, mgz=None,
     return lambda r: r
 
 
-def stencil_dot_reference(A, sm, p):
-    """(sm·A·(sm·p), ⟨p, sm·A·(sm·p)⟩) — the plain stencil-and-dot phase."""
-    Ap = sm * apply_stencil(A, sm * p)
+def stencil_dot_reference(A, sm, p, cols=None):
+    """(sm·A·(sm·p), ⟨p, sm·A·(sm·p)⟩) — the plain stencil-and-dot phase
+    (with ``cols``, the ELL form's: the gather of ``ops/ell.py``)."""
+    Ap = sm * operator_product(cols)(A, sm * p)
     return Ap, (p.double() * Ap.double()).sum()
 
 
-def stencil_dot_p_reference(A, sm, z, p, beta, first: bool):
+def stencil_dot_p_reference(A, sm, z, p, beta, first: bool, cols=None):
     """The plain version of an iteration's first phase as the kernel fuses
     it: the direction p' = z + β·p (p' = z on a solve's first iteration,
     where p is not read), then :func:`stencil_dot_reference` of p'. Returns
@@ -352,7 +357,7 @@ def stencil_dot_p_reference(A, sm, z, p, beta, first: bool):
     if not first:
         b = torch.as_tensor(float(beta), dtype=torch.float64).to(z.dtype)
         z = z + b * p
-    return (z, *stencil_dot_reference(A, sm, z))
+    return (z, *stencil_dot_reference(A, sm, z, cols))
 
 
 def precond_reference(sm, r, pcr=None, pcr_z=None):
@@ -393,9 +398,16 @@ def _check_line_factors(F, name: str = "pcr", line: str = "r") -> None:
             f"stack from pcr_pack is not this operand)")
 
 
-def _check_forms(pcr, pcr_z, cheb_degree, merged, mgz) -> None:
+def _check_forms(pcr, pcr_z, cheb_degree, merged, mgz, cols=None) -> None:
     """The form checks of the TPU entry point, and the line operands'
-    (``pcr``, ``pcr_z``, the mgz coarse rows' ``pcrc``)."""
+    (``pcr``, ``pcr_z``, the mgz coarse rows' ``pcrc``); the ELL form
+    (``cols``) is preconditioned by nothing, with the standard
+    recurrence."""
+    if cols is not None and (pcr is not None or pcr_z is not None
+                             or cheb_degree or merged or mgz is not None):
+        raise ValueError("the ELL form (cols) has no line, Chebyshev or "
+                         "mgz preconditioner and no merged recurrence: it "
+                         "solves with the identity")
     if pcr is not None:
         _check_line_factors(pcr)
     if pcr_z is not None:
@@ -461,19 +473,21 @@ def cg_tol_reference(A, sm, b, x0, rtol, *, maxiter: int = 4000,
                      rtol_wrt: str = "r0", pcr=None, pcr_z=None,
                      cheb_degree: int = 0, merged: bool | None = None,
                      mgz=None, mgz_sweeps: int = 1, mgz_omega: float = 0.8,
-                     mgz_omega_c: float = 0.8):
+                     mgz_omega_c: float = 0.8, cols=None):
     """Plain PyTorch version of the kernel, in the inputs' dtype: the
     standard PCG recurrence of the TPU kernel (or, with ``merged``, its
     Chronopoulos–Gear recurrence), with its guards (pAp == 0 → 1,
     rz == 0 → 1), its stop rule (while k < maxiter and rr > stop2, rr = ‖r‖²
     when preconditioned and ⟨r, z⟩ otherwise) and x = NaN when rr is not
-    finite. Returns (x, iters) with iters a 0-d int32 tensor."""
+    finite. Returns (x, iters) with iters a 0-d int32 tensor. ``cols``:
+    the ELL form, A the values of ``ops/ell.py``'s gather."""
     _check_rtol_wrt(rtol_wrt)
     if merged is None:
-        merged = MERGED_DEFAULT
-    _check_forms(pcr, pcr_z, cheb_degree, merged, mgz)
+        merged = MERGED_DEFAULT and cols is None
+    _check_forms(pcr, pcr_z, cheb_degree, merged, mgz, cols)
     dtype = b.dtype
-    apply_op = lambda y: sm * apply_stencil(A, sm * y)
+    product = operator_product(cols)
+    apply_op = lambda y: sm * product(A, sm * y)
     precond = _precond_reference(A, sm, pcr, pcr_z, cheb_degree, mgz,
                                  mgz_sweeps, mgz_omega, mgz_omega_c)
     preconditioned = pcr is not None or cheb_degree > 0
@@ -545,12 +559,26 @@ def _require_factors(pcr, pcr_z, nz: int, nr: int, device) -> None:
             _require(F, name, (3, nz, nr), device)
 
 
-def _check_operator(A, sm, device):
+def _check_operator(A, sm, device, cols=None):
+    """(Nz, Nr) of a kernel operand set: a (7|9, Nz, Nr) stencil, or with
+    ``cols`` an ELL operator, its (N, K) float32 values and int32 column
+    ids on a (1, N) grid."""
     nz, nr = sm.shape
+    _require(sm, "sm", (nz, nr), device)
+    if cols is not None:
+        if nz != 1 or A.ndim != 2 or A.shape[0] != nr:
+            raise ValueError(f"the ELL form's A must be (N, K) on a (1, N) "
+                             f"grid, got {tuple(A.shape)} on {(nz, nr)}")
+        _require(A, "A", tuple(A.shape), device)
+        if (cols.dtype != torch.int32 or cols.shape != A.shape
+                or cols.device != device or not cols.is_contiguous()):
+            raise ValueError(f"cols must be contiguous int32 {tuple(A.shape)}"
+                             f" on {device}, got {cols.dtype} "
+                             f"{tuple(cols.shape)} on {cols.device}")
+        return nz, nr
     if A.ndim != 3 or A.shape[0] not in (7, 9):
         raise ValueError(f"A must be (7|9, Nz, Nr), got {tuple(A.shape)}")
     _require(A, "A", (A.shape[0], nz, nr), device)
-    _require(sm, "sm", (nz, nr), device)
     return nz, nr
 
 
@@ -570,15 +598,15 @@ def _mgz_operands(mgz, sweeps: int, nz: int, nr: int, device):
 
 
 def _check_solve(A, sm, *, pcr, pcr_z, cheb_degree: int, merged: bool, mgz,
-                 mgz_sweeps: int, rtol_wrt: str) -> None:
+                 mgz_sweeps: int, rtol_wrt: str, cols=None) -> None:
     """``cg_tol``'s checks of a solve's form and operands (the right-hand
     side and seed aside), for a solve recorded into another graph
     (``ops/cuda_step``)."""
     with span("transient.operands"):
         _check_rtol_wrt(rtol_wrt)
-        _check_forms(pcr, pcr_z, int(cheb_degree), merged, mgz)
+        _check_forms(pcr, pcr_z, int(cheb_degree), merged, mgz, cols)
         dev = sm.device
-        nz, nr = _check_operator(A, sm, dev)
+        nz, nr = _check_operator(A, sm, dev, cols)
         _require_factors(pcr, pcr_z, nz, nr, dev)
         if mgz is not None:
             _mgz_operands(mgz, int(mgz_sweeps), nz, nr, dev)
@@ -595,9 +623,11 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
            pcr_z: torch.Tensor | None = None, cheb_degree: int = 0,
            merged: bool | None = None, mgz: dict | None = None,
            mgz_sweeps: int = 1, mgz_omega: float = 0.8,
-           mgz_omega_c: float = 0.8):
+           mgz_omega_c: float = 0.8, cols: torch.Tensor | None = None):
     """Solve sm·A·sm y = b; returns (x, iters) with iters a 0-d int32
-    tensor on the inputs' device. ``rtol`` is a float or a 0-d tensor (read
+    tensor on the inputs' device. ``cols`` (int32 (N, K)) selects the ELL
+    form: A the (N, K) values of ``ops/ell.py``'s gather, the fields
+    (1, N), preconditioned by nothing. ``rtol`` is a float or a 0-d tensor (read
     on the device, no host sync). ``cheb_degree > 0`` preconditions with the
     Chebyshev polynomial (mutually exclusive with ``pcr``); ``mgz`` (the
     dict of :func:`heatflow_tpu_torch.ops.mgz.mgz_pack` as tensors; needs
@@ -608,29 +638,31 @@ def cg_tol(A: torch.Tensor, sm: torch.Tensor, b: torch.Tensor,
     plain version; CUDA float32 tensors take the kernel."""
     _check_rtol_wrt(rtol_wrt)
     if merged is None:
-        merged = MERGED_DEFAULT
+        merged = MERGED_DEFAULT and cols is None
     cheb_degree = int(cheb_degree)
-    _check_forms(pcr, pcr_z, cheb_degree, merged, mgz)
-    if _on_cpu(A, sm, b, x0, pcr, pcr_z, *_mgz_tensors(mgz)):
+    _check_forms(pcr, pcr_z, cheb_degree, merged, mgz, cols)
+    if _on_cpu(A, sm, b, x0, pcr, pcr_z, cols, *_mgz_tensors(mgz)):
         return cg_tol_reference(A, sm, b, x0, rtol, maxiter=maxiter,
                                 rtol_wrt=rtol_wrt, pcr=pcr, pcr_z=pcr_z,
                                 cheb_degree=cheb_degree, merged=merged,
                                 mgz=mgz, mgz_sweeps=mgz_sweeps,
-                                mgz_omega=mgz_omega, mgz_omega_c=mgz_omega_c)
+                                mgz_omega=mgz_omega, mgz_omega_c=mgz_omega_c,
+                                cols=cols)
     forms = _form_counters(pcr, pcr_z, cheb_degree, merged,
-                           mgz is not None)
+                           mgz is not None, cols is not None)
     return _kernel_solve(A, sm, b, x0, rtol, maxiter=maxiter,
                          rtol_wrt=rtol_wrt, pcr=pcr, pcr_z=pcr_z,
                          cheb_degree=cheb_degree, merged=merged, mgz=mgz,
                          mgz_sweeps=mgz_sweeps, mgz_omega=mgz_omega,
                          mgz_omega_c=mgz_omega_c, poison=True,
-                         count=(cg_tol, forms))
+                         count=(cg_tol, forms), cols=cols)
 
 
 def _form_counters(pcr, pcr_z, cheb_degree: int, merged: bool,
-                   mgz: bool) -> list[str]:
+                   mgz: bool, ell: bool = False) -> list[str]:
     """The ``cg_tol`` counters one solve of the form adds to."""
-    forms = ["launches", "launches_mgz" if mgz else
+    forms = ["launches", "launches_ell" if ell else
+             "launches_mgz" if mgz else
              "launches_adi" if pcr_z is not None else
              "launches_rline" if pcr is not None else
              "launches_cheb" if cheb_degree > 0 else "launches_identity"]
@@ -640,10 +672,10 @@ def _form_counters(pcr, pcr_z, cheb_degree: int, merged: bool,
 
 
 def _form_name(pcr, pcr_z, cheb_degree: int, merged: bool, mgz: bool,
-               mg: bool = False) -> str:
-    """A solve form's name: 'rline', 'adi', 'mgz', 'cheb3', ..., with
-    '_merged' for the merged-dot recurrence."""
-    return ("mg" if mg else "mgz" if mgz else
+               mg: bool = False, ell: bool = False) -> str:
+    """A solve form's name: 'rline', 'adi', 'mgz', 'cheb3', 'ell', ...,
+    with '_merged' for the merged-dot recurrence."""
+    return ("ell" if ell else "mg" if mg else "mgz" if mgz else
             "adi" if pcr_z is not None else "rline" if pcr is not None else
             f"cheb{cheb_degree}" if cheb_degree else "identity") \
         + ("_merged" if merged else "")
@@ -750,7 +782,7 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
                   merged: bool = False, mgz=None, mgz_sweeps: int = 1,
                   mgz_omega: float = 0.8, mgz_omega_c: float = 0.8, mg=None,
                   fixed: bool = False, poison: bool = False,
-                  count=None, what: str = "cg_tol"):
+                  count=None, what: str = "cg_tol", cols=None):
     """One solve through the phase kernels of ``csrc/cg_tol.cu`` on CUDA
     float32 tensors: (x, iters). The solve is one CUDA graph launch: the
     graph is captured once per workspace (see :class:`_Workspace`) and set
@@ -759,10 +791,11 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
     V-cycle preconditioner; ``fixed`` runs ``maxiter`` iterations with the
     stop test off; ``poison`` makes x NaN when the residual is not finite
     (``cg_tol``'s contract); ``count`` (a wrapper function and the names of
-    its launch counts) is counted where the solve is launched."""
+    its launch counts) is counted where the solve is launched; ``cols``
+    the ELL form's column ids."""
     lib = _library()
     dev = b.device
-    nz, nr = _check_operator(A, sm, dev)
+    nz, nr = _check_operator(A, sm, dev, cols)
     _require(b, "b", (nz, nr), dev)
     _require(x0, "x0", (nz, nr), dev)
     _require_factors(pcr, pcr_z, nz, nr, dev)
@@ -774,9 +807,9 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
         raise ValueError("rtol must be a scalar")
 
     form = (pcr is not None, pcr_z is not None, cheb_degree, bool(merged),
-            mgz is not None, mg is not None)
+            mgz is not None, mg is not None, cols is not None)
     name = _form_name(pcr, pcr_z, cheb_degree, merged, mgz is not None,
-                      mg is not None)
+                      mg is not None, cols is not None)
     ws = _workspace(lib, dev, nz, nr, form,
                     lib.hf_cg_extra_planes(cheb_degree, int(merged),
                                            int(mgz is not None)), name)
@@ -789,7 +822,8 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
     if pcr is None and cheb_degree == 0 and mg is None:
         z = r                         # identity form: z aliases r
     desc = None if mg is None else mg(z)
-    args = (_ptr(A), A.shape[0], _ptr(sm), _ptr(ws.b), _ptr(ws.x0),
+    npts = A.shape[0] if cols is None else A.shape[1]
+    args = (_ptr(A), npts, _ptr(sm), _ptr(ws.b), _ptr(ws.x0),
             _ptr(ws.rtol), _ptr(pcr), _ptr(pcr_z), _ptr(ws.x),
             _ptr(r), _ptr(z), _ptr(p), _ptr(Ap), _ptr(ws.parts),
             ws.parts.shape[1], _ptr(ws.state), nz, nr, int(maxiter),
@@ -797,10 +831,11 @@ def _kernel_solve(A, sm, b, x0, rtol, *, maxiter: int, rtol_wrt: str = "r0",
     extra = (_ptr(ws.lmax), cheb_degree, int(merged), _ptr(ac9), _ptr(pcrc),
              _ptr(aux), int(mgz_sweeps), float(mgz_omega),
              float(mgz_omega_c), _ptr(ws.extra),
-             None if desc is None else ctypes.addressof(desc), int(fixed))
+             None if desc is None else ctypes.addressof(desc), int(fixed),
+             _ptr(cols))
     # the descriptor's address changes from call to call, its content
     # (the levels' pointers and coefficients) is what the graph holds
-    key = args + extra[:-2] + (int(fixed), int(poison),
+    key = args + extra[:-3] + (int(fixed), _ptr(cols), int(poison),
                                None if desc is None else bytes(desc))
     graph = ws.graphs.get(key)
     if graph is None:
@@ -1322,6 +1357,35 @@ def stencil_dot_p(A: torch.Tensor, sm: torch.Tensor, z: torch.Tensor,
     st = _state(z.device, **state)
     p_n, Ap, part = _stencil_dot_launch(lib, A, sm, z, p, st)
     return p_n, Ap, part.sum(), _read_state(st)
+
+
+def ell_dot(A: torch.Tensor, cols: torch.Tensor, sm: torch.Tensor,
+            z: torch.Tensor, p: torch.Tensor, state: dict | None = None):
+    """The ELL form's first phase alone (``k_ell_dot``), as a solve runs it
+    on ``state`` (a dict as :func:`finalize_reference` takes; None: a
+    solve's first iteration, no tail): (p' = z + β·p, or z when the count
+    k is 0, Ap = sm·A·(sm·p'), ⟨p', Ap⟩, the state after the alpha tail or
+    None); the inputs are left as they are. A (N, K) values, cols int32,
+    the fields (1, N)."""
+    first = state is None or state.get("k", 0) == 0
+    if _on_cpu(A, cols, sm, z, p):
+        beta = 0.0 if state is None else state.get("beta", 0.0)
+        p_n, Ap, pap = stencil_dot_p_reference(A, sm, z, p, beta, first,
+                                               cols)
+        return p_n, Ap, pap, None if state is None else finalize_reference(
+            state, "alpha", pap=pap)
+    lib = _library()
+    nz, nr = _check_operator(A, sm, z.device, cols)
+    _require(z, "z", (nz, nr), z.device)
+    _require(p, "p", (nz, nr), z.device)
+    st = None if state is None else _state(z.device, **state)
+    p_n, Ap = torch.empty_like(z), torch.empty_like(z)
+    part = torch.zeros((nr + 255) // 256, dtype=torch.float64,
+                       device=z.device)
+    _check(lib.hf_ell_dot(_ptr(A), _ptr(cols), A.shape[1], _ptr(sm), _ptr(z),
+                          _ptr(p), _ptr(p_n), _ptr(Ap), _ptr(part), _ptr(st),
+                          nr, _counts_ptr(), _stream()), "ell_dot")
+    return p_n, Ap, part.sum(), None if st is None else _read_state(st)
 
 
 def precond(sm: torch.Tensor, r: torch.Tensor, pcr: torch.Tensor,

@@ -27,10 +27,13 @@ kernel there; these kernels are the counterparts of those fusions. A step:
 
 Each kernel's plain version below is the step's arithmetic as the eager
 step loop (``sim/stepper.GraphPath._run_eager``) runs it, on any operator
-format. The kernels round each product and sum as the plain versions do
-(``__fmul_rn`` / ``__dadd_rn`` ..., the stencil summed in
-``apply_stencil``'s order), so the planes are bitwise the eager loop's; only
-the two inner products are summed in another (fixed) order.
+format. A workspace with ELL column ids (``cols``: a mesh with no lattice,
+its nodes a 1 × N grid) holds (N, K) operators, which the kernels apply as
+``ops/ell.py``'s gather and the solve as ``cg_tol``'s ELL form. The
+kernels round each product and sum as the plain versions do (``__fmul_rn``
+/ ``__dadd_rn`` ..., the stencil summed in ``apply_stencil``'s order, a
+row's ELL slots in ``ell_apply``'s), so the planes are bitwise the eager
+loop's; only the two inner products are summed in another (fixed) order.
 
 A :class:`StepWorkspace` holds every plane a run reads and writes, so one
 captured graph serves every call of a simulator: the call's operands are
@@ -51,7 +54,7 @@ import torch
 
 from heatflow_tpu_torch.ops import cuda_cg
 from heatflow_tpu_torch.ops.cg import refine_inner_scale, refine_inner_seed
-from heatflow_tpu_torch.ops.stencil import apply_stencil
+from heatflow_tpu_torch.ops.ell import operator_product
 from heatflow_tpu_torch.utils import span
 
 WARM_ORDER = {"previous": 0, "extrapolate": 1, "extrapolate2": 2}
@@ -177,22 +180,28 @@ class StepWorkspace:
     outputs and the step state. ``solve`` holds the solve's form: 'pcr',
     'pcr_z', 'cheb', 'mgz', 'mgz_sweeps', 'merged', 'maxiter',
     'rtol_wrt'. The line operands are ``cuda_cg.rline_pack``'s and
-    ``cuda_cg.zline_pack``'s three factor planes each."""
+    ``cuda_cg.zline_pack``'s three factor planes each. ``cols`` (int32
+    (nz·nr, npts)): the operators are ELL gathers, (nz·nr, npts) values,
+    in place of npts stencil planes."""
 
     def __init__(self, *, device, nz: int, nr: int, npts: int, cdt,
                  num_steps: int, f64_refine: int, carry: bool,
                  warm_start: str, adaptive: bool, thresh, rtol: float,
                  n_watch: int, record_fields: bool, has_src: bool,
-                 solve: dict):
+                 solve: dict, cols: torch.Tensor | None = None):
         f = dict(dtype=cdt, device=device)
         f32 = dict(dtype=torch.float32, device=device)
         self.device, self.nz, self.nr, self.npts = device, nz, nr, npts
+        self.cols = cols
+        # the operator format's product, which the plain versions take
+        self.apply = operator_product(cols)
+        op = (npts, nz, nr) if cols is None else (nz * nr, npts)
         self.cdt, self.num_steps = cdt, num_steps
         self.refine, self.passes = f64_refine > 0, max(1, f64_refine)
         self.carry, self.warm_start = carry, warm_start
         self.adaptive, self.thresh, self.rtol = adaptive, thresh, rtol
         self.solve = solve
-        self.Mop = torch.empty((npts, nz, nr), **f)
+        self.Mop = torch.empty(op, **f)
         self.s, self.free = torch.empty((nz, nr), **f), torch.empty((nz, nr),
                                                                      **f)
         self.g0, self.g1 = torch.empty((nz, nr), **f), torch.empty((nz, nr),
@@ -213,7 +222,7 @@ class StepWorkspace:
                                  device=device)
         # the inner solve: operator, scaling, the r-line and the z-line
         # factors (float32)
-        self.As = torch.empty((npts, nz, nr), **f32)
+        self.As = torch.empty(op, **f32)
         self.sm = torch.empty((nz, nr), **f32)
         self.pcr = torch.empty((3, nz, nr), **f32) if solve["pcr"] else None
         self.pcr_z = torch.empty((3, nz, nr), **f32) if solve["pcr_z"] \
@@ -226,7 +235,7 @@ class StepWorkspace:
         self.iters = torch.zeros(self.passes, dtype=torch.int32,
                                  device=device)
         if self.refine:
-            self.A = torch.empty((npts, nz, nr), **f)
+            self.A = torch.empty(op, **f)
             self.bt = torch.empty((nz, nr), **f)
             self.y = torch.empty((self.passes, nz, nr), **f)
             self.r64 = torch.empty((nz, nr), **f)
@@ -306,7 +315,7 @@ class _StepArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "Mop", "A", "s", "free", "g0", "g1", "Ag0", "Ag1", "src", "amps",
         "ring", "bt", "y0", "y1", "r64", "fields", "watch", "watch_flat",
-        "b32", "x0", "dx0", "dx1", "rtol32", "iters", "cg_iters",
+        "cols", "b32", "x0", "dx0", "dx1", "rtol32", "iters", "cg_iters",
         "part_bt", "part_r", "state")] + [
         ("rtol", ctypes.c_double)] + [
         (name, ctypes.c_ulonglong) for name in (
@@ -331,7 +340,8 @@ def _args(ws: StepWorkspace) -> _StepArgs:
                     ("amps", ws.amps), ("ring", ws.ring), ("bt", ws.bt),
                     ("y0", y[0]), ("y1", y[1]), ("r64", ws.r64),
                     ("fields", ws.fields), ("watch", ws.watch),
-                    ("watch_flat", ws.watch_flat), ("b32", ws.b32),
+                    ("watch_flat", ws.watch_flat), ("cols", ws.cols),
+                    ("b32", ws.b32),
                     ("x0", ws.x0), ("dx0", dx[0]), ("dx1", dx[1]),
                     ("rtol32", ws.rtol32), ("iters", ws.iters),
                     ("cg_iters", ws.cg_iters), ("part_bt", ws.part_bt),
@@ -361,7 +371,7 @@ def step_prologue(ws: StepWorkspace) -> None:
         n = ws.step_index()
         prev, pp, ppp = (ws.ring[(n + k) % 3] for k in (2, 1, 0))
         b_lift, y0 = step_prologue_reference(
-            apply_stencil, ws.Mop, prev, pp, ppp,
+            ws.apply, ws.Mop, prev, pp, ppp,
             0.0 if ws.src is None else ws.src,
             ws.Ag0, ws.Ag1, ws.amps[n], ws.s, ws.free, ws.warm_start)
         bt = b_lift * ws.free
@@ -384,7 +394,7 @@ def refine_residual(ws: StepWorkspace, p: int) -> None:
         dy = ws.dx[p - 1] if p else None
         rn = ws.state[_RNORM + p - 1] if p else None
         y, r64, rnorm, rtol_eff = refine_residual_reference(
-            apply_stencil, ws.A, ws.s, ws.free, ws.bt, ws.y[max(p - 1, 0)],
+            ws.apply, ws.A, ws.s, ws.free, ws.bt, ws.y[max(p - 1, 0)],
             ws.state[_FLOOR2], ws.rtol, torch.float32, dy, rn)
         if p:
             ws.y[p].copy_(y)
@@ -485,7 +495,8 @@ def _desc(lib, ws: StepWorkspace, adi: bool, p: int, k1) -> ctypes.Array:
         _ptr(ws.lmax), int(sv["cheb"]), int(sv["merged"]), _ptr(ac9),
         _ptr(None if mgz is None else mgz["pcrc"]),
         _ptr(None if mgz is None else mgz["aux"]), int(sv["mgz_sweeps"]),
-        0.8, 0.8, _ptr(k1["extra"]), None, 0, buf), "solve_desc")
+        0.8, 0.8, _ptr(k1["extra"]), None, 0, _ptr(ws.cols), buf),
+        "solve_desc")
     return buf
 
 
@@ -523,8 +534,10 @@ def _capture(ws: StepWorkspace) -> _StepGraph:
         for adi in forms:
             form = (ws.pcr, ws.pcr_z if adi else None, sv["cheb"],
                     sv["merged"], sv["mgz"] is not None)
+            ell = ws.cols is not None
             bodies.append(cuda_cg._Recorded(
-                cuda_cg._form_name(*form), cuda_cg._form_counters(*form),
+                cuda_cg._form_name(*form, ell=ell),
+                cuda_cg._form_counters(*form, ell=ell),
                 np.zeros(len(cuda_cg.PHASES), dtype=np.int64),
                 np.zeros(len(cuda_cg.PHASES), dtype=np.int64)))
         P = ctypes.c_void_p
@@ -573,7 +586,7 @@ def run_stepwise(ws: StepWorkspace) -> None:
                 maxiter=int(sv["maxiter"]), rtol_wrt=sv["rtol_wrt"],
                 pcr=ws.pcr, pcr_z=ws.pcr_z if adi else None,
                 cheb_degree=sv["cheb"], merged=sv["merged"], mgz=sv["mgz"],
-                mgz_sweeps=sv["mgz_sweeps"])
+                mgz_sweeps=sv["mgz_sweeps"], cols=ws.cols)
             ws.dx[p].copy_(x)
             ws.iters[p].copy_(its)
         step_epilogue(ws)

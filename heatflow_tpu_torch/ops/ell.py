@@ -10,6 +10,11 @@ is a gather, a multiply and a row sum over the K slots in a fixed order —
 never ``index_add_`` or ``scatter_add_``, whose order the device picks.
 Per-material value arrays keep the sweep's linear combination of operators
 available on the device. Assembly is host-side numpy.
+
+The kernel path (``cuda_cg.cg_tol`` and the transient's step kernels with
+ELL column ids) takes the rows in a locality order, reverse Cuthill–McKee
+(:func:`locality_order`): a gmsh mesh numbers its nodes as its generator
+meets them, and a row's columns then lie far apart in memory.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 
 from heatflow_tpu_torch.ops import p1
-from heatflow_tpu_torch.ops.stencil import material_combine
+from heatflow_tpu_torch.ops.stencil import apply_stencil, material_combine
 
 
 @dataclass
@@ -46,6 +51,35 @@ class EllOps:
                                         device=device),
                 "own": f(own), "K": f(self.K_vals), "M": f(self.M_vals),
                 "G": f(self.G_vals), "Mp": f(self.Mp_vals)}
+
+    def permuted(self, perm: np.ndarray) -> "EllOps":
+        """The operators with the nodes in the order ``perm`` (new row k is
+        old row perm[k]) and the column ids renumbered to match. Each row
+        keeps its slots in their order, so a row's product sums the same
+        terms in the same order: the product in the new order is the old
+        one's, permuted, bit for bit."""
+        perm = np.asarray(perm)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm), dtype=perm.dtype)
+        row = lambda a: None if a is None else np.ascontiguousarray(
+            a[..., perm, :])
+        return EllOps(cols=inv[self.cols[perm]].astype(self.cols.dtype),
+                      K_vals=row(self.K_vals), M_vals=row(self.M_vals),
+                      G_vals=row(self.G_vals), Mp_vals=row(self.Mp_vals),
+                      Kf_vals=row(self.Kf_vals), Mf_vals=row(self.Mf_vals))
+
+
+def locality_order(cols: np.ndarray) -> np.ndarray:
+    """The reverse Cuthill–McKee order of the ELL operator's graph (new row
+    k is node ``order[k]``): neighbouring nodes get nearby rows, so a row's
+    gathers fall on few cache lines."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    n, k = cols.shape
+    graph = csr_matrix((np.ones(n * k, np.int8), cols.ravel(),
+                        np.arange(0, n * k + 1, k)), shape=(n, n))
+    return np.asarray(reverse_cuthill_mckee(graph, symmetric_mode=True),
+                      dtype=np.int64)
 
 
 def _ell_structure(n, rows, cols):
@@ -129,6 +163,22 @@ def ell_apply(cols: torch.Tensor, vals: torch.Tensor, u: torch.Tensor
     for k in range(1, prod.shape[-1]):
         out = out + prod[..., k]
     return out
+
+
+def ell_apply_rows(cols: torch.Tensor, vals: torch.Tensor, v: torch.Tensor
+                   ) -> torch.Tensor:
+    """:func:`ell_apply` on (..., 1, N) fields: a mesh's nodes as the one
+    row of a lattice, the layout of the transient's core planes."""
+    return ell_apply(cols, vals, v[..., 0, :])[..., None, :]
+
+
+def operator_product(cols: torch.Tensor | None):
+    """``apply(C, v)`` of an operator format: the stencil's
+    (``apply_stencil``), or with ELL column ids ``cols`` the gather on
+    (..., 1, N) fields."""
+    if cols is None:
+        return apply_stencil
+    return lambda C, v: ell_apply_rows(cols, C, v)
 
 
 def ell_combine(K_vals, M_vals, kappas, rho_cvs, dt):

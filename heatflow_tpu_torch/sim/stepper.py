@@ -180,9 +180,11 @@ class StencilForm:
     """The operator format of a lattice: 7- or 9-plane stencils
     (..., npts, Nz, Nr) on (..., Nz, Nr) fields. On a z-sharded slab
     (``zax``, a ``parallel.sharding.ZAxis``) a product reads one halo row
-    of each neighbour and the CG's ``dot`` adds the ranks' partial sums."""
+    of each neighbour and the CG's ``dot`` adds the ranks' partial sums.
+    The kernels read the planes as they are (no ELL column ids)."""
 
     combine = staticmethod(combine_operator)
+    cols = None
 
     def __init__(self, zax=None):
         self.halo = None if zax is None else zax.halo
@@ -194,6 +196,11 @@ class StencilForm:
     @staticmethod
     def diag(C):
         return C[..., 0, :, :]
+
+    @staticmethod
+    def npts(C) -> int:
+        """The operator's points a row, as the kernels take them."""
+        return C.shape[-3]
 
 
 def _flat(v: torch.Tensor) -> torch.Tensor:
@@ -214,7 +221,8 @@ class GraphPath:
     ``ops/cuda_step``), whose plain version the eager loop is.
 
     The operator format is the module's ``form`` (``apply``, ``diag``,
-    ``combine`` and the CG's ``dot``: :class:`StencilForm`, or the ELL
+    ``combine``, the CG's ``dot``, and for the kernels ``npts`` and
+    ``cols``, the ELL column ids or None: :class:`StencilForm`, or the ELL
     gather's). A subclass supplies the rest: ``_inputs`` (a call's
     arguments as (d, kp, rc, fw, ic, u0, t0, source), fields in the form's
     layout with leading lane dims), ``_eager_solver`` (the solve off the
@@ -310,7 +318,7 @@ class GraphPath:
                   mgz_sweeps=o["mgz_sweeps"])
         return lambda b, y0, rtol, use_adi: cg_tol(
             As, sm, b, y0, rtol, pcr_z=None if use_adi is False else pcr_z,
-            **kw)
+            cols=self.form.cols, **kw)
 
     def _pcg_solver(self, A, s, free, pre=None):
         """The eager PCG (``pcg_fixed`` under ``fixed_iters``) on the scaled
@@ -465,13 +473,14 @@ class GraphPath:
         The inner solve's form and operands pass ``cg_tol``'s checks first
         (its operands float32: ``dtype=torch.float32``)."""
         from heatflow_tpu_torch.ops import cuda_cg, cuda_step
-        o, problem = self.opts, self.problem
+        o, problem, F = self.opts, self.problem, self.form
         A, M_op, s, g0, g1, Ag0, Ag1, b_src, ts, amps = self._operands(
             d, kp, rc, fw, ic, t0, source)
         free = d["free"]
         As, sm, pcr, pcr_z = self._solve_operands(A, s, free)
         adaptive = o["precondition"] == "adaptive"
-        merged = bool(cuda_cg.MERGED_DEFAULT)
+        # the ELL form has the standard recurrence only
+        merged = bool(cuda_cg.MERGED_DEFAULT) and F.cols is None
         solve = dict(pcr=pcr is not None, pcr_z=pcr_z is not None,
                      cheb=0 if adaptive or o["f64_refine"]
                      else o["vmem_cheb_degree"],
@@ -483,13 +492,13 @@ class GraphPath:
                              cheb_degree=solve["cheb"], merged=merged,
                              mgz=solve["mgz"],
                              mgz_sweeps=solve["mgz_sweeps"],
-                             rtol_wrt=solve["rtol_wrt"])
+                             rtol_wrt=solve["rtol_wrt"], cols=F.cols)
         key = (merged, source is not None, u0.device.type)
         ws = self._workspaces.get(key)
         if ws is None:
             nz, nr = u0.shape
             ws = self._workspaces[key] = cuda_step.StepWorkspace(
-                device=u0.device, nz=nz, nr=nr, npts=A.shape[0],
+                device=u0.device, nz=nz, nr=nr, npts=F.npts(A),
                 cdt=self.cdt, num_steps=int(problem.num_steps),
                 f64_refine=o["f64_refine"],
                 carry=o["inner_seed"] == "carry",
@@ -497,7 +506,7 @@ class GraphPath:
                 thresh=o["adaptive_thresh"], rtol=o["rtol"],
                 n_watch=len(d["watch_flat"]) if "watch_flat" in d else 0,
                 record_fields=o["record_fields"],
-                has_src=source is not None, solve=solve)
+                has_src=source is not None, solve=solve, cols=F.cols)
         ws.load(Mop=M_op, s=s, free=free, g0=g0, g1=g1, Ag0=Ag0, Ag1=Ag1,
                 src=None if source is None else b_src, amps=amps,
                 A=A if o["f64_refine"] else None, As=As, sm=sm, pcr=pcr,

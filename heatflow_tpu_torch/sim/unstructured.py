@@ -11,9 +11,12 @@ forms:
     the CUDA kernels (``cuda_cg.cg_tol`` for a transient, the batched
     ``cuda_sweep`` kernels for a sweep) or the eager stencil PCG; vectors
     are in node order at the API boundary and in lattice order inside;
-  * any other mesh runs through the ELL gather (``ops/ell.py``) and the
-    eager PCG. Its fields are (..., 1, N): the PCG's per-lane sums run
-    over the last two dims, as for a lattice.
+  * any other mesh (an imported gmsh ``.msh``) runs through the ELL gather
+    (``ops/ell.py``): its fields are (..., 1, N), so the PCG's per-lane sums
+    run over the last two dims, as for a lattice. Its kernel path
+    (``solver='vmem'``, Jacobi only: there are no lines) takes the nodes in
+    reverse Cuthill–McKee order (``ell.locality_order``) and solves through
+    ``cg_tol``'s ELL form; else the eager PCG, in node order.
 
 The transient is the structured stepper's own step loop
 (``sim/stepper.GraphPath``) on the form of the mesh's layout
@@ -38,7 +41,8 @@ from torch import nn
 from heatflow_tpu_torch.mesh.msh_io import UnstructuredMesh
 from heatflow_tpu_torch.ops.cg import pcg, pcg_solve
 from heatflow_tpu_torch.ops.ell import (EllOps, assemble_ell, ell_apply,
-                                        ell_combine, ell_diag)
+                                        ell_apply_rows, ell_combine, ell_diag,
+                                        locality_order)
 from heatflow_tpu_torch.ops.stencil import combine_operator, material_combine
 from heatflow_tpu_torch.sim.bc import HeatingCurve, node_row_mask
 from heatflow_tpu_torch.sim.problem import (BAND_RMAX, BIN_DZ, RadialSampling,
@@ -164,57 +168,79 @@ def _overlay_prep(problem: ProblemUnstructured):
 
 
 def auto_selects_vmem(mesh, dtype: torch.dtype, device="cuda") -> bool:
-    """Would ``solver='auto'`` pick the grid-overlay kernel path for this
-    mesh? The rule of ``stepper._resolve_solver``: a CUDA device, float32
-    and a grid overlay. The CUDA kernels hold no operand in on-chip memory
-    across a solve, so unlike the JAX package's TPU kernels they have no
-    size limit to check, whatever the preconditioner. Drivers resolve
-    engine-dependent defaults (whether a defaulted 'rline' is available)
-    with it before building the simulate function."""
-    return (getattr(mesh, "grid_overlay", None) is not None
-            and torch.device(device).type == "cuda"
-            and dtype == torch.float32)
+    """Would ``solver='auto'`` pick the kernel path for a transient on this
+    mesh? The rule of ``stepper._resolve_solver``: a CUDA device and
+    float32, on the overlay's lattice or, for a mesh without overlay, on
+    the ELL gather (where only 'jacobi' runs: there are no lines). The CUDA
+    kernels hold no operand in on-chip memory across a solve, so unlike the
+    JAX package's TPU kernels they have no size limit to check, whatever
+    the preconditioner. Every mesh has a kernel path: ``mesh`` is taken as
+    the JAX package's function takes it, and the drivers pass it."""
+    return torch.device(device).type == "cuda" and dtype == torch.float32
 
 
 def sweep_auto_selects_vmem(mesh, dtype: torch.dtype, device="cuda") -> bool:
     """Would ``solver='auto'`` pick the overlay kernel path (the batched
-    K2/K3 kernels) for a SWEEP on this mesh? The same rule as
-    :func:`auto_selects_vmem`: the batched kernels have no size limit
-    either."""
-    return auto_selects_vmem(mesh, dtype, device)
+    K2/K3 kernels) for a SWEEP on this mesh? A CUDA device, float32 and a
+    grid overlay: the batched kernels are stencil-form only (no size limit
+    either)."""
+    return (getattr(mesh, "grid_overlay", None) is not None
+            and auto_selects_vmem(mesh, dtype, device))
+
+
+def _ell_order(problem: ProblemUnstructured):
+    """(order, position, ell) of the kernel path on a mesh without overlay:
+    the reverse Cuthill–McKee order (core row k is node ``order[k]``), its
+    inverse (node → core row) and the ELL operators in that order, built
+    once a problem (cached on it)."""
+    cached = problem.extras.get("_ell_order")
+    if cached is None:
+        order = locality_order(problem.ell.cols)
+        cached = problem.extras["_ell_order"] = (
+            order, np.argsort(order), problem.ell.permuted(order))
+    return cached
 
 
 class EllForm:
     """The operator format of a mesh on the ELL gather: (..., 1, N) node
     fields, so that the PCG's per-lane sums run over the last two dims as
-    on a lattice."""
+    on a lattice. ``index`` gathers on the eager path (int64); ``cols``,
+    the same ids in int32, is what the kernels read (None off the kernel
+    path)."""
 
     combine = staticmethod(ell_combine)
     dot = None
 
-    def __init__(self, cols: torch.Tensor):
-        self.cols = cols
+    def __init__(self, index: torch.Tensor, kernels: bool):
+        self.index = index
+        self.cols = index.to(torch.int32).contiguous() if kernels else None
 
     def apply(self, C, v):
-        return ell_apply(self.cols, C, v[..., 0, :])[..., None, :]
+        return ell_apply_rows(self.index, C, v)
 
     def diag(self, C):
-        return ell_diag(self.cols, C)[..., None, :]
+        return ell_diag(self.index, C)[..., None, :]
+
+    @staticmethod
+    def npts(C) -> int:
+        return C.shape[-1]
 
 
 class SimulatorUnstructured(GraphPath, nn.Module):
     """``simulate(kappas, rho_cvs, fwhm, u0, t0, source) -> dict`` of
     per-step traces on an unstructured problem; the buffers are the
     problem's device tensors in the core layout (the overlay's lattice, or
-    (1, N) nodes). ``kappas`` (..., n_mats) and ``fwhm`` (...) with leading
-    batch dims run that many lanes together (``u0`` then (..., N)); traces
-    come back as (..., S, ·), fields in node order.
+    (1, N) nodes, on the kernel path in reverse Cuthill–McKee order).
+    ``kappas`` (..., n_mats) and ``fwhm`` (...) with leading batch dims run
+    that many lanes together (``u0`` then (..., N)); traces come back as
+    (..., S, ·), fields in node order.
 
     The structured stepper's code runs it (:class:`stepper.GraphPath`, on
-    the form of its core layout): on a CUDA device the overlay's kernel
-    path runs a one-lane transient without gradient recording as one CUDA
-    graph launch (``ops/cuda_step``, with 9 planes and the watchers at
-    their lattice positions); everything else runs the eager step loop."""
+    the form of its core layout): on a CUDA device the kernel path runs a
+    one-lane transient without gradient recording as one CUDA graph launch
+    (``ops/cuda_step``, with the overlay's 9 planes or the ELL gather, the
+    watchers at their core positions); everything else runs the eager step
+    loop."""
 
     def __init__(self, problem: ProblemUnstructured,
                  dev: dict[str, torch.Tensor], *, dtype: torch.dtype,
@@ -226,9 +252,12 @@ class SimulatorUnstructured(GraphPath, nn.Module):
         self.dtype, self.cdt = dtype, cdt
         self.use_vmem = use_vmem
         self.overlay = overlay
+        # core order is not node order: gathers at the edges of a call
+        self.reordered = "to_core" in dev
         self.shape = shape
         self.opts = opts
-        self.form = StencilForm() if overlay else EllForm(self.cols)
+        self.form = StencilForm() if overlay else EllForm(self.cols,
+                                                           use_vmem)
         # the graph path's state (``stepper.GraphPath``): no mgz operands,
         # the step workspaces by key
         self.mg = None
@@ -248,10 +277,10 @@ class SimulatorUnstructured(GraphPath, nn.Module):
                          dtype=cdt, device=device)
               if u0 is None else as_c(u0))
         src = None if source is None else as_c(source)
-        if self.overlay:
+        if self.reordered:
             with span("transient.reorder"):
-                u0 = u0[..., self.to_latt]
-                src = None if src is None else src[..., self.to_latt]
+                u0 = u0[..., self.to_core]
+                src = None if src is None else src[..., self.to_core]
         core = lambda v: v.reshape(*v.shape[:-1], *self.shape)
         return (self.dev, kp, rc, fw, as_c(p.ic_temp), core(u0), as_c(t0),
                 None if src is None else core(src))
@@ -263,7 +292,7 @@ class SimulatorUnstructured(GraphPath, nn.Module):
             with torch.set_grad_enabled(torch.is_grad_enabled()
                                         and self.opts["differentiable"]):
                 ys = self._run(*args)
-            if self.overlay:
+            if self.reordered:
                 with span("transient.reorder"):
                     ys["final_u"] = ys["final_u"][..., self.to_node]
                     if "field" in ys:
@@ -271,9 +300,10 @@ class SimulatorUnstructured(GraphPath, nn.Module):
             return ys
 
     def _run(self, d, kp, rc, fw, ic, u0, t0, source):
-        """One CUDA graph (:meth:`_run_lattice`) for a one-lane call of the
-        overlay's kernel path on a CUDA device without gradient recording;
-        the eager step loop otherwise."""
+        """One CUDA graph (:meth:`_run_lattice`, on the overlay's lattice or
+        the ELL gather) for a one-lane call of the kernel path on a CUDA
+        device without gradient recording; the eager step loop
+        otherwise."""
         o = self.opts
         if (self.use_vmem and u0.device.type == "cuda" and u0.ndim == 2
                 and kp.ndim == 1 and rc.ndim == 1 and fw.ndim == 0
@@ -287,7 +317,7 @@ class SimulatorUnstructured(GraphPath, nn.Module):
                 "r-line/ADI switch; use 'rline' or 'adi' here")
         return self._run_eager(d, kp, rc, fw, ic, u0, t0, source)
 
-    # the overlay's transient as one device program
+    # the kernel path's transient as one device program
     _run_lattice = GraphPath._run_graph
 
     def _eager_solver(self, kp, rc, A, s, free):
@@ -328,16 +358,17 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
     ``stepper.make_simulate_fn`` (parameter overrides default to the
     problem's values; leading batch dims of the coefficients run lanes).
 
-    ``solver='vmem'`` (grid-overlay meshes only): each step's solve through
-    the ``cg_tol`` kernel on the 9-plane lattice operator (its plain version
-    for CPU tensors; float32 on a card), 'jacobi' the scaled identity,
-    'rline' and 'adi' the line factors packed once per transient. 'auto': that
-    path for a grid overlay in float32 on a CUDA device
-    (:func:`auto_selects_vmem`), else 'xla': the eager PCG on the overlay's
-    stencils, or on the ELL gather for a mesh without overlay. On a CUDA
-    device that path runs a one-lane transient without gradient recording
-    as one CUDA graph launch (the structured stepper's ``ops/cuda_step``
-    graph on the 9-plane lattice), the host reading nothing between steps.
+    ``solver='vmem'``: each step's solve through the ``cg_tol`` kernel (its
+    plain version for CPU tensors; float32 on a card): on a grid overlay's
+    9-plane lattice operator, 'jacobi' the scaled identity, 'rline' and
+    'adi' the line factors packed once per transient; on a mesh without
+    overlay, the ELL form with 'jacobi' (there are no lines), the nodes in
+    reverse Cuthill–McKee order. 'auto': that path in float32 on a CUDA
+    device (:func:`auto_selects_vmem`), else 'xla': the eager PCG on the
+    overlay's stencils, or on the ELL gather in node order. On a CUDA
+    device the kernel path runs a one-lane transient without gradient
+    recording as one CUDA graph launch (the structured stepper's
+    ``ops/cuda_step`` graph), the host reading nothing between steps.
 
     ``precondition='adaptive'`` (that graph path only, ``record_gradient``
     off): each step runs the r-line form unless the previous step's
@@ -389,14 +420,17 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
     overlay = getattr(problem.mesh, "grid_overlay", None)
     use_vmem = False
     if solver == "vmem":
-        if overlay is None:
-            raise ValueError("solver='vmem' needs a grid-overlay mesh (the "
-                             "kernels are stencil-form only)")
         if device.type == "cuda" and dtype != torch.float32:
             raise ValueError("the cg_tol kernel is float32-only on a card")
         use_vmem = True
     elif solver == "auto":
         use_vmem = auto_selects_vmem(problem.mesh, dtype, device)
+    if precondition in ("rline", "adi", "adaptive") and use_vmem \
+            and overlay is None:
+        raise ValueError(
+            f"{precondition} preconditioning solves along the lines of a "
+            "grid-overlay lattice; a mesh without overlay runs the kernel "
+            "path on the ELL gather with precondition='jacobi'")
     if precondition in ("rline", "adi", "adaptive") and not use_vmem:
         # the only unstructured line-preconditioned engine is the overlay
         # kernel path; running the eager path here would silently drop the
@@ -428,8 +462,17 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
         remap = lambda v: np.asarray(v)[inv_np].reshape(oshape)
         node_ids = lambda ids: idx_np[np.asarray(ids)]
         ops = {k: f(stn[k]) for k in ("K", "M", "G", "Mp")}
-        dev = dict(to_node=ix(idx_np), to_latt=ix(inv_np))
+        dev = dict(to_node=ix(idx_np), to_core=ix(inv_np))
         shape = oshape
+    elif use_vmem:
+        # the kernel path's rows in their locality order
+        inv_np, idx_np, ell = _ell_order(problem)
+        n = len(nodes)
+        remap = lambda v: np.asarray(v)[inv_np].reshape(1, n)
+        node_ids = lambda ids: idx_np[np.asarray(ids)]
+        ops = ell.to(device, cdt)
+        dev = dict(cols=ops["cols"], to_node=ix(idx_np), to_core=ix(inv_np))
+        shape = (1, n)
     else:
         n = len(nodes)
         remap = lambda v: np.asarray(v).reshape(1, n)

@@ -438,11 +438,28 @@ def test_maker_options(case):
     # 'auto' takes the kernel path only for float32 on a CUDA device
     assert not mk(tp, device="cpu", dtype=torch.float32, solver="auto",
                   rtol=1e-5).use_vmem
+    # a transient takes the kernel path on either form: the overlay's
+    # lattice, or a mesh without overlay on the ELL gather with 'jacobi'
     assert tu.auto_selects_vmem(tp.mesh, torch.float32, device="cuda")
-    assert not tu.auto_selects_vmem(tpe.mesh, torch.float32, device="cuda")
+    assert tu.auto_selects_vmem(tpe.mesh, torch.float32, device="cuda")
+    assert not tu.auto_selects_vmem(tpe.mesh, torch.float64, device="cuda")
+    ell = mk(tpe, device="cpu", dtype=torch.float32, solver="vmem",
+             rtol=1e-5)
+    assert ell.use_vmem and not ell.overlay and ell.form.cols is not None
+    # a sweep's batched kernels are stencil-form only: the overlay's
+    assert tu.sweep_auto_selects_vmem(tp.mesh, torch.float32, device="cuda")
+    assert not tu.sweep_auto_selects_vmem(tpe.mesh, torch.float32,
+                                          device="cuda")
     assert not tu.sweep_auto_selects_vmem(tp.mesh, torch.float64,
                                           device="cuda")
-    for bad, match in ((dict(solver="vmem", problem=tpe), "grid-overlay"),
+    for bad, match in ((dict(solver="vmem", problem=tpe,
+                             precondition="rline"), "grid-overlay"),
+                       (dict(solver="vmem", problem=tpe, precondition="adi",
+                             dtype=torch.float32, f64_refine=1),
+                        "grid-overlay"),
+                       (dict(solver="vmem", problem=tpe,
+                             precondition="adaptive", record_gradient=False),
+                        "grid-overlay"),
                        (dict(precondition="rline"), "kernel path"),
                        (dict(precondition="rline", solver="auto"),
                         "not selected"),
